@@ -1,0 +1,53 @@
+"""The codec's constant tables as tensors on one device.
+
+The numbers come from the JAX package's host modules (``common/rom.py``,
+``ops/deblock.py``), so both packages compute from the same tables:
+``DCT_MATRICES``, ``DST4`` and ``INV_QUANT_SCALES`` (the residual path,
+as ``ops/jx.py`` and ``ops/jx_pallas.py`` use them) and ``TC_TABLE``,
+``BETA_TABLE`` and ``CHROMA_SCALE`` (the in-loop filters, as
+``ops/jx_filters.py`` uses them).
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from thevc_tpu.common import rom
+from thevc_tpu.ops import deblock
+
+
+@dataclass(frozen=True)
+class Tables:
+    dct: dict            # size -> int32 [s, s], rows are basis functions
+    dst4: torch.Tensor   # int32 [4, 4]
+    inv_quant_scales: torch.Tensor   # int32 [6]
+    tc: torch.Tensor     # int32 [54]
+    beta: torch.Tensor   # int32 [52]
+    chroma_scale: torch.Tensor       # int32 [58]
+
+    def basis(self, size: int, use_dst: bool) -> torch.Tensor:
+        """The inverse-transform basis of one TU size class."""
+        return self.dst4 if (use_dst and size == 4) else self.dct[size]
+
+
+@functools.lru_cache(maxsize=None)
+def from_reference(device) -> Tables:
+    """The reference tables as int32 tensors on ``device`` (cached per
+    device: the tables are constants)."""
+    device = torch.device(device)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+
+    return Tables(
+        dct={s: t(rom.DCT_MATRICES[s]) for s in (4, 8, 16, 32)},
+        dst4=t(rom.DST4),
+        inv_quant_scales=t(rom.INV_QUANT_SCALES),
+        tc=t(deblock.TC_TABLE),
+        beta=t(deblock.BETA_TABLE),
+        chroma_scale=t(rom.CHROMA_SCALE),
+    )
