@@ -1,4 +1,5 @@
-"""The hand-written CUDA residual kernel against its plain version, on a
+"""The hand-written CUDA kernels (residual, SATD) against their plain
+versions, and the fast-RD decision pass on CUDA against the CPU, on a
 CUDA card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and
@@ -6,14 +7,20 @@ skips without one.  Run on the GPU machine with
 ``python -m pytest tests/test_torch_kernels.py -m gpu``.
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
-from thevc_tpu_torch.ops import residual_kernel, tq
+from thevc_tpu_torch.encoder import fast_intra
+from thevc_tpu_torch.ops import residual_kernel, satd, satd_kernel, tq
 
+REPO = Path(__file__).resolve().parents[1]
 CASES = [(4, False, 0), (4, True, 0), (8, False, 0), (16, False, 0),
          (32, False, 0), (4, True, 2), (8, False, 2), (32, False, 2)]
 
@@ -79,3 +86,95 @@ def test_kernel_rejects_bad_inputs(cuda):
         residual_kernel.residual(x.cpu(), scale, basis, 2, 12)
     with pytest.raises(RuntimeError):
         residual_kernel.residual(x, scale, basis, 0, 12)   # bad shift
+
+
+SATD_CLASSES = [(4, 0), (8, 0), (16, 0), (32, 0), (64, 0), (8, 2), (64, 2)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 129, 4099])
+@pytest.mark.parametrize("size,bit_inc", SATD_CLASSES)
+def test_satd_kernel_equals_plain(cuda, size, bit_inc, n):
+    from thevc_tpu.encoder.rdcost import calc_had_batched
+    rng = np.random.RandomState(size + bit_inc + n)
+    hi = 256 << bit_inc
+    org = rng.randint(0, hi, (n, size, size)).astype(np.int16)
+    preds = rng.randint(0, hi, (n, 35, size, size)).astype(np.int16)
+    od, pd = torch.from_numpy(org).to(cuda), torch.from_numpy(preds).to(cuda)
+    before = satd_kernel.launches
+    got = satd.satd_blocks(od, pd, bit_inc)
+    torch.cuda.synchronize()
+    assert satd_kernel.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (n, 35)
+    assert torch.equal(got, satd.satd_plain(od, pd, bit_inc))
+    ref = calc_had_batched(org[0], preds[0], bit_inc)
+    assert np.array_equal(got[0].cpu().numpy(), ref)
+
+
+@pytest.mark.gpu
+def test_satd_kernel_rejects_bad_inputs(cuda):
+    org = torch.zeros((3, 8, 8), dtype=torch.int16, device=cuda)
+    preds = torch.zeros((3, 35, 8, 8), dtype=torch.int16, device=cuda)
+    with pytest.raises(TypeError):
+        satd_kernel.satd(org.to(torch.int32), preds, 0)
+    with pytest.raises(ValueError):
+        satd_kernel.satd(org[:2], preds, 0)                   # N differs
+    with pytest.raises(ValueError):
+        satd_kernel.satd(org, preds[:, :, :, :4], 0)          # not square
+    with pytest.raises(ValueError):
+        satd_kernel.satd(org[:, :4, :4], preds[..., :4, :4], 0)  # strided
+    with pytest.raises(ValueError):
+        satd_kernel.satd(org.cpu(), preds, 0)
+    with pytest.raises(ValueError):
+        satd_kernel.satd(org, preds, 31)                      # bit_inc
+    flat = torch.zeros(3 * 35 * 64 + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        satd_kernel.satd(org, flat[1:].view(3, 35, 8, 8), 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size,use_dst,bit_inc", CASES)
+def test_tu_recon_pipeline_on_cuda_equals_plain(cuda, size, use_dst,
+                                                bit_inc):
+    rng = np.random.RandomState(size + 3 * bit_inc)
+    n = 777
+    max_val = (256 << bit_inc) - 1
+    pred = torch.from_numpy(rng.randint(0, max_val + 1, (n, size, size))
+                            .astype(np.int32)).to(cuda)
+    levels = torch.from_numpy(rng.randint(-40000, 40000, (n, size, size))
+                              .astype(np.int32)).to(cuda)
+    qp = torch.from_numpy(rng.randint(0, 52, n).astype(np.int32)).to(cuda)
+    before = residual_kernel.launches
+    got = tq.tu_recon_pipeline(pred, levels, qp, use_dst, bit_inc, max_val)
+    torch.cuda.synchronize()
+    assert residual_kernel.launches == before + 1
+    assert torch.equal(got, tq.tu_recon_pipeline_plain(
+        pred, levels, qp, use_dst, bit_inc, max_val))
+
+
+@pytest.mark.gpu
+def test_decide_frame_cuda_equals_cpu(cuda, tmp_path):
+    from thevc_tpu.encoder.rdcost import chroma_weight, slice_lambda_and_qp
+    from thevc_tpu.ops.transforms import qp_scaled
+    clip = tmp_path / "clip_416x240.yuv"
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_test_clip.py"),
+                    str(clip), "--width", "416", "--height", "240",
+                    "--frames", "1"], check=True, capture_output=True)
+    w, h = 416, 240
+    raw = np.fromfile(clip, np.uint8).astype(np.int16)
+    y = raw[:w * h].reshape(h, w)
+    cb = raw[w * h:w * h * 5 // 4].reshape(h // 2, w // 2)
+    cr = raw[w * h * 5 // 4:].reshape(h // 2, w // 2)
+    for qp in (27, 32, 37):
+        lam, _ = slice_lambda_and_qp(qp, True, 1, 0.57, 0, True, 0)
+        qpc = qp_scaled(qp, False, 0)
+        args = (y, cb, cr, w, h, qp, qpc, qpc, lam, lam ** 0.5,
+                (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 0,
+                255)
+        before = (satd_kernel.launches, residual_kernel.launches)
+        maps_cuda = fast_intra.decide_frame(*args, device=cuda)
+        assert satd_kernel.launches > before[0]
+        assert residual_kernel.launches > before[1]
+        maps_cpu = fast_intra.decide_frame(*args, device="cpu")
+        for a, b in zip(maps_cuda, maps_cpu):
+            assert a.dtype == b.dtype and np.array_equal(a, b)

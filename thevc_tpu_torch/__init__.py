@@ -7,8 +7,8 @@ headers, ``FrameModel``, the native C++ core, digests, YUV I/O, the
 numpy ops) are imported, not copied; every function that ran through
 ``jax`` has a PyTorch twin here.
 
-This package imports ``torch`` and never ``jax``.  Its main path is the
-all-intra Main decode:
+This package imports ``torch`` and never ``jax``.  It has two paths.
+The all-intra Main decode:
 
 1. host CABAC parse (native core, shared);
 2. stage-1 residuals: dequant + inverse DCT/DST per TU size class
@@ -21,6 +21,14 @@ all-intra Main decode:
 
 Entry point: ``python -m thevc_tpu_torch.apps.decoder -b str.bin -o
 rec.yuv [--device cuda]``.
+
+The fast-RD all-intra encode (``--FastRD=1``): the reference encoder
+runs with its open-loop decision pass replaced by the port's
+(``encoder.fast_intra``: 35-mode predictions, the Hadamard SATD sweep in
+``csrc/satd.cu``, a transform RD estimate through ``csrc/residual.cu``,
+the quadtree DP), seamed in by ``encoder.top.device_decisions``.  Entry
+point: ``python -m thevc_tpu_torch.apps.encoder <the reference encoder's
+arguments> --FastRD=1 [--device cuda]``.
 """
 
 __version__ = "0.1.0"

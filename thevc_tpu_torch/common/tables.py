@@ -2,10 +2,11 @@
 
 The numbers come from the JAX package's host modules (``common/rom.py``,
 ``ops/deblock.py``), so both packages compute from the same tables:
-``DCT_MATRICES``, ``DST4`` and ``INV_QUANT_SCALES`` (the residual path,
-as ``ops/jx.py`` and ``ops/jx_pallas.py`` use them) and ``TC_TABLE``,
-``BETA_TABLE`` and ``CHROMA_SCALE`` (the in-loop filters, as
-``ops/jx_filters.py`` uses them).
+``DCT_MATRICES``, ``DST4``, ``INV_QUANT_SCALES`` and ``QUANT_SCALES``
+(the transform and quantiser paths, as ``ops/jx.py`` and
+``ops/jx_pallas.py`` use them), ``TC_TABLE``, ``BETA_TABLE`` and
+``CHROMA_SCALE`` (the in-loop filters, as ``ops/jx_filters.py`` uses
+them), and the Hadamard matrices of the SATD (``encoder/rdcost.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from thevc_tpu.common import rom
+from thevc_tpu.encoder import rdcost
 from thevc_tpu.ops import deblock
 
 
@@ -25,6 +27,8 @@ class Tables:
     dct: dict            # size -> int32 [s, s], rows are basis functions
     dst4: torch.Tensor   # int32 [4, 4]
     inv_quant_scales: torch.Tensor   # int32 [6]
+    quant_scales: torch.Tensor       # int32 [6]
+    hadamard: dict       # 4 / 8 -> int32 [b, b] (Sylvester order)
     tc: torch.Tensor     # int32 [54]
     beta: torch.Tensor   # int32 [52]
     chroma_scale: torch.Tensor       # int32 [58]
@@ -47,6 +51,8 @@ def from_reference(device) -> Tables:
         dct={s: t(rom.DCT_MATRICES[s]) for s in (4, 8, 16, 32)},
         dst4=t(rom.DST4),
         inv_quant_scales=t(rom.INV_QUANT_SCALES),
+        quant_scales=t(rom.QUANT_SCALES),
+        hadamard={4: t(rdcost._H4), 8: t(rdcost._H8)},
         tc=t(deblock.TC_TABLE),
         beta=t(deblock.BETA_TABLE),
         chroma_scale=t(rom.CHROMA_SCALE),

@@ -1,0 +1,602 @@
+"""Fast-RD intra decisions in PyTorch: the decision pass of ``--FastRD=1``.
+
+A port of the device half of ``thevc_tpu/encoder/fast_intra.py``.  For
+one frame, open-loop (reference samples come from the source picture):
+
+1. per luma size class 4..64, every block of the frame at once: the
+   reference lines, all 35 intra predictions, the Hadamard SATD of each
+   against the source (``ops.satd``: on a CUDA tensor the hand-written
+   kernel in ``csrc/satd.cu``), the mode-bit estimate, then for the 3
+   best candidates a forward transform + quant + recon RD estimate
+   (``ops.tq``: on a CUDA tensor the residual kernel in
+   ``csrc/residual.cu``);
+2. per size class >= 8, the 5-candidate chroma mode RD;
+3. a bottom-up quadtree DP, expanded to six int8 maps per 4x4 unit.
+
+The maps feed the reference encoder's native apply pass
+(``nat.set_fd``), which writes a conformant stream.  The host-only parts
+(the static prediction plans, the mode-bit classes, ``SIZES``,
+``DM_CHROMA_IDX``) are imported from the reference module, not copied.
+
+Only the reference's unified all-modes form of the size pass is ported
+(its per-mode form exists for XLA:CPU compile times and gives the same
+maps), and the DP has no inter branch: P/B fast-RD is not ported.
+
+Float order.  The decisions rank candidates by float32 costs, so the
+port fixes its own order of float operations, and its CPU and CUDA forms
+decide identically:
+
+- the per-level bit cost is a float32 table evaluated once in numpy and
+  indexed by ``|level|`` (no ``log2`` on two backends);
+- bit sums accumulate in float64, where they are exact (the table's
+  values are multiples of 2^-23 below 2^5), and round to float32 once;
+- the per-frame scalars are float32 tensors, and every ``a + b * c`` is
+  two separate eager ops (no fused multiply-add);
+- the top-3 candidates come from a stable ascending sort, so ties keep
+  index order as ``jax.lax.top_k`` does; ``argmin`` takes the first
+  minimum on both backends.
+
+Against the JAX package the integer stages are exact and the float
+costs agree to a few float32 ulps (XLA's ``log2``, its sum order and its
+fused multiply-adds differ from torch's), so the maps agree on at least
+99.9% of units (on every test frame so far, on all of them); see
+``tests/test_torch_fast_intra.py``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from thevc_tpu.encoder.fast_intra import (DM_CHROMA_IDX, SIZES,
+                                          _unified_plan)
+from thevc_tpu.ops.intra import (DC_IDX, HOR_IDX, INTRA_FILTER_THRESH,
+                                 PLANAR_IDX, VER_IDX)
+
+from ..ops import device as dev_stats
+from ..ops import tq
+from ..ops.satd import satd_blocks
+
+# per-CU header-bit constants of the DP (fast_intra.py:608-610)
+_CU_BITS = 5.0
+_SPLIT_BITS = 1.0
+_NXN_BITS = 3.0
+_TOP_K = 3
+
+
+def _level_bits_table() -> np.ndarray:
+    """float32 bits of one coefficient level by |level| in 0..32768:
+    0 for a zero level, else 1.7 + 2 * log2(|level| + 1), in float32 as
+    ``_coeff_bits_est`` (fast_intra.py:326) computes it."""
+    k = np.arange(32769, dtype=np.float32)
+    bits = np.float32(1.7) + np.float32(2.0) * np.log2(k + np.float32(1.0))
+    bits[0] = 0.0
+    return bits.astype(np.float32)
+
+
+_LEVEL_BITS = _level_bits_table()
+
+
+@functools.lru_cache(maxsize=None)
+def _level_bits(device: torch.device) -> torch.Tensor:
+    """The level-bit table on ``device``."""
+    return torch.from_numpy(_LEVEL_BITS).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_tensors(size: int, luma: bool, device: torch.device):
+    """A size class's unified angular plan (idx_a, idx_b, frac) on
+    ``device``."""
+    idx_a, idx_b, frac = _unified_plan(size, luma)
+    return (torch.from_numpy(idx_a).long().to(device),
+            torch.from_numpy(idx_b).long().to(device),
+            torch.from_numpy(frac).to(device))
+
+
+def _predict_all_angular(ra, rl, ra_f, rl_f, size: int, max_val: int,
+                         luma: bool = True):
+    """All 33 angular modes for a block batch in one gather: reference
+    lines [N, 2s+1] x4 -> int32 [N, 33, s, s] (modes 2..34).  Chroma
+    (``luma=False``) reads unfiltered lines and skips the mode 10/26 edge
+    filter."""
+    idx_a, idx_b, frac = _plan_tensors(size, luma, ra.device)
+    if luma:
+        c = torch.cat([rl, ra[:, 1:], rl_f, ra_f[:, 1:]], dim=1)
+    else:
+        c = torch.cat([rl, ra[:, 1:]], dim=1)
+    pred = ((32 - frac) * c[:, idx_a] + frac * c[:, idx_b] + 16) >> 5
+    if not luma:
+        return pred
+    s = size
+    # pure-copy modes get the edge boundary filter (xPredIntraAng :268)
+    d26 = (rl[:, 1:s + 1] - rl[:, 0:1]) >> 1
+    pred[:, 26 - 2, :, 0] = (pred[:, 26 - 2, :, 0] + d26).clamp(0, max_val)
+    d10 = (ra[:, 1:s + 1] - ra[:, 0:1]) >> 1
+    pred[:, 10 - 2, 0, :] = (pred[:, 10 - 2, 0, :] + d10).clamp(0, max_val)
+    return pred
+
+
+def _predict_mode(ra, rl, size: int, mode: int, max_val: int,
+                  luma: bool = True):
+    """Planar or DC for a whole block batch: ra/rl [N, 2s+1] -> int32
+    [N, s, s] (the angular modes go through ``_predict_all_angular``)."""
+    n = ra.shape[0]
+    dev = ra.device
+    if mode == PLANAR_IDX:
+        log2 = size.bit_length() - 1
+        top = ra[:, 1:size + 2]
+        left = rl[:, 1:size + 2]
+        bottom = left[:, size][:, None] - top[:, :size]
+        right = top[:, size][:, None] - left[:, :size]
+        kk = torch.arange(1, size + 1, dtype=torch.int32, device=dev)
+        hor = ((left[:, :size, None] << log2) + size
+               + kk[None, None, :] * right[:, :size, None])
+        ver = ((top[:, None, :size] << log2)
+               + kk[None, :, None] * bottom[:, None, :size])
+        return (hor + ver) >> (log2 + 1)
+    if mode != DC_IDX:
+        raise ValueError(f"mode {mode}: angular modes are predicted by "
+                         "_predict_all_angular")
+    s_sum = ra[:, 1:size + 1].sum(dim=1) + rl[:, 1:size + 1].sum(dim=1)
+    dc = ((s_sum + size) // (2 * size)).to(torch.int32)
+    pred = dc[:, None, None].expand(n, size, size).clone()
+    if not luma:
+        return pred
+    # xDCPredFiltering (luma only)
+    top = ra[:, 1:size + 1]
+    left = rl[:, 1:size + 1]
+    c00 = (top[:, 0] + left[:, 0] + 2 * dc + 2) >> 2
+    pred[:, 0, :] = (top + 3 * dc[:, None] + 2) >> 2
+    pred[:, :, 0] = (left + 3 * dc[:, None] + 2) >> 2
+    pred[:, 0, 0] = c00
+    return pred
+
+
+def _mpm_vec(left, above):
+    """Vectorised getIntraDirLumaPredictor (TComDataCU.cpp:1928): the
+    three most probable modes per block, int32."""
+    same = left == above
+    big = left > 1
+    m0_same = torch.where(big, left, PLANAR_IDX)
+    m1_same = torch.where(big, ((left + 29) % 32) + 2, DC_IDX)
+    m2_same = torch.where(big, ((left - 1) % 32) + 2, VER_IDX)
+    both_nz = (left != 0) & (above != 0)
+    third = torch.where(both_nz, PLANAR_IDX,
+                        torch.where(left + above < 2, VER_IDX, DC_IDX))
+    m0 = torch.where(same, m0_same, left)
+    m1 = torch.where(same, m1_same, above)
+    m2 = torch.where(same, m2_same, third.to(left.dtype))
+    return m0.to(torch.int32), m1.to(torch.int32), m2.to(torch.int32)
+
+
+def _coeff_bits_est(levels, size: int):
+    """Coefficient-bit model in whole bits, float32 [N] for levels
+    [N, s, s]: per nonzero level its table cost, 1.5 per coded 4x4
+    subblock above 4x4, and 2 * log2(s) + 1 for the last position; 0.5
+    for an all-zero TU (fast_intra.py:317)."""
+    absl = levels.abs().clamp(max=32768)
+    bits = _level_bits(levels.device)[absl.long()].to(torch.float64).sum(
+        dim=(-2, -1)).to(torch.float32)
+    nz = absl > 0
+    if size > 4:
+        cg_any = nz.reshape(nz.shape[0], size // 4, 4, size // 4, 4).any(
+            dim=4).any(dim=2)
+        bits = bits + 1.5 * cg_any.sum(dim=(1, 2)).to(torch.float32)
+    log2 = size.bit_length() - 1
+    return torch.where(nz.flatten(1).any(dim=1), bits + 2.0 * log2 + 1.0,
+                       0.5)
+
+
+def _quadrants(x, n: int, h: int, t: int):
+    """[n, h*t, h*t] -> [n*h*h, t, t], quadrants in raster order per block."""
+    return (x.reshape(n, h, t, h, t).permute(0, 1, 3, 2, 4)
+            .reshape(h * h * n, t, t))
+
+
+def _tq_rd(org, pred, size: int, qp_scaled, bit_inc: int, max_val: int):
+    """Forward transform + quant + recon RD for one prediction per block
+    of an intra slice (4x4 TUs use the DST): [N, s, s] -> (dist int32
+    [N], bits float32 [N]).  ``qp_scaled`` is a 0-d tensor or one QP per
+    block.  Size 64 evaluates the four 32x32 quadrants (the largest TU is
+    32); size -32 a 32-sized block as 16x16 quadrants (the chroma TUs of
+    a 64 CU)."""
+    n = org.shape[0]
+    org = org.to(torch.int32)
+    pred = pred.to(torch.int32)
+    resi = org - pred
+    if size in (64, -32):
+        s, t = (64, 32) if size == 64 else (32, 16)
+        h = s // t
+        resi, porg, ppred = (_quadrants(x, n, h, t) for x in (resi, org,
+                                                              pred))
+        tsize, nq = t, h * h
+    else:
+        porg, ppred, tsize, nq = org, pred, size, 1
+    qp = qp_scaled.to(torch.int32)
+    if qp.dim():                      # per-block QP, tiled over quadrants
+        qp = qp.repeat_interleave(nq) if nq > 1 else qp
+    else:
+        qp = qp.expand(resi.shape[0])
+    use_dst = tsize == 4
+    coeff = tq.forward_transform(resi, use_dst, bit_inc)
+    levels, _ = tq.quant(coeff, qp, True, bit_inc)
+    bits = _coeff_bits_est(levels, tsize)
+    recon = tq.tu_recon_pipeline(ppred, levels, qp, use_dst, bit_inc,
+                                 max_val)
+    d = (porg - recon).to(torch.int64)
+    dist = (d * d).sum(dim=(-2, -1)) >> (2 * bit_inc)
+    if nq > 1:
+        dist = dist.reshape(n, nq).sum(dim=1)
+        bits = bits.reshape(n, nq).to(torch.float64).sum(dim=1).to(
+            torch.float32)
+    return dist.to(torch.int32), bits
+
+
+def _gather_lines(ppad, s: int, nby: int, nbx: int):
+    """Per-block above/left reference lines from a padded plane (1 row and
+    column of edge padding on top/left, >= 2s on bottom/right):
+    int32 [nby*nbx, 2s+1] each."""
+    dev = ppad.device
+    ys = torch.arange(nby, device=dev) * s
+    xs = torch.arange(nbx, device=dev) * s
+    k = torch.arange(2 * s + 1, device=dev)
+    ra = ppad[ys[:, None, None], xs[None, :, None] + k]
+    rl = ppad[ys[:, None, None] + k, xs[None, :, None]]
+    nb = nby * nbx
+    return (ra.reshape(nb, 2 * s + 1).to(torch.int32),
+            rl.reshape(nb, 2 * s + 1).to(torch.int32))
+
+
+def _blocks(ppad, s: int, nby: int, nbx: int):
+    """The source blocks of one size class: int32 [nby*nbx, s, s]."""
+    o = ppad[1:1 + nby * s, 1:1 + nbx * s]
+    return (o.reshape(nby, s, nbx, s).permute(0, 2, 1, 3)
+            .reshape(nby * nbx, s, s).to(torch.int32))
+
+
+def _smooth(a, other):
+    """The [1 2 1]-filtered reference line (initAdiPattern,
+    TComPattern.cpp:283)."""
+    mid = (a[:, :-2] + 2 * a[:, 1:-1] + a[:, 2:] + 2) >> 2
+    corner = (other[:, 1] + 2 * a[:, 0] + a[:, 1] + 2) >> 2
+    return torch.cat([corner[:, None], mid, a[:, -1:]], dim=1)
+
+
+def _size_pass_impl(ppad, size: int, nby: int, nbx: int, qp_scaled,
+                    sqrt_lam_bits3, bit_inc: int, max_val: int,
+                    ctu_size: int):
+    """One luma size class over the whole frame -> (best mode, dist, bits,
+    second mode, third mode), each [nby, nbx] (bits includes the mode
+    bits, in whole bits)."""
+    s = size
+    dev = ppad.device
+    ra, rl = _gather_lines(ppad, s, nby, nbx)
+    nb = nby * nbx
+    org = _blocks(ppad, s, nby, nbx)
+    ra_f = _smooth(ra, rl)
+    rl_f = _smooth(rl, ra)
+
+    log2 = s.bit_length() - 1
+    filt_pl = (min(abs(PLANAR_IDX - HOR_IDX), abs(PLANAR_IDX - VER_IDX))
+               > INTRA_FILTER_THRESH[log2])
+    pred_pl = _predict_mode(ra_f if filt_pl else ra,
+                            rl_f if filt_pl else rl, s, PLANAR_IDX, max_val)
+    pred_dc = _predict_mode(ra, rl, s, DC_IDX, max_val)
+    pred_ang = _predict_all_angular(ra, rl, ra_f, rl_f, s, max_val)
+    preds_all = torch.cat([pred_pl[:, None], pred_dc[:, None], pred_ang],
+                          dim=1).to(torch.int16)       # [N, 35, s, s]
+    satd_all = satd_blocks(org.to(torch.int16), preds_all, bit_inc)
+
+    # open-loop MPM: the neighbours' SATD-best modes
+    best_a = satd_all.argmin(dim=1).to(torch.int32).reshape(nby, nbx)
+    dc_col = torch.full((nby, 1), DC_IDX, dtype=torch.int32, device=dev)
+    dc_row = torch.full((1, nbx), DC_IDX, dtype=torch.int32, device=dev)
+    left = torch.cat([dc_col, best_a[:, :-1]], dim=1)
+    above = torch.cat([dc_row, best_a[:-1, :]], dim=0)
+    # an above PU outside the current CTU row reads as DC
+    # (TComDataCU.cpp:1931)
+    if s < ctu_size:
+        in_ctu = torch.from_numpy(
+            (np.arange(nby) * s) % ctu_size != 0).to(dev)
+        above = torch.where(in_ctu[:, None], above, DC_IDX)
+    else:
+        above = torch.full_like(above, DC_IDX)
+    m0, m1, m2 = _mpm_vec(left.reshape(-1), above.reshape(-1))
+
+    modes = torch.arange(35, dtype=torch.int32, device=dev)[None, :]
+    (b0, b12, bo), sqrt_lam, lam = sqrt_lam_bits3
+    bits_plain = torch.where(
+        modes == m0[:, None], b0,
+        torch.where((modes == m1[:, None]) | (modes == m2[:, None]), b12,
+                    bo))
+    cost = satd_all.to(torch.float32) + bits_plain * sqrt_lam
+
+    # the top-K SATD+bits candidates go on to an RD estimate
+    # (TEncSearch.cpp:2560-2590); a stable sort keeps tied candidates in
+    # index order, as jax.lax.top_k does
+    k = _TOP_K
+    topk = torch.sort(cost, dim=1, stable=True).indices[:, :k]
+    preds_k = preds_all.gather(
+        1, topk[:, :, None, None].expand(nb, k, s, s))
+    org_k = org[:, None].expand(nb, k, s, s)
+    dist_k, cbits_k = _tq_rd(org_k.reshape(nb * k, s, s),
+                             preds_k.reshape(nb * k, s, s), s, qp_scaled,
+                             bit_inc, max_val)
+    dist_k = dist_k.reshape(nb, k)
+    bits_k = cbits_k.reshape(nb, k) + bits_plain.gather(1, topk)
+    rd_k = dist_k.to(torch.float32) + lam * bits_k
+    sel = rd_k.argmin(dim=1)
+    best = topk.gather(1, sel[:, None])[:, 0]
+    dist = dist_k.gather(1, sel[:, None])[:, 0]
+    bits = bits_k.gather(1, sel[:, None])[:, 0]
+    # runner-up modes, re-evaluated by the apply pass against real
+    # reconstructed neighbours
+    rows = torch.arange(nb, device=dev)
+    rd_masked = rd_k.clone()
+    rd_masked[rows, sel] = float("inf")
+    sel2 = rd_masked.argmin(dim=1)
+    mode2 = topk.gather(1, sel2[:, None])[:, 0]
+    rd_masked[rows, sel2] = float("inf")
+    sel3 = rd_masked.argmin(dim=1)
+    mode3 = topk.gather(1, sel3[:, None])[:, 0]
+    return tuple(v.reshape(nby, nbx) for v in (best, dist, bits, mode2,
+                                               mode3))
+
+
+def _chroma_pass_impl(cbpad, crpad, size: int, nby: int, nbx: int,
+                      luma_best, dm, qp_cb, qp_cr, lam_w_bits2,
+                      bit_inc: int, max_val: int):
+    """The 5-candidate chroma mode RD for luma-size-class ``size`` CUs:
+    {planar, ver, hor, dc} with the luma-duplicate slot replaced by
+    angular 34, plus DM (TEncSearch::estIntraPredChromaQT).  ``dm`` is
+    the DM-reference luma mode per block.  Returns (the stored chroma dir
+    [nby, nbx], the mode value or 36 for DM; the winner's RD cost
+    [nby, nbx] float32).
+
+    The RD estimate treats 4x4 chroma TUs as intra luma ones and uses
+    the DST, as the reference does (fast_intra.py:586, ROADMAP R11),
+    where HM uses the DCT for chroma."""
+    (bits_dm, bits_oth), lam, cw = lam_w_bits2
+    c = size // 2                      # chroma block size (>= 4)
+    nb = nby * nbx
+    dev = cbpad.device
+    dm = dm.reshape(-1).long()
+    luma_best = luma_best.reshape(-1).to(torch.int32)
+    fixed = (PLANAR_IDX, VER_IDX, HOR_IDX, DC_IDX)
+
+    def cands_of(ppad):
+        ra, rl = _gather_lines(ppad, c, nby, nbx)
+        # the full 35-mode stack (chroma: unfiltered refs, no DC/edge
+        # filters)
+        pred_all = torch.cat([
+            _predict_mode(ra, rl, c, PLANAR_IDX, max_val, luma=False)[:, None],
+            _predict_mode(ra, rl, c, DC_IDX, max_val, luma=False)[:, None],
+            _predict_all_angular(ra, rl, ra, rl, c, max_val, luma=False)],
+            dim=1)                                     # [N, 35, c, c]
+        p34 = pred_all[:, 34]
+        outs = [torch.where((luma_best == fm)[:, None, None], p34,
+                            pred_all[:, fm]) for fm in fixed]
+        outs.append(pred_all.gather(
+            1, dm[:, None, None, None].expand(nb, 1, c, c))[:, 0])
+        return torch.stack(outs, dim=1).reshape(nb * 5, c, c)
+
+    def org5(ppad):
+        return _blocks(ppad, c, nby, nbx)[:, None].expand(
+            nb, 5, c, c).reshape(nb * 5, c, c)
+
+    # a 64-CU's chroma transforms at 16 (the luma TU split to 32 is
+    # mandatory, so the chroma tree follows): quadrant transforms
+    tq_size = -32 if c == 32 else c
+    d_cb, b_cb = _tq_rd(org5(cbpad), cands_of(cbpad), tq_size,
+                        qp_cb.expand(nb * 5), bit_inc, max_val)
+    d_cr, b_cr = _tq_rd(org5(crpad), cands_of(crpad), tq_size,
+                        qp_cr.expand(nb * 5), bit_inc, max_val)
+    dist = (d_cb + d_cr).reshape(nb, 5).to(torch.float32)
+    cbits = (b_cb + b_cr).reshape(nb, 5)
+    mbits = torch.stack([bits_oth, bits_oth, bits_oth, bits_oth,
+                         bits_dm])[None, :]
+    cost = cw * dist + lam * (cbits + mbits)
+    sel = cost.argmin(dim=1)
+    best_cost = cost.gather(1, sel[:, None])[:, 0]
+    # the stored direction value per candidate slot
+    vals = [torch.where(luma_best == fm, 34, fm) for fm in fixed]
+    vals.append(torch.full((nb,), DM_CHROMA_IDX, dtype=torch.int32,
+                           device=dev))
+    vals = torch.stack([v.to(torch.int32) for v in vals], dim=1)
+    best_val = vals.gather(1, sel[:, None])[:, 0]
+    return best_val.reshape(nby, nbx), best_cost.reshape(nby, nbx)
+
+
+def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
+               max_sig: int, min_tr_log2: int, ctu_size: int, wp: int,
+               hp: int):
+    """Bottom-up quadtree DP + expansion to 4x4-unit maps (intra slices).
+
+    res[s] = (mode, dist, bits, mode2, mode3) luma per block; cres[s] =
+    (cdir, ccost) for s >= 8; cres8_nxn = the NxN-variant chroma decision
+    at s = 8.  Returns int8 maps [6, hp//4, wp//4]: depth, mode, NxN,
+    chroma dir, second and third mode."""
+    dev = lam.device
+    big = 1e30
+    cost = {}
+    choice = {}
+    min_cu = ctu_size >> max_sig
+
+    def quad_sum(child):
+        return (child[0::2, 0::2] + child[0::2, 1::2]
+                + child[1::2, 0::2] + child[1::2, 1::2])
+
+    for s in SIZES:
+        if s > ctu_size:
+            continue
+        dist, bits = res[s][1], res[s][2]
+        leaf = dist.to(torch.float32) + lam * (bits + _CU_BITS)
+        if s >= 8:
+            leaf = leaf + cres[s][1]
+        nby, nbx = leaf.shape
+        ys = (np.arange(nby) * s)[:, None]
+        xs = (np.arange(nbx) * s)[None, :]
+        crosses = ((ys < height) & (ys + s > height)) | \
+                  ((xs < width) & (xs + s > width))
+        outside = (ys >= height) | (xs >= width)
+        leaf = torch.where(torch.from_numpy(crosses).to(dev), big, leaf)
+        leaf = torch.where(torch.from_numpy(outside).to(dev), 0.0, leaf)
+        if s == 4:
+            cost[4] = leaf
+            continue
+        if s == 8:
+            # NxN partition (not a CU split): add its chroma cost
+            split = quad_sum(cost[4]) + cres8_nxn[1] + lam * _NXN_BITS
+            can = 8 > (1 << min_tr_log2) and 4 >= min_cu
+        else:
+            split = quad_sum(cost[s // 2]) + lam * _SPLIT_BITS
+            can = s > min_cu
+        if can:
+            take = split < leaf
+            cost[s] = torch.where(take, split, leaf)
+            choice[s] = take
+        else:
+            cost[s] = leaf
+            choice[s] = torch.zeros_like(leaf, dtype=torch.bool)
+
+    uw, uh = wp // 4, hp // 4
+
+    def up(a, un):
+        return a.repeat_interleave(un, dim=0).repeat_interleave(un, dim=1)
+
+    def i8(a):
+        return a.to(torch.int8)
+
+    def full(v):
+        return torch.full((uh, uw), v, dtype=torch.int8, device=dev)
+
+    fd_depth, fd_mode, fd_nxn = full(0), full(DC_IDX), full(0)
+    fd_chroma, fd_mode2, fd_mode3 = full(DM_CHROMA_IDX), full(DC_IDX), \
+        full(DC_IDX)
+    top = min(ctu_size, max(SIZES))
+    open_ = torch.ones((hp // top, wp // top), dtype=torch.bool, device=dev)
+    s = top
+    depth = 0
+    while s >= 8:
+        can_descend = (s > min_cu) or (s == 8 and 8 > (1 << min_tr_log2))
+        split_here = (open_ & choice[s]) if can_descend \
+            else torch.zeros_like(open_)
+        lm = up(open_ & ~split_here, s // 4)
+        fd_depth = torch.where(lm, depth, fd_depth)
+        fd_mode = torch.where(lm, up(i8(res[s][0]), s // 4), fd_mode)
+        fd_mode2 = torch.where(lm, up(i8(res[s][3]), s // 4), fd_mode2)
+        fd_mode3 = torch.where(lm, up(i8(res[s][4]), s // 4), fd_mode3)
+        fd_chroma = torch.where(lm, up(i8(cres[s][0]), s // 4), fd_chroma)
+        if s == 8:
+            # a split at 8 is an NxN-PU 8x8 CU, not a CU split: the
+            # per-4x4 modes come from the 4x4 pass
+            nm = up(split_here, 2)
+            fd_depth = torch.where(nm, depth, fd_depth)
+            fd_nxn = torch.where(nm, 1, fd_nxn)
+            fd_mode = torch.where(nm, i8(res[4][0]), fd_mode)
+            fd_mode2 = torch.where(nm, i8(res[4][3]), fd_mode2)
+            fd_mode3 = torch.where(nm, i8(res[4][4]), fd_mode3)
+            fd_chroma = torch.where(nm, up(i8(cres8_nxn[0]), 2), fd_chroma)
+            break
+        open_ = up(split_here, 2)
+        s //= 2
+        depth += 1
+    return torch.stack([fd_depth, fd_mode, fd_nxn, fd_chroma, fd_mode2,
+                        fd_mode3])
+
+
+def _frame_body(py, pcb, pcr, iscal, fscal, wp: int, hp: int, statics,
+                max_sig: int, min_tr_log2: int):
+    """The whole decision problem for one frame: luma size classes,
+    chroma candidates, quadtree DP, unit-map expansion -> int8
+    [6, hp//4, wp//4].  ``iscal`` holds the scaled QPs (luma, Cb, Cr),
+    ``fscal`` the float32 scalars (lambda, sqrt-lambda, the three
+    mode-bit classes, the two chroma-bit classes, the chroma weight)."""
+    width, height, bit_inc, max_val, ctu_size = statics
+    qp_scaled, qp_cb, qp_cr = iscal[0], iscal[1], iscal[2]
+    lam, sqrt_lam = fscal[0], fscal[1]
+    sqrt_lam_bits3 = ((fscal[2], fscal[3], fscal[4]), sqrt_lam, lam)
+    lam_w_bits2 = ((fscal[5], fscal[6]), lam, fscal[7])
+    res = {s: _size_pass_impl(py, s, hp // s, wp // s, qp_scaled,
+                              sqrt_lam_bits3, bit_inc, max_val, ctu_size)
+           for s in SIZES if s <= ctu_size}
+    cres = {s: _chroma_pass_impl(pcb, pcr, s, hp // s, wp // s, res[s][0],
+                                 res[s][0], qp_cb, qp_cr, lam_w_bits2,
+                                 bit_inc, max_val)
+            for s in SIZES if 8 <= s <= ctu_size}
+    # NxN 8x8 variant: DM is part 0's (the top-left 4x4's) mode
+    dm_nxn = res[4][0][0::2, 0::2]
+    cres8_nxn = _chroma_pass_impl(pcb, pcr, 8, hp // 8, wp // 8, dm_nxn,
+                                  dm_nxn, qp_cb, qp_cr, lam_w_bits2,
+                                  bit_inc, max_val)
+    return _dp_expand(res, cres, cres8_nxn, width, height, lam, max_sig,
+                      min_tr_log2, ctu_size, wp, hp)
+
+
+def dispatch_frame(org_y: np.ndarray, org_cb: np.ndarray,
+                   org_cr: np.ndarray, width: int, height: int,
+                   qp_scaled: int, qp_cb: int, qp_cr: int, lambda_: float,
+                   sqrt_lambda: float, bits3: tuple, cbits2: tuple,
+                   max_sig: int, min_tr_log2: int, ctu_size: int = 64,
+                   bit_inc: int = 0, max_val: int = 255, *, device):
+    """Start the decision pass for one frame on ``device``: pad and
+    upload the source planes and queue the work.  Returns a token for
+    ``collect_frame``; on a CUDA device the work runs asynchronously."""
+    device = torch.device(device)
+    pad = ctu_size * 2
+    wp = -(-width // ctu_size) * ctu_size
+    hp = -(-height // ctu_size) * ctu_size
+    wc, hc = width // 2, height // 2
+    planes = (
+        np.pad(org_y, ((1, hp - height + pad), (1, wp - width + pad)),
+               mode="edge"),
+        np.pad(org_cb, ((1, hp // 2 - hc + ctu_size),
+                        (1, wp // 2 - wc + ctu_size)), mode="edge"),
+        np.pad(org_cr, ((1, hp // 2 - hc + ctu_size),
+                        (1, wp // 2 - wc + ctu_size)), mode="edge"))
+    iscal = np.asarray([qp_scaled, qp_cb, qp_cr], np.int32)
+    fscal = np.asarray([lambda_, sqrt_lambda, bits3[0], bits3[1], bits3[2],
+                        cbits2[0], cbits2[1], cbits2[2]], np.float32)
+    host = [np.ascontiguousarray(p, np.int16) for p in planes] + [iscal,
+                                                                  fscal]
+    dev_stats.stat_launch(sum(a.nbytes for a in host))
+    py, pcb, pcr, iscal, fscal = (torch.from_numpy(a).to(device)
+                                  for a in host)
+    statics = (width, height, bit_inc, max_val, ctu_size)
+    out = _frame_body(py.to(torch.int32), pcb.to(torch.int32),
+                      pcr.to(torch.int32), iscal, fscal, wp, hp, statics,
+                      max_sig, min_tr_log2)
+    return out, wp, hp
+
+
+def collect_frame(token):
+    """Finish a dispatched decision pass with one device-to-host copy:
+    (depth, mode, nxn, chroma, mode2, mode3) int8 [hp/4, wp/4] planes,
+    nxn as contiguous uint8, as ``nat.set_fd`` takes them."""
+    out, _, _ = token
+    packed = out.cpu().numpy()
+    dev_stats.stat_d2h(packed.nbytes)
+    fd_depth, fd_mode, fd_nxn, fd_chroma, fd_mode2, fd_mode3 = packed
+    return (fd_depth, fd_mode, np.ascontiguousarray(fd_nxn, np.uint8),
+            fd_chroma, fd_mode2, fd_mode3)
+
+
+def decide_frame(org_y, org_cb, org_cr, width: int, height: int,
+                 qp_scaled: int, qp_cb: int, qp_cr: int,
+                 lambda_: float, sqrt_lambda: float, bits3: tuple,
+                 cbits2: tuple, max_sig: int, min_tr_log2: int,
+                 ctu_size: int = 64, bit_inc: int = 0, max_val: int = 255,
+                 *, device):
+    """Run the decision pass for one frame on ``device`` and return its
+    maps (``collect_frame``).  The positional arguments are those of the
+    reference's ``decide_frame``: source planes (int16), frame size,
+    scaled QPs, lambda and its square root, the intra-dir bit classes
+    (mpm0, mpm12, other), the chroma bit classes (dm, other, chroma
+    weight), the CU depth and the smallest TU size (log2), the CTU size,
+    the bit increment and the largest sample value."""
+    return collect_frame(dispatch_frame(
+        org_y, org_cb, org_cr, width, height, qp_scaled, qp_cb, qp_cr,
+        lambda_, sqrt_lambda, bits3, cbits2, max_sig, min_tr_log2,
+        ctu_size, bit_inc, max_val, device=device))

@@ -1,8 +1,10 @@
-"""Decoder stage 1 in PyTorch: dequant + inverse DCT/DST over TU batches.
+"""Transform and quantiser ops in PyTorch over TU batches.
 
-Counterpart of the decoder half of ``thevc_tpu/ops/jx.py``: ``dequant``
-(:95), ``inverse_transform`` (:78), ``residual_pipeline`` (:147),
-``_unpack_cgs`` (:167) and ``residual_pipeline_packed`` (:184).
+Counterpart of ``thevc_tpu/ops/jx.py``.  The decoder's stage 1:
+``dequant`` (:95), ``inverse_transform`` (:78), ``residual_pipeline``
+(:147), ``_unpack_cgs`` (:167) and ``residual_pipeline_packed`` (:184).
+The encoder's RD estimate: ``forward_transform`` (:61), ``quant``
+(:112), ``recon_add_clip`` (:135) and ``tu_recon_pipeline`` (:194).
 
 ``residual_pipeline`` dispatches on the device of its input: a CUDA
 tensor goes through the hand-written kernel (``ops.residual_kernel``), a
@@ -10,7 +12,10 @@ CPU tensor through the plain version below.  The plain version does the
 two transform passes as float64 products, which are exact here: every
 product and partial sum is below 32 * 90 * 2^15 < 2^53.  It runs on the
 card too (torch has no int32 matrix product on CUDA), and the tests and
-``chip_smoke.py`` hold the kernel against it there.
+``chip_smoke.py`` hold the kernel against it there.  The forward
+transform is float64 too, and exact for every input (so it follows
+``thevc_tpu/ops/transforms.py`` where the JAX version's single-precision
+bound does not hold, at large bit increments).
 """
 
 from __future__ import annotations
@@ -120,3 +125,82 @@ def residual_pipeline_packed(cg_vals: torch.Tensor, cg_idx: torch.Tensor,
     the device, then the same dequant + inverse transform."""
     qcoeff = _unpack_cgs(cg_vals, cg_idx, int(qp.shape[0]), size)
     return residual_pipeline(qcoeff, qp, use_dst, bit_increment)
+
+
+def _fwd_pass(x: torch.Tensor, t: torch.Tensor, shift: int) -> torch.Tensor:
+    """One forward pass: out[k, j] = (sum_n T[k, n] * x[j, n] + add) >>
+    shift, as float64 products (exact: |sum| <= 32 * 90 * 2^22)."""
+    y = torch.einsum("kn,bjn->bkj", t.to(torch.float64),
+                     x.to(torch.float64)).to(torch.int64)
+    return (y + (1 << (shift - 1))) >> shift
+
+
+def forward_transform(block: torch.Tensor, use_dst: bool = False,
+                      bit_increment: int = 0) -> torch.Tensor:
+    """Batched forward 2-D transform [N, s, s] residual -> int32
+    coefficients (xTrMxN: shifts log2(s) - 1 + bit increment, then
+    log2(s) + 6)."""
+    size = block.shape[-1]
+    log2 = size.bit_length() - 1
+    t = from_reference(block.device).basis(size, use_dst)
+    tmp = _fwd_pass(block, t, log2 - 1 + bit_increment)
+    return _fwd_pass(tmp, t, log2 + 6).to(torch.int32)
+
+
+def quant(coeff: torch.Tensor, qp: torch.Tensor, is_intra_slice: bool = True,
+          bit_increment: int = 0):
+    """Batched non-RDOQ quantisation [N, s, s] with per-TU scaled QP [N]
+    -> (levels, delta_u), both int32.
+
+    int32 is enough: |coeff| <= 2^15 and the largest scale is 26214, so
+    |coeff| * scale < 2^30, and the rounding add is below 2^29."""
+    size = coeff.shape[-1]
+    log2 = size.bit_length() - 1
+    qp = qp.to(torch.int32)
+    transform_shift = MAX_TR_DYNAMIC_RANGE - (8 + bit_increment) - log2
+    qb = (QUANT_SHIFT + qp // 6 + transform_shift)[:, None, None]
+    add = torch.bitwise_left_shift(
+        torch.full_like(qb, 171 if is_intra_slice else 85), qb - 9)
+    qscale = from_reference(coeff.device).quant_scales[
+        (qp % 6).long()][:, None, None]
+    c = coeff.to(torch.int32)
+    tmp = c.abs() * qscale
+    level = (tmp + add) >> qb
+    delta_u = (tmp - (level << qb)) >> (qb - 8)
+    level = (torch.sign(c) * level).clamp(-32768, 32767)
+    return level.to(torch.int32), delta_u.to(torch.int32)
+
+
+def recon_add_clip(pred: torch.Tensor, resi: torch.Tensor,
+                   max_val: int) -> torch.Tensor:
+    """clip(pred + resi, 0, max_val) as int32."""
+    return (pred.to(torch.int32) + resi.to(torch.int32)).clamp(0, max_val)
+
+
+def tu_recon_pipeline_plain(pred: torch.Tensor, qcoeff: torch.Tensor,
+                            qp: torch.Tensor, use_dst: bool = False,
+                            bit_increment: int = 0,
+                            max_val: int = 255) -> torch.Tensor:
+    """Dequant -> inverse transform -> add -> clip over a TU batch, plain
+    version on any device -> int32 [N, s, s]."""
+    resi = residual_pipeline_plain(qcoeff, qp, use_dst, bit_increment)
+    return recon_add_clip(pred, resi, max_val)
+
+
+def tu_recon_pipeline(pred: torch.Tensor, qcoeff: torch.Tensor,
+                      qp: torch.Tensor, use_dst: bool = False,
+                      bit_increment: int = 0,
+                      max_val: int = 255) -> torch.Tensor:
+    """Dequant -> inverse transform -> add -> clip over a TU batch
+    -> int32 [N, s, s].
+
+    On a CUDA tensor the dequant and inverse transform run in the
+    residual kernel (``residual_pipeline``); dequant clips the levels to
+    int16 first, so clamping them to int16 for the kernel changes
+    nothing.  On a CPU tensor it runs the plain version."""
+    if qcoeff.device.type == "cpu":
+        return tu_recon_pipeline_plain(pred, qcoeff, qp, use_dst,
+                                       bit_increment, max_val)
+    q16 = qcoeff.clamp(-32768, 32767).to(torch.int16)
+    resi = residual_pipeline(q16, qp, use_dst, bit_increment)
+    return recon_add_clip(pred, resi, max_val)

@@ -1,7 +1,9 @@
-"""Streams for checking the port, made by the reference encoder.
+"""Streams for checking the port, made by an encoder in a child process.
 
-``encode`` runs ``python -m thevc_tpu.apps.encoder`` in a child process.
-Two settings keep that encode from crashing at random:
+``encode`` runs ``python -m thevc_tpu.apps.encoder`` (the reference
+encoder), or another module with the same arguments such as the port's
+``thevc_tpu_torch.apps.encoder``, in a child process.  Two settings keep
+that encode from crashing at random:
 
 - ``THEVC_THREADS=1``: the encoder's serial path (same stream as its
   frame-parallel one);
@@ -30,14 +32,15 @@ MALLOC_TUNABLES = ("glibc.malloc.mmap_threshold=33554432:"
 
 
 def encode(clip, stream, recon, width: int, height: int, frames: int,
-           cfg=INTRA_CFG, extra=()) -> None:
-    """Encode ``frames`` frames of the 4:2:0 ``clip`` into ``stream``,
-    writing the encoder's reconstruction to ``recon``.  Raises
+           cfg=INTRA_CFG, extra=(), module="thevc_tpu.apps.encoder") -> str:
+    """Encode ``frames`` frames of the 4:2:0 ``clip`` into ``stream`` with
+    the encoder CLI ``module``, writing the encoder's reconstruction to
+    ``recon``.  Returns the encoder's standard output.  Raises
     ``RuntimeError``, with the encoder's error output, if it fails."""
     env = dict(os.environ, THEVC_THREADS="1",
                GLIBC_TUNABLES=MALLOC_TUNABLES)
     r = subprocess.run(
-        [sys.executable, "-m", "thevc_tpu.apps.encoder", "-c", str(cfg),
+        [sys.executable, "-m", module, "-c", str(cfg),
          "-i", str(clip), "-b", str(stream), "-o", str(recon),
          "-wdt", str(width), "-hgt", str(height), "-f", str(frames),
          "-fr", "30", "--SEIpictureDigest=1", *extra],
@@ -45,3 +48,4 @@ def encode(clip, stream, recon, width: int, height: int, frames: int,
     if r.returncode != 0:
         raise RuntimeError(f"encoder exited {r.returncode}:\n"
                            f"{r.stderr[-4000:]}")
+    return r.stdout
