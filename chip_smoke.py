@@ -19,11 +19,18 @@ Run from the root of a checkout on a machine with a CUDA card:
    size s against M = 35 candidates, for s = 4, 8, 16, 32, 64 at bit
    increment 0 and s = 8, 64 at bit increment 2, and a ragged N = 4099.
    Tolerance 0; times both.
-5. Decode phase: writes a 1920x1080 8-frame clip
-   (``tools/make_test_clip.py``), encodes it all-intra at QP 32 with SAO
-   and MD5 digest SEI on the exact path (``thevc_tpu.apps.encoder``,
-   ``tests/cfg/encoder_intra_main.cfg``, through ``thevc_tpu_torch.streams``
-   in a child process), then decodes it through the
+5. Streams: writes a 1920x1080 8-frame clip and a 1920x1080 8-frame
+   motion clip (``tools/make_test_clip.py``, seed 1234, the second with
+   ``--style motion``) and a 416x240 9-frame motion clip, then encodes,
+   all at once in child processes (``thevc_tpu_torch.streams``), on the
+   exact path (``thevc_tpu.apps.encoder``) at QP 32 with MD5 digest SEI:
+   the first clip all-intra with SAO
+   (``tests/cfg/encoder_intra_main.cfg``), the second low-delay B with
+   SAO (``tests/cfg/encoder_lowdelay_tlayers.cfg``),
+   the third low-delay P (5 frames) and random access with a GOP of 8
+   (9 frames; ``encoder_lowdelay_P_main.cfg``,
+   ``encoder_randomaccess_main.cfg``).
+   Intra decode phase: decodes the all-intra stream through the
    port's CLI on ``cuda``: one warm-up, then three timed runs (host clock
    ending in ``torch.cuda.synchronize()``; fps from the median).  In every
    run each digest must verify, the recon must be byte-identical to the
@@ -40,7 +47,17 @@ Run from the root of a checkout on a machine with a CUDA card:
 7. CPU against CUDA: a 416x240 2-frame clip encoded with ``--FastRD=1``
    at QP 27 and 37 with ``--device cuda`` and ``--device cpu`` gives
    byte-identical streams.
-8. Prints the kernels' JSON line, then the device JSON line last.
+8. Inter decode phase: decodes the 1080p low-delay B stream through the
+   port's CLI on ``cuda``, one warm-up and three timed runs checked as in
+   5, where the residual kernel (K1) and motion compensation
+   (``ops.mc.mc_batch``) must both have run.  Then one run with stage
+   timing on (a device sync around each stage) for the stage walls per
+   picture, and one that records every ``mc_batch`` call to time the
+   plain-torch MC per class on the card (CUDA events, eager and as one
+   CUDA graph per class).  The 416x240 low-delay P and random-access
+   streams decode on ``cuda`` with every digest OK and recon
+   byte-identical to their encoders'.
+9. Prints the kernels' JSON line, then the device JSON line last.
    ``jax`` must never have been imported.
 
 Exits non-zero, before printing any result, when CUDA is not available
@@ -72,6 +89,10 @@ SATD_MODES = 35
 # the CPU-against-CUDA identity clip
 SMALL_W, SMALL_H, SMALL_FRAMES, SMALL_QPS = 416, 240, 2, (27, 37)
 PORT_ENCODER = "thevc_tpu_torch.apps.encoder"
+CFG = ROOT / "tests" / "cfg"
+# the small inter streams: name -> (frames, cfg)
+SMALL_INTER = {"ldp": (5, CFG / "encoder_lowdelay_P_main.cfg"),
+               "ra": (9, CFG / "encoder_randomaccess_main.cfg")}
 
 
 class SmokeFailure(Exception):
@@ -141,22 +162,51 @@ def kernel_phase(torch, tq, rng_seed: int) -> dict:
     return {"max_abs_err": max_err, "rows": rows}
 
 
-def decode_phase(torch, work: Path) -> dict:
+def prepare_streams(work: Path) -> dict:
+    """Write the clips, then encode every exact-path stream at once, each
+    in its own child process.  Returns {name: (clip, stream, enc_rec,
+    width, height, frames)}."""
     from thevc_tpu_torch import streams
-    from thevc_tpu_torch.ops import device as dev_stats
-    from thevc_tpu_torch.ops import residual_kernel
+    clips = {"intra": (WIDTH, HEIGHT, FRAMES, "default"),
+             "motion": (WIDTH, HEIGHT, FRAMES, "motion"),
+             "small_motion": (SMALL_W, SMALL_H, 9, "motion")}
+    paths = {}
+    for name, (w, h, frames, style) in clips.items():
+        paths[name] = work / f"{name}_{w}x{h}_{frames}f.yuv"
+        make_clip(paths[name], w, h, frames, style)
+    jobs = {"intra_main": ("intra", FRAMES, CFG / "encoder_intra_main.cfg",
+                           ("--SAO=1",)),
+            "inter_ldb": ("motion", FRAMES,
+                          CFG / "encoder_lowdelay_tlayers.cfg", ("--SAO=1",))}
+    for name, (frames, cfg) in SMALL_INTER.items():
+        jobs[name] = ("small_motion", frames, cfg, ())
 
-    clip = work / f"clip_{WIDTH}x{HEIGHT}_{FRAMES}f.yuv"
-    stream = work / "intra_main.bin"
-    enc_rec = work / "intra_main_enc_rec.yuv"
-    dec_rec = work / "intra_main_dec_rec.yuv"
-    make_clip(clip, WIDTH, HEIGHT, FRAMES)
-    t0 = time.perf_counter()
-    streams.encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES,
-                   extra=(f"--QP={QP}", "--SAO=1"))
-    print(f"encode: {FRAMES} frames {WIDTH}x{HEIGHT} QP {QP} in "
-          f"{time.perf_counter() - t0:.3f} s (host), "
-          f"{stream.stat().st_size} bytes")
+    def encode(item):
+        name, (clip, frames, cfg, extra) = item
+        w, h = clips[clip][:2]
+        stream = work / f"{name}.bin"
+        enc_rec = work / f"{name}_enc_rec.yuv"
+        t0 = time.perf_counter()
+        streams.encode(paths[clip], stream, enc_rec, w, h, frames, cfg=cfg,
+                       extra=(f"--QP={QP}", *extra))
+        return name, (paths[clip], stream, enc_rec, w, h, frames,
+                      time.perf_counter() - t0)
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        made = dict(ex.map(encode, jobs.items()))
+    for name, (_c, stream, _r, w, h, frames, wall) in made.items():
+        print(f"encode {name}: {frames} frames {w}x{h} QP {QP} in "
+              f"{wall:.3f} s (host, {len(jobs)} encodes at once), "
+              f"{stream.stat().st_size} bytes")
+    return {k: v[:6] for k, v in made.items()}
+
+
+def timed_decodes(torch, stream: Path, enc_rec: Path, dec_rec: Path,
+                  frames: int, counters: dict) -> dict:
+    """One warm-up decode on ``cuda``, then three timed ones, each checked
+    (digests, recon, every counter of ``counters`` above 0: name ->
+    module whose ``launches`` the run zeroes before and reads after)."""
+    from thevc_tpu_torch.ops import device as dev_stats
 
     def decode():
         t = time.perf_counter()
@@ -166,26 +216,138 @@ def decode_phase(torch, work: Path) -> dict:
     decode()                        # warm-up: first-touch costs
     walls = []
     for _ in range(3):
-        residual_kernel.launches = 0
+        for mod in counters.values():
+            mod.launches = 0
         dev_stats.stats_reset()
         rc, log, wall = decode()
-        launches = residual_kernel.launches
+        launches = {k: mod.launches for k, mod in counters.items()}
         stats = dev_stats.stats_reset()
-        check(rc == 0, f"port decoder exited {rc}:\n{log}")
-        check(log.count("[MD5:(OK)]") == FRAMES and "ERROR" not in log,
-              f"digests not all OK:\n{log}")
-        check(dec_rec.read_bytes() == enc_rec.read_bytes(),
-              "decoded recon differs from the encoder's recon")
-        check(launches > 0, "the decode launched no residual kernel")
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        for k, n in launches.items():
+            check(n > 0, f"the decode of {stream.name} made no {k} launch")
         walls.append(wall)
     wall = sorted(walls)[1]
-    out = dict(frames=FRAMES, wall_s=walls, fps=FRAMES / wall,
-               residual_kernel_launches=launches,
-               device_launches_per_frame=stats["launches"] / FRAMES,
-               h2d_bytes_per_frame=stats["h2d_bytes"] / FRAMES,
-               d2h_bytes_per_frame=stats["d2h_bytes"] / FRAMES)
+    return dict(frames=frames, wall_s=walls, fps=frames / wall,
+                launches=launches,
+                device_launches_per_frame=stats["launches"] / frames,
+                h2d_bytes_per_frame=stats["h2d_bytes"] / frames,
+                d2h_bytes_per_frame=stats["d2h_bytes"] / frames)
+
+
+def check_decode(rc: int, log: str, frames: int, dec_rec: Path,
+                 enc_rec: Path, what: str) -> None:
+    check(rc == 0, f"port decoder exited {rc} on {what}:\n{log}")
+    check(log.count("[MD5:(OK)]") == frames and "ERROR" not in log,
+          f"{what}: digests not all OK:\n{log}")
+    check(dec_rec.read_bytes() == enc_rec.read_bytes(),
+          f"{what}: decoded recon differs from the encoder's recon")
+
+
+def decode_phase(torch, work: Path, made: dict) -> dict:
+    from thevc_tpu_torch.ops import residual_kernel
+    clip, stream, enc_rec = made["intra_main"][:3]
+    res = timed_decodes(torch, stream, enc_rec,
+                        work / "intra_main_dec_rec.yuv", FRAMES,
+                        {"residual": residual_kernel})
+    launches = res.pop("launches")
+    out = dict(res, residual_kernel_launches=launches["residual"])
     print("decode " + json.dumps(out))
     out.update(clip=str(clip), stream=str(stream), enc_rec=str(enc_rec))
+    return out
+
+
+def inter_decode_phase(torch, work: Path, made: dict) -> dict:
+    """The 1080p low-delay B decode on ``cuda``: timed runs, the stage
+    walls per picture, and the plain-torch MC per class."""
+    from thevc_tpu_torch.ops import device as dev_stats
+    from thevc_tpu_torch.ops import mc, residual_kernel
+    _clip, stream, enc_rec = made["inter_ldb"][:3]
+    dec_rec = work / "inter_ldb_dec_rec.yuv"
+    res = timed_decodes(torch, stream, enc_rec, dec_rec, FRAMES,
+                        {"residual": residual_kernel, "mc": mc})
+    print("inter_decode " + json.dumps(res))
+
+    dev_stats.stage_timing(True)
+    try:
+        t = time.perf_counter()
+        rc, log = decode_cuda(torch, stream, dec_rec)
+        staged_wall = time.perf_counter() - t
+    finally:
+        stages = dev_stats.stage_timing(False)
+    check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the staged decode")
+    print("inter_decode_stages " + json.dumps({
+        "wall_s": staged_wall, "stage_ms_per_picture": {
+            k: 1000 * v / FRAMES for k, v in sorted(stages.items())}}))
+    res["mc_classes"] = mc_class_times(torch, stream)
+    return res
+
+
+def mc_class_times(torch, stream: Path) -> list:
+    """Decode ``stream`` on ``cuda`` recording every ``mc_batch`` call,
+    then time the calls of each (component, case, bi) class on the card:
+    CUDA events around the class's calls replayed eagerly (host launch
+    gaps included) and as one CUDA graph (device time)."""
+    from thevc_tpu_torch.decoder.top import Decoder
+    from thevc_tpu_torch.ops import mc
+    calls: dict = {}
+    real = mc.mc_batch
+
+    def record(windows, fx, fy, case, luma, bd, bi, out_h, out_w):
+        calls.setdefault((luma, case, bi), []).append(
+            (windows, fx, fy, case, luma, bd, bi, out_h, out_w))
+        return real(windows, fx, fy, case, luma, bd, bi, out_h, out_w)
+    mc.mc_batch = record
+    try:
+        pics = Decoder("cuda").decode_stream(stream.read_bytes())
+    finally:
+        mc.mc_batch = real
+    check(all(p.digest_ok for p in pics), "the recording decode failed")
+    n_pics = len(pics)
+    rows = []
+    for (luma, case, bi), cl in sorted(calls.items()):
+        def replay(cl=cl):
+            for c in cl:
+                real(*c)
+        eager = time_ms(torch, replay, 5)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            replay()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replay()
+        graph_ms = time_ms(torch, graph.replay, 10)
+        del graph
+        rows.append(dict(
+            comp="luma" if luma else "chroma", case=case, bi=bool(bi),
+            calls=len(cl), pus=sum(int(c[0].shape[0]) for c in cl),
+            eager_ms_per_picture=eager / n_pics,
+            graph_ms_per_picture=graph_ms / n_pics))
+        print("mc_class " + json.dumps(rows[-1]))
+    print("mc_total " + json.dumps({
+        "pictures": n_pics,
+        "eager_ms_per_picture": sum(r["eager_ms_per_picture"] for r in rows),
+        "graph_ms_per_picture": sum(r["graph_ms_per_picture"]
+                                    for r in rows)}))
+    return rows
+
+
+def small_inter_phase(torch, work: Path, made: dict) -> dict:
+    """The 416x240 low-delay P and random-access streams on ``cuda``."""
+    from thevc_tpu_torch.ops import mc, residual_kernel
+    out = {}
+    for name in SMALL_INTER:
+        _clip, stream, enc_rec, _w, _h, frames = made[name]
+        dec_rec = work / f"{name}_dec_rec.yuv"
+        residual_kernel.launches = mc.launches = 0
+        rc, log = decode_cuda(torch, stream, dec_rec)
+        out[name] = {"frames": frames, "residual": residual_kernel.launches,
+                     "mc": mc.launches}
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        check(out[name]["residual"] > 0 and out[name]["mc"] > 0,
+              f"{name}: the decode skipped K1 or MC")
+    print("small_inter " + json.dumps(out))
     return out
 
 
@@ -336,11 +498,13 @@ def identity_phase(work: Path) -> dict:
     return out
 
 
-def make_clip(path: Path, width: int, height: int, frames: int) -> None:
+def make_clip(path: Path, width: int, height: int, frames: int,
+              style: str = "default") -> None:
     subprocess.run([sys.executable, str(ROOT / "tools" / "make_test_clip.py"),
                     str(path), "--width", str(width), "--height",
                     str(height), "--frames", str(frames), "--seed",
-                    str(SEED)], check=True, capture_output=True, timeout=600)
+                    str(SEED), "--style", style], check=True,
+                   capture_output=True, timeout=600)
 
 
 def main() -> int:
@@ -364,13 +528,16 @@ def main() -> int:
         print(build.library_path(k.NAME).with_suffix(".log").read_text()
               .strip())
 
-    kern = kernel_phase(torch, tq, SEED)
-    k2 = satd_phase(torch, satd, SEED)
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    dec = decode_phase(torch, work)
+    made = prepare_streams(work)
+    kern = kernel_phase(torch, tq, SEED)
+    k2 = satd_phase(torch, satd, SEED)
+    dec = decode_phase(torch, work, made)
     fast = fastrd_phase(torch, work, dec)
     identity_phase(work)
+    inter = inter_decode_phase(torch, work, made)
+    small = small_inter_phase(torch, work, made)
     check("jax" not in sys.modules, "jax was imported")
 
     top = next(r for r in kern["rows"] if r["size"] == 32
@@ -378,15 +545,18 @@ def main() -> int:
     # K2's time: one 1080p frame's 35-mode sweep, the five bit_inc 0
     # classes summed
     frame = [r for r in k2["rows"] if r["bit_inc"] == 0]
-    print("launches by path " + json.dumps({
-        "decode": {"residual": dec["residual_kernel_launches"]},
+    by_path = {
+        "intra_decode": {"residual": dec["residual_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
-                          "satd": fast["satd_launches"]}}))
+                          "satd": fast["satd_launches"]},
+        "inter_decode": inter["launches"],
+        **{f"inter_decode_{k}": v for k, v in small.items()}}
+    print("launches by path " + json.dumps(by_path))
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/residual.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
-        "launches": fast["residual_launches"],
+        "launches": sum(p.get("residual", 0) for p in by_path.values()),
         "max_abs_err": kern["max_abs_err"],
         "ms": top["ms"], "plain_ms": top["plain_ms"]}, {
         "name": "satd", "route": "cuda",

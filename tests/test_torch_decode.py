@@ -120,16 +120,6 @@ def test_port_never_imports_jax(intra_streams):
     assert "NO_JAX_OK" in r.stdout
 
 
-def test_inter_stream_raises(test_clip, tmp_path):
-    bin_path = tmp_path / "ldp.bin"
-    streams.encode(test_clip, bin_path, tmp_path / "ldp_rec.yuv", 416, 240,
-                   3, cfg=REPO / "tests" / "cfg"
-                   / "encoder_lowdelay_tlayers.cfg")
-    dec = port_top.Decoder("cpu")
-    with pytest.raises(NotImplementedError, match="inter"):
-        dec.decode_stream(bin_path.read_bytes())
-
-
 def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (residual, SATD) against their plain
-versions, and the fast-RD decision pass on CUDA against the CPU, on a
-CUDA card.
+versions, the fast-RD decision pass, motion compensation and the P/B
+decode on CUDA against the CPU, on a CUDA card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and
 skips without one.  Run on the GPU machine with
@@ -18,7 +18,7 @@ import torch
 from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
 from thevc_tpu_torch.encoder import fast_intra
-from thevc_tpu_torch.ops import residual_kernel, satd, satd_kernel, tq
+from thevc_tpu_torch.ops import mc, residual_kernel, satd, satd_kernel, tq
 
 REPO = Path(__file__).resolve().parents[1]
 CASES = [(4, False, 0), (4, True, 0), (8, False, 0), (16, False, 0),
@@ -178,3 +178,62 @@ def test_decide_frame_cuda_equals_cpu(cuda, tmp_path):
         maps_cpu = fast_intra.decide_frame(*args, device="cpu")
         for a, b in zip(maps_cuda, maps_cpu):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bi", [False, True])
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("case", mc.CASES)
+def test_mc_batch_cuda_equals_cpu(cuda, case, luma, bi, bd):
+    rng = np.random.RandomState(mc.CASES.index(case) + 4 * luma + 8 * bi
+                                + 16 * bd)
+    top = 4 if luma else 8
+    sizes = [(8, 8), (16, 16), (64, 64), (4, 16), (16, 4)] if luma \
+        else [(4, 2), (2, 4), (32, 32)]
+    for h, w in sizes:
+        n = 1031
+        rows, cols = mc.window_shape(case, luma, h, w)
+        win = rng.randint(0, 1 << bd, (n, rows, cols)).astype(np.int16)
+        fx = rng.randint(1, top, n) * (case in ("hor", "2d"))
+        fy = rng.randint(1, top, n) * (case in ("ver", "2d"))
+        args = [torch.from_numpy(a) for a in (win, fx.astype(np.int32),
+                                              fy.astype(np.int32))]
+        got = mc.mc_batch(*(a.to(cuda) for a in args), case, luma, bd, bi,
+                          h, w)
+        want = mc.mc_batch(*args, case, luma, bd, bi, h, w)
+        assert got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want), (h, w)
+        if bi:
+            other = mc.mc_batch(*args, case, luma, bd, bi, h, w).flip(0)
+            assert torch.equal(
+                mc.bi_avg_batch(got, other.to(cuda), bd).cpu(),
+                mc.bi_avg_batch(want, other, bd))
+
+
+@pytest.mark.gpu
+def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
+    from thevc_tpu import native
+    from thevc_tpu_torch import streams
+    from thevc_tpu_torch.decoder.top import Decoder
+    assert native.get_lib() is not None
+    clip = tmp_path / "motion_416x240.yuv"
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_test_clip.py"),
+                    str(clip), "--width", "416", "--height", "240",
+                    "--frames", "5", "--seed", "1234", "--style", "motion"],
+                   check=True, capture_output=True)
+    stream = tmp_path / "ldb.bin"
+    streams.encode(clip, stream, tmp_path / "ldb_rec.yuv", 416, 240, 5,
+                   cfg=REPO / "tests" / "cfg" / "encoder_lowdelay_tlayers.cfg",
+                   extra=("--QP=32",))
+    data = stream.read_bytes()
+    before = residual_kernel.launches
+    mc.launches = 0
+    pics_cuda = Decoder(cuda).decode_stream(data)
+    assert residual_kernel.launches > before and mc.launches > 0
+    pics_cpu = Decoder("cpu").decode_stream(data)
+    assert len(pics_cuda) == len(pics_cpu) == 5
+    for a, b in zip(pics_cuda, pics_cpu):
+        assert a.poc == b.poc and a.digest_ok and b.digest_ok
+        for pa, pb in zip(a.frame.planes(), b.frame.planes()):
+            assert np.array_equal(pa, pb)

@@ -91,6 +91,24 @@ def test_unpack_and_packed_pipeline_match_jax(size):
         assert np.array_equal(got, ref)
 
 
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("size", [4, 8, 16, 32])
+def test_transform_skip_residual_matches_reference(size, bit_inc):
+    """The transform-skip residual of an inter TU (dequant, then the
+    transform-skip shift) against the reference decoder's per-TU
+    ``_residual``."""
+    from thevc_tpu.decoder.recon import _residual
+    q, qp = _inputs(size, bit_inc, 23)
+    got = tq.transform_skip_inv(
+        tq.dequant(torch.from_numpy(q).to(torch.int32),
+                   torch.from_numpy(qp), bit_inc), bit_inc)
+    assert got.dtype == torch.int16
+    for k in range(len(q)):
+        ref = _residual(q[k].astype(np.int32), int(qp[k]), False, True,
+                        False, bit_inc)
+        assert np.array_equal(got[k].numpy(), ref), k
+
+
 def test_residual_pipeline_rejects_other_devices():
     q = torch.zeros((1, 4, 4), dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):

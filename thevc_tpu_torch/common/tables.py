@@ -6,7 +6,9 @@ The numbers come from the JAX package's host modules (``common/rom.py``,
 (the transform and quantiser paths, as ``ops/jx.py`` and
 ``ops/jx_pallas.py`` use them), ``TC_TABLE``, ``BETA_TABLE`` and
 ``CHROMA_SCALE`` (the in-loop filters, as ``ops/jx_filters.py`` uses
-them), and the Hadamard matrices of the SATD (``encoder/rdcost.py``).
+them), the Hadamard matrices of the SATD (``encoder/rdcost.py``), and
+the luma 8-tap and chroma 4-tap interpolation filters (``ops/interp.py``,
+as ``ops/jx_mc.py`` uses them).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 
 from thevc_tpu.common import rom
 from thevc_tpu.encoder import rdcost
-from thevc_tpu.ops import deblock
+from thevc_tpu.ops import deblock, interp
 
 
 @dataclass(frozen=True)
@@ -32,6 +34,8 @@ class Tables:
     tc: torch.Tensor     # int32 [54]
     beta: torch.Tensor   # int32 [52]
     chroma_scale: torch.Tensor       # int32 [58]
+    luma_filter: torch.Tensor        # int32 [4, 8], one row per phase
+    chroma_filter: torch.Tensor      # int32 [8, 4]
 
     def basis(self, size: int, use_dst: bool) -> torch.Tensor:
         """The inverse-transform basis of one TU size class."""
@@ -56,4 +60,6 @@ def from_reference(device) -> Tables:
         tc=t(deblock.TC_TABLE),
         beta=t(deblock.BETA_TABLE),
         chroma_scale=t(rom.CHROMA_SCALE),
+        luma_filter=t(interp.LUMA_FILTER),
+        chroma_filter=t(interp.CHROMA_FILTER),
     )

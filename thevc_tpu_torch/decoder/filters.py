@@ -3,6 +3,8 @@ tables, pixel math on the device.
 
 The device half of ``thevc_tpu/decoder/filters.py``:
 ``filter_picture_device`` (:283) and ``filter_pictures_device`` (:310).
+The one-picture form also hands back the filtered planes on the device,
+where inter pictures read them as references.
 The host inputs come from the JAX package's ``_picture_filter_inputs``
 (:230), which builds them with numpy and the native core.
 """
@@ -15,24 +17,26 @@ import torch
 from thevc_tpu.decoder.filters import _picture_filter_inputs
 
 from ..ops import filters as ops_filters
-from ..ops.device import stat_d2h, stat_launch
+from ..ops.device import stat_d2h, stat_h2d, stat_launch
 
 
-def filter_pictures_device(entries, device: torch.device) -> list:
+def _filter_pictures(entries, device: torch.device) -> list:
     """Deblocking + SAO for many pictures, one launch per filter setting.
 
     entries: [(f, sh, sps, pps, rec_y, rec_cb, rec_cr, ref_poc)].
     Pictures that share the filter setting (offsets, bit depth, CTU
     grid, which filters are on) run as one batch; 8-bit pictures travel
     as uint8 both ways (lossless: values are clipped to [0, 255]).
-    Returns [(y, cb, cr)] in the dtypes of the inputs."""
+    Returns [(host planes, device planes)]: the host planes in the
+    dtypes of the inputs, the device planes as the filter left them on
+    ``device`` (None for a picture with both filters off)."""
     inputs = [_picture_filter_inputs(f, sh, sps, pps, rp)
               for (f, sh, sps, pps, _ry, _rcb, _rcr, rp) in entries]
     out: list = [None] * len(entries)
     groups: dict = {}
     for i, inp in enumerate(inputs):
         if inp is None:                 # both filters off
-            out[i] = tuple(entries[i][4:7])
+            out[i] = (tuple(entries[i][4:7]), None)
         else:
             groups.setdefault(tuple(sorted(inp[0].items())), []).append(i)
 
@@ -54,13 +58,27 @@ def filter_pictures_device(entries, device: torch.device) -> list:
         stat_d2h(y.nbytes + cb.nbytes + cr.nbytes)
         for j, i in enumerate(idxs):
             ry, rcb, rcr = entries[i][4:7]
-            out[i] = (y[j].astype(ry.dtype), cb[j].astype(rcb.dtype),
-                      cr[j].astype(rcr.dtype))
+            out[i] = ((y[j].astype(ry.dtype), cb[j].astype(rcb.dtype),
+                       cr[j].astype(rcr.dtype)),
+                      tuple(p[j] for p in planes))
     return out
+
+
+def filter_pictures_device(entries, device: torch.device) -> list:
+    """Deblocking + SAO for many pictures (``_filter_pictures``); returns
+    [(y, cb, cr)] on the host in the dtypes of the inputs."""
+    return [h for h, _d in _filter_pictures(entries, device)]
 
 
 def filter_picture_device(f, sh, sps, pps, rec_y, rec_cb, rec_cr,
                           device: torch.device, ref_poc=None):
-    """Deblocking + SAO of one picture on ``device``."""
-    return filter_pictures_device(
+    """Deblocking + SAO of one picture on ``device``.  Returns (host
+    planes, device planes); the device planes are a copy of the host
+    ones when both filters are off."""
+    host, dev = _filter_pictures(
         [(f, sh, sps, pps, rec_y, rec_cb, rec_cr, ref_poc)], device)[0]
+    if dev is None:
+        stat_h2d(sum(a.nbytes for a in host))
+        dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                    for a in host)
+    return host, dev

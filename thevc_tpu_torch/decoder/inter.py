@@ -1,0 +1,293 @@
+"""Whole-picture motion compensation on a torch device.
+
+The device half of ``thevc_tpu/decoder/inter.py``: ``precompute_device``
+(:121-221) becomes ``predict_picture``, which returns the picture's
+prediction on the device instead of filling ``InterPredictor._dev_store``.
+The host keeps the reference's PU enumeration
+(``InterPredictor._enumerate_pus``, which applies
+``xCheckIdenticalMotion``) and computes ``clip_mv``'s clamp and each
+job's window over numpy arrays; the window gather, one
+``ops.mc.mc_batch`` per (component, filter case, size, bi) class, one
+``bi_avg_batch`` per block size and the scatter into the prediction run
+on the device.  Weighted prediction raises ``NotImplementedError``.
+
+A picture's three planes live on the device as one flat buffer
+(``Layout``): luma, then Cb, then Cr, each row-major.  ``RefPlanes``
+keeps each reference picture's planes on the device from the filter
+stage that made them until the DPB stops referencing the picture, so a
+reference crosses PCIe at most once.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from thevc_tpu.decoder.frame import MODE_INTRA
+
+from ..ops import mc
+from ..ops.device import stage, stat_h2d, stat_launch
+
+# TComDataCU::clipMv's slack past the picture, in samples
+_CLIP_OFF = 8
+# columns of the PU table (_pu_table)
+_RUN, _XP, _YP, _PW, _PH, _CUX, _CUY, _REF0, _MV0, _REF1, _MV1 = \
+    0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11
+
+
+@dataclass(frozen=True)
+class Layout:
+    """Where the planes of one picture lie in a flat device buffer."""
+    width: int
+    height: int
+
+    @property
+    def size(self) -> int:
+        return self.width * self.height * 3 // 2
+
+    def base(self, comp: int) -> int:
+        """Offset of component ``comp``'s plane (0 Y, 1 Cb, 2 Cr)."""
+        luma = self.width * self.height
+        return 0 if comp == 0 else luma + (comp - 1) * (luma // 4)
+
+    def stride(self, comp: int) -> int:
+        return self.width if comp == 0 else self.width // 2
+
+    def origin(self, comp: int, x, y):
+        """Offset of sample (x, y) of component ``comp`` (arrays too)."""
+        return self.base(comp) + y * self.stride(comp) + x
+
+    def split(self, flat):
+        """The three planes of a flat buffer (views) as [h, w] arrays."""
+        w, h = self.width, self.height
+        y = flat[:w * h].reshape(h, w)
+        cb = flat[self.base(1):self.base(2)].reshape(h // 2, w // 2)
+        cr = flat[self.base(2):].reshape(h // 2, w // 2)
+        return y, cb, cr
+
+
+def scatter_blocks(flat: torch.Tensor, blocks: torch.Tensor,
+                   origin: torch.Tensor, stride: torch.Tensor) -> None:
+    """Write blocks [N, h, w] into the flat buffer: block k's sample (i,
+    j) goes to ``origin[k] + i * stride[k] + j``."""
+    n, h, w = blocks.shape
+    dev = flat.device
+    idx = (origin.long()[:, None, None]
+           + torch.arange(h, device=dev)[None, :, None]
+           * stride.long()[:, None, None]
+           + torch.arange(w, device=dev)[None, None, :])
+    flat[idx.reshape(-1)] = blocks.reshape(-1).to(flat.dtype)
+
+
+class RefPlanes:
+    """Device planes (int16 [h, w] each) of the DPB's reference pictures,
+    keyed by POC."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self._by_poc: dict = {}      # poc -> (Picture, (y, cb, cr))
+
+    def put(self, pic, planes) -> None:
+        self._by_poc[pic.poc] = (pic, tuple(p.to(torch.int16)
+                                            for p in planes))
+
+    def get(self, pic) -> tuple:
+        """The planes of ``pic``.  A picture that no filter stage of this
+        decoder made (a concealed lost reference) is copied up once."""
+        entry = self._by_poc.get(pic.poc)
+        if entry is None or entry[0] is not pic:
+            host = [np.ascontiguousarray(p, np.int16)
+                    for p in (pic.rec_y, pic.rec_cb, pic.rec_cr)]
+            stat_h2d(sum(a.nbytes for a in host))
+            self.put(pic, [torch.from_numpy(a).to(self.device)
+                           for a in host])
+            entry = self._by_poc[pic.poc]
+        return entry[1]
+
+    def drop_unreferenced(self) -> None:
+        """Free the planes of pictures the DPB no longer references."""
+        for poc in [k for k, (p, _) in self._by_poc.items()
+                    if not p.referenced]:
+            del self._by_poc[poc]
+
+    def __len__(self) -> int:
+        return len(self._by_poc)
+
+
+def _pu_table(runs) -> np.ndarray:
+    """Every PU of the inter CUs of the picture's slices, as int64 rows
+    (run, xp, yp, pw, ph, cu_x, cu_y, ref0, mv0 x, y, ref1, mv1 x, y)."""
+    rows = []
+    for r, (_sh, ip, lo, hi) in enumerate(runs):
+        if ip is None:
+            continue
+        entries = [e for e in ip.f.cu_list[lo:hi] if e[3] != MODE_INTRA]
+        if entries and ip.wp_active:
+            raise NotImplementedError(
+                "weighted prediction: the port's inter decode has no "
+                "weighted sample prediction")
+        for (xp, yp, pw, ph, cux, cuy, ref0, mv0, ref1, mv1) in \
+                ip._enumerate_pus(entries):
+            rows.append((r, xp, yp, pw, ph, cux, cuy, ref0, *mv0, ref1,
+                         *mv1))
+    return np.asarray(rows, np.int64).reshape(-1, 13)
+
+
+def clip_mvs(mv: np.ndarray, cu_x: np.ndarray, cu_y: np.ndarray, pic_w: int,
+             pic_h: int, ctu: int) -> np.ndarray:
+    """``thevc_tpu.decoder.mv.clip_mv`` over arrays: mv [N, 2] -> [N, 2]."""
+    lo_x = (-ctu - _CLIP_OFF - cu_x + 1) << 2
+    hi_x = (pic_w + _CLIP_OFF - cu_x - 1) << 2
+    lo_y = (-ctu - _CLIP_OFF - cu_y + 1) << 2
+    hi_y = (pic_h + _CLIP_OFF - cu_y - 1) << 2
+    return np.stack([np.minimum(hi_x, np.maximum(lo_x, mv[:, 0])),
+                     np.minimum(hi_y, np.maximum(lo_y, mv[:, 1]))], axis=1)
+
+
+def _ref_slots(runs):
+    """The distinct reference pictures of the picture's slices, and per
+    slice and list the slot of each reference index."""
+    pics, slot_of, luts = [], {}, []
+    for (_sh, ip, _lo, _hi) in runs:
+        lut = []
+        for lst in (0, 1):
+            ids = []
+            for p in (ip.lists[lst] if ip is not None else []):
+                if id(p) not in slot_of:
+                    slot_of[id(p)] = len(pics)
+                    pics.append(p)
+                ids.append(slot_of[id(p)])
+            lut.append(np.asarray(ids, np.int64))
+        luts.append(lut)
+    return pics, luts
+
+
+# job columns: source plane, window x, y, frac x, y, destination origin
+# and stride, list, bi pair index; then the class key (luma, case, h, w,
+# bi) kept on the host
+_J_PLANE, _J_WX, _J_WY, _J_FX, _J_FY, _J_ORG, _J_STR, _J_LST, _J_PAIR = \
+    range(9)
+
+
+def _jobs(pus: np.ndarray, luts, sps, layout: Layout):
+    """One uni-directional MC job per (PU, active list, component).
+
+    Returns (table int64 [J, 9], keys int64 [J, 5] of (luma, case, h, w,
+    bi), pairs int64 [Q, 4] of (h, w, origin, stride), one row per (bi
+    PU, component), ordered by block size)."""
+    n = len(pus)
+    bi = (pus[:, _REF0] >= 0) & (pus[:, _REF1] >= 0)
+    ctu = sps.max_cu_width
+    # bi pairs, one per (bi PU, component), numbered within their size
+    pair_idx = np.full((n, 3), -1, np.int64)
+    pair_rows = []
+    bi_pus = np.nonzero(bi)[0]
+    for comp in range(3):
+        d = 1 if comp == 0 else 2
+        p = pus[bi_pus]
+        pair_rows.append(np.stack([
+            p[:, _PH] // d, p[:, _PW] // d,
+            layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
+            np.full(len(p), layout.stride(comp)), bi_pus,
+            np.full(len(p), comp)], axis=1))
+    pairs = np.concatenate(pair_rows)
+    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
+    size_key = pairs[:, 0] * 128 + pairs[:, 1]
+    starts = np.r_[0, np.nonzero(np.diff(size_key))[0] + 1]
+    rank = np.arange(len(pairs)) - np.repeat(starts, np.diff(
+        np.r_[starts, len(pairs)]))
+    pair_idx[pairs[:, 4], pairs[:, 5]] = rank
+
+    tables, keys = [], []
+    for lst, ref_col, mv_col in ((0, _REF0, _MV0), (1, _REF1, _MV1)):
+        sel = pus[:, ref_col] >= 0
+        p = pus[sel]
+        idx = np.nonzero(sel)[0]
+        slot = np.zeros(len(p), np.int64)
+        for r in np.unique(p[:, _RUN]):
+            m = p[:, _RUN] == r
+            slot[m] = luts[r][lst][p[m, ref_col]]
+        mv = clip_mvs(p[:, mv_col:mv_col + 2], p[:, _CUX], p[:, _CUY],
+                      layout.width, layout.height, ctu)
+        for comp in range(3):
+            d, frac_bits, half = (1, 2, 4) if comp == 0 else (2, 3, 2)
+            fx = mv[:, 0] & ((1 << frac_bits) - 1)
+            fy = mv[:, 1] & ((1 << frac_bits) - 1)
+            x0 = p[:, _XP] // d + (mv[:, 0] >> frac_bits)
+            y0 = p[:, _YP] // d + (mv[:, 1] >> frac_bits)
+            case = (fx != 0) + 2 * (fy != 0)
+            plane = slot if comp == 0 else 2 * slot + comp - 1
+            tables.append(np.stack([
+                plane, x0 - (half - 1) * (fx != 0),
+                y0 - (half - 1) * (fy != 0), fx, fy,
+                layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
+                np.full(len(p), layout.stride(comp)), np.full(len(p), lst),
+                pair_idx[idx, comp]], axis=1))
+            keys.append(np.stack([
+                np.full(len(p), int(comp == 0)), case, p[:, _PH] // d,
+                p[:, _PW] // d, bi[idx].astype(np.int64)], axis=1))
+    return np.concatenate(tables), np.concatenate(keys), pairs[:, :4]
+
+
+def predict_picture(runs, sps, refs: RefPlanes,
+                    device: torch.device) -> torch.Tensor:
+    """The motion-compensated prediction of every inter PU of a picture.
+
+    runs: [(sh, inter_pred, cu_lo, cu_hi)], the reference's slice runs
+    with their ``InterPredictor``.  Returns a flat int16 buffer on
+    ``device`` in the picture's ``Layout``, zero outside inter PUs."""
+    layout = Layout(sps.pic_width_in_luma_samples,
+                    sps.pic_height_in_luma_samples)
+    bd = sps.internal_bit_depth
+    with stage("pu_grouping", device):
+        pus = _pu_table(runs)
+        pics, luts = _ref_slots(runs)
+        if len(pus):
+            table, keys, pairs = _jobs(pus, luts, sps, layout)
+            order = np.lexsort(keys.T[::-1])
+            table, keys = table[order], keys[order]
+            bounds = np.r_[0, np.nonzero(np.any(np.diff(keys, axis=0),
+                                                axis=1))[0] + 1, len(keys)]
+    pred = torch.zeros(layout.size, dtype=torch.int16, device=device)
+    if not len(pus):
+        return pred
+    with stage("mc", device):
+        planes = [refs.get(p) for p in pics]
+        luma = torch.stack([pl[0] for pl in planes])
+        chroma = torch.stack([c for pl in planes for c in pl[1:]])
+        host = np.concatenate([table.reshape(-1), pairs.reshape(-1)])
+        stat_h2d(host.size * 4)
+        dev = torch.from_numpy(host.astype(np.int32)).to(device)
+        tab = dev[:table.size].reshape(table.shape)
+        pair_tab = dev[table.size:].reshape(pairs.shape)
+
+        sizes, size_at = np.unique(pairs[:, 0] * 128 + pairs[:, 1],
+                                   return_index=True)
+        counts = np.diff(np.r_[size_at, len(pairs)])
+        bufs = {int(k): torch.empty((2, int(c), int(k) // 128, int(k) % 128),
+                                    dtype=torch.int16, device=device)
+                for k, c in zip(sizes, counts)}
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            is_luma, case_id, h, w, bi = (int(v) for v in keys[a])
+            case = mc.CASES[case_id]
+            t = tab[a:b]
+            rows, cols = mc.window_shape(case, bool(is_luma), h, w)
+            win = mc.gather_windows(luma if is_luma else chroma,
+                                    t[:, _J_PLANE], t[:, _J_WX],
+                                    t[:, _J_WY], rows, cols)
+            stat_launch()
+            out = mc.mc_batch(win, t[:, _J_FX], t[:, _J_FY], case,
+                              bool(is_luma), bd, bool(bi), h, w)
+            if bi:
+                bufs[h * 128 + w][t[:, _J_LST].long(),
+                                  t[:, _J_PAIR].long()] = out
+            else:
+                scatter_blocks(pred, out, t[:, _J_ORG], t[:, _J_STR])
+        for (k, buf), a, c in zip(bufs.items(), size_at, counts):
+            stat_launch()
+            avg = mc.bi_avg_batch(buf[0], buf[1], bd)
+            pt = pair_tab[a:a + c]
+            scatter_blocks(pred, avg, pt[:, 2], pt[:, 3])
+    return pred

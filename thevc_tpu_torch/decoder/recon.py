@@ -1,12 +1,14 @@
-"""Picture reconstruction for the port: stage-1 residuals on the device,
-then the native intra walk.
+"""Picture reconstruction for the port: stage-1 residuals and motion
+compensation on the device, then the native intra walk.
 
 The device half of ``thevc_tpu/decoder/recon.py``:
 ``batched_residual_stores`` (:829), ``_device_residual_store`` (:775),
 ``_launch_residuals`` (:287), and twins of ``_native_picture`` (:641) and
-``reconstruct_picture`` (:937) for intra pictures.  The residual store is
-passed in as an argument; nothing here consults an environment policy
-or falls back to the JAX package.
+``reconstruct_picture`` (:937), whose device route for inter CUs
+(``_FrameRecon.inter_cu``, :494) runs here on the device.  The residual
+store and the reference planes are passed in as arguments; nothing here
+consults an environment policy or falls back to the JAX package or to
+its host inter code.
 
 Stage 1 gathers every coded TU of a batch of pictures into one batch per
 (component, size, DST, bit increment) class and runs each class through
@@ -15,6 +17,13 @@ flat int32 buffer and per-component offset maps that the native core's
 ``intra_recon_tus`` reads (``IntraParams.resi_buf`` / ``resi_map``).
 Transform-skip, bypass and PCM TUs are not in the store; the native walk
 reconstructs those itself.
+
+A picture with inter CUs reconstructs them first, on the device: the
+prediction (``decoder.inter.predict_picture``) plus the residuals of
+their TUs (the stage-1 classes, and transform-skip and bypass TUs
+through ``tq``), clipped, in one copy to the host.  They read only
+reference pictures, so the native intra walk that follows for the intra
+CUs sees the same samples as in decode order.
 """
 
 from __future__ import annotations
@@ -32,7 +41,8 @@ from thevc_tpu.decoder.recon import (_AvailCtx, _collect_residuals_vec,
                                      _native_bases, _pack_cgs)
 
 from ..ops import tq
-from ..ops.device import stat_d2h, stat_launch
+from ..ops.device import stage, stat_d2h, stat_h2d, stat_launch
+from . import inter
 
 
 def native_lib():
@@ -56,41 +66,43 @@ def _collect(f, sps, pps, runs) -> dict:
 def _launch_residuals(classes: dict, device: torch.device) -> dict:
     """Run each TU class through dequant + inverse transform on
     ``device``.  classes: {(comp, size, use_dst, bit_inc): (blocks int16
-    [n, s, s], qps int32 [n])}.  Every class is launched before any
-    result is copied back; returns {class: int16 [n, s, s] on the host}.
-    Classes of 8x8 and up ship only their coded 4x4 groups and unpack on
-    the device; 4x4 TUs are one group each and ship dense."""
-    pending = []
+    [n, s, s], qps int32 [n])}.  Returns {class: int16 [n, s, s] on
+    ``device``}, with nothing copied back.  Classes of 8x8 and up ship
+    only their coded 4x4 groups and unpack on the device; 4x4 TUs are
+    one group each and ship dense."""
+    out = {}
     for key, (blocks, qps) in classes.items():
         _comp, size, use_dst, bit_inc = key
         qp_dev = torch.from_numpy(qps).to(device)
         if size >= 8:
             vals, idx = _pack_cgs(blocks, size, len(blocks))
             stat_launch(vals.nbytes + idx.nbytes + qps.nbytes)
-            res = tq.residual_pipeline_packed(
+            out[key] = tq.residual_pipeline_packed(
                 torch.from_numpy(vals).to(device),
                 torch.from_numpy(idx).to(device), qp_dev, size, use_dst,
                 bit_inc)
         else:
             stat_launch(blocks.nbytes + qps.nbytes)
-            res = tq.residual_pipeline(torch.from_numpy(blocks).to(device),
-                                       qp_dev, use_dst, bit_inc)
-        pending.append((key, res))
+            out[key] = tq.residual_pipeline(
+                torch.from_numpy(blocks).to(device), qp_dev, use_dst,
+                bit_inc)
+    return out
+
+
+def _to_host(results: dict) -> dict:
     out = {}
-    for key, res in pending:
+    for key, res in results.items():
         out[key] = res.cpu().numpy()
         stat_d2h(out[key].nbytes)
     return out
 
 
-def batched_residual_stores(items, device: torch.device) -> list:
-    """Stage-1 residuals for many pictures, one launch per TU class.
-
-    All-intra pictures are mutually independent, so their TU batches
-    concatenate.  items: [(f, sps, pps, runs)].  Returns one store per
-    picture: (resi_buf int32, per-component offset maps [uh, uw] keyed by
-    the TU's top-left luma 4x4 unit, -1 where a TU is not in the store)."""
-    merged: dict = {}   # class -> [(pic_i, bxs, bys, blocks, qps)]
+def _merge_classes(items):
+    """Every coded TU of the pictures ``items`` ([(f, sps, pps, runs)])
+    by class.  Returns (merged {class: [(pic_i, bxs, bys, blocks, qps)]},
+    classes {class: (blocks int16, qps int32)} with the pictures'
+    TUs concatenated in that order)."""
+    merged: dict = {}
     for pi, (f, sps, pps, runs) in enumerate(items):
         if sps.scaling_list_enabled_flag:
             raise NotImplementedError("scaling lists: the port's residual "
@@ -108,8 +120,14 @@ def batched_residual_stores(items, device: torch.device) -> list:
                       -32768, 32767).astype(np.int16),
               np.concatenate([e[4] for e in lst]).astype(np.int32))
         for key, lst in merged.items()}
-    results = _launch_residuals(classes, device)
+    return merged, classes
 
+
+def _build_stores(items, merged: dict, results: dict) -> list:
+    """The native walk's residual store of each picture from the host
+    results of its classes: (resi_buf int32, per-component offset maps
+    [uh, uw] keyed by the TU's top-left luma 4x4 unit, -1 where a TU is
+    not in the store)."""
     pic_parts: list = [[] for _ in items]
     for key, lst in merged.items():
         off = 0
@@ -138,6 +156,17 @@ def batched_residual_stores(items, device: torch.device) -> list:
     return stores
 
 
+def batched_residual_stores(items, device: torch.device) -> list:
+    """Stage-1 residuals for many pictures, one launch per TU class.
+
+    All-intra pictures are mutually independent, so their TU batches
+    concatenate.  items: [(f, sps, pps, runs)].  Returns one store per
+    picture (``_build_stores``)."""
+    merged, classes = _merge_classes(items)
+    return _build_stores(items, merged,
+                         _to_host(_launch_residuals(classes, device)))
+
+
 def _device_residual_store(f, sps, pps, runs, device: torch.device):
     """Stage-1 residuals of one picture (the batch of one)."""
     return batched_residual_stores([(f, sps, pps, runs)], device)[0]
@@ -145,9 +174,10 @@ def _device_residual_store(f, sps, pps, runs, device: torch.device):
 
 def _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
                     resi_store) -> None:
-    """Reconstruct an intra picture through the native core's in-order
-    intra walk (``intra_recon_tus``), reading stage-1 residuals from
-    ``resi_store``."""
+    """Reconstruct the intra CUs of a picture through the native core's
+    in-order intra walk (``intra_recon_tus``), reading stage-1 residuals
+    from ``resi_store``.  ``build_intra_rows`` skips inter CUs, which
+    must be in the planes already."""
     lib = native_lib()
     nat = getattr(f, "_native_out", None)
     if nat is not None:
@@ -160,11 +190,6 @@ def _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
                   if f.luma_tus else np.zeros((0, 6), np.int32))
         ct_arr = (np.asarray(f.chroma_tus, np.int32).reshape(-1, 6)
                   if f.chroma_tus else np.zeros((0, 6), np.int32))
-    if any((cu_arr[lo:hi, 3] != MODE_INTRA).any()
-           for (_sh, _ip, lo, hi) in runs):
-        raise NotImplementedError("inter CUs: the port decodes intra "
-                                  "pictures only")
-
     avail = _AvailCtx(f)
     sstart = np.ascontiguousarray(f.slice_start)   # alive across the calls
     maps = native.AvailMaps(
@@ -228,12 +253,153 @@ def _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
             ctypes.byref(maps), ctypes.byref(params))
 
 
+def _special_tus(f, sps, pps, runs) -> dict:
+    """The coded transform-skip and bypass TUs of inter CUs, which stage
+    1 leaves out: {(comp, size, bypass): (bxs, bys, blocks int32
+    [n, s, s], scaled qps int32 [n])}.  The mirror, for those TUs, of
+    ``_collect_residuals_vec`` (whose check that each slice's TU ranges
+    are contiguous ``_collect`` has made)."""
+    cs_tab = np.asarray(CHROMA_SCALE, np.int32)
+    cu_all = np.asarray(f.cu_list, np.int64).reshape(-1, 8)
+    lt_all = np.asarray(f.luma_tus, np.int64).reshape(-1, 6)
+    ct_all = np.asarray(f.chroma_tus, np.int64).reshape(-1, 6)
+    groups: dict = {}
+    for (sh, _ip, lo, hi) in runs:
+        cu = cu_all[lo:hi]
+        if not len(cu):
+            continue
+        chroma_off = (pps.chroma_cb_qp_offset + sh.slice_qp_delta_cb,
+                      pps.chroma_cr_qp_offset + sh.slice_qp_delta_cr)
+        for luma, tus, a, b in ((True, lt_all, 4, 5), (False, ct_all, 6, 7)):
+            t = tus[cu[0, a]:cu[-1, b]]
+            inter_tu = np.repeat(cu[:, 3], cu[:, b] - cu[:, a]) != MODE_INTRA
+            tx, ty, sizes, trd = t[:, 0], t[:, 1], t[:, 2], t[:, 5]
+            # the TU's top-left luma 4x4 unit
+            ux, uy = (tx >> 2, ty >> 2) if luma else (tx >> 1, ty >> 1)
+            bypass = f.tq_bypass[uy, ux].astype(bool)
+            qp_raw = f.qp[uy, ux].astype(np.int32)
+            for comp in ((0,) if luma else (1, 2)):
+                m = inter_tu & (((f.cbf[comp, uy, ux].astype(np.int64)
+                                  >> trd) & 1) == 1)
+                m &= f.ts_flag[comp, uy, ux].astype(bool) | bypass
+                if luma:
+                    qps = qp_raw + sps.qp_bd_offset_y
+                else:
+                    q = np.clip(qp_raw + chroma_off[comp - 1],
+                                -sps.qp_bd_offset_c, 57)
+                    qps = np.where(q < 0, q, cs_tab[np.maximum(q, 0)]) \
+                        + sps.qp_bd_offset_c
+                plane = (f.coeff_y, f.coeff_cb, f.coeff_cr)[comp]
+                for size in np.unique(sizes[m]):
+                    for byp in (False, True):
+                        idx = np.nonzero(m & (sizes == size)
+                                         & (bypass == byp))[0]
+                        if not len(idx):
+                            continue
+                        bx, by = tx[idx], ty[idx]
+                        gy = by[:, None, None] + np.arange(size)[None, :, None]
+                        gx = bx[:, None, None] + np.arange(size)[None, None, :]
+                        groups.setdefault((comp, int(size), byp), []).append(
+                            (bx, by, plane[gy, gx].astype(np.int32),
+                             qps[idx]))
+    return {k: tuple(np.concatenate([c[i] for c in v]) for i in range(4))
+            for k, v in groups.items()}
+
+
+def _inter_residuals(f, sps, pps, runs, merged: dict, results: dict,
+                     layout, device: torch.device) -> torch.Tensor:
+    """The residual of every coded TU of the inter CUs as a flat int32
+    buffer on ``device`` in ``layout``, zero elsewhere: the inter rows of
+    the stage-1 classes, then transform-skip TUs (dequant and the
+    transform-skip shift) and bypass TUs (the coefficients)."""
+    resi = torch.zeros(layout.size, dtype=torch.int32, device=device)
+    inter_units = f.pred_mode != MODE_INTRA
+    parts, keys = [], []
+    for key, lst in merged.items():
+        comp = key[0]
+        bxs = np.concatenate([e[1] for e in lst])
+        bys = np.concatenate([e[2] for e in lst])
+        div = 4 if comp == 0 else 2
+        rows = np.nonzero(inter_units[bys // div, bxs // div])[0]
+        if len(rows):
+            parts.append(np.stack([
+                rows, layout.origin(comp, bxs[rows], bys[rows]),
+                np.full(len(rows), layout.stride(comp))],
+                axis=1))
+            keys.append((key, len(rows)))
+    if parts:
+        host = np.concatenate(parts).astype(np.int32)
+        stat_h2d(host.nbytes)
+        tab = torch.from_numpy(host).to(device)
+        off = 0
+        for key, n in keys:
+            t = tab[off:off + n]
+            inter.scatter_blocks(resi, results[key][t[:, 0].long()],
+                                 t[:, 1], t[:, 2])
+            off += n
+
+    for (comp, size, bypass), (bxs, bys, blocks, qps) in _special_tus(
+            f, sps, pps, runs).items():
+        origin = layout.origin(comp, bxs, bys)
+        host = [blocks, qps.astype(np.int32), origin.astype(np.int32)]
+        stat_launch(sum(a.nbytes for a in host))
+        blk, qp, org = (torch.from_numpy(a).to(device) for a in host)
+        if not bypass:
+            blk = tq.transform_skip_inv(tq.dequant(blk, qp, sps.bit_increment),
+                                        sps.bit_increment)
+        inter.scatter_blocks(resi, blk, org,
+                             torch.full_like(org, layout.stride(comp)))
+    return resi
+
+
+def _reconstruct_inter(f, sps, pps, runs, planes, device: torch.device,
+                       refs) -> None:
+    """Reconstruct a picture with inter slices: the inter CUs on the
+    device (one copy to the host), then the intra CUs by the native
+    walk."""
+    items = [(f, sps, pps, runs)]
+    layout = inter.Layout(sps.pic_width_in_luma_samples,
+                          sps.pic_height_in_luma_samples)
+    with stage("stage1", device):
+        merged, classes = _merge_classes(items)
+        results = _launch_residuals(classes, device)
+    pred = inter.predict_picture(runs, sps, refs, device)
+    with stage("inter_assembly", device):
+        resi = _inter_residuals(f, sps, pps, runs, merged, results, layout,
+                                device)
+        max_val = (1 << sps.internal_bit_depth) - 1
+        rec = (pred.to(torch.int32) + resi).clamp(0, max_val).to(
+            torch.int16).cpu().numpy()
+        stat_d2h(rec.nbytes)
+        for dst, src in zip(planes, layout.split(rec)):
+            dst[...] = src
+    if (f.pred_mode == MODE_INTRA).any():
+        with stage("intra_walk", device):
+            store = _build_stores(items, merged, _to_host(results))[0]
+            _native_picture(f, sps, pps, runs, *planes, store)
+
+
 def reconstruct_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
-                        device: torch.device, resi_store=None) -> None:
-    """Whole-picture reconstruction of an intra picture: stage-1
-    residuals on ``device`` (unless a batched store is passed in), then
-    the native intra walk.  runs: [(sh, inter_pred, cu_lo, cu_hi)], one
-    entry per slice segment."""
+                        device: torch.device, resi_store=None,
+                        refs=None) -> None:
+    """Whole-picture reconstruction into the zeroed planes rec_*.
+
+    runs: [(sh, inter_pred, cu_lo, cu_hi)], one entry per slice segment.
+    An intra picture takes its stage-1 residuals on ``device`` (unless a
+    batched store is passed in), then the native intra walk.  A picture
+    with inter slices needs ``refs`` (``decoder.inter.RefPlanes``), the
+    device planes of its reference pictures."""
+    if resi_store is None and any(ip is not None for _sh, ip, _lo, _hi
+                                  in runs):
+        if refs is None:
+            raise ValueError("a picture with inter slices needs the "
+                             "reference planes (refs)")
+        _reconstruct_inter(f, sps, pps, runs, (rec_y, rec_cb, rec_cr),
+                           device, refs)
+        return
     if resi_store is None:
-        resi_store = _device_residual_store(f, sps, pps, runs, device)
-    _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr, resi_store)
+        with stage("stage1", device):
+            resi_store = _device_residual_store(f, sps, pps, runs, device)
+    with stage("intra_walk", device):
+        _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
+                        resi_store)

@@ -10,11 +10,15 @@ overrides the four methods that reach the device:
 - ``_batched_all_intra`` (:236): parse a batch on host threads;
 - ``_finish_ctx_batch`` (:280): one stage-1 launch per TU class and one
   filter launch for the batch, then the digests;
-- ``_finish_picture`` (:565): the serial route, one picture at a time.
+- ``_finish_picture`` (:565): the serial route, one picture at a time,
+  which every stream with P or B slices takes.  Inter CUs are
+  reconstructed on the device from reference planes that stay there
+  (``decoder.inter.RefPlanes``), and the picture enters the DPB with its
+  reference POCs and compressed motion, as the reference stores it.
 
-It decodes intra pictures only.  An inter slice or a scaling-list stream
-raises ``NotImplementedError`` (here or in ``decoder.recon``) instead of
-decoding on the host.
+A scaling-list stream or a weighted-prediction slice raises
+``NotImplementedError`` (in ``decoder.recon`` / ``decoder.inter``)
+instead of decoding on the host.
 """
 
 from __future__ import annotations
@@ -32,8 +36,8 @@ from thevc_tpu.decoder.refpic import Picture
 from thevc_tpu.digest import calc_digest
 from thevc_tpu.io.yuv import YuvFrame
 
-from ..ops.device import resolve
-from . import filters, recon
+from ..ops.device import resolve, stage
+from . import filters, inter, recon
 
 # pictures per batched launch: bounds the device and host memory a batch
 # holds (8 pictures of 1920x1080 are ~25 MB of samples)
@@ -65,8 +69,9 @@ def _runs(cur):
 
 
 class Decoder(ref_top.Decoder):
-    """All-intra Main decoder whose stage-1 residuals and in-loop filters
-    run on ``device`` (a ``torch.device`` or its name)."""
+    """Main decoder whose stage-1 residuals, motion compensation and
+    in-loop filters run on ``device`` (a ``torch.device`` or its
+    name)."""
 
     def __init__(self, device, max_temporal_layer: int = -1,
                  skip_frames: int = 0) -> None:
@@ -75,13 +80,15 @@ class Decoder(ref_top.Decoder):
         # load the native core on this thread before any pool starts:
         # concurrent first calls to native.get_lib() can see None
         recon.native_lib()
+        self.refs = inter.RefPlanes(self.device)
 
     def _parallel_all_intra(self, units):
         """Batched decode of an all-intra stream.  Splits the stream into
         access units and scans every slice header (cheap bit parsing, no
         CABAC) to record each AU's POC.  Returns None, for the serial
         route, when the stream has one AU, when temporal-layer or skip
-        options apply, or when leading-skip NAL types appear."""
+        options apply, when leading-skip NAL types appear, or when a
+        slice is not an I slice."""
         if self.max_temporal_layer >= 0 or self.skip_frames:
             return None
         param_units = []
@@ -137,8 +144,7 @@ class Decoder(ref_top.Decoder):
                     probe.sps_map, probe.pps_map, prev_poc,
                     prev_slice=prev_sh)
                 if not sh.is_intra:
-                    raise NotImplementedError(
-                        "inter slices: the port decodes intra pictures only")
+                    return None
                 if first:
                     au_poc.append(sh.poc)
                     first = False
@@ -194,6 +200,10 @@ class Decoder(ref_top.Decoder):
         self.pictures.extend(ex.map(lambda a: _digest_picture(a[0], *a[1]),
                                     zip(ctxs, outs)))
 
+    def _decode_slice(self, unit, bs) -> None:
+        with stage("parse", self.device):
+            super()._decode_slice(unit, bs)
+
     def _finish_picture(self) -> None:
         """Reconstruct, filter, digest and store one picture (the serial
         route)."""
@@ -202,18 +212,36 @@ class Decoder(ref_top.Decoder):
             self.cur = None
             return
         cur, self.cur = self.cur, None
+        with stage("digest_dpb", self.device):
+            self._finish(cur)
+
+    def _finish(self, cur) -> None:
         f, sps, pps = cur.f, cur.sps, cur.pps
         sh0 = cur.slices[0].sh
+        any_inter = any(not run.sh.is_intra for run in cur.slices)
+        self.refs.drop_unreferenced()
         planes = _blank_planes(sps)
         recon.reconstruct_picture(f, sps, pps, _runs(cur), *planes,
-                                  self.device)
-        rec_y, rec_cb, rec_cr = filters.filter_picture_device(
-            f, sh0, sps, pps, *planes, self.device)
+                                  self.device, refs=self.refs)
 
+        # per-unit reference POC map for deblock BS + the DPB motion
+        # snapshot
         ref_poc, ref_is_lt = self._resolve_ref_pocs(cur)
-        self.dpb.add(Picture(sh0.poc, (rec_y, rec_cb, rec_cr), f, sh0,
-                             [[], []], margin=sps.max_cu_width + 16,
-                             ref_poc=ref_poc, ref_is_lt=ref_is_lt))
+        with stage("filters", self.device):
+            (rec_y, rec_cb, rec_cr), dev_planes = \
+                filters.filter_picture_device(
+                    f, sh0, sps, pps, *planes, self.device,
+                    ref_poc if any_inter else None)
+
+        ref_pocs0 = [[p.poc for p in cur.slices[0].list0],
+                     [p.poc for p in cur.slices[0].list1]]
+        dpb_pic = Picture(sh0.poc, (rec_y, rec_cb, rec_cr), f, sh0,
+                          ref_pocs0, margin=sps.max_cu_width + 16,
+                          ref_poc=ref_poc, ref_is_lt=ref_is_lt)
+        if any_inter:      # all-intra motion fields are zero already
+            dpb_pic.compress_motion()
+        self.dpb.add(dpb_pic)
+        self.refs.put(dpb_pic, dev_planes)
         pic = _digest_picture(cur, rec_y, rec_cb, rec_cr)
         if self.keep_models:
             pic.model = f

@@ -2,7 +2,9 @@
 
 Counterpart of ``thevc_tpu/ops/jx.py``.  The decoder's stage 1:
 ``dequant`` (:95), ``inverse_transform`` (:78), ``residual_pipeline``
-(:147), ``_unpack_cgs`` (:167) and ``residual_pipeline_packed`` (:184).
+(:147), ``_unpack_cgs`` (:167) and ``residual_pipeline_packed`` (:184),
+and ``transform_skip_inv`` of ``thevc_tpu/ops/transforms.py`` (:97) for
+the transform-skip TUs of inter CUs.
 The encoder's RD estimate: ``forward_transform`` (:61), ``quant``
 (:112), ``recon_add_clip`` (:135) and ``tu_recon_pipeline`` (:194).
 
@@ -72,6 +74,18 @@ def inverse_transform(coeff: torch.Tensor, use_dst: bool = False,
     t = from_reference(coeff.device).basis(size, use_dst)
     tmp = _inv_pass(coeff, t, SHIFT_INV_1ST)
     return _inv_pass(tmp, t, SHIFT_INV_2ND - bit_increment).to(torch.int32)
+
+
+def transform_skip_inv(coeff: torch.Tensor,
+                       bit_increment: int = 0) -> torch.Tensor:
+    """xITransformSkip over a TU batch [N, s, s] of dequantised
+    coefficients -> int16 residual (``ops/transforms.py:97``)."""
+    log2 = coeff.shape[-1].bit_length() - 1
+    shift = MAX_TR_DYNAMIC_RANGE - (8 + bit_increment) - log2
+    x = coeff.to(torch.int32)
+    if shift > 0:
+        return ((x + (1 << (shift - 1))) >> shift).to(torch.int16)
+    return (x << (-shift)).to(torch.int16)
 
 
 def residual_pipeline_plain(qcoeff: torch.Tensor, qp: torch.Tensor,
