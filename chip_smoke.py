@@ -11,19 +11,28 @@ Run from the root of a checkout on a machine with a CUDA card:
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
-   seeded random int16 coefficients and QPs 0..63.  Tolerance 0
-   (integer codec math).  Times both at the size of a class that covers
-   8 luma planes of 1920x1080 (CUDA events, after a warm-up).
+   seeded full-range int16 coefficients and the scaled QPs of slice QPs
+   0..51: 8x8 to 32x32 CG-packed through the fused entry, as the decode
+   ships them, with every 4x4 group coded and again (bit increment 0)
+   with a quarter of them and, at 32x32, none; 4x4 dense.  Tolerance 0
+   (integer codec math).  At the size of a class that covers 8 luma
+   planes of 1920x1080 it prints per class the kernel's time (CUDA
+   events around 20 eager calls, host launch costs included) and its
+   device time (20 launches as one CUDA graph, median of 5 replays), the
+   plain version's time (eager), the bytes the kernel must move, its
+   bound (those bytes over 3.35 TB/s, or its multiply-adds over the peak
+   of their type, whichever is larger) and its share of that bound by
+   either time.
 4. SATD kernel (K2) against its plain version on the card, at the
    shapes of the 1080p fast-RD sweep: N = (1088/s) * (1920/s) PUs of
    size s against M = 35 candidates, for s = 4, 8, 16, 32, 64 at bit
    increment 0 and s = 8, 64 at bit increment 2, and a ragged N = 4099.
-   Tolerance 0; times both.
+   Tolerance 0; times both, with the bound and shares as for K1.
 5. Streams: writes a 1920x1080 8-frame clip and a 1920x1080 8-frame
    motion clip (``tools/make_test_clip.py``, seed 1234, the second with
    ``--style motion``) and a 416x240 9-frame motion clip, then encodes,
-   all at once in child processes (``thevc_tpu_torch.streams``), on the
-   exact path (``thevc_tpu.apps.encoder``) at QP 32 with MD5 digest SEI:
+   all at once in child processes (``thevc_tpu_torch.streams``), with the
+   port's own encoder on its exact path at QP 32 with MD5 digest SEI:
    the first clip all-intra with SAO
    (``tests/cfg/encoder_intra_main.cfg``), the second low-delay B with
    SAO (``tests/cfg/encoder_lowdelay_tlayers.cfg``),
@@ -35,7 +44,11 @@ Run from the root of a checkout on a machine with a CUDA card:
    ending in ``torch.cuda.synchronize()``; fps from the median).  In every
    run each digest must verify, the recon must be byte-identical to the
    encoder's and the kernel must have been launched by the decode (its
-   count is zeroed just before the run and read just after).
+   count is zeroed just before the run and read just after).  Then one
+   more decode records the residual kernel's inputs, and on each of those
+   classes, the decode's own data, the kernel is held against its plain
+   version (tolerance 0) and both are timed, with its bound and shares as
+   in 3.
 6. Fast-RD encode phase: encodes the same clip with ``--FastRD=1`` at
    QP 32 through the port's encoder CLI (``thevc_tpu_torch.apps.encoder
    --device cuda``) in a child process, whose counts start at 0 and
@@ -57,8 +70,14 @@ Run from the root of a checkout on a machine with a CUDA card:
    CUDA graph per class).  The 416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders'.
-9. Prints the kernels' JSON line, then the device JSON line last.
-   ``jax`` must never have been imported.
+9. Prints the kernels' JSON line (per kernel: launches on the main
+   paths, largest error against the plain version, eager time, plain
+   time, bound and what bounds it; K1 at the intra decode's largest
+   class, printed beside the 32x32 class with every group coded, K2
+   summed over a frame's five classes; no single PyTorch call computes
+   either, so ``library_ms`` is null), then the card's name and
+   power limit, then the device JSON line last.  Neither ``jax`` nor any
+   module of the JAX package may have been imported.
 
 Exits non-zero, before printing any result, when CUDA is not available
 or when the port is not beside this script; any failed check raises.
@@ -80,15 +99,26 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 1234
 WIDTH, HEIGHT, FRAMES, QP = 1920, 1080, 8, 32
-# TU classes of the decode: (size, use_dst, bit_increment)
-CLASSES = [(4, True, 0), (4, False, 0), (8, False, 0), (16, False, 0),
-           (32, False, 0), (4, True, 2), (8, False, 2), (32, False, 2)]
+# TU classes of the decode: (size, use_dst, bit_increment, share of the
+# 4x4 groups coded); every group coded is the most input a class can
+# carry, a quarter of them nearer a decode's classes, none the kernel's
+# cost without input
+RESIDUAL_TIMING = [(4, True, 0, 1.0), (4, False, 0, 1.0), (8, False, 0, 1.0),
+                   (16, False, 0, 1.0), (32, False, 0, 1.0),
+                   (4, True, 2, 1.0), (8, False, 2, 1.0), (32, False, 2, 1.0),
+                   (8, False, 0, 0.25), (16, False, 0, 0.25),
+                   (32, False, 0, 0.25), (32, False, 0, 0.0)]
+# published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s, dense int8 tensor-core ops/s, float32 ops/s outside the tensor
+# cores (the rate int32 work is held to here)
+HBM_BYTES_S = 3.35e12
+INT8_TENSOR_OPS = 1.979e15
+FP32_OPS = 67e12
 # PU classes of the fast-RD sweep: (size, bit_increment)
 SATD_CLASSES = [(4, 0), (8, 0), (16, 0), (32, 0), (64, 0), (8, 2), (64, 2)]
 SATD_MODES = 35
 # the CPU-against-CUDA identity clip
 SMALL_W, SMALL_H, SMALL_FRAMES, SMALL_QPS = 416, 240, 2, (27, 37)
-PORT_ENCODER = "thevc_tpu_torch.apps.encoder"
 CFG = ROOT / "tests" / "cfg"
 # the small inter streams: name -> (frames, cfg)
 SMALL_INTER = {"ldp": (5, CFG / "encoder_lowdelay_P_main.cfg"),
@@ -111,52 +141,135 @@ def gpu_line() -> str:
     return r.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, iters: int) -> float:
-    """Mean milliseconds per call on the card (CUDA events, 2 warm-ups)."""
+def time_ms(torch, fn, iters: int, reps: int = 1) -> float:
+    """Milliseconds per call on the card: the mean over ``iters`` calls
+    between two CUDA events, after 2 warm-ups; with ``reps`` > 1 the
+    median of that many such means."""
     for _ in range(2):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
+    means = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return sorted(means)[len(means) // 2]
+
+
+def residual_bound(n: int, size: int, m_rows: int, packed: bool) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one residual launch:
+    the bytes it must move (the coded groups, their indices and the QPs
+    in, or the dense coefficients; the int16 residual out) over HBM's
+    rate, and its multiply-adds (two passes of ``size`` per coefficient,
+    twice over for the hi/lo split on the int8 tensor cores; on the
+    int32 CUDA cores for 4x4) over the peak rate of their type."""
+    coeffs = n * size * size
+    nbytes = (m_rows * (32 + 4) if packed else coeffs * 2) + n * 4 \
+        + coeffs * 2
+    if size >= 8:
+        ops, peak = coeffs * 2 * size * 2 * 2, INT8_TENSOR_OPS
+    else:
+        ops, peak = coeffs * 2 * size * 2, FP32_OPS
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
+    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def packed_class(rng, n: int, size: int, bit_inc: int, density: float):
+    """Full-range int16 coefficients with each 4x4 group coded with
+    probability ``density``, CG-packed as the decode ships them; QPs of
+    slice QPs 0..51.  Returns (dense q, qp, vals, idx, coded rows)."""
+    import numpy as np
+    from thevc_tpu_torch.decoder.recon import _pack_cgs
+    q = rng.randint(-32768, 32768, (n, size, size)).astype(np.int16)
+    if density < 1.0:
+        g = size // 4
+        keep = rng.rand(n, g, 1, g, 1) < density
+        q *= np.broadcast_to(keep, (n, g, 4, g, 4)).reshape(q.shape)
+    qp = rng.randint(0, 52 + 6 * bit_inc, n).astype(np.int32)
+    if size == 4:
+        return q, qp, None, None, 0
+    vals, idx = _pack_cgs(q, size, n)
+    coded = int((idx < n * (size // 4) ** 2).sum())
+    return q, qp, vals, idx, coded
+
+
+def graph_ms(torch, fn, iters: int, reps: int = 5) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph (after a warm-up on a side stream) and replayed between two
+    CUDA events, so host launch costs are not counted; the median of
+    ``reps`` replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
         fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(torch, graph.replay, 1, reps) / iters
+    del graph
+    return ms
 
 
 def kernel_phase(torch, tq, rng_seed: int) -> dict:
-    """Kernel vs plain version for every class; returns the timings."""
+    """The residual kernel (K1) vs its plain version in every class, at a
+    ragged size and at the size of a class that covers 8 luma planes of
+    1920x1080; 8x8 to 32x32 through the fused CG-packed entry (as the
+    decode ships them), 4x4 dense.  Returns the timings."""
     import numpy as np
     dev = torch.device("cuda")
     rng = np.random.RandomState(rng_seed)
     max_err = 0
     rows = []
-    for size, use_dst, bit_inc in CLASSES:
-        # a ragged small batch, then the timing size: one class covering
-        # 8 luma planes of 1920x1080
+    for size, use_dst, bit_inc, density in RESIDUAL_TIMING:
         for n in (4099, FRAMES * WIDTH * HEIGHT // (size * size)):
-            q = torch.from_numpy(rng.randint(
-                -32768, 32768, (n, size, size)).astype(np.int16)).to(dev)
-            qp = torch.from_numpy(rng.randint(0, 64, n).astype(
-                np.int32)).to(dev)
-            got = tq.residual_pipeline(q, qp, use_dst, bit_inc)
-            plain = tq.residual_pipeline_plain(q, qp, use_dst, bit_inc)
+            q, qp, vals, idx, coded = packed_class(rng, n, size, bit_inc,
+                                                   density)
+            qp_d = torch.from_numpy(qp).to(dev)
+            if size == 4:
+                q_d = torch.from_numpy(q).to(dev)
+                def run(q_d=q_d, qp_d=qp_d):
+                    return tq.residual_pipeline(q_d, qp_d, use_dst, bit_inc)
+                def plain(q_d=q_d, qp_d=qp_d):
+                    return tq.residual_pipeline_plain(q_d, qp_d, use_dst,
+                                                      bit_inc)
+            else:
+                v_d = torch.from_numpy(vals).to(dev)
+                i_d = torch.from_numpy(idx).to(dev)
+                def run(v_d=v_d, i_d=i_d, qp_d=qp_d):
+                    return tq.residual_pipeline_packed(v_d, i_d, qp_d, size,
+                                                       use_dst, bit_inc)
+                def plain(v_d=v_d, i_d=i_d, qp_d=qp_d):
+                    return tq.residual_pipeline_packed_plain(
+                        v_d, i_d, qp_d, size, use_dst, bit_inc)
+            got, want = run(), plain()
             torch.cuda.synchronize()
-            err = int((got.to(torch.int32) - plain.to(torch.int32))
+            err = int((got.to(torch.int32) - want.to(torch.int32))
                       .abs().max())
             max_err = max(max_err, err)
-            check(torch.equal(got, plain),
+            check(torch.equal(got, want),
                   f"kernel != plain at {size}x{size} dst={use_dst} "
-                  f"bit_inc={bit_inc} n={n} (max abs err {err})")
-        ms = time_ms(torch, lambda: tq.residual_pipeline(
-            q, qp, use_dst, bit_inc), 20)
-        plain_ms = time_ms(torch, lambda: tq.residual_pipeline_plain(
-            q, qp, use_dst, bit_inc), 5)
-        nbytes = q.numel() * 2 * 2 + qp.numel() * 4
-        row = dict(size=size, dst=use_dst, bit_inc=bit_inc, n=n, ms=ms,
-                   plain_ms=plain_ms, gb_s=nbytes / ms / 1e6)
+                  f"bit_inc={bit_inc} density={density} n={n} "
+                  f"(max abs err {err})")
+        ms = time_ms(torch, run, 20)
+        g_ms = graph_ms(torch, run, 20)
+        plain_ms = time_ms(torch, plain, 5)
+        nbytes, ops, bound_ms, bound_by = residual_bound(
+            n, size, coded, size >= 8)
+        row = dict(size=size, dst=use_dst, bit_inc=bit_inc, density=density,
+                   n=n, coded_groups=coded, ms=ms, graph_ms=g_ms,
+                   plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                   bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms,
+                   graph_share_of_bound=bound_ms / g_ms,
+                   gb_s=nbytes / ms / 1e6)
         rows.append(row)
         print("kernel residual " + json.dumps(row))
     return {"max_abs_err": max_err, "rows": rows}
@@ -252,8 +365,70 @@ def decode_phase(torch, work: Path, made: dict) -> dict:
     launches = res.pop("launches")
     out = dict(res, residual_kernel_launches=launches["residual"])
     print("decode " + json.dumps(out))
+    out["residual_classes"] = decode_class_times(torch, stream)
     out.update(clip=str(clip), stream=str(stream), enc_rec=str(enc_rec))
     return out
+
+
+def decode_class_times(torch, stream: Path) -> dict:
+    """Decode ``stream`` on ``cuda`` recording the residual kernel's
+    inputs, then hold the kernel against its plain version on each of
+    those classes (the decode's own data), time both and print the
+    kernel's bound and share, as in the K1 phase."""
+    from thevc_tpu_torch.decoder.top import Decoder
+    from thevc_tpu_torch.ops import tq
+    calls = []
+    packed, dense = tq.residual_pipeline_packed, tq.residual_pipeline
+    plain_of = {packed: tq.residual_pipeline_packed_plain,
+                dense: tq.residual_pipeline_plain}
+
+    def record_packed(vals, idx, qp, size, use_dst, bit_inc):
+        calls.append((packed, (vals, idx, qp, size, use_dst, bit_inc)))
+        return packed(vals, idx, qp, size, use_dst, bit_inc)
+
+    def record_dense(q, qp, use_dst, bit_inc):
+        calls.append((dense, (q, qp, use_dst, bit_inc)))
+        return dense(q, qp, use_dst, bit_inc)
+    tq.residual_pipeline_packed, tq.residual_pipeline = record_packed, \
+        record_dense
+    try:
+        pics = Decoder("cuda").decode_stream(stream.read_bytes())
+    finally:
+        tq.residual_pipeline_packed, tq.residual_pipeline = packed, dense
+    check(all(p.digest_ok for p in pics), "the recording decode failed")
+    rows = []
+    max_err = 0
+    for fn, args in calls:
+        if fn is packed:
+            vals, idx, qp, size = args[:4]
+            n = int(qp.shape[0])
+            coded = int((idx < n * (size // 4) ** 2).sum())
+        else:
+            n, size, coded = int(args[0].shape[0]), int(args[0].shape[1]), 0
+        got, want = fn(*args), plain_of[fn](*args)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"kernel != plain on the decode's "
+              f"{size}x{size} class of {n} TUs (max abs err {err})")
+
+        def run(fn=fn, args=args):
+            return fn(*args)
+
+        def plain(fn=plain_of[fn], args=args):
+            return fn(*args)
+        ms = time_ms(torch, run, 20)
+        g_ms = graph_ms(torch, run, 20)
+        plain_ms = time_ms(torch, plain, 5)
+        nbytes, ops, bound_ms, bound_by = residual_bound(n, size, coded,
+                                                         fn is packed)
+        rows.append(dict(size=size, dst=bool(args[-2]), n=n,
+                         coded_groups=coded, ms=ms, graph_ms=g_ms,
+                         plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
+                         bound_by=bound_by, share_of_bound=bound_ms / ms,
+                         graph_share_of_bound=bound_ms / g_ms))
+        print("decode_class residual " + json.dumps(rows[-1]))
+    return {"max_abs_err": max_err, "rows": rows}
 
 
 def inter_decode_phase(torch, work: Path, made: dict) -> dict:
@@ -351,6 +526,19 @@ def small_inter_phase(torch, work: Path, made: dict) -> dict:
     return out
 
 
+def satd_bound(n: int, size: int) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one SATD sweep: org and
+    the 35 candidates in (int16), the int32 sums out; per candidate sample
+    a difference, the 4x4 (PU 4) or 8x8 Hadamard's butterflies and an
+    absolute value and a sum, int32 on the CUDA cores."""
+    samples = n * SATD_MODES * size * size
+    nbytes = (n * size * size + samples) * 2 + n * SATD_MODES * 4
+    ops = samples * (2 * (2 if size == 4 else 3) + 3)
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
+    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
 def satd_phase(torch, satd, rng_seed: int) -> dict:
     """SATD kernel vs plain version for every PU class; returns timings."""
     import numpy as np
@@ -377,11 +565,17 @@ def satd_phase(torch, satd, rng_seed: int) -> dict:
                   f" n={n} (max abs err {err})")
         ms = time_ms(torch, lambda: satd.satd_blocks(org, preds, bit_inc),
                      20)
+        g_ms = graph_ms(torch, lambda: satd.satd_blocks(org, preds,
+                                                        bit_inc), 20)
         plain_ms = time_ms(torch, lambda: satd.satd_plain(org, preds,
                                                           bit_inc), 5)
-        nbytes = preds.numel() * 2 + org.numel() * 2 + n * SATD_MODES * 4
+        nbytes, ops, bound_ms, bound_by = satd_bound(n, size)
         row = dict(size=size, bit_inc=bit_inc, n=n, m=SATD_MODES, ms=ms,
-                   plain_ms=plain_ms, gb_s=nbytes / ms / 1e6)
+                   graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
+                   ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                   share_of_bound=bound_ms / ms,
+                   graph_share_of_bound=bound_ms / g_ms,
+                   gb_s=nbytes / ms / 1e6)
         rows.append(row)
         print("kernel satd " + json.dumps(row))
     return {"max_abs_err": max_err, "rows": rows}
@@ -412,8 +606,7 @@ def port_encode(clip: Path, stream: Path, recon: Path, width: int,
     t0 = time.perf_counter()
     out = streams.encode(clip, stream, recon, width, height, frames,
                          extra=(f"--QP={qp}", "--SAO=1", "--FastRD=1",
-                                f"--device={device}"),
-                         module=PORT_ENCODER)
+                                f"--device={device}"))
     wall = time.perf_counter() - t0
     lines = [ln for ln in out.splitlines() if ln.startswith(REPORT_PREFIX)]
     check(len(lines) == 1, f"no report line from the port's encoder:\n"
@@ -538,10 +731,18 @@ def main() -> int:
     identity_phase(work)
     inter = inter_decode_phase(torch, work, made)
     small = small_inter_phase(torch, work, made)
-    check("jax" not in sys.modules, "jax was imported")
+    check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
+          "jax or a module of the JAX package was imported")
 
-    top = next(r for r in kern["rows"] if r["size"] == 32
-               and r["bit_inc"] == 0)
+    # K1's time: the intra decode's largest class (by bytes), the main
+    # path's own data; beside it the 32x32 class with every group coded
+    classes = dec["residual_classes"]
+    top = max(classes["rows"], key=lambda r: r["bytes"])
+    print("residual kernels line " + json.dumps({
+        "decode_class": top, "all_coded_32x32": next(
+            r for r in kern["rows"] if r["size"] == 32
+            and r["bit_inc"] == 0 and r["density"] == 1.0)}))
     # K2's time: one 1080p frame's 35-mode sweep, the five bit_inc 0
     # classes summed
     frame = [r for r in k2["rows"] if r["bit_inc"] == 0]
@@ -557,15 +758,21 @@ def main() -> int:
         "source": "thevc_tpu_torch/csrc/residual.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
         "launches": sum(p.get("residual", 0) for p in by_path.values()),
-        "max_abs_err": kern["max_abs_err"],
-        "ms": top["ms"], "plain_ms": top["plain_ms"]}, {
+        "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"]),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None}, {
         "name": "satd", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/satd.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:63",
         "launches": fast["satd_launches"],
         "max_abs_err": k2["max_abs_err"],
         "ms": sum(r["ms"] for r in frame),
-        "plain_ms": sum(r["plain_ms"] for r in frame)}]}))
+        "plain_ms": sum(r["plain_ms"] for r in frame),
+        "bound_ms": sum(r["bound_ms"] for r in frame),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in frame)
+        else "operations",
+        "library_ms": None}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,13 +4,16 @@
 96x80 2-frame clip: the stream must decode digest-OK through the port's
 decoder and the JAX package's host decoder, and stay within 3% of the
 size of the JAX package's own fast-RD stream of the same input.  The
-seam (``encoder.top.device_decisions``) must restore the reference's
-functions, refuse what would import ``jax``, and refuse P/B fast-RD.
+port's decision device (``encoder.top.device_decisions``) must leave the
+reference's functions alone and restore the previous device on exit; the
+JAX package's switches must take no JAX path in the port, and the encoder
+must refuse P/B fast-RD.
 """
 
 import contextlib
 import io
 import json
+import os
 import subprocess
 import sys
 
@@ -22,6 +25,7 @@ from thevc_tpu import native
 from thevc_tpu.encoder import fast_inter
 from thevc_tpu.encoder import fast_intra as ref_fast_intra
 from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
+from thevc_tpu_torch.encoder import fast_intra as port_fast_intra
 from thevc_tpu_torch.encoder.top import device_decisions
 
 W, H, FRAMES, QP = 96, 80, 2, 32
@@ -124,17 +128,23 @@ def test_port_encode_never_imports_jax(clip, tmp_path):
 
 def test_device_decisions_restores_reference_on_exit():
     original = (ref_fast_intra.decide_frame, fast_inter.dispatch_frame_p)
+    assert port_fast_intra.active_decisions is None
     with device_decisions("cpu") as stats:
-        assert ref_fast_intra.decide_frame is not original[0]
-        assert fast_inter.dispatch_frame_p is not original[1]
+        # the port's own decision pass takes the device; the reference's
+        # functions are left alone
+        assert port_fast_intra.active_decisions == (torch.device("cpu"), stats)
+        assert (ref_fast_intra.decide_frame,
+                fast_inter.dispatch_frame_p) == original
     assert stats.frames == 0
-    assert (ref_fast_intra.decide_frame, fast_inter.dispatch_frame_p) == \
-        original
+    assert port_fast_intra.active_decisions is None
     with pytest.raises(RuntimeError, match="inside"):
         with device_decisions("cpu"):
             raise RuntimeError("inside")
+    assert port_fast_intra.active_decisions is None
     assert (ref_fast_intra.decide_frame, fast_inter.dispatch_frame_p) == \
         original
+    with pytest.raises(RuntimeError, match="device_decisions"):
+        port_fast_intra.decide_frame(*[None] * 14)
 
 
 def test_p_slice_fast_rd_raises(clip, tmp_path):
@@ -149,11 +159,22 @@ def test_p_slice_fast_rd_raises(clip, tmp_path):
 @pytest.mark.parametrize("name,value", [("THEVC_DEVICE", "1"),
                                         ("THEVC_FASTRD_DEVAPPLY", "1"),
                                         ("THEVC_FASTRD_DEVAPPLY", "force")])
-def test_device_decisions_refuses_jax_paths(name, value, monkeypatch):
-    monkeypatch.setenv(name, value)
-    with pytest.raises(ValueError, match=name):
-        with device_decisions("cpu"):
-            pass
+def test_device_decisions_refuses_jax_paths(name, value, clip, tmp_path):
+    """The JAX package's device switch is not read by the port (its encode
+    runs and imports no ``jax``); its device apply is not ported and
+    raises."""
+    r = subprocess.run(
+        [sys.executable, "-m", "thevc_tpu_torch.apps.encoder",
+         *_args(clip, tmp_path / "sub.bin"), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=600,
+        env={**os.environ, name: value})
+    if name == "THEVC_DEVICE":
+        assert r.returncode == 0, r.stderr[-4000:]
+        assert _report(r.stdout)["jax_imported"] is False
+    else:
+        assert r.returncode != 0
+        assert "NotImplementedError" in r.stderr and name in r.stderr, \
+            r.stderr[-4000:]
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

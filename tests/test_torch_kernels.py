@@ -1,6 +1,6 @@
-"""The hand-written CUDA kernels (residual, SATD) against their plain
-versions, the fast-RD decision pass, motion compensation and the P/B
-decode on CUDA against the CPU, on a CUDA card.
+"""The hand-written CUDA kernels (residual, dense and CG-packed; SATD)
+against their plain versions, the fast-RD decision pass, motion
+compensation and the P/B decode on CUDA against the CPU, on a CUDA card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and
 skips without one.  Run on the GPU machine with
@@ -17,6 +17,7 @@ import torch
 
 from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
+from thevc_tpu_torch.decoder.recon import _pack_cgs
 from thevc_tpu_torch.encoder import fast_intra
 from thevc_tpu_torch.ops import mc, residual_kernel, satd, satd_kernel, tq
 
@@ -61,7 +62,6 @@ def test_packed_pipeline_on_cuda(cuda):
     q = rng.randint(-900, 900, (n, size, size)).astype(np.int16)
     q[rng.rand(n) < 0.5] = 0
     qp = rng.randint(0, 52, n).astype(np.int32)
-    from thevc_tpu.decoder.recon import _pack_cgs
     vals, idx = _pack_cgs(q, size, n)
     got = tq.residual_pipeline_packed(
         torch.from_numpy(vals).to(cuda), torch.from_numpy(idx).to(cuda),
@@ -71,21 +71,77 @@ def test_packed_pipeline_on_cuda(cuda):
     assert torch.equal(got.cpu(), ref)
 
 
+def _packed_case(size, n, bit_inc, density, seed):
+    """Full-range int16 coefficients, each 4x4 group coded with
+    probability ``density`` and a fifth of the TUs with no coded group,
+    CG-packed with the decoder's padding rows; scaled QPs of slice QPs
+    0..51."""
+    rng = np.random.RandomState(seed)
+    q = rng.randint(-32768, 32768, (n, size, size)).astype(np.int16)
+    g = size // 4
+    keep = rng.rand(n, g, 1, g, 1) < density
+    keep[rng.rand(n) < 0.2] = False
+    keep = np.broadcast_to(keep, (n, g, 4, g, 4)).reshape(n, size, size)
+    q = np.where(keep, q, 0).astype(np.int16)
+    qp = rng.randint(0, 52 + 6 * bit_inc, n).astype(np.int32)
+    vals, idx = _pack_cgs(q, size, n)
+    return q, qp, vals, idx
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+@pytest.mark.parametrize("n", [1, 63, 4099])
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_fused_packed_kernel_equals_plain(cuda, size, bit_inc, n, density):
+    """The fused kernel (CG unpack + dequant + both passes on the tensor
+    cores) against the plain packed version, tolerance 0: full-range
+    values exercise the hi/lo split, TUs with no coded group and the
+    padding rows the binary search, and N not a multiple of the block's
+    tile the ragged last block."""
+    q, qp, vals, idx = _packed_case(size, n, bit_inc, density,
+                                    size + 7 * n + 3 * bit_inc)
+    args = [torch.from_numpy(a).to(cuda) for a in (vals, idx, qp)]
+    before = residual_kernel.launches
+    got = tq.residual_pipeline_packed(*args, size, False, bit_inc)
+    torch.cuda.synchronize()
+    assert residual_kernel.launches == before + 1
+    assert got.dtype == torch.int16 and tuple(got.shape) == (n, size, size)
+    assert torch.equal(got, tq.residual_pipeline_packed_plain(
+        *args, size, False, bit_inc))
+    ref = tops.inverse_transform(tops.dequant(q.astype(np.int32), qp,
+                                              bit_inc),
+                                 False, bit_inc).astype(np.int16)
+    assert np.array_equal(got.cpu().numpy(), ref)
+
+
 @pytest.mark.gpu
 def test_kernel_rejects_bad_inputs(cuda):
     basis = from_reference(cuda).dct[8]
     x = torch.zeros((3, 8, 8), dtype=torch.int16, device=cuda)
-    scale = torch.ones(3, dtype=torch.int32, device=cuda)
+    qp = torch.ones(3, dtype=torch.int32, device=cuda)
     with pytest.raises(TypeError):
-        residual_kernel.residual(x.to(torch.int32), scale, basis, 2, 12)
+        residual_kernel.residual(x.to(torch.int32), qp, basis, 2, 12)
     with pytest.raises(ValueError):
-        residual_kernel.residual(x, scale[:2], basis, 2, 12)
+        residual_kernel.residual(x, qp[:2], basis, 2, 12)
     with pytest.raises(ValueError):
-        residual_kernel.residual(x.transpose(1, 2), scale, basis, 2, 12)
+        residual_kernel.residual(x.transpose(1, 2), qp, basis, 2, 12)
     with pytest.raises(ValueError):
-        residual_kernel.residual(x.cpu(), scale, basis, 2, 12)
+        residual_kernel.residual(x.cpu(), qp, basis, 2, 12)
     with pytest.raises(RuntimeError):
-        residual_kernel.residual(x, scale, basis, 0, 12)   # bad shift
+        residual_kernel.residual(x, qp, basis, 0, 12)   # bad shift
+    vals = torch.zeros((4, 16), dtype=torch.int16, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        residual_kernel.residual_packed(vals, idx, qp, basis, 4, 2, 12)
+    with pytest.raises(TypeError):
+        residual_kernel.residual_packed(vals, idx.long(), qp, basis, 8, 2,
+                                        12)
+    with pytest.raises(ValueError):
+        residual_kernel.residual_packed(vals[:, :8], idx, qp, basis, 8, 2,
+                                        12)
+    with pytest.raises(RuntimeError):
+        residual_kernel.residual_packed(vals, idx, qp, basis, 8, 0, 12)
 
 
 SATD_CLASSES = [(4, 0), (8, 0), (16, 0), (32, 0), (64, 0), (8, 2), (64, 2)]
@@ -213,7 +269,7 @@ def test_mc_batch_cuda_equals_cpu(cuda, case, luma, bi, bd):
 
 @pytest.mark.gpu
 def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
-    from thevc_tpu import native
+    from thevc_tpu_torch import native
     from thevc_tpu_torch import streams
     from thevc_tpu_torch.decoder.top import Decoder
     assert native.get_lib() is not None

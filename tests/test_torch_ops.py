@@ -13,6 +13,7 @@ import jax.numpy as jnp
 from thevc_tpu.decoder.recon import _pack_cgs
 from thevc_tpu.ops import jx, jx_pallas
 from thevc_tpu.ops import transforms as tops
+from thevc_tpu_torch.decoder.recon import _pack_cgs as port_pack_cgs
 from thevc_tpu_torch.ops import tq
 
 # the cases of tests/test_pallas.py (sizes 4-32, DST, bit_inc 0/2)
@@ -89,6 +90,33 @@ def test_unpack_and_packed_pipeline_match_jax(size):
             jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(qp), size,
             False, bit_inc))
         assert np.array_equal(got, ref)
+
+
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("size", [8, 16, 32])
+def test_packed_pipeline_full_range_matches_jax(size, bit_inc):
+    """The inputs of the fused kernel's tests: full-range int16 groups,
+    TUs with no coded group, padding rows, N not a multiple of the
+    kernel's tile; the port's packed pipeline (its plain version here)
+    against the JAX package's, exact."""
+    rng = np.random.RandomState(100 + size + bit_inc)
+    n = 37
+    q = rng.randint(-32768, 32768, (n, size, size)).astype(np.int16)
+    g = size // 4
+    keep = rng.rand(n, g, 1, g, 1) < 0.5
+    keep[rng.rand(n) < 0.2] = False
+    q = np.where(np.broadcast_to(keep, (n, g, 4, g, 4)).reshape(q.shape),
+                 q, 0).astype(np.int16)
+    qp = rng.randint(0, 52 + 6 * bit_inc, n).astype(np.int32)
+    vals, idx = port_pack_cgs(q, size, n)
+    assert np.array_equal(vals, _pack_cgs(q, size, n)[0])
+    got = tq.residual_pipeline_packed(
+        torch.from_numpy(vals), torch.from_numpy(idx), torch.from_numpy(qp),
+        size, False, bit_inc).numpy()
+    ref = np.asarray(jx.residual_pipeline_packed(
+        jnp.asarray(vals), jnp.asarray(idx), jnp.asarray(qp), size, False,
+        bit_inc))
+    assert np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize("bit_inc", [0, 2])

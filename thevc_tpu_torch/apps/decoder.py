@@ -22,7 +22,7 @@ import time
 
 import torch
 
-from thevc_tpu.io.yuv import YuvWriter
+from ..io.yuv import YuvWriter
 
 from ..decoder.top import Decoder
 

@@ -1,30 +1,32 @@
-"""Encoder CLI of the port: the reference encoder (TAppEncoder's
-arguments and output, ``thevc_tpu/apps/encoder.py``) with its fast-RD
-intra decision pass on a torch device.
+"""Encoder CLI: python -m thevc_tpu_torch.apps.encoder -c cfg \
+   -i in.yuv -b str.bin -o rec.yuv -wdt W -hgt H -f N -fr FPS [--device cuda]
 
-Usage: python -m thevc_tpu_torch.apps.encoder -c cfg -i in.yuv -b str.bin
-       [-o rec.yuv] -wdt W -hgt H -f N -fr FPS --FastRD=1 [--device cuda]
+Behavioral reference: TAppEncoder/encmain.cpp + TAppEncTop.cpp.  A copy of
+``thevc_tpu/apps/encoder.py`` with the port's ``--device`` option and
+report line.
 
-``--device`` defaults to ``cuda`` and fails when CUDA is absent; the CPU
-is used only when ``--device cpu`` asks for it.  Only ``--FastRD=1``
-intra slices reach the port; P/B slices with ``--FastRD=1`` raise
-``NotImplementedError``, and ``--FastRD=0`` (the exact path) runs the
-reference's host search.  The last line of the output is
-``thevc_tpu_torch.encoder {...}``: the launches of the residual and SATD
-kernels, the frames decided, the summed decision-pass wall time in
-seconds (synchronised with the device) and whether ``jax`` was imported.
+Without ``--FastRD=1`` this is the exact path, the host search that
+HM runs, and the device is not used.  With ``--FastRD=1`` the
+fast-RD intra decision pass runs on the torch device ``--device``
+(``encoder.fast_intra``; default ``cuda``, which fails when CUDA is
+absent; the CPU is used only when ``--device cpu`` asks for it).  P/B
+slices with ``--FastRD=1`` raise ``NotImplementedError``.  The last line
+of the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
+residual and SATD kernels, the frames decided, the summed decision-pass
+wall time in seconds (synchronised with the device) and whether ``jax``
+was imported.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import sys
 
-from thevc_tpu.apps import encoder as ref_encoder
-
-from ..encoder.top import device_decisions
+from ..encoder.top import Encoder, device_decisions
 from ..ops import residual_kernel, satd_kernel
+from ..utils.cfg import parse_args
 
 REPORT_PREFIX = "thevc_tpu_torch.encoder "
 
@@ -33,21 +35,35 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else list(argv)
     ap = argparse.ArgumentParser(prog="thevc-torch-enc", add_help=False)
     ap.add_argument("--device", default="cuda",
-                    help="torch device of the decision pass (cuda or cpu; "
-                         "default cuda)")
-    args, rest = ap.parse_known_args(argv)
+                    help="torch device of the fast-RD decision pass (cuda "
+                         "or cpu; default cuda)")
+    args, argv = ap.parse_known_args(argv)
+    cfg = parse_args(argv)
+    if not cfg.input_file or not cfg.bitstream_file:
+        print("usage: encoder -c cfg [-i in.yuv -b out.bin -o rec.yuv "
+              "-wdt W -hgt H -f N -fr FPS]", file=sys.stderr)
+        return 1
     residual_before, satd_before = residual_kernel.launches, \
         satd_kernel.launches
-    with device_decisions(args.device) as stats:
-        rc = ref_encoder.main(rest)
+    with (device_decisions(args.device) if cfg.fast_rd
+          else contextlib.nullcontext()) as stats:
+        enc = Encoder(cfg)
+        enc.encode(cfg.bitstream_file)
+    enc.print_summary()
+    # TAppEncTop::printRateSummary (TAppEncTop.cpp:486-493)
+    n = max(enc.frames_encoded, 1)
+    fr = cfg.frame_rate or 30
+    total_bytes = enc.total_bits // 8
+    print("Bytes written to file: %u (%.3f kbps)"
+          % (total_bytes, 0.008 * total_bytes / (n / fr)))
     print(REPORT_PREFIX + json.dumps({
         "device": args.device,
         "residual_launches": residual_kernel.launches - residual_before,
         "satd_launches": satd_kernel.launches - satd_before,
-        "decision_frames": stats.frames,
-        "decision_wall_s": stats.wall_s,
+        "decision_frames": stats.frames if stats else 0,
+        "decision_wall_s": stats.wall_s if stats else 0.0,
         "jax_imported": "jax" in sys.modules}))
-    return rc
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 """The codec's constant tables as tensors on one device.
 
-The numbers come from the JAX package's host modules (``common/rom.py``,
-``ops/deblock.py``), so both packages compute from the same tables:
+The numbers come from the host modules (``common/rom.py``,
+``ops/deblock.py``, copies of the JAX package's), so the port computes
+from the tables the reference does:
 ``DCT_MATRICES``, ``DST4``, ``INV_QUANT_SCALES`` and ``QUANT_SCALES``
 (the transform and quantiser paths, as ``ops/jx.py`` and
 ``ops/jx_pallas.py`` use them), ``TC_TABLE``, ``BETA_TABLE`` and
@@ -19,9 +20,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from thevc_tpu.common import rom
-from thevc_tpu.encoder import rdcost
-from thevc_tpu.ops import deblock, interp
+from ..encoder import rdcost
+from ..ops import deblock, interp
+from . import rom
 
 
 @dataclass(frozen=True)

@@ -3,9 +3,10 @@
 The device half of ``thevc_tpu/decoder/inter.py``: ``precompute_device``
 (:121-221) becomes ``predict_picture``, which returns the picture's
 prediction on the device instead of filling ``InterPredictor._dev_store``.
-The host keeps the reference's PU enumeration
-(``InterPredictor._enumerate_pus``, which applies
-``xCheckIdenticalMotion``) and computes ``clip_mv``'s clamp and each
+The host half, ``InterPredictor`` (the per-PU host MC that the encoder's
+inter search runs, and ``_enumerate_pus``, which applies
+``xCheckIdenticalMotion``), is copied below without the device batch
+path.  The host enumerates PUs and computes ``clip_mv``'s clamp and each
 job's window over numpy arrays; the window gather, one
 ``ops.mc.mc_batch`` per (component, filter case, size, bi) class, one
 ``bi_avg_batch`` per block size and the scatter into the prediction run
@@ -25,16 +26,174 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from thevc_tpu.decoder.frame import MODE_INTRA
-
 from ..ops import mc
 from ..ops.device import stage, stat_h2d, stat_launch
+from ..ops.interp import bi_avg, mc_chroma, mc_luma
+from .frame import MODE_INTRA
+from .mv import clip_mv, num_pus, pu_geometry
 
 # TComDataCU::clipMv's slack past the picture, in samples
 _CLIP_OFF = 8
 # columns of the PU table (_pu_table)
 _RUN, _XP, _YP, _PW, _PH, _CUX, _CUY, _REF0, _MV0, _REF1, _MV1 = \
     0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11
+
+
+# -- thevc_tpu/decoder/inter.py:20-120, 224-283, without the device batch
+# path (``_dev_store``, ``precompute_device``)
+
+
+class InterPredictor:
+    """Motion compensation for one slice: holds ref lists + geometry."""
+
+    def __init__(self, frame, sh, sps, pps, list0, list1):
+        self.f = frame
+        self.sh = sh
+        self.sps = sps
+        self.pps = pps
+        self.lists = [list0, list1]
+        self.bd = sps.internal_bit_depth
+        self.pic_w = sps.pic_width_in_luma_samples
+        self.pic_h = sps.pic_height_in_luma_samples
+        self.ctu = sps.max_cu_width
+        # explicit weighted prediction (TComWeightPrediction.cpp)
+        self.wp_active = (pps.use_wp and sh.slice_type == 1) or \
+                         (pps.wp_bipred and sh.slice_type == 0)
+        self.wp = getattr(sh, "wp_scaling", None) if self.wp_active else None
+
+    # -- weighted prediction helpers (TComWeightPrediction.cpp:61-366) ----
+    def _wp_params(self, lst: int, ref: int, comp: int):
+        """(weight, iOffset, log2denom) for one list/ref/component."""
+        w = self.wp["wp"][lst][ref][comp]
+        denom = self.wp["luma_log2_denom"] if comp == 0 \
+            else self.wp["chroma_log2_denom"]
+        return w[1], w[2], denom
+
+    def _weight_uni(self, blk, lst, ref, comp):
+        """addWeightUni: src is in the 14-bit internal domain (bi=True)."""
+        w, ioff, denom = self._wp_params(lst, ref, comp)
+        bd = self.bd
+        offset = ioff * (1 << (bd - 8))
+        shift = denom + (14 - bd)
+        round_ = (1 << (shift - 1)) if shift else 0
+        v = ((w * (blk.astype(np.int64) + 8192) + round_) >> shift) + offset
+        return np.clip(v, 0, (1 << bd) - 1).astype(np.int16)
+
+    def _weight_bi(self, b0, b1, ref0, ref1, comp):
+        """addWeightBi with the bi-dir derivation (getWpScaling)."""
+        w0, io0, denom = self._wp_params(0, ref0, comp)
+        w1, io1, _ = self._wp_params(1, ref1, comp)
+        bd = self.bd
+        o0 = io0 * (1 << (bd - 8))
+        o1 = io1 * (1 << (bd - 8))
+        offset = o0 + o1
+        shift = denom + 1 + (14 - bd)
+        round_ = (1 << (shift - 1)) if shift else 0
+        v = (w0 * (b0.astype(np.int64) + 8192)
+             + w1 * (b1.astype(np.int64) + 8192)
+             + round_ + (offset << (shift - 1))) >> shift
+        return np.clip(v, 0, (1 << bd) - 1).astype(np.int16)
+
+    def predict_cu(self, px: int, py: int, size: int):
+        """motionCompensation over all PUs of the CU at (px, py).
+
+        Returns (pred_y, pred_cb, pred_cr) int16 blocks in pixel domain.
+        """
+        f = self.f
+        pred_y = np.zeros((size, size), np.int16)
+        cs = size // 2
+        pred_cb = np.zeros((cs, cs), np.int16)
+        pred_cr = np.zeros((cs, cs), np.int16)
+        part_sz = int(f.part_size_arr[py // 4, px // 4])
+        for pu in range(num_pus(part_sz)):
+            xp, yp, pw, ph = pu_geometry(part_sz, px, py, size, pu)
+            self._predict_pu(px, py, xp, yp, pw, ph,
+                             pred_y, pred_cb, pred_cr, px, py)
+        return pred_y, pred_cb, pred_cr
+
+    def _enumerate_pus(self, cu_entries):
+        """(xp, yp, pw, ph, cu_x, cu_y, ref0, mv0, ref1, mv1) per PU of
+        the given inter CUs (mirrors predict_cu + xCheckIdenticalMotion)."""
+        f = self.f
+        pus = []
+        for (px, py, size, mode, l0, l1, c0, c1) in cu_entries:
+            part_sz = int(f.part_size_arr[py // 4, px // 4])
+            for pu in range(num_pus(part_sz)):
+                xp, yp, pw, ph = pu_geometry(part_sz, px, py, size, pu)
+                ref0, mv0 = self._pu_motion(xp, yp, 0)
+                ref1, mv1 = self._pu_motion(xp, yp, 1)
+                if (self.sh.slice_type == 0 and not self.pps.wp_bipred and
+                        ref0 >= 0 and ref1 >= 0 and
+                        self.lists[0][ref0].poc == self.lists[1][ref1].poc
+                        and mv0 == mv1):
+                    ref1 = -1
+                pus.append((xp, yp, pw, ph, px, py, ref0, mv0, ref1, mv1))
+        return pus
+
+    # ------------------------------------------------------------------
+    def _pu_motion(self, xp, yp, lst):
+        f = self.f
+        ux, uy = xp // 4, yp // 4
+        ref = int(f.ref_idx[lst, uy, ux])
+        mv = (int(f.mv[lst, uy, ux, 0]), int(f.mv[lst, uy, ux, 1]))
+        return ref, mv
+
+    def _predict_pu(self, cu_x, cu_y, xp, yp, pw, ph,
+                    pred_y, pred_cb, pred_cr, px0, py0):
+        ref0, mv0 = self._pu_motion(xp, yp, 0)
+        ref1, mv1 = self._pu_motion(xp, yp, 1)
+        lx, ly = xp - px0, yp - py0
+
+        # xCheckIdenticalMotion: B slice, no weighted bipred, both lists on
+        # the same picture with the same MV -> uni L0
+        if (self.sh.slice_type == 0 and not self.pps.wp_bipred and
+                ref0 >= 0 and ref1 >= 0 and
+                self.lists[0][ref0].poc == self.lists[1][ref1].poc and
+                mv0 == mv1):
+            ref1 = -1
+
+        if ref0 >= 0 and ref1 >= 0:
+            y0, cb0, cr0 = self._mc_one(0, ref0, mv0, cu_x, cu_y,
+                                        xp, yp, pw, ph, bi=True)
+            y1, cb1, cr1 = self._mc_one(1, ref1, mv1, cu_x, cu_y,
+                                        xp, yp, pw, ph, bi=True)
+            if self.wp_active:
+                blk_y = self._weight_bi(y0, y1, ref0, ref1, 0)
+                blk_cb = self._weight_bi(cb0, cb1, ref0, ref1, 1)
+                blk_cr = self._weight_bi(cr0, cr1, ref0, ref1, 2)
+            else:
+                blk_y = bi_avg(y0, y1, self.bd)
+                blk_cb = bi_avg(cb0, cb1, self.bd)
+                blk_cr = bi_avg(cr0, cr1, self.bd)
+        else:
+            lst = 0 if ref0 >= 0 else 1
+            ref = ref0 if ref0 >= 0 else ref1
+            mv = mv0 if ref0 >= 0 else mv1
+            blk_y, blk_cb, blk_cr = self._mc_one(
+                lst, ref, mv, cu_x, cu_y, xp, yp, pw, ph,
+                bi=self.wp_active)
+            if self.wp_active:
+                blk_y = self._weight_uni(blk_y, lst, ref, 0)
+                blk_cb = self._weight_uni(blk_cb, lst, ref, 1)
+                blk_cr = self._weight_uni(blk_cr, lst, ref, 2)
+        pred_y[ly:ly + ph, lx:lx + pw] = blk_y
+        pred_cb[ly // 2:(ly + ph) // 2, lx // 2:(lx + pw) // 2] = blk_cb
+        pred_cr[ly // 2:(ly + ph) // 2, lx // 2:(lx + pw) // 2] = blk_cr
+
+    def _mc_one(self, lst, ref_idx, mv, cu_x, cu_y, xp, yp, pw, ph, bi):
+        pic = self.lists[lst][ref_idx]
+        mv = clip_mv(mv, cu_x, cu_y, self.pic_w, self.pic_h, self.ctu)
+        pad_y, pad_cb, pad_cr = pic.padded()
+        m = pic.margin
+        y = mc_luma(pad_y, m, xp, yp, mv[0], mv[1], pw, ph, self.bd, bi)
+        cb = mc_chroma(pad_cb, m // 2, xp // 2, yp // 2, mv[0], mv[1],
+                       pw // 2, ph // 2, self.bd, bi)
+        cr = mc_chroma(pad_cr, m // 2, xp // 2, yp // 2, mv[0], mv[1],
+                       pw // 2, ph // 2, self.bd, bi)
+        return y, cb, cr
+
+
+# -- the port's device route
 
 
 @dataclass(frozen=True)
@@ -137,7 +296,7 @@ def _pu_table(runs) -> np.ndarray:
 
 def clip_mvs(mv: np.ndarray, cu_x: np.ndarray, cu_y: np.ndarray, pic_w: int,
              pic_h: int, ctu: int) -> np.ndarray:
-    """``thevc_tpu.decoder.mv.clip_mv`` over arrays: mv [N, 2] -> [N, 2]."""
+    """``decoder.mv.clip_mv`` over arrays: mv [N, 2] -> [N, 2]."""
     lo_x = (-ctu - _CLIP_OFF - cu_x + 1) << 2
     hi_x = (pic_w + _CLIP_OFF - cu_x - 1) << 2
     lo_y = (-ctu - _CLIP_OFF - cu_y + 1) << 2

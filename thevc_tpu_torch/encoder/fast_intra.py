@@ -13,10 +13,11 @@ one frame, open-loop (reference samples come from the source picture):
 2. per size class >= 8, the 5-candidate chroma mode RD;
 3. a bottom-up quadtree DP, expanded to six int8 maps per 4x4 unit.
 
-The maps feed the reference encoder's native apply pass
-(``nat.set_fd``), which writes a conformant stream.  The host-only parts
-(the static prediction plans, the mode-bit classes, ``SIZES``,
-``DM_CHROMA_IDX``) are imported from the reference module, not copied.
+The maps feed the encoder's native apply pass (``nat.set_fd``), which
+writes a conformant stream.  The host-only parts of the reference module
+(the static prediction plans, ``SIZES``, ``DM_CHROMA_IDX``, and the
+mode-bit classes ``chroma_bits2`` and ``mode_bits3`` that
+``slice_encoder`` calls) are copied here unchanged.
 
 Only the reference's unified all-modes form of the size pass is ported
 (its per-mode form exists for XLA:CPU compile times and gives the same
@@ -46,18 +47,134 @@ fused multiply-adds differ from torch's), so the maps agree on at least
 from __future__ import annotations
 
 import functools
+import time
 
 import numpy as np
 import torch
 
-from thevc_tpu.encoder.fast_intra import (DM_CHROMA_IDX, SIZES,
-                                          _unified_plan)
-from thevc_tpu.ops.intra import (DC_IDX, HOR_IDX, INTRA_FILTER_THRESH,
-                                 PLANAR_IDX, VER_IDX)
-
 from ..ops import device as dev_stats
 from ..ops import tq
+from ..ops.intra import (ANG_TABLE, INV_ANG_TABLE, INTRA_FILTER_THRESH,
+                         DC_IDX, HOR_IDX, PLANAR_IDX, VER_IDX)
 from ..ops.satd import satd_blocks
+
+# -- thevc_tpu/encoder/fast_intra.py:58-163, unchanged
+
+SIZES = (4, 8, 16, 32, 64)
+DM_CHROMA_IDX = 36
+
+
+# ---------------------------------------------------------------------------
+# static per-(mode,size) index plans for batched angular prediction
+# ---------------------------------------------------------------------------
+
+def _angular_plan(size: int, mode: int):
+    """Precompute the static gather plan for one angular mode.
+
+    Returns (side_idx, n_main, off, delta_int, delta_frac, mode_hor):
+    refmain = concat(side[side_idx], main[:n_main]); prediction row k
+    (0-based) reads refmain[off + l + delta_int[k] + 1] lerped by
+    delta_frac[k] (xPredIntraAng, TComPrediction.cpp:190).
+    """
+    mode_hor = mode < 18
+    ipa = -(mode - HOR_IDX) if mode_hor else (mode - VER_IDX)
+    abs_ang = int(ANG_TABLE[abs(ipa)])
+    inv_angle = int(INV_ANG_TABLE[abs(ipa)])
+    angle = -abs_ang if ipa < 0 else abs_ang
+
+    if angle < 0:
+        ext = (size * angle) >> 5            # negative
+        side_idx = []
+        inv_sum = 128
+        for k in range(-1, ext, -1):
+            inv_sum += inv_angle
+            side_idx.append(inv_sum >> 8)
+        side_idx.reverse()                   # refmain[ext+1..-1]
+        n_main = size + 1                    # refmain[0..size]
+        # the list holds refMain[ext+1..size] (refMain[ext] is never
+        # read: the shallowest delta is one full step), so refMain[m]
+        # sits at index m - ext - 1
+        off = -ext - 1
+    else:
+        side_idx = []
+        n_main = 2 * size + 1
+        off = 0
+
+    k = np.arange(1, size + 1, dtype=np.int64)
+    delta = k * angle
+    return (np.asarray(side_idx, np.int32), n_main, off,
+            (delta >> 5).astype(np.int32), (delta & 31).astype(np.int32),
+            mode_hor, angle)
+
+
+_unified_plan_cache = {}
+
+
+def _unified_plan(size: int, luma: bool):
+    """Static gather plan for ALL 33 angular modes at once.
+
+    The canonical reference array per block is c = concat(rl, ra[1:])
+    (length L = 4s+1; index 0 is the shared corner), doubled as
+    C = concat(c, c_filtered) so the per-mode [1 2 1]-filter choice
+    (TComPrediction.cpp:385, INTRA_FILTER_THRESH) is just an index
+    offset (chroma never filters: the caller passes the raw line twice).
+    Returns (idx_a, idx_b, frac): three [33, s, s] int32 maps
+    so every angular prediction (xPredIntraAng, TComPrediction.cpp:190)
+    becomes ONE static gather + lerp — one XLA kernel instead of 33
+    separately-compiled graphs (cold 1080p compile: minutes -> seconds).
+    Horizontal modes bake the output transpose into the maps.
+    """
+    plan = _unified_plan_cache.get((size, luma))
+    if plan is not None:
+        return plan
+    s = size
+    L = 4 * s + 1
+    log2 = s.bit_length() - 1
+
+    def cidx(is_ra: bool, j: int) -> int:
+        # index of ra[j]/rl[j] inside c = concat(rl, ra[1:])
+        if j == 0:
+            return 0
+        return 2 * s + j if is_ra else j
+
+    idx_a = np.zeros((33, s, s), np.int64)
+    idx_b = np.zeros((33, s, s), np.int64)
+    frac = np.zeros((33, s, s), np.int64)
+    for mode in range(2, 35):
+        side_idx, n_main, off, dint, dfrac, mode_hor, angle = \
+            _angular_plan(s, mode)
+        main_is_ra = not mode_hor
+        refidx = [cidx(not main_is_ra, int(j)) for j in side_idx] + \
+                 [cidx(main_is_ra, j) for j in range(n_main)]
+        refidx = np.asarray(refidx, np.int64)
+        ll = np.arange(s, dtype=np.int64)
+        p = off + ll[None, :] + dint[:, None].astype(np.int64) + 1  # [s, s]
+        ia = refidx[p]
+        # b is only read where frac != 0; p+1 can run one past the end on
+        # the frac==0 rows of mode 2/34-style full-stride angles — clamp
+        ib = refidx[np.minimum(p + 1, len(refidx) - 1)]
+        fr = np.broadcast_to(dfrac[:, None].astype(np.int64), (s, s))
+        if mode_hor:
+            ia, ib, fr = ia.T, ib.T, fr.T
+        diff = min(abs(mode - HOR_IDX), abs(mode - VER_IDX))
+        if luma and diff > INTRA_FILTER_THRESH[log2]:
+            ia = ia + L
+            ib = ib + L
+        m = mode - 2
+        idx_a[m], idx_b[m], frac[m] = ia, ib, fr
+    plan = (idx_a.astype(np.int32), idx_b.astype(np.int32),
+            frac.astype(np.int32))
+    _unified_plan_cache[(size, luma)] = plan
+    return plan
+
+
+
+# -- the port's decision pass
+
+# (device, DecisionStats) of the encode running inside
+# ``encoder.top.device_decisions``: ``decide_frame`` runs there when its
+# caller names no device
+active_decisions = None
 
 # per-CU header-bit constants of the DP (fast_intra.py:608-610)
 _CU_BITS = 5.0
@@ -588,15 +705,61 @@ def decide_frame(org_y, org_cb, org_cr, width: int, height: int,
                  lambda_: float, sqrt_lambda: float, bits3: tuple,
                  cbits2: tuple, max_sig: int, min_tr_log2: int,
                  ctu_size: int = 64, bit_inc: int = 0, max_val: int = 255,
-                 *, device):
+                 *, device=None):
     """Run the decision pass for one frame on ``device`` and return its
     maps (``collect_frame``).  The positional arguments are those of the
     reference's ``decide_frame``: source planes (int16), frame size,
     scaled QPs, lambda and its square root, the intra-dir bit classes
     (mpm0, mpm12, other), the chroma bit classes (dm, other, chroma
     weight), the CU depth and the smallest TU size (log2), the CTU size,
-    the bit increment and the largest sample value."""
-    return collect_frame(dispatch_frame(
+    the bit increment and the largest sample value.
+
+    With no ``device`` it runs on the device of the enclosing
+    ``encoder.top.device_decisions`` block, whose stats it adds to, and
+    raises ``RuntimeError`` outside one."""
+    stats = None
+    if device is None:
+        if active_decisions is None:
+            raise RuntimeError("the fast-RD decision pass needs a device: "
+                               "encode inside encoder.top.device_decisions")
+        device, stats = active_decisions
+    t0 = time.perf_counter()
+    maps = collect_frame(dispatch_frame(
         org_y, org_cb, org_cr, width, height, qp_scaled, qp_cb, qp_cr,
         lambda_, sqrt_lambda, bits3, cbits2, max_sig, min_tr_log2,
         ctu_size, bit_inc, max_val, device=device))
+    if stats is not None:
+        stats.add(time.perf_counter() - t0)
+    return maps
+
+
+# -- thevc_tpu/encoder/fast_intra.py:876-887, 974-986, unchanged
+
+
+def chroma_bits2(init_ctx, chroma_weight: float) -> tuple:
+    """The two intra_chroma_pred_mode bit classes at slice-init context,
+    in whole bits: DM (one '0' ctx bin) vs the rest ('1' ctx bin + 2 EP
+    bins) (TEncSbac::codeIntraDirChroma)."""
+    from ..cabac import contexts as cc
+    from ..cabac.tables import ENTROPY_BITS
+
+    st = int(init_ctx[cc.O_CHROMA_PRED])
+    b1 = int(ENTROPY_BITS[st ^ 1])
+    b0 = int(ENTROPY_BITS[st ^ 0])
+    ep = 32768
+    return (b0 / 32768.0, (b1 + 2 * ep) / 32768.0, float(chroma_weight))
+
+
+def mode_bits3(sh, pps, init_ctx) -> tuple:
+    """The three xModeBitsIntra bit classes (mpm idx 0 / mpm idx 1-2 /
+    non-mpm) at slice-init context, in whole bits."""
+    from ..cabac import contexts as cc
+    from ..cabac.tables import ENTROPY_BITS
+
+    st = int(init_ctx[cc.O_INTRA_PRED])
+    b_flag1 = int(ENTROPY_BITS[st ^ 1])
+    b_flag0 = int(ENTROPY_BITS[st ^ 0])
+    ep = 32768
+    return ((b_flag1 + ep) / 32768.0,
+            (b_flag1 + 2 * ep) / 32768.0,
+            (b_flag0 + 5 * ep) / 32768.0)

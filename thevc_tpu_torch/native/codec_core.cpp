@@ -1,0 +1,12177 @@
+// Native decode core: host-side sequential hot loops of the TPU HEVC
+// decoder.  The TPU owns the batched math (thevc_tpu/ops/jx.py); these are
+// the serial, branchy parts the reference keeps on the CPU as well —
+// CABAC coefficient parsing and per-TU intra reconstruction.
+//
+// Behavioral references: TDecBinCoderCABAC.cpp (decodeBin :106, EP
+// :152/:171), TDecSbac.cpp (parseCoeffNxN :1133, parseLastSignificantXY
+// :1074, xReadCoefRemainExGolomb), TComTrQuant.cpp sig-ctx helpers
+// (:2315, :2350, :2707), TComPattern.cpp fillReferenceSamples (:368),
+// TComPrediction.cpp (xPredIntraAng :190, planar :689, DC filter :1010),
+// TComTrQuant dequant (:1272) + partial-butterfly inverse DCT/DST.
+//
+// Exposed as a plain C ABI consumed via ctypes (no pybind11 in the image).
+
+#include <cstdint>
+#if defined(__x86_64__)
+#include <x86intrin.h>
+#endif
+#include <cstring>
+#include <cmath>
+#include <cfloat>
+#include <cstdlib>
+
+extern "C" {
+
+#include "tables_gen.h"
+
+// ---------------------------------------------------------------------------
+// Bitstream + bin decoder state (mirrors bitstream.InputBitstream +
+// cabac.engine.BinDecoder; synced from/to Python around each call)
+// ---------------------------------------------------------------------------
+struct BsEngine {
+  const uint8_t* buf;
+  int64_t buf_len;
+  int64_t idx;        // next byte index
+  uint64_t held;      // pending sub-byte bits (MSB-first remainder)
+  int32_t num_held;
+  int64_t num_bits_read;
+  // arithmetic engine
+  int32_t range;
+  int64_t value;
+  int32_t bits_needed;
+  int32_t overflow;   // set on EOF instead of raising
+};
+
+static inline uint32_t bs_read(BsEngine* st, int n) {
+  if (n == 0) return 0;
+  st->num_bits_read += n;
+  if (n <= st->num_held) {
+    uint32_t ret = (uint32_t)((st->held >> (st->num_held - n)) &
+                              ((1u << n) - 1));
+    st->num_held -= n;
+    return ret;
+  }
+  int need = n - st->num_held;
+  uint64_t ret = st->num_held ? (st->held & ((1ull << st->num_held) - 1)) : 0;
+  int nbytes = (need + 7) >> 3;
+  if (st->idx + nbytes > st->buf_len) { st->overflow = 1; return 0; }
+  uint64_t word = 0;
+  for (int i = 0; i < nbytes; i++) word = (word << 8) | st->buf[st->idx + i];
+  st->idx += nbytes;
+  int rem = nbytes * 8 - need;
+  ret = (ret << need) | (word >> rem);
+  st->num_held = rem;
+  st->held = rem ? (word & ((1ull << rem) - 1)) : 0;
+  return (uint32_t)ret;
+}
+
+static inline int dec_bin(BsEngine* st, uint8_t* ctx, int idx) {
+  uint8_t state = ctx[idx];
+  int lps = kLPS[state >> 1][(st->range >> 6) - 4];
+  st->range -= lps;
+  int64_t scaled = (int64_t)st->range << 7;
+  int bin;
+  if (st->value < scaled) {
+    bin = state & 1;
+    ctx[idx] = kNextMPS[state];
+    if (scaled >= (256 << 7)) return bin;
+    st->range = scaled >> 6;
+    st->value += st->value;
+    if (++st->bits_needed == 0) {
+      st->bits_needed = -8;
+      st->value += (int32_t)bs_read(st, 8);
+    }
+    return bin;
+  }
+  int num_bits = kRenorm[lps >> 3];
+  st->value = (st->value - scaled) << num_bits;
+  st->range = lps << num_bits;
+  bin = 1 - (state & 1);
+  ctx[idx] = kNextLPS[state];
+  st->bits_needed += num_bits;
+  if (st->bits_needed >= 0) {
+    st->value += (int32_t)bs_read(st, 8) << st->bits_needed;
+    st->bits_needed -= 8;
+  }
+  return bin;
+}
+
+static inline int dec_bin_ep(BsEngine* st) {
+  st->value += st->value;
+  if (++st->bits_needed >= 0) {
+    st->bits_needed = -8;
+    st->value += (int32_t)bs_read(st, 8);
+  }
+  int64_t scaled = (int64_t)st->range << 7;
+  if (st->value >= scaled) { st->value -= scaled; return 1; }
+  return 0;
+}
+
+static inline uint32_t dec_bins_ep(BsEngine* st, int num_bins) {
+  uint32_t bins = 0;
+  while (num_bins > 8) {
+    st->value = (st->value << 8) +
+                ((int32_t)bs_read(st, 8) << (8 + st->bits_needed));
+    int64_t scaled = (int64_t)st->range << 15;
+    for (int i = 0; i < 8; i++) {
+      bins += bins;
+      scaled >>= 1;
+      if (st->value >= scaled) { bins++; st->value -= scaled; }
+    }
+    num_bins -= 8;
+  }
+  st->bits_needed += num_bins;
+  st->value <<= num_bins;
+  if (st->bits_needed >= 0) {
+    st->value += (int32_t)bs_read(st, 8) << st->bits_needed;
+    st->bits_needed -= 8;
+  }
+  int64_t scaled = (int64_t)st->range << (num_bins + 7);
+  for (int i = 0; i < num_bins; i++) {
+    bins += bins;
+    scaled >>= 1;
+    if (st->value >= scaled) { bins++; st->value -= scaled; }
+  }
+  return bins;
+}
+
+static inline int coef_remain_exgolomb(BsEngine* st, int rparam) {
+  int prefix = 0, codeword = 1;
+  while (codeword) { prefix++; codeword = dec_bin_ep(st); }
+  prefix--;
+  const int kRed = 3;  // COEF_REMAIN_BIN_REDUCTION
+  if (prefix < kRed) {
+    codeword = rparam ? (int)dec_bins_ep(st, rparam) : 0;
+    return (prefix << rparam) + codeword;
+  }
+  int n = prefix - kRed + rparam;
+  codeword = n ? (int)dec_bins_ep(st, n) : 0;
+  return (((1 << (prefix - kRed)) + kRed - 1) << rparam) + codeword;
+}
+
+// ---------------------------------------------------------------------------
+// Significance context helpers (TComTrQuant.cpp:2315/2350/2707)
+// ---------------------------------------------------------------------------
+static inline int sig_cg_ctx(const int32_t* sig_cg, int cg_x, int cg_y,
+                             int width) {
+  int n = width >> 2;
+  int right = (cg_x < n - 1) ? (sig_cg[cg_y * n + cg_x + 1] != 0) : 0;
+  int lower = (cg_y < n - 1) ? (sig_cg[(cg_y + 1) * n + cg_x] != 0) : 0;
+  return (right || lower) ? 1 : 0;
+}
+
+static inline int calc_pattern(const int32_t* sig_cg, int cg_x, int cg_y,
+                               int width) {
+  if (width == 4) return -1;
+  int n = width >> 2;
+  int right = (cg_x < n - 1) ? (sig_cg[cg_y * n + cg_x + 1] != 0) : 0;
+  int lower = (cg_y < n - 1) ? (sig_cg[(cg_y + 1) * n + cg_x] != 0) : 0;
+  return right + (lower << 1);
+}
+
+static const int kCtxIndMap[16] = {0,1,4,5,2,3,4,5,6,6,8,8,7,7,8,8};
+
+static inline int sig_ctx_inc(int pattern, int scan_idx, int pos_x, int pos_y,
+                              int block_type, int comp) {
+  if (pos_x + pos_y == 0) return 0;
+  if (block_type == 2) return kCtxIndMap[4 * pos_y + pos_x];
+  int offset;
+  if (block_type == 3) offset = (scan_idx == 3 /*SCAN_DIAG*/) ? 9 : 15;
+  else offset = (comp == 0) ? 21 : 12;
+  int pxs = pos_x & 3, pys = pos_y & 3;
+  int cnt;
+  if (pattern == 0) { int s = pxs + pys; cnt = (s >= 3) ? 0 : (s == 0 ? 2 : 1); }
+  else if (pattern == 1) cnt = (pys >= 2) ? 0 : (pys == 0 ? 2 : 1);
+  else if (pattern == 2) cnt = (pxs >= 2) ? 0 : (pxs == 0 ? 2 : 1);
+  else cnt = 2;
+  int luma_extra = (comp == 0 && ((pos_x >> 2) + (pos_y >> 2)) > 0) ? 3 : 0;
+  return luma_extra + offset + cnt;
+}
+
+// group-index / min-in-group tables (TComRom)
+static const int kGroupIdx[32] = {0,1,2,3,4,4,5,5,6,6,6,6,7,7,7,7,
+                                  8,8,8,8,8,8,8,8,9,9,9,9,9,9,9,9};
+static const int kMinInGroup[10] = {0,1,2,3,4,6,8,12,16,24};
+
+// ---------------------------------------------------------------------------
+// parseCoeffNxN (TDecSbac.cpp:1133) — the decoder's hottest host loop
+// ---------------------------------------------------------------------------
+// ctx offsets passed from Python (single source of truth: cabac/contexts.py)
+struct CoeffCtxOffsets {
+  int32_t o_last_x, o_last_y, o_sig, o_sig_cg, o_one, o_abs;
+  int32_t num_sig_luma;   // NUM_SIG_FLAG_CTX_LUMA
+};
+
+}  // extern "C" (the templated coefficient parser needs C++ linkage)
+
+// parseCoeffNxN, templated on the block log2 (constant trip counts, the
+// 4x4 instance folds the significance-context derivation)
+template <int LOG2>
+static int parse_coeff_t(BsEngine* st, uint8_t* ctx,
+                         const CoeffCtxOffsets* off,
+                         int scan_idx_orig, int is_luma,
+                         int be_valid,
+                         const int32_t* scan, const int32_t* scan_cg,
+                         int32_t* plane, int64_t stride, int px, int py) {
+  const int kSBH = 4, kC1Num = 8;
+  const int width = 1 << LOG2;
+  const int log2 = LOG2;
+  int block_type = log2;
+#define COEFF_AT(blk) plane[(int64_t)(py + ((blk) >> log2)) * stride + px + \
+                            ((blk) & (width - 1))]
+
+  // parseLastSignificantXY
+  int blk_off, shift, base_x, base_y;
+  int lg = log2 - 2;
+  if (!is_luma) {
+    blk_off = 0; shift = lg;
+    base_x = off->o_last_x + 15; base_y = off->o_last_y + 15;
+  } else {
+    blk_off = lg * 3 + ((lg + 1) >> 2);
+    shift = (lg + 3) >> 2;
+    base_x = off->o_last_x; base_y = off->o_last_y;
+  }
+  int group_max = kGroupIdx[width - 1];
+  int pos_x = 0, pos_y = 0;
+  while (pos_x < group_max &&
+         dec_bin(st, ctx, base_x + blk_off + (pos_x >> shift))) pos_x++;
+  while (pos_y < group_max &&
+         dec_bin(st, ctx, base_y + blk_off + (pos_y >> shift))) pos_y++;
+  if (pos_x > 3) {
+    int count = (pos_x - 2) >> 1;
+    pos_x = kMinInGroup[pos_x] + (int)dec_bins_ep(st, count);
+  }
+  if (pos_y > 3) {
+    int count = (pos_y - 2) >> 1;
+    pos_y = kMinInGroup[pos_y] + (int)dec_bins_ep(st, count);
+  }
+  int scan_idx = scan_idx_orig;
+  if (scan_idx == 2 /*SCAN_VER*/) {
+    int t = pos_x; pos_x = pos_y; pos_y = t;
+  }
+  if (scan_idx == 0 /*SCAN_ZIGZAG -> SCAN_DIAG*/) scan_idx = 3;
+  int blk_pos_last = pos_x + (pos_y << log2);
+  COEFF_AT(blk_pos_last) = 1;
+
+  int max_coeff = width * width;
+  int scan_pos_last = 0;
+  for (int i = 0; i < max_coeff; i++) {
+    if (scan[i] == blk_pos_last) { scan_pos_last = i; break; }
+  }
+
+  int sig_base = off->o_sig + (is_luma ? 0 : off->num_sig_luma);
+  int cg_base = off->o_sig_cg + (is_luma ? 0 : 2);
+  int last_scan_set = scan_pos_last >> 4;
+  int c1 = 1, go_rice = 0;
+  int num_blk_side = width >> 2;
+  int32_t sig_cg_flags[64];
+  memset(sig_cg_flags, 0, sizeof(sig_cg_flags));
+
+  int i_scan_pos_sig = scan_pos_last;
+  int pos[16];
+  int abs_coeff[16];
+
+  for (int subset = last_scan_set; subset >= 0; subset--) {
+    int sub_pos = subset << 4;
+    go_rice = 0;
+    int num_nonzero = 0;
+    int last_nz = -1, first_nz = 16;
+    if (i_scan_pos_sig == scan_pos_last) {
+      last_nz = i_scan_pos_sig; first_nz = i_scan_pos_sig;
+      i_scan_pos_sig--;
+      pos[num_nonzero++] = blk_pos_last;
+    }
+    int cg_blk_pos = scan_cg[subset];
+    int cg_pos_y = num_blk_side ? cg_blk_pos / num_blk_side : 0;
+    int cg_pos_x = cg_blk_pos - cg_pos_y * num_blk_side;
+
+    if (subset == last_scan_set || subset == 0) {
+      sig_cg_flags[cg_blk_pos] = 1;
+    } else {
+      int c = sig_cg_ctx(sig_cg_flags, cg_pos_x, cg_pos_y, width);
+      sig_cg_flags[cg_blk_pos] = dec_bin(st, ctx, cg_base + c);
+    }
+
+    int pattern = calc_pattern(sig_cg_flags, cg_pos_x, cg_pos_y, width);
+    while (i_scan_pos_sig >= sub_pos) {
+      int blk = scan[i_scan_pos_sig];
+      int yy = blk >> log2;
+      int xx = blk - (yy << log2);
+      int sig = 0;
+      if (sig_cg_flags[cg_blk_pos]) {
+        if (i_scan_pos_sig > sub_pos || subset == 0 || num_nonzero) {
+          int c = sig_ctx_inc(pattern, scan_idx, xx, yy, block_type,
+                              is_luma ? 0 : 1);
+          sig = dec_bin(st, ctx, sig_base + c);
+        } else {
+          sig = 1;
+        }
+      }
+      COEFF_AT(blk) = sig;
+      if (sig) {
+        pos[num_nonzero++] = blk;
+        if (last_nz == -1) last_nz = i_scan_pos_sig;
+        first_nz = i_scan_pos_sig;
+      }
+      i_scan_pos_sig--;
+    }
+
+    if (num_nonzero) {
+      int sign_hidden = (last_nz - first_nz) >= kSBH;
+      int ctx_set = (subset > 0 && is_luma) ? 2 : 0;
+      if (c1 == 0) ctx_set++;
+      c1 = 1;
+      int one_base = off->o_one + (is_luma ? 0 : 16) + 4 * ctx_set;
+      for (int i = 0; i < num_nonzero; i++) abs_coeff[i] = 1;
+      int num_c1 = num_nonzero < kC1Num ? num_nonzero : kC1Num;
+      int first_c2_idx = -1;
+      for (int i = 0; i < num_c1; i++) {
+        int bin = dec_bin(st, ctx, one_base + c1);
+        if (bin == 1) {
+          c1 = 0;
+          if (first_c2_idx == -1) first_c2_idx = i;
+        } else if (c1 > 0 && c1 < 3) {
+          c1++;
+        }
+        abs_coeff[i] = bin + 1;
+      }
+      if (c1 == 0) {
+        int abs_base = off->o_abs + (is_luma ? 0 : 4) + ctx_set;
+        if (first_c2_idx != -1) {
+          int bin = dec_bin(st, ctx, abs_base);
+          abs_coeff[first_c2_idx] = bin + 2;
+        }
+      }
+      int nsign = (sign_hidden && be_valid) ? num_nonzero - 1 : num_nonzero;
+      uint32_t signs = nsign ? dec_bins_ep(st, nsign) : 0;
+
+      int first_coeff2 = 1;
+      if (c1 == 0 || num_nonzero > kC1Num) {
+        for (int i = 0; i < num_nonzero; i++) {
+          int base_level = (i < kC1Num) ? (2 + first_coeff2) : 1;
+          if (abs_coeff[i] == base_level) {
+            int level = coef_remain_exgolomb(st, go_rice);
+            abs_coeff[i] = level + base_level;
+            if (abs_coeff[i] > 3 * (1 << go_rice))
+              go_rice = go_rice < 4 ? go_rice + 1 : 4;
+          }
+          if (abs_coeff[i] >= 2) first_coeff2 = 0;
+        }
+      }
+      int64_t abs_sum = 0;
+      for (int i = 0; i < num_nonzero; i++) {
+        int blk = pos[i];
+        int32_t v = abs_coeff[i];
+        abs_sum += v;
+        if (i == num_nonzero - 1 && sign_hidden && be_valid) {
+          if (abs_sum & 1) v = -v;
+        } else {
+          if ((signs >> (nsign - 1 - i)) & 1) v = -v;
+        }
+        COEFF_AT(blk) = v;
+      }
+    }
+  }
+  return st->overflow ? -1 : 0;
+}
+#undef COEFF_AT
+
+static int parse_coeff_core(BsEngine* st, uint8_t* ctx,
+                            const CoeffCtxOffsets* off,
+                            int width, int scan_idx_orig, int is_luma,
+                            int be_valid,
+                            const int32_t* scan, const int32_t* scan_cg,
+                            int32_t* plane, int64_t stride, int px, int py) {
+  switch (width) {
+    case 4:
+      return parse_coeff_t<2>(st, ctx, off, scan_idx_orig, is_luma,
+                              be_valid, scan, scan_cg, plane, stride, px, py);
+    case 8:
+      return parse_coeff_t<3>(st, ctx, off, scan_idx_orig, is_luma,
+                              be_valid, scan, scan_cg, plane, stride, px, py);
+    case 16:
+      return parse_coeff_t<4>(st, ctx, off, scan_idx_orig, is_luma,
+                              be_valid, scan, scan_cg, plane, stride, px, py);
+    default:
+      return parse_coeff_t<5>(st, ctx, off, scan_idx_orig, is_luma,
+                              be_valid, scan, scan_cg, plane, stride, px, py);
+  }
+}
+
+extern "C" {
+
+int parse_coeff_nxn(BsEngine* st, uint8_t* ctx, const CoeffCtxOffsets* off,
+                    int width, int scan_idx_orig, int is_luma, int be_valid,
+                    const int32_t* scan, const int32_t* scan_cg,
+                    int32_t* coeff /* width*width row-major, zeroed */) {
+  return parse_coeff_core(st, ctx, off, width, scan_idx_orig, is_luma,
+                          be_valid, scan, scan_cg, coeff, width, 0, 0);
+}
+
+
+// ---------------------------------------------------------------------------
+// Intra TU reconstruction (stage 2 of the decode hot path)
+// TComPattern::fillReferenceSamples + TComPrediction::predIntra*Ang +
+// TComTrQuant dequant/inverse transform + TComYuv::addClip.
+// ---------------------------------------------------------------------------
+
+struct AvailMaps {
+  const int64_t* order;    // padded (H+2P)x(W+2P)
+  const uint8_t* in_pic;   // padded
+  const int64_t* ctu;      // padded
+  const int64_t* tile;     // padded
+  const int64_t* sstart;   // unpadded per-unit slice start
+  int32_t pad;             // P
+  int32_t w;               // padded row stride
+  int32_t uw;              // unpadded row stride
+};
+
+// one row per TU: x, y, size, mode, qp_scaled, cbf, use_dst, ts, bypass, pcm
+enum { TU_X, TU_Y, TU_SIZE, TU_MODE, TU_QPS, TU_CBF, TU_DST, TU_TS,
+       TU_BYP, TU_PCM, TU_FIELDS };
+
+static const int kAngTable[9] = {0,2,5,9,13,17,21,26,32};
+static const int kInvAngTable[9] = {0,4096,1638,910,630,482,390,315,256};
+static const int DC_IDX = 1, PLANAR_IDX = 0;
+static const int kFilterThresh[7] = {0,0,10,7,1,0,10};  // index log2
+
+static inline int use_filtered_c(int mode, int log2, int is_luma) {
+  if (!is_luma || mode == 1 /*DC*/) return 0;
+  int dh = mode - 10; if (dh < 0) dh = -dh;
+  int dv = mode - 26; if (dv < 0) dv = -dv;
+  int diff = dh < dv ? dh : dv;
+  return diff > kFilterThresh[log2];
+}
+
+static void tu_avail_flags(const AvailMaps* m, int ux, int uy, int nu,
+                           uint8_t* flags /* 4*nu+1 */) {
+  int P = m->pad, W = m->w;
+  int x = ux + P, y = uy + P;
+  int64_t cur_o = m->order[(int64_t)y * W + x];
+  int64_t ss = m->sstart[(int64_t)uy * m->uw + ux];
+  int64_t cctu = m->ctu[(int64_t)y * W + x];
+  int64_t ctile = m->tile[(int64_t)y * W + x];
+  // column x-1, rows y-1 .. y+2nu-1 : corner then left+below-left downwards
+  for (int j = -1; j < 2 * nu; j++) {
+    int64_t p = (int64_t)(y + j) * W + (x - 1);
+    int ok = m->in_pic[p] && m->order[p] < cur_o && m->order[p] >= ss &&
+             (m->ctu[p] == cctu || m->tile[p] == ctile);
+    if (j < 0) flags[2 * nu] = (uint8_t)ok;
+    else flags[2 * nu - 1 - j] = (uint8_t)ok;
+  }
+  // row y-1, cols x .. x+2nu-1 : above + above-right
+  for (int j = 0; j < 2 * nu; j++) {
+    int64_t p = (int64_t)(y - 1) * W + (x + j);
+    int ok = m->in_pic[p] && m->order[p] < cur_o && m->order[p] >= ss &&
+             (m->ctu[p] == cctu || m->tile[p] == ctile);
+    flags[2 * nu + 1 + j] = (uint8_t)ok;
+  }
+}
+
+static void fill_reference_line_c(const int16_t* rec, int stride,
+                                  int x0, int y0, int size, int unit,
+                                  const uint8_t* flags, int dc_val,
+                                  int32_t* line /* 4*size+unit */) {
+  int nu = size / unit;
+  int total_units = 4 * nu + 1;
+  int line_len = 4 * size + unit;
+  int corner = 2 * size;
+  int n_avail = 0;
+  for (int i = 0; i < total_units; i++) n_avail += flags[i];
+  for (int i = 0; i < line_len; i++) line[i] = dc_val;
+  if (n_avail == 0) return;
+  if (flags[2 * nu]) {
+    int32_t v = rec[(int64_t)(y0 - 1) * stride + (x0 - 1)];
+    for (int i = 0; i < unit; i++) line[corner + i] = v;
+  }
+  for (int j = 0; j < 2 * nu; j++) {
+    if (flags[2 * nu - 1 - j]) {
+      int ys = y0 + j * unit;
+      int dst = corner - 1 - j * unit;
+      for (int i = 0; i < unit; i++)
+        line[dst - i] = rec[(int64_t)(ys + i) * stride + (x0 - 1)];
+    }
+  }
+  for (int j = 0; j < 2 * nu; j++) {
+    if (flags[2 * nu + 1 + j]) {
+      int xs = x0 + j * unit;
+      int dst = corner + unit + j * unit;
+      for (int i = 0; i < unit; i++)
+        line[dst + i] = rec[(int64_t)(y0 - 1) * stride + (xs + i)];
+    }
+  }
+  if (n_avail == total_units) return;
+  // substitution pass (TComPattern.cpp:495-534)
+  int curr = 0;
+  while (curr < total_units) {
+    if (!flags[curr]) {
+      if (curr == 0) {
+        int nxt = 1;
+        while (nxt < total_units && !flags[nxt]) nxt++;
+        int32_t ref = (nxt < total_units) ? line[nxt * unit] : dc_val;
+        for (int i = 0; i < nxt * unit; i++) line[i] = ref;
+        curr = nxt;
+      } else {
+        int32_t ref = line[curr * unit - 1];
+        for (int i = 0; i < unit; i++) line[curr * unit + i] = ref;
+        curr++;
+      }
+    } else {
+      curr++;
+    }
+  }
+}
+
+static void smooth_line_c(int32_t* line, int size, int unit) {
+  // [1 2 1] over the logical sequence (left bottom->top, corner, top)
+  int corner = 2 * size;
+  int seq_len = 4 * size + 1;
+  int32_t seq[4 * 64 + 1];
+  for (int i = 0; i < corner; i++) seq[i] = line[i];
+  seq[corner] = line[corner];
+  for (int i = 0; i < 2 * size; i++) seq[corner + 1 + i] = line[corner + unit + i];
+  int32_t out[4 * 64 + 1];
+  out[0] = seq[0];
+  out[seq_len - 1] = seq[seq_len - 1];
+  for (int i = 1; i < seq_len - 1; i++)
+    out[i] = (seq[i - 1] + 2 * seq[i] + seq[i + 1] + 2) >> 2;
+  for (int i = 0; i < corner; i++) line[i] = out[i];
+  for (int i = 0; i < unit; i++) line[corner + i] = out[corner];
+  for (int i = 0; i < 2 * size; i++) line[corner + unit + i] = out[corner + 1 + i];
+}
+
+static void predict_c(const int32_t* line, int size, int unit, int mode,
+                      int is_luma, int max_val, int32_t* pred) {
+  int32_t ref_above[129], ref_left[129];
+  int corner = 2 * size;
+  ref_above[0] = line[corner];
+  for (int i = 0; i < 2 * size; i++) ref_above[1 + i] = line[corner + unit + i];
+  ref_left[0] = line[corner];
+  for (int i = 0; i < 2 * size; i++) ref_left[1 + i] = line[corner - 1 - i];
+
+  if (mode == 0) {  // planar
+    int log2 = 0; while ((1 << log2) < size) log2++;
+    int64_t bottom_left = ref_left[size + 1];
+    int64_t top_right = ref_above[size + 1];
+    for (int k = 0; k < size; k++) {
+      int64_t left = ref_left[1 + k];
+      int64_t right_col = top_right - left;
+      for (int l = 0; l < size; l++) {
+        int64_t top = ref_above[1 + l];
+        int64_t hor = (left << log2) + size + (int64_t)(l + 1) * right_col;
+        int64_t ver = (top << log2) + (int64_t)(k + 1) * (bottom_left - top);
+        pred[k * size + l] = (int32_t)((hor + ver) >> (log2 + 1));
+      }
+    }
+    return;
+  }
+  if (mode < 2) return;  // unreachable (mode 1 handled below as angular DC)
+
+  if (mode == 1) return;
+  // angular incl. DC
+  (void)0;
+}
+
+static void build_refs_c(const int32_t* line, int size, int unit,
+                         int32_t* ref_above, int32_t* ref_left) {
+  int corner = 2 * size;
+  ref_above[0] = line[corner];
+  for (int i = 0; i < 2 * size; i++) ref_above[1 + i] = line[corner + unit + i];
+  ref_left[0] = line[corner];
+  for (int i = 0; i < 2 * size; i++) ref_left[1 + i] = line[corner - 1 - i];
+}
+
+// angular prediction from prebuilt refAbove/refLeft — the 35-mode sweep
+// builds the refs once per PU instead of once per mode
+static void angular_refs_c(const int32_t* ref_above, const int32_t* ref_left,
+                           int size, int mode, int bfilter, int max_val,
+                           int32_t* pred) {
+  if (mode < 2) {  // DC
+    int64_t s = 0;
+    for (int i = 1; i <= size; i++) s += ref_above[i] + ref_left[i];
+    int32_t dcval = (int32_t)((s + size) / (2 * size));
+    for (int i = 0; i < size * size; i++) pred[i] = dcval;
+    return;
+  }
+  int mode_hor = mode < 18;
+  int ang = mode_hor ? -(mode - 10) : (mode - 26);
+  int abs_ang = kAngTable[ang < 0 ? -ang : ang];
+  int inv_angle = kInvAngTable[ang < 0 ? -ang : ang];
+  int ipa = (ang < 0) ? -abs_ang : abs_ang;
+
+  const int32_t* main_src = mode_hor ? ref_left : ref_above;
+  const int32_t* side_src = mode_hor ? ref_above : ref_left;
+
+  int32_t ext_buf[2 * 64 + 1];
+  const int32_t* buf;
+  int off;
+  if (ipa < 0) {
+    int ext = (size * ipa) >> 5;  // negative
+    off = size;
+    for (int i = 0; i <= size; i++) ext_buf[off + i] = main_src[i];
+    int inv_sum = 128;
+    for (int k = -1; k > ext; k--) {
+      inv_sum += inv_angle;
+      ext_buf[off + k] = side_src[inv_sum >> 8];
+    }
+    buf = ext_buf;
+  } else {
+    off = 0;
+    buf = main_src;       // no extension: read the refs directly
+  }
+
+  int32_t tmp[64 * 64];
+  if (ipa == 0) {
+    for (int k = 0; k < size; k++)
+      for (int l = 0; l < size; l++) tmp[k * size + l] = buf[off + 1 + l];
+    if (bfilter) {
+      for (int k = 0; k < size; k++) {
+        int32_t v = tmp[k * size] + ((side_src[1 + k] - side_src[0]) >> 1);
+        tmp[k * size] = v < 0 ? 0 : (v > max_val ? max_val : v);
+      }
+    }
+  } else {
+    for (int k = 0; k < size; k++) {
+      int delta_pos = (k + 1) * ipa;
+      int delta_int = delta_pos >> 5;
+      int delta_frac = delta_pos & 31;
+      const int32_t* row = buf + off + delta_int + 1;
+      if (delta_frac) {
+        for (int l = 0; l < size; l++)
+          tmp[k * size + l] =
+              ((32 - delta_frac) * row[l] + delta_frac * row[l + 1] + 16) >> 5;
+      } else {
+        for (int l = 0; l < size; l++) tmp[k * size + l] = row[l];
+      }
+    }
+  }
+  if (mode_hor) {
+#if defined(__AVX2__)
+    for (int i = 0; i < size; i += 4)
+      for (int j = 0; j < size; j += 4) {
+        __m128i r0 = _mm_loadu_si128((const __m128i*)(tmp + (i + 0) * size + j));
+        __m128i r1 = _mm_loadu_si128((const __m128i*)(tmp + (i + 1) * size + j));
+        __m128i r2 = _mm_loadu_si128((const __m128i*)(tmp + (i + 2) * size + j));
+        __m128i r3 = _mm_loadu_si128((const __m128i*)(tmp + (i + 3) * size + j));
+        __m128i t0 = _mm_unpacklo_epi32(r0, r1);
+        __m128i t1 = _mm_unpackhi_epi32(r0, r1);
+        __m128i t2 = _mm_unpacklo_epi32(r2, r3);
+        __m128i t3 = _mm_unpackhi_epi32(r2, r3);
+        _mm_storeu_si128((__m128i*)(pred + (j + 0) * size + i),
+                         _mm_unpacklo_epi64(t0, t2));
+        _mm_storeu_si128((__m128i*)(pred + (j + 1) * size + i),
+                         _mm_unpackhi_epi64(t0, t2));
+        _mm_storeu_si128((__m128i*)(pred + (j + 2) * size + i),
+                         _mm_unpacklo_epi64(t1, t3));
+        _mm_storeu_si128((__m128i*)(pred + (j + 3) * size + i),
+                         _mm_unpackhi_epi64(t1, t3));
+      }
+#else
+    for (int k = 0; k < size; k++)
+      for (int l = 0; l < size; l++) pred[l * size + k] = tmp[k * size + l];
+#endif
+  } else {
+    memcpy(pred, tmp, sizeof(int32_t) * size * size);
+  }
+  if (mode == 1 && bfilter) { /* handled by caller */ }
+}
+
+static void angular_c(const int32_t* line, int size, int unit, int mode,
+                      int bfilter, int max_val, int32_t* pred) {
+  int32_t ref_above[129], ref_left[129];
+  build_refs_c(line, size, unit, ref_above, ref_left);
+  angular_refs_c(ref_above, ref_left, size, mode, bfilter, max_val, pred);
+}
+
+static void dc_filter_c(const int32_t* line, int size, int unit,
+                        int32_t* pred) {
+  int corner = 2 * size;
+  int32_t top1 = line[corner + unit];       // ref_above[1]
+  int32_t left1 = line[corner - 1];         // ref_left[1]
+  pred[0] = (top1 + left1 + 2 * pred[0] + 2) >> 2;
+  for (int l = 1; l < size; l++)
+    pred[l] = (line[corner + unit + l] + 3 * pred[l] + 2) >> 2;
+  for (int k = 1; k < size; k++)
+    pred[k * size] = (line[corner - 1 - k] + 3 * pred[k * size] + 2) >> 2;
+}
+
+// inverse quant + inverse transform (TComTrQuant.cpp:1272, :417-802)
+
+#if defined(__AVX2__)
+static inline void transpose8x8_epi32(__m256i r[8]);
+static inline void transpose4x4_epi32(__m128i r[4]);
+
+// one 4x4 intra prediction in SSE registers (any mode; is_luma selects
+// the DC filter and the exact-hor/ver edge filter, as es_predict does).
+// Shared by the encoder's sweep/RD/chroma paths and the decoder's
+// intra TU reconstruction.
+static inline void pred4_mode_reg(const int32_t* ra, const int32_t* rl,
+                                  int mode, int is_luma, int max_val,
+                                  __m128i t[4]) {
+  if (mode == PLANAR_IDX) {
+    int32_t tr_s = ra[5], bl_s = rl[5];
+    __m128i top = _mm_loadu_si128((const __m128i*)(ra + 1));
+    __m128i lmul = _mm_setr_epi32(1, 2, 3, 4);
+    __m128i ver0 = _mm_slli_epi32(top, 2);
+    __m128i dver = _mm_sub_epi32(_mm_set1_epi32(bl_s), top);
+    for (int k = 0; k < 4; k++) {
+      int32_t left = rl[1 + k];
+      __m128i hor = _mm_add_epi32(
+          _mm_set1_epi32((left << 2) + 4),
+          _mm_mullo_epi32(lmul, _mm_set1_epi32(tr_s - left)));
+      __m128i ver = _mm_add_epi32(
+          ver0, _mm_mullo_epi32(_mm_set1_epi32(k + 1), dver));
+      t[k] = _mm_srai_epi32(_mm_add_epi32(hor, ver), 3);
+    }
+  } else if (mode == DC_IDX) {
+    int32_t s = 0;
+    for (int i = 1; i <= 4; i++) s += ra[i] + rl[i];
+    int32_t dc = (s + 4) >> 3;
+    if (is_luma) {
+      __m128i row0 = _mm_srai_epi32(
+          _mm_add_epi32(_mm_loadu_si128((const __m128i*)(ra + 1)),
+                        _mm_set1_epi32(3 * dc + 2)), 2);
+      t[0] = _mm_insert_epi32(row0, (ra[1] + rl[1] + 2 * dc + 2) >> 2, 0);
+      for (int k = 1; k < 4; k++)
+        t[k] = _mm_insert_epi32(_mm_set1_epi32(dc),
+                                (rl[1 + k] + 3 * dc + 2) >> 2, 0);
+    } else {
+      t[0] = t[1] = t[2] = t[3] = _mm_set1_epi32(dc);
+    }
+  } else {
+    int mode_hor = mode < 18;
+    int ang = mode_hor ? -(mode - 10) : (mode - 26);
+    int aa = ang < 0 ? -ang : ang;
+    int abs_ang = kAngTable[aa];
+    int ipa = ang < 0 ? -abs_ang : abs_ang;
+    const int32_t* main_src = mode_hor ? rl : ra;
+    const int32_t* side_src = mode_hor ? ra : rl;
+    int32_t ext_buf[16];
+    const int32_t* buf;
+    int off;
+    if (ipa < 0) {
+      int ext = (4 * ipa) >> 5;
+      off = 4;
+      for (int i = 0; i <= 4; i++) ext_buf[off + i] = main_src[i];
+      int inv_sum = 128, inv_angle = kInvAngTable[aa];
+      for (int k = -1; k > ext; k--) {
+        inv_sum += inv_angle;
+        ext_buf[off + k] = side_src[inv_sum >> 8];
+      }
+      buf = ext_buf;
+    } else {
+      buf = main_src;
+      off = 0;
+    }
+    if (ipa == 0) {
+      __m128i r = _mm_loadu_si128((const __m128i*)(buf + off + 1));
+      if (is_luma) {
+        for (int k = 0; k < 4; k++) {
+          int v = buf[off + 1] + ((side_src[1 + k] - side_src[0]) >> 1);
+          v = v < 0 ? 0 : (v > max_val ? max_val : v);
+          t[k] = _mm_insert_epi32(r, v, 0);
+        }
+      } else {
+        t[0] = t[1] = t[2] = t[3] = r;
+      }
+    } else {
+      for (int k = 0; k < 4; k++) {
+        int dp = (k + 1) * ipa;
+        int di = dp >> 5, df = dp & 31;
+        const int32_t* row = buf + off + di + 1;
+        __m128i r0 = _mm_loadu_si128((const __m128i*)row);
+        if (df) {
+          __m128i r1 = _mm_loadu_si128((const __m128i*)(row + 1));
+          t[k] = _mm_srai_epi32(
+              _mm_add_epi32(
+                  _mm_add_epi32(
+                      _mm_mullo_epi32(_mm_set1_epi32(32 - df), r0),
+                      _mm_mullo_epi32(_mm_set1_epi32(df), r1)),
+                  _mm_set1_epi32(16)),
+              5);
+        } else {
+          t[k] = r0;
+        }
+      }
+    }
+    if (mode_hor) transpose4x4_epi32(t);
+  }
+}
+
+static inline __m256i imul8(int k, __m256i v) {
+  return _mm256_mullo_epi32(_mm256_set1_epi32(k), v);
+}
+
+static inline __m256i iclip16_8(__m256i v, __m256i add, int shift) {
+  v = _mm256_srai_epi32(_mm256_add_epi32(v, add), shift);
+  v = _mm256_max_epi32(v, _mm256_set1_epi32(-32768));
+  return _mm256_min_epi32(v, _mm256_set1_epi32(32767));
+}
+
+static inline __m128i iclip16_4(__m128i v, __m128i add, int shift) {
+  v = _mm_srai_epi32(_mm_add_epi32(v, add), shift);
+  v = _mm_max_epi32(v, _mm_set1_epi32(-32768));
+  return _mm_min_epi32(v, _mm_set1_epi32(32767));
+}
+
+// one inverse DCT8 pass: c[n] = coefficient row n (lanes = columns);
+// outputs out[k] = output column k (lanes = rows)
+static inline void idct8_pass(const __m256i c[8], int shift, __m256i out[8]) {
+  __m256i add = _mm256_set1_epi32(1 << (shift - 1));
+  __m256i o0 = _mm256_add_epi32(
+      _mm256_add_epi32(imul8(89, c[1]), imul8(75, c[3])),
+      _mm256_add_epi32(imul8(50, c[5]), imul8(18, c[7])));
+  __m256i o1 = _mm256_sub_epi32(
+      _mm256_sub_epi32(imul8(75, c[1]), imul8(18, c[3])),
+      _mm256_add_epi32(imul8(89, c[5]), imul8(50, c[7])));
+  __m256i o2 = _mm256_add_epi32(
+      _mm256_sub_epi32(imul8(50, c[1]), imul8(89, c[3])),
+      _mm256_add_epi32(imul8(18, c[5]), imul8(75, c[7])));
+  __m256i o3 = _mm256_add_epi32(
+      _mm256_sub_epi32(imul8(18, c[1]), imul8(50, c[3])),
+      _mm256_sub_epi32(imul8(75, c[5]), imul8(89, c[7])));
+  __m256i ee0 = _mm256_add_epi32(imul8(64, c[0]), imul8(64, c[4]));
+  __m256i ee1 = _mm256_sub_epi32(imul8(64, c[0]), imul8(64, c[4]));
+  __m256i eo0 = _mm256_add_epi32(imul8(83, c[2]), imul8(36, c[6]));
+  __m256i eo1 = _mm256_sub_epi32(imul8(36, c[2]), imul8(83, c[6]));
+  __m256i e0 = _mm256_add_epi32(ee0, eo0), e3 = _mm256_sub_epi32(ee0, eo0);
+  __m256i e1 = _mm256_add_epi32(ee1, eo1), e2 = _mm256_sub_epi32(ee1, eo1);
+  out[0] = iclip16_8(_mm256_add_epi32(e0, o0), add, shift);
+  out[7] = iclip16_8(_mm256_sub_epi32(e0, o0), add, shift);
+  out[1] = iclip16_8(_mm256_add_epi32(e1, o1), add, shift);
+  out[6] = iclip16_8(_mm256_sub_epi32(e1, o1), add, shift);
+  out[2] = iclip16_8(_mm256_add_epi32(e2, o2), add, shift);
+  out[5] = iclip16_8(_mm256_sub_epi32(e2, o2), add, shift);
+  out[3] = iclip16_8(_mm256_add_epi32(e3, o3), add, shift);
+  out[4] = iclip16_8(_mm256_sub_epi32(e3, o3), add, shift);
+}
+
+static inline __m128i mul4(int k, __m128i v) {
+  return _mm_mullo_epi32(_mm_set1_epi32(k), v);
+}
+
+// one inverse pass for a 4x4 basis (DCT4 or DST4): generic T^T multiply
+static inline void inv4_pass(const __m128i c[4], const int32_t* T, int shift,
+                             __m128i out[4]) {
+  __m128i add = _mm_set1_epi32(1 << (shift - 1));
+  for (int k = 0; k < 4; k++) {
+    __m128i acc = mul4(T[0 * 4 + k], c[0]);
+    acc = _mm_add_epi32(acc, mul4(T[1 * 4 + k], c[1]));
+    acc = _mm_add_epi32(acc, mul4(T[2 * 4 + k], c[2]));
+    acc = _mm_add_epi32(acc, mul4(T[3 * 4 + k], c[3]));
+    out[k] = iclip16_4(acc, add, shift);
+  }
+}
+#endif  // __AVX2__
+
+static void residual_c(const int32_t* coeff, int cstride, int x, int y,
+                       int size, int qp_scaled, int use_dst, int ts, int byp,
+                       int bit_inc, const int32_t* basis, int32_t* resi) {
+  static const int kInvQuantScales[6] = {40, 45, 51, 57, 64, 72};
+  int log2 = 0; while ((1 << log2) < size) log2++;
+  if (byp) {
+    for (int r = 0; r < size; r++)
+      for (int c = 0; c < size; c++)
+        resi[r * size + c] = coeff[(int64_t)(y + r) * cstride + (x + c)];
+    return;
+  }
+  // dequant
+  int per = qp_scaled / 6, rem = qp_scaled % 6;
+  int tshift = 15 - (8 + bit_inc) - log2;
+  int shift = 20 - 14 - tshift;
+  int64_t add = 1ll << (shift - 1);
+  int64_t scale = (int64_t)kInvQuantScales[rem] << per;
+  int32_t deq[64 * 64];
+  for (int r = 0; r < size; r++) {
+    for (int c = 0; c < size; c++) {
+      int64_t q = coeff[(int64_t)(y + r) * cstride + (x + c)];
+      if (q < -32768) q = -32768; else if (q > 32767) q = 32767;
+      int64_t v = (q * scale + add) >> shift;
+      if (v < -32768) v = -32768; else if (v > 32767) v = 32767;
+      deq[r * size + c] = (int32_t)v;
+    }
+  }
+  if (ts) {
+    int s = 15 - (8 + bit_inc) - log2;
+    if (s > 0) {
+      int off = 1 << (s - 1);
+      for (int i = 0; i < size * size; i++)
+        resi[i] = (int16_t)((deq[i] + off) >> s);
+    } else {
+      for (int i = 0; i < size * size; i++)
+        resi[i] = (int16_t)(deq[i] << (-s));
+    }
+    return;
+  }
+#if defined(__AVX2__)
+  if (size == 8) {
+    __m256i c[8], m[8], o[8];
+    for (int n = 0; n < 8; n++)
+      c[n] = _mm256_loadu_si256((const __m256i*)(deq + n * 8));
+    int shift2x = 12 - bit_inc;
+    idct8_pass(c, 7, m);
+    transpose8x8_epi32(m);
+    idct8_pass(m, shift2x, o);
+    transpose8x8_epi32(o);
+    for (int j = 0; j < 8; j++)
+      _mm256_storeu_si256((__m256i*)(resi + j * 8), o[j]);
+    return;
+  }
+  if (size == 4) {
+    __m128i c[4], m[4], o[4];
+    for (int n = 0; n < 4; n++)
+      c[n] = _mm_loadu_si128((const __m128i*)(deq + n * 4));
+    int shift2x = 12 - bit_inc;
+    inv4_pass(c, basis, 7, m);
+    transpose4x4_epi32(m);
+    inv4_pass(m, basis, shift2x, o);
+    transpose4x4_epi32(o);
+    for (int j = 0; j < 4; j++)
+      _mm_storeu_si128((__m128i*)(resi + j * 4), o[j]);
+    return;
+  }
+#endif
+  // pass 1: y1[j][k] = clip16((sum_n T[n][k] * deq[n][j] + 64) >> 7)
+  // accumulate k-contiguous (vectorizes) and skip all-zero input rows —
+  // the coefficient block is sparse at typical QPs.  Same integer sums as
+  // the reference's partial butterflies, so bit-identical.
+  int32_t tmp[64 * 64];
+  int32_t acc[64];
+  for (int j = 0; j < size; j++) {
+    for (int k = 0; k < size; k++) acc[k] = 64;
+    for (int n = 0; n < size; n++) {
+      int32_t v = deq[n * size + j];
+      if (!v) continue;
+      const int32_t* brow = basis + n * size;
+      for (int k = 0; k < size; k++) acc[k] += brow[k] * v;
+    }
+    for (int k = 0; k < size; k++) {
+      int32_t v = acc[k] >> 7;
+      if (v < -32768) v = -32768; else if (v > 32767) v = 32767;
+      tmp[j * size + k] = v;
+    }
+  }
+  int shift2 = 12 - bit_inc;
+  int32_t add2 = 1 << (shift2 - 1);
+  for (int j = 0; j < size; j++) {
+    for (int k = 0; k < size; k++) acc[k] = add2;
+    for (int n = 0; n < size; n++) {
+      int32_t v = tmp[n * size + j];
+      if (!v) continue;
+      const int32_t* brow = basis + n * size;
+      for (int k = 0; k < size; k++) acc[k] += brow[k] * v;
+    }
+    for (int k = 0; k < size; k++) {
+      int32_t v = acc[k] >> shift2;
+      if (v < -32768) v = -32768; else if (v > 32767) v = 32767;
+      resi[j * size + k] = v;
+    }
+  }
+}
+
+struct IntraParams {
+  int32_t stride;       // rec plane stride (samples)
+  int32_t cstride;      // coeff plane stride
+  int32_t unit;         // 4 luma, 2 chroma (reference-line unit)
+  int32_t avail_div;    // sample->luma-unit divisor (4 luma, 2 chroma)
+  int32_t is_luma;
+  int32_t dc_val;
+  int32_t max_val;
+  int32_t bit_inc;
+  const int32_t* dct4;
+  const int32_t* dct8;
+  const int32_t* dct16;
+  const int32_t* dct32;
+  const int32_t* dst4;
+  const int16_t* pcm_plane;  // may be null
+  int32_t pcm_stride;
+  // optional precomputed-residual store (device decode hybrid): for a TU
+  // whose top-left 4x4 luma unit is (ux, uy), resi_map[uy*map_w + ux]
+  // is an offset into resi_buf (size*size int32 row-major) or -1
+  const int32_t* resi_buf;   // may be null
+  const int32_t* resi_map;
+  int32_t map_w;
+};
+
+void intra_recon_tus(int16_t* rec, const int32_t* coeff,
+                     const int32_t* tus, int n_tus,
+                     const AvailMaps* maps, const IntraParams* p) {
+  uint8_t flags[4 * 32 + 1];
+  int32_t line[4 * 64 + 8];
+  int32_t pred[64 * 64];
+  int32_t resi[64 * 64];
+  for (int t = 0; t < n_tus; t++) {
+    const int32_t* tu = tus + (int64_t)t * TU_FIELDS;
+    int x = tu[TU_X], y = tu[TU_Y], size = tu[TU_SIZE];
+    if (tu[TU_PCM]) {
+      for (int r = 0; r < size; r++)
+        memcpy(rec + (int64_t)(y + r) * p->stride + x,
+               p->pcm_plane + (int64_t)(y + r) * p->pcm_stride + x,
+               sizeof(int16_t) * size);
+      continue;
+    }
+    int mode = tu[TU_MODE];
+    int ux = x / p->avail_div, uy = y / p->avail_div;
+    int nu = size / p->avail_div;
+    tu_avail_flags(maps, ux, uy, nu, flags);
+    fill_reference_line_c(rec, p->stride, x, y, size, p->unit, flags,
+                          p->dc_val, line);
+    int log2 = 0; while ((1 << log2) < size) log2++;
+    if (p->is_luma && use_filtered_c(mode, log2, 1))
+      smooth_line_c(line, size, p->unit);
+    if (mode == 0) {
+      predict_c(line, size, p->unit, 0, p->is_luma, p->max_val, pred);
+    } else {
+      angular_c(line, size, p->unit, mode, p->is_luma, p->max_val, pred);
+      if (mode == 1 && p->is_luma) dc_filter_c(line, size, p->unit, pred);
+    }
+    if (tu[TU_CBF]) {
+      const int32_t* rsrc = resi;
+      int64_t roff = -1;
+      if (p->resi_buf && !tu[TU_TS] && !tu[TU_BYP])
+        roff = p->resi_map[(int64_t)(y / p->avail_div) * p->map_w +
+                           (x / p->avail_div)];
+      if (roff >= 0) {
+        rsrc = p->resi_buf + roff;
+      } else {
+        const int32_t* basis =
+            tu[TU_DST] ? p->dst4 :
+            (size == 4 ? p->dct4 : size == 8 ? p->dct8 :
+             size == 16 ? p->dct16 : p->dct32);
+        residual_c(coeff, p->cstride, x, y, size, tu[TU_QPS], tu[TU_DST],
+                   tu[TU_TS], tu[TU_BYP], p->bit_inc, basis, resi);
+      }
+      for (int r = 0; r < size; r++) {
+        for (int c = 0; c < size; c++) {
+          int v = pred[r * size + c] + rsrc[r * size + c];
+          rec[(int64_t)(y + r) * p->stride + (x + c)] =
+              (int16_t)(v < 0 ? 0 : (v > p->max_val ? p->max_val : v));
+        }
+      }
+    } else {
+      for (int r = 0; r < size; r++) {
+        for (int c = 0; c < size; c++) {
+          int v = pred[r * size + c];
+          rec[(int64_t)(y + r) * p->stride + (x + c)] =
+              (int16_t)(v < 0 ? 0 : (v > p->max_val ? p->max_val : v));
+        }
+      }
+    }
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// Deblocking filter (TComLoopFilter.cpp xPelFilterLuma :799 /
+// xPelFilterChroma :870), per-direction over the precomputed edge maps.
+// ---------------------------------------------------------------------------
+static const int kTcTable[54] = {
+  0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,1,1,1,1,1,1,1,1,1,2,2,2,2,3,3,3,3,
+  4,4,4,5,5,6,6,7,8,9,10,11,13,14,16,18,20,22,24};
+static const int kBetaTable[52] = {
+  0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,6,7,8,9,10,11,12,13,14,15,16,17,18,20,
+  22,24,26,28,30,32,34,36,38,40,42,44,46,48,50,52,54,56,58,60,62,64};
+
+static inline int clip3i(int lo, int hi, int v) {
+  return v < lo ? lo : (v > hi ? hi : v);
+}
+
+// filter one 4-line luma edge segment; pel(line,k) = base[line*ls + k*ks],
+// k in 0..7 with the edge between k=3 and k=4
+static void luma_segment(int16_t* base, int64_t ls, int64_t ks,
+                         int tc, int beta, int no_p, int no_q, int max_val) {
+  int m[4][8];
+  for (int l = 0; l < 4; l++)
+    for (int k = 0; k < 8; k++) m[l][k] = base[l * ls + k * ks];
+
+  int dp0 = m[0][1] - 2*m[0][2] + m[0][3]; if (dp0 < 0) dp0 = -dp0;
+  int dq0 = m[0][4] - 2*m[0][5] + m[0][6]; if (dq0 < 0) dq0 = -dq0;
+  int dp3 = m[3][1] - 2*m[3][2] + m[3][3]; if (dp3 < 0) dp3 = -dp3;
+  int dq3 = m[3][4] - 2*m[3][5] + m[3][6]; if (dq3 < 0) dq3 = -dq3;
+  int d0 = dp0 + dq0, d3 = dp3 + dq3;
+  int dpp = dp0 + dp3, dqq = dq0 + dq3;
+  int d = d0 + d3;
+  if (d >= beta) return;
+  int filter_p = dpp < ((beta + (beta >> 1)) >> 3);
+  int filter_q = dqq < ((beta + (beta >> 1)) >> 3);
+
+  int sw = 1;
+  for (int l = 0; l < 4; l += 3) {
+    int ds = (m[l][0] - m[l][3] < 0 ? m[l][3]-m[l][0] : m[l][0]-m[l][3])
+           + (m[l][7] - m[l][4] < 0 ? m[l][4]-m[l][7] : m[l][7]-m[l][4]);
+    int dd = (l == 0) ? d0 : d3;
+    int ab = m[l][3] - m[l][4]; if (ab < 0) ab = -ab;
+    if (!(ds < (beta >> 3) && 2*dd < (beta >> 2) && ab < ((tc*5+1) >> 1)))
+      sw = 0;
+  }
+
+  for (int l = 0; l < 4; l++) {
+    int* q = m[l];
+    int o1=q[1],o2=q[2],o3=q[3],o4=q[4],o5=q[5],o6=q[6];
+    if (sw) {
+      o3 = clip3i(q[3]-2*tc, q[3]+2*tc, (q[1]+2*q[2]+2*q[3]+2*q[4]+q[5]+4)>>3);
+      o4 = clip3i(q[4]-2*tc, q[4]+2*tc, (q[2]+2*q[3]+2*q[4]+2*q[5]+q[6]+4)>>3);
+      o2 = clip3i(q[2]-2*tc, q[2]+2*tc, (q[1]+q[2]+q[3]+q[4]+2)>>2);
+      o5 = clip3i(q[5]-2*tc, q[5]+2*tc, (q[3]+q[4]+q[5]+q[6]+2)>>2);
+      o1 = clip3i(q[1]-2*tc, q[1]+2*tc, (2*q[0]+3*q[1]+q[2]+q[3]+q[4]+4)>>3);
+      o6 = clip3i(q[6]-2*tc, q[6]+2*tc, (q[3]+q[4]+q[5]+3*q[6]+2*q[7]+4)>>3);
+    } else {
+      int delta = (9*(q[4]-q[3]) - 3*(q[5]-q[2]) + 8) >> 4;
+      int ad = delta < 0 ? -delta : delta;
+      if (ad < tc*10) {
+        int dc = clip3i(-tc, tc, delta);
+        o3 = clip3i(0, max_val, q[3] + dc);
+        o4 = clip3i(0, max_val, q[4] - dc);
+        int tc2 = tc >> 1;
+        if (filter_p) {
+          int d1 = clip3i(-tc2, tc2, (((q[1]+q[3]+1)>>1) - q[2] + dc) >> 1);
+          o2 = clip3i(0, max_val, q[2] + d1);
+        }
+        if (filter_q) {
+          int d2 = clip3i(-tc2, tc2, (((q[6]+q[4]+1)>>1) - q[5] - dc) >> 1);
+          o5 = clip3i(0, max_val, q[5] + d2);
+        }
+      }
+    }
+    if (!no_p) {
+      base[l*ls + 1*ks] = (int16_t)o1;
+      base[l*ls + 2*ks] = (int16_t)o2;
+      base[l*ls + 3*ks] = (int16_t)o3;
+    }
+    if (!no_q) {
+      base[l*ls + 4*ks] = (int16_t)o4;
+      base[l*ls + 5*ks] = (int16_t)o5;
+      base[l*ls + 6*ks] = (int16_t)o6;
+    }
+  }
+}
+
+// SAO application for one plane (processSaoCuOrg semantics: per-CTU
+// EO/BO kernels with picture-boundary exclusions; every neighbor read
+// comes from the immutable pre-SAO src).  Mirrors
+// ops/sao.py:apply_sao_plane_ref bit-exactly; dst must not alias src.
+void sao_apply_plane(const int16_t* src, int16_t* dst, int64_t stride,
+                     int32_t h, int32_t w, int32_t ctu_size,
+                     const int32_t* sao_type, const int32_t* sub_type,
+                     const int32_t* offsets /* [nctu][4], unshifted */,
+                     int32_t ctus_w, int32_t ctus_h, int32_t bit_depth) {
+  int max_val = (1 << bit_depth) - 1;
+  int sao_shift = bit_depth > 10 ? bit_depth - 10 : 0;
+  for (int y = 0; y < h; y++)
+    memcpy(dst + (int64_t)y * stride, src + (int64_t)y * stride,
+           sizeof(int16_t) * w);
+  static const int kDy1[4] = {0, -1, -1, 1}, kDx1[4] = {-1, 0, -1, -1};
+  static const int kDy2[4] = {0, 1, 1, -1}, kDx2[4] = {1, 0, 1, 1};
+  for (int ctu = 0; ctu < ctus_w * ctus_h; ctu++) {
+    int t = sao_type[ctu];
+    if (t < 0) continue;
+    int cx = (ctu % ctus_w) * ctu_size;
+    int cy = (ctu / ctus_w) * ctu_size;
+    int x1 = cx + ctu_size < w ? cx + ctu_size : w;
+    int y1 = cy + ctu_size < h ? cy + ctu_size : h;
+    int32_t offs[4];
+    for (int i = 0; i < 4; i++) offs[i] = offsets[ctu * 4 + i] << sao_shift;
+    if (t == 4) {  // BO: band table 1+(v>>(bd-5))
+      int band_pos = sub_type[ctu];
+      int16_t table[33];
+      memset(table, 0, sizeof(table));
+      for (int i = 0; i < 4; i++)
+        table[(band_pos + i) % 32 + 1] = (int16_t)offs[i];
+      int sh = bit_depth - 5;
+      for (int yy = cy; yy < y1; yy++) {
+        const int16_t* sr = src + (int64_t)yy * stride;
+        int16_t* dr = dst + (int64_t)yy * stride;
+        for (int xx = cx; xx < x1; xx++) {
+          int v = sr[xx] + table[1 + (sr[xx] >> sh)];
+          dr[xx] = (int16_t)(v < 0 ? 0 : (v > max_val ? max_val : v));
+        }
+      }
+      continue;
+    }
+    // EO class t: picture-boundary exclusions
+    int sx = cx, ex = x1, sy = cy, ey = y1;
+    if (t == 0 || t == 2 || t == 3) {
+      if (cx == 0) sx = 1;
+      if (x1 == w) ex = w - 1;
+    }
+    if (t == 1 || t == 2 || t == 3) {
+      if (cy == 0) sy = 1;
+      if (y1 == h) ey = h - 1;
+    }
+    if (sx >= ex || sy >= ey) continue;
+    // m_iOffsetEo: et 0->off0, 1->off1, 2->0, 3->off2, 4->off3
+    int16_t eo[5] = {(int16_t)offs[0], (int16_t)offs[1], 0,
+                     (int16_t)offs[2], (int16_t)offs[3]};
+    int64_t n1o = (int64_t)kDy1[t] * stride + kDx1[t];
+    int64_t n2o = (int64_t)kDy2[t] * stride + kDx2[t];
+    for (int yy = sy; yy < ey; yy++) {
+      const int16_t* sr = src + (int64_t)yy * stride;
+      int16_t* dr = dst + (int64_t)yy * stride;
+      int xx = sx;
+#if defined(__AVX2__)
+      __m256i vtwo = _mm256_set1_epi16(2);
+      __m256i vmax = _mm256_set1_epi16((short)max_val);
+      __m256i vzero = _mm256_setzero_si256();
+      for (; xx + 16 <= ex; xx += 16) {
+        __m256i s = _mm256_loadu_si256((const __m256i*)(sr + xx));
+        __m256i a = _mm256_loadu_si256((const __m256i*)(sr + xx + n1o));
+        __m256i b = _mm256_loadu_si256((const __m256i*)(sr + xx + n2o));
+        // sign(s-a): +1 where s>a, -1 where s<a (cmpgt mask is -1)
+        __m256i sg1 = _mm256_sub_epi16(_mm256_cmpgt_epi16(a, s),
+                                       _mm256_cmpgt_epi16(s, a));
+        __m256i sg2 = _mm256_sub_epi16(_mm256_cmpgt_epi16(b, s),
+                                       _mm256_cmpgt_epi16(s, b));
+        __m256i et = _mm256_add_epi16(_mm256_add_epi16(sg1, sg2), vtwo);
+        __m256i off = vzero;  // et == 2 -> 0
+        static const int kEt[4] = {0, 1, 3, 4};
+        for (int k = 0; k < 4; k++) {
+          __m256i m = _mm256_cmpeq_epi16(et, _mm256_set1_epi16(kEt[k]));
+          off = _mm256_blendv_epi8(off, _mm256_set1_epi16(eo[kEt[k]]), m);
+        }
+        __m256i o = _mm256_add_epi16(s, off);
+        o = _mm256_min_epi16(_mm256_max_epi16(o, vzero), vmax);
+        _mm256_storeu_si256((__m256i*)(dr + xx), o);
+      }
+#endif
+      for (; xx < ex; xx++) {
+        int v = sr[xx];
+        int a = sr[xx + n1o], b = sr[xx + n2o];
+        int et = (v > a) - (v < a) + (v > b) - (v < b) + 2;
+        int o = v + eo[et];
+        dr[xx] = (int16_t)(o < 0 ? 0 : (o > max_val ? max_val : o));
+      }
+    }
+  }
+}
+
+void deblock_luma(int16_t* plane, int h, int w,
+                  const uint8_t* flags, const uint8_t* bs,
+                  const int32_t* qp_p, const int32_t* qp_q,
+                  const uint8_t* no_p, const uint8_t* no_q,
+                  int uh, int uw, int dir, int beta_off, int tc_off,
+                  int bit_depth) {
+  int scale = 1 << (bit_depth - 8);
+  int max_val = (1 << bit_depth) - 1;
+  // dir 0: vertical edges at columns ucol*4 (ucol even >= 2)
+  // dir 1: horizontal edges at rows urow*4 — same maps, transposed roles
+  int a_max = dir == 0 ? uw : uh;   // edge-normal axis (units)
+  int b_max = dir == 0 ? uh : uw;   // along-edge axis (units)
+  for (int a = 2; a < a_max; a += 2) {
+    for (int b = 0; b < b_max; b++) {
+      int uy = dir == 0 ? b : a;
+      int ux = dir == 0 ? a : b;
+      int64_t mi = (int64_t)uy * uw + ux;
+      if (!flags[mi] || bs[mi] == 0) continue;
+      int qp = (qp_p[mi] + qp_q[mi] + 1) >> 1;
+      int idx_tc = clip3i(0, 53, qp + 2 * (bs[mi] - 1) + (tc_off << 1));
+      int idx_b = clip3i(0, 51, qp + (beta_off << 1));
+      int tc = kTcTable[idx_tc] * scale;
+      int beta = kBetaTable[idx_b] * scale;
+      int x = ux * 4, y = uy * 4;
+      int16_t* base;
+      int64_t ls, ks;
+      if (dir == 0) { base = plane + (int64_t)y * w + (x - 4); ls = w; ks = 1; }
+      else { base = plane + (int64_t)(y - 4) * w + x; ls = 1; ks = w; }
+      luma_segment(base, ls, ks, tc, beta, no_p[mi], no_q[mi], max_val);
+    }
+  }
+}
+
+void deblock_chroma(int16_t* cb, int16_t* cr, int h, int w,
+                    const uint8_t* flags, const uint8_t* bs,
+                    const int32_t* qp_p, const int32_t* qp_q,
+                    const uint8_t* no_p, const uint8_t* no_q,
+                    const uint8_t* chroma_scale,
+                    int uh, int uw, int dir, int tc_off, int bit_depth) {
+  int scale = 1 << (bit_depth - 8);
+  int max_val = (1 << bit_depth) - 1;
+  int a_max = dir == 0 ? uw : uh;
+  int b_max = dir == 0 ? uh : uw;
+  for (int a = 4; a < a_max; a += 4) {
+    for (int b = 0; b < b_max; b++) {
+      int uy = dir == 0 ? b : a;
+      int ux = dir == 0 ? a : b;
+      int64_t mi = (int64_t)uy * uw + ux;
+      if (!flags[mi] || bs[mi] <= 1) continue;
+      int qp_avg = (qp_p[mi] + qp_q[mi] + 1) >> 1;
+      int qp = chroma_scale[clip3i(0, 51, qp_avg)];
+      int idx_tc = clip3i(0, 53, qp + 2 * (bs[mi] - 1) + (tc_off << 1));
+      int tc = kTcTable[idx_tc] * scale;
+      int xc = dir == 0 ? ux * 2 : ux * 2;
+      int yc = uy * 2;
+      for (int pi = 0; pi < 2; pi++) {
+        int16_t* plane = pi == 0 ? cb : cr;
+        int16_t* base;
+        int64_t ls, ks;
+        if (dir == 0) { base = plane + (int64_t)yc * w + (xc - 2); ls = w; ks = 1; }
+        else { base = plane + (int64_t)(yc - 2) * w + xc; ls = 1; ks = w; }
+        for (int l = 0; l < 2; l++) {
+          int m2 = base[l*ls + 0*ks], m3 = base[l*ls + 1*ks];
+          int m4 = base[l*ls + 2*ks], m5 = base[l*ls + 3*ks];
+          int delta = clip3i(-tc, tc, ((((m4 - m3) << 2) + m2 - m5 + 4) >> 3));
+          if (!no_p[mi]) base[l*ls + 1*ks] =
+              (int16_t)clip3i(0, max_val, m3 + delta);
+          if (!no_q[mi]) base[l*ls + 2*ks] =
+              (int16_t)clip3i(0, max_val, m4 - delta);
+        }
+      }
+    }
+  }
+}
+
+
+// ===========================================================================
+// Full slice-data CABAC parse (native mirror of decoder/cu_parser.py)
+//
+// Behavioral references: TDecSlice::decompressSlice (TDecSlice.cpp:93+),
+// TDecCu::xDecodeCU (TDecCu.cpp:202), TDecSbac parse* methods,
+// TDecEntropy::xDecodeTransform (:322) / decodePUWise (:153),
+// TComDataCU neighbor/context/merge/AMVP derivation (TComDataCU.cpp:1928,
+// :2064, :2758, :3324, :3792), TComPic motion compression read-through
+// (g_motionRefer line-buffer remap, TComRom::initMotionReferIdx).
+// ===========================================================================
+
+enum { MODE_INTER = 0, MODE_INTRA = 1, MODE_NONE = 15 };
+enum { SZ_2Nx2N = 0, SZ_2NxN = 1, SZ_Nx2N = 2, SZ_NxN = 3,
+       SZ_2NxnU = 4, SZ_2NxnD = 5, SZ_nLx2N = 6, SZ_nRx2N = 7 };
+enum { SLICE_B = 0, SLICE_P = 1, SLICE_I = 2 };
+static const int HOR_IDX = 10, VER_IDX = 26, DM_CHROMA_IDX = 36;
+static const int MRG_MAX = 5, AMVP_MAX = 2;
+
+// all context-array offsets (single source of truth: cabac/contexts.py)
+struct CtxOffsets {
+  int32_t split_flag, skip_flag, merge_flag, merge_idx, part_size, amp,
+      pred_mode, intra_pred, chroma_pred, inter_dir, mvd, ref_pic, dqp,
+      qt_cbf, qt_root_cbf, sig_cg, sig, last_x, last_y, one, abs_,
+      mvp_idx, sao_merge, sao_type, trans_subdiv, ts_flag, tq_bypass;
+  int32_t num_sig_luma, num_ctx;
+};
+
+// scan tables: [scan(1=hor,2=ver,3=diag)][log2-2] coefficient + CG scans
+struct ScanTables {
+  const int32_t* scan[4][4];     // scan[s][lg], s in {1,2,3}
+  const int32_t* cg[4][4];
+};
+
+struct FrameArrays {
+  int8_t *depth, *pred_mode, *part_size, *merge_idx, *inter_dir,
+      *luma_dir, *chroma_dir, *tr_idx, *qp, *ref_idx, *mvp_idx;
+  uint8_t *skip, *merge_flag, *tq_bypass, *ipcm, *cbf, *ts_flag;
+  int16_t *mv, *mvd;
+  int64_t *slice_start, *dep_slice_start;
+  int32_t *slice_idx_arr, *tile_idx;
+  int32_t *coeff_y, *coeff_cb, *coeff_cr;
+  int16_t *pcm_y, *pcm_cb, *pcm_cr;            // may be null (no PCM)
+  int8_t *sao_type, *sao_sub_type;             // [3][num_ctus]
+  int32_t *sao_offsets;                        // [3][num_ctus][4]
+  uint8_t *sao_merge_left, *sao_merge_up;      // [3][num_ctus]
+  // geometry
+  int32_t uw, uh, upr, ctus_w, ctus_h, num_ctus;
+  int32_t ctu_size, max_depth, parts, width, height;
+  const int32_t *z2r, *r2z;                    // per-CTU part maps
+  const int64_t *ctu_order, *ctu_inv_order;    // tile-scan <-> raster
+  const int32_t *tile_map;                     // per-CTU tile index (or 0)
+  const int32_t *tile_first;                   // per-tile first CTU (raster)
+  int32_t n_tile_cols, n_tile_rows;
+  // decode-order TU/CU list outputs (int32 rows)
+  int32_t *luma_tus;    // [n][6]: x, y, size, abs_part, ctu, tr_depth
+  int32_t *chroma_tus;  // [n][6]
+  int32_t *cu_list;     // [n][8]: px, py, size, mode, l0, l1, c0, c1
+  int32_t n_luma, n_chroma, n_cu;
+};
+
+struct SliceParams {
+  int32_t slice_type, slice_qp, poc;
+  int32_t slice_start_cu, dep_start_cu;        // encode-order part addrs
+  int32_t dependent_slice, slice_index;
+  int32_t sao_enabled, sao_enabled_chroma, use_sao;
+  int32_t bit_depth, use_dqp, max_cu_dqp_depth, tq_bypass_enable;
+  int32_t use_ts, sign_hide;
+  int32_t use_pcm, pcm_log2_min, pcm_log2_max, pcm_bd_luma, pcm_bd_chroma;
+  int32_t add_cu_depth, max_tr_log2, min_tr_log2, tu_depth_intra,
+      tu_depth_inter, max_tr_size;
+  int32_t use_amp, qp_bd_offset_y;
+  int32_t wpp, allow_dep;                      // entropy sync / dep slices
+  int32_t num_ref_idx0, num_ref_idx1, max_merge, mvd_l1_zero, tmvp;
+  int32_t plevel;                              // log2_par_merge_minus2 + 2
+  int32_t col_dir, check_ldc, is_b;
+  int32_t ref_pocs[2][16];
+  // colocated picture (TMVP); null pointers when absent
+  const int8_t* col_pred_mode;
+  const int8_t* col_ref_idx;                   // [2][uh][uw]
+  const int16_t* col_mv;                       // [2][uh][uw][2]
+  const int64_t* col_ref_poc;                  // [2][uh][uw]
+  int32_t col_poc, has_col;
+};
+
+struct Parser {
+  FrameArrays* fa;
+  SliceParams* sp;
+  const CtxOffsets* co;
+  const ScanTables* sc;
+  CoeffCtxOffsets coff;
+  BsEngine* subs;          // substream engines (buffers preset by caller)
+  uint8_t* sub_ctx;        // [nsub][num_ctx]
+  uint8_t* sub_started;    // [nsub]
+  int nsub;
+  const uint8_t* init_ctx; // base contexts for this slice
+  uint8_t* buffer_ctx;     // [n_tile_cols][num_ctx] WPP/tile col buffers
+  BsEngine* st;
+  uint8_t* ctx;
+  int cur_sub;
+  // per-slice state
+  int ctu_addr;
+  int is_last, dqp_flag, code_dqp, coded_qp, last_dqp_nonzero;
+  int bak_abs_part_cu, bak_chroma_part, num_suc_ipcm;
+};
+
+// ---------------------------------------------------------------------------
+// geometry + availability (FrameModel.available / unit_order)
+// ---------------------------------------------------------------------------
+static inline void unit_xy(const Parser* P, int abs_part, int* ux, int* uy) {
+  const FrameArrays* fa = P->fa;
+  int r = fa->z2r[abs_part];
+  int cx = P->ctu_addr % fa->ctus_w, cy = P->ctu_addr / fa->ctus_w;
+  *ux = cx * fa->upr + (r % fa->upr);
+  *uy = cy * fa->upr + (r / fa->upr);
+}
+
+static inline int64_t unit_order(const FrameArrays* fa, int ux, int uy) {
+  int ctu = (uy / fa->upr) * fa->ctus_w + ux / fa->upr;
+  int z = fa->r2z[(uy % fa->upr) * fa->upr + (ux % fa->upr)];
+  return fa->ctu_inv_order[ctu] * fa->parts + z;
+}
+
+static inline int unit_in_pic(const FrameArrays* fa, int ux, int uy) {
+  return ux >= 0 && uy >= 0 && ux * 4 < fa->width && uy * 4 < fa->height;
+}
+
+static int avail(const FrameArrays* fa, int nux, int nuy, int cux, int cuy) {
+  if (!unit_in_pic(fa, nux, nuy)) return 0;
+  int64_t no = unit_order(fa, nux, nuy);
+  if (no >= unit_order(fa, cux, cuy)) return 0;
+  if (no < fa->slice_start[(int64_t)cuy * fa->uw + cux]) return 0;
+  int n_ctu = (nuy / fa->upr) * fa->ctus_w + nux / fa->upr;
+  int c_ctu = (cuy / fa->upr) * fa->ctus_w + cux / fa->upr;
+  if (n_ctu != c_ctu &&
+      fa->tile_idx[(int64_t)nuy * fa->uw + nux] !=
+          fa->tile_idx[(int64_t)cuy * fa->uw + cux])
+    return 0;
+  return 1;
+}
+
+#define U(arr, x, y) arr[(int64_t)(y) * fa->uw + (x)]
+#define U3(arr, c, x, y) \
+  arr[((int64_t)(c) * fa->uh + (y)) * fa->uw + (x)]
+#define MV_AT(arr, l, x, y, k) \
+  arr[((((int64_t)(l) * fa->uh + (y)) * fa->uw) + (x)) * 2 + (k)]
+
+// set an units x units square region
+}  // extern "C" (template helpers need C++ linkage)
+template <typename T>
+static inline void set_region(const FrameArrays* fa, T* arr, int ux, int uy,
+                              int units, T v) {
+  for (int j = 0; j < units; j++) {
+    T* row = arr + (int64_t)(uy + j) * fa->uw + ux;
+    for (int i = 0; i < units; i++) row[i] = v;
+  }
+}
+extern "C" {
+
+static inline int units_at_depth(const FrameArrays* fa, int depth) {
+  return fa->upr >> depth;
+}
+
+// ---------------------------------------------------------------------------
+// CABAC primitives
+// ---------------------------------------------------------------------------
+static inline void engine_start(BsEngine* st) {
+  st->range = 510;
+  st->bits_needed = -8;
+  st->value = ((int64_t)bs_read(st, 8) << 8) | bs_read(st, 8);
+}
+
+static inline int dec_bin_trm(BsEngine* st) {
+  st->range -= 2;
+  int64_t scaled = (int64_t)st->range << 7;
+  if (st->value >= scaled) return 1;
+  if (scaled < (256 << 7)) {
+    st->range = scaled >> 6;
+    st->value += st->value;
+    if (++st->bits_needed == 0) {
+      st->bits_needed = -8;
+      st->value += bs_read(st, 8);
+    }
+  }
+  return 0;
+}
+
+static inline int unary_max(Parser* P, int ctx0, int ctx1, int max_symbol) {
+  if (max_symbol == 0) return 0;
+  int sym = dec_bin(P->st, P->ctx, ctx0);
+  if (sym == 0 || max_symbol == 1) return sym;
+  int count = 0, cont = 1;
+  while (cont && count < max_symbol - 1) {
+    cont = dec_bin(P->st, P->ctx, ctx1);
+    count++;
+  }
+  if (cont && count == max_symbol - 1) count++;
+  return count;
+}
+
+static inline int ep_exgolomb(Parser* P, int count) {
+  int sym = 0, bit = 1;
+  while (bit) {
+    bit = dec_bin_ep(P->st);
+    sym += bit << count;
+    count++;
+  }
+  count--;
+  if (count) sym += dec_bins_ep(P->st, count);
+  return sym;
+}
+
+static inline int64_t bits_left(const BsEngine* st) {
+  return (st->buf_len - st->idx) * 8 + st->num_held;
+}
+
+static inline void byte_align_read(BsEngine* st) {
+  // read single bits until byte aligned (InputBitstream semantics:
+  // aligned iff num_held == 0)
+  while (bits_left(st) > 0 && st->num_held != 0) bs_read(st, 1);
+}
+
+// ---------------------------------------------------------------------------
+// SAO per-CTU parameters (parseSaoOneLcuInterleaving, TDecSbac.cpp:1640+)
+// ---------------------------------------------------------------------------
+static int sao_max_uvlc(Parser* P, int max_symbol) {
+  if (max_symbol == 0) return 0;
+  if (dec_bin_ep(P->st) == 0) return 0;
+  int i = 1;
+  for (;;) {
+    if (dec_bin_ep(P->st) == 0) break;
+    if (++i == max_symbol) break;
+  }
+  return i;
+}
+
+static void copy_sao(const FrameArrays* fa, int comp, int dst, int src) {
+  int64_t di = (int64_t)comp * fa->num_ctus + dst;
+  int64_t si = (int64_t)comp * fa->num_ctus + src;
+  fa->sao_type[di] = fa->sao_type[si];
+  if (fa->sao_type[di] != -1) {
+    fa->sao_sub_type[di] = fa->sao_sub_type[si];
+    for (int i = 0; i < 4; i++)
+      fa->sao_offsets[di * 4 + i] = fa->sao_offsets[si * 4 + i];
+  } else {
+    for (int i = 0; i < 4; i++) fa->sao_offsets[di * 4 + i] = 0;
+  }
+}
+
+static void parse_sao_offset(Parser* P, int comp, int ctu, int shared_type) {
+  const FrameArrays* fa = P->fa;
+  int64_t ci = (int64_t)comp * fa->num_ctus + ctu;
+  int type_p1;
+  if (shared_type >= -1) {
+    type_p1 = shared_type + 1;
+  } else {
+    if (dec_bin(P->st, P->ctx, P->co->sao_type) == 0) type_p1 = 0;
+    else type_p1 = dec_bin_ep(P->st) == 0 ? 5 : 1;
+  }
+  int type_idx = type_p1 - 1;
+  fa->sao_type[ci] = (int8_t)type_idx;
+  if (type_p1 == 0) return;
+  int offset_th = 1 << (P->sp->bit_depth - 5 < 5 ? P->sp->bit_depth - 5 : 5);
+  if (type_idx == 4) {  // BO
+    for (int i = 0; i < 4; i++)
+      fa->sao_offsets[ci * 4 + i] = sao_max_uvlc(P, offset_th - 1);
+    for (int i = 0; i < 4; i++)
+      if (fa->sao_offsets[ci * 4 + i] != 0 && dec_bin_ep(P->st))
+        fa->sao_offsets[ci * 4 + i] = -fa->sao_offsets[ci * 4 + i];
+    fa->sao_sub_type[ci] = (int8_t)dec_bins_ep(P->st, 5);
+  } else {  // EO
+    fa->sao_offsets[ci * 4 + 0] = sao_max_uvlc(P, offset_th - 1);
+    fa->sao_offsets[ci * 4 + 1] = sao_max_uvlc(P, offset_th - 1);
+    fa->sao_offsets[ci * 4 + 2] = -sao_max_uvlc(P, offset_th - 1);
+    fa->sao_offsets[ci * 4 + 3] = -sao_max_uvlc(P, offset_th - 1);
+    if (comp != 2) {
+      int sub = dec_bins_ep(P->st, 2);
+      fa->sao_sub_type[ci] = (int8_t)sub;
+      fa->sao_type[ci] = (int8_t)(type_idx + sub);
+    } else {
+      fa->sao_sub_type[ci] = fa->sao_sub_type[(int64_t)fa->num_ctus + ctu];
+    }
+  }
+}
+
+static void parse_sao_ctu(Parser* P, int ctu, int start_ctu, int allow_left,
+                          int allow_up) {
+  const FrameArrays* fa = P->fa;
+  int rx = ctu % fa->ctus_w, ry = ctu / fa->ctus_w;
+  int in_slice = ctu - start_ctu;
+  int up_in_slice = in_slice - fa->ctus_w;
+  int flag0 = P->sp->sao_enabled, flag1 = P->sp->sao_enabled_chroma;
+
+  for (int comp = 0; comp < 3; comp++) {
+    int64_t ci = (int64_t)comp * fa->num_ctus + ctu;
+    fa->sao_merge_left[ci] = 0;
+    fa->sao_merge_up[ci] = 0;
+    fa->sao_sub_type[ci] = 0;
+    fa->sao_type[ci] = -1;
+    for (int i = 0; i < 4; i++) fa->sao_offsets[ci * 4 + i] = 0;
+  }
+  int merge_left = 0, merge_up = 0;
+  if (flag0 || flag1) {
+    if (rx > 0 && in_slice != 0 && allow_left)
+      merge_left = dec_bin(P->st, P->ctx, P->co->sao_merge);
+    if (merge_left == 0 && ry > 0 && up_in_slice >= 0 && allow_up)
+      merge_up = dec_bin(P->st, P->ctx, P->co->sao_merge);
+  }
+  for (int comp = 0; comp < 3; comp++) {
+    int enabled = comp == 0 ? flag0 : flag1;
+    int64_t ci = (int64_t)comp * fa->num_ctus + ctu;
+    if (!enabled) {
+      fa->sao_type[ci] = -1;
+      fa->sao_sub_type[ci] = 0;
+      continue;
+    }
+    int ml = (rx > 0 && in_slice != 0 && allow_left) ? merge_left : 0;
+    fa->sao_merge_left[ci] = (uint8_t)(ml != 0);
+    if (!ml) {
+      int mu = (ry > 0 && up_in_slice >= 0 && allow_up) ? merge_up : 0;
+      fa->sao_merge_up[ci] = (uint8_t)(mu != 0);
+      if (!mu) {
+        if (comp == 2)
+          parse_sao_offset(P, comp, ctu,
+                           fa->sao_type[(int64_t)fa->num_ctus + ctu]);
+        else
+          parse_sao_offset(P, comp, ctu, -2 /* no sharing */);
+      } else {
+        copy_sao(fa, comp, ctu, ctu - fa->ctus_w);
+      }
+    } else {
+      copy_sao(fa, comp, ctu, ctu - 1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// neighbor-context + intra-direction derivation (TComDataCU.cpp)
+// ---------------------------------------------------------------------------
+static inline int left_avail(const FrameArrays* fa, int ux, int uy) {
+  return avail(fa, ux - 1, uy, ux, uy);
+}
+static inline int above_avail(const FrameArrays* fa, int ux, int uy,
+                              int planar_at_ctu) {
+  if (planar_at_ctu && (uy % fa->upr) == 0) return 0;
+  return avail(fa, ux, uy - 1, ux, uy);
+}
+
+static int ctx_split_flag(const FrameArrays* fa, int ux, int uy, int depth) {
+  int ctx = 0;
+  if (left_avail(fa, ux, uy) && U(fa->depth, ux - 1, uy) > depth) ctx++;
+  if (above_avail(fa, ux, uy, 0) && U(fa->depth, ux, uy - 1) > depth) ctx++;
+  return ctx;
+}
+
+static int ctx_skip_flag(const FrameArrays* fa, int ux, int uy) {
+  int ctx = 0;
+  if (left_avail(fa, ux, uy) && U(fa->skip, ux - 1, uy)) ctx++;
+  if (above_avail(fa, ux, uy, 0) && U(fa->skip, ux, uy - 1)) ctx++;
+  return ctx;
+}
+
+// getIntraDirLumaPredictor (TComDataCU.cpp:1928); see FrameModel.intra_mpm
+static void intra_mpm(const FrameArrays* fa, int ux, int uy, int preds[3]) {
+  int left_dir = DC_IDX, above_dir = DC_IDX;
+  if (left_avail(fa, ux, uy) &&
+      unit_order(fa, ux - 1, uy) >=
+          fa->dep_slice_start[(int64_t)uy * fa->uw + ux] &&
+      U(fa->pred_mode, ux - 1, uy) == MODE_INTRA)
+    left_dir = U(fa->luma_dir, ux - 1, uy);
+  if (above_avail(fa, ux, uy, 1) &&
+      U(fa->pred_mode, ux, uy - 1) == MODE_INTRA)
+    above_dir = U(fa->luma_dir, ux, uy - 1);
+  if (left_dir == above_dir) {
+    if (left_dir > 1) {
+      preds[0] = left_dir;
+      preds[1] = ((left_dir + 29) % 32) + 2;
+      preds[2] = ((left_dir - 1) % 32) + 2;
+    } else {
+      preds[0] = PLANAR_IDX; preds[1] = DC_IDX; preds[2] = VER_IDX;
+    }
+  } else {
+    preds[0] = left_dir; preds[1] = above_dir;
+    if (left_dir && above_dir) preds[2] = PLANAR_IDX;
+    else preds[2] = (left_dir + above_dir) < 2 ? VER_IDX : DC_IDX;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CU-level syntax
+// ---------------------------------------------------------------------------
+static inline int min_cu_dqp_size(const Parser* P) {
+  return P->fa->ctu_size >> P->sp->max_cu_dqp_depth;
+}
+
+static int pcm_allowed(const Parser* P, int size) {
+  const SliceParams* sp = P->sp;
+  return sp->use_pcm && size >= (1 << sp->pcm_log2_min) &&
+         size <= (1 << sp->pcm_log2_max);
+}
+
+static void parse_skip_flag(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int ctx = ctx_skip_flag(fa, ux, uy);
+  int bit = dec_bin(P->st, P->ctx, P->co->skip_flag + ctx);
+  if (bit) {
+    set_region<uint8_t>(fa, fa->skip, ux, uy, units, 1);
+    set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTER);
+    set_region<int8_t>(fa, fa->part_size, ux, uy, units, SZ_2Nx2N);
+    set_region<uint8_t>(fa, fa->merge_flag, ux, uy, units, 1);
+  }
+}
+
+static int convert_to_bit(int size) {
+  int b = 0;
+  while ((1 << (b + 2)) < size) b++;
+  return b;  // log2(size) - 2
+}
+
+static void parse_part_size(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int max_sig_depth = fa->max_depth - P->sp->add_cu_depth;
+  if (U(fa->pred_mode, ux, uy) == MODE_INTRA) {
+    int sym = 1;
+    if (depth == max_sig_depth)
+      sym = dec_bin(P->st, P->ctx, P->co->part_size + 0);
+    int mode = sym ? SZ_2Nx2N : SZ_NxN;
+    set_region<int8_t>(fa, fa->part_size, ux, uy, units, (int8_t)mode);
+    int size = fa->ctu_size >> depth;
+    int width_bit = convert_to_bit(size) + 2;
+    int tr_size_bit = convert_to_bit(P->sp->max_tr_size) + 2;
+    int tr_level = width_bit - tr_size_bit;
+    if (tr_level < 0) tr_level = 0;
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units,
+                       (int8_t)(mode == SZ_NxN ? 1 + tr_level : tr_level));
+  } else {
+    int size = fa->ctu_size >> depth;
+    int max_bits = (depth == max_sig_depth && size != 8) ? 3 : 2;
+    int mode = 0;
+    for (int ui = 0; ui < max_bits; ui++) {
+      if (dec_bin(P->st, P->ctx, P->co->part_size + ui)) break;
+      mode++;
+    }
+    if (P->sp->use_amp && depth < max_sig_depth) {
+      if (mode == SZ_2NxN || mode == SZ_Nx2N) {
+        if (dec_bin(P->st, P->ctx, P->co->amp) == 0) {
+          int sym = dec_bin_ep(P->st);
+          if (mode == SZ_2NxN) mode = sym == 0 ? SZ_2NxnU : SZ_2NxnD;
+          else mode = sym == 0 ? SZ_nLx2N : SZ_nRx2N;
+        }
+      }
+    }
+    set_region<int8_t>(fa, fa->part_size, ux, uy, units, (int8_t)mode);
+  }
+}
+
+static void parse_intra_dir_luma(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux0, uy0;
+  unit_xy(P, abs_part, &ux0, &uy0);
+  int part_sz = U(fa->part_size, ux0, uy0);
+  int part_num = part_sz == SZ_NxN ? 4 : 1;
+  int part_offset = (fa->parts >> (depth << 1)) >> 2;
+  int sub_depth = part_sz == SZ_NxN ? depth + 1 : depth;
+  int mpm_flags[4];
+  for (int j = 0; j < part_num; j++)
+    mpm_flags[j] = dec_bin(P->st, P->ctx, P->co->intra_pred);
+  for (int j = 0; j < part_num; j++) {
+    int part = abs_part + part_offset * j;
+    int ux, uy;
+    unit_xy(P, part, &ux, &uy);
+    int preds[3];
+    intra_mpm(fa, ux, uy, preds);
+    int mode;
+    if (mpm_flags[j]) {
+      int sym = dec_bin_ep(P->st);
+      if (sym) sym = dec_bin_ep(P->st) + 1;
+      mode = preds[sym];
+    } else {
+      mode = dec_bins_ep(P->st, 5);
+      int sp0 = preds[0], sp1 = preds[1], sp2 = preds[2], t;
+      if (sp0 > sp1) { t = sp0; sp0 = sp1; sp1 = t; }
+      if (sp1 > sp2) { t = sp1; sp1 = sp2; sp2 = t; }
+      if (sp0 > sp1) { t = sp0; sp0 = sp1; sp1 = t; }
+      mode += (mode >= sp0);
+      mode += (mode >= sp1);
+      mode += (mode >= sp2);
+    }
+    set_region<int8_t>(fa, fa->luma_dir, ux, uy,
+                       units_at_depth(fa, sub_depth), (int8_t)mode);
+  }
+}
+
+static void parse_intra_dir_chroma(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int sym = dec_bin(P->st, P->ctx, P->co->chroma_pred);
+  int mode;
+  if (sym == 0) {
+    mode = DM_CHROMA_IDX;
+  } else {
+    int idx = dec_bins_ep(P->st, 2);
+    int modes[5] = {PLANAR_IDX, VER_IDX, HOR_IDX, DC_IDX, DM_CHROMA_IDX};
+    int luma = U(fa->luma_dir, ux, uy);
+    for (int i = 0; i < 4; i++)
+      if (luma == modes[i]) { modes[i] = 34; break; }
+    mode = modes[idx];
+  }
+  set_region<int8_t>(fa, fa->chroma_dir, ux, uy, units, (int8_t)mode);
+}
+
+// getRefQP (TComDataCU.cpp:1826): left/above within the same CTU
+static int ref_qp(Parser* P, int abs_part) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int last = P->coded_qp;
+  int l = last, a = last;
+  if (left_avail(fa, ux, uy) && (ux - 1) / fa->upr == ux / fa->upr)
+    l = U(fa->qp, ux - 1, uy);
+  if (above_avail(fa, ux, uy, 0) && (uy - 1) / fa->upr == uy / fa->upr)
+    a = U(fa->qp, ux, uy - 1);
+  return (l + a + 1) >> 1;
+}
+
+static void parse_delta_qp(Parser* P, int abs_part) {
+  const FrameArrays* fa = P->fa;
+  const int kCMax = 5, kEgK = 0;  // CU_DQP_TU_CMAX / CU_DQP_EG_K
+  int dqp = unary_max(P, P->co->dqp, P->co->dqp + 1, kCMax);
+  if (dqp >= kCMax) dqp += ep_exgolomb(P, kEgK);
+  int qp;
+  if (dqp > 0) {
+    int sign = dec_bin_ep(P->st);
+    int idqp = sign ? -dqp : dqp;
+    int bd = P->sp->qp_bd_offset_y;
+    qp = ((ref_qp(P, abs_part) + idqp + 52 + 2 * bd) % (52 + bd)) - bd;
+  } else {
+    qp = ref_qp(P, abs_part);
+  }
+  int ux, uy;
+  unit_xy(P, P->bak_abs_part_cu, &ux, &uy);
+  int depth = U(fa->depth, ux, uy);
+  set_region<int8_t>(fa, fa->qp, ux, uy, units_at_depth(fa, depth),
+                     (int8_t)qp);
+  P->coded_qp = qp;
+}
+
+static int parse_merge_index(Parser* P) {
+  int num_cand = P->sp->max_merge;
+  int idx = 0;
+  if (num_cand > 1) {
+    while (idx < num_cand - 1) {
+      int sym = idx == 0 ? dec_bin(P->st, P->ctx, P->co->merge_idx)
+                         : dec_bin_ep(P->st);
+      if (sym == 0) break;
+      idx++;
+    }
+  }
+  return idx;
+}
+
+// ---------------------------------------------------------------------------
+// merge / AMVP candidate derivation (TComDataCU.cpp:2758, :3324, :3792)
+// ---------------------------------------------------------------------------
+struct MvCand {
+  int dir;
+  int ref[2];
+  int16_t mv[2][2];
+};
+
+static void pu_geometry(int part_size, int x, int y, int size, int part_idx,
+                        int* xp, int* yp, int* pw, int* ph) {
+  int w = size, h = size;
+  switch (part_size) {
+    case SZ_2NxN: h = size >> 1; y += part_idx ? h : 0; break;
+    case SZ_Nx2N: w = size >> 1; x += part_idx ? w : 0; break;
+    case SZ_NxN:
+      w = h = size >> 1;
+      x += (part_idx & 1) * w;
+      y += (part_idx >> 1) * h;
+      break;
+    case SZ_2NxnU:
+      h = part_idx == 0 ? (size >> 2) : (size >> 2) + (size >> 1);
+      y += part_idx ? size - h : 0;
+      break;
+    case SZ_2NxnD:
+      h = part_idx == 0 ? (size >> 2) + (size >> 1) : (size >> 2);
+      y += part_idx ? size - h : 0;
+      break;
+    case SZ_nLx2N:
+      w = part_idx == 0 ? (size >> 2) : (size >> 2) + (size >> 1);
+      x += part_idx ? size - w : 0;
+      break;
+    case SZ_nRx2N:
+      w = part_idx == 0 ? (size >> 2) + (size >> 1) : (size >> 2);
+      x += part_idx ? size - w : 0;
+      break;
+    default: break;
+  }
+  *xp = x; *yp = y; *pw = w; *ph = h;
+}
+
+static inline int num_pus(int part_size) {
+  return part_size == SZ_2Nx2N ? 1 : (part_size == SZ_NxN ? 4 : 2);
+}
+
+// neighbor handle: valid flag + unit coords
+struct Nb { int ok, ux, uy; };
+
+// minimal environment for merge/AMVP derivation: shared by the decoder's
+// Parser and the encoder's EncState (member names match Parser's)
+struct MvEnv {
+  const FrameArrays* fa;
+  const SliceParams* sp;
+};
+
+static Nb neighbor(const FrameArrays* fa, int nux, int nuy, int cux,
+                   int cuy) {
+  Nb n;
+  n.ok = avail(fa, nux, nuy, cux, cuy);
+  n.ux = nux; n.uy = nuy;
+  return n;
+}
+
+// g_motionRefer compressed line-buffer remap (see decoder/mv.py:104)
+static Nb remap_above(const FrameArrays* fa, Nb n, int corner_uy) {
+  if (!n.ok) return n;
+  if ((fa->ctu_size >> (fa->max_depth - 1)) != 8) return n;
+  if (n.uy / fa->upr != corner_uy / fa->upr) {
+    int m = n.ux & 3;
+    if (m == 1) n.ux -= 1;
+    else if (m == 2) n.ux += 1;
+  }
+  return n;
+}
+
+static inline int nb_is_intra(const FrameArrays* fa, Nb n) {
+  return U(fa->pred_mode, n.ux, n.uy) != MODE_INTER;
+}
+
+static inline int diff_mer(const MvEnv* P, int xn, int yn, int xp, int yp) {
+  int pl = P->sp->plevel;
+  return (xn >> pl) != (xp >> pl) || (yn >> pl) != (yp >> pl);
+}
+
+static int equal_motion(const FrameArrays* fa, Nb a, Nb b) {
+  if (U(fa->inter_dir, a.ux, a.uy) != U(fa->inter_dir, b.ux, b.uy)) return 0;
+  for (int l = 0; l < 2; l++) {
+    if (U3(fa->ref_idx, l, a.ux, a.uy) != U3(fa->ref_idx, l, b.ux, b.uy))
+      return 0;
+    if (MV_AT(fa->mv, l, a.ux, a.uy, 0) != MV_AT(fa->mv, l, b.ux, b.uy, 0) ||
+        MV_AT(fa->mv, l, a.ux, a.uy, 1) != MV_AT(fa->mv, l, b.ux, b.uy, 1))
+      return 0;
+  }
+  return 1;
+}
+
+static void scale_mv16(int16_t mv[2], int scale) {
+  int x = scale * mv[0], y = scale * mv[1];
+  int mx = (x + 127 + (x < 0)) >> 8;
+  int my = (y + 127 + (y < 0)) >> 8;
+  mv[0] = (int16_t)(mx < -32768 ? -32768 : (mx > 32767 ? 32767 : mx));
+  mv[1] = (int16_t)(my < -32768 ? -32768 : (my > 32767 ? 32767 : my));
+}
+
+static inline int trunc_div(int a, int b) {
+  return a / b;  // C++ division truncates toward zero
+}
+
+static int dist_scale_factor(int cur_poc, int cur_ref_poc, int col_poc,
+                             int col_ref_poc) {
+  int diff_d = col_poc - col_ref_poc;
+  int diff_b = cur_poc - cur_ref_poc;
+  if (diff_d == diff_b) return 4096;
+  int tdb = diff_b < -128 ? -128 : (diff_b > 127 ? 127 : diff_b);
+  int tdd = diff_d < -128 ? -128 : (diff_d > 127 ? 127 : diff_d);
+  int num = 0x4000 + (trunc_div(tdd, 2) < 0 ? -trunc_div(tdd, 2)
+                                            : trunc_div(tdd, 2));
+  int x = trunc_div(num, tdd);
+  int scale = (tdb * x + 32) >> 6;
+  return scale < -4096 ? -4096 : (scale > 4095 ? 4095 : scale);
+}
+
+// xGetColMVP: returns 1 + writes scaled mv when available
+static int get_col_mvp(const MvEnv* P, int ref_list, int ux, int uy,
+                       int target_ref_idx, int16_t out_mv[2]) {
+  const SliceParams* sp = P->sp;
+  const FrameArrays* fa = P->fa;
+  int64_t ui = (int64_t)uy * fa->uw + ux;
+  if (sp->col_pred_mode[ui] != MODE_INTER) return 0;
+  int col_list = sp->check_ldc ? ref_list : (1 - sp->col_dir);
+  int col_ref_idx = sp->col_ref_idx[(int64_t)col_list * fa->uh * fa->uw + ui];
+  if (col_ref_idx < 0) {
+    col_list = 1 - col_list;
+    col_ref_idx = sp->col_ref_idx[(int64_t)col_list * fa->uh * fa->uw + ui];
+    if (col_ref_idx < 0) return 0;
+  }
+  int64_t base = (int64_t)col_list * fa->uh * fa->uw + ui;
+  int col_ref_poc = (int)sp->col_ref_poc[base];
+  out_mv[0] = sp->col_mv[base * 2 + 0];
+  out_mv[1] = sp->col_mv[base * 2 + 1];
+  int cur_ref_poc = sp->ref_pocs[ref_list][target_ref_idx];
+  int scale = dist_scale_factor(sp->poc, cur_ref_poc, sp->col_poc,
+                                col_ref_poc);
+  if (scale != 4096) scale_mv16(out_mv, scale);
+  return 1;
+}
+
+// right-bottom + center colocated units; rb_ok=0 when invalid
+static void col_units(const FrameArrays* fa, int xp, int yp, int pw, int ph,
+                      int* rb_ok, int* rbx, int* rby, int* cx, int* cy) {
+  *rb_ok = 0;
+  if (xp + pw < fa->width && yp + ph < fa->height) {
+    int uby = (yp + ph - 4) / 4;
+    if ((uby % fa->upr) != fa->upr - 1) {
+      *rb_ok = 1;
+      *rbx = (xp + pw) / 4;
+      *rby = (yp + ph) / 4;
+    }
+  }
+  *cx = (xp + (pw >> 1)) / 4;
+  *cy = (yp + (ph >> 1)) / 4;
+}
+
+static int tmvp_merge(const MvEnv* P, int xp, int yp, int pw, int ph,
+                      MvCand* out) {
+  const FrameArrays* fa = P->fa;
+  int rb_ok, rbx, rby, cx, cy;
+  col_units(fa, xp, yp, pw, ph, &rb_ok, &rbx, &rby, &cx, &cy);
+  int16_t mv0[2], mv1[2];
+  int got0 = rb_ok ? get_col_mvp(P, 0, rbx, rby, 0, mv0) : 0;
+  if (!got0) got0 = get_col_mvp(P, 0, cx, cy, 0, mv0);
+  if (!got0) return 0;
+  out->ref[0] = 0;
+  out->mv[0][0] = mv0[0]; out->mv[0][1] = mv0[1];
+  out->ref[1] = -1;
+  out->mv[1][0] = 0; out->mv[1][1] = 0;
+  out->dir = 1;
+  if (P->sp->is_b) {
+    int got1 = rb_ok ? get_col_mvp(P, 1, rbx, rby, 0, mv1) : 0;
+    if (!got1) got1 = get_col_mvp(P, 1, cx, cy, 0, mv1);
+    if (got1) {
+      out->dir = 3;
+      out->ref[1] = 0;
+      out->mv[1][0] = mv1[0]; out->mv[1][1] = mv1[1];
+    }
+  }
+  return 1;
+}
+
+// getInterMergeCandidates; returns num_valid.  mrg_cand_idx >= 0 allows the
+// reference's early-out once the wanted candidate is complete.
+static int merge_candidates(const MvEnv* P, int cu_x, int cu_y, int cu_size,
+                            int part_size, int pu_idx, int mrg_cand_idx,
+                            MvCand cands[MRG_MAX]) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int xp, yp, pw, ph;
+  pu_geometry(part_size, cu_x, cu_y, cu_size, pu_idx, &xp, &yp, &pw, &ph);
+  int lbx = xp / 4, lby = (yp + ph - 4) / 4;
+  int rtx = (xp + pw - 4) / 4, rty = yp / 4;
+  int ox = xp / 4, oy = yp / 4;
+
+  int cand_is_inter[MRG_MAX] = {0, 0, 0, 0, 0};
+  for (int i = 0; i < MRG_MAX; i++) {
+    cands[i].dir = 0;
+    cands[i].ref[0] = cands[i].ref[1] = -1;
+    cands[i].mv[0][0] = cands[i].mv[0][1] = 0;
+    cands[i].mv[1][0] = cands[i].mv[1][1] = 0;
+  }
+  int count = 0;
+
+#define TAKE(n)                                                        \
+  do {                                                                 \
+    cand_is_inter[count] = 1;                                          \
+    cands[count].dir = U(fa->inter_dir, (n).ux, (n).uy);               \
+    cands[count].ref[0] = U3(fa->ref_idx, 0, (n).ux, (n).uy);          \
+    cands[count].mv[0][0] = MV_AT(fa->mv, 0, (n).ux, (n).uy, 0);       \
+    cands[count].mv[0][1] = MV_AT(fa->mv, 0, (n).ux, (n).uy, 1);       \
+    if (sp->is_b) {                                                    \
+      cands[count].ref[1] = U3(fa->ref_idx, 1, (n).ux, (n).uy);        \
+      cands[count].mv[1][0] = MV_AT(fa->mv, 1, (n).ux, (n).uy, 0);     \
+      cands[count].mv[1][1] = MV_AT(fa->mv, 1, (n).ux, (n).uy, 1);     \
+    }                                                                  \
+    count++;                                                           \
+  } while (0)
+
+  // left (from LB corner)
+  Nb left = neighbor(fa, lbx - 1, lby, lbx, lby);
+  if (left.ok && !diff_mer(P, xp - 1, yp + ph - 1, xp, yp)) left.ok = 0;
+  int use_left = !(pu_idx == 1 && (part_size == SZ_Nx2N ||
+                                   part_size == SZ_nLx2N ||
+                                   part_size == SZ_nRx2N));
+  if (use_left && left.ok && !nb_is_intra(fa, left)) {
+    TAKE(left);
+    if (mrg_cand_idx == count - 1) return count;
+  }
+  // above (from RT corner)
+  Nb above = remap_above(fa, neighbor(fa, rtx, rty - 1, rtx, rty), rty);
+  if (above.ok && !diff_mer(P, xp + pw - 1, yp - 1, xp, yp)) above.ok = 0;
+  if (above.ok && !nb_is_intra(fa, above) &&
+      !(pu_idx == 1 && (part_size == SZ_2NxN || part_size == SZ_2NxnU ||
+                        part_size == SZ_2NxnD)) &&
+      (!left.ok || nb_is_intra(fa, left) || !equal_motion(fa, left, above))) {
+    TAKE(above);
+    if (mrg_cand_idx == count - 1) return count;
+  }
+  // above-right
+  Nb ar = remap_above(fa, neighbor(fa, rtx + 1, rty - 1, rtx, rty), rty);
+  if (ar.ok && !diff_mer(P, xp + pw, yp - 1, xp, yp)) ar.ok = 0;
+  if (ar.ok && !nb_is_intra(fa, ar) &&
+      (!above.ok || nb_is_intra(fa, above) || !equal_motion(fa, above, ar))) {
+    TAKE(ar);
+    if (mrg_cand_idx == count - 1) return count;
+  }
+  // below-left
+  Nb bl = neighbor(fa, lbx - 1, lby + 1, lbx, lby);
+  if (bl.ok && !diff_mer(P, xp - 1, yp + ph, xp, yp)) bl.ok = 0;
+  if (bl.ok && !nb_is_intra(fa, bl) &&
+      (!left.ok || nb_is_intra(fa, left) || !equal_motion(fa, left, bl))) {
+    TAKE(bl);
+    if (mrg_cand_idx == count - 1) return count;
+  }
+  // above-left
+  if (count < 4) {
+    Nb al = remap_above(fa, neighbor(fa, ox - 1, oy - 1, ox, oy), oy);
+    if (al.ok && !diff_mer(P, xp - 1, yp - 1, xp, yp)) al.ok = 0;
+    if (al.ok && !nb_is_intra(fa, al) &&
+        (!left.ok || nb_is_intra(fa, left) ||
+         !equal_motion(fa, left, al)) &&
+        (!above.ok || nb_is_intra(fa, above) ||
+         !equal_motion(fa, above, al))) {
+      TAKE(al);
+      if (mrg_cand_idx == count - 1) return count;
+    }
+  }
+  // temporal
+  if (sp->tmvp && sp->has_col) {
+    MvCand t;
+    if (tmvp_merge(P, xp, yp, pw, ph, &t)) {
+      cand_is_inter[count] = 1;
+      cands[count] = t;
+      count++;
+      if (mrg_cand_idx == count - 1) return count;
+    }
+  }
+#undef TAKE
+
+  int array_addr = count, cutoff = count;
+  if (sp->is_b) {
+    static const int pl0[12] = {0, 1, 0, 2, 1, 2, 0, 3, 1, 3, 2, 3};
+    static const int pl1[12] = {1, 0, 2, 0, 2, 1, 3, 0, 3, 1, 3, 2};
+    for (int idx = 0; idx < cutoff * (cutoff - 1); idx++) {
+      if (array_addr == MRG_MAX) break;
+      int i = pl0[idx], j = pl1[idx];
+      if (cand_is_inter[i] && cand_is_inter[j] && (cands[i].dir & 1) &&
+          (cands[j].dir & 2)) {
+        cand_is_inter[array_addr] = 1;
+        cands[array_addr].dir = 3;
+        cands[array_addr].ref[0] = cands[i].ref[0];
+        cands[array_addr].mv[0][0] = cands[i].mv[0][0];
+        cands[array_addr].mv[0][1] = cands[i].mv[0][1];
+        cands[array_addr].ref[1] = cands[j].ref[1];
+        cands[array_addr].mv[1][0] = cands[j].mv[1][0];
+        cands[array_addr].mv[1][1] = cands[j].mv[1][1];
+        int poc0 = sp->ref_pocs[0][cands[array_addr].ref[0]];
+        int poc1 = sp->ref_pocs[1][cands[array_addr].ref[1]];
+        if (poc0 == poc1 &&
+            cands[array_addr].mv[0][0] == cands[array_addr].mv[1][0] &&
+            cands[array_addr].mv[0][1] == cands[array_addr].mv[1][1]) {
+          cand_is_inter[array_addr] = 0;
+        } else {
+          array_addr++;
+        }
+      }
+    }
+  }
+  int num_ref = sp->is_b ? (sp->num_ref_idx0 < sp->num_ref_idx1
+                                ? sp->num_ref_idx0 : sp->num_ref_idx1)
+                         : sp->num_ref_idx0;
+  int r = 0, refcnt = 0;
+  while (array_addr < MRG_MAX) {
+    cand_is_inter[array_addr] = 1;
+    cands[array_addr].dir = 1;
+    cands[array_addr].ref[0] = r;
+    cands[array_addr].mv[0][0] = 0; cands[array_addr].mv[0][1] = 0;
+    cands[array_addr].ref[1] = -1;
+    cands[array_addr].mv[1][0] = 0; cands[array_addr].mv[1][1] = 0;
+    if (sp->is_b) {
+      cands[array_addr].dir = 3;
+      cands[array_addr].ref[1] = r;
+    }
+    array_addr++;
+    if (refcnt == num_ref - 1) r = 0;
+    else { r++; refcnt++; }
+  }
+  return array_addr < sp->max_merge ? array_addr : sp->max_merge;
+}
+
+// xAddMVPCand: same ref in this list, else same POC via the other list
+static int add_mvp_cand(const MvEnv* P, int16_t cands[][2], int* n, Nb nb,
+                        int ref_list, int ref_idx) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  if (!nb.ok) return 0;
+  int nref = U3(fa->ref_idx, ref_list, nb.ux, nb.uy);
+  if (nref >= 0 && ref_idx >= 0 &&
+      sp->ref_pocs[ref_list][nref] == sp->ref_pocs[ref_list][ref_idx]) {
+    cands[*n][0] = MV_AT(fa->mv, ref_list, nb.ux, nb.uy, 0);
+    cands[*n][1] = MV_AT(fa->mv, ref_list, nb.ux, nb.uy, 1);
+    (*n)++;
+    return 1;
+  }
+  int other = 1 - ref_list;
+  int cur_ref_poc = sp->ref_pocs[ref_list][ref_idx];
+  int oref = U3(fa->ref_idx, other, nb.ux, nb.uy);
+  if (oref >= 0 && sp->ref_pocs[other][oref] == cur_ref_poc) {
+    cands[*n][0] = MV_AT(fa->mv, other, nb.ux, nb.uy, 0);
+    cands[*n][1] = MV_AT(fa->mv, other, nb.ux, nb.uy, 1);
+    (*n)++;
+    return 1;
+  }
+  return 0;
+}
+
+// xAddMVPCandOrder: same-list then cross-list with POC scaling
+static int add_mvp_cand_order(const MvEnv* P, int16_t cands[][2], int* n,
+                              Nb nb, int ref_list, int ref_idx) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  if (!nb.ok) return 0;
+  int cur_ref_poc = sp->ref_pocs[ref_list][ref_idx];
+  for (int k = 0; k < 2; k++) {
+    int lst = k == 0 ? ref_list : 1 - ref_list;
+    int nref = U3(fa->ref_idx, lst, nb.ux, nb.uy);
+    if (nref >= 0) {
+      int neib_ref_poc = sp->ref_pocs[lst][nref];
+      int16_t mv[2] = {MV_AT(fa->mv, lst, nb.ux, nb.uy, 0),
+                       MV_AT(fa->mv, lst, nb.ux, nb.uy, 1)};
+      int scale = dist_scale_factor(sp->poc, cur_ref_poc, sp->poc,
+                                    neib_ref_poc);
+      if (scale != 4096) scale_mv16(mv, scale);
+      cands[*n][0] = mv[0];
+      cands[*n][1] = mv[1];
+      (*n)++;
+      return 1;
+    }
+  }
+  return 0;
+}
+
+// fillMvpCand (TComDataCU.cpp:3324); fills exactly AMVP_MAX entries
+static void amvp_candidates(const MvEnv* P, int cu_x, int cu_y, int cu_size,
+                            int part_size, int pu_idx, int ref_list,
+                            int ref_idx, int16_t out[AMVP_MAX][2]) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  out[0][0] = out[0][1] = out[1][0] = out[1][1] = 0;
+  if (ref_idx < 0) return;
+  int xp, yp, pw, ph;
+  pu_geometry(part_size, cu_x, cu_y, cu_size, pu_idx, &xp, &yp, &pw, &ph);
+  int lbx = xp / 4, lby = (yp + ph - 4) / 4;
+  int rtx = (xp + pw - 4) / 4, rty = yp / 4;
+  int ltx = xp / 4, lty = yp / 4;
+
+  int16_t cands[4][2];
+  int n = 0;
+
+  Nb bl = neighbor(fa, lbx - 1, lby + 1, lbx, lby);
+  Nb left = neighbor(fa, lbx - 1, lby, lbx, lby);
+  int added_smvp = (bl.ok && !nb_is_intra(fa, bl)) ||
+                   (left.ok && !nb_is_intra(fa, left));
+
+  int added = add_mvp_cand(P, cands, &n, bl, ref_list, ref_idx);
+  if (!added) added = add_mvp_cand(P, cands, &n, left, ref_list, ref_idx);
+  if (!added) {
+    added = add_mvp_cand_order(P, cands, &n, bl, ref_list, ref_idx);
+    if (!added) add_mvp_cand_order(P, cands, &n, left, ref_list, ref_idx);
+  }
+
+  Nb ar = remap_above(fa, neighbor(fa, rtx + 1, rty - 1, rtx, rty), rty);
+  Nb above = remap_above(fa, neighbor(fa, rtx, rty - 1, rtx, rty), rty);
+  Nb al = remap_above(fa, neighbor(fa, ltx - 1, lty - 1, ltx, lty), lty);
+  added = add_mvp_cand(P, cands, &n, ar, ref_list, ref_idx);
+  if (!added) added = add_mvp_cand(P, cands, &n, above, ref_list, ref_idx);
+  if (!added) added = add_mvp_cand(P, cands, &n, al, ref_list, ref_idx);
+
+  added = added_smvp;
+  if (n == 2) added = 1;
+  if (!added) {
+    added = add_mvp_cand_order(P, cands, &n, ar, ref_list, ref_idx);
+    if (!added)
+      added = add_mvp_cand_order(P, cands, &n, above, ref_list, ref_idx);
+    if (!added) add_mvp_cand_order(P, cands, &n, al, ref_list, ref_idx);
+  }
+
+  if (n == 2 && cands[0][0] == cands[1][0] && cands[0][1] == cands[1][1])
+    n--;
+
+  if (sp->tmvp && sp->has_col) {
+    int rb_ok, rbx, rby, cx, cy;
+    col_units(fa, xp, yp, pw, ph, &rb_ok, &rbx, &rby, &cx, &cy);
+    int16_t mv[2];
+    int got = rb_ok ? get_col_mvp(P, ref_list, rbx, rby, ref_idx, mv) : 0;
+    if (!got) got = get_col_mvp(P, ref_list, cx, cy, ref_idx, mv);
+    if (got && n < 4) {
+      cands[n][0] = mv[0];
+      cands[n][1] = mv[1];
+      n++;
+    }
+  }
+  for (int i = 0; i < AMVP_MAX; i++) {
+    if (i < n) { out[i][0] = cands[i][0]; out[i][1] = cands[i][1]; }
+    else { out[i][0] = 0; out[i][1] = 0; }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// inter PU syntax (TDecEntropy::decodePUWise) with inline MV reconstruction
+// ---------------------------------------------------------------------------
+static void set_pu_i8(const FrameArrays* fa, int8_t* arr, int ux, int uy,
+                      int uw_, int uh_, int8_t v) {
+  for (int j = 0; j < uh_; j++) {
+    int8_t* row = arr + (int64_t)(uy + j) * fa->uw + ux;
+    for (int i = 0; i < uw_; i++) row[i] = v;
+  }
+}
+static void set_pu_u8(const FrameArrays* fa, uint8_t* arr, int ux, int uy,
+                      int uw_, int uh_, uint8_t v) {
+  for (int j = 0; j < uh_; j++) {
+    uint8_t* row = arr + (int64_t)(uy + j) * fa->uw + ux;
+    for (int i = 0; i < uw_; i++) row[i] = v;
+  }
+}
+static void set_pu_list_i8(const FrameArrays* fa, int8_t* arr, int l, int ux,
+                           int uy, int uw_, int uh_, int8_t v) {
+  for (int j = 0; j < uh_; j++) {
+    int8_t* row = arr + ((int64_t)l * fa->uh + uy + j) * fa->uw + ux;
+    for (int i = 0; i < uw_; i++) row[i] = v;
+  }
+}
+static void set_pu_mv(const FrameArrays* fa, int16_t* arr, int l, int ux,
+                      int uy, int uw_, int uh_, int16_t vx, int16_t vy) {
+  for (int j = 0; j < uh_; j++) {
+    int16_t* row = arr + (((int64_t)l * fa->uh + uy + j) * fa->uw + ux) * 2;
+    for (int i = 0; i < uw_; i++) { row[i * 2] = vx; row[i * 2 + 1] = vy; }
+  }
+}
+
+static int parse_ref_idx(Parser* P, int lst) {
+  int sym = dec_bin(P->st, P->ctx, P->co->ref_pic);
+  if (!sym) return 0;
+  int ref_num = (lst == 0 ? P->sp->num_ref_idx0 : P->sp->num_ref_idx1) - 2;
+  int ui = 0;
+  while (ui < ref_num) {
+    sym = ui == 0 ? dec_bin(P->st, P->ctx, P->co->ref_pic + 1)
+                  : dec_bin_ep(P->st);
+    if (sym == 0) break;
+    ui++;
+  }
+  return ui + 1;
+}
+
+static void parse_mvd(Parser* P, int lst, int inter_dir, int* mvx,
+                      int* mvy) {
+  if (P->sp->mvd_l1_zero && lst == 1 && inter_dir == 3) {
+    *mvx = 0; *mvy = 0;
+    return;
+  }
+  int hor = dec_bin(P->st, P->ctx, P->co->mvd);
+  int ver = dec_bin(P->st, P->ctx, P->co->mvd);
+  int hor_gr0 = hor != 0, ver_gr0 = ver != 0;
+  if (hor_gr0) hor += dec_bin(P->st, P->ctx, P->co->mvd + 1);
+  if (ver_gr0) ver += dec_bin(P->st, P->ctx, P->co->mvd + 1);
+  int hor_sign = 0, ver_sign = 0;
+  if (hor_gr0) {
+    if (hor == 2) hor += ep_exgolomb(P, 1);
+    hor_sign = dec_bin_ep(P->st);
+  }
+  if (ver_gr0) {
+    if (ver == 2) ver += ep_exgolomb(P, 1);
+    ver_sign = dec_bin_ep(P->st);
+  }
+  *mvx = hor_sign ? -hor : hor;
+  *mvy = ver_sign ? -ver : ver;
+}
+
+static void decode_skip_cu(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int merge_idx = parse_merge_index(P);
+  set_region<int8_t>(fa, fa->merge_idx, ux, uy, units, (int8_t)merge_idx);
+  MvCand cands[MRG_MAX];
+  MvEnv mve = {P->fa, P->sp};
+  merge_candidates(&mve, px, py, size, SZ_2Nx2N, 0, merge_idx, cands);
+  set_region<int8_t>(fa, fa->inter_dir, ux, uy, units,
+                     (int8_t)cands[merge_idx].dir);
+  for (int l = 0; l < 2; l++) {
+    int nref = l == 0 ? sp->num_ref_idx0 : sp->num_ref_idx1;
+    if (nref > 0) {
+      set_pu_list_i8(fa, fa->ref_idx, l, ux, uy, units, units,
+                     (int8_t)cands[merge_idx].ref[l]);
+      set_pu_mv(fa, fa->mv, l, ux, uy, units, units,
+                cands[merge_idx].mv[l][0], cands[merge_idx].mv[l][1]);
+      set_pu_mv(fa, fa->mvd, l, ux, uy, units, units, 0, 0);
+      set_pu_list_i8(fa, fa->mvp_idx, l, ux, uy, units, units, 0);
+    } else {
+      set_pu_list_i8(fa, fa->ref_idx, l, ux, uy, units, units, -1);
+      set_pu_mv(fa, fa->mv, l, ux, uy, units, units, 0, 0);
+    }
+  }
+  for (int c = 0; c < 3; c++)
+    set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux, uy,
+                        units, 0);
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+}
+
+static void parse_pu_wise(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  int n_pu = num_pus(part_sz);
+  int is_b = sp->slice_type == SLICE_B;
+
+  for (int pu = 0; pu < n_pu; pu++) {
+    int xp, yp, pw, ph;
+    pu_geometry(part_sz, px, py, size, pu, &xp, &yp, &pw, &ph);
+    int rux = xp / 4, ruy = yp / 4, ruw = pw / 4, ruh = ph / 4;
+    int merge = dec_bin(P->st, P->ctx, P->co->merge_flag);
+    set_pu_u8(fa, fa->merge_flag, rux, ruy, ruw, ruh, (uint8_t)(merge != 0));
+    if (merge) {
+      int merge_idx = parse_merge_index(P);
+      set_pu_i8(fa, fa->merge_idx, rux, ruy, ruw, ruh, (int8_t)merge_idx);
+      MvCand cands[MRG_MAX];
+      MvEnv mve = {P->fa, P->sp};
+      merge_candidates(&mve, px, py, size, part_sz, pu, merge_idx, cands);
+      set_pu_i8(fa, fa->inter_dir, rux, ruy, ruw, ruh,
+                (int8_t)cands[merge_idx].dir);
+      for (int l = 0; l < 2; l++) {
+        int nref = l == 0 ? sp->num_ref_idx0 : sp->num_ref_idx1;
+        if (nref > 0) {
+          set_pu_list_i8(fa, fa->ref_idx, l, rux, ruy, ruw, ruh,
+                         (int8_t)cands[merge_idx].ref[l]);
+          set_pu_mv(fa, fa->mv, l, rux, ruy, ruw, ruh,
+                    cands[merge_idx].mv[l][0], cands[merge_idx].mv[l][1]);
+          set_pu_mv(fa, fa->mvd, l, rux, ruy, ruw, ruh, 0, 0);
+          set_pu_list_i8(fa, fa->mvp_idx, l, rux, ruy, ruw, ruh, 0);
+        } else {
+          set_pu_list_i8(fa, fa->ref_idx, l, rux, ruy, ruw, ruh, -1);
+          set_pu_mv(fa, fa->mv, l, rux, ruy, ruw, ruh, 0, 0);
+        }
+      }
+    } else {
+      int inter_dir;
+      if (!is_b) {
+        inter_dir = 1;
+      } else {
+        int restrict_ = !(part_sz == SZ_2Nx2N || size != 8);
+        int sym = restrict_ ? 0
+                            : dec_bin(P->st, P->ctx, P->co->inter_dir + depth);
+        if (sym) inter_dir = 3;
+        else inter_dir = 1 + dec_bin(P->st, P->ctx, P->co->inter_dir + 4);
+      }
+      set_pu_i8(fa, fa->inter_dir, rux, ruy, ruw, ruh, (int8_t)inter_dir);
+      for (int l = 0; l < 2; l++) {
+        int nref = l == 0 ? sp->num_ref_idx0 : sp->num_ref_idx1;
+        if (nref <= 0) {
+          set_pu_list_i8(fa, fa->ref_idx, l, rux, ruy, ruw, ruh, -1);
+          set_pu_mv(fa, fa->mv, l, rux, ruy, ruw, ruh, 0, 0);
+          continue;
+        }
+        int has_list = inter_dir & (1 << l);
+        int ref_idx;
+        if (nref > 1 && has_list) ref_idx = parse_ref_idx(P, l);
+        else if (has_list) ref_idx = 0;
+        else ref_idx = -1;
+        set_pu_list_i8(fa, fa->ref_idx, l, rux, ruy, ruw, ruh,
+                       (int8_t)ref_idx);
+        int mvdx = 0, mvdy = 0;
+        if (has_list) parse_mvd(P, l, inter_dir, &mvdx, &mvdy);
+        set_pu_mv(fa, fa->mvd, l, rux, ruy, ruw, ruh, (int16_t)mvdx,
+                  (int16_t)mvdy);
+        int mvp_idx = has_list
+                          ? unary_max(P, P->co->mvp_idx, P->co->mvp_idx + 1, 1)
+                          : -1;
+        set_pu_list_i8(fa, fa->mvp_idx, l, rux, ruy, ruw, ruh,
+                       (int8_t)mvp_idx);
+        int16_t preds[AMVP_MAX][2];
+        MvEnv mve2 = {P->fa, P->sp};
+        amvp_candidates(&mve2, px, py, size, part_sz, pu, l, ref_idx, preds);
+        if (ref_idx >= 0) {
+          int pi = mvp_idx >= 0 ? mvp_idx : 0;
+          set_pu_mv(fa, fa->mv, l, rux, ruy, ruw, ruh,
+                    (int16_t)(preds[pi][0] + mvdx),
+                    (int16_t)(preds[pi][1] + mvdy));
+        } else {
+          set_pu_mv(fa, fa->mv, l, rux, ruy, ruw, ruh, 0, 0);
+        }
+      }
+    }
+    // bipred restriction (8x8 CU with sub-8x8 PUs)
+    if (U(fa->inter_dir, rux, ruy) == 3 && size == 8 &&
+        part_sz != SZ_2Nx2N) {
+      set_pu_mv(fa, fa->mv, 1, rux, ruy, ruw, ruh, 0, 0);
+      set_pu_list_i8(fa, fa->ref_idx, 1, rux, ruy, ruw, ruh, -1);
+      set_pu_i8(fa, fa->inter_dir, rux, ruy, ruw, ruh, 1);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// transform tree + coefficients (TDecEntropy::xDecodeTransform :322)
+// ---------------------------------------------------------------------------
+static inline int get_cbf(const FrameArrays* fa, int ux, int uy, int comp,
+                          int trd) {
+  return (U3(fa->cbf, comp, ux, uy) >> trd) & 1;
+}
+
+static inline void set_cbf_store(Parser* P, int abs_part, int comp, int value,
+                                 int depth) {
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  set_region<uint8_t>(P->fa, P->fa->cbf + (int64_t)comp * P->fa->uh *
+                                  P->fa->uw,
+                      ux, uy, units_at_depth(P->fa, depth), (uint8_t)value);
+}
+
+static int log2_ctu(const FrameArrays* fa) {
+  return convert_to_bit(fa->ctu_size) + 2;
+}
+
+// getQuadtreeTULog2MinSizeInCU (TComDataCU.cpp:2037)
+static int min_tu_size_in_cu(Parser* P, int abs_part) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int depth = U(fa->depth, ux, uy);
+  int log2_cb = log2_ctu(fa) - depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+  int max_tu_depth = is_intra ? sp->tu_depth_intra : sp->tu_depth_inter;
+  int intra_split = (is_intra && part_sz == SZ_NxN) ? 1 : 0;
+  int inter_split =
+      (max_tu_depth == 1 && !is_intra && part_sz != SZ_2Nx2N) ? 1 : 0;
+  if (log2_cb < sp->min_tr_log2 + max_tu_depth - 1 + inter_split + intra_split)
+    return sp->min_tr_log2;
+  int v = log2_cb - (max_tu_depth - 1 + inter_split + intra_split);
+  return v < sp->max_tr_log2 ? v : sp->max_tr_log2;
+}
+
+// getCoefScanIdx (TComDataCU.cpp:4014); returns 1=hor 2=ver 3=diag
+static int scan_order(Parser* P, int abs_part, int width, int is_luma) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  if (U(fa->pred_mode, ux, uy) != MODE_INTRA) return 3;
+  int ctx_idx;
+  switch (width) {
+    case 2: ctx_idx = 6; break;
+    case 4: ctx_idx = 5; break;
+    case 8: ctx_idx = 4; break;
+    case 16: ctx_idx = 3; break;
+    case 32: ctx_idx = 2; break;
+    case 64: ctx_idx = 1; break;
+    default: ctx_idx = 0; break;
+  }
+  int dir_mode;
+  if (is_luma) {
+    dir_mode = U(fa->luma_dir, ux, uy);
+    if (ctx_idx > 3 && ctx_idx < 6) {
+      int dv = dir_mode - VER_IDX; if (dv < 0) dv = -dv;
+      int dh = dir_mode - HOR_IDX; if (dh < 0) dh = -dh;
+      if (dv < 5) return 1;
+      if (dh < 5) return 2;
+    }
+    return 3;
+  }
+  dir_mode = U(fa->chroma_dir, ux, uy);
+  if (dir_mode == DM_CHROMA_IDX) {
+    int depth = U(fa->depth, ux, uy);
+    int num_parts = fa->parts >> (2 * depth);
+    int cu_part = (abs_part / num_parts) * num_parts;
+    int cux, cuy;
+    unit_xy(P, cu_part, &cux, &cuy);
+    dir_mode = U(fa->luma_dir, cux, cuy);
+  }
+  if (ctx_idx > 4 && ctx_idx < 7) {
+    int dv = dir_mode - VER_IDX; if (dv < 0) dv = -dv;
+    int dh = dir_mode - HOR_IDX; if (dh < 0) dh = -dh;
+    if (dv < 5) return 1;
+    if (dh < 5) return 2;
+  }
+  return 3;
+}
+
+static void parse_ts_flag(Parser* P, int abs_part, int width, int depth,
+                          int comp) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  if (U(fa->tq_bypass, ux, uy)) return;
+  if (width != 4) return;
+  int bit = dec_bin(P->st, P->ctx, P->co->ts_flag + (comp == 0 ? 0 : 1));
+  int store_depth = depth;
+  if (comp != 0 && log2_ctu(fa) - depth == 2) store_depth = depth - 1;
+  set_region<uint8_t>(fa, fa->ts_flag + (int64_t)comp * fa->uh * fa->uw, ux,
+                      uy, units_at_depth(fa, store_depth), (uint8_t)(bit != 0));
+}
+
+static int parse_coeff_tu(Parser* P, int abs_part, int px, int py, int width,
+                          int depth, int comp) {
+  const FrameArrays* fa = P->fa;
+  if (width > P->sp->max_tr_size) width = P->sp->max_tr_size;
+  if (P->sp->use_ts) parse_ts_flag(P, abs_part, width, depth, comp);
+  int is_luma = comp == 0;
+  int scan_idx = scan_order(P, abs_part, width, is_luma);
+  int lg = convert_to_bit(width);
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int be_valid = !U(fa->tq_bypass, ux, uy) && P->sp->sign_hide;
+  int32_t* plane = comp == 0 ? fa->coeff_y
+                             : (comp == 1 ? fa->coeff_cb : fa->coeff_cr);
+  int64_t stride = comp == 0 ? (int64_t)fa->uw * 4 : (int64_t)fa->uw * 2;
+  return parse_coeff_core(P->st, P->ctx, &P->coff, width, scan_idx, is_luma,
+                          be_valid, P->sc->scan[scan_idx][lg],
+                          P->sc->cg[scan_idx][lg], plane, stride, px, py);
+}
+
+static inline void push_luma_tu(Parser* P, int x, int y, int size,
+                                int abs_part, int trd) {
+  int32_t* r = P->fa->luma_tus + (int64_t)P->fa->n_luma * 6;
+  r[0] = x; r[1] = y; r[2] = size; r[3] = abs_part; r[4] = P->ctu_addr;
+  r[5] = trd;
+  P->fa->n_luma++;
+}
+static inline void push_chroma_tu(Parser* P, int x, int y, int size,
+                                  int abs_part, int trd) {
+  int32_t* r = P->fa->chroma_tus + (int64_t)P->fa->n_chroma * 6;
+  r[0] = x; r[1] = y; r[2] = size; r[3] = abs_part; r[4] = P->ctu_addr;
+  r[5] = trd;
+  P->fa->n_chroma++;
+}
+
+static void decode_transform(Parser* P, int abs_part, int depth, int tr_idx,
+                             int cu_abs_part, int cu_depth) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  if (tr_idx == 0) {
+    P->bak_abs_part_cu = abs_part;
+    cu_abs_part = abs_part;
+    int ux0, uy0;
+    unit_xy(P, abs_part, &ux0, &uy0);
+    cu_depth = U(fa->depth, ux0, uy0);
+  }
+  int log2_tr = log2_ctu(fa) - depth;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+
+  if (log2_tr == 2) {
+    int part_num = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % part_num == 0) P->bak_chroma_part = abs_part;
+  }
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+  int part_sz = U(fa->part_size, ux, uy);
+  int cu_d = U(fa->depth, ux, uy);
+
+  int subdiv;
+  if (is_intra && part_sz == SZ_NxN && depth == cu_d) {
+    subdiv = 1;
+  } else if (sp->tu_depth_inter == 1 && !is_intra && part_sz != SZ_2Nx2N &&
+             depth == cu_d) {
+    subdiv = log2_tr > min_tu_size_in_cu(P, abs_part);
+  } else if (log2_tr > sp->max_tr_log2) {
+    subdiv = 1;
+  } else if (log2_tr == sp->min_tr_log2) {
+    subdiv = 0;
+  } else if (log2_tr == min_tu_size_in_cu(P, abs_part)) {
+    subdiv = 0;
+  } else {
+    subdiv = dec_bin(P->st, P->ctx, P->co->trans_subdiv + (5 - log2_tr));
+  }
+
+  int tr_depth = depth - cu_d;
+  int first_cbf_of_cu = tr_depth == 0;
+  if (first_cbf_of_cu) {
+    // zero chroma cbf over this region
+    set_cbf_store(P, abs_part, 1, 0, depth);
+    set_cbf_store(P, abs_part, 2, 0, depth);
+  }
+  if (first_cbf_of_cu || log2_tr > 2) {
+    for (int comp = 1; comp <= 2; comp++) {
+      if (first_cbf_of_cu || get_cbf(fa, ux, uy, comp, tr_depth - 1)) {
+        int bit = dec_bin(P->st, P->ctx, P->co->qt_cbf + 5 + tr_depth);
+        set_cbf_store(P, abs_part, comp, bit << tr_depth, depth);
+      }
+    }
+  } else {
+    for (int comp = 1; comp <= 2; comp++) {
+      int parent = get_cbf(fa, ux, uy, comp, tr_depth - 1);
+      set_cbf_store(P, abs_part, comp, parent << tr_depth, depth);
+    }
+  }
+
+  if (subdiv) {
+    depth++;
+    tr_idx++;
+    int q_parts = fa->parts >> (depth << 1);
+    int start = abs_part;
+    int y_cbf = 0, u_cbf = 0, v_cbf = 0;
+    int luma_tr = tr_depth + 1;
+    int chroma_tr = tr_depth + 1;  // convertTransIdx = identity in this cut
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      decode_transform(P, part, depth, tr_idx, cu_abs_part, cu_depth);
+      int sux, suy;
+      unit_xy(P, part, &sux, &suy);
+      y_cbf |= get_cbf(fa, sux, suy, 0, luma_tr);
+      u_cbf |= get_cbf(fa, sux, suy, 1, chroma_tr);
+      v_cbf |= get_cbf(fa, sux, suy, 2, chroma_tr);
+      part += q_parts;
+    }
+    int luma_tr_p = tr_depth, chroma_tr_p = tr_depth;
+    for (int k = 0; k < 4 * q_parts; k++) {
+      int p = start + k;
+      int sux, suy;
+      unit_xy(P, p, &sux, &suy);
+      U3(fa->cbf, 0, sux, suy) |= (uint8_t)(y_cbf << luma_tr_p);
+      U3(fa->cbf, 1, sux, suy) |= (uint8_t)(u_cbf << chroma_tr_p);
+      U3(fa->cbf, 2, sux, suy) |= (uint8_t)(v_cbf << chroma_tr_p);
+    }
+    return;
+  }
+
+  // leaf TU
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units_at_depth(fa, depth),
+                     (int8_t)tr_depth);
+  int size = 1 << log2_tr;
+  int px = ux * 4, py = uy * 4;
+  push_luma_tu(P, px, py, size, abs_part, tr_depth);
+  if (log2_tr > 2) {
+    push_chroma_tu(P, px / 2, py / 2, size / 2, abs_part, tr_depth);
+  } else {
+    int pn = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % pn == 0)
+      push_chroma_tu(P, px / 2, py / 2, size, abs_part, tr_depth - 1);
+  }
+
+  // luma CBF
+  if (!is_intra && depth == cu_d && !get_cbf(fa, ux, uy, 1, 0) &&
+      !get_cbf(fa, ux, uy, 2, 0)) {
+    set_cbf_store(P, abs_part, 0, 1 << tr_depth, depth);
+  } else {
+    int ctx = tr_depth == 0 ? 1 : 0;
+    int bit = dec_bin(P->st, P->ctx, P->co->qt_cbf + ctx);
+    set_cbf_store(P, abs_part, 0, bit << tr_depth, depth);
+  }
+
+  int cbf_y = get_cbf(fa, ux, uy, 0, tr_idx);
+  int cbf_u = get_cbf(fa, ux, uy, 1, tr_idx);
+  int cbf_v = get_cbf(fa, ux, uy, 2, tr_idx);
+  if (log2_tr == 2) {
+    int part_num = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % part_num == part_num - 1) {
+      int bux, buy;
+      unit_xy(P, P->bak_chroma_part, &bux, &buy);
+      cbf_u = get_cbf(fa, bux, buy, 1, tr_idx);
+      cbf_v = get_cbf(fa, bux, buy, 2, tr_idx);
+    }
+  }
+
+  if (cbf_y || cbf_u || cbf_v) {
+    if (sp->use_dqp && P->code_dqp) {
+      parse_delta_qp(P, P->bak_abs_part_cu);
+      P->code_dqp = 0;
+    }
+  }
+  if (cbf_y) parse_coeff_tu(P, abs_part, px, py, size, depth, 0);
+  if (log2_tr > 2) {
+    if (cbf_u) parse_coeff_tu(P, abs_part, px / 2, py / 2, size / 2, depth, 1);
+    if (cbf_v) parse_coeff_tu(P, abs_part, px / 2, py / 2, size / 2, depth, 2);
+  } else {
+    int part_num = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % part_num == part_num - 1) {
+      int bx, by;
+      unit_xy(P, P->bak_chroma_part, &bx, &by);
+      int bpx = bx * 4, bpy = by * 4;
+      if (cbf_u)
+        parse_coeff_tu(P, P->bak_chroma_part, bpx / 2, bpy / 2, size, depth,
+                       1);
+      if (cbf_v)
+        parse_coeff_tu(P, P->bak_chroma_part, bpx / 2, bpy / 2, size, depth,
+                       2);
+    }
+  }
+}
+
+static int decode_coeff(Parser* P, int abs_part, int depth, int code_dqp) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  if (U(fa->pred_mode, ux, uy) != MODE_INTRA) {
+    int root_cbf = 1;
+    if (!(U(fa->part_size, ux, uy) == SZ_2Nx2N &&
+          U(fa->merge_flag, ux, uy)))
+      root_cbf = dec_bin(P->st, P->ctx, P->co->qt_root_cbf);
+    if (!root_cbf) {
+      for (int c = 0; c < 3; c++)
+        set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux,
+                            uy, units, 0);
+      set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+      return code_dqp;
+    }
+  }
+  P->code_dqp = code_dqp;
+  decode_transform(P, abs_part, depth, 0, 0, 0);
+  return P->code_dqp;
+}
+
+// ---------------------------------------------------------------------------
+// IPCM (TDecSbac parsePCMInfo / TDecBinCABAC decodeNumSubseqIPCM + PCM reads)
+// ---------------------------------------------------------------------------
+static void parse_ipcm(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int read_pcm = 0;
+  if (P->num_suc_ipcm > 0) {
+    read_pcm = 1;
+  } else if (dec_bin_trm(P->st)) {
+    read_pcm = 1;
+    // decodeNumSubseqIPCM
+    int n = 0, bit = 0;
+    BsEngine* st = P->st;
+    for (;;) {
+      st->value += st->value;
+      if (++st->bits_needed >= 0) {
+        st->bits_needed = -8;
+        st->value += bs_read(st, 8);
+      }
+      bit = (int)((st->value & 128) >> 7);
+      n++;
+      if (!(bit && n < 3)) break;
+    }
+    if (bit && n == 3) n++;
+    n--;
+    P->num_suc_ipcm = n + 1;
+    byte_align_read(st);  // decodePCMAlignBits
+  }
+  if (read_pcm) {
+    set_region<int8_t>(fa, fa->part_size, ux, uy, units, SZ_2Nx2N);
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+    set_region<uint8_t>(fa, fa->ipcm, ux, uy, units, 1);
+    int size = fa->ctu_size >> depth;
+    int px = ux * 4, py = uy * 4;
+    int shift_l = sp->bit_depth - sp->pcm_bd_luma;
+    int shift_c = sp->bit_depth - sp->pcm_bd_chroma;
+    int64_t ls = (int64_t)fa->uw * 4, cs = (int64_t)fa->uw * 2;
+    for (int y = 0; y < size; y++)
+      for (int x = 0; x < size; x++)
+        fa->pcm_y[(py + y) * ls + px + x] =
+            (int16_t)(bs_read(P->st, sp->pcm_bd_luma) << shift_l);
+    int16_t* planes[2] = {fa->pcm_cb, fa->pcm_cr};
+    for (int pi = 0; pi < 2; pi++)
+      for (int y = 0; y < size / 2; y++)
+        for (int x = 0; x < size / 2; x++)
+          planes[pi][(py / 2 + y) * cs + px / 2 + x] =
+              (int16_t)(bs_read(P->st, sp->pcm_bd_chroma) << shift_c);
+    push_luma_tu(P, px, py, size, abs_part, 0);
+    push_chroma_tu(P, px / 2, py / 2, size / 2, abs_part, 0);
+    P->num_suc_ipcm--;
+    if (P->num_suc_ipcm == 0) engine_start(P->st);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// CU quadtree (TDecCu::xDecodeCU :202)
+// ---------------------------------------------------------------------------
+static int decode_slice_end(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int gran = fa->ctu_size;
+  if (((px + size) % gran == 0 || (px + size) == fa->width) &&
+      ((py + size) % gran == 0 || (py + size) == fa->height))
+    return dec_bin_trm(P->st) > 0;
+  return 0;
+}
+
+static void finish_cu(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  if (P->sp->use_dqp) {
+    int val = P->dqp_flag ? ref_qp(P, abs_part) : P->coded_qp;
+    set_region<int8_t>(fa, fa->qp, ux, uy, units, (int8_t)val);
+  } else {
+    set_region<int8_t>(fa, fa->qp, ux, uy, units, (int8_t)P->sp->slice_qp);
+  }
+  if (P->num_suc_ipcm > 0) return;
+  P->is_last = decode_slice_end(P, abs_part, depth);
+}
+
+static inline void push_cu(Parser* P, int px, int py, int size, int mode,
+                           int l0, int l1, int c0, int c1) {
+  int32_t* r = P->fa->cu_list + (int64_t)P->fa->n_cu * 8;
+  r[0] = px; r[1] = py; r[2] = size; r[3] = mode;
+  r[4] = l0; r[5] = l1; r[6] = c0; r[7] = c1;
+  P->fa->n_cu++;
+}
+
+static void decode_cu(Parser* P, int abs_part, int depth) {
+  const FrameArrays* fa = P->fa;
+  const SliceParams* sp = P->sp;
+  int cur_parts = fa->parts >> (depth << 1);
+  int q_parts = cur_parts >> 2;
+  int ux, uy;
+  unit_xy(P, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int boundary = !(px + size <= fa->width && py + size <= fa->height);
+  int max_sig_depth = fa->max_depth - sp->add_cu_depth;
+  int units = units_at_depth(fa, depth);
+
+  int split = 0;
+  if (!boundary) {
+    if (depth == max_sig_depth || P->num_suc_ipcm > 0) {
+      set_region<int8_t>(fa, fa->depth, ux, uy, units, (int8_t)depth);
+    } else {
+      int ctx = ctx_split_flag(fa, ux, uy, depth);
+      int bit = dec_bin(P->st, P->ctx, P->co->split_flag + ctx);
+      set_region<int8_t>(fa, fa->depth, ux, uy, units,
+                         (int8_t)(depth + bit));
+      split = bit == 1;
+    }
+  }
+  if ((!boundary && split && depth < max_sig_depth) || boundary) {
+    int idx = abs_part;
+    if (sp->use_dqp && size == min_cu_dqp_size(P)) P->dqp_flag = 1;
+    for (int i = 0; i < 4; i++) {
+      int sux, suy;
+      unit_xy(P, idx, &sux, &suy);
+      if (sux * 4 < fa->width && suy * 4 < fa->height) {
+        decode_cu(P, idx, depth + 1);
+      } else {
+        int su = units_at_depth(fa, depth + 1);
+        set_region<int8_t>(fa, fa->depth, sux, suy, su, (int8_t)(depth + 1));
+        set_region<int8_t>(fa, fa->pred_mode, sux, suy, su, MODE_NONE);
+      }
+      if (P->is_last) return;
+      idx += q_parts;
+    }
+    return;
+  }
+
+  // leaf CU
+  int lt0 = fa->n_luma, ct0 = fa->n_chroma;
+  if (sp->use_dqp && size >= min_cu_dqp_size(P)) P->dqp_flag = 1;
+
+  if (sp->tq_bypass_enable) {
+    int bit = dec_bin(P->st, P->ctx, P->co->tq_bypass);
+    set_region<uint8_t>(fa, fa->tq_bypass, ux, uy, units,
+                        (uint8_t)(bit != 0));
+  }
+  if (sp->slice_type != SLICE_I && P->num_suc_ipcm == 0)
+    parse_skip_flag(P, abs_part, depth);
+
+  if (U(fa->skip, ux, uy)) {
+    decode_skip_cu(P, abs_part, depth);
+    push_cu(P, px, py, size, MODE_INTER, lt0, lt0, ct0, ct0);
+    finish_cu(P, abs_part, depth);
+    return;
+  }
+  if (P->num_suc_ipcm == 0) {
+    if (sp->slice_type == SLICE_I) {
+      set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTRA);
+    } else {
+      int bit = dec_bin(P->st, P->ctx, P->co->pred_mode);
+      set_region<int8_t>(fa, fa->pred_mode, ux, uy, units,
+                         (int8_t)(MODE_INTER + bit));
+    }
+    parse_part_size(P, abs_part, depth);
+  } else {
+    set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTRA);
+    set_region<int8_t>(fa, fa->part_size, ux, uy, units, SZ_2Nx2N);
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+  }
+
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+  int part_sz = U(fa->part_size, ux, uy);
+
+  if (is_intra && part_sz == SZ_2Nx2N && pcm_allowed(P, size)) {
+    parse_ipcm(P, abs_part, depth);
+    if (U(fa->ipcm, ux, uy)) {
+      push_cu(P, px, py, size, MODE_INTRA, lt0, fa->n_luma, ct0,
+              fa->n_chroma);
+      finish_cu(P, abs_part, depth);
+      return;
+    }
+  }
+
+  if (is_intra) {
+    parse_intra_dir_luma(P, abs_part, depth);
+    parse_intra_dir_chroma(P, abs_part, depth);
+  } else {
+    parse_pu_wise(P, abs_part, depth);
+  }
+
+  P->dqp_flag = decode_coeff(P, abs_part, depth, P->dqp_flag);
+  push_cu(P, px, py, size, is_intra ? MODE_INTRA : MODE_INTER, lt0,
+          fa->n_luma, ct0, fa->n_chroma);
+  finish_cu(P, abs_part, depth);
+}
+
+// ---------------------------------------------------------------------------
+// slice loop (TDecSlice::decompressSlice :93) + entry point
+// ---------------------------------------------------------------------------
+struct SliceCtx {
+  Parser* P;
+  int num_ctx;
+  uint8_t* sub_started;
+};
+
+static void switch_dec(Parser* P, int sub, int num_ctx,
+                       uint8_t* sub_started, const uint8_t* init_ctx) {
+  if (!sub_started[sub]) {
+    memcpy(P->sub_ctx + (int64_t)sub * num_ctx, init_ctx, num_ctx);
+    engine_start(&P->subs[sub]);
+    sub_started[sub] = 1;
+  }
+  P->cur_sub = sub;
+  P->st = &P->subs[sub];
+  P->ctx = P->sub_ctx + (int64_t)sub * num_ctx;
+}
+
+static void mark_ctu_slice(Parser* P, int ctu, int64_t slice_start_addr,
+                           int64_t dep_start_addr, int slice_index) {
+  const FrameArrays* fa = P->fa;
+  int upr = fa->upr;
+  int cx = ctu % fa->ctus_w, cy = ctu / fa->ctus_w;
+  for (int j = 0; j < upr; j++) {
+    int64_t row = (int64_t)(cy * upr + j) * fa->uw + cx * upr;
+    for (int i = 0; i < upr; i++) {
+      fa->slice_start[row + i] = slice_start_addr;
+      fa->dep_slice_start[row + i] = dep_start_addr;
+      fa->slice_idx_arr[row + i] = slice_index;
+    }
+  }
+}
+
+int parse_slice_data(FrameArrays* fa, SliceParams* sp, const CtxOffsets* co,
+                     const ScanTables* sc, BsEngine* subs, int32_t nsub,
+                     uint8_t* sub_ctx, uint8_t* sub_started,
+                     uint8_t* buffer_ctx, const uint8_t* init_ctx,
+                     const uint8_t* dep_in_wpp, const uint8_t* dep_in_end,
+                     uint8_t* dep_out_wpp, uint8_t* dep_out_end,
+                     int32_t* out_info) {
+  Parser parser;
+  memset(&parser, 0, sizeof(parser));
+  Parser* P = &parser;
+  P->fa = fa;
+  P->sp = sp;
+  P->co = co;
+  P->sc = sc;
+  P->coff.o_last_x = co->last_x;
+  P->coff.o_last_y = co->last_y;
+  P->coff.o_sig = co->sig;
+  P->coff.o_sig_cg = co->sig_cg;
+  P->coff.o_one = co->one;
+  P->coff.o_abs = co->abs_;
+  P->coff.num_sig_luma = co->num_sig_luma;
+  P->subs = subs;
+  P->sub_ctx = sub_ctx;
+  P->nsub = nsub;
+  P->init_ctx = init_ctx;
+  P->buffer_ctx = buffer_ctx;
+  P->coded_qp = sp->slice_qp;
+  int num_ctx = co->num_ctx;
+
+  // WPP/tile column context buffers start from the slice-init contexts
+  for (int c = 0; c < fa->n_tile_cols; c++)
+    memcpy(buffer_ctx + (int64_t)c * num_ctx, init_ctx, num_ctx);
+
+  switch_dec(P, 0, num_ctx, sub_started, init_ctx);
+
+  int wpp = sp->wpp, allow_dep = sp->allow_dep;
+  int n_tiles = fa->n_tile_cols * fa->n_tile_rows;
+  int per_tile = nsub / (n_tiles ? n_tiles : 1);
+  if (per_tile < 1) per_tile = 1;
+
+  // dependent slice: restore contexts from the previous segment
+  if (allow_dep && sp->dependent_slice) {
+    if (wpp && dep_in_wpp) memcpy(buffer_ctx, dep_in_wpp, num_ctx);
+    if (dep_in_end) memcpy(P->ctx, dep_in_end, num_ctx);
+  }
+
+  int parts = fa->parts;
+  int start_cu = sp->slice_start_cu > sp->dep_start_cu ? sp->slice_start_cu
+                                                       : sp->dep_start_cu;
+  int start_enc = start_cu / parts;
+  int slice_start_raster = (int)fa->ctu_order[sp->slice_start_cu / parts];
+  int dep_start_raster = (int)fa->ctu_order[sp->dep_start_cu / parts];
+
+  int tile_col = 0;
+  for (int enc = start_enc; enc < fa->num_ctus; enc++) {
+    int ctu = (int)fa->ctu_order[enc];
+    P->ctu_addr = ctu;
+    mark_ctu_slice(P, ctu, sp->slice_start_cu, sp->dep_start_cu,
+                   sp->slice_index);
+    int col = ctu % fa->ctus_w, lin = ctu / fa->ctus_w;
+    int tile = fa->tile_map[ctu];
+    tile_col = tile % fa->n_tile_cols;
+    int tile_first = fa->tile_first[tile];
+    int tile_lcux = tile_first % fa->ctus_w;
+
+    if (nsub > 1 || (allow_dep && col == tile_lcux && wpp)) {
+      int sub = nsub > 1 ? tile * per_tile + lin % per_tile : 0;
+      switch_dec(P, sub, num_ctx, sub_started, init_ctx);
+      if (col == tile_lcux && wpp) {
+        // top-right context inherit (TDecSlice.cpp:228-262)
+        int tr_exists = ctu >= fa->ctus_w && (ctu % fa->ctus_w) + 1 <
+                                                 fa->ctus_w;
+        if (tr_exists) {
+          int tr = ctu - fa->ctus_w + 1;
+          int64_t tr_end = fa->ctu_inv_order[tr] * parts + parts - 1;
+          int same_tile = fa->tile_map[tr] == fa->tile_map[ctu];
+          if (same_tile && tr_end >= sp->slice_start_cu &&
+              tr_end >= sp->dep_start_cu) {
+            memcpy(P->ctx, buffer_ctx + (int64_t)tile_col * num_ctx,
+                   num_ctx);
+          } else if (allow_dep && ctu != 0 && same_tile &&
+                     tr_end >= sp->slice_start_cu) {
+            memcpy(P->ctx, buffer_ctx + (int64_t)tile_col * num_ctx,
+                   num_ctx);
+          }
+        }
+      }
+    } else if (nsub == 1 && n_tiles > 1) {
+      if (ctu == tile_first && ctu != 0 && ctu != slice_start_raster &&
+          ctu != dep_start_raster) {
+        // TDecSbac::updateContextTables: terminate, align, re-init
+        dec_bin_trm(P->st);
+        byte_align_read(P->st);
+        memcpy(P->ctx, init_ctx, num_ctx);
+        engine_start(P->st);
+      }
+    }
+
+    if (sp->use_sao && sp->sao_enabled) {
+      int allow_left = 1, allow_up = 1;
+      if (col > 0 && fa->tile_map[ctu - 1] != tile) allow_left = 0;
+      if (lin > 0 && fa->tile_map[ctu - fa->ctus_w] != tile) allow_up = 0;
+      parse_sao_ctu(P, ctu, slice_start_raster, allow_left, allow_up);
+    }
+
+    P->is_last = 0;
+    decode_cu(P, 0, 0);
+
+    if (wpp && col == tile_lcux + 1 && (nsub > 1 || allow_dep))
+      memcpy(buffer_ctx + (int64_t)tile_col * num_ctx, P->ctx, num_ctx);
+    if (P->is_last) break;
+    if (P->st->overflow) { out_info[3] = 1; return -1; }
+  }
+
+  if (allow_dep) {
+    memcpy(dep_out_wpp, buffer_ctx + (int64_t)tile_col * num_ctx, num_ctx);
+    memcpy(dep_out_end, P->ctx, num_ctx);
+  }
+  out_info[0] = fa->n_luma;
+  out_info[1] = fa->n_chroma;
+  out_info[2] = fa->n_cu;
+  out_info[3] = P->st->overflow;
+  return P->st->overflow ? -1 : 0;
+}
+
+// ---------------------------------------------------------------------------
+// build the per-TU reconstruction rows for the all-intra native recon
+// (replaces the Python row-building loop in decoder/recon.py
+// _native_intra_picture; row layout matches intra_recon_tus)
+// ---------------------------------------------------------------------------
+static inline int qp_scaled_chroma(int qp, int qp_bd, int off,
+                                   const uint8_t* chroma_scale) {
+  int q = qp + off;
+  if (q < -qp_bd) q = -qp_bd;
+  if (q > 57) q = 57;
+  if (q < 0) return q + qp_bd;
+  return chroma_scale[q] + qp_bd;
+}
+
+void build_intra_rows(const FrameArrays* fa, const int32_t* cu_list,
+                      int32_t cu_lo, int32_t cu_hi, const int32_t* luma_tus,
+                      const int32_t* chroma_tus, int32_t qp_bd_y,
+                      int32_t qp_bd_c, int32_t cb_off, int32_t cr_off,
+                      const uint8_t* chroma_scale, int32_t* rows_y,
+                      int32_t* n_y, int32_t* rows_cb, int32_t* n_cb,
+                      int32_t* rows_cr, int32_t* n_cr) {
+  int upr = fa->upr;
+  for (int c = cu_lo; c < cu_hi; c++) {
+    const int32_t* cu = cu_list + (int64_t)c * 8;
+    if (cu[3] != MODE_INTRA) continue;   // inter CUs: inter_recon_cus
+    int l0 = cu[4], l1 = cu[5], c0 = cu[6], c1 = cu[7];
+    for (int t = l0; t < l1; t++) {
+      const int32_t* tu = luma_tus + (int64_t)t * 6;
+      int tx = tu[0], ty = tu[1], tsz = tu[2], trd = tu[5];
+      int ux = tx / 4, uy = ty / 4;
+      int32_t* r = rows_y + (int64_t)(*n_y) * 10;
+      (*n_y)++;
+      if (U(fa->ipcm, ux, uy)) {
+        r[0] = tx; r[1] = ty; r[2] = tsz;
+        r[3] = r[4] = r[5] = r[6] = r[7] = r[8] = 0; r[9] = 1;
+        continue;
+      }
+      r[0] = tx; r[1] = ty; r[2] = tsz;
+      r[3] = U(fa->luma_dir, ux, uy);
+      r[4] = U(fa->qp, ux, uy) + qp_bd_y;
+      r[5] = (U3(fa->cbf, 0, ux, uy) >> trd) & 1;
+      r[6] = tsz == 4;
+      r[7] = U3(fa->ts_flag, 0, ux, uy);
+      r[8] = U(fa->tq_bypass, ux, uy);
+      r[9] = 0;
+    }
+    for (int t = c0; t < c1; t++) {
+      const int32_t* tu = chroma_tus + (int64_t)t * 6;
+      int cx = tu[0], cy = tu[1], csz = tu[2], trd = tu[5];
+      int ux = cx / 2, uy = cy / 2;
+      int32_t* rb = rows_cb + (int64_t)(*n_cb) * 10;
+      int32_t* rr = rows_cr + (int64_t)(*n_cr) * 10;
+      (*n_cb)++; (*n_cr)++;
+      if (U(fa->ipcm, ux, uy)) {
+        rb[0] = cx; rb[1] = cy; rb[2] = csz;
+        rb[3] = rb[4] = rb[5] = rb[6] = rb[7] = rb[8] = 0; rb[9] = 1;
+        rr[0] = cx; rr[1] = cy; rr[2] = csz;
+        rr[3] = rr[4] = rr[5] = rr[6] = rr[7] = rr[8] = 0; rr[9] = 1;
+        continue;
+      }
+      int depth = U(fa->depth, ux, uy);
+      int cu_units = upr >> depth;
+      int cux = (ux / cu_units) * cu_units;
+      int cuy = (uy / cu_units) * cu_units;
+      int cmode = U(fa->chroma_dir, cux, cuy);
+      if (cmode == DM_CHROMA_IDX) cmode = U(fa->luma_dir, cux, cuy);
+      int qp = U(fa->qp, ux, uy);
+      int byp = U(fa->tq_bypass, ux, uy);
+      rb[0] = cx; rb[1] = cy; rb[2] = csz; rb[3] = cmode;
+      rb[4] = qp_scaled_chroma(qp, qp_bd_c, cb_off, chroma_scale);
+      rb[5] = (U3(fa->cbf, 1, ux, uy) >> trd) & 1;
+      rb[6] = 0;
+      rb[7] = U3(fa->ts_flag, 1, ux, uy);
+      rb[8] = byp; rb[9] = 0;
+      rr[0] = cx; rr[1] = cy; rr[2] = csz; rr[3] = cmode;
+      rr[4] = qp_scaled_chroma(qp, qp_bd_c, cr_off, chroma_scale);
+      rr[5] = (U3(fa->cbf, 2, ux, uy) >> trd) & 1;
+      rr[6] = 0;
+      rr[7] = U3(fa->ts_flag, 2, ux, uy);
+      rr[8] = byp; rr[9] = 0;
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// inter reconstruction: per-PU motion compensation + per-TU residual add
+// (TDecCu::xReconInter :648, TComPrediction::motionCompensation :551,
+// TComInterpolationFilter.cpp filter<> :164 — bit-exact mirror of
+// decoder/inter.py + ops/interp.py incl. the int16 Short intermediates)
+// ---------------------------------------------------------------------------
+static const int16_t kLumaFilt[4][8] = {
+    {0, 0, 0, 64, 0, 0, 0, 0},
+    {-1, 4, -10, 58, 17, -5, 1, 0},
+    {-1, 4, -11, 40, 40, -11, 4, -1},
+    {0, 1, -5, 17, 58, -10, 4, -1}};
+static const int16_t kChromaFilt[8][4] = {
+    {0, 64, 0, 0},  {-2, 58, 10, -2}, {-4, 54, 16, -2}, {-6, 46, 28, -4},
+    {-4, 36, 36, -4}, {-4, 28, 46, -6}, {-2, 16, 54, -4}, {-2, 10, 58, -2}};
+
+struct InterRefs {
+  const int16_t* pad_y[2][16];
+  const int16_t* pad_cb[2][16];
+  const int16_t* pad_cr[2][16];
+  int64_t ref_poc[2][16];
+  int32_t n_ref[2];
+  int32_t margin;         // luma pad margin (chroma = margin/2)
+  int32_t ys, cs;         // padded luma / chroma strides
+  // explicit weighted prediction (TComWeightPrediction.cpp:61-366);
+  // weights/offsets indexed [list][ref][comp 0=Y 1=Cb 2=Cr]
+  int32_t wp_active;
+  int32_t luma_log2_denom, chroma_log2_denom;
+  int32_t wp_w[2][16][3];
+  int32_t wp_o[2][16][3];
+};
+
+struct InterReconParams {
+  int32_t slice_type;     // 0 B, 1 P
+  int32_t wp_bipred;      // PPS weighted bipred flag (identical-MV check)
+  int32_t bit_depth, bit_inc;
+  int32_t pic_w, pic_h, ctu_size;
+  int32_t rls, rcs;       // recon strides (luma, chroma)
+  int32_t ls, cls;        // coefficient-plane strides (luma, chroma)
+  int32_t qp_bd_y, qp_bd_c, cb_off, cr_off;
+  const uint8_t* chroma_scale;
+  const int32_t* dct4;
+  const int32_t* dct8;
+  const int32_t* dct16;
+  const int32_t* dct32;
+};
+
+// filterCopy (TComInterpolationFilter.cpp:85)
+static void mc_copy_c(const int16_t* src, int ss, int w, int h, int bd,
+                      int bi, int16_t* dst, int ds) {
+  if (!bi) {
+    for (int r = 0; r < h; r++)
+      memcpy(dst + r * ds, src + (int64_t)r * ss, sizeof(int16_t) * w);
+    return;
+  }
+  int shift = 14 - bd;
+  for (int r = 0; r < h; r++)
+    for (int c = 0; c < w; c++)
+      dst[r * ds + c] =
+          (int16_t)(((int32_t)src[(int64_t)r * ss + c] << shift) - 8192);
+}
+
+// filter<N,isVertical,isFirst,isLast> (mirrors ops/interp._filter_1d)
+static void mc_filter_c(const int16_t* src, int ss, const int16_t* cf,
+                        int n_taps, int vertical, int bd, int is_first,
+                        int is_last, int out_h, int out_w, int16_t* dst,
+                        int ds) {
+  int head_room = 14 - bd;
+  int shift = 6;
+  int32_t offset;
+  if (is_last) {
+    shift += is_first ? 0 : head_room;
+    offset = 1 << (shift - 1);
+    offset += is_first ? 0 : (8192 << 6);
+  } else {
+    shift -= is_first ? head_room : 0;
+    offset = is_first ? -(8192 << shift) : 0;
+  }
+  int max_val = (1 << bd) - 1;
+  int step = vertical ? ss : 1;
+#if defined(__AVX2__)
+  // 8 outputs per iteration: int32 accumulation of int16*int16 products,
+  // matching the scalar order exactly (add-assoc-free: each product is
+  // exact in int32, the sum is the same regardless of lane grouping)
+  if (out_w >= 8) {
+    __m256i voff = _mm256_set1_epi32(offset);
+    __m128i vcnt = _mm_cvtsi32_si128(shift);
+    __m256i vmax = _mm256_set1_epi32(max_val);
+    __m256i vzero = _mm256_setzero_si256();
+    // truncating int32->int16 pack (scalar path casts, packs would
+    // saturate): gather low halves per 128-lane, then merge lanes
+    const __m256i pkmask = _mm256_setr_epi8(
+        0, 1, 4, 5, 8, 9, 12, 13, -1, -1, -1, -1, -1, -1, -1, -1,
+        0, 1, 4, 5, 8, 9, 12, 13, -1, -1, -1, -1, -1, -1, -1, -1);
+    int w8 = out_w & ~7;
+    for (int r = 0; r < out_h; r++) {
+      const int16_t* row = src + (int64_t)r * ss;
+      for (int c = 0; c < w8; c += 8) {
+        const int16_t* p = row + c;
+        __m256i acc = voff;
+        for (int k = 0; k < n_taps; k++) {
+          __m256i sv = _mm256_cvtepi16_epi32(
+              _mm_loadu_si128((const __m128i*)(p + (int64_t)k * step)));
+          __m256i cv = _mm256_set1_epi32((int32_t)cf[k]);
+          acc = _mm256_add_epi32(acc, _mm256_mullo_epi32(sv, cv));
+        }
+        __m256i v = _mm256_sra_epi32(acc, vcnt);
+        if (is_last)
+          v = _mm256_min_epi32(_mm256_max_epi32(v, vzero), vmax);
+        __m256i t = _mm256_shuffle_epi8(v, pkmask);
+        __m256i m = _mm256_permute4x64_epi64(t, 0x08);
+        _mm_storeu_si128((__m128i*)(dst + (int64_t)r * ds + c),
+                         _mm256_castsi256_si128(m));
+      }
+      for (int c = w8; c < out_w; c++) {
+        const int16_t* p = row + c;
+        int32_t acc = 0;
+        for (int k = 0; k < n_taps; k++)
+          acc += (int32_t)p[k * step] * cf[k];
+        int32_t v = (acc + offset) >> shift;
+        if (is_last) {
+          if (v < 0) v = 0;
+          else if (v > max_val) v = max_val;
+        }
+        dst[(int64_t)r * ds + c] = (int16_t)v;
+      }
+    }
+    return;
+  }
+#endif
+  for (int r = 0; r < out_h; r++) {
+    const int16_t* row = src + (int64_t)r * ss;
+    for (int c = 0; c < out_w; c++) {
+      const int16_t* p = row + c;
+      int32_t acc = 0;
+      for (int k = 0; k < n_taps; k++) acc += (int32_t)p[k * step] * cf[k];
+      int32_t v = (acc + offset) >> shift;
+      if (is_last) {
+        if (v < 0) v = 0;
+        else if (v > max_val) v = max_val;
+      }
+      dst[r * ds + c] = (int16_t)v;
+    }
+  }
+}
+
+// _mc_block: generic separable MC on a padded plane
+static void mc_block_c(const int16_t* ref, int ss, int y0, int x0,
+                       int frac_x, int frac_y, int w, int h,
+                       const int16_t (*filt)[8], int filt_stride,
+                       int n_taps, int bd, int bi, int16_t* dst, int ds) {
+  int half = n_taps / 2;
+  const int16_t* base = ref + (int64_t)y0 * ss + x0;
+  const int16_t* fx = (const int16_t*)((const char*)filt +
+                                       (int64_t)frac_x * filt_stride);
+  const int16_t* fy = (const int16_t*)((const char*)filt +
+                                       (int64_t)frac_y * filt_stride);
+  if (frac_y == 0 && frac_x == 0) {
+    mc_copy_c(base, ss, w, h, bd, bi, dst, ds);
+  } else if (frac_y == 0) {
+    mc_filter_c(base - (half - 1), ss, fx, n_taps, 0, bd, 1, !bi, h, w,
+                dst, ds);
+  } else if (frac_x == 0) {
+    mc_filter_c(base - (int64_t)(half - 1) * ss, ss, fy, n_taps, 1, bd, 1,
+                !bi, h, w, dst, ds);
+  } else {
+    int16_t tmp[(64 + 8) * 64];
+    mc_filter_c(base - (int64_t)(half - 1) * ss - (half - 1), ss, fx,
+                n_taps, 0, bd, 1, 0, h + n_taps - 1, w, tmp, 64);
+    mc_filter_c(tmp, 64, fy, n_taps, 1, bd, 0, !bi, h, w, dst, ds);
+  }
+}
+
+// addWeightUni (TComWeightPrediction.cpp): src in 14-bit internal domain
+static void weight_uni_c(const InterRefs* R, int lst, int ref, int comp,
+                         const int16_t* src, int n, int bd, int16_t* dst) {
+  int w = R->wp_w[lst][ref][comp];
+  int ioff = R->wp_o[lst][ref][comp];
+  int denom = comp == 0 ? R->luma_log2_denom : R->chroma_log2_denom;
+  int offset = ioff * (1 << (bd - 8));
+  int shift = denom + (14 - bd);
+  int64_t round_ = shift ? ((int64_t)1 << (shift - 1)) : 0;
+  int max_val = (1 << bd) - 1;
+  for (int i = 0; i < n; i++) {
+    int64_t v = (((int64_t)w * (src[i] + 8192) + round_) >> shift) + offset;
+    if (v < 0) v = 0;
+    else if (v > max_val) v = max_val;
+    dst[i] = (int16_t)v;
+  }
+}
+
+// addWeightBi with the bi-dir derivation (getWpScaling)
+static void weight_bi_c(const InterRefs* R, int ref0, int ref1, int comp,
+                        const int16_t* p0, const int16_t* p1, int n, int bd,
+                        int16_t* dst) {
+  int w0 = R->wp_w[0][ref0][comp], io0 = R->wp_o[0][ref0][comp];
+  int w1 = R->wp_w[1][ref1][comp], io1 = R->wp_o[1][ref1][comp];
+  int denom = comp == 0 ? R->luma_log2_denom : R->chroma_log2_denom;
+  int64_t offset = (int64_t)io0 * (1 << (bd - 8)) +
+                   (int64_t)io1 * (1 << (bd - 8));
+  int shift = denom + 1 + (14 - bd);
+  int64_t round_ = shift ? ((int64_t)1 << (shift - 1)) : 0;
+  int max_val = (1 << bd) - 1;
+  for (int i = 0; i < n; i++) {
+    int64_t v = ((int64_t)w0 * (p0[i] + 8192) + (int64_t)w1 * (p1[i] + 8192)
+                 + round_ + (offset << (shift - 1))) >> shift;
+    if (v < 0) v = 0;
+    else if (v > max_val) v = max_val;
+    dst[i] = (int16_t)v;
+  }
+}
+
+// TComYuv::addAvg
+static void bi_avg_c(const int16_t* p0, const int16_t* p1, int n, int bd,
+                     int16_t* dst) {
+  int shift = 15 - bd;
+  int32_t offset = (1 << (shift - 1)) + 2 * 8192;
+  int max_val = (1 << bd) - 1;
+  for (int i = 0; i < n; i++) {
+    int32_t v = ((int32_t)p0[i] + p1[i] + offset) >> shift;
+    if (v < 0) v = 0;
+    else if (v > max_val) v = max_val;
+    dst[i] = (int16_t)v;
+  }
+}
+
+static void pu_geometry_c(int part_size, int size, int pu, int* dx, int* dy,
+                          int* w, int* h) {
+  int x = 0, y = 0, pw = size, ph = size;
+  switch (part_size) {
+    case 1: ph = size >> 1; y = pu ? ph : 0; break;                 // 2NxN
+    case 2: pw = size >> 1; x = pu ? pw : 0; break;                 // Nx2N
+    case 3: pw = ph = size >> 1; x = (pu & 1) * pw;
+            y = (pu >> 1) * ph; break;                              // NxN
+    case 4: ph = pu == 0 ? (size >> 2) : (size >> 2) + (size >> 1);
+            y = pu ? size - ph : 0; break;                          // 2NxnU
+    case 5: ph = pu == 0 ? (size >> 2) + (size >> 1) : (size >> 2);
+            y = pu ? size - ph : 0; break;                          // 2NxnD
+    case 6: pw = pu == 0 ? (size >> 2) : (size >> 2) + (size >> 1);
+            x = pu ? size - pw : 0; break;                          // nLx2N
+    case 7: pw = pu == 0 ? (size >> 2) + (size >> 1) : (size >> 2);
+            x = pu ? size - pw : 0; break;                          // nRx2N
+    default: break;
+  }
+  *dx = x; *dy = y; *w = pw; *h = ph;
+}
+
+// one uni-directional PU prediction into (dst_y, dst_cb, dst_cr) buffers
+static void mc_pu_uni_c(const InterRefs* R, const InterReconParams* P,
+                        int lst, int ref, int mvx, int mvy, int xp, int yp,
+                        int pw, int ph, int bi, int16_t* dy, int16_t* dcb,
+                        int16_t* dcr, int ds, int dcs) {
+  int bd = P->bit_depth;
+  mc_block_c(R->pad_y[lst][ref], R->ys,
+             R->margin + yp + (mvy >> 2), R->margin + xp + (mvx >> 2),
+             mvx & 3, mvy & 3, pw, ph, kLumaFilt, sizeof(kLumaFilt[0]), 8,
+             bd, bi, dy, ds);
+  int m2 = R->margin / 2;
+  mc_block_c(R->pad_cb[lst][ref], R->cs,
+             m2 + yp / 2 + (mvy >> 3), m2 + xp / 2 + (mvx >> 3),
+             mvx & 7, mvy & 7, pw / 2, ph / 2,
+             (const int16_t (*)[8])kChromaFilt, sizeof(kChromaFilt[0]), 4,
+             bd, bi, dcb, dcs);
+  mc_block_c(R->pad_cr[lst][ref], R->cs,
+             m2 + yp / 2 + (mvy >> 3), m2 + xp / 2 + (mvx >> 3),
+             mvx & 7, mvy & 7, pw / 2, ph / 2,
+             (const int16_t (*)[8])kChromaFilt, sizeof(kChromaFilt[0]), 4,
+             bd, bi, dcr, dcs);
+}
+
+extern "C" void inter_recon_cus(const FrameArrays* fa, int32_t cu_lo,
+                                int32_t cu_hi, const InterRefs* R,
+                                const InterReconParams* P, int16_t* rec_y,
+                                int16_t* rec_cb, int16_t* rec_cr) {
+  int uw = fa->uw;
+  int bd = P->bit_depth;
+  int max_val = (1 << bd) - 1;
+  const int32_t* bases[4] = {P->dct4, P->dct8, P->dct16, P->dct32};
+  int16_t pred_y[64 * 64], pred_cb[32 * 32], pred_cr[32 * 32];
+  int16_t py0[64 * 64], pcb0[32 * 32], pcr0[32 * 32];
+  int16_t py1[64 * 64], pcb1[32 * 32], pcr1[32 * 32];
+  int32_t resi[64 * 64];
+
+  for (int c = cu_lo; c < cu_hi; c++) {
+    const int32_t* cu = fa->cu_list + (int64_t)c * 8;
+    int px = cu[0], py = cu[1], size = cu[2], mode = cu[3];
+    if (mode == MODE_INTRA) continue;
+    int ux0 = px / 4, uy0 = py / 4;
+    int part_sz = U(fa->part_size, ux0, uy0);
+    int n_pu = part_sz == 0 ? 1 : (part_sz == 3 ? 4 : 2);
+    int cs = size / 2;
+    for (int pu = 0; pu < n_pu; pu++) {
+      int lx, ly, pw, ph;
+      pu_geometry_c(part_sz, size, pu, &lx, &ly, &pw, &ph);
+      int xp = px + lx, yp = py + ly;
+      int pux = xp / 4, puy = yp / 4;
+      int ref0 = U(fa->ref_idx, pux, puy);                 // list 0 plane
+      int ref1 = fa->ref_idx[(int64_t)fa->uh * uw + (int64_t)puy * uw +
+                             pux];
+      int64_t mvbase0 = (((int64_t)puy * uw) + pux) * 2;
+      int64_t mvbase1 = (((int64_t)fa->uh * uw) + (int64_t)puy * uw +
+                         pux) * 2;
+      int mv0x = fa->mv[mvbase0], mv0y = fa->mv[mvbase0 + 1];
+      int mv1x = fa->mv[mvbase1], mv1y = fa->mv[mvbase1 + 1];
+      // xCheckIdenticalMotion
+      if (P->slice_type == 0 && !P->wp_bipred && ref0 >= 0 && ref1 >= 0 &&
+          R->ref_poc[0][ref0] == R->ref_poc[1][ref1] && mv0x == mv1x &&
+          mv0y == mv1y)
+        ref1 = -1;
+      // clipMv (TComDataCU.cpp:2684) — anchored at the CU position
+      int shiftc = 2, off = 8;
+      int hor_max = (P->pic_w + off - px - 1) << shiftc;
+      int hor_min = (-P->ctu_size - off - px + 1) << shiftc;
+      int ver_max = (P->pic_h + off - py - 1) << shiftc;
+      int ver_min = (-P->ctu_size - off - py + 1) << shiftc;
+#define CLIPMV(x, y)                                     \
+  do {                                                   \
+    if (x > hor_max) x = hor_max;                        \
+    if (x < hor_min) x = hor_min;                        \
+    if (y > ver_max) y = ver_max;                        \
+    if (y < ver_min) y = ver_min;                        \
+  } while (0)
+      if (ref0 >= 0 && ref1 >= 0) {
+        CLIPMV(mv0x, mv0y);
+        CLIPMV(mv1x, mv1y);
+        mc_pu_uni_c(R, P, 0, ref0, mv0x, mv0y, xp, yp, pw, ph, 1, py0,
+                    pcb0, pcr0, pw, pw / 2);
+        mc_pu_uni_c(R, P, 1, ref1, mv1x, mv1y, xp, yp, pw, ph, 1, py1,
+                    pcb1, pcr1, pw, pw / 2);
+        if (R->wp_active) {
+          weight_bi_c(R, ref0, ref1, 0, py0, py1, pw * ph, bd, py0);
+          weight_bi_c(R, ref0, ref1, 1, pcb0, pcb1, (pw / 2) * (ph / 2),
+                      bd, pcb0);
+          weight_bi_c(R, ref0, ref1, 2, pcr0, pcr1, (pw / 2) * (ph / 2),
+                      bd, pcr0);
+        } else {
+          bi_avg_c(py0, py1, pw * ph, bd, py0);
+          bi_avg_c(pcb0, pcb1, (pw / 2) * (ph / 2), bd, pcb0);
+          bi_avg_c(pcr0, pcr1, (pw / 2) * (ph / 2), bd, pcr0);
+        }
+      } else {
+        int lst = ref0 >= 0 ? 0 : 1;
+        int ref = ref0 >= 0 ? ref0 : ref1;
+        int mx = lst == 0 ? mv0x : mv1x;
+        int my = lst == 0 ? mv0y : mv1y;
+        CLIPMV(mx, my);
+        mc_pu_uni_c(R, P, lst, ref, mx, my, xp, yp, pw, ph,
+                    R->wp_active ? 1 : 0, py0, pcb0, pcr0, pw, pw / 2);
+        if (R->wp_active) {
+          weight_uni_c(R, lst, ref, 0, py0, pw * ph, bd, py0);
+          weight_uni_c(R, lst, ref, 1, pcb0, (pw / 2) * (ph / 2), bd,
+                       pcb0);
+          weight_uni_c(R, lst, ref, 2, pcr0, (pw / 2) * (ph / 2), bd,
+                       pcr0);
+        }
+      }
+#undef CLIPMV
+      // paste the PU prediction into the CU pred buffers
+      for (int r = 0; r < ph; r++)
+        memcpy(pred_y + (ly + r) * size + lx, py0 + r * pw,
+               sizeof(int16_t) * pw);
+      for (int r = 0; r < ph / 2; r++) {
+        memcpy(pred_cb + (ly / 2 + r) * cs + lx / 2, pcb0 + r * (pw / 2),
+               sizeof(int16_t) * (pw / 2));
+        memcpy(pred_cr + (ly / 2 + r) * cs + lx / 2, pcr0 + r * (pw / 2),
+               sizeof(int16_t) * (pw / 2));
+      }
+    }
+
+    // write prediction to the recon planes, then add TU residuals in place
+    for (int r = 0; r < size; r++)
+      memcpy(rec_y + (int64_t)(py + r) * P->rls + px, pred_y + r * size,
+             sizeof(int16_t) * size);
+    int cx0 = px / 2, cy0 = py / 2;
+    for (int r = 0; r < cs; r++) {
+      memcpy(rec_cb + (int64_t)(cy0 + r) * P->rcs + cx0, pred_cb + r * cs,
+             sizeof(int16_t) * cs);
+      memcpy(rec_cr + (int64_t)(cy0 + r) * P->rcs + cx0, pred_cr + r * cs,
+             sizeof(int16_t) * cs);
+    }
+    for (int t = cu[4]; t < cu[5]; t++) {                 // luma TUs
+      const int32_t* tu = fa->luma_tus + (int64_t)t * 6;
+      int tx = tu[0], ty = tu[1], tsz = tu[2], trd = tu[5];
+      int tux = tx / 4, tuy = ty / 4;
+      if (!((U3(fa->cbf, 0, tux, tuy) >> trd) & 1)) continue;
+      int qps = U(fa->qp, tux, tuy) + P->qp_bd_y;
+      int lg = 0; while ((4 << lg) < tsz) lg++;
+      residual_c(fa->coeff_y, P->ls, tx, ty, tsz, qps, 0,
+                 U3(fa->ts_flag, 0, tux, tuy), U(fa->tq_bypass, tux, tuy),
+                 P->bit_inc, bases[lg], resi);
+      for (int r = 0; r < tsz; r++)
+        for (int cc2 = 0; cc2 < tsz; cc2++) {
+          int64_t idx = (int64_t)(ty + r) * P->rls + tx + cc2;
+          int32_t v = rec_y[idx] + resi[r * tsz + cc2];
+          rec_y[idx] = (int16_t)(v < 0 ? 0 : (v > max_val ? max_val : v));
+        }
+    }
+    for (int t = cu[6]; t < cu[7]; t++) {                 // chroma TUs
+      const int32_t* tu = fa->chroma_tus + (int64_t)t * 6;
+      int cx = tu[0], cy = tu[1], csz = tu[2], trd = tu[5];
+      int tux = cx / 2, tuy = cy / 2;
+      int qp = U(fa->qp, tux, tuy);
+      int byp = U(fa->tq_bypass, tux, tuy);
+      int lg = 0; while ((4 << lg) < csz) lg++;
+      for (int comp = 1; comp <= 2; comp++) {
+        if (!((U3(fa->cbf, comp, tux, tuy) >> trd) & 1)) continue;
+        int qps = qp_scaled_chroma(qp, P->qp_bd_c,
+                                   comp == 1 ? P->cb_off : P->cr_off,
+                                   P->chroma_scale);
+        const int32_t* plane = comp == 1 ? fa->coeff_cb : fa->coeff_cr;
+        int16_t* rec_c = comp == 1 ? rec_cb : rec_cr;
+        residual_c(plane, P->cls, cx, cy, csz, qps, 0,
+                   U3(fa->ts_flag, comp, tux, tuy), byp, P->bit_inc,
+                   bases[lg], resi);
+        for (int r = 0; r < csz; r++)
+          for (int cc2 = 0; cc2 < csz; cc2++) {
+            int64_t idx = (int64_t)(cy + r) * P->rcs + cx + cc2;
+            int32_t v = rec_c[idx] + resi[r * csz + cc2];
+            rec_c[idx] =
+                (int16_t)(v < 0 ? 0 : (v > max_val ? max_val : v));
+          }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// deblocking edge/BS map derivation (TComLoopFilter xDeblockCU /
+// xSetEdgefilterTU/PU / xGetBoundaryStrengthSingle) — native mirror of
+// decoder/filters.py _edge_maps
+// ---------------------------------------------------------------------------
+static inline int mvdiff_ge4(const int16_t* a, const int16_t* b) {
+  int dx = a[0] - b[0]; if (dx < 0) dx = -dx;
+  int dy = a[1] - b[1]; if (dy < 0) dy = -dy;
+  return dx >= 4 || dy >= 4;
+}
+
+void build_edge_maps(const FrameArrays* fa, int32_t direction,
+                     int32_t slice_type, int32_t cross_slice,
+                     int32_t cross_tile, int32_t pcm_nofilter,
+                     const int64_t* ref_poc /* [2][uh][uw] or null */,
+                     uint8_t* flags, uint8_t* bs, int32_t* qp_p,
+                     int32_t* qp_q, uint8_t* no_p, uint8_t* no_q) {
+  int uw = fa->uw, uh = fa->uh, upr = fa->upr;
+  int pic_uw = (fa->width + 3) / 4, pic_uh = (fa->height + 3) / 4;
+  int64_t plane = (int64_t)uh * uw;
+  int motion_remap = (fa->ctu_size >> (fa->max_depth - 1)) == 8;
+  for (int uy = 0; uy < uh; uy++) {
+    for (int ux = 0; ux < uw; ux++) {
+      int64_t i = (int64_t)uy * uw + ux;
+      int p_ux = direction == 0 ? (ux > 0 ? ux - 1 : 0) : ux;
+      int p_uy = direction == 0 ? uy : (uy > 0 ? uy - 1 : 0);
+      int64_t pi = (int64_t)p_uy * uw + p_ux;
+      // QP / no-filter maps are unconditional (match the numpy maps)
+      qp_q[i] = fa->qp[i];
+      qp_p[i] = fa->qp[pi];
+      int nq = fa->tq_bypass[i], np = fa->tq_bypass[pi];
+      if (pcm_nofilter) { nq |= fa->ipcm[i]; np |= fa->ipcm[pi]; }
+      no_q[i] = (uint8_t)nq;
+      no_p[i] = (uint8_t)np;
+      bs[i] = 0;
+      flags[i] = 0;
+      int coord = direction == 0 ? ux : uy;
+      if (coord <= 0 || ux >= pic_uw || uy >= pic_uh) continue;
+      int depth = fa->depth[i];
+      int cu_units = upr >> depth;
+      int tr = fa->tr_idx[i];
+      int tu_units = cu_units >> tr; if (tu_units < 1) tu_units = 1;
+      int tu_edge = (coord % tu_units) == 0;
+      int cu_edge = (coord % cu_units) == 0;
+      int ps = fa->part_size[i];
+      int lc = coord % cu_units;
+      int half = cu_units >> 1, quarter = cu_units >> 2;
+      int threeq = half + quarter;
+      int pu_edge;
+      if (direction == 0)
+        pu_edge = (((ps == SZ_Nx2N || ps == SZ_NxN) && lc == half) ||
+                   (ps == SZ_nLx2N && lc == quarter) ||
+                   (ps == SZ_nRx2N && lc == threeq));
+      else
+        pu_edge = (((ps == SZ_2NxN || ps == SZ_NxN) && lc == half) ||
+                   (ps == SZ_2NxnU && lc == quarter) ||
+                   (ps == SZ_2NxnD && lc == threeq));
+      int fl = tu_edge || cu_edge || pu_edge;
+      if (cu_edge && fl) {
+        if (!cross_slice && fa->slice_idx_arr[pi] != fa->slice_idx_arr[i])
+          fl = 0;
+        if (!cross_tile && fa->tile_idx[pi] != fa->tile_idx[i]) fl = 0;
+      }
+      if (!fl) continue;
+      flags[i] = 1;
+      int p_intra = fa->pred_mode[pi] == MODE_INTRA;
+      int q_intra = fa->pred_mode[i] == MODE_INTRA;
+      if (p_intra || q_intra) { bs[i] = 2; continue; }
+      if (!ref_poc) continue;
+      // BS=1 from luma cbf only on TU/CU edges
+      int cbf_q = (fa->cbf[i] >> tr) & 1;
+      int cbf_p = (fa->cbf[pi] >> fa->tr_idx[pi]) & 1;
+      if (tu_edge && (cbf_p || cbf_q)) { bs[i] = 1; continue; }
+      // motion compare; HOR edges crossing the CTU top read P-side motion
+      // through the compressed line buffer (g_motionRefer)
+      int mv_p_ux = p_ux, mv_p_uy = p_uy;
+      if (direction == 1 && motion_remap && (uy % upr) == 0) {
+        int xm = p_ux & 3;
+        if (xm == 1) mv_p_ux = p_ux - 1;
+        else if (xm == 2) mv_p_ux = p_ux + 1;
+      }
+      int64_t mpi = (int64_t)mv_p_uy * uw + mv_p_ux;
+      int64_t rq0 = ref_poc[i], rq1 = ref_poc[plane + i];
+      int64_t rp0 = ref_poc[mpi], rp1 = ref_poc[plane + mpi];
+      const int16_t* mq0 = fa->mv + i * 2;
+      const int16_t* mq1 = fa->mv + (plane + i) * 2;
+      const int16_t* mp0 = fa->mv + mpi * 2;
+      const int16_t* mp1 = fa->mv + (plane + mpi) * 2;
+      int bs_mv;
+      if (slice_type == SLICE_B) {
+        int same = rp0 == rq0 && rp1 == rq1;
+        int cross = rp0 == rq1 && rp1 == rq0;
+        if (!(same || cross)) {
+          bs_mv = 1;
+        } else {
+          int p_two = rp0 != rp1;
+          int straight = mvdiff_ge4(mp0, mq0) || mvdiff_ge4(mp1, mq1);
+          int crossed = mvdiff_ge4(mp0, mq1) || mvdiff_ge4(mp1, mq0);
+          if (p_two) bs_mv = rp0 == rq0 ? straight : crossed;
+          else bs_mv = straight && crossed;
+        }
+      } else {
+        bs_mv = rp0 != rq0 || mvdiff_ge4(mp0, mq0);
+      }
+      if (bs_mv) bs[i] = 1;
+    }
+  }
+}
+
+// ===========================================================================
+// Native intra encoder core (all-intra compressSlice / encodeSlice)
+//
+// Behavioral references: TEncCu.cpp (xCompressCU :386, xCheckRDCostIntra
+// :1409, xEncodeCU :1144, finishCU :995), TEncSearch.cpp (estIntraPredQT
+// :2471, xRecurIntraCodingQT :1394, xIntraCodingLumaBlk :1006,
+// estIntraPredChromaQT :2806), TEncSbac.cpp (code* syntax + estBit :1723),
+// TEncBinCoderCABAC[Counter].cpp, TComTrQuant.cpp (xT/xQuant/RDOQ/SBH),
+// TComRdCost.cpp (xCalcHADs4x4 :1684 / 8x8 :1778, calcRdCost :59).
+// Mirrors encoder/cu_encoder.py (the bit-exact Python reference impl).
+// ===========================================================================
+
+static const double MAX_DOUBLE_C = 1.7e308;
+
+// ---- lightweight section profiling (THEVC_PROF) ----
+#if defined(__x86_64__)
+static inline uint64_t prof_tsc() { return __rdtsc(); }
+#else
+static inline uint64_t prof_tsc() { return 0; }
+#endif
+static uint64_t g_prof[32];
+#define PROF_BEGIN(i) uint64_t _pt##i = prof_tsc()
+#define PROF_END(i)   g_prof[i] += prof_tsc() - _pt##i
+extern "C" void get_prof(uint64_t* out) {
+  for (int i = 0; i < 32; i++) { out[i] = g_prof[i]; g_prof[i] = 0; }
+}
+
+// whole-plane SSE between two int16 planes (xCalculateAddPSNR's sum of
+// squared differences, TEncGOP.cpp:1601-1640).  int32 products summed in
+// int64: exact for 14-bit samples.  The stride arguments let the caller
+// exclude source padding without copying.
+extern "C" double frame_sse(const int16_t* a, int64_t stride_a,
+                            const int16_t* b, int64_t stride_b,
+                            int64_t h, int64_t w) {
+  int64_t total = 0;
+  for (int64_t y = 0; y < h; y++) {
+    const int16_t* pa = a + y * stride_a;
+    const int16_t* pb = b + y * stride_b;
+    int64_t row = 0;
+    for (int64_t x = 0; x < w; x++) {
+      int32_t d = (int32_t)pa[x] - pb[x];
+      row += d * d;
+    }
+    total += row;
+  }
+  return (double)total;
+}
+enum { ECI_CURR_BEST = 0, ECI_NEXT_BEST, ECI_TEMP_BEST, ECI_QT_TRAFO_TEST,
+       ECI_QT_TRAFO_ROOT, ECI_NUM };
+
+// ---------------------------------------------------------------------------
+// bin sinks: fractional-bit counter (FAST_BIT_EST) + real arithmetic coder
+// ---------------------------------------------------------------------------
+struct EncBin {
+  int32_t mode;            // 0 = counter, 1 = real CABAC
+  uint8_t* ctx;
+  uint8_t* used;           // per-context binsCoded marks (real pass only)
+  // counter state
+  uint64_t frac_bits;
+  int64_t bit_count;
+  // real engine state (TEncBinCABAC)
+  uint32_t low;
+  int32_t range, bits_left, num_buffered_bytes, buffered_byte;
+  uint8_t* out;            // byte sink
+  int64_t out_len, out_cap;
+};
+
+static inline void eb_put_byte(EncBin* e, int v) {
+  if (e->out_len < e->out_cap) e->out[e->out_len] = (uint8_t)v;
+  e->out_len++;
+}
+
+static void eb_write_out(EncBin* e) {
+  int lead_byte = e->low >> (24 - e->bits_left);
+  e->bits_left += 8;
+  e->low &= 0xFFFFFFFFu >> e->bits_left;
+  if (lead_byte == 0xFF) {
+    e->num_buffered_bytes++;
+  } else if (e->num_buffered_bytes > 0) {
+    int carry = lead_byte >> 8;
+    eb_put_byte(e, (e->buffered_byte + carry) & 0xFF);
+    e->buffered_byte = lead_byte & 0xFF;
+    int byte = (0xFF + carry) & 0xFF;
+    while (e->num_buffered_bytes > 1) {
+      eb_put_byte(e, byte);
+      e->num_buffered_bytes--;
+    }
+  } else {
+    e->num_buffered_bytes = 1;
+    e->buffered_byte = lead_byte & 0xFF;
+  }
+}
+
+static inline void eb_bin(EncBin* e, int bin, int ctx_idx) {
+  uint8_t state = e->ctx[ctx_idx];
+  if (e->mode == 0) {
+    e->frac_bits += (uint64_t)kEntropyBits[state ^ bin];
+    e->ctx[ctx_idx] = kNextState[state][bin];
+    return;
+  }
+  if (e->used) e->used[ctx_idx] = 1;
+  int lps = kLPS[state >> 1][(e->range >> 6) & 3];
+  e->range -= lps;
+  if (bin != (state & 1)) {
+    int num_bits = kRenorm[lps >> 3];
+    e->low = (e->low + e->range) << num_bits;
+    e->range = lps << num_bits;
+    e->ctx[ctx_idx] = kNextLPS[state];
+    e->bits_left -= num_bits;
+  } else {
+    e->ctx[ctx_idx] = kNextMPS[state];
+    if (e->range >= 256) return;
+    e->low <<= 1;
+    e->range <<= 1;
+    e->bits_left -= 1;
+  }
+  if (e->bits_left < 12) eb_write_out(e);
+}
+
+static inline void eb_bin_ep(EncBin* e, int bin) {
+  if (e->mode == 0) { e->frac_bits += 32768; return; }
+  e->low <<= 1;
+  if (bin) e->low += e->range;
+  e->bits_left -= 1;
+  if (e->bits_left < 12) eb_write_out(e);
+}
+
+static inline void eb_bins_ep(EncBin* e, uint32_t bins, int num) {
+  if (e->mode == 0) { e->frac_bits += 32768u * (uint32_t)num; return; }
+  while (num > 8) {
+    num -= 8;
+    uint32_t pattern = bins >> num;
+    e->low = (e->low << 8) + e->range * pattern;
+    bins -= pattern << num;
+    e->bits_left -= 8;
+    if (e->bits_left < 12) eb_write_out(e);
+  }
+  e->low = (e->low << num) + e->range * bins;
+  e->bits_left -= num;
+  if (e->bits_left < 12) eb_write_out(e);
+}
+
+static inline void eb_bin_trm(EncBin* e, int bin) {
+  if (e->mode == 0) {
+    e->frac_bits += (uint64_t)kEntropyBits[126 ^ bin];
+    return;
+  }
+  e->range -= 2;
+  if (bin) {
+    e->low = (e->low + e->range) << 7;
+    e->range = 2 << 7;
+    e->bits_left -= 7;
+  } else if (e->range >= 256) {
+    return;
+  } else {
+    e->low <<= 1;
+    e->range <<= 1;
+    e->bits_left -= 1;
+  }
+  if (e->bits_left < 12) eb_write_out(e);
+}
+
+static inline void eb_reset_bits(EncBin* e) {
+  e->bit_count = 0;
+  e->frac_bits &= 32767;
+}
+
+static inline int64_t eb_bits(const EncBin* e) {
+  return e->bit_count + (int64_t)(e->frac_bits >> 15);
+}
+
+// xWriteUnaryMaxSymbol
+static void eb_unary_max(EncBin* e, int value, int ctx0, int ctx1,
+                         int max_symbol) {
+  if (max_symbol == 0) return;
+  eb_bin(e, value ? 1 : 0, ctx0);
+  if (value == 0) return;
+  int code_last = max_symbol > value;
+  for (int i = 0; i < value - 1; i++) eb_bin(e, 1, ctx1);
+  if (code_last) eb_bin(e, 0, ctx1);
+}
+
+// xWriteEpExGolomb
+static void eb_ep_exgolomb(EncBin* e, int value, int count) {
+  uint32_t bins = 0;
+  int num = 0;
+  while (value >= (1 << count)) {
+    bins = 2 * bins + 1;
+    num++;
+    value -= 1 << count;
+    count++;
+  }
+  bins = 2 * bins;
+  num++;
+  bins = (bins << count) | (uint32_t)value;
+  num += count;
+  eb_bins_ep(e, bins, num);
+}
+
+// xWriteCoefRemainExGolomb
+static void eb_coef_remain(EncBin* e, int symbol, int rparam) {
+  const int kRed = 3;
+  int code_number = symbol;
+  if (code_number < (kRed << rparam)) {
+    int length = code_number >> rparam;
+    eb_bins_ep(e, (1u << (length + 1)) - 2, length + 1);
+    eb_bins_ep(e, (uint32_t)(code_number % (1 << rparam)), rparam);
+  } else {
+    int length = rparam;
+    code_number -= kRed << rparam;
+    while (code_number >= (1 << length)) {
+      code_number -= 1 << length;
+      length++;
+    }
+    eb_bins_ep(e, (1u << (kRed + length + 1 - rparam)) - 2,
+               kRed + length + 1 - rparam);
+    eb_bins_ep(e, (uint32_t)code_number, length);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// estBit tables (TEncSbac.cpp:1723; mirrors sbac_writer.build_est_bits)
+// ---------------------------------------------------------------------------
+struct EstBitsC {
+  int64_t block_cbp[10][2];
+  int64_t block_root_cbp[1][2];
+  int64_t sig_cg[2][2];
+  int64_t sig[28][2];
+  int64_t last_x[16], last_y[16];
+  int64_t greater_one[16][2];
+  int64_t level_abs[4][2];
+};
+
+static void build_est_bits_c(const CtxOffsets* co, const uint8_t* states,
+                             int width, int is_luma, EstBitsC* eb) {
+  for (int i = 0; i < 10; i++)
+    for (int b = 0; b < 2; b++)
+      eb->block_cbp[i][b] = kEntropyBits[states[co->qt_cbf + i] ^ b];
+  for (int b = 0; b < 2; b++)
+    eb->block_root_cbp[0][b] = kEntropyBits[states[co->qt_root_cbf] ^ b];
+  int comp_off = is_luma ? 0 : 2;
+  for (int i = 0; i < 2; i++)
+    for (int b = 0; b < 2; b++)
+      eb->sig_cg[i][b] =
+          kEntropyBits[states[co->sig_cg + comp_off + i] ^ b];
+  int sig_off = co->sig + (is_luma ? 0 : co->num_sig_luma);
+  memset(eb->sig, 0, sizeof(eb->sig));
+  int first_ctx = 1, num_ctx = 8;
+  if (width >= 16) {
+    first_ctx = is_luma ? 21 : 12;
+    num_ctx = is_luma ? 6 : 3;
+  } else if (width == 8) {
+    first_ctx = 9;
+    num_ctx = is_luma ? 12 : 3;
+  }
+  for (int b = 0; b < 2; b++)
+    eb->sig[0][b] = kEntropyBits[states[sig_off] ^ b];
+  for (int c = first_ctx; c < first_ctx + num_ctx; c++)
+    for (int b = 0; b < 2; b++)
+      eb->sig[c][b] = kEntropyBits[states[sig_off + c] ^ b];
+  int lg = convert_to_bit(width);
+  int blk_off, shift, base_x, base_y;
+  if (is_luma) {
+    blk_off = lg * 3 + ((lg + 1) >> 2);
+    shift = (lg + 3) >> 2;
+    base_x = co->last_x;
+    base_y = co->last_y;
+  } else {
+    blk_off = 0;
+    shift = lg;
+    base_x = co->last_x + 15;
+    base_y = co->last_y + 15;
+  }
+  int gmax = kGroupIdx[width - 1];
+  memset(eb->last_x, 0, sizeof(eb->last_x));
+  memset(eb->last_y, 0, sizeof(eb->last_y));
+  int64_t bits = 0;
+  for (int c = 0; c < gmax; c++) {
+    int off = blk_off + (c >> shift);
+    eb->last_x[c] = bits + kEntropyBits[states[base_x + off] ^ 0];
+    bits += kEntropyBits[states[base_x + off] ^ 1];
+  }
+  eb->last_x[gmax] = bits;
+  bits = 0;
+  for (int c = 0; c < gmax; c++) {
+    int off = blk_off + (c >> shift);
+    eb->last_y[c] = bits + kEntropyBits[states[base_y + off] ^ 0];
+    bits += kEntropyBits[states[base_y + off] ^ 1];
+  }
+  eb->last_y[gmax] = bits;
+  int one_off = co->one + (is_luma ? 0 : 16);
+  int n_one = is_luma ? 16 : 8;
+  memset(eb->greater_one, 0, sizeof(eb->greater_one));
+  for (int i = 0; i < n_one; i++)
+    for (int b = 0; b < 2; b++)
+      eb->greater_one[i][b] = kEntropyBits[states[one_off + i] ^ b];
+  int abs_off = co->abs_ + (is_luma ? 0 : 4);
+  int n_abs = is_luma ? 4 : 2;
+  memset(eb->level_abs, 0, sizeof(eb->level_abs));
+  for (int i = 0; i < n_abs; i++)
+    for (int b = 0; b < 2; b++)
+      eb->level_abs[i][b] = kEntropyBits[states[abs_off + i] ^ b];
+}
+
+// ---------------------------------------------------------------------------
+// forward transform + quant (TComTrQuant xT :1542 / xQuant :1102)
+// ---------------------------------------------------------------------------
+// 1-D forward DCT via even/odd decomposition (partialButterflyN;
+// identical integer sums as the direct matrix product)
+static void fwd_dct_1d(const int32_t* x, int size, int32_t* out) {
+  if (size == 4) {
+    int32_t e0 = x[0] + x[3], e1 = x[1] + x[2];
+    int32_t o0 = x[0] - x[3], o1 = x[1] - x[2];
+    out[0] = 64 * (e0 + e1);
+    out[2] = 64 * (e0 - e1);
+    out[1] = 83 * o0 + 36 * o1;
+    out[3] = 36 * o0 - 83 * o1;
+    return;
+  }
+  int h = size / 2;
+  int32_t E[16], O[16], EO[16];
+  for (int i = 0; i < h; i++) {
+    E[i] = x[i] + x[size - 1 - i];
+    O[i] = x[i] - x[size - 1 - i];
+  }
+  fwd_dct_1d(E, h, EO);
+  const int32_t* T;
+  switch (size) {
+    case 8: T = &kDct8[0][0]; break;
+    case 16: T = &kDct16[0][0]; break;
+    default: T = &kDct32[0][0]; break;
+  }
+  for (int m = 0; m < h; m++) out[2 * m] = EO[m];
+  for (int m = 0; m < h; m++) {
+    const int32_t* row = T + (2 * m + 1) * size;
+    int32_t acc = 0;
+    for (int n = 0; n < h; n++) acc += row[n] * O[n];
+    out[2 * m + 1] = acc;
+  }
+}
+
+// out[k][j] = (sum_n T[k][n] * in[j][n] + add) >> shift   (both passes)
+static void fwd_pass(const int32_t* x, const int32_t* t, int size, int shift,
+                     int32_t* y) {
+  int32_t add = 1 << (shift - 1);
+  if (t != &kDst4[0][0]) {
+    int32_t tmp[32];
+    for (int j = 0; j < size; j++) {
+      fwd_dct_1d(x + j * size, size, tmp);
+      for (int k = 0; k < size; k++)
+        y[k * size + j] = (tmp[k] + add) >> shift;
+    }
+    return;
+  }
+  for (int k = 0; k < size; k++) {
+    const int32_t* trow = t + k * size;
+    for (int j = 0; j < size; j++) {
+      int32_t acc = add;
+      const int32_t* xrow = x + j * size;
+      for (int n = 0; n < size; n++) acc += trow[n] * xrow[n];
+      y[k * size + j] = acc >> shift;
+    }
+  }
+}
+
+static const int32_t* dct_basis(int size) {
+  switch (size) {
+    case 4: return &kDct4[0][0];
+    case 8: return &kDct8[0][0];
+    case 16: return &kDct16[0][0];
+    default: return &kDct32[0][0];
+  }
+}
+
+#if defined(__AVX2__)
+// Vector 4x4/8x8 forward transforms.  Integer butterflies and exact
+// (x + add) >> shift rounding identical to the scalar partial-butterfly
+// path (gcc's >> on int32 is arithmetic, like the scalar code relies on).
+static inline void transpose8x8_epi32(__m256i r[8]);
+
+static inline void transpose4x4_epi32(__m128i r[4]) {
+  __m128i t0 = _mm_unpacklo_epi32(r[0], r[1]);
+  __m128i t1 = _mm_unpackhi_epi32(r[0], r[1]);
+  __m128i t2 = _mm_unpacklo_epi32(r[2], r[3]);
+  __m128i t3 = _mm_unpackhi_epi32(r[2], r[3]);
+  r[0] = _mm_unpacklo_epi64(t0, t2); r[1] = _mm_unpackhi_epi64(t0, t2);
+  r[2] = _mm_unpacklo_epi64(t1, t3); r[3] = _mm_unpackhi_epi64(t1, t3);
+}
+
+static inline __m128i rs4(__m128i v, __m128i add, int shift) {
+  return _mm_srai_epi32(_mm_add_epi32(v, add), shift);
+}
+
+// one DCT4 pass over 4 column vectors (c[n] holds x[j][n] for j lanes)
+static inline void dct4_pass(__m128i c[4], int shift) {
+  __m128i add = _mm_set1_epi32(1 << (shift - 1));
+  __m128i e0 = _mm_add_epi32(c[0], c[3]), e1 = _mm_add_epi32(c[1], c[2]);
+  __m128i o0 = _mm_sub_epi32(c[0], c[3]), o1 = _mm_sub_epi32(c[1], c[2]);
+  __m128i k64 = _mm_set1_epi32(64), k83 = _mm_set1_epi32(83),
+          k36 = _mm_set1_epi32(36);
+  c[0] = rs4(_mm_mullo_epi32(k64, _mm_add_epi32(e0, e1)), add, shift);
+  c[2] = rs4(_mm_mullo_epi32(k64, _mm_sub_epi32(e0, e1)), add, shift);
+  c[1] = rs4(_mm_add_epi32(_mm_mullo_epi32(k83, o0),
+                           _mm_mullo_epi32(k36, o1)), add, shift);
+  c[3] = rs4(_mm_sub_epi32(_mm_mullo_epi32(k36, o0),
+                           _mm_mullo_epi32(k83, o1)), add, shift);
+}
+
+static inline void dst4_pass(__m128i c[4], int shift) {
+  __m128i add = _mm_set1_epi32(1 << (shift - 1));
+  __m128i out[4];
+  for (int k = 0; k < 4; k++) {
+    const int32_t* row = &kDst4[k][0];
+    __m128i acc = _mm_mullo_epi32(_mm_set1_epi32(row[0]), c[0]);
+    acc = _mm_add_epi32(acc, _mm_mullo_epi32(_mm_set1_epi32(row[1]), c[1]));
+    acc = _mm_add_epi32(acc, _mm_mullo_epi32(_mm_set1_epi32(row[2]), c[2]));
+    acc = _mm_add_epi32(acc, _mm_mullo_epi32(_mm_set1_epi32(row[3]), c[3]));
+    out[k] = rs4(acc, add, shift);
+  }
+  c[0] = out[0]; c[1] = out[1]; c[2] = out[2]; c[3] = out[3];
+}
+
+static inline __m256i rs8(__m256i v, __m256i add, int shift) {
+  return _mm256_srai_epi32(_mm256_add_epi32(v, add), shift);
+}
+
+static inline __m256i mul8(int k, __m256i v) {
+  return _mm256_mullo_epi32(_mm256_set1_epi32(k), v);
+}
+
+// one DCT8 pass over 8 column vectors
+static inline void dct8_pass(__m256i c[8], int shift) {
+  __m256i add = _mm256_set1_epi32(1 << (shift - 1));
+  __m256i e0 = _mm256_add_epi32(c[0], c[7]), o0 = _mm256_sub_epi32(c[0], c[7]);
+  __m256i e1 = _mm256_add_epi32(c[1], c[6]), o1 = _mm256_sub_epi32(c[1], c[6]);
+  __m256i e2 = _mm256_add_epi32(c[2], c[5]), o2 = _mm256_sub_epi32(c[2], c[5]);
+  __m256i e3 = _mm256_add_epi32(c[3], c[4]), o3 = _mm256_sub_epi32(c[3], c[4]);
+  __m256i ee0 = _mm256_add_epi32(e0, e3), eo0 = _mm256_sub_epi32(e0, e3);
+  __m256i ee1 = _mm256_add_epi32(e1, e2), eo1 = _mm256_sub_epi32(e1, e2);
+  c[0] = rs8(mul8(64, _mm256_add_epi32(ee0, ee1)), add, shift);
+  c[4] = rs8(mul8(64, _mm256_sub_epi32(ee0, ee1)), add, shift);
+  c[2] = rs8(_mm256_add_epi32(mul8(83, eo0), mul8(36, eo1)), add, shift);
+  c[6] = rs8(_mm256_sub_epi32(mul8(36, eo0), mul8(83, eo1)), add, shift);
+  c[1] = rs8(_mm256_add_epi32(_mm256_add_epi32(mul8(89, o0), mul8(75, o1)),
+                              _mm256_add_epi32(mul8(50, o2), mul8(18, o3))),
+             add, shift);
+  c[3] = rs8(_mm256_sub_epi32(_mm256_sub_epi32(mul8(75, o0), mul8(18, o1)),
+                              _mm256_add_epi32(mul8(89, o2), mul8(50, o3))),
+             add, shift);
+  c[5] = rs8(_mm256_add_epi32(_mm256_sub_epi32(mul8(50, o0), mul8(89, o1)),
+                              _mm256_add_epi32(mul8(18, o2), mul8(75, o3))),
+             add, shift);
+  c[7] = rs8(_mm256_add_epi32(_mm256_sub_epi32(mul8(18, o0), mul8(50, o1)),
+                              _mm256_sub_epi32(mul8(75, o2), mul8(89, o3))),
+             add, shift);
+}
+#endif  // __AVX2__
+
+static void forward_transform_c(const int32_t* resi, int size, int use_dst,
+                                int bit_inc, int32_t* coeff,
+                                int32_t* scratch) {
+  int log2 = 0; while ((1 << log2) < size) log2++;
+  int shift1 = log2 - 1 + bit_inc;
+  int shift2 = log2 + 6;
+#if defined(__AVX2__)
+  if (size == 4) {
+    __m128i c[4];
+    for (int j = 0; j < 4; j++)
+      c[j] = _mm_loadu_si128((const __m128i*)(resi + j * 4));
+    transpose4x4_epi32(c);
+    if (use_dst) dst4_pass(c, shift1); else dct4_pass(c, shift1);
+    transpose4x4_epi32(c);
+    if (use_dst) dst4_pass(c, shift2); else dct4_pass(c, shift2);
+    for (int k = 0; k < 4; k++)
+      _mm_storeu_si128((__m128i*)(coeff + k * 4), c[k]);
+    return;
+  }
+  if (size == 8) {
+    __m256i c[8];
+    for (int j = 0; j < 8; j++)
+      c[j] = _mm256_loadu_si256((const __m256i*)(resi + j * 8));
+    transpose8x8_epi32(c);
+    dct8_pass(c, shift1);
+    transpose8x8_epi32(c);
+    dct8_pass(c, shift2);
+    for (int k = 0; k < 8; k++)
+      _mm256_storeu_si256((__m256i*)(coeff + k * 8), c[k]);
+    return;
+  }
+#endif
+  const int32_t* t = (use_dst && size == 4) ? &kDst4[0][0] : dct_basis(size);
+  fwd_pass(resi, t, size, shift1, scratch);
+  fwd_pass(scratch, t, size, shift2, coeff);
+}
+
+static void transform_skip_fwd_c(const int32_t* resi, int size, int bit_inc,
+                                 int32_t* coeff) {
+  int log2 = 0; while ((1 << log2) < size) log2++;
+  int shift = 15 - (8 + bit_inc) - log2;
+  if (shift >= 0) {
+    for (int i = 0; i < size * size; i++) coeff[i] = resi[i] << shift;
+  } else {
+    int off = 1 << (-shift - 1);
+    for (int i = 0; i < size * size; i++)
+      coeff[i] = (resi[i] + off) >> (-shift);
+  }
+}
+
+// xQuant scalar path (non-RDOQ); levels + deltaU for sign-bit hiding
+static void quant_c(const int32_t* coeff, int size, int qps, int is_intra_sl,
+                    int bit_inc, int32_t* levels, int32_t* delta_u) {
+  int log2 = 0; while ((1 << log2) < size) log2++;
+  int per = qps / 6, rem = qps % 6;
+  int tshift = 15 - (8 + bit_inc) - log2;
+  int qbits = 14 + per + tshift;
+  int64_t add = (int64_t)(is_intra_sl ? 171 : 85) << (qbits - 9);
+  int64_t qscale = kQuantScales[rem];
+  for (int i = 0; i < size * size; i++) {
+    int64_t c = coeff[i];
+    int64_t a = c < 0 ? -c : c;
+    int64_t tmp = a * qscale;
+    int64_t level = (tmp + add) >> qbits;
+    delta_u[i] = (int32_t)((tmp - (level << qbits)) >> (qbits - 8));
+    int64_t v = c < 0 ? -level : level;
+    if (v < -32768) v = -32768; else if (v > 32767) v = 32767;
+    levels[i] = (int32_t)v;
+  }
+}
+
+// signBitHidingHDQ (non-RDOQ path)
+static void sbh_hdq_c(int32_t* q, const int32_t* src, const int32_t* du,
+                      const int32_t* scan, int size) {
+  int last_cg = -1;
+  for (int subset = (size * size - 1) >> 4; subset >= 0; subset--) {
+    int sub_pos = subset << 4;
+    int first_nz = 16, last_nz = -1;
+    for (int n = 15; n >= 0; n--)
+      if (q[scan[n + sub_pos]]) { last_nz = n; break; }
+    for (int n = 0; n < 16; n++)
+      if (q[scan[n + sub_pos]]) { first_nz = n; break; }
+    int64_t s = 0;
+    for (int n = first_nz; n <= last_nz; n++) s += q[scan[n + sub_pos]];
+    if (last_nz >= 0 && last_cg == -1) last_cg = 1;
+    if (last_nz - first_nz >= 4) {
+      int signbit = q[scan[sub_pos + first_nz]] > 0 ? 0 : 1;
+      if (signbit != (s & 1)) {
+        int64_t min_cost = 1ll << 62;
+        int min_pos = -1, final_change = 0;
+        int start_n = last_cg == 1 ? last_nz : 15;
+        for (int n = start_n; n >= 0; n--) {
+          int blk = scan[n + sub_pos];
+          int64_t cur_cost;
+          int cur_change;
+          if (q[blk] != 0) {
+            if (du[blk] > 0) { cur_cost = -(int64_t)du[blk]; cur_change = 1; }
+            else if (n == first_nz &&
+                     (q[blk] == 1 || q[blk] == -1)) {
+              cur_cost = 1ll << 62; cur_change = 0;
+            } else { cur_cost = du[blk]; cur_change = -1; }
+          } else {
+            if (n < first_nz) {
+              int this_sign = src[blk] >= 0 ? 0 : 1;
+              if (this_sign != signbit) { cur_cost = 1ll << 62; cur_change = 0; }
+              else { cur_cost = -(int64_t)du[blk]; cur_change = 1; }
+            } else { cur_cost = -(int64_t)du[blk]; cur_change = 1; }
+          }
+          if (cur_cost < min_cost) {
+            min_cost = cur_cost;
+            final_change = cur_change;
+            min_pos = blk;
+          }
+        }
+        if (q[min_pos] == 32767 || q[min_pos] == -32768) final_change = -1;
+        if (src[min_pos] >= 0) q[min_pos] += final_change;
+        else q[min_pos] -= final_change;
+      }
+    }
+    if (last_cg == 1) last_cg = 0;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Hadamard SATD (TComRdCost xCalcHADs4x4 :1684 / xCalcHADs8x8 :1778)
+// ---------------------------------------------------------------------------
+#if defined(__AVX2__)
+// AVX2 8x8 Hadamard SATD.  The butterflies are exact integer adds, so the
+// pass order / transposition does not change the abs-sum: bit-identical to
+// the scalar xCalcHADs8x8.
+static inline void had8_butterfly(__m256i r[8]) {
+  __m256i a0 = _mm256_add_epi32(r[0], r[4]), s0 = _mm256_sub_epi32(r[0], r[4]);
+  __m256i a1 = _mm256_add_epi32(r[1], r[5]), s1 = _mm256_sub_epi32(r[1], r[5]);
+  __m256i a2 = _mm256_add_epi32(r[2], r[6]), s2 = _mm256_sub_epi32(r[2], r[6]);
+  __m256i a3 = _mm256_add_epi32(r[3], r[7]), s3 = _mm256_sub_epi32(r[3], r[7]);
+  __m256i b0 = _mm256_add_epi32(a0, a2), b2 = _mm256_sub_epi32(a0, a2);
+  __m256i b1 = _mm256_add_epi32(a1, a3), b3 = _mm256_sub_epi32(a1, a3);
+  __m256i b4 = _mm256_add_epi32(s0, s2), b6 = _mm256_sub_epi32(s0, s2);
+  __m256i b5 = _mm256_add_epi32(s1, s3), b7 = _mm256_sub_epi32(s1, s3);
+  r[0] = _mm256_add_epi32(b0, b1); r[1] = _mm256_sub_epi32(b0, b1);
+  r[2] = _mm256_add_epi32(b2, b3); r[3] = _mm256_sub_epi32(b2, b3);
+  r[4] = _mm256_add_epi32(b4, b5); r[5] = _mm256_sub_epi32(b4, b5);
+  r[6] = _mm256_add_epi32(b6, b7); r[7] = _mm256_sub_epi32(b6, b7);
+}
+
+static inline void transpose8x8_epi32(__m256i r[8]) {
+  __m256i t0 = _mm256_unpacklo_epi32(r[0], r[1]);
+  __m256i t1 = _mm256_unpackhi_epi32(r[0], r[1]);
+  __m256i t2 = _mm256_unpacklo_epi32(r[2], r[3]);
+  __m256i t3 = _mm256_unpackhi_epi32(r[2], r[3]);
+  __m256i t4 = _mm256_unpacklo_epi32(r[4], r[5]);
+  __m256i t5 = _mm256_unpackhi_epi32(r[4], r[5]);
+  __m256i t6 = _mm256_unpacklo_epi32(r[6], r[7]);
+  __m256i t7 = _mm256_unpackhi_epi32(r[6], r[7]);
+  __m256i u0 = _mm256_unpacklo_epi64(t0, t2);
+  __m256i u1 = _mm256_unpackhi_epi64(t0, t2);
+  __m256i u2 = _mm256_unpacklo_epi64(t1, t3);
+  __m256i u3 = _mm256_unpackhi_epi64(t1, t3);
+  __m256i u4 = _mm256_unpacklo_epi64(t4, t6);
+  __m256i u5 = _mm256_unpackhi_epi64(t4, t6);
+  __m256i u6 = _mm256_unpacklo_epi64(t5, t7);
+  __m256i u7 = _mm256_unpackhi_epi64(t5, t7);
+  r[0] = _mm256_permute2x128_si256(u0, u4, 0x20);
+  r[1] = _mm256_permute2x128_si256(u1, u5, 0x20);
+  r[2] = _mm256_permute2x128_si256(u2, u6, 0x20);
+  r[3] = _mm256_permute2x128_si256(u3, u7, 0x20);
+  r[4] = _mm256_permute2x128_si256(u0, u4, 0x31);
+  r[5] = _mm256_permute2x128_si256(u1, u5, 0x31);
+  r[6] = _mm256_permute2x128_si256(u2, u6, 0x31);
+  r[7] = _mm256_permute2x128_si256(u3, u7, 0x31);
+}
+
+static int64_t had8x8(const int16_t* org, int64_t so, const int32_t* cur,
+                      int64_t sc) {
+  __m256i r[8];
+  for (int j = 0; j < 8; j++) {
+    __m256i o = _mm256_cvtepi16_epi32(
+        _mm_loadu_si128((const __m128i*)(org + j * so)));
+    __m256i c = _mm256_loadu_si256((const __m256i*)(cur + j * sc));
+    r[j] = _mm256_sub_epi32(o, c);
+  }
+  had8_butterfly(r);          // vertical pass (across rows, per column lane)
+  transpose8x8_epi32(r);
+  had8_butterfly(r);          // horizontal pass
+  __m256i acc = _mm256_setzero_si256();
+  for (int j = 0; j < 8; j++)
+    acc = _mm256_add_epi32(acc, _mm256_abs_epi32(r[j]));
+  __m128i lo = _mm256_castsi256_si128(acc);
+  __m128i hi = _mm256_extracti128_si256(acc, 1);
+  __m128i s = _mm_add_epi32(lo, hi);
+  s = _mm_add_epi32(s, _mm_shuffle_epi32(s, 0x4E));
+  s = _mm_add_epi32(s, _mm_shuffle_epi32(s, 0xB1));
+  int64_t sad = (int32_t)_mm_cvtsi128_si32(s);
+  return (sad + 2) >> 2;
+}
+#else
+static int64_t had8x8(const int16_t* org, int64_t so, const int32_t* cur,
+                      int64_t sc) {
+  int32_t diff[64], m1[8][8], m2[8][8], m3[8][8];
+  for (int j = 0; j < 8; j++)
+    for (int i = 0; i < 8; i++)
+      diff[j * 8 + i] = org[j * so + i] - cur[j * sc + i];
+  for (int k = 0; k < 64; k += 8) {
+    m2[k >> 3][0] = diff[k] + diff[k + 4];
+    m2[k >> 3][1] = diff[k + 1] + diff[k + 5];
+    m2[k >> 3][2] = diff[k + 2] + diff[k + 6];
+    m2[k >> 3][3] = diff[k + 3] + diff[k + 7];
+    m2[k >> 3][4] = diff[k] - diff[k + 4];
+    m2[k >> 3][5] = diff[k + 1] - diff[k + 5];
+    m2[k >> 3][6] = diff[k + 2] - diff[k + 6];
+    m2[k >> 3][7] = diff[k + 3] - diff[k + 7];
+    int j = k >> 3;
+    m1[j][0] = m2[j][0] + m2[j][2];
+    m1[j][1] = m2[j][1] + m2[j][3];
+    m1[j][2] = m2[j][0] - m2[j][2];
+    m1[j][3] = m2[j][1] - m2[j][3];
+    m1[j][4] = m2[j][4] + m2[j][6];
+    m1[j][5] = m2[j][5] + m2[j][7];
+    m1[j][6] = m2[j][4] - m2[j][6];
+    m1[j][7] = m2[j][5] - m2[j][7];
+    m2[j][0] = m1[j][0] + m1[j][1];
+    m2[j][1] = m1[j][0] - m1[j][1];
+    m2[j][2] = m1[j][2] + m1[j][3];
+    m2[j][3] = m1[j][2] - m1[j][3];
+    m2[j][4] = m1[j][4] + m1[j][5];
+    m2[j][5] = m1[j][4] - m1[j][5];
+    m2[j][6] = m1[j][6] + m1[j][7];
+    m2[j][7] = m1[j][6] - m1[j][7];
+  }
+  for (int i = 0; i < 8; i++) {
+    m3[0][i] = m2[0][i] + m2[4][i];
+    m3[1][i] = m2[1][i] + m2[5][i];
+    m3[2][i] = m2[2][i] + m2[6][i];
+    m3[3][i] = m2[3][i] + m2[7][i];
+    m3[4][i] = m2[0][i] - m2[4][i];
+    m3[5][i] = m2[1][i] - m2[5][i];
+    m3[6][i] = m2[2][i] - m2[6][i];
+    m3[7][i] = m2[3][i] - m2[7][i];
+    m1[0][i] = m3[0][i] + m3[2][i];
+    m1[1][i] = m3[1][i] + m3[3][i];
+    m1[2][i] = m3[0][i] - m3[2][i];
+    m1[3][i] = m3[1][i] - m3[3][i];
+    m1[4][i] = m3[4][i] + m3[6][i];
+    m1[5][i] = m3[5][i] + m3[7][i];
+    m1[6][i] = m3[4][i] - m3[6][i];
+    m1[7][i] = m3[5][i] - m3[7][i];
+    m2[0][i] = m1[0][i] + m1[1][i];
+    m2[1][i] = m1[0][i] - m1[1][i];
+    m2[2][i] = m1[2][i] + m1[3][i];
+    m2[3][i] = m1[2][i] - m1[3][i];
+    m2[4][i] = m1[4][i] + m1[5][i];
+    m2[5][i] = m1[4][i] - m1[5][i];
+    m2[6][i] = m1[6][i] + m1[7][i];
+    m2[7][i] = m1[6][i] - m1[7][i];
+  }
+  int64_t sad = 0;
+  for (int j = 0; j < 8; j++)
+    for (int i = 0; i < 8; i++)
+      sad += m2[j][i] < 0 ? -m2[j][i] : m2[j][i];
+  return (sad + 2) >> 2;
+}
+#endif  // __AVX2__
+
+#if defined(__AVX2__)
+// 4x4 Hadamard SATD: abs-sum is invariant to the per-output sign flips and
+// lane order of xCalcHADs4x4's butterfly, so the plain vector Hadamard is
+// bit-identical.
+static inline void transpose4x4_epi32(__m128i r[4]);
+static inline void had4_butterfly(__m128i r[4]) {
+  __m128i a = _mm_add_epi32(r[0], r[3]), e = _mm_sub_epi32(r[0], r[3]);
+  __m128i b = _mm_add_epi32(r[1], r[2]), c = _mm_sub_epi32(r[1], r[2]);
+  r[0] = _mm_add_epi32(a, b); r[1] = _mm_sub_epi32(a, b);
+  r[2] = _mm_add_epi32(c, e); r[3] = _mm_sub_epi32(c, e);
+}
+
+static int64_t had4x4(const int16_t* org, int64_t so, const int32_t* cur,
+                      int64_t sc) {
+  __m128i r[4];
+  for (int j = 0; j < 4; j++) {
+    __m128i o = _mm_cvtepi16_epi32(
+        _mm_loadl_epi64((const __m128i*)(org + j * so)));
+    __m128i c = _mm_loadu_si128((const __m128i*)(cur + j * sc));
+    r[j] = _mm_sub_epi32(o, c);
+  }
+  had4_butterfly(r);
+  transpose4x4_epi32(r);
+  had4_butterfly(r);
+  __m128i acc = _mm_add_epi32(_mm_add_epi32(_mm_abs_epi32(r[0]),
+                                            _mm_abs_epi32(r[1])),
+                              _mm_add_epi32(_mm_abs_epi32(r[2]),
+                                            _mm_abs_epi32(r[3])));
+  acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+  acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+  int64_t sad = (int32_t)_mm_cvtsi128_si32(acc);
+  return (sad + 1) >> 1;
+}
+#else
+static int64_t had4x4(const int16_t* org, int64_t so, const int32_t* cur,
+                      int64_t sc) {
+  int32_t diff[16], m[16], d[16];
+  for (int j = 0; j < 4; j++)
+    for (int i = 0; i < 4; i++)
+      diff[j * 4 + i] = org[j * so + i] - cur[j * sc + i];
+  m[0] = diff[0] + diff[12];
+  m[1] = diff[1] + diff[13];
+  m[2] = diff[2] + diff[14];
+  m[3] = diff[3] + diff[15];
+  m[4] = diff[4] + diff[8];
+  m[5] = diff[5] + diff[9];
+  m[6] = diff[6] + diff[10];
+  m[7] = diff[7] + diff[11];
+  m[8] = diff[4] - diff[8];
+  m[9] = diff[5] - diff[9];
+  m[10] = diff[6] - diff[10];
+  m[11] = diff[7] - diff[11];
+  m[12] = diff[0] - diff[12];
+  m[13] = diff[1] - diff[13];
+  m[14] = diff[2] - diff[14];
+  m[15] = diff[3] - diff[15];
+  d[0] = m[0] + m[4];
+  d[1] = m[1] + m[5];
+  d[2] = m[2] + m[6];
+  d[3] = m[3] + m[7];
+  d[4] = m[8] + m[12];
+  d[5] = m[9] + m[13];
+  d[6] = m[10] + m[14];
+  d[7] = m[11] + m[15];
+  d[8] = m[0] - m[4];
+  d[9] = m[1] - m[5];
+  d[10] = m[2] - m[6];
+  d[11] = m[3] - m[7];
+  d[12] = m[12] - m[8];
+  d[13] = m[13] - m[9];
+  d[14] = m[14] - m[10];
+  d[15] = m[15] - m[11];
+  m[0] = d[0] + d[3];
+  m[1] = d[1] + d[2];
+  m[2] = d[1] - d[2];
+  m[3] = d[0] - d[3];
+  m[4] = d[4] + d[7];
+  m[5] = d[5] + d[6];
+  m[6] = d[5] - d[6];
+  m[7] = d[4] - d[7];
+  m[8] = d[8] + d[11];
+  m[9] = d[9] + d[10];
+  m[10] = d[9] - d[10];
+  m[11] = d[8] - d[11];
+  m[12] = d[12] + d[15];
+  m[13] = d[13] + d[14];
+  m[14] = d[13] - d[14];
+  m[15] = d[12] - d[15];
+  d[0] = m[0] + m[1];
+  d[1] = m[0] - m[1];
+  d[2] = m[2] + m[3];
+  d[3] = m[3] - m[2];
+  d[4] = m[4] + m[5];
+  d[5] = m[4] - m[5];
+  d[6] = m[6] + m[7];
+  d[7] = m[7] - m[6];
+  d[8] = m[8] + m[9];
+  d[9] = m[8] - m[9];
+  d[10] = m[10] + m[11];
+  d[11] = m[11] - m[10];
+  d[12] = m[12] + m[13];
+  d[13] = m[12] - m[13];
+  d[14] = m[14] + m[15];
+  d[15] = m[15] - m[14];
+  int64_t sad = 0;
+  for (int i = 0; i < 16; i++) sad += d[i] < 0 ? -d[i] : d[i];
+  return (sad + 1) >> 1;
+}
+#endif  // __AVX2__
+
+// xGetHADs over one size x size block (pred in int32, org int16)
+static int64_t calc_had_c(const int16_t* org, int64_t so, const int32_t* cur,
+                          int64_t sc, int size, int bit_inc) {
+  int64_t sum = 0;
+  if ((size & 7) == 0) {
+    for (int y = 0; y < size; y += 8)
+      for (int x = 0; x < size; x += 8)
+        sum += had8x8(org + y * so + x, so, cur + y * sc + x, sc);
+  } else {
+    for (int y = 0; y < size; y += 4)
+      for (int x = 0; x < size; x += 4)
+        sum += had4x4(org + y * so + x, so, cur + y * sc + x, sc);
+  }
+  return sum >> bit_inc;
+}
+
+// ---------------------------------------------------------------------------
+// RDOQ (TComTrQuant::xRateDistOptQuant :1719) — mirrors encoder/rdoq.py
+// ---------------------------------------------------------------------------
+static const int kC1Flag = 8, kC2Flag = 1;
+static const int64_t IEP_RATE = 32768;
+
+static inline double ic_rate_cost(int abs_level, int ctx_one, int ctx_abs,
+                                  int go_rice, int c1_idx, int c2_idx,
+                                  const EstBitsC* eb) {
+  double rate = (double)IEP_RATE;
+  int base_level = (c1_idx < kC1Flag) ? (2 + (c2_idx < kC2Flag ? 1 : 0)) : 1;
+  if (abs_level >= base_level) {
+    int symbol = abs_level - base_level;
+    if (symbol < (3 << go_rice)) {
+      int length = symbol >> go_rice;
+      rate += (double)((int64_t)(length + 1 + go_rice) << 15);
+    } else {
+      int length = go_rice;
+      symbol -= 3 << go_rice;
+      while (symbol >= (1 << length)) {
+        symbol -= 1 << length;
+        length++;
+      }
+      rate += (double)((int64_t)(3 + length + 1 - go_rice + length) << 15);
+    }
+    if (c1_idx < kC1Flag) {
+      rate += (double)eb->greater_one[ctx_one][1];
+      if (c2_idx < kC2Flag) rate += (double)eb->level_abs[ctx_abs][1];
+    }
+  } else if (abs_level == 1) {
+    rate += (double)eb->greater_one[ctx_one][0];
+  } else if (abs_level == 2) {
+    rate += (double)eb->greater_one[ctx_one][1];
+    rate += (double)eb->level_abs[ctx_abs][0];
+  }
+  return rate;
+}
+
+static inline int64_t ic_rate(int abs_level, int ctx_one, int ctx_abs,
+                              int go_rice, int c1_idx, int c2_idx,
+                              const EstBitsC* eb) {
+  int64_t rate = 0;
+  int base_level = (c1_idx < kC1Flag) ? (2 + (c2_idx < kC2Flag ? 1 : 0)) : 1;
+  if (abs_level >= base_level) {
+    int symbol = abs_level - base_level;
+    int max_vlc = kGoRiceRange[go_rice];
+    if (symbol > max_vlc) {
+      int num = symbol - max_vlc;
+      int egs = 1, mx = 2;
+      while (num >= mx) {
+        mx <<= 1;
+        egs += 2;
+      }
+      rate += (int64_t)egs << 15;
+      symbol = symbol < max_vlc + 1 ? symbol : max_vlc + 1;
+    }
+    int pref_len = (symbol >> go_rice) + 1;
+    int gp = kGoRicePrefixLen[go_rice];
+    int num_bins = (pref_len < gp ? pref_len : gp) + go_rice;
+    rate += (int64_t)num_bins << 15;
+    if (c1_idx < kC1Flag) {
+      rate += eb->greater_one[ctx_one][1];
+      if (c2_idx < kC2Flag) rate += eb->level_abs[ctx_abs][1];
+    }
+  } else if (abs_level == 0) {
+    return 0;
+  } else if (abs_level == 1) {
+    rate += eb->greater_one[ctx_one][0];
+  } else if (abs_level == 2) {
+    rate += eb->greater_one[ctx_one][1];
+    rate += eb->level_abs[ctx_abs][0];
+  }
+  return rate;
+}
+
+// xGetCodedLevel
+static int coded_level(double* cost_coeff, double* cost_coeff0,
+                       double* cost_sig, int64_t level_double,
+                       int max_abs_level, int ctx_sig, int ctx_one,
+                       int ctx_abs, int go_rice, int c1_idx, int c2_idx,
+                       int qbits, double err_scale, int is_last, double lam,
+                       const EstBitsC* eb) {
+  double curr_cost_sig = 0.0;
+  int best_level = 0;
+  double coded_cost = *cost_coeff;
+  double coded_cost0 = *cost_coeff0;
+  double coded_cost_sig = *cost_sig;
+  if (!is_last && max_abs_level < 3) {
+    coded_cost_sig = lam * (double)eb->sig[ctx_sig][0];
+    coded_cost = coded_cost0 + coded_cost_sig;
+    if (max_abs_level == 0) {
+      *cost_coeff = coded_cost;
+      *cost_sig = coded_cost_sig;
+      return 0;
+    }
+  } else {
+    coded_cost = MAX_DOUBLE_C;
+  }
+  if (!is_last) curr_cost_sig = lam * (double)eb->sig[ctx_sig][1];
+  int min_abs_level = max_abs_level > 1 ? max_abs_level - 1 : 1;
+  for (int abs_level = max_abs_level; abs_level >= min_abs_level;
+       abs_level--) {
+    double err = (double)(level_double - ((int64_t)abs_level << qbits));
+    double curr_cost = err * err * err_scale +
+                       lam * ic_rate_cost(abs_level, ctx_one, ctx_abs,
+                                          go_rice, c1_idx, c2_idx, eb);
+    curr_cost += curr_cost_sig;
+    if (curr_cost < coded_cost) {
+      best_level = abs_level;
+      coded_cost = curr_cost;
+      coded_cost_sig = curr_cost_sig;
+    }
+  }
+  *cost_coeff = coded_cost;
+  *cost_sig = coded_cost_sig;
+  return best_level;
+}
+
+static inline double rate_last_c(int pos_x, int pos_y, double lam,
+                                 const EstBitsC* eb) {
+  int cx = kGroupIdx[pos_x], cy = kGroupIdx[pos_y];
+  double cost = (double)(eb->last_x[cx] + eb->last_y[cy]);
+  if (cx > 3) cost += (double)(IEP_RATE * ((cx - 2) >> 1));
+  if (cy > 3) cost += (double)(IEP_RATE * ((cy - 2) >> 1));
+  return lam * cost;
+}
+
+}  // extern "C" (the templated RDOQ needs C++ linkage)
+
+// xRateDistOptQuant; returns abs_sum.  dst = size*size raster int32.
+// Templated on the block log2 so each size compiles with constant trip
+// counts and folded size branches (the 4x4 instance drops the whole CG
+// machinery at compile time).
+template <int LOG2>
+static int64_t rdoq_t(const int32_t* src, int qp_per, int qp_rem,
+                      double lam, int is_luma, int is_intra, int scan_idx,
+                      const EstBitsC* eb, int tr_depth, int sign_hide,
+                      int bit_inc, const int32_t* scan, const int32_t* scan_cg,
+                      int32_t* dst) {
+  const int width = 1 << LOG2;
+  const int max_coeff = width * width;
+  const int log2 = LOG2;
+  int64_t uiQ = kQuantScales[qp_rem];
+  int tshift = 15 - (8 + bit_inc) - log2;
+  int qbits = 14 + qp_per + tshift;
+  double err_scale = ldexp((double)(1 << 15), -2 * tshift) /
+                     (double)uiQ / (double)uiQ / (double)(1 << (2 * bit_inc));
+  memset(dst, 0, sizeof(int32_t) * max_coeff);
+
+  // precompute |c|*Q (fits 31 bits: |c|<=2^15, Q<2^15, so the int32 cap
+  // in the reference never triggers), the rounded level, and the uncoded
+  // error cost per raster position — all data-parallel (autovectorized);
+  // the sequential scan loop below then only does the rate logic.  The
+  // scan-order double accumulation is untouched (bit-exact RD costs).
+  int32_t ld_arr[32 * 32];
+  int32_t ma_arr[32 * 32];
+  double c0_arr[32 * 32];
+  int32_t pre_max = 0;
+  for (int i = 0; i < max_coeff; i++) {
+    int32_t a = src[i] < 0 ? -src[i] : src[i];
+    int32_t ld = (int32_t)(a * (int32_t)uiQ);
+    ld_arr[i] = ld;
+    if (ld > pre_max) pre_max = ld;
+  }
+  // all-zero early out: every candidate level rounds to 0, so the block
+  // is uncoded regardless of the RD walk (dst already zeroed)
+  if (((int64_t)pre_max + (1ll << (qbits - 1))) >> qbits == 0) return 0;
+  for (int i = 0; i < max_coeff; i++) {
+    ma_arr[i] = (int32_t)(((int64_t)ld_arr[i] + (1ll << (qbits - 1))) >>
+                          qbits);
+    double err = (double)ld_arr[i];
+    c0_arr[i] = err * err * err_scale;
+  }
+  // per-CG any-nonzero flags (indexed by CG raster position)
+  uint8_t cg_nz[64];
+  {
+    int nbs = width >> 2;
+    if (nbs == 0) nbs = 1;
+    for (int cy = 0; cy * 4 < width; cy++)
+      for (int cx = 0; cx * 4 < width; cx++) {
+        int32_t any = 0;
+        for (int yy = 0; yy < 4 && cy * 4 + yy < width; yy++)
+          for (int xx = 0; xx < 4 && cx * 4 + xx < width; xx++)
+            any |= ma_arr[(cy * 4 + yy) * width + cx * 4 + xx];
+        cg_nz[cy * nbs + cx] = any != 0;
+      }
+  }
+  double cost_coeff[32 * 32], cost_sig[32 * 32], cost_coeff0[32 * 32];
+  int64_t rate_inc_up[32 * 32], rate_inc_down[32 * 32],
+      sig_rate_delta[32 * 32], delta_u[32 * 32];
+  // no per-call clears: every array slot the later phases read is
+  // written by the main scan loop (positions above the last significant
+  // coefficient write their zeros inline below)
+  int num_blk_side = width >> 2;
+  double cost_cg_sig[64];
+  int32_t sig_cg[64];
+  memset(cost_cg_sig, 0, sizeof(cost_cg_sig));
+  memset(sig_cg, 0, sizeof(sig_cg));
+
+  double block_uncoded_cost = 0.0, base_cost = 0.0;
+  int last_scan_pos = -1, cg_last_scan_pos = -1;
+  int ctx_set = 0, c1 = 1, c2 = 0, go_rice = 0, c1_idx = 0, c2_idx = 0;
+  int comp = is_luma ? 0 : 1;
+  int cg_num = max_coeff >> 4;
+
+  for (int cg_scan_pos = cg_num - 1; cg_scan_pos >= 0; cg_scan_pos--) {
+    int cg_blk_pos = scan_cg[cg_scan_pos];
+    int cg_pos_y = num_blk_side ? cg_blk_pos / num_blk_side : 0;
+    int cg_pos_x = cg_blk_pos - cg_pos_y * num_blk_side;
+    double rd_sig_cost = 0.0, rd_sig_cost0 = 0.0;
+    double rd_coded_leveland_dist = 0.0, rd_uncoded_dist = 0.0;
+    int rd_nnz_before_pos0 = 0;
+    int pattern = calc_pattern(sig_cg, cg_pos_x, cg_pos_y, width);
+    if (last_scan_pos >= 0 && !cg_nz[cg_blk_pos]) {
+      // all-zero coeff group below the last position: every level is 0,
+      // so only the significance costs and the SBH bookkeeping arrays
+      // are produced — identical values, no level search
+      int ctx_one_z = 4 * ctx_set + c1;
+      int64_t riu = eb->greater_one[ctx_one_z][0];
+      int sh_du = qbits - 8;
+      for (int pos_in_cg = 15; pos_in_cg >= 0; pos_in_cg--) {
+        int scan_pos = cg_scan_pos * 16 + pos_in_cg;
+        int blk_pos = scan[scan_pos];
+        double c0 = c0_arr[blk_pos];
+        cost_coeff0[scan_pos] = c0;
+        block_uncoded_cost += c0;
+        int pos_y = blk_pos >> log2;
+        int pos_x = blk_pos - (pos_y << log2);
+        int ctx_sig = sig_ctx_inc(pattern, scan_idx, pos_x, pos_y, log2,
+                                  comp);
+        double cs = lam * (double)eb->sig[ctx_sig][0];
+        cost_sig[scan_pos] = cs;
+        cost_coeff[scan_pos] = c0 + cs;
+        sig_rate_delta[blk_pos] = eb->sig[ctx_sig][1] - eb->sig[ctx_sig][0];
+        delta_u[blk_pos] = (int64_t)ld_arr[blk_pos] >> sh_du;
+        rate_inc_up[blk_pos] = riu;
+        base_cost += cost_coeff[scan_pos];
+        rd_sig_cost += cs;
+        if (pos_in_cg == 0) rd_sig_cost0 = cs;
+      }
+      if (cg_scan_pos > 0) {  // subset-boundary context-set reset
+        c2 = 0;
+        go_rice = 0;
+        c1_idx = 0;
+        c2_idx = 0;
+        ctx_set = (cg_scan_pos == 1 || !is_luma) ? 0 : 2;
+        if (c1 == 0) ctx_set++;
+        c1 = 1;
+      }
+    } else
+    for (int pos_in_cg = 15; pos_in_cg >= 0; pos_in_cg--) {
+      int scan_pos = cg_scan_pos * 16 + pos_in_cg;
+      int blk_pos = scan[scan_pos];
+      int64_t level_double = ld_arr[blk_pos];
+      int max_abs_level = ma_arr[blk_pos];
+      cost_coeff0[scan_pos] = c0_arr[blk_pos];
+      block_uncoded_cost += cost_coeff0[scan_pos];
+      dst[blk_pos] = max_abs_level;
+
+      if (max_abs_level > 0 && last_scan_pos < 0) {
+        last_scan_pos = scan_pos;
+        ctx_set = (scan_pos < 16 || !is_luma) ? 0 : 2;
+        cg_last_scan_pos = cg_scan_pos;
+      }
+      if (last_scan_pos >= 0) {
+        int ctx_one = 4 * ctx_set + c1;
+        int ctx_abs = ctx_set + c2;
+        int level;
+        if (scan_pos == last_scan_pos) {
+          level = coded_level(&cost_coeff[scan_pos], &cost_coeff0[scan_pos],
+                              &cost_sig[scan_pos], level_double,
+                              max_abs_level, 0, ctx_one, ctx_abs, go_rice,
+                              c1_idx, c2_idx, qbits, err_scale, 1, lam, eb);
+          sig_rate_delta[blk_pos] = 0;
+        } else {
+          int pos_y = blk_pos >> log2;
+          int pos_x = blk_pos - (pos_y << log2);
+          int ctx_sig = sig_ctx_inc(pattern, scan_idx, pos_x, pos_y, log2,
+                                    comp);
+          level = coded_level(&cost_coeff[scan_pos], &cost_coeff0[scan_pos],
+                              &cost_sig[scan_pos], level_double,
+                              max_abs_level, ctx_sig, ctx_one, ctx_abs,
+                              go_rice, c1_idx, c2_idx, qbits, err_scale, 0,
+                              lam, eb);
+          sig_rate_delta[blk_pos] =
+              eb->sig[ctx_sig][1] - eb->sig[ctx_sig][0];
+        }
+        delta_u[blk_pos] =
+            (level_double - ((int64_t)level << qbits)) >> (qbits - 8);
+        if (level > 0) {
+          int64_t rate_now = ic_rate(level, ctx_one, ctx_abs, go_rice,
+                                     c1_idx, c2_idx, eb);
+          rate_inc_up[blk_pos] = ic_rate(level + 1, ctx_one, ctx_abs,
+                                         go_rice, c1_idx, c2_idx, eb) -
+                                 rate_now;
+          rate_inc_down[blk_pos] = ic_rate(level - 1, ctx_one, ctx_abs,
+                                           go_rice, c1_idx, c2_idx, eb) -
+                                  rate_now;
+        } else {
+          rate_inc_up[blk_pos] = eb->greater_one[ctx_one][0];
+        }
+        dst[blk_pos] = level;
+        base_cost += cost_coeff[scan_pos];
+
+        int base_level = (c1_idx < kC1Flag)
+                             ? (2 + (c2_idx < kC2Flag ? 1 : 0))
+                             : 1;
+        if (level >= base_level) {
+          if (level > 3 * (1 << go_rice))
+            go_rice = go_rice < 4 ? go_rice + 1 : 4;
+        }
+        if (level >= 1) c1_idx++;
+        if (level > 1) {
+          c1 = 0;
+          if (c2 < 2) c2++;
+          c2_idx++;
+        } else if (c1 > 0 && c1 < 3 && level) {
+          c1++;
+        }
+        if ((scan_pos % 16 == 0) && scan_pos > 0) {
+          c2 = 0;
+          go_rice = 0;
+          c1_idx = 0;
+          c2_idx = 0;
+          ctx_set = (scan_pos == 16 || !is_luma) ? 0 : 2;
+          if (c1 == 0) ctx_set++;
+          c1 = 1;
+        }
+      } else {
+        base_cost += cost_coeff0[scan_pos];
+        cost_sig[scan_pos] = 0.0;
+        cost_coeff[scan_pos] = 0.0;
+        sig_rate_delta[blk_pos] = 0;
+        rate_inc_up[blk_pos] = 0;
+        rate_inc_down[blk_pos] = 0;
+        delta_u[blk_pos] = 0;
+      }
+      rd_sig_cost += cost_sig[scan_pos];
+      if (pos_in_cg == 0) rd_sig_cost0 = cost_sig[scan_pos];
+      if (dst[blk_pos]) {
+        sig_cg[cg_blk_pos] = 1;
+        rd_coded_leveland_dist += cost_coeff[scan_pos] - cost_sig[scan_pos];
+        rd_uncoded_dist += cost_coeff0[scan_pos];
+        if (pos_in_cg != 0) rd_nnz_before_pos0++;
+      }
+    }
+    if (cg_last_scan_pos >= 0) {
+      if (cg_scan_pos) {
+        if (sig_cg[cg_blk_pos] == 0) {
+          int ctx_sig = sig_cg_ctx(sig_cg, cg_pos_x, cg_pos_y, width);
+          base_cost += lam * (double)eb->sig_cg[ctx_sig][0] - rd_sig_cost;
+          cost_cg_sig[cg_scan_pos] = lam * (double)eb->sig_cg[ctx_sig][0];
+        } else {
+          if (cg_scan_pos < cg_last_scan_pos) {
+            if (rd_nnz_before_pos0 == 0) {
+              base_cost -= rd_sig_cost0;
+              rd_sig_cost -= rd_sig_cost0;
+            }
+            double cost_zero_cg = base_cost;
+            int ctx_sig = sig_cg_ctx(sig_cg, cg_pos_x, cg_pos_y, width);
+            base_cost += lam * (double)eb->sig_cg[ctx_sig][1];
+            cost_zero_cg += lam * (double)eb->sig_cg[ctx_sig][0];
+            cost_cg_sig[cg_scan_pos] = lam * (double)eb->sig_cg[ctx_sig][1];
+            cost_zero_cg += rd_uncoded_dist;
+            cost_zero_cg -= rd_coded_leveland_dist;
+            cost_zero_cg -= rd_sig_cost;
+            if (cost_zero_cg < base_cost) {
+              sig_cg[cg_blk_pos] = 0;
+              base_cost = cost_zero_cg;
+              cost_cg_sig[cg_scan_pos] =
+                  lam * (double)eb->sig_cg[ctx_sig][0];
+              for (int pos_in_cg = 15; pos_in_cg >= 0; pos_in_cg--) {
+                int scan_pos = cg_scan_pos * 16 + pos_in_cg;
+                int blk_pos = scan[scan_pos];
+                if (dst[blk_pos]) {
+                  dst[blk_pos] = 0;
+                  cost_coeff[scan_pos] = cost_coeff0[scan_pos];
+                  cost_sig[scan_pos] = 0.0;
+                }
+              }
+            }
+          }
+        }
+      } else {
+        sig_cg[cg_blk_pos] = 1;
+      }
+    }
+  }
+
+  if (last_scan_pos < 0) return 0;
+
+  double best_cost;
+  if (is_luma && !is_intra && tr_depth == 0) {
+    best_cost =
+        block_uncoded_cost + lam * (double)eb->block_root_cbp[0][0];
+    base_cost += lam * (double)eb->block_root_cbp[0][1];
+  } else {
+    int ctx = is_luma ? (tr_depth == 0 ? 1 : 0) : tr_depth;
+    int ctx_cbf = (is_luma ? 0 : 1) * 5 + ctx;
+    best_cost = block_uncoded_cost + lam * (double)eb->block_cbp[ctx_cbf][0];
+    base_cost += lam * (double)eb->block_cbp[ctx_cbf][1];
+  }
+
+  int best_last_idx_p1 = 0;
+  int found_last = 0;
+  for (int cg_scan_pos = cg_last_scan_pos; cg_scan_pos >= 0; cg_scan_pos--) {
+    int cg_blk_pos = scan_cg[cg_scan_pos];
+    base_cost -= cost_cg_sig[cg_scan_pos];
+    if (sig_cg[cg_blk_pos]) {
+      for (int pos_in_cg = 15; pos_in_cg >= 0; pos_in_cg--) {
+        int scan_pos = cg_scan_pos * 16 + pos_in_cg;
+        if (scan_pos > last_scan_pos) continue;
+        int blk_pos = scan[scan_pos];
+        if (dst[blk_pos]) {
+          int pos_y = blk_pos >> log2;
+          int pos_x = blk_pos - (pos_y << log2);
+          double cost_last =
+              scan_idx == 2 /*SCAN_VER*/
+                  ? rate_last_c(pos_y, pos_x, lam, eb)
+                  : rate_last_c(pos_x, pos_y, lam, eb);
+          double total_cost = base_cost + cost_last - cost_sig[scan_pos];
+          if (total_cost < best_cost) {
+            best_last_idx_p1 = scan_pos + 1;
+            best_cost = total_cost;
+          }
+          if (dst[blk_pos] > 1) {
+            found_last = 1;
+            break;
+          }
+          base_cost -= cost_coeff[scan_pos];
+          base_cost += cost_coeff0[scan_pos];
+        } else {
+          base_cost -= cost_sig[scan_pos];
+        }
+      }
+      if (found_last) break;
+    }
+  }
+
+  int64_t abs_sum = 0;
+  for (int scan_pos = 0; scan_pos < best_last_idx_p1; scan_pos++) {
+    int blk_pos = scan[scan_pos];
+    int level = dst[blk_pos];
+    abs_sum += level;
+    dst[blk_pos] = src[blk_pos] < 0 ? -level : level;
+  }
+  for (int scan_pos = best_last_idx_p1; scan_pos <= last_scan_pos;
+       scan_pos++)
+    dst[scan[scan_pos]] = 0;
+
+  if (sign_hide && abs_sum >= 2) {
+    static const int kInvQS[6] = {40, 45, 51, 57, 64, 72};
+    int64_t inv_q = kInvQS[qp_rem];
+    int64_t rd_factor = (int64_t)((double)inv_q * (double)inv_q *
+                                      (double)(1ll << (2 * qp_per)) / lam /
+                                      16.0 /
+                                      (double)(1 << (2 * bit_inc)) +
+                                  0.5);
+    int last_cg = -1;
+    for (int subset = (max_coeff - 1) >> 4; subset >= 0; subset--) {
+      int sub_pos = subset << 4;
+      int first_nz = 16, last_nz = -1;
+      for (int n = 15; n >= 0; n--)
+        if (dst[scan[n + sub_pos]]) { last_nz = n; break; }
+      for (int n = 0; n < 16; n++)
+        if (dst[scan[n + sub_pos]]) { first_nz = n; break; }
+      int64_t ssum = 0;
+      for (int n = first_nz; n <= last_nz; n++) ssum += dst[scan[n + sub_pos]];
+      if (last_nz >= 0 && last_cg == -1) last_cg = 1;
+      if (last_nz - first_nz >= 4) {
+        int signbit = dst[scan[sub_pos + first_nz]] > 0 ? 0 : 1;
+        if (signbit != (ssum & 1)) {
+          int64_t min_cost_inc = INT64_MAX;
+          int min_pos = -1, final_change = 0;
+          int start_n = last_cg == 1 ? last_nz : 15;
+          for (int n = start_n; n >= 0; n--) {
+            int blk = scan[n + sub_pos];
+            int64_t cur_cost;
+            int cur_change;
+            if (dst[blk] != 0) {
+              int64_t cost_up = rd_factor * (-delta_u[blk]) +
+                                rate_inc_up[blk];
+              int64_t a = dst[blk] < 0 ? -dst[blk] : dst[blk];
+              int64_t cost_down =
+                  rd_factor * delta_u[blk] + rate_inc_down[blk] -
+                  (a == 1 ? ((1ll << 15) + sig_rate_delta[blk]) : 0);
+              if (last_cg == 1 && last_nz == n && a == 1)
+                cost_down -= 4ll << 15;
+              if (cost_up < cost_down) {
+                cur_cost = cost_up;
+                cur_change = 1;
+              } else {
+                cur_change = -1;
+                if (n == first_nz && a == 1)
+                  cur_cost = INT64_MAX;
+                else
+                  cur_cost = cost_down;
+              }
+            } else {
+              int64_t du_abs = delta_u[blk] < 0 ? -delta_u[blk]
+                                                : delta_u[blk];
+              cur_cost = rd_factor * (-du_abs) + (1ll << 15) +
+                         rate_inc_up[blk] + sig_rate_delta[blk];
+              cur_change = 1;
+              if (n < first_nz) {
+                int this_sign = src[blk] >= 0 ? 0 : 1;
+                if (this_sign != signbit) cur_cost = INT64_MAX;
+              }
+            }
+            if (cur_cost < min_cost_inc) {
+              min_cost_inc = cur_cost;
+              final_change = cur_change;
+              min_pos = blk;
+            }
+          }
+          if (dst[min_pos] == 32767 || dst[min_pos] == -32768)
+            final_change = -1;
+          if (src[min_pos] >= 0) dst[min_pos] += final_change;
+          else dst[min_pos] -= final_change;
+        }
+      }
+      if (last_cg == 1) last_cg = 0;
+    }
+  }
+  return abs_sum;
+}
+
+static int64_t rdoq_c(const int32_t* src, int width, int qp_per, int qp_rem,
+                      double lam, int is_luma, int is_intra, int scan_idx,
+                      const EstBitsC* eb, int tr_depth, int sign_hide,
+                      int bit_inc, const int32_t* scan, const int32_t* scan_cg,
+                      int32_t* dst) {
+  switch (width) {
+    case 4:
+      return rdoq_t<2>(src, qp_per, qp_rem, lam, is_luma, is_intra, scan_idx,
+                       eb, tr_depth, sign_hide, bit_inc, scan, scan_cg, dst);
+    case 8:
+      return rdoq_t<3>(src, qp_per, qp_rem, lam, is_luma, is_intra, scan_idx,
+                       eb, tr_depth, sign_hide, bit_inc, scan, scan_cg, dst);
+    case 16:
+      return rdoq_t<4>(src, qp_per, qp_rem, lam, is_luma, is_intra, scan_idx,
+                       eb, tr_depth, sign_hide, bit_inc, scan, scan_cg, dst);
+    default:
+      return rdoq_t<5>(src, qp_per, qp_rem, lam, is_luma, is_intra, scan_idx,
+                       eb, tr_depth, sign_hide, bit_inc, scan, scan_cg, dst);
+  }
+}
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// encoder state + slice parameters
+// ---------------------------------------------------------------------------
+struct EncParams {
+  int32_t slice_type, slice_qp;
+  int32_t bit_depth, bit_inc, max_val;
+  int32_t qp_bd_offset_y, qp_bd_offset_c, cb_qp_off, cr_qp_off;
+  int32_t use_dqp, tq_bypass_enable, cu_tq_bypass_value;
+  int32_t use_ts, ts_fast, use_rdoq, sign_hide;
+  int32_t use_pcm, pcm_log2_min, pcm_log2_max;
+  int32_t add_cu_depth, max_tr_log2, min_tr_log2, tu_depth_intra,
+      tu_depth_inter, max_tr_size;
+  int32_t use_amp;
+  double lambda_, sqrt_lambda, chroma_weight, lambda_luma, lambda_chroma;
+  int32_t slice_end_scu;
+  int32_t unit_qp;               // -1 = use slice_qp
+};
+
+// per-depth scratch for region snapshots + per-PU/TU result stores
+struct RegionSnap {
+  int8_t attrs[9][16 * 16];      // depth,pred,part,ldir,cdir,tridx,qp,tqb,ipcm
+  uint8_t skip[16 * 16];
+  uint8_t cbf[3][16 * 16], ts[3][16 * 16];
+  // motion fields (inter slices; saved alongside, cheap for intra)
+  uint8_t merge_flag[16 * 16];
+  int8_t merge_idx[16 * 16], inter_dir[16 * 16];
+  int8_t ref_idx[2][16 * 16], mvp_idx[2][16 * 16];
+  int16_t mv[2][16 * 16][2], mvd[2][16 * 16][2];
+  int32_t coeff_y[64 * 64], coeff_cb[32 * 32], coeff_cr[32 * 32];
+  int16_t rec_y[64 * 64], rec_cb[32 * 32], rec_cr[32 * 32];
+  int64_t bits, dist;
+  double cost;
+};
+
+// ME/inter-search parameters (encoder/inter_search.py InterSearch.__init__;
+// slice-header GPB/combined-list fields from TEncGOP.cpp:325-389)
+struct EncInterParams {
+  int32_t search_range, bipred_range;
+  int32_t fast_enc, use_had_me, fdm;
+  int64_t lambda_motion_sad;      // floor(65536 * sqrt(lambda))
+  int32_t is_b, mvd_l1_zero;
+  int32_t num_ref_lc, no_back_pred;
+  int32_t ref_idx_of_l0_from_l1[16];
+  int32_t ref_idx_of_lc[2][16];
+};
+
+// saved motion state over one PU region (xMergeEstimation save/restore)
+struct PuMotionSave {
+  int8_t inter_dir[16 * 16];
+  int8_t ref_idx[2][16 * 16], mvp_idx[2][16 * 16];
+  int16_t mv[2][16 * 16][2], mvd[2][16 * 16][2];
+  uint8_t merge_flag[16 * 16];
+  int8_t merge_idx[16 * 16];
+};
+
+struct LumaStore {
+  int8_t tr_idx[16 * 16];
+  uint8_t cbf[16 * 16], ts[16 * 16];
+  int32_t coeff[64 * 64];
+  int16_t rec[64 * 64];
+};
+
+struct ChromaStore {
+  uint8_t cbf[2][16 * 16], ts[2][16 * 16];
+  int32_t coeff_cb[32 * 32], coeff_cr[32 * 32];
+  int16_t rec_cb[32 * 32], rec_cr[32 * 32];
+};
+
+struct TuStore {
+  int32_t coeff[64 * 64];
+  int16_t rec[64 * 64];
+};
+
+struct EncState {
+  FrameArrays fa;
+  EncParams ep;
+  CtxOffsets co;
+  ScanTables sc;
+  const int16_t *org_y, *org_cb, *org_cr;
+  int16_t *rec_y, *rec_cb, *rec_cr;
+  int64_t ls, cs;                // coeff-plane strides (padded to CTUs)
+  int64_t rls, rcs;              // rec/org plane strides (picture dims)
+  int num_ctx, depths, n_layers, log2_ctu_v;
+  uint8_t* snap_ctx;             // [depths][ECI_NUM][num_ctx]
+  uint64_t* snap_frac;
+  EncBin go;                     // GoOn counter
+  uint8_t* go_ctx;
+  int ctu_addr;
+  int64_t total_bits, total_dist;
+  double total_cost;
+  // QT temp buffers [layer][plane 0=y 1=cb 2=cr] at CTU-local coords
+  int16_t* qt_rec[8][3];
+  int32_t* qt_coeff[8][3];
+  int32_t shared_pred[3][64 * 64];
+  int32_t* presel_pred;          // [35][64*64] presel predictions
+  EstBitsC eb_cache[4][2];        // [log2-2][is_luma] est-bit tables
+  uint8_t* eb_ctx_snap[4][2];     // ctx snapshot each table was built from
+  int eb_valid[4][2];
+  int presel_part, presel_size;  // cache key (-1 = invalid)
+  RegionSnap* region[8];         // best per depth
+  LumaStore* luma_store[8];
+  ChromaStore* chroma_store[8];
+  TuStore* tu_store[8][3];
+  // final-pass state
+  EncBin* fin;
+  int fin_dqp_flag;
+  int bak_cu_part, bak_chroma;
+  // ---- forced-decision ("fast RD") maps: when fd_on, the CU quadtree
+  // and the per-PU luma modes come from the device decision pass instead
+  // of the full RD search (thevc_tpu/encoder/fast_intra.py); RQT/TS and
+  // chroma-mode RD still run per chosen mode.  All maps are per 4x4 unit
+  // in raster order ([uh][uw]).
+  const int8_t* fd_depth;
+  const int8_t* fd_mode;
+  const uint8_t* fd_nxn;
+  const int8_t* fd_chroma;   // chosen chroma dir (or 36 = DM); may be NULL
+  const int8_t* fd_mode2;    // runner-up luma modes for closed-loop
+  const int8_t* fd_mode3;    // re-ranking; may be NULL
+  // inter decision maps (P/B slices): per 4x4 unit — pred flag
+  // (0 intra / 1 inter), L0 ref idx, quarter-pel MV; may be NULL.
+  // B slices add inter_dir (1/2/3) and the L1 ref/MV planes.
+  const int8_t* fd_pred;
+  const int8_t* fd_ref;
+  const int16_t* fd_mvx;
+  const int16_t* fd_mvy;
+  const int8_t* fd_dir;      // NULL = uni-L0 everywhere (P slices)
+  const int8_t* fd_ref1;
+  const int16_t* fd_mvx1;
+  const int16_t* fd_mvy1;
+  int fd_fix_tu;             // 1 = TU split fixed at the CU (no RQT RD)
+  int fd_on;
+  int fd_rescue_maxd;        // closed-loop merge rescue at split nodes
+                             // with depth <= this (-1 = off)
+  // ---- inter-slice state (valid when has_inter != 0) ----
+  int has_inter;
+  SliceParams sp;                // merge/AMVP environment (ref POCs, col)
+  InterRefs refs;                // padded reference planes
+  EncInterParams me;
+  // motion-cost state (TComRdCost m_uiCost / m_mvPredictor / m_iCostScale)
+  int64_t mc_cost;
+  int mc_pred[2], mc_scale;
+  // CU prediction / residual buffers (CTU-local coords)
+  int16_t pred_y[64 * 64], pred_cb[32 * 32], pred_cr[32 * 32];
+  int32_t resi_y[64 * 64], resi_cb[32 * 32], resi_cr[32 * 32];
+  int32_t rbest_y[64 * 64], rbest_cb[32 * 32], rbest_cr[32 * 32];
+  // inter RQT layer buffers (CTU-local; separate from the intra qt_*)
+  int32_t* iqt_resi[8][3];
+  int32_t* iqt_coeff[8][3];
+  PuMotionSave pu_save, pu_save2;
+  // fractional-search scratch: blocks[v][h] with fixed stride 66,
+  // tmp halves in Short domain
+  int16_t frac_blk[4][4][66 * 66];
+  int16_t frac_tmp0[72 * 66], frac_tmp2[72 * 66];
+  int32_t me_org[64 * 64];       // ME original (2*org - other for bipred)
+  int64_t me_org_key;            // PU geometry of the cached uni fill (0 = none)
+  int16_t me_pred_store[2][64 * 64];  // uni luma preds for bipred ME
+};
+
+static inline void es_unit_xy(const EncState* S, int abs_part, int* ux,
+                              int* uy) {
+  const FrameArrays* fa = &S->fa;
+  int r = fa->z2r[abs_part];
+  int cx = S->ctu_addr % fa->ctus_w, cy = S->ctu_addr / fa->ctus_w;
+  *ux = cx * fa->upr + (r % fa->upr);
+  *uy = cy * fa->upr + (r / fa->upr);
+}
+
+// z-order part index of the unit at CTU-local coords
+static inline int es_part_at(const EncState* S, int ux, int uy) {
+  const FrameArrays* fa = &S->fa;
+  return fa->r2z[(uy % fa->upr) * fa->upr + (ux % fa->upr)];
+}
+
+static inline int es_cbf(const EncState* S, int abs_part, int comp,
+                         int trd) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  return (U3(fa->cbf, comp, ux, uy) >> trd) & 1;
+}
+
+static inline int es_qp_scaled_luma(const EncState* S, int qp) {
+  return qp + S->ep.qp_bd_offset_y;
+}
+
+static inline int es_qp_scaled_chroma(const EncState* S, int qp, int off) {
+  int bd = S->ep.qp_bd_offset_c;
+  int q = qp + off;
+  if (q < -bd) q = -bd;
+  if (q > 57) q = 57;
+  if (q < 0) return q + bd;
+  return kChromaScale[q] + bd;
+}
+
+// TComRdCost::calcRdCost (DF_DEFAULT)
+static inline double es_rd_cost(const EncState* S, int64_t bits,
+                                int64_t dist) {
+  double cost = (double)dist +
+                (double)(int64_t)((double)bits * S->ep.lambda_ + 0.5);
+  return floor(cost);
+}
+
+// getDistPart DF_SSE (+ WEIGHTED_CHROMA_DISTORTION)
+static int64_t es_sse_impl(const EncState* S, const int16_t* rec, int64_t sr,
+                      const int16_t* org, int64_t so, int size,
+                      int weighted) {
+  int64_t sse = 0;
+  int sh = S->ep.bit_inc << 1;
+#if defined(__AVX2__)
+  if (sh == 0 && size == 8) {
+    // d*d <= max_val^2, 32 madd pair-sums: the int32 accumulator is safe
+    __m128i acc = _mm_setzero_si128();
+    for (int y = 0; y < 8; y++) {
+      __m128i o = _mm_loadu_si128((const __m128i*)(org + y * so));
+      __m128i r = _mm_loadu_si128((const __m128i*)(rec + y * sr));
+      __m128i d = _mm_sub_epi16(o, r);
+      acc = _mm_add_epi32(acc, _mm_madd_epi16(d, d));
+    }
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+    sse = (uint32_t)_mm_cvtsi128_si32(acc);
+    if (weighted) return (int64_t)(S->ep.chroma_weight * (double)sse);
+    return sse;
+  }
+  if (sh == 0 && size == 4) {
+    __m128i acc = _mm_setzero_si128();
+    for (int y = 0; y < 4; y += 2) {
+      __m128i o = _mm_unpacklo_epi64(
+          _mm_loadl_epi64((const __m128i*)(org + y * so)),
+          _mm_loadl_epi64((const __m128i*)(org + (y + 1) * so)));
+      __m128i r = _mm_unpacklo_epi64(
+          _mm_loadl_epi64((const __m128i*)(rec + y * sr)),
+          _mm_loadl_epi64((const __m128i*)(rec + (y + 1) * sr)));
+      __m128i d = _mm_sub_epi16(o, r);
+      acc = _mm_add_epi32(acc, _mm_madd_epi16(d, d));
+    }
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+    sse = (uint32_t)_mm_cvtsi128_si32(acc);
+    if (weighted) return (int64_t)(S->ep.chroma_weight * (double)sse);
+    return sse;
+  }
+  if (sh == 0 && size >= 16) {
+    // |d| <= max_val so d*d pairs fit int32 via madd; row sums fit int32
+    __m256i accv = _mm256_setzero_si256();
+    for (int y = 0; y < size; y++) {
+      for (int x = 0; x < size; x += 16) {
+        __m256i o = _mm256_loadu_si256((const __m256i*)(org + y * so + x));
+        __m256i r = _mm256_loadu_si256((const __m256i*)(rec + y * sr + x));
+        __m256i d = _mm256_sub_epi16(o, r);
+        __m256i m = _mm256_madd_epi16(d, d);
+        accv = _mm256_add_epi64(
+            accv, _mm256_cvtepi32_epi64(_mm256_castsi256_si128(m)));
+        accv = _mm256_add_epi64(
+            accv, _mm256_cvtepi32_epi64(_mm256_extracti128_si256(m, 1)));
+      }
+    }
+    int64_t tmp[4];
+    _mm256_storeu_si256((__m256i*)tmp, accv);
+    sse = tmp[0] + tmp[1] + tmp[2] + tmp[3];
+    if (weighted) return (int64_t)(S->ep.chroma_weight * (double)sse);
+    return sse;
+  }
+  if (sh == 0 && size == 8) {
+    __m256i accv = _mm256_setzero_si256();
+    for (int y = 0; y < 8; y++) {
+      __m128i o = _mm_loadu_si128((const __m128i*)(org + y * so));
+      __m128i r = _mm_loadu_si128((const __m128i*)(rec + y * sr));
+      __m128i d = _mm_sub_epi16(o, r);
+      accv = _mm256_add_epi64(
+          accv, _mm256_cvtepi32_epi64(_mm_madd_epi16(d, d)));
+    }
+    int64_t tmp[4];
+    _mm256_storeu_si256((__m256i*)tmp, accv);
+    sse = tmp[0] + tmp[1] + tmp[2] + tmp[3];
+    if (weighted) return (int64_t)(S->ep.chroma_weight * (double)sse);
+    return sse;
+  }
+#endif
+  for (int y = 0; y < size; y++)
+    for (int x = 0; x < size; x++) {
+      int64_t d = (int64_t)org[y * so + x] - rec[y * sr + x];
+      sse += (d * d) >> sh;
+    }
+  if (weighted) return (int64_t)(S->ep.chroma_weight * (double)sse);
+  return sse;
+}
+
+// coder snapshot plumbing
+static int64_t es_sse(const EncState* S, const int16_t* rec, int64_t sr,
+                      const int16_t* org, int64_t so, int size,
+                      int weighted) {
+  PROF_BEGIN(11);
+  int64_t r = es_sse_impl(S, rec, sr, org, so, size, weighted);
+  PROF_END(11);
+  return r;
+}
+
+static inline uint8_t* es_snap_ctx(EncState* S, int depth, int ci) {
+  return S->snap_ctx + ((int64_t)depth * ECI_NUM + ci) * S->num_ctx;
+}
+static inline void es_store(EncState* S, int depth, int ci) {
+  memcpy(es_snap_ctx(S, depth, ci), S->go.ctx, S->num_ctx);
+  S->snap_frac[depth * ECI_NUM + ci] = S->go.frac_bits;
+}
+static inline void es_load(EncState* S, int depth, int ci) {
+  memcpy(S->go.ctx, es_snap_ctx(S, depth, ci), S->num_ctx);
+  S->go.frac_bits = S->snap_frac[depth * ECI_NUM + ci];
+}
+static inline void es_copy_snap(EncState* S, int sd, int sci, int dd,
+                                int dci) {
+  memcpy(es_snap_ctx(S, dd, dci), es_snap_ctx(S, sd, sci), S->num_ctx);
+  S->snap_frac[dd * ECI_NUM + dci] = S->snap_frac[sd * ECI_NUM + sci];
+}
+
+// ---------------------------------------------------------------------------
+// syntax writers (TEncSbac code*; engine-agnostic via EncBin)
+// ---------------------------------------------------------------------------
+static void we_split_flag(EncState* S, EncBin* e, int abs_part, int depth) {
+  const FrameArrays* fa = &S->fa;
+  int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  if (depth == max_sig) return;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int ctx = ctx_split_flag(fa, ux, uy, depth);
+  int split = U(fa->depth, ux, uy) > depth ? 1 : 0;
+  eb_bin(e, split, S->co.split_flag + ctx);
+}
+
+static void we_part_size(EncState* S, EncBin* e, int abs_part, int depth) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int part_sz = U(fa->part_size, ux, uy);
+  int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  if (U(fa->pred_mode, ux, uy) == MODE_INTRA) {
+    if (depth == max_sig)
+      eb_bin(e, part_sz == SZ_2Nx2N ? 1 : 0, S->co.part_size);
+    return;
+  }
+  int amp = S->ep.use_amp && depth < max_sig;
+  if (part_sz == SZ_2Nx2N) {
+    eb_bin(e, 1, S->co.part_size);
+  } else if (part_sz == SZ_2NxN || part_sz == SZ_2NxnU ||
+             part_sz == SZ_2NxnD) {
+    eb_bin(e, 0, S->co.part_size);
+    eb_bin(e, 1, S->co.part_size + 1);
+    if (amp) {
+      if (part_sz == SZ_2NxN) {
+        eb_bin(e, 1, S->co.amp);
+      } else {
+        eb_bin(e, 0, S->co.amp);
+        eb_bin_ep(e, part_sz == SZ_2NxnU ? 0 : 1);
+      }
+    }
+  } else if (part_sz == SZ_Nx2N || part_sz == SZ_nLx2N ||
+             part_sz == SZ_nRx2N) {
+    eb_bin(e, 0, S->co.part_size);
+    eb_bin(e, 0, S->co.part_size + 1);
+    int size = fa->ctu_size >> depth;
+    if (depth == max_sig && size != 8)
+      eb_bin(e, 1, S->co.part_size + 2);
+    if (amp) {
+      if (part_sz == SZ_Nx2N) {
+        eb_bin(e, 1, S->co.amp);
+      } else {
+        eb_bin(e, 0, S->co.amp);
+        eb_bin_ep(e, part_sz == SZ_nLx2N ? 0 : 1);
+      }
+    }
+  } else {
+    eb_bin(e, 0, S->co.part_size);
+    eb_bin(e, 0, S->co.part_size + 1);
+    eb_bin(e, 0, S->co.part_size + 2);
+  }
+}
+
+static void we_tq_bypass(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  eb_bin(e, U(fa->tq_bypass, ux, uy) ? 1 : 0, S->co.tq_bypass);
+}
+
+static void we_intra_dir_luma(EncState* S, EncBin* e, int abs_part,
+                              int multiple) {
+  const FrameArrays* fa = &S->fa;
+  int ux0, uy0;
+  es_unit_xy(S, abs_part, &ux0, &uy0);
+  int mode_sz = U(fa->part_size, ux0, uy0);
+  int depth = U(fa->depth, ux0, uy0);
+  int part_num = (multiple && mode_sz == SZ_NxN) ? 4 : 1;
+  int part_offset = (fa->parts >> (depth << 1)) >> 2;
+  int dirs[4], preds[4][3], pred_idx[4];
+  for (int j = 0; j < part_num; j++) {
+    int part = abs_part + part_offset * j;
+    int ux, uy;
+    es_unit_xy(S, part, &ux, &uy);
+    int d = U(fa->luma_dir, ux, uy);
+    intra_mpm(fa, ux, uy, preds[j]);
+    int idx = -1;
+    for (int i = 0; i < 3; i++)
+      if (d == preds[j][i]) idx = i;
+    dirs[j] = d;
+    pred_idx[j] = idx;
+    eb_bin(e, idx != -1 ? 1 : 0, S->co.intra_pred);
+  }
+  for (int j = 0; j < part_num; j++) {
+    if (pred_idx[j] != -1) {
+      eb_bin_ep(e, pred_idx[j] ? 1 : 0);
+      if (pred_idx[j]) eb_bin_ep(e, pred_idx[j] - 1);
+    } else {
+      int p0 = preds[j][0], p1 = preds[j][1], p2 = preds[j][2], t;
+      if (p0 > p1) { t = p0; p0 = p1; p1 = t; }
+      if (p1 > p2) { t = p1; p1 = p2; p2 = t; }
+      if (p0 > p1) { t = p0; p0 = p1; p1 = t; }
+      int d = dirs[j];
+      if (d > p2) d--;
+      if (d > p1) d--;
+      if (d > p0) d--;
+      eb_bins_ep(e, (uint32_t)d, 5);
+    }
+  }
+}
+
+static void es_allowed_chroma(const EncState* S, int ux, int uy,
+                              int modes[5]) {
+  const FrameArrays* fa = &S->fa;
+  modes[0] = PLANAR_IDX; modes[1] = VER_IDX; modes[2] = HOR_IDX;
+  modes[3] = DC_IDX; modes[4] = DM_CHROMA_IDX;
+  int luma = U(fa->luma_dir, ux, uy);
+  for (int i = 0; i < 4; i++)
+    if (luma == modes[i]) { modes[i] = 34; break; }
+}
+
+static void we_intra_dir_chroma(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int mode = U(fa->chroma_dir, ux, uy);
+  if (mode == DM_CHROMA_IDX) {
+    eb_bin(e, 0, S->co.chroma_pred);
+  } else {
+    int modes[5];
+    es_allowed_chroma(S, ux, uy, modes);
+    int idx = 0;
+    for (int i = 0; i < 5; i++)
+      if (modes[i] == mode) { idx = i; break; }
+    eb_bin(e, 1, S->co.chroma_pred);
+    eb_bins_ep(e, (uint32_t)idx, 2);
+  }
+}
+
+static void we_transform_subdiv(EncState* S, EncBin* e, int subdiv,
+                                int log2_tr) {
+  eb_bin(e, subdiv, S->co.trans_subdiv + (5 - log2_tr));
+}
+
+static void we_qt_cbf(EncState* S, EncBin* e, int abs_part, int comp,
+                      int trd) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int cbf = (U3(fa->cbf, comp, ux, uy) >> trd) & 1;
+  if (comp == 0)
+    eb_bin(e, cbf, S->co.qt_cbf + (trd == 0 ? 1 : 0));
+  else
+    eb_bin(e, cbf, S->co.qt_cbf + 5 + trd);
+}
+
+static void we_ts_flag(EncState* S, EncBin* e, int abs_part, int width,
+                       int comp) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  if (U(fa->tq_bypass, ux, uy) || width != 4) return;
+  int flag = U3(fa->ts_flag, comp, ux, uy) ? 1 : 0;
+  eb_bin(e, flag, S->co.ts_flag + (comp == 0 ? 0 : 1));
+}
+
+// getCoefScanIdx for the encoder (raw scan id 1=hor 2=ver 3=diag)
+static int es_scan_idx(const EncState* S, int abs_part, int width,
+                       int is_luma) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  if (U(fa->pred_mode, ux, uy) != MODE_INTRA) return 3;
+  int ctx_idx;
+  switch (width) {
+    case 2: ctx_idx = 6; break;
+    case 4: ctx_idx = 5; break;
+    case 8: ctx_idx = 4; break;
+    case 16: ctx_idx = 3; break;
+    case 32: ctx_idx = 2; break;
+    case 64: ctx_idx = 1; break;
+    default: ctx_idx = 0; break;
+  }
+  int dir_mode;
+  if (is_luma) {
+    dir_mode = U(fa->luma_dir, ux, uy);
+    if (ctx_idx > 3 && ctx_idx < 6) {
+      int dv = dir_mode - VER_IDX; if (dv < 0) dv = -dv;
+      int dh = dir_mode - HOR_IDX; if (dh < 0) dh = -dh;
+      if (dv < 5) return 1;
+      if (dh < 5) return 2;
+    }
+    return 3;
+  }
+  dir_mode = U(fa->chroma_dir, ux, uy);
+  if (dir_mode == DM_CHROMA_IDX) {
+    int depth = U(fa->depth, ux, uy);
+    int num_parts = fa->parts >> (2 * depth);
+    int cu_part = (abs_part / num_parts) * num_parts;
+    int cux, cuy;
+    es_unit_xy(S, cu_part, &cux, &cuy);
+    dir_mode = U(fa->luma_dir, cux, cuy);
+  }
+  if (ctx_idx > 4 && ctx_idx < 7) {
+    int dv = dir_mode - VER_IDX; if (dv < 0) dv = -dv;
+    int dh = dir_mode - HOR_IDX; if (dh < 0) dh = -dh;
+    if (dv < 5) return 1;
+    if (dh < 5) return 2;
+  }
+  return 3;
+}
+
+static void we_last_xy(EncState* S, EncBin* e, int pos_x, int pos_y,
+                       int width, int is_chroma, int scan_idx) {
+  if (scan_idx == 2) { int t = pos_x; pos_x = pos_y; pos_y = t; }
+  int lg = convert_to_bit(width);
+  int blk_off, shift, base_x, base_y;
+  if (is_chroma) {
+    blk_off = 0; shift = lg;
+    base_x = S->co.last_x + 15; base_y = S->co.last_y + 15;
+  } else {
+    blk_off = lg * 3 + ((lg + 1) >> 2);
+    shift = (lg + 3) >> 2;
+    base_x = S->co.last_x; base_y = S->co.last_y;
+  }
+  int gx = kGroupIdx[pos_x], gy = kGroupIdx[pos_y];
+  int gmax = kGroupIdx[width - 1];
+  for (int c = 0; c < gx; c++) eb_bin(e, 1, base_x + blk_off + (c >> shift));
+  if (gx < gmax) eb_bin(e, 0, base_x + blk_off + (gx >> shift));
+  for (int c = 0; c < gy; c++) eb_bin(e, 1, base_y + blk_off + (c >> shift));
+  if (gy < gmax) eb_bin(e, 0, base_y + blk_off + (gy >> shift));
+  if (gx > 3) {
+    int count = (gx - 2) >> 1;
+    int rem = pos_x - kMinInGroup[gx];
+    for (int i = count - 1; i >= 0; i--) eb_bin_ep(e, (rem >> i) & 1);
+  }
+  if (gy > 3) {
+    int count = (gy - 2) >> 1;
+    int rem = pos_y - kMinInGroup[gy];
+    for (int i = count - 1; i >= 0; i--) eb_bin_ep(e, (rem >> i) & 1);
+  }
+}
+
+// codeCoeffNxN; coeff is a (width x width) view with row stride `cstride`
+}  // extern "C" (the templated coefficient writer needs C++ linkage)
+
+// codeCoeffNxN, templated on the block log2 (constant trip counts; the
+// 4x4 instance folds the significance-map context derivation to a table
+// lookup at compile time).
+template <int LOG2>
+static void we_coeff_nxn_t(EncState* S, EncBin* e, int abs_part,
+                           const int32_t* coeff, int64_t cstride, int comp) {
+  const int width = 1 << LOG2;
+  const int kSBH = 4, kC1Num = 8;
+  int num_sig = 0;
+  for (int y = 0; y < width; y++)
+    for (int x = 0; x < width; x++)
+      if (coeff[y * cstride + x]) num_sig++;
+  if (num_sig == 0) return;
+  if (S->ep.use_ts) we_ts_flag(S, e, abs_part, width, comp);
+  int is_luma = comp == 0;
+  const int log2 = LOG2;
+  int scan_idx = es_scan_idx(S, abs_part, width, is_luma);
+  int lg = convert_to_bit(width);
+  const int32_t* scan = S->sc.scan[scan_idx][lg];
+  const int32_t* scan_cg = S->sc.cg[scan_idx][lg];
+
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int be_valid = !U(fa->tq_bypass, ux, uy) && S->ep.sign_hide;
+
+  int num_blk_side = width >> 2;
+  int32_t sig_cg[64];
+  memset(sig_cg, 0, sizeof(sig_cg));
+  int scan_pos_last = -1;
+  int remaining = num_sig;
+  int pos_last = 0;
+  while (remaining > 0) {
+    scan_pos_last++;
+    int pos = scan[scan_pos_last];
+    if (coeff[(pos >> log2) * cstride + (pos & (width - 1))]) {
+      int py_ = pos >> log2, px_ = pos & (width - 1);
+      sig_cg[num_blk_side * (py_ >> 2) + (px_ >> 2)] = 1;
+      remaining--;
+      pos_last = pos;
+    }
+  }
+  int last_y = pos_last >> log2;
+  int last_x = pos_last - (last_y << log2);
+  we_last_xy(S, e, last_x, last_y, width, !is_luma, scan_idx);
+
+  int sig_base = S->co.sig + (is_luma ? 0 : S->co.num_sig_luma);
+  int cg_base = S->co.sig_cg + (is_luma ? 0 : 2);
+  int last_scan_set = scan_pos_last >> 4;
+  int c1 = 1, go_rice = 0;
+  int i_scan_pos_sig = scan_pos_last;
+  int block_type = log2;
+
+#define CVAL(blk) coeff[((blk) >> log2) * cstride + ((blk) & (width - 1))]
+  for (int subset = last_scan_set; subset >= 0; subset--) {
+    int sub_pos = subset << 4;
+    go_rice = 0;
+    int abs_coeff[16];
+    uint32_t coeff_signs = 0;
+    int num_nonzero = 0, last_nz = -1, first_nz = 16;
+    if (i_scan_pos_sig == scan_pos_last) {
+      int32_t v = CVAL(pos_last);
+      abs_coeff[0] = v < 0 ? -v : v;
+      coeff_signs = v < 0 ? 1 : 0;
+      num_nonzero = 1;
+      last_nz = i_scan_pos_sig;
+      first_nz = i_scan_pos_sig;
+      i_scan_pos_sig--;
+    }
+    int cg_blk_pos = scan_cg[subset];
+    int cg_pos_y = num_blk_side ? cg_blk_pos / num_blk_side : 0;
+    int cg_pos_x = cg_blk_pos - cg_pos_y * num_blk_side;
+    if (subset == last_scan_set || subset == 0) {
+      sig_cg[cg_blk_pos] = 1;
+    } else {
+      int flag = sig_cg[cg_blk_pos] != 0;
+      int ctx = sig_cg_ctx(sig_cg, cg_pos_x, cg_pos_y, width);
+      eb_bin(e, flag, cg_base + ctx);
+    }
+    if (sig_cg[cg_blk_pos]) {
+      int pattern = calc_pattern(sig_cg, cg_pos_x, cg_pos_y, width);
+      while (i_scan_pos_sig >= sub_pos) {
+        int blk = scan[i_scan_pos_sig];
+        int yy = blk >> log2;
+        int xx = blk - (yy << log2);
+        int32_t v = CVAL(blk);
+        int sig = v != 0;
+        if (i_scan_pos_sig > sub_pos || subset == 0 || num_nonzero) {
+          int ctx = sig_ctx_inc(pattern, scan_idx, xx, yy, block_type,
+                                is_luma ? 0 : 1);
+          eb_bin(e, sig, sig_base + ctx);
+        }
+        if (sig) {
+          abs_coeff[num_nonzero] = v < 0 ? -v : v;
+          coeff_signs = 2 * coeff_signs + (v < 0 ? 1 : 0);
+          num_nonzero++;
+          if (last_nz == -1) last_nz = i_scan_pos_sig;
+          first_nz = i_scan_pos_sig;
+        }
+        i_scan_pos_sig--;
+      }
+    } else {
+      i_scan_pos_sig = sub_pos - 1;
+    }
+    if (num_nonzero > 0) {
+      int sign_hidden = (last_nz - first_nz) >= kSBH;
+      int ctx_set = (subset > 0 && is_luma) ? 2 : 0;
+      if (c1 == 0) ctx_set++;
+      c1 = 1;
+      int one_base = S->co.one + (is_luma ? 0 : 16) + 4 * ctx_set;
+      int num_c1 = num_nonzero < kC1Num ? num_nonzero : kC1Num;
+      int first_c2_idx = -1;
+      for (int idx = 0; idx < num_c1; idx++) {
+        int sym = abs_coeff[idx] > 1 ? 1 : 0;
+        eb_bin(e, sym, one_base + c1);
+        if (sym) {
+          c1 = 0;
+          if (first_c2_idx == -1) first_c2_idx = idx;
+        } else if (c1 > 0 && c1 < 3) {
+          c1++;
+        }
+      }
+      if (c1 == 0) {
+        int abs_base = S->co.abs_ + (is_luma ? 0 : 4) + ctx_set;
+        if (first_c2_idx != -1)
+          eb_bin(e, abs_coeff[first_c2_idx] > 2 ? 1 : 0, abs_base);
+      }
+      if (be_valid && sign_hidden)
+        eb_bins_ep(e, coeff_signs >> 1, num_nonzero - 1);
+      else
+        eb_bins_ep(e, coeff_signs, num_nonzero);
+      int first_coeff2 = 1;
+      if (c1 == 0 || num_nonzero > kC1Num) {
+        for (int idx = 0; idx < num_nonzero; idx++) {
+          int base_level = idx < kC1Num ? (2 + first_coeff2) : 1;
+          if (abs_coeff[idx] >= base_level) {
+            eb_coef_remain(e, abs_coeff[idx] - base_level, go_rice);
+            if (abs_coeff[idx] > 3 * (1 << go_rice))
+              go_rice = go_rice < 4 ? go_rice + 1 : 4;
+          }
+          if (abs_coeff[idx] >= 2) first_coeff2 = 0;
+        }
+      }
+    }
+  }
+#undef CVAL
+}
+
+static void we_coeff_nxn(EncState* S, EncBin* e, int abs_part,
+                         const int32_t* coeff, int64_t cstride, int width,
+                         int comp) {
+  switch (width) {
+    case 4:  we_coeff_nxn_t<2>(S, e, abs_part, coeff, cstride, comp); break;
+    case 8:  we_coeff_nxn_t<3>(S, e, abs_part, coeff, cstride, comp); break;
+    case 16: we_coeff_nxn_t<4>(S, e, abs_part, coeff, cstride, comp); break;
+    default: we_coeff_nxn_t<5>(S, e, abs_part, coeff, cstride, comp); break;
+  }
+}
+
+extern "C" {
+
+// ---------------------------------------------------------------------------
+// intra prediction dispatch (mirrors ops/intra.predict)
+// ---------------------------------------------------------------------------
+static void es_predict(const int32_t* line, int size, int unit, int mode,
+                       int is_luma, int max_val, int32_t* pred) {
+  if (mode == PLANAR_IDX) {
+    predict_c(line, size, unit, 0, is_luma, max_val, pred);
+    return;
+  }
+  angular_c(line, size, unit, mode, is_luma, max_val, pred);
+  if (mode == DC_IDX && is_luma) dc_filter_c(line, size, unit, pred);
+}
+
+// _tu_availability_flags (decoder/recon.py:28) via the parse-side avail()
+static void es_tu_flags(const FrameArrays* fa, int ux, int uy, int nu,
+                        uint8_t* flags) {
+  flags[2 * nu] = (uint8_t)avail(fa, ux - 1, uy - 1, ux, uy);
+  for (int j = 0; j < 2 * nu; j++)
+    flags[2 * nu - 1 - j] = (uint8_t)avail(fa, ux - 1, uy + j, ux, uy);
+  for (int j = 0; j < 2 * nu; j++)
+    flags[2 * nu + 1 + j] = (uint8_t)avail(fa, ux + j, uy - 1, ux, uy);
+}
+
+static void es_adi_luma(EncState* S, int px, int py, int size,
+                        int32_t* line_raw, int32_t* line_filt) {
+  uint8_t flags[4 * 32 + 1];
+  es_tu_flags(&S->fa, px / 4, py / 4, size / 4, flags);
+  int dc = 1 << (S->ep.bit_depth - 1);
+  fill_reference_line_c(S->rec_y, S->rls, px, py, size, 4, flags, dc,
+                        line_raw);
+  memcpy(line_filt, line_raw, sizeof(int32_t) * (4 * size + 4));
+  smooth_line_c(line_filt, size, 4);
+}
+
+static void es_adi_chroma(EncState* S, int cx, int cy, int size, int comp,
+                          int32_t* line) {
+  uint8_t flags[4 * 32 + 1];
+  es_tu_flags(&S->fa, cx / 2, cy / 2, size / 2, flags);
+  int dc = 1 << (S->ep.bit_depth - 1);
+  const int16_t* plane = comp == 1 ? S->rec_cb : S->rec_cr;
+  fill_reference_line_c(plane, S->rcs, cx, cy, size, 2, flags, dc, line);
+}
+
+// ---------------------------------------------------------------------------
+// transformNxN: forward transform + RDOQ/quant (+SBH)
+// ---------------------------------------------------------------------------
+static int64_t es_xform_quant(EncState* S, int abs_part, const int32_t* resi,
+                              int size, int qps, int is_luma, int comp,
+                              int use_ts, int cbf_tr_depth,
+                              int32_t* levels, int is_intra = 1) {
+  int per = qps / 6, rem = qps % 6;
+  int scan_idx = es_scan_idx(S, abs_part, size, is_luma);
+  int32_t coeff_t[32 * 32], scratch[32 * 32];
+  if (use_ts) {
+    transform_skip_fwd_c(resi, size, S->ep.bit_inc, coeff_t);
+  } else {
+    PROF_BEGIN(8);
+    forward_transform_c(resi, size, is_luma && size == 4 && is_intra,
+                        S->ep.bit_inc, coeff_t, scratch);
+    PROF_END(8);
+  }
+  int lg = convert_to_bit(size);
+  const int32_t* scan = S->sc.scan[scan_idx][lg];
+  const int32_t* scan_cg = S->sc.cg[scan_idx][lg];
+  int use_rdoq = S->ep.use_rdoq && !(S->ep.ts_fast && use_ts);
+  if (use_rdoq) {
+    // est-bit tables are a pure function of (ctx states, size, is_luma);
+    // RD candidate loops reload identical ctx, so cache per (size, comp)
+    int li = lg, ci = is_luma ? 1 : 0;
+    EstBitsC& eb = S->eb_cache[li][ci];
+    PROF_BEGIN(14);
+    if (!S->eb_valid[li][ci] ||
+        memcmp(S->eb_ctx_snap[li][ci], S->go.ctx, S->num_ctx) != 0) {
+      build_est_bits_c(&S->co, S->go.ctx, size, is_luma, &eb);
+      memcpy(S->eb_ctx_snap[li][ci], S->go.ctx, S->num_ctx);
+      S->eb_valid[li][ci] = 1;
+    }
+    PROF_END(14);
+    double lam = is_luma ? S->ep.lambda_luma : S->ep.lambda_chroma;
+PROF_BEGIN(5);
+    int64_t _rq = rdoq_c(coeff_t, size, per, rem, lam, is_luma, is_intra,
+                  scan_idx, &eb,
+                  cbf_tr_depth, S->ep.sign_hide, S->ep.bit_inc, scan,
+                  scan_cg, levels);
+    PROF_END(5);
+    return _rq;
+  }
+  int32_t delta_u[32 * 32];
+  quant_c(coeff_t, size, qps, S->ep.slice_type == SLICE_I, S->ep.bit_inc,
+          levels, delta_u);
+  int64_t abs_sum = 0;
+  for (int i = 0; i < size * size; i++)
+    abs_sum += levels[i] < 0 ? -levels[i] : levels[i];
+  if (S->ep.sign_hide && abs_sum >= 2)
+    sbh_hdq_c(levels, coeff_t, delta_u, scan, size);
+  return abs_sum;
+}
+
+static inline int es_qt_layer(const EncState* S, int full_depth) {
+  return S->ep.max_tr_log2 - (S->log2_ctu_v - full_depth);
+}
+
+static inline void es_ctu_local(const EncState* S, int abs_part, int* lx,
+                                int* ly) {
+  int r = S->fa.z2r[abs_part];
+  *lx = (r % S->fa.upr) * 4;
+  *ly = (r / S->fa.upr) * 4;
+}
+
+// xIntraCodingLumaBlk (TEncSearch.cpp:1006)
+static int64_t es_intra_luma_blk_impl(EncState* S, int part, int cu_depth,
+                                      int tr_depth, int d0s1l2);
+static int64_t es_intra_luma_blk(EncState* S, int part, int cu_depth,
+                                 int tr_depth, int d0s1l2) {
+  PROF_BEGIN(25);
+  int64_t r = es_intra_luma_blk_impl(S, part, cu_depth, tr_depth, d0s1l2);
+  PROF_END(25);
+  return r;
+}
+static int64_t es_intra_luma_blk_impl(EncState* S, int part, int cu_depth,
+                                      int tr_depth, int d0s1l2) {
+  FrameArrays* fa = &S->fa;
+  int full_depth = cu_depth + tr_depth;
+  int size = fa->ctu_size >> full_depth;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int units = units_at_depth(fa, full_depth);
+  int mode = U(fa->luma_dir, ux, uy);
+  int use_ts = U3(fa->ts_flag, 0, ux, uy);
+
+  int32_t pred_buf[64 * 64];
+  int32_t* pred;
+  if (d0s1l2 != 2) {
+    if (S->presel_part == part && S->presel_size == size) {
+      // the 35-mode preselection already predicted this PU at this size
+      // (reference samples lie outside the PU, unchanged by its recon)
+      pred = S->presel_pred + (int64_t)mode * 64 * 64;
+    } else {
+      int32_t line_raw[4 * 64 + 8], line_filt[4 * 64 + 8];
+      es_adi_luma(S, px, py, size, line_raw, line_filt);
+      int log2 = 0; while ((1 << log2) < size) log2++;
+      const int32_t* line =
+          use_filtered_c(mode, log2, 1) ? line_filt : line_raw;
+#if defined(__AVX2__)
+      if (size == 4) {
+        // RD-stage 4x4 TUs (split evaluation inside larger PUs) use the
+        // same register predictor as the sweep; 4x4 luma never smooths
+        int32_t ra[9], rl[9];
+        build_refs_c(line_raw, 4, 4, ra, rl);
+        __m128i t4[4];
+        pred4_mode_reg(ra, rl, mode, 1, S->ep.max_val, t4);
+        for (int j = 0; j < 4; j++)
+          _mm_storeu_si128((__m128i*)(pred_buf + j * 4), t4[j]);
+      } else
+#endif
+      es_predict(line, size, 4, mode, 1, S->ep.max_val, pred_buf);
+      pred = pred_buf;
+    }
+    if (d0s1l2 == 1)
+      memcpy(S->shared_pred[0], pred, sizeof(int32_t) * size * size);
+  } else {
+    pred = S->shared_pred[0];
+  }
+
+  int32_t resi[64 * 64];
+#if defined(__AVX2__)
+  if (size == 4) {
+    for (int y = 0; y < 4; y++) {
+      __m128i o = _mm_cvtepi16_epi32(_mm_loadl_epi64(
+          (const __m128i*)(S->org_y + (int64_t)(py + y) * S->rls + px)));
+      __m128i p = _mm_loadu_si128((const __m128i*)(pred + y * 4));
+      _mm_storeu_si128((__m128i*)(resi + y * 4), _mm_sub_epi32(o, p));
+    }
+  } else {
+    for (int y = 0; y < size; y++)
+      for (int x = 0; x < size; x += 8) {
+        __m256i o = _mm256_cvtepi16_epi32(_mm_loadu_si128(
+            (const __m128i*)(S->org_y + (int64_t)(py + y) * S->rls + px +
+                             x)));
+        __m256i p =
+            _mm256_loadu_si256((const __m256i*)(pred + y * size + x));
+        _mm256_storeu_si256((__m256i*)(resi + y * size + x),
+                            _mm256_sub_epi32(o, p));
+      }
+  }
+#else
+  for (int y = 0; y < size; y++)
+    for (int x = 0; x < size; x++)
+      resi[y * size + x] =
+          (int32_t)S->org_y[(int64_t)(py + y) * S->rls + px + x] -
+          pred[y * size + x];
+#endif
+
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, (int8_t)tr_depth);
+
+  int qps = es_qp_scaled_luma(S, U(fa->qp, ux, uy));
+  int32_t levels[64 * 64];
+  int64_t abs_sum = es_xform_quant(S, part, resi, size, qps, 1, 0, use_ts,
+                                   tr_depth, levels);
+  int cbf = abs_sum ? 1 : 0;
+  set_region<uint8_t>(fa, fa->cbf, ux, uy, units, (uint8_t)(cbf << tr_depth));
+
+  int32_t resi_rec[64 * 64];
+  if (abs_sum) {
+    const int32_t* basis = size == 4 ? &kDst4[0][0] : dct_basis(size);
+    PROF_BEGIN(27);
+    residual_c(levels, size, 0, 0, size, qps, size == 4, use_ts, 0,
+               S->ep.bit_inc, basis, resi_rec);
+    PROF_END(27);
+  } else {
+    memset(levels, 0, sizeof(int32_t) * size * size);
+    memset(resi_rec, 0, sizeof(int32_t) * size * size);
+  }
+
+  int layer = es_qt_layer(S, full_depth);
+  int lx, ly;
+  es_ctu_local(S, part, &lx, &ly);
+  int16_t* qr = S->qt_rec[layer][0];
+  int32_t* qc = S->qt_coeff[layer][0];
+  int ctu = fa->ctu_size;
+#if defined(__AVX2__)
+  if ((size & 7) == 0) {
+    __m256i vmax = _mm256_set1_epi32(S->ep.max_val);
+    __m256i vzero = _mm256_setzero_si256();
+    for (int y = 0; y < size; y++) {
+      int16_t* qrr = qr + (ly + y) * ctu + lx;
+      int32_t* qcr = qc + (ly + y) * ctu + lx;
+      int16_t* rr = S->rec_y + (int64_t)(py + y) * S->rls + px;
+      int32_t* cr = fa->coeff_y + (int64_t)(py + y) * S->ls + px;
+      for (int x = 0; x < size; x += 8) {
+        __m256i pv = _mm256_loadu_si256((const __m256i*)(pred + y * size + x));
+        __m256i rv = _mm256_loadu_si256(
+            (const __m256i*)(resi_rec + y * size + x));
+        __m256i v = _mm256_min_epi32(
+            _mm256_max_epi32(_mm256_add_epi32(pv, rv), vzero), vmax);
+        __m128i p16 = _mm_packs_epi32(_mm256_castsi256_si128(v),
+                                      _mm256_extracti128_si256(v, 1));
+        _mm_storeu_si128((__m128i*)(qrr + x), p16);
+        _mm_storeu_si128((__m128i*)(rr + x), p16);
+        __m256i lv = _mm256_loadu_si256(
+            (const __m256i*)(levels + y * size + x));
+        _mm256_storeu_si256((__m256i*)(qcr + x), lv);
+        _mm256_storeu_si256((__m256i*)(cr + x), lv);
+      }
+    }
+  } else if (size == 4) {
+    __m128i vmax4 = _mm_set1_epi32(S->ep.max_val);
+    __m128i vzero4 = _mm_setzero_si128();
+    for (int y = 0; y < 4; y++) {
+      __m128i pv = _mm_loadu_si128((const __m128i*)(pred + y * 4));
+      __m128i rv = _mm_loadu_si128((const __m128i*)(resi_rec + y * 4));
+      __m128i v = _mm_min_epi32(
+          _mm_max_epi32(_mm_add_epi32(pv, rv), vzero4), vmax4);
+      __m128i p16 = _mm_packs_epi32(v, v);
+      _mm_storel_epi64((__m128i*)(qr + (ly + y) * ctu + lx), p16);
+      _mm_storel_epi64((__m128i*)(S->rec_y + (int64_t)(py + y) * S->rls + px),
+                       p16);
+      __m128i lv = _mm_loadu_si128((const __m128i*)(levels + y * 4));
+      _mm_storeu_si128((__m128i*)(qc + (ly + y) * ctu + lx), lv);
+      _mm_storeu_si128(
+          (__m128i*)(fa->coeff_y + (int64_t)(py + y) * S->ls + px), lv);
+    }
+  } else
+#endif
+  for (int y = 0; y < size; y++) {
+    for (int x = 0; x < size; x++) {
+      int v = pred[y * size + x] + resi_rec[y * size + x];
+      int16_t r = (int16_t)(v < 0 ? 0 : (v > S->ep.max_val ? S->ep.max_val
+                                                           : v));
+      qr[(ly + y) * ctu + lx + x] = r;
+      qc[(ly + y) * ctu + lx + x] = levels[y * size + x];
+      S->rec_y[(int64_t)(py + y) * S->rls + px + x] = r;
+      fa->coeff_y[(int64_t)(py + y) * S->ls + px + x] = levels[y * size + x];
+    }
+  }
+  const int16_t* rec0 = S->rec_y + (int64_t)py * S->rls + px;
+  const int16_t* org0 = S->org_y + (int64_t)py * S->rls + px;
+  return es_sse(S, rec0, S->rls, org0, S->rls, size, 0);
+}
+
+// getQuadtreeTULog2MinSizeInCU (encoder view)
+static int es_min_tu_log2(EncState* S, int part) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int depth = U(fa->depth, ux, uy);
+  int log2_cb = S->log2_ctu_v - depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+  int intra_split = (is_intra && part_sz == SZ_NxN) ? 1 : 0;
+  int inter_split = (!is_intra && S->ep.tu_depth_inter == 1 &&
+                     part_sz != SZ_2Nx2N)
+                        ? 1
+                        : 0;
+  int max_tu_depth = is_intra ? S->ep.tu_depth_intra : S->ep.tu_depth_inter;
+  if (log2_cb <
+      S->ep.min_tr_log2 + max_tu_depth - 1 + intra_split + inter_split)
+    return S->ep.min_tr_log2;
+  int v = log2_cb - (max_tu_depth - 1 + intra_split + inter_split);
+  return v < S->ep.max_tr_log2 ? v : S->ep.max_tr_log2;
+}
+
+// xEncIntraHeader (TEncSearch.cpp:890)
+static void es_enc_intra_header(EncState* S, EncBin* e, int part,
+                                int cu_depth, int tr_depth, int luma) {
+  FrameArrays* fa = &S->fa;
+  int cu_parts = fa->parts >> (cu_depth << 1);
+  int cu_start = (part / cu_parts) * cu_parts;
+  int in_cu = part - cu_start;
+  int cux, cuy;
+  es_unit_xy(S, cu_start, &cux, &cuy);
+  int part_sz = U(fa->part_size, cux, cuy);
+  if (luma) {
+    if (in_cu == 0) {
+      if (S->ep.slice_type != SLICE_I) {
+        // inter-slice path unused in the I-only native encoder
+      }
+      we_part_size(S, e, cu_start, cu_depth);
+      if (part_sz == SZ_2Nx2N && S->ep.use_pcm &&
+          (1 << S->ep.pcm_log2_min) <= (fa->ctu_size >> cu_depth) &&
+          (fa->ctu_size >> cu_depth) <= (1 << S->ep.pcm_log2_max))
+        eb_bin_trm(e, 0);
+    }
+    if (part_sz == SZ_2Nx2N) {
+      if (in_cu == 0) we_intra_dir_luma(S, e, cu_start, 0);
+    } else {
+      int q_parts = cu_parts >> 2;
+      if (tr_depth == 0) {
+        for (int p = 0; p < 4; p++)
+          we_intra_dir_luma(S, e, cu_start + p * q_parts, 0);
+      } else if (in_cu % q_parts == 0) {
+        we_intra_dir_luma(S, e, part, 0);
+      }
+    }
+  } else {
+    if (in_cu == 0) we_intra_dir_chroma(S, e, cu_start);
+  }
+}
+
+// xEncSubdivCbfQT (TEncSearch.cpp:763)
+static void es_enc_subdiv_cbf(EncState* S, EncBin* e, int part, int cu_depth,
+                              int tr_depth, int luma, int chroma) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int full_depth = cu_depth + tr_depth;
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  int subdiv = tr_mode > tr_depth ? 1 : 0;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  if (U(fa->pred_mode, ux, uy) == MODE_INTRA && part_sz == SZ_NxN &&
+      tr_depth == 0) {
+  } else if (log2_tr > S->ep.max_tr_log2) {
+  } else if (log2_tr == S->ep.min_tr_log2) {
+  } else if (log2_tr == es_min_tu_log2(S, part)) {
+  } else if (luma) {
+    we_transform_subdiv(S, e, subdiv, log2_tr);
+  }
+  if (chroma && log2_tr > 2) {
+    if (tr_depth == 0 || es_cbf(S, part, 1, tr_depth - 1))
+      we_qt_cbf(S, e, part, 1, tr_depth);
+    if (tr_depth == 0 || es_cbf(S, part, 2, tr_depth - 1))
+      we_qt_cbf(S, e, part, 2, tr_depth);
+  }
+  if (subdiv) {
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    for (int p = 0; p < 4; p++)
+      es_enc_subdiv_cbf(S, e, part + p * q_parts, cu_depth, tr_depth + 1,
+                        luma, chroma);
+    return;
+  }
+  if (luma) we_qt_cbf(S, e, part, 0, tr_mode);
+}
+
+// xEncCoeffQT (TEncSearch.cpp:836)
+static void es_enc_coeff_qt(EncState* S, EncBin* e, int part, int cu_depth,
+                            int tr_depth, int comp) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int full_depth = cu_depth + tr_depth;
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  if (tr_mode > tr_depth) {
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    for (int p = 0; p < 4; p++)
+      es_enc_coeff_qt(S, e, part + p * q_parts, cu_depth, tr_depth + 1,
+                      comp);
+    return;
+  }
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int td = tr_depth;
+  if (comp != 0 && log2_tr == 2) {
+    td -= 1;
+    int q_div = fa->parts >> ((cu_depth + td) << 1);
+    if (part % q_div != 0) return;
+  }
+  if (!es_cbf(S, part, comp, tr_mode)) return;
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> (cu_depth + td);
+  if (comp == 0) {
+    we_coeff_nxn(S, e, part, fa->coeff_y + (int64_t)py * S->ls + px, S->ls,
+                 size, 0);
+  } else {
+    size /= 2;
+    const int32_t* plane = comp == 1 ? fa->coeff_cb : fa->coeff_cr;
+    we_coeff_nxn(S, e, part,
+                 plane + (int64_t)(py / 2) * S->cs + px / 2, S->cs, size,
+                 comp);
+  }
+}
+
+// xGetIntraBitsQT / xGetIntraBitsQTChroma
+static int64_t es_intra_bits_qt_impl(EncState* S, int part, int cu_depth,
+                                int tr_depth, int chroma) {
+  eb_reset_bits(&S->go);
+  if (!chroma) {
+    es_enc_intra_header(S, &S->go, part, cu_depth, tr_depth, 1);
+    es_enc_subdiv_cbf(S, &S->go, part, cu_depth, tr_depth, 1, 0);
+    es_enc_coeff_qt(S, &S->go, part, cu_depth, tr_depth, 0);
+  } else {
+    es_enc_intra_header(S, &S->go, part, cu_depth, tr_depth, 0);
+    es_enc_subdiv_cbf(S, &S->go, part, cu_depth, tr_depth, 0, 1);
+    es_enc_coeff_qt(S, &S->go, part, cu_depth, tr_depth, 1);
+    es_enc_coeff_qt(S, &S->go, part, cu_depth, tr_depth, 2);
+  }
+  return eb_bits(&S->go);
+}
+
+static int64_t es_intra_bits_qt(EncState* S, int part, int cu_depth,
+                                int tr_depth, int chroma) {
+  PROF_BEGIN(10);
+  int64_t r = es_intra_bits_qt_impl(S, part, cu_depth, tr_depth, chroma);
+  PROF_END(10);
+  return r;
+}
+
+static int64_t es_intra_bits_qt_chroma(EncState* S, int part, int cu_depth,
+                                       int tr_depth, int comp) {
+  eb_reset_bits(&S->go);
+  es_enc_coeff_qt(S, &S->go, part, cu_depth, tr_depth, comp);
+  return eb_bits(&S->go);
+}
+
+// TU-store helpers (xStoreIntraResultQT/xLoadIntraResultQT)
+static inline int es_chroma_tu_size(const EncState* S, int full_depth) {
+  int lsize = S->fa.ctu_size >> full_depth;
+  return lsize == 4 ? lsize : lsize / 2;
+}
+
+static void es_store_tu(EncState* S, int part, int full_depth, int plane,
+                        TuStore* st) {
+  int size = S->fa.ctu_size >> full_depth;
+  int layer = es_qt_layer(S, full_depth);
+  int lx, ly;
+  es_ctu_local(S, part, &lx, &ly);
+  int ctu = S->fa.ctu_size;
+  int stride = ctu;
+  if (plane != 0) {
+    size = es_chroma_tu_size(S, full_depth);
+    lx /= 2; ly /= 2;
+    stride = ctu / 2;
+  }
+  for (int y = 0; y < size; y++) {
+    memcpy(st->rec + y * size,
+           S->qt_rec[layer][plane] + (ly + y) * stride + lx,
+           sizeof(int16_t) * size);
+    memcpy(st->coeff + y * size,
+           S->qt_coeff[layer][plane] + (ly + y) * stride + lx,
+           sizeof(int32_t) * size);
+  }
+}
+
+static void es_load_tu(EncState* S, int part, int full_depth, int plane,
+                       const TuStore* st) {
+  FrameArrays* fa = &S->fa;
+  int size = fa->ctu_size >> full_depth;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int layer = es_qt_layer(S, full_depth);
+  int lx, ly;
+  es_ctu_local(S, part, &lx, &ly);
+  int ctu = fa->ctu_size;
+  int stride = ctu;
+  int64_t rstride = S->rls, cstride = S->ls;
+  int16_t* rec_plane = S->rec_y;
+  int32_t* coeff_plane = fa->coeff_y;
+  if (plane != 0) {
+    size = es_chroma_tu_size(S, full_depth);
+    px /= 2; py /= 2; lx /= 2; ly /= 2;
+    stride = ctu / 2;
+    rstride = S->rcs;
+    cstride = S->cs;
+    rec_plane = plane == 1 ? S->rec_cb : S->rec_cr;
+    coeff_plane = plane == 1 ? fa->coeff_cb : fa->coeff_cr;
+  }
+  for (int y = 0; y < size; y++) {
+    memcpy(S->qt_rec[layer][plane] + (ly + y) * stride + lx,
+           st->rec + y * size, sizeof(int16_t) * size);
+    memcpy(S->qt_coeff[layer][plane] + (ly + y) * stride + lx,
+           st->coeff + y * size, sizeof(int32_t) * size);
+    memcpy(rec_plane + (int64_t)(py + y) * rstride + px, st->rec + y * size,
+           sizeof(int16_t) * size);
+    memcpy(coeff_plane + (int64_t)(py + y) * cstride + px,
+           st->coeff + y * size, sizeof(int32_t) * size);
+  }
+}
+
+static void es_qt_to_frame(EncState* S, int part, int full_depth,
+                           int plane) {
+  FrameArrays* fa = &S->fa;
+  int size = fa->ctu_size >> full_depth;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int layer = es_qt_layer(S, full_depth);
+  int lx, ly;
+  es_ctu_local(S, part, &lx, &ly);
+  int ctu = fa->ctu_size;
+  int stride = ctu;
+  int64_t rstride = S->rls, cstride = S->ls;
+  int16_t* rec_plane = S->rec_y;
+  int32_t* coeff_plane = fa->coeff_y;
+  if (plane != 0) {
+    size = es_chroma_tu_size(S, full_depth);
+    px /= 2; py /= 2; lx /= 2; ly /= 2;
+    stride = ctu / 2;
+    rstride = S->rcs;
+    cstride = S->cs;
+    rec_plane = plane == 1 ? S->rec_cb : S->rec_cr;
+    coeff_plane = plane == 1 ? fa->coeff_cb : fa->coeff_cr;
+  }
+  for (int y = 0; y < size; y++) {
+    memcpy(rec_plane + (int64_t)(py + y) * rstride + px,
+           S->qt_rec[layer][plane] + (ly + y) * stride + lx,
+           sizeof(int16_t) * size);
+    memcpy(coeff_plane + (int64_t)(py + y) * cstride + px,
+           S->qt_coeff[layer][plane] + (ly + y) * stride + lx,
+           sizeof(int32_t) * size);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// xRecurIntraCodingQT (bLumaOnly=true; TEncSearch.cpp:1394)
+// ---------------------------------------------------------------------------
+static int64_t es_recur_intra_luma(EncState* S, int part, int cu_depth,
+                                   int tr_depth, int check_first,
+                                   double* out_cost) {
+  FrameArrays* fa = &S->fa;
+  int full_depth = cu_depth + tr_depth;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int check_full = log2_tr <= S->ep.max_tr_log2;
+  int check_split = log2_tr > es_min_tu_log2(S, part);
+  if (check_first && check_full) check_split = 0;
+
+  double single_cost = MAX_DOUBLE_C;
+  int64_t single_dist = 0;
+  int single_cbf = 0;
+  int best_mode_id = 0;
+
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int units = units_at_depth(fa, full_depth);
+  int check_ts = S->ep.use_ts && (fa->ctu_size >> full_depth) == 4 &&
+                 !U(fa->tq_bypass, ux, uy);
+  if (S->ep.ts_fast)
+    check_ts = check_ts && U(fa->part_size, ux, uy) == SZ_NxN;
+
+  TuStore* best_tmp = S->tu_store[full_depth][0];
+  if (check_full) {
+    if (check_ts) {
+      es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+      for (int mode_id = 0; mode_id <= 1; mode_id++) {
+        set_region<uint8_t>(fa, fa->ts_flag, ux, uy, units,
+                            (uint8_t)(mode_id != 0));
+        int d0s1l2 = mode_id == 0 ? 1 : 2;
+        int64_t dist_tmp =
+            es_intra_luma_blk(S, part, cu_depth, tr_depth, d0s1l2);
+        int cbf_tmp = es_cbf(S, part, 0, tr_depth);
+        double cost_tmp;
+        if (mode_id == 1 && cbf_tmp == 0) {
+          cost_tmp = MAX_DOUBLE_C;
+        } else {
+          int64_t bits_tmp = es_intra_bits_qt(S, part, cu_depth, tr_depth, 0);
+          cost_tmp = es_rd_cost(S, bits_tmp, dist_tmp);
+        }
+        if (cost_tmp < single_cost) {
+          single_cost = cost_tmp;
+          single_dist = dist_tmp;
+          single_cbf = cbf_tmp;
+          best_mode_id = mode_id;
+          if (mode_id == 0) {
+            es_store_tu(S, part, full_depth, 0, best_tmp);
+            es_store(S, full_depth, ECI_TEMP_BEST);
+          }
+        }
+        if (mode_id == 0) es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+      }
+      set_region<uint8_t>(fa, fa->ts_flag, ux, uy, units,
+                          (uint8_t)(best_mode_id != 0));
+      if (best_mode_id == 0) {
+        es_load_tu(S, part, full_depth, 0, best_tmp);
+        set_region<uint8_t>(fa, fa->cbf, ux, uy, units,
+                            (uint8_t)(single_cbf << tr_depth));
+        es_load(S, full_depth, ECI_TEMP_BEST);
+      }
+    } else {
+      set_region<uint8_t>(fa, fa->ts_flag, ux, uy, units, 0);
+      if (check_split) es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+      single_dist = es_intra_luma_blk(S, part, cu_depth, tr_depth, 0);
+      if (check_split) single_cbf = es_cbf(S, part, 0, tr_depth);
+      int64_t bits = es_intra_bits_qt(S, part, cu_depth, tr_depth, 0);
+      single_cost = es_rd_cost(S, bits, single_dist);
+    }
+  }
+
+  if (check_split) {
+    if (check_full) {
+      es_store(S, full_depth, ECI_QT_TRAFO_TEST);
+      es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    } else {
+      es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+    }
+    int64_t split_dist = 0;
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    int split_cbf = 0;
+    int sub = part;
+    for (int i = 0; i < 4; i++) {
+      double c_;
+      split_dist +=
+          es_recur_intra_luma(S, sub, cu_depth, tr_depth + 1, check_first,
+                              &c_);
+      split_cbf |= es_cbf(S, sub, 0, tr_depth + 1);
+      sub += q_parts;
+    }
+    if (split_cbf) {
+      for (int j = 0; j < units; j++) {
+        uint8_t* row = fa->cbf + (int64_t)(uy + j) * fa->uw + ux;
+        for (int i = 0; i < units; i++)
+          row[i] |= (uint8_t)(split_cbf << tr_depth);
+      }
+    }
+    es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    int64_t split_bits = es_intra_bits_qt(S, part, cu_depth, tr_depth, 0);
+    double split_cost = es_rd_cost(S, split_bits, split_dist);
+    if (split_cost < single_cost) {
+      *out_cost = split_cost;
+      return split_dist;
+    }
+    es_load(S, full_depth, ECI_QT_TRAFO_TEST);
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, (int8_t)tr_depth);
+    set_region<uint8_t>(fa, fa->cbf, ux, uy, units,
+                        (uint8_t)(single_cbf << tr_depth));
+    set_region<uint8_t>(fa, fa->ts_flag, ux, uy, units,
+                        (uint8_t)(best_mode_id != 0));
+    es_qt_to_frame(S, part, full_depth, 0);
+  }
+  *out_cost = single_cost;
+  return single_dist;
+}
+
+// xModeBitsIntra (TEncSearch.cpp:5889)
+static int64_t es_mode_bits_intra(EncState* S, int part, int mode, int depth,
+                                  int init_tr_depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int units = units_at_depth(fa, depth + init_tr_depth);
+  int8_t saved[16 * 16];
+  for (int j = 0; j < units; j++)
+    memcpy(saved + j * units, fa->luma_dir + (int64_t)(uy + j) * fa->uw + ux,
+           units);
+  set_region<int8_t>(fa, fa->luma_dir, ux, uy, units, (int8_t)mode);
+  const uint8_t* curr_ctx = es_snap_ctx(S, depth, ECI_CURR_BEST);
+  S->go.ctx[S->co.intra_pred] = curr_ctx[S->co.intra_pred];
+  S->go.frac_bits = S->snap_frac[depth * ECI_NUM + ECI_CURR_BEST];
+  eb_reset_bits(&S->go);
+  we_intra_dir_luma(S, &S->go, part, 0);
+  int64_t bits = eb_bits(&S->go);
+  for (int j = 0; j < units; j++)
+    memcpy(fa->luma_dir + (int64_t)(uy + j) * fa->uw + ux, saved + j * units,
+           units);
+  return bits;
+}
+
+// xUpdateCandList (TEncSearch.cpp:5905)
+static void es_update_cand(int mode, double cost, int* cand_modes,
+                           double* cand_costs, int n) {
+  int shift = 0;
+  while (shift < n && cost < cand_costs[n - 1 - shift]) shift++;
+  if (shift) {
+    for (int i = 1; i < shift; i++) {
+      cand_modes[n - i] = cand_modes[n - 1 - i];
+      cand_costs[n - i] = cand_costs[n - 1 - i];
+    }
+    cand_modes[n - shift] = mode;
+    cand_costs[n - shift] = cost;
+  }
+}
+
+// luma PU result store/restore
+static void es_save_luma_result(EncState* S, int part, int depth,
+                                int init_tr_depth, LumaStore* st) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int units = units_at_depth(fa, depth + init_tr_depth);
+  int size = fa->ctu_size >> (depth + init_tr_depth);
+  for (int j = 0; j < units; j++) {
+    memcpy(st->tr_idx + j * units,
+           fa->tr_idx + (int64_t)(uy + j) * fa->uw + ux, units);
+    memcpy(st->cbf + j * units, fa->cbf + (int64_t)(uy + j) * fa->uw + ux,
+           units);
+    memcpy(st->ts + j * units,
+           fa->ts_flag + (int64_t)(uy + j) * fa->uw + ux, units);
+  }
+  for (int y = 0; y < size; y++) {
+    memcpy(st->coeff + y * size,
+           fa->coeff_y + (int64_t)(py + y) * S->ls + px,
+           sizeof(int32_t) * size);
+    memcpy(st->rec + y * size, S->rec_y + (int64_t)(py + y) * S->rls + px,
+           sizeof(int16_t) * size);
+  }
+}
+
+static void es_restore_luma_result(EncState* S, int part, int depth,
+                                   int init_tr_depth, const LumaStore* st) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int units = units_at_depth(fa, depth + init_tr_depth);
+  int size = fa->ctu_size >> (depth + init_tr_depth);
+  for (int j = 0; j < units; j++) {
+    memcpy(fa->tr_idx + (int64_t)(uy + j) * fa->uw + ux,
+           st->tr_idx + j * units, units);
+    memcpy(fa->cbf + (int64_t)(uy + j) * fa->uw + ux, st->cbf + j * units,
+           units);
+    memcpy(fa->ts_flag + (int64_t)(uy + j) * fa->uw + ux,
+           st->ts + j * units, units);
+  }
+  for (int y = 0; y < size; y++) {
+    memcpy(fa->coeff_y + (int64_t)(py + y) * S->ls + px,
+           st->coeff + y * size, sizeof(int32_t) * size);
+    memcpy(S->rec_y + (int64_t)(py + y) * S->rls + px, st->rec + y * size,
+           sizeof(int16_t) * size);
+  }
+}
+
+// Final best-mode pass (HHI_RQT_INTRA_SPEEDUP, TEncSearch.cpp:2674-2722).
+// When the root TU is directly codable, the no-split evaluation of the
+// final pass deterministically reproduces the mode loop's winning
+// candidate — same entry context (ECI_CURR_BEST), same luma_dir region,
+// same reference pixels — so its cost/dist/artifacts and the post-eval
+// context are reused from the loop; only the residual-quadtree split
+// alternative runs fresh.
+static int64_t es_final_intra_luma(EncState* S, int part, int cu_depth,
+                                   int init_tr_depth, double best_cost,
+                                   int64_t best_dist, LumaStore* best_store,
+                                   const uint8_t* ctx_after,
+                                   uint64_t frac_after, double* out_cost) {
+  FrameArrays* fa = &S->fa;
+  int full_depth = cu_depth + init_tr_depth;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  if (log2_tr > S->ep.max_tr_log2) {
+    // root TU larger than the max transform: the mode loop ran with the
+    // forced split but suppressed deeper splits (check_first), so the
+    // final pass can genuinely improve — run it in full
+    return es_recur_intra_luma(S, part, cu_depth, init_tr_depth, 0,
+                               out_cost);
+  }
+  (void)best_store;
+  int check_split = log2_tr > es_min_tu_log2(S, part);
+  if (check_split) {
+    int ux, uy;
+    es_unit_xy(S, part, &ux, &uy);
+    int units = units_at_depth(fa, full_depth);
+    es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+    int64_t split_dist = 0;
+    int split_cbf = 0;
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    int sub = part;
+    for (int i = 0; i < 4; i++) {
+      double c_;
+      split_dist += es_recur_intra_luma(S, sub, cu_depth, init_tr_depth + 1,
+                                        0, &c_);
+      split_cbf |= es_cbf(S, sub, 0, init_tr_depth + 1);
+      sub += q_parts;
+    }
+    if (split_cbf) {
+      for (int j = 0; j < units; j++) {
+        uint8_t* row = fa->cbf + (int64_t)(uy + j) * fa->uw + ux;
+        for (int i = 0; i < units; i++)
+          row[i] |= (uint8_t)(split_cbf << init_tr_depth);
+      }
+    }
+    es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    int64_t split_bits = es_intra_bits_qt(S, part, cu_depth, init_tr_depth,
+                                          0);
+    double split_cost = es_rd_cost(S, split_bits, split_dist);
+    if (split_cost < best_cost) {
+      *out_cost = split_cost;
+      return split_dist;
+    }
+  }
+  // no-split wins (cost equal to the loop's winner): the caller restores
+  // the stored artifacts; only the context must be the post-eval state
+  memcpy(S->go.ctx, ctx_after, S->num_ctx);
+  S->go.frac_bits = frac_after;
+  *out_cost = best_cost;
+  return best_dist;
+}
+
+#if defined(__AVX2__)
+// 35-mode preselection sweep specialized to 4x4 PUs: prediction + SATD
+// fused in SSE registers, one pass per mode (same per-mode semantics as
+// es_predict/angular_refs_c/dc_filter_c + calc_had_c, same candidate
+// update).  At 4x4 luma the smoothing filter never applies
+// (kFilterThresh[2] = 10 >= every mode's min hor/ver distance), so only
+// the raw reference line feeds every mode.
+
+static void es_sweep4(EncState* S, const int16_t* org0, const int32_t* ra,
+                      const int32_t* rl, const int* mpm, int64_t bits_mpm0,
+                      int64_t bits_mpm12, int64_t bits_other, int num_full,
+                      int* cand_modes, double* cand_costs) {
+  const int max_val = S->ep.max_val;
+  const int bit_inc = S->ep.bit_inc;
+  for (int mode = 0; mode < 35; mode++) {
+    int32_t* pred = S->presel_pred + (int64_t)mode * 64 * 64;
+    __m128i t[4];
+    pred4_mode_reg(ra, rl, mode, 1, max_val, t);
+    __m128i d[4];
+    for (int j = 0; j < 4; j++) {
+      _mm_storeu_si128((__m128i*)(pred + j * 4), t[j]);
+      __m128i o = _mm_cvtepi16_epi32(
+          _mm_loadl_epi64((const __m128i*)(org0 + j * S->rls)));
+      d[j] = _mm_sub_epi32(o, t[j]);
+    }
+    had4_butterfly(d);
+    transpose4x4_epi32(d);
+    had4_butterfly(d);
+    __m128i acc = _mm_add_epi32(
+        _mm_add_epi32(_mm_abs_epi32(d[0]), _mm_abs_epi32(d[1])),
+        _mm_add_epi32(_mm_abs_epi32(d[2]), _mm_abs_epi32(d[3])));
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+    int64_t sad = ((int64_t)(int32_t)_mm_cvtsi128_si32(acc) + 1) >> 1;
+    sad >>= bit_inc;
+    int64_t mode_bits = mode == mpm[0] ? bits_mpm0
+        : (mode == mpm[1] || mode == mpm[2]) ? bits_mpm12 : bits_other;
+    double cost = (double)sad + (double)mode_bits * S->ep.sqrt_lambda;
+    es_update_cand(mode, cost, cand_modes, cand_costs, num_full);
+  }
+}
+#endif  // __AVX2__
+
+// 35-mode preselection sweep specialized to 8x8 PUs: one AVX2 row per
+// prediction line, filtered/raw reference line selected per mode
+// (kFilterThresh[3] = 7), SATD via the existing had8x8 kernel.
+static void es_sweep8(EncState* S, const int16_t* org0,
+                      const int32_t* ra_raw, const int32_t* rl_raw,
+                      const int32_t* ra_filt, const int32_t* rl_filt,
+                      const int* mpm, int64_t bits_mpm0, int64_t bits_mpm12,
+                      int64_t bits_other, int num_full,
+                      int* cand_modes, double* cand_costs) {
+  const int max_val = S->ep.max_val;
+  const int bit_inc = S->ep.bit_inc;
+  for (int mode = 0; mode < 35; mode++) {
+    int filt = use_filtered_c(mode, 3, 1);
+    const int32_t* ra = filt ? ra_filt : ra_raw;
+    const int32_t* rl = filt ? rl_filt : rl_raw;
+    int32_t* pred = S->presel_pred + (int64_t)mode * 64 * 64;
+    __m256i t[8];
+    if (mode == PLANAR_IDX) {
+      int32_t tr_s = ra[9], bl_s = rl[9];
+      __m256i top = _mm256_loadu_si256((const __m256i*)(ra + 1));
+      __m256i lmul = _mm256_setr_epi32(1, 2, 3, 4, 5, 6, 7, 8);
+      __m256i ver0 = _mm256_slli_epi32(top, 3);
+      __m256i dver = _mm256_sub_epi32(_mm256_set1_epi32(bl_s), top);
+      for (int k = 0; k < 8; k++) {
+        int32_t left = rl[1 + k];
+        __m256i hor = _mm256_add_epi32(
+            _mm256_set1_epi32((left << 3) + 8),
+            _mm256_mullo_epi32(lmul, _mm256_set1_epi32(tr_s - left)));
+        __m256i ver = _mm256_add_epi32(
+            ver0, _mm256_mullo_epi32(_mm256_set1_epi32(k + 1), dver));
+        t[k] = _mm256_srai_epi32(_mm256_add_epi32(hor, ver), 4);
+      }
+    } else if (mode == DC_IDX) {
+      int32_t s = 0;
+      for (int i = 1; i <= 8; i++) s += ra[i] + rl[i];
+      int32_t dc = (s + 8) >> 4;
+      __m256i row0 = _mm256_srai_epi32(
+          _mm256_add_epi32(_mm256_loadu_si256((const __m256i*)(ra + 1)),
+                           _mm256_set1_epi32(3 * dc + 2)), 2);
+      t[0] = _mm256_insert_epi32(row0, (ra[1] + rl[1] + 2 * dc + 2) >> 2, 0);
+      for (int k = 1; k < 8; k++)
+        t[k] = _mm256_insert_epi32(_mm256_set1_epi32(dc),
+                                   (rl[1 + k] + 3 * dc + 2) >> 2, 0);
+    } else {
+      int mode_hor = mode < 18;
+      int ang = mode_hor ? -(mode - 10) : (mode - 26);
+      int aa = ang < 0 ? -ang : ang;
+      int abs_ang = kAngTable[aa];
+      int ipa = ang < 0 ? -abs_ang : abs_ang;
+      const int32_t* main_src = mode_hor ? rl : ra;
+      const int32_t* side_src = mode_hor ? ra : rl;
+      int32_t ext_buf[32];
+      const int32_t* buf;
+      int off;
+      if (ipa < 0) {
+        int ext = (8 * ipa) >> 5;
+        off = 8;
+        for (int i = 0; i <= 8; i++) ext_buf[off + i] = main_src[i];
+        int inv_sum = 128, inv_angle = kInvAngTable[aa];
+        for (int k = -1; k > ext; k--) {
+          inv_sum += inv_angle;
+          ext_buf[off + k] = side_src[inv_sum >> 8];
+        }
+        buf = ext_buf;
+      } else {
+        buf = main_src;
+        off = 0;
+      }
+      if (ipa == 0) {
+        __m256i r = _mm256_loadu_si256((const __m256i*)(buf + off + 1));
+        for (int k = 0; k < 8; k++) {
+          int v = buf[off + 1] + ((side_src[1 + k] - side_src[0]) >> 1);
+          v = v < 0 ? 0 : (v > max_val ? max_val : v);
+          t[k] = _mm256_insert_epi32(r, v, 0);
+        }
+      } else {
+        for (int k = 0; k < 8; k++) {
+          int dp = (k + 1) * ipa;
+          int di = dp >> 5, df = dp & 31;
+          const int32_t* row = buf + off + di + 1;
+          __m256i r0 = _mm256_loadu_si256((const __m256i*)row);
+          if (df) {
+            __m256i r1 = _mm256_loadu_si256((const __m256i*)(row + 1));
+            t[k] = _mm256_srai_epi32(
+                _mm256_add_epi32(
+                    _mm256_add_epi32(
+                        _mm256_mullo_epi32(_mm256_set1_epi32(32 - df), r0),
+                        _mm256_mullo_epi32(_mm256_set1_epi32(df), r1)),
+                    _mm256_set1_epi32(16)),
+                5);
+          } else {
+            t[k] = r0;
+          }
+        }
+      }
+      if (mode_hor) transpose8x8_epi32(t);
+    }
+    for (int j = 0; j < 8; j++)
+      _mm256_storeu_si256((__m256i*)(pred + j * 8), t[j]);
+    int64_t sad = had8x8(org0, S->rls, pred, 8) >> bit_inc;
+    int64_t mode_bits = mode == mpm[0] ? bits_mpm0
+        : (mode == mpm[1] || mode == mpm[2]) ? bits_mpm12 : bits_other;
+    double cost = (double)sad + (double)mode_bits * S->ep.sqrt_lambda;
+    es_update_cand(mode, cost, cand_modes, cand_costs, num_full);
+  }
+}
+
+// one PU of estIntraPredQT (luma)
+static int64_t es_search_luma_pu(EncState* S, int part, int depth,
+                                 int init_tr_depth, int size_idx) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> (depth + init_tr_depth);
+  int log2 = 0; while ((1 << log2) < size) log2++;
+  int units = units_at_depth(fa, depth + init_tr_depth);
+
+  int rd_list[10];
+  int rd_n = 0;
+
+  if (S->fd_on) {
+    // fast-RD: the candidate modes come from the device decision maps —
+    // the chosen mode plus (when provided) the runner-up, re-ranked
+    // below against real reconstructed neighbors and real CABAC bits.
+    // With fd_fix_tu the TU tree is fixed at the CU size (check_first=1
+    // evaluates the full TU only — the device DP already chose between
+    // CU sizes, which subsumes the transform-size tradeoff) and the
+    // full-RQT final pass is skipped; otherwise the exact path's
+    // HHI_RQT_INTRA_SPEEDUP structure runs for the winner.
+    int m1 = S->fd_mode[(int64_t)uy * fa->uw + ux];
+    if (m1 < 0 || m1 > 34) m1 = DC_IDX;
+    rd_list[rd_n++] = m1;
+    if (S->fd_mode2) {
+      int m2 = S->fd_mode2[(int64_t)uy * fa->uw + ux];
+      if (m2 >= 0 && m2 <= 34 && m2 != m1) rd_list[rd_n++] = m2;
+      if (S->fd_mode3) {
+        int m3 = S->fd_mode3[(int64_t)uy * fa->uw + ux];
+        if (m3 >= 0 && m3 <= 34 && m3 != m1 && m3 != rd_list[rd_n - 1])
+          rd_list[rd_n++] = m3;
+      }
+      // the device pass models MPMs open-loop (neighbors' SATD-best
+      // modes); the REAL predictors from the applied neighbor modes
+      // often differ and are 3-4 bits cheaper to code — re-rank them
+      // too, mirroring the FAST_UDI_USE_MPM augmentation below.  This
+      // is where most of the open-loop mode-decision bit loss goes.
+      int left_dir = DC_IDX, above_dir = DC_IDX;
+      if (left_avail(fa, ux, uy) &&
+          U(fa->pred_mode, ux - 1, uy) == MODE_INTRA)
+        left_dir = U(fa->luma_dir, ux - 1, uy);
+      if (above_avail(fa, ux, uy, 1) &&
+          U(fa->pred_mode, ux, uy - 1) == MODE_INTRA)
+        above_dir = U(fa->luma_dir, ux, uy - 1);
+      int preds[3];
+      intra_mpm(fa, ux, uy, preds);
+      int num_cand = left_dir == above_dir ? 1 : 2;
+      for (int j = 0; j < num_cand; j++) {
+        int found = 0;
+        for (int i = 0; i < rd_n; i++)
+          if (rd_list[i] == preds[j]) found = 1;
+        if (!found) rd_list[rd_n++] = preds[j];
+      }
+    }
+  } else {
+  int32_t line_raw[4 * 64 + 8], line_filt[4 * 64 + 8];
+  PROF_BEGIN(13);
+  es_adi_luma(S, px, py, size, line_raw, line_filt);
+  PROF_END(13);
+  int num_full = kIntraModeNumFast[size_idx];
+  int cand_modes[8] = {0};
+  double cand_costs[8];
+  for (int i = 0; i < num_full; i++) cand_costs[i] = MAX_DOUBLE_C;
+
+  const int16_t* org0 = S->org_y + (int64_t)py * S->rls + px;
+  S->presel_part = part;
+  S->presel_size = size;
+  // xModeBitsIntra takes only three distinct values per PU (mpm idx 0 /
+  // mpm idx 1-2 / non-mpm: prev flag ctx bin + 1, 2 or 5 EP bins), so
+  // evaluate each class once and map the 35 modes onto them
+  PROF_BEGIN(3);
+  int mpm[3];
+  intra_mpm(fa, ux, uy, mpm);
+  int non_mpm = 0;
+  while (non_mpm == mpm[0] || non_mpm == mpm[1] || non_mpm == mpm[2])
+    non_mpm++;
+  int64_t bits_mpm0 = es_mode_bits_intra(S, part, mpm[0], depth,
+                                         init_tr_depth);
+  int64_t bits_mpm12 = es_mode_bits_intra(S, part, mpm[1], depth,
+                                          init_tr_depth);
+  int64_t bits_other = es_mode_bits_intra(S, part, non_mpm, depth,
+                                          init_tr_depth);
+  PROF_END(3);
+  // refs built once per PU (not once per mode): build_refs_c was ~1/3 of
+  // the sweep's prediction cost at the dominant small PU sizes
+  int32_t ra_raw[129], rl_raw[129], ra_filt[129], rl_filt[129];
+  build_refs_c(line_raw, size, 4, ra_raw, rl_raw);
+  build_refs_c(line_filt, size, 4, ra_filt, rl_filt);
+#if defined(__AVX2__)
+  if (size == 4) {
+    PROF_BEGIN(1);
+    es_sweep4(S, org0, ra_raw, rl_raw, mpm, bits_mpm0, bits_mpm12,
+              bits_other, num_full, cand_modes, cand_costs);
+    PROF_END(1);
+  } else if (size == 8) {
+    PROF_BEGIN(1);
+    es_sweep8(S, org0, ra_raw, rl_raw, ra_filt, rl_filt, mpm, bits_mpm0,
+              bits_mpm12, bits_other, num_full, cand_modes, cand_costs);
+    PROF_END(1);
+  } else
+#endif
+  for (int mode = 0; mode < 35; mode++) {
+    int filt = use_filtered_c(mode, log2, 1);
+    const int32_t* line = filt ? line_filt : line_raw;
+    int32_t* pred = S->presel_pred + (int64_t)mode * 64 * 64;
+    PROF_BEGIN(1);
+    if (mode == PLANAR_IDX) {
+      es_predict(line, size, 4, mode, 1, S->ep.max_val, pred);
+    } else {
+      angular_refs_c(filt ? ra_filt : ra_raw, filt ? rl_filt : rl_raw,
+                     size, mode, 1, S->ep.max_val, pred);
+      if (mode == DC_IDX) dc_filter_c(line, size, 4, pred);
+    }
+    PROF_END(1);
+    PROF_BEGIN(2);
+    int64_t sad = calc_had_c(org0, S->rls, pred, size, size, S->ep.bit_inc);
+    PROF_END(2);
+    int64_t mode_bits = mode == mpm[0] ? bits_mpm0
+        : (mode == mpm[1] || mode == mpm[2]) ? bits_mpm12 : bits_other;
+    double cost = (double)sad + (double)mode_bits * S->ep.sqrt_lambda;
+    es_update_cand(mode, cost, cand_modes, cand_costs, num_full);
+  }
+
+  // FAST_UDI_USE_MPM augmentation
+  int left_dir = DC_IDX, above_dir = DC_IDX;
+  if (left_avail(fa, ux, uy) && U(fa->pred_mode, ux - 1, uy) == MODE_INTRA)
+    left_dir = U(fa->luma_dir, ux - 1, uy);
+  if (above_avail(fa, ux, uy, 1) &&
+      U(fa->pred_mode, ux, uy - 1) == MODE_INTRA)
+    above_dir = U(fa->luma_dir, ux, uy - 1);
+  int preds[3];
+  intra_mpm(fa, ux, uy, preds);
+  int num_cand = left_dir == above_dir ? 1 : 2;
+  rd_n = num_full;
+  for (int i = 0; i < num_full; i++) rd_list[i] = cand_modes[i];
+  for (int j = 0; j < num_cand; j++) {
+    int found = 0;
+    for (int i = 0; i < rd_n; i++)
+      if (rd_list[i] == preds[j]) found = 1;
+    if (!found) rd_list[rd_n++] = preds[j];
+  }
+  }  // !fd_on
+
+  int best_mode = 0;
+  int64_t best_dist = 0;
+  double best_cost = MAX_DOUBLE_C;
+  LumaStore* best_store = S->luma_store[depth + init_tr_depth];
+  int have_store = 0;
+  uint8_t best_ctx_after[512];
+  uint64_t best_frac_after = 0;
+  for (int mi = 0; mi < rd_n; mi++) {
+    int mode = rd_list[mi];
+    set_region<int8_t>(fa, fa->luma_dir, ux, uy, units, (int8_t)mode);
+    es_load(S, depth, ECI_CURR_BEST);
+    double cost;
+    PROF_BEGIN(4);
+    int64_t dist = es_recur_intra_luma(S, part, depth, init_tr_depth, 1,
+                                       &cost);
+    PROF_END(4);
+    if (cost < best_cost) {
+      best_mode = mode;
+      best_cost = cost;
+      best_dist = dist;
+      es_save_luma_result(S, part, depth, init_tr_depth, best_store);
+      have_store = 1;
+      memcpy(best_ctx_after, S->go.ctx, S->num_ctx);
+      best_frac_after = S->go.frac_bits;
+    }
+  }
+
+  if (!(S->fd_on && S->fd_fix_tu)) {
+    set_region<int8_t>(fa, fa->luma_dir, ux, uy, units, (int8_t)best_mode);
+    es_load(S, depth, ECI_CURR_BEST);
+    double cost2;
+    PROF_BEGIN(15);
+    int64_t dist2 = es_final_intra_luma(S, part, depth, init_tr_depth,
+                                        best_cost, best_dist, best_store,
+                                        best_ctx_after, best_frac_after,
+                                        &cost2);
+    PROF_END(15);
+    if (cost2 < best_cost) {
+      best_cost = cost2;
+      best_dist = dist2;
+      es_save_luma_result(S, part, depth, init_tr_depth, best_store);
+      have_store = 1;
+    }
+  }
+  (void)have_store;
+  es_restore_luma_result(S, part, depth, init_tr_depth, best_store);
+  set_region<int8_t>(fa, fa->luma_dir, ux, uy, units, (int8_t)best_mode);
+  return best_dist;
+}
+
+// estIntraPredQT (bLumaOnly=true)
+static int64_t es_est_intra_pred_qt(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux0, uy0;
+  es_unit_xy(S, abs_part, &ux0, &uy0);
+  int part_size = U(fa->part_size, ux0, uy0);
+  int num_pu = part_size == SZ_NxN ? 4 : 1;
+  int init_tr_depth = part_size == SZ_2Nx2N ? 0 : 1;
+  int q_parts = (fa->parts >> (depth << 1)) >> 2;
+  int w_ = (fa->ctu_size >> depth) >> (part_size == SZ_NxN ? 1 : 0);
+  int wb = 0; while ((1 << (wb + 1)) <= w_) wb++;
+  int size_idx = wb - 1;
+  if (size_idx < 0) size_idx = 0;
+  if (size_idx > 6) size_idx = 6;
+
+  int64_t overall = 0;
+  for (int pu = 0; pu < num_pu; pu++) {
+    int part = abs_part + pu * (part_size == SZ_NxN ? q_parts : 0);
+    overall += es_search_luma_pu(S, part, depth, init_tr_depth, size_idx);
+  }
+  if (num_pu > 1) {
+    // estIntraPredQT NxN combined-cbf OR (TEncSearch.cpp:2772)
+    int comb[3] = {0, 0, 0};
+    for (int p = 0; p < 4; p++) {
+      int part = abs_part + p * q_parts;
+      int ux, uy;
+      es_unit_xy(S, part, &ux, &uy);
+      for (int c = 0; c < 3; c++)
+        comb[c] |= (U3(fa->cbf, c, ux, uy) >> 1) & 1;
+    }
+    int depth0 = U(fa->depth, ux0, uy0);
+    int units = units_at_depth(fa, depth0);
+    for (int c = 0; c < 3; c++) {
+      if (comb[c]) {
+        for (int j = 0; j < units; j++) {
+          uint8_t* row = fa->cbf + ((int64_t)c * fa->uh + uy0 + j) * fa->uw +
+                         ux0;
+          for (int i = 0; i < units; i++) row[i] |= (uint8_t)comb[c];
+        }
+      }
+    }
+  }
+  es_load(S, depth, ECI_CURR_BEST);
+  return overall;
+}
+
+// ---------------------------------------------------------------------------
+// chroma search (estIntraPredChromaQT :2806)
+// ---------------------------------------------------------------------------
+static int64_t es_intra_chroma_blk(EncState* S, int part, int cu_depth,
+                                   int tr_depth, int comp, int d0s1l2) {
+  FrameArrays* fa = &S->fa;
+  int org_tr_depth = tr_depth;
+  int full_depth = cu_depth + tr_depth;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int td = tr_depth;
+  if (log2_tr == 2) {
+    td -= 1;
+    int q_div = fa->parts >> ((cu_depth + td) << 1);
+    if (part % q_div != 0) return 0;
+  }
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int size = (fa->ctu_size >> cu_depth) >> (td + 1);
+  int px = ux * 4, py = uy * 4;
+  int cx = px / 2, cy = py / 2;
+  int use_ts = U3(fa->ts_flag, comp, ux, uy);
+
+  int cu_parts = fa->parts >> (cu_depth << 1);
+  int cu_start = (part / cu_parts) * cu_parts;
+  int cux, cuy;
+  es_unit_xy(S, cu_start, &cux, &cuy);
+  int mode = U(fa->chroma_dir, ux, uy);
+  if (mode == DM_CHROMA_IDX) mode = U(fa->luma_dir, cux, cuy);
+
+  int32_t pred_buf[32 * 32];
+  int32_t* pred;
+  if (d0s1l2 != 2) {
+    int32_t line[4 * 32 + 4];
+    es_adi_chroma(S, cx, cy, size, comp, line);
+#if defined(__AVX2__)
+    if (size == 4) {
+      int32_t ra[9], rl[9];
+      build_refs_c(line, 4, 2, ra, rl);
+      __m128i t4[4];
+      pred4_mode_reg(ra, rl, mode, 0, S->ep.max_val, t4);
+      for (int j = 0; j < 4; j++)
+        _mm_storeu_si128((__m128i*)(pred_buf + j * 4), t4[j]);
+    } else
+#endif
+    es_predict(line, size, 2, mode, 0, S->ep.max_val, pred_buf);
+    pred = pred_buf;
+    if (d0s1l2 == 1)
+      memcpy(S->shared_pred[comp], pred_buf, sizeof(int32_t) * size * size);
+  } else {
+    pred = S->shared_pred[comp];
+  }
+
+  const int16_t* org_plane = comp == 1 ? S->org_cb : S->org_cr;
+  int16_t* rec_plane = comp == 1 ? S->rec_cb : S->rec_cr;
+  int32_t* coeff_plane = comp == 1 ? fa->coeff_cb : fa->coeff_cr;
+
+  int32_t resi[32 * 32];
+#if defined(__AVX2__)
+  if (size == 4) {
+    for (int y = 0; y < 4; y++) {
+      __m128i o = _mm_cvtepi16_epi32(_mm_loadl_epi64(
+          (const __m128i*)(org_plane + (int64_t)(cy + y) * S->rcs + cx)));
+      __m128i p = _mm_loadu_si128((const __m128i*)(pred + y * 4));
+      _mm_storeu_si128((__m128i*)(resi + y * 4), _mm_sub_epi32(o, p));
+    }
+  } else {
+    for (int y = 0; y < size; y++)
+      for (int x = 0; x < size; x += 8) {
+        __m256i o = _mm256_cvtepi16_epi32(_mm_loadu_si128(
+            (const __m128i*)(org_plane + (int64_t)(cy + y) * S->rcs + cx +
+                             x)));
+        __m256i p =
+            _mm256_loadu_si256((const __m256i*)(pred + y * size + x));
+        _mm256_storeu_si256((__m256i*)(resi + y * size + x),
+                            _mm256_sub_epi32(o, p));
+      }
+  }
+#else
+  for (int y = 0; y < size; y++)
+    for (int x = 0; x < size; x++)
+      resi[y * size + x] =
+          (int32_t)org_plane[(int64_t)(cy + y) * S->rcs + cx + x] -
+          pred[y * size + x];
+#endif
+
+  int qp_off = comp == 1 ? S->ep.cb_qp_off : S->ep.cr_qp_off;
+  int qps = es_qp_scaled_chroma(S, U(fa->qp, ux, uy), qp_off);
+  int32_t levels[32 * 32];
+  int64_t abs_sum = es_xform_quant(S, part, resi, size, qps, 0, comp,
+                                   use_ts, org_tr_depth, levels);
+
+  int units_td = units_at_depth(fa, cu_depth + td);
+  int cbf = abs_sum ? 1 : 0;
+  set_region<uint8_t>(fa, fa->cbf + (int64_t)comp * fa->uh * fa->uw, ux, uy,
+                      units_td, (uint8_t)(cbf << org_tr_depth));
+
+  int32_t resi_rec[32 * 32];
+  if (abs_sum) {
+    residual_c(levels, size, 0, 0, size, qps, 0, use_ts, 0, S->ep.bit_inc,
+               dct_basis(size), resi_rec);
+  } else {
+    memset(levels, 0, sizeof(int32_t) * size * size);
+    memset(resi_rec, 0, sizeof(int32_t) * size * size);
+  }
+
+  int layer = es_qt_layer(S, full_depth);
+  int lx, ly;
+  es_ctu_local(S, part, &lx, &ly);
+  int plane_id = comp;  // 1=cb 2=cr
+  int stride = fa->ctu_size / 2;
+#if defined(__AVX2__)
+  if (size == 4) {
+    __m128i vmax4 = _mm_set1_epi32(S->ep.max_val);
+    __m128i vzero4 = _mm_setzero_si128();
+    for (int y = 0; y < 4; y++) {
+      __m128i pv = _mm_loadu_si128((const __m128i*)(pred + y * 4));
+      __m128i rv = _mm_loadu_si128((const __m128i*)(resi_rec + y * 4));
+      __m128i v = _mm_min_epi32(
+          _mm_max_epi32(_mm_add_epi32(pv, rv), vzero4), vmax4);
+      __m128i p16 = _mm_packs_epi32(v, v);
+      _mm_storel_epi64(
+          (__m128i*)(S->qt_rec[layer][plane_id] +
+                     (ly / 2 + y) * stride + lx / 2), p16);
+      _mm_storel_epi64(
+          (__m128i*)(rec_plane + (int64_t)(cy + y) * S->rcs + cx), p16);
+      __m128i lv = _mm_loadu_si128((const __m128i*)(levels + y * 4));
+      _mm_storeu_si128((__m128i*)(S->qt_coeff[layer][plane_id] +
+                                  (ly / 2 + y) * stride + lx / 2), lv);
+      _mm_storeu_si128(
+          (__m128i*)(coeff_plane + (int64_t)(cy + y) * S->cs + cx), lv);
+    }
+  } else
+#endif
+  for (int y = 0; y < size; y++) {
+    for (int x = 0; x < size; x++) {
+      int v = pred[y * size + x] + resi_rec[y * size + x];
+      int16_t r = (int16_t)(v < 0 ? 0 : (v > S->ep.max_val ? S->ep.max_val
+                                                           : v));
+      S->qt_rec[layer][plane_id][(ly / 2 + y) * stride + lx / 2 + x] = r;
+      S->qt_coeff[layer][plane_id][(ly / 2 + y) * stride + lx / 2 + x] =
+          levels[y * size + x];
+      rec_plane[(int64_t)(cy + y) * S->rcs + cx + x] = r;
+      coeff_plane[(int64_t)(cy + y) * S->cs + cx + x] = levels[y * size + x];
+    }
+  }
+  return es_sse(S, rec_plane + (int64_t)cy * S->rcs + cx, S->rcs,
+                org_plane + (int64_t)cy * S->rcs + cx, S->rcs, size, 1);
+}
+
+// xRecurIntraChromaCodingQT (TEncSearch.cpp:2160)
+static int64_t es_recur_intra_chroma(EncState* S, int part, int cu_depth,
+                                     int tr_depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, part, &ux, &uy);
+  int full_depth = cu_depth + tr_depth;
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  int64_t dist = 0;
+  if (tr_mode == tr_depth) {
+    int log2_tr = S->log2_ctu_v - full_depth;
+    int actual_td = tr_depth;
+    if (log2_tr == 2) {
+      actual_td -= 1;
+      int q_div = fa->parts >> ((cu_depth + actual_td) << 1);
+      if (part % q_div != 0) return 0;
+    }
+    int check_ts = S->ep.use_ts && log2_tr <= 3;
+    if (S->ep.ts_fast) {
+      check_ts = check_ts && log2_tr < 3;
+      if (check_ts) {
+        int n_skip = 0;
+        for (int sub = part; sub < part + 4; sub++) {
+          int sux, suy;
+          es_unit_xy(S, sub, &sux, &suy);
+          n_skip += U3(fa->ts_flag, 0, sux, suy) ? 1 : 0;
+        }
+        check_ts = check_ts && n_skip > 0;
+      }
+    }
+    int units_a = units_at_depth(fa, cu_depth + actual_td);
+    if (check_ts) {
+      es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+      for (int comp = 1; comp <= 2; comp++) {
+        double single_cost = MAX_DOUBLE_C;
+        int best_mode_id = 0;
+        int64_t single_dist_c = 0;
+        int single_cbf_c = 0;
+        TuStore* best_tmp = S->tu_store[full_depth][comp];
+        for (int mode_id = 0; mode_id <= 1; mode_id++) {
+          set_region<uint8_t>(fa,
+                              fa->ts_flag + (int64_t)comp * fa->uh * fa->uw,
+                              ux, uy, units_a, (uint8_t)(mode_id != 0));
+          int d0s1l2 = mode_id == 0 ? 1 : 2;
+          int64_t dist_tmp =
+              es_intra_chroma_blk(S, part, cu_depth, tr_depth, comp, d0s1l2);
+          int cbf_tmp = es_cbf(S, part, comp, tr_depth);
+          double cost_tmp;
+          if (mode_id == 1 && cbf_tmp == 0) {
+            cost_tmp = MAX_DOUBLE_C;
+          } else {
+            int64_t bits_tmp =
+                es_intra_bits_qt_chroma(S, part, cu_depth, tr_depth, comp);
+            cost_tmp = es_rd_cost(S, bits_tmp, dist_tmp);
+          }
+          if (cost_tmp < single_cost) {
+            single_cost = cost_tmp;
+            single_dist_c = dist_tmp;
+            best_mode_id = mode_id;
+            single_cbf_c = cbf_tmp;
+            if (mode_id == 0) {
+              es_store_tu(S, part, full_depth, comp, best_tmp);
+              es_store(S, full_depth, ECI_TEMP_BEST);
+            }
+          }
+          if (mode_id == 0) es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+        }
+        if (best_mode_id == 0) {
+          es_load_tu(S, part, full_depth, comp, best_tmp);
+          set_region<uint8_t>(fa, fa->cbf + (int64_t)comp * fa->uh * fa->uw,
+                              ux, uy, units_a,
+                              (uint8_t)(single_cbf_c << tr_depth));
+          es_load(S, full_depth, ECI_TEMP_BEST);
+        }
+        set_region<uint8_t>(fa, fa->ts_flag + (int64_t)comp * fa->uh *
+                                    fa->uw,
+                            ux, uy, units_a, (uint8_t)(best_mode_id != 0));
+        dist += single_dist_c;
+        if (comp == 1) es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+      }
+    } else {
+      set_region<uint8_t>(fa, fa->ts_flag + (int64_t)1 * fa->uh * fa->uw,
+                          ux, uy, units_a, 0);
+      set_region<uint8_t>(fa, fa->ts_flag + (int64_t)2 * fa->uh * fa->uw,
+                          ux, uy, units_a, 0);
+      dist += es_intra_chroma_blk(S, part, cu_depth, tr_depth, 1, 0);
+      dist += es_intra_chroma_blk(S, part, cu_depth, tr_depth, 2, 0);
+    }
+  } else {
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    int split_cbf_u = 0, split_cbf_v = 0;
+    int sub = part;
+    for (int p = 0; p < 4; p++) {
+      dist += es_recur_intra_chroma(S, sub, cu_depth, tr_depth + 1);
+      split_cbf_u |= es_cbf(S, sub, 1, tr_depth + 1);
+      split_cbf_v |= es_cbf(S, sub, 2, tr_depth + 1);
+      sub += q_parts;
+    }
+    int units = units_at_depth(fa, full_depth);
+    for (int c = 1; c <= 2; c++) {
+      int v = c == 1 ? split_cbf_u : split_cbf_v;
+      if (v) {
+        for (int j = 0; j < units; j++) {
+          uint8_t* row =
+              fa->cbf + ((int64_t)c * fa->uh + uy + j) * fa->uw + ux;
+          for (int i = 0; i < units; i++) row[i] |= (uint8_t)(v << tr_depth);
+        }
+      }
+    }
+  }
+  return dist;
+}
+
+static void es_save_chroma(EncState* S, int abs_part, int depth,
+                           ChromaStore* st) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int units = units_at_depth(fa, depth);
+  int cs_ = (fa->ctu_size >> depth) / 2;
+  for (int c = 0; c < 2; c++)
+    for (int j = 0; j < units; j++) {
+      memcpy(st->cbf[c] + j * units,
+             fa->cbf + ((int64_t)(c + 1) * fa->uh + uy + j) * fa->uw + ux,
+             units);
+      memcpy(st->ts[c] + j * units,
+             fa->ts_flag + ((int64_t)(c + 1) * fa->uh + uy + j) * fa->uw +
+                 ux,
+             units);
+    }
+  for (int y = 0; y < cs_; y++) {
+    memcpy(st->coeff_cb + y * cs_,
+           fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           sizeof(int32_t) * cs_);
+    memcpy(st->coeff_cr + y * cs_,
+           fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           sizeof(int32_t) * cs_);
+    memcpy(st->rec_cb + y * cs_,
+           S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+           sizeof(int16_t) * cs_);
+    memcpy(st->rec_cr + y * cs_,
+           S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+           sizeof(int16_t) * cs_);
+  }
+}
+
+static void es_restore_chroma(EncState* S, int abs_part, int depth,
+                              const ChromaStore* st) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int units = units_at_depth(fa, depth);
+  int cs_ = (fa->ctu_size >> depth) / 2;
+  for (int c = 0; c < 2; c++)
+    for (int j = 0; j < units; j++) {
+      memcpy(fa->cbf + ((int64_t)(c + 1) * fa->uh + uy + j) * fa->uw + ux,
+             st->cbf[c] + j * units, units);
+      memcpy(fa->ts_flag + ((int64_t)(c + 1) * fa->uh + uy + j) * fa->uw +
+                 ux,
+             st->ts[c] + j * units, units);
+    }
+  for (int y = 0; y < cs_; y++) {
+    memcpy(fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           st->coeff_cb + y * cs_, sizeof(int32_t) * cs_);
+    memcpy(fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           st->coeff_cr + y * cs_, sizeof(int32_t) * cs_);
+    memcpy(S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+           st->rec_cb + y * cs_, sizeof(int16_t) * cs_);
+    memcpy(S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+           st->rec_cr + y * cs_, sizeof(int16_t) * cs_);
+  }
+}
+
+static int64_t es_est_intra_chroma(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = units_at_depth(fa, depth);
+  int mode_list[5];
+  es_allowed_chroma(S, ux, uy, mode_list);
+  int n_try = 5;
+  if (S->fd_on && S->fd_chroma) {
+    // fast-RD: the chroma mode comes from the device decision maps —
+    // apply it alone when it is one of the legal candidates (the device
+    // mirrors getAllowedChromaDir, so this always holds for maps it
+    // produced; the check keeps a stale/foreign map conformant)
+    int want = S->fd_chroma[(int64_t)uy * fa->uw + ux];
+    for (int mi = 0; mi < 5; mi++)
+      if (mode_list[mi] == want) {
+        mode_list[0] = want;
+        n_try = 1;
+        break;
+      }
+  }
+  int best_mode = 0;
+  int64_t best_dist = 0;
+  double best_cost = MAX_DOUBLE_C;
+  ChromaStore* best_store = S->chroma_store[depth];
+  for (int mi = 0; mi < n_try; mi++) {
+    int mode = mode_list[mi];
+    es_load(S, depth, ECI_CURR_BEST);
+    set_region<int8_t>(fa, fa->chroma_dir, ux, uy, units, (int8_t)mode);
+    int64_t dist = es_recur_intra_chroma(S, abs_part, depth, 0);
+    if (S->ep.use_ts) es_load(S, depth, ECI_CURR_BEST);
+    int64_t bits = es_intra_bits_qt(S, abs_part, depth, 0, 1);
+    double cost = es_rd_cost(S, bits, dist);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best_dist = dist;
+      best_mode = mode;
+      es_save_chroma(S, abs_part, depth, best_store);
+    }
+  }
+  es_restore_chroma(S, abs_part, depth, best_store);
+  set_region<int8_t>(fa, fa->chroma_dir, ux, uy, units, (int8_t)best_mode);
+  es_load(S, depth, ECI_CURR_BEST);
+  return best_dist;
+}
+
+// ---------------------------------------------------------------------------
+// frame-region snapshots (stand-in for best/temp CU + YUV buffers)
+// ---------------------------------------------------------------------------
+static void es_save_region_impl(EncState* S, int abs_part, int depth,
+                           RegionSnap* snap) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth;
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  const int8_t* attrs[9] = {fa->depth, fa->pred_mode, fa->part_size,
+                            fa->luma_dir, fa->chroma_dir, fa->tr_idx,
+                            fa->qp, (int8_t*)fa->tq_bypass,
+                            (int8_t*)fa->ipcm};
+  for (int a = 0; a < 9; a++)
+    for (int j = 0; j < units; j++)
+      memcpy(snap->attrs[a] + j * units,
+             attrs[a] + (int64_t)(uy + j) * fa->uw + ux, units);
+  for (int j = 0; j < units; j++)
+    memcpy(snap->skip + j * units,
+           fa->skip + (int64_t)(uy + j) * fa->uw + ux, units);
+  for (int c = 0; c < 3; c++)
+    for (int j = 0; j < units; j++) {
+      memcpy(snap->cbf[c] + j * units,
+             fa->cbf + ((int64_t)c * fa->uh + uy + j) * fa->uw + ux, units);
+      memcpy(snap->ts[c] + j * units,
+             fa->ts_flag + ((int64_t)c * fa->uh + uy + j) * fa->uw + ux,
+             units);
+    }
+  for (int j = 0; j < units; j++) {
+    memcpy(snap->merge_flag + j * units,
+           fa->merge_flag + (int64_t)(uy + j) * fa->uw + ux, units);
+    memcpy(snap->merge_idx + j * units,
+           fa->merge_idx + (int64_t)(uy + j) * fa->uw + ux, units);
+    memcpy(snap->inter_dir + j * units,
+           fa->inter_dir + (int64_t)(uy + j) * fa->uw + ux, units);
+  }
+  for (int l = 0; l < 2; l++)
+    for (int j = 0; j < units; j++) {
+      int64_t base = ((int64_t)l * fa->uh + uy + j) * fa->uw + ux;
+      memcpy(snap->ref_idx[l] + j * units, fa->ref_idx + base, units);
+      memcpy(snap->mvp_idx[l] + j * units, fa->mvp_idx + base, units);
+      memcpy(snap->mv[l][j * units], fa->mv + base * 2,
+             sizeof(int16_t) * 2 * units);
+      memcpy(snap->mvd[l][j * units], fa->mvd + base * 2,
+             sizeof(int16_t) * 2 * units);
+    }
+  int cs_ = size / 2;
+  // the recon planes have the picture's size, which need not be a
+  // multiple of the CTU size: copy only the part of the region inside them
+  int rw = fa->width - px < size ? fa->width - px : size;
+  int rh = fa->height - py < size ? fa->height - py : size;
+  for (int y = 0; y < size; y++) {
+    memcpy(snap->coeff_y + y * size,
+           fa->coeff_y + (int64_t)(py + y) * S->ls + px,
+           sizeof(int32_t) * size);
+    if (y < rh && rw > 0)
+      memcpy(snap->rec_y + y * size,
+             S->rec_y + (int64_t)(py + y) * S->rls + px,
+             sizeof(int16_t) * rw);
+  }
+  for (int y = 0; y < cs_; y++) {
+    memcpy(snap->coeff_cb + y * cs_,
+           fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           sizeof(int32_t) * cs_);
+    memcpy(snap->coeff_cr + y * cs_,
+           fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           sizeof(int32_t) * cs_);
+    if (y < rh / 2 && rw > 0) {
+      memcpy(snap->rec_cb + y * cs_,
+             S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             sizeof(int16_t) * (rw / 2));
+      memcpy(snap->rec_cr + y * cs_,
+             S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             sizeof(int16_t) * (rw / 2));
+    }
+  }
+  snap->bits = S->total_bits;
+  snap->dist = S->total_dist;
+  snap->cost = S->total_cost;
+}
+
+static void es_restore_region_impl(EncState* S, int abs_part, int depth,
+                              const RegionSnap* snap) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth;
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int8_t* attrs[9] = {fa->depth, fa->pred_mode, fa->part_size,
+                      fa->luma_dir, fa->chroma_dir, fa->tr_idx, fa->qp,
+                      (int8_t*)fa->tq_bypass, (int8_t*)fa->ipcm};
+  for (int a = 0; a < 9; a++)
+    for (int j = 0; j < units; j++)
+      memcpy(attrs[a] + (int64_t)(uy + j) * fa->uw + ux,
+             snap->attrs[a] + j * units, units);
+  for (int j = 0; j < units; j++)
+    memcpy(fa->skip + (int64_t)(uy + j) * fa->uw + ux,
+           snap->skip + j * units, units);
+  for (int c = 0; c < 3; c++)
+    for (int j = 0; j < units; j++) {
+      memcpy(fa->cbf + ((int64_t)c * fa->uh + uy + j) * fa->uw + ux,
+             snap->cbf[c] + j * units, units);
+      memcpy(fa->ts_flag + ((int64_t)c * fa->uh + uy + j) * fa->uw + ux,
+             snap->ts[c] + j * units, units);
+    }
+  for (int j = 0; j < units; j++) {
+    memcpy(fa->merge_flag + (int64_t)(uy + j) * fa->uw + ux,
+           snap->merge_flag + j * units, units);
+    memcpy(fa->merge_idx + (int64_t)(uy + j) * fa->uw + ux,
+           snap->merge_idx + j * units, units);
+    memcpy(fa->inter_dir + (int64_t)(uy + j) * fa->uw + ux,
+           snap->inter_dir + j * units, units);
+  }
+  for (int l = 0; l < 2; l++)
+    for (int j = 0; j < units; j++) {
+      int64_t base = ((int64_t)l * fa->uh + uy + j) * fa->uw + ux;
+      memcpy(fa->ref_idx + base, snap->ref_idx[l] + j * units, units);
+      memcpy(fa->mvp_idx + base, snap->mvp_idx[l] + j * units, units);
+      memcpy(fa->mv + base * 2, snap->mv[l][j * units],
+             sizeof(int16_t) * 2 * units);
+      memcpy(fa->mvd + base * 2, snap->mvd[l][j * units],
+             sizeof(int16_t) * 2 * units);
+    }
+  int cs_ = size / 2;
+  int rw = fa->width - px < size ? fa->width - px : size;
+  int rh = fa->height - py < size ? fa->height - py : size;
+  for (int y = 0; y < size; y++) {
+    memcpy(fa->coeff_y + (int64_t)(py + y) * S->ls + px,
+           snap->coeff_y + y * size, sizeof(int32_t) * size);
+    if (y < rh && rw > 0)
+      memcpy(S->rec_y + (int64_t)(py + y) * S->rls + px,
+             snap->rec_y + y * size, sizeof(int16_t) * rw);
+  }
+  for (int y = 0; y < cs_; y++) {
+    memcpy(fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           snap->coeff_cb + y * cs_, sizeof(int32_t) * cs_);
+    memcpy(fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2,
+           snap->coeff_cr + y * cs_, sizeof(int32_t) * cs_);
+    if (y < rh / 2 && rw > 0) {
+      memcpy(S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             snap->rec_cb + y * cs_, sizeof(int16_t) * (rw / 2));
+      memcpy(S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             snap->rec_cr + y * cs_, sizeof(int16_t) * (rw / 2));
+    }
+  }
+  S->total_bits = snap->bits;
+  S->total_dist = snap->dist;
+  S->total_cost = snap->cost;
+}
+
+// ---------------------------------------------------------------------------
+// final syntax pass (xEncodeCU :1144 / finishCU :995); intra-only
+// ---------------------------------------------------------------------------
+static void es_save_region(EncState* S, int abs_part, int depth,
+                           RegionSnap* snap) {
+  PROF_BEGIN(9);
+  es_save_region_impl(S, abs_part, depth, snap);
+  PROF_END(9);
+}
+static void es_restore_region(EncState* S, int abs_part, int depth,
+                              const RegionSnap* snap) {
+  PROF_BEGIN(9);
+  es_restore_region_impl(S, abs_part, depth, snap);
+  PROF_END(9);
+}
+
+// ===========================================================================
+// Inter encode: predInterSearch / TZ + fractional ME / merge estimation /
+// inter residual quadtree RD.  Mirrors encoder/inter_search.py and the
+// inter branches of encoder/cu_encoder.py (behavioral reference:
+// TEncSearch.cpp predInterSearch :3184, xTZSearch :4302,
+// xPatternSearchFracDIF :4476, xMergeEstimation :3096,
+// encodeResAndCalcRdInterCU :4526, xEstimateResidualQT :4782;
+// TEncCu.cpp xCheckRDCostMerge2Nx2N :1248, xCheckRDCostInter :1371).
+// ===========================================================================
+
+static void es_final_transform_tree(EncState* S, int abs_part, int depth,
+                                    int tr_idx);
+
+// ---- inter syntax writers (TEncSbac code*) ----
+static void we_skip_flag(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int ctx = ctx_skip_flag(fa, ux, uy);
+  eb_bin(e, U(fa->skip, ux, uy) ? 1 : 0, S->co.skip_flag + ctx);
+}
+
+static void we_pred_mode(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  eb_bin(e, U(fa->pred_mode, ux, uy) == MODE_INTRA ? 1 : 0,
+         S->co.pred_mode);
+}
+
+static void we_merge_flag(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  eb_bin(e, U(fa->merge_flag, ux, uy) ? 1 : 0, S->co.merge_flag);
+}
+
+static void we_merge_idx(EncState* S, EncBin* e, int abs_part) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int idx = U(fa->merge_idx, ux, uy);
+  int num_cand = S->sp.max_merge;
+  if (num_cand > 1) {
+    for (int ui = 0; ui < num_cand - 1; ui++) {
+      int sym = ui == idx ? 0 : 1;
+      if (ui == 0) eb_bin(e, sym, S->co.merge_idx);
+      else eb_bin_ep(e, sym);
+      if (sym == 0) break;
+    }
+  }
+}
+
+static void we_inter_dir(EncState* S, EncBin* e, int abs_part, int depth) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int inter_dir = U(fa->inter_dir, ux, uy) - 1;
+  int size = fa->ctu_size >> depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  if (part_sz == SZ_2Nx2N || size != 8)
+    eb_bin(e, inter_dir == 2 ? 1 : 0, S->co.inter_dir + depth);
+  if (inter_dir < 2) eb_bin(e, inter_dir, S->co.inter_dir + 4);
+}
+
+static void we_ref_idx(EncState* S, EncBin* e, int abs_part, int lst) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int ref = U3(fa->ref_idx, lst, ux, uy);
+  eb_bin(e, ref == 0 ? 0 : 1, S->co.ref_pic);
+  if (ref > 0) {
+    int nri = lst == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+    int ref_num = nri - 2;
+    ref -= 1;
+    for (int ui = 0; ui < ref_num; ui++) {
+      int sym = ui == ref ? 0 : 1;
+      if (ui == 0) eb_bin(e, sym, S->co.ref_pic + 1);
+      else eb_bin_ep(e, sym);
+      if (sym == 0) break;
+    }
+  }
+}
+
+static void we_mvd(EncState* S, EncBin* e, int abs_part, int lst) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  if (S->me.mvd_l1_zero && lst == 1 && U(fa->inter_dir, ux, uy) == 3)
+    return;
+  int hor = MV_AT(fa->mvd, lst, ux, uy, 0);
+  int ver = MV_AT(fa->mvd, lst, ux, uy, 1);
+  eb_bin(e, hor != 0 ? 1 : 0, S->co.mvd);
+  eb_bin(e, ver != 0 ? 1 : 0, S->co.mvd);
+  int ah = hor < 0 ? -hor : hor, av = ver < 0 ? -ver : ver;
+  if (hor != 0) eb_bin(e, ah > 1 ? 1 : 0, S->co.mvd + 1);
+  if (ver != 0) eb_bin(e, av > 1 ? 1 : 0, S->co.mvd + 1);
+  if (hor != 0) {
+    if (ah > 1) eb_ep_exgolomb(e, ah - 2, 1);
+    eb_bin_ep(e, hor < 0 ? 1 : 0);
+  }
+  if (ver != 0) {
+    if (av > 1) eb_ep_exgolomb(e, av - 2, 1);
+    eb_bin_ep(e, ver < 0 ? 1 : 0);
+  }
+}
+
+static void we_mvp_idx(EncState* S, EncBin* e, int abs_part, int lst) {
+  const FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int idx = U3(fa->mvp_idx, lst, ux, uy);
+  eb_unary_max(e, idx, S->co.mvp_idx, S->co.mvp_idx + 1, 1);
+}
+
+static void we_qt_root_cbf(EncState* S, EncBin* e, int cbf) {
+  eb_bin(e, cbf ? 1 : 0, S->co.qt_root_cbf);
+}
+
+// codeQtCbfZero: hypothetical cbf=0 bit at getCtxQtCbf's context
+static void we_qt_cbf_zero(EncState* S, EncBin* e, int comp,
+                           int ctx_tr_depth) {
+  int ctx = comp == 0 ? (ctx_tr_depth == 0 ? 1 : 0) : ctx_tr_depth;
+  int off = comp == 0 ? S->co.qt_cbf : S->co.qt_cbf + 5;
+  eb_bin(e, 0, off + ctx);
+}
+
+static const int64_t MAX_INT_C = 0x7FFFFFFF;
+static const int64_t MAX_UINT_C = 0xFFFFFFFFll;
+
+// ---- motion cost (TComRdCost fixed point; inter_search.MotionCost) ----
+static int es_component_bits(int v) {
+  unsigned temp = v <= 0 ? (((unsigned)(-v)) << 1) + 1 : ((unsigned)v << 1);
+  int length = 1;
+  while (temp != 1) { temp >>= 1; length += 2; }
+  return length;
+}
+
+static inline void es_mc_sad(EncState* S) {
+  S->mc_cost = S->me.lambda_motion_sad;
+}
+static inline void es_mc_set_pred(EncState* S, int x, int y) {
+  S->mc_pred[0] = x; S->mc_pred[1] = y;
+}
+static inline void es_mc_set_scale(EncState* S, int s) { S->mc_scale = s; }
+static inline int es_mc_bits(const EncState* S, int x, int y) {
+  return es_component_bits((x << S->mc_scale) - S->mc_pred[0]) +
+         es_component_bits((y << S->mc_scale) - S->mc_pred[1]);
+}
+static inline int64_t es_mc_cost_pts(const EncState* S, int x, int y) {
+  return (S->mc_cost * (int64_t)es_mc_bits(S, x, y)) >> 16;
+}
+static inline int64_t es_mc_cost_bits(const EncState* S, int64_t b) {
+  return (S->mc_cost * b) >> 16;
+}
+static inline int64_t es_mc_rd_cost_sad(const EncState* S, int64_t bits,
+                                        int64_t dist) {
+  return dist +
+         ((int64_t)((double)bits * (double)S->me.lambda_motion_sad + 0.5) >>
+          16);
+}
+
+// ---- ME distortion primitives ----
+// SAD: int32 org (stride so) vs int16 plane (stride sc); optional row
+// subsampling (TComRdCost xGetSAD with iSubShift)
+static int64_t es_sad32(const int32_t* org, int so, const int16_t* cur,
+                        int64_t sc, int w, int h, int sub_shift,
+                        int bit_inc) {
+  int64_t s = 0;
+  int step = sub_shift ? 2 : 1;
+#if defined(__AVX2__)
+  if ((w & 7) == 0) {
+    __m256i acc = _mm256_setzero_si256();
+    for (int y = 0; y < h; y += step) {
+      const int32_t* o = org + (int64_t)y * so;
+      const int16_t* c = cur + (int64_t)y * sc;
+      for (int x = 0; x < w; x += 8) {
+        __m256i ov = _mm256_loadu_si256((const __m256i*)(o + x));
+        __m256i cv = _mm256_cvtepi16_epi32(
+            _mm_loadu_si128((const __m128i*)(c + x)));
+        acc = _mm256_add_epi32(acc, _mm256_abs_epi32(
+            _mm256_sub_epi32(ov, cv)));
+      }
+    }
+    __m128i lo = _mm256_castsi256_si128(acc);
+    __m128i hi = _mm256_extracti128_si256(acc, 1);
+    __m128i v = _mm_add_epi32(lo, hi);
+    v = _mm_add_epi32(v, _mm_shuffle_epi32(v, 0x4E));
+    v = _mm_add_epi32(v, _mm_shuffle_epi32(v, 0xB1));
+    s = (int32_t)_mm_cvtsi128_si32(v);
+    return (s << sub_shift) >> bit_inc;
+  }
+#endif
+  for (int y = 0; y < h; y += step) {
+    const int32_t* o = org + (int64_t)y * so;
+    const int16_t* c = cur + (int64_t)y * sc;
+    for (int x = 0; x < w; x++) {
+      int d = o[x] - c[x];
+      s += d < 0 ? -d : d;
+    }
+  }
+  return (s << sub_shift) >> bit_inc;
+}
+
+// SAD over int16 org (uni-pred ME: plain pixels) vs int16 plane — twice
+// the SIMD width of es_sad32; exact int32 accumulation (|a-b| fits 15
+// bits, madd pairs are exact)
+static int64_t es_sad16(const int16_t* org, int so, const int16_t* cur,
+                        int64_t sc, int w, int h, int sub_shift,
+                        int bit_inc) {
+  int64_t s = 0;
+  int step = sub_shift ? 2 : 1;
+#if defined(__AVX2__)
+  if ((w & 15) == 0) {
+    __m256i acc = _mm256_setzero_si256();
+    __m256i ones = _mm256_set1_epi16(1);
+    for (int y = 0; y < h; y += step) {
+      const int16_t* o = org + (int64_t)y * so;
+      const int16_t* c = cur + (int64_t)y * sc;
+      for (int x = 0; x < w; x += 16) {
+        __m256i ov = _mm256_loadu_si256((const __m256i*)(o + x));
+        __m256i cv = _mm256_loadu_si256((const __m256i*)(c + x));
+        __m256i ad = _mm256_abs_epi16(_mm256_sub_epi16(ov, cv));
+        acc = _mm256_add_epi32(acc, _mm256_madd_epi16(ad, ones));
+      }
+    }
+    __m128i lo = _mm256_castsi256_si128(acc);
+    __m128i hi = _mm256_extracti128_si256(acc, 1);
+    __m128i v = _mm_add_epi32(lo, hi);
+    v = _mm_add_epi32(v, _mm_shuffle_epi32(v, 0x4E));
+    v = _mm_add_epi32(v, _mm_shuffle_epi32(v, 0xB1));
+    s = (int32_t)_mm_cvtsi128_si32(v);
+    return (s << sub_shift) >> bit_inc;
+  }
+  if ((w & 7) == 0) {
+    __m128i acc = _mm_setzero_si128();
+    __m128i ones = _mm_set1_epi16(1);
+    for (int y = 0; y < h; y += step) {
+      const int16_t* o = org + (int64_t)y * so;
+      const int16_t* c = cur + (int64_t)y * sc;
+      for (int x = 0; x < w; x += 8) {
+        __m128i ov = _mm_loadu_si128((const __m128i*)(o + x));
+        __m128i cv = _mm_loadu_si128((const __m128i*)(c + x));
+        __m128i ad = _mm_abs_epi16(_mm_sub_epi16(ov, cv));
+        acc = _mm_add_epi32(acc, _mm_madd_epi16(ad, ones));
+      }
+    }
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+    acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+    s = (int32_t)_mm_cvtsi128_si32(acc);
+    return (s << sub_shift) >> bit_inc;
+  }
+#endif
+  for (int y = 0; y < h; y += step) {
+    const int16_t* o = org + (int64_t)y * so;
+    const int16_t* c = cur + (int64_t)y * sc;
+    for (int x = 0; x < w; x++) {
+      int d = o[x] - c[x];
+      s += d < 0 ? -d : d;
+    }
+  }
+  return (s << sub_shift) >> bit_inc;
+}
+
+// SATD over int32 org vs int16 cur (xGetHADs; 8x8 blocks when both dims
+// are multiples of 8, else 4x4)
+#if defined(__AVX2__)
+// same abs-sum invariance argument as had8x8: the vector Hadamard is
+// bit-identical to xCalcHADs8x8's butterfly
+static int64_t had8x8_me(const int32_t* org, int so, const int16_t* cur,
+                         int64_t sc) {
+  __m256i r[8];
+  for (int j = 0; j < 8; j++) {
+    __m256i o = _mm256_loadu_si256((const __m256i*)(org + (int64_t)j * so));
+    __m256i c = _mm256_cvtepi16_epi32(
+        _mm_loadu_si128((const __m128i*)(cur + (int64_t)j * sc)));
+    r[j] = _mm256_sub_epi32(o, c);
+  }
+  had8_butterfly(r);
+  transpose8x8_epi32(r);
+  had8_butterfly(r);
+  __m256i acc = _mm256_setzero_si256();
+  for (int j = 0; j < 8; j++)
+    acc = _mm256_add_epi32(acc, _mm256_abs_epi32(r[j]));
+  __m128i lo = _mm256_castsi256_si128(acc);
+  __m128i hi = _mm256_extracti128_si256(acc, 1);
+  __m128i s = _mm_add_epi32(lo, hi);
+  s = _mm_add_epi32(s, _mm_shuffle_epi32(s, 0x4E));
+  s = _mm_add_epi32(s, _mm_shuffle_epi32(s, 0xB1));
+  int64_t sad = (int32_t)_mm_cvtsi128_si32(s);
+  return (sad + 2) >> 2;
+}
+
+static int64_t had4x4_me(const int32_t* org, int so, const int16_t* cur,
+                         int64_t sc) {
+  __m128i r[4];
+  for (int j = 0; j < 4; j++) {
+    __m128i o = _mm_loadu_si128((const __m128i*)(org + (int64_t)j * so));
+    __m128i c = _mm_cvtepi16_epi32(
+        _mm_loadl_epi64((const __m128i*)(cur + (int64_t)j * sc)));
+    r[j] = _mm_sub_epi32(o, c);
+  }
+  had4_butterfly(r);
+  transpose4x4_epi32(r);
+  had4_butterfly(r);
+  __m128i acc = _mm_add_epi32(_mm_add_epi32(_mm_abs_epi32(r[0]),
+                                            _mm_abs_epi32(r[1])),
+                              _mm_add_epi32(_mm_abs_epi32(r[2]),
+                                            _mm_abs_epi32(r[3])));
+  acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0x4E));
+  acc = _mm_add_epi32(acc, _mm_shuffle_epi32(acc, 0xB1));
+  int64_t sad = (int32_t)_mm_cvtsi128_si32(acc);
+  return (sad + 1) >> 1;
+}
+#else
+static int64_t had8x8_me(const int32_t* org, int so, const int16_t* cur,
+                         int64_t sc) {
+  int32_t diff[64], m1[8][8], m2[8][8], m3[8][8];
+  for (int j = 0; j < 8; j++)
+    for (int i = 0; i < 8; i++)
+      diff[j * 8 + i] = org[(int64_t)j * so + i] - cur[(int64_t)j * sc + i];
+  for (int k = 0; k < 64; k += 8) {
+    int j = k >> 3;
+    m2[j][0] = diff[k] + diff[k + 4];
+    m2[j][1] = diff[k + 1] + diff[k + 5];
+    m2[j][2] = diff[k + 2] + diff[k + 6];
+    m2[j][3] = diff[k + 3] + diff[k + 7];
+    m2[j][4] = diff[k] - diff[k + 4];
+    m2[j][5] = diff[k + 1] - diff[k + 5];
+    m2[j][6] = diff[k + 2] - diff[k + 6];
+    m2[j][7] = diff[k + 3] - diff[k + 7];
+    m1[j][0] = m2[j][0] + m2[j][2];
+    m1[j][1] = m2[j][1] + m2[j][3];
+    m1[j][2] = m2[j][0] - m2[j][2];
+    m1[j][3] = m2[j][1] - m2[j][3];
+    m1[j][4] = m2[j][4] + m2[j][6];
+    m1[j][5] = m2[j][5] + m2[j][7];
+    m1[j][6] = m2[j][4] - m2[j][6];
+    m1[j][7] = m2[j][5] - m2[j][7];
+    m2[j][0] = m1[j][0] + m1[j][1];
+    m2[j][1] = m1[j][0] - m1[j][1];
+    m2[j][2] = m1[j][2] + m1[j][3];
+    m2[j][3] = m1[j][2] - m1[j][3];
+    m2[j][4] = m1[j][4] + m1[j][5];
+    m2[j][5] = m1[j][4] - m1[j][5];
+    m2[j][6] = m1[j][6] + m1[j][7];
+    m2[j][7] = m1[j][6] - m1[j][7];
+  }
+  for (int i = 0; i < 8; i++) {
+    m3[0][i] = m2[0][i] + m2[4][i];
+    m3[1][i] = m2[1][i] + m2[5][i];
+    m3[2][i] = m2[2][i] + m2[6][i];
+    m3[3][i] = m2[3][i] + m2[7][i];
+    m3[4][i] = m2[0][i] - m2[4][i];
+    m3[5][i] = m2[1][i] - m2[5][i];
+    m3[6][i] = m2[2][i] - m2[6][i];
+    m3[7][i] = m2[3][i] - m2[7][i];
+    m1[0][i] = m3[0][i] + m3[2][i];
+    m1[1][i] = m3[1][i] + m3[3][i];
+    m1[2][i] = m3[0][i] - m3[2][i];
+    m1[3][i] = m3[1][i] - m3[3][i];
+    m1[4][i] = m3[4][i] + m3[6][i];
+    m1[5][i] = m3[5][i] + m3[7][i];
+    m1[6][i] = m3[4][i] - m3[6][i];
+    m1[7][i] = m3[5][i] - m3[7][i];
+    m2[0][i] = m1[0][i] + m1[1][i];
+    m2[1][i] = m1[0][i] - m1[1][i];
+    m2[2][i] = m1[2][i] + m1[3][i];
+    m2[3][i] = m1[2][i] - m1[3][i];
+    m2[4][i] = m1[4][i] + m1[5][i];
+    m2[5][i] = m1[4][i] - m1[5][i];
+    m2[6][i] = m1[6][i] + m1[7][i];
+    m2[7][i] = m1[6][i] - m1[7][i];
+  }
+  int64_t sad = 0;
+  for (int j = 0; j < 8; j++)
+    for (int i = 0; i < 8; i++)
+      sad += m2[j][i] < 0 ? -m2[j][i] : m2[j][i];
+  return (sad + 2) >> 2;
+}
+
+static int64_t had4x4_me(const int32_t* org, int so, const int16_t* cur,
+                         int64_t sc) {
+  int32_t diff[16], m[16], d[16];
+  for (int j = 0; j < 4; j++)
+    for (int i = 0; i < 4; i++)
+      diff[j * 4 + i] =
+          org[(int64_t)j * so + i] - cur[(int64_t)j * sc + i];
+  // matrix-form Hadamard (same abs-sum as the reference butterfly)
+  for (int j = 0; j < 4; j++) {
+    int a = diff[j * 4], b = diff[j * 4 + 1], c = diff[j * 4 + 2],
+        e = diff[j * 4 + 3];
+    m[j * 4] = a + b + c + e;
+    m[j * 4 + 1] = a - b + c - e;
+    m[j * 4 + 2] = a + b - c - e;
+    m[j * 4 + 3] = a - b - c + e;
+  }
+  for (int i = 0; i < 4; i++) {
+    int a = m[i], b = m[4 + i], c = m[8 + i], e = m[12 + i];
+    d[i] = a + b + c + e;
+    d[4 + i] = a - b + c - e;
+    d[8 + i] = a + b - c - e;
+    d[12 + i] = a - b - c + e;
+  }
+  int64_t sad = 0;
+  for (int i = 0; i < 16; i++) sad += d[i] < 0 ? -d[i] : d[i];
+  return (sad + 1) >> 1;
+}
+#endif  // __AVX2__
+
+static int64_t es_had32(const int32_t* org, int so, const int16_t* cur,
+                        int64_t sc, int w, int h, int bit_inc) {
+  int64_t sum = 0;
+  if ((w % 8) == 0 && (h % 8) == 0) {
+    for (int y = 0; y < h; y += 8)
+      for (int x = 0; x < w; x += 8)
+        sum += had8x8_me(org + (int64_t)y * so + x, so,
+                         cur + (int64_t)y * sc + x, sc);
+  } else {
+    for (int y = 0; y < h; y += 4)
+      for (int x = 0; x < w; x += 4)
+        sum += had4x4_me(org + (int64_t)y * so + x, so,
+                         cur + (int64_t)y * sc + x, sc);
+  }
+  return sum >> bit_inc;
+}
+
+// SSE over int32 residual arrays (getDistPart on residual blocks)
+static int64_t es_sse32(const int32_t* a, int64_t sa, const int32_t* b,
+                        int64_t sb, int size, int bit_inc, int weighted,
+                        double chroma_weight) {
+  int64_t sse = 0;
+  int sh = bit_inc << 1;
+  for (int y = 0; y < size; y++)
+    for (int x = 0; x < size; x++) {
+      int64_t d = (int64_t)(a ? a[y * sa + x] : 0) - b[y * sb + x];
+      sse += (d * d) >> sh;
+    }
+  if (weighted) return (int64_t)(chroma_weight * (double)sse);
+  return sse;
+}
+
+// ---- clip + prediction helpers ----
+// clipMv (TComDataCU.cpp:2684), anchored at the CU position
+static inline void es_clip_mv(const EncState* S, int cu_x, int cu_y,
+                              int* mx, int* my) {
+  const FrameArrays* fa = &S->fa;
+  int off = 8;
+  int hor_max = (fa->width + off - cu_x - 1) << 2;
+  int hor_min = (-fa->ctu_size - off - cu_x + 1) << 2;
+  int ver_max = (fa->height + off - cu_y - 1) << 2;
+  int ver_min = (-fa->ctu_size - off - cu_y + 1) << 2;
+  if (*mx > hor_max) *mx = hor_max;
+  if (*mx < hor_min) *mx = hor_min;
+  if (*my > ver_max) *my = ver_max;
+  if (*my < ver_min) *my = ver_min;
+}
+
+// xPredInterLumaBlk (uni, pixel domain) for one PU into dst (stride ds)
+static void es_pred_pu_luma(EncState* S, int xp, int yp, int pw, int ph,
+                            int lst, int ref, int mvx, int mvy, int cu_x,
+                            int cu_y, int16_t* dst, int ds) {
+  es_clip_mv(S, cu_x, cu_y, &mvx, &mvy);
+  mc_block_c(S->refs.pad_y[lst][ref], S->refs.ys,
+             S->refs.margin + yp + (mvy >> 2),
+             S->refs.margin + xp + (mvx >> 2), mvx & 3, mvy & 3, pw, ph,
+             kLumaFilt, sizeof(kLumaFilt[0]), 8, S->ep.bit_depth, 0, dst,
+             ds);
+}
+
+// TComPrediction::motionCompensation for one PU of the CU at (cu_x,cu_y):
+// prediction into S->pred_* at CTU-local coords (mirrors decoder/inter.py
+// _predict_pu incl. xCheckIdenticalMotion; WP is gated out natively).
+// When luma_only != 0 the chroma MC is skipped and the luma lands in
+// dst_y/ds (xGetInterPredictionError path).
+static void es_mc_pu(EncState* S, int cu_x, int cu_y, int xp, int yp,
+                     int pw, int ph, int luma_only, int16_t* dst_y,
+                     int ds) {
+  const FrameArrays* fa = &S->fa;
+  int pux = xp / 4, puy = yp / 4;
+  int ref0 = U3(fa->ref_idx, 0, pux, puy);
+  int ref1 = U3(fa->ref_idx, 1, pux, puy);
+  int mv0x = MV_AT(fa->mv, 0, pux, puy, 0);
+  int mv0y = MV_AT(fa->mv, 0, pux, puy, 1);
+  int mv1x = MV_AT(fa->mv, 1, pux, puy, 0);
+  int mv1y = MV_AT(fa->mv, 1, pux, puy, 1);
+  // xCheckIdenticalMotion (B slice, no weighted bipred)
+  if (S->me.is_b && ref0 >= 0 && ref1 >= 0 &&
+      S->refs.ref_poc[0][ref0] == S->refs.ref_poc[1][ref1] &&
+      mv0x == mv1x && mv0y == mv1y)
+    ref1 = -1;
+  int ctu = fa->ctu_size;
+  int lx = xp % ctu, ly = yp % ctu;
+  int16_t* dy;
+  int dys;
+  if (luma_only) {
+    dy = dst_y; dys = ds;
+  } else {
+    dy = S->pred_y + (int64_t)ly * ctu + lx; dys = ctu;
+  }
+  int16_t buf0[64 * 64], buf1[64 * 64];
+  int16_t cbuf0[32 * 32], cbuf1[32 * 32], crbuf0[32 * 32], crbuf1[32 * 32];
+  if (ref0 >= 0 && ref1 >= 0) {
+    int ax = mv0x, ay = mv0y, bx = mv1x, by = mv1y;
+    es_clip_mv(S, cu_x, cu_y, &ax, &ay);
+    es_clip_mv(S, cu_x, cu_y, &bx, &by);
+    mc_block_c(S->refs.pad_y[0][ref0], S->refs.ys,
+               S->refs.margin + yp + (ay >> 2),
+               S->refs.margin + xp + (ax >> 2), ax & 3, ay & 3, pw, ph,
+               kLumaFilt, sizeof(kLumaFilt[0]), 8, S->ep.bit_depth, 1,
+               buf0, pw);
+    mc_block_c(S->refs.pad_y[1][ref1], S->refs.ys,
+               S->refs.margin + yp + (by >> 2),
+               S->refs.margin + xp + (bx >> 2), bx & 3, by & 3, pw, ph,
+               kLumaFilt, sizeof(kLumaFilt[0]), 8, S->ep.bit_depth, 1,
+               buf1, pw);
+    for (int r = 0; r < ph; r++)
+      bi_avg_c(buf0 + r * pw, buf1 + r * pw, pw, S->ep.bit_depth,
+               dy + (int64_t)r * dys);
+    if (!luma_only) {
+      int m2 = S->refs.margin / 2;
+      int cw = pw / 2, ch = ph / 2;
+      mc_block_c(S->refs.pad_cb[0][ref0], S->refs.cs,
+                 m2 + yp / 2 + (ay >> 3), m2 + xp / 2 + (ax >> 3), ax & 7,
+                 ay & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 1, cbuf0, cw);
+      mc_block_c(S->refs.pad_cb[1][ref1], S->refs.cs,
+                 m2 + yp / 2 + (by >> 3), m2 + xp / 2 + (bx >> 3), bx & 7,
+                 by & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 1, cbuf1, cw);
+      mc_block_c(S->refs.pad_cr[0][ref0], S->refs.cs,
+                 m2 + yp / 2 + (ay >> 3), m2 + xp / 2 + (ax >> 3), ax & 7,
+                 ay & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 1, crbuf0, cw);
+      mc_block_c(S->refs.pad_cr[1][ref1], S->refs.cs,
+                 m2 + yp / 2 + (by >> 3), m2 + xp / 2 + (bx >> 3), bx & 7,
+                 by & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 1, crbuf1, cw);
+      int clx = lx / 2, cly = ly / 2, cstride = ctu / 2;
+      for (int r = 0; r < ch; r++) {
+        bi_avg_c(cbuf0 + r * cw, cbuf1 + r * cw, cw, S->ep.bit_depth,
+                 S->pred_cb + (int64_t)(cly + r) * cstride + clx);
+        bi_avg_c(crbuf0 + r * cw, crbuf1 + r * cw, cw, S->ep.bit_depth,
+                 S->pred_cr + (int64_t)(cly + r) * cstride + clx);
+      }
+    }
+  } else {
+    int lst = ref0 >= 0 ? 0 : 1;
+    int ref = ref0 >= 0 ? ref0 : ref1;
+    int mx = lst == 0 ? mv0x : mv1x;
+    int my = lst == 0 ? mv0y : mv1y;
+    es_clip_mv(S, cu_x, cu_y, &mx, &my);
+    mc_block_c(S->refs.pad_y[lst][ref], S->refs.ys,
+               S->refs.margin + yp + (my >> 2),
+               S->refs.margin + xp + (mx >> 2), mx & 3, my & 3, pw, ph,
+               kLumaFilt, sizeof(kLumaFilt[0]), 8, S->ep.bit_depth, 0, dy,
+               dys);
+    if (!luma_only) {
+      int m2 = S->refs.margin / 2;
+      int cw = pw / 2, ch = ph / 2;
+      int clx = lx / 2, cly = ly / 2, cstride = ctu / 2;
+      mc_block_c(S->refs.pad_cb[lst][ref], S->refs.cs,
+                 m2 + yp / 2 + (my >> 3), m2 + xp / 2 + (mx >> 3), mx & 7,
+                 my & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 0,
+                 S->pred_cb + (int64_t)cly * cstride + clx, cstride);
+      mc_block_c(S->refs.pad_cr[lst][ref], S->refs.cs,
+                 m2 + yp / 2 + (my >> 3), m2 + xp / 2 + (mx >> 3), mx & 7,
+                 my & 7, cw, ch, (const int16_t(*)[8])kChromaFilt,
+                 sizeof(kChromaFilt[0]), 4, S->ep.bit_depth, 0,
+                 S->pred_cr + (int64_t)cly * cstride + clx, cstride);
+    }
+  }
+}
+
+// motionCompensation over the whole CU (or one PU with part_idx >= 0)
+static void es_motion_compensation(EncState* S, int cu_x, int cu_y,
+                                   int size, int part_idx) {
+  const FrameArrays* fa = &S->fa;
+  int part_sz = U(fa->part_size, cu_x / 4, cu_y / 4);
+  int n_pu = num_pus(part_sz);
+  for (int pu = 0; pu < n_pu; pu++) {
+    if (part_idx >= 0 && pu != part_idx) continue;
+    int xp, yp, pw, ph;
+    pu_geometry(part_sz, cu_x, cu_y, size, pu, &xp, &yp, &pw, &ph);
+    es_mc_pu(S, cu_x, cu_y, xp, yp, pw, ph, 0, 0, 0);
+  }
+}
+
+// ---- motion field save/restore over a PU (inter_search.py:722) ----
+static void es_save_pu_motion(EncState* S, int xp, int yp, int pw, int ph,
+                              PuMotionSave* sv) {
+  const FrameArrays* fa = &S->fa;
+  int ux = xp / 4, uy = yp / 4, uw = pw / 4, uh = ph / 4;
+  for (int j = 0; j < uh; j++) {
+    int64_t row = (int64_t)(uy + j) * fa->uw + ux;
+    memcpy(sv->inter_dir + j * uw, fa->inter_dir + row, uw);
+    memcpy(sv->merge_flag + j * uw, fa->merge_flag + row, uw);
+    memcpy(sv->merge_idx + j * uw, fa->merge_idx + row, uw);
+    for (int l = 0; l < 2; l++) {
+      int64_t base = (int64_t)l * fa->uh * fa->uw + row;
+      memcpy(sv->ref_idx[l] + j * uw, fa->ref_idx + base, uw);
+      memcpy(sv->mvp_idx[l] + j * uw, fa->mvp_idx + base, uw);
+      memcpy(sv->mv[l][j * uw], fa->mv + base * 2,
+             sizeof(int16_t) * 2 * uw);
+      memcpy(sv->mvd[l][j * uw], fa->mvd + base * 2,
+             sizeof(int16_t) * 2 * uw);
+    }
+  }
+}
+
+static void es_restore_pu_motion(EncState* S, int xp, int yp, int pw,
+                                 int ph, const PuMotionSave* sv) {
+  const FrameArrays* fa = &S->fa;
+  int ux = xp / 4, uy = yp / 4, uw = pw / 4, uh = ph / 4;
+  for (int j = 0; j < uh; j++) {
+    int64_t row = (int64_t)(uy + j) * fa->uw + ux;
+    memcpy(fa->inter_dir + row, sv->inter_dir + j * uw, uw);
+    memcpy(fa->merge_flag + row, sv->merge_flag + j * uw, uw);
+    memcpy(fa->merge_idx + row, sv->merge_idx + j * uw, uw);
+    for (int l = 0; l < 2; l++) {
+      int64_t base = (int64_t)l * fa->uh * fa->uw + row;
+      memcpy(fa->ref_idx + base, sv->ref_idx[l] + j * uw, uw);
+      memcpy(fa->mvp_idx + base, sv->mvp_idx[l] + j * uw, uw);
+      memcpy(fa->mv + base * 2, sv->mv[l][j * uw],
+             sizeof(int16_t) * 2 * uw);
+      memcpy(fa->mvd + base * 2, sv->mvd[l][j * uw],
+             sizeof(int16_t) * 2 * uw);
+    }
+  }
+}
+
+// set one PU's motion for list lst (inter_search.py _set_pu_motion)
+static void es_set_pu_motion(EncState* S, int xp, int yp, int pw, int ph,
+                             int lst, int ref, int mvx, int mvy, int mvdx,
+                             int mvdy, int mvp_idx) {
+  const FrameArrays* fa = &S->fa;
+  int ux = xp / 4, uy = yp / 4, uw = pw / 4, uh = ph / 4;
+  set_pu_list_i8(fa, fa->ref_idx, lst, ux, uy, uw, uh, (int8_t)ref);
+  set_pu_mv(fa, fa->mv, lst, ux, uy, uw, uh, (int16_t)mvx, (int16_t)mvy);
+  set_pu_mv(fa, fa->mvd, lst, ux, uy, uw, uh, (int16_t)mvdx,
+            (int16_t)mvdy);
+  set_pu_list_i8(fa, fa->mvp_idx, lst, ux, uy, uw, uh, (int8_t)mvp_idx);
+}
+
+// ---- AMVP estimation (xEstimateMvPredAMVP / xCheckBestMVP) ----
+// returns best idx; fills cands[2], best mv_pred, and *dist_bip
+static int es_estimate_mvp_amvp(EncState* S, int cu_x, int cu_y, int size,
+                                int part_sz, int pu_idx, int lst, int ref,
+                                int16_t cands[AMVP_MAX][2],
+                                int64_t* dist_bip) {
+  MvEnv env = {&S->fa, &S->sp};
+  amvp_candidates(&env, cu_x, cu_y, size, part_sz, pu_idx, lst, ref,
+                  cands);
+  int xp, yp, pw, ph;
+  pu_geometry(part_sz, cu_x, cu_y, size, pu_idx, &xp, &yp, &pw, &ph);
+  const int16_t* org = S->org_y + (int64_t)yp * S->rls + xp;
+  int64_t best_cost = MAX_INT_C;
+  int best_idx = 0;
+  *dist_bip = MAX_INT_C;
+  int16_t pred[64 * 64];
+  int32_t org32[64 * 64];
+  for (int r = 0; r < ph; r++)
+    for (int c = 0; c < pw; c++)
+      org32[r * pw + c] = org[(int64_t)r * S->rls + c];
+  for (int i = 0; i < AMVP_MAX; i++) {
+    es_pred_pu_luma(S, xp, yp, pw, ph, lst, ref, cands[i][0], cands[i][1],
+                    cu_x, cu_y, pred, pw);
+    int64_t dist =
+        es_sad32(org32, pw, pred, pw, pw, ph, 0, S->ep.bit_inc);
+    int64_t cost = es_mc_rd_cost_sad(S, 1 /* mvp idx bits */, dist);
+    if (best_cost > cost) {
+      best_cost = cost;
+      best_idx = i;
+      *dist_bip = cost;
+    }
+  }
+  return best_idx;
+}
+
+// ---- TZ search (xTZSearch + TZ_SEARCH_CONFIGURATION) ----
+struct TzCtx {
+  EncState* S;
+  const int32_t* org;            // ME original, stride = pw
+  const int16_t* org16;          // int16 view (uni-pred only, else null)
+  const int16_t* plane;          // padded SAD plane
+  int64_t ps;                    // plane stride
+  int m, xp, yp, pw, ph, sub_shift;
+  int sr_l, sr_t, sr_r, sr_b;    // search range (integer pel)
+  int64_t best;
+  int bx, by, dist, rnd, point;
+};
+
+static inline int64_t tz_sad_at(TzCtx* T, int x, int y) {
+  const int16_t* blk = T->plane + (int64_t)(T->m + T->yp + y) * T->ps +
+                       (T->m + T->xp + x);
+  int64_t sad = T->org16
+      ? es_sad16(T->org16, T->S->rls, blk, T->ps, T->pw, T->ph,
+                 T->sub_shift, T->S->ep.bit_inc)
+      : es_sad32(T->org, T->pw, blk, T->ps, T->pw, T->ph, T->sub_shift,
+                 T->S->ep.bit_inc);
+  return sad + es_mc_cost_pts(T->S, x, y);
+}
+
+static inline void tz_helper(TzCtx* T, int x, int y, int point,
+                             int distance) {
+  int64_t s = tz_sad_at(T, x, y);
+  if (s < T->best) {
+    T->best = s;
+    T->bx = x; T->by = y;
+    T->dist = distance;
+    T->rnd = 0;
+    T->point = point;
+  }
+}
+
+static void tz_diamond(TzCtx* T, int sx, int sy, int dist) {
+  int top = sy - dist, bottom = sy + dist;
+  int left = sx - dist, right = sx + dist;
+  T->rnd += 1;
+  if (dist == 1) {
+    if (top >= T->sr_t) tz_helper(T, sx, top, 2, dist);
+    if (left >= T->sr_l) tz_helper(T, left, sy, 4, dist);
+    if (right <= T->sr_r) tz_helper(T, right, sy, 5, dist);
+    if (bottom <= T->sr_b) tz_helper(T, sx, bottom, 7, dist);
+  } else if (dist <= 8) {
+    int t2 = sy - (dist >> 1), b2 = sy + (dist >> 1);
+    int l2 = sx - (dist >> 1), r2 = sx + (dist >> 1);
+    if (top >= T->sr_t && left >= T->sr_l && right <= T->sr_r &&
+        bottom <= T->sr_b) {
+      tz_helper(T, sx, top, 2, dist);
+      tz_helper(T, l2, t2, 1, dist >> 1);
+      tz_helper(T, r2, t2, 3, dist >> 1);
+      tz_helper(T, left, sy, 4, dist);
+      tz_helper(T, right, sy, 5, dist);
+      tz_helper(T, l2, b2, 6, dist >> 1);
+      tz_helper(T, r2, b2, 8, dist >> 1);
+      tz_helper(T, sx, bottom, 7, dist);
+    } else {
+      if (top >= T->sr_t) tz_helper(T, sx, top, 2, dist);
+      if (t2 >= T->sr_t) {
+        if (l2 >= T->sr_l) tz_helper(T, l2, t2, 1, dist >> 1);
+        if (r2 <= T->sr_r) tz_helper(T, r2, t2, 3, dist >> 1);
+      }
+      if (left >= T->sr_l) tz_helper(T, left, sy, 4, dist);
+      if (right <= T->sr_r) tz_helper(T, right, sy, 5, dist);
+      if (b2 <= T->sr_b) {
+        if (l2 >= T->sr_l) tz_helper(T, l2, b2, 6, dist >> 1);
+        if (r2 <= T->sr_r) tz_helper(T, r2, b2, 8, dist >> 1);
+      }
+      if (bottom <= T->sr_b) tz_helper(T, sx, bottom, 7, dist);
+    }
+  } else {
+    if (top >= T->sr_t && left >= T->sr_l && right <= T->sr_r &&
+        bottom <= T->sr_b) {
+      tz_helper(T, sx, top, 0, dist);
+      tz_helper(T, left, sy, 0, dist);
+      tz_helper(T, right, sy, 0, dist);
+      tz_helper(T, sx, bottom, 0, dist);
+      for (int index = 1; index < 4; index++) {
+        int pyt = top + ((dist >> 2) * index);
+        int pyb = bottom - ((dist >> 2) * index);
+        int pxl = sx - ((dist >> 2) * index);
+        int pxr = sx + ((dist >> 2) * index);
+        tz_helper(T, pxl, pyt, 0, dist);
+        tz_helper(T, pxr, pyt, 0, dist);
+        tz_helper(T, pxl, pyb, 0, dist);
+        tz_helper(T, pxr, pyb, 0, dist);
+      }
+    } else {
+      if (top >= T->sr_t) tz_helper(T, sx, top, 0, dist);
+      if (left >= T->sr_l) tz_helper(T, left, sy, 0, dist);
+      if (right <= T->sr_r) tz_helper(T, right, sy, 0, dist);
+      if (bottom <= T->sr_b) tz_helper(T, sx, bottom, 0, dist);
+      for (int index = 1; index < 4; index++) {
+        int pyt = top + ((dist >> 2) * index);
+        int pyb = bottom - ((dist >> 2) * index);
+        int pxl = sx - ((dist >> 2) * index);
+        int pxr = sx + ((dist >> 2) * index);
+        if (pyt >= T->sr_t) {
+          if (pxl >= T->sr_l) tz_helper(T, pxl, pyt, 0, dist);
+          if (pxr <= T->sr_r) tz_helper(T, pxr, pyt, 0, dist);
+        }
+        if (pyb <= T->sr_b) {
+          if (pxl >= T->sr_l) tz_helper(T, pxl, pyb, 0, dist);
+          if (pxr <= T->sr_r) tz_helper(T, pxr, pyb, 0, dist);
+        }
+      }
+    }
+  }
+}
+
+static void tz_two_point(TzCtx* T) {
+  int sx = T->bx, sy = T->by;
+  int pt = T->point;
+  int cand[2][2];
+  int n = 0;
+  switch (pt) {
+    case 1: cand[0][0] = sx - 1; cand[0][1] = sy;
+            cand[1][0] = sx; cand[1][1] = sy - 1; n = 2; break;
+    case 2: cand[0][0] = sx - 1; cand[0][1] = sy - 1;
+            cand[1][0] = sx + 1; cand[1][1] = sy - 1; n = 2; break;
+    case 3: cand[0][0] = sx; cand[0][1] = sy - 1;
+            cand[1][0] = sx + 1; cand[1][1] = sy; n = 2; break;
+    case 4: cand[0][0] = sx - 1; cand[0][1] = sy + 1;
+            cand[1][0] = sx - 1; cand[1][1] = sy - 1; n = 2; break;
+    case 5: cand[0][0] = sx + 1; cand[0][1] = sy - 1;
+            cand[1][0] = sx + 1; cand[1][1] = sy + 1; n = 2; break;
+    case 6: cand[0][0] = sx - 1; cand[0][1] = sy;
+            cand[1][0] = sx; cand[1][1] = sy + 1; n = 2; break;
+    case 7: cand[0][0] = sx - 1; cand[0][1] = sy + 1;
+            cand[1][0] = sx + 1; cand[1][1] = sy + 1; n = 2; break;
+    case 8: cand[0][0] = sx + 1; cand[0][1] = sy;
+            cand[1][0] = sx; cand[1][1] = sy + 1; n = 2; break;
+    default: n = 0; break;
+  }
+  for (int i = 0; i < n; i++) {
+    int x = cand[i][0], y = cand[i][1];
+    if (T->sr_l <= x && x <= T->sr_r && T->sr_t <= y && y <= T->sr_b)
+      tz_helper(T, x, y, 0, 2);
+  }
+}
+
+// returns best integer MV in (*ox,*oy); result = SAD without mv cost
+static int64_t es_tz_search(TzCtx* T, int start_x, int start_y,
+                            int search_range) {
+  T->best = MAX_UINT_C;
+  T->bx = T->by = 0;
+  T->dist = 0; T->rnd = 0; T->point = 0;
+  tz_helper(T, start_x, start_y, 0, 0);
+  tz_helper(T, 0, 0, 0, 0);
+
+  // first search (diamond, iFirstSearchRounds = 3)
+  int sx = T->bx, sy = T->by;
+  for (int dist = 1; dist <= search_range; dist *= 2) {
+    tz_diamond(T, sx, sy, dist);
+    if (T->rnd >= 3) break;
+  }
+
+  if (T->dist == 1) {
+    T->dist = 0;
+    tz_two_point(T);
+  }
+
+  // raster search
+  const int raster = 5;
+  if (T->dist > raster) {
+    T->dist = raster;
+    for (int y = T->sr_t; y <= T->sr_b; y += raster)
+      for (int x = T->sr_l; x <= T->sr_r; x += raster)
+        tz_helper(T, x, y, 0, raster);
+  }
+
+  // star refinement
+  while (T->dist > 0) {
+    sx = T->bx; sy = T->by;
+    T->dist = 0;
+    T->point = 0;
+    for (int dist = 1; dist < search_range + 1; dist *= 2)
+      tz_diamond(T, sx, sy, dist);
+    if (T->dist == 1) {
+      T->dist = 0;
+      if (T->point != 0) tz_two_point(T);
+    }
+  }
+  return T->best - es_mc_cost_pts(T->S, T->bx, T->by);
+}
+
+static int64_t es_full_search(TzCtx* T) {
+  int64_t best = MAX_UINT_C;
+  int bx = 0, by = 0;
+  for (int y = T->sr_t; y <= T->sr_b; y++)
+    for (int x = T->sr_l; x <= T->sr_r; x++) {
+      int64_t s = tz_sad_at(T, x, y);
+      if (s < best) {
+        best = s;
+        bx = x; by = y;
+      }
+    }
+  T->bx = bx; T->by = by;
+  return best - es_mc_cost_pts(T->S, bx, by);
+}
+
+// ---- fractional search (xPatternSearchFracDIF) ----
+// Half/quarter-pel interpolated blocks land in S->frac_blk[v][h] with a
+// fixed stride of 66 (mirrors inter_search.py _upsample_h/_upsample_q:
+// offsets expressed relative to (oy-4, ox-4), filter backup folded in).
+static const int kFracStride = 66;
+
+// _filter_copy(..., is_first=False, is_last=True): Short -> pixel + clip
+static void es_copy_last(const int16_t* src, int64_t ss, int w, int h,
+                         int bd, int16_t* dst, int ds) {
+  int shift = 14 - bd;
+  int offset = 8192 + (shift ? (1 << (shift - 1)) : 0);
+  int max_val = (1 << bd) - 1;
+  for (int r = 0; r < h; r++)
+    for (int c = 0; c < w; c++) {
+      int32_t v = ((int32_t)src[(int64_t)r * ss + c] + offset) >> shift;
+      if (v < 0) v = 0;
+      else if (v > max_val) v = max_val;
+      dst[r * ds + c] = (int16_t)v;
+    }
+}
+
+// xExtDIFUpSamplingH: blocks [v][h] for v,h in {0,2}
+static void es_upsample_h2(EncState* S, const int16_t* pad_y, int64_t ps,
+                           int ox, int oy, int pw, int ph) {
+  int bd = S->ep.bit_depth;
+  // src window: rows oy-4 .. oy+ph+4, cols ox-4 .. ox+pw+5
+  const int16_t* src = pad_y + (int64_t)(oy - 4) * ps + (ox - 4);
+  // tmp0: first-copy (pixel -> Short) of src cols 3..3+pw+1
+  mc_copy_c(src + 3, ps, pw + 1, ph + 8, bd, 1, S->frac_tmp0, kFracStride);
+  // tmp2: horizontal 8-tap frac-2 filter, first (Short out)
+  mc_filter_c(src, ps, kLumaFilt[2], 8, 0, bd, 1, 0, ph + 8, pw + 1,
+              S->frac_tmp2, kFracStride);
+
+  // [0][0]: last-copy rows 4.. of tmp0 (col_off 1), out (ph, pw)
+  es_copy_last(S->frac_tmp0 + 4 * kFracStride + 1, kFracStride, pw, ph, bd,
+               S->frac_blk[0][0], kFracStride);
+  // [2][0]: vertical frac-2 from tmp0 row 0 (col_off 1), out (ph+1, pw)
+  mc_filter_c(S->frac_tmp0 + 1, kFracStride, kLumaFilt[2], 8, 1, bd, 0, 1,
+              ph + 1, pw, S->frac_blk[2][0], kFracStride);
+  // [0][2]: last-copy rows 4.. of tmp2, out (ph, pw+1)
+  es_copy_last(S->frac_tmp2 + 4 * kFracStride, kFracStride, pw + 1, ph, bd,
+               S->frac_blk[0][2], kFracStride);
+  // [2][2]: vertical frac-2 from tmp2 row 0, out (ph+1, pw+1)
+  mc_filter_c(S->frac_tmp2, kFracStride, kLumaFilt[2], 8, 1, bd, 0, 1,
+              ph + 1, pw + 1, S->frac_blk[2][2], kFracStride);
+}
+
+// xExtDIFUpSamplingQ (inter_search.py _upsample_q)
+static void es_upsample_q(EncState* S, const int16_t* pad_y, int64_t ps,
+                          int ox, int oy, int pw, int ph, int hh, int hv) {
+  int bd = S->ep.bit_depth;
+  int ext_h = hv == 0 ? ph + 8 : ph + 7;
+  int base_row = oy - 4 + (hv > 0 ? 1 : 0);
+  int col1 = ox - 4 + (hh >= 0 ? 1 : 0);
+  int col3 = ox - 4 + (hh > 0 ? 1 : 0);
+  // tmp1/tmp3: horizontal frac-1/frac-3, first (Short out), out ext_h x pw
+  static int16_t tmp1[72 * kFracStride], tmp3[72 * kFracStride];
+  mc_filter_c(pad_y + (int64_t)base_row * ps + col1, ps, kLumaFilt[1], 8,
+              0, bd, 1, 0, ext_h, pw, tmp1, kFracStride);
+  mc_filter_c(pad_y + (int64_t)base_row * ps + col3, ps, kLumaFilt[3], 8,
+              0, bd, 1, 0, ext_h, pw, tmp3, kFracStride);
+
+  // vq(tmp, vfrac, row_off, out_w, col_off): vertical pass into blk
+#define VQ(dstv, dsth, tmp, vfrac, row_off, out_w, col_off)               \
+  do {                                                                     \
+    if ((vfrac) == 0)                                                      \
+      es_copy_last(tmp + (int64_t)(row_off) * kFracStride + (col_off),     \
+                   kFracStride, out_w, ph, bd, S->frac_blk[dstv][dsth],    \
+                   kFracStride);                                           \
+    else                                                                   \
+      mc_filter_c(tmp + (int64_t)(row_off) * kFracStride + (col_off),      \
+                  kFracStride, kLumaFilt[vfrac], 8, 1, bd, 0, 1, ph,       \
+                  out_w, S->frac_blk[dstv][dsth], kFracStride);            \
+  } while (0)
+
+  // @1,1 and @3,1 (from tmp1)
+  VQ(1, 1, tmp1, 1, hv == 0 ? 1 : 0, pw, 0);
+  VQ(3, 1, tmp1, 3, 0, pw, 0);
+  if (hv != 0) {
+    VQ(2, 1, tmp1, 2, hv == 0 ? 1 : 0, pw, 0);
+    VQ(2, 3, tmp3, 2, hv == 0 ? 1 : 0, pw, 0);
+  } else {
+    VQ(0, 1, tmp1, 0, 4, pw, 0);
+    VQ(0, 3, tmp3, 0, 4, pw, 0);
+  }
+  if (hh != 0) {
+    int col = hh > 0 ? 1 : 0;
+    VQ(1, 2, S->frac_tmp2, 1, hv >= 0 ? 1 : 0, pw, col);
+    VQ(3, 2, S->frac_tmp2, 3, hv > 0 ? 1 : 0, pw, col);
+  } else {
+    VQ(1, 0, S->frac_tmp0, 1, hv >= 0 ? 1 : 0, pw, 1);
+    VQ(3, 0, S->frac_tmp0, 3, hv > 0 ? 1 : 0, pw, 1);
+  }
+  VQ(1, 3, tmp3, 1, hv == 0 ? 1 : 0, pw, 0);
+  VQ(3, 3, tmp3, 3, 0, pw, 0);
+#undef VQ
+}
+
+// half/quarter refinement offsets (TEncSearch.cpp:47)
+static const int kRefineH[9][2] = {{0, 0},  {0, -1}, {0, 1},
+                                   {-1, 0}, {1, 0},  {-1, -1},
+                                   {1, -1}, {-1, 1}, {1, 1}};
+static const int kRefineQ[9][2] = {{0, 0},  {0, -1}, {0, 1},
+                                   {-1, -1}, {1, -1}, {-1, 0},
+                                   {1, 0},  {-1, 1}, {1, 1}};
+
+// xPatternRefinement; writes the winning offset into (*odx, *ody)
+static int64_t es_refine(EncState* S, const int32_t* org, int pw, int ph,
+                         int frac, int start_x, int start_y, int base_x,
+                         int base_y, int* odx, int* ody) {
+  const int(*refine)[2] = frac == 2 ? kRefineH : kRefineQ;
+  int64_t best = MAX_UINT_C;
+  int best_i = 0;
+  for (int i = 0; i < 9; i++) {
+    int dx = refine[i][0], dy = refine[i][1];
+    int hor_val = (base_x + dx) * frac;
+    int ver_val = (base_y + dy) * frac;
+    const int16_t* blk = S->frac_blk[ver_val & 3][hor_val & 3];
+    int co = (hor_val == 2 && (ver_val & 1) == 0) ? 1 : 0;
+    int ro = ((hor_val & 1) == 0 && ver_val == 2) ? 1 : 0;
+    const int16_t* cur = blk + (int64_t)ro * kFracStride + co;
+    int64_t dist;
+    if (S->me.use_had_me)
+      dist = es_had32(org, pw, cur, kFracStride, pw, ph, S->ep.bit_inc);
+    else
+      dist = es_sad32(org, pw, cur, kFracStride, pw, ph, 0, S->ep.bit_inc);
+    dist += es_mc_cost_pts(S, start_x + dx, start_y + dy);
+    if (dist < best) {
+      best = dist;
+      best_i = i;
+    }
+  }
+  *odx = refine[best_i][0];
+  *ody = refine[best_i][1];
+  return best;
+}
+
+// xMotionEstimation: integer (TZ / full for bipred) + fractional; returns
+// cost and fills mv (quarter-pel), bits
+static void es_motion_estimation_impl(EncState* S, int cu_x, int cu_y, int xp,
+                                 int yp, int pw, int ph, int lst, int ref,
+                                 const int16_t mv_pred[2], int bits_in,
+                                 const int16_t* bi_mv,
+                                 const int16_t* bi_other, int* omvx,
+                                 int* omvy, int* obits, int64_t* ocost);
+static void es_motion_estimation(EncState* S, int cu_x, int cu_y, int xp,
+                                 int yp, int pw, int ph, int lst, int ref,
+                                 const int16_t mv_pred[2], int bits_in,
+                                 const int16_t* bi_mv,
+                                 const int16_t* bi_other, int* omvx,
+                                 int* omvy, int* obits, int64_t* ocost) {
+  PROF_BEGIN(16);
+  es_motion_estimation_impl(S, cu_x, cu_y, xp, yp, pw, ph, lst, ref,
+                            mv_pred, bits_in, bi_mv, bi_other, omvx, omvy,
+                            obits, ocost);
+  PROF_END(16);
+}
+static void es_motion_estimation_impl(EncState* S, int cu_x, int cu_y, int xp,
+                                 int yp, int pw, int ph, int lst, int ref,
+                                 const int16_t mv_pred[2], int bits_in,
+                                 const int16_t* bi_mv,
+                                 const int16_t* bi_other, int* omvx,
+                                 int* omvy, int* obits, int64_t* ocost) {
+  int bi = bi_mv != 0;
+  int srch_rng = bi ? S->me.bipred_range : S->me.search_range;
+  // ME original; the uni-prediction fill is identical for every
+  // (list, ref) of the same PU, so it is cached by PU geometry (the
+  // bipred fill depends on bi_other and always refills + poisons)
+  const int16_t* org = S->org_y + (int64_t)yp * S->rls + xp;
+  if (bi) {
+    for (int r = 0; r < ph; r++)
+      for (int c = 0; c < pw; c++)
+        S->me_org[r * pw + c] =
+            2 * (int32_t)org[(int64_t)r * S->rls + c] - bi_other[r * pw + c];
+    S->me_org_key = 0;
+  } else {
+    int64_t key = ((((int64_t)yp << 13) | xp) << 16) | (pw << 8) | ph;
+    if (S->me_org_key != key) {
+      for (int r = 0; r < ph; r++) {
+        int c = 0;
+#if defined(__AVX2__)
+        for (; c + 8 <= pw; c += 8)
+          _mm256_storeu_si256(
+              (__m256i*)(S->me_org + r * pw + c),
+              _mm256_cvtepi16_epi32(_mm_loadu_si128(
+                  (const __m128i*)(org + (int64_t)r * S->rls + c))));
+#endif
+        for (; c < pw; c++)
+          S->me_org[r * pw + c] = (int32_t)org[(int64_t)r * S->rls + c];
+      }
+      S->me_org_key = key;
+    }
+  }
+
+  const int16_t* pad_y = S->refs.pad_y[lst][ref];
+  int64_t ps = S->refs.ys;
+  int m = S->refs.margin;
+
+  // search range (xSetSearchRange)
+  int bx = bi ? bi_mv[0] : mv_pred[0];
+  int by = bi ? bi_mv[1] : mv_pred[1];
+  es_clip_mv(S, cu_x, cu_y, &bx, &by);
+  int lt_x = bx - (srch_rng << 2), lt_y = by - (srch_rng << 2);
+  int rb_x = bx + (srch_rng << 2), rb_y = by + (srch_rng << 2);
+  es_clip_mv(S, cu_x, cu_y, &lt_x, &lt_y);
+  es_clip_mv(S, cu_x, cu_y, &rb_x, &rb_y);
+  lt_x >>= 2; lt_y >>= 2; rb_x >>= 2; rb_y >>= 2;
+
+  es_mc_sad(S);
+  es_mc_set_pred(S, mv_pred[0], mv_pred[1]);
+  es_mc_set_scale(S, 2);
+
+  int sub_shift = (S->me.fast_enc && ph > 8) ? 1 : 0;
+
+  TzCtx T;
+  T.S = S;
+  T.org = S->me_org;
+  T.org16 = bi ? 0 : org;
+  T.plane = pad_y;
+  T.ps = ps;
+  T.m = m; T.xp = xp; T.yp = yp; T.pw = pw; T.ph = ph;
+  T.sub_shift = sub_shift;
+  T.sr_l = lt_x; T.sr_t = lt_y; T.sr_r = rb_x; T.sr_b = rb_y;
+
+  int64_t cost;
+  if (bi) {
+    cost = es_full_search(&T);
+  } else {
+    int sx = mv_pred[0], sy = mv_pred[1];
+    es_clip_mv(S, cu_x, cu_y, &sx, &sy);
+    cost = es_tz_search(&T, sx >> 2, sy >> 2, S->me.search_range);
+  }
+  int mvi_x = T.bx, mvi_y = T.by;
+
+  // fractional refinement (xPatternSearchFracDIF)
+  es_mc_sad(S);
+  es_mc_set_scale(S, 1);
+  int ox = m + xp + mvi_x, oy = m + yp + mvi_y;
+  es_upsample_h2(S, pad_y, ps, ox, oy, pw, ph);
+  int hx, hy;
+  es_refine(S, S->me_org, pw, ph, 2, mvi_x * 2, mvi_y * 2, 0, 0, &hx, &hy);
+  es_mc_set_scale(S, 0);
+  es_upsample_q(S, pad_y, ps, ox, oy, pw, ph, hx, hy);
+  int qx, qy;
+  cost = es_refine(S, S->me_org, pw, ph, 1, mvi_x * 4 + hx * 2,
+                   mvi_y * 4 + hy * 2, hx * 2, hy * 2, &qx, &qy);
+
+  es_mc_set_scale(S, 0);
+  int mvx = mvi_x * 4 + hx * 2 + qx;
+  int mvy = mvi_y * 4 + hy * 2 + qy;
+  int mv_bits = es_mc_bits(S, mvx, mvy);
+  int bits = bits_in + mv_bits;
+  double weight = bi ? 0.5 : 1.0;
+  cost = (int64_t)(floor(weight * ((double)cost -
+                                   (double)es_mc_cost_bits(S, mv_bits))) +
+                   (double)es_mc_cost_bits(S, bits));
+  *omvx = mvx;
+  *omvy = mvy;
+  *obits = bits;
+  *ocost = cost;
+}
+
+// xCheckBestMVP; updates *mv_pred/*mvp_idx/*bits/*cost in place
+static void es_check_best_mvp(EncState* S, const int16_t cands[AMVP_MAX][2],
+                              int mvx, int mvy, int16_t mv_pred[2],
+                              int* mvp_idx, int* bits, int64_t* cost) {
+  es_mc_sad(S);
+  es_mc_set_scale(S, 0);
+  es_mc_set_pred(S, mv_pred[0], mv_pred[1]);
+  int org_mv_bits = es_mc_bits(S, mvx, mvy) + 1;
+  int best_bits = org_mv_bits;
+  int best_idx = *mvp_idx;
+  for (int i = 0; i < AMVP_MAX; i++) {
+    if (i == *mvp_idx) continue;
+    es_mc_set_pred(S, cands[i][0], cands[i][1]);
+    int b = es_mc_bits(S, mvx, mvy) + 1;
+    if (b < best_bits) {
+      best_bits = b;
+      best_idx = i;
+    }
+  }
+  if (best_idx != *mvp_idx) {
+    int new_bits = *bits - org_mv_bits + best_bits;
+    *cost = (*cost - es_mc_cost_bits(S, *bits)) +
+            es_mc_cost_bits(S, new_bits);
+    mv_pred[0] = cands[best_idx][0];
+    mv_pred[1] = cands[best_idx][1];
+    *mvp_idx = best_idx;
+    *bits = new_bits;
+  }
+}
+
+// xGetInterPredictionError: MC + HAD/SAD over the PU (luma)
+static int64_t es_inter_prediction_error(EncState* S, int cu_x, int cu_y,
+                                         int size, int pu_idx) {
+  const FrameArrays* fa = &S->fa;
+  int part_sz = U(fa->part_size, cu_x / 4, cu_y / 4);
+  int xp, yp, pw, ph;
+  pu_geometry(part_sz, cu_x, cu_y, size, pu_idx, &xp, &yp, &pw, &ph);
+  int16_t pred[64 * 64];
+  es_mc_pu(S, cu_x, cu_y, xp, yp, pw, ph, 1, pred, pw);
+  const int16_t* org = S->org_y + (int64_t)yp * S->rls + xp;
+  int32_t org32[64 * 64];
+  for (int r = 0; r < ph; r++)
+    for (int c = 0; c < pw; c++)
+      org32[r * pw + c] = org[(int64_t)r * S->rls + c];
+  if (S->me.use_had_me)
+    return es_had32(org32, pw, pred, pw, pw, ph, S->ep.bit_inc);
+  return es_sad32(org32, pw, pred, pw, pw, ph, 0, S->ep.bit_inc);
+}
+
+// xMergeEstimation: best merge candidate for one PU; returns best cost
+// (MAX_UINT when none) and fills *out/*out_idx
+static int64_t es_merge_estimation(EncState* S, int cu_x, int cu_y,
+                                   int size, int part_sz, int pu_idx,
+                                   MvCand* out, int* out_idx) {
+  const FrameArrays* fa = &S->fa;
+  int xp, yp, pw, ph;
+  pu_geometry(part_sz, cu_x, cu_y, size, pu_idx, &xp, &yp, &pw, &ph);
+  MvEnv env = {fa, &S->sp};
+  MvCand cands[MRG_MAX];
+  int n_valid =
+      merge_candidates(&env, cu_x, cu_y, size, part_sz, pu_idx, -1, cands);
+  // xRestrictBipredMergeCand
+  if (size == 8 && part_sz != SZ_2Nx2N) {
+    for (int c = 0; c < n_valid; c++) {
+      if (cands[c].dir == 3) {
+        cands[c].dir = 1;
+        cands[c].ref[1] = -1;
+        cands[c].mv[1][0] = 0;
+        cands[c].mv[1][1] = 0;
+      }
+    }
+  }
+  int64_t best_cost = MAX_UINT_C;
+  int best = -1;
+  es_save_pu_motion(S, xp, yp, pw, ph, &S->pu_save2);
+  int ux = xp / 4, uy = yp / 4, uw = pw / 4, uh = ph / 4;
+  for (int c = 0; c < n_valid; c++) {
+    set_pu_i8(fa, fa->inter_dir, ux, uy, uw, uh, (int8_t)cands[c].dir);
+    for (int l = 0; l < 2; l++) {
+      set_pu_list_i8(fa, fa->ref_idx, l, ux, uy, uw, uh,
+                     (int8_t)cands[c].ref[l]);
+      set_pu_mv(fa, fa->mv, l, ux, uy, uw, uh, cands[c].mv[l][0],
+                cands[c].mv[l][1]);
+    }
+    int64_t err = es_inter_prediction_error(S, cu_x, cu_y, size, pu_idx);
+    int bits_cand = c + 1;
+    if (c == MRG_MAX - 1) bits_cand -= 1;
+    int64_t cost = err + es_mc_cost_bits(S, bits_cand);
+    if (cost < best_cost) {
+      best_cost = cost;
+      best = c;
+    }
+  }
+  es_restore_pu_motion(S, xp, yp, pw, ph, &S->pu_save2);
+  if (best >= 0) {
+    *out = cands[best];
+    *out_idx = best;
+  }
+  return best_cost;
+}
+
+// xGetBlkBits (TEncSearch.cpp:3954)
+static void es_blk_bits(int part_sz, int p_slice, int pu_idx, int last_mode,
+                        int out[3]) {
+  if (part_sz == SZ_2Nx2N || part_sz == SZ_NxN) {
+    if (p_slice) { out[0] = 1; out[1] = 3; out[2] = 5; }
+    else { out[0] = 3; out[1] = 3; out[2] = 5; }
+  } else if (part_sz == SZ_2NxN || part_sz == SZ_2NxnU ||
+             part_sz == SZ_2NxnD) {
+    if (p_slice) { out[0] = 3; out[1] = 0; out[2] = 0; }
+    else {
+      static const int tab[2][3][3] = {
+          {{0, 0, 3}, {0, 0, 0}, {0, 0, 0}},
+          {{5, 7, 7}, {7, 5, 7}, {6, 6, 6}}};
+      for (int i = 0; i < 3; i++) out[i] = tab[pu_idx][last_mode][i];
+    }
+  } else {
+    if (p_slice) { out[0] = 3; out[1] = 0; out[2] = 0; }
+    else {
+      static const int tab[2][3][3] = {
+          {{0, 2, 3}, {0, 0, 0}, {0, 0, 0}},
+          {{5, 7, 7}, {5, 5, 7}, {6, 6, 6}}};
+      for (int i = 0; i < 3; i++) out[i] = tab[pu_idx][last_mode][i];
+    }
+  }
+}
+
+// predInterSearch (TEncSearch.cpp:3184): per-PU ME + merge decision;
+// fills motion into the frame arrays and S->pred_* with the prediction
+static void es_pred_inter_search(EncState* S, int cu_x, int cu_y, int size,
+                                 int part_sz, int use_mrg) {
+  const FrameArrays* fa = &S->fa;
+  int n_pu = num_pus(part_sz);
+  int p_slice = !S->me.is_b;
+  int last_mode = 0;
+  for (int pu = 0; pu < n_pu; pu++) {
+    int xp, yp, pw, ph;
+    pu_geometry(part_sz, cu_x, cu_y, size, pu, &xp, &yp, &pw, &ph);
+    int ux = xp / 4, uy = yp / 4, uw = pw / 4, uh = ph / 4;
+    int blk_bits[3];
+    es_blk_bits(part_sz, p_slice, pu, last_mode, blk_bits);
+    int test_normal = !(use_mrg && size > 8 && n_pu == 2);
+    int64_t cost_uni[2] = {MAX_UINT_C, MAX_UINT_C};
+    int bits_uni[2] = {0, 0};
+    int16_t mv_uni[2][2] = {{0, 0}, {0, 0}};
+    int ref_uni[2] = {0, 0};
+    int mvp_idx_arr[2][33];
+    int16_t mv_pred_arr[2][33][2];
+    int16_t cands_arr[2][33][AMVP_MAX][2];
+    int me_bits = 0;
+
+    if (test_normal) {
+      int n_dir = S->me.is_b ? 2 : 1;
+      int lc = S->me.num_ref_lc;
+      int nbp = S->me.no_back_pred;
+      int mvdl1z = S->me.is_b && S->me.mvd_l1_zero;
+      int64_t cost_l0[33];
+      int bits_l0[33];
+      int16_t mv_temp[2][33][2];
+      int64_t best_bip_dist = MAX_INT_C;
+      int best_bip_ref = 0, best_bip_mvp = 0;
+      int have_pred_store[2] = {0, 0};
+      for (int lst = 0; lst < n_dir; lst++) {
+        int nri = lst == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+        for (int ref = 0; ref < nri; ref++) {
+          int bits_tmp = blk_bits[lst];
+          if (nri > 1) {
+            bits_tmp += ref + 1;
+            if (ref == nri - 1) bits_tmp -= 1;
+          }
+          int64_t dbp;
+          int mvp_idx = es_estimate_mvp_amvp(S, cu_x, cu_y, size, part_sz,
+                                             pu, lst, ref,
+                                             cands_arr[lst][ref], &dbp);
+          int16_t mv_pred[2] = {cands_arr[lst][ref][mvp_idx][0],
+                                cands_arr[lst][ref][mvp_idx][1]};
+          mvp_idx_arr[lst][ref] = mvp_idx;
+          mv_pred_arr[lst][ref][0] = mv_pred[0];
+          mv_pred_arr[lst][ref][1] = mv_pred[1];
+          if (mvdl1z && lst == 1 && dbp < best_bip_dist) {
+            best_bip_dist = dbp;
+            best_bip_mvp = mvp_idx;
+            best_bip_ref = ref;
+          }
+          bits_tmp += 1;  // mvp idx bits
+          int mvx, mvy, bt;
+          int64_t cost_tmp;
+          // GPB_SIMPLE_UNI shortcut (TEncSearch.cpp:3334-3380)
+          if (lc > 0 && lst == 1 &&
+              (nbp || S->me.ref_idx_of_l0_from_l1[ref] >= 0)) {
+            int src = nbp ? ref : S->me.ref_idx_of_l0_from_l1[ref];
+            mvx = mv_temp[0][src][0];
+            mvy = mv_temp[0][src][1];
+            cost_tmp = cost_l0[src] - es_mc_cost_bits(S, bits_l0[src]);
+            es_mc_set_pred(S, mv_pred[0], mv_pred[1]);
+            es_mc_set_scale(S, 0);
+            bt = bits_tmp + es_mc_bits(S, mvx, mvy);
+            cost_tmp += es_mc_cost_bits(S, bt);
+          } else if (lc <= 0 && lst == 1 && nbp) {
+            cost_tmp = MAX_UINT_C;
+            mvx = mv_temp[0][ref][0];
+            mvy = mv_temp[0][ref][1];
+            bt = bits_tmp;
+          } else {
+            es_motion_estimation(S, cu_x, cu_y, xp, yp, pw, ph, lst, ref,
+                                 mv_pred, bits_tmp, 0, 0, &mvx, &mvy, &bt,
+                                 &cost_tmp);
+          }
+          mv_temp[lst][ref][0] = (int16_t)mvx;
+          mv_temp[lst][ref][1] = (int16_t)mvy;
+          es_check_best_mvp(S, cands_arr[lst][ref], mvx, mvy, mv_pred,
+                            &mvp_idx, &bt, &cost_tmp);
+          mvp_idx_arr[lst][ref] = mvp_idx;
+          mv_pred_arr[lst][ref][0] = mv_pred[0];
+          mv_pred_arr[lst][ref][1] = mv_pred[1];
+          if (lc > 0 && !nbp) {
+            if (lst == 0) {
+              cost_l0[ref] = cost_tmp;
+              bits_l0[ref] = bt;
+              if (S->me.ref_idx_of_lc[0][ref] < 0) cost_tmp = MAX_UINT_C;
+            } else if (S->me.ref_idx_of_lc[1][ref] < 0) {
+              cost_tmp = MAX_UINT_C;
+            }
+          }
+          // best-uni update (TEncSearch.cpp:3407-3410)
+          if ((lst == 0 && cost_tmp < cost_uni[0]) ||
+              (lst == 1 && nbp && ref == ref_uni[0]) ||
+              (lst == 1 && lc > 0 && (ref == 0 || ref == ref_uni[0]) &&
+               !nbp && ref == S->me.ref_idx_of_l0_from_l1[ref]) ||
+              (lst == 1 && !nbp && cost_tmp < cost_uni[1])) {
+            cost_uni[lst] = cost_tmp;
+            bits_uni[lst] = bt;
+            mv_uni[lst][0] = (int16_t)mvx;
+            mv_uni[lst][1] = (int16_t)mvy;
+            ref_uni[lst] = ref;
+            if (S->me.is_b && !mvdl1z) {
+              // store uni pred for bi removeHighFreq
+              if (lst == 1) {
+                es_pred_pu_luma(S, xp, yp, pw, ph, 1, ref, mvx, mvy, cu_x,
+                                cu_y, S->me_pred_store[1], pw);
+                have_pred_store[1] = 1;
+              }
+              if (lst == 0 &&
+                  (nbp || (lc > 0 && S->me.ref_idx_of_l0_from_l1[0] == 0))) {
+                es_pred_pu_luma(S, xp, yp, pw, ph, 0, ref, mvx, mvy, cu_x,
+                                cu_y, S->me_pred_store[0], pw);
+                have_pred_store[0] = 1;
+              }
+            }
+          }
+        }
+      }
+      (void)have_pred_store;
+
+      // bi-directional prediction (TEncSearch.cpp:3440-3577)
+      int64_t cost_bi = MAX_UINT_C;
+      int bits_bi = 0;
+      int16_t mv_bi[2][2] = {{mv_uni[0][0], mv_uni[0][1]},
+                             {mv_uni[1][0], mv_uni[1][1]}};
+      int ref_bi[2] = {ref_uni[0], ref_uni[1]};
+      int16_t mvp_pred_bi[2][33][2];
+      int mvp_idx_bi[2][33];
+      memcpy(mvp_pred_bi, mv_pred_arr, sizeof(mvp_pred_bi));
+      memcpy(mvp_idx_bi, mvp_idx_arr, sizeof(mvp_idx_bi));
+      int bipred_restricted = (size == 8 && (pw < 8 || ph < 8));
+      if (S->me.is_b && !bipred_restricted) {
+        int mot_bits[2] = {0, 0};
+        int mvdl1z_ = mvdl1z;
+        if (mvdl1z_) {
+          mvp_idx_bi[1][best_bip_ref] = best_bip_mvp;
+          mvp_pred_bi[1][best_bip_ref][0] =
+              cands_arr[1][best_bip_ref][best_bip_mvp][0];
+          mvp_pred_bi[1][best_bip_ref][1] =
+              cands_arr[1][best_bip_ref][best_bip_mvp][1];
+          mv_bi[1][0] = mvp_pred_bi[1][best_bip_ref][0];
+          mv_bi[1][1] = mvp_pred_bi[1][best_bip_ref][1];
+          ref_bi[1] = best_bip_ref;
+          es_pred_pu_luma(S, xp, yp, pw, ph, 1, best_bip_ref, mv_bi[1][0],
+                          mv_bi[1][1], cu_x, cu_y, S->me_pred_store[1],
+                          pw);
+          mot_bits[0] = bits_uni[0] - blk_bits[0];
+          mot_bits[1] = blk_bits[1];
+          int nri1 = S->sp.num_ref_idx1;
+          if (nri1 > 1) {
+            mot_bits[1] += best_bip_ref + 1;
+            if (best_bip_ref == nri1 - 1) mot_bits[1] -= 1;
+          }
+          mot_bits[1] += 1;  // mvp idx bits
+          bits_bi = blk_bits[2] + mot_bits[0] + mot_bits[1];
+          mv_temp[1][best_bip_ref][0] = mv_bi[1][0];
+          mv_temp[1][best_bip_ref][1] = mv_bi[1][1];
+        } else {
+          mot_bits[0] = bits_uni[0] - blk_bits[0];
+          mot_bits[1] = bits_uni[1] - blk_bits[1];
+          bits_bi = blk_bits[2] + mot_bits[0] + mot_bits[1];
+        }
+        int n_iter = (S->me.fast_enc || mvdl1z_) ? 1 : 4;
+        for (int it = 0; it < n_iter; it++) {
+          int ilist = it % 2;
+          if (S->me.fast_enc &&
+              (nbp || (lc > 0 && S->me.ref_idx_of_l0_from_l1[0] == 0)))
+            ilist = 1;
+          if (mvdl1z_) ilist = 0;
+          int changed = 0;
+          int nri = ilist == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+          for (int ref = 0; ref < nri; ref++) {
+            int bits_tmp = blk_bits[2] + mot_bits[1 - ilist];
+            if (nri > 1) {
+              bits_tmp += ref + 1;
+              if (ref == nri - 1) bits_tmp -= 1;
+            }
+            bits_tmp += 1;  // mvp idx bits (mvp_idx_bi)
+            int mvx, mvy, bt;
+            int64_t cost_tmp;
+            es_motion_estimation(S, cu_x, cu_y, xp, yp, pw, ph, ilist, ref,
+                                 mvp_pred_bi[ilist][ref], bits_tmp,
+                                 mv_temp[ilist][ref],
+                                 S->me_pred_store[1 - ilist], &mvx, &mvy,
+                                 &bt, &cost_tmp);
+            mv_temp[ilist][ref][0] = (int16_t)mvx;
+            mv_temp[ilist][ref][1] = (int16_t)mvy;
+            es_check_best_mvp(S, cands_arr[ilist][ref], mvx, mvy,
+                              mvp_pred_bi[ilist][ref],
+                              &mvp_idx_bi[ilist][ref], &bt, &cost_tmp);
+            if (cost_tmp < cost_bi) {
+              changed = 1;
+              mv_bi[ilist][0] = (int16_t)mvx;
+              mv_bi[ilist][1] = (int16_t)mvy;
+              ref_bi[ilist] = ref;
+              cost_bi = cost_tmp;
+              mot_bits[ilist] = bt - blk_bits[2] - mot_bits[1 - ilist];
+              bits_bi = bt;
+              if (n_iter != 1)
+                es_pred_pu_luma(S, xp, yp, pw, ph, ilist, ref, mvx, mvy,
+                                cu_x, cu_y, S->me_pred_store[ilist], pw);
+            }
+          }
+          if (!changed) {
+            if (cost_bi <= cost_uni[0] && cost_bi <= cost_uni[1]) {
+              int r0 = ref_bi[0];
+              es_check_best_mvp(S, cands_arr[0][r0], mv_bi[0][0],
+                                mv_bi[0][1], mvp_pred_bi[0][r0],
+                                &mvp_idx_bi[0][r0], &bits_bi, &cost_bi);
+              if (!mvdl1z_) {
+                int r1 = ref_bi[1];
+                es_check_best_mvp(S, cands_arr[1][r1], mv_bi[1][0],
+                                  mv_bi[1][1], mvp_pred_bi[1][r1],
+                                  &mvp_idx_bi[1][r1], &bits_bi, &cost_bi);
+              }
+            }
+            break;
+          }
+        }
+      }
+
+      // final mode selection (TEncSearch.cpp:3660-3760)
+      if (nbp || (lc > 0 && S->me.ref_idx_of_l0_from_l1[0] == 0))
+        cost_uni[1] = MAX_UINT_C;
+      set_pu_u8(fa, fa->merge_flag, ux, uy, uw, uh, 0);
+      if (cost_bi <= cost_uni[0] && cost_bi <= cost_uni[1]) {
+        set_pu_i8(fa, fa->inter_dir, ux, uy, uw, uh, 3);
+        for (int lst = 0; lst < 2; lst++) {
+          int ref = ref_bi[lst];
+          es_set_pu_motion(S, xp, yp, pw, ph, lst, ref, mv_bi[lst][0],
+                           mv_bi[lst][1],
+                           mv_bi[lst][0] - mvp_pred_bi[lst][ref][0],
+                           mv_bi[lst][1] - mvp_pred_bi[lst][ref][1],
+                           mvp_idx_bi[lst][ref]);
+        }
+        last_mode = 2;
+        me_bits = bits_bi;
+      } else if (cost_uni[0] <= cost_uni[1]) {
+        int ref = ref_uni[0];
+        set_pu_i8(fa, fa->inter_dir, ux, uy, uw, uh, 1);
+        es_set_pu_motion(S, xp, yp, pw, ph, 0, ref, mv_uni[0][0],
+                         mv_uni[0][1],
+                         mv_uni[0][0] - mv_pred_arr[0][ref][0],
+                         mv_uni[0][1] - mv_pred_arr[0][ref][1],
+                         mvp_idx_arr[0][ref]);
+        es_set_pu_motion(S, xp, yp, pw, ph, 1, -1, 0, 0, 0, 0, -1);
+        last_mode = 0;
+        me_bits = bits_uni[0];
+      } else {
+        int ref = ref_uni[1];
+        set_pu_i8(fa, fa->inter_dir, ux, uy, uw, uh, 2);
+        es_set_pu_motion(S, xp, yp, pw, ph, 1, ref, mv_uni[1][0],
+                         mv_uni[1][1],
+                         mv_uni[1][0] - mv_pred_arr[1][ref][0],
+                         mv_uni[1][1] - mv_pred_arr[1][ref][1],
+                         mvp_idx_arr[1][ref]);
+        es_set_pu_motion(S, xp, yp, pw, ph, 0, -1, 0, 0, 0, 0, -1);
+        last_mode = 1;
+        me_bits = bits_uni[1];
+      }
+    }
+
+    if (part_sz != SZ_2Nx2N) {
+      es_mc_sad(S);
+      int64_t me_cost = MAX_UINT_C;
+      es_save_pu_motion(S, xp, yp, pw, ph, &S->pu_save);
+      if (test_normal) {
+        int64_t err =
+            es_inter_prediction_error(S, cu_x, cu_y, size, pu);
+        me_cost = err + es_mc_cost_bits(S, me_bits);
+      }
+      MvCand mrg;
+      int mrg_idx = 0;
+      int64_t mrg_cost =
+          es_merge_estimation(S, cu_x, cu_y, size, part_sz, pu, &mrg,
+                              &mrg_idx);
+      if (mrg_cost < me_cost) {
+        set_pu_u8(fa, fa->merge_flag, ux, uy, uw, uh, 1);
+        set_pu_i8(fa, fa->merge_idx, ux, uy, uw, uh, (int8_t)mrg_idx);
+        set_pu_i8(fa, fa->inter_dir, ux, uy, uw, uh, (int8_t)mrg.dir);
+        for (int lst = 0; lst < 2; lst++)
+          es_set_pu_motion(S, xp, yp, pw, ph, lst, mrg.ref[lst],
+                           mrg.mv[lst][0], mrg.mv[lst][1], 0, 0, -1);
+      } else {
+        es_restore_pu_motion(S, xp, yp, pw, ph, &S->pu_save);
+      }
+    }
+
+    // MC for this PU into the CU prediction buffers
+    es_motion_compensation(S, cu_x, cu_y, size, pu);
+  }
+}
+
+static void es_final_transform_tree(EncState* S, int abs_part, int depth,
+                                    int tr_idx) {
+  FrameArrays* fa = &S->fa;
+  EncBin* e = S->fin;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int log2_tr = S->log2_ctu_v - depth;
+  if (tr_idx == 0) S->bak_cu_part = abs_part;
+  if (log2_tr == 2) {
+    int pn = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % pn == 0) S->bak_chroma = abs_part;
+  }
+  int cu_d = U(fa->depth, ux, uy);
+  int tr_depth = depth - cu_d;
+  int part_sz = U(fa->part_size, ux, uy);
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  int subdiv = tr_mode > tr_depth ? 1 : 0;
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+
+  if (is_intra && part_sz == SZ_NxN && depth == cu_d) {
+  } else if (!is_intra && part_sz != SZ_2Nx2N && depth == cu_d &&
+             S->ep.tu_depth_inter == 1) {
+  } else if (log2_tr > S->ep.max_tr_log2) {
+  } else if (log2_tr == S->ep.min_tr_log2) {
+  } else if (log2_tr == es_min_tu_log2(S, abs_part)) {
+  } else {
+    we_transform_subdiv(S, e, subdiv, log2_tr);
+  }
+
+  int first_cbf = tr_depth == 0;
+  if (first_cbf || log2_tr > 2) {
+    if (first_cbf || es_cbf(S, abs_part, 1, tr_depth - 1))
+      we_qt_cbf(S, e, abs_part, 1, tr_depth);
+    if (first_cbf || es_cbf(S, abs_part, 2, tr_depth - 1))
+      we_qt_cbf(S, e, abs_part, 2, tr_depth);
+  }
+  if (subdiv) {
+    int q_parts = fa->parts >> ((depth + 1) << 1);
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      es_final_transform_tree(S, part, depth + 1, tr_idx + 1);
+      part += q_parts;
+    }
+    return;
+  }
+  if (!(!is_intra && depth == cu_d && !es_cbf(S, abs_part, 1, 0) &&
+        !es_cbf(S, abs_part, 2, 0)))
+    we_qt_cbf(S, e, abs_part, 0, tr_mode);
+  int cbf_y = es_cbf(S, abs_part, 0, tr_idx);
+  int cbf_u = es_cbf(S, abs_part, 1, tr_idx);
+  int cbf_v = es_cbf(S, abs_part, 2, tr_idx);
+  if (log2_tr == 2) {
+    int pn = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % pn == pn - 1) {
+      int bux, buy;
+      es_unit_xy(S, S->bak_chroma, &bux, &buy);
+      cbf_u = (U3(fa->cbf, 1, bux, buy) >> tr_idx) & 1;
+      cbf_v = (U3(fa->cbf, 2, bux, buy) >> tr_idx) & 1;
+    }
+  }
+  // dQP unsupported in the native path (gated at create)
+  int size = 1 << log2_tr;
+  int px = ux * 4, py = uy * 4;
+  if (cbf_y)
+    we_coeff_nxn(S, e, abs_part, fa->coeff_y + (int64_t)py * S->ls + px,
+                 S->ls, size, 0);
+  if (log2_tr > 2) {
+    int cs_ = size / 2;
+    if (cbf_u)
+      we_coeff_nxn(S, e, abs_part,
+                   fa->coeff_cb + (int64_t)(py / 2) * S->cs + px / 2, S->cs,
+                   cs_, 1);
+    if (cbf_v)
+      we_coeff_nxn(S, e, abs_part,
+                   fa->coeff_cr + (int64_t)(py / 2) * S->cs + px / 2, S->cs,
+                   cs_, 2);
+  } else {
+    int pn = fa->parts >> ((depth - 1) << 1);
+    if (abs_part % pn == pn - 1) {
+      int bux, buy;
+      es_unit_xy(S, S->bak_chroma, &bux, &buy);
+      int bpx = bux * 4, bpy = buy * 4;
+      if (cbf_u)
+        we_coeff_nxn(S, e, S->bak_chroma,
+                     fa->coeff_cb + (int64_t)(bpy / 2) * S->cs + bpx / 2,
+                     S->cs, size, 1);
+      if (cbf_v)
+        we_coeff_nxn(S, e, S->bak_chroma,
+                     fa->coeff_cr + (int64_t)(bpy / 2) * S->cs + bpx / 2,
+                     S->cs, size, 2);
+    }
+  }
+}
+
+static void es_finish_cu_final(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int gran = fa->ctu_size;
+  if (((px + size) % gran == 0 || (px + size) == fa->width) &&
+      ((py + size) % gran == 0 || (py + size) == fa->height)) {
+    int cur_parts = fa->parts >> (depth << 1);
+    int64_t scu = fa->ctu_inv_order[S->ctu_addr] * fa->parts + abs_part;
+    if (scu + cur_parts != S->ep.slice_end_scu) eb_bin_trm(S->fin, 0);
+  }
+}
+
+static void es_encode_cu_final(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  EncBin* e = S->fin;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int inside = px + size <= fa->width && py + size <= fa->height;
+  int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  if (inside) we_split_flag(S, e, abs_part, depth);
+  if ((depth < U(fa->depth, ux, uy) && depth < max_sig) || !inside) {
+    int q_parts = (fa->parts >> (depth << 1)) >> 2;
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      int sux, suy;
+      es_unit_xy(S, part, &sux, &suy);
+      if (sux * 4 < fa->width && suy * 4 < fa->height)
+        es_encode_cu_final(S, part, depth + 1);
+      part += q_parts;
+    }
+    return;
+  }
+  if (S->ep.tq_bypass_enable) we_tq_bypass(S, e, abs_part);
+  if (S->has_inter) {
+    we_skip_flag(S, e, abs_part);
+    if (U(fa->skip, ux, uy)) {
+      we_merge_idx(S, e, abs_part);
+      es_finish_cu_final(S, abs_part, depth);
+      return;
+    }
+    we_pred_mode(S, e, abs_part);
+  }
+  we_part_size(S, e, abs_part, depth);
+  int part_sz = U(fa->part_size, ux, uy);
+  int is_intra = U(fa->pred_mode, ux, uy) == MODE_INTRA;
+  if (is_intra && part_sz == SZ_2Nx2N && S->ep.use_pcm &&
+      (1 << S->ep.pcm_log2_min) <= size && size <= (1 << S->ep.pcm_log2_max))
+    eb_bin_trm(e, 0);
+  if (is_intra) {
+    we_intra_dir_luma(S, e, abs_part, 1);
+    we_intra_dir_chroma(S, e, abs_part);
+  } else {
+    // encodePUWise + root cbf (TEncCu::xEncodeCU inter branch)
+    int n_pu = num_pus(part_sz);
+    for (int pu = 0; pu < n_pu; pu++) {
+      int xp, yp, pw, ph;
+      pu_geometry(part_sz, px, py, size, pu, &xp, &yp, &pw, &ph);
+      int pux = xp / 4, puy = yp / 4;
+      int part = es_part_at(S, pux, puy);
+      we_merge_flag(S, e, part);
+      if (U(fa->merge_flag, pux, puy)) {
+        we_merge_idx(S, e, part);
+      } else {
+        if (S->sp.is_b) we_inter_dir(S, e, part, depth);
+        for (int lst = 0; lst < 2; lst++) {
+          int nri = lst == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+          if (nri > 0) {
+            int idir = U(fa->inter_dir, pux, puy);
+            if (idir & (1 << lst)) {
+              if (nri > 1) we_ref_idx(S, e, part, lst);
+              we_mvd(S, e, part, lst);
+              we_mvp_idx(S, e, part, lst);
+            }
+          }
+        }
+      }
+    }
+    int merge_2nx2n =
+        U(fa->merge_flag, ux, uy) && part_sz == SZ_2Nx2N;
+    int root_cbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                     U3(fa->cbf, 2, ux, uy)) &
+                    1) != 0;
+    if (!merge_2nx2n) we_qt_root_cbf(S, e, root_cbf);
+    if (!root_cbf) {
+      es_finish_cu_final(S, abs_part, depth);
+      return;
+    }
+  }
+  es_final_transform_tree(S, abs_part, depth, 0);
+  es_finish_cu_final(S, abs_part, depth);
+}
+
+// ===========================================================================
+// Inter residual quadtree RD (encodeResAndCalcRdInterCU, TEncSearch.cpp:4526;
+// xEstimateResidualQT :4782, xEncodeResidualQT :5368, xSetResidualQTData
+// :5433) + the P/B-slice CU mode decisions (TEncCu.cpp
+// xCheckRDCostMerge2Nx2N :1248, xCheckRDCostInter :1371).  Mirrors
+// encoder/inter_search.py encode_res_and_calc_rd/_est_residual_qt and
+// encoder/cu_encoder.py _check_rd_merge_2nx2n/_check_rd_inter/_check_amp.
+// ===========================================================================
+
+// RdCost::getDistPart over int32 residual arrays — thin wrapper over
+// es_sse32 picking up bit_inc/chroma_weight from the state
+static inline int64_t es_dist32(const EncState* S, const int32_t* cur,
+                                int cstride, const int32_t* org,
+                                int ostride, int size, int weighted) {
+  return es_sse32(cur, cstride, org, ostride, size, S->ep.bit_inc, weighted,
+                  S->ep.chroma_weight);
+}
+
+// setCbfSubParts-style region assignment at an arbitrary depth
+static inline void es_set_cbf_region(EncState* S, int abs_part,
+                                     int depth_for_region, int comp,
+                                     int value) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth_for_region;
+  set_region<uint8_t>(fa, fa->cbf + (int64_t)comp * fa->uh * fa->uw, ux, uy,
+                      units, (uint8_t)value);
+}
+
+static inline void es_set_ts_region(EncState* S, int abs_part,
+                                    int depth_for_region, int comp,
+                                    int value) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth_for_region;
+  set_region<uint8_t>(fa, fa->ts_flag + (int64_t)comp * fa->uh * fa->uw, ux,
+                      uy, units, (uint8_t)value);
+}
+
+
+struct RqtAcc {
+  double cost;
+  int64_t bits, dist;
+};
+
+// inter transform-skip RDO, luma 4x4 TU (INTER_TRANSFORMSKIP;
+// inter_search.py _ts_check_luma)
+static void es_ts_check_luma(EncState* S, int abs_part, int full_depth,
+                             int tr_mode, const int32_t* resi_y, int qps_y,
+                             int32_t* coeff_y, int64_t* abs_sum_y,
+                             int64_t* dist_y, double min_cost_y,
+                             int* best_ts, int layer, int lx, int ly,
+                             int set_cbf) {
+  FrameArrays* fa = &S->fa;
+  int ctu = fa->ctu_size;
+  int32_t* qt_y = S->iqt_resi[layer][0];
+  int32_t best_coeff[16], best_resi[16];
+  memcpy(best_coeff, coeff_y, sizeof(int32_t) * 16);
+  for (int y = 0; y < 4; y++)
+    memcpy(best_resi + y * 4, qt_y + (ly + y) * ctu + lx,
+           sizeof(int32_t) * 4);
+  es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+  es_set_ts_region(S, abs_part, full_depth, 0, 1);
+  int32_t ts_coeff[16];
+  int64_t ts_abs_sum = es_xform_quant(S, abs_part, resi_y, 4, qps_y, 1, 0,
+                                      1, tr_mode, ts_coeff, 0);
+  es_set_cbf_region(S, abs_part, full_depth, 0, ts_abs_sum ? set_cbf : 0);
+  double ts_cost = MAX_DOUBLE_C;
+  int64_t nz_dist = 0;
+  int32_t resi_rec[16];
+  if (ts_abs_sum) {
+    eb_reset_bits(&S->go);
+    we_qt_cbf(S, &S->go, abs_part, 0, tr_mode);
+    we_coeff_nxn(S, &S->go, abs_part, ts_coeff, 4, 4, 0);
+    int64_t ts_bits = eb_bits(&S->go);
+    // HM quirk: invtransformNxN( pcCU, ... ) converts the CU pointer to
+    // the Bool transQuantBypass argument => the TS residual estimate is
+    // the raw level copy (TEncSearch.cpp:5325) — replicated bit-exactly
+    memcpy(resi_rec, ts_coeff, sizeof(int32_t) * 16);
+    nz_dist = es_dist32(S, resi_rec, 4, resi_y, 4, 4, 0);
+    ts_cost = es_rd_cost(S, ts_bits, nz_dist);
+  }
+  if (!ts_abs_sum || min_cost_y < ts_cost) {
+    es_set_ts_region(S, abs_part, full_depth, 0, 0);
+    memcpy(coeff_y, best_coeff, sizeof(int32_t) * 16);
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_y + (ly + y) * ctu + lx, best_resi + y * 4,
+             sizeof(int32_t) * 4);
+  } else {
+    memcpy(coeff_y, ts_coeff, sizeof(int32_t) * 16);
+    *abs_sum_y = ts_abs_sum;
+    *dist_y = nz_dist;
+    best_ts[0] = 1;
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_y + (ly + y) * ctu + lx, resi_rec + y * 4,
+             sizeof(int32_t) * 4);
+  }
+  es_set_cbf_region(S, abs_part, full_depth, 0, *abs_sum_y ? set_cbf : 0);
+}
+
+// inter transform-skip RDO, chroma 4x4 TUs (inter_search.py _ts_check_chroma)
+static void es_ts_check_chroma(EncState* S, int abs_part, int full_depth,
+                               int cu_depth, int tr_mode, int tr_mode_c,
+                               const int32_t* resi_u, const int32_t* resi_v,
+                               int qps_u, int qps_v, int32_t* coeff_u,
+                               int64_t* abs_sum_u, int64_t* dist_u,
+                               int32_t* coeff_v, int64_t* abs_sum_v,
+                               int64_t* dist_v, const double* min_cost,
+                               int* best_ts, int layer_c, int clx, int cly,
+                               int set_cbf) {
+  FrameArrays* fa = &S->fa;
+  int cstride = fa->ctu_size / 2;
+  int32_t* qt_u = S->iqt_resi[layer_c][1];
+  int32_t* qt_v = S->iqt_resi[layer_c][2];
+  int32_t best_cu[16], best_cv[16], best_ru[16], best_rv[16];
+  memcpy(best_cu, coeff_u, sizeof(int32_t) * 16);
+  memcpy(best_cv, coeff_v, sizeof(int32_t) * 16);
+  for (int y = 0; y < 4; y++) {
+    memcpy(best_ru + y * 4, qt_u + (cly + y) * cstride + clx,
+           sizeof(int32_t) * 4);
+    memcpy(best_rv + y * 4, qt_v + (cly + y) * cstride + clx,
+           sizeof(int32_t) * 4);
+  }
+  es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+  es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 1, 1);
+  es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 2, 1);
+  int32_t ts_cu[16], ts_cv[16];
+  int64_t ts_asu = es_xform_quant(S, abs_part, resi_u, 4, qps_u, 0, 1, 1,
+                                  tr_mode, ts_cu, 0);
+  int64_t ts_asv = es_xform_quant(S, abs_part, resi_v, 4, qps_v, 0, 2, 1,
+                                  tr_mode, ts_cv, 0);
+  es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 1,
+                    ts_asu ? set_cbf : 0);
+  es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 2,
+                    ts_asv ? set_cbf : 0);
+  eb_reset_bits(&S->go);
+  int64_t bits_u = 0;
+  double cost_u = MAX_DOUBLE_C;
+  int64_t nz_du = 0;
+  int32_t rec_u[16];
+  if (ts_asu) {
+    we_qt_cbf(S, &S->go, abs_part, 1, tr_mode);
+    we_coeff_nxn(S, &S->go, abs_part, ts_cu, 4, 4, 1);
+    bits_u = eb_bits(&S->go);
+    memcpy(rec_u, ts_cu, sizeof(int32_t) * 16);  // bypass quirk, see luma
+    nz_du = es_dist32(S, rec_u, 4, resi_u, 4, 4, 1);
+    cost_u = es_rd_cost(S, bits_u, nz_du);
+  }
+  if (!ts_asu || min_cost[1] < cost_u) {
+    es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 1, 0);
+    memcpy(coeff_u, best_cu, sizeof(int32_t) * 16);
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_u + (cly + y) * cstride + clx, best_ru + y * 4,
+             sizeof(int32_t) * 4);
+  } else {
+    memcpy(coeff_u, ts_cu, sizeof(int32_t) * 16);
+    *abs_sum_u = ts_asu;
+    *dist_u = nz_du;
+    best_ts[1] = 1;
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_u + (cly + y) * cstride + clx, rec_u + y * 4,
+             sizeof(int32_t) * 4);
+  }
+  double cost_v = MAX_DOUBLE_C;
+  int64_t nz_dv = 0;
+  int32_t rec_v[16];
+  if (ts_asv) {
+    we_qt_cbf(S, &S->go, abs_part, 2, tr_mode);
+    we_coeff_nxn(S, &S->go, abs_part, ts_cv, 4, 4, 2);
+    int64_t bits_v = eb_bits(&S->go) - bits_u;
+    memcpy(rec_v, ts_cv, sizeof(int32_t) * 16);  // bypass quirk, see luma
+    nz_dv = es_dist32(S, rec_v, 4, resi_v, 4, 4, 1);
+    cost_v = es_rd_cost(S, bits_v, nz_dv);
+  }
+  if (!ts_asv || min_cost[2] < cost_v) {
+    es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 2, 0);
+    memcpy(coeff_v, best_cv, sizeof(int32_t) * 16);
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_v + (cly + y) * cstride + clx, best_rv + y * 4,
+             sizeof(int32_t) * 4);
+  } else {
+    memcpy(coeff_v, ts_cv, sizeof(int32_t) * 16);
+    *abs_sum_v = ts_asv;
+    *dist_v = nz_dv;
+    best_ts[2] = 1;
+    for (int y = 0; y < 4; y++)
+      memcpy(qt_v + (cly + y) * cstride + clx, rec_v + y * 4,
+             sizeof(int32_t) * 4);
+  }
+  es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 1,
+                    *abs_sum_u ? set_cbf : 0);
+  es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 2,
+                    *abs_sum_v ? set_cbf : 0);
+}
+
+// xEncodeResidualQT: bit counting for the subdiv alternative
+static void es_enc_residual_qt(EncState* S, int abs_part, int cu_depth,
+                               int full_depth, int subdiv_and_cbf,
+                               int comp) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int cur_tr = full_depth - cu_depth;
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  int subdiv = cur_tr != tr_mode;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int min_tu_log2 = es_min_tu_log2(S, abs_part);
+
+  if (subdiv_and_cbf && log2_tr <= S->ep.max_tr_log2 &&
+      log2_tr > min_tu_log2)
+    we_transform_subdiv(S, &S->go, subdiv ? 1 : 0, log2_tr);
+
+  if (subdiv_and_cbf) {
+    int first_cbf = cur_tr == 0;
+    if (first_cbf || log2_tr > 2) {
+      if (first_cbf || es_cbf(S, abs_part, 1, cur_tr - 1))
+        we_qt_cbf(S, &S->go, abs_part, 1, cur_tr);
+      if (first_cbf || es_cbf(S, abs_part, 2, cur_tr - 1))
+        we_qt_cbf(S, &S->go, abs_part, 2, cur_tr);
+    }
+  }
+
+  if (!subdiv) {
+    int layer = es_qt_layer(S, full_depth);
+    int lx, ly;
+    es_ctu_local(S, abs_part, &lx, &ly);
+    int size = 1 << log2_tr;
+    int ctu = fa->ctu_size, cstride = ctu / 2;
+    int code_chroma = 1;
+    int tr_mode_c = tr_mode;
+    int log2_tr_c = log2_tr - 1;
+    if (log2_tr == 2) {
+      log2_tr_c += 1;
+      tr_mode_c -= 1;
+      int qp_div = fa->parts >> ((cu_depth + tr_mode_c) << 1);
+      code_chroma = (abs_part % qp_div) == 0;
+    }
+    int size_c = 1 << log2_tr_c;
+    int layer_c = layer;
+    if (subdiv_and_cbf) {
+      we_qt_cbf(S, &S->go, abs_part, 0, tr_mode);
+    } else {
+      if (comp == 0 && es_cbf(S, abs_part, 0, tr_mode))
+        we_coeff_nxn(S, &S->go, abs_part,
+                     S->iqt_coeff[layer][0] + (int64_t)ly * ctu + lx, ctu,
+                     size, 0);
+      if (code_chroma) {
+        int clx = lx / 2, cly = ly / 2;
+        if (comp == 1 && es_cbf(S, abs_part, 1, tr_mode))
+          we_coeff_nxn(S, &S->go, abs_part,
+                       S->iqt_coeff[layer_c][1] + (int64_t)cly * cstride +
+                           clx,
+                       cstride, size_c, 1);
+        if (comp == 2 && es_cbf(S, abs_part, 2, tr_mode))
+          we_coeff_nxn(S, &S->go, abs_part,
+                       S->iqt_coeff[layer_c][2] + (int64_t)cly * cstride +
+                           clx,
+                       cstride, size_c, 2);
+      }
+    }
+  } else {
+    if (subdiv_and_cbf || es_cbf(S, abs_part, comp, cur_tr)) {
+      int q_parts = fa->parts >> ((full_depth + 1) << 1);
+      int part = abs_part;
+      for (int i = 0; i < 4; i++) {
+        es_enc_residual_qt(S, part, cu_depth, full_depth + 1,
+                           subdiv_and_cbf, comp);
+        part += q_parts;
+      }
+    }
+  }
+}
+
+// xSetResidualQTData: commit the chosen tree's coefficients (or spatial
+// residual) from the layer buffers
+static void es_set_residual_qt_data(EncState* S, int abs_part, int cu_depth,
+                                    int full_depth, int spatial) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int cur_tr = full_depth - cu_depth;
+  int tr_mode = U(fa->tr_idx, ux, uy);
+  if (cur_tr == tr_mode) {
+    int log2_tr = S->log2_ctu_v - full_depth;
+    int size = 1 << log2_tr;
+    int layer = es_qt_layer(S, full_depth);
+    int lx, ly;
+    es_ctu_local(S, abs_part, &lx, &ly);
+    int px = ux * 4, py = uy * 4;
+    int ctu = fa->ctu_size, cstride = ctu / 2;
+    int code_chroma = 1;
+    int tr_mode_c = tr_mode;
+    int log2_tr_c = log2_tr - 1;
+    if (log2_tr == 2) {
+      log2_tr_c += 1;
+      tr_mode_c -= 1;
+      int qp_div = fa->parts >> ((cu_depth + tr_mode_c) << 1);
+      code_chroma = (abs_part % qp_div) == 0;
+    }
+    int size_c = 1 << log2_tr_c;
+    int layer_c = layer;
+    int clx = lx / 2, cly = ly / 2;
+    if (spatial) {
+      for (int y = 0; y < size; y++)
+        memcpy(S->rbest_y + (int64_t)(ly + y) * ctu + lx,
+               S->iqt_resi[layer][0] + (int64_t)(ly + y) * ctu + lx,
+               sizeof(int32_t) * size);
+      if (code_chroma)
+        for (int y = 0; y < size_c; y++) {
+          memcpy(S->rbest_cb + (int64_t)(cly + y) * cstride + clx,
+                 S->iqt_resi[layer_c][1] + (int64_t)(cly + y) * cstride +
+                     clx,
+                 sizeof(int32_t) * size_c);
+          memcpy(S->rbest_cr + (int64_t)(cly + y) * cstride + clx,
+                 S->iqt_resi[layer_c][2] + (int64_t)(cly + y) * cstride +
+                     clx,
+                 sizeof(int32_t) * size_c);
+        }
+    } else {
+      for (int y = 0; y < size; y++)
+        memcpy(fa->coeff_y + (int64_t)(py + y) * S->ls + px,
+               S->iqt_coeff[layer][0] + (int64_t)(ly + y) * ctu + lx,
+               sizeof(int32_t) * size);
+      if (code_chroma) {
+        int cpx = px / 2, cpy = py / 2;
+        for (int y = 0; y < size_c; y++) {
+          memcpy(fa->coeff_cb + (int64_t)(cpy + y) * S->cs + cpx,
+                 S->iqt_coeff[layer_c][1] + (int64_t)(cly + y) * cstride +
+                     clx,
+                 sizeof(int32_t) * size_c);
+          memcpy(fa->coeff_cr + (int64_t)(cpy + y) * S->cs + cpx,
+                 S->iqt_coeff[layer_c][2] + (int64_t)(cly + y) * cstride +
+                     clx,
+                 sizeof(int32_t) * size_c);
+        }
+      }
+    }
+  } else {
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      es_set_residual_qt_data(S, part, cu_depth, full_depth + 1, spatial);
+      part += q_parts;
+    }
+  }
+}
+
+// xEstimateResidualQT (inter_search.py _est_residual_qt); zero_dist
+// accumulates puiZeroDist (NULL once a full node is found above)
+static void es_est_residual_qt(EncState* S, int abs_part, int cu_depth,
+                               int full_depth, RqtAcc* acc,
+                               int64_t* zero_dist) {
+  FrameArrays* fa = &S->fa;
+  int tr_mode = full_depth - cu_depth;
+  int log2_tr = S->log2_ctu_v - full_depth;
+  int size = 1 << log2_tr;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int lx, ly;
+  es_ctu_local(S, abs_part, &lx, &ly);
+  int min_tu_log2 = es_min_tu_log2(S, abs_part);
+  int part_sz = U(fa->part_size, ux, uy);
+  int ctu = fa->ctu_size, cstride = ctu / 2;
+
+  int split_forced = S->ep.tu_depth_inter == 1 && part_sz != SZ_2Nx2N;
+  int check_full;
+  if (split_forced && full_depth == cu_depth && log2_tr > min_tu_log2)
+    check_full = 0;
+  else
+    check_full = log2_tr <= S->ep.max_tr_log2;
+  int check_split = log2_tr > min_tu_log2;
+
+  int code_chroma = 1;
+  int tr_mode_c = tr_mode;
+  int log2_tr_c = log2_tr - 1;
+  if (log2_tr == 2) {
+    log2_tr_c += 1;
+    tr_mode_c -= 1;
+    int qp_div = fa->parts >> ((cu_depth + tr_mode_c) << 1);
+    code_chroma = (abs_part % qp_div) == 0;
+  }
+  int size_c = 1 << log2_tr_c;
+  int clx = lx / 2, cly = ly / 2;
+
+  int set_cbf = 1 << tr_mode;
+  int units = fa->upr >> full_depth;
+
+  es_store(S, full_depth, ECI_QT_TRAFO_ROOT);
+  double single_cost = MAX_DOUBLE_C;
+  int64_t single_bits = 0, single_dist = 0;
+  int64_t abs_sum_y = 0, abs_sum_u = 0, abs_sum_v = 0;
+  int best_ts[3] = {0, 0, 0};
+  int layer = es_qt_layer(S, full_depth);
+  int layer_c = layer;
+
+  int32_t coeff_y[64 * 64], coeff_u[32 * 32], coeff_v[32 * 32];
+  int32_t resi_y_t[64 * 64], resi_u_t[32 * 32], resi_v_t[32 * 32];
+  int64_t dist_y = 0, dist_u = 0, dist_v = 0;
+
+  if (check_full) {
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, (int8_t)tr_mode);
+    int tqb = U(fa->tq_bypass, ux, uy);
+    int check_ts_y = S->ep.use_ts && size == 4 && !tqb;
+    int check_ts_uv = S->ep.use_ts && size_c == 4 && !tqb;
+    es_set_ts_region(S, abs_part, full_depth, 0, 0);
+    if (code_chroma) {
+      es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 1, 0);
+      es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 2, 0);
+    }
+    double min_cost[3] = {MAX_DOUBLE_C, MAX_DOUBLE_C, MAX_DOUBLE_C};
+
+    for (int y = 0; y < size; y++)
+      memcpy(resi_y_t + y * size, S->resi_y + (int64_t)(ly + y) * ctu + lx,
+             sizeof(int32_t) * size);
+    int qps_y = es_qp_scaled_luma(S, U(fa->qp, ux, uy));
+    abs_sum_y = es_xform_quant(S, abs_part, resi_y_t, size, qps_y, 1, 0, 0,
+                               tr_mode, coeff_y, 0);
+    es_set_cbf_region(S, abs_part, full_depth, 0, abs_sum_y ? set_cbf : 0);
+
+    int qps_u = 0, qps_v = 0;
+    if (code_chroma) {
+      qps_u = es_qp_scaled_chroma(S, U(fa->qp, ux, uy), S->ep.cb_qp_off);
+      qps_v = es_qp_scaled_chroma(S, U(fa->qp, ux, uy), S->ep.cr_qp_off);
+      for (int y = 0; y < size_c; y++) {
+        memcpy(resi_u_t + y * size_c,
+               S->resi_cb + (int64_t)(cly + y) * cstride + clx,
+               sizeof(int32_t) * size_c);
+        memcpy(resi_v_t + y * size_c,
+               S->resi_cr + (int64_t)(cly + y) * cstride + clx,
+               sizeof(int32_t) * size_c);
+      }
+      abs_sum_u = es_xform_quant(S, abs_part, resi_u_t, size_c, qps_u, 0, 1,
+                                 0, tr_mode, coeff_u, 0);
+      abs_sum_v = es_xform_quant(S, abs_part, resi_v_t, size_c, qps_v, 0, 2,
+                                 0, tr_mode, coeff_v, 0);
+      es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 1,
+                        abs_sum_u ? set_cbf : 0);
+      es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 2,
+                        abs_sum_v ? set_cbf : 0);
+    }
+
+    // bits per component (GoOn evolves continuously)
+    eb_reset_bits(&S->go);
+    we_qt_cbf(S, &S->go, abs_part, 0, tr_mode);
+    we_coeff_nxn(S, &S->go, abs_part, coeff_y, size, size, 0);
+    int64_t bits_y = eb_bits(&S->go);
+    int64_t bits_u = 0, bits_v = 0;
+    if (code_chroma) {
+      we_qt_cbf(S, &S->go, abs_part, 1, tr_mode);
+      we_coeff_nxn(S, &S->go, abs_part, coeff_u, size_c, size_c, 1);
+      bits_u = eb_bits(&S->go) - bits_y;
+      we_qt_cbf(S, &S->go, abs_part, 2, tr_mode);
+      we_coeff_nxn(S, &S->go, abs_part, coeff_v, size_c, size_c, 2);
+      bits_v = eb_bits(&S->go) - bits_y - bits_u;
+    }
+
+    // luma distortion: zero vs coded (TEncSearch.cpp:4990-4994)
+    dist_y = es_dist32(S, NULL, 0, resi_y_t, size, size, 0);
+    if (zero_dist) *zero_dist += dist_y;
+    int32_t resi_rec_y[64 * 64];
+    int have_rec_y = 0;
+    if (abs_sum_y) {
+      if (tqb) {
+        memcpy(resi_rec_y, coeff_y, sizeof(int32_t) * size * size);
+      } else {
+        residual_c(coeff_y, size, 0, 0, size, qps_y, 0, 0, 0,
+                   S->ep.bit_inc, dct_basis(size), resi_rec_y);
+      }
+      have_rec_y = 1;
+      int64_t nz_dist_y =
+          es_dist32(S, resi_rec_y, size, resi_y_t, size, size, 0);
+      if (tqb) {
+        dist_y = nz_dist_y;  // lossless: never zero the residual
+      } else {
+        double single_cost_y = es_rd_cost(S, bits_y, nz_dist_y);
+        eb_reset_bits(&S->go);
+        we_qt_cbf_zero(S, &S->go, 0, tr_mode);
+        double null_cost_y = es_rd_cost(S, eb_bits(&S->go), dist_y);
+        if (null_cost_y < single_cost_y) {
+          abs_sum_y = 0;
+          memset(coeff_y, 0, sizeof(int32_t) * size * size);
+          have_rec_y = 0;
+          if (check_ts_y) min_cost[0] = null_cost_y;
+        } else {
+          dist_y = nz_dist_y;
+          if (check_ts_y) min_cost[0] = single_cost_y;
+        }
+      }
+    } else if (check_ts_y) {
+      eb_reset_bits(&S->go);
+      we_qt_cbf_zero(S, &S->go, 0, tr_mode);
+      min_cost[0] = es_rd_cost(S, eb_bits(&S->go), dist_y);
+    }
+    {
+      int32_t* qt_y = S->iqt_resi[layer][0];
+      for (int y = 0; y < size; y++) {
+        if (have_rec_y)
+          memcpy(qt_y + (int64_t)(ly + y) * ctu + lx, resi_rec_y + y * size,
+                 sizeof(int32_t) * size);
+        else
+          memset(qt_y + (int64_t)(ly + y) * ctu + lx, 0,
+                 sizeof(int32_t) * size);
+      }
+    }
+
+    if (code_chroma) {
+      // chroma U
+      dist_u = es_dist32(S, NULL, 0, resi_u_t, size_c, size_c, 1);
+      if (zero_dist) *zero_dist += dist_u;
+      int32_t resi_rec_u[32 * 32];
+      int have_rec_u = 0;
+      if (abs_sum_u) {
+        if (tqb) {
+          memcpy(resi_rec_u, coeff_u, sizeof(int32_t) * size_c * size_c);
+        } else {
+          residual_c(coeff_u, size_c, 0, 0, size_c, qps_u, 0, 0, 0,
+                     S->ep.bit_inc, dct_basis(size_c), resi_rec_u);
+        }
+        have_rec_u = 1;
+        int64_t nz =
+            es_dist32(S, resi_rec_u, size_c, resi_u_t, size_c, size_c, 1);
+        if (tqb) {
+          dist_u = nz;  // lossless (TEncSearch.cpp:5096)
+        } else {
+          double sc = es_rd_cost(S, bits_u, nz);
+          eb_reset_bits(&S->go);
+          we_qt_cbf_zero(S, &S->go, 1, tr_mode);
+          double nc = es_rd_cost(S, eb_bits(&S->go), dist_u);
+          if (nc < sc) {
+            abs_sum_u = 0;
+            memset(coeff_u, 0, sizeof(int32_t) * size_c * size_c);
+            have_rec_u = 0;
+            if (check_ts_uv) min_cost[1] = nc;
+          } else {
+            dist_u = nz;
+            if (check_ts_uv) min_cost[1] = sc;
+          }
+        }
+      } else if (check_ts_uv) {
+        eb_reset_bits(&S->go);
+        we_qt_cbf_zero(S, &S->go, 1, tr_mode_c);
+        min_cost[1] = es_rd_cost(S, eb_bits(&S->go), dist_u);
+      }
+      {
+        int32_t* qt_u = S->iqt_resi[layer_c][1];
+        for (int y = 0; y < size_c; y++) {
+          if (have_rec_u)
+            memcpy(qt_u + (int64_t)(cly + y) * cstride + clx,
+                   resi_rec_u + y * size_c, sizeof(int32_t) * size_c);
+          else
+            memset(qt_u + (int64_t)(cly + y) * cstride + clx, 0,
+                   sizeof(int32_t) * size_c);
+        }
+      }
+
+      // chroma V
+      dist_v = es_dist32(S, NULL, 0, resi_v_t, size_c, size_c, 1);
+      if (zero_dist) *zero_dist += dist_v;
+      int32_t resi_rec_v[32 * 32];
+      int have_rec_v = 0;
+      int ll_skip_v = 0;
+      double sc_v = 0.0, nc_v = 0.0;
+      if (abs_sum_v) {
+        if (tqb) {
+          memcpy(resi_rec_v, coeff_v, sizeof(int32_t) * size_c * size_c);
+        } else {
+          residual_c(coeff_v, size_c, 0, 0, size_c, qps_v, 0, 0, 0,
+                     S->ep.bit_inc, dct_basis(size_c), resi_rec_v);
+        }
+        have_rec_v = 1;
+        int64_t nz =
+            es_dist32(S, resi_rec_v, size_c, resi_v_t, size_c, size_c, 1);
+        if (tqb) {
+          dist_v = nz;  // lossless (TEncSearch.cpp:5197)
+          ll_skip_v = 1;
+        } else {
+          sc_v = es_rd_cost(S, bits_v, nz);
+          eb_reset_bits(&S->go);
+          we_qt_cbf_zero(S, &S->go, 2, tr_mode);
+          nc_v = es_rd_cost(S, eb_bits(&S->go), dist_v);
+        }
+        if (!ll_skip_v && nc_v < sc_v) {
+          abs_sum_v = 0;
+          memset(coeff_v, 0, sizeof(int32_t) * size_c * size_c);
+          have_rec_v = 0;
+          if (check_ts_uv) min_cost[2] = nc_v;
+        } else {
+          dist_v = nz;
+          if (!ll_skip_v && check_ts_uv) min_cost[2] = sc_v;
+        }
+      } else if (check_ts_uv) {
+        eb_reset_bits(&S->go);
+        we_qt_cbf_zero(S, &S->go, 2, tr_mode_c);
+        min_cost[2] = es_rd_cost(S, eb_bits(&S->go), dist_v);
+      }
+      {
+        int32_t* qt_v = S->iqt_resi[layer_c][2];
+        for (int y = 0; y < size_c; y++) {
+          if (have_rec_v)
+            memcpy(qt_v + (int64_t)(cly + y) * cstride + clx,
+                   resi_rec_v + y * size_c, sizeof(int32_t) * size_c);
+          else
+            memset(qt_v + (int64_t)(cly + y) * cstride + clx, 0,
+                   sizeof(int32_t) * size_c);
+        }
+      }
+    }
+
+    es_set_cbf_region(S, abs_part, full_depth, 0, abs_sum_y ? set_cbf : 0);
+    if (code_chroma) {
+      es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 1,
+                        abs_sum_u ? set_cbf : 0);
+      es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 2,
+                        abs_sum_v ? set_cbf : 0);
+    }
+
+    // ---- inter transform-skip RDO ----
+    if (check_ts_y)
+      es_ts_check_luma(S, abs_part, full_depth, tr_mode, resi_y_t, qps_y,
+                       coeff_y, &abs_sum_y, &dist_y, min_cost[0], best_ts,
+                       layer, lx, ly, set_cbf);
+    if (code_chroma && check_ts_uv)
+      es_ts_check_chroma(S, abs_part, full_depth, cu_depth, tr_mode,
+                         tr_mode_c, resi_u_t, resi_v_t, qps_u, qps_v,
+                         coeff_u, &abs_sum_u, &dist_u, coeff_v, &abs_sum_v,
+                         &dist_v, min_cost, best_ts, layer_c, clx, cly,
+                         set_cbf);
+
+    // store coefficients into the layer buffers
+    {
+      int32_t* qc = S->iqt_coeff[layer][0];
+      for (int y = 0; y < size; y++)
+        memcpy(qc + (int64_t)(ly + y) * ctu + lx, coeff_y + y * size,
+               sizeof(int32_t) * size);
+      if (code_chroma) {
+        int32_t* qcu = S->iqt_coeff[layer_c][1];
+        int32_t* qcv = S->iqt_coeff[layer_c][2];
+        for (int y = 0; y < size_c; y++) {
+          memcpy(qcu + (int64_t)(cly + y) * cstride + clx,
+                 coeff_u + y * size_c, sizeof(int32_t) * size_c);
+          memcpy(qcv + (int64_t)(cly + y) * cstride + clx,
+                 coeff_v + y * size_c, sizeof(int32_t) * size_c);
+        }
+      }
+    }
+
+    // single-pass bits
+    es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    eb_reset_bits(&S->go);
+    if (log2_tr > min_tu_log2) we_transform_subdiv(S, &S->go, 0, log2_tr);
+    if (code_chroma) {
+      we_qt_cbf(S, &S->go, abs_part, 1, tr_mode);
+      we_qt_cbf(S, &S->go, abs_part, 2, tr_mode);
+    }
+    we_qt_cbf(S, &S->go, abs_part, 0, tr_mode);
+    we_coeff_nxn(S, &S->go, abs_part, coeff_y, size, size, 0);
+    if (code_chroma) {
+      we_coeff_nxn(S, &S->go, abs_part, coeff_u, size_c, size_c, 1);
+      we_coeff_nxn(S, &S->go, abs_part, coeff_v, size_c, size_c, 2);
+    }
+    single_bits = eb_bits(&S->go);
+    single_dist = dist_y + dist_u + dist_v;
+    single_cost = es_rd_cost(S, single_bits, single_dist);
+  }
+
+  if (check_split) {
+    if (check_full) {
+      es_store(S, full_depth, ECI_QT_TRAFO_TEST);
+      es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    }
+    RqtAcc sub_acc = {0.0, 0, 0};
+    int q_parts = fa->parts >> ((full_depth + 1) << 1);
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      es_est_residual_qt(S, part, cu_depth, full_depth + 1, &sub_acc,
+                         check_full ? NULL : zero_dist);
+      part += q_parts;
+    }
+    int y_cbf = 0, u_cbf = 0, v_cbf = 0;
+    part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      int iux, iuy;
+      es_unit_xy(S, part, &iux, &iuy);
+      y_cbf |= (U3(fa->cbf, 0, iux, iuy) >> (tr_mode + 1)) & 1;
+      u_cbf |= (U3(fa->cbf, 1, iux, iuy) >> (tr_mode + 1)) & 1;
+      v_cbf |= (U3(fa->cbf, 2, iux, iuy) >> (tr_mode + 1)) & 1;
+      part += q_parts;
+    }
+    for (int j = 0; j < units; j++) {
+      int64_t row = (int64_t)(uy + j) * fa->uw + ux;
+      for (int i = 0; i < units; i++) {
+        fa->cbf[row + i] |= (uint8_t)(y_cbf << tr_mode);
+        fa->cbf[(int64_t)fa->uh * fa->uw + row + i] |=
+            (uint8_t)(u_cbf << tr_mode);
+        fa->cbf[(int64_t)2 * fa->uh * fa->uw + row + i] |=
+            (uint8_t)(v_cbf << tr_mode);
+      }
+    }
+
+    es_load(S, full_depth, ECI_QT_TRAFO_ROOT);
+    eb_reset_bits(&S->go);
+    es_enc_residual_qt(S, abs_part, cu_depth, full_depth, 1, 0);
+    es_enc_residual_qt(S, abs_part, cu_depth, full_depth, 0, 0);
+    es_enc_residual_qt(S, abs_part, cu_depth, full_depth, 0, 1);
+    es_enc_residual_qt(S, abs_part, cu_depth, full_depth, 0, 2);
+    int64_t subdiv_bits = eb_bits(&S->go);
+    double subdiv_cost = es_rd_cost(S, subdiv_bits, sub_acc.dist);
+
+    if ((y_cbf || u_cbf || v_cbf || !check_full) &&
+        subdiv_cost < single_cost) {
+      acc->cost += subdiv_cost;
+      acc->bits += subdiv_bits;
+      acc->dist += sub_acc.dist;
+      return;
+    }
+    // full wins: restore TS flags and context
+    es_set_ts_region(S, abs_part, full_depth, 0, best_ts[0]);
+    if (code_chroma) {
+      es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 1, best_ts[1]);
+      es_set_ts_region(S, abs_part, cu_depth + tr_mode_c, 2, best_ts[2]);
+    }
+    es_load(S, full_depth, ECI_QT_TRAFO_TEST);
+  }
+
+  acc->cost += single_cost;
+  acc->bits += single_bits;
+  acc->dist += single_dist;
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, (int8_t)tr_mode);
+  es_set_cbf_region(S, abs_part, full_depth, 0, abs_sum_y ? set_cbf : 0);
+  if (code_chroma) {
+    es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 1,
+                      abs_sum_u ? set_cbf : 0);
+    es_set_cbf_region(S, abs_part, cu_depth + tr_mode_c, 2,
+                      abs_sum_v ? set_cbf : 0);
+  }
+}
+
+// TEncEntropy::encodePUWise over frame state (inter_search.py _code_pu_wise)
+static void es_code_pu_wise(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int part_sz = U(fa->part_size, ux, uy);
+  int n_pu = num_pus(part_sz);
+  for (int pu = 0; pu < n_pu; pu++) {
+    int xp, yp, pw, ph;
+    pu_geometry(part_sz, px, py, size, pu, &xp, &yp, &pw, &ph);
+    int pux = xp / 4, puy = yp / 4;
+    int part = es_part_at(S, pux, puy);
+    we_merge_flag(S, &S->go, part);
+    if (U(fa->merge_flag, pux, puy)) {
+      we_merge_idx(S, &S->go, part);
+    } else {
+      if (S->sp.is_b) we_inter_dir(S, &S->go, part, depth);
+      for (int lst = 0; lst < 2; lst++) {
+        int nri = lst == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+        if (nri > 0) {
+          int idir = U(fa->inter_dir, pux, puy);
+          if (idir & (1 << lst)) {
+            if (nri > 1) we_ref_idx(S, &S->go, part, lst);
+            we_mvd(S, &S->go, part, lst);
+            we_mvp_idx(S, &S->go, part, lst);
+          }
+        }
+      }
+    }
+  }
+}
+
+// TEncEntropy::encodeCoeff inter wrapper (root cbf + transform tree)
+static void es_code_coeff(EncState* S, int abs_part, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int merge_2nx2n = U(fa->merge_flag, ux, uy) &&
+                    U(fa->part_size, ux, uy) == SZ_2Nx2N;
+  int root_cbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                   U3(fa->cbf, 2, ux, uy)) &
+                  1) != 0;
+  if (!merge_2nx2n) we_qt_root_cbf(S, &S->go, root_cbf);
+  if (!root_cbf) return;
+  EncBin* save_fin = S->fin;
+  S->fin = &S->go;
+  es_final_transform_tree(S, abs_part, depth, 0);
+  S->fin = save_fin;
+}
+
+// xAddSymbolBitsInter: full CU syntax bit count with GoOn
+static int64_t es_add_symbol_bits_inter(EncState* S, int abs_part,
+                                        int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth;
+  int merge_2nx2n = U(fa->merge_flag, ux, uy) &&
+                    U(fa->part_size, ux, uy) == SZ_2Nx2N;
+  int root_cbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                   U3(fa->cbf, 2, ux, uy)) &
+                  1) != 0;
+  if (merge_2nx2n && !root_cbf) {
+    set_region<uint8_t>(fa, fa->skip, ux, uy, units, 1);
+    eb_reset_bits(&S->go);
+    if (S->ep.tq_bypass_enable) we_tq_bypass(S, &S->go, abs_part);
+    we_skip_flag(S, &S->go, abs_part);
+    we_merge_idx(S, &S->go, abs_part);
+    return eb_bits(&S->go);
+  }
+  eb_reset_bits(&S->go);
+  if (S->ep.tq_bypass_enable) we_tq_bypass(S, &S->go, abs_part);
+  we_skip_flag(S, &S->go, abs_part);
+  we_pred_mode(S, &S->go, abs_part);
+  we_part_size(S, &S->go, abs_part, depth);
+  es_code_pu_wise(S, abs_part, depth);
+  es_code_coeff(S, abs_part, depth);
+  return eb_bits(&S->go);
+}
+
+// encodeResAndCalcRdInterCU: leaves frame state + rec planes holding this
+// mode's reconstruction; [depth][CI_TEMP_BEST] gets the post-syntax ctx
+static void es_encode_res_calc_rd(EncState* S, int abs_part, int depth,
+                                  int skip_res, int64_t* obits,
+                                  int64_t* odist, double* ocost) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int units = fa->upr >> depth;
+  int cs_ = size / 2;
+  int ctu = fa->ctu_size, cstride = ctu / 2;
+  int lx = px % ctu, ly = py % ctu;
+  int clx = lx / 2, cly = ly / 2;
+  const int16_t* org_y = S->org_y + (int64_t)py * S->rls + px;
+  const int16_t* org_cb = S->org_cb + (int64_t)(py / 2) * S->rcs + px / 2;
+  const int16_t* org_cr = S->org_cr + (int64_t)(py / 2) * S->rcs + px / 2;
+  const int16_t* pred_y = S->pred_y + (int64_t)ly * ctu + lx;
+  const int16_t* pred_cb = S->pred_cb + (int64_t)cly * cstride + clx;
+  const int16_t* pred_cr = S->pred_cr + (int64_t)cly * cstride + clx;
+
+  if (skip_res) {
+    // SKIP: reconstruction = prediction
+    set_region<uint8_t>(fa, fa->skip, ux, uy, units, 1);
+    for (int y = 0; y < size; y++)
+      memcpy(S->rec_y + (int64_t)(py + y) * S->rls + px, pred_y + y * ctu,
+             sizeof(int16_t) * size);
+    for (int y = 0; y < cs_; y++) {
+      memcpy(S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             pred_cb + y * cstride, sizeof(int16_t) * cs_);
+      memcpy(S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2,
+             pred_cr + y * cstride, sizeof(int16_t) * cs_);
+    }
+    int64_t dist = es_sse(S, pred_y, ctu, org_y, S->rls, size, 0) +
+                   es_sse(S, pred_cb, cstride, org_cb, S->rcs, cs_, 1) +
+                   es_sse(S, pred_cr, cstride, org_cr, S->rcs, cs_, 1);
+    es_load(S, depth, ECI_CURR_BEST);
+    eb_reset_bits(&S->go);
+    if (S->ep.tq_bypass_enable) we_tq_bypass(S, &S->go, abs_part);
+    we_skip_flag(S, &S->go, abs_part);
+    we_merge_idx(S, &S->go, abs_part);
+    int64_t bits = eb_bits(&S->go);
+    double cost = es_rd_cost(S, bits, dist);
+    es_store(S, depth, ECI_TEMP_BEST);
+    for (int c = 0; c < 3; c++) {
+      set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux,
+                          uy, units, 0);
+      set_region<uint8_t>(fa, fa->ts_flag + (int64_t)c * fa->uh * fa->uw,
+                          ux, uy, units, 0);
+    }
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+    for (int y = 0; y < size; y++)
+      memset(fa->coeff_y + (int64_t)(py + y) * S->ls + px, 0,
+             sizeof(int32_t) * size);
+    for (int y = 0; y < cs_; y++) {
+      memset(fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2, 0,
+             sizeof(int32_t) * cs_);
+      memset(fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2, 0,
+             sizeof(int32_t) * cs_);
+    }
+    *obits = bits;
+    *odist = dist;
+    *ocost = cost;
+    return;
+  }
+
+  // residual into the CTU-local buffers
+  for (int y = 0; y < size; y++)
+    for (int x = 0; x < size; x++)
+      S->resi_y[(int64_t)(ly + y) * ctu + lx + x] =
+          (int32_t)org_y[(int64_t)y * S->rls + x] - pred_y[y * ctu + x];
+  for (int y = 0; y < cs_; y++)
+    for (int x = 0; x < cs_; x++) {
+      S->resi_cb[(int64_t)(cly + y) * cstride + clx + x] =
+          (int32_t)org_cb[(int64_t)y * S->rcs + x] - pred_cb[y * cstride + x];
+      S->resi_cr[(int64_t)(cly + y) * cstride + clx + x] =
+          (int32_t)org_cr[(int64_t)y * S->rcs + x] - pred_cr[y * cstride + x];
+    }
+
+  es_load(S, depth, ECI_CURR_BEST);
+  RqtAcc acc = {0.0, 0, 0};
+  int64_t zero_dist = 0;
+  es_est_residual_qt(S, abs_part, depth, depth, &acc, &zero_dist);
+
+  // zero-residual alternative (TU_ZERO_CBF_RDO); lossless never takes it
+  eb_reset_bits(&S->go);
+  we_qt_root_cbf(S, &S->go, 0);
+  double zero_cost = es_rd_cost(S, eb_bits(&S->go), zero_dist);
+  if (U(fa->tq_bypass, ux, uy)) zero_cost = acc.cost + 1;
+  if (zero_cost < acc.cost) {
+    acc.cost = zero_cost;
+    acc.bits = 0;
+    acc.dist = zero_dist;
+    set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+    for (int c = 0; c < 3; c++) {
+      set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux,
+                          uy, units, 0);
+      set_region<uint8_t>(fa, fa->ts_flag + (int64_t)c * fa->uh * fa->uw,
+                          ux, uy, units, 0);
+    }
+    for (int y = 0; y < size; y++) {
+      memset(fa->coeff_y + (int64_t)(py + y) * S->ls + px, 0,
+             sizeof(int32_t) * size);
+      memset(S->rbest_y + (int64_t)(ly + y) * ctu + lx, 0,
+             sizeof(int32_t) * size);
+    }
+    for (int y = 0; y < cs_; y++) {
+      memset(fa->coeff_cb + (int64_t)(py / 2 + y) * S->cs + px / 2, 0,
+             sizeof(int32_t) * cs_);
+      memset(fa->coeff_cr + (int64_t)(py / 2 + y) * S->cs + px / 2, 0,
+             sizeof(int32_t) * cs_);
+      memset(S->rbest_cb + (int64_t)(cly + y) * cstride + clx, 0,
+             sizeof(int32_t) * cs_);
+      memset(S->rbest_cr + (int64_t)(cly + y) * cstride + clx, 0,
+             sizeof(int32_t) * cs_);
+    }
+  } else {
+    es_set_residual_qt_data(S, abs_part, depth, depth, 0);
+  }
+
+  // full syntax bits (xAddSymbolBitsInter)
+  es_load(S, depth, ECI_CURR_BEST);
+  int64_t bits = es_add_symbol_bits_inter(S, abs_part, depth);
+  es_store(S, depth, ECI_TEMP_BEST);
+
+  // spatial residual of the chosen tree
+  int root_cbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                   U3(fa->cbf, 2, ux, uy)) &
+                  1) != 0;
+  if (!root_cbf) {
+    for (int y = 0; y < size; y++)
+      memset(S->rbest_y + (int64_t)(ly + y) * ctu + lx, 0,
+             sizeof(int32_t) * size);
+    for (int y = 0; y < cs_; y++) {
+      memset(S->rbest_cb + (int64_t)(cly + y) * cstride + clx, 0,
+             sizeof(int32_t) * cs_);
+      memset(S->rbest_cr + (int64_t)(cly + y) * cstride + clx, 0,
+             sizeof(int32_t) * cs_);
+    }
+  } else {
+    es_set_residual_qt_data(S, abs_part, depth, depth, 1);
+  }
+
+  // reconstruction + final (clipped) distortion
+  int maxv = S->ep.max_val;
+  for (int y = 0; y < size; y++) {
+    int16_t* rr = S->rec_y + (int64_t)(py + y) * S->rls + px;
+    const int32_t* rb = S->rbest_y + (int64_t)(ly + y) * ctu + lx;
+    const int16_t* pp = pred_y + y * ctu;
+    for (int x = 0; x < size; x++) {
+      int v = (int)pp[x] + rb[x];
+      rr[x] = (int16_t)(v < 0 ? 0 : (v > maxv ? maxv : v));
+    }
+  }
+  for (int y = 0; y < cs_; y++) {
+    int16_t* ru = S->rec_cb + (int64_t)(py / 2 + y) * S->rcs + px / 2;
+    int16_t* rv = S->rec_cr + (int64_t)(py / 2 + y) * S->rcs + px / 2;
+    const int32_t* bu = S->rbest_cb + (int64_t)(cly + y) * cstride + clx;
+    const int32_t* bv = S->rbest_cr + (int64_t)(cly + y) * cstride + clx;
+    const int16_t* pu_ = pred_cb + y * cstride;
+    const int16_t* pv_ = pred_cr + y * cstride;
+    for (int x = 0; x < cs_; x++) {
+      int u = (int)pu_[x] + bu[x];
+      int v = (int)pv_[x] + bv[x];
+      ru[x] = (int16_t)(u < 0 ? 0 : (u > maxv ? maxv : u));
+      rv[x] = (int16_t)(v < 0 ? 0 : (v > maxv ? maxv : v));
+    }
+  }
+  int64_t dist =
+      es_sse(S, S->rec_y + (int64_t)py * S->rls + px, S->rls, org_y, S->rls,
+             size, 0) +
+      es_sse(S, S->rec_cb + (int64_t)(py / 2) * S->rcs + px / 2, S->rcs,
+             org_cb, S->rcs, cs_, 1) +
+      es_sse(S, S->rec_cr + (int64_t)(py / 2) * S->rcs + px / 2, S->rcs,
+             org_cr, S->rcs, cs_, 1);
+  double cost = es_rd_cost(S, bits, dist);
+
+  if (U(fa->skip, ux, uy))
+    for (int c = 0; c < 3; c++)
+      set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux,
+                          uy, units, 0);
+  *obits = bits;
+  *odist = dist;
+  *ocost = cost;
+}
+
+// initEstData-style reset for an inter candidate (cu_encoder.py
+// _reset_inter_region)
+static void es_reset_inter_region(EncState* S, int abs_part, int depth,
+                                  int part_size) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth;
+  set_region<uint8_t>(fa, fa->skip, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->part_size, ux, uy, units, (int8_t)part_size);
+  set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTER);
+  set_region<int8_t>(fa, fa->depth, ux, uy, units, (int8_t)depth);
+  int qp = S->ep.unit_qp >= 0 ? S->ep.unit_qp : S->ep.slice_qp;
+  set_region<int8_t>(fa, fa->qp, ux, uy, units, (int8_t)qp);
+  set_region<uint8_t>(fa, fa->ipcm, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+  for (int c = 0; c < 3; c++) {
+    set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux, uy,
+                        units, 0);
+    set_region<uint8_t>(fa, fa->ts_flag + (int64_t)c * fa->uh * fa->uw, ux,
+                        uy, units, 0);
+  }
+  set_region<uint8_t>(fa, fa->merge_flag, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->merge_idx, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->inter_dir, ux, uy, units, 0);
+  for (int l = 0; l < 2; l++) {
+    set_pu_list_i8(fa, fa->ref_idx, l, ux, uy, units, units, -1);
+    set_pu_list_i8(fa, fa->mvp_idx, l, ux, uy, units, units, 0);
+    set_pu_mv(fa, fa->mv, l, ux, uy, units, units, 0, 0);
+    set_pu_mv(fa, fa->mvd, l, ux, uy, units, units, 0, 0);
+  }
+  set_region<uint8_t>(fa, fa->tq_bypass, ux, uy, units,
+                      (uint8_t)(S->ep.tq_bypass_enable
+                                    ? S->ep.cu_tq_bypass_value
+                                    : 0));
+}
+
+// xCheckDQP (no-op: dQP gated at enc_create) + xCheckBestMode
+static void es_best_update(EncState* S, int abs_part, int depth,
+                           int64_t bits, int64_t dist, double cost,
+                           RegionSnap* best, int* have_best) {
+  S->total_bits = bits;
+  S->total_dist = dist;
+  S->total_cost = cost;
+  if (!*have_best || cost < best->cost) {
+    es_save_region(S, abs_part, depth, best);
+    es_copy_snap(S, depth, ECI_TEMP_BEST, depth, ECI_NEXT_BEST);
+    *have_best = 1;
+  } else {
+    es_restore_region(S, abs_part, depth, best);
+  }
+}
+
+// xCheckRDCostMerge2Nx2N (TEncCu.cpp:1248)
+static void es_check_rd_merge_2nx2n(EncState* S, int abs_part, int depth,
+                                    RegionSnap* best, int* have_best) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int units = fa->upr >> depth;
+  es_reset_inter_region(S, abs_part, depth, SZ_2Nx2N);
+  MvEnv env = {fa, &S->sp};
+  MvCand cands[MRG_MAX];
+  int n_valid =
+      merge_candidates(&env, px, py, size, SZ_2Nx2N, 0, -1, cands);
+  int cand_buffer[MRG_MAX] = {0, 0, 0, 0, 0};
+  int best_is_skip = 0;
+  // lossless CUs never try the forced-no-residual pass (TEncCu.cpp:1267)
+  int tqb_cu = S->ep.tq_bypass_enable && S->ep.cu_tq_bypass_value;
+  int no_resi_max = tqb_cu ? 1 : 2;
+  for (int no_resi = 0; no_resi < no_resi_max; no_resi++) {
+    for (int cand = 0; cand < n_valid; cand++) {
+      if (no_resi == 1 && cand_buffer[cand] == 1) continue;
+      if (best_is_skip && no_resi == 0) continue;
+      es_reset_inter_region(S, abs_part, depth, SZ_2Nx2N);
+      set_region<uint8_t>(fa, fa->merge_flag, ux, uy, units, 1);
+      set_region<int8_t>(fa, fa->merge_idx, ux, uy, units, (int8_t)cand);
+      set_region<int8_t>(fa, fa->inter_dir, ux, uy, units,
+                         (int8_t)cands[cand].dir);
+      for (int lst = 0; lst < 2; lst++) {
+        set_pu_list_i8(fa, fa->ref_idx, lst, ux, uy, units, units,
+                       (int8_t)cands[cand].ref[lst]);
+        set_pu_mv(fa, fa->mv, lst, ux, uy, units, units,
+                  cands[cand].mv[lst][0], cands[cand].mv[lst][1]);
+      }
+      es_motion_compensation(S, px, py, size, -1);
+      int64_t bits, dist;
+      double cost;
+      es_encode_res_calc_rd(S, abs_part, depth, no_resi, &bits, &dist,
+                            &cost);
+      int root_cbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                       U3(fa->cbf, 2, ux, uy)) &
+                      1) != 0;
+      if (no_resi == 0 && !root_cbf) cand_buffer[cand] = 1;
+      set_region<uint8_t>(fa, fa->skip, ux, uy, units,
+                          (uint8_t)(!root_cbf));
+      es_best_update(S, abs_part, depth, bits, dist, cost, best, have_best);
+      if (S->me.fdm && !best_is_skip) {
+        int bcbf = ((U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                     U3(fa->cbf, 2, ux, uy)) &
+                    1) != 0;
+        best_is_skip = !bcbf;
+      }
+    }
+  }
+}
+
+// xCheckRDCostInter (TEncCu.cpp:1371)
+static void es_check_rd_inter(EncState* S, int abs_part, int depth,
+                              int part_size, RegionSnap* best,
+                              int* have_best, int use_mrg) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  es_reset_inter_region(S, abs_part, depth, part_size);
+  PROF_BEGIN(22);
+  es_pred_inter_search(S, px, py, size, part_size, use_mrg);
+  PROF_END(22);
+  int64_t bits, dist;
+  double cost;
+  PROF_BEGIN(23);
+  es_encode_res_calc_rd(S, abs_part, depth, 0, &bits, &dist, &cost);
+  PROF_END(23);
+  es_best_update(S, abs_part, depth, bits, dist, cost, best, have_best);
+}
+
+// fast-RD: apply a forced uni-L0 2Nx2N motion decision from the device
+// maps.  AMVP runs against the REAL neighbors (es_estimate_mvp_amvp) and
+// xCheckBestMVP picks the cheaper predictor for the given MV, so the
+// emitted mvd/mvp_idx are exactly what the standard requires; only the
+// SEARCH was replaced (TEncSearch.cpp:4120 xMotionEstimation).
+static void es_check_rd_inter_forced(EncState* S, int abs_part, int depth,
+                                     int dir, int ref0, int mvx0, int mvy0,
+                                     int ref1, int mvx1, int mvy1,
+                                     RegionSnap* best, int* have_best) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  if (dir < 1 || dir > 3 || (!S->me.is_b && dir != 1)) dir = 1;
+  int ref[2] = {ref0, ref1};
+  int mvx[2] = {mvx0, mvx1};
+  int mvy[2] = {mvy0, mvy1};
+  es_reset_inter_region(S, abs_part, depth, SZ_2Nx2N);
+  int un = size / 4;
+  set_pu_u8(fa, fa->merge_flag, ux, uy, un, un, 0);
+  set_pu_i8(fa, fa->inter_dir, ux, uy, un, un, (int8_t)dir);
+  for (int lst = 0; lst < 2; lst++) {
+    if (!(dir & (1 << lst))) {
+      es_set_pu_motion(S, px, py, size, size, lst, -1, 0, 0, 0, 0, -1);
+      continue;
+    }
+    int nri = lst == 0 ? S->sp.num_ref_idx0 : S->sp.num_ref_idx1;
+    int r = ref[lst];
+    if (r < 0 || r >= nri) r = 0;
+    es_clip_mv(S, px, py, &mvx[lst], &mvy[lst]);
+    int16_t cands[AMVP_MAX][2];
+    int64_t dbp;
+    int mvp_idx = es_estimate_mvp_amvp(S, px, py, size, SZ_2Nx2N, 0, lst,
+                                       r, cands, &dbp);
+    int16_t mv_pred[2] = {cands[mvp_idx][0], cands[mvp_idx][1]};
+    if (S->me.mvd_l1_zero && lst == 1 && dir == 3) {
+      // mvd_l1_zero_flag: the L1 mvd of a BI PU is not coded — the MV
+      // MUST equal the predictor (TEncSearch.cpp:3450, 7.4.7.1)
+      mvx[lst] = mv_pred[0];
+      mvy[lst] = mv_pred[1];
+    } else {
+      int bits = 0;
+      int64_t cost = 0;
+      es_check_best_mvp(S, cands, mvx[lst], mvy[lst], mv_pred, &mvp_idx,
+                        &bits, &cost);   // updates mv_pred/mvp_idx in place
+    }
+    es_set_pu_motion(S, px, py, size, size, lst, r, mvx[lst], mvy[lst],
+                     mvx[lst] - mv_pred[0], mvy[lst] - mv_pred[1],
+                     mvp_idx);
+  }
+  es_motion_compensation(S, px, py, size, -1);
+  int64_t rbits, rdist;
+  double rcost;
+  es_encode_res_calc_rd(S, abs_part, depth, 0, &rbits, &rdist, &rcost);
+  es_best_update(S, abs_part, depth, rbits, rdist, rcost, best, have_best);
+}
+
+// deriveTestModeAMP + the AMP check sequence (AMP_ENC_SPEEDUP, AMP_MRG)
+static void es_check_amp(EncState* S, int abs_part, int depth,
+                         RegionSnap* best, int* have_best, int parent_part,
+                         int size) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int bpart = U(fa->part_size, ux, uy);
+  int bmerge = U(fa->merge_flag, ux, uy) != 0;
+  int bskip = U(fa->skip, ux, uy) != 0;
+  int hor = 0, ver = 0, mrg_hor = 0, mrg_ver = 0;
+  if (bpart == SZ_2NxN) {
+    hor = 1;
+  } else if (bpart == SZ_Nx2N) {
+    ver = 1;
+  } else if (bpart == SZ_2Nx2N && !bmerge && !bskip) {
+    hor = ver = 1;
+  }
+  if (parent_part >= SZ_2NxnU && parent_part <= SZ_nRx2N)
+    mrg_hor = mrg_ver = 1;
+  if (parent_part == -1) {
+    if (bpart == SZ_2NxN) mrg_hor = 1;
+    else if (bpart == SZ_Nx2N) mrg_ver = 1;
+  }
+  if (bpart == SZ_2Nx2N && !bskip) mrg_hor = mrg_ver = 1;
+  if (size == 64) hor = ver = 0;
+  if (hor) {
+    es_check_rd_inter(S, abs_part, depth, SZ_2NxnU, best, have_best, 0);
+    es_check_rd_inter(S, abs_part, depth, SZ_2NxnD, best, have_best, 0);
+  } else if (mrg_hor) {
+    es_check_rd_inter(S, abs_part, depth, SZ_2NxnU, best, have_best, 1);
+    es_check_rd_inter(S, abs_part, depth, SZ_2NxnD, best, have_best, 1);
+  }
+  if (ver) {
+    es_check_rd_inter(S, abs_part, depth, SZ_nLx2N, best, have_best, 0);
+    es_check_rd_inter(S, abs_part, depth, SZ_nRx2N, best, have_best, 0);
+  } else if (mrg_ver) {
+    es_check_rd_inter(S, abs_part, depth, SZ_nLx2N, best, have_best, 1);
+    es_check_rd_inter(S, abs_part, depth, SZ_nRx2N, best, have_best, 1);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// xCheckRDCostIntra + xCompressCU (intra-only)
+// ---------------------------------------------------------------------------
+static void es_check_intra(EncState* S, int abs_part, int depth,
+                           int part_size, int qp, RegionSnap* best,
+                           int* have_best) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int units = fa->upr >> depth;
+  set_region<uint8_t>(fa, fa->skip, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->part_size, ux, uy, units, (int8_t)part_size);
+  set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTRA);
+  set_region<int8_t>(fa, fa->depth, ux, uy, units, (int8_t)depth);
+  set_region<int8_t>(fa, fa->qp, ux, uy, units, (int8_t)qp);
+  set_region<uint8_t>(fa, fa->ipcm, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units, 0);
+  for (int c = 0; c < 3; c++) {
+    set_region<uint8_t>(fa, fa->cbf + (int64_t)c * fa->uh * fa->uw, ux, uy,
+                        units, 0);
+    set_region<uint8_t>(fa, fa->ts_flag + (int64_t)c * fa->uh * fa->uw, ux,
+                        uy, units, 0);
+  }
+  if (S->has_inter) {
+    // initEstData also clears the motion fields (stale inter data from a
+    // previously tested mode must not leak into later AMVP/merge scans)
+    set_region<uint8_t>(fa, fa->merge_flag, ux, uy, units, 0);
+    set_region<int8_t>(fa, fa->merge_idx, ux, uy, units, 0);
+    set_region<int8_t>(fa, fa->inter_dir, ux, uy, units, 0);
+    for (int l = 0; l < 2; l++) {
+      set_pu_list_i8(fa, fa->ref_idx, l, ux, uy, units, units, -1);
+      set_pu_list_i8(fa, fa->mvp_idx, l, ux, uy, units, units, 0);
+      set_pu_mv(fa, fa->mv, l, ux, uy, units, units, 0, 0);
+      set_pu_mv(fa, fa->mvd, l, ux, uy, units, units, 0, 0);
+    }
+  }
+  set_region<uint8_t>(fa, fa->tq_bypass, ux, uy, units,
+                      (uint8_t)(S->ep.tq_bypass_enable
+                                    ? S->ep.cu_tq_bypass_value
+                                    : 0));
+
+  int64_t dist_y = es_est_intra_pred_qt(S, abs_part, depth);
+  PROF_BEGIN(6);
+  int64_t dist_c = es_est_intra_chroma(S, abs_part, depth);
+  PROF_END(6);
+
+  eb_reset_bits(&S->go);
+  if (S->ep.tq_bypass_enable) we_tq_bypass(S, &S->go, abs_part);
+  if (S->has_inter) {
+    we_skip_flag(S, &S->go, abs_part);
+    we_pred_mode(S, &S->go, abs_part);
+  }
+  we_part_size(S, &S->go, abs_part, depth);
+  we_intra_dir_luma(S, &S->go, abs_part, 1);
+  we_intra_dir_chroma(S, &S->go, abs_part);
+  if (S->ep.use_pcm && (1 << S->ep.pcm_log2_min) <= (fa->ctu_size >> depth) &&
+      (fa->ctu_size >> depth) <= (1 << S->ep.pcm_log2_max))
+    eb_bin_trm(&S->go, 0);
+  S->fin = &S->go;
+  PROF_BEGIN(12);
+  es_final_transform_tree(S, abs_part, depth, 0);
+  PROF_END(12);
+  int64_t bits = eb_bits(&S->go);
+  es_store(S, depth, ECI_TEMP_BEST);
+
+  int64_t dist = dist_y + dist_c;
+  double cost = es_rd_cost(S, bits, dist);
+  S->total_bits = bits;
+  S->total_dist = dist;
+  S->total_cost = cost;
+
+  if (!*have_best || cost < best->cost) {
+    es_save_region(S, abs_part, depth, best);
+    es_copy_snap(S, depth, ECI_TEMP_BEST, depth, ECI_NEXT_BEST);
+    *have_best = 1;
+  } else {
+    es_restore_region(S, abs_part, depth, best);
+  }
+}
+
+// xCompressCU (TEncCu.cpp:386; intra + P/B slices).  parent_part: the
+// parent CU's best partition size (AMP_ENC_SPEEDUP), -1 = SIZE_NONE.
+static void es_compress_cu(EncState* S, int abs_part, int depth,
+                           int parent_part) {
+  FrameArrays* fa = &S->fa;
+  int ux, uy;
+  es_unit_xy(S, abs_part, &ux, &uy);
+  int px = ux * 4, py = uy * 4;
+  int size = fa->ctu_size >> depth;
+  int inside = px + size <= fa->width && py + size <= fa->height;
+  int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  int boundary = !inside;
+
+  RegionSnap* best = S->region[depth];
+  int have_best = 0;
+
+  // fast-RD (fd_on): the quadtree is fixed by the decision map — leaf
+  // when the mapped depth is reached (or already exceeded at the first
+  // fully-inside level of a boundary CTU), split otherwise; no RD
+  // comparison between the two ever runs
+  int fd_leaf = 0, fd_nxn_here = 0;
+  if (S->fd_on && inside) {
+    int fd = S->fd_depth[(int64_t)uy * fa->uw + ux];
+    fd_leaf = fd <= depth || depth >= max_sig;
+    if (fd_leaf && depth == max_sig && size > (1 << S->ep.min_tr_log2))
+      fd_nxn_here = S->fd_nxn[(int64_t)uy * fa->uw + ux] != 0;
+  }
+
+  if (inside && (!S->fd_on || fd_leaf)) {
+    int qp = S->ep.unit_qp >= 0 ? S->ep.unit_qp : S->ep.slice_qp;
+    if (S->fd_on) {
+      int64_t u_off = (int64_t)uy * fa->uw + ux;
+      int want_inter = S->has_inter && S->fd_pred && S->fd_pred[u_off];
+      if (want_inter) {
+        // inter CU: the REAL closed-loop merge/skip RD over all
+        // candidates competes with the device's forced-MV AMVP
+        // candidate — static content recovers full skip savings
+        PROF_BEGIN(19);
+        es_check_rd_merge_2nx2n(S, abs_part, depth, best, &have_best);
+        PROF_END(19);
+        PROF_BEGIN(18);
+        int fdir = S->fd_dir ? S->fd_dir[u_off] : 1;
+        es_check_rd_inter_forced(
+            S, abs_part, depth, fdir, S->fd_ref[u_off],
+            S->fd_mvx[u_off], S->fd_mvy[u_off],
+            S->fd_ref1 ? S->fd_ref1[u_off] : 0,
+            S->fd_mvx1 ? S->fd_mvx1[u_off] : 0,
+            S->fd_mvy1 ? S->fd_mvy1[u_off] : 0,
+            best, &have_best);
+        PROF_END(18);
+      } else {
+        PROF_BEGIN(21);
+        es_check_intra(S, abs_part, depth,
+                       fd_nxn_here ? SZ_NxN : SZ_2Nx2N, qp, best,
+                       &have_best);
+        PROF_END(21);
+      }
+      eb_reset_bits(&S->go);
+      we_split_flag(S, &S->go, abs_part, depth);
+      best->bits += eb_bits(&S->go);
+      best->cost = es_rd_cost(S, best->bits, best->dist);
+      S->total_bits = best->bits;
+      S->total_dist = best->dist;
+      S->total_cost = best->cost;
+      return;
+    }
+    if (S->has_inter) {
+      { PROF_BEGIN(19);
+        es_check_rd_merge_2nx2n(S, abs_part, depth, best, &have_best);
+        PROF_END(19); }
+      { PROF_BEGIN(18);
+        es_check_rd_inter(S, abs_part, depth, SZ_2Nx2N, best, &have_best, 0);
+        PROF_END(18); }
+      if (size != 8) {
+        if (depth == max_sig)
+          es_check_rd_inter(S, abs_part, depth, SZ_NxN, best, &have_best,
+                            0);
+      }
+      { PROF_BEGIN(20);
+        es_check_rd_inter(S, abs_part, depth, SZ_Nx2N, best, &have_best, 0);
+        es_check_rd_inter(S, abs_part, depth, SZ_2NxN, best, &have_best, 0);
+        PROF_END(20); }
+      if (S->ep.use_amp && depth < max_sig)
+        es_check_amp(S, abs_part, depth, best, &have_best, parent_part,
+                     size);
+    }
+    int do_intra =
+        !S->has_inter || (U3(fa->cbf, 0, ux, uy) | U3(fa->cbf, 1, ux, uy) |
+                          U3(fa->cbf, 2, ux, uy)) != 0;
+    if (do_intra) {
+      PROF_BEGIN(21);
+      es_check_intra(S, abs_part, depth, SZ_2Nx2N, qp, best, &have_best);
+      PROF_END(21);
+      if (depth == max_sig && size > (1 << S->ep.min_tr_log2)) {
+        PROF_BEGIN(24);
+        es_check_intra(S, abs_part, depth, SZ_NxN, qp, best, &have_best);
+        PROF_END(24);
+      }
+    }
+    // PCM mode decision is out of scope (gated at enc_create)
+
+    eb_reset_bits(&S->go);
+    we_split_flag(S, &S->go, abs_part, depth);
+    best->bits += eb_bits(&S->go);
+    best->cost = es_rd_cost(S, best->bits, best->dist);
+    S->total_bits = best->bits;
+    S->total_dist = best->dist;
+    S->total_cost = best->cost;
+  }
+
+  // fast-RD closed-loop rescue: at a split node of the forced quadtree
+  // in an inter slice, the REAL merge/skip RD at THIS level competes
+  // with the forced subtree via the normal leaf-vs-split comparison
+  // below.  The open-loop DP over-splits static regions (its skip model
+  // sees org-vs-recon noise); the exact path codes them as one big skip
+  // (xCheckRDCostMerge2Nx2N before the split recursion, TEncCu.cpp:550).
+  if (S->fd_on && inside && S->has_inter && depth <= S->fd_rescue_maxd &&
+      depth < max_sig) {
+    PROF_BEGIN(19);
+    es_check_rd_merge_2nx2n(S, abs_part, depth, best, &have_best);
+    PROF_END(19);
+    eb_reset_bits(&S->go);
+    we_split_flag(S, &S->go, abs_part, depth);
+    best->bits += eb_bits(&S->go);
+    best->cost = es_rd_cost(S, best->bits, best->dist);
+    S->total_bits = best->bits;
+    S->total_dist = best->dist;
+    S->total_cost = best->cost;
+  }
+
+  // parent partition size for AMP_ENC_SPEEDUP: captured from the best
+  // before children overwrite the frame region
+  int sub_parent;
+  if (!have_best || U(fa->pred_mode, ux, uy) == MODE_INTRA)
+    sub_parent = -1;
+  else
+    sub_parent = U(fa->part_size, ux, uy);
+
+  if (depth < max_sig) {
+    int q_parts = (fa->parts >> (depth << 1)) >> 2;
+    int64_t split_bits = 0, split_dist = 0;
+    int part = abs_part;
+    for (int i = 0; i < 4; i++) {
+      int sux, suy;
+      es_unit_xy(S, part, &sux, &suy);
+      if (sux * 4 < fa->width && suy * 4 < fa->height) {
+        if (i == 0)
+          es_copy_snap(S, depth, ECI_CURR_BEST, depth + 1, ECI_CURR_BEST);
+        else
+          es_copy_snap(S, depth + 1, ECI_NEXT_BEST, depth + 1,
+                       ECI_CURR_BEST);
+        es_compress_cu(S, part, depth + 1, sub_parent);
+        split_bits += S->total_bits;
+        split_dist += S->total_dist;
+      } else {
+        int su = fa->upr >> (depth + 1);
+        set_region<int8_t>(fa, fa->depth, sux, suy, su,
+                           (int8_t)(depth + 1));
+        set_region<int8_t>(fa, fa->pred_mode, sux, suy, su, MODE_NONE);
+      }
+      part += q_parts;
+    }
+    if (!boundary) {
+      eb_reset_bits(&S->go);
+      we_split_flag(S, &S->go, abs_part, depth);
+      split_bits += eb_bits(&S->go);
+    }
+    double split_cost = es_rd_cost(S, split_bits, split_dist);
+    es_copy_snap(S, depth + 1, ECI_NEXT_BEST, depth, ECI_TEMP_BEST);
+    if (!have_best || split_cost < best->cost) {
+      S->total_bits = split_bits;
+      S->total_dist = split_dist;
+      S->total_cost = split_cost;
+      es_save_region(S, abs_part, depth, best);
+      es_copy_snap(S, depth, ECI_TEMP_BEST, depth, ECI_NEXT_BEST);
+    } else {
+      es_restore_region(S, abs_part, depth, best);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// entry points (ctypes API)
+// ---------------------------------------------------------------------------
+void* enc_create(const FrameArrays* fa, const EncParams* ep,
+                 const CtxOffsets* co, const ScanTables* sc,
+                 const int16_t* org_y, const int16_t* org_cb,
+                 const int16_t* org_cr, int16_t* rec_y, int16_t* rec_cb,
+                 int16_t* rec_cr, int64_t rec_luma_stride,
+                 const uint8_t* init_ctx) {
+  EncState* S = new EncState();
+  memset(S, 0, sizeof(EncState));
+  S->fa = *fa;
+  S->ep = *ep;
+  S->co = *co;
+  S->sc = *sc;
+  S->org_y = org_y; S->org_cb = org_cb; S->org_cr = org_cr;
+  S->rec_y = rec_y; S->rec_cb = rec_cb; S->rec_cr = rec_cr;
+  S->ls = (int64_t)fa->uw * 4;
+  S->cs = (int64_t)fa->uw * 2;
+  S->rls = rec_luma_stride;
+  S->rcs = rec_luma_stride / 2;
+  S->num_ctx = co->num_ctx;
+  S->depths = fa->max_depth + 2;
+  S->log2_ctu_v = convert_to_bit(fa->ctu_size) + 2;
+  S->presel_pred = new int32_t[35 * 64 * 64];
+  for (int l = 0; l < 4; l++)
+    for (int c = 0; c < 2; c++) {
+      S->eb_ctx_snap[l][c] = new uint8_t[256];
+      S->eb_valid[l][c] = 0;
+    }
+  S->presel_part = -1;
+  S->presel_size = -1;
+  const char* rsc = getenv("THEVC_FASTRD_RESCUE");
+  S->fd_rescue_maxd = rsc ? atoi(rsc) : 1;
+  S->snap_ctx = new uint8_t[(int64_t)S->depths * ECI_NUM * S->num_ctx];
+  S->snap_frac = new uint64_t[S->depths * ECI_NUM];
+  for (int d = 0; d < S->depths; d++)
+    for (int ci = 0; ci < ECI_NUM; ci++) {
+      memcpy(S->snap_ctx + ((int64_t)d * ECI_NUM + ci) * S->num_ctx,
+             init_ctx, S->num_ctx);
+      S->snap_frac[d * ECI_NUM + ci] = 0;
+    }
+  S->go_ctx = new uint8_t[S->num_ctx];
+  memcpy(S->go_ctx, init_ctx, S->num_ctx);
+  S->go.mode = 0;
+  S->go.ctx = S->go_ctx;
+  S->go.frac_bits = 0;
+  S->go.bit_count = 0;
+  int ctu = fa->ctu_size;
+  for (int l = 0; l < 8; l++) {
+    S->qt_rec[l][0] = new int16_t[ctu * ctu]();
+    S->qt_coeff[l][0] = new int32_t[ctu * ctu]();
+    for (int pl = 1; pl < 3; pl++) {
+      S->qt_rec[l][pl] = new int16_t[(ctu / 2) * (ctu / 2)]();
+      S->qt_coeff[l][pl] = new int32_t[(ctu / 2) * (ctu / 2)]();
+    }
+    S->region[l] = new RegionSnap();
+    S->luma_store[l] = new LumaStore();
+    S->chroma_store[l] = new ChromaStore();
+    for (int pl = 0; pl < 3; pl++) S->tu_store[l][pl] = new TuStore();
+    S->iqt_resi[l][0] = new int32_t[ctu * ctu]();
+    S->iqt_coeff[l][0] = new int32_t[ctu * ctu]();
+    for (int pl = 1; pl < 3; pl++) {
+      S->iqt_resi[l][pl] = new int32_t[(ctu / 2) * (ctu / 2)]();
+      S->iqt_coeff[l][pl] = new int32_t[(ctu / 2) * (ctu / 2)]();
+    }
+  }
+  return S;
+}
+
+// bind the inter-slice environment (refs + merge/AMVP env + ME params);
+// must be called after enc_create for P/B slices
+void enc_set_inter(void* handle, const SliceParams* sp,
+                   const InterRefs* refs, const EncInterParams* me) {
+  EncState* S = (EncState*)handle;
+  S->sp = *sp;
+  S->refs = *refs;
+  S->me = *me;
+  S->has_inter = 1;
+}
+
+// bind the fast-RD decision maps (per 4x4 unit, raster order); pass
+// nulls to return to the full-search path
+void enc_set_fd(void* handle, const int8_t* depth_map,
+                const int8_t* mode_map, const uint8_t* nxn_map,
+                const int8_t* chroma_map, const int8_t* mode2_map,
+                const int8_t* mode3_map, int fix_tu) {
+  EncState* S = (EncState*)handle;
+  S->fd_depth = depth_map;
+  S->fd_mode = mode_map;
+  S->fd_nxn = nxn_map;
+  S->fd_chroma = chroma_map;
+  S->fd_mode2 = mode2_map;
+  S->fd_mode3 = mode3_map;
+  S->fd_fix_tu = fix_tu;
+  S->fd_on = depth_map != NULL && mode_map != NULL && nxn_map != NULL;
+}
+
+// bind the inter fast-RD maps (per 4x4 unit): pred flag, L0 ref idx,
+// quarter-pel MV components; pass nulls to clear.  B slices also bind
+// inter_dir (1/2/3) and the L1 ref/MV planes (all-null for P).
+void enc_set_fd_inter(void* handle, const int8_t* pred_map,
+                      const int8_t* ref_map, const int16_t* mvx_map,
+                      const int16_t* mvy_map, const int8_t* dir_map,
+                      const int8_t* ref1_map, const int16_t* mvx1_map,
+                      const int16_t* mvy1_map) {
+  EncState* S = (EncState*)handle;
+  S->fd_pred = pred_map;
+  S->fd_ref = ref_map;
+  S->fd_mvx = mvx_map;
+  S->fd_mvy = mvy_map;
+  S->fd_dir = dir_map;
+  S->fd_ref1 = ref1_map;
+  S->fd_mvx1 = mvx1_map;
+  S->fd_mvy1 = mvy1_map;
+}
+
+// ---------------------------------------------------------------------------
+// fast-RD device apply (VERDICT r04 item #1): wavefront schedule builder,
+// frame-array fill for a fixed decision tree, and the counter-only entropy
+// pass.  With these three, the per-frame math (prediction / transform /
+// quant / recon) runs as ONE device launch (encoder/fast_apply.py) and the
+// host does entropy coding only.
+// ---------------------------------------------------------------------------
+
+struct FdSched {
+  int32_t *x, *y, *lo, *hi, *wave;
+  int8_t *cls, *mode, *scan;
+  int64_t n, cap;
+  int32_t *lvl_l, *lvl_c;  // per-unit (wave of owner TU) + 1; 0 = uncoded
+  uint8_t *cod_l, *cod_c;  // per-unit coded flags (luma / chroma grids)
+  const int8_t *fd_depth, *fd_mode, *fd_chroma;
+  const uint8_t* fd_nxn;
+  int32_t uw, uh, width, height;
+  int max_sig, min_tr_log2, max_wave, bad;
+};
+
+// es_scan_idx for a fixed intra decision (no frame arrays needed)
+static int fd_scan_idx(int size, int dir_mode, int is_luma) {
+  int ctx_idx;
+  switch (size) {
+    case 2: ctx_idx = 6; break;
+    case 4: ctx_idx = 5; break;
+    case 8: ctx_idx = 4; break;
+    case 16: ctx_idx = 3; break;
+    case 32: ctx_idx = 2; break;
+    case 64: ctx_idx = 1; break;
+    default: ctx_idx = 0; break;
+  }
+  int lo_c = is_luma ? 3 : 4, hi_c = is_luma ? 6 : 7;
+  if (ctx_idx > lo_c && ctx_idx < hi_c) {
+    int dv = dir_mode - VER_IDX; if (dv < 0) dv = -dv;
+    int dh = dir_mode - HOR_IDX; if (dh < 0) dh = -dh;
+    if (dv < 5) return 1;
+    if (dh < 5) return 2;
+  }
+  return 3;
+}
+
+// one TU in decode order: availability clamp [lo, hi] in reference-line
+// sample indices (fillReferenceSamples substitution == clamp when the
+// available units are contiguous), earliest wave (1 + max wave of every
+// unit the clamped line reads), record emit, own-region marking.
+static void fd_emit_tu(FdSched* F, int x, int y, int size, int unit,
+                       int mode, int cls, int is_luma, int trd) {
+  int gx = x / unit, gy = y / unit;
+  int nu = size / unit;
+  int uw = F->uw, uh = F->uh;
+  int32_t* lvl = is_luma ? F->lvl_l : F->lvl_c;
+  uint8_t* cod = is_luma ? F->cod_l : F->cod_c;
+  int lo_u = -1, hi_u = -2, contig = 1, seen_gap = 0, maxw = 0;
+  for (int u = 0; u <= 4 * nu; u++) {
+    int nx, ny;
+    if (u < 2 * nu) { nx = gx - 1; ny = gy + (2 * nu - 1 - u); }
+    else if (u == 2 * nu) { nx = gx - 1; ny = gy - 1; }
+    else { nx = gx + (u - 2 * nu - 1); ny = gy - 1; }
+    // in-picture test is the same on both grids: luma unit nx covers
+    // sample 4*nx, chroma unit nx covers chroma sample 2*nx = luma 4*nx
+    int ok = nx >= 0 && ny >= 0 && nx < uw && ny < uh &&
+             nx * 4 < F->width && ny * 4 < F->height && cod[(int64_t)ny * uw + nx];
+    if (ok) {
+      if (lo_u < 0) lo_u = u;
+      else if (seen_gap) contig = 0;
+      hi_u = u;
+      int w = lvl[(int64_t)ny * uw + nx];
+      if (w > maxw) maxw = w;
+    } else if (lo_u >= 0) {
+      seen_gap = 1;
+    }
+  }
+  if (!contig) F->bad = 1;
+  int lo, hi;
+  if (lo_u < 0) { lo = 1; hi = 0; }            // nothing available: DC fill
+  else { lo = lo_u * unit; hi = (hi_u + 1) * unit - 1; }
+  if (F->n < F->cap) {
+    int64_t i = F->n;
+    F->x[i] = x; F->y[i] = y; F->lo[i] = lo; F->hi[i] = hi;
+    F->wave[i] = maxw;
+    F->cls[i] = (int8_t)cls;
+    F->mode[i] = (int8_t)mode;
+    // low 2 bits: scan index (1 hor-ish / 2 ver-ish / 3 diag);
+    // bit 2: the TU's cbf-context transform depth (0 or 1)
+    F->scan[i] = (int8_t)(fd_scan_idx(size, mode, is_luma) | (trd << 2));
+  }
+  F->n++;
+  if (maxw > F->max_wave) F->max_wave = maxw;
+  for (int j = 0; j < nu; j++)
+    for (int k = 0; k < nu; k++) {
+      int64_t o = (int64_t)(gy + j) * uw + gx + k;
+      cod[o] = 1;
+      lvl[o] = maxw + 1;
+    }
+}
+
+// decode-order TU enumeration over the fixed fast-RD quadtree: mirrors
+// es_compress_cu's fd_leaf rule and decode_transform's TU push order
+// (luma before its chroma; the 4x4-leaf chroma rides with part 0)
+static void fd_sched_cu(FdSched* F, int px, int py, int size, int depth) {
+  if (px >= F->width || py >= F->height) return;
+  int inside = px + size <= F->width && py + size <= F->height;
+  int64_t uoff = (int64_t)(py / 4) * F->uw + px / 4;
+  int fd_leaf = 0;
+  if (inside) {
+    int fd = F->fd_depth[uoff];
+    fd_leaf = fd <= depth || depth >= F->max_sig;
+  }
+  if (!fd_leaf) {
+    int h = size / 2;
+    fd_sched_cu(F, px, py, h, depth + 1);
+    fd_sched_cu(F, px + h, py, h, depth + 1);
+    fd_sched_cu(F, px, py + h, h, depth + 1);
+    fd_sched_cu(F, px + h, py + h, h, depth + 1);
+    return;
+  }
+  int nxn = 0;
+  if (depth == F->max_sig && size > (1 << F->min_tr_log2))
+    nxn = F->fd_nxn[uoff] != 0;
+  int mode0 = F->fd_mode[uoff];
+  int cstored = F->fd_chroma ? F->fd_chroma[uoff] : DM_CHROMA_IDX;
+  int cmode = cstored == DM_CHROMA_IDX ? mode0 : cstored;
+  if (size == 64) {
+    // forced luma split to 32 (max TU); chroma follows at 16 per quadrant
+    for (int i = 0; i < 4; i++) {
+      int sx = px + (i & 1) * 32, sy = py + (i >> 1) * 32;
+      fd_emit_tu(F, sx, sy, 32, 4, mode0, 3, 1, 1);
+      fd_emit_tu(F, sx / 2, sy / 2, 16, 2, cmode, 6, 0, 1);
+    }
+  } else if (nxn) {
+    int m1 = F->fd_mode[uoff + 1];
+    int m2 = F->fd_mode[uoff + F->uw];
+    int m3 = F->fd_mode[uoff + F->uw + 1];
+    fd_emit_tu(F, px, py, 4, 4, mode0, 0, 1, 1);
+    fd_emit_tu(F, px / 2, py / 2, 4, 2, cmode, 4, 0, 0);
+    fd_emit_tu(F, px + 4, py, 4, 4, m1, 0, 1, 1);
+    fd_emit_tu(F, px, py + 4, 4, 4, m2, 0, 1, 1);
+    fd_emit_tu(F, px + 4, py + 4, 4, 4, m3, 0, 1, 1);
+  } else {
+    int cls = size == 4 ? 0 : size == 8 ? 1 : size == 16 ? 2 : 3;
+    fd_emit_tu(F, px, py, size, 4, mode0, cls, 1, 0);
+    if (size == 8)
+      fd_emit_tu(F, px / 2, py / 2, 4, 2, cmode, 4, 0, 0);
+    else
+      fd_emit_tu(F, px / 2, py / 2, size / 2, 2, cmode,
+                 size == 16 ? 5 : 6, 0, 0);
+  }
+}
+
+// Build the wavefront schedule for one frame's fixed intra decision maps.
+// Returns the TU record count, writing n_waves to *out_n_waves; returns
+// -1 when a TU's availability is non-contiguous (caller must fall back
+// to the host apply) or -2 when cap is too small.
+int64_t enc_fd_schedule(int32_t uw, int32_t uh, int32_t width,
+                        int32_t height, int32_t ctu_size, int32_t ctus_w,
+                        int32_t ctus_h, int32_t max_sig,
+                        int32_t min_tr_log2, const int8_t* fd_depth,
+                        const uint8_t* fd_nxn, const int8_t* fd_mode,
+                        const int8_t* fd_chroma, int32_t* out_x,
+                        int32_t* out_y, int32_t* out_lo, int32_t* out_hi,
+                        int32_t* out_wave, int8_t* out_cls,
+                        int8_t* out_mode, int8_t* out_scan, int64_t cap,
+                        int32_t* out_n_waves) {
+  FdSched F;
+  memset(&F, 0, sizeof(F));
+  F.x = out_x; F.y = out_y; F.lo = out_lo; F.hi = out_hi; F.wave = out_wave;
+  F.cls = out_cls; F.mode = out_mode; F.scan = out_scan;
+  F.cap = cap;
+  F.fd_depth = fd_depth; F.fd_nxn = fd_nxn; F.fd_mode = fd_mode;
+  F.fd_chroma = fd_chroma;
+  F.uw = uw; F.uh = uh; F.width = width; F.height = height;
+  F.max_sig = max_sig; F.min_tr_log2 = min_tr_log2;
+  int64_t cells = (int64_t)uw * uh;
+  F.lvl_l = new int32_t[cells]();
+  F.lvl_c = new int32_t[cells]();
+  F.cod_l = new uint8_t[cells]();
+  F.cod_c = new uint8_t[cells]();
+  for (int cy = 0; cy < ctus_h; cy++)
+    for (int cx = 0; cx < ctus_w; cx++)
+      fd_sched_cu(&F, cx * ctu_size, cy * ctu_size, ctu_size, 0);
+  delete[] F.lvl_l; delete[] F.lvl_c; delete[] F.cod_l; delete[] F.cod_c;
+  *out_n_waves = F.max_wave + 1;
+  if (F.bad) return -1;
+  if (F.n > cap) return -2;
+  return F.n;
+}
+
+static inline int fd_tu_cbf(const int32_t* plane, int64_t stride, int x,
+                            int y, int size) {
+  for (int j = 0; j < size; j++) {
+    const int32_t* r = plane + (int64_t)(y + j) * stride + x;
+    for (int i = 0; i < size; i++)
+      if (r[i]) return 1;
+  }
+  return 0;
+}
+
+// fill the frame syntax arrays for the fixed fast-RD tree from the
+// device-computed coefficient planes (cbf conventions mirror the decoder's
+// decode_transform: per-depth cbf bitmask, children OR'd into parent bits)
+static void fd_fill_cu(EncState* S, int px, int py, int size, int depth) {
+  FrameArrays* fa = &S->fa;
+  int ux = px / 4, uy = py / 4;
+  int units = fa->upr >> depth;
+  if (px >= fa->width || py >= fa->height) {
+    if (px < fa->uw * 4 && py < fa->uh * 4) {
+      set_region<int8_t>(fa, fa->depth, ux, uy, units, (int8_t)depth);
+      set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_NONE);
+    }
+    return;
+  }
+  int inside = px + size <= fa->width && py + size <= fa->height;
+  int64_t uoff = (int64_t)uy * fa->uw + ux;
+  int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  int fd_leaf = 0;
+  if (inside) {
+    int fd = S->fd_depth[uoff];
+    fd_leaf = fd <= depth || depth >= max_sig;
+  }
+  if (!fd_leaf) {
+    int h = size / 2;
+    fd_fill_cu(S, px, py, h, depth + 1);
+    fd_fill_cu(S, px + h, py, h, depth + 1);
+    fd_fill_cu(S, px, py + h, h, depth + 1);
+    fd_fill_cu(S, px + h, py + h, h, depth + 1);
+    return;
+  }
+  int nxn = 0;
+  if (depth == max_sig && size > (1 << S->ep.min_tr_log2))
+    nxn = S->fd_nxn[uoff] != 0;
+  int qp = S->ep.unit_qp >= 0 ? S->ep.unit_qp : S->ep.slice_qp;
+  set_region<uint8_t>(fa, fa->skip, ux, uy, units, 0);
+  set_region<int8_t>(fa, fa->part_size, ux, uy, units,
+                     (int8_t)(nxn ? SZ_NxN : SZ_2Nx2N));
+  set_region<int8_t>(fa, fa->pred_mode, ux, uy, units, MODE_INTRA);
+  set_region<int8_t>(fa, fa->depth, ux, uy, units, (int8_t)depth);
+  set_region<int8_t>(fa, fa->qp, ux, uy, units, (int8_t)qp);
+  set_region<uint8_t>(fa, fa->ipcm, ux, uy, units, 0);
+  set_region<uint8_t>(fa, fa->tq_bypass, ux, uy, units,
+                      (uint8_t)(S->ep.tq_bypass_enable
+                                    ? S->ep.cu_tq_bypass_value : 0));
+  set_region<int8_t>(fa, fa->tr_idx, ux, uy, units,
+                     (int8_t)((size == 64 || nxn) ? 1 : 0));
+  for (int c = 0; c < 3; c++)
+    set_region<uint8_t>(fa, fa->ts_flag + (int64_t)c * fa->uh * fa->uw,
+                        ux, uy, units, 0);
+  int cstored = S->fd_chroma ? S->fd_chroma[uoff] : DM_CHROMA_IDX;
+  set_region<int8_t>(fa, fa->chroma_dir, ux, uy, units, (int8_t)cstored);
+  int64_t y_base = 0 * (int64_t)fa->uh * fa->uw;
+  int64_t u_base = 1 * (int64_t)fa->uh * fa->uw;
+  int64_t v_base = 2 * (int64_t)fa->uh * fa->uw;
+  int64_t ls = (int64_t)fa->uw * 4, cs = (int64_t)fa->uw * 2;
+  if (size == 64) {
+    set_region<int8_t>(fa, fa->luma_dir, ux, uy, units,
+                       (int8_t)S->fd_mode[uoff]);
+    int ory = 0, oru = 0, orv = 0;
+    for (int i = 0; i < 4; i++) {
+      int sx = px + (i & 1) * 32, sy = py + (i >> 1) * 32;
+      int sux = sx / 4, suy = sy / 4;
+      int cy_ = fd_tu_cbf(fa->coeff_y, ls, sx, sy, 32);
+      int cu_ = fd_tu_cbf(fa->coeff_cb, cs, sx / 2, sy / 2, 16);
+      int cv_ = fd_tu_cbf(fa->coeff_cr, cs, sx / 2, sy / 2, 16);
+      set_region<uint8_t>(fa, fa->cbf + y_base, sux, suy, units / 2,
+                          (uint8_t)(cy_ << 1));
+      set_region<uint8_t>(fa, fa->cbf + u_base, sux, suy, units / 2,
+                          (uint8_t)(cu_ << 1));
+      set_region<uint8_t>(fa, fa->cbf + v_base, sux, suy, units / 2,
+                          (uint8_t)(cv_ << 1));
+      ory |= cy_; oru |= cu_; orv |= cv_;
+    }
+    for (int j = 0; j < units; j++)
+      for (int k = 0; k < units; k++) {
+        int64_t o = (int64_t)(uy + j) * fa->uw + ux + k;
+        fa->cbf[y_base + o] |= (uint8_t)ory;
+        fa->cbf[u_base + o] |= (uint8_t)oru;
+        fa->cbf[v_base + o] |= (uint8_t)orv;
+      }
+  } else if (nxn) {
+    int ory = 0;
+    for (int i = 0; i < 4; i++) {
+      int sx = px + (i & 1) * 4, sy = py + (i >> 1) * 4;
+      int64_t o = (int64_t)(sy / 4) * fa->uw + sx / 4;
+      fa->luma_dir[o] = S->fd_mode[o];
+      int cy_ = fd_tu_cbf(fa->coeff_y, ls, sx, sy, 4);
+      fa->cbf[y_base + o] = (uint8_t)(cy_ << 1);
+      ory |= cy_;
+    }
+    int cu_ = fd_tu_cbf(fa->coeff_cb, cs, px / 2, py / 2, 4);
+    int cv_ = fd_tu_cbf(fa->coeff_cr, cs, px / 2, py / 2, 4);
+    for (int j = 0; j < units; j++)
+      for (int k = 0; k < units; k++) {
+        int64_t o = (int64_t)(uy + j) * fa->uw + ux + k;
+        fa->cbf[y_base + o] |= (uint8_t)ory;
+        // chroma at the 4x4 leaf depth copies the parent bit down
+        // (decode_transform's log2_tr == 2 else-branch)
+        fa->cbf[u_base + o] = (uint8_t)(cu_ ? 3 : 0);
+        fa->cbf[v_base + o] = (uint8_t)(cv_ ? 3 : 0);
+      }
+  } else {
+    set_region<int8_t>(fa, fa->luma_dir, ux, uy, units,
+                       (int8_t)S->fd_mode[uoff]);
+    int cy_ = fd_tu_cbf(fa->coeff_y, ls, px, py, size);
+    int csz = size == 8 ? 4 : size / 2;
+    int cu_ = fd_tu_cbf(fa->coeff_cb, cs, px / 2, py / 2, csz);
+    int cv_ = fd_tu_cbf(fa->coeff_cr, cs, px / 2, py / 2, csz);
+    set_region<uint8_t>(fa, fa->cbf + y_base, ux, uy, units, (uint8_t)cy_);
+    set_region<uint8_t>(fa, fa->cbf + u_base, ux, uy, units, (uint8_t)cu_);
+    set_region<uint8_t>(fa, fa->cbf + v_base, ux, uy, units, (uint8_t)cv_);
+  }
+}
+
+int32_t enc_fill_from_fd(void* handle) {
+  EncState* S = (EncState*)handle;
+  if (!S->fd_on) return -1;
+  FrameArrays* fa = &S->fa;
+  for (int cy = 0; cy < fa->ctus_h; cy++)
+    for (int cx = 0; cx < fa->ctus_w; cx++)
+      fd_fill_cu(S, cx * fa->ctu_size, cy * fa->ctu_size, fa->ctu_size, 0);
+  return 0;
+}
+
+// counter-only entropy pass for one CTU over already-filled frame arrays:
+// advances the slice RD context chain exactly like the compress-pass tail
+// re-encode (compress_slice), returning the whole-bit count
+int64_t enc_encode_ctu_counter(void* handle, int32_t ctu_addr) {
+  EncState* S = (EncState*)handle;
+  S->ctu_addr = ctu_addr;
+  EncBin eng;
+  memset(&eng, 0, sizeof(eng));
+  uint8_t ctx_buf[512];
+  memcpy(ctx_buf, es_snap_ctx(S, 0, ECI_CURR_BEST), S->num_ctx);
+  eng.mode = 0;
+  eng.ctx = ctx_buf;
+  eng.frac_bits = S->snap_frac[ECI_CURR_BEST];
+  S->fin = &eng;
+  uint64_t f0 = eng.frac_bits;
+  es_encode_cu_final(S, 0, 0);
+  memcpy(es_snap_ctx(S, 0, ECI_CURR_BEST), ctx_buf, S->num_ctx);
+  S->snap_frac[ECI_CURR_BEST] = eng.frac_bits;
+  return (int64_t)((eng.frac_bits - f0) >> 15);
+}
+
+void enc_destroy(void* handle) {
+  EncState* S = (EncState*)handle;
+  delete[] S->presel_pred;
+  for (int l = 0; l < 4; l++)
+    for (int c = 0; c < 2; c++) delete[] S->eb_ctx_snap[l][c];
+  delete[] S->snap_ctx;
+  delete[] S->snap_frac;
+  delete[] S->go_ctx;
+  for (int l = 0; l < 8; l++) {
+    for (int pl = 0; pl < 3; pl++) {
+      delete[] S->qt_rec[l][pl];
+      delete[] S->qt_coeff[l][pl];
+      delete[] S->iqt_resi[l][pl];
+      delete[] S->iqt_coeff[l][pl];
+      delete S->tu_store[l][pl];
+    }
+    delete S->region[l];
+    delete S->luma_store[l];
+    delete S->chroma_store[l];
+  }
+  delete S;
+}
+
+// set/get the slice-level RD context chain ([0][CI_CURR_BEST])
+void enc_set_slice_ctx(void* handle, const uint8_t* ctx, uint64_t frac) {
+  EncState* S = (EncState*)handle;
+  memcpy(es_snap_ctx(S, 0, ECI_CURR_BEST), ctx, S->num_ctx);
+  S->snap_frac[ECI_CURR_BEST] = frac;
+}
+
+uint64_t enc_get_go_frac(void* handle) {
+  return ((EncState*)handle)->go.frac_bits;
+}
+
+void enc_get_slice_ctx(void* handle, uint8_t* ctx, uint64_t* frac) {
+  EncState* S = (EncState*)handle;
+  memcpy(ctx, es_snap_ctx(S, 0, ECI_CURR_BEST), S->num_ctx);
+  *frac = S->snap_frac[ECI_CURR_BEST];
+}
+
+// compressCU for one CTU + the compress-pass counter re-encode that
+// advances the slice context chain (compress_slice loop body)
+int64_t enc_compress_ctu(void* handle, int32_t ctu_addr) {
+  EncState* S = (EncState*)handle;
+  FrameArrays* fa = &S->fa;
+  S->ctu_addr = ctu_addr;
+  S->total_bits = 0;
+  S->total_dist = 0;
+  S->total_cost = 0.0;
+  // initCU: reset the CTU region
+  int upr = fa->upr;
+  int cx = ctu_addr % fa->ctus_w, cy = ctu_addr / fa->ctus_w;
+  int qp = S->ep.unit_qp >= 0 ? S->ep.unit_qp : S->ep.slice_qp;
+  for (int j = 0; j < upr; j++) {
+    int64_t row = (int64_t)(cy * upr + j) * fa->uw + cx * upr;
+    for (int i = 0; i < upr; i++) {
+      fa->depth[row + i] = 0;
+      fa->tr_idx[row + i] = 0;
+      fa->qp[row + i] = (int8_t)qp;
+      fa->pred_mode[row + i] = MODE_NONE;
+      fa->part_size[row + i] = 15;
+      fa->skip[row + i] = 0;
+      fa->ipcm[row + i] = 0;
+      fa->tq_bypass[row + i] = 0;
+      fa->merge_flag[row + i] = 0;
+      fa->merge_idx[row + i] = 0;
+      fa->inter_dir[row + i] = 0;
+      for (int c = 0; c < 3; c++) {
+        fa->cbf[(int64_t)c * fa->uh * fa->uw + row + i] = 0;
+        fa->ts_flag[(int64_t)c * fa->uh * fa->uw + row + i] = 0;
+      }
+      for (int l = 0; l < 2; l++) {
+        int64_t li = (int64_t)l * fa->uh * fa->uw + row + i;
+        fa->mv[li * 2] = 0;
+        fa->mv[li * 2 + 1] = 0;
+        fa->mvd[li * 2] = 0;
+        fa->mvd[li * 2 + 1] = 0;
+        fa->ref_idx[li] = -1;
+        fa->mvp_idx[li] = 0;
+      }
+    }
+  }
+  es_compress_cu(S, 0, 0, -1);
+
+  // final-pass re-encode with the counter: advances [0][CI_CURR_BEST]
+  EncBin eng;
+  memset(&eng, 0, sizeof(eng));
+  uint8_t ctx_buf[512];
+  memcpy(ctx_buf, es_snap_ctx(S, 0, ECI_CURR_BEST), S->num_ctx);
+  eng.mode = 0;
+  eng.ctx = ctx_buf;
+  eng.frac_bits = S->snap_frac[ECI_CURR_BEST];
+  S->fin = &eng;
+  PROF_BEGIN(7); es_encode_cu_final(S, 0, 0); PROF_END(7);
+  memcpy(es_snap_ctx(S, 0, ECI_CURR_BEST), ctx_buf, S->num_ctx);
+  S->snap_frac[ECI_CURR_BEST] = eng.frac_bits;
+  return S->total_bits;
+}
+
+// real-CABAC final pass for one CTU; engine state + byte sink shared with
+// the Python OutputBitstream/BinEncoder around the call
+int64_t enc_encode_ctu(void* handle, int32_t ctu_addr, uint8_t* ctx,
+                       uint32_t* low, int32_t* range, int32_t* bits_left,
+                       int32_t* num_buffered, int32_t* buffered_byte,
+                       uint8_t* out, int64_t out_cap, uint8_t* used) {
+  EncState* S = (EncState*)handle;
+  EncBin eng;
+  memset(&eng, 0, sizeof(eng));
+  eng.mode = 1;
+  eng.ctx = ctx;
+  eng.used = used;
+  eng.low = *low;
+  eng.range = *range;
+  eng.bits_left = *bits_left;
+  eng.num_buffered_bytes = *num_buffered;
+  eng.buffered_byte = *buffered_byte;
+  eng.out = out;
+  eng.out_cap = out_cap;
+  S->ctu_addr = ctu_addr;
+  S->fin = &eng;
+  es_encode_cu_final(S, 0, 0);
+  *low = eng.low;
+  *range = eng.range;
+  *bits_left = eng.bits_left;
+  *num_buffered = eng.num_buffered_bytes;
+  *buffered_byte = eng.buffered_byte;
+  return eng.out_len;
+}
+
+// ===========================================================================
+// SAO parameter estimation — LCU-based RDO
+// (TEncSampleAdaptiveOffset.cpp: rdoSaoUnitAll :1466, calcSaoStatsCuOrg
+// :859, saoComponentParamDist :1897, sao2ChromaParamDist :2064,
+// estSaoTypeDist :1808, estIterOffset :1858; mirrors encoder/sao_encoder.py)
+// ===========================================================================
+static const int kSaoEoTable[5] = {1, 2, 0, 3, 4};
+
+struct SaoUnitC {
+  int type_idx, sub_type, merge_left, merge_up, length;
+  int offsets[4];
+};
+static void sao_unit_reset(SaoUnitC* u) {
+  u->type_idx = -1;
+  u->sub_type = 0;
+  u->merge_left = 0;
+  u->merge_up = 0;
+  u->length = 0;
+  for (int i = 0; i < 4; i++) u->offsets[i] = 0;
+}
+
+struct SaoCtx {
+  const FrameArrays* fa;
+  const CtxOffsets* co;
+  const int16_t* rec[3];
+  const int16_t* org[3];
+  int64_t stride[3];
+  int bit_depth, bit_increment, sao_bit_increase, offset_th, shift, bo_shift;
+  double lambda_luma, lambda_chroma;
+  int bsao[2];
+  SaoUnitC* units[3];          // [num_ctus] each
+  int64_t count[3][5][33];
+  int64_t offset_org[3][5][33];
+  int64_t offset[3][5][33];
+  // coder chains
+  uint8_t* go_ctx;
+  EncBin go;
+  uint8_t curr_ctx[512], temp_ctx[512];
+  uint64_t curr_frac, temp_frac;
+  int num_ctx;
+};
+
+static void sao_load_curr(SaoCtx* C) {
+  memcpy(C->go.ctx, C->curr_ctx, C->num_ctx);
+  C->go.frac_bits = C->curr_frac;
+}
+static void sao_load_temp(SaoCtx* C) {
+  memcpy(C->go.ctx, C->temp_ctx, C->num_ctx);
+  C->go.frac_bits = C->temp_frac;
+}
+static void sao_snap_temp(SaoCtx* C) {
+  memcpy(C->temp_ctx, C->go.ctx, C->num_ctx);
+  C->temp_frac = C->go.frac_bits;
+}
+static void sao_snap_curr(SaoCtx* C) {
+  memcpy(C->curr_ctx, C->go.ctx, C->num_ctx);
+  C->curr_frac = C->go.frac_bits;
+}
+
+// codeSaoMaxUvlc (bypass truncated unary)
+static void sao_max_uvlc_w(SaoCtx* C, int value, int max_symbol) {
+  if (max_symbol == 0) return;
+  if (value == 0) { eb_bin_ep(&C->go, 0); return; }
+  eb_bin_ep(&C->go, 1);
+  int i = 1;
+  while (i < value) {
+    eb_bin_ep(&C->go, 1);
+    i++;
+    if (i == max_symbol) break;
+  }
+  if (i < max_symbol) eb_bin_ep(&C->go, 0);
+}
+
+// encodeSaoOffset (mirrors SbacWriter.code_sao_offset)
+static void sao_code_unit(SaoCtx* C, const SaoUnitC* u, int comp) {
+  EncBin* e = &C->go;
+  int type_idx = u->type_idx;
+  if (comp == 2) {
+    if (type_idx < 0) return;
+  } else {
+    if (type_idx < 0) {
+      eb_bin(e, 0, C->co->sao_type);
+      return;
+    }
+    eb_bin(e, 1, C->co->sao_type);
+    eb_bin_ep(e, type_idx == 4 ? 0 : 1);
+  }
+  int offset_th = C->offset_th;
+  if (type_idx == 4) {
+    for (int i = 0; i < 4; i++) {
+      int a = u->offsets[i] < 0 ? -u->offsets[i] : u->offsets[i];
+      sao_max_uvlc_w(C, a, offset_th - 1);
+    }
+    for (int i = 0; i < 4; i++)
+      if (u->offsets[i] != 0) eb_bin_ep(e, u->offsets[i] < 0 ? 1 : 0);
+    eb_bins_ep(e, (uint32_t)u->sub_type, 5);
+  } else {
+    sao_max_uvlc_w(C, u->offsets[0], offset_th - 1);
+    sao_max_uvlc_w(C, u->offsets[1], offset_th - 1);
+    sao_max_uvlc_w(C, -u->offsets[2], offset_th - 1);
+    sao_max_uvlc_w(C, -u->offsets[3], offset_th - 1);
+    if (comp != 2) eb_bins_ep(e, (uint32_t)u->sub_type, 2);
+  }
+}
+
+// calcSaoStatsCuOrg
+static void sao_calc_stats(SaoCtx* C, int ctu, int comp) {
+  const FrameArrays* fa = C->fa;
+  int chroma = comp != 0;
+  int lcu = fa->ctu_size >> (chroma ? 1 : 0);
+  int pic_w = fa->width >> (chroma ? 1 : 0);
+  int pic_h = fa->height >> (chroma ? 1 : 0);
+  int rx = ctu % fa->ctus_w, ry = ctu / fa->ctus_w;
+  int lx = rx * lcu, ty = ry * lcu;
+  int rpel = lx + lcu < pic_w ? lx + lcu : pic_w;
+  int bpel = ty + lcu < pic_h ? ty + lcu : pic_h;
+  int width = rpel - lx, height = bpel - ty;
+  int skip_n = chroma ? 2 : 4;
+  int skip_r = chroma ? 3 : 5;
+  int64_t(*cnt)[33] = C->count[comp];
+  int64_t(*sums)[33] = C->offset_org[comp];
+  memset(cnt, 0, sizeof(int64_t) * 5 * 33);
+  memset(sums, 0, sizeof(int64_t) * 5 * 33);
+  const int16_t* rec = C->rec[comp];
+  const int16_t* org = C->org[comp];
+  int64_t st = C->stride[comp];
+
+  // BO
+  int end_x = rpel == pic_w ? width : width - skip_r;
+  int end_y = bpel == pic_h ? height : height - skip_n;
+  for (int y = 0; y < end_y; y++) {
+    const int16_t* rrow = rec + (int64_t)(ty + y) * st + lx;
+    const int16_t* orow = org + (int64_t)(ty + y) * st + lx;
+    for (int x = 0; x < end_x; x++) {
+      int cls = 1 + (rrow[x] >> C->bo_shift);
+      sums[4][cls] += orow[x] - rrow[x];
+      cnt[4][cls]++;
+    }
+  }
+#define SGN(a) ((a) > 0 ? 1 : ((a) < 0 ? -1 : 0))
+  // EO_0 (horizontal)
+  {
+    int xs = lx == 0 ? 1 : 0;
+    int xe = rpel == pic_w ? width - 1 : width - skip_r;
+    int ye = height - skip_n;
+    for (int y = 0; y < ye; y++) {
+      const int16_t* rrow = rec + (int64_t)(ty + y) * st + lx;
+      const int16_t* orow = org + (int64_t)(ty + y) * st + lx;
+      for (int x = xs; x < xe; x++) {
+        int et = SGN(rrow[x] - rrow[x - 1]) + SGN(rrow[x] - rrow[x + 1]) + 2;
+        int cls = kSaoEoTable[et];
+        sums[0][cls] += orow[x] - rrow[x];
+        cnt[0][cls]++;
+      }
+    }
+  }
+  // EO_1 (vertical)
+  {
+    int ys = ty == 0 ? 1 : 0;
+    int ye = bpel == pic_h ? height - 1 : height - skip_n;
+    int xe = rpel == pic_w ? width : width - skip_r;
+    for (int y = ys; y < ye; y++) {
+      const int16_t* rrow = rec + (int64_t)(ty + y) * st + lx;
+      const int16_t* up = rrow - st;
+      const int16_t* dn = rrow + st;
+      const int16_t* orow = org + (int64_t)(ty + y) * st + lx;
+      for (int x = 0; x < xe; x++) {
+        int et = SGN(rrow[x] - up[x]) + SGN(rrow[x] - dn[x]) + 2;
+        int cls = kSaoEoTable[et];
+        sums[1][cls] += orow[x] - rrow[x];
+        cnt[1][cls]++;
+      }
+    }
+  }
+  // EO_2 (135) + EO_3 (45)
+  {
+    int xs = lx == 0 ? 1 : 0;
+    int xe = rpel == pic_w ? width - 1 : width - skip_r;
+    int ys = ty == 0 ? 1 : 0;
+    int ye = bpel == pic_h ? height - 1 : height - skip_n;
+    for (int y = ys; y < ye; y++) {
+      const int16_t* rrow = rec + (int64_t)(ty + y) * st + lx;
+      const int16_t* up = rrow - st;
+      const int16_t* dn = rrow + st;
+      const int16_t* orow = org + (int64_t)(ty + y) * st + lx;
+      for (int x = xs; x < xe; x++) {
+        int d = orow[x] - rrow[x];
+        int et2 = SGN(rrow[x] - up[x - 1]) + SGN(rrow[x] - dn[x + 1]) + 2;
+        sums[2][kSaoEoTable[et2]] += d;
+        cnt[2][kSaoEoTable[et2]]++;
+        int et3 = SGN(rrow[x] - up[x + 1]) + SGN(rrow[x] - dn[x - 1]) + 2;
+        sums[3][kSaoEoTable[et3]] += d;
+        cnt[3][kSaoEoTable[et3]]++;
+      }
+    }
+  }
+#undef SGN
+}
+
+static inline int64_t sao_est_dist(int64_t count, int64_t offset,
+                                   int64_t offset_org, int shift) {
+  return (count * offset * offset - offset_org * offset * 2) >> shift;
+}
+
+static inline int sao_round_ibdi(double x, int bit_increment) {
+  if (bit_increment > 0) {
+    int64_t ix = (int64_t)x;
+    if (x > 0) return (int)((ix + (1 << (bit_increment - 1))) /
+                            (1 << bit_increment));
+    return (int)((ix - (1 << (bit_increment - 1))) / (1 << bit_increment));
+  }
+  return x >= 0 ? (int)(x + 0.5) : -(int)(-x + 0.5);
+}
+
+static int sao_est_iter_offset(SaoCtx* C, int type_idx, int class_idx,
+                               double lam, int offset_input, int64_t count,
+                               int64_t offset_org, int64_t* dist_bo,
+                               double* cost_bo) {
+  int iter_offset = offset_input;
+  int offset_output = 0;
+  double temp_min_cost = lam;
+  while (iter_offset != 0) {
+    int a = iter_offset < 0 ? -iter_offset : iter_offset;
+    int temp_rate = type_idx == 4 ? a + 2 : a + 1;
+    if (a == C->offset_th - 1) temp_rate -= 1;
+    int64_t temp_offset = (int64_t)iter_offset << C->sao_bit_increase;
+    int64_t temp_dist = sao_est_dist(count, temp_offset, offset_org,
+                                     C->shift);
+    double temp_cost = (double)temp_dist + lam * (double)temp_rate;
+    if (temp_cost < temp_min_cost) {
+      temp_min_cost = temp_cost;
+      offset_output = iter_offset;
+      if (type_idx == 4) {
+        dist_bo[class_idx - 1] = temp_dist;
+        cost_bo[class_idx - 1] = temp_cost;
+      }
+    }
+    iter_offset = iter_offset > 0 ? iter_offset - 1 : iter_offset + 1;
+  }
+  return offset_output;
+}
+
+static int64_t sao_est_type_dist(SaoCtx* C, int comp, int type_idx,
+                                 double lam, int64_t* dist_bo,
+                                 double* cost_bo) {
+  int64_t est_dist = 0;
+  int n = type_idx < 4 ? 5 : 33;
+  for (int class_idx = 1; class_idx < n; class_idx++) {
+    if (type_idx == 4) {
+      dist_bo[class_idx - 1] = 0;
+      cost_bo[class_idx - 1] = lam;
+    }
+    int64_t cnt = C->count[comp][type_idx][class_idx];
+    if (cnt) {
+      double num =
+          (double)(C->offset_org[comp][type_idx][class_idx]
+                   << C->bit_increment);
+      double den = (double)(cnt << C->sao_bit_increase);
+      int off = sao_round_ibdi(num / den, C->bit_increment);
+      if (off < -C->offset_th + 1) off = -C->offset_th + 1;
+      if (off > C->offset_th - 1) off = C->offset_th - 1;
+      if (type_idx < 4) {
+        if (off < 0 && class_idx < 3) off = 0;
+        if (off > 0 && class_idx >= 3) off = 0;
+      }
+      off = sao_est_iter_offset(C, type_idx, class_idx, lam, off, cnt,
+                                C->offset_org[comp][type_idx][class_idx],
+                                dist_bo, cost_bo);
+      C->offset[comp][type_idx][class_idx] = off;
+    } else {
+      C->offset_org[comp][type_idx][class_idx] = 0;
+      C->offset[comp][type_idx][class_idx] = 0;
+    }
+    if (type_idx != 4) {
+      est_dist += sao_est_dist(
+          C->count[comp][type_idx][class_idx],
+          C->offset[comp][type_idx][class_idx] << C->sao_bit_increase,
+          C->offset_org[comp][type_idx][class_idx], C->shift);
+    }
+  }
+  return est_dist;
+}
+
+static void sao_component_param_dist(SaoCtx* C, int allow_l, int allow_u,
+                                     int ctu, int comp, double lam,
+                                     SaoUnitC merge_units[2],
+                                     double comp_distortion[3]) {
+  const FrameArrays* fa = C->fa;
+  SaoUnitC* best_unit = &C->units[comp][ctu];
+  sao_unit_reset(best_unit);
+  sao_unit_reset(&merge_units[0]);
+  sao_unit_reset(&merge_units[1]);
+
+  int64_t dist_bo[32];
+  double cost_bo[32];
+  double best_rd_bo = MAX_DOUBLE_C;
+  int best_class_bo = 0;
+
+  SaoUnitC rdo;
+  sao_unit_reset(&rdo);
+  sao_load_temp(C);
+  eb_reset_bits(&C->go);
+  sao_code_unit(C, &rdo, comp);
+  double cost_best = (double)eb_bits(&C->go) * lam;
+  *best_unit = rdo;
+  int64_t best_dist = 0;
+
+  for (int type_idx = 0; type_idx < 5; type_idx++) {
+    int64_t est_dist = sao_est_type_dist(C, comp, type_idx, lam, dist_bo,
+                                         cost_bo);
+    if (type_idx == 4) {
+      for (int i = 0; i <= 32 - 4; i++) {
+        double cur = 0.0;
+        cur += cost_bo[i];
+        cur += cost_bo[i + 1];
+        cur += cost_bo[i + 2];
+        cur += cost_bo[i + 3];
+        if (cur < best_rd_bo) {
+          best_rd_bo = cur;
+          best_class_bo = i;
+        }
+      }
+      est_dist = dist_bo[best_class_bo] + dist_bo[best_class_bo + 1] +
+                 dist_bo[best_class_bo + 2] + dist_bo[best_class_bo + 3];
+    }
+    sao_unit_reset(&rdo);
+    rdo.length = 4;
+    rdo.type_idx = type_idx;
+    rdo.sub_type = type_idx == 4 ? best_class_bo : type_idx;
+    for (int ci = 0; ci < 4; ci++)
+      rdo.offsets[ci] =
+          (int)C->offset[comp][type_idx]
+                        [ci + (type_idx == 4 ? best_class_bo : 0) + 1];
+    sao_load_temp(C);
+    eb_reset_bits(&C->go);
+    sao_code_unit(C, &rdo, comp);
+    int64_t est_rate = eb_bits(&C->go);
+    double cost = (double)est_dist + lam * (double)est_rate;
+    if (cost < cost_best) {
+      cost_best = cost;
+      *best_unit = rdo;
+      best_dist = est_dist;
+    }
+  }
+  comp_distortion[0] += (double)best_dist / lam;
+  sao_load_temp(C);
+  sao_code_unit(C, best_unit, comp);
+  sao_snap_temp(C);
+
+  for (int idx_neighbor = 0; idx_neighbor < 2; idx_neighbor++) {
+    const SaoUnitC* nb = 0;
+    if (allow_l && idx_neighbor == 0 && ctu % fa->ctus_w > 0)
+      nb = &C->units[comp][ctu - 1];
+    else if (allow_u && idx_neighbor == 1 && ctu >= fa->ctus_w)
+      nb = &C->units[comp][ctu - fa->ctus_w];
+    if (!nb) continue;
+    int64_t est_dist = 0;
+    if (nb->type_idx >= 0) {
+      int band = nb->type_idx == 4 ? nb->sub_type : 0;
+      for (int ci = 0; ci < 4; ci++)
+        est_dist += sao_est_dist(
+            C->count[comp][nb->type_idx][ci + band + 1], nb->offsets[ci],
+            C->offset_org[comp][nb->type_idx][ci + band + 1], C->shift);
+    }
+    merge_units[idx_neighbor] = *nb;
+    merge_units[idx_neighbor].merge_up = idx_neighbor;
+    merge_units[idx_neighbor].merge_left = 1 - idx_neighbor;
+    comp_distortion[idx_neighbor + 1] += (double)est_dist / lam;
+  }
+}
+
+static void sao_chroma2_param_dist(SaoCtx* C, int allow_l, int allow_u,
+                                   int ctu, double lam,
+                                   SaoUnitC merge_cb[2], SaoUnitC merge_cr[2],
+                                   double distortion[3]) {
+  const FrameArrays* fa = C->fa;
+  SaoUnitC* best[2] = {&C->units[1][ctu], &C->units[2][ctu]};
+  sao_unit_reset(best[0]);
+  sao_unit_reset(best[1]);
+  SaoUnitC* merge_param[2][2] = {{&merge_cb[0], &merge_cb[1]},
+                                 {&merge_cr[0], &merge_cr[1]}};
+  for (int i = 0; i < 2; i++) {
+    sao_unit_reset(&merge_cb[i]);
+    sao_unit_reset(&merge_cr[i]);
+  }
+  int64_t dist_bo[32];
+  double cost_bo[32];
+  int best_class_bo[2] = {0, 0};
+  int64_t est_dist[2] = {0, 0};
+
+  SaoUnitC rdo[2];
+  sao_unit_reset(&rdo[0]);
+  sao_unit_reset(&rdo[1]);
+  sao_load_temp(C);
+  eb_reset_bits(&C->go);
+  sao_code_unit(C, &rdo[0], 1);
+  sao_code_unit(C, &rdo[1], 2);
+  double cost_best = (double)eb_bits(&C->go) * lam;
+  *best[0] = rdo[0];
+  *best[1] = rdo[1];
+  int64_t best_dist = 0;
+
+  for (int type_idx = 0; type_idx < 5; type_idx++) {
+    if (type_idx == 4) {
+      for (int ci = 0; ci < 2; ci++) {
+        double best_rd_bo = MAX_DOUBLE_C;
+        est_dist[ci] =
+            sao_est_type_dist(C, ci + 1, type_idx, lam, dist_bo, cost_bo);
+        for (int i = 0; i <= 32 - 4; i++) {
+          double cur = 0.0;
+          cur += cost_bo[i];
+          cur += cost_bo[i + 1];
+          cur += cost_bo[i + 2];
+          cur += cost_bo[i + 3];
+          if (cur < best_rd_bo) {
+            best_rd_bo = cur;
+            best_class_bo[ci] = i;
+          }
+        }
+        est_dist[ci] = dist_bo[best_class_bo[ci]] +
+                       dist_bo[best_class_bo[ci] + 1] +
+                       dist_bo[best_class_bo[ci] + 2] +
+                       dist_bo[best_class_bo[ci] + 3];
+      }
+    } else {
+      est_dist[0] = sao_est_type_dist(C, 1, type_idx, lam, dist_bo, cost_bo);
+      est_dist[1] = sao_est_type_dist(C, 2, type_idx, lam, dist_bo, cost_bo);
+    }
+    sao_load_temp(C);
+    eb_reset_bits(&C->go);
+    for (int ci = 0; ci < 2; ci++) {
+      sao_unit_reset(&rdo[ci]);
+      rdo[ci].length = 4;
+      rdo[ci].type_idx = type_idx;
+      rdo[ci].sub_type = type_idx == 4 ? best_class_bo[ci] : type_idx;
+      for (int k = 0; k < 4; k++)
+        rdo[ci].offsets[k] =
+            (int)C->offset[ci + 1][type_idx]
+                          [k + (type_idx == 4 ? best_class_bo[ci] : 0) + 1];
+      sao_code_unit(C, &rdo[ci], ci + 1);
+    }
+    int64_t est_rate = eb_bits(&C->go);
+    double cost = (double)(est_dist[0] + est_dist[1]) +
+                  lam * (double)est_rate;
+    if (cost < cost_best) {
+      cost_best = cost;
+      *best[0] = rdo[0];
+      *best[1] = rdo[1];
+      best_dist = est_dist[0] + est_dist[1];
+    }
+  }
+  distortion[0] += (double)best_dist / lam;
+  sao_load_temp(C);
+  sao_code_unit(C, best[0], 1);
+  sao_code_unit(C, best[1], 2);
+  sao_snap_temp(C);
+
+  for (int idx_neighbor = 0; idx_neighbor < 2; idx_neighbor++) {
+    for (int ci = 0; ci < 2; ci++) {
+      const SaoUnitC* nb = 0;
+      if (allow_l && idx_neighbor == 0 && ctu % fa->ctus_w > 0)
+        nb = &C->units[ci + 1][ctu - 1];
+      else if (allow_u && idx_neighbor == 1 && ctu >= fa->ctus_w)
+        nb = &C->units[ci + 1][ctu - fa->ctus_w];
+      if (!nb) continue;
+      int64_t dist_c = 0;
+      if (nb->type_idx >= 0) {
+        int band = nb->type_idx == 4 ? nb->sub_type : 0;
+        for (int k = 0; k < 4; k++)
+          dist_c += sao_est_dist(
+              C->count[ci + 1][nb->type_idx][k + band + 1], nb->offsets[k],
+              C->offset_org[ci + 1][nb->type_idx][k + band + 1], C->shift);
+      }
+      *merge_param[ci][idx_neighbor] = *nb;
+      merge_param[ci][idx_neighbor]->merge_up = idx_neighbor;
+      merge_param[ci][idx_neighbor]->merge_left = 1 - idx_neighbor;
+      distortion[idx_neighbor + 1] += (double)dist_c / lam;
+    }
+  }
+}
+
+// rdoSaoUnitAll; writes the chosen params into fa->sao_* and returns
+// num_no_sao counts via out_no_sao[2]
+void sao_rdo(const FrameArrays* fa, const CtxOffsets* co,
+             const int16_t* rec_y, const int16_t* rec_cb,
+             const int16_t* rec_cr, const int16_t* org_y,
+             const int16_t* org_cb, const int16_t* org_cr,
+             int64_t luma_stride, int32_t bit_depth, int32_t bit_increment,
+             double lambda_luma, double lambda_chroma, int32_t bsao0,
+             int32_t bsao1, const uint8_t* init_ctx, int32_t num_ctx,
+             uint64_t init_frac, int64_t* out_no_sao) {
+  SaoCtx* C = new SaoCtx();
+  memset(C, 0, sizeof(SaoCtx));
+  C->fa = fa;
+  C->co = co;
+  C->rec[0] = rec_y; C->rec[1] = rec_cb; C->rec[2] = rec_cr;
+  C->org[0] = org_y; C->org[1] = org_cb; C->org[2] = org_cr;
+  C->stride[0] = luma_stride;
+  C->stride[1] = C->stride[2] = luma_stride / 2;
+  C->bit_depth = bit_depth;
+  C->bit_increment = bit_increment;
+  C->sao_bit_increase = bit_depth - (bit_depth < 10 ? bit_depth : 10);
+  int th = bit_depth - 5 < 5 ? bit_depth - 5 : 5;
+  C->offset_th = 1 << th;
+  C->shift = bit_increment << 1;
+  C->bo_shift = bit_depth - 5;
+  C->lambda_luma = lambda_luma;
+  C->lambda_chroma = lambda_chroma;
+  C->bsao[0] = bsao0;
+  C->bsao[1] = bsao1;
+  C->num_ctx = num_ctx;
+  for (int c = 0; c < 3; c++) {
+    C->units[c] = new SaoUnitC[fa->num_ctus];
+    for (int i = 0; i < fa->num_ctus; i++) sao_unit_reset(&C->units[c][i]);
+  }
+  C->go_ctx = new uint8_t[num_ctx];
+  memcpy(C->go_ctx, init_ctx, num_ctx);
+  C->go.mode = 0;
+  C->go.ctx = C->go_ctx;
+  C->go.frac_bits = init_frac & 32767;
+  memcpy(C->curr_ctx, init_ctx, num_ctx);
+  memcpy(C->temp_ctx, init_ctx, num_ctx);
+  C->curr_frac = C->temp_frac = C->go.frac_bits;
+
+  int64_t num_no_sao[2] = {0, 0};
+  int upr = fa->upr;
+  for (int ctu = 0; ctu < fa->num_ctus; ctu++) {
+    int rx = ctu % fa->ctus_w, ry = ctu / fa->ctus_w;
+    // tile/slice merge allowances from the per-unit maps
+    int64_t ui = ((int64_t)ry * upr) * fa->uw + rx * upr;
+    int allow_l = 0, allow_u = 0;
+    if (rx != 0) {
+      int64_t li = ui - upr;
+      allow_l = fa->tile_idx[li] == fa->tile_idx[ui] &&
+                fa->slice_idx_arr[li] == fa->slice_idx_arr[ui];
+    }
+    if (ry != 0) {
+      int64_t uu = ui - (int64_t)upr * fa->uw;
+      allow_u = fa->tile_idx[uu] == fa->tile_idx[ui] &&
+                fa->slice_idx_arr[uu] == fa->slice_idx_arr[ui];
+    }
+
+    double comp_distortion[3] = {0.0, 0.0, 0.0};
+    sao_load_curr(C);
+    if (allow_l) eb_bin(&C->go, 0, co->sao_merge);
+    if (allow_u) eb_bin(&C->go, 0, co->sao_merge);
+    sao_snap_temp(C);
+
+    memset(C->count, 0, sizeof(C->count));
+    memset(C->offset_org, 0, sizeof(C->offset_org));
+    for (int comp = 0; comp < 3; comp++) {
+      SaoUnitC* u = &C->units[comp][ctu];
+      u->type_idx = -1;
+      u->merge_up = 0;
+      u->merge_left = 0;
+      u->sub_type = 0;
+      if ((comp == 0 && C->bsao[0]) || (comp > 0 && C->bsao[1]))
+        sao_calc_stats(C, ctu, comp);
+    }
+
+    SaoUnitC merge_units[3][2];
+    sao_component_param_dist(C, allow_l, allow_u, ctu, 0, C->lambda_luma,
+                             merge_units[0], comp_distortion);
+    sao_chroma2_param_dist(C, allow_l, allow_u, ctu, C->lambda_chroma,
+                           merge_units[1], merge_units[2], comp_distortion);
+
+    if (C->bsao[0] || C->bsao[1]) {
+      sao_load_curr(C);
+      eb_reset_bits(&C->go);
+      if (allow_l) eb_bin(&C->go, 0, co->sao_merge);
+      if (allow_u) eb_bin(&C->go, 0, co->sao_merge);
+      for (int comp = 0; comp < 3; comp++)
+        if ((comp == 0 && C->bsao[0]) || (comp > 0 && C->bsao[1]))
+          sao_code_unit(C, &C->units[comp][ctu], comp);
+      int64_t rate = eb_bits(&C->go);
+      double best_cost = comp_distortion[0] + (double)rate;
+      sao_snap_temp(C);
+
+      for (int merge_up = 0; merge_up < 2; merge_up++) {
+        if (!((allow_l && merge_up == 0) || (allow_u && merge_up == 1)))
+          continue;
+        sao_load_curr(C);
+        eb_reset_bits(&C->go);
+        if (allow_l) eb_bin(&C->go, 1 - merge_up, co->sao_merge);
+        if (allow_u && merge_up == 1) eb_bin(&C->go, 1, co->sao_merge);
+        rate = eb_bits(&C->go);
+        double merge_cost = comp_distortion[merge_up + 1] + (double)rate;
+        if (merge_cost < best_cost) {
+          best_cost = merge_cost;
+          sao_snap_temp(C);
+          for (int comp = 0; comp < 3; comp++) {
+            merge_units[comp][merge_up].merge_left = 1 - merge_up;
+            merge_units[comp][merge_up].merge_up = merge_up;
+            if ((comp == 0 && C->bsao[0]) || (comp > 0 && C->bsao[1]))
+              C->units[comp][ctu] = merge_units[comp][merge_up];
+          }
+        }
+      }
+      if (C->units[0][ctu].type_idx == -1) num_no_sao[0] += 1;
+      if (C->units[1][ctu].type_idx == -1) num_no_sao[1] += 2;
+      sao_load_temp(C);
+      sao_snap_curr(C);
+    }
+  }
+
+  // store into the frame SAO arrays (decoder storage convention)
+  for (int comp = 0; comp < 3; comp++) {
+    for (int ctu = 0; ctu < fa->num_ctus; ctu++) {
+      const SaoUnitC* u = &C->units[comp][ctu];
+      int64_t ci = (int64_t)comp * fa->num_ctus + ctu;
+      fa->sao_type[ci] = (int8_t)u->type_idx;
+      fa->sao_sub_type[ci] = (int8_t)u->sub_type;
+      for (int k = 0; k < 4; k++) fa->sao_offsets[ci * 4 + k] = u->offsets[k];
+      fa->sao_merge_left[ci] = (uint8_t)(u->merge_left != 0);
+      fa->sao_merge_up[ci] = (uint8_t)(u->merge_up != 0);
+    }
+  }
+  out_no_sao[0] = num_no_sao[0];
+  out_no_sao[1] = num_no_sao[1];
+  for (int c = 0; c < 3; c++) delete[] C->units[c];
+  delete[] C->go_ctx;
+  delete C;
+}
+
+}  // extern "C"

@@ -19,9 +19,8 @@ from __future__ import annotations
 
 import torch
 
-from thevc_tpu.ops.deblock import DEFAULT_INTRA_TC_OFFSET
-
 from ..common.tables import from_reference
+from .deblock import DEFAULT_INTRA_TC_OFFSET
 
 
 def _clip3(lo: torch.Tensor, hi: torch.Tensor, v: torch.Tensor):

@@ -18,10 +18,8 @@ from __future__ import annotations
 
 import torch
 
-from thevc_tpu.ops.interp import (IF_FILTER_PREC, IF_INTERNAL_OFFS,
-                                  IF_INTERNAL_PREC)
-
 from ..common.tables import from_reference
+from .interp import IF_FILTER_PREC, IF_INTERNAL_OFFS, IF_INTERNAL_PREC
 
 # the four filter cases of ``_mc_block``, indexed by
 # (frac_x != 0) + 2 * (frac_y != 0)

@@ -8,13 +8,15 @@ the transform-skip TUs of inter CUs.
 The encoder's RD estimate: ``forward_transform`` (:61), ``quant``
 (:112), ``recon_add_clip`` (:135) and ``tu_recon_pipeline`` (:194).
 
-``residual_pipeline`` dispatches on the device of its input: a CUDA
-tensor goes through the hand-written kernel (``ops.residual_kernel``), a
-CPU tensor through the plain version below.  The plain version does the
-two transform passes as float64 products, which are exact here: every
-product and partial sum is below 32 * 90 * 2^15 < 2^53.  It runs on the
-card too (torch has no int32 matrix product on CUDA), and the tests and
-``chip_smoke.py`` hold the kernel against it there.  The forward
+``residual_pipeline`` and ``residual_pipeline_packed`` dispatch on the
+device of their input: a CUDA tensor goes through the hand-written
+kernel (``ops.residual_kernel``; the packed form unpacks the coefficient
+groups inside it), a CPU tensor through the plain versions below.  The
+plain version does the two transform passes as float64 products, which
+are exact here: every product and partial sum is below 32 * 90 * 2^15 <
+2^53.  It runs on the card too (torch has no int32 matrix product on
+CUDA), and the tests and ``chip_smoke.py`` hold the kernel against it
+there.  The forward
 transform is float64 too, and exact for every input (so it follows
 ``thevc_tpu/ops/transforms.py`` where the JAX version's single-precision
 bound does not hold, at large bit increments).
@@ -24,12 +26,10 @@ from __future__ import annotations
 
 import torch
 
-from thevc_tpu.ops.transforms import (MAX_TR_DYNAMIC_RANGE, QUANT_IQUANT_SHIFT,
-                                      QUANT_SHIFT, SHIFT_INV_1ST,
-                                      SHIFT_INV_2ND)
-
 from ..common.tables import from_reference
 from . import residual_kernel
+from .transforms import (MAX_TR_DYNAMIC_RANGE, QUANT_IQUANT_SHIFT, QUANT_SHIFT,
+                         SHIFT_INV_1ST, SHIFT_INV_2ND)
 
 
 def dequant_shift(size: int, bit_increment: int) -> int:
@@ -111,7 +111,7 @@ def residual_pipeline(qcoeff: torch.Tensor, qp: torch.Tensor,
         raise ValueError(f"unsupported device {qcoeff.device}")
     size = qcoeff.shape[-1]
     return residual_kernel.residual(
-        qcoeff.contiguous(), dequant_scale(qp).contiguous(),
+        qcoeff.contiguous(), qp.to(torch.int32).contiguous(),
         from_reference(qcoeff.device).basis(size, use_dst),
         dequant_shift(size, bit_increment), SHIFT_INV_2ND - bit_increment)
 
@@ -131,14 +131,37 @@ def _unpack_cgs(cg_vals: torch.Tensor, cg_idx: torch.Tensor, n: int,
             .permute(0, 1, 3, 2, 4).reshape(n, size, size))
 
 
+def residual_pipeline_packed_plain(cg_vals: torch.Tensor,
+                                   cg_idx: torch.Tensor, qp: torch.Tensor,
+                                   size: int, use_dst: bool = False,
+                                   bit_increment: int = 0) -> torch.Tensor:
+    """The plain version of the packed kernel: the unpack scatter, then
+    ``residual_pipeline_plain``, on any device."""
+    qcoeff = _unpack_cgs(cg_vals, cg_idx, int(qp.shape[0]), size)
+    return residual_pipeline_plain(qcoeff, qp, use_dst, bit_increment)
+
+
 def residual_pipeline_packed(cg_vals: torch.Tensor, cg_idx: torch.Tensor,
                              qp: torch.Tensor, size: int,
                              use_dst: bool = False,
                              bit_increment: int = 0) -> torch.Tensor:
-    """CG-packed variant of ``residual_pipeline``: the unpack scatter on
-    the device, then the same dequant + inverse transform."""
-    qcoeff = _unpack_cgs(cg_vals, cg_idx, int(qp.shape[0]), size)
-    return residual_pipeline(qcoeff, qp, use_dst, bit_increment)
+    """CG-packed variant of ``residual_pipeline`` (sizes 8-32): coded 4x4
+    groups int16 [M, 16] at ascending indices [M] (``tu * ncg + cg``,
+    padding rows at ``n * ncg``) and scaled QPs [N] -> int16 [N, s, s].
+
+    On CUDA tensors the kernel unpacks the groups in shared memory, so
+    the dense coefficients never reach device memory (and raises if it
+    cannot launch); on CPU tensors it runs the plain version."""
+    if cg_vals.device.type == "cpu":
+        return residual_pipeline_packed_plain(cg_vals, cg_idx, qp, size,
+                                              use_dst, bit_increment)
+    if cg_vals.device.type != "cuda":
+        raise ValueError(f"unsupported device {cg_vals.device}")
+    return residual_kernel.residual_packed(
+        cg_vals.to(torch.int16).contiguous(),
+        cg_idx.to(torch.int32).contiguous(), qp.to(torch.int32).contiguous(),
+        from_reference(cg_vals.device).basis(size, use_dst), size,
+        dequant_shift(size, bit_increment), SHIFT_INV_2ND - bit_increment)
 
 
 def _fwd_pass(x: torch.Tensor, t: torch.Tensor, shift: int) -> torch.Tensor:

@@ -1,19 +1,17 @@
 """Streams for checking the port, made by an encoder in a child process.
 
-``encode`` runs ``python -m thevc_tpu.apps.encoder`` (the reference
-encoder), or another module with the same arguments such as the port's
-``thevc_tpu_torch.apps.encoder``, in a child process.  Two settings keep
-that encode from crashing at random:
+``encode`` runs ``python -m thevc_tpu_torch.apps.encoder`` (the port's
+encoder: the exact path unless ``--FastRD=1`` is passed), or another
+module with the same arguments, in a child process, with two settings:
 
 - ``THEVC_THREADS=1``: the encoder's serial path (same stream as its
   frame-parallel one);
 - a glibc malloc tunable that serves large arrays from the main heap
-  instead of ``mmap``.  The reference's native encoder reads up to a CTU
-  row past the end of the reconstructed luma plane when the picture
-  height is not a multiple of the CTU size (``es_save_region_impl``,
-  the ``rec_y`` copy); an ``mmap``-ed plane can end at an unmapped page,
-  and the read then faults.  On the heap the bytes past the plane are
-  mapped; they lie outside the picture and change nothing it writes.
+  instead of ``mmap``.  The port's native core copies the reconstructed
+  planes only inside the picture, but another encoder module (the JAX
+  package's, whose native core reads and writes up to a CTU row past the
+  end of those planes when the picture height is not a multiple of the
+  CTU size) can fault when a plane ends at an unmapped page.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 INTRA_CFG = ROOT / "tests" / "cfg" / "encoder_intra_main.cfg"
+ENCODER = "thevc_tpu_torch.apps.encoder"
 # 32 MiB: glibc's largest mmap threshold; top_pad keeps 1 MiB mapped past
 # the heap's last chunk
 MALLOC_TUNABLES = ("glibc.malloc.mmap_threshold=33554432:"
@@ -32,7 +31,7 @@ MALLOC_TUNABLES = ("glibc.malloc.mmap_threshold=33554432:"
 
 
 def encode(clip, stream, recon, width: int, height: int, frames: int,
-           cfg=INTRA_CFG, extra=(), module="thevc_tpu.apps.encoder") -> str:
+           cfg=INTRA_CFG, extra=(), module=ENCODER) -> str:
     """Encode ``frames`` frames of the 4:2:0 ``clip`` into ``stream`` with
     the encoder CLI ``module``, writing the encoder's reconstruction to
     ``recon``.  Returns the encoder's standard output.  Raises
