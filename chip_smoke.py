@@ -70,7 +70,32 @@ Run from the root of a checkout on a machine with a CUDA card:
    CUDA graph per class).  The 416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders'.
-9. Prints the kernels' JSON line (per kernel: launches on the main
+9. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
+   with ``--FastRD=1 --device cuda`` and the low-delay B cfg at QP 32
+   (SAO on, as the exact stream) in a child process whose report gives
+   the launches of both kernels (each above 0), the decision frames (8,
+   7 of them B) and the decision wall; decodes it on ``cuda`` (8/8
+   digests OK, recon byte-identical to the encoder's) and reports its
+   bytes and luma PSNR beside the exact low-delay B stream's (no gate).
+   Then, in this process, one B frame's decision pass replayed from
+   the encoder's own call: the clip's first 4 frames are encoded in
+   this process (same cfg, ``Encoder(cfg, device="cuda")``) with the
+   arguments of the last ``fast_inter.decide_frame_p`` call recorded,
+   and that call runs again on ``cuda``: a warm-up, three timed runs
+   (synchronised wall, K1/K2 launches counted from 0), one with stage
+   timing on (stage walls), one under ``torch.profiler`` (device time,
+   busy share), and one that records every K1 and K2 call of the pass,
+   the intra leaves' SATD calls included (as many as the launches):
+   each is held against its plain version on the pass's own data
+   (tolerance 0) and the 49-candidate SATD classes are timed with their
+   bytes, bound and share (``kernel satd`` rows, as in 4).  Then 416x240 low-delay P (3 frames)
+   and random-access (5 frames) fast-RD streams of the small motion
+   clip: ``--device cuda`` and ``--device cpu`` byte-identical.  Last,
+   the 64x64 weighted-prediction (``--wpP=1`` low-delay P, ``--wpB=1``
+   low-delay B, a fading clip) and scaling-list (``--ScalingList=1``
+   all-intra and low-delay B) streams decode on ``cuda`` with every
+   digest OK and recon byte-identical to their encoders'.
+10. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
@@ -120,9 +145,21 @@ SATD_MODES = 35
 # the CPU-against-CUDA identity clip
 SMALL_W, SMALL_H, SMALL_FRAMES, SMALL_QPS = 416, 240, 2, (27, 37)
 CFG = ROOT / "tests" / "cfg"
+LDB_CFG = CFG / "encoder_lowdelay_tlayers.cfg"
 # the small inter streams: name -> (frames, cfg)
 SMALL_INTER = {"ldp": (5, CFG / "encoder_lowdelay_P_main.cfg"),
                "ra": (9, CFG / "encoder_randomaccess_main.cfg")}
+# the P/B fast-RD CPU-against-CUDA streams of the small motion clip
+SMALL_FASTRD = {"ldp": (3, CFG / "encoder_lowdelay_P_main.cfg"),
+                "ra": (5, CFG / "encoder_randomaccess_main.cfg")}
+# the 64x64 weighted-prediction and scaling-list streams: name -> (clip,
+# frames, cfg, switch)
+WP_SL = {"wp_p": ("fade", 3, CFG / "encoder_lowdelay_P_main.cfg",
+                  "--wpP=1"),
+         "wp_b": ("fade", 3, LDB_CFG, "--wpB=1"),
+         "sl_intra": ("tiny_motion", 2, CFG / "encoder_intra_main.cfg",
+                      "--ScalingList=1"),
+         "sl_ldb": ("tiny_motion", 3, LDB_CFG, "--ScalingList=1")}
 
 
 class SmokeFailure(Exception):
@@ -282,17 +319,20 @@ def prepare_streams(work: Path) -> dict:
     from thevc_tpu_torch import streams
     clips = {"intra": (WIDTH, HEIGHT, FRAMES, "default"),
              "motion": (WIDTH, HEIGHT, FRAMES, "motion"),
-             "small_motion": (SMALL_W, SMALL_H, 9, "motion")}
+             "small_motion": (SMALL_W, SMALL_H, 9, "motion"),
+             "fade": (64, 64, 3, "fade"),
+             "tiny_motion": (64, 64, 3, "motion")}
     paths = {}
     for name, (w, h, frames, style) in clips.items():
         paths[name] = work / f"{name}_{w}x{h}_{frames}f.yuv"
         make_clip(paths[name], w, h, frames, style)
     jobs = {"intra_main": ("intra", FRAMES, CFG / "encoder_intra_main.cfg",
                            ("--SAO=1",)),
-            "inter_ldb": ("motion", FRAMES,
-                          CFG / "encoder_lowdelay_tlayers.cfg", ("--SAO=1",))}
+            "inter_ldb": ("motion", FRAMES, LDB_CFG, ("--SAO=1",))}
     for name, (frames, cfg) in SMALL_INTER.items():
         jobs[name] = ("small_motion", frames, cfg, ())
+    for name, (clip, frames, cfg, switch) in WP_SL.items():
+        jobs[name] = (clip, frames, cfg, (switch,))
 
     def encode(item):
         name, (clip, frames, cfg, extra) = item
@@ -461,7 +501,9 @@ def mc_class_times(torch, stream: Path) -> list:
     """Decode ``stream`` on ``cuda`` recording every ``mc_batch`` call,
     then time the calls of each (component, case, bi) class on the card:
     CUDA events around the class's calls replayed eagerly (host launch
-    gaps included) and as one CUDA graph (device time)."""
+    gaps included) and as one CUDA graph (device time).  Each class's
+    bound: the int16 windows read and predictions written, over HBM's
+    rate."""
     from thevc_tpu_torch.decoder.top import Decoder
     from thevc_tpu_torch.ops import mc
     calls: dict = {}
@@ -494,16 +536,23 @@ def mc_class_times(torch, stream: Path) -> list:
             replay()
         graph_ms = time_ms(torch, graph.replay, 10)
         del graph
+        nbytes = sum(2 * (c[0].numel() + c[0].shape[0] * c[7] * c[8])
+                     for c in cl)
         rows.append(dict(
             comp="luma" if luma else "chroma", case=case, bi=bool(bi),
             calls=len(cl), pus=sum(int(c[0].shape[0]) for c in cl),
             eager_ms_per_picture=eager / n_pics,
-            graph_ms_per_picture=graph_ms / n_pics))
+            graph_ms_per_picture=graph_ms / n_pics,
+            bytes_per_picture=nbytes / n_pics,
+            bound_ms_per_picture=1000 * nbytes / HBM_BYTES_S / n_pics))
         print("mc_class " + json.dumps(rows[-1]))
     print("mc_total " + json.dumps({
         "pictures": n_pics,
         "eager_ms_per_picture": sum(r["eager_ms_per_picture"] for r in rows),
         "graph_ms_per_picture": sum(r["graph_ms_per_picture"]
+                                    for r in rows),
+        "bytes_per_picture": sum(r["bytes_per_picture"] for r in rows),
+        "bound_ms_per_picture": sum(r["bound_ms_per_picture"]
                                     for r in rows)}))
     return rows
 
@@ -526,13 +575,13 @@ def small_inter_phase(torch, work: Path, made: dict) -> dict:
     return out
 
 
-def satd_bound(n: int, size: int) -> tuple:
+def satd_bound(n: int, size: int, m: int = SATD_MODES) -> tuple:
     """(bytes, operations, bound_ms, bound_by) of one SATD sweep: org and
-    the 35 candidates in (int16), the int32 sums out; per candidate sample
+    the m candidates in (int16), the int32 sums out; per candidate sample
     a difference, the 4x4 (PU 4) or 8x8 Hadamard's butterflies and an
     absolute value and a sum, int32 on the CUDA cores."""
-    samples = n * SATD_MODES * size * size
-    nbytes = (n * size * size + samples) * 2 + n * SATD_MODES * 4
+    samples = n * m * size * size
+    nbytes = (n * size * size + samples) * 2 + n * m * 4
     ops = samples * (2 * (2 if size == 4 else 3) + 3)
     t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
     return nbytes, ops, 1000 * max(t_bytes, t_ops), \
@@ -597,7 +646,8 @@ def luma_psnr(a: Path, b: Path, width: int, height: int,
 
 
 def port_encode(clip: Path, stream: Path, recon: Path, width: int,
-                height: int, frames: int, qp: int, device: str) -> dict:
+                height: int, frames: int, qp: int, device: str,
+                cfg: Path = CFG / "encoder_intra_main.cfg") -> dict:
     """Fast-RD encode through the port's CLI in a child process; returns
     the CLI's report (kernel launches, decision-pass wall) with the
     encode's wall time."""
@@ -605,6 +655,7 @@ def port_encode(clip: Path, stream: Path, recon: Path, width: int,
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
     t0 = time.perf_counter()
     out = streams.encode(clip, stream, recon, width, height, frames,
+                         cfg=cfg,
                          extra=(f"--QP={qp}", "--SAO=1", "--FastRD=1",
                                 f"--device={device}"))
     wall = time.perf_counter() - t0
@@ -691,8 +742,287 @@ def identity_phase(work: Path) -> dict:
     return out
 
 
+def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
+    """The 1080p low-delay B fast-RD encode on ``cuda``, its decode, and
+    the comparison with the exact-path low-delay B stream."""
+    clip, exact, exact_rec = made["inter_ldb"][:3]
+    stream = work / "fastrd_ldb.bin"
+    enc_rec = work / "fastrd_ldb_enc_rec.yuv"
+    dec_rec = work / "fastrd_ldb_dec_rec.yuv"
+    rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
+                      "cuda", cfg=LDB_CFG)
+    check(rep["satd_launches"] > 0, "the P/B fast-RD encode launched no "
+          "SATD kernel")
+    check(rep["residual_launches"] > 0, "the P/B fast-RD encode launched "
+          "no residual kernel")
+    check(not rep["jax_imported"], "the port's encoder imported jax")
+    check(rep["decision_frames"] == FRAMES
+          and rep["decision_frames_inter"] == FRAMES - 1,
+          f"decision passes {rep['decision_frames']} "
+          f"({rep['decision_frames_inter']} P/B) for {FRAMES} frames")
+    rc, log = decode_cuda(torch, stream, dec_rec)
+    check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the P/B fast-RD stream")
+    out = dict(frames=FRAMES, qp=QP, encode_wall_s=rep["wall_s"],
+               encode_fps=FRAMES / rep["wall_s"],
+               decision_wall_s=rep["decision_wall_s"],
+               decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
+               satd_launches=rep["satd_launches"],
+               residual_launches=rep["residual_launches"],
+               fast_bytes=stream.stat().st_size,
+               exact_bytes=exact.stat().st_size,
+               psnr_y_fast=luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES),
+               psnr_y_exact=luma_psnr(clip, exact_rec, WIDTH, HEIGHT,
+                                      FRAMES))
+    print("fastrd_inter " + json.dumps(out))
+    out["pass"] = inter_pass_phase(torch, clip, work)
+    return out
+
+
+def recorded_b_call(clip: Path, work: Path) -> tuple:
+    """The positional arguments and L1 list of the last B frame's
+    ``fast_inter.decide_frame_p`` call in an in-process fast-RD encode of
+    the clip's first 4 frames on ``cuda`` (low-delay B cfg, QP 32, SAO
+    on, as the CLI encode; that frame has two references in each list),
+    copied so that they outlive the encode."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_inter
+    from thevc_tpu_torch.encoder.top import DecisionStats, Encoder
+    from thevc_tpu_torch.utils.cfg import parse_args
+
+    def copy(v):
+        if isinstance(v, np.ndarray):
+            return v.copy()
+        if isinstance(v, (list, tuple)):
+            return type(v)(copy(x) for x in v)
+        return v
+    calls = []
+    real = fast_inter.decide_frame_p
+
+    def spy(*args, **kwargs):
+        calls.append((copy(args), copy(kwargs["ref_pics_l1"])))
+        return real(*args, **kwargs)
+    cfg = parse_args(["-c", str(LDB_CFG), "-i", str(clip), "-b",
+                      str(work / "pass_ldb.bin"), "-wdt", str(WIDTH),
+                      "-hgt", str(HEIGHT), "-f", "4", "-fr", "30",
+                      f"--QP={QP}", "--SAO=1", "--FastRD=1",
+                      "--SEIpictureDigest=1"])
+    fast_inter.decide_frame_p = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Encoder(cfg, device="cuda", stats=DecisionStats()).encode(
+                cfg.bitstream_file)
+    finally:
+        fast_inter.decide_frame_p = real
+    check(len(calls) == 3 and len(calls[-1][0][3]) == 2
+          and calls[-1][1] is not None and len(calls[-1][1]) == 2,
+          f"the 4-frame low-delay B encode made {len(calls)} P/B decision "
+          "passes, the last not with two references in each list")
+    return calls[-1]
+
+
+def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
+    """One 1080p B frame's decision pass in this process, replayed from
+    the encoder's own call: synchronised walls, stage walls, profiler
+    device time, and every K1 and K2 call of the pass held against its
+    plain version."""
+    from thevc_tpu_torch.encoder import fast_inter, fast_intra
+    from thevc_tpu_torch.ops import device as dev_stats
+    from thevc_tpu_torch.ops import residual_kernel, satd, satd_kernel, tq
+    args, refs1 = recorded_b_call(clip, work)
+    cache = fast_inter.RefCache()
+
+    def run():
+        return fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
+                                         device="cuda", ref_cache=cache)
+    run()                               # warm-up; the references go up
+    walls, launches = [], None
+    for _ in range(3):
+        satd_kernel.launches = residual_kernel.launches = 0
+        t = time.perf_counter()
+        run()
+        walls.append(time.perf_counter() - t)
+        launches = {"residual": residual_kernel.launches,
+                    "satd": satd_kernel.launches}
+        check(launches["residual"] > 0 and launches["satd"] > 0,
+              f"the B decision pass skipped a kernel: {launches}")
+    dev_stats.stage_timing(True)
+    try:
+        run()
+    finally:
+        stages = dev_stats.stage_timing(False)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        prof_wall = time.perf_counter() - t
+    # the kernels' own time (the op rows' self device time would count
+    # each kernel twice)
+    from torch.autograd import DeviceType
+    device_us = sum(getattr(e, "self_device_time_total",
+                            getattr(e, "self_cuda_time_total", 0))
+                    for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0))
+    n_kernels = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CUDA)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    wall = sorted(walls)[1]
+    out = dict(wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
+               launches=launches, stage_ms={k: 1000 * v for k, v in
+                                            sorted(stages.items())},
+               profiled_wall_ms=1000 * prof_wall,
+               device_ms=device_us / 1000, device_kernels=n_kernels,
+               top_kernels_ms={k[:60]: v / 1000 for k, v in top},
+               device_busy_share=device_us / 1e6 / prof_wall)
+    print("fastrd_inter_pass " + json.dumps(out))
+
+    # record the pass's kernel calls (the inter leaves' and the intra
+    # leaves'), then hold each against its plain version and time the
+    # 49-candidate SATD classes
+    calls = {"satd": [], "residual": []}
+    real_satd, real_tq = satd.satd_blocks, tq.tu_recon_pipeline
+
+    def rec_satd(org, preds, bit_inc=0):
+        calls["satd"].append((org, preds, bit_inc))
+        return real_satd(org, preds, bit_inc)
+
+    def rec_tq(*a):
+        calls["residual"].append(a)
+        return real_tq(*a)
+    fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
+    tq.tu_recon_pipeline = rec_tq
+    try:
+        run()
+    finally:
+        fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
+        tq.tu_recon_pipeline = real_tq
+    check({k: len(v) for k, v in calls.items()} == launches,
+          f"recorded {[len(v) for v in calls.values()]} K2/K1 calls of the "
+          f"B pass for launches {launches}")
+    max_err = {"satd": 0, "residual": 0}
+    rows = []
+    for org, preds, bit_inc in calls["satd"]:
+        got, plain = satd.satd_blocks(org, preds, bit_inc), \
+            satd.satd_plain(org, preds, bit_inc)
+        torch.cuda.synchronize()
+        err = int((got - plain).abs().max())
+        max_err["satd"] = max(max_err["satd"], err)
+        check(torch.equal(got, plain), "SATD kernel != plain on the B "
+              f"pass's {tuple(preds.shape)} call (max abs err {err})")
+        n, m, size = (int(v) for v in preds.shape[:3])
+        ms = time_ms(torch, lambda: satd.satd_blocks(org, preds, bit_inc),
+                     20)
+        g_ms = graph_ms(torch, lambda: satd.satd_blocks(org, preds,
+                                                        bit_inc), 20)
+        plain_ms = time_ms(torch, lambda: satd.satd_plain(org, preds,
+                                                          bit_inc), 3)
+        nbytes, ops, bound_ms, bound_by = satd_bound(n, size, m)
+        rows.append(dict(size=size, bit_inc=bit_inc, n=n, m=m, ms=ms,
+                         graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
+                         ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms,
+                         graph_share_of_bound=bound_ms / g_ms,
+                         gb_s=nbytes / ms / 1e6))
+        if m == 49:
+            print("kernel satd " + json.dumps(rows[-1]))
+    for a in calls["residual"]:
+        got, plain = tq.tu_recon_pipeline(*a), tq.tu_recon_pipeline_plain(*a)
+        torch.cuda.synchronize()
+        err = int((got - plain).abs().max())
+        max_err["residual"] = max(max_err["residual"], err)
+        check(torch.equal(got, plain), "residual kernel != plain on the B "
+              f"pass's {tuple(a[1].shape)} call (max abs err {err})")
+    out.update(max_abs_err=max_err, satd_rows=rows,
+               residual_calls=len(calls["residual"]),
+               residual_shapes=sorted({tuple(int(v) for v in a[1].shape)
+                                       for a in calls["residual"]}))
+    print("fastrd_inter_kernels " + json.dumps(
+        {"max_abs_err": max_err, "residual_calls": out["residual_calls"],
+         "satd_calls": len(rows), "replayed_pocs": {
+             "l0": [r[0] for r in args[3]], "l1": [r[0] for r in refs1]}}))
+    del calls
+    torch.cuda.empty_cache()
+    return out
+
+
+def inter_identity_phase(work: Path, made: dict) -> dict:
+    """P/B fast-RD streams of the small motion clip from ``--device cuda``
+    and ``--device cpu`` must be byte-identical."""
+    clip = made["ldp"][0]
+    jobs = [(name, device) for name in SMALL_FASTRD
+            for device in ("cuda", "cpu")]
+
+    def encode(job):
+        name, device = job
+        frames, cfg = SMALL_FASTRD[name]
+        stream = work / f"fastrd_{name}_{device}.bin"
+        rep = port_encode(clip, stream, work / f"fastrd_{name}_{device}.yuv",
+                          SMALL_W, SMALL_H, frames, QP, device, cfg=cfg)
+        return job, (stream.read_bytes(), rep)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        got = dict(ex.map(encode, jobs))
+    out = {}
+    for name in SMALL_FASTRD:
+        (cuda, rep), (cpu, _) = got[name, "cuda"], got[name, "cpu"]
+        check(cuda == cpu, f"{name} P/B fast-RD stream: --device cuda and "
+              "--device cpu differ")
+        check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0,
+              f"{name} fast-RD on cuda skipped a kernel")
+        out[name] = {"bytes": len(cuda), "identical": True,
+                     "decision_frames_inter": rep["decision_frames_inter"],
+                     "residual_launches": rep["residual_launches"],
+                     "satd_launches": rep["satd_launches"]}
+    print("inter_identity " + json.dumps(out))
+    return out
+
+
+def wp_scaling_phase(torch, work: Path, made: dict) -> dict:
+    """The weighted-prediction and scaling-list streams on ``cuda``."""
+    from thevc_tpu_torch.ops import mc, residual_kernel
+    out = {}
+    for name in WP_SL:
+        _clip, stream, enc_rec, _w, _h, frames = made[name]
+        dec_rec = work / f"{name}_dec_rec.yuv"
+        residual_kernel.launches = mc.launches = 0
+        rc, log = decode_cuda(torch, stream, dec_rec)
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        out[name] = {"frames": frames, "residual": residual_kernel.launches,
+                     "mc": mc.launches}
+    print("wp_scaling " + json.dumps(out))
+    return out
+
+
 def make_clip(path: Path, width: int, height: int, frames: int,
               style: str = "default") -> None:
+    """A seeded clip from ``tools/make_test_clip.py``, or (``fade``) a
+    smooth picture that darkens and brightens frame by frame, so that the
+    encoder's weighted-prediction analysis sends weights."""
+    if style == "fade":
+        import numpy as np
+        rng = np.random.RandomState(7)
+        planes = []
+        for h, w, lo, hi in ((height, width, 0, 200),
+                             (height // 2, width // 2, 80, 180),
+                             (height // 2, width // 2, 80, 180)):
+            out = rng.randint(lo, hi, (h, w)).astype(np.float32)
+            for _ in range(2):
+                p = np.pad(out, 2, mode="edge")
+                out = sum(p[i:i + h, j:j + w]
+                          for i in range(5) for j in range(5)) / 25
+            planes.append(out)
+        with open(path, "wb") as fh:
+            for i in range(frames):
+                g, off = 1.0 - 0.08 * i, 5 * i
+                for k, plane in enumerate(planes):
+                    fh.write(np.clip(plane * g + (off if k == 0 else off / 2),
+                                     0, 255).astype(np.uint8).tobytes())
+        return
     subprocess.run([sys.executable, str(ROOT / "tools" / "make_test_clip.py"),
                     str(path), "--width", str(width), "--height",
                     str(height), "--frames", str(frames), "--seed",
@@ -731,6 +1061,9 @@ def main() -> int:
     identity_phase(work)
     inter = inter_decode_phase(torch, work, made)
     small = small_inter_phase(torch, work, made)
+    fast_inter = fastrd_inter_phase(torch, work, made)
+    inter_identity_phase(work, made)
+    wp_scaling_phase(torch, work, made)
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -750,6 +1083,8 @@ def main() -> int:
         "intra_decode": {"residual": dec["residual_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
                           "satd": fast["satd_launches"]},
+        "fastrd_inter_encode": {"residual": fast_inter["residual_launches"],
+                                "satd": fast_inter["satd_launches"]},
         "inter_decode": inter["launches"],
         **{f"inter_decode_{k}": v for k, v in small.items()}}
     print("launches by path " + json.dumps(by_path))
@@ -758,15 +1093,17 @@ def main() -> int:
         "source": "thevc_tpu_torch/csrc/residual.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
         "launches": sum(p.get("residual", 0) for p in by_path.values()),
-        "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"]),
+        "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["residual"]),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None}, {
         "name": "satd", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/satd.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:63",
-        "launches": fast["satd_launches"],
-        "max_abs_err": k2["max_abs_err"],
+        "launches": sum(p.get("satd", 0) for p in by_path.values()),
+        "max_abs_err": max(k2["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["satd"]),
         "ms": sum(r["ms"] for r in frame),
         "plain_ms": sum(r["plain_ms"] for r in frame),
         "bound_ms": sum(r["bound_ms"] for r in frame),

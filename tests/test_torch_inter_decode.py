@@ -9,7 +9,10 @@ QP 32, plus a lossless (transquant-bypass) low-delay B stream of a 64x64
 clip.  The port's decode (``device="cpu"``) must verify every digest SEI
 and give recon byte-identical to the encoder's and to the JAX package's
 device decode (THEVC_DEVICE=1), without reaching the reference's host
-inter code.  A weighted-prediction stream raises.
+inter code.  Weighted prediction: low-delay P (``--wpP=1``) and low-delay
+B (``--wpB=1``) streams of a 64x64 fading clip, whose slices carry
+weights that are not the defaults, must decode byte-identical to the
+encoder's recon and to the JAX package's decode.
 """
 
 import contextlib
@@ -17,13 +20,15 @@ import io
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 
 from tests.conftest import REPO
 from thevc_tpu import native
 from thevc_tpu.decoder import inter as ref_inter
 from thevc_tpu.decoder import recon as ref_recon
-from thevc_tpu_torch import streams
+from thevc_tpu_torch import headers, nal, streams
+from thevc_tpu_torch.bitstream import InputBitstream
 from thevc_tpu_torch.decoder import top as port_top
 from thevc_tpu_torch.ops import device as port_device
 from thevc_tpu_torch.ops import mc
@@ -173,13 +178,95 @@ def test_port_inter_decode_never_imports_jax(inter_streams):
     assert "NO_JAX_OK" in r.stdout
 
 
-def test_weighted_prediction_raises(work):
-    out, clips = work
-    path, w, h = clips["small"]
-    bin_path = out / "wp.bin"
-    streams.encode(path, bin_path, out / "wp_rec.yuv", w, h, 2,
-                   cfg=CFG / "encoder_lowdelay_P_main.cfg",
-                   extra=("--wpP=1",))
+def _make_fade_clip(path, w=64, h=64, n=3):
+    """A smooth picture that darkens and brightens frame by frame
+    (``tests/test_decoder.py``'s fade clip at 64x64), so that the encoder's
+    weighted-prediction analysis sends weights."""
+    rng = np.random.RandomState(7)
+
+    def smooth(a):
+        out = a.astype(np.float32)
+        hh, ww = out.shape
+        for _ in range(2):
+            p = np.pad(out, 2, mode="edge")
+            out = sum(p[i:i + hh, j:j + ww]
+                      for i in range(5) for j in range(5)) / 25
+        return out
+    y0 = smooth(rng.randint(0, 200, (h, w)))
+    cb0 = smooth(rng.randint(80, 180, (h // 2, w // 2)))
+    cr0 = smooth(rng.randint(80, 180, (h // 2, w // 2)))
+    with open(path, "wb") as fh:
+        for i in range(n):
+            g, off = 1.0 - 0.08 * i, 5 * i
+            for plane, o in ((y0, off), (cb0, off / 2), (cr0, off / 2)):
+                fh.write(np.clip(plane * g + o, 0, 255).astype(np.uint8)
+                         .tobytes())
+
+
+# name -> (cfg, encoder switch)
+WP_STREAMS = {"wpP": (CFG / "encoder_lowdelay_P_main.cfg", "--wpP=1"),
+              "wpB": (LDB, "--wpB=1")}
+
+
+@pytest.fixture(scope="module")
+def wp_streams(work):
+    out, _clips = work
+    clip = out / "fade_64x64.yuv"
+    _make_fade_clip(clip)
+    made = {}
+    for name, (cfg, switch) in WP_STREAMS.items():
+        bin_path, rec_path = out / f"{name}.bin", out / f"{name}_rec.yuv"
+        streams.encode(clip, bin_path, rec_path, 64, 64, 3, cfg=cfg,
+                       extra=(switch, "--QP=32"))
+        made[name] = (bin_path, rec_path, 3)
+    return made
+
+
+def _explicit_weights(data: bytes) -> list:
+    """(weight, offset, log2 denominator) of every weight a slice header
+    of the stream sends that is not the default."""
     dec = port_top.Decoder("cpu")
-    with pytest.raises(NotImplementedError, match="weighted"):
-        dec.decode_stream(bin_path.read_bytes())
+    found, prev_poc = [], 0
+    for u in nal.iter_annexb_nals(data):
+        if not nal.is_slice_nal(u.nal_type):
+            dec.decode_nal(u)
+            continue
+        sh, _sps, _pps = headers.parse_slice_header(
+            InputBitstream(u.rbsp), u.nal_type, u.temporal_id, dec.sps_map,
+            dec.pps_map, prev_poc)
+        prev_poc = sh.poc
+        wp = getattr(sh, "wp_scaling", None)
+        if not wp:
+            continue
+        for lst in wp["wp"]:
+            for ref in lst:
+                for comp, entry in enumerate(ref):
+                    if entry is None:           # beyond the list's size
+                        continue
+                    present, weight, offset = entry
+                    denom = wp["luma_log2_denom"] if comp == 0 \
+                        else wp["chroma_log2_denom"]
+                    if present and (weight, offset) != (1 << denom, 0):
+                        found.append((weight, offset, denom))
+    return found
+
+
+@pytest.mark.parametrize("name", list(WP_STREAMS))
+def test_weighted_prediction_decodes(name, wp_streams, tmp_path,
+                                     monkeypatch):
+    from thevc_tpu.apps.decoder import main as ref_main
+    from thevc_tpu_torch.apps.decoder import main
+    bin_path, rec_path, frames = wp_streams[name]
+    assert _explicit_weights(bin_path.read_bytes())
+    mc.launches = 0
+    port_out = tmp_path / "port.yuv"
+    rc, log = _run(main, ["-b", str(bin_path), "-o", str(port_out),
+                          "--device", "cpu"])
+    assert rc == 0 and log.count("[MD5:(OK)]") == frames, log
+    assert mc.launches > 0
+    assert port_out.read_bytes() == rec_path.read_bytes()
+    monkeypatch.setenv("THEVC_DEVICE", "0")
+    jax_out = tmp_path / "jax.yuv"
+    rc, log = _run(ref_main, ["-b", str(bin_path), "-o", str(jax_out)])
+    assert rc == 0 and log.count("[MD5:(OK)]") == frames, log
+    assert port_out.read_bytes() == jax_out.read_bytes()

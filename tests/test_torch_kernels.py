@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (residual, dense and CG-packed; SATD)
-against their plain versions, the fast-RD decision pass, motion
-compensation and the P/B decode on CUDA against the CPU, on a CUDA card.
+against their plain versions, also at the shapes of the P/B fast-RD pass
+(SATD over 49 quarter-pel candidates, inter TUs), the fast-RD decision
+passes, motion compensation and the P/B decode (weighted prediction and
+scaling lists included) on CUDA against the CPU, on a CUDA card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and
 skips without one.  Run on the GPU machine with
@@ -18,7 +20,7 @@ import torch
 from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
 from thevc_tpu_torch.decoder.recon import _pack_cgs
-from thevc_tpu_torch.encoder import fast_intra
+from thevc_tpu_torch.encoder import fast_inter, fast_intra
 from thevc_tpu_torch.ops import mc, residual_kernel, satd, satd_kernel, tq
 
 REPO = Path(__file__).resolve().parents[1]
@@ -291,5 +293,122 @@ def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
     assert len(pics_cuda) == len(pics_cpu) == 5
     for a, b in zip(pics_cuda, pics_cpu):
         assert a.poc == b.poc and a.digest_ok and b.digest_ok
+        for pa, pb in zip(a.frame.planes(), b.frame.planes()):
+            assert np.array_equal(pa, pb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 63, 4099])
+@pytest.mark.parametrize("size", [8, 16, 32, 64])
+def test_satd_kernel_49_candidates_equals_plain(cuda, size, n):
+    """The quarter-pel refinement's shape: 49 candidates per PU."""
+    rng = np.random.RandomState(size + n)
+    org = torch.from_numpy(rng.randint(0, 256, (n, size, size)).astype(
+        np.int16)).to(cuda)
+    preds = torch.from_numpy(rng.randint(0, 256, (n, 49, size, size)).astype(
+        np.int16)).to(cuda)
+    before = satd_kernel.launches
+    got = satd.satd_blocks(org, preds, 0)
+    torch.cuda.synchronize()
+    assert satd_kernel.launches == before + 1
+    assert tuple(got.shape) == (n, 49)
+    assert torch.equal(got, satd.satd_plain(org, preds, 0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [4, 8, 16, 32])
+def test_tu_recon_pipeline_inter_on_cuda_equals_plain(cuda, size):
+    """Inter TUs: the DCT at 4x4 and the inter quant offset, as the P/B
+    pass's ``_tq_rd(is_intra=False)`` makes them; and that function on
+    CUDA against the CPU."""
+    rng = np.random.RandomState(40 + size)
+    n = 777
+    org = torch.from_numpy(rng.randint(0, 256, (n, size, size)).astype(
+        np.int32))
+    pred = (org + torch.from_numpy(rng.randint(-60, 61, (n, size, size))
+                                   .astype(np.int32))).clamp(0, 255)
+    qp = torch.from_numpy(rng.randint(0, 52, n).astype(np.int32))
+    levels, _ = tq.quant(tq.forward_transform(org - pred, False, 0), qp,
+                         False, 0)
+    args = [a.to(cuda) for a in (pred, levels, qp)]
+    before = residual_kernel.launches
+    got = tq.tu_recon_pipeline(*args, False, 0, 255)
+    torch.cuda.synchronize()
+    assert residual_kernel.launches == before + 1
+    assert torch.equal(got, tq.tu_recon_pipeline_plain(*args, False, 0, 255))
+    for tsize in ((size, -32) if size == 32 else (size,)):
+        got = fast_intra._tq_rd(org.to(cuda), pred.to(cuda), tsize,
+                                qp.to(cuda), 0, 255, is_intra=False)
+        want = fast_intra._tq_rd(org, pred, tsize, qp, 0, 255,
+                                 is_intra=False)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def _motion_frames(tmp_path, w, h, n):
+    clip = tmp_path / f"motion_{w}x{h}.yuv"
+    subprocess.run([sys.executable, str(REPO / "tools" / "make_test_clip.py"),
+                    str(clip), "--width", str(w), "--height", str(h),
+                    "--frames", str(n), "--seed", "1234", "--style",
+                    "motion"], check=True, capture_output=True)
+    raw = np.fromfile(clip, np.uint8).astype(np.int16)
+    size = w * h * 3 // 2
+    frames = []
+    for i in range(n):
+        f = raw[i * size:(i + 1) * size]
+        frames.append((f[:w * h].reshape(h, w),
+                       f[w * h:w * h * 5 // 4].reshape(h // 2, w // 2),
+                       f[w * h * 5 // 4:].reshape(h // 2, w // 2)))
+    return clip, frames
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b_slice", [False, True])
+def test_decide_frame_p_cuda_equals_cpu(cuda, tmp_path, b_slice):
+    from thevc_tpu.encoder.rdcost import chroma_weight, slice_lambda_and_qp
+    from thevc_tpu.ops.transforms import qp_scaled
+    w, h = 416, 240
+    _clip, f = _motion_frames(tmp_path, w, h, 3)
+    refs = [(1, *f[1]), (0, *f[0])]
+    refs1 = [(0, *f[0]), (1, *f[1])] if b_slice else None
+    for qp in (27, 37):
+        lam, _ = slice_lambda_and_qp(qp, False, 1, 0.57, 0, True, 0)
+        qpc = qp_scaled(qp, False, 0)
+        args = (*f[2], refs, w, h, qp, qpc, qpc, lam, lam ** 0.5, lam ** 0.5,
+                (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 64,
+                0, 255)
+        before = (satd_kernel.launches, residual_kernel.launches)
+        maps_cuda = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
+                                              device=cuda)
+        assert satd_kernel.launches > before[0]
+        assert residual_kernel.launches > before[1]
+        maps_cpu = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
+                                             device="cpu")
+        assert len(maps_cuda) == (14 if b_slice else 10)
+        for a, b in zip(maps_cuda, maps_cpu):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cfg,extra", [
+    ("encoder_lowdelay_P_main.cfg", "--wpP=1"),
+    ("encoder_lowdelay_tlayers.cfg", "--wpB=1"),
+    ("encoder_intra_main.cfg", "--ScalingList=1"),
+    ("encoder_lowdelay_tlayers.cfg", "--ScalingList=1")])
+def test_wp_and_scaling_decode_cuda_equals_cpu(cuda, tmp_path, cfg, extra):
+    from thevc_tpu_torch import native
+    from thevc_tpu_torch import streams
+    from thevc_tpu_torch.decoder.top import Decoder
+    assert native.get_lib() is not None
+    clip, _f = _motion_frames(tmp_path, 64, 64, 3)
+    stream = tmp_path / "s.bin"
+    streams.encode(clip, stream, tmp_path / "s_rec.yuv", 64, 64, 3,
+                   cfg=REPO / "tests" / "cfg" / cfg,
+                   extra=(extra, "--QP=32"))
+    data = stream.read_bytes()
+    pics_cuda = Decoder(cuda).decode_stream(data)
+    pics_cpu = Decoder("cpu").decode_stream(data)
+    assert len(pics_cuda) == len(pics_cpu) == 3
+    for a, b in zip(pics_cuda, pics_cpu):
+        assert a.digest_ok and b.digest_ok
         for pa, pb in zip(a.frame.planes(), b.frame.planes()):
             assert np.array_equal(pa, pb)

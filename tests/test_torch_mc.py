@@ -219,3 +219,52 @@ def test_scatter_blocks_and_layout():
     assert np.array_equal(cr[0:4, 5:13], blocks[1].numpy())
     assert int(flat.count_nonzero()) == 2 * 4 * 8 - 1
     assert not cb.any()
+
+
+def _wp_predictor(bd, weights):
+    """A reference ``InterPredictor`` whose only state is its bit depth
+    and explicit weights: weights[lst][ref][comp] = (flag, w, offset)."""
+    from thevc_tpu.decoder.inter import InterPredictor
+    ip = InterPredictor.__new__(InterPredictor)
+    ip.bd = bd
+    ip.wp = {"luma_log2_denom": 5, "chroma_log2_denom": 4, "wp": weights}
+    return ip
+
+
+@pytest.mark.parametrize("bd", [8, 10])
+def test_weighted_prediction_equals_reference(bd):
+    """weight_uni_batch / weight_bi_batch against the reference's
+    ``_weight_uni`` / ``_weight_bi`` per PU, on 14-bit predictions over
+    the whole range, with weights and offsets of either sign."""
+    rng = np.random.RandomState(bd)
+    n, h, w = 40, 8, 4
+    p0 = rng.randint(-8192, 8192 + 2 ** 14 - 8192, (n, h, w)).astype(np.int16)
+    p1 = rng.randint(-8192, 8192 + 2 ** 14 - 8192, (n, h, w)).astype(np.int16)
+    weights = [[[(True, int(rng.randint(-40, 90)), int(rng.randint(-128, 128)))
+                 for _c in range(3)] for _r in range(4)] for _l in range(2)]
+    ip = _wp_predictor(bd, weights)
+    lst = rng.randint(0, 2, n)
+    ref0, ref1 = rng.randint(0, 4, n), rng.randint(0, 4, n)
+    comp = rng.randint(0, 3, n)
+    denom = np.where(comp == 0, 5, 4)
+    scale = 1 << (bd - 8)
+    want_u = np.stack([ip._weight_uni(p0[k], lst[k], ref0[k], comp[k])
+                       for k in range(n)])
+    want_b = np.stack([ip._weight_bi(p0[k], p1[k], ref0[k], ref1[k],
+                                     comp[k]) for k in range(n)])
+    wu = np.asarray([weights[lst[k]][ref0[k]][comp[k]][1:] for k in range(n)])
+    w0 = np.asarray([weights[0][ref0[k]][comp[k]][1:] for k in range(n)])
+    w1 = np.asarray([weights[1][ref1[k]][comp[k]][1:] for k in range(n)])
+    t = torch.from_numpy
+    got_u = mc.weight_uni_batch(t(p0), t(wu[:, 0]), t(wu[:, 1] * scale),
+                                t(denom), bd)
+    got_b = mc.weight_bi_batch(t(p0), t(p1), t(w0[:, 0]), t(w1[:, 0]),
+                               t((w0[:, 1] + w1[:, 1]) * scale), t(denom), bd)
+    np.testing.assert_array_equal(want_u, got_u.numpy())
+    np.testing.assert_array_equal(want_b, got_b.numpy())
+    # weights (1, 1), offset 0 and denominator 0 are the plain average
+    one, zero = torch.ones(n, dtype=torch.int64), torch.zeros(n,
+                                                             dtype=torch.int64)
+    assert torch.equal(mc.weight_bi_batch(t(p0), t(p1), one, one, zero, zero,
+                                          bd),
+                       mc.bi_avg_batch(t(p0), t(p1), bd))

@@ -28,13 +28,17 @@ Entry point: ``python -m thevc_tpu_torch.apps.decoder -b str.bin -o
 rec.yuv [--device cuda]``.
 
 P and B pictures add motion compensation on the device
-(``decoder.inter``, ``ops.mc``).
+(``decoder.inter``, ``ops.mc``, with weighted prediction); pictures with
+scaling lists dequantise per coefficient on the device.
 
-The fast-RD all-intra encode (``--FastRD=1``): the encoder runs its
-open-loop decision pass on the device (``encoder.fast_intra``: 35-mode
-predictions, the Hadamard SATD sweep in ``csrc/satd.cu``, a transform RD
-estimate through ``csrc/residual.cu``, the quadtree DP), on the device
-that ``encoder.top.device_decisions`` names.  Entry point: ``python -m
+The fast-RD encode (``--FastRD=1``): the encoder runs its open-loop
+decision passes on the device that ``encoder.top.Encoder`` is given
+(``encoder.fast_intra``: 35-mode predictions, the Hadamard SATD sweep in
+``csrc/satd.cu``, a transform RD estimate through ``csrc/residual.cu``,
+the quadtree DP; ``encoder.fast_inter`` for P and B slices: a coarse
+full search, integer and quarter-pel refinement with the same SATD
+kernel, RD leaves through the residual kernel, merge/skip and
+bi-prediction models).  Entry point: ``python -m
 thevc_tpu_torch.apps.encoder <TAppEncoder's arguments> --FastRD=1
 [--device cuda]``; without ``--FastRD=1`` it is the exact path on the
 host, byte-identical to the JAX package's encoder.

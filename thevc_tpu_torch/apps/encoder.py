@@ -6,26 +6,26 @@ Behavioral reference: TAppEncoder/encmain.cpp + TAppEncTop.cpp.  A copy of
 report line.
 
 Without ``--FastRD=1`` this is the exact path, the host search that
-HM runs, and the device is not used.  With ``--FastRD=1`` the
-fast-RD intra decision pass runs on the torch device ``--device``
-(``encoder.fast_intra``; default ``cuda``, which fails when CUDA is
-absent; the CPU is used only when ``--device cpu`` asks for it).  P/B
-slices with ``--FastRD=1`` raise ``NotImplementedError``.  The last line
-of the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual and SATD kernels, the frames decided, the summed decision-pass
-wall time in seconds (synchronised with the device) and whether ``jax``
-was imported.
+HM runs, and the device is not used.  With ``--FastRD=1`` the fast-RD
+decision passes (``encoder.fast_intra`` for I slices,
+``encoder.fast_inter`` for P and B slices) run on the torch device
+``--device`` (default ``cuda``, which fails when CUDA is absent; the CPU
+is used only when ``--device cpu`` asks for it).  The last line of the
+output is ``thevc_tpu_torch.encoder {...}``: the launches of the
+residual and SATD kernels, the frames decided (all, and the P/B ones),
+the summed decision-pass wall time in seconds (synchronised with the
+device) and whether ``jax`` was imported.
 """
 
 from __future__ import annotations
 
 import argparse
-import contextlib
 import json
 import sys
 
-from ..encoder.top import Encoder, device_decisions
+from ..encoder.top import DecisionStats, Encoder
 from ..ops import residual_kernel, satd_kernel
+from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
 REPORT_PREFIX = "thevc_tpu_torch.encoder "
@@ -45,10 +45,10 @@ def main(argv=None) -> int:
         return 1
     residual_before, satd_before = residual_kernel.launches, \
         satd_kernel.launches
-    with (device_decisions(args.device) if cfg.fast_rd
-          else contextlib.nullcontext()) as stats:
-        enc = Encoder(cfg)
-        enc.encode(cfg.bitstream_file)
+    device = resolve(args.device) if cfg.fast_rd else None
+    stats = DecisionStats()
+    enc = Encoder(cfg, device=device, stats=stats)
+    enc.encode(cfg.bitstream_file)
     enc.print_summary()
     # TAppEncTop::printRateSummary (TAppEncTop.cpp:486-493)
     n = max(enc.frames_encoded, 1)
@@ -60,8 +60,9 @@ def main(argv=None) -> int:
         "device": args.device,
         "residual_launches": residual_kernel.launches - residual_before,
         "satd_launches": satd_kernel.launches - satd_before,
-        "decision_frames": stats.frames if stats else 0,
-        "decision_wall_s": stats.wall_s if stats else 0.0,
+        "decision_frames": stats.frames,
+        "decision_frames_inter": stats.inter_frames,
+        "decision_wall_s": stats.wall_s,
         "jax_imported": "jax" in sys.modules}))
     return 0
 

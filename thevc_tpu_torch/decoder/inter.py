@@ -10,7 +10,10 @@ path.  The host enumerates PUs and computes ``clip_mv``'s clamp and each
 job's window over numpy arrays; the window gather, one
 ``ops.mc.mc_batch`` per (component, filter case, size, bi) class, one
 ``bi_avg_batch`` per block size and the scatter into the prediction run
-on the device.  Weighted prediction raises ``NotImplementedError``.
+on the device.  A slice with explicit weighted prediction runs every MC
+job of its PUs at 14 bits, and ``ops.mc.weight_uni_batch`` /
+``weight_bi_batch`` apply each PU's weights (gathered by list, reference
+index and component from the slice header) over whole classes.
 
 A picture's three planes live on the device as one flat buffer
 (``Layout``): luma, then Cb, then Cr, each row-major.  ``RefPlanes``
@@ -37,6 +40,8 @@ _CLIP_OFF = 8
 # columns of the PU table (_pu_table)
 _RUN, _XP, _YP, _PW, _PH, _CUX, _CUY, _REF0, _MV0, _REF1, _MV1 = \
     0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11
+# reference indices a slice can address per list
+_MAX_REFS = 16
 
 
 # -- thevc_tpu/decoder/inter.py:20-120, 224-283, without the device batch
@@ -283,15 +288,31 @@ def _pu_table(runs) -> np.ndarray:
         if ip is None:
             continue
         entries = [e for e in ip.f.cu_list[lo:hi] if e[3] != MODE_INTRA]
-        if entries and ip.wp_active:
-            raise NotImplementedError(
-                "weighted prediction: the port's inter decode has no "
-                "weighted sample prediction")
         for (xp, yp, pw, ph, cux, cuy, ref0, mv0, ref1, mv1) in \
                 ip._enumerate_pus(entries):
             rows.append((r, xp, yp, pw, ph, cux, cuy, ref0, *mv0, ref1,
                          *mv1))
     return np.asarray(rows, np.int64).reshape(-1, 13)
+
+
+def _wp_table(runs, bd: int) -> np.ndarray:
+    """Per slice, list, reference index and component the explicit
+    weighted-prediction parameters (weight, offset at the bit depth, log2
+    denominator), int64 [runs, 2, _MAX_REFS, 3, 3]; (1, 0, 0), which
+    ``weight_bi_batch`` turns into the plain average, for slices without
+    weighted prediction (``InterPredictor._wp_params``)."""
+    tab = np.zeros((len(runs), 2, _MAX_REFS, 3, 3), np.int64)
+    tab[..., 0] = 1
+    for r, (_sh, ip, _lo, _hi) in enumerate(runs):
+        if ip is None or not ip.wp_active:
+            continue
+        for lst in (0, 1):
+            for ref in range(len(ip.lists[lst])):
+                for comp in range(3):
+                    w, ioff, denom = ip._wp_params(lst, ref, comp)
+                    tab[r, lst, ref, comp] = (w, ioff * (1 << (bd - 8)),
+                                              denom)
+    return tab
 
 
 def clip_mvs(mv: np.ndarray, cu_x: np.ndarray, cu_y: np.ndarray, pic_w: int,
@@ -324,18 +345,24 @@ def _ref_slots(runs):
 
 
 # job columns: source plane, window x, y, frac x, y, destination origin
-# and stride, list, bi pair index; then the class key (luma, case, h, w,
-# bi) kept on the host
-_J_PLANE, _J_WX, _J_WY, _J_FX, _J_FY, _J_ORG, _J_STR, _J_LST, _J_PAIR = \
-    range(9)
+# and stride, list, bi pair index, weighted-prediction weight, offset and
+# log2 denominator; then the class key (luma, case, h, w, kind) kept on
+# the host, kind: 0 a uni PU in pixels, 1 one half of a bi pair, 2 a
+# weighted uni PU (both at 14 bits)
+_J_PLANE, _J_WX, _J_WY, _J_FX, _J_FY, _J_ORG, _J_STR, _J_LST, _J_PAIR, \
+    _J_W, _J_O, _J_DEN = range(12)
+_UNI, _PAIR, _WEIGHTED = 0, 1, 2
 
 
-def _jobs(pus: np.ndarray, luts, sps, layout: Layout):
+def _jobs(pus: np.ndarray, luts, sps, layout: Layout, wp: np.ndarray,
+          wp_runs: np.ndarray):
     """One uni-directional MC job per (PU, active list, component).
 
-    Returns (table int64 [J, 9], keys int64 [J, 5] of (luma, case, h, w,
-    bi), pairs int64 [Q, 4] of (h, w, origin, stride), one row per (bi
-    PU, component), ordered by block size)."""
+    wp: ``_wp_table``; wp_runs: bool per slice, its weighted prediction
+    on.  Returns (table int64 [J, 12], keys int64 [J, 5] of (luma, case,
+    h, w, kind), pairs int64 [Q, 8] of (h, w, origin, stride, w0, w1,
+    offset, log2 denominator), one row per (bi PU, component), ordered by
+    block size)."""
     n = len(pus)
     bi = (pus[:, _REF0] >= 0) & (pus[:, _REF1] >= 0)
     ctu = sps.max_cu_width
@@ -346,11 +373,14 @@ def _jobs(pus: np.ndarray, luts, sps, layout: Layout):
     for comp in range(3):
         d = 1 if comp == 0 else 2
         p = pus[bi_pus]
+        w0 = wp[p[:, _RUN], 0, p[:, _REF0], comp]
+        w1 = wp[p[:, _RUN], 1, p[:, _REF1], comp]
         pair_rows.append(np.stack([
             p[:, _PH] // d, p[:, _PW] // d,
             layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
             np.full(len(p), layout.stride(comp)), bi_pus,
-            np.full(len(p), comp)], axis=1))
+            np.full(len(p), comp), w0[:, 0], w1[:, 0], w0[:, 1] + w1[:, 1],
+            w0[:, 2]], axis=1))
     pairs = np.concatenate(pair_rows)
     pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
     size_key = pairs[:, 0] * 128 + pairs[:, 1]
@@ -358,6 +388,8 @@ def _jobs(pus: np.ndarray, luts, sps, layout: Layout):
     rank = np.arange(len(pairs)) - np.repeat(starts, np.diff(
         np.r_[starts, len(pairs)]))
     pair_idx[pairs[:, 4], pairs[:, 5]] = rank
+    kind = np.where(bi, _PAIR, np.where(wp_runs[pus[:, _RUN]], _WEIGHTED,
+                                        _UNI))
 
     tables, keys = [], []
     for lst, ref_col, mv_col in ((0, _REF0, _MV0), (1, _REF1, _MV1)):
@@ -378,16 +410,18 @@ def _jobs(pus: np.ndarray, luts, sps, layout: Layout):
             y0 = p[:, _YP] // d + (mv[:, 1] >> frac_bits)
             case = (fx != 0) + 2 * (fy != 0)
             plane = slot if comp == 0 else 2 * slot + comp - 1
+            w = wp[p[:, _RUN], lst, p[:, ref_col], comp]
             tables.append(np.stack([
                 plane, x0 - (half - 1) * (fx != 0),
                 y0 - (half - 1) * (fy != 0), fx, fy,
                 layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
                 np.full(len(p), layout.stride(comp)), np.full(len(p), lst),
-                pair_idx[idx, comp]], axis=1))
+                pair_idx[idx, comp], w[:, 0], w[:, 1], w[:, 2]], axis=1))
             keys.append(np.stack([
                 np.full(len(p), int(comp == 0)), case, p[:, _PH] // d,
-                p[:, _PW] // d, bi[idx].astype(np.int64)], axis=1))
-    return np.concatenate(tables), np.concatenate(keys), pairs[:, :4]
+                p[:, _PW] // d, kind[idx]], axis=1))
+    return (np.concatenate(tables), np.concatenate(keys),
+            np.concatenate([pairs[:, :4], pairs[:, 6:]], axis=1))
 
 
 def predict_picture(runs, sps, refs: RefPlanes,
@@ -403,8 +437,11 @@ def predict_picture(runs, sps, refs: RefPlanes,
     with stage("pu_grouping", device):
         pus = _pu_table(runs)
         pics, luts = _ref_slots(runs)
+        wp_runs = np.asarray([ip is not None and ip.wp_active
+                              for _sh, ip, _lo, _hi in runs])
         if len(pus):
-            table, keys, pairs = _jobs(pus, luts, sps, layout)
+            table, keys, pairs = _jobs(pus, luts, sps, layout,
+                                       _wp_table(runs, bd), wp_runs)
             order = np.lexsort(keys.T[::-1])
             table, keys = table[order], keys[order]
             bounds = np.r_[0, np.nonzero(np.any(np.diff(keys, axis=0),
@@ -429,7 +466,7 @@ def predict_picture(runs, sps, refs: RefPlanes,
                                     dtype=torch.int16, device=device)
                 for k, c in zip(sizes, counts)}
         for a, b in zip(bounds[:-1], bounds[1:]):
-            is_luma, case_id, h, w, bi = (int(v) for v in keys[a])
+            is_luma, case_id, h, w, kind = (int(v) for v in keys[a])
             case = mc.CASES[case_id]
             t = tab[a:b]
             rows, cols = mc.window_shape(case, bool(is_luma), h, w)
@@ -438,15 +475,23 @@ def predict_picture(runs, sps, refs: RefPlanes,
                                     t[:, _J_WY], rows, cols)
             stat_launch()
             out = mc.mc_batch(win, t[:, _J_FX], t[:, _J_FY], case,
-                              bool(is_luma), bd, bool(bi), h, w)
-            if bi:
+                              bool(is_luma), bd, kind != _UNI, h, w)
+            if kind == _PAIR:
                 bufs[h * 128 + w][t[:, _J_LST].long(),
                                   t[:, _J_PAIR].long()] = out
-            else:
-                scatter_blocks(pred, out, t[:, _J_ORG], t[:, _J_STR])
+                continue
+            if kind == _WEIGHTED:
+                out = mc.weight_uni_batch(out, t[:, _J_W], t[:, _J_O],
+                                          t[:, _J_DEN], bd)
+            scatter_blocks(pred, out, t[:, _J_ORG], t[:, _J_STR])
+        weighted = bool(wp_runs.any())
         for (k, buf), a, c in zip(bufs.items(), size_at, counts):
             stat_launch()
-            avg = mc.bi_avg_batch(buf[0], buf[1], bd)
             pt = pair_tab[a:a + c]
+            if weighted:
+                avg = mc.weight_bi_batch(buf[0], buf[1], pt[:, 4], pt[:, 5],
+                                         pt[:, 6], pt[:, 7], bd)
+            else:
+                avg = mc.bi_avg_batch(buf[0], buf[1], bd)
             scatter_blocks(pred, avg, pt[:, 2], pt[:, 3])
     return pred

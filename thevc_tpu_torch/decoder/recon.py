@@ -19,6 +19,15 @@ flat int32 buffer and per-component offset maps that the native core's
 Transform-skip, bypass and PCM TUs are not in the store; the native walk
 reconstructs those itself.
 
+Pictures whose SPS enables scaling lists take the per-coefficient
+dequant of the reference's host path (``thevc_tpu/decoder/recon.py:
+402-405``) instead: their classes, and their transform-skip TUs, which
+then join stage 1 and the store, dequantise in plain torch on the device
+with each TU's scale table and inverse-transform through
+``tq.inverse_transform``.  K1 does not take those TUs (its dequant is
+flat; the JAX package does them outside its Pallas kernel too), while
+pictures without scaling lists still go through it.
+
 A picture with inter CUs reconstructs them first, on the device: the
 prediction (``decoder.inter.predict_picture``) plus the residuals of
 their TUs (the stage-1 classes, and transform-skip and bypass TUs
@@ -35,6 +44,7 @@ import numpy as np
 import torch
 
 from .. import native
+from ..common import scaling as scaling_mod
 from ..common.rom import CHROMA_SCALE
 from ..ops import tq
 from ..ops.device import stage, stat_d2h, stat_h2d, stat_launch
@@ -276,18 +286,78 @@ def _collect(f, sps, pps, runs) -> dict:
     return groups
 
 
+# stage-1 class kinds: flat dequant (the residual kernel), and the
+# scaling-list dequant followed by the inverse transform or the
+# transform-skip shift
+_FLAT, _SCALED, _SCALED_TS = 0, 1, 2
+
+
+def active_scaling(sps: Sps, pps: Pps):
+    """The active scaling-list dequant tables of a picture, or None
+    without scaling lists (TDecTop.cpp:585-606, as
+    ``thevc_tpu/decoder/top.py:627-649`` activates them): PPS data wins
+    over SPS data; neither present means the default matrices built with
+    the PPS transform-skip flag."""
+    if not sps.scaling_list_enabled_flag:
+        return None
+    src = pps.scaling_list if pps.scaling_list_present_flag else \
+        (sps.scaling_list if sps.scaling_list_present_flag else None)
+    sl = scaling_mod.ScalingList(pps.use_transform_skip)
+    if src is None:
+        sl.set_default()
+    else:
+        for s in range(4):
+            for lst in range(scaling_mod.SCALING_LIST_NUM[s]):
+                sl.lists[s][lst][:] = src.lists[s][lst]
+                sl.dc[s][lst] = src.dc[s][lst]
+    return scaling_mod.ActiveScaling(sl, sps.bit_increment)
+
+
+def _scale_tables(items, actives, key, entries):
+    """Each TU's scale table for a class of scaling-list TUs: (tables
+    int32 [T, s, s], index int32 [n]), one table per (picture, intra or
+    inter, QP % 6) that the class holds; ``actives``: each picture's
+    ``active_scaling``."""
+    comp, size = key[0], key[1]
+    div = 4 if comp == 0 else 2
+    codes = []
+    for (pi, bxs, bys, _blocks, qps) in entries:
+        f = items[pi][0]
+        intra = f.pred_mode[bys // div, bxs // div] == MODE_INTRA
+        codes.append((pi * 2 + intra) * 6 + qps % 6)
+    uniq, index = np.unique(np.concatenate(codes), return_inverse=True)
+    tables = []
+    for code in uniq:
+        pi, rem = divmod(int(code), 6)
+        pic, intra = divmod(pi, 2)
+        tables.append(actives[pic].tables_for(size, rem, bool(intra),
+                                              comp)[0])
+    return np.stack(tables).astype(np.int32), index.astype(np.int32)
+
+
 def _launch_residuals(classes: dict, device: torch.device) -> dict:
     """Run each TU class through dequant + inverse transform on
-    ``device``.  classes: {(comp, size, use_dst, bit_inc): (blocks int16
-    [n, s, s], qps int32 [n])}.  Returns {class: int16 [n, s, s] on
-    ``device``}, with nothing copied back.  Classes of 8x8 and up ship
-    only their coded 4x4 groups, which the kernel unpacks; 4x4 TUs are
-    one group each and ship dense."""
+    ``device``.  classes: {(comp, size, use_dst, bit_inc, kind): (blocks
+    int16 [n, s, s], qps int32 [n], scale)}, scale None or, for the
+    scaling-list kinds, ``_scale_tables``' (tables, index).  Returns
+    {class: int16 [n, s, s] on ``device``}, with nothing copied back.
+    Flat classes of 8x8 and up ship only their coded 4x4 groups, which
+    the kernel unpacks; 4x4 TUs are one group each and ship dense."""
     out = {}
-    for key, (blocks, qps) in classes.items():
-        _comp, size, use_dst, bit_inc = key
+    for key, (blocks, qps, scale) in classes.items():
+        _comp, size, use_dst, bit_inc, kind = key
         qp_dev = torch.from_numpy(qps).to(device)
-        if size >= 8:
+        if kind != _FLAT:
+            tables, index = scale
+            host = [blocks, tables, index]
+            stat_launch(sum(a.nbytes for a in host) + qps.nbytes)
+            q, tab, idx = (torch.from_numpy(a).to(device) for a in host)
+            deq = tq.dequant_scaled(q, tab[idx.long()], qp_dev, bit_inc)
+            out[key] = (tq.transform_skip_inv(deq, bit_inc)
+                        if kind == _SCALED_TS else
+                        tq.inverse_transform(deq, use_dst, bit_inc).to(
+                            torch.int16))
+        elif size >= 8:
             vals, idx = _pack_cgs(blocks, size, len(blocks))
             stat_launch(vals.nbytes + idx.nbytes + qps.nbytes)
             out[key] = tq.residual_pipeline_packed(
@@ -313,17 +383,26 @@ def _to_host(results: dict) -> dict:
 def _merge_classes(items):
     """Every coded TU of the pictures ``items`` ([(f, sps, pps, runs)])
     by class.  Returns (merged {class: [(pic_i, bxs, bys, blocks, qps)]},
-    classes {class: (blocks int16, qps int32)} with the pictures'
-    TUs concatenated in that order)."""
+    classes {class: (blocks int16, qps int32, scale)} with the pictures'
+    TUs concatenated in that order; see ``_launch_residuals``).  A
+    picture with scaling lists puts its TUs in the scaling-list kinds,
+    its transform-skip TUs (which the native walk would dequantise flat)
+    included."""
     merged: dict = {}
+    actives = [active_scaling(sps, pps) for _f, sps, pps, _runs in items]
     for pi, (f, sps, pps, runs) in enumerate(items):
-        if sps.scaling_list_enabled_flag:
-            raise NotImplementedError("scaling lists: the port's residual "
-                                      "path has flat dequantisation only")
-        for (comp, size, use_dst), chunks in _collect(f, sps, pps,
-                                                      runs).items():
-            merged.setdefault((comp, size, use_dst, sps.bit_increment),
-                              []).append(
+        groups = _collect(f, sps, pps, runs)
+        kind = _FLAT
+        if actives[pi] is not None:
+            kind = _SCALED
+            for (comp, size, bypass), tus in _special_tus(
+                    f, sps, pps, runs, inter_only=False).items():
+                if not bypass:
+                    groups[(comp, size, None)] = [tus]
+        for (comp, size, use_dst), chunks in groups.items():
+            cls = (comp, size, bool(use_dst), sps.bit_increment,
+                   _SCALED_TS if use_dst is None else kind)
+            merged.setdefault(cls, []).append(
                 (pi, np.concatenate([c[0] for c in chunks]),
                  np.concatenate([c[1] for c in chunks]),
                  np.concatenate([c[2] for c in chunks]),
@@ -331,7 +410,9 @@ def _merge_classes(items):
     classes = {
         key: (np.clip(np.concatenate([e[3] for e in lst]),
                       -32768, 32767).astype(np.int16),
-              np.concatenate([e[4] for e in lst]).astype(np.int32))
+              np.concatenate([e[4] for e in lst]).astype(np.int32),
+              None if key[4] == _FLAT else _scale_tables(items, actives, key,
+                                                          lst))
         for key, lst in merged.items()}
     return merged, classes
 
@@ -466,12 +547,12 @@ def _native_picture(f, sps, pps, runs, rec_y, rec_cb, rec_cr,
             ctypes.byref(maps), ctypes.byref(params))
 
 
-def _special_tus(f, sps, pps, runs) -> dict:
-    """The coded transform-skip and bypass TUs of inter CUs, which stage
-    1 leaves out: {(comp, size, bypass): (bxs, bys, blocks int32
-    [n, s, s], scaled qps int32 [n])}.  The mirror, for those TUs, of
-    ``_collect_residuals_vec`` (whose check that each slice's TU ranges
-    are contiguous ``_collect`` has made)."""
+def _special_tus(f, sps, pps, runs, inter_only: bool = True) -> dict:
+    """The coded transform-skip and bypass TUs of inter CUs (or of every
+    CU), which stage 1 leaves out: {(comp, size, bypass): (bxs, bys,
+    blocks int32 [n, s, s], scaled qps int32 [n])}.  The mirror, for
+    those TUs, of ``_collect_residuals_vec`` (whose check that each
+    slice's TU ranges are contiguous ``_collect`` has made)."""
     cs_tab = np.asarray(CHROMA_SCALE, np.int32)
     cu_all = np.asarray(f.cu_list, np.int64).reshape(-1, 8)
     lt_all = np.asarray(f.luma_tus, np.int64).reshape(-1, 6)
@@ -486,6 +567,8 @@ def _special_tus(f, sps, pps, runs) -> dict:
         for luma, tus, a, b in ((True, lt_all, 4, 5), (False, ct_all, 6, 7)):
             t = tus[cu[0, a]:cu[-1, b]]
             inter_tu = np.repeat(cu[:, 3], cu[:, b] - cu[:, a]) != MODE_INTRA
+            if not inter_only:
+                inter_tu = np.ones_like(inter_tu)
             tx, ty, sizes, trd = t[:, 0], t[:, 1], t[:, 2], t[:, 5]
             # the TU's top-left luma 4x4 unit
             ux, uy = (tx >> 2, ty >> 2) if luma else (tx >> 1, ty >> 1)
@@ -553,6 +636,8 @@ def _inter_residuals(f, sps, pps, runs, merged: dict, results: dict,
 
     for (comp, size, bypass), (bxs, bys, blocks, qps) in _special_tus(
             f, sps, pps, runs).items():
+        if not bypass and sps.scaling_list_enabled_flag:
+            continue            # a stage-1 class (``_merge_classes``)
         origin = layout.origin(comp, bxs, bys)
         host = [blocks, qps.astype(np.int32), origin.astype(np.int32)]
         stat_launch(sum(a.nbytes for a in host))

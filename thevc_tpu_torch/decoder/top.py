@@ -19,9 +19,8 @@ port's own:
   (``decoder.inter.RefPlanes``), and the picture enters the DPB with its
   reference POCs and compressed motion, as the reference stores it.
 
-A scaling-list stream or a weighted-prediction slice raises
-``NotImplementedError`` (in ``decoder.recon`` / ``decoder.inter``)
-instead of decoding on the host.
+Scaling lists (``decoder.recon``) and weighted prediction
+(``decoder.inter``) decode on the device route too.
 """
 
 from __future__ import annotations

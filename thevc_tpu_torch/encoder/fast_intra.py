@@ -21,7 +21,8 @@ mode-bit classes ``chroma_bits2`` and ``mode_bits3`` that
 
 Only the reference's unified all-modes form of the size pass is ported
 (its per-mode form exists for XLA:CPU compile times and gives the same
-maps), and the DP has no inter branch: P/B fast-RD is not ported.
+maps).  The transform RD estimate and the DP carry the inter branches
+that the P/B pass (``encoder.fast_inter``) uses.
 
 Float order.  The decisions rank candidates by float32 costs, so the
 port fixes its own order of float operations, and its CPU and CUDA forms
@@ -171,11 +172,6 @@ def _unified_plan(size: int, luma: bool):
 
 # -- the port's decision pass
 
-# (device, DecisionStats) of the encode running inside
-# ``encoder.top.device_decisions``: ``decide_frame`` runs there when its
-# caller names no device
-active_decisions = None
-
 # per-CU header-bit constants of the DP (fast_intra.py:608-610)
 _CU_BITS = 5.0
 _SPLIT_BITS = 1.0
@@ -312,13 +308,15 @@ def _quadrants(x, n: int, h: int, t: int):
             .reshape(h * h * n, t, t))
 
 
-def _tq_rd(org, pred, size: int, qp_scaled, bit_inc: int, max_val: int):
-    """Forward transform + quant + recon RD for one prediction per block
-    of an intra slice (4x4 TUs use the DST): [N, s, s] -> (dist int32
-    [N], bits float32 [N]).  ``qp_scaled`` is a 0-d tensor or one QP per
-    block.  Size 64 evaluates the four 32x32 quadrants (the largest TU is
-    32); size -32 a 32-sized block as 16x16 quadrants (the chroma TUs of
-    a 64 CU)."""
+def _tq_rd(org, pred, size: int, qp_scaled, bit_inc: int, max_val: int,
+           is_intra: bool = True):
+    """Forward transform + quant + recon RD for one prediction per block:
+    [N, s, s] -> (dist int32 [N], bits float32 [N]).  Intra blocks use the
+    DST at 4x4 and the intra quant offset (171), inter blocks
+    (``is_intra=False``) the DCT and the inter offset (85).
+    ``qp_scaled`` is a 0-d tensor or one QP per block.  Size 64 evaluates
+    the four 32x32 quadrants (the largest TU is 32); size -32 a 32-sized
+    block as 16x16 quadrants (the chroma TUs of a 64 CU)."""
     n = org.shape[0]
     org = org.to(torch.int32)
     pred = pred.to(torch.int32)
@@ -336,9 +334,9 @@ def _tq_rd(org, pred, size: int, qp_scaled, bit_inc: int, max_val: int):
         qp = qp.repeat_interleave(nq) if nq > 1 else qp
     else:
         qp = qp.expand(resi.shape[0])
-    use_dst = tsize == 4
+    use_dst = tsize == 4 and is_intra
     coeff = tq.forward_transform(resi, use_dst, bit_inc)
-    levels, _ = tq.quant(coeff, qp, True, bit_inc)
+    levels, _ = tq.quant(coeff, qp, is_intra, bit_inc)
     bits = _coeff_bits_est(levels, tsize)
     recon = tq.tu_recon_pipeline(ppred, levels, qp, use_dst, bit_inc,
                                  max_val)
@@ -528,17 +526,25 @@ def _chroma_pass_impl(cbpad, crpad, size: int, nby: int, nbx: int,
 
 def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
                max_sig: int, min_tr_log2: int, ctu_size: int, wp: int,
-               hp: int):
-    """Bottom-up quadtree DP + expansion to 4x4-unit maps (intra slices).
+               hp: int, inter=None, intra_pen: float = 0.0):
+    """Bottom-up quadtree DP + expansion to 4x4-unit maps.
 
     res[s] = (mode, dist, bits, mode2, mode3) luma per block; cres[s] =
     (cdir, ccost) for s >= 8; cres8_nxn = the NxN-variant chroma decision
-    at s = 8.  Returns int8 maps [6, hp//4, wp//4]: depth, mode, NxN,
-    chroma dir, second and third mode."""
+    at s = 8.  Without ``inter`` (intra slices) returns int8 maps [6,
+    hp//4, wp//4]: depth, mode, NxN, chroma dir, second and third mode.
+
+    P slices pass inter = {s: (rd, mvx, mvy, ref)} and B slices {s: (rd,
+    mvx0, mvy0, ref0, dir, mvx1, mvy1, ref1)}: an intra CU then pays
+    ``intra_pen`` bits, each leaf takes the cheaper of intra and inter
+    (the inter leaf pays 3 bits), and the maps gain the pred flag, ref
+    index and quarter-pel MV planes (B: also dir and the L1 ref and MV),
+    returned as int16 [10 or 14, hp//4, wp//4]."""
     dev = lam.device
     big = 1e30
     cost = {}
     choice = {}
+    pred_inter = {}
     min_cu = ctu_size >> max_sig
 
     def quad_sum(child):
@@ -552,6 +558,14 @@ def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
         leaf = dist.to(torch.float32) + lam * (bits + _CU_BITS)
         if s >= 8:
             leaf = leaf + cres[s][1]
+        if inter is not None and s >= 8:
+            # an intra CU in an inter slice: pred_mode/part-size bits and
+            # the optimism of predicting from the source's neighbours
+            leaf = leaf + lam * intra_pen
+        if inter is not None and s in inter:
+            ileaf = inter[s][0] + lam * 3.0
+            pred_inter[s] = ileaf < leaf
+            leaf = torch.minimum(leaf, ileaf)
         nby, nbx = leaf.shape
         ys = (np.arange(nby) * s)[:, None]
         xs = (np.arange(nbx) * s)[None, :]
@@ -566,6 +580,8 @@ def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
         if s == 8:
             # NxN partition (not a CU split): add its chroma cost
             split = quad_sum(cost[4]) + cres8_nxn[1] + lam * _NXN_BITS
+            if inter is not None:
+                split = split + lam * intra_pen
             can = 8 > (1 << min_tr_log2) and 4 >= min_cu
         else:
             split = quad_sum(cost[s // 2]) + lam * _SPLIT_BITS
@@ -592,6 +608,15 @@ def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
     fd_depth, fd_mode, fd_nxn = full(0), full(DC_IDX), full(0)
     fd_chroma, fd_mode2, fd_mode3 = full(DM_CHROMA_IDX), full(DC_IDX), \
         full(DC_IDX)
+    is_b = inter is not None and len(next(iter(inter.values()))) == 8
+    # inter planes: pred, ref, mvx, mvy (B: then dir, ref1, mvx1, mvy1)
+    fd_inter = []
+    if inter is not None:
+        fd_inter = [full(0), full(0), full(0).to(torch.int32),
+                    full(0).to(torch.int32)]
+    if is_b:
+        fd_inter += [full(1), full(0), full(0).to(torch.int32),
+                     full(0).to(torch.int32)]
     top = min(ctu_size, max(SIZES))
     open_ = torch.ones((hp // top, wp // top), dtype=torch.bool, device=dev)
     s = top
@@ -606,6 +631,15 @@ def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
         fd_mode2 = torch.where(lm, up(i8(res[s][3]), s // 4), fd_mode2)
         fd_mode3 = torch.where(lm, up(i8(res[s][4]), s // 4), fd_mode3)
         fd_chroma = torch.where(lm, up(i8(cres[s][0]), s // 4), fd_chroma)
+        if inter is not None and s in inter:
+            im = lm & up(pred_inter[s], s // 4)
+            iv = inter[s]
+            vals = [torch.ones_like(pred_inter[s]), iv[3], iv[1], iv[2]]
+            if is_b:
+                vals += [iv[4], iv[7], iv[5], iv[6]]
+            for k, v in enumerate(vals):
+                src = up(v.to(fd_inter[k].dtype), s // 4)
+                fd_inter[k] = torch.where(im, src, fd_inter[k])
         if s == 8:
             # a split at 8 is an NxN-PU 8x8 CU, not a CU split: the
             # per-4x4 modes come from the 4x4 pass
@@ -620,8 +654,10 @@ def _dp_expand(res, cres, cres8_nxn, width: int, height: int, lam,
         open_ = up(split_here, 2)
         s //= 2
         depth += 1
-    return torch.stack([fd_depth, fd_mode, fd_nxn, fd_chroma, fd_mode2,
-                        fd_mode3])
+    planes = [fd_depth, fd_mode, fd_nxn, fd_chroma, fd_mode2, fd_mode3]
+    if inter is None:
+        return torch.stack(planes)
+    return torch.stack([p.to(torch.int16) for p in planes + fd_inter])
 
 
 def _frame_body(py, pcb, pcr, iscal, fscal, wp: int, hp: int, statics,
@@ -652,6 +688,24 @@ def _frame_body(py, pcb, pcr, iscal, fscal, wp: int, hp: int, statics,
                       min_tr_log2, ctu_size, wp, hp)
 
 
+def _source_planes(org_y, org_cb, org_cr, width: int, height: int,
+                   ctu_size: int):
+    """The source planes, edge-padded for the decision passes: one sample
+    on the top and left, to the CTU-padded size plus two CTUs (luma) or
+    one CTU (chroma) on the bottom and right."""
+    pad = ctu_size * 2
+    wp = -(-width // ctu_size) * ctu_size
+    hp = -(-height // ctu_size) * ctu_size
+    wc, hc = width // 2, height // 2
+    return (
+        np.pad(org_y, ((1, hp - height + pad), (1, wp - width + pad)),
+               mode="edge"),
+        np.pad(org_cb, ((1, hp // 2 - hc + ctu_size),
+                        (1, wp // 2 - wc + ctu_size)), mode="edge"),
+        np.pad(org_cr, ((1, hp // 2 - hc + ctu_size),
+                        (1, wp // 2 - wc + ctu_size)), mode="edge"))
+
+
 def dispatch_frame(org_y: np.ndarray, org_cb: np.ndarray,
                    org_cr: np.ndarray, width: int, height: int,
                    qp_scaled: int, qp_cb: int, qp_cr: int, lambda_: float,
@@ -662,17 +716,9 @@ def dispatch_frame(org_y: np.ndarray, org_cb: np.ndarray,
     upload the source planes and queue the work.  Returns a token for
     ``collect_frame``; on a CUDA device the work runs asynchronously."""
     device = torch.device(device)
-    pad = ctu_size * 2
     wp = -(-width // ctu_size) * ctu_size
     hp = -(-height // ctu_size) * ctu_size
-    wc, hc = width // 2, height // 2
-    planes = (
-        np.pad(org_y, ((1, hp - height + pad), (1, wp - width + pad)),
-               mode="edge"),
-        np.pad(org_cb, ((1, hp // 2 - hc + ctu_size),
-                        (1, wp // 2 - wc + ctu_size)), mode="edge"),
-        np.pad(org_cr, ((1, hp // 2 - hc + ctu_size),
-                        (1, wp // 2 - wc + ctu_size)), mode="edge"))
+    planes = _source_planes(org_y, org_cb, org_cr, width, height, ctu_size)
     iscal = np.asarray([qp_scaled, qp_cb, qp_cr], np.int32)
     fscal = np.asarray([lambda_, sqrt_lambda, bits3[0], bits3[1], bits3[2],
                         cbits2[0], cbits2[1], cbits2[2]], np.float32)
@@ -705,24 +751,18 @@ def decide_frame(org_y, org_cb, org_cr, width: int, height: int,
                  lambda_: float, sqrt_lambda: float, bits3: tuple,
                  cbits2: tuple, max_sig: int, min_tr_log2: int,
                  ctu_size: int = 64, bit_inc: int = 0, max_val: int = 255,
-                 *, device=None):
+                 *, device, stats=None):
     """Run the decision pass for one frame on ``device`` and return its
     maps (``collect_frame``).  The positional arguments are those of the
     reference's ``decide_frame``: source planes (int16), frame size,
     scaled QPs, lambda and its square root, the intra-dir bit classes
     (mpm0, mpm12, other), the chroma bit classes (dm, other, chroma
     weight), the CU depth and the smallest TU size (log2), the CTU size,
-    the bit increment and the largest sample value.
-
-    With no ``device`` it runs on the device of the enclosing
-    ``encoder.top.device_decisions`` block, whose stats it adds to, and
-    raises ``RuntimeError`` outside one."""
-    stats = None
+    the bit increment and the largest sample value.  ``stats``
+    (``encoder.top.DecisionStats``) gets the wall time, from the call to
+    the maps on the host."""
     if device is None:
-        if active_decisions is None:
-            raise RuntimeError("the fast-RD decision pass needs a device: "
-                               "encode inside encoder.top.device_decisions")
-        device, stats = active_decisions
+        raise TypeError("decide_frame needs a device")
     t0 = time.perf_counter()
     maps = collect_frame(dispatch_frame(
         org_y, org_cb, org_cr, width, height, qp_scaled, qp_cb, qp_cr,

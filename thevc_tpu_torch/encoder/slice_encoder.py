@@ -400,11 +400,19 @@ class PictureCompressor:
 
     compress pass: compress_slice() mirrors TEncSlice::compressSlice's
     CTU loop; final pass: encode_slice() mirrors TEncSlice::encodeSlice.
+
+    ``device``, ``stats`` and ``ref_cache`` go to the fast-RD decision
+    passes of a ``cfg.fast_rd`` encode (``fast_intra.decide_frame``,
+    ``fast_inter.decide_frame_p``).
     """
 
-    def __init__(self, cu: CuEncoder, cfg):
+    def __init__(self, cu: CuEncoder, cfg, device=None, stats=None,
+                 ref_cache=None):
         self.cu = cu
         self.cfg = cfg
+        self.device = device
+        self.stats = stats
+        self.ref_cache = ref_cache
         f = cu.f
         pps = cu.pps
         self.f = f
@@ -658,11 +666,43 @@ class PictureCompressor:
             nat = make_native_encoder(cu)
             if nat is not None and self.cfg.fast_rd \
                     and sh.slice_type != I_SLICE:
-                # fast-RD for P/B slices (encoder/fast_inter.py) is not
-                # ported
-                raise NotImplementedError(
-                    "fast-RD for P/B slices (inter decisions) is not ported "
-                    "to thevc_tpu_torch yet")
+                # fast-RD for P/B slices: device-batched motion search
+                # (per list + bi stage for B) + intra decisions; the
+                # native CTU loop applies the maps with real merge RD
+                # and AMVP (encoder/fast_inter.py)
+                from ..ops import transforms as tops
+                from .fast_intra import chroma_bits2, mode_bits3
+                from .fast_inter import decide_frame_p
+                bits3 = mode_bits3(sh, cu.pps, self._init_ctx)
+                cbits2 = chroma_bits2(self._init_ctx,
+                                      cu.rd.chroma_distortion_weight)
+                qp_cb = tops.qp_scaled(
+                    sh.slice_qp, False, cu.sps.qp_bd_offset_c,
+                    cu.pps.chroma_cb_qp_offset + sh.slice_qp_delta_cb)
+                qp_cr = tops.qp_scaled(
+                    sh.slice_qp, False, cu.sps.qp_bd_offset_c,
+                    cu.pps.chroma_cr_qp_offset + sh.slice_qp_delta_cr)
+                refs = [(p.poc, p.rec_y, p.rec_cb, p.rec_cr)
+                        for p in cu.inter.lists[0]]
+                is_b = sh.slice_type != P_SLICE
+                refs1 = [(p.poc, p.rec_y, p.rec_cb, p.rec_cr)
+                         for p in cu.inter.lists[1]] if is_b else None
+                fd = decide_frame_p(
+                    cu.org_y, cu.org_cb, cu.org_cr, refs,
+                    f.width, f.height,
+                    sh.slice_qp + cu.sps.qp_bd_offset_y, qp_cb, qp_cr,
+                    cu.rd.lambda_, cu.rd.sqrt_lambda,
+                    cu.rd.lambda_motion_sad / 65536.0, bits3, cbits2,
+                    f.max_depth - cu.sps.add_cu_depth,
+                    cu.sps.quadtree_tu_log2_min_size,
+                    self.cfg.search_range, f.ctu_size,
+                    cu.sps.bit_increment,
+                    (1 << cu.sps.internal_bit_depth) - 1,
+                    ref_pics_l1=refs1, device=self.device, stats=self.stats,
+                    ref_cache=self.ref_cache)
+                nat.set_fd(fd[0], fd[1], fd[2], fd[3], fd[4], fd[5], True)
+                nat.set_fd_inter(fd[6], fd[7], fd[8], fd[9],
+                                 *(fd[10:14] if is_b else ()))
             if nat is not None and self.cfg.fast_rd \
                     and sh.slice_type == I_SLICE:
                 # fast-RD mode: device-batched open-loop decisions replace
@@ -686,7 +726,8 @@ class PictureCompressor:
                     f.max_depth - cu.sps.add_cu_depth,
                     cu.sps.quadtree_tu_log2_min_size, f.ctu_size,
                     cu.sps.bit_increment,
-                    (1 << cu.sps.internal_bit_depth) - 1)
+                    (1 << cu.sps.internal_bit_depth) - 1,
+                    device=self.device, stats=self.stats)
                 import os as _os
                 fix_tu = _os.environ.get("THEVC_FASTRD_FIXTU", "1") != "0"
                 dev_chroma = _os.environ.get(

@@ -8,13 +8,15 @@ TAppEncCfg.cpp xCheckParameter derivations.
 
 A copy of ``thevc_tpu/encoder/top.py``.  The frame-parallel thread count
 does not probe for a JAX device (it was ``ops.device.device_enabled``),
-and ``device_decisions`` at the end of the module runs the fast-RD intra
-decision pass (``encoder.fast_intra``) on a torch device.
+and ``Encoder`` takes the torch device of the fast-RD decision passes
+(``encoder.fast_intra``, ``encoder.fast_inter``) and a
+``DecisionStats`` that they add their wall times to; it hands both, and
+the device copies of the reference pictures, to each picture's
+``slice_encoder.PictureCompressor``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import math
 import os
@@ -34,8 +36,8 @@ from ..params import I_SLICE, P_SLICE, Pps, ReferencePictureSet, Sps, Vps
 from ..decoder.mv import MvCtx
 from ..decoder.refpic import Dpb, Picture, build_ref_lists, check_ldc
 from ..ops import device as device_mod
-from . import fast_intra
 from . import slice_encoder as se
+from .fast_inter import RefCache
 from .inter_search import InterSearch
 from ..utils.cfg import EncoderCfg
 
@@ -434,10 +436,17 @@ def _generate_combined_list(sh, list0, list1) -> None:
 
 
 class Encoder:
-    """Full encoder pipeline (all-intra path this round)."""
+    """Full encoder pipeline.  ``device`` (a ``torch.device`` or its
+    name) runs the fast-RD decision passes of ``cfg.fast_rd`` encodes,
+    which add their wall times to ``stats`` (a ``DecisionStats``)."""
 
-    def __init__(self, cfg: EncoderCfg):
+    def __init__(self, cfg: EncoderCfg, device=None, stats=None):
         self.cfg = cfg
+        self.decision_device = (device_mod.resolve(device)
+                                if device is not None else None)
+        self.decision_stats = stats
+        # the decision passes' device copies of the reference pictures
+        self.decision_refs = RefCache()
         self.vps, self.sps, self.pps = derive_params(cfg)
         self.frames_encoded = 0
         self.total_bits = 0
@@ -570,6 +579,10 @@ class Encoder:
             sh.num_ref_idx[0] = active
             sh.num_ref_idx[1] = active if sh.slice_type == 0 else 0
             list0, list1 = build_ref_lists(sh, self.dpb, sps.bits_for_poc)
+            # the decision passes' device copies of pictures no longer
+            # held for reference go
+            self.decision_refs.retain(p.rec_y for p in self.dpb.pics
+                                      if p.referenced)
             if sh.slice_type == 0 and sh.num_ref_idx[1] == 0:
                 sh.slice_type = P_SLICE
             if sh.slice_type == 0:
@@ -647,7 +660,8 @@ class Encoder:
                 fdm=bool(cfg.use_fast_decision_for_merge))
         # ---- slice segmentation + compression (TEncGOP.cpp:560-625) ----
         import copy as _copy
-        pc = se.PictureCompressor(cu, cfg)
+        pc = se.PictureCompressor(cu, cfg, self.decision_device,
+                                  self.decision_stats, self.decision_refs)
         pc.rc = self.rate_ctrl
         if cfg.use_adaptive_qp:
             from .preanalyzer import preanalyze
@@ -1193,37 +1207,23 @@ class Encoder:
         return stream
 
 
-# -- the port's fast-RD decision device
+# -- the port's fast-RD decision passes
 
 
 @dataclasses.dataclass
 class DecisionStats:
-    """What the decision passes of one ``device_decisions`` block cost:
-    frames decided and their summed wall time in seconds, from the call
-    to the maps on the host (so synchronised with the device)."""
+    """What an encode's fast-RD decision passes cost: frames decided (I
+    and P/B), the P/B ones among them, and their summed wall time in
+    seconds, from the call to the maps on the host (so synchronised with
+    the device)."""
     frames: int = 0
+    inter_frames: int = 0
     wall_s: float = 0.0
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                               repr=False)
 
-    def add(self, seconds: float) -> None:
+    def add(self, seconds: float, inter: bool = False) -> None:
         with self._lock:
             self.frames += 1
+            self.inter_frames += int(inter)
             self.wall_s += seconds
-
-
-@contextlib.contextmanager
-def device_decisions(device):
-    """Run the fast-RD intra decision passes of the encodes inside the
-    block on ``device`` (a ``torch.device`` or its name): the copied
-    ``slice_encoder`` calls ``fast_intra.decide_frame`` with no device,
-    and it takes this block's.  Yields the block's ``DecisionStats``.
-    The previous device is restored on exit, also on error."""
-    dev = device_mod.resolve(device)
-    stats = DecisionStats()
-    saved = fast_intra.active_decisions
-    fast_intra.active_decisions = (dev, stats)
-    try:
-        yield stats
-    finally:
-        fast_intra.active_decisions = saved

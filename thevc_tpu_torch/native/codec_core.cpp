@@ -1029,7 +1029,8 @@ void intra_recon_tus(int16_t* rec, const int32_t* coeff,
     if (tu[TU_CBF]) {
       const int32_t* rsrc = resi;
       int64_t roff = -1;
-      if (p->resi_buf && !tu[TU_TS] && !tu[TU_BYP])
+      // transform-skip TUs are in the store only with scaling lists
+      if (p->resi_buf && !tu[TU_BYP])
         roff = p->resi_map[(int64_t)(y / p->avail_div) * p->map_w +
                            (x / p->avail_div)];
       if (roff >= 0) {

@@ -2,7 +2,9 @@
 
 Counterpart of ``thevc_tpu/ops/jx_mc.py``: ``_copy_batch`` (:35),
 ``_filter_1d_batch`` (:44), ``mc_batch`` (:75) and ``bi_avg_batch``
-(:106), with HM's int16 (``Short``) intermediate wrap.  Also the device
+(:106), with HM's int16 (``Short``) intermediate wrap, and the explicit
+weighted prediction of ``thevc_tpu/decoder/inter.py`` (``_weight_uni``,
+``_weight_bi``, :46-69) over PU batches.  Also the device
 window gather that replaces the host ``np.stack`` of per-PU slices of
 ``Picture.padded()`` (``thevc_tpu/decoder/inter.py:149-182``).
 
@@ -134,3 +136,36 @@ def bi_avg_batch(p0: torch.Tensor, p1: torch.Tensor, bd: int) -> torch.Tensor:
     offset = (1 << (shift - 1)) + 2 * IF_INTERNAL_OFFS
     val = (p0.to(torch.int32) + p1.to(torch.int32) + offset) >> shift
     return val.clamp(0, (1 << bd) - 1).to(torch.int16)
+
+
+def weight_uni_batch(p: torch.Tensor, w: torch.Tensor, offset: torch.Tensor,
+                     log2_denom: torch.Tensor, bd: int) -> torch.Tensor:
+    """Explicit weighted uni-prediction (TComWeightPrediction.cpp
+    addWeightUni) over a PU batch of 14-bit predictions p [N, h, w]: per
+    PU the weight, the offset at the bit depth (the signalled offset <<
+    (bd - 8)) and the log2 denominator, [N] each -> int16 pixels.  In
+    int64, clipped to [0, (1 << bd) - 1]."""
+    w, offset, log2_denom = (v.to(torch.int64)[:, None, None]
+                             for v in (w, offset, log2_denom))
+    shift = log2_denom + (IF_INTERNAL_PREC - bd)
+    rnd = (1 << shift) >> 1                      # 0 when shift is 0
+    v = ((w * (p.to(torch.int64) + IF_INTERNAL_OFFS) + rnd) >> shift) + offset
+    return v.clamp(0, (1 << bd) - 1).to(torch.int16)
+
+
+def weight_bi_batch(p0: torch.Tensor, p1: torch.Tensor, w0: torch.Tensor,
+                    w1: torch.Tensor, offset: torch.Tensor,
+                    log2_denom: torch.Tensor, bd: int) -> torch.Tensor:
+    """Explicit weighted bi-prediction (TComWeightPrediction.cpp
+    addWeightBi) over a PU batch of 14-bit prediction pairs [N, h, w]:
+    per PU the two weights, the sum of the two offsets at the bit depth
+    and the log2 denominator, [N] each -> int16 pixels.  Weights (1, 1),
+    offset 0 and denominator 0 give ``bi_avg_batch``."""
+    w0, w1, offset, log2_denom = (v.to(torch.int64)[:, None, None]
+                                  for v in (w0, w1, offset, log2_denom))
+    shift = log2_denom + (IF_INTERNAL_PREC + 1 - bd)
+    half = (1 << shift) >> 1
+    v = (w0 * (p0.to(torch.int64) + IF_INTERNAL_OFFS)
+         + w1 * (p1.to(torch.int64) + IF_INTERNAL_OFFS)
+         + half + offset * half) >> shift
+    return v.clamp(0, (1 << bd) - 1).to(torch.int16)

@@ -3,8 +3,9 @@
 Counterpart of ``thevc_tpu/ops/jx.py``.  The decoder's stage 1:
 ``dequant`` (:95), ``inverse_transform`` (:78), ``residual_pipeline``
 (:147), ``_unpack_cgs`` (:167) and ``residual_pipeline_packed`` (:184),
-and ``transform_skip_inv`` of ``thevc_tpu/ops/transforms.py`` (:97) for
-the transform-skip TUs of inter CUs.
+``transform_skip_inv`` of ``thevc_tpu/ops/transforms.py`` (:97) for
+transform-skip TUs, and ``dequant_scaled``, the per-coefficient
+dequant of pictures with scaling lists.
 The encoder's RD estimate: ``forward_transform`` (:61), ``quant``
 (:112), ``recon_add_clip`` (:135) and ``tu_recon_pipeline`` (:194).
 
@@ -57,6 +58,29 @@ def dequant(qcoeff: torch.Tensor, qp: torch.Tensor,
     scale = dequant_scale(qp)[:, None, None]
     q = qcoeff.to(torch.int32).clamp(-32768, 32767)
     return ((q * scale + (1 << (shift - 1))) >> shift).clamp(-32768, 32767)
+
+
+def dequant_scaled(qcoeff: torch.Tensor, deq: torch.Tensor, qp: torch.Tensor,
+                   bit_increment: int = 0) -> torch.Tensor:
+    """xDeQuant's scaling-list branch (TComTrQuant.cpp:1313-1345,
+    ``common/scaling.py:dequant_with_list``) over a TU batch: levels
+    [N, s, s], each TU's per-coefficient scale table [N, s, s] and scaled
+    QPs [N] -> int32, clipped to int16.  In int64."""
+    log2 = qcoeff.shape[-1].bit_length() - 1
+    bit_depth = 8 + bit_increment
+    shift = 20 - 14 - (MAX_TR_DYNAMIC_RANGE - bit_depth - log2) + 4
+    per = (qp.to(torch.int64) // 6)[:, None, None]
+    q = qcoeff.to(torch.int64)
+    deq = deq.to(torch.int64)
+    # shift > per: a rounding right shift of the clipped levels
+    sr = (shift - per).clamp(min=1)
+    right = (q.clamp(-32768, 32767) * deq + ((1 << sr) >> 1)) >> sr
+    # else: levels clipped to the dynamic range, then a left shift
+    limit = 1 << (12 + log2 + bit_depth - per).clamp(max=15)
+    left = (torch.maximum(torch.minimum(q, limit - 1), -limit) * deq) \
+        << (per - shift).clamp(min=0)
+    out = torch.where(shift > per, right, left)
+    return out.clamp(-32768, 32767).to(torch.int32)
 
 
 def _inv_pass(s: torch.Tensor, t: torch.Tensor, shift: int) -> torch.Tensor:
