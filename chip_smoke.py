@@ -38,7 +38,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    SAO (``tests/cfg/encoder_lowdelay_tlayers.cfg``),
    the third low-delay P (5 frames) and random access with a GOP of 8
    (9 frames; ``encoder_lowdelay_P_main.cfg``,
-   ``encoder_randomaccess_main.cfg``).
+   ``encoder_randomaccess_main.cfg``); the 64x64 and 128x64 streams of 9
+   and 11.
    Intra decode phase: decodes the all-intra stream through the
    port's CLI on ``cuda``: one warm-up, then three timed runs (host clock
    ending in ``torch.cuda.synchronize()``; fps from the median).  In every
@@ -95,7 +96,32 @@ Run from the root of a checkout on a machine with a CUDA card:
    low-delay B, a fading clip) and scaling-list (``--ScalingList=1``
    all-intra and low-delay B) streams decode on ``cuda`` with every
    digest OK and recon byte-identical to their encoders'.
-10. Prints the kernels' JSON line (per kernel: launches on the main
+10. Device-apply phase (``fastrd_devapply``), the fast-RD slice's main
+   path: encodes the 1080p all-intra clip with ``--FastRD=1 --device
+   cuda --device-apply`` at QP 32 (SAO, RDOQ on) in a child process whose
+   report gives the kernels' launches, the device-apply frames (8, none
+   left to the host apply), waves, class steps and wall; decodes it on
+   ``cuda`` and on the CPU (8/8 digests OK, recon byte-identical to the
+   encoder's); reports its wall beside the fast-RD phase's host-apply
+   encode of the same clip and ``fastrd_devapply_bits_overhead_pct``
+   (100 x (device-apply bytes / host-apply bytes - 1)) with the luma
+   PSNR difference.  Then one frame's apply in this process, from the
+   call an in-process 1-frame encode made (its stage walls printed): a
+   warm-up and three synchronised graph-replayed runs (host setup and
+   issue time, the loop's span in CUDA events, K1 counted once per
+   replayed launch and warm-up), one under ``torch.profiler`` (kernels
+   only: device time, kernels a class step), and one eager run in which
+   every K1 call is held against ``tq.residual_pipeline_plain``
+   (tolerance 0); the replayed apply equals the eager one (recon and
+   every level stack, tolerance 0); the bytes a class step must move and
+   the frame's HBM bound.  Last, the 416x240 identity encodes, all at
+   once: RDOQ and the top-2 re-rank off, ``cuda`` (frames in threads),
+   ``cpu`` and the host apply byte-identical; RDOQ on, ``cuda`` ==
+   ``cpu`` at QP 27 and 37.
+11. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
+   refuses both in one stream) decode on ``cuda`` with every digest OK
+   and recon byte-identical to their encoders'.
+12. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
@@ -160,6 +186,14 @@ WP_SL = {"wp_p": ("fade", 3, CFG / "encoder_lowdelay_P_main.cfg",
          "sl_intra": ("tiny_motion", 2, CFG / "encoder_intra_main.cfg",
                       "--ScalingList=1"),
          "sl_ldb": ("tiny_motion", 3, LDB_CFG, "--ScalingList=1")}
+
+# the partitioned streams of a 128x64 clip, 32x32 CTUs (4x2 a picture):
+# 2x2 uniform tiles, and WPP (one substream per CTU row); the encoder
+# refuses tiles and WPP in one stream, as HM does
+CTU32 = ("--MaxCUWidth=32", "--MaxCUHeight=32", "--MaxPartitionDepth=3")
+PARTITIONED = {"tiles": (*CTU32, "--UniformSpacingIdc=1",
+                         "--NumTileColumnsMinus1=1", "--NumTileRowsMinus1=1"),
+               "wpp": (*CTU32, "--WaveFrontSynchro=1")}
 
 
 class SmokeFailure(Exception):
@@ -321,7 +355,8 @@ def prepare_streams(work: Path) -> dict:
              "motion": (WIDTH, HEIGHT, FRAMES, "motion"),
              "small_motion": (SMALL_W, SMALL_H, 9, "motion"),
              "fade": (64, 64, 3, "fade"),
-             "tiny_motion": (64, 64, 3, "motion")}
+             "tiny_motion": (64, 64, 3, "motion"),
+             "part": (128, 64, 1, "default")}
     paths = {}
     for name, (w, h, frames, style) in clips.items():
         paths[name] = work / f"{name}_{w}x{h}_{frames}f.yuv"
@@ -333,6 +368,8 @@ def prepare_streams(work: Path) -> dict:
         jobs[name] = ("small_motion", frames, cfg, ())
     for name, (clip, frames, cfg, switch) in WP_SL.items():
         jobs[name] = (clip, frames, cfg, (switch,))
+    for name, switches in PARTITIONED.items():
+        jobs[name] = ("part", 1, CFG / "encoder_intra_main.cfg", switches)
 
     def encode(item):
         name, (clip, frames, cfg, extra) = item
@@ -647,17 +684,19 @@ def luma_psnr(a: Path, b: Path, width: int, height: int,
 
 def port_encode(clip: Path, stream: Path, recon: Path, width: int,
                 height: int, frames: int, qp: int, device: str,
-                cfg: Path = CFG / "encoder_intra_main.cfg") -> dict:
-    """Fast-RD encode through the port's CLI in a child process; returns
-    the CLI's report (kernel launches, decision-pass wall) with the
-    encode's wall time."""
+                cfg: Path = CFG / "encoder_intra_main.cfg", extra=(),
+                env=None) -> dict:
+    """Fast-RD encode through the port's CLI in a child process (``extra``
+    arguments, ``env`` added to its environment); returns the CLI's
+    report (kernel launches, decision-pass and device-apply counts and
+    walls) with the encode's wall time."""
     from thevc_tpu_torch import streams
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
     t0 = time.perf_counter()
     out = streams.encode(clip, stream, recon, width, height, frames,
                          cfg=cfg,
                          extra=(f"--QP={qp}", "--SAO=1", "--FastRD=1",
-                                f"--device={device}"))
+                                f"--device={device}", *extra), env=env)
     wall = time.perf_counter() - t0
     lines = [ln for ln in out.splitlines() if ln.startswith(REPORT_PREFIX)]
     check(len(lines) == 1, f"no report line from the port's encoder:\n"
@@ -667,13 +706,14 @@ def port_encode(clip: Path, stream: Path, recon: Path, width: int,
     return report
 
 
-def decode_cuda(torch, stream: Path, out: Path) -> tuple:
-    """Decode ``stream`` with the port's CLI on ``cuda``."""
+def decode_cuda(torch, stream: Path, out: Path,
+                device: str = "cuda") -> tuple:
+    """Decode ``stream`` with the port's CLI on ``cuda`` (or ``device``)."""
     from thevc_tpu_torch.apps import decoder as dec_app
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         rc = dec_app.main(["-b", str(stream), "-o", str(out), "--device",
-                           "cuda"])
+                           device])
     torch.cuda.synchronize()
     return rc, log.getvalue()
 
@@ -856,29 +896,14 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         t = time.perf_counter()
         run()
         prof_wall = time.perf_counter() - t
-    # the kernels' own time (the op rows' self device time would count
-    # each kernel twice)
-    from torch.autograd import DeviceType
-    device_us = sum(getattr(e, "self_device_time_total",
-                            getattr(e, "self_cuda_time_total", 0))
-                    for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    by_name: dict = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + getattr(
-                e, "self_device_time_total",
-                getattr(e, "self_cuda_time_total", 0))
-    n_kernels = sum(1 for e in prof.events()
-                    if e.device_type == DeviceType.CUDA)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    device_us, n_kernels, top = profiled_device(prof)
     wall = sorted(walls)[1]
     out = dict(wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
                launches=launches, stage_ms={k: 1000 * v for k, v in
                                             sorted(stages.items())},
                profiled_wall_ms=1000 * prof_wall,
                device_ms=device_us / 1000, device_kernels=n_kernels,
-               top_kernels_ms={k[:60]: v / 1000 for k, v in top},
+               top_kernels_ms=top,
                device_busy_share=device_us / 1e6 / prof_wall)
     print("fastrd_inter_pass " + json.dumps(out))
 
@@ -997,6 +1022,305 @@ def wp_scaling_phase(torch, work: Path, made: dict) -> dict:
     print("wp_scaling " + json.dumps(out))
     return out
 
+# the device-apply identity encodes of the small clip: (case, how) ->
+# (device, extra arguments, environment); every "rdoq0" stream (RDOQ and
+# the top-2 re-rank off) must equal the host apply's, and with RDOQ on
+# the cuda stream the cpu one at each QP; the first runs its frames in
+# threads (the CLI's frame-parallel all-intra path)
+_TOP2_OFF = {"THEVC_FASTRD_TOP2": "0"}
+DEVAPPLY_JOBS = {
+    ("rdoq0", "cuda"): ("cuda", ("--RDOQ=0", "--device-apply"),
+                        {**_TOP2_OFF, "THEVC_THREADS": "0"}),
+    ("rdoq0", "cpu"): ("cpu", ("--RDOQ=0", "--device-apply"), _TOP2_OFF),
+    ("rdoq0", "host"): ("cuda", ("--RDOQ=0",), _TOP2_OFF),
+    **{(f"q{qp}", dev): (dev, ("--device-apply",), None)
+       for qp in SMALL_QPS for dev in ("cuda", "cpu")}}
+
+
+def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
+    """The slice's main path: the 1080p all-intra fast-RD encode with the
+    device apply on ``cuda``, its decodes on ``cuda`` and on the CPU, and
+    its bytes and luma PSNR against the host-apply stream of the fast-RD
+    phase (same clip, cfg and QP); then one frame's apply in this process
+    and the small clip's identity encodes."""
+    clip = Path(dec["clip"])
+    stream = work / "devapply.bin"
+    enc_rec = work / "devapply_enc_rec.yuv"
+    dec_rec = work / "devapply_dec_rec.yuv"
+    rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
+                      "cuda", extra=("--device-apply",))
+    check(rep["residual_launches"] > 0 and rep["satd_launches"] > 0,
+          f"the device-apply encode skipped a kernel: {rep}")
+    check(not rep["jax_imported"], "the port's encoder imported jax")
+    check(rep["decision_frames"] == FRAMES
+          and rep["device_apply_frames"] == FRAMES
+          and rep["device_apply_fallback_frames"] == 0,
+          f"device apply ran on {rep['device_apply_frames']} of {FRAMES} "
+          f"frames ({rep['device_apply_fallback_frames']} host fallbacks)")
+    rc, log = decode_cuda(torch, stream, dec_rec)
+    check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the device-apply stream")
+    t = time.perf_counter()
+    rc, log = decode_cuda(torch, stream, dec_rec, "cpu")
+    cpu_decode_s = time.perf_counter() - t
+    check_decode(rc, log, FRAMES, dec_rec, enc_rec,
+                 "the device-apply stream (CPU decode)")
+    dev_bytes, host_bytes = stream.stat().st_size, fast["fast_bytes"]
+    psnr_dev = luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES)
+    out = dict(
+        frames=FRAMES, qp=QP, encode_wall_s=rep["wall_s"],
+        host_apply_encode_wall_s=fast["encode_wall_s"],
+        decision_wall_s=rep["decision_wall_s"],
+        apply_wall_s=rep["device_apply_wall_s"],
+        apply_ms_per_frame=1000 * rep["device_apply_wall_s"] / FRAMES,
+        waves_per_frame=rep["device_apply_waves"] / FRAMES,
+        class_steps_per_frame=rep["device_apply_class_steps"] / FRAMES,
+        residual_launches=rep["residual_launches"],
+        satd_launches=rep["satd_launches"], devapply_bytes=dev_bytes,
+        host_apply_bytes=host_bytes,
+        fastrd_devapply_bits_overhead_pct=100 * (dev_bytes / host_bytes - 1),
+        psnr_y_devapply=psnr_dev, psnr_y_host_apply=fast["psnr_y_fast"],
+        psnr_y_diff_db=psnr_dev - fast["psnr_y_fast"],
+        cpu_decode_wall_s=cpu_decode_s)
+    print("fastrd_devapply " + json.dumps(out))
+    out["frame"] = devapply_frame_phase(torch, clip, work)
+    out["identity"] = devapply_identity_phase(work)
+    return out
+
+
+def recorded_apply_call(clip: Path, work: Path) -> tuple:
+    """The arguments of the device apply of the clip's first frame,
+    recorded from an in-process encode of that frame on ``cuda`` (the
+    all-intra cfg at QP 32 with SAO, as the CLI encode), copied so that
+    they outlive the encode; prints that encode's device-apply stage
+    walls (ms: schedule, launch, fetch, fill, counter pass, CABAC)."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.encoder.top import DecisionStats, Encoder
+    from thevc_tpu_torch.utils.cfg import parse_args
+
+    def copy(v):
+        return v.copy() if isinstance(v, np.ndarray) else v
+    calls = []
+    real = fast_apply.run_device_apply
+
+    def spy(*args, **kwargs):
+        calls.append(([copy(a) for a in args],
+                      {k: copy(v) for k, v in kwargs.items()}))
+        return real(*args, **kwargs)
+    cfg = parse_args(["-c", str(CFG / "encoder_intra_main.cfg"), "-i",
+                      str(clip), "-b", str(work / "apply_frame.bin"),
+                      "-wdt", str(WIDTH), "-hgt", str(HEIGHT), "-f", "1",
+                      "-fr", "30", f"--QP={QP}", "--SAO=1", "--FastRD=1",
+                      "--SEIpictureDigest=1"])
+    fast_apply.run_device_apply = spy
+    fast_apply.stats_reset()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Encoder(cfg, device="cuda", stats=DecisionStats(),
+                    device_apply=True).encode(cfg.bitstream_file)
+    finally:
+        fast_apply.run_device_apply = real
+    stages = fast_apply.stats_reset()
+    check(len(calls) == 1 and stages["frames"] == 1,
+          f"{len(calls)} device applies for one frame")
+    print("fastrd_devapply_stages " + json.dumps(
+        {k: v if k == "frames" else 1000 * v for k, v in stages.items()}))
+    return calls[0]
+
+
+def profiled_device(prof) -> tuple:
+    """(device microseconds, kernel count, the six longest kernels by name
+    in ms) of a ``torch.profiler`` run: the device activities' own time
+    (the op rows' self device time would count each kernel twice), read
+    from the profiler's raw records (building its Python events for a
+    million kernels takes minutes)."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    n = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            n += 1
+            us = e.duration_ns() / 1000 if hasattr(e, "duration_ns") \
+                else e.duration_us()
+            by_name[e.name()] = by_name.get(e.name(), 0.0) + us
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return sum(by_name.values()), n, {k[:60]: v / 1000 for k, v in top}
+
+
+def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
+    """One 1080p frame's apply in this process, from the encoder's own
+    call: graph-replayed walls (synchronised), the host's setup and issue
+    time, the device time under ``torch.profiler``; the replayed apply
+    against the eager one (recon and every level stack, tolerance 0) and
+    every K1 call of the eager apply against its plain version (tolerance
+    0; the eager wall includes those checks); the bytes each class step
+    must move and the HBM bound of the frame's steps."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.ops import residual_kernel, tq
+    args, kwargs = recorded_apply_call(clip, work)
+    sched = args[3]
+    steps = {ci: int((np.diff(o) > 0).sum()) for ci, o in enumerate(
+        sched.offs)}
+    # K1 launches of a class step: one per plane; a replayed apply also
+    # launches each captured step once eagerly (its warm-up)
+    per_step = {ci: 1 if fast_apply.CLS[ci][1] else 2 for ci in steps}
+    k1_per_frame = sum(n * per_step[ci] for ci, n in steps.items())
+    k1_warm_up = sum(per_step[ci] for ci, n in steps.items() if n)
+
+    def run(replay):
+        r = fast_apply.run_device_apply(*args, **dict(kwargs, replay=replay))
+        return r, fast_apply.collect_device_apply(r)
+    run(True)                               # warm-up
+    walls, setup, issue, loop = [], [], [], []
+    for _ in range(3):
+        residual_kernel.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r, graph_out = run(True)
+        walls.append(time.perf_counter() - t)
+        setup.append(r.setup_s)
+        issue.append(r.issue_s)
+        loop.append(r.loop_events[0].elapsed_time(r.loop_events[1]))
+        check(residual_kernel.launches == k1_per_frame + k1_warm_up,
+              f"{residual_kernel.launches} K1 launches counted for the "
+              f"replayed apply, {k1_per_frame} replayed and {k1_warm_up} "
+              "warm-ups")
+    # the device's own time, device activities only
+    from torch.profiler import ProfilerActivity, profile
+    t_read = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run(True)
+        prof_wall = time.perf_counter() - t
+    device_us, n_kernels, top = profiled_device(prof)
+    del prof
+    profile_s = time.perf_counter() - t_read
+
+    # the eager apply, every K1 call held against its plain version
+    calls = []
+    max_err = torch.zeros((), dtype=torch.int32, device="cuda")
+    real = tq.residual_pipeline
+
+    def record(q, qp, use_dst=False, bit_inc=0):
+        nonlocal max_err
+        got = real(q, qp, use_dst, bit_inc)
+        plain = tq.residual_pipeline_plain(q, qp, use_dst, bit_inc)
+        max_err = torch.maximum(max_err, (got.to(torch.int32)
+                                          - plain.to(torch.int32))
+                                .abs().max())
+        calls.append(tuple(q.shape))
+        return got
+    tq.residual_pipeline = record
+    residual_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    try:
+        _r, eager_out = run(False)
+    finally:
+        tq.residual_pipeline = real
+    eager_wall = time.perf_counter() - t
+    k1_err = int(max_err)
+    check(len(calls) == residual_kernel.launches == k1_per_frame,
+          f"{len(calls)} K1 calls recorded, {residual_kernel.launches} "
+          f"launches, {k1_per_frame} expected")
+    check(k1_err == 0, f"K1 != plain inside the apply (max abs err "
+          f"{k1_err})")
+    graph_err = 0
+    for g, e in zip(graph_out[:3] + graph_out[3] + graph_out[4],
+                    eager_out[:3] + eager_out[3] + eager_out[4]):
+        if g is not None:
+            graph_err = max(graph_err, int(np.abs(
+                g.astype(np.int32) - e.astype(np.int32)).max()))
+    check(graph_err == 0, f"graph-replayed apply != eager apply (max abs "
+          f"err {graph_err})")
+
+    # the bytes a class step must move: its window's records (6 int64
+    # fields), and per record and plane the reference line read (4s+1
+    # int16), the source window read, the recon and the levels written
+    # (s*s int16 each)
+    def step_bytes(ci):
+        size, luma, _ = fast_apply.CLS[ci]
+        per_plane = 2 * (4 * size + 1) + 3 * 2 * size * size
+        return sched.caps[ci] * (6 * 8 + (1 if luma else 2) * per_plane)
+    total = sum(n * step_bytes(ci) for ci, n in steps.items())
+    n_steps = sum(steps.values())
+    wall = sorted(walls)[1]
+    out = dict(
+        waves=sched.n_waves, class_steps=n_steps,
+        class_steps_by_class={str(fast_apply.CLS[ci][:2]): n
+                              for ci, n in steps.items()},
+        caps=list(sched.caps), records=list(sched.counts),
+        wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
+        setup_ms=[1000 * v for v in setup],
+        issue_ms=[1000 * v for v in issue],
+        issue_us_per_wave=1e6 * sorted(issue)[1] / sched.n_waves,
+        loop_span_ms=loop, profile_read_s=profile_s,
+        profiled_wall_ms=1000 * prof_wall,
+        device_ms=device_us / 1000, device_kernels=n_kernels,
+        kernels_per_class_step=n_kernels / n_steps,
+        top_kernels_ms=top, device_busy_share=device_us / 1e6 / prof_wall,
+        eager_checked_wall_ms=1000 * eager_wall, k1_launches=k1_per_frame,
+        k1_warm_up_launches=k1_warm_up,
+        k1_max_abs_err=k1_err, graph_vs_eager_max_abs_err=graph_err,
+        bytes_per_frame=total, bytes_per_class_step=total / n_steps,
+        hbm_bound_ms=1000 * total / HBM_BYTES_S,
+        device_share_of_bound=1000 * total / HBM_BYTES_S
+        / max(device_us / 1000, 1e-9))
+    print("fastrd_devapply_frame " + json.dumps(out))
+    return out
+
+
+def devapply_identity_phase(work: Path) -> dict:
+    """The small clip's device-apply encodes (``DEVAPPLY_JOBS``), all at
+    once: with RDOQ and the top-2 re-rank off, ``cuda`` (frames in
+    threads), ``cpu`` and the host apply byte-identical; with RDOQ on,
+    ``cuda`` == ``cpu`` at QP 27 and 37."""
+    clip = work / f"clip_{SMALL_W}x{SMALL_H}_{SMALL_FRAMES}f.yuv"
+
+    def encode(item):
+        (case, how), (device, extra, env) = item
+        qp = int(case[1:]) if case.startswith("q") else QP
+        stream = work / f"devapply_{case}_{how}.bin"
+        rep = port_encode(clip, stream, stream.with_suffix(".yuv"), SMALL_W,
+                          SMALL_H, SMALL_FRAMES, qp, device, extra=extra,
+                          env=env)
+        return (case, how), (stream.read_bytes(), rep)
+    with ThreadPoolExecutor(len(DEVAPPLY_JOBS)) as ex:
+        got = dict(ex.map(encode, DEVAPPLY_JOBS.items()))
+    for (case, how), (_data, rep) in got.items():
+        want = 0 if how == "host" else SMALL_FRAMES
+        check(rep["device_apply_frames"] == want,
+              f"{case}/{how}: {rep['device_apply_frames']} device-apply "
+              f"frames, expected {want}")
+    out = {}
+    for case in sorted({c for c, _ in DEVAPPLY_JOBS}):
+        hows = [h for c, h in DEVAPPLY_JOBS if c == case]
+        data = {h: got[case, h][0] for h in hows}
+        check(len(set(data.values())) == 1,
+              f"device-apply streams {case}: {hows} differ "
+              f"({ {h: len(d) for h, d in data.items()} } bytes)")
+        out[case] = {"identical": hows, "bytes": len(data[hows[0]])}
+    print("devapply_identity " + json.dumps(out))
+    return out
+
+
+def partitioned_phase(torch, work: Path, made: dict) -> dict:
+    """The tiles and the WPP stream on ``cuda``."""
+    from thevc_tpu_torch.ops import residual_kernel
+    out = {}
+    for name in PARTITIONED:
+        _clip, stream, enc_rec, _w, _h, frames = made[name]
+        dec_rec = work / f"{name}_dec_rec.yuv"
+        residual_kernel.launches = 0
+        rc, log = decode_cuda(torch, stream, dec_rec)
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        out[name] = {"frames": frames, "residual": residual_kernel.launches,
+                     "bytes": stream.stat().st_size}
+        check(out[name]["residual"] > 0, f"the {name} decode skipped K1")
+    print("partitioned " + json.dumps(out))
+    return out
+
 
 def make_clip(path: Path, width: int, height: int, frames: int,
               style: str = "default") -> None:
@@ -1059,11 +1383,13 @@ def main() -> int:
     dec = decode_phase(torch, work, made)
     fast = fastrd_phase(torch, work, dec)
     identity_phase(work)
+    devapply = fastrd_devapply_phase(torch, work, dec, fast)
     inter = inter_decode_phase(torch, work, made)
     small = small_inter_phase(torch, work, made)
     fast_inter = fastrd_inter_phase(torch, work, made)
     inter_identity_phase(work, made)
     wp_scaling_phase(torch, work, made)
+    parts = partitioned_phase(torch, work, made)
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -1085,6 +1411,10 @@ def main() -> int:
                           "satd": fast["satd_launches"]},
         "fastrd_inter_encode": {"residual": fast_inter["residual_launches"],
                                 "satd": fast_inter["satd_launches"]},
+        "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
+                                   "satd": devapply["satd_launches"]},
+        **{f"{k}_decode": {"residual": v["residual"]}
+           for k, v in parts.items()},
         "inter_decode": inter["launches"],
         **{f"inter_decode_{k}": v for k, v in small.items()}}
     print("launches by path " + json.dumps(by_path))
@@ -1094,7 +1424,8 @@ def main() -> int:
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
         "launches": sum(p.get("residual", 0) for p in by_path.values()),
         "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"],
-                           fast_inter["pass"]["max_abs_err"]["residual"]),
+                           fast_inter["pass"]["max_abs_err"]["residual"],
+                           devapply["frame"]["k1_max_abs_err"]),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None}, {

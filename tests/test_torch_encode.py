@@ -304,25 +304,37 @@ def test_random_access_reference_uploaded_once_while_held(
         <= held
 
 
+@pytest.fixture(scope="module")
+def plain_stream(clip, tmp_path_factory):
+    """The CLI's ``--device cpu`` fast-RD stream of the clip, with no
+    JAX package switch set."""
+    from thevc_tpu_torch.apps.encoder import main
+    out = tmp_path_factory.mktemp("plain") / "plain.bin"
+    rc, _ = _run(main, _args(clip, out) + ["--device", "cpu"])
+    assert rc == 0
+    return out.read_bytes()
+
+
 @pytest.mark.parametrize("name,value", [("THEVC_DEVICE", "1"),
                                         ("THEVC_FASTRD_DEVAPPLY", "1"),
                                         ("THEVC_FASTRD_DEVAPPLY", "force")])
-def test_device_decisions_refuses_jax_paths(name, value, clip, tmp_path):
-    """The JAX package's device switch is not read by the port (its encode
-    runs and imports no ``jax``); its device apply is not ported and
-    raises."""
+def test_device_decisions_refuses_jax_paths(name, value, clip, tmp_path,
+                                            plain_stream):
+    """The JAX package's switches are not read by the port: with the
+    device switch or the device-apply switch set, its encode runs, imports
+    no ``jax`` and writes the same stream as without them (the device
+    apply is ``--device-apply``)."""
+    out = tmp_path / "sub.bin"
     r = subprocess.run(
         [sys.executable, "-m", "thevc_tpu_torch.apps.encoder",
-         *_args(clip, tmp_path / "sub.bin"), "--device", "cpu"],
+         *_args(clip, out), "--device", "cpu"],
         cwd=REPO, capture_output=True, text=True, timeout=600,
         env={**os.environ, name: value})
-    if name == "THEVC_DEVICE":
-        assert r.returncode == 0, r.stderr[-4000:]
-        assert _report(r.stdout)["jax_imported"] is False
-    else:
-        assert r.returncode != 0
-        assert "NotImplementedError" in r.stderr and name in r.stderr, \
-            r.stderr[-4000:]
+    assert r.returncode == 0, r.stderr[-4000:]
+    rep = _report(r.stdout)
+    assert rep["jax_imported"] is False
+    assert rep["device_apply_frames"] == 0
+    assert out.read_bytes() == plain_stream
 
 
 def test_cuda_device_without_cuda_raises(clip, tmp_path, monkeypatch):
@@ -330,6 +342,9 @@ def test_cuda_device_without_cuda_raises(clip, tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         main(_args(clip, tmp_path / "cuda.bin") + ["--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        main(_args(clip, tmp_path / "cuda.bin") + ["--device", "cuda",
+                                                   "--device-apply"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         port_top.Encoder(parse_args(_args(clip, tmp_path / "cuda.bin")),
                          device="cuda")

@@ -412,3 +412,49 @@ def test_wp_and_scaling_decode_cuda_equals_cpu(cuda, tmp_path, cfg, extra):
         assert a.digest_ok and b.digest_ok
         for pa, pb in zip(a.frame.planes(), b.frame.planes()):
             assert np.array_equal(pa, pb)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdoq", [False, True], ids=["rdoq0", "rdoq"])
+def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
+    """The fast-RD device apply of a 128x64 frame: replayed as CUDA
+    graphs, eager on ``cuda`` and on the CPU, the same recon and level
+    stacks (tolerance 0), and the residual kernel counted once per
+    launch: eager, in each replay, and in the warm-up step before each
+    capture (the capture itself launches nothing)."""
+    from thevc_tpu_torch.cabac import contexts as cc
+    from thevc_tpu_torch.encoder import fast_apply
+    rng = np.random.RandomState(29)
+    w, h, qp = 128, 64, 27
+    planes = [np.clip(np.add.outer(np.arange(hh) * 3, np.arange(ww) * 2)
+                      % 256 + rng.randint(-40, 41, (hh, ww)), 0,
+                      255).astype(np.int16)
+              for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2))]
+    lam = 0.57 * 2 ** ((qp - 12) / 3)
+    maps = fast_intra.decide_frame(*planes, w, h, qp, qp, qp, lam,
+                                   lam ** 0.5, (2.0, 3.0, 6.0),
+                                   (1.0, 3.0, 1.0), 3, 2, 64, 0, 255,
+                                   device="cpu")
+    sched = fast_apply.build_schedule(*maps[:4], w, h, 64, 3, 2)
+    args = (*planes, sched, w, h, qp, qp, qp, 64, 0, 255, True, use_rdoq,
+            lam, lam, cc.make_context_states_idx(0, qp))
+    outs = {}
+    for name, device, replay in (("cpu", "cpu", False),
+                                 ("eager", cuda, False),
+                                 ("graph", cuda, True)):
+        before = residual_kernel.launches
+        run = fast_apply.run_device_apply(*args, device=device,
+                                          replay=replay)
+        outs[name] = fast_apply.collect_device_apply(run)
+        if name != "cpu":
+            per_step = [1 if luma else 2 for _, luma, _ in fast_apply.CLS]
+            steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
+            warm_up = sum(k for k, n in zip(per_step, steps) if n)
+            assert residual_kernel.launches - before == sum(
+                k * n for k, n in zip(per_step, steps)) \
+                + (warm_up if replay else 0)
+    for name in ("eager", "graph"):
+        got, want = outs[name], outs["cpu"]
+        for g, e in zip(got[:3] + got[3] + got[4],
+                        want[:3] + want[3] + want[4]):
+            assert (g is None and e is None) or np.array_equal(g, e), name

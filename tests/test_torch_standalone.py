@@ -4,9 +4,9 @@
   ``thevc_tpu`` or a ``thevc_tpu.*`` module, or names one of its apps as a
   module to run (an AST scan).
 - The port's decode of an all-intra and a low-delay B stream and its
-  exact-path and ``--FastRD=1`` encodes run in a child process that ends
-  with neither ``jax`` nor any ``thevc_tpu``/``thevc_tpu.*`` module loaded
-  (64x64, CPU).
+  exact-path, ``--FastRD=1`` and ``--FastRD=1 --device-apply`` encodes run
+  in a child process that ends with neither ``jax`` nor any
+  ``thevc_tpu``/``thevc_tpu.*`` module loaded (64x64, CPU).
 - The port's exact-path encoder (its copy of the host codec) writes the
   same bytes as ``python -m thevc_tpu.apps.encoder`` for the intra,
   low-delay B, low-delay P and random-access cfgs of ``tests/cfg`` at
@@ -127,6 +127,8 @@ _CHILD = textwrap.dedent("""
     enc("ldb", "encoder_lowdelay_tlayers.cfg", 3)
     enc("fastrd", "encoder_intra_main.cfg", 2, "--FastRD=1",
         "--device", "cpu")
+    enc("devapply", "encoder_intra_main.cfg", 2, "--FastRD=1",
+        "--device", "cpu", "--device-apply")
     print("LOADED", sorted(m for m in sys.modules if m == "jax"
                            or m.startswith("jax.") or m == "thevc_tpu"
                            or m.startswith("thevc_tpu.")))

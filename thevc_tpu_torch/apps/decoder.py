@@ -5,10 +5,10 @@ Usage: python -m thevc_tpu_torch.apps.decoder -b str.bin -o rec.yuv
        [--device cuda]
 
 It decodes Main streams with I, P and B pictures (all-intra, low-delay,
-random access; 8- and 10-bit): stage-1 residuals, motion compensation
-and the in-loop filters run on the device, the CABAC parse and the
-intra walk on the host.  A weighted-prediction slice or a scaling-list
-stream raises ``NotImplementedError``.
+random access; 8- and 10-bit; weighted prediction and scaling lists;
+slices, dependent slices, tiles and WPP): stage-1 residuals, motion
+compensation and the in-loop filters run on the device, the CABAC parse
+and the intra walk on the host.
 
 ``--device`` defaults to ``cuda`` and fails when CUDA is absent; the CPU
 is used only when ``--device cpu`` asks for it.

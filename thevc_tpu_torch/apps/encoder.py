@@ -10,11 +10,15 @@ HM runs, and the device is not used.  With ``--FastRD=1`` the fast-RD
 decision passes (``encoder.fast_intra`` for I slices,
 ``encoder.fast_inter`` for P and B slices) run on the torch device
 ``--device`` (default ``cuda``, which fails when CUDA is absent; the CPU
-is used only when ``--device cpu`` asks for it).  The last line of the
-output is ``thevc_tpu_torch.encoder {...}``: the launches of the
+is used only when ``--device cpu`` asks for it).  ``--device-apply``
+runs the apply of the intra slices on that device as well
+(``encoder.fast_apply``; the host apply otherwise).  The last line of
+the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
 residual and SATD kernels, the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
-device) and whether ``jax`` was imported.
+device), the device apply's frames, waves, class steps and summed wall,
+and the frames it left to the host apply (a schedule it rejected), and
+whether ``jax`` was imported.
 """
 
 from __future__ import annotations
@@ -37,6 +41,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default="cuda",
                     help="torch device of the fast-RD decision pass (cuda "
                          "or cpu; default cuda)")
+    ap.add_argument("--device-apply", action="store_true",
+                    help="with --FastRD=1, run the intra apply on --device "
+                         "as well")
     args, argv = ap.parse_known_args(argv)
     cfg = parse_args(argv)
     if not cfg.input_file or not cfg.bitstream_file:
@@ -47,7 +54,8 @@ def main(argv=None) -> int:
         satd_kernel.launches
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
-    enc = Encoder(cfg, device=device, stats=stats)
+    enc = Encoder(cfg, device=device, stats=stats,
+                  device_apply=args.device_apply)
     enc.encode(cfg.bitstream_file)
     enc.print_summary()
     # TAppEncTop::printRateSummary (TAppEncTop.cpp:486-493)
@@ -63,6 +71,11 @@ def main(argv=None) -> int:
         "decision_frames": stats.frames,
         "decision_frames_inter": stats.inter_frames,
         "decision_wall_s": stats.wall_s,
+        "device_apply_frames": stats.device_apply_frames,
+        "device_apply_waves": stats.device_apply_waves,
+        "device_apply_class_steps": stats.device_apply_class_steps,
+        "device_apply_wall_s": stats.device_apply_wall_s,
+        "device_apply_fallback_frames": stats.device_apply_fallback_frames,
         "jax_imported": "jax" in sys.modules}))
     return 0
 

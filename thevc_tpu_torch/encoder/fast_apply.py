@@ -1,0 +1,1099 @@
+"""The fast-RD device apply in PyTorch: the closed-loop intra wavefront.
+
+A port of ``thevc_tpu/encoder/fast_apply.py``.  The decision pass
+(``encoder.fast_intra``) fixes the quadtree, the luma modes and the
+chroma modes open-loop; this module runs the whole apply of an intra
+frame on a torch device: prediction from the real reconstructed
+neighbours, forward transform, quantisation (RDOQ or plain) with
+sign-bit hiding, dequant, inverse transform and reconstruction.  The
+host keeps the entropy coding.
+
+1. The native schedule builder (``enc_fd_schedule`` in the port's
+   ``native/codec_core.cpp``) walks the fixed tree in decode order and
+   gives every TU its reference-line clamp ``[lo, hi]`` (HM's
+   unavailable-sample substitution over a contiguous available range)
+   and its wave: one more than the latest wave among the units its
+   reference line reads.  TUs of one wave are independent.
+   ``build_schedule`` buckets the records per size class (luma 4/8/16/32,
+   DST at 4; chroma 4/8/16), sorted by wave.
+2. The wave loop runs on the host over ``n_waves``; the schedule's
+   offsets live there, so a class with no record in a wave is skipped
+   without asking the device.  Each class step (``_class_step``) takes a
+   fixed-size window of its class's records from a start offset that it
+   reads from a device tensor, gathers the reference lines out of the
+   evolving recon plane, predicts (``_predict_batch``), transforms
+   (``ops.tq.forward_transform``, float64 and exact), quantises
+   (``_rdoq_batch`` or ``ops.tq.quant``), hides sign bits
+   (``_sbh_batch``), dequantises and inverse-transforms through
+   ``ops.tq.residual_pipeline`` (on a CUDA tensor the residual kernel,
+   K1, whose dense entry launches on the current stream), adds and clips,
+   and scatters recon into the plane and levels into flat per-record
+   stacks.  Window entries past the wave recompute harmlessly later: a
+   region is never read before its own wave has run.
+3. On ``cuda`` each class step is captured once per frame as a CUDA
+   graph and replayed per wave; the graph reads its window's start
+   through a per-class device counter that it advances itself, so the
+   loop issues one graph launch a class and wave and never waits for the
+   device.  On ``cpu`` the same step runs eagerly; on ``cuda`` the eager
+   step is the plain version the graphs are held against.
+4. One device-to-host copy brings the recon planes (int16, the planes'
+   own type) and the level stacks back; ``assemble_coeff_planes``
+   scatters the levels into the frame's coefficient planes, and the
+   encoder fills the syntax arrays (``fill_from_fd``) and runs the
+   counter pass, SAO and CABAC.
+
+What differs from the reference, on purpose:
+
+- ``device`` is an argument; nothing picks one behind the caller's back.
+- The TPU workarounds are gone: the static-scan shuffles and masked
+  selects are plain gathers, the windowed ``dynamic_slice`` gathers are
+  one index tensor each, ``_bitlen`` is an exact ``frexp``, and recon
+  comes back as int16 (the reference's uint8 fetch saved link bytes).
+- Float order.  ``_rdoq_batch`` ranks float32 costs, so every float32
+  reduction is an explicit elementwise add tree (sums) or Hillis-Steele
+  scan (suffix sums), and every ``a + b * c`` is two eager ops: the CPU
+  and the card give the same bits, hence the same levels.  Against the
+  JAX package (XLA picks its own reduction order) a level can differ in a
+  near tie; ``tests/test_torch_fast_apply_jax.py`` counts those.
+- The reference's device apply drops the closed-loop top-2 re-rank of
+  the host apply (its mode2/mode3 maps are not read here); the port keeps
+  the reference's decisions, so byte identity with the host apply holds
+  only with ``THEVC_FASTRD_TOP2=0`` and RDOQ off.
+- ``THEVC_FASTRD_DEVCHROMA=0`` with the device apply wrote a
+  nonconformant stream in the reference (recon used the decided chroma
+  modes while the syntax signalled DM); ``encoder.top.Encoder`` refuses
+  that combination.
+- Any out-of-plane read of a padding record is clamped into the plane
+  (XLA clamps ``dynamic_slice`` starts; a torch gather would fault).
+  Those records take the DC fill, so the values read do not matter.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+import time
+
+import numpy as np
+import torch
+
+from ..common import rom
+from ..ops import residual_kernel, tq
+from ..ops.intra import (DC_IDX, HOR_IDX, INTRA_FILTER_THRESH, PLANAR_IDX,
+                         VER_IDX)
+from .fast_intra import _plan_tensors, _predict_mode, _smooth
+
+# class table: (size, is_luma, use_dst)
+CLS = ((4, True, True), (8, True, False), (16, True, False),
+       (32, True, False), (4, False, False), (8, False, False),
+       (16, False, False))
+GUARD = 48          # bottom/right guard so edge gathers stay in-bounds
+
+
+# ---------------------------------------------------------------------------
+# schedule build (host, native) -- thevc_tpu/encoder/fast_apply.py:72-149
+# ---------------------------------------------------------------------------
+
+class Schedule:
+    __slots__ = ("n_waves", "flat", "offs", "caps", "counts")
+
+
+def build_schedule(fd_depth, fd_mode, fd_nxn, fd_chroma, width, height,
+                   ctu_size, max_sig, min_tr_log2):
+    """Run the native wavefront schedule builder and bucket the TU records
+    per size class sorted by wave.  Returns a Schedule or None when the
+    frame needs the host fallback (non-contiguous availability)."""
+    from .. import native
+    lib = native.get_lib()
+    if lib is None or not hasattr(lib, "enc_fd_schedule"):
+        return None
+    uh, uw = fd_depth.shape
+    ctus_w = (uw * 4) // ctu_size
+    ctus_h = (uh * 4) // ctu_size
+    cap = uh * uw + (uh * uw) // 2 + 64
+    xs = np.empty(cap, np.int32)
+    ys = np.empty(cap, np.int32)
+    lo = np.empty(cap, np.int32)
+    hi = np.empty(cap, np.int32)
+    wave = np.empty(cap, np.int32)
+    cls = np.empty(cap, np.int8)
+    mode = np.empty(cap, np.int8)
+    scan = np.empty(cap, np.int8)
+    nw = ctypes.c_int32(0)
+    fd_depth = np.ascontiguousarray(fd_depth, np.int8)
+    fd_mode = np.ascontiguousarray(fd_mode, np.int8)
+    fd_nxn = np.ascontiguousarray(fd_nxn, np.uint8)
+    fd_chroma = np.ascontiguousarray(fd_chroma, np.int8)
+    n = lib.enc_fd_schedule(
+        uw, uh, width, height, ctu_size, ctus_w, ctus_h, max_sig,
+        min_tr_log2, fd_depth.ctypes.data, fd_nxn.ctypes.data,
+        fd_mode.ctypes.data, fd_chroma.ctypes.data, xs.ctypes.data,
+        ys.ctypes.data, lo.ctypes.data, hi.ctypes.data, wave.ctypes.data,
+        cls.ctypes.data, mode.ctypes.data, scan.ctypes.data, cap,
+        ctypes.byref(nw))
+    if n < 0:
+        return None
+    s = Schedule()
+    s.n_waves = int(nw.value)
+    s.flat, s.offs, s.caps, s.counts = [], [], [], []
+    wp = -(-width // ctu_size) * ctu_size
+    hp = -(-height // ctu_size) * ctu_size
+    for ci in range(len(CLS)):
+        luma = CLS[ci][1]
+        sel = np.nonzero(cls[:n] == ci)[0]
+        order = sel[np.argsort(wave[sel], kind="stable")]
+        w_sorted = wave[order]
+        offs = np.searchsorted(w_sorted, np.arange(s.n_waves + 1)
+                               ).astype(np.int32)
+        occ = np.diff(offs)
+        cap_c = int(occ.max()) if occ.size and occ.max() > 0 else 1
+        cap_c = max(8, 1 << int(np.ceil(np.log2(cap_c))))
+        # pad the flat arrays by the window size so a window at the last
+        # offset stays in-bounds; padding records point into the guard
+        # region (scatters land there and are cropped away -- a padding
+        # record must NEVER alias a real position: an empty class's
+        # all-zero record at (0,0) would otherwise overwrite the real
+        # top-left TU on every wave)
+        dummy_x = (wp if luma else wp // 2) + 2
+        dummy_y = (hp if luma else hp // 2) + 2
+        pads = {id(xs): dummy_x, id(ys): dummy_y, id(lo): 1, id(hi): 0,
+                id(mode): DC_IDX, id(scan): 3}
+
+        def padded(a):
+            fill = pads[id(a)]
+            v = a[order].astype(np.int32) if order.size else \
+                np.zeros((0,), np.int32)
+            return np.concatenate(
+                [v, np.full(cap_c, fill, np.int32)])
+        s.flat.append((padded(xs), padded(ys), padded(lo),
+                       padded(hi), padded(mode), padded(scan)))
+        s.offs.append(offs)
+        s.caps.append(cap_c)
+        s.counts.append(int(order.size))
+    return s
+
+
+# ---------------------------------------------------------------------------
+# static tables (host) -- thevc_tpu/encoder/fast_apply.py:156-341
+# ---------------------------------------------------------------------------
+
+def _scan_tables(size: int) -> np.ndarray:
+    """[3, size*size] raster positions for scan_idx 1 (hor-ish), 2
+    (ver-ish), 3 (diag) in CG-major coefficient order."""
+    return np.stack([np.asarray(rom.sig_last_scan(i, size), np.int32)
+                     .reshape(-1) for i in (1, 2, 3)])
+
+
+_rdoq_tab_cache = {}
+
+
+def _rdoq_tables(size: int, luma: bool):
+    """Static RDOQ constants for one class: per-scan significance-context
+    maps (TComTrQuant getSigCtxInc via encoder.rdoq._sig_ctx), CG
+    neighbor indices for the pattern/context proxies, and last-position
+    group tables."""
+    key = (size, luma)
+    t = _rdoq_tab_cache.get(key)
+    if t is not None:
+        return t
+    from .rdoq import _sig_ctx
+    p = size * size
+    ncg = max(1, p // 16)
+    log2 = size.bit_length() - 1
+    comp = 0 if luma else 1
+    sig = np.zeros((3, 4, p), np.int32)
+    for si, scan_idx in enumerate((1, 2, 3)):
+        scan = np.asarray(rom.sig_last_scan(scan_idx, size)).reshape(-1)
+        for pat in range(4):
+            pt = -1 if size == 4 else pat
+            for sp in range(p):
+                blk = int(scan[sp])
+                py, px = blk >> log2, blk & (size - 1)
+                sig[si, pat, sp] = _sig_ctx(pt, scan_idx, px, py, log2,
+                                            comp)
+    # CG neighbors in CG-scan-index space (right / lower in raster)
+    rgt = np.full((3, ncg), ncg, np.int32)      # ncg = "none" slot
+    low = np.full((3, ncg), ncg, np.int32)
+    n = size >> 2
+    glx = np.zeros((3, p), np.int32)            # GROUP_IDX of last-x
+    gly = np.zeros((3, p), np.int32)
+    gep = np.zeros((3, p), np.int32)            # EP suffix bits
+    for si, scan_idx in enumerate((1, 2, 3)):
+        if n:
+            cg = np.asarray(rom.cg_scan(scan_idx, size)).reshape(-1)
+            inv = np.empty(n * n, np.int32)
+            inv[cg] = np.arange(n * n)
+            for g in range(n * n):
+                blk = int(cg[g])
+                cy, cx = blk // n, blk % n
+                if cx < n - 1:
+                    rgt[si, g] = inv[cy * n + cx + 1]
+                if cy < n - 1:
+                    low[si, g] = inv[(cy + 1) * n + cx]
+        scan = np.asarray(rom.sig_last_scan(scan_idx, size)).reshape(-1)
+        for sp in range(p):
+            blk = int(scan[sp])
+            py, px = blk >> log2, blk & (size - 1)
+            if scan_idx == rom.SCAN_VER:
+                px, py = py, px
+            cx = int(rom.GROUP_IDX[px])
+            cy = int(rom.GROUP_IDX[py])
+            glx[si, sp] = cx
+            gly[si, sp] = cy
+            ep = 0
+            if cx > 3:
+                ep += (cx - 2) >> 1
+            if cy > 3:
+                ep += (cy - 2) >> 1
+            gep[si, sp] = ep << 15
+    t = (sig, rgt, low, glx, gly, gep)
+    _rdoq_tab_cache[key] = t
+    return t
+
+
+_est_bits_cache = {}
+
+
+def est_bits_pack(init_ctx: np.ndarray, size: int, luma: bool):
+    """EstBits tables for one class at the slice-init context states,
+    packed as int32 arrays for the device (frozen-context approximation
+    of HM's per-CU estBit snapshots)."""
+    key = (init_ctx.tobytes(), size, luma)
+    t = _est_bits_cache.get(key)
+    if t is not None:
+        return t
+    from .sbac_writer import build_est_bits
+    eb = build_est_bits(init_ctx, size, luma)
+    sig = np.asarray(eb.sig_bits, np.int32)
+    lastx = np.asarray(eb.last_x_bits, np.int64)
+    lasty = np.asarray(eb.last_y_bits, np.int64)
+    sigmap, _rgt, _low, glx, gly, gep = _rdoq_tables(size, luma)
+    # per-(scan, pattern, position) sig-flag bits and per-(scan,
+    # position) last-position rates, combined host-side
+    sig0p = sig[sigmap, 0].astype(np.float32)         # [3, 4, P]
+    sig1p = sig[sigmap, 1].astype(np.float32)
+    rlv = (lastx[glx] + lasty[gly] + gep).astype(np.float32)   # [3, P]
+    t = dict(
+        sig=sig,
+        one=np.asarray(eb.greater_one_bits, np.int32),
+        abs_=np.asarray(eb.level_abs_bits, np.int32),
+        cg=np.asarray(eb.sig_cg_bits, np.int32),
+        cbp=np.asarray(eb.block_cbp_bits, np.int32),
+        sig0p=sig0p, sig1p=sig1p, rlv=rlv,
+    )
+    _est_bits_cache[key] = t
+    return t
+
+
+# ---------------------------------------------------------------------------
+# device tables
+# ---------------------------------------------------------------------------
+
+# context-indexed bit tables are padded with zeros to this many entries:
+# the reference reads them with masked selects (``_take_small``) that give
+# 0 past the table's end, and its greater-2 context proxy reaches past the
+# end (luma contexts 4-5 of a 4-entry table, chroma 2-3 of 2)
+_CTX_PAD = 16
+
+
+@functools.lru_cache(maxsize=None)
+def _scan_tensors(size: int, luma: bool, device: torch.device):
+    """One class's index tables on ``device``: the scans [3, P] (coefficient
+    order -> raster), their inverses [3, P], and the right and lower CG
+    neighbours [3, ncg] (``ncg`` = none)."""
+    scan = _scan_tables(size)
+    inv = np.empty_like(scan)
+    for si in range(3):
+        inv[si, scan[si]] = np.arange(scan.shape[1])
+    _sig, rgt, low = _rdoq_tables(size, luma)[:3]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
+    return dev(scan), dev(inv), dev(rgt), dev(low)
+
+
+@functools.lru_cache(maxsize=64)
+def _est_bits_tensors(init_bytes: bytes, size: int, luma: bool,
+                      device: torch.device) -> dict:
+    """``est_bits_pack`` of one class on ``device``: the float32 tables
+    RDOQ reads, the context-indexed ones split by bin and padded to
+    ``_CTX_PAD`` entries; the sigCG bits stay host integers."""
+    eb = est_bits_pack(np.frombuffer(init_bytes, np.uint8), size, luma)
+
+    def f32(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(
+            device)
+
+    def col(tab, b):
+        out = np.zeros(_CTX_PAD, np.float32)
+        out[:len(tab)] = tab[:, b]
+        return f32(out)
+    return dict(sig0p=f32(eb["sig0p"]), sig1p=f32(eb["sig1p"]),
+                rlv=f32(eb["rlv"]), one0=col(eb["one"], 0),
+                one1=col(eb["one"], 1), abs0=col(eb["abs_"], 0),
+                abs1=col(eb["abs_"], 1), cbf0=col(eb["cbp"], 0),
+                cbf1=col(eb["cbp"], 1),
+                cg=[[int(v) for v in row] for row in eb["cg"]])
+
+
+def est_bits_tensors(init_ctx: np.ndarray, size: int, luma: bool,
+                     device) -> dict:
+    """The RDOQ bit tables of one class at the slice-init context states
+    ``init_ctx`` on ``device`` (cached)."""
+    return _est_bits_tensors(np.ascontiguousarray(init_ctx, np.uint8)
+                             .tobytes(), size, luma, torch.device(device))
+
+
+# ---------------------------------------------------------------------------
+# device math
+# ---------------------------------------------------------------------------
+
+def _tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (a power-of-two length) as a fixed tree of
+    elementwise adds, ``x[..., :h] + x[..., h:]`` until one column is
+    left: the same order, so the same float bits, on every device."""
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _suffix_sum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive suffix sums over the last axis, ``out[i] = x[i] + x[i+1]
+    + ...``, as Hillis-Steele steps (each adds the partial sum ``d``
+    places on, ``d`` doubling): a fixed order on every device."""
+    n = x.shape[-1]
+    d = 1
+    while d < n:
+        x = torch.cat([x[..., :n - d] + x[..., d:], x[..., n - d:]], dim=-1)
+        d *= 2
+    return x
+
+
+def _bitlen(x: torch.Tensor) -> torch.Tensor:
+    """floor(log2(x)) + 1 for 1 <= x < 2^24, elementwise (int32): the
+    binary exponent of x as float32, exact there."""
+    return torch.frexp(x.to(torch.float32))[1].to(torch.int32)
+
+
+def _shl(a: int, b: torch.Tensor) -> torch.Tensor:
+    """``a << b`` for an integer ``a`` and an int32 tensor of shifts."""
+    return torch.bitwise_left_shift(torch.full_like(b, a), b)
+
+
+def _predict_batch(ra, rl, size: int, luma: bool, mode, max_val: int):
+    """Single-mode intra prediction for a TU batch: ra/rl int32 [N, 2s+1],
+    mode [N] -> int32 [N, s, s].  Integer-exact mirror of ops.intra.predict
+    (planar :171 / DC + xDCPredFiltering :252 / xPredIntraAng :188 with
+    the [1 2 1] smoothing choice baked into the gather plans)."""
+    s = size
+    nb = ra.shape[0]
+    log2 = s.bit_length() - 1
+    if luma:
+        ra_f, rl_f = _smooth(ra, rl), _smooth(rl, ra)
+        c = torch.cat([rl, ra[:, 1:], rl_f, ra_f[:, 1:]], dim=1)
+    else:
+        ra_f, rl_f = ra, rl
+        c = torch.cat([rl, ra[:, 1:]], dim=1)
+
+    # angular 2..34 via the static per-mode gather plans
+    idx_a, idx_b, frac = _plan_tensors(s, luma, ra.device)
+    m = (mode - 2).clamp(0, 32).long()
+    a = c.gather(1, idx_a[m].reshape(nb, -1))
+    b = c.gather(1, idx_b[m].reshape(nb, -1))
+    fr = frac[m].reshape(nb, -1)
+    ang = (((32 - fr) * a + fr * b + 16) >> 5).reshape(nb, s, s)
+    if luma:
+        # pure-copy edge filters (xPredIntraAng)
+        d26 = (rl[:, 1:s + 1] - rl[:, 0:1]) >> 1
+        col = (ang[:, :, 0] + d26).clamp(0, max_val)
+        ang[:, :, 0] = torch.where((mode == 26)[:, None], col, ang[:, :, 0])
+        d10 = (ra[:, 1:s + 1] - ra[:, 0:1]) >> 1
+        row = (ang[:, 0, :] + d10).clamp(0, max_val)
+        ang[:, 0, :] = torch.where((mode == 10)[:, None], row, ang[:, 0, :])
+
+    # planar (filtered refs when the size filter applies, luma only)
+    filt_pl = luma and (min(abs(PLANAR_IDX - HOR_IDX),
+                            abs(PLANAR_IDX - VER_IDX))
+                        > INTRA_FILTER_THRESH[log2])
+    pl = _predict_mode(ra_f if filt_pl else ra, rl_f if filt_pl else rl, s,
+                       PLANAR_IDX, max_val)
+    dc = _predict_mode(ra, rl, s, DC_IDX, max_val, luma)
+    return torch.where((mode == PLANAR_IDX)[:, None, None], pl,
+                       torch.where((mode == DC_IDX)[:, None, None], dc, ang))
+
+
+def _ulp_gap(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|a - b| in float32 ulps of the larger magnitude, as float64; inf
+    where a == b (an exact tie of two costs that one expression computes
+    from equal operands, which every backend ties alike)."""
+    e = torch.frexp(torch.maximum(a.abs(), b.abs()))[1].to(torch.float64)
+    gap = (a.to(torch.float64) - b.to(torch.float64)).abs() \
+        / torch.pow(2.0, e - 24)
+    return torch.where(gap == 0, np.inf, gap)
+
+
+def _rdoq_batch(co, lam: float, qp: int, size: int, scan_sel, trd,
+                luma: bool, ebt: dict, bit_inc: int, with_gaps: bool = False):
+    """Vectorised RDOQ over a TU batch -- xRateDistOptQuant
+    (TComTrQuant.cpp:1719) with the sequential per-coefficient context
+    chain (c1/c2/goRice/ctxSet) replaced by closed-form proxies computed
+    from the pre-quant levels, and estBits frozen at slice-init states
+    (``ebt``, from ``est_bits_tensors``).  Level choice, CG zero-out and
+    the best-last-position scan follow the reference cost model, line
+    for line (``thevc_tpu/encoder/fast_apply.py:370-639``).
+
+    co [N, s, s] int32 signed coefficients; lam a float32 value; qp the
+    scaled QP; scan_sel [N] in {0, 1, 2}; trd [N] the cbf-context
+    transform depth.  Returns (levels [N, s, s] signed, delta_u [N, s, s]),
+    int32; ``with_gaps`` adds, per TU, the smallest distance in float32
+    ulps between the two costs of any decision it made (level choice,
+    CG zero-out, last position), float64 [N]: the tests read it to show
+    that a TU whose levels differ from XLA's is a near tie."""
+    f32 = torch.float32
+    dev = co.device
+    nb = co.shape[0]
+    p = size * size
+    ncg = p // 16
+    log2 = size.bit_length() - 1
+    big = 3e38
+    scan_t, inv_t, rgt_t, low_t = _scan_tensors(size, luma, dev)
+
+    per, rem = qp // 6, qp % 6
+    uiq = int(rom.QUANT_SCALES[rem])
+    ts = 15 - (8 + bit_inc) - log2
+    qbits = 14 + per + ts
+    # the reference's float32 order: ((2^15 * 2^-2ts) / Q) / Q / 2^2bi
+    err_scale = float(np.float32(1 << 15) * np.float32(2.0 ** (-2 * ts))
+                      / np.float32(uiq) / np.float32(uiq)
+                      / np.float32(1 << (2 * bit_inc)))
+    lam = float(np.float32(lam))
+
+    pos = scan_t[scan_sel]                              # [N, P] raster pos
+    sflat = co.reshape(nb, p).gather(1, pos)
+    a_s = sflat.abs()
+    sgn = torch.where(sflat < 0, -1, 1)
+    ld = a_s * uiq
+    maxab = (ld + (1 << (qbits - 1))) >> qbits
+
+    p_idx = torch.arange(p, device=dev)[None, :]
+    last = torch.where(maxab > 0, p_idx, -1).amax(dim=1)        # [N]
+    has_any = last >= 0
+    cg_of_last = last.clamp(min=0) // 16
+    in_coded = p_idx <= last[:, None]
+    is_last = p_idx == last[:, None]
+
+    # ---- proxy context chain (within-CG reversed cumulative counts) ----
+    def above(x):
+        x3 = x.reshape(nb, ncg, 16).to(torch.int32)
+        inc = x3.flip(-1).cumsum(-1, dtype=torch.int32).flip(-1)
+        return (inc - x3).reshape(nb, p)
+
+    def per_pos(g):
+        return g[:, :, None].expand(nb, ncg, 16).reshape(nb, p)
+
+    ge1 = maxab >= 1
+    ge2 = maxab >= 2
+    n1 = above(ge1)
+    n2 = above(ge2)
+    n3 = above(maxab > 3)
+    c1_idx = n1.clamp(max=8)
+    c2_idx = n2.clamp(max=1)
+    c1 = torch.where(n2 > 0, 0, (1 + (n1 - n2)).clamp(max=3))
+    rice = n3.clamp(max=4)
+
+    g_idx = torch.arange(ncg, device=dev)[None, :]
+    no_cg = torch.zeros((nb, 1), dtype=torch.bool, device=dev)
+    cg_ge2 = ge2.reshape(nb, ncg, 16).any(dim=2)
+    prev_ge2 = torch.cat([cg_ge2[:, 1:], no_cg], dim=1)
+    prev_valid = (g_idx + 1) <= cg_of_last[:, None]
+    ctx_set = ((2 if luma else 0) * (g_idx > 0).to(torch.int32)
+               + (prev_ge2 & prev_valid).to(torch.int32))   # [N, ncg]
+    ctx_set_p = per_pos(ctx_set)
+    ctx_one = 4 * ctx_set_p + c1
+    ctx_abs = ctx_set_p + n2.clamp(max=2)
+
+    # significance context from the neighbour-CG pattern proxy
+    cg_has = ge1.reshape(nb, ncg, 16).any(dim=2)
+    cg_has_pad = torch.cat([cg_has, no_cg], dim=1)
+    r_sig = cg_has_pad.gather(1, rgt_t[scan_sel])
+    l_sig = cg_has_pad.gather(1, low_t[scan_sel])
+    patt_p = per_pos(r_sig.to(torch.int64) + 2 * l_sig.to(torch.int64))
+    sel_scan = scan_sel[:, None]
+    sig0 = ebt["sig0p"][sel_scan, patt_p, p_idx]
+    sig1 = ebt["sig1p"][sel_scan, patt_p, p_idx]
+
+    # ---- level decision (xGetCodedLevel + xGetICRateCost) ----
+    base_level = torch.where(c1_idx < 8, 2 + (c2_idx < 1).to(torch.int32), 1)
+    one0 = ebt["one0"][ctx_one.long()]
+    one1 = ebt["one1"][ctx_one.long()]
+    abs0 = ebt["abs0"][ctx_abs.long()]
+    abs1 = ebt["abs1"][ctx_abs.long()]
+    zero = torch.zeros((), dtype=f32, device=dev)
+
+    def ic_rate(lv):
+        sym = lv - base_level
+        three_rice = _shl(3, rice)
+        small = sym < three_rice
+        r_small = (((sym >> rice) + 1 + rice) << 15).to(f32)
+        t = (sym - three_rice).clamp(min=0) + _shl(1, rice)
+        ln = _bitlen(t) - 1
+        r_big = ((3 + ln + 1 - rice + ln) << 15).to(f32)
+        r_ge = (torch.where(small, r_small, r_big)
+                + torch.where(c1_idx < 8,
+                              one1 + torch.where(c2_idx < 1, abs1, zero),
+                              zero))
+        rate = torch.where(lv >= base_level, r_ge,
+                           torch.where(lv == 1, one0,
+                                       torch.where(lv == 2, one1 + abs0,
+                                                   zero)))
+        return rate + float(1 << 15)        # sign bit (IEP_RATE)
+
+    ldf = ld.to(f32)
+    cost0 = ldf * ldf * err_scale
+    lam_sig0 = lam * sig0
+    lam_sig1 = lam * sig1
+    sig_term = torch.where(is_last, zero, lam_sig1)
+
+    def lvl_cost(lv):
+        err = (ld - (lv << qbits)).to(f32)
+        return err * err * err_scale + lam * ic_rate(lv) + sig_term
+
+    m = maxab
+    cm = torch.where(m >= 1, lvl_cost(m), big)
+    cm1 = torch.where(m >= 2, lvl_cost((m - 1).clamp(min=1)), big)
+    czero = torch.where((m < 3) & ~is_last, cost0 + lam_sig0, big)
+    # HM order: zero baseline, then m (strict <), then m-1 (strict <)
+    lvl = torch.zeros_like(m)
+    best = czero
+    lvl = torch.where(cm < best, m, lvl)
+    gaps = [torch.where(in_coded & (cm < big) & (czero < big),
+                        _ulp_gap(cm, czero), np.inf)] if with_gaps else []
+    best = torch.minimum(best, cm)
+    lvl = torch.where(cm1 < best, m - 1, lvl)
+    if with_gaps:
+        gaps.append(torch.where(in_coded & (cm1 < big) & (best < big),
+                                _ulp_gap(cm1, best), np.inf))
+    best = torch.minimum(best, cm1)
+    # outside the coded region: uncoded
+    lvl = torch.where(in_coded, lvl, 0)
+    cost_coeff = torch.where(in_coded, best, cost0)
+    cost_sig = torch.where(
+        in_coded,
+        torch.where(is_last, zero,
+                    torch.where(lvl > 0, lam_sig1, lam_sig0)),
+        zero)
+
+    # ---- CG zero-out (sigCoeffGroupFlag RD) ----
+    lvl3 = lvl.reshape(nb, ncg, 16)
+    cc3 = cost_coeff.reshape(nb, ncg, 16)
+    cs3 = cost_sig.reshape(nb, ncg, 16)
+    c03 = cost0.reshape(nb, ncg, 16)
+    nz3 = lvl3 > 0
+    dec_sig = nz3.any(dim=2)
+    sum_sig = _tree_sum(cs3)
+    coded_ld = _tree_sum(torch.where(nz3, cc3 - cs3, zero))
+    unc_nz = _tree_sum(torch.where(nz3, c03, zero))
+    nnz_b4 = nz3[:, :, 1:].sum(dim=2)
+    sig_pos0 = cs3[:, :, 0]
+
+    cg_in = g_idx <= cg_of_last[:, None]
+    is_lastcg = g_idx == cg_of_last[:, None]
+    is_cg0 = g_idx == 0
+    eligible = cg_in & ~is_lastcg & ~is_cg0 & dec_sig
+    adj = eligible & (nnz_b4 == 0)
+    sum_sig_adj = torch.where(adj, sum_sig - sig_pos0, sum_sig)
+
+    # sigCG context from the decided-neighbour proxy
+    dec_pad = torch.cat([dec_sig, no_cg], dim=1)
+    cg_ctx = dec_pad.gather(1, rgt_t[scan_sel]) \
+        | dec_pad.gather(1, low_t[scan_sel])
+    cgb = ebt["cg"]
+    cg0b = torch.where(cg_ctx, float(cgb[1][0]), float(cgb[0][0]))
+    cg1b = torch.where(cg_ctx, float(cgb[1][1]), float(cgb[0][1]))
+    lam_cg0 = lam * cg0b
+    lam_cg1 = lam * cg1b
+
+    zero_cost = lam_cg0 + unc_nz - coded_ld - sum_sig_adj
+    zeroed = eligible & (zero_cost < lam_cg1)
+    if with_gaps:
+        gaps.append(torch.where(eligible, _ulp_gap(zero_cost, lam_cg1),
+                                np.inf))
+    empty = cg_in & ~is_lastcg & ~is_cg0 & ~dec_sig
+    drop = zeroed | empty
+    lvl3 = torch.where(drop[:, :, None], 0, lvl3)
+    cc3 = torch.where(drop[:, :, None], c03, cc3)
+    cs3 = torch.where(drop[:, :, None], zero, cs3)
+    cost_cg_sig = torch.where(drop, lam_cg0,
+                              torch.where(eligible & ~zeroed, lam_cg1, zero))
+    cost_cg_sig = torch.where(cg_in, cost_cg_sig, zero)
+
+    lvl = lvl3.reshape(nb, p)
+    cost_coeff = cc3.reshape(nb, p)
+    cost_sig = cs3.reshape(nb, p)
+
+    # ---- best last position (TComTrQuant.cpp:2096-2177) ----
+    cbf_ctx = torch.where(trd == 0, 1, 0) if luma else 5 + trd
+    cbf0 = ebt["cbf0"][cbf_ctx.long()]
+    cbf1 = ebt["cbf1"][cbf_ctx.long()]
+    base_final = (_tree_sum(cost_coeff)
+                  - _tree_sum(torch.where(adj, sig_pos0, zero))
+                  + _tree_sum(cost_cg_sig) + lam * cbf1)
+    best0 = _tree_sum(cost0) + lam * cbf0
+
+    nzp = lvl > 0
+    d = torch.where(in_coded, torch.where(nzp, cost_coeff - cost0, cost_sig),
+                    zero)
+    suf_d = _suffix_sum(d) - d                         # exclusive
+    suf_cg = per_pos(_suffix_sum(cost_cg_sig))         # inclusive
+    rate_last = ebt["rlv"][scan_sel]
+    total = (base_final[:, None] - suf_cg - suf_d + lam * rate_last
+             - cost_sig)
+    gt1_pos = torch.where(lvl > 1, p_idx, 0).amax(dim=1)
+    cand = nzp & in_coded & (p_idx >= gt1_pos[:, None])
+    total = torch.where(cand, total, big)
+    tmin = total.amin(dim=1)
+    # tie-break toward the LARGER scan position (walk order)
+    pick = torch.where(total == tmin[:, None], p_idx, -1).amax(dim=1)
+    keep_any = (tmin < best0) & has_any
+    if with_gaps:
+        second = torch.where(p_idx == pick[:, None], big, total).amin(dim=1)
+        gaps += [torch.where(has_any, _ulp_gap(tmin, best0), np.inf)[:, None],
+                 torch.where(second < big, _ulp_gap(second, tmin),
+                             np.inf)[:, None]]
+    last_p1 = torch.where(keep_any, pick + 1, 0)
+    lvl = torch.where(p_idx < last_p1[:, None], lvl, 0)
+
+    du = torch.where(in_coded, (ld - (lvl << qbits)) >> (qbits - 8), 0)
+    inv = inv_t[scan_sel]
+    out = (lvl * sgn).gather(1, inv)
+    duo = du.gather(1, inv)
+    out = (out.reshape(nb, size, size).to(torch.int32),
+           duo.reshape(nb, size, size).to(torch.int32))
+    if with_gaps:
+        out += (torch.cat([g.reshape(nb, -1) for g in gaps], dim=1)
+                .amin(dim=1),)
+    return out
+
+
+def _sbh_batch(levels, src, du, scan_sel, size: int):
+    """Vectorised signBitHidingHDQ (mirror of codec_core.cpp sbh_hdq_c /
+    TComTrQuant.cpp:977) over a TU batch.
+
+    levels/src/du [N, s, s] raster; scan_sel [N] in {0, 1, 2} selecting
+    the scan table.  Returns the adjusted levels."""
+    # costs are |delta_u| < 2^8 (quant remainder >> (qbits-8)); the
+    # sentinel must survive the *16 tie-break key in int32
+    inf = 1 << 26
+    dev = levels.device
+    nb = levels.shape[0]
+    p = size * size
+    ncg = p // 16
+    scan_t, inv_t = _scan_tensors(size, True, dev)[:2]
+    pos = scan_t[scan_sel]                            # [N, p]
+    lv = levels.reshape(nb, p).gather(1, pos).reshape(nb, ncg, 16)
+    sr = src.reshape(nb, p).gather(1, pos).reshape(nb, ncg, 16)
+    dd = du.reshape(nb, p).gather(1, pos).reshape(nb, ncg, 16).to(
+        torch.int32)
+
+    nz = lv != 0
+    any_nz = nz.any(dim=2)                            # [N, ncg]
+    n_idx = torch.arange(16, dtype=torch.int32, device=dev)
+    first_nz = torch.where(nz, n_idx, 99).amin(dim=2)
+    last_nz = torch.where(nz, n_idx, -1).amax(dim=2)
+    g_idx = torch.arange(ncg, dtype=torch.int32, device=dev)
+    last_cg = torch.where(any_nz, g_idx, -1).amax(dim=1)     # [N]
+    start_n = torch.where(g_idx[None, :] == last_cg[:, None], last_nz, 15)
+
+    n3 = n_idx[None, None]
+    csum = torch.where((n3 >= first_nz[..., None])
+                       & (n3 <= last_nz[..., None]), lv, 0).sum(dim=2)
+    fsel = first_nz.clamp(max=15)[..., None] == n3
+    lv_first = torch.where(fsel, lv, 0).sum(dim=2)
+    signbit = torch.where(lv_first > 0, 0, 1)
+    need = (last_nz - first_nz >= 4) & (signbit != (csum & 1))
+
+    # per-position candidate cost + change (sbh_hdq_c rules)
+    is_first = n3 == first_nz[..., None]
+    abs1 = lv.abs() == 1
+    cost_nzpos = torch.where(dd > 0, -dd,
+                             torch.where(is_first & abs1, inf, dd))
+    chg_nzpos = torch.where(dd > 0, 1,
+                            torch.where(is_first & abs1, 0, -1))
+    before_first = n3 < first_nz[..., None]
+    sign_src = torch.where(sr >= 0, 0, 1)
+    bad_sign = before_first & (sign_src != signbit[..., None])
+    cost_zpos = torch.where(bad_sign, inf, -dd)
+    chg_zpos = torch.where(bad_sign, 0, 1)
+    cost = torch.where(lv != 0, cost_nzpos, cost_zpos)
+    chg = torch.where(lv != 0, chg_nzpos, chg_zpos)
+    cost = torch.where(n3 > start_n[..., None], inf, cost)
+    # tie-break: the C scan runs n from start_n DOWN to 0 with a strict
+    # compare, keeping the LARGEST n among equal costs (the keys are
+    # distinct, so argmin has no tie to break)
+    key = cost * 16 + (15 - n3)
+    sel = key.argmin(dim=2)                           # [N, ncg]
+    ssel = sel[..., None] == n3
+    sel_chg = torch.where(ssel, chg, 0).sum(dim=2)
+    sel_q = torch.where(ssel, lv, 0).sum(dim=2)
+    sel_src = torch.where(ssel, sr, 0).sum(dim=2)
+    sel_chg = torch.where((sel_q == 32767) | (sel_q == -32768), -1, sel_chg)
+    delta = torch.where(sel_src >= 0, sel_chg, -sel_chg)
+    delta = torch.where(need, delta, 0)
+    lv = lv + torch.where(ssel, delta[..., None], 0)
+    out = lv.reshape(nb, p).gather(1, inv_t[scan_sel])
+    return out.reshape(nb, size, size).to(levels.dtype)
+
+
+def _class_step(rec, lv, org_wins, flat, idx, qp: int, qp_vec, ci: int,
+                lam: float, ebt, bit_inc: int, max_val: int,
+                sign_hide: bool, use_rdoq: bool) -> None:
+    """One wave step of one size class and plane, in place, for the window
+    records ``idx`` ([cap] int64, a device tensor): gather the reference
+    lines out of the evolving recon plane ``rec`` (int16 [H, W], one row
+    and column of top/left padding), predict, transform, quantise (RDOQ
+    or plain) + SBH, reconstruct through ``tq.residual_pipeline``, scatter
+    the recon blocks into ``rec`` (TU regions are disjoint by
+    construction; padding records land in the guard) and the levels into
+    the per-record stack ``lv``.  ``qp`` is the scaled QP and ``qp_vec``
+    it for each window record.  Queues device work only: no host sync."""
+    size, luma, use_dst = CLS[ci]
+    s = size
+    unit = 4 if luma else 2
+    length = 4 * s + unit
+    dev = rec.device
+    hgt, wid = rec.shape
+    xs, ys, lo, hi, mode, scan = flat
+    x0, y0 = xs[idx], ys[idx]
+    lo_, hi_ = lo[idx], hi[idx]
+    md, sc = mode[idx], scan[idx]
+    owin = org_wins[idx].to(torch.int32)
+
+    # the reference line, raw: the corner and left column, the top row
+    plane = rec.view(-1)
+    j = torch.arange(2 * s + 1, device=dev)
+    col_at = (y0[:, None] + j).clamp(max=hgt - 1) * wid \
+        + x0.clamp(max=wid - 1)[:, None]
+    colw = plane[col_at].to(torch.int32)              # [N, 2s+1]
+    top_at = y0.clamp(max=hgt - 1)[:, None] * wid \
+        + (x0[:, None] + 1 + j[:2 * s]).clamp(max=wid - 1)
+    topw = plane[top_at].to(torch.int32)              # [N, 2s]
+    line = torch.cat([colw[:, 1:].flip(1),
+                      colw[:, 0:1].expand(-1, unit), topw], dim=1)
+    # HM's unavailable-sample substitution over a contiguous range is
+    # boundary replication: samples below lo take line[lo], above hi
+    # line[hi]; nothing available takes the DC fill
+    i = torch.arange(length, device=dev)[None, :]
+    v_lo = line.gather(1, lo_[:, None])
+    v_hi = line.gather(1, hi_[:, None])
+    line = torch.where(i < lo_[:, None], v_lo, line)
+    line = torch.where(i > hi_[:, None], v_hi, line)
+    line = torch.where((lo_ > hi_)[:, None], 1 << (7 + bit_inc), line)
+    corner = line[:, 2 * s:2 * s + 1]
+    ra = torch.cat([corner, line[:, 2 * s + unit:]], dim=1)
+    rl = torch.cat([corner, line[:, :2 * s].flip(1)], dim=1)
+
+    pred = _predict_batch(ra, rl, s, luma, md, max_val)
+    co = tq.forward_transform(owin - pred, use_dst, bit_inc)
+    scan_sel = ((sc & 3) - 1).clamp(0, 2)
+    if use_rdoq:
+        levels, du = _rdoq_batch(co, lam, qp, s, scan_sel,
+                                 sc >> 2, luma, ebt, bit_inc)
+    else:
+        levels, du = tq.quant(co, qp_vec, True, bit_inc)
+    if sign_hide:
+        levels = _sbh_batch(levels, co, du, scan_sel, s)
+    rres = tq.residual_pipeline(levels.clamp(-32768, 32767).to(torch.int16),
+                                qp_vec, use_dst, bit_inc)
+    recb = (pred + rres.to(torch.int32)).clamp(0, max_val)
+
+    dy = torch.arange(s, device=dev)
+    at = (y0[:, None, None] + 1 + dy[None, :, None]) * wid \
+        + (x0[:, None, None] + 1 + dy[None, None, :])
+    plane.index_put_((at.reshape(-1),), recb.reshape(-1).to(rec.dtype))
+    lv.index_copy_(0, idx, levels.to(lv.dtype))
+
+
+# ---------------------------------------------------------------------------
+# the frame: upload, wave loop, fetch
+# ---------------------------------------------------------------------------
+
+class ApplyRun:
+    """One frame's queued apply (``run_device_apply``): the flat int16
+    device buffer that ``collect_device_apply`` copies back (recon planes,
+    then the level stacks), how to split it, the wave count, the class
+    steps run (a chroma class step covers Cb and Cr), the host's seconds
+    to upload and capture (``setup_s``) and to issue the wave loop
+    (``issue_s``; it waits for the device only when the launch queue is
+    full), and on a CUDA device two timing events around the wave loop
+    (``loop_events``; the device's span of the loop is their elapsed
+    time once the run is collected).  It holds the frame's CUDA graphs
+    (and so their memory) until the collect has waited for them."""
+    __slots__ = ("flat", "shapes", "n_waves", "class_steps", "setup_s",
+                 "issue_s", "loop_events", "graphs")
+
+
+# one apply at a time: each captures CUDA graphs, and the frame-parallel
+# all-intra encoder runs frames in threads
+_apply_lock = threading.Lock()
+
+
+def _capture(step, stream) -> tuple:
+    """Warm ``step`` up on ``stream`` (tables, library handles), then
+    capture it as a CUDA graph there.  Returns the graph and the residual
+    kernel launches it holds (the capture itself launches nothing)."""
+    with torch.cuda.stream(stream):
+        step()
+    graph = torch.cuda.CUDAGraph()
+    before = residual_kernel.captured
+    with torch.cuda.stream(stream):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            step()
+        finally:
+            graph.capture_end()
+    return graph, residual_kernel.captured - before
+
+
+def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
+                     qp_y, qp_cb, qp_cr, ctu_size, bit_inc, max_val,
+                     sign_hide, use_rdoq=False, lam_y=1.0, lam_c=1.0,
+                     init_ctx=None, *, device, replay=None) -> ApplyRun:
+    """Queue the wavefront apply of one frame on ``device`` and return
+    its ``ApplyRun`` for ``collect_device_apply``.  ``replay`` captures
+    each class step as a CUDA graph and replays it per wave (default: on
+    a CUDA device; the eager steps otherwise).  The arguments after the
+    schedule are the reference's: frame size, scaled QPs, CTU size, bit
+    increment, largest sample value, sign hiding, RDOQ with its float32
+    lambdas and slice-init context states."""
+    t0 = time.perf_counter()
+    device = torch.device(device)
+    if replay is None:
+        replay = device.type == "cuda"
+    if replay and device.type != "cuda":
+        raise ValueError(f"CUDA graph replay needs a CUDA device, not "
+                         f"{device}")
+    if use_rdoq and init_ctx is None:
+        raise ValueError("RDOQ needs the slice-init context states")
+    wp = -(-width // ctu_size) * ctu_size
+    hp = -(-height // ctu_size) * ctu_size
+    oy = np.asarray(org_y, np.int16)
+    ocb = np.asarray(org_cb, np.int16)
+    ocr = np.asarray(org_cr, np.int16)
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    # per-record source windows, cut host-side (the source is static)
+    def windows(plane, ci):
+        s = CLS[ci][0]
+        xs, ys = sched.flat[ci][0], sched.flat[ci][1]
+        n_c = sched.counts[ci]
+        out = np.zeros((len(xs), s, s), np.int16)
+        if n_c:
+            dy = np.arange(s)
+            out[:n_c] = plane[ys[:n_c, None, None] + dy[None, :, None],
+                              xs[:n_c, None, None] + dy[None, None, :]]
+        return up(out)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int16, device=device)
+    rec_y = zeros(hp + 1 + GUARD, wp + 1 + GUARD)
+    rec_cb = zeros(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)
+    rec_cr = zeros(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)
+    lvs, lvs_cr, counters, steps = [], [], [], {}
+    active = [np.nonzero(np.diff(o))[0] for o in sched.offs]
+    for ci, (s, luma, _) in enumerate(CLS):
+        n_flat = len(sched.flat[ci][0])
+        lvs.append(zeros(n_flat, s, s))
+        lvs_cr.append(None if luma else zeros(n_flat, s, s))
+        if not active[ci].size:
+            continue
+        cap = sched.caps[ci]
+        flat = tuple(up(a.astype(np.int64)) for a in sched.flat[ci])
+        starts = up(sched.offs[ci][active[ci]].astype(np.int64))
+        k = torch.zeros(1, dtype=torch.int64, device=device)
+        counters.append(k)
+        rows = torch.arange(cap, device=device)
+        ebt = (est_bits_tensors(init_ctx, s, luma, device) if use_rdoq
+               else None)
+        if luma:
+            planes = [(rec_y, lvs[ci], windows(oy, ci), qp_y, lam_y)]
+        else:
+            planes = [(rec_cb, lvs[ci], windows(ocb, ci), qp_cb, lam_c),
+                      (rec_cr, lvs_cr[ci], windows(ocr, ci), qp_cr, lam_c)]
+        planes = [(rec, lv, wins, qp,
+                   torch.full((cap,), qp, dtype=torch.int32, device=device),
+                   lam) for rec, lv, wins, qp, lam in planes]
+
+        def step(ci=ci, planes=planes, flat=flat, starts=starts, k=k,
+                 rows=rows, ebt=ebt):
+            idx = starts.index_select(0, k) + rows
+            for rec, lv, wins, qp, qp_vec, lam in planes:
+                _class_step(rec, lv, wins, flat, idx, qp, qp_vec, ci, lam,
+                            ebt, bit_inc, max_val, sign_hide, use_rdoq)
+            k.add_(1)
+        steps[ci] = step
+
+    graphs, per_replay = {}, {}
+    if replay:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        for ci, step in steps.items():
+            graphs[ci], per_replay[ci] = _capture(step, side)
+        # the warm-up steps wrote the state: start it afresh
+        torch.cuda.current_stream(device).wait_stream(side)
+        for t in (rec_y, rec_cb, rec_cr, *lvs, *counters,
+                  *(v for v in lvs_cr if v is not None)):
+            t.zero_()
+        run_step = {ci: g.replay for ci, g in graphs.items()}
+    else:
+        run_step = steps
+
+    wave_classes = [[] for _ in range(sched.n_waves)]
+    for ci in steps:
+        for w in active[ci]:
+            wave_classes[w].append(ci)
+    loop_events = None
+    if device.type == "cuda":
+        loop_events = (torch.cuda.Event(enable_timing=True),
+                       torch.cuda.Event(enable_timing=True))
+        loop_events[0].record()
+    t1 = time.perf_counter()
+    for classes in wave_classes:
+        for ci in classes:
+            run_step[ci]()
+    residual_kernel.replayed(sum(n * active[ci].size
+                                 for ci, n in per_replay.items()))
+    t2 = time.perf_counter()
+    if loop_events is not None:
+        loop_events[1].record()
+
+    run = ApplyRun()
+    run.setup_s, run.issue_s = t1 - t0, t2 - t1
+    run.loop_events = loop_events
+    run.graphs = graphs
+    outs = [rec_y[1:1 + hp, 1:1 + wp], rec_cb[1:1 + hp // 2, 1:1 + wp // 2],
+            rec_cr[1:1 + hp // 2, 1:1 + wp // 2], *lvs,
+            *(v for v in lvs_cr if v is not None)]
+    run.shapes = [tuple(t.shape) for t in outs]
+    run.flat = torch.cat([t.reshape(-1) for t in outs])
+    run.n_waves = sched.n_waves
+    run.class_steps = sum(len(c) for c in wave_classes)
+    return run
+
+
+def collect_device_apply(run: ApplyRun):
+    """Wait for a queued apply and bring it back in one device-to-host
+    copy: (rec_y, rec_cb, rec_cr, per-class level stacks, per-class Cr
+    level stacks, None for luma), int16 numpy."""
+    flat = run.flat.cpu().numpy()
+    run.graphs = None
+    parts, at = [], 0
+    for shape in run.shapes:
+        n = int(np.prod(shape))
+        parts.append(flat[at:at + n].reshape(shape))
+        at += n
+    rec_y, rec_cb, rec_cr = parts[:3]
+    lvs = tuple(parts[3:3 + len(CLS)])
+    chroma = iter(parts[3 + len(CLS):])
+    lvs_cr = tuple(None if CLS[ci][1] else next(chroma)
+                   for ci in range(len(CLS)))
+    return rec_y, rec_cb, rec_cr, lvs, lvs_cr
+
+
+def assemble_coeff_planes(sched: Schedule, lvs, lvs_cr, f) -> None:
+    """Scatter the flat per-record level stacks into the frame-shaped
+    coefficient planes (vectorized numpy; record coords are the wave-
+    sorted schedule order)."""
+    for ci in range(len(CLS)):
+        s, luma, _ = CLS[ci]
+        n_c = sched.counts[ci]
+        if not n_c:
+            continue
+        xs = sched.flat[ci][0][:n_c]
+        ys = sched.flat[ci][1][:n_c]
+        dy = np.arange(s)
+        yy = ys[:, None, None] + dy[None, :, None]
+        xx = xs[:, None, None] + dy[None, None, :]
+        if luma:
+            f.coeff_y[yy, xx] = lvs[ci][:n_c]
+        else:
+            f.coeff_cb[yy, xx] = lvs[ci][:n_c]
+            f.coeff_cr[yy, xx] = lvs_cr[ci][:n_c]
+
+
+# wall-clock per stage, summed across frames (read and zeroed by
+# stats_reset)
+stage_stats = {"sched": 0.0, "launch": 0.0, "fetch": 0.0, "fill": 0.0,
+               "counter": 0.0, "cabac": 0.0, "frames": 0}
+_stats_lock = threading.Lock()
+
+
+def add_stage(name: str, seconds: float) -> None:
+    with _stats_lock:
+        stage_stats[name] += seconds
+
+
+def stats_reset() -> dict:
+    with _stats_lock:
+        out = dict(stage_stats)
+        for k in stage_stats:
+            stage_stats[k] = 0.0 if k != "frames" else 0
+    return out
+
+
+def device_apply_frame(cu, fd, qp_cb_scaled, qp_cr_scaled, nat, *, device,
+                       stats=None) -> bool:
+    """Full device apply for the current (intra) slice on ``device``:
+    schedule, apply, fetch, frame-array fill.  Returns False when the host
+    fallback must run instead (the schedule rejected the frame).
+    ``stats`` (``encoder.top.DecisionStats``) counts the frame, its waves
+    and class steps and its wall, or the fallback."""
+    f = cu.f
+    sps = cu.sps
+    t0 = time.perf_counter()
+    sched = build_schedule(
+        fd[0], fd[1], fd[2], fd[3], f.width, f.height, f.ctu_size,
+        f.max_depth - sps.add_cu_depth, sps.quadtree_tu_log2_min_size)
+    if sched is None:
+        if stats is not None:
+            stats.add_apply_fallback()
+        return False
+    use_rdoq = bool(cu.cfg.get("RDOQ", 1))
+    init_ctx = None
+    if use_rdoq:
+        from ..cabac import contexts as cc
+        from .slice_encoder import enc_init_type
+        init_ctx = cc.make_context_states_idx(
+            enc_init_type(cu.sh, cu.pps), cu.sh.slice_qp)
+    t1 = time.perf_counter()
+    with _apply_lock:
+        run = run_device_apply(
+            cu.org_y, cu.org_cb, cu.org_cr, sched, f.width, f.height,
+            cu.sh.slice_qp + sps.qp_bd_offset_y, qp_cb_scaled,
+            qp_cr_scaled, f.ctu_size, sps.bit_increment,
+            (1 << sps.internal_bit_depth) - 1, bool(cu.pps.sign_hide_flag),
+            use_rdoq=use_rdoq, lam_y=cu.lambda_luma, lam_c=cu.lambda_chroma,
+            init_ctx=init_ctx, device=device)
+        t2 = time.perf_counter()
+        rec_y, rec_cb, rec_cr, lvs, lvs_cr = collect_device_apply(run)
+    t3 = time.perf_counter()
+    h, w = f.height, f.width
+    cu.rec_y[:h, :w] = rec_y[:h, :w]
+    cu.rec_cb[:h // 2, :w // 2] = rec_cb[:h // 2, :w // 2]
+    cu.rec_cr[:h // 2, :w // 2] = rec_cr[:h // 2, :w // 2]
+    assemble_coeff_planes(sched, lvs, lvs_cr, f)
+    nat.fill_from_fd()
+    t4 = time.perf_counter()
+    with _stats_lock:
+        stage_stats["sched"] += t1 - t0
+        stage_stats["launch"] += t2 - t1
+        stage_stats["fetch"] += t3 - t2
+        stage_stats["fill"] += t4 - t3
+        stage_stats["frames"] += 1
+    if stats is not None:
+        stats.add_apply(t4 - t0, run.n_waves, run.class_steps)
+    cu._dev_applied = True
+    return True

@@ -403,16 +403,18 @@ class PictureCompressor:
 
     ``device``, ``stats`` and ``ref_cache`` go to the fast-RD decision
     passes of a ``cfg.fast_rd`` encode (``fast_intra.decide_frame``,
-    ``fast_inter.decide_frame_p``).
+    ``fast_inter.decide_frame_p``); with ``device_apply`` the apply of
+    an intra slice runs on ``device`` too (``fast_apply``).
     """
 
     def __init__(self, cu: CuEncoder, cfg, device=None, stats=None,
-                 ref_cache=None):
+                 ref_cache=None, device_apply: bool = False):
         self.cu = cu
         self.cfg = cfg
         self.device = device
         self.stats = stats
         self.ref_cache = ref_cache
+        self.device_apply = device_apply
         f = cu.f
         pps = cu.pps
         self.f = f
@@ -738,15 +740,16 @@ class PictureCompressor:
                            fd[4] if top2 else None,
                            fd[5] if top2 and len(fd) > 5 else None,
                            fix_tu)
+            dev_applied = False
             if (nat is not None and not wpp_native and self.cfg.fast_rd
-                    and sh.slice_type == I_SLICE):
-                # the device-resident apply (encoder/fast_apply.py) is not
-                # ported
-                import os as _os
-                if _os.environ.get("THEVC_FASTRD_DEVAPPLY", "0") != "0":
-                    raise NotImplementedError(
-                        "the fast-RD device apply (THEVC_FASTRD_DEVAPPLY) "
-                        "is not ported to thevc_tpu_torch yet")
+                    and sh.slice_type == I_SLICE and self.device_apply):
+                # device-resident apply: prediction/transform/quant/recon
+                # run as a wavefront on the device (encoder/fast_apply.py);
+                # the host walks the fixed tree with the bit counter only
+                from . import fast_apply
+                dev_applied = fast_apply.device_apply_frame(
+                    cu, fd, qp_cb, qp_cr, nat, device=self.device,
+                    stats=self.stats)
             def _rc_ctu(ctu, bits):
                 """Frame-level RC feedback in fast-RD mode: per-LCU
                 distortion/bit stats keep the URQ/MAD models current
@@ -759,6 +762,20 @@ class PictureCompressor:
                     (ctu // f.ctus_w) * f.ctu_size, bits, sh.slice_qp)
                 self.rc.update_unit_status()
 
+            if dev_applied:
+                import time as _time
+                _t0 = _time.perf_counter()
+                for enc in range(f.num_ctus):
+                    ctu = int(f.ctu_order[enc])
+                    self._mark_ctu(ctu, sh, slice_idx)
+                    bits = nat.encode_ctu_counter(ctu)
+                    self.pic_total_bits += bits
+                    _rc_ctu(ctu, bits)
+                fast_apply.add_stage("counter", _time.perf_counter() - _t0)
+                cu.snap[0][CI_CURR_BEST] = nat.get_slice_ctx()
+                cu.go_on.frac_bits = nat.get_go_frac()
+                cu._native = nat
+                return
             if nat is not None and not wpp_native:
                 for enc in range(f.num_ctus):
                     ctu = int(f.ctu_order[enc])
@@ -909,6 +926,14 @@ class PictureCompressor:
     def encode_slice(self, sh, sao_write=None):
         """TEncSlice::encodeSlice over the dependent-slice range.  Returns
         (substream OutputBitstreams, tile_locations) for this segment."""
+        if getattr(self.cu, "_dev_applied", False):
+            import time as _time
+            from . import fast_apply as _fa
+            _t0 = _time.perf_counter()
+            try:
+                return self._encode_slice_impl(sh, sao_write)
+            finally:
+                _fa.add_stage("cabac", _time.perf_counter() - _t0)
         return self._encode_slice_impl(sh, sao_write)
 
     def _encode_slice_impl(self, sh, sao_write=None):

@@ -12,7 +12,9 @@ and ``Encoder`` takes the torch device of the fast-RD decision passes
 (``encoder.fast_intra``, ``encoder.fast_inter``) and a
 ``DecisionStats`` that they add their wall times to; it hands both, and
 the device copies of the reference pictures, to each picture's
-``slice_encoder.PictureCompressor``.
+``slice_encoder.PictureCompressor``.  ``device_apply`` runs the fast-RD
+apply of intra slices on that device too (``encoder.fast_apply``), where
+the reference read ``THEVC_FASTRD_DEVAPPLY``.
 """
 
 from __future__ import annotations
@@ -438,13 +440,25 @@ def _generate_combined_list(sh, list0, list1) -> None:
 class Encoder:
     """Full encoder pipeline.  ``device`` (a ``torch.device`` or its
     name) runs the fast-RD decision passes of ``cfg.fast_rd`` encodes,
-    which add their wall times to ``stats`` (a ``DecisionStats``)."""
+    which add their wall times to ``stats`` (a ``DecisionStats``), and
+    with ``device_apply`` the apply of their intra slices too."""
 
-    def __init__(self, cfg: EncoderCfg, device=None, stats=None):
+    def __init__(self, cfg: EncoderCfg, device=None, stats=None,
+                 device_apply: bool = False):
         self.cfg = cfg
         self.decision_device = (device_mod.resolve(device)
                                 if device is not None else None)
         self.decision_stats = stats
+        if device_apply and not cfg.fast_rd:
+            raise ValueError("the device apply is the apply of a fast-RD "
+                             "encode: it needs --FastRD=1")
+        if device_apply and os.environ.get("THEVC_FASTRD_DEVCHROMA",
+                                           "1") == "0":
+            # the apply predicts chroma with the decided modes while the
+            # syntax would signal DM: a nonconformant stream
+            raise ValueError("the device apply cannot run with "
+                             "THEVC_FASTRD_DEVCHROMA=0")
+        self.device_apply = bool(device_apply)
         # the decision passes' device copies of the reference pictures
         self.decision_refs = RefCache()
         self.vps, self.sps, self.pps = derive_params(cfg)
@@ -661,7 +675,8 @@ class Encoder:
         # ---- slice segmentation + compression (TEncGOP.cpp:560-625) ----
         import copy as _copy
         pc = se.PictureCompressor(cu, cfg, self.decision_device,
-                                  self.decision_stats, self.decision_refs)
+                                  self.decision_stats, self.decision_refs,
+                                  self.device_apply)
         pc.rc = self.rate_ctrl
         if cfg.use_adaptive_qp:
             from .preanalyzer import preanalyze
@@ -1212,13 +1227,21 @@ class Encoder:
 
 @dataclasses.dataclass
 class DecisionStats:
-    """What an encode's fast-RD decision passes cost: frames decided (I
-    and P/B), the P/B ones among them, and their summed wall time in
-    seconds, from the call to the maps on the host (so synchronised with
-    the device)."""
+    """What an encode's fast-RD device work cost: frames decided (I and
+    P/B), the P/B ones among them, and their summed wall time in seconds,
+    from the call to the maps on the host (so synchronised with the
+    device); and of the device apply (``encoder.fast_apply``), the frames
+    applied, their waves and class steps, their summed wall (schedule to
+    filled syntax arrays) and the frames whose schedule was rejected,
+    which the host apply ran."""
     frames: int = 0
     inter_frames: int = 0
     wall_s: float = 0.0
+    device_apply_frames: int = 0
+    device_apply_waves: int = 0
+    device_apply_class_steps: int = 0
+    device_apply_wall_s: float = 0.0
+    device_apply_fallback_frames: int = 0
     _lock: threading.Lock = dataclasses.field(default_factory=threading.Lock,
                                               repr=False)
 
@@ -1227,3 +1250,14 @@ class DecisionStats:
             self.frames += 1
             self.inter_frames += int(inter)
             self.wall_s += seconds
+
+    def add_apply(self, seconds: float, waves: int, class_steps: int) -> None:
+        with self._lock:
+            self.device_apply_frames += 1
+            self.device_apply_waves += waves
+            self.device_apply_class_steps += class_steps
+            self.device_apply_wall_s += seconds
+
+    def add_apply_fallback(self) -> None:
+        with self._lock:
+            self.device_apply_fallback_frames += 1

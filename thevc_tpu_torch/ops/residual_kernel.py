@@ -28,10 +28,29 @@ _ENTRIES = {"thevc_residual": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
             "thevc_residual_packed": [_P, _P, _I, _P, _P, _P, _I, _I, _I,
                                       _I, _P]}
 
-# kernel launches made by residual() and residual_packed(); a plain integer
-# that a run resets and reads to show that its main path went through the
-# kernel
+# kernel launches made by residual() and residual_packed(), and by the
+# replays of CUDA graphs that captured them (``replayed``); a plain
+# integer that a run resets and reads to show that its main path went
+# through the kernel
 launches = 0
+# launches recorded into a CUDA graph under capture: they run, and count,
+# when the graph replays
+captured = 0
+
+
+def _count() -> None:
+    global launches, captured
+    if torch.cuda.is_current_stream_capturing():
+        captured += 1
+    else:
+        launches += 1
+
+
+def replayed(n: int) -> None:
+    """Count ``n`` launches made by replays of CUDA graphs that captured
+    this kernel (each replay launches it as often as it was captured)."""
+    global launches
+    launches += n
 
 
 def build() -> ctypes.CDLL:
@@ -60,7 +79,6 @@ def residual(x: torch.Tensor, qp: torch.Tensor, basis: torch.Tensor,
     [s, s] -> int16 residual [N, s, s].  Launches on the current stream
     without synchronising; raises on any input the kernel does not take
     and on a launch error."""
-    global launches
     if x.dim() != 3 or x.shape[1] != x.shape[2] \
             or x.shape[1] not in (4, 8, 16, 32) or x.shape[0] >= 2 ** 31:
         raise ValueError(f"coefficients must be [N, s, s] with s in "
@@ -78,7 +96,7 @@ def residual(x: torch.Tensor, qp: torch.Tensor, basis: torch.Tensor,
                                 basis.data_ptr(), out.data_ptr(), n, s,
                                 dq_shift, sh2, _build.stream_of(x.device))
     _build.check(lib, rc, "residual kernel launch")
-    launches += 1
+    _count()
     return out
 
 
@@ -92,7 +110,6 @@ def residual_packed(vals: torch.Tensor, idx: torch.Tensor, qp: torch.Tensor,
     int16 residual [N, s, s], s in 8/16/32.  Launches on the current
     stream without synchronising; raises on any input the kernel does not
     take and on a launch error."""
-    global launches
     if size not in (8, 16, 32):
         raise ValueError(f"the packed entry takes sizes 8/16/32, got {size}")
     dev = vals.device
@@ -114,5 +131,5 @@ def residual_packed(vals: torch.Tensor, idx: torch.Tensor, qp: torch.Tensor,
             basis.data_ptr(), out.data_ptr(), n, size, dq_shift, sh2,
             _build.stream_of(dev))
     _build.check(lib, rc, "residual kernel launch (packed)")
-    launches += 1
+    _count()
     return out

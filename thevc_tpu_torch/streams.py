@@ -5,7 +5,7 @@ encoder: the exact path unless ``--FastRD=1`` is passed), or another
 module with the same arguments, in a child process, with two settings:
 
 - ``THEVC_THREADS=1``: the encoder's serial path (same stream as its
-  frame-parallel one);
+  frame-parallel one), unless the caller's ``env`` sets it otherwise;
 - a glibc malloc tunable that serves large arrays from the main heap
   instead of ``mmap``.  The port's native core copies the reconstructed
   planes only inside the picture, but another encoder module (the JAX
@@ -31,13 +31,14 @@ MALLOC_TUNABLES = ("glibc.malloc.mmap_threshold=33554432:"
 
 
 def encode(clip, stream, recon, width: int, height: int, frames: int,
-           cfg=INTRA_CFG, extra=(), module=ENCODER) -> str:
+           cfg=INTRA_CFG, extra=(), module=ENCODER, env=None) -> str:
     """Encode ``frames`` frames of the 4:2:0 ``clip`` into ``stream`` with
     the encoder CLI ``module``, writing the encoder's reconstruction to
-    ``recon``.  Returns the encoder's standard output.  Raises
-    ``RuntimeError``, with the encoder's error output, if it fails."""
-    env = dict(os.environ, THEVC_THREADS="1",
-               GLIBC_TUNABLES=MALLOC_TUNABLES)
+    ``recon``; ``env`` adds to (or overrides) the child's environment.
+    Returns the encoder's standard output.  Raises ``RuntimeError``, with
+    the encoder's error output, if it fails."""
+    env = {**os.environ, "THEVC_THREADS": "1",
+           "GLIBC_TUNABLES": MALLOC_TUNABLES, **(env or {})}
     r = subprocess.run(
         [sys.executable, "-m", module, "-c", str(cfg),
          "-i", str(clip), "-b", str(stream), "-o", str(recon),
