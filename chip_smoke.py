@@ -18,7 +18,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    (integer codec math).  At the size of a class that covers 8 luma
    planes of 1920x1080 it prints per class the kernel's time (CUDA
    events around 20 eager calls, host launch costs included) and its
-   device time (20 launches as one CUDA graph, median of 5 replays), the
+   device time (20 launches as one CUDA graph, median of 5 replays; the
+   run fails unless the graph holds a kernel node a call, counted on the
+   captured graph through the driver API), the
    plain version's time (eager), the bytes the kernel must move, its
    bound (those bytes over 3.35 TB/s, or its multiply-adds over the peak
    of their type, whichever is larger) and its share of that bound by
@@ -38,8 +40,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    SAO (``tests/cfg/encoder_lowdelay_tlayers.cfg``),
    the third low-delay P (5 frames) and random access with a GOP of 8
    (9 frames; ``encoder_lowdelay_P_main.cfg``,
-   ``encoder_randomaccess_main.cfg``); the 64x64 and 128x64 streams of 9
-   and 11.
+   ``encoder_randomaccess_main.cfg``); the 64x64 and 128x64 streams of 9,
+   11 and 12.
    Intra decode phase: decodes the all-intra stream through the
    port's CLI on ``cuda``: one warm-up, then three timed runs (host clock
    ending in ``torch.cuda.synchronize()``; fps from the median).  In every
@@ -68,7 +70,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    timing on (a device sync around each stage) for the stage walls per
    picture, and one that records every ``mc_batch`` call to time the
    plain-torch MC per class on the card (CUDA events, eager and as one
-   CUDA graph per class).  The 416x240 low-delay P and random-access
+   CUDA graph per class; a class whose graph holds no kernel fails the
+   run, except the uni-predicted copies, which return a view of their
+   windows and have no graph time).  The 416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders'.
 9. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
@@ -121,7 +125,28 @@ Run from the root of a checkout on a machine with a CUDA card:
 11. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
    refuses both in one stream) decode on ``cuda`` with every digest OK
    and recon byte-identical to their encoders'.
-12. Prints the kernels' JSON line (per kernel: launches on the main
+12. Multi-stream phase (``multistream``, ``thevc_tpu_torch.graft_entry``):
+   the graft entry's step (256 8x8 TUs through K1's dense entry) on
+   ``cuda``, equal to ``tq.tu_recon_pipeline_plain`` (tolerance 0) with
+   one K1 launch; the step, its plain version and K1 alone timed (CUDA
+   events, 20 calls; K1 also as a CUDA graph); the 8-slot dry run
+   (8 spawned processes, each slot's device work on ``cuda:0``, its
+   collective gloo between the processes, since NCCL takes no two ranks
+   on one card): each slot's 2-frame 48x48 fast-RD encode with the QPs
+   of the shared rate pool, the steering check, 16 pictures digest OK
+   and the frame-sharded decode of slot 0's stream, printing the QP and
+   spend histories, the local-only QPs, the all-reduce latencies and
+   each slot's walls (process start, CUDA context, group, encode, pool
+   wait, decode); the same dry run with every slot on the host, whose
+   QP and spend histories and streams (SHA-256 a slot) must equal the
+   card's; the same dry run over NCCL on 8 cards where the
+   machine has them, else one line that says it did not run; a
+   one-rank NCCL group on ``cuda:0`` (its all-reduce returns the slot's
+   own spend; latencies printed); the 64x64 decode-tool streams (QP 22,
+   QP 51, PCM, CU delta QP, filters off; ``streams.TOOL_STREAMS``)
+   decoded on ``cuda`` with every digest OK and recon byte-identical to
+   their encoders'.
+13. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
@@ -270,20 +295,54 @@ def packed_class(rng, n: int, size: int, bit_inc: int, density: float):
     return q, qp, vals, idx, coded
 
 
-def graph_ms(torch, fn, iters: int, reps: int = 5) -> float:
-    """Device milliseconds per call: ``iters`` calls captured in one CUDA
-    graph (after a warm-up on a side stream) and replayed between two
-    CUDA events, so host launch costs are not counted; the median of
-    ``reps`` replays."""
+def kernel_nodes(graph) -> int:
+    """Kernel nodes of a captured CUDA graph (``keep_graph=True``), read
+    from its ``cudaGraph_t`` through the driver API."""
+    import ctypes
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    handle = graph.raw_cuda_graph()
+    n = ctypes.c_size_t(0)
+    rc = cu.cuGraphGetNodes(handle, None, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    if not n.value:
+        return 0
+    nodes = (ctypes.c_void_p * n.value)()
+    rc = cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n))
+    check(rc == 0, f"cuGraphGetNodes returned {rc}")
+    kind, count = ctypes.c_int(), 0
+    for node in nodes:
+        rc = cu.cuGraphNodeGetType(node, ctypes.byref(kind))
+        check(rc == 0, f"cuGraphNodeGetType returned {rc}")
+        count += kind.value == 0              # CU_GRAPH_NODE_TYPE_KERNEL
+    return count
+
+
+def capture(torch, fn, iters: int):
+    """``iters`` calls of ``fn`` captured in one CUDA graph, after a
+    warm-up on a side stream.  Returns the graph and its kernel nodes."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
     with torch.cuda.graph(graph):
         for _ in range(iters):
             fn()
+    return graph, kernel_nodes(graph)
+
+
+def graph_ms(torch, fn, iters: int, reps: int = 5) -> float:
+    """Device milliseconds per call: ``iters`` calls captured in one CUDA
+    graph and replayed between two CUDA events, so host launch costs are
+    not counted; the median of ``reps`` replays.  Each call must have put
+    at least one kernel into the graph: a replay of nothing is no time."""
+    graph, nodes = capture(torch, fn, iters)
+    check(nodes >= iters, f"a graph of {iters} calls holds {nodes} kernels")
     ms = time_ms(torch, graph.replay, 1, reps) / iters
     del graph
     return ms
@@ -361,15 +420,26 @@ def prepare_streams(work: Path) -> dict:
     for name, (w, h, frames, style) in clips.items():
         paths[name] = work / f"{name}_{w}x{h}_{frames}f.yuv"
         make_clip(paths[name], w, h, frames, style)
+    qp = f"--QP={QP}"
     jobs = {"intra_main": ("intra", FRAMES, CFG / "encoder_intra_main.cfg",
-                           ("--SAO=1",)),
-            "inter_ldb": ("motion", FRAMES, LDB_CFG, ("--SAO=1",))}
+                           (qp, "--SAO=1")),
+            "inter_ldb": ("motion", FRAMES, LDB_CFG, (qp, "--SAO=1"))}
     for name, (frames, cfg) in SMALL_INTER.items():
-        jobs[name] = ("small_motion", frames, cfg, ())
+        jobs[name] = ("small_motion", frames, cfg, (qp,))
     for name, (clip, frames, cfg, switch) in WP_SL.items():
-        jobs[name] = (clip, frames, cfg, (switch,))
+        jobs[name] = (clip, frames, cfg, (qp, switch))
     for name, switches in PARTITIONED.items():
-        jobs[name] = ("part", 1, CFG / "encoder_intra_main.cfg", switches)
+        jobs[name] = ("part", 1, CFG / "encoder_intra_main.cfg",
+                      (qp, *switches))
+    # the decode-tool streams, as the port's tests make them (the cfg's
+    # QP 32 unless their arguments set one)
+    for name, path in streams.tool_clips(work).items():
+        clips[f"tool_{name}"] = (streams.TOOL_W, streams.TOOL_H,
+                                 streams.TOOL_FRAMES, name)
+        paths[f"tool_{name}"] = path
+    for name, (clip, extra) in streams.TOOL_STREAMS.items():
+        jobs[f"tool_{name}"] = (f"tool_{clip}", streams.TOOL_FRAMES,
+                                streams.INTRA_CFG, extra)
 
     def encode(item):
         name, (clip, frames, cfg, extra) = item
@@ -378,16 +448,16 @@ def prepare_streams(work: Path) -> dict:
         enc_rec = work / f"{name}_enc_rec.yuv"
         t0 = time.perf_counter()
         streams.encode(paths[clip], stream, enc_rec, w, h, frames, cfg=cfg,
-                       extra=(f"--QP={QP}", *extra))
+                       extra=extra)
         return name, (paths[clip], stream, enc_rec, w, h, frames,
                       time.perf_counter() - t0)
 
     with ThreadPoolExecutor(len(jobs)) as ex:
         made = dict(ex.map(encode, jobs.items()))
     for name, (_c, stream, _r, w, h, frames, wall) in made.items():
-        print(f"encode {name}: {frames} frames {w}x{h} QP {QP} in "
-              f"{wall:.3f} s (host, {len(jobs)} encodes at once), "
-              f"{stream.stat().st_size} bytes")
+        print(f"encode {name}: {frames} frames {w}x{h} "
+              f"{' '.join(jobs[name][3])} in {wall:.3f} s (host, "
+              f"{len(jobs)} encodes at once), {stream.stat().st_size} bytes")
     return {k: v[:6] for k, v in made.items()}
 
 
@@ -563,30 +633,30 @@ def mc_class_times(torch, stream: Path) -> list:
             for c in cl:
                 real(*c)
         eager = time_ms(torch, replay, 5)
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            replay()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            replay()
-        graph_ms = time_ms(torch, graph.replay, 10)
+        graph, nodes = capture(torch, replay, 1)
+        if nodes:
+            graph_ms = time_ms(torch, graph.replay, 10) / n_pics
+        else:
+            # a uni-predicted copy returns a view of its windows: no
+            # device work, so no graph time
+            check(case == "copy" and not bi, f"the MC class "
+                  f"{(luma, case, bi)} put no kernel into its graph")
+            graph_ms = None
         del graph
         nbytes = sum(2 * (c[0].numel() + c[0].shape[0] * c[7] * c[8])
                      for c in cl)
         rows.append(dict(
             comp="luma" if luma else "chroma", case=case, bi=bool(bi),
             calls=len(cl), pus=sum(int(c[0].shape[0]) for c in cl),
-            eager_ms_per_picture=eager / n_pics,
-            graph_ms_per_picture=graph_ms / n_pics,
+            eager_ms_per_picture=eager / n_pics, kernel_nodes=nodes,
+            graph_ms_per_picture=graph_ms,
             bytes_per_picture=nbytes / n_pics,
             bound_ms_per_picture=1000 * nbytes / HBM_BYTES_S / n_pics))
         print("mc_class " + json.dumps(rows[-1]))
     print("mc_total " + json.dumps({
         "pictures": n_pics,
         "eager_ms_per_picture": sum(r["eager_ms_per_picture"] for r in rows),
-        "graph_ms_per_picture": sum(r["graph_ms_per_picture"]
+        "graph_ms_per_picture": sum(r["graph_ms_per_picture"] or 0
                                     for r in rows),
         "bytes_per_picture": sum(r["bytes_per_picture"] for r in rows),
         "bound_ms_per_picture": sum(r["bound_ms_per_picture"]
@@ -1322,6 +1392,120 @@ def partitioned_phase(torch, work: Path, made: dict) -> dict:
     return out
 
 
+def multistream_phase(torch, work: Path, made: dict) -> dict:
+    """The multi-stream slice: the graft entry's step on ``cuda`` against
+    its plain version, the 8-slot dry run over gloo with every slot on
+    ``cuda:0``, the NCCL dry run where 8 cards exist, a one-rank NCCL
+    rate pool, and the decode-tool streams on ``cuda``."""
+    from thevc_tpu_torch import graft_entry
+    from thevc_tpu_torch.ops import residual_kernel, tq
+    out = {}
+
+    # (a) the entry's step: one K1 launch (dense entry), equal to plain
+    step, args = graft_entry.entry("cuda")
+    residual_kernel.launches = 0
+    got = step(*args)
+    torch.cuda.synchronize()
+    launches = residual_kernel.launches
+    check(launches == 1, f"the entry step made {launches} K1 launches")
+
+    def plain():
+        return tq.tu_recon_pipeline_plain(*args, use_dst=False,
+                                          bit_increment=0, max_val=255)
+    err = int((got - plain()).abs().max().item())
+    check(err == 0, f"the entry step differs from plain by {err}")
+    # K1 alone on the step's batch (int16 levels, as the step gives it)
+    q16, qp = args[1].to(torch.int16), args[2]
+
+    def k1():
+        return tq.residual_pipeline(q16, qp)
+    nbytes, _ops, bound_ms, bound_by = residual_bound(
+        graft_entry.N_TUS, graft_entry.TU_SIZE, 0, packed=False)
+    out["entry"] = {"shape": list(got.shape), "residual": launches,
+                    "max_abs_err": err,
+                    "ms": time_ms(torch, lambda: step(*args), 20),
+                    "plain_ms": time_ms(torch, plain, 20),
+                    "k1_ms": time_ms(torch, k1, 20),
+                    "k1_graph_ms": graph_ms(torch, k1, 20),
+                    "k1_bytes": nbytes, "k1_bound_ms": bound_ms,
+                    "k1_bound_by": bound_by}
+    print("multistream_entry " + json.dumps(out["entry"]))
+
+    # (b) 8 slots, 8 processes, one card: gloo between the processes
+    rep = graft_entry.dryrun_multichip(8, "gloo", ["cuda:0"] * 8)
+    slots = rep.pop("slot_reports")
+    check(rep["pictures"] == rep["digests_ok"] == 16,
+          f"dry run: {rep['digests_ok']} of {rep['pictures']} digests OK")
+    check(rep["sharded_decoded"] == 2, "the frame-sharded decode missed a "
+          "frame")
+    check(rep["qp_history"][1] != rep["local_qps"], "the rate pool did not "
+          "steer the QPs")
+    for s in slots:
+        check(s["device"] == "cuda:0", f"slot {s['rank']} on {s['device']}")
+        for path, k in (("encode", "residual"), ("encode", "satd"),
+                        ("decode", "residual")):
+            check(s["launches"][path][k] > 0,
+                  f"slot {s['rank']}: its {path} made no {k} launch")
+    rep["collective"] = ("gloo between 8 processes sharing cuda:0 (NCCL "
+                         "takes no two ranks on one card)")
+    rep["slot_walls"] = [{k: s[k] for k in (
+        "start_s", "context_s", "group_s", "encode_s", "pool_wait_s",
+        "decode_s", "sharded_decode_s")} for s in slots]
+    rep["launches"] = {
+        "residual": sum(s["launches"]["encode"]["residual"]
+                        + s["launches"]["decode"]["residual"]
+                        for s in slots),
+        "satd": sum(s["launches"]["encode"]["satd"] for s in slots)}
+    print("multistream_dryrun " + json.dumps(rep))
+    out["dryrun"] = rep
+    # the same dry run with every slot on the host: the card's slots
+    # (their K1 and K2 calls in the decision pass and the transform RD
+    # estimate included) must make the host's streams, byte for byte
+    host = graft_entry.dryrun_multichip(8, "gloo", ["cpu"] * 8)
+    host.pop("slot_reports")
+    for key in ("qp_history", "spent_history", "stream_sha256"):
+        check(rep[key] == host[key], f"dry run {key}: cuda:0 {rep[key]} != "
+              f"cpu {host[key]}")
+    print("multistream_dryrun_cpu " + json.dumps(
+        {"identical": ["qp_history", "spent_history", "stream_sha256"],
+         "wall_s": host["wall_s"]}))
+
+    # 8 cards: the same dry run over NCCL, one card a slot
+    cards = torch.cuda.device_count()
+    if cards >= 8:
+        nccl = graft_entry.dryrun_multichip(
+            8, "nccl", [f"cuda:{i}" for i in range(8)])
+        nccl.pop("slot_reports")
+        check(nccl["digests_ok"] == 16 and nccl["sharded_decoded"] == 2,
+              "the NCCL dry run failed its decode checks")
+        print("multistream_dryrun_nccl " + json.dumps(nccl))
+    else:
+        print(f"multistream_dryrun_nccl: not run: {cards} CUDA card(s), "
+              "the NCCL dry run needs 8 (one a slot)")
+
+    # (c) a one-rank NCCL group on cuda:0
+    one = graft_entry.one_rank_pool("cuda:0")
+    lat = sorted(one["allreduce_ms"])
+    one["allreduce_ms_median"] = lat[len(lat) // 2]
+    print("multistream_nccl_one_rank " + json.dumps(one))
+    out["nccl_one_rank"] = one
+
+    # (d) the decode-tool streams on cuda
+    tools = {}
+    for name in [n for n in made if n.startswith("tool_")]:
+        _clip, stream, enc_rec, _w, _h, frames = made[name]
+        dec_rec = work / f"{name}_dec_rec.yuv"
+        residual_kernel.launches = 0
+        rc, log = decode_cuda(torch, stream, dec_rec)
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        tools[name] = {"frames": frames, "residual": residual_kernel.launches,
+                       "bytes": stream.stat().st_size}
+        check(tools[name]["residual"] > 0, f"the {name} decode skipped K1")
+    print("multistream_tools " + json.dumps(tools))
+    out["tools"] = tools
+    return out
+
+
 def make_clip(path: Path, width: int, height: int, frames: int,
               style: str = "default") -> None:
     """A seeded clip from ``tools/make_test_clip.py``, or (``fade``) a
@@ -1390,6 +1574,7 @@ def main() -> int:
     inter_identity_phase(work, made)
     wp_scaling_phase(torch, work, made)
     parts = partitioned_phase(torch, work, made)
+    multi = multistream_phase(torch, work, made)
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -1415,6 +1600,10 @@ def main() -> int:
                                    "satd": devapply["satd_launches"]},
         **{f"{k}_decode": {"residual": v["residual"]}
            for k, v in parts.items()},
+        "graft_entry": {"residual": multi["entry"]["residual"]},
+        "multistream_dryrun": multi["dryrun"]["launches"],
+        **{f"{k}_decode": {"residual": v["residual"]}
+           for k, v in multi["tools"].items()},
         "inter_decode": inter["launches"],
         **{f"inter_decode_{k}": v for k, v in small.items()}}
     print("launches by path " + json.dumps(by_path))

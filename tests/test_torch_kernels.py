@@ -458,3 +458,79 @@ def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
         for g, e in zip(got[:3] + got[3] + got[4],
                         want[:3] + want[3] + want[4]):
             assert (g is None and e is None) or np.array_equal(g, e), name
+
+
+@pytest.mark.gpu
+def test_graft_entry_on_cuda_equals_plain(cuda):
+    from thevc_tpu_torch import graft_entry
+    step, args = graft_entry.entry("cuda")
+    assert all(a.device.type == "cuda" for a in args)
+    before = residual_kernel.launches
+    out = step(*args)
+    torch.cuda.synchronize()
+    assert residual_kernel.launches == before + 1
+    assert torch.equal(out, tq.tu_recon_pipeline_plain(
+        *args, use_dst=False, bit_increment=0, max_val=255))
+    cpu_step, cpu_args = graft_entry.entry("cpu")
+    assert torch.equal(out.cpu(), cpu_step(*cpu_args))
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_pool(cuda):
+    from thevc_tpu_torch import graft_entry
+    got = graft_entry.one_rank_pool("cuda:0")
+    assert got["total"] == got["spent"] and got["device"] == "cuda:0"
+    # a pool of one slot steers as that slot's own pool would
+    assert got["frame_qp"] == graft_entry.local_qps([got["spent"]])[0]
+
+
+@pytest.mark.gpu
+def test_gloo_dryrun_eight_slots_on_one_card(cuda):
+    from thevc_tpu_torch import graft_entry
+    report = graft_entry.dryrun_multichip(8, "gloo", ["cuda:0"] * 8)
+    assert report["pictures"] == report["digests_ok"] == 16
+    assert report["sharded_decoded"] == 2
+    assert report["qp_history"][1] != report["local_qps"]
+    for s in report["slot_reports"]:
+        assert s["device"] == "cuda:0" and not s["foreign_modules"]
+        assert s["launches"]["encode"]["residual"] > 0
+        assert s["launches"]["encode"]["satd"] > 0
+        assert s["launches"]["decode"]["residual"] > 0
+    # the slots' streams on the card are the CPU's, byte for byte
+    host = graft_entry.dryrun_multichip(8, "gloo", ["cpu"] * 8)
+    for key in ("qp_history", "spent_history", "stream_sha256"):
+        assert report[key] == host[key], key
+
+
+@pytest.fixture
+def eight_cards(cuda):
+    if torch.cuda.device_count() < 8:
+        pytest.skip(f"the NCCL dry run needs 8 CUDA cards; found "
+                    f"{torch.cuda.device_count()}")
+    return [f"cuda:{i}" for i in range(8)]
+
+
+@pytest.mark.gpu
+def test_nccl_dryrun_eight_cards(eight_cards):
+    from thevc_tpu_torch import graft_entry
+    report = graft_entry.dryrun_multichip(8, "nccl", eight_cards)
+    assert report["pictures"] == report["digests_ok"] == 16
+    assert report["devices"] == eight_cards and report["cards"] == 8
+    assert report["qp_history"][1] != report["local_qps"]
+
+
+@pytest.mark.gpu
+def test_tool_streams_decode_on_cuda(cuda, tmp_path):
+    from thevc_tpu_torch import native, streams
+    from thevc_tpu_torch.decoder.top import Decoder
+    assert native.get_lib() is not None
+    made = streams.tool_streams(tmp_path)
+    for name, (stream, rec, frames) in made.items():
+        before = residual_kernel.launches
+        pics = Decoder(cuda).decode_stream(stream.read_bytes())
+        assert len(pics) == frames, name
+        assert all(p.digest_ok is True for p in pics), name
+        got = b"".join(pl.astype(np.uint8).tobytes() for p in pics
+                       for pl in p.frame.planes())
+        assert got == rec.read_bytes(), name
+        assert residual_kernel.launches > before, name

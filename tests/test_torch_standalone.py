@@ -1,8 +1,8 @@
 """The port stands alone: it imports nothing of the JAX package.
 
 - No module of ``thevc_tpu_torch`` and not ``chip_smoke.py`` imports
-  ``thevc_tpu`` or a ``thevc_tpu.*`` module, or names one of its apps as a
-  module to run (an AST scan).
+  ``jax``, ``thevc_tpu`` or a ``thevc_tpu.*`` module, or names one of the
+  JAX package's apps as a module to run (an AST scan).
 - The port's decode of an all-intra and a low-delay B stream and its
   exact-path, ``--FastRD=1`` and ``--FastRD=1 --device-apply`` encodes run
   in a child process that ends with neither ``jax`` nor any
@@ -12,6 +12,9 @@
   low-delay B, low-delay P and random-access cfgs of ``tests/cfg`` at
   64x64, and for the intra and low-delay B cfgs at 72x40, whose width and
   height are not multiples of the CTU size.
+- The multi-stream modules (``graft_entry``, ``parallel.shared_rc``)
+  and the host apps run in a child process that ends with neither
+  loaded either.
 - The port's native core loads once under a lock: eight threads that call
   ``native.get_lib()`` first, together, all get the library.
 """
@@ -46,8 +49,8 @@ def _is_reference(name: str) -> bool:
     return name == "thevc_tpu" or name.startswith("thevc_tpu.")
 
 
-def test_port_sources_import_nothing_of_the_reference():
-    found = []
+def _absolute_imports():
+    """(where, module) of every absolute import in the port's sources."""
     for path in _port_sources():
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -56,8 +59,19 @@ def test_port_sources_import_nothing_of_the_reference():
                 names = [node.module or ""]
             else:
                 continue
-            found += [f"{path.relative_to(REPO)}:{node.lineno} {n}"
-                      for n in names if _is_reference(n)]
+            for n in names:
+                yield f"{path.relative_to(REPO)}:{node.lineno}", n
+
+
+def test_port_sources_import_nothing_of_the_reference():
+    found = [f"{where} {n}" for where, n in _absolute_imports()
+             if _is_reference(n)]
+    assert not found, found
+
+
+def test_port_sources_import_no_jax():
+    found = [f"{where} {n}" for where, n in _absolute_imports()
+             if n == "jax" or n.startswith("jax.")]
     assert not found, found
 
 
@@ -160,6 +174,37 @@ def test_exact_encoder_bytes_equal_reference(name, clips, tmp_path):
     assert len(port[0]) > 0
     assert port[0] == ref[0], f"{name}: the streams differ"
     assert port[1] == ref[1], f"{name}: the encoders' recons differ"
+
+
+_MULTISTREAM = textwrap.dedent("""
+    import contextlib, io, sys
+    import torch.distributed as dist
+    from thevc_tpu_torch import graft_entry
+    from thevc_tpu_torch.apps import (annexb_bytecount, bitrate_targeting,
+                                      convert_bitdepth)
+    from thevc_tpu_torch.parallel.shared_rc import MeshRatePool
+    step, args = graft_entry.entry("cpu")
+    assert step(*args).shape == (256, 8, 8)
+    dist.init_process_group("gloo", init_method=f"file://{sys.argv[1]}/rv",
+                            world_size=1, rank=0)
+    assert MeshRatePool(24000, 2).frame_qp(30, 20000, 1) == 32
+    dist.destroy_process_group()
+    with contextlib.redirect_stdout(io.StringIO()):
+        annexb_bytecount.main([sys.argv[2]])
+    print("LOADED", sorted(m for m in sys.modules if m == "jax"
+                           or m.startswith("jax.") or m == "thevc_tpu"
+                           or m.startswith("thevc_tpu.")))
+""")
+
+
+def test_multistream_modules_load_no_jax_and_no_reference(tmp_path):
+    stream = tmp_path / "s.bin"
+    stream.write_bytes(bytes([0, 0, 0, 1, 0x40, 0x01, 0x0c]))
+    r = subprocess.run([sys.executable, "-c", _MULTISTREAM, str(tmp_path),
+                        str(stream)], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.splitlines()[-1] == "LOADED []", r.stdout[-2000:]
 
 
 _THREADS = textwrap.dedent("""
