@@ -142,11 +142,51 @@ Run from the root of a checkout on a machine with a CUDA card:
    card's; the same dry run over NCCL on 8 cards where the
    machine has them, else one line that says it did not run; a
    one-rank NCCL group on ``cuda:0`` (its all-reduce returns the slot's
-   own spend; latencies printed); the 64x64 decode-tool streams (QP 22,
+   own spend; latencies printed, beside the median wall of one int64
+   copied to the card and read back, the least a one-card all-reduce
+   can cost); the 64x64 decode-tool streams (QP 22,
    QP 51, PCM, CU delta QP, filters off; ``streams.TOOL_STREAMS``)
    decoded on ``cuda`` with every digest OK and recon byte-identical to
    their encoders'.
-13. Prints the kernels' JSON line (per kernel: launches on the main
+13. Robustness phase (``robust_decode``): the 176x144 streams of
+   ``streams.robust_streams`` (the port's exact encoder) decode on
+   ``cuda`` and on the CPU, equal in POCs, digest flags and every
+   picture's planes (``streams.ROBUST_CASES``): lost-picture concealment
+   (the low-delay P stream without POC 2's slice, POC 1 copied in),
+   random-access entry at the CRA of a 17-frame random-access stream
+   (``skip_frames=9``), the CRA retyped as a BLA (its TFD pictures
+   dropped), ``skip_frames=1`` on an all-intra stream (nothing decoded),
+   and the temporal-layer cap ``max_temporal_layer=0`` on a low-delay B
+   stream (the three with decoder options also through the decoder CLI's
+   ``-s`` and ``-t`` on ``cuda``, its output the decode's planes); K1
+   and the MC must have run, and the concealed picture must
+   reach the card once (``RefPlanes.get``, when POC 3 first refers to
+   it) and stay while POC 4 does.  Then 24 seeded corrupted copies
+   of the 9-frame random-access stream (bit flips and truncations,
+   ``streams.fuzz_variants``) decode on ``cuda``, each followed by
+   ``torch.cuda.synchronize()``: each decodes or raises a Python
+   exception (a CUDA error fails the run), with the same outcome as on
+   the CPU; then the clean stream decodes on ``cuda`` with every digest
+   OK in the same process.  Prints the outcomes by exception type, the
+   fuzz decodes' wall and the phase's K1 and MC launches.
+14. Resume and rate-control phase (``resume_rc``), in this process
+   through the port's encoder CLI: a 96x80 9-frame low-delay P
+   ``--FastRD=1`` encode on ``cuda``, uninterrupted, and checkpointed at
+   frame 5 (``--CheckpointEvery=1``) then resumed: the streams and recons
+   of the resumed and uninterrupted ``cuda`` runs and the ``cpu`` run are
+   byte-identical, and the resumed stream decodes on ``cuda`` digest-OK;
+   a 416x240 4-frame all-intra ``--FastRD=1 --RateCtrl=1
+   --TargetBitrate=1000000 --device-apply`` encode on ``cuda`` and on the
+   CPU, byte-identical, every frame decided and applied on the device,
+   digest-OK and recon-exact through the port's decoder on ``cuda``
+   (per-frame QP and bits printed), and the same for a 3-frame low-delay
+   B encode (``encoder_lowdelay_tlayers.cfg``, no device apply) whose
+   frame QPs must move (the tests hold them against the JAX package's
+   rate controller fed the same bits); one
+   ``thevc_tpu_torch.tools.fastrd_quality`` sweep on ``cuda`` (2 frames
+   of that clip, QP 22-37), its rows printed.  The phase's K1 and K2
+   launches (``cuda`` runs only) must be above 0.
+15. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
@@ -219,6 +259,18 @@ CTU32 = ("--MaxCUWidth=32", "--MaxCUHeight=32", "--MaxPartitionDepth=3")
 PARTITIONED = {"tiles": (*CTU32, "--UniformSpacingIdc=1",
                          "--NumTileColumnsMinus1=1", "--NumTileRowsMinus1=1"),
                "wpp": (*CTU32, "--WaveFrontSynchro=1")}
+
+
+# the robustness phase: corrupted variants of the 9-frame RA stream
+FUZZ_TRIALS = 24
+# the resume and rate-control phase: checkpoint/resume clip (w, h,
+# frames), rate-controlled clip (w, h, frames, target bit/s), the frames
+# of its low-delay B encode, and the fastrd_quality sweep (frames of that
+# clip, QPs)
+RESUME = (96, 80, 9)
+RC = (416, 240, 4, 1000000)
+RC_LDB_FRAMES = 3
+QUALITY_FRAMES, QUALITY_QPS = 2, (22, 27, 32, 37)
 
 
 class SmokeFailure(Exception):
@@ -777,13 +829,14 @@ def port_encode(clip: Path, stream: Path, recon: Path, width: int,
 
 
 def decode_cuda(torch, stream: Path, out: Path,
-                device: str = "cuda") -> tuple:
-    """Decode ``stream`` with the port's CLI on ``cuda`` (or ``device``)."""
+                device: str = "cuda", extra=()) -> tuple:
+    """Decode ``stream`` with the port's CLI on ``cuda`` (or ``device``),
+    ``extra`` arguments added."""
     from thevc_tpu_torch.apps import decoder as dec_app
     log = io.StringIO()
     with contextlib.redirect_stdout(log):
         rc = dec_app.main(["-b", str(stream), "-o", str(out), "--device",
-                           device])
+                           device, *extra])
     torch.cuda.synchronize()
     return rc, log.getvalue()
 
@@ -1487,6 +1540,9 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
     one = graft_entry.one_rank_pool("cuda:0")
     lat = sorted(one["allreduce_ms"])
     one["allreduce_ms_median"] = lat[len(lat) // 2]
+    # K10's bound: the least a one-card device all-reduce of one int64
+    # can cost is its 8 bytes to the card and back, with the wait
+    one["bound_h2d_d2h_8b_ms"] = h2d_d2h_ms(torch)
     print("multistream_nccl_one_rank " + json.dumps(one))
     out["nccl_one_rank"] = one
 
@@ -1503,6 +1559,274 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
         check(tools[name]["residual"] > 0, f"the {name} decode skipped K1")
     print("multistream_tools " + json.dumps(tools))
     out["tools"] = tools
+    return out
+
+
+def h2d_d2h_ms(torch, reps: int = 20) -> float:
+    """Median host wall (ms) of one int64 copied to ``cuda`` and read back
+    (``.item()`` waits for the copy), after 3 warm-up copies."""
+    host = torch.zeros(1, dtype=torch.int64)
+    times = []
+    for _ in range(reps + 3):
+        t = time.perf_counter()
+        host.to("cuda").item()
+        times.append(1000 * (time.perf_counter() - t))
+    return sorted(times[3:])[reps // 2]
+
+
+def checked_decode(device: str, data: bytes, options=None) -> tuple:
+    """``streams.decode_outcome`` of ``data`` on ``device``; fails the run
+    when the decode raised a CUDA error."""
+    from thevc_tpu_torch import streams
+    got, text = streams.decode_outcome(data, device, options)
+    check(not (isinstance(got, str) and "CUDA" in text),
+          f"a decode on {device} raised a CUDA error: {got}: {text}")
+    return got, text
+
+
+def robust_decode_phase(torch, work: Path) -> dict:
+    """Error-resilient and random-access decodes (``streams.ROBUST_CASES``)
+    on ``cuda`` against the CPU, ``FUZZ_TRIALS`` corrupted streams on both,
+    then the clean stream on ``cuda``.  The K1 and MC launches are those
+    of the ``cuda`` decodes only (MC counts its CPU calls too)."""
+    from thevc_tpu_torch import streams
+    from thevc_tpu_torch.decoder import inter
+    from thevc_tpu_torch.ops import mc, residual_kernel
+    t0 = time.perf_counter()
+    made = streams.robust_streams(work / "robust")
+    out = {"streams_wall_s": time.perf_counter() - t0, "cases": {}}
+    launched = {"residual": 0, "mc": 0}
+
+    def on_card(decode, *args, **kw):
+        """``decode(*args, **kw)``, its K1 and MC launches added to
+        ``launched``."""
+        r0, m0 = residual_kernel.launches, mc.launches
+        res = decode(*args, **kw)
+        launched["residual"] += residual_kernel.launches - r0
+        launched["mc"] += mc.launches - m0
+        return res
+
+    put = inter.RefPlanes.put
+    for case in streams.ROBUST_CASES:
+        data, options, pocs = streams.robust_case(made, case)
+        puts = []
+
+        def spy(refs, pic, planes):
+            puts.append(pic.poc)
+            return put(refs, pic, planes)
+        inter.RefPlanes.put = spy
+        try:
+            t = time.perf_counter()
+            got, log = on_card(checked_decode, "cuda", data, options)
+            wall = time.perf_counter() - t
+        finally:
+            inter.RefPlanes.put = put
+        check(not isinstance(got, str),
+              f"robust {case}: the cuda decode raised {got}: {log}")
+        check([p[0] for p in got] == pocs,
+              f"robust {case}: POCs {[p[0] for p in got]}, not {pocs}")
+        ref, _ = checked_decode("cpu", data, options)
+        check(streams.same_outcome(got, ref), f"robust {case}: the cuda "
+              "decode differs from the cpu decode")
+        flags = [d for _p, d, _l in got]
+        if case == "conceal":
+            check("inserting lost poc : 2" in log and flags[:3] == [
+                True, True, None], f"robust {case}: POC 2 not concealed "
+                  f"({flags}):\n{log}")
+            # the concealed picture reaches the card once, when POC 3
+            # first refers to it, and stays while POC 4 does
+            check(sorted(puts) == pocs and puts.index(2) == puts.index(1)
+                  + 1, f"robust {case}: device planes put {puts}")
+        else:
+            check(all(d is True for d in flags),
+                  f"robust {case}: digests {flags}")
+        if options:
+            # -s and -t through the decoder CLI on cuda
+            stream = work / "robust" / f"{case}.bin"
+            stream.write_bytes(data)
+            rec = work / "robust" / f"{case}_dec.yuv"
+            rec.unlink(missing_ok=True)   # no picture: no file
+            rc, cli_log = on_card(decode_cuda, torch, stream, rec, extra=[
+                a for k, v in options.items()
+                for a in (streams.ROBUST_CLI[k], str(v))])
+            cli_yuv = rec.read_bytes() if rec.exists() else b""
+            check(rc == 0 and cli_log.count("[MD5:(OK)]") == len(pocs)
+                  and cli_yuv == b"".join(
+                      pl.astype("uint8").tobytes() for _p, _d, pls in got
+                      for pl in pls),
+                  f"robust {case}: the CLI on cuda: {cli_log[-500:]}")
+        out["cases"][case] = {"pocs": pocs, "digest_ok": flags,
+                              "wall_s": wall}
+    out["launches"] = dict(launched)
+    check(out["launches"]["residual"] > 0 and out["launches"]["mc"] > 0,
+          f"the robust decodes on cuda launched {out['launches']}")
+
+    ra = made["ra"][0].read_bytes()
+    outcomes, fuzz_wall = {}, 0.0
+    for k, buf in enumerate(streams.fuzz_variants(ra, FUZZ_TRIALS)):
+        t = time.perf_counter()
+        got, text = on_card(checked_decode, "cuda", buf)
+        fuzz_wall += time.perf_counter() - t
+        ref, ref_text = checked_decode("cpu", buf)
+        kind = got if isinstance(got, str) else "decoded"
+        check(streams.same_outcome(got, ref), f"fuzz trial {k}: cuda gave "
+              f"{kind} ({text[:200]}), cpu "
+              f"{ref if isinstance(ref, str) else ''} ({ref_text[:200]})")
+        outcomes[kind] = outcomes.get(kind, 0) + 1
+    check(outcomes.get("decoded", 0) > 0, f"no fuzz trial decoded: "
+          f"{outcomes}")
+    # no CUDA error stuck: the clean stream still decodes exactly
+    clean, log = on_card(checked_decode, "cuda", ra)
+    check(not isinstance(clean, str) and len(clean) == made["ra"][2]
+          and all(d is True for _p, d, _l in clean),
+          f"the clean stream after the fuzz trials: {clean}: {log[-500:]}")
+    out["fuzz"] = {"trials": FUZZ_TRIALS, "outcomes": outcomes,
+                   "cuda_wall_s": fuzz_wall}
+    out["launches_with_fuzz"] = dict(launched)
+    print("robust_decode " + json.dumps(out))
+    return out
+
+
+def frame_lines(log: str) -> list:
+    """(POC, QP, bits) of each of the encoder's per-picture lines."""
+    import re
+    return [(int(a), int(b), int(c)) for a, b, c in re.findall(
+        r"^POC +(\d+) .*? QP (\d+) \) +(\d+) bits", log, re.M)]
+
+
+def resume_rc_phase(torch, work: Path) -> dict:
+    """Checkpoint/resume of a fast-RD encode on ``cuda``, the fast-RD
+    device-apply encode under rate control on ``cuda`` against the CPU,
+    and one ``fastrd_quality`` sweep on ``cuda``."""
+    from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
+    from thevc_tpu_torch.ops import residual_kernel, satd_kernel
+    from thevc_tpu_torch.tools import fastrd_quality, run_encoder
+    out = {}
+    residual_kernel.launches = satd_kernel.launches = 0
+
+    def encode(name, device, clip, w, h, cfg, extra):
+        t = time.perf_counter()
+        log = run_encoder(["-c", cfg, "-i", clip, "-wdt", w, "-hgt", h,
+                           "-fr", 30, "--SEIpictureDigest=1", "--FastRD=1",
+                           "--device", device, "-b", work / f"{name}.bin",
+                           "-o", work / f"{name}.yuv", *extra])
+        wall = time.perf_counter() - t
+        check("Unknown option" not in log, f"{name}: {log[:500]}")
+        rep = json.loads([ln for ln in log.splitlines()
+                          if ln.startswith(REPORT_PREFIX)][-1]
+                         [len(REPORT_PREFIX):])
+        return ([(work / f"{name}.{x}").read_bytes() for x in ("bin", "yuv")],
+                wall, rep, log)
+
+    # (a) checkpoint/resume, 96x80 low-delay P
+    w, h, n = RESUME
+    clip = work / f"resume_{w}x{h}_{n}f.yuv"
+    make_clip(clip, w, h, n, "default")
+    ldp = CFG / "encoder_lowdelay_P_main.cfg"
+    ck = work / "resume_state.pkl"
+    ck.unlink(missing_ok=True)
+    for p in (work / "resume_joined.bin", work / "resume_joined.yuv"):
+        p.unlink(missing_ok=True)
+    full, full_wall, _, _ = encode("resume_full", "cuda", clip, w, h, ldp,
+                                   ("-f", n))
+    _, first_wall, _, _ = encode(
+        "resume_joined", "cuda", clip, w, h, ldp,
+        ("-f", 5, f"--CheckpointFile={ck}", "--CheckpointEvery=1"))
+    joined, resume_wall, rep, _ = encode(
+        "resume_joined", "cuda", clip, w, h, ldp, ("-f", n,
+                                                   f"--ResumeFile={ck}"))
+    cpu, cpu_wall, _, _ = encode("resume_cpu", "cpu", clip, w, h, ldp,
+                                 ("-f", n))
+    check(joined == full, "the resumed cuda encode differs from the "
+          "uninterrupted one")
+    check(cpu == full, "the cuda fast-RD encode differs from the cpu one")
+    check(rep["decision_frames"] == n - 5,
+          f"the resumed run decided {rep['decision_frames']} frames")
+    got, log = checked_decode("cuda", joined[0])
+    check(not isinstance(got, str) and [p[0] for p in got] == list(range(n))
+          and all(d is True for _p, d, _l in got),
+          f"the resumed stream's cuda decode: {got}: {log[-500:]}")
+    out["resume"] = {"frames": n, "bytes": len(full[0]),
+                     "identical": ["cuda uninterrupted", "cuda resumed",
+                                   "cpu"],
+                     "wall_s": {"cuda_full": full_wall,
+                                "cuda_to_checkpoint": first_wall,
+                                "cuda_resumed": resume_wall,
+                                "cpu_full": cpu_wall}}
+    print("resume_rc_resume " + json.dumps(out["resume"]))
+
+    # (b) fast-RD under rate control: all-intra with the device apply,
+    # then low-delay B, whose frame QPs the controller moves (all-intra
+    # frames stay at the cfg's QP at this target)
+    w, h, n, bps = RC
+    clip = work / f"rc_{w}x{h}_{n}f.yuv"
+    make_clip(clip, w, h, n, "default")
+    out["rc"] = {}
+    for name, cfg, frames, extra in (
+            ("intra_device_apply", "encoder_intra_main.cfg", n,
+             ("--device-apply",)),
+            ("ldb", "encoder_lowdelay_tlayers.cfg", RC_LDB_FRAMES, ())):
+        args = ("-f", frames, "--RateCtrl=1", f"--TargetBitrate={bps}",
+                *extra)
+        rc_cuda, rc_wall, rep, log = encode(f"rc_{name}_cuda", "cuda", clip,
+                                            w, h, CFG / cfg, args)
+        rc_cpu, rc_cpu_wall, _, _ = encode(f"rc_{name}_cpu", "cpu", clip, w,
+                                           h, CFG / cfg, args)
+        check(rc_cuda == rc_cpu, f"the rate-controlled {name} cuda encode "
+              "differs from the cpu one")
+        check(rep["decision_frames"] == frames,
+              f"the rate-controlled {name} encode: {rep}")
+        if extra:
+            check(rep["device_apply_frames"] == frames
+                  and rep["device_apply_fallback_frames"] == 0,
+                  f"the rate-controlled {name} encode: {rep}")
+        got, dlog = checked_decode("cuda", rc_cuda[0])
+        check(not isinstance(got, str) and len(got) == frames
+              and all(d is True for _p, d, _l in got)
+              and b"".join(pl.astype("uint8").tobytes()
+                           for _p, _d, pls in sorted(got, key=lambda g: g[0])
+                           for pl in pls) == rc_cuda[1],
+              f"the rate-controlled {name} stream's cuda decode: "
+              f"{dlog[-500:]}")
+        lines = frame_lines(log)
+        qps = [q for _p, q, _b in lines]
+        check(len(lines) == frames, f"rate control {name}: {lines}")
+        if not extra:
+            check(len(set(qps)) > 1, f"rate control {name}: the frame QPs "
+                  f"{qps} never moved")
+        # a bound on the rate (as tests/test_fast_apply.py), not evidence
+        # that the controller steers: the moving QPs and the tests' replay
+        # are
+        rate = len(rc_cuda[0]) * 8 * 30 / frames
+        check(rate < 2.5 * bps, f"rate control {name}: {rate:.0f} bit/s "
+              f"against {bps}")
+        row = {"frames": frames, "target_bps": bps, "bps": rate,
+               "bytes": len(rc_cuda[0]),
+               "poc_qp_bits": [list(x) for x in lines],
+               "decision_wall_s": rep["decision_wall_s"],
+               "wall_s": {"cuda": rc_wall, "cpu": rc_cpu_wall},
+               "identical": ["cuda", "cpu"]}
+        if extra:
+            row.update({k: rep[k] for k in (
+                "device_apply_waves", "device_apply_class_steps",
+                "device_apply_wall_s")})
+        out["rc"][name] = row
+        print(f"resume_rc_rc_{name} " + json.dumps(row))
+
+    # (c) fast-RD quality against the exact path on cuda
+    t = time.perf_counter()
+    rows = fastrd_quality.sweep(clip, w, h, QUALITY_FRAMES, QUALITY_QPS,
+                                "cuda")
+    out["quality"] = {"rows": rows, "wall_s": time.perf_counter() - t}
+    for row in rows:
+        print("resume_rc_quality " + fastrd_quality.format_row(row))
+    out["launches"] = {"residual": residual_kernel.launches,
+                       "satd": satd_kernel.launches}
+    check(all(out["launches"].values()),
+          f"the phase launched {out['launches']}")
+    print("resume_rc " + json.dumps({"launches": out["launches"],
+                                     "quality_wall_s":
+                                     out["quality"]["wall_s"]}))
     return out
 
 
@@ -1531,11 +1855,8 @@ def make_clip(path: Path, width: int, height: int, frames: int,
                     fh.write(np.clip(plane * g + (off if k == 0 else off / 2),
                                      0, 255).astype(np.uint8).tobytes())
         return
-    subprocess.run([sys.executable, str(ROOT / "tools" / "make_test_clip.py"),
-                    str(path), "--width", str(width), "--height",
-                    str(height), "--frames", str(frames), "--seed",
-                    str(SEED), "--style", style], check=True,
-                   capture_output=True, timeout=600)
+    from thevc_tpu_torch import streams
+    streams.make_clip(path, width, height, frames, style, SEED)
 
 
 def main() -> int:
@@ -1575,6 +1896,8 @@ def main() -> int:
     wp_scaling_phase(torch, work, made)
     parts = partitioned_phase(torch, work, made)
     multi = multistream_phase(torch, work, made)
+    robust = robust_decode_phase(torch, work)
+    resume = resume_rc_phase(torch, work)
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -1604,6 +1927,8 @@ def main() -> int:
         "multistream_dryrun": multi["dryrun"]["launches"],
         **{f"{k}_decode": {"residual": v["residual"]}
            for k, v in multi["tools"].items()},
+        "robust_decode": robust["launches_with_fuzz"],
+        "resume_rc": resume["launches"],
         "inter_decode": inter["launches"],
         **{f"inter_decode_{k}": v for k, v in small.items()}}
     print("launches by path " + json.dumps(by_path))

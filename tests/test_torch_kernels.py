@@ -534,3 +534,71 @@ def test_tool_streams_decode_on_cuda(cuda, tmp_path):
                        for pl in p.frame.planes())
         assert got == rec.read_bytes(), name
         assert residual_kernel.launches > before, name
+
+
+@pytest.mark.gpu
+def test_robust_and_fuzz_decode_cuda_equals_cpu(cuda, tmp_path):
+    from thevc_tpu_torch import native, streams
+    assert native.get_lib() is not None
+    from thevc_tpu_torch.decoder import inter
+    made = streams.robust_streams(tmp_path)
+    before = residual_kernel.launches
+    put, puts = inter.RefPlanes.put, []
+
+    def spy(refs, pic, planes):
+        puts.append(pic.poc)
+        return put(refs, pic, planes)
+    for case in streams.ROBUST_CASES:
+        data, options, pocs = streams.robust_case(made, case)
+        if case == "conceal":
+            inter.RefPlanes.put = spy
+        try:
+            got, _ = streams.decode_outcome(data, cuda, options)
+        finally:
+            inter.RefPlanes.put = put
+        if case == "conceal":
+            # the concealed POC 2 reaches the card once, when POC 3 asks
+            assert sorted(puts) == pocs
+            assert puts.index(2) == puts.index(1) + 1
+        assert not isinstance(got, str), (case, got)
+        assert [p[0] for p in got] == pocs, case
+        assert streams.same_outcome(
+            got, streams.decode_outcome(data, "cpu", options)[0]), case
+    assert residual_kernel.launches > before
+    ra = made["ra"][0].read_bytes()
+    for k, buf in enumerate(streams.fuzz_variants(ra, 12)):
+        got, text = streams.decode_outcome(buf, cuda)
+        assert "CUDA" not in text, (k, got, text)
+        assert streams.same_outcome(got, streams.decode_outcome(buf)[0]), k
+    # no CUDA error stuck: the clean stream decodes exactly
+    clean, _ = streams.decode_outcome(ra, cuda)
+    assert len(clean) == 9 and all(d is True for _p, d, _l in clean)
+
+
+@pytest.mark.gpu
+def test_resumed_fastrd_encode_on_cuda_equals_uninterrupted(cuda, tmp_path):
+    import contextlib
+    import io
+    from thevc_tpu_torch import streams
+    from thevc_tpu_torch.apps.encoder import main
+    clip = streams.make_clip(tmp_path / "clip_96x80_9f.yuv", 96, 80, 9)
+    ck = tmp_path / "state.pkl"
+
+    def run(name, device, *extra):
+        with contextlib.redirect_stdout(io.StringIO()):
+            main(["-c", str(REPO / "tests" / "cfg" /
+                            "encoder_lowdelay_P_main.cfg"),
+                  "-i", str(clip), "-wdt", "96", "-hgt", "80", "-fr", "30",
+                  "--SEIpictureDigest=1", "--FastRD=1", "--device", device,
+                  "-b", str(tmp_path / f"{name}.bin"),
+                  "-o", str(tmp_path / f"{name}.yuv"), *extra])
+        return [(tmp_path / f"{name}.{x}").read_bytes()
+                for x in ("bin", "yuv")]
+    full = run("full", str(cuda), "-f", "9")
+    before = satd_kernel.launches
+    run("joined", str(cuda), "-f", "5", f"--CheckpointFile={ck}",
+        "--CheckpointEvery=1")
+    joined = run("joined", str(cuda), "-f", "9", f"--ResumeFile={ck}")
+    assert satd_kernel.launches > before
+    assert joined == full
+    assert run("cpu", "cpu", "-f", "9") == full

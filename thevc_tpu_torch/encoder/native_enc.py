@@ -143,8 +143,13 @@ class NativeCuEncoder:
             pass
 
 
-def make_native_encoder(cu) -> NativeCuEncoder | None:
-    """Build the native encoder for this slice, or None if unsupported."""
+def make_native_encoder(cu, dqp_at_slice_qp: bool = False
+                        ) -> NativeCuEncoder | None:
+    """Build the native encoder for this slice, or None if unsupported.
+    With ``dqp_at_slice_qp`` a slice whose PPS enables delta QP with one
+    quantization group a CTU is taken too: every CU stays at the slice
+    QP and the native core codes a zero delta (the fast-RD encode under
+    frame-level rate control)."""
     import os
     if os.environ.get("THEVC_NATIVE", "1") == "0":
         return None
@@ -162,7 +167,8 @@ def make_native_encoder(cu) -> NativeCuEncoder | None:
             return None
     if cu.scaling is not None:
         return None
-    if pps.use_dqp or cu.unit_qp is not None:
+    if cu.unit_qp is not None or (pps.use_dqp and not (
+            dqp_at_slice_qp and pps.max_cu_dqp_depth == 0)):
         return None
     if sps.use_pcm:
         return None              # PCM mode decision not ported
@@ -186,7 +192,7 @@ def make_native_encoder(cu) -> NativeCuEncoder | None:
     ep.qp_bd_offset_c = sps.qp_bd_offset_c
     ep.cb_qp_off = pps.chroma_cb_qp_offset + sh.slice_qp_delta_cb
     ep.cr_qp_off = pps.chroma_cr_qp_offset + sh.slice_qp_delta_cr
-    ep.use_dqp = 0
+    ep.use_dqp = int(bool(pps.use_dqp))
     ep.tq_bypass_enable = int(bool(pps.transquant_bypass_enable_flag))
     ep.cu_tq_bypass_value = 0
     ep.use_ts = int(bool(pps.use_transform_skip))

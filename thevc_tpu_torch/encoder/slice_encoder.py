@@ -665,7 +665,11 @@ class PictureCompressor:
                       and self.cfg.wavefront_synchro)
         if base_ok and (self.nsub == 1 or wpp_native):
             from .native_enc import make_native_encoder
-            nat = make_native_encoder(cu)
+            # rate control forces delta QP on (derive_params); fast-RD
+            # keeps every CU at the frame QP, a zero delta
+            nat = make_native_encoder(
+                cu, dqp_at_slice_qp=(self.cfg.fast_rd and self.rc is not None
+                                     and self.aq is None))
             if nat is not None and self.cfg.fast_rd \
                     and sh.slice_type != I_SLICE:
                 # fast-RD for P/B slices: device-batched motion search

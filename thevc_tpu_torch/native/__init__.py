@@ -333,6 +333,25 @@ def get_lib():
     return _lib
 
 
+def use_library(so) -> None:
+    """Load the native core from the library file ``so`` (another build of
+    ``codec_core.cpp``: an A/B timing's variant, ``tools/ab_bench``) in
+    place of the one built from this checkout's sources.  Call it before
+    anything loads the core; raises ``RuntimeError`` if a library is
+    already loaded or ``so`` does not load."""
+    global _lib, _tried
+    with _lock:
+        if _lib is not None:
+            raise RuntimeError("the native core is already loaded")
+        _lib = _load(Path(so))
+        _tried = True
+
+
+def library_path() -> Path:
+    """The library built from this checkout's sources, built if needed."""
+    return _build()
+
+
 def _load(so: Path):
     """Bind the library's entry points."""
     try:

@@ -9332,7 +9332,21 @@ static void es_final_transform_tree(EncState* S, int abs_part, int depth,
       cbf_v = (U3(fa->cbf, 2, bux, buy) >> tr_idx) & 1;
     }
   }
-  // dQP unsupported in the native path (gated at create)
+  // cu_qp_delta (TEncEntropy::xEncodeTransform): once a quantization
+  // group, at its first TU with a coded block.  The native path codes
+  // dQP only with one group a CTU and every CU at the slice QP (the
+  // fast-RD encode under frame-level rate control), so the delta is 0:
+  // cu_qp_delta_abs's first bin, 0 (TEncSbac::codeDeltaQP).  A counting
+  // pass adapts the bin's context but leaves it out of the count: the
+  // count's fraction carries into the next CTU's RD estimates
+  // (TEncBinCABACCounter::resetBits keeps it), which count no dQP bin,
+  // so the zero delta moves no decision.
+  if (S->ep.use_dqp && S->fin_dqp_flag && (cbf_y || cbf_u || cbf_v)) {
+    uint64_t frac = e->frac_bits;
+    eb_bin(e, 0, S->co.dqp);
+    if (e->mode == 0) e->frac_bits = frac;
+    S->fin_dqp_flag = 0;
+  }
   int size = 1 << log2_tr;
   int px = ux * 4, py = uy * 4;
   if (cbf_y)
@@ -9390,6 +9404,9 @@ static void es_encode_cu_final(EncState* S, int abs_part, int depth) {
   int size = fa->ctu_size >> depth;
   int inside = px + size <= fa->width && py + size <= fa->height;
   int max_sig = fa->max_depth - S->ep.add_cu_depth;
+  // a quantization group starts at each CTU (setdQPFlag, TEncCu.cpp
+  // xEncodeCU; max_cu_dqp_depth is 0 here)
+  if (depth == 0) S->fin_dqp_flag = S->ep.use_dqp;
   if (inside) we_split_flag(S, e, abs_part, depth);
   if ((depth < U(fa->depth, ux, uy) && depth < max_sig) || !inside) {
     int q_parts = (fa->parts >> (depth << 1)) >> 2;
@@ -10250,6 +10267,7 @@ static void es_code_coeff(EncState* S, int abs_part, int depth) {
   if (!root_cbf) return;
   EncBin* save_fin = S->fin;
   S->fin = &S->go;
+  S->fin_dqp_flag = 0;            // RD estimates count no dQP bin
   es_final_transform_tree(S, abs_part, depth, 0);
   S->fin = save_fin;
 }
@@ -10760,6 +10778,7 @@ static void es_check_intra(EncState* S, int abs_part, int depth,
       (fa->ctu_size >> depth) <= (1 << S->ep.pcm_log2_max))
     eb_bin_trm(&S->go, 0);
   S->fin = &S->go;
+  S->fin_dqp_flag = 0;            // RD estimates count no dQP bin
   PROF_BEGIN(12);
   es_final_transform_tree(S, abs_part, depth, 0);
   PROF_END(12);
