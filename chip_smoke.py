@@ -6,8 +6,8 @@ Run from the root of a checkout on a machine with a CUDA card:
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit (nvidia-smi).
-2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``), one
-   nvcc for each source, all started together.
+2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
+   residual, SATD, MC), one nvcc for each source, all started together.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -65,20 +65,27 @@ Run from the root of a checkout on a machine with a CUDA card:
    byte-identical streams.
 8. Inter decode phase: decodes the 1080p low-delay B stream through the
    port's CLI on ``cuda``, one warm-up and three timed runs checked as in
-   5, where the residual kernel (K1) and motion compensation
-   (``ops.mc.mc_batch``) must both have run.  Then one run with stage
-   timing on (a device sync around each stage) for the stage walls per
-   picture, and one that records every ``mc_batch`` call to time the
-   plain-torch MC per class on the card (CUDA events, eager and as one
-   CUDA graph per class; a class whose graph holds no kernel fails the
-   run, except the uni-predicted copies, which return a view of their
-   windows and have no graph time).  The 416x240 low-delay P and random-access
+   5, where the residual kernel (K1) and the MC kernel
+   (``csrc/mc.cu``, one launch a B picture) must have run and the plain
+   MC (``ops.mc.mc_batch``) never.  Then one run with stage timing on (a
+   device sync around each stage) for the stage walls per picture, and
+   one that records every ``mc.mc_picture`` call (each B picture's job
+   table and reference planes): on each picture the MC kernel is held
+   against its plain version (tolerance 0) and timed (CUDA events around
+   20 calls as the decode makes them, host table and upload included;
+   its launch alone as a CUDA graph of 20 launches, which must hold 20
+   kernel nodes; the plain version eager), beside its bound (the
+   distinct reference samples its windows read, the job table and the
+   prediction, over HBM's rate; its multiply-adds over the float32
+   peak).  The 416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
-   byte-identical to their encoders'.
+   byte-identical to their encoders', through the MC kernel and not the
+   plain MC.
 9. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
    with ``--FastRD=1 --device cuda`` and the low-delay B cfg at QP 32
    (SAO on, as the exact stream) in a child process whose report gives
-   the launches of both kernels (each above 0), the decision frames (8,
+   the launches of K1, K2 and the MC kernel (each above 0) and the
+   plain MC's calls (none), the decision frames (8,
    7 of them B) and the decision wall; decodes it on ``cuda`` (8/8
    digests OK, recon byte-identical to the encoder's) and reports its
    bytes and luma PSNR beside the exact low-delay B stream's (no gate).
@@ -87,15 +94,18 @@ Run from the root of a checkout on a machine with a CUDA card:
    this process (same cfg, ``Encoder(cfg, device="cuda")``) with the
    arguments of the last ``fast_inter.decide_frame_p`` call recorded,
    and that call runs again on ``cuda``: a warm-up, three timed runs
-   (synchronised wall, K1/K2 launches counted from 0), one with stage
-   timing on (stage walls), one under ``torch.profiler`` (device time,
-   busy share), and one that records every K1 and K2 call of the pass,
-   the intra leaves' SATD calls included (as many as the launches):
-   each is held against its plain version on the pass's own data
-   (tolerance 0) and the 49-candidate SATD classes are timed with their
-   bytes, bound and share (``kernel satd`` rows, as in 4).  Then 416x240 low-delay P (3 frames)
+   (synchronised wall, K1/K2/MC kernel launches counted from 0, no
+   plain MC), one with stage timing on (stage walls), one under
+   ``torch.profiler`` (device time, busy share), and one that records
+   every K1, K2 and MC kernel call of the pass, the intra leaves' SATD
+   calls included (as many as the launches): each is held against its
+   plain version on the pass's own data (tolerance 0), and the
+   49-candidate SATD classes and quarter-pel MC calls (one a size class
+   and list) are timed with their bytes, bound and share (``kernel
+   satd`` and ``kernel mc_blocks`` rows, as in 4).  Then 416x240 low-delay P (3 frames)
    and random-access (5 frames) fast-RD streams of the small motion
-   clip: ``--device cuda`` and ``--device cpu`` byte-identical.  Last,
+   clip: ``--device cuda`` and ``--device cpu`` byte-identical, the
+   ``cuda`` ones through the MC kernel and not the plain MC.  Last,
    the 64x64 weighted-prediction (``--wpP=1`` low-delay P, ``--wpB=1``
    low-delay B, a fading clip) and scaling-list (``--ScalingList=1``
    all-intra and low-delay B) streams decode on ``cuda`` with every
@@ -159,7 +169,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    and the temporal-layer cap ``max_temporal_layer=0`` on a low-delay B
    stream (the three with decoder options also through the decoder CLI's
    ``-s`` and ``-t`` on ``cuda``, its output the decode's planes); K1
-   and the MC must have run, and the concealed picture must
+   and the MC kernel must have run, the plain MC never on ``cuda``, and
+   the concealed picture must
    reach the card once (``RefPlanes.get``, when POC 3 first refers to
    it) and stay while POC 4 does.  Then 24 seeded corrupted copies
    of the 9-frame random-access stream (bit flips and truncations,
@@ -168,7 +179,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    exception (a CUDA error fails the run), with the same outcome as on
    the CPU; then the clean stream decodes on ``cuda`` with every digest
    OK in the same process.  Prints the outcomes by exception type, the
-   fuzz decodes' wall and the phase's K1 and MC launches.
+   fuzz decodes' wall and the phase's K1 and MC kernel launches.
 14. Resume and rate-control phase (``resume_rc``), in this process
    through the port's encoder CLI: a 96x80 9-frame low-delay P
    ``--FastRD=1`` encode on ``cuda``, uninterrupted, and checkpointed at
@@ -184,14 +195,16 @@ Run from the root of a checkout on a machine with a CUDA card:
    frame QPs must move (the tests hold them against the JAX package's
    rate controller fed the same bits); one
    ``thevc_tpu_torch.tools.fastrd_quality`` sweep on ``cuda`` (2 frames
-   of that clip, QP 22-37), its rows printed.  The phase's K1 and K2
-   launches (``cuda`` runs only) must be above 0.
+   of that clip, QP 22-37), its rows printed.  The phase's K1, K2 and MC
+   kernel launches (``cuda`` runs only) must be above 0.
 15. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
-   summed over a frame's five classes; no single PyTorch call computes
-   either, so ``library_ms`` is null), then the card's name and
+   summed over a frame's five classes, MC a picture of the low-delay B
+   decode (the mean over its B pictures); no single PyTorch call
+   computes any of them (the MC: per-PU-phase 8-tap interpolation with
+   the int16 wrap), so ``library_ms`` is null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
 
@@ -514,10 +527,11 @@ def prepare_streams(work: Path) -> dict:
 
 
 def timed_decodes(torch, stream: Path, enc_rec: Path, dec_rec: Path,
-                  frames: int, counters: dict) -> dict:
+                  frames: int, counters: dict, absent=()) -> dict:
     """One warm-up decode on ``cuda``, then three timed ones, each checked
     (digests, recon, every counter of ``counters`` above 0: name ->
-    module whose ``launches`` the run zeroes before and reads after)."""
+    module whose ``launches`` the run zeroes before and reads after; the
+    ``launches`` of each module of ``absent`` stay 0)."""
     from thevc_tpu_torch.ops import device as dev_stats
 
     def decode():
@@ -528,7 +542,7 @@ def timed_decodes(torch, stream: Path, enc_rec: Path, dec_rec: Path,
     decode()                        # warm-up: first-touch costs
     walls = []
     for _ in range(3):
-        for mod in counters.values():
+        for mod in (*counters.values(), *absent):
             mod.launches = 0
         dev_stats.stats_reset()
         rc, log, wall = decode()
@@ -537,6 +551,9 @@ def timed_decodes(torch, stream: Path, enc_rec: Path, dec_rec: Path,
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         for k, n in launches.items():
             check(n > 0, f"the decode of {stream.name} made no {k} launch")
+        for mod in absent:
+            check(mod.launches == 0, f"the decode of {stream.name} ran "
+                  f"{mod.__name__} {mod.launches} times")
         walls.append(wall)
     wall = sorted(walls)[1]
     return dict(frames=frames, wall_s=walls, fps=frames / wall,
@@ -631,14 +648,19 @@ def decode_class_times(torch, stream: Path) -> dict:
 
 
 def inter_decode_phase(torch, work: Path, made: dict) -> dict:
-    """The 1080p low-delay B decode on ``cuda``: timed runs, the stage
-    walls per picture, and the plain-torch MC per class."""
+    """The 1080p low-delay B decode on ``cuda``: timed runs (one MC kernel
+    launch a P/B picture, no plain MC), the stage walls per picture, and
+    the MC kernel against its plain version on every picture's job
+    table."""
     from thevc_tpu_torch.ops import device as dev_stats
-    from thevc_tpu_torch.ops import mc, residual_kernel
+    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
     _clip, stream, enc_rec = made["inter_ldb"][:3]
     dec_rec = work / "inter_ldb_dec_rec.yuv"
     res = timed_decodes(torch, stream, enc_rec, dec_rec, FRAMES,
-                        {"residual": residual_kernel, "mc": mc})
+                        {"residual": residual_kernel, "mc": mc_kernel},
+                        absent=(mc,))
+    check(res["launches"]["mc"] == FRAMES - 1, f"{res['launches']['mc']} "
+          f"MC kernel launches for {FRAMES - 1} B pictures")
     print("inter_decode " + json.dumps(res))
 
     dev_stats.stage_timing(True)
@@ -652,84 +674,168 @@ def inter_decode_phase(torch, work: Path, made: dict) -> dict:
     print("inter_decode_stages " + json.dumps({
         "wall_s": staged_wall, "stage_ms_per_picture": {
             k: 1000 * v / FRAMES for k, v in sorted(stages.items())}}))
-    res["mc_classes"] = mc_class_times(torch, stream)
+    res["mc_pictures"] = mc_picture_times(torch, stream)
     return res
 
 
-def mc_class_times(torch, stream: Path) -> list:
-    """Decode ``stream`` on ``cuda`` recording every ``mc_batch`` call,
-    then time the calls of each (component, case, bi) class on the card:
-    CUDA events around the class's calls replayed eagerly (host launch
-    gaps included) and as one CUDA graph (device time).  Each class's
-    bound: the int16 windows read and predictions written, over HBM's
-    rate."""
-    from thevc_tpu_torch.decoder.top import Decoder
-    from thevc_tpu_torch.ops import mc
-    calls: dict = {}
-    real = mc.mc_batch
+def touched(torch, rows: int, cols: int, plane, y0, x0, h, w) -> int:
+    """Distinct samples of planes [P, rows, cols] that windows (plane,
+    top row y0, left column x0, h x w; integer tensors [N], h and w also
+    integers) read at clamped coordinates: each window touches its
+    clamped rectangle, marked through a 2-D difference array."""
+    ya, xa = y0.clamp(0, rows - 1), x0.clamp(0, cols - 1)
+    yb, xb = (y0 + h).clamp(1, rows), (x0 + w).clamp(1, cols)
+    n_planes = int(plane.max()) + 1
+    diff = torch.zeros((n_planes, rows + 1, cols + 1), dtype=torch.int32,
+                       device=plane.device)
+    flat = diff.view(-1)
+    for y, x, v in ((ya, xa, 1), (ya, xb, -1), (yb, xa, -1), (yb, xb, 1)):
+        flat.index_add_(0, (plane.long() * (rows + 1) + y) * (cols + 1) + x,
+                        torch.full(y.shape, v, dtype=torch.int32,
+                                   device=y.device))
+    cover = diff.cumsum(1).cumsum(2)[:, :rows, :cols]
+    return int((cover > 0).sum())
 
-    def record(windows, fx, fy, case, luma, bd, bi, out_h, out_w):
-        calls.setdefault((luma, case, bi), []).append(
-            (windows, fx, fy, case, luma, bd, bi, out_h, out_w))
-        return real(windows, fx, fy, case, luma, bd, bi, out_h, out_w)
-    mc.mc_batch = record
+
+def mc_blocks_bound(torch, planes, jobs, case: str, luma: bool, bd: int,
+                    bi: bool, out_h: int, out_w: int) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one ``mc_blocks`` call:
+    the distinct reference samples its windows read, its int32 jobs and
+    its int16 predictions; its multiply-adds on the CUDA cores."""
+    from thevc_tpu_torch.ops import mc
+    rows, cols = mc.window_shape(case, luma, out_h, out_w)
+    j = jobs.long()
+    n, taps = int(j.shape[0]), 8 if luma else 4
+    nbytes = 2 * touched(torch, int(planes.shape[1]), int(planes.shape[2]),
+                         j[:, 0], j[:, 2], j[:, 1], rows, cols) \
+        + 4 * j.numel() + 2 * n * out_h * out_w
+    per = {"copy": 0, "hor": out_h * out_w, "ver": out_h * out_w,
+           "2d": (out_h + taps - 1 + out_h) * out_w}[case]
+    ops = 2 * n * per * taps
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
+    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mc_bound(torch, jobs, planes, size: int, table_bytes: int) -> tuple:
+    """(bytes, operations, bound_ms, bound_by, window bytes) of one
+    picture's MC: the distinct reference samples its windows read
+    (``touched``), the job table, and the int16 prediction written; its
+    multiply-adds (the first pass over the window rows of a 2-D case,
+    then one pass a sample), on the CUDA cores.  The window bytes sum
+    every window as the class-by-class MC read them."""
+    import numpy as np
+    from thevc_tpu_torch.ops import mc
+    r = mc._list_rows(np.asarray(jobs, np.int64))
+    j = np.asarray(jobs, np.int64)[r[:, 0]]
+    h, w, luma, case = j[:, mc.J_H], j[:, mc.J_W], j[:, mc.J_LUMA], r[:, 7]
+    taps = np.where(luma == 1, 8, 4)
+    rows = h + (taps - 1) * np.isin(case, (2, 3))
+    cols = w + (taps - 1) * np.isin(case, (1, 3))
+    macs = int(((rows * w * (case == 3) + h * w * (case > 0)) * taps).sum())
+    samples = 0
+    for k, p in enumerate(planes):
+        sel = r[:, 2] == k
+        if sel.any():
+            t = [torch.from_numpy(v[sel]) for v in (r[:, 4], r[:, 3], rows,
+                                                    cols)]
+            samples += touched(torch, int(p.shape[0]), int(p.shape[1]),
+                               torch.zeros_like(t[0]), *t)
+    nbytes = 2 * samples + table_bytes + 2 * size
+    ops = 2 * macs
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
+    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations", \
+        2 * int((rows * cols).sum())
+
+
+def mc_picture_times(torch, stream: Path) -> dict:
+    """Decode ``stream`` on ``cuda`` recording every ``mc.mc_picture`` call
+    (each P/B picture's job table and reference planes), then on each
+    picture hold the MC kernel against its plain version (tolerance 0)
+    and time on the card: the kernel as the decode calls it (CUDA events
+    around 20 eager calls: the host's checks, table, upload and launch),
+    its launch alone as a CUDA graph of 20 launches over the uploaded
+    table (device time), and the plain version (eager), beside the
+    picture's bound (``mc_bound``)."""
+    import numpy as np
+    from thevc_tpu_torch.decoder.top import Decoder
+    from thevc_tpu_torch.ops import mc, mc_kernel
+    calls = []
+    real = mc.mc_picture
+
+    def record(jobs, planes, size, bd):
+        calls.append((np.array(jobs), list(planes), size, bd))
+        return real(jobs, planes, size, bd)
+    mc.mc_picture = record
     try:
         pics = Decoder("cuda").decode_stream(stream.read_bytes())
     finally:
-        mc.mc_batch = real
+        mc.mc_picture = real
     check(all(p.digest_ok for p in pics), "the recording decode failed")
-    n_pics = len(pics)
-    rows = []
-    for (luma, case, bi), cl in sorted(calls.items()):
-        def replay(cl=cl):
-            for c in cl:
-                real(*c)
-        eager = time_ms(torch, replay, 5)
-        graph, nodes = capture(torch, replay, 1)
-        if nodes:
-            graph_ms = time_ms(torch, graph.replay, 10) / n_pics
-        else:
-            # a uni-predicted copy returns a view of its windows: no
-            # device work, so no graph time
-            check(case == "copy" and not bi, f"the MC class "
-                  f"{(luma, case, bi)} put no kernel into its graph")
-            graph_ms = None
-        del graph
-        nbytes = sum(2 * (c[0].numel() + c[0].shape[0] * c[7] * c[8])
-                     for c in cl)
-        rows.append(dict(
-            comp="luma" if luma else "chroma", case=case, bi=bool(bi),
-            calls=len(cl), pus=sum(int(c[0].shape[0]) for c in cl),
-            eager_ms_per_picture=eager / n_pics, kernel_nodes=nodes,
-            graph_ms_per_picture=graph_ms,
-            bytes_per_picture=nbytes / n_pics,
-            bound_ms_per_picture=1000 * nbytes / HBM_BYTES_S / n_pics))
-        print("mc_class " + json.dumps(rows[-1]))
-    print("mc_total " + json.dumps({
-        "pictures": n_pics,
-        "eager_ms_per_picture": sum(r["eager_ms_per_picture"] for r in rows),
-        "graph_ms_per_picture": sum(r["graph_ms_per_picture"] or 0
-                                    for r in rows),
-        "bytes_per_picture": sum(r["bytes_per_picture"] for r in rows),
-        "bound_ms_per_picture": sum(r["bound_ms_per_picture"]
-                                    for r in rows)}))
-    return rows
+    check(len(calls) == FRAMES - 1, f"{len(calls)} MC pictures recorded")
+    rows, max_err = [], 0
+    for k, (jobs, planes, size, bd) in enumerate(calls):
+        got = mc.mc_picture(jobs, planes, size, bd)
+        want = mc.mc_picture_plain(jobs, planes, size, bd)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        max_err = max(max_err, err)
+        check(torch.equal(got, want), f"MC kernel != plain on picture {k} "
+              f"of the decode (max abs err {err})")
+        table, n_planes, n_jobs, n_tiles = mc_kernel.picture_table(
+            jobs, planes, size, bd)
+        table_d = torch.from_numpy(table).to("cuda")
+        pred = torch.zeros(size, dtype=torch.int16, device="cuda")
+
+        def launch(table_d=table_d, n=(n_planes, n_jobs, n_tiles),
+                   pred=pred, bd=bd):
+            mc_kernel.launch_picture(table_d, *n, pred, bd)
+        launch()
+        check(torch.equal(pred, want), f"MC kernel launch != plain on "
+              f"picture {k}")
+        ms = time_ms(torch, lambda: mc.mc_picture(jobs, planes, size, bd),
+                     20)
+        g_ms = graph_ms(torch, launch, 20)
+        plain_ms = time_ms(torch, lambda: mc.mc_picture_plain(
+            jobs, planes, size, bd), 3)
+        nbytes, ops, bound_ms, bound_by, win_bytes = mc_bound(
+            torch, jobs, planes, size, table.nbytes)
+        kinds = {kd: int((jobs[:, mc.J_KIND] == i).sum())
+                 for i, kd in enumerate(mc.KINDS)}
+        rows.append(dict(picture=k, jobs=n_jobs, tiles=n_tiles, kinds=kinds,
+                         ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
+                         bytes=nbytes, window_bytes=win_bytes, ops=ops,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         share_of_bound=bound_ms / ms,
+                         graph_share_of_bound=bound_ms / g_ms))
+        print("kernel mc_picture " + json.dumps(rows[-1]))
+    n = len(rows)
+    total = {key: sum(r[key] for r in rows) / n
+             for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bytes")}
+    total["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
+                                       for r in rows) else "operations"
+    print("mc_picture_mean " + json.dumps(dict(total, pictures=n,
+                                                max_abs_err=max_err)))
+    del calls
+    return {"max_abs_err": max_err, "rows": rows, "mean": total}
 
 
 def small_inter_phase(torch, work: Path, made: dict) -> dict:
     """The 416x240 low-delay P and random-access streams on ``cuda``."""
-    from thevc_tpu_torch.ops import mc, residual_kernel
+    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
     out = {}
     for name in SMALL_INTER:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
-        residual_kernel.launches = mc.launches = 0
+        residual_kernel.launches = mc_kernel.launches = mc.launches = 0
         rc, log = decode_cuda(torch, stream, dec_rec)
         out[name] = {"frames": frames, "residual": residual_kernel.launches,
-                     "mc": mc.launches}
+                     "mc": mc_kernel.launches}
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
-        check(out[name]["residual"] > 0 and out[name]["mc"] > 0,
-              f"{name}: the decode skipped K1 or MC")
+        check(out[name]["residual"] > 0 and out[name]["mc"] > 0
+              and mc.launches == 0, f"{name}: the decode skipped K1 or the "
+              f"MC kernel, or ran the plain MC {mc.launches} times")
     print("small_inter " + json.dumps(out))
     return out
 
@@ -918,6 +1024,10 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           "SATD kernel")
     check(rep["residual_launches"] > 0, "the P/B fast-RD encode launched "
           "no residual kernel")
+    check(rep["mc_launches"] > 0 and rep["plain_mc_calls"] == 0,
+          f"the P/B fast-RD encode launched the MC kernel "
+          f"{rep['mc_launches']} times and the plain MC "
+          f"{rep['plain_mc_calls']} times")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
           and rep["decision_frames_inter"] == FRAMES - 1,
@@ -931,6 +1041,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
+               mc_launches=rep["mc_launches"],
                fast_bytes=stream.stat().st_size,
                exact_bytes=exact.stat().st_size,
                psnr_y_fast=luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES),
@@ -986,11 +1097,13 @@ def recorded_b_call(clip: Path, work: Path) -> tuple:
 def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p B frame's decision pass in this process, replayed from
     the encoder's own call: synchronised walls, stage walls, profiler
-    device time, and every K1 and K2 call of the pass held against its
-    plain version."""
+    device time, and every K1, K2 and MC kernel call of the pass held
+    against its plain version; the quarter-pel MC calls (49 candidates a
+    block, one a size class and list) timed with their bound."""
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     from thevc_tpu_torch.ops import device as dev_stats
-    from thevc_tpu_torch.ops import residual_kernel, satd, satd_kernel, tq
+    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel, satd, \
+        satd_kernel, tq
     args, refs1 = recorded_b_call(clip, work)
     cache = fast_inter.RefCache()
 
@@ -1001,13 +1114,15 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     walls, launches = [], None
     for _ in range(3):
         satd_kernel.launches = residual_kernel.launches = 0
+        mc_kernel.launches = mc.launches = 0
         t = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t)
         launches = {"residual": residual_kernel.launches,
-                    "satd": satd_kernel.launches}
-        check(launches["residual"] > 0 and launches["satd"] > 0,
-              f"the B decision pass skipped a kernel: {launches}")
+                    "satd": satd_kernel.launches, "mc": mc_kernel.launches}
+        check(all(launches.values()) and mc.launches == 0,
+              f"the B decision pass skipped a kernel: {launches}, or ran "
+              f"the plain MC {mc.launches} times")
     dev_stats.stage_timing(True)
     try:
         run()
@@ -1032,9 +1147,11 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
 
     # record the pass's kernel calls (the inter leaves' and the intra
     # leaves'), then hold each against its plain version and time the
-    # 49-candidate SATD classes
-    calls = {"satd": [], "residual": []}
+    # 49-candidate SATD and MC calls
+    calls = {"satd": [], "residual": [], "mc": []}
     real_satd, real_tq = satd.satd_blocks, tq.tu_recon_pipeline
+    real_mc, real_qpel = mc.mc_blocks, fast_inter._qpel_preds
+    in_qpel = [False]
 
     def rec_satd(org, preds, bit_inc=0):
         calls["satd"].append((org, preds, bit_inc))
@@ -1043,17 +1160,30 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     def rec_tq(*a):
         calls["residual"].append(a)
         return real_tq(*a)
+
+    def rec_mc(*a):
+        calls["mc"].append((a, in_qpel[0]))
+        return real_mc(*a)
+
+    def rec_qpel(*a):
+        in_qpel[0] = True
+        try:
+            return real_qpel(*a)
+        finally:
+            in_qpel[0] = False
     fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
     tq.tu_recon_pipeline = rec_tq
+    mc.mc_blocks, fast_inter._qpel_preds = rec_mc, rec_qpel
     try:
         run()
     finally:
         fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
         tq.tu_recon_pipeline = real_tq
+        mc.mc_blocks, fast_inter._qpel_preds = real_mc, real_qpel
     check({k: len(v) for k, v in calls.items()} == launches,
-          f"recorded {[len(v) for v in calls.values()]} K2/K1 calls of the "
-          f"B pass for launches {launches}")
-    max_err = {"satd": 0, "residual": 0}
+          f"recorded {[len(v) for v in calls.values()]} K2/K1/MC calls of "
+          f"the B pass for launches {launches}")
+    max_err = {"satd": 0, "residual": 0, "mc": 0}
     rows = []
     for org, preds, bit_inc in calls["satd"]:
         got, plain = satd.satd_blocks(org, preds, bit_inc), \
@@ -1086,13 +1216,38 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         max_err["residual"] = max(max_err["residual"], err)
         check(torch.equal(got, plain), "residual kernel != plain on the B "
               f"pass's {tuple(a[1].shape)} call (max abs err {err})")
-    out.update(max_abs_err=max_err, satd_rows=rows,
+    mc_rows = []
+    for a, qpel in calls["mc"]:
+        got, plain = mc.mc_blocks(*a), mc.mc_blocks_plain(*a)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+        max_err["mc"] = max(max_err["mc"], err)
+        check(torch.equal(got, plain), "MC kernel != plain on the B pass's "
+              f"{tuple(got.shape)} call (max abs err {err})")
+        if not qpel:
+            continue
+        ms = time_ms(torch, lambda: mc.mc_blocks(*a), 20)
+        g_ms = graph_ms(torch, lambda: mc.mc_blocks(*a), 20)
+        plain_ms = time_ms(torch, lambda: mc.mc_blocks_plain(*a), 3)
+        nbytes, ops, bound_ms, bound_by = mc_blocks_bound(torch, *a)
+        n, h, w = (int(v) for v in got.shape)
+        mc_rows.append(dict(size=h, n=n, blocks=n // 49, ms=ms,
+                            graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
+                            ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                            share_of_bound=bound_ms / ms,
+                            graph_share_of_bound=bound_ms / g_ms))
+        print("kernel mc_blocks " + json.dumps(mc_rows[-1]))
+    check(len(mc_rows) == 2 * len(fast_inter.INTER_SIZES),
+          f"{len(mc_rows)} quarter-pel MC calls in the B pass")
+    out.update(max_abs_err=max_err, satd_rows=rows, mc_rows=mc_rows,
+               mc_calls=len(calls["mc"]),
                residual_calls=len(calls["residual"]),
                residual_shapes=sorted({tuple(int(v) for v in a[1].shape)
                                        for a in calls["residual"]}))
     print("fastrd_inter_kernels " + json.dumps(
         {"max_abs_err": max_err, "residual_calls": out["residual_calls"],
-         "satd_calls": len(rows), "replayed_pocs": {
+         "satd_calls": len(rows), "mc_calls": out["mc_calls"],
+         "replayed_pocs": {
              "l0": [r[0] for r in args[3]], "l1": [r[0] for r in refs1]}}))
     del calls
     torch.cuda.empty_cache()
@@ -1120,28 +1275,34 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
         (cuda, rep), (cpu, _) = got[name, "cuda"], got[name, "cpu"]
         check(cuda == cpu, f"{name} P/B fast-RD stream: --device cuda and "
               "--device cpu differ")
-        check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0,
-              f"{name} fast-RD on cuda skipped a kernel")
+        check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0
+              and rep["mc_launches"] > 0 and rep["plain_mc_calls"] == 0,
+              f"{name} fast-RD on cuda skipped a kernel or ran the plain MC")
         out[name] = {"bytes": len(cuda), "identical": True,
                      "decision_frames_inter": rep["decision_frames_inter"],
                      "residual_launches": rep["residual_launches"],
-                     "satd_launches": rep["satd_launches"]}
+                     "satd_launches": rep["satd_launches"],
+                     "mc_launches": rep["mc_launches"]}
     print("inter_identity " + json.dumps(out))
     return out
 
 
 def wp_scaling_phase(torch, work: Path, made: dict) -> dict:
     """The weighted-prediction and scaling-list streams on ``cuda``."""
-    from thevc_tpu_torch.ops import mc, residual_kernel
+    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
     out = {}
     for name in WP_SL:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
-        residual_kernel.launches = mc.launches = 0
+        residual_kernel.launches = mc_kernel.launches = mc.launches = 0
         rc, log = decode_cuda(torch, stream, dec_rec)
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         out[name] = {"frames": frames, "residual": residual_kernel.launches,
-                     "mc": mc.launches}
+                     "mc": mc_kernel.launches}
+        # P/B pictures through the MC kernel, none through plain MC
+        check(mc.launches == 0 and (out[name]["mc"] > 0) == (
+            name != "sl_intra"), f"{name}: MC kernel {out[name]['mc']} "
+              f"launches, plain MC {mc.launches} calls")
     print("wp_scaling " + json.dumps(out))
     return out
 
@@ -1587,23 +1748,26 @@ def checked_decode(device: str, data: bytes, options=None) -> tuple:
 def robust_decode_phase(torch, work: Path) -> dict:
     """Error-resilient and random-access decodes (``streams.ROBUST_CASES``)
     on ``cuda`` against the CPU, ``FUZZ_TRIALS`` corrupted streams on both,
-    then the clean stream on ``cuda``.  The K1 and MC launches are those
-    of the ``cuda`` decodes only (MC counts its CPU calls too)."""
+    then the clean stream on ``cuda``.  The K1 and MC kernel launches are
+    those of the ``cuda`` decodes, which call the plain MC never."""
     from thevc_tpu_torch import streams
     from thevc_tpu_torch.decoder import inter
-    from thevc_tpu_torch.ops import mc, residual_kernel
+    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
     t0 = time.perf_counter()
     made = streams.robust_streams(work / "robust")
     out = {"streams_wall_s": time.perf_counter() - t0, "cases": {}}
     launched = {"residual": 0, "mc": 0}
 
     def on_card(decode, *args, **kw):
-        """``decode(*args, **kw)``, its K1 and MC launches added to
-        ``launched``."""
-        r0, m0 = residual_kernel.launches, mc.launches
+        """``decode(*args, **kw)``, its K1 and MC kernel launches added to
+        ``launched``; it must call the plain MC never."""
+        r0, m0, p0 = residual_kernel.launches, mc_kernel.launches, \
+            mc.launches
         res = decode(*args, **kw)
         launched["residual"] += residual_kernel.launches - r0
-        launched["mc"] += mc.launches - m0
+        launched["mc"] += mc_kernel.launches - m0
+        check(mc.launches == p0, f"a cuda decode ran the plain MC "
+              f"{mc.launches - p0} times")
         return res
 
     put = inter.RefPlanes.put
@@ -1699,10 +1863,10 @@ def resume_rc_phase(torch, work: Path) -> dict:
     device-apply encode under rate control on ``cuda`` against the CPU,
     and one ``fastrd_quality`` sweep on ``cuda``."""
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
-    from thevc_tpu_torch.ops import residual_kernel, satd_kernel
+    from thevc_tpu_torch.ops import mc_kernel, residual_kernel, satd_kernel
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
-    residual_kernel.launches = satd_kernel.launches = 0
+    residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -1821,7 +1985,8 @@ def resume_rc_phase(torch, work: Path) -> dict:
     for row in rows:
         print("resume_rc_quality " + fastrd_quality.format_row(row))
     out["launches"] = {"residual": residual_kernel.launches,
-                       "satd": satd_kernel.launches}
+                       "satd": satd_kernel.launches,
+                       "mc": mc_kernel.launches}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -1864,12 +2029,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from thevc_tpu_torch.ops import build, residual_kernel, satd, \
-        satd_kernel, tq
+    from thevc_tpu_torch.ops import build, mc_kernel, residual_kernel, \
+        satd, satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
-    kernels = (residual_kernel, satd_kernel)
+    kernels = (residual_kernel, satd_kernel, mc_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -1893,7 +2058,7 @@ def main() -> int:
     small = small_inter_phase(torch, work, made)
     fast_inter = fastrd_inter_phase(torch, work, made)
     inter_identity_phase(work, made)
-    wp_scaling_phase(torch, work, made)
+    wp_sl = wp_scaling_phase(torch, work, made)
     parts = partitioned_phase(torch, work, made)
     multi = multistream_phase(torch, work, made)
     robust = robust_decode_phase(torch, work)
@@ -1913,6 +2078,10 @@ def main() -> int:
     # K2's time: one 1080p frame's 35-mode sweep, the five bit_inc 0
     # classes summed
     frame = [r for r in k2["rows"] if r["bit_inc"] == 0]
+    # the MC kernel's time: a picture of the 1080p low-delay B decode (the
+    # mean over its B pictures; no single PyTorch call takes per-PU-phase
+    # 8-tap interpolation with the int16 wrap, so library_ms is null)
+    pics = inter["mc_pictures"]
     by_path = {
         "intra_decode": {"residual": dec["residual_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
@@ -1930,7 +2099,10 @@ def main() -> int:
         "robust_decode": robust["launches_with_fuzz"],
         "resume_rc": resume["launches"],
         "inter_decode": inter["launches"],
-        **{f"inter_decode_{k}": v for k, v in small.items()}}
+        **{f"inter_decode_{k}": v for k, v in small.items()},
+        **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"]}
+           for k, v in wp_sl.items()}}
+    by_path["fastrd_inter_encode"]["mc"] = fast_inter["mc_launches"]
     print("launches by path " + json.dumps(by_path))
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
@@ -1954,6 +2126,16 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in frame),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in frame)
         else "operations",
+        "library_ms": None}, {
+        "name": "mc", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/mc.cu",
+        "replaces": "thevc_tpu/ops/jx_mc.py:77",
+        "launches": sum(p.get("mc", 0) for p in by_path.values()),
+        "max_abs_err": max(pics["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["mc"]),
+        "ms": pics["mean"]["ms"], "plain_ms": pics["mean"]["plain_ms"],
+        "bound_ms": pics["mean"]["bound_ms"],
+        "bound_by": pics["mean"]["bound_by"],
         "library_ms": None}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

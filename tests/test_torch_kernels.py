@@ -1,8 +1,9 @@
-"""The hand-written CUDA kernels (residual, dense and CG-packed; SATD)
-against their plain versions, also at the shapes of the P/B fast-RD pass
-(SATD over 49 quarter-pel candidates, inter TUs), the fast-RD decision
-passes, motion compensation and the P/B decode (weighted prediction and
-scaling lists included) on CUDA against the CPU, on a CUDA card.
+"""The hand-written CUDA kernels (residual, dense and CG-packed; SATD;
+motion compensation, picture and blocks entries) against their plain
+versions, also at the shapes of the P/B fast-RD pass (SATD over 49
+quarter-pel candidates, inter TUs), the fast-RD decision passes, motion
+compensation and the P/B decode (weighted prediction and scaling lists
+included) on CUDA against the CPU, on a CUDA card.
 
 Marked ``gpu``: each test asks the ``cuda`` fixture for the card and
 skips without one.  Run on the GPU machine with
@@ -21,11 +22,67 @@ from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
 from thevc_tpu_torch.decoder.recon import _pack_cgs
 from thevc_tpu_torch.encoder import fast_inter, fast_intra
-from thevc_tpu_torch.ops import mc, residual_kernel, satd, satd_kernel, tq
+from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel, satd, \
+    satd_kernel, tq
 
 REPO = Path(__file__).resolve().parents[1]
 CASES = [(4, False, 0), (4, True, 0), (8, False, 0), (16, False, 0),
          (32, False, 0), (4, True, 2), (8, False, 2), (32, False, 2)]
+# luma PU sizes of a stream (square, rectangular, AMP), (rows, columns);
+# a chroma job takes half of each
+PU_SIZES = [(8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4), (16, 4),
+            (4, 16), (12, 16), (16, 12), (32, 24), (24, 32), (64, 16),
+            (16, 64), (48, 64), (64, 48)]
+MC_PLANE = (40, 56)          # luma rows and columns of a reference picture
+
+
+def random_mc_jobs(rng, bd: int, n: int, refs: int = 2):
+    """A seeded job table of the MC picture kernel (``mc_kernel``):
+    every case, luma and chroma, every kind, windows past every edge of
+    the planes, weights and offsets at their extremes, each job writing
+    its own region (row stride up to 3 past its width).  Uni and bi jobs
+    carry the weights a slice without weighted prediction gives (1, 1,
+    0, 0).  Returns (jobs int32 [n, JOB_COLS], the int16 planes (y, cb,
+    cr) of each reference as CPU tensors, the prediction's size)."""
+    h_l, w_l = MC_PLANE
+    planes = []
+    for _ in range(refs):
+        for rows, cols in ((h_l, w_l), (h_l // 2, w_l // 2),
+                           (h_l // 2, w_l // 2)):
+            planes.append(torch.from_numpy(rng.randint(
+                0, 1 << bd, (rows, cols)).astype(np.int16)))
+    jobs = np.zeros((n, mc.JOB_COLS), np.int64)
+    size = 0
+    for i in range(n):
+        luma = rng.rand() < 0.5
+        h, w = PU_SIZES[rng.randint(len(PU_SIZES))]
+        comp = 0 if luma else 1 + rng.randint(2)
+        if not luma:
+            h, w = h // 2, w // 2
+        rows, cols = planes[comp].shape
+        top, half = (4, 4) if luma else (8, 2)
+        kind = rng.randint(len(mc.KINDS))
+        stride = w + rng.randint(4)
+        jobs[i, :mc.J_LIST] = (h, w, luma, kind, size, stride, 1, 1, 0, 0)
+        size += h * stride
+        for lst in range(1 + (mc.KINDS[kind] in ("bi", "wbi"))):
+            fx = rng.randint(top) * (rng.rand() < 0.6)
+            fy = rng.randint(top) * (rng.rand() < 0.6)
+            x = rng.randint(-w - 12, cols + 12)
+            y = rng.randint(-h - 12, rows + 12)
+            c = mc.J_LIST + 6 * lst
+            jobs[i, c:c + 6] = (3 * rng.randint(refs) + comp,
+                                x - (half - 1) * (fx != 0),
+                                y - (half - 1) * (fy != 0), fx, fy,
+                                (fx != 0) + 2 * (fy != 0))
+        if mc.KINDS[kind] in ("wuni", "wbi"):
+            w0, w1 = rng.randint(-128, 256, 2)
+            io0, io1 = rng.randint(-128, 128, 2)
+            bi = mc.KINDS[kind] == "wbi"
+            jobs[i, mc.J_W0:mc.J_LIST] = (
+                w0, w1 if bi else 1, (io0 + io1 * bi) << (bd - 8),
+                rng.randint(8))
+    return jobs.astype(np.int32), planes, size
 
 
 @pytest.fixture
@@ -270,6 +327,86 @@ def test_mc_batch_cuda_equals_cpu(cuda, case, luma, bi, bd):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("bd", [8, 10])
+def test_mc_picture_kernel_equals_plain(cuda, bd, seed):
+    jobs, planes, size = random_mc_jobs(np.random.RandomState(seed + bd),
+                                        bd, 600)
+    planes_d = [p.to(cuda) for p in planes]
+    before = (mc_kernel.launches, mc.launches)
+    got = mc.mc_picture(jobs, planes_d, size, bd)
+    torch.cuda.synchronize()
+    assert mc_kernel.launches == before[0] + 1 and mc.launches == before[1]
+    assert got.device.type == "cuda"
+    assert torch.equal(got, mc.mc_picture_plain(jobs, planes_d, size, bd))
+    assert torch.equal(got.cpu(), mc.mc_picture_plain(jobs, planes, size,
+                                                      bd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("bi", [False, True])
+@pytest.mark.parametrize("luma", [True, False])
+@pytest.mark.parametrize("case", mc.CASES)
+def test_mc_blocks_kernel_equals_plain(cuda, case, luma, bi, bd):
+    rng = np.random.RandomState(mc.CASES.index(case) + 4 * luma + 8 * bi
+                                + 16 * bd)
+    planes = torch.from_numpy(rng.randint(0, 1 << bd, (3, 60, 70))
+                              .astype(np.int16)).to(cuda)
+    top = 4 if luma else 8
+    sizes = [(4, 4), (8, 8), (16, 16), (32, 32), (64, 64), (4, 16),
+             (16, 4), (24, 32)] if luma else [(2, 2), (4, 4), (8, 8),
+                                              (32, 32), (2, 4), (4, 2)]
+    for h, w in sizes:
+        for n in (1, 1031):
+            jobs = np.stack([rng.randint(0, 3, n),
+                             rng.randint(-w - 12, 70 + 12, n),
+                             rng.randint(-h - 12, 60 + 12, n),
+                             rng.randint(0, top, n), rng.randint(0, top, n)],
+                            axis=1).astype(np.int32)
+            jobs_d = torch.from_numpy(jobs).to(cuda)
+            before = (mc_kernel.launches, mc.launches)
+            got = mc.mc_blocks(planes, jobs_d, case, luma, bd, bi, h, w)
+            torch.cuda.synchronize()
+            assert mc_kernel.launches == before[0] + 1
+            assert mc.launches == before[1]
+            want = mc.mc_blocks_plain(planes, jobs_d, case, luma, bd, bi, h,
+                                      w)
+            assert torch.equal(got, want), (h, w, n)
+
+
+@pytest.mark.gpu
+def test_mc_kernels_reject_bad_inputs(cuda):
+    jobs, planes, size = random_mc_jobs(np.random.RandomState(3), 8, 20)
+    planes_d = [p.to(cuda) for p in planes]
+    with pytest.raises(ValueError):
+        mc_kernel.picture(jobs, planes, size, 8)          # CPU planes
+    with pytest.raises(ValueError):
+        mc_kernel.picture(jobs, planes_d, 10, 8)          # writes past
+    with pytest.raises(ValueError):
+        mc_kernel.picture(jobs, planes_d[:1], size, 8)    # plane index
+    with pytest.raises(ValueError):
+        mc_kernel.picture(jobs[:, :-1], planes_d, size, 8)
+    with pytest.raises(ValueError):
+        mc_kernel.picture(jobs, planes_d, size, 7)
+    with pytest.raises(TypeError):
+        mc_kernel.picture(jobs, [p.int() for p in planes_d], size, 8)
+    stack = torch.zeros((2, 40, 40), dtype=torch.int16, device=cuda)
+    blk = torch.zeros((5, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        mc_kernel.blocks(stack, blk, "diag", True, 8, False, 8, 8)
+    with pytest.raises(ValueError):
+        mc_kernel.blocks(stack, blk, "2d", True, 8, False, 65, 8)
+    with pytest.raises(ValueError):
+        mc_kernel.blocks(stack, blk[:, :4].contiguous(), "2d", True, 8,
+                         False, 8, 8)
+    with pytest.raises(TypeError):
+        mc_kernel.blocks(stack, blk.long(), "2d", True, 8, False, 8, 8)
+    with pytest.raises(ValueError):
+        mc_kernel.blocks(stack.cpu(), blk.cpu(), "2d", True, 8, False, 8, 8)
+
+
+@pytest.mark.gpu
 def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
     from thevc_tpu_torch import native
     from thevc_tpu_torch import streams
@@ -285,11 +422,24 @@ def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
                    cfg=REPO / "tests" / "cfg" / "encoder_lowdelay_tlayers.cfg",
                    extra=("--QP=32",))
     data = stream.read_bytes()
+    from thevc_tpu_torch.decoder import inter
     before = residual_kernel.launches
-    mc.launches = 0
-    pics_cuda = Decoder(cuda).decode_stream(data)
-    assert residual_kernel.launches > before and mc.launches > 0
+    mc.launches = mc_kernel.launches = 0
+    real, inter_pics = inter._jobs, []
+
+    def spy(*args):
+        inter_pics.append(1)            # a picture with inter PUs
+        return real(*args)
+    inter._jobs = spy
+    try:
+        pics_cuda = Decoder(cuda).decode_stream(data)
+    finally:
+        inter._jobs = real
+    # one MC kernel launch a picture with inter PUs, no plain MC
+    assert residual_kernel.launches > before and mc.launches == 0
+    assert mc_kernel.launches == len(inter_pics) == 4
     pics_cpu = Decoder("cpu").decode_stream(data)
+    assert mc.launches > 0
     assert len(pics_cuda) == len(pics_cpu) == 5
     for a, b in zip(pics_cuda, pics_cpu):
         assert a.poc == b.poc and a.digest_ok and b.digest_ok
@@ -376,11 +526,14 @@ def test_decide_frame_p_cuda_equals_cpu(cuda, tmp_path, b_slice):
         args = (*f[2], refs, w, h, qp, qpc, qpc, lam, lam ** 0.5, lam ** 0.5,
                 (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 64,
                 0, 255)
-        before = (satd_kernel.launches, residual_kernel.launches)
+        before = (satd_kernel.launches, residual_kernel.launches,
+                  mc_kernel.launches, mc.launches)
         maps_cuda = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                               device=cuda)
         assert satd_kernel.launches > before[0]
         assert residual_kernel.launches > before[1]
+        # the pass's MC is the kernel's: no plain MC on the card
+        assert mc_kernel.launches > before[2] and mc.launches == before[3]
         maps_cpu = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                              device="cpu")
         assert len(maps_cuda) == (14 if b_slice else 10)
@@ -405,7 +558,10 @@ def test_wp_and_scaling_decode_cuda_equals_cpu(cuda, tmp_path, cfg, extra):
                    cfg=REPO / "tests" / "cfg" / cfg,
                    extra=(extra, "--QP=32"))
     data = stream.read_bytes()
+    before = (mc_kernel.launches, mc.launches)
     pics_cuda = Decoder(cuda).decode_stream(data)
+    assert mc.launches == before[1]
+    assert (mc_kernel.launches > before[0]) == ("intra" not in cfg)
     pics_cpu = Decoder("cpu").decode_stream(data)
     assert len(pics_cuda) == len(pics_cpu) == 3
     for a, b in zip(pics_cuda, pics_cpu):

@@ -14,7 +14,8 @@ is used only when ``--device cpu`` asks for it).  ``--device-apply``
 runs the apply of the intra slices on that device as well
 (``encoder.fast_apply``; the host apply otherwise).  The last line of
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual and SATD kernels, the frames decided (all, and the P/B ones),
+residual, SATD and MC kernels and the plain MC's calls (none on
+``cuda``), the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
 device), the device apply's frames, waves, class steps and summed wall,
 and the frames it left to the host apply (a schedule it rejected), and
@@ -28,7 +29,7 @@ import json
 import sys
 
 from ..encoder.top import DecisionStats, Encoder
-from ..ops import residual_kernel, satd_kernel
+from ..ops import mc, mc_kernel, residual_kernel, satd_kernel
 from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
@@ -50,8 +51,9 @@ def main(argv=None) -> int:
         print("usage: encoder -c cfg [-i in.yuv -b out.bin -o rec.yuv "
               "-wdt W -hgt H -f N -fr FPS]", file=sys.stderr)
         return 1
-    residual_before, satd_before = residual_kernel.launches, \
-        satd_kernel.launches
+    before = {"residual": residual_kernel.launches,
+              "satd": satd_kernel.launches, "mc": mc_kernel.launches,
+              "plain_mc": mc.launches}
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
     enc = Encoder(cfg, device=device, stats=stats,
@@ -66,8 +68,10 @@ def main(argv=None) -> int:
           % (total_bytes, 0.008 * total_bytes / (n / fr)))
     print(REPORT_PREFIX + json.dumps({
         "device": args.device,
-        "residual_launches": residual_kernel.launches - residual_before,
-        "satd_launches": satd_kernel.launches - satd_before,
+        "residual_launches": residual_kernel.launches - before["residual"],
+        "satd_launches": satd_kernel.launches - before["satd"],
+        "mc_launches": mc_kernel.launches - before["mc"],
+        "plain_mc_calls": mc.launches - before["plain_mc"],
         "decision_frames": stats.frames,
         "decision_frames_inter": stats.inter_frames,
         "decision_wall_s": stats.wall_s,

@@ -6,14 +6,16 @@ prediction on the device instead of filling ``InterPredictor._dev_store``.
 The host half, ``InterPredictor`` (the per-PU host MC that the encoder's
 inter search runs, and ``_enumerate_pus``, which applies
 ``xCheckIdenticalMotion``), is copied below without the device batch
-path.  The host enumerates PUs and computes ``clip_mv``'s clamp and each
-job's window over numpy arrays; the window gather, one
-``ops.mc.mc_batch`` per (component, filter case, size, bi) class, one
-``bi_avg_batch`` per block size and the scatter into the prediction run
-on the device.  A slice with explicit weighted prediction runs every MC
-job of its PUs at 14 bits, and ``ops.mc.weight_uni_batch`` /
-``weight_bi_batch`` apply each PU's weights (gathered by list, reference
-index and component from the slice header) over whole classes.
+path.  The host enumerates PUs and computes ``clip_mv``'s clamp, each
+list's window and phases and each PU's weights over numpy arrays, one
+job a (PU, component) with both lists of a bi PU (``_jobs``);
+``ops.mc.mc_picture`` predicts them all: on ``cuda`` one launch of the
+hand-written kernel (``csrc/mc.cu``), which reads the reference planes
+through a table of their device pointers and writes each PU's pixels
+into the prediction; on the CPU its plain version.  A slice with
+explicit weighted prediction makes weighted jobs (each list at 14
+bits, then the PU's weights, gathered by list, reference index and
+component from the slice header).
 
 A picture's three planes live on the device as one flat buffer
 (``Layout``): luma, then Cb, then Cr, each row-major.  ``RefPlanes``
@@ -31,6 +33,7 @@ import torch
 
 from ..ops import mc
 from ..ops.device import stage, stat_h2d, stat_launch
+from ..ops.mc import scatter_blocks  # noqa: F401  (decoder.recon uses it)
 from ..ops.interp import bi_avg, mc_chroma, mc_luma
 from .frame import MODE_INTRA
 from .mv import clip_mv, num_pus, pu_geometry
@@ -42,6 +45,7 @@ _RUN, _XP, _YP, _PW, _PH, _CUX, _CUY, _REF0, _MV0, _REF1, _MV1 = \
     0, 1, 2, 3, 4, 5, 6, 7, 8, 10, 11
 # reference indices a slice can address per list
 _MAX_REFS = 16
+_KIND = {k: i for i, k in enumerate(mc.KINDS)}
 
 
 # -- thevc_tpu/decoder/inter.py:20-120, 224-283, without the device batch
@@ -232,19 +236,6 @@ class Layout:
         return y, cb, cr
 
 
-def scatter_blocks(flat: torch.Tensor, blocks: torch.Tensor,
-                   origin: torch.Tensor, stride: torch.Tensor) -> None:
-    """Write blocks [N, h, w] into the flat buffer: block k's sample (i,
-    j) goes to ``origin[k] + i * stride[k] + j``."""
-    n, h, w = blocks.shape
-    dev = flat.device
-    idx = (origin.long()[:, None, None]
-           + torch.arange(h, device=dev)[None, :, None]
-           * stride.long()[:, None, None]
-           + torch.arange(w, device=dev)[None, None, :])
-    flat[idx.reshape(-1)] = blocks.reshape(-1).to(flat.dtype)
-
-
 class RefPlanes:
     """Device planes (int16 [h, w] each) of the DPB's reference pictures,
     keyed by POC."""
@@ -254,7 +245,7 @@ class RefPlanes:
         self._by_poc: dict = {}      # poc -> (Picture, (y, cb, cr))
 
     def put(self, pic, planes) -> None:
-        self._by_poc[pic.poc] = (pic, tuple(p.to(torch.int16)
+        self._by_poc[pic.poc] = (pic, tuple(p.to(torch.int16).contiguous()
                                             for p in planes))
 
     def get(self, pic) -> tuple:
@@ -298,9 +289,9 @@ def _pu_table(runs) -> np.ndarray:
 def _wp_table(runs, bd: int) -> np.ndarray:
     """Per slice, list, reference index and component the explicit
     weighted-prediction parameters (weight, offset at the bit depth, log2
-    denominator), int64 [runs, 2, _MAX_REFS, 3, 3]; (1, 0, 0), which
-    ``weight_bi_batch`` turns into the plain average, for slices without
-    weighted prediction (``InterPredictor._wp_params``)."""
+    denominator), int64 [runs, 2, _MAX_REFS, 3, 3]; (1, 0, 0), the
+    weights of the plain average, for slices without weighted prediction
+    (``InterPredictor._wp_params``)."""
     tab = np.zeros((len(runs), 2, _MAX_REFS, 3, 3), np.int64)
     tab[..., 0] = 1
     for r, (_sh, ip, _lo, _hi) in enumerate(runs):
@@ -344,84 +335,66 @@ def _ref_slots(runs):
     return pics, luts
 
 
-# job columns: source plane, window x, y, frac x, y, destination origin
-# and stride, list, bi pair index, weighted-prediction weight, offset and
-# log2 denominator; then the class key (luma, case, h, w, kind) kept on
-# the host, kind: 0 a uni PU in pixels, 1 one half of a bi pair, 2 a
-# weighted uni PU (both at 14 bits)
-_J_PLANE, _J_WX, _J_WY, _J_FX, _J_FY, _J_ORG, _J_STR, _J_LST, _J_PAIR, \
-    _J_W, _J_O, _J_DEN = range(12)
-_UNI, _PAIR, _WEIGHTED = 0, 1, 2
-
-
 def _jobs(pus: np.ndarray, luts, sps, layout: Layout, wp: np.ndarray,
-          wp_runs: np.ndarray):
-    """One uni-directional MC job per (PU, active list, component).
-
-    wp: ``_wp_table``; wp_runs: bool per slice, its weighted prediction
-    on.  Returns (table int64 [J, 12], keys int64 [J, 5] of (luma, case,
-    h, w, kind), pairs int64 [Q, 8] of (h, w, origin, stride, w0, w1,
-    offset, log2 denominator), one row per (bi PU, component), ordered by
-    block size)."""
+          wp_runs: np.ndarray) -> np.ndarray:
+    """The picture's MC jobs (``ops.mc_kernel``): one per (PU, component),
+    int32 [3 * len(pus), JOB_COLS], components in order.  A uni PU's job
+    carries its active list, a bi PU's both (list 0 first); a PU of a
+    slice with weighted prediction (wp_runs, bool per slice) is a
+    weighted job with its weights from ``_wp_table`` (wp).  The planes
+    the jobs index are each slot's (y, cb, cr) of ``_ref_slots``, in
+    order."""
     n = len(pus)
     bi = (pus[:, _REF0] >= 0) & (pus[:, _REF1] >= 0)
+    weighted = wp_runs[pus[:, _RUN]]
+    kind = np.where(bi, np.where(weighted, _KIND["wbi"], _KIND["bi"]),
+                    np.where(weighted, _KIND["wuni"], _KIND["uni"]))
+    l1_only = (pus[:, _REF0] < 0)[:, None]
     ctu = sps.max_cu_width
-    # bi pairs, one per (bi PU, component), numbered within their size
-    pair_idx = np.full((n, 3), -1, np.int64)
-    pair_rows = []
-    bi_pus = np.nonzero(bi)[0]
-    for comp in range(3):
-        d = 1 if comp == 0 else 2
-        p = pus[bi_pus]
-        w0 = wp[p[:, _RUN], 0, p[:, _REF0], comp]
-        w1 = wp[p[:, _RUN], 1, p[:, _REF1], comp]
-        pair_rows.append(np.stack([
-            p[:, _PH] // d, p[:, _PW] // d,
-            layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
-            np.full(len(p), layout.stride(comp)), bi_pus,
-            np.full(len(p), comp), w0[:, 0], w1[:, 0], w0[:, 1] + w1[:, 1],
-            w0[:, 2]], axis=1))
-    pairs = np.concatenate(pair_rows)
-    pairs = pairs[np.lexsort((pairs[:, 1], pairs[:, 0]))]
-    size_key = pairs[:, 0] * 128 + pairs[:, 1]
-    starts = np.r_[0, np.nonzero(np.diff(size_key))[0] + 1]
-    rank = np.arange(len(pairs)) - np.repeat(starts, np.diff(
-        np.r_[starts, len(pairs)]))
-    pair_idx[pairs[:, 4], pairs[:, 5]] = rank
-    kind = np.where(bi, _PAIR, np.where(wp_runs[pus[:, _RUN]], _WEIGHTED,
-                                        _UNI))
-
-    tables, keys = [], []
+    per_list = []
     for lst, ref_col, mv_col in ((0, _REF0, _MV0), (1, _REF1, _MV1)):
-        sel = pus[:, ref_col] >= 0
-        p = pus[sel]
-        idx = np.nonzero(sel)[0]
-        slot = np.zeros(len(p), np.int64)
-        for r in np.unique(p[:, _RUN]):
-            m = p[:, _RUN] == r
-            slot[m] = luts[r][lst][p[m, ref_col]]
-        mv = clip_mvs(p[:, mv_col:mv_col + 2], p[:, _CUX], p[:, _CUY],
+        ref = pus[:, ref_col]
+        slot = np.zeros(n, np.int64)
+        for r in np.unique(pus[ref >= 0, _RUN]):
+            m = (ref >= 0) & (pus[:, _RUN] == r)
+            slot[m] = luts[r][lst][ref[m]]
+        mv = clip_mvs(pus[:, mv_col:mv_col + 2], pus[:, _CUX], pus[:, _CUY],
                       layout.width, layout.height, ctu)
-        for comp in range(3):
-            d, frac_bits, half = (1, 2, 4) if comp == 0 else (2, 3, 2)
+        per_list.append((np.maximum(ref, 0), slot, mv))
+    jobs = np.zeros((3, n, mc.JOB_COLS), np.int64)
+    for comp in range(3):
+        d, frac_bits, half = (1, 2, 4) if comp == 0 else (2, 3, 2)
+        job = jobs[comp]
+        job[:, mc.J_H] = pus[:, _PH] // d
+        job[:, mc.J_W] = pus[:, _PW] // d
+        job[:, mc.J_LUMA] = comp == 0
+        job[:, mc.J_KIND] = kind
+        job[:, mc.J_DST] = layout.origin(comp, pus[:, _XP] // d,
+                                         pus[:, _YP] // d)
+        job[:, mc.J_STRIDE] = layout.stride(comp)
+        fields, weights = [], []
+        for lst, (ref, slot, mv) in enumerate(per_list):
             fx = mv[:, 0] & ((1 << frac_bits) - 1)
             fy = mv[:, 1] & ((1 << frac_bits) - 1)
-            x0 = p[:, _XP] // d + (mv[:, 0] >> frac_bits)
-            y0 = p[:, _YP] // d + (mv[:, 1] >> frac_bits)
-            case = (fx != 0) + 2 * (fy != 0)
-            plane = slot if comp == 0 else 2 * slot + comp - 1
-            w = wp[p[:, _RUN], lst, p[:, ref_col], comp]
-            tables.append(np.stack([
-                plane, x0 - (half - 1) * (fx != 0),
-                y0 - (half - 1) * (fy != 0), fx, fy,
-                layout.origin(comp, p[:, _XP] // d, p[:, _YP] // d),
-                np.full(len(p), layout.stride(comp)), np.full(len(p), lst),
-                pair_idx[idx, comp], w[:, 0], w[:, 1], w[:, 2]], axis=1))
-            keys.append(np.stack([
-                np.full(len(p), int(comp == 0)), case, p[:, _PH] // d,
-                p[:, _PW] // d, kind[idx]], axis=1))
-    return (np.concatenate(tables), np.concatenate(keys),
-            np.concatenate([pairs[:, :4], pairs[:, 6:]], axis=1))
+            fields.append(np.stack([
+                3 * slot + comp,
+                pus[:, _XP] // d + (mv[:, 0] >> frac_bits)
+                - (half - 1) * (fx != 0),
+                pus[:, _YP] // d + (mv[:, 1] >> frac_bits)
+                - (half - 1) * (fy != 0),
+                fx, fy, (fx != 0) + 2 * (fy != 0)], axis=1))
+            # (weight, offset at the bit depth, log2 denominator)
+            weights.append(wp[pus[:, _RUN], lst, ref, comp])
+        first = np.where(l1_only, fields[1], fields[0])
+        w_first = np.where(l1_only, weights[1], weights[0])
+        job[:, mc.J_LIST:mc.J_LIST + 6] = first
+        job[bi, mc.J_LIST + 6:] = fields[1][bi]
+        job[:, mc.J_W0] = w_first[:, 0]
+        job[:, mc.J_W1] = weights[1][:, 0]
+        job[:, mc.J_OFF] = np.where(bi, weights[0][:, 1] + weights[1][:, 1],
+                                    w_first[:, 1])
+        job[:, mc.J_DEN] = w_first[:, 2]
+    return jobs.reshape(-1, mc.JOB_COLS).astype(np.int32)
 
 
 def predict_picture(runs, sps, refs: RefPlanes,
@@ -439,59 +412,11 @@ def predict_picture(runs, sps, refs: RefPlanes,
         pics, luts = _ref_slots(runs)
         wp_runs = np.asarray([ip is not None and ip.wp_active
                               for _sh, ip, _lo, _hi in runs])
-        if len(pus):
-            table, keys, pairs = _jobs(pus, luts, sps, layout,
-                                       _wp_table(runs, bd), wp_runs)
-            order = np.lexsort(keys.T[::-1])
-            table, keys = table[order], keys[order]
-            bounds = np.r_[0, np.nonzero(np.any(np.diff(keys, axis=0),
-                                                axis=1))[0] + 1, len(keys)]
-    pred = torch.zeros(layout.size, dtype=torch.int16, device=device)
-    if not len(pus):
-        return pred
+        if not len(pus):
+            return torch.zeros(layout.size, dtype=torch.int16,
+                               device=device)
+        jobs = _jobs(pus, luts, sps, layout, _wp_table(runs, bd), wp_runs)
     with stage("mc", device):
-        planes = [refs.get(p) for p in pics]
-        luma = torch.stack([pl[0] for pl in planes])
-        chroma = torch.stack([c for pl in planes for c in pl[1:]])
-        host = np.concatenate([table.reshape(-1), pairs.reshape(-1)])
-        stat_h2d(host.size * 4)
-        dev = torch.from_numpy(host.astype(np.int32)).to(device)
-        tab = dev[:table.size].reshape(table.shape)
-        pair_tab = dev[table.size:].reshape(pairs.shape)
-
-        sizes, size_at = np.unique(pairs[:, 0] * 128 + pairs[:, 1],
-                                   return_index=True)
-        counts = np.diff(np.r_[size_at, len(pairs)])
-        bufs = {int(k): torch.empty((2, int(c), int(k) // 128, int(k) % 128),
-                                    dtype=torch.int16, device=device)
-                for k, c in zip(sizes, counts)}
-        for a, b in zip(bounds[:-1], bounds[1:]):
-            is_luma, case_id, h, w, kind = (int(v) for v in keys[a])
-            case = mc.CASES[case_id]
-            t = tab[a:b]
-            rows, cols = mc.window_shape(case, bool(is_luma), h, w)
-            win = mc.gather_windows(luma if is_luma else chroma,
-                                    t[:, _J_PLANE], t[:, _J_WX],
-                                    t[:, _J_WY], rows, cols)
-            stat_launch()
-            out = mc.mc_batch(win, t[:, _J_FX], t[:, _J_FY], case,
-                              bool(is_luma), bd, kind != _UNI, h, w)
-            if kind == _PAIR:
-                bufs[h * 128 + w][t[:, _J_LST].long(),
-                                  t[:, _J_PAIR].long()] = out
-                continue
-            if kind == _WEIGHTED:
-                out = mc.weight_uni_batch(out, t[:, _J_W], t[:, _J_O],
-                                          t[:, _J_DEN], bd)
-            scatter_blocks(pred, out, t[:, _J_ORG], t[:, _J_STR])
-        weighted = bool(wp_runs.any())
-        for (k, buf), a, c in zip(bufs.items(), size_at, counts):
-            stat_launch()
-            pt = pair_tab[a:a + c]
-            if weighted:
-                avg = mc.weight_bi_batch(buf[0], buf[1], pt[:, 4], pt[:, 5],
-                                         pt[:, 6], pt[:, 7], bd)
-            else:
-                avg = mc.bi_avg_batch(buf[0], buf[1], bd)
-            scatter_blocks(pred, avg, pt[:, 2], pt[:, 3])
-    return pred
+        planes = [pl for p in pics for pl in refs.get(p)]
+        stat_launch()
+        return mc.mc_picture(jobs, planes, layout.size, bd)

@@ -10,9 +10,11 @@ intra leaves the source picture):
 2. per block of each size class 8..64: a +-3 full-pel refinement around
    the coarse winner (SAD plus an exp-Golomb MV prior), then the 7x7
    quarter-pel window around the integer winner through the HEVC 8-tap
-   interpolation (``ops.mc``) and the Hadamard SATD (``ops.satd``: on a
-   CUDA tensor the hand-written kernel in ``csrc/satd.cu``, one launch
-   per size class and list);
+   interpolation (``ops.mc.mc_blocks``: on a CUDA tensor the hand-written
+   kernel in ``csrc/mc.cu``, the 49 candidates of every block in one
+   launch per size class and list) and the Hadamard SATD (``ops.satd``:
+   on a CUDA tensor the hand-written kernel in ``csrc/satd.cu``, one
+   launch per size class and list);
 3. RD leaves: transform/quant/recon estimates of luma and both chroma
    planes at the winner (``fast_intra._tq_rd`` with ``is_intra=False``:
    on a CUDA tensor the residual kernel in ``csrc/residual.cu``), a
@@ -208,18 +210,39 @@ def _pred_luma(refs_y, ref, mvq_x, mvq_y, by, bx, s: int, bd: int,
                bi: bool = False):
     """Luma prediction [N, s, s] int16 of each block at a quarter-pel MV:
     the 2-D 8-tap filter (frac-0 phases ride the identity tap row)."""
-    wl = mc.gather_windows(refs_y, ref, bx + (mvq_x >> 2) + (PAD_FULL - 3),
-                           by + (mvq_y >> 2) + (PAD_FULL - 3), s + 7, s + 7)
-    return mc.mc_batch(wl, mvq_x & 3, mvq_y & 3, "2d", True, bd, bi, s, s)
+    jobs = torch.stack([ref, bx + (mvq_x >> 2) + (PAD_FULL - 3),
+                        by + (mvq_y >> 2) + (PAD_FULL - 3), mvq_x & 3,
+                        mvq_y & 3], dim=1)
+    return mc.mc_blocks(refs_y, jobs, "2d", True, bd, bi, s, s)
 
 
 def _pred_chroma(refs_c, ref, mvq_x, mvq_y, cby, cbx, cs: int, bd: int,
                  bi: bool = False):
     """Chroma prediction [N, cs, cs] int16 at a quarter-pel luma MV (the
     4-tap filter at eighth-pel chroma phases)."""
-    wc = mc.gather_windows(refs_c, ref, cbx + (mvq_x >> 3) + (PAD_C - 1),
-                           cby + (mvq_y >> 3) + (PAD_C - 1), cs + 4, cs + 4)
-    return mc.mc_batch(wc, mvq_x & 7, mvq_y & 7, "2d", False, bd, bi, cs, cs)
+    jobs = torch.stack([ref, cbx + (mvq_x >> 3) + (PAD_C - 1),
+                        cby + (mvq_y >> 3) + (PAD_C - 1), mvq_x & 7,
+                        mvq_y & 7], dim=1)
+    return mc.mc_blocks(refs_c, jobs, "2d", False, bd, bi, cs, cs)
+
+
+def _qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s: int, bd: int):
+    """The 7x7 quarter-pel candidates around each block's integer MV
+    (int_mx, int_my): int16 pixels [nb, 49, s, s], candidate (qdy + 3) *
+    7 + qdx + 3 at quarter-pel offset (qdx, qdy), all in one
+    ``mc.mc_blocks`` call."""
+    nb = ref.shape[0]
+    # per candidate: integer row offset, fy, integer column offset, fx
+    cand = torch.tensor([(*_qsplit(k // 7 - 3), *_qsplit(k % 7 - 3))
+                         for k in range(49)], device=ref.device)
+    jobs = torch.stack([
+        ref[:, None].expand(nb, 49),
+        (bx + int_mx + (PAD_FULL - 3))[:, None] + cand[:, 2],
+        (by + int_my + (PAD_FULL - 3))[:, None] + cand[:, 0],
+        cand[:, 3].expand(nb, 49), cand[:, 1].expand(nb, 49)],
+        dim=2).reshape(nb * 49, 5)
+    return mc.mc_blocks(refs_y, jobs, "2d", True, bd, False, s,
+                        s).reshape(nb, 49, s, s)
 
 
 def _sse(a, b, bit_inc: int):
@@ -280,25 +303,11 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
         int_mx = dx0 + best_d % 7 - 3
 
     # ---- quarter-pel refinement: the full 7x7 sub-pel window -----------
-    # re-anchored on the integer winner; one MC launch per quarter-pel row
-    # (per-PU phases), then one SATD launch for all 49 candidates
+    # re-anchored on the integer winner; one MC launch for the 49
+    # candidates of every block (candidate (qdy + 3) * 7 + qdx + 3 at
+    # quarter-pel offset (qdx, qdy)), then one SATD launch
     with stage("fast_inter.qpel_mc_satd", dev):
-        w = mc.gather_windows(refs_y, ref, bx + int_mx + (PAD_FULL - MARGIN),
-                              by + int_my + (PAD_FULL - MARGIN), win, win)
-        preds = torch.empty((nb, 49, s, s), dtype=torch.int16, device=dev)
-        fxv = (steps & 3).repeat_interleave(nb)     # the 7 columns' phases
-        for qdy in range(-3, 4):
-            iy, fy = _qsplit(qdy)
-            wy = MARGIN + iy - 3
-            subs = []
-            for qdx in range(-3, 4):
-                wx = MARGIN + _qsplit(qdx)[0] - 3
-                subs.append(w[:, wy:wy + s + 7, wx:wx + s + 7])
-            fyv = torch.full((7 * nb,), fy, dtype=torch.int64, device=dev)
-            row = mc.mc_batch(torch.cat(subs), fxv, fyv, "2d", True, bd,
-                              False, s, s)
-            k = (qdy + 3) * 7
-            preds[:, k:k + 7] = row.reshape(7, nb, s, s).transpose(0, 1)
+        preds = _qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s, bd)
         satd = satd_blocks(org16, preds, bit_inc)
         del preds
         bits = mv_bits(int_mx[:, None] * 4 + steps,

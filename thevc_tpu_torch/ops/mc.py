@@ -1,34 +1,45 @@
 """Motion-compensation interpolation in PyTorch over PU batches.
 
 Counterpart of ``thevc_tpu/ops/jx_mc.py``: ``_copy_batch`` (:35),
-``_filter_1d_batch`` (:44), ``mc_batch`` (:75) and ``bi_avg_batch``
-(:106), with HM's int16 (``Short``) intermediate wrap, and the explicit
+``_filter_1d_batch`` (:44), ``mc_batch`` (:77) and ``bi_avg_batch``
+(:107), with HM's int16 (``Short``) intermediate wrap, and the explicit
 weighted prediction of ``thevc_tpu/decoder/inter.py`` (``_weight_uni``,
 ``_weight_bi``, :46-69) over PU batches.  Also the device
 window gather that replaces the host ``np.stack`` of per-PU slices of
 ``Picture.padded()`` (``thevc_tpu/decoder/inter.py:149-182``).
 
-Every PU of a picture reads reference pictures only, so the decoder
-gathers all windows of one (component, filter case, size, bi) class and
-filters them in one call.  The fractional phase varies per PU: the tap
-vector is gathered per PU (``coeff[frac]``).  The taps are an int32
-multiply and sum, not a matrix product (torch has no int32 GEMM on
-CUDA).  Plain torch on any device.
+Two entries serve the codec, named after the hand-written kernel's
+(``csrc/mc.cu``, ``ops.mc_kernel``):
+
+- ``mc_picture``: every inter PU of a picture from a host job table
+  (``mc_kernel.JOB_COLS`` fields a (PU, component), both lists of a bi
+  PU in one job) into the picture's flat prediction buffer;
+- ``mc_blocks``: N blocks of one size and case from a stacked plane
+  tensor, for the encoder's P/B decision pass.
+
+Each dispatches on the device of its planes: a CUDA tensor launches the
+kernel (and raises if it cannot launch), a CPU tensor runs the plain
+version in this module (``mc_picture_plain``, ``mc_blocks_plain``),
+built from the per-class functions below.  The plain versions run on
+the card too, where the tests and ``chip_smoke.py`` hold the kernel
+against them.  In the plain form the tap vector is gathered per PU
+(``coeff[frac]``), an int32 multiply and sum.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..common.tables import from_reference
+from . import mc_kernel
 from .interp import IF_FILTER_PREC, IF_INTERNAL_OFFS, IF_INTERNAL_PREC
+from .mc_kernel import CASES, J_DEN, J_DST, J_H, J_KIND, J_LIST, J_LUMA, \
+    J_OFF, J_STRIDE, J_W, J_W0, J_W1, JOB_COLS, KINDS, L_CASE, L_FX, \
+    L_FY, L_PLANE, L_WX, L_WY
 
-# the four filter cases of ``_mc_block``, indexed by
-# (frac_x != 0) + 2 * (frac_y != 0)
-CASES = ("copy", "hor", "ver", "2d")
-
-# mc_batch calls, one per MC class of a picture; a plain integer that a
-# run resets and reads to show that its decode went through this module
+# mc_batch calls, one per MC class of the plain versions; a plain integer
+# that a run resets and reads to show which path ran (0 on a card's run)
 launches = 0
 
 
@@ -169,3 +180,168 @@ def weight_bi_batch(p0: torch.Tensor, p1: torch.Tensor, w0: torch.Tensor,
          + w1 * (p1.to(torch.int64) + IF_INTERNAL_OFFS)
          + half + offset * half) >> shift
     return v.clamp(0, (1 << bd) - 1).to(torch.int16)
+
+
+def scatter_blocks(flat: torch.Tensor, blocks: torch.Tensor,
+                   origin: torch.Tensor, stride: torch.Tensor) -> None:
+    """Write blocks [N, h, w] into the flat buffer: block k's sample (i,
+    j) goes to ``origin[k] + i * stride[k] + j``."""
+    n, h, w = blocks.shape
+    dev = flat.device
+    idx = (origin.long()[:, None, None]
+           + torch.arange(h, device=dev)[None, :, None]
+           * stride.long()[:, None, None]
+           + torch.arange(w, device=dev)[None, None, :])
+    flat[idx.reshape(-1)] = blocks.reshape(-1).to(flat.dtype)
+
+
+def _list_rows(jobs: np.ndarray) -> np.ndarray:
+    """One row per (job, list) of a picture's job table: (job, list,
+    plane, window x, window y, fx, fy, case), int64 [R, 8]."""
+    n_lists = 1 + np.isin(jobs[:, J_KIND], (KINDS.index("bi"),
+                                            KINDS.index("wbi")))
+    rows = []
+    for lst in (0, 1):
+        idx = np.nonzero(n_lists > lst)[0]
+        c = J_LIST + 6 * lst
+        rows.append(np.concatenate([
+            idx[:, None], np.full((len(idx), 1), lst),
+            jobs[idx][:, [c + L_PLANE, c + L_WX, c + L_WY, c + L_FX,
+                          c + L_FY, c + L_CASE]]], axis=1))
+    return np.concatenate(rows)
+
+
+def mc_picture_plain(jobs: np.ndarray, planes: list, size: int,
+                     bd: int) -> torch.Tensor:
+    """The plain version of the picture kernel, on any device: host jobs
+    [J, JOB_COLS], planes int16 [rows, cols] each -> flat int16 [size],
+    zero outside the jobs.  The planes of one shape are stacked; each
+    (component, case, size, 14-bit, plane shape) class of (job, list)
+    rows is gathered and filtered in one ``mc_batch``; uni jobs are
+    scattered (weighted first where they are), the bi jobs' two lists
+    meet in one buffer per (size, kind) and are averaged or weighted."""
+    dev = planes[0].device
+    pred = torch.zeros(size, dtype=torch.int16, device=dev)
+    jobs = np.asarray(jobs, np.int64).reshape(-1, JOB_COLS)
+    if not len(jobs):
+        return pred
+    shapes = sorted({tuple(p.shape) for p in planes})
+    stacks = [torch.stack([p for p in planes if tuple(p.shape) == sh])
+              for sh in shapes]
+    stack_of = np.asarray([shapes.index(tuple(p.shape)) for p in planes])
+    pos_of = np.zeros(len(planes), np.int64)
+    for k in range(len(shapes)):
+        pos_of[stack_of == k] = np.arange(int((stack_of == k).sum()))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    uni, bi, wuni, wbi = (KINDS.index(k) for k in ("uni", "bi", "wuni",
+                                                   "wbi"))
+    kind = jobs[:, J_KIND]
+    # each bi job's slot in the pair buffer of its (size, kind)
+    pair_key = jobs[:, J_H] * 128 + jobs[:, J_W]
+    pair_rank = np.zeros(len(jobs), np.int64)
+    bufs = {}
+    for k in (bi, wbi):
+        for key in np.unique(pair_key[kind == k]):
+            sel = np.nonzero((kind == k) & (pair_key == key))[0]
+            pair_rank[sel] = np.arange(len(sel))
+            bufs[k, key] = (sel, torch.empty(
+                (2, len(sel), key // 128, key % 128), dtype=torch.int16,
+                device=dev))
+
+    rows = _list_rows(jobs)
+    job = jobs[rows[:, 0]]
+    keys = np.stack([job[:, J_LUMA], rows[:, 7], job[:, J_H], job[:, J_W],
+                     job[:, J_KIND] != uni, stack_of[rows[:, 2]]], axis=1)
+    order = np.lexsort(keys.T[::-1])
+    rows, keys = rows[order], keys[order]
+    bounds = np.r_[0, np.nonzero(np.any(np.diff(keys, axis=0), axis=1))[0]
+                   + 1, len(keys)]
+    for a, b in zip(bounds[:-1], bounds[1:]):
+        luma, case_id, h, w, bi14, stack = (int(v) for v in keys[a])
+        r = rows[a:b]
+        case = CASES[case_id]
+        wr, wc = window_shape(case, bool(luma), h, w)
+        win = gather_windows(stacks[stack], t(pos_of[r[:, 2]]), t(r[:, 3]),
+                             t(r[:, 4]), wr, wc)
+        out = mc_batch(win, t(r[:, 5]), t(r[:, 6]), case, bool(luma), bd,
+                       bool(bi14), h, w)
+        jr = jobs[r[:, 0]]
+        for k in (uni, wuni):
+            sel = np.nonzero(jr[:, J_KIND] == k)[0]
+            if not len(sel):
+                continue
+            blk = out[t(sel)]
+            if k == wuni:
+                blk = weight_uni_batch(blk, t(jr[sel, J_W0]),
+                                       t(jr[sel, J_OFF]), t(jr[sel, J_DEN]),
+                                       bd)
+            scatter_blocks(pred, blk, t(jr[sel, J_DST]), t(jr[sel, J_STRIDE]))
+        for k in (bi, wbi):
+            sel = np.nonzero(jr[:, J_KIND] == k)[0]
+            if len(sel):
+                buf = bufs[k, h * 128 + w][1]
+                buf[t(r[sel, 1]), t(pair_rank[r[sel, 0]])] = out[t(sel)]
+    for (k, _key), (sel, buf) in bufs.items():
+        j = jobs[sel]
+        if k == bi:
+            blk = bi_avg_batch(buf[0], buf[1], bd)
+        else:
+            blk = weight_bi_batch(buf[0], buf[1], t(j[:, J_W0]),
+                                  t(j[:, J_W1]), t(j[:, J_OFF]),
+                                  t(j[:, J_DEN]), bd)
+        scatter_blocks(pred, blk, t(j[:, J_DST]), t(j[:, J_STRIDE]))
+    return pred
+
+
+def mc_picture(jobs: np.ndarray, planes: list, size: int,
+               bd: int) -> torch.Tensor:
+    """Every inter PU of a picture: host jobs int32 [J, JOB_COLS]
+    (``ops.mc_kernel``) over the reference planes (int16 [rows, cols]
+    each, on one device) -> the flat int16 prediction [size], zero outside
+    the jobs.  On a CUDA device this is one launch of the hand-written
+    kernel (and raises if it cannot launch); on the CPU the plain
+    version."""
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return mc_picture_plain(jobs, planes, size, bd)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return mc_kernel.picture(jobs, planes, size, bd)
+
+
+def mc_blocks_plain(planes: torch.Tensor, jobs: torch.Tensor, case: str,
+                    luma: bool, bd: int, bi: bool, out_h: int,
+                    out_w: int) -> torch.Tensor:
+    """The plain version of the blocks kernel, on any device: planes
+    [P, rows, cols], jobs [N, 5] of (plane, window x, window y, fx, fy)
+    -> int16 [N, out_h, out_w] (``gather_windows`` then ``mc_batch``)."""
+    rows, cols = window_shape(case, luma, out_h, out_w)
+    outs = []
+    # in chunks of about 2^22 window samples, which bounds the tap stacks
+    for j in jobs.split(max(1, (1 << 22) // (rows * cols))):
+        win = gather_windows(planes, j[:, 0], j[:, 1], j[:, 2], rows, cols)
+        outs.append(mc_batch(win, j[:, 3], j[:, 4], case, luma, bd, bi,
+                             out_h, out_w))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def mc_blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str,
+              luma: bool, bd: int, bi: bool, out_h: int,
+              out_w: int) -> torch.Tensor:
+    """N predictions of one size and case: int16 planes [P, rows, cols]
+    and integer jobs [N, 5] of (plane, window x, window y, fx, fy), the
+    window's first tap sample in plane coordinates (read clamped to the
+    plane) -> int16 [N, out_h, out_w], pixels, or 14 bits when ``bi``.
+    On a CUDA device one launch of the hand-written kernel (and raises if
+    it cannot launch); on the CPU the plain version."""
+    if planes.device.type == "cpu":
+        return mc_blocks_plain(planes, jobs, case, luma, bd, bi, out_h,
+                               out_w)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    return mc_kernel.blocks(planes.to(torch.int16).contiguous(),
+                            jobs.to(torch.int32).contiguous(), case, luma,
+                            bd, bi, out_h, out_w)
