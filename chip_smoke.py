@@ -30,6 +30,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    size s against M = 35 candidates, for s = 4, 8, 16, 32, 64 at bit
    increment 0 and s = 8, 64 at bit increment 2, and a ragged N = 4099.
    Tolerance 0; times both, with the bound and shares as for K1.
+   Every bound with an int32 term holds it to 33.5e12 op/s, half the
+   float32 rate, and prints the float32-rate bound beside it as
+   ``fp32_bound_ms``.
 5. Streams: writes a 1920x1080 8-frame clip and a 1920x1080 8-frame
    motion clip (``tools/make_test_clip.py``, seed 1234, the second with
    ``--style motion``) and a 416x240 9-frame motion clip, then encodes,
@@ -76,7 +79,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    its launch alone as a CUDA graph of 20 launches, which must hold 20
    kernel nodes; the plain version eager), beside its bound (the
    distinct reference samples its windows read, the job table and the
-   prediction, over HBM's rate; its multiply-adds over the float32
+   prediction, over HBM's rate; its multiply-adds over the int32
    peak).  The 416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders', through the MC kernel and not the
@@ -102,7 +105,17 @@ Run from the root of a checkout on a machine with a CUDA card:
    plain version on the pass's own data (tolerance 0), and the
    49-candidate SATD classes and quarter-pel MC calls (one a size class
    and list) are timed with their bytes, bound and share (``kernel
-   satd`` and ``kernel mc_blocks`` rows, as in 4).  Then 416x240 low-delay P (3 frames)
+   satd`` and ``kernel mc_qpel`` rows, as in 4; each quarter-pel call is
+   the MC kernel's quarter-pel entry, ``mc_qpel`` in ``csrc/mc.cu``, also
+   held against and timed beside the generic ``mc_blocks`` entry on its
+   49-job table, as a CUDA graph in the same run; its bound counts the
+   distinct reference samples, the origins and the 49 predictions a
+   block, and the 7 first passes over s + 8 rows and 49 second passes at
+   each phase's nonzero taps, at the int32 rate; ``generic_fp32_bound_ms``
+   is the generic entry's bound on that table at the float32 rate), and
+   the generic MC calls (the
+   winners' predictions) timed and summed (``kernel
+   mc_blocks_generic``).  Then 416x240 low-delay P (3 frames)
    and random-access (5 frames) fast-RD streams of the small motion
    clip: ``--device cuda`` and ``--device cpu`` byte-identical, the
    ``cuda`` ones through the MC kernel and not the plain MC.  Last,
@@ -202,9 +215,11 @@ Run from the root of a checkout on a machine with a CUDA card:
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
    summed over a frame's five classes, MC a picture of the low-delay B
-   decode (the mean over its B pictures); no single PyTorch call
-   computes any of them (the MC: per-PU-phase 8-tap interpolation with
-   the int16 wrap), so ``library_ms`` is null), then the card's name and
+   decode (the mean over its B pictures), its quarter-pel entry
+   (``mc_qpel``, launches apart from the other MC entries) the replayed
+   B frame's 8 calls summed; no single PyTorch call computes any of them
+   (the MC: per-PU-phase 8-tap interpolation with the int16 wrap), so
+   ``library_ms`` is null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
 
@@ -239,10 +254,14 @@ RESIDUAL_TIMING = [(4, True, 0, 1.0), (4, False, 0, 1.0), (8, False, 0, 1.0),
                    (32, False, 0, 0.25), (32, False, 0, 0.0)]
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, dense int8 tensor-core ops/s, float32 ops/s outside the tensor
-# cores (the rate int32 work is held to here)
+# cores; int32 multiply-adds run at half the float32 rate (132 SMs x 64
+# lanes x 2 ops x 1.98 GHz), the rate the int32 work is held to.  The
+# float32 rate gives the bounds counted before (``fp32_bound_ms``), so
+# that the older shares stay comparable
 HBM_BYTES_S = 3.35e12
 INT8_TENSOR_OPS = 1.979e15
 FP32_OPS = 67e12
+INT32_OPS = 33.5e12
 # PU classes of the fast-RD sweep: (size, bit_increment)
 SATD_CLASSES = [(4, 0), (8, 0), (16, 0), (32, 0), (64, 0), (8, 2), (64, 2)]
 SATD_MODES = 35
@@ -322,23 +341,31 @@ def time_ms(torch, fn, iters: int, reps: int = 1) -> float:
     return sorted(means)[len(means) // 2]
 
 
-def residual_bound(n: int, size: int, m_rows: int, packed: bool) -> tuple:
+def roofline(nbytes: int, ops: int, peak: float) -> tuple:
+    """(bound_ms, bound_by): the larger of the bytes over HBM's rate and
+    the operations over ``peak``."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
+    return 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def residual_bound(n: int, size: int, m_rows: int, packed: bool,
+                   int32_peak: float = INT32_OPS) -> tuple:
     """(bytes, operations, bound_ms, bound_by) of one residual launch:
     the bytes it must move (the coded groups, their indices and the QPs
     in, or the dense coefficients; the int16 residual out) over HBM's
     rate, and its multiply-adds (two passes of ``size`` per coefficient,
     twice over for the hi/lo split on the int8 tensor cores; on the
-    int32 CUDA cores for 4x4) over the peak rate of their type."""
+    int32 CUDA cores for 4x4, at ``int32_peak``) over the peak rate of
+    their type."""
     coeffs = n * size * size
     nbytes = (m_rows * (32 + 4) if packed else coeffs * 2) + n * 4 \
         + coeffs * 2
     if size >= 8:
         ops, peak = coeffs * 2 * size * 2 * 2, INT8_TENSOR_OPS
     else:
-        ops, peak = coeffs * 2 * size * 2, FP32_OPS
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / peak
-    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+        ops, peak = coeffs * 2 * size * 2, int32_peak
+    return (nbytes, ops, *roofline(nbytes, ops, peak))
 
 
 def packed_class(rng, n: int, size: int, bit_inc: int, density: float):
@@ -462,6 +489,8 @@ def kernel_phase(torch, tq, rng_seed: int) -> dict:
                    n=n, coded_groups=coded, ms=ms, graph_ms=g_ms,
                    plain_ms=plain_ms, bytes=nbytes, ops=ops,
                    bound_ms=bound_ms, bound_by=bound_by,
+                   fp32_bound_ms=residual_bound(n, size, coded, size >= 8,
+                                               FP32_OPS)[2],
                    share_of_bound=bound_ms / ms,
                    graph_share_of_bound=bound_ms / g_ms,
                    gb_s=nbytes / ms / 1e6)
@@ -641,7 +670,9 @@ def decode_class_times(torch, stream: Path) -> dict:
         rows.append(dict(size=size, dst=bool(args[-2]), n=n,
                          coded_groups=coded, ms=ms, graph_ms=g_ms,
                          plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms,
-                         bound_by=bound_by, share_of_bound=bound_ms / ms,
+                         bound_by=bound_by, fp32_bound_ms=residual_bound(
+                             n, size, coded, fn is packed, FP32_OPS)[2],
+                         share_of_bound=bound_ms / ms,
                          graph_share_of_bound=bound_ms / g_ms))
         print("decode_class residual " + json.dumps(rows[-1]))
     return {"max_abs_err": max_err, "rows": rows}
@@ -698,10 +729,12 @@ def touched(torch, rows: int, cols: int, plane, y0, x0, h, w) -> int:
 
 
 def mc_blocks_bound(torch, planes, jobs, case: str, luma: bool, bd: int,
-                    bi: bool, out_h: int, out_w: int) -> tuple:
+                    bi: bool, out_h: int, out_w: int,
+                    peak: float = INT32_OPS) -> tuple:
     """(bytes, operations, bound_ms, bound_by) of one ``mc_blocks`` call:
     the distinct reference samples its windows read, its int32 jobs and
-    its int16 predictions; its multiply-adds on the CUDA cores."""
+    its int16 predictions; its multiply-adds on the CUDA cores (at
+    ``peak``)."""
     from thevc_tpu_torch.ops import mc
     rows, cols = mc.window_shape(case, luma, out_h, out_w)
     j = jobs.long()
@@ -712,18 +745,84 @@ def mc_blocks_bound(torch, planes, jobs, case: str, luma: bool, bd: int,
     per = {"copy": 0, "hor": out_h * out_w, "ver": out_h * out_w,
            "2d": (out_h + taps - 1 + out_h) * out_w}[case]
     ops = 2 * n * per * taps
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
-    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+    return (nbytes, ops, *roofline(nbytes, ops, peak))
 
 
-def mc_bound(torch, jobs, planes, size: int, table_bytes: int) -> tuple:
+def qpel_bound(torch, planes, origins, s: int) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one ``mc_qpel`` call:
+    the distinct reference samples of the blocks' (s + 8)-square windows
+    (integer offsets -1 and 0 plus the taps), the int32 origins and the
+    int16 [nb, 49, s, s] predictions; the multiply-adds the 49 candidates
+    need, on the int32 CUDA cores: the first pass of the 7 horizontal
+    positions over s + 8 rows and the 49 second passes, each output at its
+    phase's nonzero taps (45 over the 7 positions of a pass, the identity
+    row's one tap a shift)."""
+    from thevc_tpu_torch.common.tables import from_reference
+    from thevc_tpu_torch.ops import mc
+    filt = from_reference("cpu").luma_filter
+    taps = sum(int((filt[fx] != 0).sum()) for _, _, _, fx in mc.QPEL_CAND[:7])
+    o = origins.long()
+    nb = int(o.shape[0])
+    nbytes = 2 * touched(torch, int(planes.shape[1]), int(planes.shape[2]),
+                         o[:, 0], o[:, 2] - 1, o[:, 1] - 1, s + 8, s + 8) \
+        + 12 * nb + 2 * nb * 49 * s * s
+    ops = 2 * nb * taps * ((s + 8) * s + 7 * s * s)
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def qpel_row(torch, planes, origins, s: int, bd: int) -> dict:
+    """One quarter-pel call: the kernel (``mc.mc_qpel``) against its
+    plain version (tolerance 0) and against the generic ``mc_blocks``
+    entry on the 49-job table, then timed: eager (CUDA events around 20
+    calls), as a CUDA graph of 20 launches, the generic entry as such a
+    graph on the same table in the same run, and the plain version;
+    beside the call's bound and the generic entry's bound on the 49-job
+    table at the float32 rate (``generic_fp32_bound_ms``: 49 first
+    passes)."""
+    from thevc_tpu_torch.ops import mc
+
+    def qpel():
+        return mc.mc_qpel(planes, origins, s, bd)
+    jobs = mc.qpel_jobs(origins).to(torch.int32)
+
+    def blocks():
+        return mc.mc_blocks(planes, jobs, "2d", True, bd, False, s, s)
+    got, plain = qpel(), mc.mc_qpel_plain(planes, origins, s, bd)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    check(torch.equal(got, plain), f"MC quarter-pel kernel != plain at s = "
+          f"{s}, {origins.shape[0]} blocks (max abs err {err})")
+    del plain
+    check(torch.equal(blocks().view(got.shape), got), "the generic MC entry "
+          f"on the 49-job table != the quarter-pel kernel at s = {s}")
+    del got
+    ms = time_ms(torch, qpel, 20)
+    g_ms = graph_ms(torch, qpel, 20)
+    blocks_g_ms = graph_ms(torch, blocks, 20)
+    plain_ms = time_ms(torch, lambda: mc.mc_qpel_plain(planes, origins, s,
+                                                       bd), 3)
+    nbytes, ops, bound_ms, bound_by = qpel_bound(torch, planes, origins, s)
+    generic = mc_blocks_bound(torch, planes, jobs, "2d", True, bd, False, s,
+                              s, FP32_OPS)
+    return dict(size=s, blocks=int(origins.shape[0]), ms=ms, graph_ms=g_ms,
+                generic_graph_ms=blocks_g_ms,
+                speedup_over_generic=blocks_g_ms / g_ms, plain_ms=plain_ms,
+                bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                share_of_bound=bound_ms / ms,
+                graph_share_of_bound=bound_ms / g_ms,
+                gb_s=nbytes / g_ms / 1e6,
+                generic_fp32_bound_ms=generic[2],
+                max_abs_err=err)
+
+
+def mc_bound(torch, jobs, planes, size: int, table_bytes: int,
+             peak: float = INT32_OPS) -> tuple:
     """(bytes, operations, bound_ms, bound_by, window bytes) of one
     picture's MC: the distinct reference samples its windows read
     (``touched``), the job table, and the int16 prediction written; its
     multiply-adds (the first pass over the window rows of a 2-D case,
-    then one pass a sample), on the CUDA cores.  The window bytes sum
-    every window as the class-by-class MC read them."""
+    then one pass a sample), on the CUDA cores (at ``peak``).  The window
+    bytes sum every window as the class-by-class MC read them."""
     import numpy as np
     from thevc_tpu_torch.ops import mc
     r = mc._list_rows(np.asarray(jobs, np.int64))
@@ -743,10 +842,8 @@ def mc_bound(torch, jobs, planes, size: int, table_bytes: int) -> tuple:
                                torch.zeros_like(t[0]), *t)
     nbytes = 2 * samples + table_bytes + 2 * size
     ops = 2 * macs
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
-    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations", \
-        2 * int((rows * cols).sum())
+    return (nbytes, ops, *roofline(nbytes, ops, peak),
+            2 * int((rows * cols).sum()))
 
 
 def mc_picture_times(torch, stream: Path) -> dict:
@@ -807,12 +904,14 @@ def mc_picture_times(torch, stream: Path) -> dict:
                          ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                          bytes=nbytes, window_bytes=win_bytes, ops=ops,
                          bound_ms=bound_ms, bound_by=bound_by,
+                         fp32_bound_ms=roofline(nbytes, ops, FP32_OPS)[0],
                          share_of_bound=bound_ms / ms,
                          graph_share_of_bound=bound_ms / g_ms))
         print("kernel mc_picture " + json.dumps(rows[-1]))
     n = len(rows)
     total = {key: sum(r[key] for r in rows) / n
-             for key in ("ms", "graph_ms", "plain_ms", "bound_ms", "bytes")}
+             for key in ("ms", "graph_ms", "plain_ms", "bound_ms",
+                         "fp32_bound_ms", "bytes")}
     total["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                        for r in rows) else "operations"
     print("mc_picture_mean " + json.dumps(dict(total, pictures=n,
@@ -840,17 +939,16 @@ def small_inter_phase(torch, work: Path, made: dict) -> dict:
     return out
 
 
-def satd_bound(n: int, size: int, m: int = SATD_MODES) -> tuple:
+def satd_bound(n: int, size: int, m: int = SATD_MODES,
+               peak: float = INT32_OPS) -> tuple:
     """(bytes, operations, bound_ms, bound_by) of one SATD sweep: org and
     the m candidates in (int16), the int32 sums out; per candidate sample
     a difference, the 4x4 (PU 4) or 8x8 Hadamard's butterflies and an
-    absolute value and a sum, int32 on the CUDA cores."""
+    absolute value and a sum, int32 on the CUDA cores (at ``peak``)."""
     samples = n * m * size * size
     nbytes = (n * size * size + samples) * 2 + n * m * 4
     ops = samples * (2 * (2 if size == 4 else 3) + 3)
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, ops / FP32_OPS
-    return nbytes, ops, 1000 * max(t_bytes, t_ops), \
-        "bytes" if t_bytes >= t_ops else "operations"
+    return (nbytes, ops, *roofline(nbytes, ops, peak))
 
 
 def satd_phase(torch, satd, rng_seed: int) -> dict:
@@ -887,6 +985,8 @@ def satd_phase(torch, satd, rng_seed: int) -> dict:
         row = dict(size=size, bit_inc=bit_inc, n=n, m=SATD_MODES, ms=ms,
                    graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
                    ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                   fp32_bound_ms=satd_bound(n, size, SATD_MODES,
+                                           FP32_OPS)[2],
                    share_of_bound=bound_ms / ms,
                    graph_share_of_bound=bound_ms / g_ms,
                    gb_s=nbytes / ms / 1e6)
@@ -1024,9 +1124,11 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           "SATD kernel")
     check(rep["residual_launches"] > 0, "the P/B fast-RD encode launched "
           "no residual kernel")
-    check(rep["mc_launches"] > 0 and rep["plain_mc_calls"] == 0,
-          f"the P/B fast-RD encode launched the MC kernel "
-          f"{rep['mc_launches']} times and the plain MC "
+    check(rep["mc_launches"] > 0 and rep["mc_qpel_launches"] > 0
+          and rep["plain_mc_calls"] == 0,
+          f"the P/B fast-RD encode launched the MC kernel's generic "
+          f"entries {rep['mc_launches']} times, its quarter-pel entry "
+          f"{rep['mc_qpel_launches']} times and the plain MC "
           f"{rep['plain_mc_calls']} times")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
@@ -1042,6 +1144,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
                mc_launches=rep["mc_launches"],
+               mc_qpel_launches=rep["mc_qpel_launches"],
                fast_bytes=stream.stat().st_size,
                exact_bytes=exact.stat().st_size,
                psnr_y_fast=luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES),
@@ -1099,7 +1202,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     the encoder's own call: synchronised walls, stage walls, profiler
     device time, and every K1, K2 and MC kernel call of the pass held
     against its plain version; the quarter-pel MC calls (49 candidates a
-    block, one a size class and list) timed with their bound."""
+    block, one a size class and list) timed with their bound beside the
+    generic MC entry on the same job table (``qpel_row``), and the
+    generic MC calls (the winners' predictions) timed and summed."""
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     from thevc_tpu_torch.ops import device as dev_stats
     from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel, satd, \
@@ -1114,12 +1219,14 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     walls, launches = [], None
     for _ in range(3):
         satd_kernel.launches = residual_kernel.launches = 0
-        mc_kernel.launches = mc.launches = 0
+        mc_kernel.launches = mc_kernel.qpel_launches = mc.launches = 0
         t = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t)
         launches = {"residual": residual_kernel.launches,
-                    "satd": satd_kernel.launches, "mc": mc_kernel.launches}
+                    "satd": satd_kernel.launches,
+                    "mc": mc_kernel.launches,
+                    "mc_qpel": mc_kernel.qpel_launches}
         check(all(launches.values()) and mc.launches == 0,
               f"the B decision pass skipped a kernel: {launches}, or ran "
               f"the plain MC {mc.launches} times")
@@ -1147,11 +1254,10 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
 
     # record the pass's kernel calls (the inter leaves' and the intra
     # leaves'), then hold each against its plain version and time the
-    # 49-candidate SATD and MC calls
-    calls = {"satd": [], "residual": [], "mc": []}
+    # 49-candidate SATD and MC calls and the generic MC calls
+    calls = {"satd": [], "residual": [], "mc": [], "mc_qpel": []}
     real_satd, real_tq = satd.satd_blocks, tq.tu_recon_pipeline
-    real_mc, real_qpel = mc.mc_blocks, fast_inter._qpel_preds
-    in_qpel = [False]
+    real_mc, real_qpel = mc.mc_blocks, mc.mc_qpel
 
     def rec_satd(org, preds, bit_inc=0):
         calls["satd"].append((org, preds, bit_inc))
@@ -1162,28 +1268,25 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         return real_tq(*a)
 
     def rec_mc(*a):
-        calls["mc"].append((a, in_qpel[0]))
+        calls["mc"].append(a)
         return real_mc(*a)
 
     def rec_qpel(*a):
-        in_qpel[0] = True
-        try:
-            return real_qpel(*a)
-        finally:
-            in_qpel[0] = False
+        calls["mc_qpel"].append(a)
+        return real_qpel(*a)
     fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
     tq.tu_recon_pipeline = rec_tq
-    mc.mc_blocks, fast_inter._qpel_preds = rec_mc, rec_qpel
+    mc.mc_blocks, mc.mc_qpel = rec_mc, rec_qpel
     try:
         run()
     finally:
         fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
         tq.tu_recon_pipeline = real_tq
-        mc.mc_blocks, fast_inter._qpel_preds = real_mc, real_qpel
+        mc.mc_blocks, mc.mc_qpel = real_mc, real_qpel
     check({k: len(v) for k, v in calls.items()} == launches,
           f"recorded {[len(v) for v in calls.values()]} K2/K1/MC calls of "
           f"the B pass for launches {launches}")
-    max_err = {"satd": 0, "residual": 0, "mc": 0}
+    max_err = {"satd": 0, "residual": 0, "mc": 0, "mc_qpel": 0}
     rows = []
     for org, preds, bit_inc in calls["satd"]:
         got, plain = satd.satd_blocks(org, preds, bit_inc), \
@@ -1204,6 +1307,7 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         rows.append(dict(size=size, bit_inc=bit_inc, n=n, m=m, ms=ms,
                          graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
                          ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+                         fp32_bound_ms=satd_bound(n, size, m, FP32_OPS)[2],
                          share_of_bound=bound_ms / ms,
                          graph_share_of_bound=bound_ms / g_ms,
                          gb_s=nbytes / ms / 1e6))
@@ -1216,37 +1320,47 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         max_err["residual"] = max(max_err["residual"], err)
         check(torch.equal(got, plain), "residual kernel != plain on the B "
               f"pass's {tuple(a[1].shape)} call (max abs err {err})")
-    mc_rows = []
-    for a, qpel in calls["mc"]:
+    blocks_rows = []
+    for a in calls["mc"]:
         got, plain = mc.mc_blocks(*a), mc.mc_blocks_plain(*a)
         torch.cuda.synchronize()
         err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
         max_err["mc"] = max(max_err["mc"], err)
         check(torch.equal(got, plain), "MC kernel != plain on the B pass's "
               f"{tuple(got.shape)} call (max abs err {err})")
-        if not qpel:
-            continue
-        ms = time_ms(torch, lambda: mc.mc_blocks(*a), 20)
-        g_ms = graph_ms(torch, lambda: mc.mc_blocks(*a), 20)
-        plain_ms = time_ms(torch, lambda: mc.mc_blocks_plain(*a), 3)
         nbytes, ops, bound_ms, bound_by = mc_blocks_bound(torch, *a)
-        n, h, w = (int(v) for v in got.shape)
-        mc_rows.append(dict(size=h, n=n, blocks=n // 49, ms=ms,
-                            graph_ms=g_ms, plain_ms=plain_ms, bytes=nbytes,
-                            ops=ops, bound_ms=bound_ms, bound_by=bound_by,
-                            share_of_bound=bound_ms / ms,
-                            graph_share_of_bound=bound_ms / g_ms))
-        print("kernel mc_blocks " + json.dumps(mc_rows[-1]))
+        blocks_rows.append(dict(
+            shape=list(got.shape), luma=bool(a[3]), bi=bool(a[5]),
+            ms=time_ms(torch, lambda: mc.mc_blocks(*a), 20),
+            graph_ms=graph_ms(torch, lambda: mc.mc_blocks(*a), 20),
+            plain_ms=time_ms(torch, lambda: mc.mc_blocks_plain(*a), 3),
+            bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
+            fp32_bound_ms=mc_blocks_bound(torch, *a, FP32_OPS)[2]))
+    blocks_sum = {k: sum(r[k] for r in blocks_rows) for k in (
+        "ms", "graph_ms", "plain_ms", "bytes", "bound_ms", "fp32_bound_ms")}
+    blocks_sum.update(
+        calls=len(blocks_rows), bound_by="bytes" if all(
+            r["bound_by"] == "bytes" for r in blocks_rows) else "operations",
+        graph_share_of_bound=blocks_sum["bound_ms"] / blocks_sum["graph_ms"],
+        largest=max(blocks_rows, key=lambda r: r["bytes"]))
+    print("kernel mc_blocks_generic " + json.dumps(blocks_sum))
+    mc_rows = []
+    for a in calls["mc_qpel"]:
+        mc_rows.append(qpel_row(torch, *a))
+        max_err["mc_qpel"] = max(max_err["mc_qpel"],
+                                 mc_rows[-1]["max_abs_err"])
+        print("kernel mc_qpel " + json.dumps(mc_rows[-1]))
     check(len(mc_rows) == 2 * len(fast_inter.INTER_SIZES),
           f"{len(mc_rows)} quarter-pel MC calls in the B pass")
     out.update(max_abs_err=max_err, satd_rows=rows, mc_rows=mc_rows,
-               mc_calls=len(calls["mc"]),
+               mc_blocks=blocks_sum, mc_calls=len(calls["mc"]),
                residual_calls=len(calls["residual"]),
                residual_shapes=sorted({tuple(int(v) for v in a[1].shape)
                                        for a in calls["residual"]}))
     print("fastrd_inter_kernels " + json.dumps(
         {"max_abs_err": max_err, "residual_calls": out["residual_calls"],
          "satd_calls": len(rows), "mc_calls": out["mc_calls"],
+         "mc_qpel_calls": len(mc_rows),
          "replayed_pocs": {
              "l0": [r[0] for r in args[3]], "l1": [r[0] for r in refs1]}}))
     del calls
@@ -1276,13 +1390,15 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
         check(cuda == cpu, f"{name} P/B fast-RD stream: --device cuda and "
               "--device cpu differ")
         check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0
-              and rep["mc_launches"] > 0 and rep["plain_mc_calls"] == 0,
+              and rep["mc_launches"] > 0 and rep["mc_qpel_launches"] > 0
+              and rep["plain_mc_calls"] == 0,
               f"{name} fast-RD on cuda skipped a kernel or ran the plain MC")
         out[name] = {"bytes": len(cuda), "identical": True,
                      "decision_frames_inter": rep["decision_frames_inter"],
                      "residual_launches": rep["residual_launches"],
                      "satd_launches": rep["satd_launches"],
-                     "mc_launches": rep["mc_launches"]}
+                     "mc_launches": rep["mc_launches"],
+                     "mc_qpel_launches": rep["mc_qpel_launches"]}
     print("inter_identity " + json.dumps(out))
     return out
 
@@ -1867,6 +1983,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
     residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
+    mc_kernel.qpel_launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -1986,7 +2103,8 @@ def resume_rc_phase(torch, work: Path) -> dict:
         print("resume_rc_quality " + fastrd_quality.format_row(row))
     out["launches"] = {"residual": residual_kernel.launches,
                        "satd": satd_kernel.launches,
-                       "mc": mc_kernel.launches}
+                       "mc": mc_kernel.launches,
+                       "mc_qpel": mc_kernel.qpel_launches}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -2080,8 +2198,10 @@ def main() -> int:
     frame = [r for r in k2["rows"] if r["bit_inc"] == 0]
     # the MC kernel's time: a picture of the 1080p low-delay B decode (the
     # mean over its B pictures; no single PyTorch call takes per-PU-phase
-    # 8-tap interpolation with the int16 wrap, so library_ms is null)
+    # 8-tap interpolation with the int16 wrap, so library_ms is null); its
+    # quarter-pel entry's: the replayed B frame's 8 calls summed
     pics = inter["mc_pictures"]
+    qpel_calls = fast_inter["pass"]["mc_rows"]
     by_path = {
         "intra_decode": {"residual": dec["residual_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
@@ -2102,7 +2222,8 @@ def main() -> int:
         **{f"inter_decode_{k}": v for k, v in small.items()},
         **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"]}
            for k, v in wp_sl.items()}}
-    by_path["fastrd_inter_encode"]["mc"] = fast_inter["mc_launches"]
+    by_path["fastrd_inter_encode"].update(
+        mc=fast_inter["mc_launches"], mc_qpel=fast_inter["mc_qpel_launches"])
     print("launches by path " + json.dumps(by_path))
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
@@ -2136,6 +2257,18 @@ def main() -> int:
         "ms": pics["mean"]["ms"], "plain_ms": pics["mean"]["plain_ms"],
         "bound_ms": pics["mean"]["bound_ms"],
         "bound_by": pics["mean"]["bound_by"],
+        "library_ms": None}, {
+        "name": "mc_qpel", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/mc.cu",
+        "replaces": "thevc_tpu/ops/jx_mc.py:77 "
+                    "(thevc_tpu/encoder/fast_inter.py:270-300)",
+        "launches": sum(p.get("mc_qpel", 0) for p in by_path.values()),
+        "max_abs_err": fast_inter["pass"]["max_abs_err"]["mc_qpel"],
+        "ms": sum(r["ms"] for r in qpel_calls),
+        "plain_ms": sum(r["plain_ms"] for r in qpel_calls),
+        "bound_ms": sum(r["bound_ms"] for r in qpel_calls),
+        "bound_by": "bytes" if all(r["bound_by"] == "bytes"
+                                   for r in qpel_calls) else "operations",
         "library_ms": None}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -30,6 +30,7 @@ from thevc_tpu.encoder import fast_intra as ref_intra
 from thevc_tpu.ops.jx_mc import mc_batch as jax_mc_batch
 from thevc_tpu_torch.encoder import fast_inter as port
 from thevc_tpu_torch.encoder import fast_intra as port_intra
+from thevc_tpu_torch.ops import mc
 
 W, H, CTU, SEARCH = 96, 80, 64, 64
 WP, HP = 128, 128                        # CTU-padded
@@ -171,8 +172,10 @@ def test_helpers_exact():
     for x, y in zip(ref._mv_pred_median(jnp.asarray(a), jnp.asarray(b)),
                     port._mv_pred_median(at, torch.from_numpy(b))):
         np.testing.assert_array_equal(np.asarray(x), y.numpy())
-    for q in range(-7, 8):
-        assert port._qsplit(q) == ref._qsplit(q)
+    # the quarter-pel split of the 49 candidates, (qdy + 3) * 7 + qdx + 3
+    for k, cand in enumerate(mc.QPEL_CAND):
+        qdy, qdx = k // 7 - 3, k % 7 - 3
+        assert cand == (*ref._qsplit(qdy), *ref._qsplit(qdx))
 
 
 def test_golomb_bits_exact_up_to_2_15():

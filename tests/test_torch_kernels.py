@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (residual, dense and CG-packed; SATD;
-motion compensation, picture and blocks entries) against their plain
-versions, also at the shapes of the P/B fast-RD pass (SATD over 49
-quarter-pel candidates, inter TUs), the fast-RD decision passes, motion
+motion compensation, picture, blocks and quarter-pel entries) against
+their plain versions, also at the shapes of the P/B fast-RD pass (SATD
+over 49 quarter-pel candidates, inter TUs), the fast-RD decision passes, motion
 compensation and the P/B decode (weighted prediction and scaling lists
 included) on CUDA against the CPU, on a CUDA card.
 
@@ -406,6 +406,74 @@ def test_mc_kernels_reject_bad_inputs(cuda):
         mc_kernel.blocks(stack.cpu(), blk.cpu(), "2d", True, 8, False, 8, 8)
 
 
+def qpel_origins(rng, n: int, rows: int, cols: int, s: int, edge: bool):
+    """int32 origins [n, 3] of the quarter-pel entry over 2 planes of rows
+    x cols: windows inside the planes where they fit, or (``edge``)
+    reaching up to 2 s + 12 past every edge."""
+    if edge:
+        x = rng.randint(-2 * s - 12, cols + 12, n)
+        y = rng.randint(-2 * s - 12, rows + 12, n)
+    else:
+        x = rng.randint(1, max(2, cols - s - 7), n)
+        y = rng.randint(1, max(2, rows - s - 7), n)
+    return np.stack([rng.randint(0, 2, n), x, y], axis=1).astype(np.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("s", mc_kernel.QPEL_SIZES)
+def test_mc_qpel_kernel_equals_plain(cuda, s, bd):
+    rng = np.random.RandomState(7 * s + bd)
+    # a padded 1080p plane pair (columns a multiple of 8: 16-byte loads),
+    # a plane pair of 70 columns (clamped loads only) and one whose base is
+    # not 16-byte aligned (a view into a stack of 3)
+    big = torch.from_numpy(rng.randint(0, 1 << bd, (2, 1248, 2080))
+                           .astype(np.int16)).to(cuda)
+    odd = torch.from_numpy(rng.randint(0, 1 << bd, (2, 90, 70))
+                           .astype(np.int16)).to(cuda)
+    off = torch.from_numpy(rng.randint(0, 1 << bd, (3, 81, 88))
+                           .astype(np.int16)).to(cuda)[1:]
+    full = (1088 // s) * (1920 // s)
+    cases = [(big, 1, True), (big, 13, False), (big, 1031, True),
+             (big, full, False), (odd, 1, False), (odd, 517, True),
+             (off, 13, True), (off, 300, False)]
+    for planes, n, edge in cases:
+        rows, cols = planes.shape[1:]
+        origins = torch.from_numpy(qpel_origins(rng, n, rows, cols, s,
+                                                edge)).to(cuda)
+        got = mc.mc_qpel(planes, origins, s, bd)
+        torch.cuda.synchronize()
+        assert got.shape == (n, 49, s, s)
+        want = mc.mc_qpel_plain(planes, origins, s, bd)
+        assert torch.equal(got, want), (tuple(planes.shape), n, edge)
+
+
+@pytest.mark.gpu
+def test_mc_qpel_kernel_counts_and_rejects_bad_inputs(cuda):
+    planes = torch.zeros((2, 40, 48), dtype=torch.int16, device=cuda)
+    origins = torch.from_numpy(qpel_origins(np.random.RandomState(5), 9, 40,
+                                            48, 8, True)).to(cuda)
+    before = (mc_kernel.launches, mc_kernel.qpel_launches, mc.launches)
+    mc.mc_qpel(planes, origins, 8, 8)
+    mc_kernel.qpel(planes, origins, 16, 10)
+    torch.cuda.synchronize()
+    assert (mc_kernel.launches, mc_kernel.qpel_launches, mc.launches) == (
+        before[0], before[1] + 2, before[2])
+    for bad in [(planes.cpu(), origins.cpu(), 8, 8),      # CPU tensors
+                (planes, origins.cpu(), 8, 8),            # mixed devices
+                (planes, origins, 12, 8),                 # block size
+                (planes, origins, 4, 8),
+                (planes, origins, 8, 7),                  # bit depth
+                (planes, origins[:, :2].contiguous(), 8, 8),
+                (planes, origins.long(), 8, 8),           # dtype
+                (planes, origins.float(), 8, 8),
+                (planes.int(), origins, 8, 8),
+                (planes[0], origins, 8, 8)]:              # planes' shape
+        with pytest.raises(ValueError):
+            mc_kernel.qpel(*bad)
+    assert mc_kernel.qpel_launches == before[1] + 2
+
+
 @pytest.mark.gpu
 def test_inter_decode_cuda_equals_cpu(cuda, tmp_path):
     from thevc_tpu_torch import native
@@ -527,13 +595,14 @@ def test_decide_frame_p_cuda_equals_cpu(cuda, tmp_path, b_slice):
                 (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 64,
                 0, 255)
         before = (satd_kernel.launches, residual_kernel.launches,
-                  mc_kernel.launches, mc.launches)
+                  mc_kernel.launches, mc.launches, mc_kernel.qpel_launches)
         maps_cuda = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                               device=cuda)
         assert satd_kernel.launches > before[0]
         assert residual_kernel.launches > before[1]
         # the pass's MC is the kernel's: no plain MC on the card
         assert mc_kernel.launches > before[2] and mc.launches == before[3]
+        assert mc_kernel.qpel_launches > before[4]
         maps_cpu = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                              device="cpu")
         assert len(maps_cuda) == (14 if b_slice else 10)

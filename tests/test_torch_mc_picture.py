@@ -24,6 +24,7 @@ import torch
 
 from tests.test_torch_kernels import random_mc_jobs
 from thevc_tpu.decoder.inter import InterPredictor
+from thevc_tpu.encoder import fast_inter as jax_fast_inter
 from thevc_tpu.ops import interp, jx_mc
 from thevc_tpu_torch import native, streams
 from thevc_tpu_torch.decoder.top import Decoder
@@ -260,11 +261,11 @@ def seven_cat_loop(refs_y, ref, bx, by, int_mx, int_my, s, bd):
     steps = torch.arange(-3, 4)
     fxv = (steps & 3).repeat_interleave(nb)
     for qdy in range(-3, 4):
-        iy, fy = fast_inter._qsplit(qdy)
+        iy, fy = jax_fast_inter._qsplit(qdy)
         wy = margin + iy - 3
         subs = []
         for qdx in range(-3, 4):
-            wx = margin + fast_inter._qsplit(qdx)[0] - 3
+            wx = margin + jax_fast_inter._qsplit(qdx)[0] - 3
             subs.append(w[:, wy:wy + s + 7, wx:wx + s + 7])
         fyv = torch.full((7 * nb,), fy, dtype=torch.int64)
         row = mc.mc_batch(torch.cat(subs), fxv, fyv, "2d", True, bd, False,

@@ -14,8 +14,9 @@ is used only when ``--device cpu`` asks for it).  ``--device-apply``
 runs the apply of the intra slices on that device as well
 (``encoder.fast_apply``; the host apply otherwise).  The last line of
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual, SATD and MC kernels and the plain MC's calls (none on
-``cuda``), the frames decided (all, and the P/B ones),
+residual, SATD and MC kernels (all MC launches, and those of its
+quarter-pel entry apart) and the plain MC's calls (none on ``cuda``),
+the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
 device), the device apply's frames, waves, class steps and summed wall,
 and the frames it left to the host apply (a schedule it rejected), and
@@ -53,7 +54,7 @@ def main(argv=None) -> int:
         return 1
     before = {"residual": residual_kernel.launches,
               "satd": satd_kernel.launches, "mc": mc_kernel.launches,
-              "plain_mc": mc.launches}
+              "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches}
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
     enc = Encoder(cfg, device=device, stats=stats,
@@ -71,6 +72,7 @@ def main(argv=None) -> int:
         "residual_launches": residual_kernel.launches - before["residual"],
         "satd_launches": satd_kernel.launches - before["satd"],
         "mc_launches": mc_kernel.launches - before["mc"],
+        "mc_qpel_launches": mc_kernel.qpel_launches - before["mc_qpel"],
         "plain_mc_calls": mc.launches - before["plain_mc"],
         "decision_frames": stats.frames,
         "decision_frames_inter": stats.inter_frames,

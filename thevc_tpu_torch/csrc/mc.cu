@@ -46,6 +46,45 @@
 // one job, with as many threads (rounded up to a warp) as the tile has
 // samples.  Neither entry allocates or synchronises; both launch on the
 // stream they are given and return cudaGetLastError().
+//
+// thevc_mc_qpel serves the P/B pass's quarter-pel refine (the encoder's
+// counterpart is thevc_tpu/encoder/fast_inter.py:270-300, which calls
+// jx_mc.py:77 mc_batch with case "2d"): for each of nb blocks of size s
+// (8, 16, 32 or 64) the 49 candidates at quarter-pel offsets (qdx, qdy)
+// in [-3, 3]^2 around the block's integer MV, out [nb, 49, s, s] int16
+// pixels, candidate (qdy + 3) * 7 + qdx + 3.  Each is the 2-D case at its
+// phases (a zero phase rides the identity tap row through both passes,
+// with the first pass's int16 wrap), so it equals thevc_mc_blocks on the
+// 49-job table bit for bit.  Per block the input is only (plane, window
+// x, window y): the first tap sample of candidate (0, 0).
+//
+// What bounds it: bytes.  A call writes 49 predictions a block, about
+// 205 MB over a 1088x1920 picture (0.061 ms at 3.35 TB/s).  The 49
+// candidates need 7 (s + 8) s first-pass and 49 s^2 second-pass outputs a
+// block at 45 nonzero taps over the 7 phases of a pass (7 + 8 + 7 + 1 +
+// 7 + 8 + 7, the identity row counted as one), 1.5-1.7 G int32
+// operations (0.046-0.051 ms at Hopper's int32 rate).
+// The generic entry spent 49 times the window gather (a divide, a modulo
+// and two clamps a sample), 49 first passes where 7 horizontal positions
+// exist, and 1.6 million blocks of 64 threads at s = 8.  The design:
+//   - one block of 224 threads owns NB output tiles of T x T (T = s up to
+//     32, so a 64 block is 4 tiles; NB = 8, 2, 1, 1 at s = 8, 16, 32, 64)
+//     and computes all 49 candidates of them;
+//   - the tile's window covers integer offsets -1 and 0 plus the taps,
+//     (T + 8) x (T + 8), loaded once into shared memory as int16 from the
+//     8-sample-aligned column at or left of it: 16-byte cp.async where a
+//     chunk lies inside the plane, clamped per sample where it does not;
+//   - the first pass runs once per horizontal position (7, not 49) over
+//     the window's T + 8 rows: a thread takes 16 window samples of a row
+//     and writes the 8 outputs of each of the 7 positions (int16, with
+//     the wrap) as 16-byte stores;
+//   - the second pass is register-blocked: a thread reads an 8-column
+//     strip of 9 rows of one horizontal position's first pass (9 16-byte
+//     loads) and produces output row i of the 7 vertical candidates from
+//     it, each as one 16-byte store; neighbouring threads write
+//     neighbouring 16 bytes of a candidate.  The taps are compile-time
+//     constants per phase (zero taps vanish, the identity row is a shift).
+// No allocation, no host synchronisation: a CUDA graph captures it.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -270,6 +309,181 @@ mc_blocks_kernel(const int16_t* __restrict__ planes, int rows, int cols,
   if (active) out[(n * h + ty0 + ty) * w + tx0 + tx] = (int16_t)v;
 }
 
+// ---- the quarter-pel entry -------------------------------------------
+
+constexpr int kQpelThreads = 224;
+
+// quarter-pel position q = 0..6 (offset q - 3): its integer offset plus 1
+// (0 for -3..-1, 1 for 0..3) and its phase ((q - 3) & 3)
+__host__ __device__ constexpr int qbase(int q) { return q >= 3 ? 1 : 0; }
+__host__ __device__ constexpr int qphase(int q) { return (q + 1) & 3; }
+
+// kLumaTaps[p][k] as a constant expression, so that an unrolled loop
+// folds it (zero taps vanish, the identity row's 64 is a shift)
+__host__ __device__ constexpr int ltap(int p, int k) {
+  return p == 0 ? (k == 3 ? 64 : 0)
+       : p == 1 ? (k == 0 ? -1 : k == 1 ? 4 : k == 2 ? -10 : k == 3 ? 58
+                   : k == 4 ? 17 : k == 5 ? -5 : k == 6 ? 1 : 0)
+       : p == 2 ? (k == 0 || k == 7 ? -1 : k == 1 || k == 6 ? 4
+                   : k == 2 || k == 5 ? -11 : 40)
+       : (k == 0 ? 0 : k == 1 ? 1 : k == 2 ? -5 : k == 3 ? 17 : k == 4 ? 58
+          : k == 5 ? -10 : k == 6 ? 4 : -1);
+}
+
+template <int T, int NB>
+struct QpelShared {
+  // the window: row r, column c holds sample (y0 + r, ax + c), ax the
+  // 8-aligned column at or left of the window's x0
+  alignas(16) int16_t win[NB][T + 8][T + 16];
+  // the first pass of horizontal position p over the window's rows
+  alignas(16) int16_t tmp[NB][7][T + 8][T];
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ unsigned pack2(int lo, int hi) {
+  return (unsigned)(lo & 0xffff) | ((unsigned)hi << 16);
+}
+
+// tiles: NB consecutive (block, tile) pairs from blockIdx.x * NB, tile t
+// of a block at ((t / tiles_x) * T, (t % tiles_x) * T)
+template <int T, int NB>
+__global__ void __launch_bounds__(kQpelThreads)
+mc_qpel_kernel(const int16_t* __restrict__ planes, int rows, int cols,
+               const int* __restrict__ origins, long long n_tiles, int s,
+               int tiles_x, int16_t* __restrict__ out, bool aligned,
+               int bd) {
+  __shared__ QpelShared<T, NB> sm;
+  constexpr int kRows = T + 8, kChunks = (T + 16) / 8, kGroups = T / 8;
+  const int per_block = tiles_x * tiles_x;
+  const long long first = (long long)blockIdx.x * NB;
+
+  // 1. the windows, 16 bytes a step
+  for (int e = threadIdx.x; e < NB * kRows * kChunks; e += blockDim.x) {
+    const int b = e / (kRows * kChunks);
+    const int r = (e / kChunks) % kRows, ch = e % kChunks;
+    const long long id = first + b;
+    if (id >= n_tiles) continue;
+    const long long n = id / per_block;
+    const int t = (int)(id - n * per_block);
+    const int* o = origins + 3 * n;
+    const int y = o[2] - 1 + (t / tiles_x) * T + r;
+    const int x = ((o[1] - 1) & ~7) + (t % tiles_x) * T + 8 * ch;
+    const int16_t* plane = planes + (long long)o[0] * rows * cols;
+    int16_t* dst = &sm.win[b][r][8 * ch];
+    if (aligned && y >= 0 && y < rows && x >= 0 && x + 8 <= cols) {
+      cp_async16(dst, plane + (long long)y * cols + x);
+    } else {
+      const int16_t* row = plane + (long long)min(max(y, 0), rows - 1)
+                           * cols;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dst[j] = row[min(max(x + j, 0), cols - 1)];
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+
+  // 2. the first pass, once per horizontal position: shift 6 - (14 - bd),
+  // offset -8192 << it, wrapped to int16
+  const int sh1 = kFilterPrec - (kInternalPrec - bd);
+  const int off1 = -kInternalOffs * (1 << sh1);
+  for (int e = threadIdx.x; e < NB * kRows * kGroups; e += blockDim.x) {
+    const int b = e / (kRows * kGroups);
+    const int r = (e / kGroups) % kRows, g = e % kGroups;
+    if (first + b >= n_tiles) continue;
+    const int c0 = ((origins[3 * ((first + b) / per_block) + 1] - 1) & 7)
+                   + 8 * g;
+    int v[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) v[j] = sm.win[b][r][c0 + j];
+#pragma unroll
+    for (int p = 0; p < 7; ++p) {
+      int res[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int acc = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (ltap(qphase(p), k) != 0) {
+            acc += v[c + qbase(p) + k] * ltap(qphase(p), k);
+          }
+        }
+        res[c] = (acc + off1) >> sh1;
+      }
+      *reinterpret_cast<uint4*>(&sm.tmp[b][p][r][8 * g]) = make_uint4(
+          pack2(res[0], res[1]), pack2(res[2], res[3]),
+          pack2(res[4], res[5]), pack2(res[6], res[7]));
+    }
+  }
+  __syncthreads();
+
+  // 3. the second pass: output row i of an 8-column strip of horizontal
+  // position p, for the 7 vertical positions; shift 6 + (14 - bd), the
+  // offset of the 2-D case's last pass, clipped to pixels
+  const int sh2 = kFilterPrec + kInternalPrec - bd;
+  const int off2 = (1 << (sh2 - 1)) + (kInternalOffs << kFilterPrec);
+  const int top = (1 << bd) - 1;
+  for (int e = threadIdx.x; e < NB * 7 * T * kGroups; e += blockDim.x) {
+    const int g = e % kGroups, i = (e / kGroups) % T;
+    const int p = (e / (kGroups * T)) % 7, b = e / (7 * T * kGroups);
+    const long long id = first + b;
+    if (id >= n_tiles) continue;
+    const long long n = id / per_block;
+    const int t = (int)(id - n * per_block);
+    int v[9][8];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const uint4 w = *reinterpret_cast<const uint4*>(
+          &sm.tmp[b][p][i + k][8 * g]);
+      const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        v[k][2 * c] = (int)(int16_t)(u[c] & 0xffff);
+        v[k][2 * c + 1] = (int)u[c] >> 16;
+      }
+    }
+    int16_t* dst = out + ((n * 49 + p) * s + (t / tiles_x) * T + i) * s
+                   + (t % tiles_x) * T + 8 * g;
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      int res[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        int acc = 0;
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          if (ltap(qphase(q), k) != 0) {
+            acc += v[qbase(q) + k][c] * ltap(qphase(q), k);
+          }
+        }
+        res[c] = min(max((acc + off2) >> sh2, 0), top);
+      }
+      *reinterpret_cast<uint4*>(dst + (long long)q * 7 * s * s) = make_uint4(
+          pack2(res[0], res[1]), pack2(res[2], res[3]),
+          pack2(res[4], res[5]), pack2(res[6], res[7]));
+    }
+  }
+}
+
+template <int T, int NB>
+int launch_qpel(const int16_t* planes, int rows, int cols,
+                const int* origins, long long n, int16_t* out, int s, int bd,
+                cudaStream_t st) {
+  const int tiles_x = s / T;
+  const long long n_tiles = n * tiles_x * tiles_x;
+  const long long grid = (n_tiles + NB - 1) / NB;
+  if (grid > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  const bool aligned = (reinterpret_cast<uintptr_t>(planes) & 15) == 0
+                       && cols % 8 == 0;
+  mc_qpel_kernel<T, NB><<<(unsigned)grid, kQpelThreads, 0, st>>>(
+      planes, rows, cols, origins, n_tiles, s, tiles_x, out, aligned, bd);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // table: int32 [4 * n_planes + JOB_COLS * n_jobs + 3 * n_tiles] on the
@@ -319,6 +533,30 @@ extern "C" int thevc_mc_blocks(const void* planes, int rows, int cols,
         cs, !bi, bd);
   }
   return (int)cudaGetLastError();
+}
+
+// planes: int16 [P, rows, cols]; origins: int32 [n, 3] of (plane, window
+// x, window y), the first tap sample of candidate (0, 0) of each block;
+// out: int16 [n, 49, s, s], 16-byte aligned; s in {8, 16, 32, 64}.
+extern "C" int thevc_mc_qpel(const void* planes, int rows, int cols,
+                             const void* origins, long long n, void* out,
+                             int s, int bd, void* stream) {
+  if (n <= 0) return 0;
+  if (bd < 8 || bd > 12 || rows < 1 || cols < 1
+      || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const int16_t* p = static_cast<const int16_t*>(planes);
+  const int* o = static_cast<const int*>(origins);
+  int16_t* d = static_cast<int16_t*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (s) {
+    case 8: return launch_qpel<8, 8>(p, rows, cols, o, n, d, s, bd, st);
+    case 16: return launch_qpel<16, 2>(p, rows, cols, o, n, d, s, bd, st);
+    case 32: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
+    case 64: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* thevc_error_string(int code) {

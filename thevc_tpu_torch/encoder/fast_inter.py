@@ -10,11 +10,11 @@ intra leaves the source picture):
 2. per block of each size class 8..64: a +-3 full-pel refinement around
    the coarse winner (SAD plus an exp-Golomb MV prior), then the 7x7
    quarter-pel window around the integer winner through the HEVC 8-tap
-   interpolation (``ops.mc.mc_blocks``: on a CUDA tensor the hand-written
-   kernel in ``csrc/mc.cu``, the 49 candidates of every block in one
-   launch per size class and list) and the Hadamard SATD (``ops.satd``:
-   on a CUDA tensor the hand-written kernel in ``csrc/satd.cu``, one
-   launch per size class and list);
+   interpolation (``ops.mc.mc_qpel``: on a CUDA tensor the hand-written
+   kernel's quarter-pel entry in ``csrc/mc.cu``, the 49 candidates of
+   every block in one launch per size class and list) and the Hadamard
+   SATD (``ops.satd``: on a CUDA tensor the hand-written kernel in
+   ``csrc/satd.cu``, one launch per size class and list);
 3. RD leaves: transform/quant/recon estimates of luma and both chroma
    planes at the winner (``fast_intra._tq_rd`` with ``is_intra=False``:
    on a CUDA tensor the residual kernel in ``csrc/residual.cu``), a
@@ -128,11 +128,6 @@ def _mv_pred_median(mvx, mvy):
     return outs
 
 
-def _qsplit(q: int):
-    """Static quarter-pel offset -> (int_pel, frac) with frac in 0..3."""
-    return (q - (q & 3)) // 4, q & 3
-
-
 def _coarse_sads(org, ref, dy0: int, n_dy: int, n_off: int, sizes):
     """Quarter-res SADs of search rows dy0 .. dy0 + n_dy - 1 (every
     column) against one reference, per size class: {s: int64 [n_dy,
@@ -230,19 +225,11 @@ def _qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s: int, bd: int):
     """The 7x7 quarter-pel candidates around each block's integer MV
     (int_mx, int_my): int16 pixels [nb, 49, s, s], candidate (qdy + 3) *
     7 + qdx + 3 at quarter-pel offset (qdx, qdy), all in one
-    ``mc.mc_blocks`` call."""
-    nb = ref.shape[0]
-    # per candidate: integer row offset, fy, integer column offset, fx
-    cand = torch.tensor([(*_qsplit(k // 7 - 3), *_qsplit(k % 7 - 3))
-                         for k in range(49)], device=ref.device)
-    jobs = torch.stack([
-        ref[:, None].expand(nb, 49),
-        (bx + int_mx + (PAD_FULL - 3))[:, None] + cand[:, 2],
-        (by + int_my + (PAD_FULL - 3))[:, None] + cand[:, 0],
-        cand[:, 3].expand(nb, 49), cand[:, 1].expand(nb, 49)],
-        dim=2).reshape(nb * 49, 5)
-    return mc.mc_blocks(refs_y, jobs, "2d", True, bd, False, s,
-                        s).reshape(nb, 49, s, s)
+    ``mc.mc_qpel`` call from each block's window origin (the first tap
+    sample of candidate (0, 0))."""
+    origins = torch.stack([ref, bx + int_mx + (PAD_FULL - 3),
+                           by + int_my + (PAD_FULL - 3)], dim=1)
+    return mc.mc_qpel(refs_y, origins, s, bd)
 
 
 def _sse(a, b, bit_inc: int):

@@ -8,21 +8,23 @@ weighted prediction of ``thevc_tpu/decoder/inter.py`` (``_weight_uni``,
 window gather that replaces the host ``np.stack`` of per-PU slices of
 ``Picture.padded()`` (``thevc_tpu/decoder/inter.py:149-182``).
 
-Two entries serve the codec, named after the hand-written kernel's
+Three entries serve the codec, named after the hand-written kernel's
 (``csrc/mc.cu``, ``ops.mc_kernel``):
 
 - ``mc_picture``: every inter PU of a picture from a host job table
   (``mc_kernel.JOB_COLS`` fields a (PU, component), both lists of a bi
   PU in one job) into the picture's flat prediction buffer;
 - ``mc_blocks``: N blocks of one size and case from a stacked plane
-  tensor, for the encoder's P/B decision pass.
+  tensor, for the encoder's P/B decision pass;
+- ``mc_qpel``: the 49 quarter-pel candidates of N blocks of one size
+  from a stacked plane tensor, for that pass's quarter-pel refine.
 
 Each dispatches on the device of its planes: a CUDA tensor launches the
 kernel (and raises if it cannot launch), a CPU tensor runs the plain
-version in this module (``mc_picture_plain``, ``mc_blocks_plain``),
-built from the per-class functions below.  The plain versions run on
-the card too, where the tests and ``chip_smoke.py`` hold the kernel
-against them.  In the plain form the tap vector is gathered per PU
+version in this module (``mc_picture_plain``, ``mc_blocks_plain``,
+``mc_qpel_plain``), built from the per-class functions below.  The plain
+versions run on the card too, where the tests and ``chip_smoke.py`` hold
+the kernel against them.  In the plain form the tap vector is gathered per PU
 (``coeff[frac]``), an int32 multiply and sum.
 """
 
@@ -345,3 +347,50 @@ def mc_blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str,
     return mc_kernel.blocks(planes.to(torch.int16).contiguous(),
                             jobs.to(torch.int32).contiguous(), case, luma,
                             bd, bi, out_h, out_w)
+
+
+# per quarter-pel candidate k = (qdy + 3) * 7 + qdx + 3: integer row
+# offset, fy, integer column offset, fx (an offset q is 4 * (q >> 2) +
+# (q & 3))
+QPEL_CAND = tuple(((k // 7 - 3) >> 2, (k // 7 - 3) & 3, (k % 7 - 3) >> 2,
+                   (k % 7 - 3) & 3) for k in range(49))
+
+
+def qpel_jobs(origins: torch.Tensor) -> torch.Tensor:
+    """The 49-job table of the quarter-pel candidates: origins [nb, 3] of
+    (plane, window x, window y) of candidate (0, 0) -> int64 jobs
+    [nb * 49, 5] of (plane, window x, window y, fx, fy), block-major."""
+    nb = origins.shape[0]
+    o = origins.long()
+    cand = torch.tensor(QPEL_CAND, device=origins.device)
+    return torch.stack([
+        o[:, 0, None].expand(nb, 49), o[:, 1, None] + cand[:, 2],
+        o[:, 2, None] + cand[:, 0], cand[:, 3].expand(nb, 49),
+        cand[:, 1].expand(nb, 49)], dim=2).reshape(nb * 49, 5)
+
+
+def mc_qpel_plain(planes: torch.Tensor, origins: torch.Tensor, s: int,
+                  bd: int) -> torch.Tensor:
+    """The plain version of the quarter-pel kernel, on any device: the
+    49-job table (``qpel_jobs``) through ``mc_blocks_plain`` in the 2-D
+    case -> int16 pixels [nb, 49, s, s]."""
+    return mc_blocks_plain(planes, qpel_jobs(origins), "2d", True, bd, False,
+                           s, s).reshape(origins.shape[0], 49, s, s)
+
+
+def mc_qpel(planes: torch.Tensor, origins: torch.Tensor, s: int,
+            bd: int) -> torch.Tensor:
+    """The 7x7 quarter-pel candidates of nb luma blocks of size s (8, 16,
+    32 or 64): int16 planes [P, rows, cols] and integer origins [nb, 3] of
+    (plane, window x, window y), the first tap sample of each block's
+    candidate (0, 0) in plane coordinates (read clamped to the plane) ->
+    int16 pixels [nb, 49, s, s], candidate (qdy + 3) * 7 + qdx + 3 at
+    quarter-pel offset (qdx, qdy), the 2-D case at every phase.  On a CUDA
+    device one launch of the hand-written kernel (and raises if it cannot
+    launch); on the CPU the plain version."""
+    if planes.device.type == "cpu":
+        return mc_qpel_plain(planes, origins, s, bd)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    return mc_kernel.qpel(planes.to(torch.int16).contiguous(),
+                          origins.to(torch.int32).contiguous(), s, bd)

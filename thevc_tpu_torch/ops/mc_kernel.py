@@ -3,12 +3,14 @@
 
 Replaces the XLA functions ``thevc_tpu/ops/jx_mc.py:mc_batch`` (:77) and
 ``bi_avg_batch`` (:107), and the weighted paths of the JAX decoder's
-``precompute_device`` (``thevc_tpu/decoder/inter.py:121-221``).  Two
+``precompute_device`` (``thevc_tpu/decoder/inter.py:121-221``).  Three
 entries: ``picture`` predicts every inter PU of a picture in one launch
 (the decode), ``blocks`` predicts N blocks of one size and case (the P/B
-fast-RD pass).  The design notes and what bounds the kernel on the card
-are in the source's header comment.  Their plain PyTorch versions are
-``ops.mc.mc_picture_plain`` and ``ops.mc.mc_blocks_plain``.
+fast-RD pass's winners), ``qpel`` the 49 quarter-pel candidates of N
+blocks of one size (the P/B pass's quarter-pel refine).  The design notes
+and what bounds the kernel on the card are in the source's header
+comment.  Their plain PyTorch versions are ``ops.mc.mc_picture_plain``,
+``ops.mc.mc_blocks_plain`` and ``ops.mc.mc_qpel_plain``.
 
 The kernel is compiled with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops.build``).  Nothing here runs when the module is
@@ -29,9 +31,13 @@ NAME = "mc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ENTRIES = {"thevc_mc_picture": [_P, _I, _I, _I, _P, _I, _P],
             "thevc_mc_blocks": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I,
-                                _I, _I, _I, _I, _I, _P]}
+                                _I, _I, _I, _I, _I, _P],
+            "thevc_mc_qpel": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _I,
+                              _P]}
 TILE = 16            # the picture entry's output tile edge (csrc/mc.cu)
 BLOCK_JOB_COLS = 5   # blocks(): (plane, window x, window y, fx, fy)
+QPEL_SIZES = (8, 16, 32, 64)   # qpel(): block sizes
+QPEL_CANDIDATES = 49           # qpel(): the 7x7 quarter-pel offsets
 
 # the four filter cases, indexed by (frac_x != 0) + 2 * (frac_y != 0)
 CASES = ("copy", "hor", "ver", "2d")
@@ -50,9 +56,11 @@ JOB_COLS = J_LIST + 2 * 6
 # predict each list at 14 bits)
 KINDS = ("uni", "bi", "wuni", "wbi")
 
-# kernel launches made by picture() and blocks(); a plain integer that a
-# run resets and reads to show that its main path went through the kernel
+# kernel launches made by picture() and blocks(), and by qpel(); plain
+# integers that a run resets and reads to show that its main path went
+# through the kernel
 launches = 0
+qpel_launches = 0
 
 
 def build() -> ctypes.CDLL:
@@ -212,4 +220,47 @@ def blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str, luma: bool,
                                  _build.stream_of(device))
     _build.check(lib, rc, "MC blocks kernel launch")
     launches += 1
+    return out
+
+
+def qpel(planes: torch.Tensor, origins: torch.Tensor, s: int,
+         bd: int) -> torch.Tensor:
+    """Launch the quarter-pel entry: int16 planes [P, rows, cols] and
+    int32 origins [N, 3] of (plane, window x, window y), the first tap
+    sample of each block's candidate (0, 0), on one CUDA device -> int16
+    pixels [N, 49, s, s], candidate (qdy + 3) * 7 + qdx + 3 at quarter-pel
+    offset (qdx, qdy).  The origins' plane indices must lie in [0, P).
+    Launches on the current stream without synchronising; raises
+    ``ValueError`` on any input the kernel does not take and
+    ``RuntimeError`` on a launch error."""
+    global qpel_launches
+    device = planes.device
+    if device.type != "cuda":
+        raise ValueError(f"the MC kernel takes CUDA tensors, got {device}")
+    if s not in QPEL_SIZES:
+        raise ValueError(f"quarter-pel block size {s} not in {QPEL_SIZES}")
+    _check_bd(bd)
+    if planes.dim() != 3 or planes.dtype != torch.int16 \
+            or not planes.is_contiguous():
+        raise ValueError("planes must be contiguous int16 [P, rows, cols], "
+                         f"got {planes.dtype} {tuple(planes.shape)}")
+    if origins.device != device or origins.dtype != torch.int32 \
+            or origins.dim() != 2 or origins.shape[1] != 3 \
+            or not origins.is_contiguous():
+        raise ValueError("origins must be contiguous int32 [N, 3] on "
+                         f"{device}, got {origins.dtype} "
+                         f"{tuple(origins.shape)} on {origins.device}")
+    n = int(origins.shape[0])
+    out = torch.empty((n, QPEL_CANDIDATES, s, s), dtype=torch.int16,
+                      device=device)
+    if n == 0:
+        return out
+    lib = build()
+    with torch.cuda.device(device):
+        rc = lib.thevc_mc_qpel(planes.data_ptr(), int(planes.shape[1]),
+                               int(planes.shape[2]), origins.data_ptr(), n,
+                               out.data_ptr(), s, bd,
+                               _build.stream_of(device))
+    _build.check(lib, rc, "MC quarter-pel kernel launch")
+    qpel_launches += 1
     return out
