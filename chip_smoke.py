@@ -80,7 +80,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    kernel nodes; the plain version eager), beside its bound (the
    distinct reference samples its windows read, the job table and the
    prediction, over HBM's rate; its multiply-adds over the int32
-   peak).  The 416x240 low-delay P and random-access
+   peak), with its host table's bytes, items and build time.  The
+   416x240 low-delay P and random-access
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders', through the MC kernel and not the
    plain MC.
@@ -113,11 +114,16 @@ Run from the root of a checkout on a machine with a CUDA card:
    block, and the 7 first passes over s + 8 rows and 49 second passes at
    each phase's nonzero taps, at the int32 rate; ``generic_fp32_bound_ms``
    is the generic entry's bound on that table at the float32 rate), and
-   the generic MC calls (the
-   winners' predictions) timed and summed (``kernel
-   mc_blocks_generic``).  Then 416x240 low-delay P (3 frames)
-   and random-access (5 frames) fast-RD streams of the small motion
-   clip: ``--device cuda`` and ``--device cpu`` byte-identical, the
+   the generic MC calls (the winners' predictions: per size class and
+   list the luma and the Cb/Cr pair of the transform estimate and of the
+   merge model, then one bi luma and one bi Cb/Cr call with both lists
+   averaged in the kernel; 40 a B frame, checked, and no
+   ``bi_avg_batch`` call) timed and summed (``kernel
+   mc_blocks_generic``, the kernels line's ``mc_blocks``; each call's
+   bound counts the distinct samples of every plane and list it reads,
+   its jobs and its predictions written once).  Then 416x240 low-delay
+   P (3 frames) and random-access (5 frames) fast-RD streams of the small
+   motion clip: ``--device cuda`` and ``--device cpu`` byte-identical, the
    ``cuda`` ones through the MC kernel and not the plain MC.  Last,
    the 64x64 weighted-prediction (``--wpP=1`` low-delay P, ``--wpB=1``
    low-delay B, a fading clip) and scaling-list (``--ScalingList=1``
@@ -144,7 +150,10 @@ Run from the root of a checkout on a machine with a CUDA card:
    the frame's HBM bound.  Last, the 416x240 identity encodes, all at
    once: RDOQ and the top-2 re-rank off, ``cuda`` (frames in threads),
    ``cpu`` and the host apply byte-identical; RDOQ on, ``cuda`` ==
-   ``cpu`` at QP 27 and 37.
+   ``cpu`` at QP 27 and 37.  Then ``fastrd_devapply_nxn``: the device
+   apply on a seeded 128x64 frame with NxN CUs (``streams.nxn_frame``),
+   where every class of ``fast_apply.CLS`` must run, the 4x4 luma class
+   included, replayed as CUDA graphs on ``cuda`` and equal to the CPU.
 11. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
    refuses both in one stream) decode on ``cuda`` with every digest OK
    and recon byte-identical to their encoders'.
@@ -729,22 +738,43 @@ def touched(torch, rows: int, cols: int, plane, y0, x0, h, w) -> int:
 
 
 def mc_blocks_bound(torch, planes, jobs, case: str, luma: bool, bd: int,
-                    bi: bool, out_h: int, out_w: int,
+                    bi: bool, out_h: int, out_w: int, *, pair: bool = False,
+                    planes1=None, jobs1=None,
                     peak: float = INT32_OPS) -> tuple:
-    """(bytes, operations, bound_ms, bound_by) of one ``mc_blocks`` call:
-    the distinct reference samples its windows read, its int32 jobs and
-    its int16 predictions; its multiply-adds on the CUDA cores (at
-    ``peak``)."""
+    """(bytes, operations, bound_ms, bound_by) of one ``mc_blocks`` call
+    (its arguments): per list, the distinct reference samples its windows
+    read on each plane a job predicts (two with ``pair``: p and p + P / 2)
+    and its int32 jobs; the int16 predictions, written once (a bi call
+    writes the average and reads no 14-bit halves); its multiply-adds on
+    the CUDA cores (at ``peak``), each output of a pass at the nonzero
+    taps of its job's phase (fx for the first or only horizontal pass, fy
+    for the vertical; the identity row's one tap a shift), and a bi
+    call's average (add, shift, clip: 3 operations an output)."""
+    from thevc_tpu_torch.common.tables import from_reference
     from thevc_tpu_torch.ops import mc
     rows, cols = mc.window_shape(case, luma, out_h, out_w)
-    j = jobs.long()
-    n, taps = int(j.shape[0]), 8 if luma else 4
-    nbytes = 2 * touched(torch, int(planes.shape[1]), int(planes.shape[2]),
-                         j[:, 0], j[:, 2], j[:, 1], rows, cols) \
-        + 4 * j.numel() + 2 * n * out_h * out_w
-    per = {"copy": 0, "hor": out_h * out_w, "ver": out_h * out_w,
-           "2d": (out_h + taps - 1 + out_h) * out_w}[case]
-    ops = 2 * n * per * taps
+    filt = from_reference("cpu")
+    nz = ((filt.luma_filter if luma else filt.chroma_filter) != 0).sum(1)
+    lists = [(planes, jobs)] + ([(planes1, jobs1)] if jobs1 is not None
+                                else [])
+    n_out = 2 if pair else 1
+    nbytes = ops = 0
+    for p, jl in lists:
+        j = jl.long()
+        for q in range(n_out):
+            nbytes += 2 * touched(torch, int(p.shape[1]), int(p.shape[2]),
+                                  j[:, 0] + q * (int(p.shape[0]) // 2),
+                                  j[:, 2], j[:, 1], rows, cols)
+        nbytes += 4 * j.numel()
+        tx, ty = (int(nz[j[:, k].cpu()].sum()) for k in (3, 4))
+        macs = {"copy": 0, "hor": out_h * out_w * tx,
+                "ver": out_h * out_w * ty,
+                "2d": rows * out_w * tx + out_h * out_w * ty}[case]
+        ops += 2 * n_out * macs
+    n = int(jobs.shape[0])
+    nbytes += 2 * n_out * n * out_h * out_w
+    if jobs1 is not None:
+        ops += 3 * n_out * n * out_h * out_w
     return (nbytes, ops, *roofline(nbytes, ops, peak))
 
 
@@ -803,7 +833,7 @@ def qpel_row(torch, planes, origins, s: int, bd: int) -> dict:
                                                        bd), 3)
     nbytes, ops, bound_ms, bound_by = qpel_bound(torch, planes, origins, s)
     generic = mc_blocks_bound(torch, planes, jobs, "2d", True, bd, False, s,
-                              s, FP32_OPS)
+                              s, peak=FP32_OPS)
     return dict(size=s, blocks=int(origins.shape[0]), ms=ms, graph_ms=g_ms,
                 generic_graph_ms=blocks_g_ms,
                 speedup_over_generic=blocks_g_ms / g_ms, plain_ms=plain_ms,
@@ -821,17 +851,26 @@ def mc_bound(torch, jobs, planes, size: int, table_bytes: int,
     picture's MC: the distinct reference samples its windows read
     (``touched``), the job table, and the int16 prediction written; its
     multiply-adds (the first pass over the window rows of a 2-D case,
-    then one pass a sample), on the CUDA cores (at ``peak``).  The window
-    bytes sum every window as the class-by-class MC read them."""
+    then one pass a sample), each output at the nonzero taps of its
+    phase (the identity row's one tap a shift), on the CUDA cores (at
+    ``peak``).  The window bytes sum every window as the class-by-class
+    MC read them."""
     import numpy as np
+    from thevc_tpu_torch.common.tables import from_reference
     from thevc_tpu_torch.ops import mc
+    filt = from_reference("cpu")
+    nz = np.zeros((2, 8), np.int64)     # [luma, phase]: nonzero taps
+    nz[0] = (filt.chroma_filter != 0).sum(1).numpy()
+    nz[1, :4] = (filt.luma_filter != 0).sum(1).numpy()
     r = mc._list_rows(np.asarray(jobs, np.int64))
     j = np.asarray(jobs, np.int64)[r[:, 0]]
     h, w, luma, case = j[:, mc.J_H], j[:, mc.J_W], j[:, mc.J_LUMA], r[:, 7]
+    tx, ty = nz[luma, r[:, 5]], nz[luma, r[:, 6]]
     taps = np.where(luma == 1, 8, 4)
     rows = h + (taps - 1) * np.isin(case, (2, 3))
     cols = w + (taps - 1) * np.isin(case, (1, 3))
-    macs = int(((rows * w * (case == 3) + h * w * (case > 0)) * taps).sum())
+    macs = int((rows * w * tx * (case == 3)
+                + h * w * (tx * (case == 1) + ty * (case >= 2))).sum())
     samples = 0
     for k, p in enumerate(planes):
         sel = r[:, 2] == k
@@ -854,7 +893,8 @@ def mc_picture_times(torch, stream: Path) -> dict:
     around 20 eager calls: the host's checks, table, upload and launch),
     its launch alone as a CUDA graph of 20 launches over the uploaded
     table (device time), and the plain version (eager), beside the
-    picture's bound (``mc_bound``)."""
+    picture's bound (``mc_bound``), with the host table's bytes, items
+    (a warp's band of a job), runs and build time."""
     import numpy as np
     from thevc_tpu_torch.decoder.top import Decoder
     from thevc_tpu_torch.ops import mc, mc_kernel
@@ -880,13 +920,14 @@ def mc_picture_times(torch, stream: Path) -> dict:
         max_err = max(max_err, err)
         check(torch.equal(got, want), f"MC kernel != plain on picture {k} "
               f"of the decode (max abs err {err})")
-        table, n_planes, n_jobs, n_tiles = mc_kernel.picture_table(
-            jobs, planes, size, bd)
+        t = time.perf_counter()
+        table, *counts = mc_kernel.picture_table(jobs, planes, size, bd)
+        table_host_ms = 1000 * (time.perf_counter() - t)
+        n_runs, n_items = counts[2:]
         table_d = torch.from_numpy(table).to("cuda")
         pred = torch.zeros(size, dtype=torch.int16, device="cuda")
 
-        def launch(table_d=table_d, n=(n_planes, n_jobs, n_tiles),
-                   pred=pred, bd=bd):
+        def launch(table_d=table_d, n=counts, pred=pred, bd=bd):
             mc_kernel.launch_picture(table_d, *n, pred, bd)
         launch()
         check(torch.equal(pred, want), f"MC kernel launch != plain on "
@@ -900,7 +941,9 @@ def mc_picture_times(torch, stream: Path) -> dict:
             torch, jobs, planes, size, table.nbytes)
         kinds = {kd: int((jobs[:, mc.J_KIND] == i).sum())
                  for i, kd in enumerate(mc.KINDS)}
-        rows.append(dict(picture=k, jobs=n_jobs, tiles=n_tiles, kinds=kinds,
+        rows.append(dict(picture=k, jobs=len(jobs), items=n_items,
+                         runs=n_runs, table_bytes=table.nbytes,
+                         table_host_ms=table_host_ms, kinds=kinds,
                          ms=ms, graph_ms=g_ms, plain_ms=plain_ms,
                          bytes=nbytes, window_bytes=win_bytes, ops=ops,
                          bound_ms=bound_ms, bound_by=bound_by,
@@ -1124,10 +1167,10 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           "SATD kernel")
     check(rep["residual_launches"] > 0, "the P/B fast-RD encode launched "
           "no residual kernel")
-    check(rep["mc_launches"] > 0 and rep["mc_qpel_launches"] > 0
+    check(rep["mc_blocks_launches"] > 0 and rep["mc_qpel_launches"] > 0
           and rep["plain_mc_calls"] == 0,
-          f"the P/B fast-RD encode launched the MC kernel's generic "
-          f"entries {rep['mc_launches']} times, its quarter-pel entry "
+          f"the P/B fast-RD encode launched the MC kernel's blocks "
+          f"entry {rep['mc_blocks_launches']} times, its quarter-pel entry "
           f"{rep['mc_qpel_launches']} times and the plain MC "
           f"{rep['plain_mc_calls']} times")
     check(not rep["jax_imported"], "the port's encoder imported jax")
@@ -1143,7 +1186,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
-               mc_launches=rep["mc_launches"],
+               mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
                fast_bytes=stream.stat().st_size,
                exact_bytes=exact.stat().st_size,
@@ -1216,20 +1259,35 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         return fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                          device="cuda", ref_cache=cache)
     run()                               # warm-up; the references go up
+    # the bi stage averages in the MC kernel: no bi_avg_batch on cuda
+    real_avg, avg_calls = mc.bi_avg_batch, []
+
+    def rec_avg(*a):
+        avg_calls.append(1)
+        return real_avg(*a)
+    mc.bi_avg_batch = rec_avg
     walls, launches = [], None
     for _ in range(3):
         satd_kernel.launches = residual_kernel.launches = 0
-        mc_kernel.launches = mc_kernel.qpel_launches = mc.launches = 0
+        mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
+        mc.launches = 0
         t = time.perf_counter()
         run()
         walls.append(time.perf_counter() - t)
         launches = {"residual": residual_kernel.launches,
                     "satd": satd_kernel.launches,
-                    "mc": mc_kernel.launches,
+                    "mc": mc_kernel.blocks_launches,
                     "mc_qpel": mc_kernel.qpel_launches}
         check(all(launches.values()) and mc.launches == 0,
               f"the B decision pass skipped a kernel: {launches}, or ran "
               f"the plain MC {mc.launches} times")
+    mc.bi_avg_batch = real_avg
+    classes = len(fast_inter.INTER_SIZES)
+    # a size class: per list luma and the Cb/Cr pair for the transform
+    # estimate and for the merge model, then one bi luma and one bi pair
+    check(launches["mc"] == 10 * classes and not avg_calls,
+          f"the B pass made {launches['mc']} MC blocks launches (expected "
+          f"{10 * classes}) and {len(avg_calls)} bi_avg_batch calls")
     dev_stats.stage_timing(True)
     try:
         run()
@@ -1244,7 +1302,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     device_us, n_kernels, top = profiled_device(prof)
     wall = sorted(walls)[1]
     out = dict(wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
-               launches=launches, stage_ms={k: 1000 * v for k, v in
+               launches=launches, mc_blocks_calls=launches["mc"],
+               bi_avg_calls=len(avg_calls),
+               stage_ms={k: 1000 * v for k, v in
                                             sorted(stages.items())},
                profiled_wall_ms=1000 * prof_wall,
                device_ms=device_us / 1000, device_kernels=n_kernels,
@@ -1267,9 +1327,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         calls["residual"].append(a)
         return real_tq(*a)
 
-    def rec_mc(*a):
-        calls["mc"].append(a)
-        return real_mc(*a)
+    def rec_mc(*a, **kw):
+        calls["mc"].append((a, kw))
+        return real_mc(*a, **kw)
 
     def rec_qpel(*a):
         calls["mc_qpel"].append(a)
@@ -1321,28 +1381,36 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         check(torch.equal(got, plain), "residual kernel != plain on the B "
               f"pass's {tuple(a[1].shape)} call (max abs err {err})")
     blocks_rows = []
-    for a in calls["mc"]:
-        got, plain = mc.mc_blocks(*a), mc.mc_blocks_plain(*a)
+    for a, kw in calls["mc"]:
+        got, plain = mc.mc_blocks(*a, **kw), mc.mc_blocks_plain(*a, **kw)
         torch.cuda.synchronize()
         err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
         max_err["mc"] = max(max_err["mc"], err)
         check(torch.equal(got, plain), "MC kernel != plain on the B pass's "
               f"{tuple(got.shape)} call (max abs err {err})")
-        nbytes, ops, bound_ms, bound_by = mc_blocks_bound(torch, *a)
+        nbytes, ops, bound_ms, bound_by = mc_blocks_bound(torch, *a, **kw)
         blocks_rows.append(dict(
             shape=list(got.shape), luma=bool(a[3]), bi=bool(a[5]),
-            ms=time_ms(torch, lambda: mc.mc_blocks(*a), 20),
-            graph_ms=graph_ms(torch, lambda: mc.mc_blocks(*a), 20),
-            plain_ms=time_ms(torch, lambda: mc.mc_blocks_plain(*a), 3),
+            pair=bool(kw.get("pair")), lists=1 + ("jobs1" in kw),
+            ms=time_ms(torch, lambda: mc.mc_blocks(*a, **kw), 20),
+            graph_ms=graph_ms(torch, lambda: mc.mc_blocks(*a, **kw), 20),
+            plain_ms=time_ms(torch, lambda: mc.mc_blocks_plain(*a, **kw),
+                             3),
             bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-            fp32_bound_ms=mc_blocks_bound(torch, *a, FP32_OPS)[2]))
+            fp32_bound_ms=mc_blocks_bound(torch, *a, **kw,
+                                          peak=FP32_OPS)[2]))
     blocks_sum = {k: sum(r[k] for r in blocks_rows) for k in (
         "ms", "graph_ms", "plain_ms", "bytes", "bound_ms", "fp32_bound_ms")}
     blocks_sum.update(
         calls=len(blocks_rows), bound_by="bytes" if all(
             r["bound_by"] == "bytes" for r in blocks_rows) else "operations",
         graph_share_of_bound=blocks_sum["bound_ms"] / blocks_sum["graph_ms"],
-        largest=max(blocks_rows, key=lambda r: r["bytes"]))
+        largest=max(blocks_rows, key=lambda r: (
+            r["shape"][-3] * r["shape"][-2] * r["shape"][-1],
+            r["shape"][-1])))
+    blocks_sum.update(graph_share_of_bound_largest=blocks_sum["largest"][
+        "bound_ms"] / blocks_sum["largest"]["graph_ms"],
+        max_abs_err=max_err["mc"])
     print("kernel mc_blocks_generic " + json.dumps(blocks_sum))
     mc_rows = []
     for a in calls["mc_qpel"]:
@@ -1390,14 +1458,15 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
         check(cuda == cpu, f"{name} P/B fast-RD stream: --device cuda and "
               "--device cpu differ")
         check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0
-              and rep["mc_launches"] > 0 and rep["mc_qpel_launches"] > 0
+              and rep["mc_blocks_launches"] > 0
+              and rep["mc_qpel_launches"] > 0
               and rep["plain_mc_calls"] == 0,
               f"{name} fast-RD on cuda skipped a kernel or ran the plain MC")
         out[name] = {"bytes": len(cuda), "identical": True,
                      "decision_frames_inter": rep["decision_frames_inter"],
                      "residual_launches": rep["residual_launches"],
                      "satd_launches": rep["satd_launches"],
-                     "mc_launches": rep["mc_launches"],
+                     "mc_blocks_launches": rep["mc_blocks_launches"],
                      "mc_qpel_launches": rep["mc_qpel_launches"]}
     print("inter_identity " + json.dumps(out))
     return out
@@ -1435,6 +1504,41 @@ DEVAPPLY_JOBS = {
     ("rdoq0", "host"): ("cuda", ("--RDOQ=0",), _TOP2_OFF),
     **{(f"q{qp}", dev): (dev, ("--device-apply",), None)
        for qp in SMALL_QPS for dev in ("cuda", "cpu")}}
+
+
+def nxn_apply_phase(torch) -> dict:
+    """The device apply on seeded maps with NxN CUs (no decision pass sets
+    NxN, so the 1080p clip never runs the 4x4 luma class): every class of
+    ``fast_apply.CLS`` must run, (4, True, True) included; replayed as
+    CUDA graphs on ``cuda``, equal to the CPU (tolerance 0)."""
+    import numpy as np
+    from thevc_tpu_torch.cabac import contexts as cc
+    from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.ops import residual_kernel
+    from thevc_tpu_torch.streams import nxn_frame
+    w, h, qp = 128, 64, 32
+    planes, maps = nxn_frame(np.random.RandomState(24), w, h)
+    sched = fast_apply.build_schedule(*maps, w, h, 64, 3, 2)
+    steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
+    check(all(steps), f"a device-apply class did not run: steps {steps}")
+    lam = 0.57 * 2 ** ((qp - 12) / 3)
+    args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True, True,
+            lam, lam / 1.2, cc.make_context_states_idx(0, qp))
+    before = residual_kernel.launches
+    got = fast_apply.collect_device_apply(fast_apply.run_device_apply(
+        *args, device="cuda", replay=True))
+    launches = residual_kernel.launches - before
+    want = fast_apply.collect_device_apply(fast_apply.run_device_apply(
+        *args, device="cpu", replay=False))
+    for g, e in zip(got[:3] + got[3] + got[4], want[:3] + want[3] + want[4]):
+        check((g is None and e is None) or np.array_equal(g, e),
+              "the NxN device apply on cuda differs from the CPU")
+    out = {"classes": [list(c) for c in fast_apply.CLS],
+           "tus_a_class": [int(c) for c in sched.counts],
+           "steps_a_class": steps, "waves": sched.n_waves,
+           "residual_launches": launches, "equal_to_cpu": True}
+    print("fastrd_devapply_nxn " + json.dumps(out))
+    return out
 
 
 def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
@@ -1983,7 +2087,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
     residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
-    mc_kernel.qpel_launches = 0
+    mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -2104,6 +2208,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
     out["launches"] = {"residual": residual_kernel.launches,
                        "satd": satd_kernel.launches,
                        "mc": mc_kernel.launches,
+                       "mc_blocks": mc_kernel.blocks_launches,
                        "mc_qpel": mc_kernel.qpel_launches}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
@@ -2172,6 +2277,7 @@ def main() -> int:
     fast = fastrd_phase(torch, work, dec)
     identity_phase(work)
     devapply = fastrd_devapply_phase(torch, work, dec, fast)
+    nxn = nxn_apply_phase(torch)
     inter = inter_decode_phase(torch, work, made)
     small = small_inter_phase(torch, work, made)
     fast_inter = fastrd_inter_phase(torch, work, made)
@@ -2202,6 +2308,8 @@ def main() -> int:
     # quarter-pel entry's: the replayed B frame's 8 calls summed
     pics = inter["mc_pictures"]
     qpel_calls = fast_inter["pass"]["mc_rows"]
+    # the blocks entry's: the replayed B frame's calls summed
+    blocks = fast_inter["pass"]["mc_blocks"]
     by_path = {
         "intra_decode": {"residual": dec["residual_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
@@ -2210,6 +2318,7 @@ def main() -> int:
                                 "satd": fast_inter["satd_launches"]},
         "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
                                    "satd": devapply["satd_launches"]},
+        "fastrd_devapply_nxn": {"residual": nxn["residual_launches"]},
         **{f"{k}_decode": {"residual": v["residual"]}
            for k, v in parts.items()},
         "graft_entry": {"residual": multi["entry"]["residual"]},
@@ -2223,7 +2332,8 @@ def main() -> int:
         **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"]}
            for k, v in wp_sl.items()}}
     by_path["fastrd_inter_encode"].update(
-        mc=fast_inter["mc_launches"], mc_qpel=fast_inter["mc_qpel_launches"])
+        mc_blocks=fast_inter["mc_blocks_launches"],
+        mc_qpel=fast_inter["mc_qpel_launches"])
     print("launches by path " + json.dumps(by_path))
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
@@ -2252,12 +2362,21 @@ def main() -> int:
         "source": "thevc_tpu_torch/csrc/mc.cu",
         "replaces": "thevc_tpu/ops/jx_mc.py:77",
         "launches": sum(p.get("mc", 0) for p in by_path.values()),
-        "max_abs_err": max(pics["max_abs_err"],
-                           fast_inter["pass"]["max_abs_err"]["mc"]),
+        "max_abs_err": pics["max_abs_err"],
         "ms": pics["mean"]["ms"], "plain_ms": pics["mean"]["plain_ms"],
         "bound_ms": pics["mean"]["bound_ms"],
         "bound_by": pics["mean"]["bound_by"],
         "library_ms": None}, {
+        "name": "mc_blocks", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/mc.cu",
+        "replaces": "thevc_tpu/ops/jx_mc.py:77 and :107 "
+                    "(thevc_tpu/encoder/fast_inter.py:326, 352, 448-461, "
+                    "511-513)",
+        "launches": sum(p.get("mc_blocks", 0) for p in by_path.values()),
+        "max_abs_err": blocks["max_abs_err"],
+        "ms": blocks["ms"], "graph_ms": blocks["graph_ms"],
+        "plain_ms": blocks["plain_ms"], "bound_ms": blocks["bound_ms"],
+        "bound_by": blocks["bound_by"], "library_ms": None}, {
         "name": "mc_qpel", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/mc.cu",
         "replaces": "thevc_tpu/ops/jx_mc.py:77 "

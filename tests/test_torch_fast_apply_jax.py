@@ -35,6 +35,7 @@ from thevc_tpu.encoder import fast_apply as ref
 from thevc_tpu_torch.cabac import contexts as cc
 from thevc_tpu_torch.encoder import fast_apply as port
 from thevc_tpu_torch.ops import tq
+from thevc_tpu_torch.streams import nxn_frame
 
 CLASSES = list(enumerate(port.CLS))
 IDS = [f"{'y' if luma else 'c'}{size}" for _, (size, luma, _) in CLASSES]
@@ -138,48 +139,11 @@ def test_rdoq_batch_matches_jax_but_near_ties(ci):
 # -- run_device_apply on a frame
 
 W, H, CTU, MAX_SIG, MIN_TR = 128, 64, 64, 3, 2
-CHROMA_VALUES = (0, 1, 10, 26, 34, 36)        # 36: DM
-
-
-def _random_maps(rng):
-    """Seeded fast-RD decision maps of a W x H frame (int8 [H/4, W/4]:
-    depth, mode, NxN, chroma): a random quadtree with every CU size from
-    64 to NxN 8x8, random luma modes (per 4x4 in an NxN CU) and chroma
-    modes."""
-    shape = (H // 4, W // 4)
-    depth, mode = np.zeros(shape, np.int8), np.zeros(shape, np.int8)
-    nxn, chroma = np.zeros(shape, np.uint8), np.zeros(shape, np.int8)
-
-    def cu(x, y, size, d):
-        if d < MAX_SIG and rng.rand() < (0.5, 0.8, 0.6)[d]:
-            h = size // 2
-            for dy in (0, h):
-                for dx in (0, h):
-                    cu(x + dx, y + dy, h, d + 1)
-            return
-        u = (slice(y // 4, (y + size) // 4), slice(x // 4, (x + size) // 4))
-        depth[u] = d
-        mode[u] = rng.randint(0, 35)
-        chroma[u] = CHROMA_VALUES[rng.randint(len(CHROMA_VALUES))]
-        if d == MAX_SIG and rng.rand() < 0.5:
-            nxn[u] = 1
-            mode[u] = rng.randint(0, 35, (2, 2))
-    for cy in range(0, H, CTU):
-        for cx in range(0, W, CTU):
-            cu(cx, cy, CTU, 0)
-    return depth, mode, nxn, chroma
 
 
 @pytest.fixture(scope="module")
 def frame():
-    rng = np.random.RandomState(24)
-    planes = []
-    for h, w in ((H, W), (H // 2, W // 2), (H // 2, W // 2)):
-        # a smooth ramp with noise of varying strength
-        ramp = np.add.outer(np.arange(h) * 3, np.arange(w) * 2) % 256
-        noise = rng.randint(-40, 41, (h, w)) * (rng.rand(h, w) < 0.5)
-        planes.append(np.clip(ramp + noise, 0, 255).astype(np.int16))
-    maps = _random_maps(rng)
+    planes, maps = nxn_frame(np.random.RandomState(24), W, H, CTU, MAX_SIG)
     sched = port.build_schedule(*maps, W, H, CTU, MAX_SIG, MIN_TR)
     want = ref.build_schedule(*maps, W, H, CTU, MAX_SIG, MIN_TR)
     assert sched is not None and want is not None

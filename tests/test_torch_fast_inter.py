@@ -259,8 +259,8 @@ def test_inter_size_pass_agrees(planes, coarse_both, s):
     t = torch.from_numpy
     out_p = port._inter_size_pass(
         *(t(planes[k]) for k in ("org", "org_cb", "org_cr")),
-        t(planes["ry"]), t(planes["rcb"]), t(planes["rcr"]), s, nby, nbx,
-        tuple(t(np.asarray(c).astype(np.int64)) for c in cj[s]),
+        t(planes["ry"]), torch.cat([t(planes["rcb"]), t(planes["rcr"])]), s,
+        nby, nbx, tuple(t(np.asarray(c).astype(np.int64)) for c in cj[s]),
         torch.tensor(QP), torch.tensor(QP_C), torch.tensor(QP_C),
         torch.tensor(f32(LAM)), torch.tensor(f32(SQRT_LAM_ME)),
         torch.tensor(f32(CBITS2[2])), 0, 255)
@@ -277,7 +277,8 @@ def test_inter_size_pass_agrees(planes, coarse_both, s):
 def test_predictions_at_equal_mvs_exact(planes, s):
     """Luma and chroma MC at random quarter-pel MVs: the reference's
     window gather + ``jx_mc.mc_batch`` against the port's, in the pixel
-    and the 14-bit domain."""
+    domain (``_pred_luma``, ``_pred_chroma``) and the 14-bit one (their
+    jobs through ``mc.mc_blocks``)."""
     rng = np.random.RandomState(s)
     nby, nbx = HP // s, WP // s
     nb = nby * nbx
@@ -287,6 +288,9 @@ def test_predictions_at_equal_mvs_exact(planes, s):
     mvy = rng.randint(-270, 271, nb).astype(np.int32)
     r = rng.randint(0, 2, nb).astype(np.int32)
     t = torch.from_numpy
+    blk = [t(v).long() for v in (r, mvx, mvy, by, bx)]
+    cblk = blk[:3] + [t(by // 2).long(), t(bx // 2).long()]
+    chroma = torch.cat([t(planes["rcb"]), t(planes["rcr"])])
     for bi in (False, True):
         wl = ref._gather_windows(jnp.asarray(planes["ry"]), jnp.asarray(r),
                                  jnp.asarray(by + (mvy >> 2) + 77),
@@ -294,22 +298,25 @@ def test_predictions_at_equal_mvs_exact(planes, s):
         want = jax_mc_batch(wl, jnp.asarray(mvx & 3), jnp.asarray(mvy & 3),
                             case="2d", luma=True, bd=8, bi=bi, out_h=s,
                             out_w=s)
-        got = port._pred_luma(t(planes["ry"]), t(r).long(), t(mvx).long(),
-                              t(mvy).long(), t(by).long(), t(bx).long(), s,
-                              8, bi)
+        got = (mc.mc_blocks(t(planes["ry"]), port._luma_jobs(*blk), "2d",
+                            True, 8, True, s, s) if bi else
+               port._pred_luma(t(planes["ry"]), *blk, s, 8))
         np.testing.assert_array_equal(np.asarray(want), got.numpy())
         cs = s // 2
-        wc = ref._gather_windows(jnp.asarray(planes["rcb"]), jnp.asarray(r),
-                                 jnp.asarray(by // 2 + (mvy >> 3) + 43),
-                                 jnp.asarray(bx // 2 + (mvx >> 3) + 43),
-                                 cs + 4)
-        want = jax_mc_batch(wc, jnp.asarray(mvx & 7), jnp.asarray(mvy & 7),
-                            case="2d", luma=False, bd=8, bi=bi, out_h=cs,
-                            out_w=cs)
-        got = port._pred_chroma(t(planes["rcb"]), t(r).long(), t(mvx).long(),
-                                t(mvy).long(), t(by // 2).long(),
-                                t(bx // 2).long(), cs, 8, bi)
-        np.testing.assert_array_equal(np.asarray(want), got.numpy())
+        # Cb and Cr in one call, over the Cb planes stacked on the Cr ones
+        got = (mc.mc_blocks(chroma, port._chroma_jobs(*cblk), "2d", False,
+                            8, True, cs, cs, pair=True) if bi else
+               port._pred_chroma(chroma, *cblk, cs, 8))
+        for k, name in enumerate(("rcb", "rcr")):
+            wc = ref._gather_windows(jnp.asarray(planes[name]),
+                                     jnp.asarray(r),
+                                     jnp.asarray(by // 2 + (mvy >> 3) + 43),
+                                     jnp.asarray(bx // 2 + (mvx >> 3) + 43),
+                                     cs + 4)
+            want = jax_mc_batch(wc, jnp.asarray(mvx & 7),
+                                jnp.asarray(mvy & 7), case="2d", luma=False,
+                                bd=8, bi=bi, out_h=cs, out_w=cs)
+            np.testing.assert_array_equal(np.asarray(want), got[k].numpy())
 
 
 @pytest.mark.parametrize("size", [4, 8, 16, 32, 64, -32])

@@ -67,7 +67,7 @@ def test_bi_size_pass_agrees(inputs, s):
     t = torch.from_numpy
     rd_p = port._bi_size_pass(
         t(org), t(org_cb), t(org_cr),
-        [tuple(t(a) for a in st) for st in stacks],
+        [(t(st[0]), torch.cat([t(st[1]), t(st[2])])) for st in stacks],
         [tuple(t(a[k]).long() if a.dtype != np.float32 else t(a[k])
                for a in (rd, mvx, mvy, r)) for k in range(2)],
         s, nby, nbx, torch.tensor(QP), torch.tensor(QP_C),

@@ -36,14 +36,19 @@ PU_SIZES = [(8, 8), (16, 16), (32, 32), (64, 64), (4, 8), (8, 4), (16, 4),
 MC_PLANE = (40, 56)          # luma rows and columns of a reference picture
 
 
-def random_mc_jobs(rng, bd: int, n: int, refs: int = 2):
+def random_mc_jobs(rng, bd: int, n: int, refs: int = 2, sizes=None,
+                   kinds=None):
     """A seeded job table of the MC picture kernel (``mc_kernel``):
     every case, luma and chroma, every kind, windows past every edge of
     the planes, weights and offsets at their extremes, each job writing
     its own region (row stride up to 3 past its width).  Uni and bi jobs
     carry the weights a slice without weighted prediction gives (1, 1,
-    0, 0).  Returns (jobs int32 [n, JOB_COLS], the int16 planes (y, cb,
-    cr) of each reference as CPU tensors, the prediction's size)."""
+    0, 0).  ``sizes`` (luma (rows, columns)) and ``kinds`` (names of
+    ``mc.KINDS``) narrow the draws (default: ``PU_SIZES``, every kind).
+    Returns (jobs int32 [n, JOB_COLS], the int16 planes (y, cb, cr) of
+    each reference as CPU tensors, the prediction's size)."""
+    sizes = PU_SIZES if sizes is None else sizes
+    kinds = mc.KINDS if kinds is None else kinds
     h_l, w_l = MC_PLANE
     planes = []
     for _ in range(refs):
@@ -55,13 +60,13 @@ def random_mc_jobs(rng, bd: int, n: int, refs: int = 2):
     size = 0
     for i in range(n):
         luma = rng.rand() < 0.5
-        h, w = PU_SIZES[rng.randint(len(PU_SIZES))]
+        h, w = sizes[rng.randint(len(sizes))]
         comp = 0 if luma else 1 + rng.randint(2)
         if not luma:
             h, w = h // 2, w // 2
         rows, cols = planes[comp].shape
         top, half = (4, 4) if luma else (8, 2)
-        kind = rng.randint(len(mc.KINDS))
+        kind = mc.KINDS.index(kinds[rng.randint(len(kinds))])
         stride = w + rng.randint(4)
         jobs[i, :mc.J_LIST] = (h, w, luma, kind, size, stride, 1, 1, 0, 0)
         size += h * stride
@@ -365,14 +370,169 @@ def test_mc_blocks_kernel_equals_plain(cuda, case, luma, bi, bd):
                              rng.randint(0, top, n), rng.randint(0, top, n)],
                             axis=1).astype(np.int32)
             jobs_d = torch.from_numpy(jobs).to(cuda)
-            before = (mc_kernel.launches, mc.launches)
+            before = (mc_kernel.blocks_launches, mc.launches)
             got = mc.mc_blocks(planes, jobs_d, case, luma, bd, bi, h, w)
             torch.cuda.synchronize()
-            assert mc_kernel.launches == before[0] + 1
+            assert mc_kernel.blocks_launches == before[0] + 1
             assert mc.launches == before[1]
             want = mc.mc_blocks_plain(planes, jobs_d, case, luma, bd, bi, h,
                                       w)
             assert torch.equal(got, want), (h, w, n)
+
+
+# the blocks entry's shapes: its compile-time sizes (luma 8-64, chroma
+# 4-32, square) and shapes of its generic path, (rows, columns)
+BLOCK_SHAPES = {True: [(8, 8), (16, 16), (32, 32), (64, 64), (4, 16),
+                       (24, 32), (64, 8)],
+                False: [(4, 4), (8, 8), (16, 16), (32, 32), (2, 4),
+                        (6, 8), (12, 2)]}
+
+
+def block_planes(rng, bd: int, device):
+    """Plane stacks of 4 planes for the blocks entry: 16-byte copies
+    (columns a multiple of 8), clamped loads only (70 columns), and a
+    view whose base is not 16-byte aligned."""
+    def t(shape):
+        return torch.from_numpy(rng.randint(0, 1 << bd, shape)
+                                .astype(np.int16)).to(device)
+    return [t((4, 144, 176)), t((4, 60, 70)), t((5, 47, 72))[1:]]
+
+
+def block_jobs(rng, n: int, planes, h: int, w: int, top: int, device):
+    """int32 jobs [n, 5] over the first half of ``planes``, windows past
+    every edge."""
+    rows, cols = planes.shape[1:]
+    return torch.from_numpy(np.stack([
+        rng.randint(0, planes.shape[0] // 2, n),
+        rng.randint(-w - 12, cols + 12, n),
+        rng.randint(-h - 12, rows + 12, n), rng.randint(0, top, n),
+        rng.randint(0, top, n)], axis=1).astype(np.int32)).to(device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("luma", [True, False])
+def test_mc_blocks_pairs_and_bi_equal_plain(cuda, luma, bd):
+    """The blocks entry's two-plane and bi calls (and its one-plane uni
+    and 14-bit calls) against their plain forms, at every compile-time
+    size and generic shape, every case, n = 1 and large, over aligned,
+    unaligned-width and misaligned plane stacks, windows past every
+    edge; one launch a call."""
+    rng = np.random.RandomState(31 + 2 * bd + luma)
+    top = 4 if luma else 8
+    stacks = block_planes(rng, bd, cuda)
+    calls = 0
+    for h, w in BLOCK_SHAPES[luma]:
+        for case in mc.CASES:
+            for planes in stacks:
+                other = planes.flip(0).contiguous()
+                for n in ((1, 700) if case == "2d" else (37,)):
+                    j0, j1 = (block_jobs(rng, n, planes, h, w, top, cuda)
+                              for _ in range(2))
+                    for pair in (False, True):
+                        for mode in ("pixels", "14 bits", "bi"):
+                            kw = dict(pair=pair)
+                            if mode == "bi":
+                                kw.update(planes1=other, jobs1=j1)
+                            bi = mode != "pixels"
+                            before = (mc_kernel.launches,
+                                      mc_kernel.blocks_launches, mc.launches)
+                            got = mc.mc_blocks(planes, j0, case, luma, bd, bi,
+                                               h, w, **kw)
+                            torch.cuda.synchronize()
+                            assert (mc_kernel.launches,
+                                    mc_kernel.blocks_launches,
+                                    mc.launches) == (before[0],
+                                                     before[1] + 1, before[2])
+                            want = mc.mc_blocks_plain(planes, j0, case, luma,
+                                                      bd, bi, h, w, **kw)
+                            assert got.shape == want.shape
+                            assert torch.equal(got, want), (
+                                h, w, case, tuple(planes.shape), n, pair,
+                                mode)
+                            calls += 1
+    assert calls == len(BLOCK_SHAPES[luma]) * 5 * 3 * 6
+
+
+@pytest.mark.gpu
+def test_mc_blocks_at_a_1080p_b_frames_shapes(cuda):
+    """The P/B pass's blocks calls at 1080p: every block of a size class
+    over padded reference stacks (2 references), luma and the Cb/Cr
+    pair, uni in pixels and bi averaged, against the plain forms."""
+    rng = np.random.RandomState(77)
+    from thevc_tpu_torch.encoder.fast_inter import PAD_C, PAD_FULL
+    hp, wp = 1088, 1920
+    y = [torch.from_numpy(rng.randint(0, 256, (2, hp + 2 * PAD_FULL,
+                                               wp + 2 * PAD_FULL))
+                          .astype(np.int16)).to(cuda) for _ in range(2)]
+    c = [torch.from_numpy(rng.randint(0, 256, (4, hp // 2 + 2 * PAD_C,
+                                               wp // 2 + 2 * PAD_C))
+                          .astype(np.int16)).to(cuda) for _ in range(2)]
+    for s in (8, 16, 32, 64):
+        n = (hp // s) * (wp // s)
+        for luma, planes, size, top, pair in ((True, y, s, 4, False),
+                                              (False, c, s // 2, 8, True)):
+            rows, cols = planes[0].shape[1:]
+            jobs = [torch.from_numpy(np.stack([
+                rng.randint(0, 2, n), rng.randint(0, cols - size - 8, n),
+                rng.randint(0, rows - size - 8, n), rng.randint(0, top, n),
+                rng.randint(0, top, n)], axis=1).astype(np.int32)).to(cuda)
+                for _ in range(2)]
+            for kw in (dict(), dict(planes1=planes[1], jobs1=jobs[1])):
+                bi = bool(kw)
+                got = mc.mc_blocks(planes[0], jobs[0], "2d", luma, 8, bi,
+                                   size, size, pair=pair, **kw)
+                want = mc.mc_blocks_plain(planes[0], jobs[0], "2d", luma, 8,
+                                          bi, size, size, pair=pair, **kw)
+                assert torch.equal(got, want), (s, luma, bi)
+
+
+@pytest.mark.gpu
+def test_mc_blocks_rejects_bad_pairs_and_lists(cuda):
+    planes = torch.zeros((3, 40, 40), dtype=torch.int16, device=cuda)
+    even = torch.zeros((4, 40, 40), dtype=torch.int16, device=cuda)
+    jobs = torch.zeros((5, 5), dtype=torch.int32, device=cuda)
+    before = mc_kernel.blocks_launches
+    for args, kw in [((planes, jobs, "2d", False, 8, False, 4, 4),
+                      dict(pair=True)),                 # odd plane count
+                     ((even, jobs, "2d", True, 8, True, 8, 8),
+                      dict(jobs1=jobs)),                # no planes1
+                     ((even, jobs, "2d", True, 8, False, 8, 8),
+                      dict(planes1=even, jobs1=jobs)),  # not bi
+                     ((even, jobs, "2d", True, 8, True, 8, 8),
+                      dict(planes1=even[:, :20], jobs1=jobs)),
+                     ((even, jobs, "2d", True, 8, True, 8, 8),
+                      dict(planes1=even, jobs1=jobs[:4]))]:
+        with pytest.raises(ValueError):
+            mc_kernel.blocks(*args, **kw)
+    assert mc_kernel.blocks_launches == before
+
+
+# skewed mixes of a picture's jobs: (luma PU sizes, kinds)
+MC_MIXES = {"small": ([(8, 4), (4, 8)], None),
+            "large": ([(64, 64)], None),
+            "bi_heavy": (None, ("bi", "bi", "bi", "uni")),
+            "weighted_bi": (None, ("wbi",))}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bd", [8, 10])
+@pytest.mark.parametrize("mix", sorted(MC_MIXES))
+def test_mc_picture_skewed_mixes_in_any_order(cuda, mix, bd):
+    """The picture entry on job tables of one skewed size or kind mix,
+    in the order drawn and shuffled, against the plain form."""
+    sizes, kinds = MC_MIXES[mix]
+    rng = np.random.RandomState(sorted(MC_MIXES).index(mix) + 10 * bd)
+    jobs, planes, size = random_mc_jobs(rng, bd, 500, sizes=sizes,
+                                        kinds=kinds)
+    planes_d = [p.to(cuda) for p in planes]
+    want = mc.mc_picture_plain(jobs, planes_d, size, bd)
+    for order in (np.arange(len(jobs)), rng.permutation(len(jobs))):
+        before = mc_kernel.launches
+        got = mc.mc_picture(jobs[order], planes_d, size, bd)
+        torch.cuda.synchronize()
+        assert mc_kernel.launches == before + 1
+        assert torch.equal(got, want), mix
 
 
 @pytest.mark.gpu
@@ -595,13 +755,15 @@ def test_decide_frame_p_cuda_equals_cpu(cuda, tmp_path, b_slice):
                 (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 64,
                 0, 255)
         before = (satd_kernel.launches, residual_kernel.launches,
-                  mc_kernel.launches, mc.launches, mc_kernel.qpel_launches)
+                  mc_kernel.blocks_launches, mc.launches,
+                  mc_kernel.qpel_launches)
         maps_cuda = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                               device=cuda)
         assert satd_kernel.launches > before[0]
         assert residual_kernel.launches > before[1]
         # the pass's MC is the kernel's: no plain MC on the card
-        assert mc_kernel.launches > before[2] and mc.launches == before[3]
+        assert mc_kernel.blocks_launches > before[2] \
+            and mc.launches == before[3]
         assert mc_kernel.qpel_launches > before[4]
         maps_cpu = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                              device="cpu")
@@ -675,6 +837,51 @@ def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
             per_step = [1 if luma else 2 for _, luma, _ in fast_apply.CLS]
             steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
             warm_up = sum(k for k, n in zip(per_step, steps) if n)
+            assert residual_kernel.launches - before == sum(
+                k * n for k, n in zip(per_step, steps)) \
+                + (warm_up if replay else 0)
+    for name in ("eager", "graph"):
+        got, want = outs[name], outs["cpu"]
+        for g, e in zip(got[:3] + got[3] + got[4],
+                        want[:3] + want[3] + want[4]):
+            assert (g is None and e is None) or np.array_equal(g, e), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("use_rdoq", [False, True], ids=["rdoq0", "rdoq"])
+def test_device_apply_nxn_classes_on_cuda(cuda, use_rdoq):
+    """The device apply on maps with NxN CUs, so that every class of
+    ``fast_apply.CLS`` runs, the 4x4 luma DST class (4, True, True)
+    included: replayed as CUDA graphs and eager on ``cuda``, equal to the
+    CPU (tolerance 0), with the residual kernel counted as in
+    ``test_device_apply_replay_equals_eager_and_cpu``."""
+    from thevc_tpu_torch.cabac import contexts as cc
+    from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.streams import nxn_frame
+    w, h, qp = 128, 64, 32
+    planes, maps = nxn_frame(np.random.RandomState(24), w, h)
+    assert maps[2].any()
+    sched = fast_apply.build_schedule(*maps, w, h, 64, 3, 2)
+    assert sched is not None
+    steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
+    # every class ran, the 4x4 luma (DST) class included
+    assert all(sched.counts) and all(steps), (sched.counts, steps)
+    assert fast_apply.CLS[0] == (4, True, True)
+    lam = 0.57 * 2 ** ((qp - 12) / 3)
+    args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True,
+            use_rdoq, lam, lam / 1.2, cc.make_context_states_idx(0, qp))
+    outs = {}
+    for name, device, replay in (("cpu", "cpu", False),
+                                 ("eager", cuda, False),
+                                 ("graph", cuda, True)):
+        before = residual_kernel.launches
+        run = fast_apply.run_device_apply(*args, device=device,
+                                          replay=replay)
+        outs[name] = fast_apply.collect_device_apply(run)
+        assert run.n_waves == sched.n_waves
+        if name != "cpu":
+            per_step = [1 if luma else 2 for _, luma, _ in fast_apply.CLS]
+            warm_up = sum(per_step)
             assert residual_kernel.launches - before == sum(
                 k * n for k, n in zip(per_step, steps)) \
                 + (warm_up if replay else 0)

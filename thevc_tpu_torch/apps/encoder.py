@@ -14,8 +14,9 @@ is used only when ``--device cpu`` asks for it).  ``--device-apply``
 runs the apply of the intra slices on that device as well
 (``encoder.fast_apply``; the host apply otherwise).  The last line of
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual, SATD and MC kernels (all MC launches, and those of its
-quarter-pel entry apart) and the plain MC's calls (none on ``cuda``),
+residual and SATD kernels and of the MC kernel's two entries that the
+P/B pass calls (blocks and quarter-pel), the plain MC's calls (none on
+``cuda``),
 the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
 device), the device apply's frames, waves, class steps and summed wall,
@@ -53,7 +54,8 @@ def main(argv=None) -> int:
               "-wdt W -hgt H -f N -fr FPS]", file=sys.stderr)
         return 1
     before = {"residual": residual_kernel.launches,
-              "satd": satd_kernel.launches, "mc": mc_kernel.launches,
+              "satd": satd_kernel.launches,
+              "mc_blocks": mc_kernel.blocks_launches,
               "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches}
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
@@ -71,7 +73,8 @@ def main(argv=None) -> int:
         "device": args.device,
         "residual_launches": residual_kernel.launches - before["residual"],
         "satd_launches": satd_kernel.launches - before["satd"],
-        "mc_launches": mc_kernel.launches - before["mc"],
+        "mc_blocks_launches": mc_kernel.blocks_launches
+        - before["mc_blocks"],
         "mc_qpel_launches": mc_kernel.qpel_launches - before["mc_qpel"],
         "plain_mc_calls": mc.launches - before["plain_mc"],
         "decision_frames": stats.frames,

@@ -27,25 +27,48 @@
 // one int16; the arithmetic is at most 16 integer multiply-adds a sample
 // for luma.  A 1080p picture's prediction moves a few MB: microseconds at
 // 3.35 TB/s.  What costs in practice is the number of launches and the
-// host work around them, so the design is one launch a picture.
+// host work around them, so each entry is one launch a call.
 //
-// Layout.  thevc_mc_picture takes one int32 device table, uploaded in one
-// copy: per reference plane (pointer low, pointer high, rows, columns),
-// then per job (one prediction unit and component, both lists where it is
-// bi-predicted) the JOB_COLS fields below, then per tile (job, row, column
-// of the tile's first output sample).  A block of 256 threads owns one
-// 16x16 tile of one job: it loads the tile's window of each list into
-// shared memory at clamped coordinates, runs the first pass of a 2-D case
-// into shared memory with the int16 wrap, then each thread computes its
-// output sample of each list in registers, combines the lists (average or
-// weights) and writes the pixel straight into the picture's flat
-// prediction buffer (job destination origin and row stride).
+// The machinery both generic entries share.  A unit is a band of output
+// rows of one job (one plane, one list); its width w takes G = ceil(w / 8)
+// groups of 8 columns.
+//   - The window (band + taps - 1 rows; 8 G + 16 columns from the
+//     8-aligned column at or left of the first tap sample) is read once
+//     into int16 shared memory: 16-byte cp.async where a chunk lies inside
+//     a plane whose base is 16-byte aligned and whose width is a multiple
+//     of 8, clamped per sample elsewhere.
+//   - Register-blocked passes: a thread filters 8 consecutive outputs of a
+//     row from taps + 7 window samples, the phase's taps in registers.  The
+//     2-D case's first pass goes to shared memory as 16-byte stores; its
+//     second pass reads taps 16-byte rows of it.  Columns past w are
+//     computed from real (clamped) samples and never stored.
+//
 // thevc_mc_blocks serves the encoder: N jobs (plane, window x, window y,
-// fx, fy) of one size and one case over a stacked int16 plane tensor
-// [P, H, W], out [N, h, w] int16; a block owns one tile of at most 16x16 of
-// one job, with as many threads (rounded up to a warp) as the tile has
-// samples.  Neither entry allocates or synchronises; both launch on the
-// stream they are given and return cudaGetLastError().
+// fx, fy) of one size and case over a stacked int16 plane tensor [P, H, W].
+// Two planes a job on request (plane p and p + pair_off: Cb and Cr of the
+// same jobs, stacked [2P, H, W]), out [2, N, h, w]; and on request a
+// second job table over a second plane stack (list 1): both lists at 14
+// bits in registers, written once as the bi average in pixels.  A CTA owns
+// whole blocks at the encoder's sizes (luma 8/16/32/64, chroma 4/8/16/32,
+// square; 16 or 32 blocks a CTA at 4 and 8, 8 at 16, 2 at 32, a 64 block as
+// two CTAs of 32-row bands), the sizes template parameters; any other
+// shape up to 64x64 takes one block a CTA of 128 threads.
+//
+// thevc_mc_picture serves the decode, one launch a picture over one int32
+// device table: per reference plane (pointer low, pointer high, rows,
+// columns); then the jobs (one a (PU, component), both lists where it is
+// bi-predicted, the JOB_COLS fields below), ordered on the host by their
+// count of row bands, most first, then by component and size; then per
+// run of equal band counts (first item, first job, bands).  A warp owns
+// one item, a band of one job (at most 32 rows and 64 groups: two a
+// lane): it loads both lists' windows before its first wait, filters each
+// list into registers, combines them (average or weights) and writes the
+// pixels straight into the picture's flat prediction buffer (the job's
+// destination origin and row stride).  A CTA of 4 warps reads the plane
+// descriptors and the run table into shared memory once.
+//
+// No entry allocates or synchronises; each launches on the stream it is
+// given and returns cudaGetLastError().
 //
 // thevc_mc_qpel serves the P/B pass's quarter-pel refine (the encoder's
 // counterpart is thevc_tpu/encoder/fast_inter.py:270-300, which calls
@@ -64,9 +87,8 @@
 // block at 45 nonzero taps over the 7 phases of a pass (7 + 8 + 7 + 1 +
 // 7 + 8 + 7, the identity row counted as one), 1.5-1.7 G int32
 // operations (0.046-0.051 ms at Hopper's int32 rate).
-// The generic entry spent 49 times the window gather (a divide, a modulo
-// and two clamps a sample), 49 first passes where 7 horizontal positions
-// exist, and 1.6 million blocks of 64 threads at s = 8.  The design:
+// The generic entry would spend 49 window loads and 49 first passes where
+// 7 horizontal positions exist.  The design:
 //   - one block of 224 threads owns NB output tiles of T x T (T = s up to
 //     32, so a 64 block is 4 tiles; NB = 8, 2, 1, 1 at s = 8, 16, 32, 64)
 //     and computes all 49 candidates of them;
@@ -94,9 +116,6 @@ namespace {
 constexpr int kInternalPrec = 14;      // IF_INTERNAL_PREC
 constexpr int kFilterPrec = 6;         // IF_FILTER_PREC
 constexpr int kInternalOffs = 8192;    // IF_INTERNAL_OFFS
-constexpr int kTile = 16;              // output tile edge
-constexpr int kPictureThreads = kTile * kTile;
-constexpr int kWinStride = kTile + 8;  // shared window row stride
 
 // job fields (ops/mc_kernel.py names them J_*); list l's six fields at
 // kList + 6 * l
@@ -110,6 +129,9 @@ enum { kUni = 0, kBi = 1, kWUni = 2, kWBi = 3 };
 // cases: (fx != 0) + 2 * (fy != 0) for the decoder; the encoder asks for
 // the 2-D case at every phase (a 0 phase rides the identity tap row)
 enum { kCopy = 0, kHor = 1, kVer = 2, k2d = 3 };
+// what the blocks entry writes: pixels, 14 bits, or the bi average of two
+// lists in pixels
+enum { kPixels = 0, k14 = 1, kAvg = 2 };
 
 // ops/interp.py LUMA_FILTER and CHROMA_FILTER
 __constant__ int kLumaTaps[4][8] = {
@@ -130,91 +152,334 @@ __device__ __forceinline__ int clip_pixel(long long v, int bd) {
   return (int)(v < 0 ? 0 : (v > top ? top : v));
 }
 
-template <int TAPS>
-__device__ __forceinline__ int tap(int phase, int k) {
-  if constexpr (TAPS == 8) {
-    return kLumaTaps[phase][k];
-  } else {
-    return kChromaTaps[phase][k];
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(dst), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+__device__ __forceinline__ unsigned pack2(int lo, int hi) {
+  return (unsigned)(lo & 0xffff) | ((unsigned)hi << 16);
+}
+
+// 8 int16 values to and from a 16-byte aligned address
+__device__ __forceinline__ void store8(int16_t* dst, const int (&v)[8]) {
+  *reinterpret_cast<uint4*>(dst) = make_uint4(
+      pack2(v[0], v[1]), pack2(v[2], v[3]), pack2(v[4], v[5]),
+      pack2(v[6], v[7]));
+}
+
+__device__ __forceinline__ void load8(const int16_t* src, int (&v)[8]) {
+  const uint4 w = *reinterpret_cast<const uint4*>(src);
+  const unsigned u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    v[2 * c] = (int)(int16_t)(u[c] & 0xffff);
+    v[2 * c + 1] = (int)u[c] >> 16;
   }
 }
 
-struct Shared {
-  int win[kTile + 7][kWinStride];      // the window, int16 samples
-  int tmp[kTile + 7][kTile];           // the 2-D case's first pass
+template <int TAPS>
+__device__ __forceinline__ void taps_of(int phase, int (&t)[TAPS]) {
+#pragma unroll
+  for (int k = 0; k < TAPS; ++k) {
+    if constexpr (TAPS == 8) {
+      t[k] = kLumaTaps[phase][k];
+    } else {
+      t[k] = kChromaTaps[phase][k];
+    }
+  }
+}
+
+// One 8-sample chunk of a window: plane samples (y, x .. x + 7) of a rows
+// x cols plane (x a multiple of 8) into dst (16-byte aligned), read at
+// clamped coordinates
+__device__ __forceinline__ void load_chunk(int16_t* dst,
+                                           const int16_t* plane, int rows,
+                                           int cols, int x, int y,
+                                           bool aligned) {
+  if (aligned && y >= 0 && y < rows && x >= 0 && x + 8 <= cols) {
+    cp_async16(dst, plane + (long long)y * cols + x);
+    return;
+  }
+  const int16_t* row = plane + (long long)min(max(y, 0), rows - 1) * cols;
+  int v[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = row[min(max(x + j, 0), cols - 1)];
+  store8(dst, v);
+}
+
+// The 2-D case's first pass over 8 outputs of a row: window samples
+// s[0 .. TAPS + 6] -> dst (16-byte aligned), at 14 bits less 8192
+// (shift sh, offset off), wrapped to int16
+template <int TAPS>
+__device__ __forceinline__ void first_pass8(const int16_t* s,
+                                            const int (&t)[TAPS], int sh,
+                                            int off, int16_t* dst) {
+  int v[TAPS + 7];
+#pragma unroll
+  for (int j = 0; j < TAPS + 7; ++j) v[j] = s[j];
+  int res[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int acc = 0;
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) acc += v[c + k] * t[k];
+    res[c] = (acc + off) >> sh;
+  }
+  store8(dst, res);
+}
+
+// Outputs (i, 8 g .. 8 g + 7) of one list in case cs: win is the window
+// (row stride ws, its first tap sample at column off of row 0), tmp the
+// 2-D case's first pass (row stride tw), tx / ty the phases' taps.
+// last: clip to pixels; else 14 bits, wrapped to int16.
+template <int TAPS>
+__device__ __forceinline__ void predict8(int cs, const int16_t* win, int ws,
+                                         int off, const int16_t* tmp,
+                                         int tw, int i, int g,
+                                         const int (&tx)[TAPS],
+                                         const int (&ty)[TAPS], bool last,
+                                         int bd, int (&res)[8]) {
+  const int head = kInternalPrec - bd;
+  const int top = (1 << bd) - 1;
+  int acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = 0;
+  if (cs == k2d) {
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) {
+      int v[8];
+      load8(tmp + (i + k) * tw + 8 * g, v);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] += v[c] * ty[k];
+    }
+    // the last pass of a 2-D case: shift 6 + head, offset of the 8192
+    const int sh = kFilterPrec + head;
+    const int off2 = (1 << (sh - 1)) + (kInternalOffs << kFilterPrec);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      res[c] = last ? min(max((acc[c] + off2) >> sh, 0), top)
+                    : wrap16(acc[c] >> kFilterPrec);
+    }
+    return;
+  }
+  const int16_t* s = win + i * ws + off + 8 * g;
+  if (cs == kCopy) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      res[c] = last ? s[c] : wrap16(s[c] * (1 << head) - kInternalOffs);
+    }
+    return;
+  }
+  if (cs == kHor) {
+    int v[TAPS + 7];
+#pragma unroll
+    for (int j = 0; j < TAPS + 7; ++j) v[j] = s[j];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+#pragma unroll
+      for (int k = 0; k < TAPS; ++k) acc[c] += v[c + k] * tx[k];
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < TAPS; ++k) {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[c] += s[k * ws + c] * ty[k];
+    }
+  }
+  // one pass: rounded to pixels, or to 14 bits less 8192
+  const int sh = kFilterPrec - head;
+  const int off1 = -kInternalOffs * (1 << sh);
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    res[c] = last ? min(max((acc[c] + (1 << (kFilterPrec - 1)))
+                            >> kFilterPrec, 0), top)
+                  : wrap16((acc[c] + off1) >> sh);
+  }
+}
+
+// ---- the blocks entry --------------------------------------------------
+
+struct BlocksArgs {
+  const int16_t* planes[2];  // per list: int16 [P, rows, cols]
+  const int* jobs[2];        // per list: int32 [n, 5]
+  int16_t* out;              // int16 [n_out_planes, n, h, w]
+  long long n;
+  int rows, cols, h, w, cs, n_out_planes, mode, bd;
+  int pair_off[2];           // per list: plane index of a job's 2nd plane
+  int aligned[2];            // per list: 16-byte chunks may be copied
+  int vec;                   // 16-byte output stores (w % 8 == 0)
 };
 
-// One list's prediction of output sample (ty, tx) of the tile whose first
-// output sample is (ty0, tx0) of the job: th x tw samples, the window's
-// (0, 0) at (wy, wx) of a rows x cols plane.  Every thread of the block
-// calls it (it synchronises); only threads with `active` use the result.
-// `last`: clip to pixels; else keep 14 bits (wrapped to int16).
-template <int TAPS>
-__device__ int predict(Shared& sm, const int16_t* __restrict__ plane,
-                       int rows, int cols, int wx, int wy, int fx, int fy,
-                       int cs, int ty0, int tx0, int th, int tw, int ty,
-                       int tx, bool active, bool last, int bd) {
-  const bool hor = cs == kHor || cs == k2d;
-  const bool ver = cs == kVer || cs == k2d;
-  const int wr = th + (ver ? TAPS - 1 : 0);
-  const int wc = tw + (hor ? TAPS - 1 : 0);
-  const int x0 = wx + tx0, y0 = wy + ty0;
-  for (int e = threadIdx.x; e < wr * wc; e += blockDim.x) {
-    const int r = e / wc, c = e - r * wc;
-    const int y = min(max(y0 + r, 0), rows - 1);
-    const int x = min(max(x0 + c, 0), cols - 1);
-    sm.win[r][c] = plane[(long long)y * cols + x];
+// a per-list field of the arguments, selected without indexing them at
+// run time (which would copy the arguments to local memory)
+template <class T>
+__device__ __forceinline__ T of_list(const T (&v)[2], int l) {
+  return l ? v[1] : v[0];
+}
+
+// one unit's list: its plane, the window's aligned first column and its
+// offset to the first tap sample, first row, phases
+struct UnitSrc {
+  const int16_t* plane;
+  int ax, off, y0, fx, fy;
+};
+
+// threads of a CTA: one 8-column group of NB units of BAND rows each a
+// thread at the encoder's sizes, 128 for the other shapes
+template <int S, int BAND, int NB>
+__host__ __device__ constexpr int blocks_threads() {
+  return S ? NB * BAND * ((S + 7) / 8) : 128;
+}
+
+// S: the block size (square), or 0 for any h x w up to 64 x 64 (then one
+// unit of all h rows a CTA); BAND output rows a unit; NB units a CTA.
+// Dynamic shared memory per unit: the lists' windows [WR][WS], then their
+// first passes [WR][W8].
+template <int TAPS, int S, int BAND, int NB>
+__global__ void __launch_bounds__((blocks_threads<S, BAND, NB>()))
+mc_blocks_kernel(BlocksArgs a) {
+  constexpr int kThreads = blocks_threads<S, BAND, NB>();
+  extern __shared__ __align__(16) int16_t dsm[];
+  __shared__ UnitSrc src[NB][2];
+  __shared__ long long unit_out[NB];   // the unit's first output; -1: none
+  const int h = S ? S : a.h, w = S ? S : a.w;
+  const int G = (w + 7) / 8, band = S ? BAND : h;
+  const int W8 = 8 * G, WS = W8 + 16, WR = band + TAPS - 1, NCH = G + 2;
+  const int nl = a.mode == kAvg ? 2 : 1;
+  const int bands = h / band;
+  const long long per_job = (long long)a.n_out_planes * bands;
+  const int win_sz = WR * WS, tmp_sz = WR * W8;
+  const int unit_sz = nl * (win_sz + tmp_sz);
+  const int tid = threadIdx.x;
+
+  // 0. the units' sources
+  if (tid < NB * nl) {
+    const int b = tid / nl, l = tid - b * nl;
+    const long long u = (long long)blockIdx.x * NB + b;
+    if (u < a.n * per_job) {
+      const long long n = u / per_job;
+      const int rem = (int)(u - n * per_job);
+      const int q = rem / bands, bnd = rem - q * bands;
+      const int* j = of_list(a.jobs, l) + 5 * n;
+      const int wx = j[1];
+      src[b][l] = UnitSrc{of_list(a.planes, l)
+                          + (long long)(j[0] + q * of_list(a.pair_off, l))
+                          * a.rows * a.cols, wx & ~7, wx & 7,
+                          j[2] + bnd * band, j[3], j[4]};
+      if (l == 0) unit_out[b] = ((q * a.n + n) * h + bnd * band) * w;
+    } else {
+      src[b][l].plane = nullptr;
+      if (l == 0) unit_out[b] = -1;
+    }
   }
   __syncthreads();
-  const int head = kInternalPrec - bd;
-  if (cs == k2d) {
-    // first pass: is_first, not last: shift 6 - head, offset -8192 << it
-    const int sh = kFilterPrec - head;
-    const int off = -kInternalOffs * (1 << sh);
-    for (int e = threadIdx.x; e < wr * tw; e += blockDim.x) {
-      const int r = e / tw, c = e - r * tw;
-      int acc = 0;
-#pragma unroll
-      for (int k = 0; k < TAPS; ++k) {
-        acc += sm.win[r][c + k] * tap<TAPS>(fx, k);
-      }
-      sm.tmp[r][c] = wrap16((acc + off) >> sh);
+
+  // 1. the windows, 16 bytes a step
+  for (int e = tid; e < NB * nl * WR * NCH; e += kThreads) {
+    const int ch = e % NCH, r = (e / NCH) % WR, bl = e / (NCH * WR);
+    const int b = bl / nl, l = bl - b * nl;
+    const UnitSrc s = src[b][l];
+    if (!s.plane) continue;
+    load_chunk(dsm + b * unit_sz + l * win_sz + r * WS + 8 * ch, s.plane,
+               a.rows, a.cols, s.ax + 8 * ch, s.y0 + r,
+               of_list(a.aligned, l));
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the 2-D case's first pass: shift 6 - (14 - bd), offset -8192 << it
+  if (a.cs == k2d) {
+    const int sh1 = kFilterPrec - (kInternalPrec - a.bd);
+    const int off1 = -kInternalOffs * (1 << sh1);
+    for (int e = tid; e < NB * nl * WR * G; e += kThreads) {
+      const int g = e % G, r = (e / G) % WR, bl = e / (G * WR);
+      const int b = bl / nl, l = bl - b * nl;
+      const UnitSrc s = src[b][l];
+      if (!s.plane) continue;
+      int t[TAPS];
+      taps_of<TAPS>(s.fx, t);
+      int16_t* unit = dsm + b * unit_sz;
+      first_pass8<TAPS>(unit + l * win_sz + r * WS + s.off + 8 * g, t, sh1,
+                        off1, unit + nl * win_sz + l * tmp_sz + r * W8
+                        + 8 * g);
     }
     __syncthreads();
   }
-  if (!active) return 0;
-  int acc = 0;
-  switch (cs) {
-    case kCopy: {
-      const int s = sm.win[ty][tx];
-      return last ? s : wrap16(s * (1 << head) - kInternalOffs);
-    }
-    case kHor:
-    case kVer: {
-      const int phase = cs == kHor ? fx : fy;
+
+  // 3. the outputs: each list in registers, combined, written
+  for (int e = tid; e < NB * band * G; e += kThreads) {
+    const int g = e % G, i = (e / G) % band, b = e / (G * band);
+    const long long first = unit_out[b];
+    if (first < 0) continue;
+    const int16_t* unit = dsm + b * unit_sz;
+    int res[2][8];
 #pragma unroll
-      for (int k = 0; k < TAPS; ++k) {
-        acc += (cs == kHor ? sm.win[ty][tx + k] : sm.win[ty + k][tx])
-               * tap<TAPS>(phase, k);
+    for (int l = 0; l < 2; ++l) {
+      if (l < nl) {
+        const UnitSrc s = src[b][l];
+        int tx[TAPS], ty[TAPS];
+        taps_of<TAPS>(s.fx, tx);
+        taps_of<TAPS>(s.fy, ty);
+        predict8<TAPS>(a.cs, unit + l * win_sz, WS, s.off,
+                       unit + nl * win_sz + l * tmp_sz, W8, i, g, tx, ty,
+                       a.mode == kPixels, a.bd, res[l]);
       }
-      if (last) return clip_pixel((acc + (1 << (kFilterPrec - 1)))
-                                  >> kFilterPrec, bd);
-      const int sh = kFilterPrec - head;
-      return wrap16((acc - kInternalOffs * (1 << sh)) >> sh);
     }
-    default: {
+    if (a.mode == kAvg) {
+      const int sh = kInternalPrec + 1 - a.bd;
+      const int off = (1 << (sh - 1)) + 2 * kInternalOffs;
+      const int top = (1 << a.bd) - 1;
 #pragma unroll
-      for (int k = 0; k < TAPS; ++k) {
-        acc += sm.tmp[ty + k][tx] * tap<TAPS>(fy, k);
+      for (int c = 0; c < 8; ++c) {
+        res[0][c] = min(max((res[0][c] + res[1][c] + off) >> sh, 0), top);
       }
-      if (last) {
-        const int sh = kFilterPrec + head;
-        const int off = (1 << (sh - 1)) + (kInternalOffs << kFilterPrec);
-        return clip_pixel((acc + off) >> sh, bd);
+    }
+    int16_t* dst = a.out + first + (long long)i * w + 8 * g;
+    if (a.vec) {
+      store8(dst, res[0]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (8 * g + c < w) dst[c] = (int16_t)res[0][c];
       }
-      return wrap16(acc >> kFilterPrec);
     }
   }
+}
+
+template <int TAPS, int S, int BAND, int NB>
+int launch_blocks(const BlocksArgs& a, cudaStream_t st) {
+  const int h = S ? S : a.h, w = S ? S : a.w;
+  const int G = (w + 7) / 8, band = S ? BAND : h;
+  const int nl = a.mode == kAvg ? 2 : 1;
+  const size_t smem = sizeof(int16_t) * NB * nl * (band + TAPS - 1)
+                      * (8 * G + 16 + 8 * G);
+  const long long units = a.n * a.n_out_planes * (h / band);
+  const long long grid = (units + NB - 1) / NB;
+  if (grid > 0x7fffffffll) return (int)cudaErrorInvalidValue;
+  mc_blocks_kernel<TAPS, S, BAND, NB>
+      <<<(unsigned)grid, blocks_threads<S, BAND, NB>(), smem, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---- the picture entry -------------------------------------------------
+
+constexpr int kPicWarps = 4;
+// a warp's shared memory, int16 samples: two windows and one first pass
+// of its largest band (8 groups of 8 rows: 2 * 15 * 80 + 15 * 64)
+constexpr int kPicWarpSmem = 3360;
+constexpr int kMaxPlanes = 96;
+constexpr int kMaxRuns = 64;
+
+// the output rows of a band of an h x w job: at most 32, and at most 64
+// 8-column groups (ops/mc_kernel.py:picture_table counts the same)
+__device__ __forceinline__ int band_rows(int h, int w) {
+  return min(min(h, 32), 64 / ((w + 7) >> 3));
 }
 
 __device__ __forceinline__ const int16_t* plane_ptr(const int* desc) {
@@ -222,91 +487,156 @@ __device__ __forceinline__ const int16_t* plane_ptr(const int* desc) {
   return reinterpret_cast<const int16_t*>((hi << 32) | lo);
 }
 
+// One warp's item: band `band` of `job` (its fields in shared memory),
+// the warp's shared memory `sm`, lane `lane`.
 template <int TAPS>
-__device__ int predict_job_list(Shared& sm, const int* planes, const int* lj,
-                                int ty0, int tx0, int th, int tw, int ty,
-                                int tx, bool active, bool last, int bd) {
-  const int* desc = planes + 4 * lj[kPlane];
-  return predict<TAPS>(sm, plane_ptr(desc), desc[2], desc[3], lj[kWx],
-                       lj[kWy], lj[kFx], lj[kFy], lj[kCase], ty0, tx0, th,
-                       tw, ty, tx, active, last, bd);
-}
+__device__ void picture_item(int16_t* sm, const int* job,
+                             const int (*desc)[4], int band, int lane,
+                             int16_t* __restrict__ pred, int bd) {
+  const int h = job[kH], w = job[kW], kind = job[kKind];
+  const int G = (w + 7) >> 3, rows_a_band = band_rows(h, w);
+  const int r0 = band * rows_a_band, rb = min(rows_a_band, h - r0);
+  const int W8 = 8 * G, WS = W8 + 16, WR = rb + TAPS - 1, NCH = G + 2;
+  const int nl = (kind == kBi || kind == kWBi) ? 2 : 1;
+  int16_t* tmp = sm + 2 * WR * WS;
 
-__global__ void __launch_bounds__(kPictureThreads)
-mc_picture_kernel(const int* __restrict__ table, int n_planes, int n_jobs,
-                  int16_t* __restrict__ pred, int bd) {
-  __shared__ Shared sm;
-  const int* planes = table;
-  const int* jobs = planes + 4 * n_planes;
-  const int* tile = jobs + kJobCols * n_jobs + 3 * blockIdx.x;
-  const int* job = jobs + kJobCols * tile[0];
-  const int ty0 = tile[1], tx0 = tile[2];
-  const int th = min(kTile, job[kH] - ty0), tw = min(kTile, job[kW] - tx0);
-  const int ty = threadIdx.x / kTile, tx = threadIdx.x % kTile;
-  const bool active = ty < th && tx < tw;
-  const int kind = job[kKind];
-  const bool last = kind == kUni;
-  const int n_lists = (kind == kBi || kind == kWBi) ? 2 : 1;
-  int v[2] = {0, 0};
-  for (int l = 0; l < n_lists; ++l) {
+  // 1. both lists' windows, then one wait
+  for (int l = 0; l < nl; ++l) {
     const int* lj = job + kList + 6 * l;
-    v[l] = job[kLuma]
-        ? predict_job_list<8>(sm, planes, lj, ty0, tx0, th, tw, ty, tx,
-                              active, last, bd)
-        : predict_job_list<4>(sm, planes, lj, ty0, tx0, th, tw, ty, tx,
-                              active, last, bd);
-    __syncthreads();                   // the next list reuses the window
-  }
-  if (!active) return;
-  int out;
-  switch (kind) {
-    case kUni:
-      out = v[0];
-      break;
-    case kBi: {
-      const int sh = kInternalPrec + 1 - bd;
-      const int off = (1 << (sh - 1)) + 2 * kInternalOffs;
-      out = clip_pixel((v[0] + v[1] + off) >> sh, bd);
-      break;
-    }
-    case kWUni: {
-      const int sh = job[kDen] + kInternalPrec - bd;
-      const long long rnd = (1ll << sh) >> 1;
-      out = clip_pixel((((long long)job[kW0] * (v[0] + kInternalOffs) + rnd)
-                        >> sh) + job[kOff], bd);
-      break;
-    }
-    default: {
-      const int sh = job[kDen] + kInternalPrec + 1 - bd;
-      const long long half = (1ll << sh) >> 1;
-      out = clip_pixel(((long long)job[kW0] * (v[0] + kInternalOffs)
-                        + (long long)job[kW1] * (v[1] + kInternalOffs)
-                        + half + (long long)job[kOff] * half) >> sh, bd);
+    const int* d = desc[lj[kPlane]];
+    const int16_t* plane = plane_ptr(d);
+    const int rows = d[2], cols = d[3];
+    const bool aligned = (reinterpret_cast<uintptr_t>(plane) & 15) == 0
+                         && (cols & 7) == 0;
+    const int ax = lj[kWx] & ~7, y0 = lj[kWy] + r0;
+    int16_t* win = sm + l * WR * WS;
+    for (int e = lane; e < WR * NCH; e += 32) {
+      const int r = e / NCH, ch = e - r * NCH;
+      load_chunk(win + r * WS + 8 * ch, plane, rows, cols, ax + 8 * ch,
+                 y0 + r, aligned);
     }
   }
-  pred[(long long)job[kDst] + (long long)(ty0 + ty) * job[kStride] + tx0
-       + tx] = (int16_t)out;
+  cp_async_wait_all();
+  __syncwarp();
+
+  // 2. per list: the 2-D case's first pass, then the lane's groups (two
+  // at most) in registers
+  const int sh1 = kFilterPrec - (kInternalPrec - bd);
+  const int off1 = -kInternalOffs * (1 << sh1);
+  const int n_groups = rb * G;
+  int v[2][2][8] = {};
+#pragma unroll
+  for (int l = 0; l < 2; ++l) {
+    if (l < nl) {
+      const int* lj = job + kList + 6 * l;
+      const int cs = lj[kCase], off = lj[kWx] & 7;
+      int tx[TAPS], ty[TAPS];
+      taps_of<TAPS>(lj[kFx], tx);
+      taps_of<TAPS>(lj[kFy], ty);
+      const int16_t* win = sm + l * WR * WS;
+      if (cs == k2d) {
+        for (int e = lane; e < WR * G; e += 32) {
+          const int r = e / G, g = e - r * G;
+          first_pass8<TAPS>(win + r * WS + off + 8 * g, tx, sh1, off1,
+                            tmp + r * W8 + 8 * g);
+        }
+        __syncwarp();
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const int e = lane + 32 * s;
+        if (e < n_groups) {
+          const int i = e / G, g = e - i * G;
+          predict8<TAPS>(cs, win, WS, off, tmp, W8, i, g, tx, ty,
+                         kind == kUni, bd, v[l][s]);
+        }
+      }
+      __syncwarp();                    // the next list reuses tmp
+    }
+  }
+
+  // 3. combine and write
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    const int e = lane + 32 * s;
+    if (e >= n_groups) continue;
+    const int i = e / G, g = e - i * G;
+    int out[8];
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int v0 = v[0][s][c], v1 = v[1][s][c];
+      switch (kind) {
+        case kUni:
+          out[c] = v0;
+          break;
+        case kBi: {
+          const int sh = kInternalPrec + 1 - bd;
+          const int off = (1 << (sh - 1)) + 2 * kInternalOffs;
+          out[c] = clip_pixel((v0 + v1 + off) >> sh, bd);
+          break;
+        }
+        case kWUni: {
+          const int sh = job[kDen] + kInternalPrec - bd;
+          const long long rnd = (1ll << sh) >> 1;
+          out[c] = clip_pixel((((long long)job[kW0] * (v0 + kInternalOffs)
+                                + rnd) >> sh) + job[kOff], bd);
+          break;
+        }
+        default: {
+          const int sh = job[kDen] + kInternalPrec + 1 - bd;
+          const long long half = (1ll << sh) >> 1;
+          out[c] = clip_pixel(((long long)job[kW0] * (v0 + kInternalOffs)
+                               + (long long)job[kW1] * (v1 + kInternalOffs)
+                               + half + (long long)job[kOff] * half) >> sh,
+                              bd);
+        }
+      }
+    }
+    int16_t* dst = pred + job[kDst] + (long long)(r0 + i) * job[kStride]
+                   + 8 * g;
+    const int cnt = min(8, w - 8 * g);
+    if (cnt == 8 && (reinterpret_cast<uintptr_t>(dst) & 15) == 0) {
+      store8(dst, out);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        if (c < cnt) dst[c] = (int16_t)out[c];
+      }
+    }
+  }
 }
 
-template <int TAPS>
-__global__ void __launch_bounds__(kPictureThreads)
-mc_blocks_kernel(const int16_t* __restrict__ planes, int rows, int cols,
-                 const int* __restrict__ jobs, int16_t* __restrict__ out,
-                 int h, int w, int tile_h, int tile_w, int tiles_x,
-                 int tiles_per_job, int cs, bool last, int bd) {
-  __shared__ Shared sm;
-  const long long n = blockIdx.x / tiles_per_job;
-  const int t = blockIdx.x - n * tiles_per_job;
-  const int ty0 = (t / tiles_x) * tile_h, tx0 = (t % tiles_x) * tile_w;
-  const int th = min(tile_h, h - ty0), tw = min(tile_w, w - tx0);
-  const int ty = threadIdx.x / tile_w, tx = threadIdx.x % tile_w;
-  const bool active = ty < th && tx < tw;
-  const int* job = jobs + 5 * n;
-  const int16_t* plane = planes + (long long)job[0] * rows * cols;
-  const int v = predict<TAPS>(sm, plane, rows, cols, job[1], job[2], job[3],
-                              job[4], cs, ty0, tx0, th, tw, ty, tx, active,
-                              last, bd);
-  if (active) out[(n * h + ty0 + ty) * w + tx0 + tx] = (int16_t)v;
+__global__ void __launch_bounds__(32 * kPicWarps)
+mc_picture_kernel(const int* __restrict__ table, int n_planes, int n_jobs,
+                  int n_runs, int n_items, int16_t* __restrict__ pred,
+                  int bd) {
+  __shared__ __align__(16) int16_t sm[kPicWarps][kPicWarpSmem];
+  __shared__ int desc[kMaxPlanes][4];
+  __shared__ int runs[kMaxRuns][3];
+  __shared__ int job[kPicWarps][kJobCols];
+  const int* jobs = table + 4 * n_planes;
+  const int* run_table = jobs + kJobCols * n_jobs;
+  for (int e = threadIdx.x; e < 4 * n_planes; e += blockDim.x) {
+    desc[e >> 2][e & 3] = table[e];
+  }
+  for (int e = threadIdx.x; e < 3 * n_runs; e += blockDim.x) {
+    runs[e / 3][e % 3] = run_table[e];
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int item = blockIdx.x * kPicWarps + warp;
+  if (item >= n_items) return;
+  int r = 0;
+  while (r + 1 < n_runs && runs[r + 1][0] <= item) ++r;
+  const int rel = item - runs[r][0], bands = runs[r][2];
+  const int j = runs[r][1] + rel / bands, band = rel % bands;
+  if (lane < kJobCols) job[warp][lane] = jobs[(long long)kJobCols * j + lane];
+  __syncwarp();
+  if (job[warp][kLuma]) {
+    picture_item<8>(sm[warp], job[warp], desc, band, lane, pred, bd);
+  } else {
+    picture_item<4>(sm[warp], job[warp], desc, band, lane, pred, bd);
+  }
 }
 
 // ---- the quarter-pel entry -------------------------------------------
@@ -338,16 +668,6 @@ struct QpelShared {
   // the first pass of horizontal position p over the window's rows
   alignas(16) int16_t tmp[NB][7][T + 8][T];
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned dst = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(dst), "l"(gmem));
-}
-
-__device__ __forceinline__ unsigned pack2(int lo, int hi) {
-  return (unsigned)(lo & 0xffff) | ((unsigned)hi << 16);
-}
 
 // tiles: NB consecutive (block, tile) pairs from blockIdx.x * NB, tile t
 // of a block at ((t / tiles_x) * T, (t % tiles_x) * T)
@@ -486,53 +806,83 @@ int launch_qpel(const int16_t* planes, int rows, int cols,
 
 }  // namespace
 
-// table: int32 [4 * n_planes + JOB_COLS * n_jobs + 3 * n_tiles] on the
-// device; pred: int16, written at the jobs' samples only.
+// table: int32 [4 * n_planes + JOB_COLS * n_jobs + 3 * n_runs] on the
+// device (ops/mc_kernel.py:picture_table); n_items: the bands of all the
+// jobs; pred: int16, written at the jobs' samples only.
 extern "C" int thevc_mc_picture(const void* table, int n_planes, int n_jobs,
-                                int n_tiles, void* pred, int bd,
+                                int n_runs, int n_items, void* pred, int bd,
                                 void* stream) {
-  if (n_tiles <= 0) return 0;
-  if (n_planes <= 0 || n_jobs <= 0 || bd < 8 || bd > 12) {
+  if (n_items <= 0) return 0;
+  if (n_planes <= 0 || n_planes > kMaxPlanes || n_jobs <= 0 || n_runs <= 0
+      || n_runs > kMaxRuns || bd < 8 || bd > 12) {
     return (int)cudaErrorInvalidValue;
   }
-  mc_picture_kernel<<<n_tiles, kPictureThreads, 0,
+  mc_picture_kernel<<<(n_items + kPicWarps - 1) / kPicWarps,
+                      32 * kPicWarps, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(table), n_planes, n_jobs,
+      static_cast<const int*>(table), n_planes, n_jobs, n_runs, n_items,
       static_cast<int16_t*>(pred), bd);
   return (int)cudaGetLastError();
 }
 
-// planes: int16 [P, rows, cols]; jobs: int32 [n, 5] of (plane, window x,
-// window y, fx, fy); out: int16 [n, h, w].
-extern "C" int thevc_mc_blocks(const void* planes, int rows, int cols,
-                               const void* jobs, long long n, void* out,
-                               int h, int w, int cs, int luma, int bi,
-                               int bd, void* stream) {
+// planes0 / planes1: int16 [P0 / P1, rows, cols] of list 0 / list 1;
+// jobs0 / jobs1: int32 [n, 5] of (plane, window x, window y, fx, fy); with
+// n_out_planes 2 a job also predicts plane + pair_off0 (pair_off1); mode:
+// 0 pixels, 1 14 bits (list 0 only), 2 the bi average of both lists in
+// pixels; out: int16 [n_out_planes, n, h, w].
+extern "C" int thevc_mc_blocks(const void* planes0, const void* planes1,
+                               int rows, int cols, int pair_off0,
+                               int pair_off1, const void* jobs0,
+                               const void* jobs1, long long n, void* out,
+                               int h, int w, int cs, int luma,
+                               int n_out_planes, int mode, int bd,
+                               void* stream) {
   if (n <= 0) return 0;
   if (h < 1 || h > 64 || w < 1 || w > 64 || cs < 0 || cs > 3 || bd < 8
-      || bd > 12 || rows < 1 || cols < 1) {
+      || bd > 12 || rows < 1 || cols < 1 || n_out_planes < 1
+      || n_out_planes > 2 || mode < kPixels || mode > kAvg) {
     return (int)cudaErrorInvalidValue;
   }
-  const int tile_h = h < kTile ? h : kTile, tile_w = w < kTile ? w : kTile;
-  const int tiles_x = (w + tile_w - 1) / tile_w;
-  const int tiles_per_job = tiles_x * ((h + tile_h - 1) / tile_h);
-  const long long blocks = n * tiles_per_job;
-  if (blocks > 0x7fffffffll) return (int)cudaErrorInvalidValue;
-  const int threads = (tile_h * tile_w + 31) / 32 * 32;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int16_t* p = static_cast<const int16_t*>(planes);
-  const int* j = static_cast<const int*>(jobs);
-  int16_t* o = static_cast<int16_t*>(out);
-  if (luma) {
-    mc_blocks_kernel<8><<<(unsigned)blocks, threads, 0, st>>>(
-        p, rows, cols, j, o, h, w, tile_h, tile_w, tiles_x, tiles_per_job,
-        cs, !bi, bd);
-  } else {
-    mc_blocks_kernel<4><<<(unsigned)blocks, threads, 0, st>>>(
-        p, rows, cols, j, o, h, w, tile_h, tile_w, tiles_x, tiles_per_job,
-        cs, !bi, bd);
+  BlocksArgs a;
+  a.planes[0] = static_cast<const int16_t*>(planes0);
+  a.planes[1] = static_cast<const int16_t*>(planes1);
+  a.jobs[0] = static_cast<const int*>(jobs0);
+  a.jobs[1] = static_cast<const int*>(jobs1);
+  a.out = static_cast<int16_t*>(out);
+  a.n = n;
+  a.rows = rows;
+  a.cols = cols;
+  a.h = h;
+  a.w = w;
+  a.cs = cs;
+  a.n_out_planes = n_out_planes;
+  a.mode = mode;
+  a.bd = bd;
+  a.pair_off[0] = pair_off0;
+  a.pair_off[1] = pair_off1;
+  for (int l = 0; l < 2; ++l) {
+    a.aligned[l] = (reinterpret_cast<uintptr_t>(a.planes[l]) & 15) == 0
+                   && cols % 8 == 0;
   }
-  return (int)cudaGetLastError();
+  a.vec = w % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int s = h == w ? h : 0;
+  if (luma) {
+    switch (s) {
+      case 64: return launch_blocks<8, 64, 32, 1>(a, st);
+      case 32: return launch_blocks<8, 32, 32, 2>(a, st);
+      case 16: return launch_blocks<8, 16, 16, 8>(a, st);
+      case 8: return launch_blocks<8, 8, 8, 16>(a, st);
+      default: return launch_blocks<8, 0, 64, 1>(a, st);
+    }
+  }
+  switch (s) {
+    case 32: return launch_blocks<4, 32, 32, 2>(a, st);
+    case 16: return launch_blocks<4, 16, 16, 8>(a, st);
+    case 8: return launch_blocks<4, 8, 8, 16>(a, st);
+    case 4: return launch_blocks<4, 4, 4, 32>(a, st);
+    default: return launch_blocks<4, 0, 64, 1>(a, st);
+  }
 }
 
 // planes: int16 [P, rows, cols]; origins: int32 [n, 3] of (plane, window

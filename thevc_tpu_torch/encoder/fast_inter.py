@@ -188,9 +188,12 @@ def _coarse_fields(org_q, refs_q, rng_q: int, hq: int, wq: int, sqrt_lam,
 
 
 def _block_grid(s: int, nby: int, nbx: int, dev):
-    """Top-left luma sample (by, bx) of every block, raster order."""
-    by = (torch.arange(nby, device=dev) * s)[:, None].expand(nby, nbx)
-    bx = (torch.arange(nbx, device=dev) * s)[None, :].expand(nby, nbx)
+    """Top-left luma sample (by, bx) of every block, raster order, int32
+    (the MC jobs are int32)."""
+    by = (torch.arange(nby, device=dev, dtype=torch.int32) * s)[:, None] \
+        .expand(nby, nbx)
+    bx = (torch.arange(nbx, device=dev, dtype=torch.int32) * s)[None, :] \
+        .expand(nby, nbx)
     return by.reshape(-1), bx.reshape(-1)
 
 
@@ -201,24 +204,36 @@ def _blocks(plane, s: int, nby: int, nbx: int):
             .reshape(nby * nbx, s, s).to(torch.int32))
 
 
-def _pred_luma(refs_y, ref, mvq_x, mvq_y, by, bx, s: int, bd: int,
-               bi: bool = False):
-    """Luma prediction [N, s, s] int16 of each block at a quarter-pel MV:
-    the 2-D 8-tap filter (frac-0 phases ride the identity tap row)."""
-    jobs = torch.stack([ref, bx + (mvq_x >> 2) + (PAD_FULL - 3),
+def _luma_jobs(ref, mvq_x, mvq_y, by, bx):
+    """``mc_blocks`` jobs [N, 5] of each block's luma at a quarter-pel MV
+    (the 2-D 8-tap filter; frac-0 phases ride the identity tap row), of
+    the inputs' dtype (int32 in the pass: the kernel's own)."""
+    return torch.stack([ref, bx + (mvq_x >> 2) + (PAD_FULL - 3),
                         by + (mvq_y >> 2) + (PAD_FULL - 3), mvq_x & 3,
                         mvq_y & 3], dim=1)
-    return mc.mc_blocks(refs_y, jobs, "2d", True, bd, bi, s, s)
 
 
-def _pred_chroma(refs_c, ref, mvq_x, mvq_y, cby, cbx, cs: int, bd: int,
-                 bi: bool = False):
-    """Chroma prediction [N, cs, cs] int16 at a quarter-pel luma MV (the
-    4-tap filter at eighth-pel chroma phases)."""
-    jobs = torch.stack([ref, cbx + (mvq_x >> 3) + (PAD_C - 1),
+def _chroma_jobs(ref, mvq_x, mvq_y, cby, cbx):
+    """``mc_blocks`` jobs [N, 5] of each block's chroma at a quarter-pel
+    luma MV (the 4-tap filter at eighth-pel chroma phases)."""
+    return torch.stack([ref, cbx + (mvq_x >> 3) + (PAD_C - 1),
                         cby + (mvq_y >> 3) + (PAD_C - 1), mvq_x & 7,
                         mvq_y & 7], dim=1)
-    return mc.mc_blocks(refs_c, jobs, "2d", False, bd, bi, cs, cs)
+
+
+def _pred_luma(refs_y, ref, mvq_x, mvq_y, by, bx, s: int, bd: int):
+    """Luma prediction [N, s, s] int16 pixels of each block at a
+    quarter-pel MV."""
+    return mc.mc_blocks(refs_y, _luma_jobs(ref, mvq_x, mvq_y, by, bx), "2d",
+                        True, bd, False, s, s)
+
+
+def _pred_chroma(refs_c, ref, mvq_x, mvq_y, cby, cbx, cs: int, bd: int):
+    """Chroma prediction [2, N, cs, cs] int16 pixels (Cb, then Cr) of each
+    block at a quarter-pel luma MV, in one call: refs_c stacks the
+    references' Cb planes, then their Cr planes."""
+    return mc.mc_blocks(refs_c, _chroma_jobs(ref, mvq_x, mvq_y, cby, cbx),
+                        "2d", False, bd, False, cs, cs, pair=True)
 
 
 def _qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s: int, bd: int):
@@ -245,12 +260,14 @@ def _tq_size(cs: int) -> int:
     return -32 if cs == 32 else cs
 
 
-def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
-                     s: int, nby: int, nbx: int, coarse, qp_scaled, qp_cb,
-                     qp_cr, lam, sqrt_lam, cw, bit_inc: int, max_val: int):
+def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_c, s: int,
+                     nby: int, nbx: int, coarse, qp_scaled, qp_cb, qp_cr,
+                     lam, sqrt_lam, cw, bit_inc: int, max_val: int):
     """One inter size class: refine the coarse field, sub-pel search,
-    RD-estimate the winner and a skip model.  Returns (rd float32, mvx,
-    mvy (quarter-pel), ref), each [nby, nbx]."""
+    RD-estimate the winner and a skip model.  refs_y: the references'
+    luma planes [P, ...]; refs_c: their Cb planes, then their Cr planes
+    [2P, ...].  Returns (rd float32, mvx, mvy (quarter-pel), ref (int32
+    each)), each [nby, nbx]."""
     dev = org_full.device
     nb = nby * nbx
     bd = 8 + bit_inc
@@ -301,8 +318,10 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
                        int_my[:, None] * 4 + steps).reshape(nb, 49)
         cost = satd.to(torch.float32) + sqrt_lam * bits.to(torch.float32)
         best_q = cost.argmin(dim=1)
-        mv_qx = int_mx * 4 + best_q % 7 - 3
-        mv_qy = int_my * 4 + best_q // 7 - 3
+        # the winners as int32: the MC jobs built from them need no cast
+        ref = ref.to(torch.int32)
+        mv_qx = (int_mx * 4 + best_q % 7 - 3).to(torch.int32)
+        mv_qy = (int_my * 4 + best_q // 7 - 3).to(torch.int32)
 
     # ---- RD estimate at the winner --------------------------------------
     cs = s // 2
@@ -313,14 +332,12 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
         pred_l = _pred_luma(refs_y, ref, mv_qx, mv_qy, by, bx, s, bd)
         d_y, b_y = fi._tq_rd(org_b, pred_l, s, qp_scaled, bit_inc, max_val,
                              is_intra=False)
-        d_cb, b_cb = fi._tq_rd(
-            org_cb_b, _pred_chroma(refs_cb, ref, mv_qx, mv_qy, cby, cbx, cs,
-                                   bd), _tq_size(cs), qp_cb, bit_inc,
-            max_val, is_intra=False)
-        d_cr, b_cr = fi._tq_rd(
-            org_cr_b, _pred_chroma(refs_cr, ref, mv_qx, mv_qy, cby, cbx, cs,
-                                   bd), _tq_size(cs), qp_cr, bit_inc,
-            max_val, is_intra=False)
+        pred_cb, pred_cr = _pred_chroma(refs_c, ref, mv_qx, mv_qy, cby, cbx,
+                                        cs, bd)
+        d_cb, b_cb = fi._tq_rd(org_cb_b, pred_cb, _tq_size(cs), qp_cb,
+                               bit_inc, max_val, is_intra=False)
+        d_cr, b_cr = fi._tq_rd(org_cr_b, pred_cr, _tq_size(cs), qp_cr,
+                               bit_inc, max_val, is_intra=False)
 
     with stage("fast_inter.merge_model", dev):
         # AMVP-proxy mvd pricing: the refined winner field's left/above
@@ -355,10 +372,10 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
         m_cost, m_idx = c3.min(dim=0)
         s_mx, s_my, s_ref = (torch.stack(c).gather(0, m_idx[None])[0]
                              for c in zip(*cands))
-        d_scb = _sse(org_cb_b, _pred_chroma(refs_cb, s_ref, s_mx, s_my, cby,
-                                            cbx, cs, bd), bit_inc)
-        d_scr = _sse(org_cr_b, _pred_chroma(refs_cr, s_ref, s_mx, s_my, cby,
-                                            cbx, cs, bd), bit_inc)
+        ps_cb, ps_cr = _pred_chroma(refs_c, s_ref, s_mx, s_my, cby, cbx, cs,
+                                    bd)
+        d_scb = _sse(org_cb_b, ps_cb, bit_inc)
+        d_scr = _sse(org_cr_b, ps_cr, bit_inc)
         skip_rd = m_cost + cw * (d_scb + d_scr).to(torch.float32)
         use_skip = skip_rd < rd
         rd = torch.minimum(rd, skip_rd)
@@ -368,18 +385,6 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_cb, refs_cr,
     return tuple(v.reshape(nby, nbx) for v in (rd, mv_qx, mv_qy, ref))
 
 
-def _pred_at_14bit(refs_y, refs_cb, refs_cr, ref, mv_qx, mv_qy, by, bx, s,
-                   bd: int):
-    """Luma + chroma predictions for one MV/ref per block in the 14-bit
-    internal domain (``bi=True``), for the bi-prediction average."""
-    cs = s // 2
-    return (_pred_luma(refs_y, ref, mv_qx, mv_qy, by, bx, s, bd, True),
-            _pred_chroma(refs_cb, ref, mv_qx, mv_qy, by // 2, bx // 2, cs,
-                         bd, True),
-            _pred_chroma(refs_cr, ref, mv_qx, mv_qy, by // 2, bx // 2, cs,
-                         bd, True))
-
-
 def _bi_size_pass(org_full, org_cb, org_cr, refs2, uni2, s: int, nby: int,
                   nbx: int, qp_scaled, qp_cb, qp_cr, lam, cw, bit_inc: int,
                   max_val: int):
@@ -387,21 +392,27 @@ def _bi_size_pass(org_full, org_cb, org_cr, refs2, uni2, s: int, nby: int,
     winners' predictions (TComYuv::addAvg) and transform/quant the
     residual (the bi stage of xMotionEstimation, TEncSearch.cpp:3419-3520,
     with the iterations collapsed to the uni winners).  refs2: per list
-    the stacked (y, cb, cr) reference planes; uni2: per list (rd, mvx,
-    mvy, ref).  Returns rd [nby, nbx] float32."""
+    the stacked (luma, chroma) reference planes (``_inter_size_pass``);
+    uni2: per list (rd, mvx, mvy, ref).  Both lists' predictions are
+    averaged in the MC call: one for luma, one for Cb and Cr.  Returns rd
+    [nby, nbx] float32."""
     dev = org_full.device
     bd = 8 + bit_inc
     by, bx = _block_grid(s, nby, nbx, dev)
     cs = s // 2
-    preds, mvbits = [], None
-    for (ry, rcb, rcr), (_rd, mvx, mvy, ref) in zip(refs2, uni2):
+    jobs_l, jobs_c, mvbits = [], [], None
+    for (_rd, mvx, mvy, ref) in uni2:
         mvx, mvy, ref = mvx.reshape(-1), mvy.reshape(-1), ref.reshape(-1)
-        preds.append(_pred_at_14bit(ry, rcb, rcr, ref, mvx, mvy, by, bx, s,
-                                    bd))
+        jobs_l.append(_luma_jobs(ref, mvx, mvy, by, bx))
+        jobs_c.append(_chroma_jobs(ref, mvx, mvy, by // 2, bx // 2))
         b = _golomb_bits(mvx) + _golomb_bits(mvy) + 2 + ref
         mvbits = b if mvbits is None else mvbits + b
     mvbits = mvbits.to(torch.float32)
-    pl, pcb, pcr = (mc.bi_avg_batch(a, b, bd) for a, b in zip(*preds))
+    (ry0, rc0), (ry1, rc1) = refs2
+    pl = mc.mc_blocks(ry0, jobs_l[0], "2d", True, bd, True, s, s,
+                      planes1=ry1, jobs1=jobs_l[1])
+    pcb, pcr = mc.mc_blocks(rc0, jobs_c[0], "2d", False, bd, True, cs, cs,
+                            pair=True, planes1=rc1, jobs1=jobs_c[1])
     d_y, b_y = fi._tq_rd(_blocks(org_full, s, nby, nbx), pl, s, qp_scaled,
                          bit_inc, max_val, is_intra=False)
     d_cb, b_cb = fi._tq_rd(_blocks(org_cb, cs, nby, nbx), pcb, _tq_size(cs),
@@ -460,8 +471,11 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
                                     [e.quarter(rng_q, hp, wp)
                                      for e in entries],
                                     rng_q, hq, wq, sqrt_lam_me, ctu_size)
-        planes = [torch.stack([e.planes[c] for e in entries])
-                  for c in range(3)]
+        # luma [P, ...]; Cb then Cr [2P, ...], whose halves are the Cb and
+        # Cr stacks (one MC call predicts both)
+        planes = (torch.stack([e.planes[0] for e in entries]),
+                  torch.stack([e.planes[c] for c in (1, 2)
+                               for e in entries]))
         out = {s: _inter_size_pass(org_full, org_cb, org_cr, *planes, s,
                                    hp // s, wp // s, coarse[s], qp_scaled,
                                    qp_cb, qp_cr, lam, sqrt_lam_me, cw,

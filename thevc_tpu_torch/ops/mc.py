@@ -15,7 +15,8 @@ Three entries serve the codec, named after the hand-written kernel's
   (``mc_kernel.JOB_COLS`` fields a (PU, component), both lists of a bi
   PU in one job) into the picture's flat prediction buffer;
 - ``mc_blocks``: N blocks of one size and case from a stacked plane
-  tensor, for the encoder's P/B decision pass;
+  tensor, for the encoder's P/B decision pass (Cb and Cr of the same
+  jobs in one call, and a bi-prediction's two lists averaged in it);
 - ``mc_qpel``: the 49 quarter-pel candidates of N blocks of one size
   from a stacked plane tensor, for that pass's quarter-pel refine.
 
@@ -314,12 +315,11 @@ def mc_picture(jobs: np.ndarray, planes: list, size: int,
     return mc_kernel.picture(jobs, planes, size, bd)
 
 
-def mc_blocks_plain(planes: torch.Tensor, jobs: torch.Tensor, case: str,
-                    luma: bool, bd: int, bi: bool, out_h: int,
-                    out_w: int) -> torch.Tensor:
-    """The plain version of the blocks kernel, on any device: planes
-    [P, rows, cols], jobs [N, 5] of (plane, window x, window y, fx, fy)
-    -> int16 [N, out_h, out_w] (``gather_windows`` then ``mc_batch``)."""
+def _blocks_plain(planes: torch.Tensor, jobs: torch.Tensor, case: str,
+                  luma: bool, bd: int, bi: bool, out_h: int,
+                  out_w: int) -> torch.Tensor:
+    """One plane stack, one list: ``gather_windows`` then ``mc_batch``
+    -> int16 [N, out_h, out_w]."""
     rows, cols = window_shape(case, luma, out_h, out_w)
     outs = []
     # in chunks of about 2^22 window samples, which bounds the tap stacks
@@ -330,23 +330,58 @@ def mc_blocks_plain(planes: torch.Tensor, jobs: torch.Tensor, case: str,
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+def mc_blocks_plain(planes: torch.Tensor, jobs: torch.Tensor, case: str,
+                    luma: bool, bd: int, bi: bool, out_h: int, out_w: int,
+                    *, pair: bool = False,
+                    planes1: torch.Tensor | None = None,
+                    jobs1: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of the blocks kernel, on any device, with the
+    arguments of ``mc_blocks``: ``mc_batch`` over the gathered windows of
+    each plane stack (``pair``: the first and the second half of the
+    planes, stacked [2, N, out_h, out_w]); with a second list the two
+    14-bit predictions through ``bi_avg_batch``."""
+    def one(p, j, bits14):
+        if not pair:
+            return _blocks_plain(p, j, case, luma, bd, bits14, out_h, out_w)
+        half = p.shape[0] // 2
+        return torch.stack([_blocks_plain(q, j, case, luma, bd, bits14,
+                                          out_h, out_w)
+                            for q in (p[:half], p[half:])])
+    if jobs1 is None:
+        return one(planes, jobs, bi)
+    return bi_avg_batch(one(planes, jobs, True), one(planes1, jobs1, True),
+                        bd)
+
+
 def mc_blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str,
-              luma: bool, bd: int, bi: bool, out_h: int,
-              out_w: int) -> torch.Tensor:
+              luma: bool, bd: int, bi: bool, out_h: int, out_w: int, *,
+              pair: bool = False, planes1: torch.Tensor | None = None,
+              jobs1: torch.Tensor | None = None) -> torch.Tensor:
     """N predictions of one size and case: int16 planes [P, rows, cols]
     and integer jobs [N, 5] of (plane, window x, window y, fx, fy), the
     window's first tap sample in plane coordinates (read clamped to the
     plane) -> int16 [N, out_h, out_w], pixels, or 14 bits when ``bi``.
-    On a CUDA device one launch of the hand-written kernel (and raises if
-    it cannot launch); on the CPU the plain version."""
+    ``pair``: the planes stack Cb then Cr (P / 2 each) and every job
+    predicts both -> [2, N, out_h, out_w].  ``planes1`` and ``jobs1``
+    (with ``bi``): list 1's planes and jobs; the result is the bi average
+    of both lists' predictions, in pixels.  On a CUDA device one launch
+    of the hand-written kernel (and raises if it cannot launch); on the
+    CPU the plain version."""
     if planes.device.type == "cpu":
         return mc_blocks_plain(planes, jobs, case, luma, bd, bi, out_h,
-                               out_w)
+                               out_w, pair=pair, planes1=planes1,
+                               jobs1=jobs1)
     if planes.device.type != "cuda":
         raise ValueError(f"unsupported device {planes.device}")
-    return mc_kernel.blocks(planes.to(torch.int16).contiguous(),
-                            jobs.to(torch.int32).contiguous(), case, luma,
-                            bd, bi, out_h, out_w)
+
+    def prep(p, j):
+        return (p.to(torch.int16).contiguous(),
+                j.to(torch.int32).contiguous())
+    planes, jobs = prep(planes, jobs)
+    if planes1 is not None and jobs1 is not None:
+        planes1, jobs1 = prep(planes1, jobs1)
+    return mc_kernel.blocks(planes, jobs, case, luma, bd, bi, out_h, out_w,
+                            pair=pair, planes1=planes1, jobs1=jobs1)
 
 
 # per quarter-pel candidate k = (qdy + 3) * 7 + qdx + 3: integer row

@@ -6,11 +6,13 @@ Replaces the XLA functions ``thevc_tpu/ops/jx_mc.py:mc_batch`` (:77) and
 ``precompute_device`` (``thevc_tpu/decoder/inter.py:121-221``).  Three
 entries: ``picture`` predicts every inter PU of a picture in one launch
 (the decode), ``blocks`` predicts N blocks of one size and case (the P/B
-fast-RD pass's winners), ``qpel`` the 49 quarter-pel candidates of N
-blocks of one size (the P/B pass's quarter-pel refine).  The design notes
-and what bounds the kernel on the card are in the source's header
-comment.  Their plain PyTorch versions are ``ops.mc.mc_picture_plain``,
-``ops.mc.mc_blocks_plain`` and ``ops.mc.mc_qpel_plain``.
+fast-RD pass's winners: Cb and Cr in one launch, and a bi-prediction's
+two lists averaged in the kernel), ``qpel`` the 49 quarter-pel
+candidates of N blocks of one size (the P/B pass's quarter-pel refine).
+The design notes and what bounds the kernel on the card are in the
+source's header comment.  Their plain PyTorch versions are
+``ops.mc.mc_picture_plain``, ``ops.mc.mc_blocks_plain`` and
+``ops.mc.mc_qpel_plain``.
 
 The kernel is compiled with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops.build``).  Nothing here runs when the module is
@@ -29,12 +31,12 @@ from .device import stat_h2d
 
 NAME = "mc"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {"thevc_mc_picture": [_P, _I, _I, _I, _P, _I, _P],
-            "thevc_mc_blocks": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I,
-                                _I, _I, _I, _I, _I, _P],
+_ENTRIES = {"thevc_mc_picture": [_P, _I, _I, _I, _I, _P, _I, _P],
+            "thevc_mc_blocks": [_P, _P, _I, _I, _I, _I, _P, _P,
+                                ctypes.c_longlong, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P],
             "thevc_mc_qpel": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _I,
                               _P]}
-TILE = 16            # the picture entry's output tile edge (csrc/mc.cu)
 BLOCK_JOB_COLS = 5   # blocks(): (plane, window x, window y, fx, fy)
 QPEL_SIZES = (8, 16, 32, 64)   # qpel(): block sizes
 QPEL_CANDIDATES = 49           # qpel(): the 7x7 quarter-pel offsets
@@ -56,10 +58,21 @@ JOB_COLS = J_LIST + 2 * 6
 # predict each list at 14 bits)
 KINDS = ("uni", "bi", "wuni", "wbi")
 
-# kernel launches made by picture() and blocks(), and by qpel(); plain
-# integers that a run resets and reads to show that its main path went
-# through the kernel
+# the picture entry reads the plane descriptors and the runs of equal band
+# counts into shared memory (csrc/mc.cu kMaxPlanes, kMaxRuns)
+MAX_PLANES = 96
+MAX_RUNS = 64
+# a warp's shared memory in the picture entry, int16 samples: two windows
+# and a first pass of a band (csrc/mc.cu kPicWarpSmem)
+PICTURE_WARP_SAMPLES = 3360
+# what blocks() writes (csrc/mc.cu): pixels, 14 bits, the bi average
+PIXELS, BITS14, AVERAGE = range(3)
+
+# kernel launches made by picture(), by blocks() and by qpel(), one count
+# an entry; plain integers that a run resets and reads to show that its
+# main path went through the kernel
 launches = 0
+blocks_launches = 0
 qpel_launches = 0
 
 
@@ -73,16 +86,32 @@ def _check_bd(bd: int) -> None:
         raise ValueError(f"bit depth {bd} out of range 8..12")
 
 
-def _tiles(jobs: np.ndarray) -> np.ndarray:
-    """The picture entry's tiles: int32 [T, 3] of (job, first row, first
-    column), TILE x TILE output samples (fewer at a job's edge) each."""
-    ny = -(-jobs[:, J_H] // TILE)
-    nx = -(-jobs[:, J_W] // TILE)
-    per = ny * nx
-    job = np.repeat(np.arange(len(jobs)), per)
-    k = np.arange(int(per.sum())) - np.repeat(np.cumsum(per) - per, per)
-    return np.stack([job, k // nx[job] * TILE, k % nx[job] * TILE],
-                    axis=1).astype(np.int32)
+def band_rows(jobs: np.ndarray) -> np.ndarray:
+    """The output rows of a band of the picture entry (one warp's item) a
+    job: at most 32 rows and 64 8-column groups (``csrc/mc.cu:band_rows``,
+    which computes the same)."""
+    h = jobs[:, J_H].astype(np.int64)
+    return np.minimum(np.minimum(h, 32), 64 // ((jobs[:, J_W] + 7) // 8))
+
+
+def picture_order(jobs: np.ndarray) -> tuple:
+    """The picture entry's work over jobs [J, JOB_COLS]: (the jobs
+    ordered by their count of bands, most first, then by component and
+    size; per run of equal band counts (first item, first job, bands),
+    int64 [R, 3]; the items, a band of a job each).  A warp finds its
+    job and band from these runs (``csrc/mc.cu:mc_picture_kernel``)."""
+    h = jobs[:, J_H].astype(np.int64)
+    bands = -(-h // band_rows(jobs))
+    # one sort key: bands (at most 64) descending, luma, rows, columns
+    # (each 1..64); the order among jobs of one key does not matter
+    key = ((((64 - bands) << 1 | jobs[:, J_LUMA]) << 7 | h) << 7
+           | jobs[:, J_W])
+    order = np.argsort(key)
+    bands = bands[order]
+    start = np.flatnonzero(np.diff(bands, prepend=-1))
+    runs = np.stack([(np.cumsum(bands) - bands)[start], start, bands[start]],
+                    axis=1)
+    return jobs[order], runs, int(bands.sum())
 
 
 def picture_table(jobs: np.ndarray, planes: list, size: int,
@@ -90,13 +119,16 @@ def picture_table(jobs: np.ndarray, planes: list, size: int,
     """Check the picture entry's inputs (host jobs int32 [J, JOB_COLS],
     the reference planes, int16 [rows, cols] each, contiguous, on one
     CUDA device, that the jobs' plane fields index; the prediction's
-    size; the bit depth) and build its device table on the host: the
-    planes' (pointer low, pointer high, rows, columns), the jobs and
-    their tiles, int32.  Returns (table, planes, jobs, tiles) counts
-    with the table first.  Raises on any input the kernel does not
-    take."""
+    size; the bit depth) and build its device table on the host, int32:
+    the planes' (pointer low, pointer high, rows, columns); the jobs and
+    their runs of ``picture_order``.  Returns (table, planes, jobs, runs,
+    items) with the table first, an item a band of a job.  Raises on any
+    input the kernel does not take."""
     if not planes:
         raise ValueError("no reference planes")
+    if len(planes) > MAX_PLANES:
+        raise ValueError(f"{len(planes)} reference planes, at most "
+                         f"{MAX_PLANES}")
     device = planes[0].device
     if device.type != "cuda":
         raise ValueError(f"the MC kernel takes CUDA tensors, got {device}")
@@ -113,11 +145,11 @@ def picture_table(jobs: np.ndarray, planes: list, size: int,
     if len(jobs) and (h.min() < 1 or h.max() > 64 or w.min() < 1
                       or w.max() > 64):
         raise ValueError("job sizes out of 1..64")
-    if not np.isin(jobs[:, J_KIND], range(len(KINDS))).all() \
-            or not np.isin(jobs[:, J_LUMA], (0, 1)).all():
+    kind, luma = jobs[:, J_KIND], jobs[:, J_LUMA]
+    if len(jobs) and (kind.min() < 0 or kind.max() >= len(KINDS)
+                      or luma.min() < 0 or luma.max() > 1):
         raise ValueError("unknown job kind or component")
-    n_lists = 1 + np.isin(jobs[:, J_KIND], (KINDS.index("bi"),
-                                            KINDS.index("wbi")))
+    n_lists = 1 + ((kind == KINDS.index("bi")) | (kind == KINDS.index("wbi")))
     for lst in (0, 1):
         sel = n_lists > lst
         col = J_LIST + lst * 6
@@ -134,14 +166,15 @@ def picture_table(jobs: np.ndarray, planes: list, size: int,
     for k, p in enumerate(planes):
         ptr = p.data_ptr()
         desc[k] = (ptr & 0xffffffff, ptr >> 32, p.shape[0], p.shape[1])
-    tile = _tiles(jobs)
+    jobs, runs, n_items = picture_order(jobs)
     table = np.concatenate([desc.astype(np.uint32).view(np.int32).ravel(),
-                            jobs.ravel(), tile.ravel()])
-    return table, len(planes), len(jobs), len(tile)
+                            jobs.ravel(), runs.astype(np.int32).ravel()])
+    return table, len(planes), len(jobs), len(runs), n_items
 
 
 def launch_picture(table: torch.Tensor, n_planes: int, n_jobs: int,
-                   n_tiles: int, pred: torch.Tensor, bd: int) -> None:
+                   n_runs: int, n_items: int, pred: torch.Tensor,
+                   bd: int) -> None:
     """Launch the picture entry on the current stream over a device
     table of ``picture_table`` (its planes must still hold the samples
     its pointers name), writing the jobs' samples of ``pred`` (int16 on
@@ -149,16 +182,16 @@ def launch_picture(table: torch.Tensor, n_planes: int, n_jobs: int,
     synchronise; raises on a launch error."""
     global launches
     _build.check_tensor(table, "table", torch.int32,
-                        (4 * n_planes + JOB_COLS * n_jobs + 3 * n_tiles,),
+                        (4 * n_planes + JOB_COLS * n_jobs + 3 * n_runs,),
                         table.device)
     _build.check_tensor(pred, "prediction", torch.int16, tuple(pred.shape),
                         table.device)
-    if not n_tiles:
+    if not n_items:
         return
     lib = build()
     with torch.cuda.device(table.device):
         rc = lib.thevc_mc_picture(table.data_ptr(), n_planes, n_jobs,
-                                  n_tiles, pred.data_ptr(), bd,
+                                  n_runs, n_items, pred.data_ptr(), bd,
                                   _build.stream_of(table.device))
     _build.check(lib, rc, "MC picture kernel launch")
     launches += 1
@@ -169,29 +202,36 @@ def picture(jobs: np.ndarray, planes: list, size: int,
     """The picture entry: host jobs int32 [J, JOB_COLS] and the reference
     planes (int16 [rows, cols] each, contiguous, on one CUDA device) that
     the jobs' plane fields index -> the flat int16 prediction [size],
-    zero outside the jobs.  Uploads the plane table, the jobs and their
-    tiles in one copy and launches once on the current stream without
-    synchronising; raises on any input the kernel does not take and on a
-    launch error."""
-    table, n_planes, n_jobs, n_tiles = picture_table(jobs, planes, size, bd)
+    zero outside the jobs.  Uploads the plane table, the ordered jobs
+    and their runs in one copy and launches once on the current stream
+    without synchronising; raises on any input the kernel does not take
+    and on a launch error."""
+    table, *counts = picture_table(jobs, planes, size, bd)
     device = planes[0].device
     pred = torch.zeros(size, dtype=torch.int16, device=device)
-    if n_tiles:
+    if counts[-1]:
         stat_h2d(table.nbytes)
-        launch_picture(torch.from_numpy(table).to(device), n_planes, n_jobs,
-                       n_tiles, pred, bd)
+        launch_picture(torch.from_numpy(table).to(device), *counts, pred, bd)
     return pred
 
 
 def blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str, luma: bool,
-           bd: int, bi: bool, out_h: int, out_w: int) -> torch.Tensor:
+           bd: int, bi: bool, out_h: int, out_w: int, *, pair: bool = False,
+           planes1: torch.Tensor | None = None,
+           jobs1: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the blocks entry: int16 planes [P, rows, cols] and int32
     jobs [N, 5] of (plane, window x, window y, fx, fy) on one CUDA device
     -> int16 [N, out_h, out_w], in pixels, or at 14 bits when ``bi``.
-    The jobs' plane indices must lie in [0, P).  Launches on the current
-    stream without synchronising; raises on any input the kernel does not
-    take and on a launch error."""
-    global launches
+    ``pair``: the planes stack two components (plane p and p + P / 2,
+    Cb then Cr) and each job predicts both -> [2, N, out_h, out_w].
+    ``planes1`` / ``jobs1`` (with ``bi``): list 1's planes (of the same
+    rows and columns, stacked as ``planes``) and jobs [N, 5]; both lists
+    are predicted at 14 bits and written as their bi average in pixels.
+    The jobs' plane indices must lie in [0, P) ([0, P / 2) with
+    ``pair``).  Launches on the current stream without synchronising;
+    raises on any input the kernel does not take and on a launch
+    error."""
+    global blocks_launches
     device = planes.device
     if device.type != "cuda":
         raise ValueError(f"the MC kernel takes CUDA tensors, got {device}")
@@ -200,26 +240,39 @@ def blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str, luma: bool,
     _check_bd(bd)
     if not (1 <= out_h <= 64 and 1 <= out_w <= 64):
         raise ValueError(f"block size {out_h}x{out_w} out of 1..64")
-    if planes.dim() != 3:
-        raise ValueError(f"planes must be [P, rows, cols], got "
-                         f"{tuple(planes.shape)}")
-    _build.check_tensor(planes, "planes", torch.int16, tuple(planes.shape),
-                        device)
+    if (planes1 is None) != (jobs1 is None) or (jobs1 is not None
+                                                and not bi):
+        raise ValueError("a second list takes planes1 and jobs1, with bi")
     n = int(jobs.shape[0]) if jobs.dim() == 2 else -1
-    _build.check_tensor(jobs, "jobs", torch.int32, (n, BLOCK_JOB_COLS),
-                        device)
-    out = torch.empty((n, out_h, out_w), dtype=torch.int16, device=device)
+    lists = [(planes, jobs)] + ([(planes1, jobs1)] if jobs1 is not None
+                                else [])
+    for k, (p, j) in enumerate(lists):
+        if p.dim() != 3 or p.shape[1:] != planes.shape[1:] \
+                or (pair and p.shape[0] % 2):
+            raise ValueError(f"planes of list {k} must be [P, rows, cols]"
+                             f"{' with P even' if pair else ''}, got "
+                             f"{tuple(p.shape)}")
+        _build.check_tensor(p, f"planes of list {k}", torch.int16,
+                            tuple(p.shape), device)
+        _build.check_tensor(j, f"jobs of list {k}", torch.int32,
+                            (n, BLOCK_JOB_COLS), device)
+    (p0, j0), (p1, j1) = lists[0], lists[-1]
+    out = torch.empty(((2, n) if pair else (n,)) + (out_h, out_w),
+                      dtype=torch.int16, device=device)
     if n == 0:
         return out
+    mode = AVERAGE if jobs1 is not None else (BITS14 if bi else PIXELS)
     lib = build()
     with torch.cuda.device(device):
-        rc = lib.thevc_mc_blocks(planes.data_ptr(), int(planes.shape[1]),
-                                 int(planes.shape[2]), jobs.data_ptr(), n,
-                                 out.data_ptr(), out_h, out_w,
-                                 CASES.index(case), int(luma), int(bi), bd,
-                                 _build.stream_of(device))
+        rc = lib.thevc_mc_blocks(
+            p0.data_ptr(), p1.data_ptr(), int(planes.shape[1]),
+            int(planes.shape[2]), int(p0.shape[0]) // 2 if pair else 0,
+            int(p1.shape[0]) // 2 if pair else 0, j0.data_ptr(),
+            j1.data_ptr(), n, out.data_ptr(), out_h, out_w,
+            CASES.index(case), int(luma), 2 if pair else 1, mode, bd,
+            _build.stream_of(device))
     _build.check(lib, rc, "MC blocks kernel launch")
-    launches += 1
+    blocks_launches += 1
     return out
 
 

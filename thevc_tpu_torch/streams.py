@@ -26,6 +26,10 @@ streams from them; ``ROBUST_CASES`` and ``robust_case`` name each decode
 of the checks, ``ROBUST_CLI`` the decoder CLI's switch for each decoder
 option, and ``decode_outcome`` and ``same_outcome`` give and compare a
 decode's result.
+
+``nxn_frame`` makes a seeded small frame and fast-RD decision maps with
+every CU size down to NxN, the input on which the device apply runs every
+one of its transform classes (no decision pass sets NxN).
 """
 
 from __future__ import annotations
@@ -291,3 +295,41 @@ def same_outcome(a, b) -> bool:
         pa == pb and da == db and all(np.array_equal(x, y)
                                       for x, y in zip(la, lb))
         for (pa, da, la), (pb, db, lb) in zip(a, b))
+
+
+def nxn_frame(rng, w: int, h: int, ctu: int = 64, max_sig: int = 3):
+    """A seeded w x h 4:2:0 frame and its fast-RD decision maps, drawn in
+    that order from ``rng`` (a ``numpy.random.RandomState``): the three
+    planes (int16: a smooth ramp with noise of varying strength) and the
+    maps (int8 [h/4, w/4] each: depth, mode, NxN, chroma) of a random
+    quadtree with every CU size from ``ctu`` to NxN 8x8 (half of the
+    8x8 CUs NxN, with a luma mode per 4x4), random luma and chroma
+    modes (36: DM)."""
+    planes = []
+    for hh, ww in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        ramp = np.add.outer(np.arange(hh) * 3, np.arange(ww) * 2) % 256
+        noise = rng.randint(-40, 41, (hh, ww)) * (rng.rand(hh, ww) < 0.5)
+        planes.append(np.clip(ramp + noise, 0, 255).astype(np.int16))
+    shape = (h // 4, w // 4)
+    depth, mode = np.zeros(shape, np.int8), np.zeros(shape, np.int8)
+    nxn, chroma = np.zeros(shape, np.uint8), np.zeros(shape, np.int8)
+    chroma_values = (0, 1, 10, 26, 34, 36)
+
+    def cu(x, y, size, d):
+        if d < max_sig and rng.rand() < (0.5, 0.8, 0.6)[d]:
+            half = size // 2
+            for dy in (0, half):
+                for dx in (0, half):
+                    cu(x + dx, y + dy, half, d + 1)
+            return
+        u = (slice(y // 4, (y + size) // 4), slice(x // 4, (x + size) // 4))
+        depth[u] = d
+        mode[u] = rng.randint(0, 35)
+        chroma[u] = chroma_values[rng.randint(len(chroma_values))]
+        if d == max_sig and rng.rand() < 0.5:
+            nxn[u] = 1
+            mode[u] = rng.randint(0, 35, (2, 2))
+    for cy in range(0, h, ctu):
+        for cx in range(0, w, ctu):
+            cu(cx, cy, ctu, 0)
+    return planes, (depth, mode, nxn, chroma)
