@@ -7,7 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
-   residual, SATD, MC), one nvcc for each source, all started together.
+   residual, SATD, MC, in-loop filters), one nvcc for each source, all
+   started together.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -49,8 +50,10 @@ Run from the root of a checkout on a machine with a CUDA card:
    port's CLI on ``cuda``: one warm-up, then three timed runs (host clock
    ending in ``torch.cuda.synchronize()``; fps from the median).  In every
    run each digest must verify, the recon must be byte-identical to the
-   encoder's and the kernel must have been launched by the decode (its
-   count is zeroed just before the run and read just after).  Then one
+   encoder's and K1 and the filter kernel (K4) must have been launched by
+   the decode (their counts are zeroed just before the run and read just
+   after; every later ``cuda`` decode counts K4's launches the same way,
+   and each must be above 0 but the filters-off tool stream's).  Then one
    more decode records the residual kernel's inputs, and on each of those
    classes, the decode's own data, the kernel is held against its plain
    version (tolerance 0) and both are timed, with its bound and shares as
@@ -85,7 +88,30 @@ Run from the root of a checkout on a machine with a CUDA card:
    streams decode on ``cuda`` with every digest OK and recon
    byte-identical to their encoders', through the MC kernel and not the
    plain MC.
-9. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
+9. Filter phase (``kernel filters``): decodes the 1080p all-intra and
+   low-delay B streams once more on ``cuda``, recording every call of the
+   in-loop filter stage (``decoder.filters._filter_pictures``: the
+   all-intra decode's one call of 8 pictures, the low-delay B decode's
+   one call a picture, of which its 7 B pictures are taken).  On each
+   call the filter kernel (``csrc/filters.cu``, K4) is held against the
+   plain form (``ops.filters.filter_pictures_plain`` on the card,
+   tolerance 0, equal dtypes) and timed: eager (CUDA events around 20
+   calls, host launch included), as a CUDA graph of 20 calls (median of
+   5 replays; the graph must hold exactly the call's launches, at most
+   3, 20 times), the plain form eager, with its device activities of
+   one call under ``torch.profiler`` (its kernels, copies and memsets);
+   beside its bound (the planes read and
+   written once, the 12 maps and the SAO tables over HBM's rate; the
+   decisions of the active edges and the SAO'd samples at the int32
+   rate, ``FILTER_OPS``).  Then the stage's split for both forms on the
+   same pictures, each part synchronised (the median of 3 runs after a
+   warm-up): ``inputs_ms`` (the host's edge maps and SAO tables),
+   ``stack_ms`` (the host's batch arrays), ``h2d_ms``, ``device_ms``
+   (the filter call), ``d2h_ms`` and ``astype_ms`` (the host planes a
+   picture).  Last, both 1080p streams decode through the CLI on ``cuda``
+   with the stage's filter call in each form, in turns (plain, kernel,
+   kernel, plain), each checked as in 5: the walls and fps of each.
+10. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
    with ``--FastRD=1 --device cuda`` and the low-delay B cfg at QP 32
    (SAO on, as the exact stream) in a child process whose report gives
    the launches of K1, K2 and the MC kernel (each above 0) and the
@@ -129,7 +155,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    low-delay B, a fading clip) and scaling-list (``--ScalingList=1``
    all-intra and low-delay B) streams decode on ``cuda`` with every
    digest OK and recon byte-identical to their encoders'.
-10. Device-apply phase (``fastrd_devapply``), the fast-RD slice's main
+11. Device-apply phase (``fastrd_devapply``), the fast-RD slice's main
    path: encodes the 1080p all-intra clip with ``--FastRD=1 --device
    cuda --device-apply`` at QP 32 (SAO, RDOQ on) in a child process whose
    report gives the kernels' launches, the device-apply frames (8, none
@@ -154,10 +180,10 @@ Run from the root of a checkout on a machine with a CUDA card:
    apply on a seeded 128x64 frame with NxN CUs (``streams.nxn_frame``),
    where every class of ``fast_apply.CLS`` must run, the 4x4 luma class
    included, replayed as CUDA graphs on ``cuda`` and equal to the CPU.
-11. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
+12. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
    refuses both in one stream) decode on ``cuda`` with every digest OK
    and recon byte-identical to their encoders'.
-12. Multi-stream phase (``multistream``, ``thevc_tpu_torch.graft_entry``):
+13. Multi-stream phase (``multistream``, ``thevc_tpu_torch.graft_entry``):
    the graft entry's step (256 8x8 TUs through K1's dense entry) on
    ``cuda``, equal to ``tq.tu_recon_pipeline_plain`` (tolerance 0) with
    one K1 launch; the step, its plain version and K1 alone timed (CUDA
@@ -180,7 +206,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    QP 51, PCM, CU delta QP, filters off; ``streams.TOOL_STREAMS``)
    decoded on ``cuda`` with every digest OK and recon byte-identical to
    their encoders'.
-13. Robustness phase (``robust_decode``): the 176x144 streams of
+14. Robustness phase (``robust_decode``): the 176x144 streams of
    ``streams.robust_streams`` (the port's exact encoder) decode on
    ``cuda`` and on the CPU, equal in POCs, digest flags and every
    picture's planes (``streams.ROBUST_CASES``): lost-picture concealment
@@ -202,7 +228,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    the CPU; then the clean stream decodes on ``cuda`` with every digest
    OK in the same process.  Prints the outcomes by exception type, the
    fuzz decodes' wall and the phase's K1 and MC kernel launches.
-14. Resume and rate-control phase (``resume_rc``), in this process
+15. Resume and rate-control phase (``resume_rc``), in this process
    through the port's encoder CLI: a 96x80 9-frame low-delay P
    ``--FastRD=1`` encode on ``cuda``, uninterrupted, and checkpointed at
    frame 5 (``--CheckpointEvery=1``) then resumed: the streams and recons
@@ -217,17 +243,19 @@ Run from the root of a checkout on a machine with a CUDA card:
    frame QPs must move (the tests hold them against the JAX package's
    rate controller fed the same bits); one
    ``thevc_tpu_torch.tools.fastrd_quality`` sweep on ``cuda`` (2 frames
-   of that clip, QP 22-37), its rows printed.  The phase's K1, K2 and MC
-   kernel launches (``cuda`` runs only) must be above 0.
-15. Prints the kernels' JSON line (per kernel: launches on the main
+   of that clip, QP 22-37), its rows printed.  The phase's K1, K2, MC
+   and filter kernel launches (``cuda`` runs only) must be above 0.
+16. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
    summed over a frame's five classes, MC a picture of the low-delay B
    decode (the mean over its B pictures), its quarter-pel entry
    (``mc_qpel``, launches apart from the other MC entries) the replayed
-   B frame's 8 calls summed; no single PyTorch call computes any of them
-   (the MC: per-PU-phase 8-tap interpolation with the int16 wrap), so
+   B frame's 8 calls summed, the filter kernel (K4) the all-intra
+   decode's call of 8 pictures, with its graph time; no single PyTorch
+   call computes any of them (the MC: per-PU-phase 8-tap interpolation
+   with the int16 wrap; the filters: deblocking and SAO), so
    ``library_ms`` is null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
@@ -301,6 +329,17 @@ PARTITIONED = {"tiles": (*CTU32, "--UniformSpacingIdc=1",
                          "--NumTileColumnsMinus1=1", "--NumTileRowsMinus1=1"),
                "wpp": (*CTU32, "--WaveFrontSynchro=1")}
 
+
+# the in-loop filter kernel's int32 operations, counted from
+# csrc/filters.cu: an active luma edge segment's decision (the four
+# second differences, the thresholds, the table lookups and both strong
+# checks), a line of an active chroma edge, a sample of edge or band
+# offset SAO
+FILTER_OPS = {"luma_decision": 64, "chroma_line": 12, "sao_eo": 14,
+              "sao_bo": 8}
+# the parts of the filter stage that ``decoder.filters._filter_pictures``
+# times apart (stage ``filters.<part>``)
+FILTER_STAGES = ("inputs", "stack", "h2d", "device", "d2h", "astype")
 
 # the robustness phase: corrupted variants of the 9-frame RA stream
 FUZZ_TRIALS = 24
@@ -611,13 +650,15 @@ def check_decode(rc: int, log: str, frames: int, dec_rec: Path,
 
 
 def decode_phase(torch, work: Path, made: dict) -> dict:
-    from thevc_tpu_torch.ops import residual_kernel
+    from thevc_tpu_torch.ops import filters_kernel, residual_kernel
     clip, stream, enc_rec = made["intra_main"][:3]
     res = timed_decodes(torch, stream, enc_rec,
                         work / "intra_main_dec_rec.yuv", FRAMES,
-                        {"residual": residual_kernel})
+                        {"residual": residual_kernel,
+                         "filters": filters_kernel})
     launches = res.pop("launches")
-    out = dict(res, residual_kernel_launches=launches["residual"])
+    out = dict(res, residual_kernel_launches=launches["residual"],
+               filters_kernel_launches=launches["filters"])
     print("decode " + json.dumps(out))
     out["residual_classes"] = decode_class_times(torch, stream)
     out.update(clip=str(clip), stream=str(stream), enc_rec=str(enc_rec))
@@ -693,12 +734,13 @@ def inter_decode_phase(torch, work: Path, made: dict) -> dict:
     the MC kernel against its plain version on every picture's job
     table."""
     from thevc_tpu_torch.ops import device as dev_stats
-    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
+    from thevc_tpu_torch.ops import filters_kernel, mc, mc_kernel, \
+        residual_kernel
     _clip, stream, enc_rec = made["inter_ldb"][:3]
     dec_rec = work / "inter_ldb_dec_rec.yuv"
     res = timed_decodes(torch, stream, enc_rec, dec_rec, FRAMES,
-                        {"residual": residual_kernel, "mc": mc_kernel},
-                        absent=(mc,))
+                        {"residual": residual_kernel, "mc": mc_kernel,
+                         "filters": filters_kernel}, absent=(mc,))
     check(res["launches"]["mc"] == FRAMES - 1, f"{res['launches']['mc']} "
           f"MC kernel launches for {FRAMES - 1} B pictures")
     print("inter_decode " + json.dumps(res))
@@ -711,6 +753,10 @@ def inter_decode_phase(torch, work: Path, made: dict) -> dict:
     finally:
         stages = dev_stats.stage_timing(False)
     check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the staged decode")
+    # ``filters`` is the whole filter stage, as before its parts were
+    # timed apart: the sum of ``filters.*``
+    stages["filters"] = sum(v for k, v in stages.items()
+                            if k.startswith("filters."))
     print("inter_decode_stages " + json.dumps({
         "wall_s": staged_wall, "stage_ms_per_picture": {
             k: 1000 * v / FRAMES for k, v in sorted(stages.items())}}))
@@ -963,21 +1009,283 @@ def mc_picture_times(torch, stream: Path) -> dict:
     return {"max_abs_err": max_err, "rows": rows, "mean": total}
 
 
+def recorded_filter_calls(torch, stream: Path) -> list:
+    """Decode ``stream`` on ``cuda`` recording every call of the in-loop
+    filter stage (``decoder.filters._filter_pictures``): its entries,
+    deep-copied when the call is made (the DPB later compresses the frame
+    models' motion in place)."""
+    import copy
+    from thevc_tpu_torch.decoder import filters as dec_filters
+    from thevc_tpu_torch.decoder.top import Decoder
+    calls = []
+    real = dec_filters._filter_pictures
+
+    def record(entries, device):
+        calls.append(copy.deepcopy(entries))
+        return real(entries, device)
+    dec_filters._filter_pictures = record
+    try:
+        pics = Decoder("cuda").decode_stream(stream.read_bytes())
+    finally:
+        dec_filters._filter_pictures = real
+    check(all(p.digest_ok for p in pics), "the recording decode failed")
+    return calls
+
+
+def filters_bound(torch, args, kw) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one filter call (the
+    arguments of ``ops.filters.filter_pictures``): the planes read and
+    written once, the 12 maps and the SAO tables read once; its int32
+    operations on the CUDA cores, counted from the kernel's source for
+    the work every input needs whatever the samples: each active luma
+    edge segment's decision (FILTER_OPS["luma_decision"]), each line of an
+    active chroma edge, each sample SAO'd by edge or band offset.  The
+    luma lines' filters, which the sample-dependent decisions choose, are
+    not counted, so the operations term is a lower bound."""
+    y, cb, cr, dv, dh, types = args[:6]
+    nbytes = sum(p.numel() * (p.element_size() + (1 if kw["out_u8"] else 2))
+                 for p in (y, cb, cr))
+    nbytes += sum(t.numel() * t.element_size() for t in (*dv, *dh, *args[5:]))
+    _nb, h, w = y.shape
+    hc, wc = h // 2, w // 2
+    ops = 0
+    if kw["do_deblock"]:
+        def active(maps, rows, cols, chroma):
+            fl, bs = maps[0][:, rows, cols], maps[1][:, rows, cols]
+            return int(((fl & (bs > (1 if chroma else 0))) != 0).sum())
+        edges = slice(2, 2 * (w // 8), 2), slice(2, 2 * (h // 8), 2)
+        luma = active(dv, slice(0, h // 4), edges[0], False) \
+            + active(dh, edges[1], slice(0, w // 4), False)
+        chroma = active(dv, slice(0, h // 4),
+                        slice(4, 4 * ((wc - 2) // 8) + 1, 4), True) \
+            + active(dh, slice(4, 4 * ((hc - 2) // 8) + 1, 4),
+                     slice(0, w // 4), True)
+        # a chroma unit edge: 2 lines in each of 2 planes
+        ops += FILTER_OPS["luma_decision"] * luma \
+            + FILTER_OPS["chroma_line"] * 4 * chroma
+    if kw["do_sao"]:
+        ctu = kw["ctu_size"]
+        for p, (ph, pw, cs) in enumerate(((h, w, ctu), (hc, wc, ctu // 2),
+                                          (hc, wc, ctu // 2))):
+            if p and not kw["do_sao_chroma"]:
+                continue
+            rows = (ph - cs * torch.arange(kw["ctus_h"])).clamp(0, cs)
+            cols = (pw - cs * torch.arange(kw["ctus_w"])).clamp(0, cs)
+            area = (rows[:, None] * cols[None]).reshape(-1).to(types.device)
+            t = types[:, p].long()
+            ops += FILTER_OPS["sao_eo"] * int(((t >= 0) & (t <= 3)).long()
+                                              .mul(area).sum()) \
+                + FILTER_OPS["sao_bo"] * int((t == 4).long().mul(area).sum())
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def device_activity(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (device activities
+    only): its kernels, copies and memsets, and their device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {"kernels": 0, "copies": 0, "memsets": 0, "device_ms": 0.0}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        kind = "copies" if name.startswith("Memcpy") else \
+            "memsets" if name.startswith("Memset") else "kernels"
+        out[kind] += 1
+        us = e.duration_ns() / 1000 if hasattr(e, "duration_ns") \
+            else e.duration_us()
+        out["device_ms"] += us / 1000
+    return out
+
+
+def filter_split(torch, entries, plain: bool, reps: int = 3) -> dict:
+    """The in-loop filter stage of ``entries`` (``_filter_pictures`` on
+    ``cuda``) with stage timing on, each part synchronised: after a
+    warm-up, the median over ``reps`` runs of each part's ms
+    (``FILTER_STAGES``) and of their sum; ``plain``: the filter call is
+    the plain form on the card."""
+    from thevc_tpu_torch.decoder import filters as dec_filters
+    from thevc_tpu_torch.ops import device as dev_stats
+    from thevc_tpu_torch.ops import filters as ops_filters
+    real = ops_filters.filter_pictures
+    if plain:
+        ops_filters.filter_pictures = ops_filters.filter_pictures_plain
+    runs = []
+    try:
+        for k in range(reps + 1):
+            dev_stats.stage_timing(True)
+            try:
+                dec_filters._filter_pictures(entries, torch.device("cuda"))
+            finally:
+                stages = dev_stats.stage_timing(False)
+            if k:
+                runs.append({s: 1000 * stages.get(f"filters.{s}", 0.0)
+                             for s in FILTER_STAGES})
+    finally:
+        ops_filters.filter_pictures = real
+    for r in runs:
+        r["total"] = sum(r.values())
+    return {f"{s}_ms": sorted(r[s] for r in runs)[reps // 2]
+            for s in runs[0]}
+
+
+def filter_call_row(torch, path: str, k: int, entries) -> dict:
+    """One recorded filter call: the kernel against the plain form on
+    the card (tolerance 0, equal dtypes); the kernel's time eager (CUDA
+    events around 20 calls, host launch included) and as a CUDA graph of
+    20 calls (which must hold exactly its launches a call); the plain
+    form's time eager and its kernels a call (profiler); the bound; the
+    stage split of both forms."""
+    from thevc_tpu_torch.decoder import filters as dec_filters
+    from thevc_tpu_torch.ops import filters as ops_filters
+    from thevc_tpu_torch.ops import filters_kernel
+    calls = []
+    real = ops_filters.filter_pictures
+
+    def capture_args(*a, **kw):
+        calls.append((a, kw))
+        return real(*a, **kw)
+    ops_filters.filter_pictures = capture_args
+    try:
+        dec_filters._filter_pictures(entries, torch.device("cuda"))
+    finally:
+        ops_filters.filter_pictures = real
+    check(len(calls) == 1, f"{path} call {k}: {len(calls)} filter settings")
+    args, kw = calls[0]
+
+    def run():
+        return ops_filters.filter_pictures(*args, **kw)
+
+    def plain():
+        return ops_filters.filter_pictures_plain(*args, **kw)
+    before = filters_kernel.launches
+    got = run()
+    per_call = filters_kernel.launches - before
+    want = plain()
+    torch.cuda.synchronize()
+    err = max(int((g.to(torch.int32) - p.to(torch.int32)).abs().max())
+              for g, p in zip(got, want))
+    check(all(g.dtype == p.dtype for g, p in zip(got, want))
+          and all(torch.equal(g, p) for g, p in zip(got, want)),
+          f"filter kernel != plain on {path} call {k} (max abs err {err})")
+    check(1 <= per_call <= 3, f"{per_call} filter launches a call")
+    del got, want
+    ms = time_ms(torch, run, 20)
+    graph, nodes = capture(torch, run, 20)
+    check(nodes == 20 * per_call, f"a graph of 20 filter calls holds "
+          f"{nodes} kernels, not {20 * per_call}")
+    g_ms = time_ms(torch, graph.replay, 1, 5) / 20
+    del graph
+    plain_ms = time_ms(torch, plain, 3)
+    # the profiler does not see the hand-written kernels (launched from
+    # their own library); the graph's nodes count them above
+    plain_act = device_activity(torch, plain)
+    check(plain_act["kernels"] > 0, f"the profiler saw {plain_act}")
+    nbytes, ops, bound_ms, bound_by = filters_bound(torch, args, kw)
+    row = dict(path=path, call=k, pictures=len(entries),
+               shape=list(args[0].shape), dtype=str(args[0].dtype),
+               statics={key: kw[key] for key in sorted(kw)},
+               launches_per_call=per_call, max_abs_err=err, ms=ms,
+               graph_ms=g_ms, plain_ms=plain_ms,
+               plain_kernels=plain_act["kernels"],
+               plain_copies=plain_act["copies"],
+               plain_memsets=plain_act["memsets"],
+               plain_device_ms=plain_act["device_ms"], bytes=nbytes,
+               ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+               share_of_bound=bound_ms / ms,
+               graph_share_of_bound=bound_ms / g_ms,
+               split_kernel=filter_split(torch, entries, False),
+               split_plain=filter_split(torch, entries, True))
+    print("kernel filters " + json.dumps(row))
+    return row
+
+
+def form_decodes(torch, work: Path, item: tuple) -> dict:
+    """The stream of ``item`` (a ``prepare_streams`` entry) decoded through
+    the port's CLI on ``cuda`` with the filter stage's call in each form,
+    in turns (plain, kernel, kernel, plain; each checked as in
+    ``check_decode``, the kernel form launching the kernel and the plain
+    form never): each run's wall (host clock, synchronised) and fps."""
+    from thevc_tpu_torch.ops import filters as ops_filters
+    _clip, stream, enc_rec, _w, _h, frames = item
+    dec_rec = work / f"{stream.stem}_forms_dec_rec.yuv"
+    real = ops_filters.filter_pictures
+    walls = {"plain": [], "kernel": []}
+    for form in ("plain", "kernel", "kernel", "plain"):
+        if form == "plain":
+            ops_filters.filter_pictures = ops_filters.filter_pictures_plain
+        try:
+            t = time.perf_counter()
+            rc, log, launched = decode_filtered(torch, stream, dec_rec)
+            walls[form].append(time.perf_counter() - t)
+        finally:
+            ops_filters.filter_pictures = real
+        check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
+        check((launched > 0) == (form == "kernel"), f"{stream.name}: the "
+              f"{form} form's decode made {launched} filter launches")
+    out = {form: {"wall_s": w, "fps": [frames / x for x in w]}
+           for form, w in walls.items()}
+    print(f"filters_decodes {stream.stem} " + json.dumps(out))
+    return out
+
+
+def filters_phase(torch, work: Path, made: dict) -> dict:
+    """The in-loop filter kernel (K4) on the recorded filter calls of the
+    1080p all-intra decode (one call of its 8 pictures) and of the 1080p
+    low-delay B decode's 7 B pictures (one call a picture): each held
+    against the plain form, timed, bounded and split into its host and
+    device parts for both forms (``filter_call_row``)."""
+    t0 = time.perf_counter()
+    intra = recorded_filter_calls(torch, made["intra_main"][1])
+    check(len(intra) == 1 and len(intra[0]) == FRAMES,
+          f"the intra decode made filter calls of {[len(c) for c in intra]}"
+          " pictures")
+    ldb = [c for c in recorded_filter_calls(torch, made["inter_ldb"][1])
+           if c[0][1].slice_type != 2]                 # not I
+    check(len(ldb) == FRAMES - 1 and all(len(c) == 1 for c in ldb),
+          f"the LDB decode made {len(ldb)} B-picture filter calls")
+    decodes = {name: form_decodes(torch, work, made[name])
+               for name in ("intra_main", "inter_ldb")}
+    rows = [filter_call_row(torch, "intra_decode", 0, intra[0])]
+    rows += [filter_call_row(torch, "inter_decode", k, c)
+             for k, c in enumerate(ldb)]
+    b_rows = rows[1:]
+    mean = {key: sum(r[key] for r in b_rows) / len(b_rows)
+            for key in ("ms", "graph_ms", "plain_ms", "plain_kernels",
+                        "bound_ms", "bytes")}
+    for form in ("split_kernel", "split_plain"):
+        mean[form] = {key: sum(r[form][key] for r in b_rows) / len(b_rows)
+                      for key in b_rows[0][form]}
+    out = {"max_abs_err": max(r["max_abs_err"] for r in rows),
+           "intra": rows[0], "ldb_rows": b_rows, "ldb_mean": mean,
+           "decodes": decodes, "wall_s": time.perf_counter() - t0}
+    print("filters_ldb_mean " + json.dumps(dict(mean, pictures=len(b_rows))))
+    print(f"filters_phase_wall_s {out['wall_s']}")
+    return out
+
+
 def small_inter_phase(torch, work: Path, made: dict) -> dict:
     """The 416x240 low-delay P and random-access streams on ``cuda``."""
-    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
+    from thevc_tpu_torch.ops import filters_kernel, mc, mc_kernel, \
+        residual_kernel
     out = {}
     for name in SMALL_INTER:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
         residual_kernel.launches = mc_kernel.launches = mc.launches = 0
+        filters_kernel.launches = 0
         rc, log = decode_cuda(torch, stream, dec_rec)
         out[name] = {"frames": frames, "residual": residual_kernel.launches,
-                     "mc": mc_kernel.launches}
+                     "mc": mc_kernel.launches,
+                     "filters": filters_kernel.launches}
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         check(out[name]["residual"] > 0 and out[name]["mc"] > 0
-              and mc.launches == 0, f"{name}: the decode skipped K1 or the "
-              f"MC kernel, or ran the plain MC {mc.launches} times")
+              and out[name]["filters"] > 0 and mc.launches == 0,
+              f"{name}: the decode skipped K1, the MC kernel or the filter "
+              f"kernel, or ran the plain MC {mc.launches} times")
     print("small_inter " + json.dumps(out))
     return out
 
@@ -1090,6 +1398,15 @@ def decode_cuda(torch, stream: Path, out: Path,
     return rc, log.getvalue()
 
 
+def decode_filtered(torch, stream: Path, out: Path) -> tuple:
+    """``decode_cuda`` with the filter kernel's launches counted from 0:
+    (rc, log, launches)."""
+    from thevc_tpu_torch.ops import filters_kernel
+    filters_kernel.launches = 0
+    rc, log = decode_cuda(torch, stream, out)
+    return rc, log, filters_kernel.launches
+
+
 def fastrd_phase(torch, work: Path, dec: dict) -> dict:
     """The 1080p fast-RD encode on ``cuda``, its decode, and the
     comparison with the exact-path stream of the decode phase."""
@@ -1106,12 +1423,14 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES,
           f"{rep['decision_frames']} decision passes for {FRAMES} frames")
-    rc, log = decode_cuda(torch, stream, dec_rec)
+    rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
     check(rc == 0, f"port decoder exited {rc} on the fast-RD stream:\n{log}")
     check(log.count("[MD5:(OK)]") == FRAMES and "ERROR" not in log,
           f"fast-RD digests not all OK:\n{log}")
     check(dec_rec.read_bytes() == enc_rec.read_bytes(),
           "decoded fast-RD recon differs from the encoder's recon")
+    check(filters_launches > 0, "the fast-RD stream's decode launched no "
+          "filter kernel")
     fast_bytes, exact_bytes = stream.stat().st_size, exact.stat().st_size
     psnr_fast = luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES)
     psnr_exact = luma_psnr(clip, Path(dec["enc_rec"]), WIDTH, HEIGHT,
@@ -1127,6 +1446,7 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
                decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
+               decode_filters_launches=filters_launches,
                fast_bytes=fast_bytes, exact_bytes=exact_bytes,
                psnr_y_fast=psnr_fast, psnr_y_exact=psnr_exact)
     print("fastrd " + json.dumps(out))
@@ -1178,8 +1498,10 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           and rep["decision_frames_inter"] == FRAMES - 1,
           f"decision passes {rep['decision_frames']} "
           f"({rep['decision_frames_inter']} P/B) for {FRAMES} frames")
-    rc, log = decode_cuda(torch, stream, dec_rec)
+    rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
     check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the P/B fast-RD stream")
+    check(filters_launches > 0, "the P/B fast-RD stream's decode launched "
+          "no filter kernel")
     out = dict(frames=FRAMES, qp=QP, encode_wall_s=rep["wall_s"],
                encode_fps=FRAMES / rep["wall_s"],
                decision_wall_s=rep["decision_wall_s"],
@@ -1188,6 +1510,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                residual_launches=rep["residual_launches"],
                mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
+               decode_filters_launches=filters_launches,
                fast_bytes=stream.stat().st_size,
                exact_bytes=exact.stat().st_size,
                psnr_y_fast=luma_psnr(clip, enc_rec, WIDTH, HEIGHT, FRAMES),
@@ -1480,10 +1803,12 @@ def wp_scaling_phase(torch, work: Path, made: dict) -> dict:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
         residual_kernel.launches = mc_kernel.launches = mc.launches = 0
-        rc, log = decode_cuda(torch, stream, dec_rec)
+        rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         out[name] = {"frames": frames, "residual": residual_kernel.launches,
-                     "mc": mc_kernel.launches}
+                     "mc": mc_kernel.launches, "filters": filters_launches}
+        check(filters_launches > 0, f"{name}: the decode launched no filter "
+              "kernel")
         # P/B pictures through the MC kernel, none through plain MC
         check(mc.launches == 0 and (out[name]["mc"] > 0) == (
             name != "sl_intra"), f"{name}: MC kernel {out[name]['mc']} "
@@ -1561,8 +1886,10 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
           and rep["device_apply_fallback_frames"] == 0,
           f"device apply ran on {rep['device_apply_frames']} of {FRAMES} "
           f"frames ({rep['device_apply_fallback_frames']} host fallbacks)")
-    rc, log = decode_cuda(torch, stream, dec_rec)
+    rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
     check_decode(rc, log, FRAMES, dec_rec, enc_rec, "the device-apply stream")
+    check(filters_launches > 0, "the device-apply stream's decode launched "
+          "no filter kernel")
     t = time.perf_counter()
     rc, log = decode_cuda(torch, stream, dec_rec, "cpu")
     cpu_decode_s = time.perf_counter() - t
@@ -1579,7 +1906,8 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
         waves_per_frame=rep["device_apply_waves"] / FRAMES,
         class_steps_per_frame=rep["device_apply_class_steps"] / FRAMES,
         residual_launches=rep["residual_launches"],
-        satd_launches=rep["satd_launches"], devapply_bytes=dev_bytes,
+        satd_launches=rep["satd_launches"],
+        decode_filters_launches=filters_launches, devapply_bytes=dev_bytes,
         host_apply_bytes=host_bytes,
         fastrd_devapply_bits_overhead_pct=100 * (dev_bytes / host_bytes - 1),
         psnr_y_devapply=psnr_dev, psnr_y_host_apply=fast["psnr_y_fast"],
@@ -1817,11 +2145,13 @@ def partitioned_phase(torch, work: Path, made: dict) -> dict:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
         residual_kernel.launches = 0
-        rc, log = decode_cuda(torch, stream, dec_rec)
+        rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         out[name] = {"frames": frames, "residual": residual_kernel.launches,
+                     "filters": filters_launches,
                      "bytes": stream.stat().st_size}
-        check(out[name]["residual"] > 0, f"the {name} decode skipped K1")
+        check(out[name]["residual"] > 0 and filters_launches > 0,
+              f"the {name} decode skipped K1 or the filter kernel")
     print("partitioned " + json.dumps(out))
     return out
 
@@ -1877,7 +2207,7 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
     for s in slots:
         check(s["device"] == "cuda:0", f"slot {s['rank']} on {s['device']}")
         for path, k in (("encode", "residual"), ("encode", "satd"),
-                        ("decode", "residual")):
+                        ("decode", "residual"), ("decode", "filters")):
             check(s["launches"][path][k] > 0,
                   f"slot {s['rank']}: its {path} made no {k} launch")
     rep["collective"] = ("gloo between 8 processes sharing cuda:0 (NCCL "
@@ -1889,7 +2219,8 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
         "residual": sum(s["launches"]["encode"]["residual"]
                         + s["launches"]["decode"]["residual"]
                         for s in slots),
-        "satd": sum(s["launches"]["encode"]["satd"] for s in slots)}
+        "satd": sum(s["launches"]["encode"]["satd"] for s in slots),
+        "filters": sum(s["launches"]["decode"]["filters"] for s in slots)}
     print("multistream_dryrun " + json.dumps(rep))
     out["dryrun"] = rep
     # the same dry run with every slot on the host: the card's slots
@@ -1933,11 +2264,15 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
         _clip, stream, enc_rec, _w, _h, frames = made[name]
         dec_rec = work / f"{name}_dec_rec.yuv"
         residual_kernel.launches = 0
-        rc, log = decode_cuda(torch, stream, dec_rec)
+        rc, log, filters_launches = decode_filtered(torch, stream, dec_rec)
         check_decode(rc, log, frames, dec_rec, enc_rec, stream.name)
         tools[name] = {"frames": frames, "residual": residual_kernel.launches,
+                       "filters": filters_launches,
                        "bytes": stream.stat().st_size}
         check(tools[name]["residual"] > 0, f"the {name} decode skipped K1")
+        # the filters-off stream turns deblocking and SAO off: no launch
+        check((filters_launches > 0) == (name != "tool_nofilt"),
+              f"the {name} decode made {filters_launches} filter launches")
     print("multistream_tools " + json.dumps(tools))
     out["tools"] = tools
     return out
@@ -1972,20 +2307,23 @@ def robust_decode_phase(torch, work: Path) -> dict:
     those of the ``cuda`` decodes, which call the plain MC never."""
     from thevc_tpu_torch import streams
     from thevc_tpu_torch.decoder import inter
-    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel
+    from thevc_tpu_torch.ops import filters_kernel, mc, mc_kernel, \
+        residual_kernel
     t0 = time.perf_counter()
     made = streams.robust_streams(work / "robust")
     out = {"streams_wall_s": time.perf_counter() - t0, "cases": {}}
-    launched = {"residual": 0, "mc": 0}
+    launched = {"residual": 0, "mc": 0, "filters": 0}
 
     def on_card(decode, *args, **kw):
-        """``decode(*args, **kw)``, its K1 and MC kernel launches added to
-        ``launched``; it must call the plain MC never."""
+        """``decode(*args, **kw)``, its K1, MC and filter kernel launches
+        added to ``launched``; it must call the plain MC never."""
         r0, m0, p0 = residual_kernel.launches, mc_kernel.launches, \
             mc.launches
+        f0 = filters_kernel.launches
         res = decode(*args, **kw)
         launched["residual"] += residual_kernel.launches - r0
         launched["mc"] += mc_kernel.launches - m0
+        launched["filters"] += filters_kernel.launches - f0
         check(mc.launches == p0, f"a cuda decode ran the plain MC "
               f"{mc.launches - p0} times")
         return res
@@ -2042,7 +2380,7 @@ def robust_decode_phase(torch, work: Path) -> dict:
         out["cases"][case] = {"pocs": pocs, "digest_ok": flags,
                               "wall_s": wall}
     out["launches"] = dict(launched)
-    check(out["launches"]["residual"] > 0 and out["launches"]["mc"] > 0,
+    check(all(out["launches"].values()),
           f"the robust decodes on cuda launched {out['launches']}")
 
     ra = made["ra"][0].read_bytes()
@@ -2083,11 +2421,13 @@ def resume_rc_phase(torch, work: Path) -> dict:
     device-apply encode under rate control on ``cuda`` against the CPU,
     and one ``fastrd_quality`` sweep on ``cuda``."""
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
-    from thevc_tpu_torch.ops import mc_kernel, residual_kernel, satd_kernel
+    from thevc_tpu_torch.ops import filters_kernel, mc_kernel, \
+        residual_kernel, satd_kernel
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
     residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
     mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
+    filters_kernel.launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -2209,7 +2549,8 @@ def resume_rc_phase(torch, work: Path) -> dict:
                        "satd": satd_kernel.launches,
                        "mc": mc_kernel.launches,
                        "mc_blocks": mc_kernel.blocks_launches,
-                       "mc_qpel": mc_kernel.qpel_launches}
+                       "mc_qpel": mc_kernel.qpel_launches,
+                       "filters": filters_kernel.launches}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -2252,12 +2593,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from thevc_tpu_torch.ops import build, mc_kernel, residual_kernel, \
-        satd, satd_kernel, tq
+    from thevc_tpu_torch.ops import build, filters_kernel, mc_kernel, \
+        residual_kernel, satd, satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
-    kernels = (residual_kernel, satd_kernel, mc_kernel)
+    kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -2279,6 +2620,7 @@ def main() -> int:
     devapply = fastrd_devapply_phase(torch, work, dec, fast)
     nxn = nxn_apply_phase(torch)
     inter = inter_decode_phase(torch, work, made)
+    filt = filters_phase(torch, work, made)
     small = small_inter_phase(torch, work, made)
     fast_inter = fastrd_inter_phase(torch, work, made)
     inter_identity_phase(work, made)
@@ -2311,26 +2653,38 @@ def main() -> int:
     # the blocks entry's: the replayed B frame's calls summed
     blocks = fast_inter["pass"]["mc_blocks"]
     by_path = {
-        "intra_decode": {"residual": dec["residual_kernel_launches"]},
+        "intra_decode": {"residual": dec["residual_kernel_launches"],
+                         "filters": dec["filters_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
                           "satd": fast["satd_launches"]},
+        "fastrd_decode": {"filters": fast["decode_filters_launches"]},
         "fastrd_inter_encode": {"residual": fast_inter["residual_launches"],
                                 "satd": fast_inter["satd_launches"]},
+        "fastrd_inter_decode": {
+            "filters": fast_inter["decode_filters_launches"]},
         "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
                                    "satd": devapply["satd_launches"]},
+        "fastrd_devapply_decode": {
+            "filters": devapply["decode_filters_launches"]},
         "fastrd_devapply_nxn": {"residual": nxn["residual_launches"]},
-        **{f"{k}_decode": {"residual": v["residual"]}
+        **{f"{k}_decode": {"residual": v["residual"],
+                           "filters": v["filters"]}
            for k, v in parts.items()},
         "graft_entry": {"residual": multi["entry"]["residual"]},
         "multistream_dryrun": multi["dryrun"]["launches"],
-        **{f"{k}_decode": {"residual": v["residual"]}
+        **{f"{k}_decode": {"residual": v["residual"],
+                           "filters": v["filters"]}
            for k, v in multi["tools"].items()},
         "robust_decode": robust["launches_with_fuzz"],
         "resume_rc": resume["launches"],
         "inter_decode": inter["launches"],
         **{f"inter_decode_{k}": v for k, v in small.items()},
-        **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"]}
+        **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"],
+                           "filters": v["filters"]}
            for k, v in wp_sl.items()}}
+    # the filter kernel's time: the all-intra decode's call of its 8
+    # pictures (the main path's own data; no PyTorch call deblocks or
+    # applies SAO, so library_ms is null)
     by_path["fastrd_inter_encode"].update(
         mc_blocks=fast_inter["mc_blocks_launches"],
         mc_qpel=fast_inter["mc_qpel_launches"])
@@ -2388,7 +2742,16 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in qpel_calls),
         "bound_by": "bytes" if all(r["bound_by"] == "bytes"
                                    for r in qpel_calls) else "operations",
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "filters", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/filters.cu",
+        "replaces": "thevc_tpu/ops/jx_filters.py:273",
+        "launches": sum(p.get("filters", 0) for p in by_path.values()),
+        "max_abs_err": filt["max_abs_err"],
+        "ms": filt["intra"]["ms"], "graph_ms": filt["intra"]["graph_ms"],
+        "plain_ms": filt["intra"]["plain_ms"],
+        "bound_ms": filt["intra"]["bound_ms"],
+        "bound_by": filt["intra"]["bound_by"], "library_ms": None}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

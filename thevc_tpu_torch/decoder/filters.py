@@ -19,7 +19,7 @@ import torch
 from ..ops import deblock as dbk
 from ..ops import filters as ops_filters
 from ..ops import sao as sao_ops
-from ..ops.device import stat_d2h, stat_h2d, stat_launch
+from ..ops.device import stage, stat_d2h, stat_h2d, stat_launch
 from ..params import Pps, SliceHeader, Sps
 from .frame import (MODE_INTRA, SIZE_2NxN, SIZE_2NxnD, SIZE_2NxnU, SIZE_NxN,
                     SIZE_Nx2N, SIZE_nLx2N, SIZE_nRx2N, FrameModel)
@@ -317,7 +317,7 @@ def sao_frame(f: FrameModel, sh: SliceHeader, sps: Sps,
 
 
 def _filter_pictures(entries, device: torch.device) -> list:
-    """Deblocking + SAO for many pictures, one launch per filter setting.
+    """Deblocking + SAO for many pictures, one filter call per setting.
 
     entries: [(f, sh, sps, pps, rec_y, rec_cb, rec_cr, ref_poc)].
     Pictures that share the filter setting (offsets, bit depth, CTU
@@ -325,9 +325,14 @@ def _filter_pictures(entries, device: torch.device) -> list:
     as uint8 both ways (lossless: values are clipped to [0, 255]).
     Returns [(host planes, device planes)]: the host planes in the
     dtypes of the inputs, the device planes as the filter left them on
-    ``device`` (None for a picture with both filters off)."""
-    inputs = [_picture_filter_inputs(f, sh, sps, pps, rp)
-              for (f, sh, sps, pps, _ry, _rcb, _rcr, rp) in entries]
+    ``device`` (None for a picture with both filters off).  With stage
+    timing on, the stage's parts are timed apart: ``filters.inputs``
+    (the host's edge maps and SAO tables), ``filters.stack`` (the batch's
+    host arrays), ``filters.h2d``, ``filters.device`` (the filter call),
+    ``filters.d2h`` and ``filters.astype`` (the host planes a picture)."""
+    with stage("filters.inputs", device):
+        inputs = [_picture_filter_inputs(f, sh, sps, pps, rp)
+                  for (f, sh, sps, pps, _ry, _rcb, _rcr, rp) in entries]
     out: list = [None] * len(entries)
     groups: dict = {}
     for i, inp in enumerate(inputs):
@@ -340,23 +345,31 @@ def _filter_pictures(entries, device: torch.device) -> list:
         statics = inputs[idxs[0]][0]
         u8 = statics["bit_depth"] == 8
         dt = np.uint8 if u8 else np.int16
-        host = [np.stack([entries[i][4 + p] for i in idxs]).astype(dt)
-                for p in range(3)]
-        host += [np.stack([inputs[i][1][k] for i in idxs]) for k in range(6)]
-        host += [np.stack([inputs[i][2][k] for i in idxs]) for k in range(6)]
-        host += [np.stack([inputs[i][k] for i in idxs]) for k in (3, 4, 5)]
+        with stage("filters.stack", device):
+            host = [np.stack([entries[i][4 + p] for i in idxs]).astype(dt)
+                    for p in range(3)]
+            host += [np.stack([inputs[i][1][k] for i in idxs])
+                     for k in range(6)]
+            host += [np.stack([inputs[i][2][k] for i in idxs])
+                     for k in range(6)]
+            host += [np.stack([inputs[i][k] for i in idxs])
+                     for k in (3, 4, 5)]
         stat_launch(sum(a.nbytes for a in host))
-        t = [torch.from_numpy(a).to(device) for a in host]
-        planes = ops_filters.filter_pictures(
-            t[0], t[1], t[2], tuple(t[3:9]), tuple(t[9:15]),
-            t[15], t[16], t[17], out_u8=u8, **statics)
-        y, cb, cr = (p.cpu().numpy() for p in planes)
+        with stage("filters.h2d", device):
+            t = [torch.from_numpy(a).to(device) for a in host]
+        with stage("filters.device", device):
+            planes = ops_filters.filter_pictures(
+                t[0], t[1], t[2], tuple(t[3:9]), tuple(t[9:15]),
+                t[15], t[16], t[17], out_u8=u8, **statics)
+        with stage("filters.d2h", device):
+            y, cb, cr = (p.cpu().numpy() for p in planes)
         stat_d2h(y.nbytes + cb.nbytes + cr.nbytes)
-        for j, i in enumerate(idxs):
-            ry, rcb, rcr = entries[i][4:7]
-            out[i] = ((y[j].astype(ry.dtype), cb[j].astype(rcb.dtype),
-                       cr[j].astype(rcr.dtype)),
-                      tuple(p[j] for p in planes))
+        with stage("filters.astype", device):
+            for j, i in enumerate(idxs):
+                ry, rcb, rcr = entries[i][4:7]
+                out[i] = ((y[j].astype(ry.dtype), cb[j].astype(rcb.dtype),
+                           cr[j].astype(rcr.dtype)),
+                          tuple(p[j] for p in planes))
     return out
 
 

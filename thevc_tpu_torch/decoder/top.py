@@ -545,7 +545,9 @@ class Decoder:
         # per-unit reference POC map for deblock BS + the DPB motion
         # snapshot
         ref_poc, ref_is_lt = self._resolve_ref_pocs(cur)
-        with stage("filters", self.device):
+        # the stage's parts are timed in _filter_pictures as filters.*;
+        # what is left of it (the call's own Python) is filters.rest
+        with stage("filters.rest", self.device):
             (rec_y, rec_cb, rec_cr), dev_planes = \
                 filters.filter_picture_device(
                     f, sh0, sps, pps, *planes, self.device,

@@ -156,9 +156,10 @@ def _foreign_modules() -> list:
 
 
 def _launches() -> dict:
-    from .ops import residual_kernel, satd_kernel
+    from .ops import filters_kernel, residual_kernel, satd_kernel
     return {"residual": residual_kernel.launches,
-            "satd": satd_kernel.launches}
+            "satd": satd_kernel.launches,
+            "filters": filters_kernel.launches}
 
 
 def _split_access_units(stream: bytes) -> tuple:
@@ -255,14 +256,14 @@ def _slot(rank: int, n: int, dev: torch.device, clip: str,
                              f"spent {[int(r[2]) for r in every]}")
 
     # decode this slot's own stream on its device
-    before = _launches()["residual"]
+    before = _launches()
     t0 = time.perf_counter()
     pics = _decode(dev, stream, f"slot {rank}")
     decode_s = time.perf_counter() - t0
     if len(pics) != N_FRAMES:
         raise AssertionError(f"slot {rank}: {len(pics)} pictures of "
                              f"{N_FRAMES}")
-    decode_residual = _launches()["residual"] - before
+    decode_launches = {k: v - before[k] for k, v in _launches().items()}
 
     # frame-sharded decode of slot 0's stream: slot i takes access units
     # i, i + n, ... and re-reads the parameter sets
@@ -292,7 +293,7 @@ def _slot(rank: int, n: int, dev: torch.device, clip: str,
             "sharded_decoded": decoded, "sharded_decode_s": sharded_s,
             "sharded_total": int(count.item()),
             "launches": {"encode": encode_launches,
-                         "decode": {"residual": decode_residual}}}
+                         "decode": decode_launches}}
 
 
 def _rank_main(rank: int, n: int, backend: str, devices: list, work: str,

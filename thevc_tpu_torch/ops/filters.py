@@ -8,11 +8,14 @@ loopFilterPic ordering (all vertical edges, then all horizontal);
 TComSampleAdaptiveOffset.cpp processSaoCuOrg.
 
 Every array carries a leading picture axis [B, ...] where the JAX
-package ``vmap``s one picture.  All normative math is int32 with
-explicit shifts.  Every edge on the 8-sample grid is independent within
-a direction (the filter reaches 4 samples either side), so a direction
-is one tensor op over [B, rows, edges, lines]; SAO reads only the
-deblocked samples, so it is a per-sample gather and table lookup.
+package ``vmap``s one picture.  ``filter_pictures`` runs the
+hand-written CUDA kernel (``ops.filters_kernel``, ``csrc/filters.cu``)
+on a CUDA device and the plain form below, ``filter_pictures_plain``,
+on the CPU.  All normative math is int32 with explicit shifts.  Every
+edge on the 8-sample grid is independent within a direction (the filter
+reaches 4 samples either side), so a direction is one tensor op over
+[B, rows, edges, lines]; SAO reads only the deblocked samples, so it is
+a per-sample gather and table lookup.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..common.tables import from_reference
+from . import filters_kernel
 from .deblock import DEFAULT_INTRA_TC_OFFSET
 
 
@@ -296,13 +300,14 @@ def _filter_core(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
     return y, cb, cr
 
 
-def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
-                    sao_types, sao_band_pos, sao_offsets,
-                    beta_offset=0, tc_offset=0, bit_depth=8,
-                    ctu_size=64, ctus_w=1, ctus_h=1,
-                    do_deblock=True, do_sao=False, do_sao_chroma=False,
-                    out_u8=False):
-    """The in-loop filter stage for a batch of pictures.
+def filter_pictures_plain(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
+                          sao_types, sao_band_pos, sao_offsets,
+                          beta_offset=0, tc_offset=0, bit_depth=8,
+                          ctu_size=64, ctus_w=1, ctus_h=1,
+                          do_deblock=True, do_sao=False, do_sao_chroma=False,
+                          out_u8=False):
+    """The in-loop filter stage for a batch of pictures, in plain torch
+    ops on any device (the kernel's yardstick).
 
     Every array has a leading [B] picture axis.  dbk_ver/dbk_hor: tuples
     (flags u8, bs u8, qp_p, qp_q, no_p u8, no_q u8) per 4x4 unit, one per
@@ -316,6 +321,24 @@ def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
                              do_deblock, do_sao, do_sao_chroma)
     dt = torch.uint8 if out_u8 else torch.int16
     return y.to(dt), cb.to(dt), cr.to(dt)
+
+
+def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
+                    sao_types, sao_band_pos, sao_offsets, **statics):
+    """The in-loop filter stage for a batch of pictures
+    (``filter_pictures_plain``'s arguments and result).  On a CUDA device
+    this is the hand-written kernel, at most three launches, and raises if
+    it cannot build or launch; on the CPU the plain form."""
+    kind = rec_y.device.type
+    if kind == "cpu":
+        return filter_pictures_plain(rec_y, rec_cb, rec_cr, dbk_ver,
+                                     dbk_hor, sao_types, sao_band_pos,
+                                     sao_offsets, **statics)
+    if kind != "cuda":
+        raise ValueError(f"unsupported device {rec_y.device}")
+    return filters_kernel.filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver,
+                                          dbk_hor, sao_types, sao_band_pos,
+                                          sao_offsets, **statics)
 
 
 def filter_picture(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
