@@ -93,12 +93,14 @@ Run from the root of a checkout on a machine with a CUDA card:
    in-loop filter stage (``decoder.filters._filter_pictures``: the
    all-intra decode's one call of 8 pictures, the low-delay B decode's
    one call a picture, of which its 7 B pictures are taken).  On each
-   call the filter kernel (``csrc/filters.cu``, K4) is held against the
-   plain form (``ops.filters.filter_pictures_plain`` on the card,
-   tolerance 0, equal dtypes) and timed: eager (CUDA events around 20
-   calls, host launch included), as a CUDA graph of 20 calls (median of
-   5 replays; the graph must hold exactly the call's launches, at most
-   3, 20 times), the plain form eager, with its device activities of
+   call the filter kernel (``csrc/filters.cu``, K4: one launch a call,
+   a CTA a 64x64 luma or 32x32 chroma tile whose window, with a 4-sample
+   halo, stays in shared memory through both edge directions and SAO) is
+   held against the plain form (``ops.filters.filter_pictures_plain`` on
+   the card, tolerance 0, equal dtypes) and timed: eager (CUDA events
+   around 20 calls, host launch included), as a CUDA graph of 20 calls
+   (median of 5 replays; the graph must hold exactly 20 kernel nodes, one
+   a call), the plain form eager, with its device activities of
    one call under ``torch.profiler`` (its kernels, copies and memsets);
    beside its bound (the planes read and
    written once, the 12 maps and the SAO tables over HBM's rate; the
@@ -106,7 +108,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    rate, ``FILTER_OPS``).  Then the stage's split for both forms on the
    same pictures, each part synchronised (the median of 3 runs after a
    warm-up): ``inputs_ms`` (the host's edge maps and SAO tables),
-   ``stack_ms`` (the host's batch arrays), ``h2d_ms``, ``device_ms``
+   ``stack_ms`` (the host's batch arrays, written into one pinned
+   buffer), ``h2d_ms`` (its one copy), ``device_ms``
    (the filter call), ``d2h_ms`` and ``astype_ms`` (the host planes a
    picture).  Last, both 1080p streams decode through the CLI on ``cuda``
    with the stage's filter call in each form, in turns (plain, kernel,
@@ -1136,7 +1139,7 @@ def filter_call_row(torch, path: str, k: int, entries) -> dict:
     """One recorded filter call: the kernel against the plain form on
     the card (tolerance 0, equal dtypes); the kernel's time eager (CUDA
     events around 20 calls, host launch included) and as a CUDA graph of
-    20 calls (which must hold exactly its launches a call); the plain
+    20 calls (which must hold exactly 20 kernel nodes); the plain
     form's time eager and its kernels a call (profiler); the bound; the
     stage split of both forms."""
     from thevc_tpu_torch.decoder import filters as dec_filters
@@ -1171,12 +1174,12 @@ def filter_call_row(torch, path: str, k: int, entries) -> dict:
     check(all(g.dtype == p.dtype for g, p in zip(got, want))
           and all(torch.equal(g, p) for g, p in zip(got, want)),
           f"filter kernel != plain on {path} call {k} (max abs err {err})")
-    check(1 <= per_call <= 3, f"{per_call} filter launches a call")
+    check(per_call == 1, f"{per_call} filter launches a call, not 1")
     del got, want
     ms = time_ms(torch, run, 20)
     graph, nodes = capture(torch, run, 20)
-    check(nodes == 20 * per_call, f"a graph of 20 filter calls holds "
-          f"{nodes} kernels, not {20 * per_call}")
+    check(nodes == 20, f"a graph of 20 filter calls holds {nodes} "
+          "kernels, not 20")
     g_ms = time_ms(torch, graph.replay, 1, 5) / 20
     del graph
     plain_ms = time_ms(torch, plain, 3)
@@ -2682,9 +2685,11 @@ def main() -> int:
         **{f"{k}_decode": {"residual": v["residual"], "mc": v["mc"],
                            "filters": v["filters"]}
            for k, v in wp_sl.items()}}
-    # the filter kernel's time: the all-intra decode's call of its 8
-    # pictures (the main path's own data; no PyTorch call deblocks or
-    # applies SAO, so library_ms is null)
+    # the filter kernel, one launch a call (deblocking V + H and SAO of a
+    # tile in shared memory), so its launches are the decodes' filter
+    # calls; its time: the all-intra decode's call of its 8 pictures (the
+    # main path's own data; no PyTorch call deblocks or applies SAO, so
+    # library_ms is null)
     by_path["fastrd_inter_encode"].update(
         mc_blocks=fast_inter["mc_blocks_launches"],
         mc_qpel=fast_inter["mc_qpel_launches"])

@@ -1,6 +1,6 @@
 // HEVC in-loop filters on an NVIDIA Hopper card (sm_90a): deblocking of
 // every vertical then every horizontal edge, then SAO, for a batch of
-// pictures and all three planes.
+// pictures and all three planes, in one launch.
 //
 // Replaces the XLA function thevc_tpu/ops/jx_filters.py:273 _filter_core
 // (its entries filter_picture :312 and filter_pictures :342, one jitted
@@ -10,43 +10,68 @@
 //   luma   edges on the 8-sample grid, one 4-line segment a 4x4 unit: the
 //          d < beta decision, strong/weak from lines 0 and 3, the side
 //          thresholds, the weak filter's 10 tc gate, the no_p / no_q keeps
-//          (TComLoopFilter.cpp xPelFilterLuma);
-//   chroma edges every 8 chroma samples, bs > 1 only, tc at
-//          chroma_scale[clamp(qp_avg, 0, 51)] (xPelFilterChroma);
-//   SAO    from the deblocked samples into a separate output: edge offset
-//          classes 0-3 with the picture-boundary exclusions, band offset
-//          with a wrapping band position, clipped to [0, 2^bd - 1]
+//          (TComLoopFilter.cpp xPelFilterLuma); none at the picture's
+//          left or top boundary, the last at W - 8 (H - 8);
+//   chroma edges every 8 chroma samples up to w - 2 (h - 2), bs > 1 only,
+//          tc at chroma_scale[clamp(qp_avg, 0, 51)] (xPelFilterChroma);
+//   SAO    from the deblocked samples: edge offset classes 0-3 with the
+//          picture-boundary exclusions, band offset with a wrapping band
+//          position, clipped to [0, 2^bd - 1]
 //          (TComSampleAdaptiveOffset.cpp processSaoCuOrg).
 // All arithmetic is int32 in registers; right shifts of negative values
-// are arithmetic, as in torch.  The tc, beta and chroma-scale tables are
-// the port's own (common/tables.py), passed as device pointers.
+// are arithmetic, as in torch.
 //
-// What bounds it on this card: bytes.  A sample is read and written once
-// a pass, and the decisions and filters are some tens of integer
-// operations a 4-sample line; a 1080p picture's planes are 3 MB (8-bit).
-// The plain form runs about a thousand torch kernels a call over int32
-// planes; this is at most three launches on the caller's stream:
-//   1. vertical edges: from the input planes into an int16 working copy;
-//   2. horizontal edges: in place on the working copy, or straight into
-//      the output when SAO is off (a grid-wide dependency on 1, hence a
-//      second launch);
-//   3. SAO (or, with deblocking on and SAO off, nothing; with both off, a
-//      converting copy): from the working copy (or the input) into the
-//      output.
-// A thread of a deblocking pass owns a tile: 8 samples along the filtering
-// direction, centred on one edge position (8g - 4 .. 8g + 3), by the lines
-// of one unit (4 luma lines, 2 chroma lines).  An edge reads x - 4 .. x + 3
-// and writes x - 3 .. x + 2, so the tiles of one direction are disjoint
-// and each thread reads and writes only its own: the passes need no
-// synchronisation and may run in place.  Tiles at g = 0 and past the last
-// edge copy their samples unchanged.  Threads run along the rows of the
-// planes (groups along the row for vertical edges, unit columns for
-// horizontal ones), so a warp's loads are contiguous.  SAO is one thread a
-// sample, its CTU's parameters read through the cache.  A fused single
-// launch over halo'd tiles in shared memory is later work.
+// What bounds it on this card: bytes.  Each plane is read once and written
+// once; the decisions and filters are some tens of integer operations a
+// 4-sample line, SAO about ten a sample.  A 1080p picture's planes are 3 MB
+// (8-bit), and the 12 unit maps and SAO tables add a sixth of that.
 //
-// No entry allocates or synchronises; each launches on the stream it is
-// given and returns cudaGetLastError().
+// The design keeps the whole stage of a tile on one SM: one launch a call,
+// no working copy in device memory.
+//   - Grid (tiles_x, tiles_y, picture x {luma, chroma}), 256 threads a
+//     CTA.  A luma CTA owns one 64x64 output tile; a chroma CTA the 32x32
+//     tiles of Cb and Cr at the same place, 128 threads each.  One tile
+//     grid serves all three planes (ceil(W / 64) = ceil(W / 2 / 32)); 64
+//     keeps a luma thread at 16 output samples (one 16-byte store in
+//     8-bit) with the window in 10 KB of shared memory, and a chroma
+//     thread at 8.  At most 64 registers a thread, so 4 CTAs share an SM:
+//     the CTA's phases are latency-bound (a load, three barriers, the
+//     stores), and more CTAs in flight and fewer of them, with both chroma
+//     planes in one, hide more of it.  Every coordinate is a 32-bit int
+//     from blockIdx / threadIdx with divisions by constants; only the
+//     planes' base offsets are 64-bit.
+//   - Halo of 4.  The tile's output at [y0, y0+T) x [x0, x0+T) needs the
+//     deblocked samples one further out (SAO's neighbours).  The edges at
+//     x0 .. x0+T and y0 .. y0+T read 4 samples either side, the luma
+//     decisions lines 0 and 3 of a 4-line segment, so the (T+8)^2 window
+//     from (y0-4, x0-4) holds everything: every window sample's deblocked
+//     value is exact (no edge outside the window writes into it), and
+//     tests/test_torch_filters_halo.py checks that the interior depends
+//     on nothing outside it, and that 4 is not more than needed.
+//   - Loads: the window goes to shared memory as int16, 16 bytes a thread
+//     along rows where the plane's rows are 16-byte aligned (a chunk then
+//     lies wholly inside or outside the plane), one sample at a time
+//     elsewhere (for example an 8-bit width that is not a multiple of 16);
+//     samples outside the plane are 0 and never read by a filter that
+//     writes the interior.  The six map entries of each thread's vertical
+//     and horizontal segment are read into registers meanwhile; the tc,
+//     beta and chroma-scale tables and the SAO parameters of the CTUs the
+//     tile meets go to shared memory.
+//   - Vertical edges in place in shared memory, a thread one (edge, 4-line
+//     luma or 2-line chroma segment), one 16-byte row read and written a
+//     line: edges are 8 apart and an edge reads x-4 .. x+3, so segments
+//     never overlap.  Then horizontal edges the same way (8- or 4-byte
+//     column groups of 8 rows).  A barrier after each.
+//   - SAO from the deblocked window (never from SAO'd samples, so no second
+//     buffer) into the output, or the deblocked interior converted, a thread
+//     a run of 16 (luma) or 8 (chroma) samples of a row, stored as one
+//     vector where the plane's rows allow it.
+// The window's halo is read again by the neighbouring tiles (72^2 / 64^2 =
+// 1.27 of the luma bytes, mostly from L2); the rest is read and written
+// once, and no intermediate plane goes to device memory.
+//
+// The entry does not allocate or synchronise; it launches on the stream it
+// is given and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,34 +79,39 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kHalo = 4;
+constexpr int kLumaTile = 64;
+constexpr int kChromaTile = 32;
+// CTUs a tile meets along one axis: luma CTUs are at least 16 samples, so
+// chroma ones at least 8, and a 64 (32) sample span meets at most 5
+constexpr int kMaxCtus = 5;
+constexpr int kLumaWin = kLumaTile + 2 * kHalo;
 
-struct DeblockArgs {
+struct Args {
   const void* src[3];        // y, cb, cr: [nb, h, w], [nb, h/2, w/2] each
   void* dst[3];
-  const uint8_t* flags;      // the direction's maps, [nb, uh, uw] each
-  const uint8_t* bs;
-  const int8_t* qp_p;
-  const int8_t* qp_q;
-  const uint8_t* no_p;
-  const uint8_t* no_q;
-  const int32_t* tc_tab;     // [54]
-  const int32_t* beta_tab;   // [52]
-  const int32_t* cscale;     // [58]
-  long long n_luma, n_chroma;  // tiles: luma, one chroma plane
-  int nb, h, w, uh, uw;
-  int dir;                   // 0: vertical edges, 1: horizontal edges
-  int beta_offset, tc_offset, bd;
-};
-
-struct SaoArgs {
-  const void* src[3];
-  void* dst[3];
+  const uint8_t* ver[6];     // flags, bs, qp_p (int8), qp_q (int8), no_p,
+  const uint8_t* hor[6];     // no_q: [nb, uh, uw] each
   const int8_t* types;       // [nb, 3, nctu]: -1 off, 0-3 EO class, 4 BO
   const int32_t* band_pos;   // [nb, 3, nctu]
   const int32_t* offsets;    // [nb, 3, nctu, 4], pre-shifted
-  long long n_luma, n_chroma;  // samples: luma, one chroma plane
-  int nb, h, w, nctu, ctu_size, ctus_w;
-  int sao_luma, sao_chroma, bd;
+  const int32_t* tc_tab;     // [54]
+  const int32_t* beta_tab;   // [52]
+  const int32_t* cscale;     // [58]
+  int h, w, uh, uw;
+  int beta_offset, tc_offset, bd;
+  int nctu, ctu_size, ctus_w;
+  int deblock, sao_luma, sao_chroma;
+};
+
+// A luma CTA uses half 0 of each per-half array; a chroma CTA's Cb half
+// uses 0 and its Cr half 1 (the Cb window at 0, the Cr window after it).
+struct alignas(16) Smem {
+  int16_t win[kLumaWin * kLumaWin];
+  int tc[54], beta[52], cscale[58];
+  int sao[2][kMaxCtus * kMaxCtus][6];   // type, band position, 4 offsets
+  uint8_t ctu_row[2][kLumaTile], ctu_col[2][kLumaTile];  // local CTU of a
+                                                         // row, a column
 };
 
 __device__ __forceinline__ int clip3(int lo, int hi, int v) {
@@ -90,6 +120,23 @@ __device__ __forceinline__ int clip3(int lo, int hi, int v) {
 
 __device__ __forceinline__ int sign_of(int v) { return (v > 0) - (v < 0); }
 
+__device__ __forceinline__ int lo16(uint32_t v) { return (int16_t)(v & 0xffff); }
+__device__ __forceinline__ int hi16(uint32_t v) { return (int16_t)(v >> 16); }
+__device__ __forceinline__ uint32_t pack2(int a, int b) {
+  return (uint32_t)(uint16_t)a | ((uint32_t)(uint16_t)b << 16);
+}
+
+// The six map entries of a unit: flags, bs, qp_p, qp_q, no_p, no_q.
+__device__ __forceinline__ void read_unit(const uint8_t* const (&m)[6],
+                                          long long i, int (&u)[6]) {
+  u[0] = m[0][i];
+  u[1] = m[1][i];
+  u[2] = (int8_t)m[2][i];
+  u[3] = (int8_t)m[3][i];
+  u[4] = m[4][i];
+  u[5] = m[5][i];
+}
+
 __device__ __forceinline__ bool strong_line(const int (&m)[8], int dd,
                                             int beta, int tc) {
   const int ds = abs(m[0] - m[3]) + abs(m[7] - m[4]);
@@ -97,27 +144,29 @@ __device__ __forceinline__ bool strong_line(const int (&m)[8], int dd,
          && abs(m[3] - m[4]) < ((tc * 5 + 1) >> 1);
 }
 
-// One luma edge across the 4 lines of a tile, samples 0..7 = x - 4 .. x + 3
-// (_luma_dir).  m: the map entry of the unit on the edge's q side.
-__device__ void luma_edge(const DeblockArgs& a, long long m, int (&v)[4][8]) {
-  const int bs = a.bs[m];
-  if (!(a.flags[m] & (bs > 0 ? 1 : 0))) return;
-  const int qp = ((int)a.qp_p[m] + (int)a.qp_q[m] + 1) >> 1;
+// One luma edge across the 4 lines of a segment, samples 0..7 = x - 4 ..
+// x + 3 (_luma_dir).  u: the map entries of the unit on the edge's q side.
+// False when it leaves the samples as they were.
+__device__ bool luma_edge(const Args& a, const Smem& sm, const int (&u)[6],
+                          int (&v)[4][8]) {
+  const int bs = u[1];
+  if (!(u[0] & (bs > 0 ? 1 : 0))) return false;
+  const int qp = (u[2] + u[3] + 1) >> 1;
   const int scale = 1 << (a.bd - 8), maxv = (1 << a.bd) - 1;
-  const int tc = a.tc_tab[clip3(0, 53, qp + 2 * (bs - 1) + 2 * a.tc_offset)]
+  const int tc = sm.tc[clip3(0, 53, qp + 2 * (bs - 1) + 2 * a.tc_offset)]
                  * scale;
-  const int beta = a.beta_tab[clip3(0, 51, qp + 2 * a.beta_offset)] * scale;
+  const int beta = sm.beta[clip3(0, 51, qp + 2 * a.beta_offset)] * scale;
   const int dp0 = abs(v[0][1] - 2 * v[0][2] + v[0][3]);
   const int dq0 = abs(v[0][4] - 2 * v[0][5] + v[0][6]);
   const int dp3 = abs(v[3][1] - 2 * v[3][2] + v[3][3]);
   const int dq3 = abs(v[3][4] - 2 * v[3][5] + v[3][6]);
   const int d0 = dp0 + dq0, d3 = dp3 + dq3;
-  if (!(d0 + d3 < beta)) return;
+  if (!(d0 + d3 < beta)) return false;
   const int side = (beta + (beta >> 1)) >> 3;
   const bool fp = dp0 + dp3 < side, fq = dq0 + dq3 < side;
   const bool strong = strong_line(v[0], d0, beta, tc)
                       && strong_line(v[3], d3, beta, tc);
-  const bool keep_p = a.no_p[m] != 0, keep_q = a.no_q[m] != 0;
+  const bool keep_p = u[4] != 0, keep_q = u[5] != 0;
   const int tc2 = tc >> 1;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -153,20 +202,21 @@ __device__ void luma_edge(const DeblockArgs& a, long long m, int (&v)[4][8]) {
     if (!keep_p) { v[i][1] = o1; v[i][2] = o2; v[i][3] = o3; }
     if (!keep_q) { v[i][4] = o4; v[i][5] = o5; v[i][6] = o6; }
   }
+  return true;
 }
 
-// One chroma edge across the 2 lines of a tile, samples 2..5 = x - 2 ..
+// One chroma edge across the 2 lines of a segment, samples 2..5 = x - 2 ..
 // x + 1 (_chroma_dir).
-__device__ void chroma_edge(const DeblockArgs& a, long long m,
+__device__ bool chroma_edge(const Args& a, const Smem& sm, const int (&u)[6],
                             int (&v)[2][8]) {
-  const int bs = a.bs[m];
-  if (!(a.flags[m] & (bs > 1 ? 1 : 0))) return;
-  const int qp_avg = ((int)a.qp_p[m] + (int)a.qp_q[m] + 1) >> 1;
-  const int qp = a.cscale[clip3(0, 51, qp_avg)];
-  const int tc = a.tc_tab[clip3(0, 53, qp + 2 * (bs - 1) + 2 * a.tc_offset)]
+  const int bs = u[1];
+  if (!(u[0] & (bs > 1 ? 1 : 0))) return false;
+  const int qp_avg = (u[2] + u[3] + 1) >> 1;
+  const int qp = sm.cscale[clip3(0, 51, qp_avg)];
+  const int tc = sm.tc[clip3(0, 53, qp + 2 * (bs - 1) + 2 * a.tc_offset)]
                  * (1 << (a.bd - 8));
   const int maxv = (1 << a.bd) - 1;
-  const bool keep_p = a.no_p[m] != 0, keep_q = a.no_q[m] != 0;
+  const bool keep_p = u[4] != 0, keep_q = u[5] != 0;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int m2 = v[i][2], m3 = v[i][3], m4 = v[i][4], m5 = v[i][5];
@@ -174,265 +224,386 @@ __device__ void chroma_edge(const DeblockArgs& a, long long m,
     if (!keep_p) v[i][3] = clip3(0, maxv, m3 + delta);
     if (!keep_q) v[i][4] = clip3(0, maxv, m4 - delta);
   }
+  return true;
 }
 
-// One tile of NL lines (4 luma, 2 chroma) of plane p: load, filter its
-// edge if it has one, store.  STEP: map units between edges (2 luma, 4
-// chroma); LAST: how far the last edge may lie from the plane's end
-// (8 luma: edges up to W - 8; 2 chroma: up to w - 2).
-template <int NL, int STEP, int LAST, typename TS, typename TD>
-__device__ void tile(const DeblockArgs& a, int p, long long t) {
-  const bool ver = a.dir == 0;
-  const int hp = p ? a.h / 2 : a.h, wp = p ? a.w / 2 : a.w;
-  const int len = ver ? wp : hp;                // along the filter
-  const int segs = (ver ? hp : wp) / NL;        // units across
-  const int groups = (len + 11) / 8;            // tiles along
-  int b, r, g;
-  if (ver) {
-    g = (int)(t % groups);
-    const long long q = t / groups;
-    r = (int)(q % segs);
-    b = (int)(q / segs);
-  } else {
-    r = (int)(t % segs);
-    const long long q = t / segs;
-    g = (int)(q % groups);
-    b = (int)(q / groups);
-  }
-  const long long base = (long long)b * hp * wp;
-  const TS* src = static_cast<const TS*>(a.src[p]) + base;
-  TD* dst = static_cast<TD*>(a.dst[p]) + base;
-  const long long s_along = ver ? 1 : wp, s_line = ver ? wp : 1;
-  const int a0 = 8 * g - 4, l0 = NL * r;
-  int v[NL][8];
+template <typename TS>
+__device__ __forceinline__ void chunk_samples(const uint4& c, int (&s)[16]) {
+  const uint32_t w[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
-  for (int i = 0; i < NL; ++i) {
+  for (int k = 0; k < 4; ++k) {
+    if constexpr (sizeof(TS) == 1) {
 #pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int x = a0 + k;
-      v[i][k] = (x >= 0 && x < len)
-                    ? (int)src[(l0 + i) * s_line + x * s_along] : 0;
-    }
-  }
-  if (g >= 1 && 8 * g <= len - LAST) {
-    const int row = ver ? r : STEP * g, col = ver ? STEP * g : r;
-    const long long m = ((long long)b * a.uh + row) * a.uw + col;
-    if constexpr (NL == 4) {
-      luma_edge(a, m, v);
+      for (int j = 0; j < 4; ++j) s[4 * k + j] = (w[k] >> (8 * j)) & 0xff;
     } else {
-      chroma_edge(a, m, v);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < NL; ++i) {
-#pragma unroll
-    for (int k = 0; k < 8; ++k) {
-      const int x = a0 + k;
-      if (x >= 0 && x < len) dst[(l0 + i) * s_line + x * s_along] = (TD)v[i][k];
+      s[2 * k] = lo16(w[k]);
+      s[2 * k + 1] = hi16(w[k]);
     }
   }
 }
 
-template <typename TS, typename TD>
-__global__ void __launch_bounds__(kThreads) deblock_kernel(DeblockArgs a) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t < a.n_luma) {
-    tile<4, 2, 8, TS, TD>(a, 0, t);
-    return;
-  }
-  const long long u = t - a.n_luma;
-  if (u < 2 * a.n_chroma) {
-    tile<2, 4, 2, TS, TD>(a, 1 + (int)(u / a.n_chroma), u % a.n_chroma);
-  }
-}
-
-template <typename TS, typename TD>
-__global__ void __launch_bounds__(kThreads) sao_kernel(SaoArgs a) {
-  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  int p;
-  long long u;
-  if (t < a.n_luma) {
-    p = 0;
-    u = t;
-  } else if (t - a.n_luma < 2 * a.n_chroma) {
-    u = t - a.n_luma;
-    p = 1 + (int)(u / a.n_chroma);
-    u %= a.n_chroma;
+// The (T+8)^2 window from (y0-4, x0-4) of one plane into shared memory as
+// int16, 0 outside the plane.
+template <int T, int NT, typename TS>
+__device__ void load_window(const TS* src, int hp, int wp, int y0, int x0,
+                            bool vec, int tid, int16_t* win) {
+  constexpr int kW = T + 2 * kHalo;
+  if (vec) {
+    // 16-byte chunks from the chunk-aligned column left of the window,
+    // each wholly inside or outside the plane
+    constexpr int CH = 16 / sizeof(TS);          // samples a chunk
+    constexpr int NC = (T + 2 * CH) / CH;        // chunks a row
+    constexpr int N = kW * NC;
+    constexpr int IT = (N + NT - 1) / NT;
+    uint4 c[IT];
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = tid + it * NT;
+      const int r = i / NC, y = y0 - kHalo + r;
+      const int x = x0 - CH + (i % NC) * CH;
+      c[it] = make_uint4(0, 0, 0, 0);
+      if (i < N && y >= 0 && y < hp && x >= 0 && x < wp) {
+        c[it] = *reinterpret_cast<const uint4*>(src + y * wp + x);
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < IT; ++it) {
+      const int i = tid + it * NT;
+      if (i >= N) break;
+      const int r = i / NC, wc = (i % NC) * CH - CH + kHalo;
+      int s[16];
+      chunk_samples<TS>(c[it], s);
+#pragma unroll
+      for (int k = 0; k < CH; ++k) {
+        if (wc + k >= 0 && wc + k < kW) win[r * kW + wc + k] = (int16_t)s[k];
+      }
+    }
   } else {
+    for (int i = tid; i < kW * kW; i += NT) {
+      const int r = i / kW, q = i % kW;
+      const int y = y0 - kHalo + r, x = x0 - kHalo + q;
+      win[i] = (y >= 0 && y < hp && x >= 0 && x < wp)
+                   ? (int16_t)src[y * wp + x] : (int16_t)0;
+    }
+  }
+}
+
+// One run of R output samples as packed 32-bit words, stored as the widest
+// vector its alignment allows.
+template <int R, typename TD>
+__device__ __forceinline__ void store_run(TD* dst, const int (&o)[R],
+                                          bool vec) {
+  constexpr int NW = R * (int)sizeof(TD) / 4;
+  if (!vec) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) dst[r] = (TD)o[r];
     return;
   }
-  const int hp = p ? a.h / 2 : a.h, wp = p ? a.w / 2 : a.w;
-  const int x = (int)(u % wp);
-  const long long q = u / wp;
-  const int y = (int)(q % hp), b = (int)(q / hp);
+  uint32_t wv[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    if constexpr (sizeof(TD) == 1) {
+      wv[k] = (uint32_t)(uint8_t)o[4 * k] | ((uint32_t)(uint8_t)o[4 * k + 1] << 8)
+              | ((uint32_t)(uint8_t)o[4 * k + 2] << 16)
+              | ((uint32_t)(uint8_t)o[4 * k + 3] << 24);
+    } else {
+      wv[k] = pack2(o[2 * k], o[2 * k + 1]);
+    }
+  }
+  if constexpr (NW % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < NW; k += 4) {
+      reinterpret_cast<uint4*>(dst)[k / 4] =
+          make_uint4(wv[k], wv[k + 1], wv[k + 2], wv[k + 3]);
+    }
+  } else if constexpr (NW == 2) {
+    *reinterpret_cast<uint2*>(dst) = make_uint2(wv[0], wv[1]);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = wv[0];
+  }
+}
+
+// The whole stage for one T x T tile of plane p (0 luma) of picture b, by
+// NT threads (tid 0 .. NT - 1) and the shared memory of its half.
+template <int T, int NT, typename TS, typename TD>
+__device__ void filter_tile(const Args& a, Smem& sm, int b, int p, int tid,
+                            int half) {
+  constexpr bool kLuma = T == kLumaTile;
+  constexpr int kW = T + 2 * kHalo;
+  constexpr int NL = kLuma ? 4 : 2;      // lines a segment
+  constexpr int US = kLuma ? 2 : 1;      // sample -> unit shift
+  constexpr int LAST = kLuma ? 8 : 2;    // last edge at plane size - LAST
+  constexpr int NE = T / 8 + 1;          // edges a direction meets
+  constexpr int NS = kW / NL;            // segments along an edge
+  constexpr int R = T * T / NT;          // output samples a thread
+  constexpr int RUNS = T / R;            // runs a row
+  static_assert(NE * NS <= NT, "a thread a segment of each direction");
+  const int hp = kLuma ? a.h : a.h >> 1, wp = kLuma ? a.w : a.w >> 1;
+  const int y0 = (int)blockIdx.y * T, x0 = (int)blockIdx.x * T;
   const long long base = (long long)b * hp * wp;
-  // the plane's pointers picked without indexing the parameter arrays by
-  // a runtime value (which would copy them to the stack)
   const TS* src = static_cast<const TS*>(
                       p == 0 ? a.src[0] : p == 1 ? a.src[1] : a.src[2])
                   + base;
   TD* dst = static_cast<TD*>(p == 0 ? a.dst[0] : p == 1 ? a.dst[1] : a.dst[2])
             + base;
-  const int s = src[(long long)y * wp + x];
-  int out = s;
-  if (p == 0 ? a.sao_luma : a.sao_chroma) {
-    const int cs = p ? a.ctu_size / 2 : a.ctu_size;
-    const long long c = ((long long)b * 3 + p) * a.nctu
-                        + (y / cs) * a.ctus_w + x / cs;
-    const int type = a.types[c];
-    const int maxv = (1 << a.bd) - 1;
-    if (type >= 0 && type <= 3) {
-      // neighbour pairs (dy, dx): horizontal, vertical, 135, 45 degrees
-      const int d1y = type == 0 ? 0 : (type == 3 ? 1 : -1);
-      const int d1x = type == 1 ? 0 : -1;
-      const int d2y = -d1y, d2x = -d1x;
-      const bool in = (type == 1 || (x > 0 && x < wp - 1))
-                      && (type == 0 || (y > 0 && y < hp - 1));
-      if (in) {
-        const int n1 = src[(long long)(y + d1y) * wp + x + d1x];
-        const int n2 = src[(long long)(y + d2y) * wp + x + d2x];
-        const int et = sign_of(s - n1) + sign_of(s - n2) + 2;
-        // m_iOffsetEo: edge class 0, 1, 3, 4 takes offset slot 0, 1, 2,
-        // 3; class 2 takes none
-        const int off = et == 2 ? 0 : a.offsets[c * 4 + et - (et > 2)];
-        out = clip3(0, maxv, s + off);
-      }
-    } else if (type == 4) {
-      const int idx = ((s >> (a.bd - 5)) - a.band_pos[c]) & 31;
-      out = clip3(0, maxv, s + (idx < 4 ? a.offsets[c * 4 + idx] : 0));
+  const bool sao = kLuma ? a.sao_luma != 0 : a.sao_chroma != 0;
+  int16_t* win = sm.win + half * kW * kW;
+  int (*const sao_prm)[6] = sm.sao[half];
+  uint8_t* const ctu_row = sm.ctu_row[half];
+  uint8_t* const ctu_col = sm.ctu_col[half];
+
+  // 1. the window, the SAO parameters, each segment's unit
+  load_window<T, NT, TS>(src, hp, wp, y0, x0,
+                         (reinterpret_cast<uintptr_t>(src) & 15) == 0
+                             && (wp * (int)sizeof(TS)) % 16 == 0,
+                         tid, win);
+  int vu[6], hu[6];
+  bool vj = false, hj = false;
+  if (a.deblock) {
+    const long long mb = (long long)b * a.uh * a.uw;
+    if (tid < NE * NS) {
+      // vertical: edge x0 + 8e, segment rows y0 - 4 + NL s ..
+      const int e = tid % NE, s = tid / NE;
+      const int x = x0 + 8 * e, y = y0 - kHalo + NL * s;
+      vj = x >= 8 && x <= wp - LAST && y >= 0 && y < hp;
+      if (vj) read_unit(a.ver, mb + (y >> US) * a.uw + (x >> US), vu);
+      // horizontal: edge y0 + 8e, segment columns x0 - 4 + NL s ..
+      const int s2 = tid % NS, e2 = tid / NS;
+      const int yh = y0 + 8 * e2, xh = x0 - kHalo + NL * s2;
+      hj = yh >= 8 && yh <= hp - LAST && xh >= 0 && xh < wp;
+      if (hj) read_unit(a.hor, mb + (yh >> US) * a.uw + (xh >> US), hu);
     }
   }
-  dst[(long long)y * wp + x] = (TD)out;
-}
-
-// blocks of kThreads for n threads; false when the grid is too large
-bool grid_of(long long n, unsigned* blocks) {
-  const long long b = (n + kThreads - 1) / kThreads;
-  *blocks = (unsigned)b;
-  return b <= 0x7fffffffLL;
-}
-
-int deblock_launch(const DeblockArgs& a, int src_u8, int dst_u8,
-                   cudaStream_t st) {
-  unsigned g;
-  const long long n = a.n_luma + 2 * a.n_chroma;
-  if (n <= 0) return 0;
-  if (!grid_of(n, &g)) return (int)cudaErrorInvalidValue;
-  if (src_u8 && dst_u8) {
-    deblock_kernel<uint8_t, uint8_t><<<g, kThreads, 0, st>>>(a);
-  } else if (src_u8) {
-    deblock_kernel<uint8_t, int16_t><<<g, kThreads, 0, st>>>(a);
-  } else if (dst_u8) {
-    deblock_kernel<int16_t, uint8_t><<<g, kThreads, 0, st>>>(a);
-  } else {
-    deblock_kernel<int16_t, int16_t><<<g, kThreads, 0, st>>>(a);
+  if (sao) {
+    const int cs = kLuma ? a.ctu_size : a.ctu_size >> 1;
+    const int cr0 = y0 / cs, cc0 = x0 / cs;
+    if (tid < T) {
+      ctu_row[tid] = (uint8_t)(min(y0 + tid, hp - 1) / cs - cr0);
+      ctu_col[tid] = (uint8_t)(min(x0 + tid, wp - 1) / cs - cc0);
+    }
+    const int nr = (min(y0 + T, hp) - 1) / cs - cr0 + 1;
+    const int nc = (min(x0 + T, wp) - 1) / cs - cc0 + 1;
+    if (tid < kMaxCtus * kMaxCtus) {
+      const int lr = tid / kMaxCtus, lc = tid % kMaxCtus;
+      if (lr < nr && lc < nc) {
+        const long long c = ((long long)b * 3 + p) * a.nctu
+                            + (cr0 + lr) * a.ctus_w + cc0 + lc;
+        sao_prm[tid][0] = a.types[c];
+        sao_prm[tid][1] = a.band_pos[c];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) sao_prm[tid][2 + k] = a.offsets[4 * c + k];
+      }
+    }
   }
-  return (int)cudaGetLastError();
-}
+  __syncthreads();
 
-int sao_launch(const SaoArgs& a, int src_u8, int dst_u8, cudaStream_t st) {
-  unsigned g;
-  const long long n = a.n_luma + 2 * a.n_chroma;
-  if (n <= 0) return 0;
-  if (!grid_of(n, &g)) return (int)cudaErrorInvalidValue;
-  if (src_u8 && dst_u8) {
-    sao_kernel<uint8_t, uint8_t><<<g, kThreads, 0, st>>>(a);
-  } else if (src_u8) {
-    sao_kernel<uint8_t, int16_t><<<g, kThreads, 0, st>>>(a);
-  } else if (dst_u8) {
-    sao_kernel<int16_t, uint8_t><<<g, kThreads, 0, st>>>(a);
-  } else {
-    sao_kernel<int16_t, int16_t><<<g, kThreads, 0, st>>>(a);
+  if (a.deblock) {
+    // 2. vertical edges: window columns 8e .. 8e + 7, one 16-byte row a line
+    if (vj) {
+      const int e = tid % NE, s = tid / NE;
+      int16_t* at = win + NL * s * kW + 8 * e;
+      int v[NL][8];
+#pragma unroll
+      for (int i = 0; i < NL; ++i) {
+        const uint4 c = *reinterpret_cast<const uint4*>(at + i * kW);
+        const uint32_t w4[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          v[i][2 * k] = lo16(w4[k]);
+          v[i][2 * k + 1] = hi16(w4[k]);
+        }
+      }
+      bool changed;
+      if constexpr (kLuma) {
+        changed = luma_edge(a, sm, vu, v);
+      } else {
+        changed = chroma_edge(a, sm, vu, v);
+      }
+      if (changed) {
+#pragma unroll
+        for (int i = 0; i < NL; ++i) {
+          *reinterpret_cast<uint4*>(at + i * kW) = make_uint4(
+              pack2(v[i][0], v[i][1]), pack2(v[i][2], v[i][3]),
+              pack2(v[i][4], v[i][5]), pack2(v[i][6], v[i][7]));
+        }
+      }
+    }
+    __syncthreads();
+    // 3. horizontal edges: window rows 8e .. 8e + 7, NL columns a row
+    if (hj) {
+      const int s = tid % NS, e = tid / NS;
+      int16_t* at = win + 8 * e * kW + NL * s;
+      int v[NL][8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        if constexpr (kLuma) {
+          const uint2 c = *reinterpret_cast<const uint2*>(at + k * kW);
+          v[0][k] = lo16(c.x);
+          v[1][k] = hi16(c.x);
+          v[2][k] = lo16(c.y);
+          v[3][k] = hi16(c.y);
+        } else {
+          const uint32_t c = *reinterpret_cast<const uint32_t*>(at + k * kW);
+          v[0][k] = lo16(c);
+          v[1][k] = hi16(c);
+        }
+      }
+      bool changed;
+      if constexpr (kLuma) {
+        changed = luma_edge(a, sm, hu, v);
+      } else {
+        changed = chroma_edge(a, sm, hu, v);
+      }
+      if (changed) {
+#pragma unroll
+        for (int k = 1; k < 7; ++k) {
+          if constexpr (kLuma) {
+            *reinterpret_cast<uint2*>(at + k * kW) = make_uint2(
+                pack2(v[0][k], v[1][k]), pack2(v[2][k], v[3][k]));
+          } else {
+            *reinterpret_cast<uint32_t*>(at + k * kW) = pack2(v[0][k], v[1][k]);
+          }
+        }
+      }
+    }
+    __syncthreads();
   }
-  return (int)cudaGetLastError();
+
+  // 4. SAO (or the deblocked samples) of a run of R interior samples
+  const int ly = tid / RUNS, lx = (tid % RUNS) * R;
+  const int y = y0 + ly, x = x0 + lx;
+  if (y >= hp || x >= wp) return;
+  const int16_t* row = win + (ly + kHalo) * kW + lx + kHalo;
+  const int maxv = (1 << a.bd) - 1;
+  int o[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int s = row[r];
+    int out = s;
+    if (sao) {
+      const int* prm = sao_prm[ctu_row[ly] * kMaxCtus + ctu_col[lx + r]];
+      const int type = prm[0];
+      const int xr = x + r;
+      if (type >= 0 && type <= 3) {
+        // neighbour pairs (dy, dx): horizontal, vertical, 135, 45 degrees
+        const int d1y = type == 0 ? 0 : (type == 3 ? 1 : -1);
+        const int d1x = type == 1 ? 0 : -1;
+        const bool in = (type == 1 || (xr > 0 && xr < wp - 1))
+                        && (type == 0 || (y > 0 && y < hp - 1));
+        if (in) {
+          const int n1 = row[r + d1y * kW + d1x];
+          const int n2 = row[r - d1y * kW - d1x];
+          const int et = sign_of(s - n1) + sign_of(s - n2) + 2;
+          // m_iOffsetEo: edge class 0, 1, 3, 4 takes offset slot 0, 1, 2,
+          // 3; class 2 takes none
+          const int off = et == 2 ? 0 : prm[2 + et - (et > 2)];
+          out = clip3(0, maxv, s + off);
+        }
+      } else if (type == 4) {
+        const int idx = ((s >> (a.bd - 5)) - prm[1]) & 31;
+        out = clip3(0, maxv, s + (idx < 4 ? prm[2 + idx] : 0));
+      }
+    }
+    o[r] = out;
+  }
+  TD* out = dst + y * wp + x;
+  if (x + R <= wp) {
+    constexpr int VB = R * (int)sizeof(TD) < 16 ? R * (int)sizeof(TD) : 16;
+    store_run<R, TD>(out, o, (reinterpret_cast<uintptr_t>(dst) & 15) == 0
+                                 && (wp * (int)sizeof(TD)) % VB == 0);
+  } else {
+    for (int r = 0; r < wp - x; ++r) out[r] = (TD)o[r];
+  }
 }
 
-bool dims_ok(int nb, int h, int w) {
-  return nb > 0 && h >= 8 && w >= 8 && h % 8 == 0 && w % 8 == 0;
+// blockIdx.z: picture b, luma (even) or both chroma planes (odd); the
+// tables go to shared memory before the tile's first barrier.  At most 64
+// registers a thread, so that 4 CTAs share an SM.
+template <typename TS, typename TD>
+__global__ void __launch_bounds__(kThreads, 4) filter_kernel(Args a) {
+  __shared__ Smem sm;
+  const int z = (int)blockIdx.z, b = z >> 1, t = (int)threadIdx.x;
+  if (a.deblock) {
+    if (t < 54) sm.tc[t] = a.tc_tab[t];
+    if (t < 52) sm.beta[t] = a.beta_tab[t];
+    if (t < 58) sm.cscale[t] = a.cscale[t];
+  }
+  if (z & 1) {
+    const int half = t / (kThreads / 2);
+    filter_tile<kChromaTile, kThreads / 2, TS, TD>(
+        a, sm, b, 1 + half, t - half * (kThreads / 2), half);
+  } else {
+    filter_tile<kLumaTile, kThreads, TS, TD>(a, sm, b, 0, t, 0);
+  }
 }
 
 }  // namespace
 
-// One direction of deblocking over nb pictures.  src / dst: host arrays
-// of three device pointers (y [nb, h, w], cb and cr [nb, h/2, w/2]),
-// uint8 where *_u8 is set, else int16; dst may equal src.  maps: host
-// array of the direction's six device maps [nb, uh, uw] (flags u8, bs u8,
-// qp_p i8, qp_q i8, no_p u8, no_q u8), uh >= h/4, uw >= w/4; tables: host
-// array of the device tc [54], beta [52] and chroma-scale [58] int32
-// tables.  dir 0: vertical edges, 1: horizontal edges.
-extern "C" int thevc_deblock(const void* const* src, void* const* dst,
-                             int src_u8, int dst_u8, const void* const* maps,
-                             const void* const* tables, int nb, int h, int w,
-                             int uh, int uw, int dir, int beta_offset,
-                             int tc_offset, int bd, void* stream) {
-  if (!dims_ok(nb, h, w) || uh < h / 4 || uw < w / 4 || (dir != 0 && dir != 1)
-      || bd < 8 || bd > 12) {
+// Deblocking (vertical then horizontal edges) and SAO of nb pictures, all
+// three planes, in one launch; with both filters off a converting copy.
+// ptrs: host array of 24 device pointers: the source planes y [nb, h, w],
+// cb and cr [nb, h/2, w/2] (uint8 where src_u8 is set, else int16); the
+// output planes alike (uint8 where dst_u8 is set; they must not alias the
+// source); the vertical then the horizontal edges' six unit maps
+// [nb, uh, uw] each (flags u8, bs u8, qp_p i8, qp_q i8, no_p u8, no_q u8),
+// uh >= h/4, uw >= w/4; the SAO types int8 and band positions int32
+// [nb, 3, nctu], the offsets int32 [nb, 3, nctu, 4], nctu = ctus_w * ctus_h;
+// the tc [54], beta [52] and chroma-scale [58] int32 tables (read only with
+// deblock set).  The CTU grid of ctu_size luma samples (16 or more, even)
+// covers the picture.
+extern "C" int thevc_filter(const void* const* ptrs, int nb, int h, int w,
+                            int uh, int uw, int src_u8, int dst_u8,
+                            int beta_offset, int tc_offset, int bd,
+                            int ctu_size, int ctus_w, int ctus_h, int deblock,
+                            int sao_luma, int sao_chroma, void* stream) {
+  if (nb <= 0 || 2LL * nb > 65535 || h < 8 || w < 8 || h % 8 || w % 8
+      || (long long)h * w >= (1LL << 31) || uh < h / 4 || uw < w / 4
+      || (long long)uh * uw >= (1LL << 31) || bd < 8 || bd > 12
+      || ctu_size < 16 || ctu_size % 2 || ctus_w < 1 || ctus_h < 1
+      || (long long)ctus_w * ctu_size < w || (long long)ctus_h * ctu_size < h) {
     return (int)cudaErrorInvalidValue;
   }
-  DeblockArgs a;
+  Args a;
   for (int p = 0; p < 3; ++p) {
-    a.src[p] = src[p];
-    a.dst[p] = dst[p];
+    a.src[p] = ptrs[p];
+    a.dst[p] = const_cast<void*>(ptrs[3 + p]);
   }
-  a.flags = static_cast<const uint8_t*>(maps[0]);
-  a.bs = static_cast<const uint8_t*>(maps[1]);
-  a.qp_p = static_cast<const int8_t*>(maps[2]);
-  a.qp_q = static_cast<const int8_t*>(maps[3]);
-  a.no_p = static_cast<const uint8_t*>(maps[4]);
-  a.no_q = static_cast<const uint8_t*>(maps[5]);
-  a.tc_tab = static_cast<const int32_t*>(tables[0]);
-  a.beta_tab = static_cast<const int32_t*>(tables[1]);
-  a.cscale = static_cast<const int32_t*>(tables[2]);
-  a.nb = nb;
+  for (int k = 0; k < 6; ++k) {
+    a.ver[k] = static_cast<const uint8_t*>(ptrs[6 + k]);
+    a.hor[k] = static_cast<const uint8_t*>(ptrs[12 + k]);
+  }
+  a.types = static_cast<const int8_t*>(ptrs[18]);
+  a.band_pos = static_cast<const int32_t*>(ptrs[19]);
+  a.offsets = static_cast<const int32_t*>(ptrs[20]);
+  a.tc_tab = static_cast<const int32_t*>(ptrs[21]);
+  a.beta_tab = static_cast<const int32_t*>(ptrs[22]);
+  a.cscale = static_cast<const int32_t*>(ptrs[23]);
   a.h = h;
   a.w = w;
   a.uh = uh;
   a.uw = uw;
-  a.dir = dir;
   a.beta_offset = beta_offset;
   a.tc_offset = tc_offset;
   a.bd = bd;
-  const bool ver = dir == 0;
-  const int hc = h / 2, wc = w / 2;
-  a.n_luma = (long long)nb * ((ver ? h : w) / 4) * (((ver ? w : h) + 11) / 8);
-  a.n_chroma = (long long)nb * ((ver ? hc : wc) / 2)
-               * (((ver ? wc : hc) + 11) / 8);
-  return deblock_launch(a, src_u8, dst_u8, static_cast<cudaStream_t>(stream));
-}
-
-// SAO over nb pictures (or, with both switches off, a converting copy):
-// src / dst as for thevc_deblock (dst must not alias src); types int8,
-// band_pos int32 [nb, 3, nctu]; offsets int32 [nb, 3, nctu, 4]; the CTU
-// grid ctu_size (luma samples) by ctus_w columns covers the picture.
-extern "C" int thevc_sao(const void* const* src, void* const* dst, int src_u8,
-                         int dst_u8, const void* types, const void* band_pos,
-                         const void* offsets, int nb, int h, int w, int nctu,
-                         int ctu_size, int ctus_w, int sao_luma,
-                         int sao_chroma, int bd, void* stream) {
-  if (!dims_ok(nb, h, w) || nctu <= 0 || ctu_size < 8 || ctus_w <= 0
-      || bd < 8 || bd > 12) {
-    return (int)cudaErrorInvalidValue;
-  }
-  SaoArgs a;
-  for (int p = 0; p < 3; ++p) {
-    a.src[p] = src[p];
-    a.dst[p] = dst[p];
-  }
-  a.types = static_cast<const int8_t*>(types);
-  a.band_pos = static_cast<const int32_t*>(band_pos);
-  a.offsets = static_cast<const int32_t*>(offsets);
-  a.nb = nb;
-  a.h = h;
-  a.w = w;
-  a.nctu = nctu;
+  a.nctu = ctus_w * ctus_h;
   a.ctu_size = ctu_size;
   a.ctus_w = ctus_w;
-  a.sao_luma = sao_luma;
-  a.sao_chroma = sao_chroma;
-  a.bd = bd;
-  a.n_luma = (long long)nb * h * w;
-  a.n_chroma = (long long)nb * (h / 2) * (w / 2);
-  return sao_launch(a, src_u8, dst_u8, static_cast<cudaStream_t>(stream));
+  a.deblock = deblock != 0;
+  a.sao_luma = sao_luma != 0;
+  a.sao_chroma = sao_chroma != 0;
+  const dim3 grid((w + kLumaTile - 1) / kLumaTile,
+                  (h + kLumaTile - 1) / kLumaTile, 2 * nb);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (src_u8 && dst_u8) {
+    filter_kernel<uint8_t, uint8_t><<<grid, kThreads, 0, st>>>(a);
+  } else if (src_u8) {
+    filter_kernel<uint8_t, int16_t><<<grid, kThreads, 0, st>>>(a);
+  } else if (dst_u8) {
+    filter_kernel<int16_t, uint8_t><<<grid, kThreads, 0, st>>>(a);
+  } else {
+    filter_kernel<int16_t, int16_t><<<grid, kThreads, 0, st>>>(a);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* thevc_error_string(int code) {

@@ -314,6 +314,28 @@ def sao_frame(f: FrameModel, sh: SliceHeader, sps: Sps,
 # -- the port's device route
 
 
+def _staging(parts, pin: bool) -> tuple:
+    """One host buffer (pinned with ``pin``) that holds every part
+    stacked, each at a 16-byte-aligned offset: parts [(arrays, dtype)],
+    the arrays of one part alike in shape, converted as ``astype`` would.
+    Returns (buffer, [(offset, numpy view)]).  PyTorch's caching host
+    allocator keeps a pinned buffer until the copy that reads it has
+    run."""
+    shapes, size = [], 0
+    for arrays, dtype in parts:
+        shape = (len(arrays), *arrays[0].shape)
+        shapes.append((size, shape, np.dtype(dtype)))
+        size += -(-int(np.prod(shape)) * np.dtype(dtype).itemsize // 16) * 16
+    buf = torch.empty(size, dtype=torch.uint8, pin_memory=pin)
+    flat = buf.numpy()
+    views = []
+    for (arrays, _d), (o, shape, dtype) in zip(parts, shapes):
+        view = flat[o:o + int(np.prod(shape)) * dtype.itemsize] \
+            .view(dtype).reshape(shape)
+        for j, a in enumerate(arrays):
+            np.copyto(view[j], a, casting="unsafe")
+        views.append((o, view))
+    return buf, views
 
 
 def _filter_pictures(entries, device: torch.device) -> list:
@@ -328,7 +350,8 @@ def _filter_pictures(entries, device: torch.device) -> list:
     ``device`` (None for a picture with both filters off).  With stage
     timing on, the stage's parts are timed apart: ``filters.inputs``
     (the host's edge maps and SAO tables), ``filters.stack`` (the batch's
-    host arrays), ``filters.h2d``, ``filters.device`` (the filter call),
+    host arrays, written into one pinned buffer), ``filters.h2d`` (its one
+    copy), ``filters.device`` (the filter call),
     ``filters.d2h`` and ``filters.astype`` (the host planes a picture)."""
     with stage("filters.inputs", device):
         inputs = [_picture_filter_inputs(f, sh, sps, pps, rp)
@@ -346,17 +369,21 @@ def _filter_pictures(entries, device: torch.device) -> list:
         u8 = statics["bit_depth"] == 8
         dt = np.uint8 if u8 else np.int16
         with stage("filters.stack", device):
-            host = [np.stack([entries[i][4 + p] for i in idxs]).astype(dt)
-                    for p in range(3)]
-            host += [np.stack([inputs[i][1][k] for i in idxs])
-                     for k in range(6)]
-            host += [np.stack([inputs[i][2][k] for i in idxs])
-                     for k in range(6)]
-            host += [np.stack([inputs[i][k] for i in idxs])
-                     for k in (3, 4, 5)]
-        stat_launch(sum(a.nbytes for a in host))
+            # the planes, the 12 maps and the 3 SAO tables, a list of the
+            # batch's pictures each
+            parts = [([entries[i][4 + p] for i in idxs], dt)
+                     for p in range(3)]
+            for d in (1, 2):
+                parts += [([inputs[i][d][k] for i in idxs],
+                           inputs[idxs[0]][d][k].dtype) for k in range(6)]
+            parts += [([inputs[i][k] for i in idxs], inputs[idxs[0]][k].dtype)
+                      for k in (3, 4, 5)]
+            buf, views = _staging(parts, device.type == "cuda")
+        stat_launch(sum(v.nbytes for _o, v in views))
         with stage("filters.h2d", device):
-            t = [torch.from_numpy(a).to(device) for a in host]
+            dev = buf.to(device, non_blocking=True)
+            t = [dev[o:o + v.nbytes].view(torch.from_numpy(v).dtype)
+                 .view(v.shape) for o, v in views]
         with stage("filters.device", device):
             planes = ops_filters.filter_pictures(
                 t[0], t[1], t[2], tuple(t[3:9]), tuple(t[9:15]),

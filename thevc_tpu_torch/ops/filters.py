@@ -327,8 +327,8 @@ def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor,
                     sao_types, sao_band_pos, sao_offsets, **statics):
     """The in-loop filter stage for a batch of pictures
     (``filter_pictures_plain``'s arguments and result).  On a CUDA device
-    this is the hand-written kernel, at most three launches, and raises if
-    it cannot build or launch; on the CPU the plain form."""
+    this is the hand-written kernel, one launch, and raises if it cannot
+    build or launch; on the CPU the plain form."""
     kind = rec_y.device.type
     if kind == "cpu":
         return filter_pictures_plain(rec_y, rec_cb, rec_cr, dbk_ver,

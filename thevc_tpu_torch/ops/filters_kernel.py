@@ -4,9 +4,11 @@
 Replaces the XLA function ``thevc_tpu/ops/jx_filters.py:_filter_core``
 (:273; entries ``filter_picture`` :312 and ``filter_pictures`` :342):
 deblocking of every vertical then every horizontal edge, then SAO, for a
-batch of pictures and all three planes, in at most three launches a call
-(vertical edges, horizontal edges, SAO).  The design notes and what
-bounds the kernel on the card are in the source's header comment.  Its
+batch of pictures and all three planes, in one launch a call.  The kernel
+is bound by bytes: a CTA keeps one tile's window (the tile and 4 samples
+each side) in shared memory through both edge directions and SAO, so each
+plane is read once and written once and nothing else is allocated but the
+three outputs.  The design notes are in the source's header comment.  Its
 plain PyTorch version is ``ops.filters.filter_pictures_plain``.
 
 The kernel is compiled with ``nvcc`` on first use and bound with
@@ -25,10 +27,10 @@ from . import build as _build
 
 NAME = "filters"
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {"thevc_deblock": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _I, _P],
-            "thevc_sao": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _I, _P]}
+# thevc_filter(pointers, nb, h, w, uh, uw, src_u8, dst_u8, beta_offset,
+# tc_offset, bd, ctu_size, ctus_w, ctus_h, deblock, sao_luma, sao_chroma,
+# stream)
+_ENTRIES = {"thevc_filter": [_P] + [_I] * 16 + [_P]}
 PLANE_DTYPES = (torch.uint8, torch.int16)
 # the six per-unit maps of one direction, as ``decoder/filters.py``
 # builds them (``_shrink``: the QPs as int8)
@@ -36,9 +38,9 @@ MAP_NAMES = ("flags", "bs", "qp_p", "qp_q", "no_p", "no_q")
 MAP_DTYPES = (torch.uint8, torch.uint8, torch.int8, torch.int8, torch.uint8,
               torch.uint8)
 
-# kernel launches made by filter_pictures(), one a launch (at most three a
-# call); a plain integer that a run resets and reads to show that its main
-# path went through the kernel
+# kernel launches made by filter_pictures(), one a call; a plain integer
+# that a run resets and reads to show that its main path went through the
+# kernel
 launches = 0
 
 
@@ -105,10 +107,6 @@ def check_inputs(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor, sao_types,
     return nb, h, w, uh, uw
 
 
-def _ptrs(tensors) -> ctypes.Array:
-    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
-
-
 def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor, sao_types,
                     sao_band_pos, sao_offsets, beta_offset=0, tc_offset=0,
                     bit_depth=8, ctu_size=64, ctus_w=1, ctus_h=1,
@@ -116,11 +114,10 @@ def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor, sao_types,
                     out_u8=False) -> tuple:
     """``ops.filters.filter_pictures`` on a CUDA device: the same
     arguments (checked by ``check_inputs``), the same (y, cb, cr) out,
-    uint8 with ``out_u8``, else int16.  Launches on the current stream
-    without synchronising: vertical edges into an int16 working copy,
-    horizontal edges in place (into the output when SAO is off), SAO into
-    the output (a converting copy with both filters off); raises on any
-    input the kernel does not take and on a launch error."""
+    uint8 with ``out_u8``, else int16.  One launch on the current stream,
+    without synchronising, that allocates nothing but the outputs (with
+    both filters off, a converting copy); raises on any input the kernel
+    does not take and on a launch error."""
     global launches
     nb, h, w, uh, uw = check_inputs(
         rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor, sao_types, sao_band_pos,
@@ -131,35 +128,23 @@ def filter_pictures(rec_y, rec_cb, rec_cr, dbk_ver, dbk_hor, sao_types,
     dt = torch.uint8 if out_u8 else torch.int16
     shapes = ((nb, h, w), (nb, h // 2, w // 2), (nb, h // 2, w // 2))
     out = tuple(torch.empty(s, dtype=dt, device=device) for s in shapes)
-    src = (rec_y, rec_cb, rec_cr)
-    src_u8, out_u8 = int(rec_y.dtype == torch.uint8), int(out_u8)
+    tensors = [rec_y, rec_cb, rec_cr, *out, *dbk_ver, *dbk_hor, sao_types,
+               sao_band_pos, sao_offsets]
+    ptrs = [t.data_ptr() for t in tensors]
+    if do_deblock:
+        tab = from_reference(device)
+        ptrs += [tab.tc.data_ptr(), tab.beta.data_ptr(),
+                 tab.chroma_scale.data_ptr()]
+    else:
+        ptrs += [None] * 3
     lib = build()
-    stream = _build.stream_of(device)
     with torch.cuda.device(device):
-        if do_deblock:
-            tab = from_reference(device)
-            tables = _ptrs((tab.tc, tab.beta, tab.chroma_scale))
-            work = tuple(torch.empty(s, dtype=torch.int16, device=device)
-                         for s in shapes)
-            # vertical edges into the working copy, then horizontal edges
-            # in place, or into the output when SAO is off
-            last = (work, 0) if do_sao else (out, out_u8)
-            for d, (maps, s, s_u8, dst, d_u8) in enumerate((
-                    (dbk_ver, src, src_u8, work, 0),
-                    (dbk_hor, work, 0, *last))):
-                rc = lib.thevc_deblock(
-                    _ptrs(s), _ptrs(dst), s_u8, d_u8, _ptrs(maps), tables,
-                    nb, h, w, uh, uw, d, int(beta_offset), int(tc_offset),
-                    int(bit_depth), stream)
-                _build.check(lib, rc, "deblocking kernel launch")
-                launches += 1
-            src, src_u8 = work, 0
-        if do_sao or not do_deblock:
-            rc = lib.thevc_sao(
-                _ptrs(src), _ptrs(out), src_u8, out_u8, sao_types.data_ptr(),
-                sao_band_pos.data_ptr(), sao_offsets.data_ptr(), nb, h, w,
-                ctus_w * ctus_h, int(ctu_size), int(ctus_w), int(do_sao),
-                int(do_sao and do_sao_chroma), int(bit_depth), stream)
-            _build.check(lib, rc, "SAO kernel launch")
-            launches += 1
+        rc = lib.thevc_filter(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), nb, h, w, uh, uw,
+            int(rec_y.dtype == torch.uint8), int(out_u8), int(beta_offset),
+            int(tc_offset), int(bit_depth), int(ctu_size), int(ctus_w),
+            int(ctus_h), int(do_deblock), int(do_sao),
+            int(do_sao and do_sao_chroma), _build.stream_of(device))
+    _build.check(lib, rc, "filter kernel launch")
+    launches += 1
     return out
