@@ -7,8 +7,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
-   residual, SATD, MC, in-loop filters), one nvcc for each source, all
-   started together.
+   residual, SATD, MC, in-loop filters, the device apply's class step),
+   one nvcc for each source, all started together.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -161,28 +161,40 @@ Run from the root of a checkout on a machine with a CUDA card:
 11. Device-apply phase (``fastrd_devapply``), the fast-RD slice's main
    path: encodes the 1080p all-intra clip with ``--FastRD=1 --device
    cuda --device-apply`` at QP 32 (SAO, RDOQ on) in a child process whose
-   report gives the kernels' launches, the device-apply frames (8, none
-   left to the host apply), waves, class steps and wall; decodes it on
-   ``cuda`` and on the CPU (8/8 digests OK, recon byte-identical to the
-   encoder's); reports its wall beside the fast-RD phase's host-apply
-   encode of the same clip and ``fastrd_devapply_bits_overhead_pct``
-   (100 x (device-apply bytes / host-apply bytes - 1)) with the luma
-   PSNR difference.  Then one frame's apply in this process, from the
-   call an in-process 1-frame encode made (its stage walls printed): a
+   report gives the kernels' launches (the apply kernel's, one a class
+   step and a warm-up a class and frame; K1's, the decision passes'
+   alone), the device-apply frames (8, none left to the host apply),
+   waves, class steps and wall; decodes it on ``cuda`` and on the CPU
+   (8/8 digests OK, recon byte-identical to the encoder's); reports its
+   wall beside the fast-RD phase's host-apply encode of the same clip and
+   ``fastrd_devapply_bits_overhead_pct`` (100 x (device-apply bytes /
+   host-apply bytes - 1)) with the luma PSNR difference.  Then one
+   frame's apply in this process, from the call an in-process 1-frame
+   encode made (its stage walls printed), with the apply kernel
+   (``csrc/apply.cu``: a class step one launch, a CTA a record and plane,
+   Cb and Cr in one launch) and with the plain form
+   (``fast_apply.run_device_apply_plain``) on ``cuda``: for the kernel a
    warm-up and three synchronised graph-replayed runs (host setup and
-   issue time, the loop's span in CUDA events, K1 counted once per
-   replayed launch and warm-up), one under ``torch.profiler`` (kernels
-   only: device time, kernels a class step), and one eager run in which
-   every K1 call is held against ``tq.residual_pipeline_plain``
-   (tolerance 0); the replayed apply equals the eager one (recon and
-   every level stack, tolerance 0); the bytes a class step must move and
-   the frame's HBM bound.  Last, the 416x240 identity encodes, all at
-   once: RDOQ and the top-2 re-rank off, ``cuda`` (frames in threads),
-   ``cpu`` and the host apply byte-identical; RDOQ on, ``cuda`` ==
-   ``cpu`` at QP 27 and 37.  Then ``fastrd_devapply_nxn``: the device
-   apply on a seeded 128x64 frame with NxN CUs (``streams.nxn_frame``),
-   where every class of ``fast_apply.CLS`` must run, the 4x4 luma class
-   included, replayed as CUDA graphs on ``cuda`` and equal to the CPU.
+   issue time, issue a wave, the loop's span in CUDA events, the kernel
+   counted once a replayed class step and warm-up, K1 never), one under
+   ``torch.profiler`` (kernels only: device time, kernels a class step)
+   and one eager run (one launch a class step; its loop span the kernels
+   line's ``ms``); for the plain form one graph-replayed run and one
+   under the profiler, the same figures; then the plain form on the CPU.
+   The kernel apply, replayed and eager, equals the plain form on
+   ``cuda`` and the CPU's (recon and every level stack, tolerance 0);
+   the bytes each class step's window moves, and the frame's bound (each
+   record once: its fields, reference lines, source windows, recon and
+   levels over HBM's rate; the four transform passes' multiply-adds at
+   the int32 rate).  Last, the 416x240 identity encodes, all at once:
+   RDOQ and the top-2 re-rank off, ``cuda`` (frames in threads), ``cpu``
+   and the host apply byte-identical; RDOQ on, ``cuda`` == ``cpu`` at
+   QP 27 and 37.  Then ``fastrd_devapply_nxn``: the device apply on a
+   seeded 128x64 frame with NxN CUs (``streams.nxn_frame``), where every
+   class of ``fast_apply.CLS`` must run through the kernel, the 4x4 luma
+   class included (one launch a class step and a warm-up a class, no
+   K1), replayed as CUDA graphs on ``cuda`` and equal to the plain form
+   on ``cuda`` and to the CPU.
 12. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
    refuses both in one stream) decode on ``cuda`` with every digest OK
    and recon byte-identical to their encoders'.
@@ -239,15 +251,17 @@ Run from the root of a checkout on a machine with a CUDA card:
    byte-identical, and the resumed stream decodes on ``cuda`` digest-OK;
    a 416x240 4-frame all-intra ``--FastRD=1 --RateCtrl=1
    --TargetBitrate=1000000 --device-apply`` encode on ``cuda`` and on the
-   CPU, byte-identical, every frame decided and applied on the device,
+   CPU, byte-identical, every frame decided and applied on the device
+   (the apply kernel launched at least once a class step),
    digest-OK and recon-exact through the port's decoder on ``cuda``
    (per-frame QP and bits printed), and the same for a 3-frame low-delay
    B encode (``encoder_lowdelay_tlayers.cfg``, no device apply) whose
    frame QPs must move (the tests hold them against the JAX package's
    rate controller fed the same bits); one
    ``thevc_tpu_torch.tools.fastrd_quality`` sweep on ``cuda`` (2 frames
-   of that clip, QP 22-37), its rows printed.  The phase's K1, K2, MC
-   and filter kernel launches (``cuda`` runs only) must be above 0.
+   of that clip, QP 22-37), its rows printed.  The phase's K1, K2, MC,
+   filter and apply kernel launches (``cuda`` runs only) must be above
+   0.
 16. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
@@ -256,10 +270,13 @@ Run from the root of a checkout on a machine with a CUDA card:
    decode (the mean over its B pictures), its quarter-pel entry
    (``mc_qpel``, launches apart from the other MC entries) the replayed
    B frame's 8 calls summed, the filter kernel (K4) the all-intra
-   decode's call of 8 pictures, with its graph time; no single PyTorch
+   decode's call of 8 pictures, with its graph time, the apply kernel
+   the recorded 1080p frame's wave loop (eager, graph-replayed, and the
+   plain form's graph-replayed loop beside it); no single PyTorch
    call computes any of them (the MC: per-PU-phase 8-tap interpolation
-   with the int16 wrap; the filters: deblocking and SAO), so
-   ``library_ms`` is null), then the card's name and
+   with the int16 wrap; the filters: deblocking and SAO; the apply: HM's
+   intra TU prediction, transform, RDOQ and recon), so ``library_ms`` is
+   null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
 
@@ -1837,12 +1854,14 @@ DEVAPPLY_JOBS = {
 def nxn_apply_phase(torch) -> dict:
     """The device apply on seeded maps with NxN CUs (no decision pass sets
     NxN, so the 1080p clip never runs the 4x4 luma class): every class of
-    ``fast_apply.CLS`` must run, (4, True, True) included; replayed as
-    CUDA graphs on ``cuda``, equal to the CPU (tolerance 0)."""
+    ``fast_apply.CLS`` must run through the kernel, (4, True, True)
+    included, one launch a class step (and a warm-up a class) and no K1;
+    replayed as CUDA graphs on ``cuda``, equal to the plain form on
+    ``cuda`` and to the CPU (tolerance 0)."""
     import numpy as np
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
-    from thevc_tpu_torch.ops import residual_kernel
+    from thevc_tpu_torch.ops import apply_kernel, residual_kernel
     from thevc_tpu_torch.streams import nxn_frame
     w, h, qp = 128, 64, 32
     planes, maps = nxn_frame(np.random.RandomState(24), w, h)
@@ -1852,19 +1871,29 @@ def nxn_apply_phase(torch) -> dict:
     lam = 0.57 * 2 ** ((qp - 12) / 3)
     args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True, True,
             lam, lam / 1.2, cc.make_context_states_idx(0, qp))
-    before = residual_kernel.launches
+    before = (apply_kernel.launches, residual_kernel.launches)
     got = fast_apply.collect_device_apply(fast_apply.run_device_apply(
         *args, device="cuda", replay=True))
-    launches = residual_kernel.launches - before
+    launches = (apply_kernel.launches - before[0],
+                residual_kernel.launches - before[1])
+    check(launches == (sum(steps) + len(steps), 0),
+          f"the NxN apply launched {launches} (apply, K1) for "
+          f"{sum(steps)} class steps of {len(steps)} classes")
+    plain = fast_apply.collect_device_apply(
+        fast_apply.run_device_apply_plain(*args, device="cuda"))
     want = fast_apply.collect_device_apply(fast_apply.run_device_apply(
         *args, device="cpu", replay=False))
-    for g, e in zip(got[:3] + got[3] + got[4], want[:3] + want[3] + want[4]):
-        check((g is None and e is None) or np.array_equal(g, e),
+    for g, pl, e in zip(got[:3] + got[3] + got[4],
+                        plain[:3] + plain[3] + plain[4],
+                        want[:3] + want[3] + want[4]):
+        check((g is None and e is None and pl is None)
+              or (np.array_equal(g, e) and np.array_equal(pl, e)),
               "the NxN device apply on cuda differs from the CPU")
     out = {"classes": [list(c) for c in fast_apply.CLS],
            "tus_a_class": [int(c) for c in sched.counts],
            "steps_a_class": steps, "waves": sched.n_waves,
-           "residual_launches": launches, "equal_to_cpu": True}
+           "apply_launches": launches[0], "residual_launches": launches[1],
+           "equal_to_plain_and_cpu": True}
     print("fastrd_devapply_nxn " + json.dumps(out))
     return out
 
@@ -1881,7 +1910,8 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
     dec_rec = work / "devapply_dec_rec.yuv"
     rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
                       "cuda", extra=("--device-apply",))
-    check(rep["residual_launches"] > 0 and rep["satd_launches"] > 0,
+    check(rep["residual_launches"] > 0 and rep["satd_launches"] > 0
+          and rep["apply_launches"] >= rep["device_apply_class_steps"] > 0,
           f"the device-apply encode skipped a kernel: {rep}")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
@@ -1910,6 +1940,7 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
         class_steps_per_frame=rep["device_apply_class_steps"] / FRAMES,
         residual_launches=rep["residual_launches"],
         satd_launches=rep["satd_launches"],
+        apply_launches=rep["apply_launches"],
         decode_filters_launches=filters_launches, devapply_bytes=dev_bytes,
         host_apply_bytes=host_bytes,
         fastrd_devapply_bits_overhead_pct=100 * (dev_bytes / host_bytes - 1),
@@ -1982,95 +2013,152 @@ def profiled_device(prof) -> tuple:
     return sum(by_name.values()), n, {k[:60]: v / 1000 for k, v in top}
 
 
+def apply_bound(sched) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of a frame's apply: each
+    real record once, at its own wave (the windows' other records are
+    recomputed, not needed): its six int64 fields and, per plane, the
+    reference line read (4s + unit int16), the source window read, the
+    recon and the levels written (s*s int16 each); the four transform
+    passes' multiply-adds (s a coefficient, two operations each) at the
+    int32 rate."""
+    from thevc_tpu_torch.encoder import fast_apply
+    nbytes = ops = 0
+    for (size, luma, _), n in zip(fast_apply.CLS, sched.counts):
+        planes = 1 if luma else 2
+        unit = 4 if luma else 2
+        nbytes += n * (6 * 8 + planes * (2 * (4 * size + unit)
+                                         + 3 * 2 * size * size))
+        ops += n * planes * 4 * size * 2 * size * size
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def profiled_count(prof, *names) -> int:
+    """The device activities of a ``torch.profiler`` run whose names start
+    with or contain one of ``names``."""
+    from torch.autograd import DeviceType
+    return sum(1 for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA
+               and any(e.name().startswith(n) or n in e.name()
+                       for n in names))
+
+
 def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p frame's apply in this process, from the encoder's own
-    call: graph-replayed walls (synchronised), the host's setup and issue
-    time, the device time under ``torch.profiler``; the replayed apply
-    against the eager one (recon and every level stack, tolerance 0) and
-    every K1 call of the eager apply against its plain version (tolerance
-    0; the eager wall includes those checks); the bytes each class step
-    must move and the HBM bound of the frame's steps."""
+    call, in both forms on ``cuda``: the kernel (one launch a class step)
+    and the plain form (``run_device_apply_plain``); for each, graph-
+    replayed walls (synchronised), the host's setup and issue time, the
+    loop's span in CUDA events and the device time under
+    ``torch.profiler`` (kernels a class step); the kernel's eager run
+    (its loop span the kernels line's ``ms``).  The kernel apply, replayed
+    and eager, equals the plain form on ``cuda`` and on the CPU (recon and
+    every level stack, tolerance 0); the bytes each class step moves and
+    the frame's bound."""
     import numpy as np
     from thevc_tpu_torch.encoder import fast_apply
-    from thevc_tpu_torch.ops import residual_kernel, tq
+    from thevc_tpu_torch.ops import apply_kernel, residual_kernel
     args, kwargs = recorded_apply_call(clip, work)
     sched = args[3]
     steps = {ci: int((np.diff(o) > 0).sum()) for ci, o in enumerate(
         sched.offs)}
-    # K1 launches of a class step: one per plane; a replayed apply also
-    # launches each captured step once eagerly (its warm-up)
-    per_step = {ci: 1 if fast_apply.CLS[ci][1] else 2 for ci in steps}
-    k1_per_frame = sum(n * per_step[ci] for ci, n in steps.items())
-    k1_warm_up = sum(per_step[ci] for ci, n in steps.items() if n)
+    n_steps = sum(steps.values())
+    # a replayed apply launches each captured step once eagerly too (its
+    # warm-up)
+    warm_up = sum(1 for n in steps.values() if n)
+    check(kwargs.get("use_rdoq"), "the recorded apply runs without RDOQ")
 
-    def run(replay):
-        r = fast_apply.run_device_apply(*args, **dict(kwargs, replay=replay))
+    def run(replay, plain=False, device="cuda"):
+        fn = fast_apply.run_device_apply_plain if plain \
+            else fast_apply.run_device_apply
+        r = fn(*args, **dict(kwargs, replay=replay, device=device))
         return r, fast_apply.collect_device_apply(r)
+
+    def timed(plain, reps):
+        walls, setup, issue, loop, out = [], [], [], [], None
+        for _ in range(reps):
+            counts = (apply_kernel.launches, residual_kernel.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r, out = run(True, plain)
+            walls.append(time.perf_counter() - t)
+            setup.append(r.setup_s)
+            issue.append(r.issue_s)
+            loop.append(r.loop_events[0].elapsed_time(r.loop_events[1]))
+            got = (apply_kernel.launches - counts[0],
+                   residual_kernel.launches - counts[1])
+            want = (0, None) if plain else (n_steps + warm_up, 0)
+            check(got[0] == want[0] and (want[1] is None
+                                         or got[1] == want[1]),
+                  f"{got} apply and K1 launches counted for the "
+                  f"{'plain' if plain else 'kernel'} apply, {want} "
+                  "expected")
+        return dict(wall_ms=[1000 * w for w in walls],
+                    median_wall_ms=1000 * sorted(walls)[len(walls) // 2],
+                    setup_ms=[1000 * v for v in setup],
+                    issue_ms=[1000 * v for v in issue],
+                    issue_us_per_wave=1e6 * sorted(issue)[len(issue) // 2]
+                    / sched.n_waves, loop_span_ms=loop), out
+
+    def profiled(plain):
+        # the device's own time, device activities only
+        from torch.profiler import ProfilerActivity, profile
+        t_read = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run(True, plain)
+            wall = time.perf_counter() - t
+        device_us, n_kernels, top = profiled_device(prof)
+        copies = profiled_count(prof, "Memcpy", "Memset")
+        apply_steps = profiled_count(prof, "apply_step")
+        del prof
+        # device_kernels counts every device activity, as PR 6-13 did;
+        # kernels_per_class_step leaves the frame's copies out (its setup's
+        # fills and the output's cat stay in); apply_step_kernels are the
+        # kernel's launches, warm-ups included
+        return dict(profiled_wall_ms=1000 * wall,
+                    profile_read_s=time.perf_counter() - t_read,
+                    device_ms=device_us / 1000, device_kernels=n_kernels,
+                    device_copies=copies, apply_step_kernels=apply_steps,
+                    activities_per_class_step=n_kernels / n_steps,
+                    kernels_per_class_step=(n_kernels - copies) / n_steps,
+                    top_kernels_ms=top,
+                    device_busy_share=device_us / 1e6 / wall)
+
+    def max_err(a, b):
+        err = 0
+        for g, e in zip(a[:3] + a[3] + a[4], b[:3] + b[3] + b[4]):
+            if g is not None:
+                err = max(err, int(np.abs(g.astype(np.int32)
+                                          - e.astype(np.int32)).max()))
+        return err
+
     run(True)                               # warm-up
-    walls, setup, issue, loop = [], [], [], []
-    for _ in range(3):
-        residual_kernel.launches = 0
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        r, graph_out = run(True)
-        walls.append(time.perf_counter() - t)
-        setup.append(r.setup_s)
-        issue.append(r.issue_s)
-        loop.append(r.loop_events[0].elapsed_time(r.loop_events[1]))
-        check(residual_kernel.launches == k1_per_frame + k1_warm_up,
-              f"{residual_kernel.launches} K1 launches counted for the "
-              f"replayed apply, {k1_per_frame} replayed and {k1_warm_up} "
-              "warm-ups")
-    # the device's own time, device activities only
-    from torch.profiler import ProfilerActivity, profile
-    t_read = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        run(True)
-        prof_wall = time.perf_counter() - t
-    device_us, n_kernels, top = profiled_device(prof)
-    del prof
-    profile_s = time.perf_counter() - t_read
-
-    # the eager apply, every K1 call held against its plain version
-    calls = []
-    max_err = torch.zeros((), dtype=torch.int32, device="cuda")
-    real = tq.residual_pipeline
-
-    def record(q, qp, use_dst=False, bit_inc=0):
-        nonlocal max_err
-        got = real(q, qp, use_dst, bit_inc)
-        plain = tq.residual_pipeline_plain(q, qp, use_dst, bit_inc)
-        max_err = torch.maximum(max_err, (got.to(torch.int32)
-                                          - plain.to(torch.int32))
-                                .abs().max())
-        calls.append(tuple(q.shape))
-        return got
-    tq.residual_pipeline = record
-    residual_kernel.launches = 0
+    kernel, graph_out = timed(False, 3)
+    kernel.update(profiled(False))
+    check(kernel["apply_step_kernels"] == n_steps + warm_up,
+          f"{kernel['apply_step_kernels']} apply kernels on the device for "
+          f"{n_steps} class steps and {warm_up} warm-ups")
+    # the kernel's eager run: its loop span is the launches' time with the
+    # host's issue in it
+    counts = apply_kernel.launches
     torch.cuda.synchronize()
+    r, eager_out = run(False)
+    kernel["eager_loop_span_ms"] = r.loop_events[0].elapsed_time(
+        r.loop_events[1])
+    check(apply_kernel.launches - counts == n_steps,
+          f"{apply_kernel.launches - counts} apply launches for the eager "
+          f"apply's {n_steps} class steps")
+    plain, plain_out = timed(True, 1)
+    plain.update(profiled(True))
     t = time.perf_counter()
-    try:
-        _r, eager_out = run(False)
-    finally:
-        tq.residual_pipeline = real
-    eager_wall = time.perf_counter() - t
-    k1_err = int(max_err)
-    check(len(calls) == residual_kernel.launches == k1_per_frame,
-          f"{len(calls)} K1 calls recorded, {residual_kernel.launches} "
-          f"launches, {k1_per_frame} expected")
-    check(k1_err == 0, f"K1 != plain inside the apply (max abs err "
-          f"{k1_err})")
-    graph_err = 0
-    for g, e in zip(graph_out[:3] + graph_out[3] + graph_out[4],
-                    eager_out[:3] + eager_out[3] + eager_out[4]):
-        if g is not None:
-            graph_err = max(graph_err, int(np.abs(
-                g.astype(np.int32) - e.astype(np.int32)).max()))
-    check(graph_err == 0, f"graph-replayed apply != eager apply (max abs "
-          f"err {graph_err})")
+    _r, cpu_out = run(False, True, "cpu")
+    cpu_wall = time.perf_counter() - t
+    errs = dict(graph_vs_plain=max_err(graph_out, plain_out),
+                eager_vs_plain=max_err(eager_out, plain_out),
+                graph_vs_cpu=max_err(graph_out, cpu_out),
+                plain_vs_cpu=max_err(plain_out, cpu_out))
+    check(not any(errs.values()), f"the kernel apply differs: {errs}")
 
-    # the bytes a class step must move: its window's records (6 int64
+    # the bytes a class step moves: its window's records (6 int64
     # fields), and per record and plane the reference line read (4s+1
     # int16), the source window read, the recon and the levels written
     # (s*s int16 each)
@@ -2079,29 +2167,19 @@ def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
         per_plane = 2 * (4 * size + 1) + 3 * 2 * size * size
         return sched.caps[ci] * (6 * 8 + (1 if luma else 2) * per_plane)
     total = sum(n * step_bytes(ci) for ci, n in steps.items())
-    n_steps = sum(steps.values())
-    wall = sorted(walls)[1]
+    nbytes, ops, bound_ms, bound_by = apply_bound(sched)
     out = dict(
         waves=sched.n_waves, class_steps=n_steps,
         class_steps_by_class={str(fast_apply.CLS[ci][:2]): n
                               for ci, n in steps.items()},
         caps=list(sched.caps), records=list(sched.counts),
-        wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
-        setup_ms=[1000 * v for v in setup],
-        issue_ms=[1000 * v for v in issue],
-        issue_us_per_wave=1e6 * sorted(issue)[1] / sched.n_waves,
-        loop_span_ms=loop, profile_read_s=profile_s,
-        profiled_wall_ms=1000 * prof_wall,
-        device_ms=device_us / 1000, device_kernels=n_kernels,
-        kernels_per_class_step=n_kernels / n_steps,
-        top_kernels_ms=top, device_busy_share=device_us / 1e6 / prof_wall,
-        eager_checked_wall_ms=1000 * eager_wall, k1_launches=k1_per_frame,
-        k1_warm_up_launches=k1_warm_up,
-        k1_max_abs_err=k1_err, graph_vs_eager_max_abs_err=graph_err,
-        bytes_per_frame=total, bytes_per_class_step=total / n_steps,
-        hbm_bound_ms=1000 * total / HBM_BYTES_S,
-        device_share_of_bound=1000 * total / HBM_BYTES_S
-        / max(device_us / 1000, 1e-9))
+        kernel=kernel, plain=plain, cpu_plain_wall_s=cpu_wall,
+        apply_launches=n_steps, apply_warm_up_launches=warm_up,
+        max_abs_err=errs, window_bytes_per_frame=total,
+        window_bytes_per_class_step=total / n_steps,
+        bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
+        graph_share_of_bound=bound_ms / max(
+            sorted(kernel["loop_span_ms"])[1], 1e-9))
     print("fastrd_devapply_frame " + json.dumps(out))
     return out
 
@@ -2424,13 +2502,13 @@ def resume_rc_phase(torch, work: Path) -> dict:
     device-apply encode under rate control on ``cuda`` against the CPU,
     and one ``fastrd_quality`` sweep on ``cuda``."""
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
-    from thevc_tpu_torch.ops import filters_kernel, mc_kernel, \
-        residual_kernel, satd_kernel
+    from thevc_tpu_torch.ops import apply_kernel, filters_kernel, \
+        mc_kernel, residual_kernel, satd_kernel
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
     residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
     mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
-    filters_kernel.launches = 0
+    filters_kernel.launches = apply_kernel.launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -2506,7 +2584,9 @@ def resume_rc_phase(torch, work: Path) -> dict:
               f"the rate-controlled {name} encode: {rep}")
         if extra:
             check(rep["device_apply_frames"] == frames
-                  and rep["device_apply_fallback_frames"] == 0,
+                  and rep["device_apply_fallback_frames"] == 0
+                  and rep["apply_launches"]
+                  >= rep["device_apply_class_steps"] > 0,
                   f"the rate-controlled {name} encode: {rep}")
         got, dlog = checked_decode("cuda", rc_cuda[0])
         check(not isinstance(got, str) and len(got) == frames
@@ -2537,7 +2617,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
         if extra:
             row.update({k: rep[k] for k in (
                 "device_apply_waves", "device_apply_class_steps",
-                "device_apply_wall_s")})
+                "device_apply_wall_s", "apply_launches")})
         out["rc"][name] = row
         print(f"resume_rc_rc_{name} " + json.dumps(row))
 
@@ -2553,7 +2633,8 @@ def resume_rc_phase(torch, work: Path) -> dict:
                        "mc": mc_kernel.launches,
                        "mc_blocks": mc_kernel.blocks_launches,
                        "mc_qpel": mc_kernel.qpel_launches,
-                       "filters": filters_kernel.launches}
+                       "filters": filters_kernel.launches,
+                       "apply": apply_kernel.launches}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -2596,12 +2677,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from thevc_tpu_torch.ops import build, filters_kernel, mc_kernel, \
-        residual_kernel, satd, satd_kernel, tq
+    from thevc_tpu_torch.ops import apply_kernel, build, filters_kernel, \
+        mc_kernel, residual_kernel, satd, satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
-    kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel)
+    kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel,
+               apply_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -2666,10 +2748,11 @@ def main() -> int:
         "fastrd_inter_decode": {
             "filters": fast_inter["decode_filters_launches"]},
         "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
-                                   "satd": devapply["satd_launches"]},
+                                   "satd": devapply["satd_launches"],
+                                   "apply": devapply["apply_launches"]},
         "fastrd_devapply_decode": {
             "filters": devapply["decode_filters_launches"]},
-        "fastrd_devapply_nxn": {"residual": nxn["residual_launches"]},
+        "fastrd_devapply_nxn": {"apply": nxn["apply_launches"]},
         **{f"{k}_decode": {"residual": v["residual"],
                            "filters": v["filters"]}
            for k, v in parts.items()},
@@ -2694,14 +2777,19 @@ def main() -> int:
         mc_blocks=fast_inter["mc_blocks_launches"],
         mc_qpel=fast_inter["mc_qpel_launches"])
     print("launches by path " + json.dumps(by_path))
+    # the apply kernel, one launch a class step (Cb and Cr in one); its
+    # times: the recorded 1080p frame's wave loop, the loop's span in CUDA
+    # events, eager (``ms``, host issue included) and graph-replayed, and
+    # the plain form's graph-replayed span of the same frame (no PyTorch
+    # call does HM's intra TU apply, so library_ms is null)
+    frame_apply = devapply["frame"]
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/residual.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
         "launches": sum(p.get("residual", 0) for p in by_path.values()),
         "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"],
-                           fast_inter["pass"]["max_abs_err"]["residual"],
-                           devapply["frame"]["k1_max_abs_err"]),
+                           fast_inter["pass"]["max_abs_err"]["residual"]),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None}, {
@@ -2756,7 +2844,17 @@ def main() -> int:
         "ms": filt["intra"]["ms"], "graph_ms": filt["intra"]["graph_ms"],
         "plain_ms": filt["intra"]["plain_ms"],
         "bound_ms": filt["intra"]["bound_ms"],
-        "bound_by": filt["intra"]["bound_by"], "library_ms": None}]}))
+        "bound_by": filt["intra"]["bound_by"], "library_ms": None}, {
+        "name": "apply", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/apply.cu",
+        "replaces": "thevc_tpu/encoder/fast_apply.py:729",
+        "launches": sum(p.get("apply", 0) for p in by_path.values()),
+        "max_abs_err": max(frame_apply["max_abs_err"].values()),
+        "ms": frame_apply["kernel"]["eager_loop_span_ms"],
+        "graph_ms": sorted(frame_apply["kernel"]["loop_span_ms"])[1],
+        "plain_ms": frame_apply["plain"]["loop_span_ms"][0],
+        "bound_ms": frame_apply["bound_ms"],
+        "bound_by": frame_apply["bound_by"], "library_ms": None}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

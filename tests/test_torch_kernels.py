@@ -806,11 +806,13 @@ def test_wp_and_scaling_decode_cuda_equals_cpu(cuda, tmp_path, cfg, extra):
 def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
     """The fast-RD device apply of a 128x64 frame: replayed as CUDA
     graphs, eager on ``cuda`` and on the CPU, the same recon and level
-    stacks (tolerance 0), and the residual kernel counted once per
-    launch: eager, in each replay, and in the warm-up step before each
-    capture (the capture itself launches nothing)."""
+    stacks (tolerance 0), and the apply kernel counted once per launch,
+    one a class step (Cb and Cr in one): eager, in each replay, and in the
+    warm-up step before each capture (the capture itself launches
+    nothing); the residual kernel (the plain form's) not at all."""
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.ops import apply_kernel
     rng = np.random.RandomState(29)
     w, h, qp = 128, 64, 27
     planes = [np.clip(np.add.outer(np.arange(hh) * 3, np.arange(ww) * 2)
@@ -829,17 +831,16 @@ def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
     for name, device, replay in (("cpu", "cpu", False),
                                  ("eager", cuda, False),
                                  ("graph", cuda, True)):
-        before = residual_kernel.launches
+        before = (apply_kernel.launches, residual_kernel.launches)
         run = fast_apply.run_device_apply(*args, device=device,
                                           replay=replay)
         outs[name] = fast_apply.collect_device_apply(run)
         if name != "cpu":
-            per_step = [1 if luma else 2 for _, luma, _ in fast_apply.CLS]
             steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
-            warm_up = sum(k for k, n in zip(per_step, steps) if n)
-            assert residual_kernel.launches - before == sum(
-                k * n for k, n in zip(per_step, steps)) \
+            warm_up = sum(1 for n in steps if n)
+            assert apply_kernel.launches - before[0] == sum(steps) \
                 + (warm_up if replay else 0)
+            assert residual_kernel.launches == before[1]
     for name in ("eager", "graph"):
         got, want = outs[name], outs["cpu"]
         for g, e in zip(got[:3] + got[3] + got[4],
@@ -853,10 +854,11 @@ def test_device_apply_nxn_classes_on_cuda(cuda, use_rdoq):
     """The device apply on maps with NxN CUs, so that every class of
     ``fast_apply.CLS`` runs, the 4x4 luma DST class (4, True, True)
     included: replayed as CUDA graphs and eager on ``cuda``, equal to the
-    CPU (tolerance 0), with the residual kernel counted as in
+    CPU (tolerance 0), with the apply kernel counted as in
     ``test_device_apply_replay_equals_eager_and_cpu``."""
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.ops import apply_kernel
     from thevc_tpu_torch.streams import nxn_frame
     w, h, qp = 128, 64, 32
     planes, maps = nxn_frame(np.random.RandomState(24), w, h)
@@ -874,17 +876,16 @@ def test_device_apply_nxn_classes_on_cuda(cuda, use_rdoq):
     for name, device, replay in (("cpu", "cpu", False),
                                  ("eager", cuda, False),
                                  ("graph", cuda, True)):
-        before = residual_kernel.launches
+        before = (apply_kernel.launches, residual_kernel.launches)
         run = fast_apply.run_device_apply(*args, device=device,
                                           replay=replay)
         outs[name] = fast_apply.collect_device_apply(run)
         assert run.n_waves == sched.n_waves
         if name != "cpu":
-            per_step = [1 if luma else 2 for _, luma, _ in fast_apply.CLS]
-            warm_up = sum(per_step)
-            assert residual_kernel.launches - before == sum(
-                k * n for k, n in zip(per_step, steps)) \
+            warm_up = len(steps)
+            assert apply_kernel.launches - before[0] == sum(steps) \
                 + (warm_up if replay else 0)
+            assert residual_kernel.launches == before[1]
     for name in ("eager", "graph"):
         got, want = outs[name], outs["cpu"]
         for g, e in zip(got[:3] + got[3] + got[4],

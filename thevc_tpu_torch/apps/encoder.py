@@ -14,8 +14,10 @@ is used only when ``--device cpu`` asks for it).  ``--device-apply``
 runs the apply of the intra slices on that device as well
 (``encoder.fast_apply``; the host apply otherwise).  The last line of
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual and SATD kernels and of the MC kernel's two entries that the
-P/B pass calls (blocks and quarter-pel), the plain MC's calls (none on
+residual and SATD kernels, of the MC kernel's two entries that the P/B
+pass calls (blocks and quarter-pel) and of the device apply's kernel
+(``apply_launches``, one a class step; the residual kernel's launches
+are then the decision passes' alone), the plain MC's calls (none on
 ``cuda``),
 the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
@@ -31,7 +33,7 @@ import json
 import sys
 
 from ..encoder.top import DecisionStats, Encoder
-from ..ops import mc, mc_kernel, residual_kernel, satd_kernel
+from ..ops import apply_kernel, mc, mc_kernel, residual_kernel, satd_kernel
 from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
@@ -54,7 +56,7 @@ def main(argv=None) -> int:
               "-wdt W -hgt H -f N -fr FPS]", file=sys.stderr)
         return 1
     before = {"residual": residual_kernel.launches,
-              "satd": satd_kernel.launches,
+              "satd": satd_kernel.launches, "apply": apply_kernel.launches,
               "mc_blocks": mc_kernel.blocks_launches,
               "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches}
     device = resolve(args.device) if cfg.fast_rd else None
@@ -73,6 +75,7 @@ def main(argv=None) -> int:
         "device": args.device,
         "residual_launches": residual_kernel.launches - before["residual"],
         "satd_launches": satd_kernel.launches - before["satd"],
+        "apply_launches": apply_kernel.launches - before["apply"],
         "mc_blocks_launches": mc_kernel.blocks_launches
         - before["mc_blocks"],
         "mc_qpel_launches": mc_kernel.qpel_launches - before["mc_qpel"],

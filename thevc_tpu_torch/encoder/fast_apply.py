@@ -18,24 +18,29 @@ host keeps the entropy coding.
    DST at 4; chroma 4/8/16), sorted by wave.
 2. The wave loop runs on the host over ``n_waves``; the schedule's
    offsets live there, so a class with no record in a wave is skipped
-   without asking the device.  Each class step (``_class_step``) takes a
-   fixed-size window of its class's records from a start offset that it
-   reads from a device tensor, gathers the reference lines out of the
-   evolving recon plane, predicts (``_predict_batch``), transforms
-   (``ops.tq.forward_transform``, float64 and exact), quantises
-   (``_rdoq_batch`` or ``ops.tq.quant``), hides sign bits
-   (``_sbh_batch``), dequantises and inverse-transforms through
-   ``ops.tq.residual_pipeline`` (on a CUDA tensor the residual kernel,
-   K1, whose dense entry launches on the current stream), adds and clips,
-   and scatters recon into the plane and levels into flat per-record
-   stacks.  Window entries past the wave recompute harmlessly later: a
-   region is never read before its own wave has run.
+   without asking the device.  Each class step takes a fixed-size window
+   of its class's records from a start offset that it reads from a
+   device tensor, gathers the reference lines out of the evolving recon
+   plane, predicts, transforms, quantises (RDOQ or plain), hides sign
+   bits, dequantises and inverse-transforms, adds and clips, and writes
+   recon into the plane and levels into flat per-record stacks.  Window
+   entries past the wave recompute harmlessly later: a region is never
+   read before its own wave has run.  ``_class_step`` dispatches on the
+   device: on ``cuda`` one launch of the hand-written kernel
+   (``ops.apply_kernel``, ``csrc/apply.cu``; Cb and Cr of a chroma step
+   in the same launch), on the CPU the plain form, ``_class_step_plain``
+   for each plane: ``_predict_batch``, ``ops.tq.forward_transform``
+   (float64 and exact), ``_rdoq_batch`` or ``ops.tq.quant``,
+   ``_sbh_batch`` and ``ops.tq.residual_pipeline``.  The plain form runs
+   on ``cuda`` only through ``run_device_apply_plain``, the yardstick the
+   tests and ``chip_smoke.py`` hold the kernel to (its residual step is
+   then the residual kernel, K1).
 3. On ``cuda`` each class step is captured once per frame as a CUDA
-   graph and replayed per wave; the graph reads its window's start
-   through a per-class device counter that it advances itself, so the
-   loop issues one graph launch a class and wave and never waits for the
-   device.  On ``cpu`` the same step runs eagerly; on ``cuda`` the eager
-   step is the plain version the graphs are held against.
+   graph and replayed per wave; the step reads its window's start
+   through a per-class device counter that it advances itself (the
+   kernel's last CTA to finish does), so the loop issues one graph
+   launch a class and wave and never waits for the device.  On ``cpu``
+   the same step runs eagerly.
 4. One device-to-host copy brings the recon planes (int16, the planes'
    own type) and the level stacks back; ``assemble_coeff_planes``
    scatters the levels into the frame's coefficient planes, and the
@@ -79,15 +84,14 @@ import numpy as np
 import torch
 
 from ..common import rom
-from ..ops import residual_kernel, tq
+from ..common.tables import from_reference
+from ..ops import apply_kernel, residual_kernel, tq
 from ..ops.intra import (DC_IDX, HOR_IDX, INTRA_FILTER_THRESH, PLANAR_IDX,
                          VER_IDX)
-from .fast_intra import _plan_tensors, _predict_mode, _smooth
+from .fast_intra import _plan_tensors, _predict_mode, _smooth, _unified_plan
 
-# class table: (size, is_luma, use_dst)
-CLS = ((4, True, True), (8, True, False), (16, True, False),
-       (32, True, False), (4, False, False), (8, False, False),
-       (16, False, False))
+# class table: (size, is_luma, use_dst), the kernel's
+CLS = apply_kernel.CLASSES
 GUARD = 48          # bottom/right guard so edge gathers stay in-bounds
 
 
@@ -294,7 +298,7 @@ def est_bits_pack(init_ctx: np.ndarray, size: int, luma: bool):
 # the reference reads them with masked selects (``_take_small``) that give
 # 0 past the table's end, and its greater-2 context proxy reaches past the
 # end (luma contexts 4-5 of a 4-entry table, chroma 2-3 of 2)
-_CTX_PAD = 16
+_CTX_PAD = apply_kernel.CTX_PAD
 
 
 @functools.lru_cache(maxsize=None)
@@ -343,6 +347,28 @@ def est_bits_tensors(init_ctx: np.ndarray, size: int, luma: bool,
     ``init_ctx`` on ``device`` (cached)."""
     return _est_bits_tensors(np.ascontiguousarray(init_ctx, np.uint8)
                              .tobytes(), size, luma, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_tables(ci: int, device: torch.device) -> dict:
+    """The static tables the apply kernel reads for class ``ci``, int32
+    on ``device`` (cached): the transform basis [s, s] (DST at 4x4 luma),
+    the angular gather plans [3, 33, s*s] (``fast_intra._unified_plan``:
+    idx_a, idx_b, frac), the scans [3, s*s] (coefficient order ->
+    raster), the right and lower CG neighbours [3, ncg] (``ncg`` = none)
+    and the quant and dequant scales [6]."""
+    size, luma, use_dst = CLS[ci]
+    tab = from_reference(device)
+    _sig, rgt, low = _rdoq_tables(size, luma)[:3]
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(device)
+    return dict(basis=tab.basis(size, use_dst),
+                plan=dev(np.stack(_unified_plan(size, luma))
+                         .reshape(3, 33, size * size)),
+                scan=dev(_scan_tables(size)), rgt=dev(rgt), low=dev(low),
+                quant_scales=tab.quant_scales,
+                inv_quant_scales=tab.inv_quant_scales)
 
 
 # ---------------------------------------------------------------------------
@@ -746,9 +772,9 @@ def _sbh_batch(levels, src, du, scan_sel, size: int):
     return out.reshape(nb, size, size).to(levels.dtype)
 
 
-def _class_step(rec, lv, org_wins, flat, idx, qp: int, qp_vec, ci: int,
-                lam: float, ebt, bit_inc: int, max_val: int,
-                sign_hide: bool, use_rdoq: bool) -> None:
+def _class_step_plain(rec, lv, org_wins, flat, idx, qp: int, qp_vec,
+                      ci: int, lam: float, ebt, bit_inc: int, max_val: int,
+                      sign_hide: bool, use_rdoq: bool) -> None:
     """One wave step of one size class and plane, in place, for the window
     records ``idx`` ([cap] int64, a device tensor): gather the reference
     lines out of the evolving recon plane ``rec`` (int16 [H, W], one row
@@ -815,6 +841,57 @@ def _class_step(rec, lv, org_wins, flat, idx, qp: int, qp_vec, ci: int,
     lv.index_copy_(0, idx, levels.to(lv.dtype))
 
 
+class ClassStep:
+    """One size class's wave step of a frame: the class ``ci``, its
+    planes (rec, lv, wins, scaled qp, qp for each window record, lambda;
+    Cb then Cr for a chroma class), the records on the device (``flat``:
+    six int64 fields), the window starts of the waves it runs
+    (``starts``), the device counter of the next one (``k``), the window's
+    rows ([cap] int64), the RDOQ bit tables (``ebt``, None without RDOQ),
+    the kernel's done count (``done``) and the frame's statics."""
+    __slots__ = ("ci", "planes", "flat", "starts", "k", "rows", "ebt",
+                 "done", "bit_inc", "max_val", "sign_hide", "use_rdoq")
+
+    def __init__(self, ci, planes, flat, starts, rows, ebt, bit_inc,
+                 max_val, sign_hide, use_rdoq):
+        device = planes[0][0].device
+        self.ci, self.planes, self.flat = ci, planes, flat
+        self.starts, self.rows, self.ebt = starts, rows, ebt
+        self.k = torch.zeros(1, dtype=torch.int64, device=device)
+        self.done = torch.zeros(1, dtype=torch.int32, device=device)
+        self.bit_inc, self.max_val = bit_inc, max_val
+        self.sign_hide, self.use_rdoq = sign_hide, use_rdoq
+
+
+def _step_plain(st: ClassStep) -> None:
+    """The plain form of a class step on any device: ``_class_step_plain``
+    for each plane, then the counter advanced."""
+    idx = st.starts.index_select(0, st.k) + st.rows
+    for rec, lv, wins, qp, qp_vec, lam in st.planes:
+        _class_step_plain(rec, lv, wins, st.flat, idx, qp, qp_vec, st.ci, lam,
+                          st.ebt, st.bit_inc, st.max_val, st.sign_hide,
+                          st.use_rdoq)
+    st.k.add_(1)
+
+
+def _class_step(st: ClassStep) -> None:
+    """One class step, in place, its counter advanced: on a CUDA device
+    one launch of the apply kernel (raises if it cannot build or launch),
+    on the CPU the plain form; any other device raises ``ValueError``.
+    Queues device work only: no host sync."""
+    device = st.planes[0][0].device
+    if device.type == "cpu":
+        _step_plain(st)
+        return
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    apply_kernel.class_step(
+        st.ci, [(rec, lv, wins, qp, lam)
+                for rec, lv, wins, qp, _qv, lam in st.planes],
+        st.flat, st.starts, st.k, st.done, kernel_tables(st.ci, device),
+        st.ebt, len(st.rows), st.bit_inc, st.max_val, st.sign_hide)
+
+
 # ---------------------------------------------------------------------------
 # the frame: upload, wave loop, fetch
 # ---------------------------------------------------------------------------
@@ -839,34 +916,42 @@ class ApplyRun:
 _apply_lock = threading.Lock()
 
 
+# the kernels a captured step may hold, counted per replay
+_COUNTED = (residual_kernel, apply_kernel)
+
+
 def _capture(step, stream) -> tuple:
     """Warm ``step`` up on ``stream`` (tables, library handles), then
-    capture it as a CUDA graph there.  Returns the graph and the residual
-    kernel launches it holds (the capture itself launches nothing)."""
+    capture it as a CUDA graph there.  Returns the graph and the launches
+    of each module of ``_COUNTED`` it holds (the capture itself launches
+    nothing)."""
     with torch.cuda.stream(stream):
         step()
     graph = torch.cuda.CUDAGraph()
-    before = residual_kernel.captured
+    before = [m.captured for m in _COUNTED]
     with torch.cuda.stream(stream):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             step()
         finally:
             graph.capture_end()
-    return graph, residual_kernel.captured - before
+    return graph, [m.captured - b for m, b in zip(_COUNTED, before)]
 
 
 def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
                      qp_y, qp_cb, qp_cr, ctu_size, bit_inc, max_val,
                      sign_hide, use_rdoq=False, lam_y=1.0, lam_c=1.0,
-                     init_ctx=None, *, device, replay=None) -> ApplyRun:
+                     init_ctx=None, *, device, replay=None,
+                     plain=False) -> ApplyRun:
     """Queue the wavefront apply of one frame on ``device`` and return
     its ``ApplyRun`` for ``collect_device_apply``.  ``replay`` captures
     each class step as a CUDA graph and replays it per wave (default: on
-    a CUDA device; the eager steps otherwise).  The arguments after the
-    schedule are the reference's: frame size, scaled QPs, CTU size, bit
-    increment, largest sample value, sign hiding, RDOQ with its float32
-    lambdas and slice-init context states."""
+    a CUDA device; the eager steps otherwise).  A step is ``_class_step``
+    (on ``cuda`` the kernel, one launch), or with ``plain`` (use
+    ``run_device_apply_plain``) the plain form on any device.  The
+    arguments after the schedule are the reference's: frame size, scaled
+    QPs, CTU size, bit increment, largest sample value, sign hiding, RDOQ
+    with its float32 lambdas and slice-init context states."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if replay is None:
@@ -904,6 +989,7 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
     rec_cr = zeros(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)
     lvs, lvs_cr, counters, steps = [], [], [], {}
     active = [np.nonzero(np.diff(o))[0] for o in sched.offs]
+    run_one = _step_plain if plain else _class_step
     for ci, (s, luma, _) in enumerate(CLS):
         n_flat = len(sched.flat[ci][0])
         lvs.append(zeros(n_flat, s, s))
@@ -913,11 +999,11 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
         cap = sched.caps[ci]
         flat = tuple(up(a.astype(np.int64)) for a in sched.flat[ci])
         starts = up(sched.offs[ci][active[ci]].astype(np.int64))
-        k = torch.zeros(1, dtype=torch.int64, device=device)
-        counters.append(k)
         rows = torch.arange(cap, device=device)
         ebt = (est_bits_tensors(init_ctx, s, luma, device) if use_rdoq
                else None)
+        if device.type == "cuda" and not plain:
+            kernel_tables(ci, device)       # uploaded before any capture
         if luma:
             planes = [(rec_y, lvs[ci], windows(oy, ci), qp_y, lam_y)]
         else:
@@ -926,15 +1012,10 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
         planes = [(rec, lv, wins, qp,
                    torch.full((cap,), qp, dtype=torch.int32, device=device),
                    lam) for rec, lv, wins, qp, lam in planes]
-
-        def step(ci=ci, planes=planes, flat=flat, starts=starts, k=k,
-                 rows=rows, ebt=ebt):
-            idx = starts.index_select(0, k) + rows
-            for rec, lv, wins, qp, qp_vec, lam in planes:
-                _class_step(rec, lv, wins, flat, idx, qp, qp_vec, ci, lam,
-                            ebt, bit_inc, max_val, sign_hide, use_rdoq)
-            k.add_(1)
-        steps[ci] = step
+        st = ClassStep(ci, planes, flat, starts, rows, ebt, bit_inc,
+                       max_val, sign_hide, use_rdoq)
+        counters += [st.k, st.done]
+        steps[ci] = functools.partial(run_one, st)
 
     graphs, per_replay = {}, {}
     if replay:
@@ -964,8 +1045,9 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
     for classes in wave_classes:
         for ci in classes:
             run_step[ci]()
-    residual_kernel.replayed(sum(n * active[ci].size
-                                 for ci, n in per_replay.items()))
+    for j, m in enumerate(_COUNTED):
+        m.replayed(sum(n[j] * active[ci].size
+                       for ci, n in per_replay.items()))
     t2 = time.perf_counter()
     if loop_events is not None:
         loop_events[1].record()
@@ -982,6 +1064,12 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
     run.n_waves = sched.n_waves
     run.class_steps = sum(len(c) for c in wave_classes)
     return run
+
+
+def run_device_apply_plain(*args, **kwargs) -> ApplyRun:
+    """``run_device_apply`` with every class step in the plain form, on
+    any device: the yardstick of the kernel on ``cuda``."""
+    return run_device_apply(*args, **kwargs, plain=True)
 
 
 def collect_device_apply(run: ApplyRun):

@@ -29,6 +29,9 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thevc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source only: the apply kernel ranks float32 costs in the
+# plain form's order, so no multiply-add may be contracted
+SOURCE_FLAGS = {"apply": ("-fmad=false",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -47,11 +50,16 @@ def _nvcc() -> str:
     return str(path)
 
 
+def flags(name: str) -> tuple:
+    """The nvcc flags of ``csrc/<name>.cu``."""
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` lives."""
     src = CSRC / f"{name}.cu"
     digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
@@ -64,7 +72,7 @@ def compile_source(name: str) -> Path:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         src = CSRC / f"{name}.cu"
         tmp = so.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+        r = subprocess.run([_nvcc(), *flags(name), "-o", str(tmp), str(src)],
                            capture_output=True, text=True)
         so.with_suffix(".log").write_text(r.stdout + r.stderr)
         if r.returncode != 0:
