@@ -7,7 +7,7 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
-   residual, SATD, MC, in-loop filters, the device apply's class step),
+   residual, SATD, MC, in-loop filters, the device apply's frame kernel),
    one nvcc for each source, all started together.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
@@ -161,40 +161,43 @@ Run from the root of a checkout on a machine with a CUDA card:
 11. Device-apply phase (``fastrd_devapply``), the fast-RD slice's main
    path: encodes the 1080p all-intra clip with ``--FastRD=1 --device
    cuda --device-apply`` at QP 32 (SAO, RDOQ on) in a child process whose
-   report gives the kernels' launches (the apply kernel's, one a class
-   step and a warm-up a class and frame; K1's, the decision passes'
-   alone), the device-apply frames (8, none left to the host apply),
-   waves, class steps and wall; decodes it on ``cuda`` and on the CPU
-   (8/8 digests OK, recon byte-identical to the encoder's); reports its
-   wall beside the fast-RD phase's host-apply encode of the same clip and
-   ``fastrd_devapply_bits_overhead_pct`` (100 x (device-apply bytes /
-   host-apply bytes - 1)) with the luma PSNR difference.  Then one
-   frame's apply in this process, from the call an in-process 1-frame
-   encode made (its stage walls printed), with the apply kernel
-   (``csrc/apply.cu``: a class step one launch, a CTA a record and plane,
-   Cb and Cr in one launch) and with the plain form
-   (``fast_apply.run_device_apply_plain``) on ``cuda``: for the kernel a
-   warm-up and three synchronised graph-replayed runs (host setup and
-   issue time, issue a wave, the loop's span in CUDA events, the kernel
-   counted once a replayed class step and warm-up, K1 never), one under
-   ``torch.profiler`` (kernels only: device time, kernels a class step)
-   and one eager run (one launch a class step; its loop span the kernels
-   line's ``ms``); for the plain form one graph-replayed run and one
-   under the profiler, the same figures; then the plain form on the CPU.
-   The kernel apply, replayed and eager, equals the plain form on
-   ``cuda`` and the CPU's (recon and every level stack, tolerance 0);
-   the bytes each class step's window moves, and the frame's bound (each
-   record once: its fields, reference lines, source windows, recon and
-   levels over HBM's rate; the four transform passes' multiply-adds at
-   the int32 rate).  Last, the 416x240 identity encodes, all at once:
-   RDOQ and the top-2 re-rank off, ``cuda`` (frames in threads), ``cpu``
-   and the host apply byte-identical; RDOQ on, ``cuda`` == ``cpu`` at
-   QP 27 and 37.  Then ``fastrd_devapply_nxn``: the device apply on a
-   seeded 128x64 frame with NxN CUs (``streams.nxn_frame``), where every
-   class of ``fast_apply.CLS`` must run through the kernel, the 4x4 luma
-   class included (one launch a class step and a warm-up a class, no
-   K1), replayed as CUDA graphs on ``cuda`` and equal to the plain form
-   on ``cuda`` and to the CPU.
+   report gives the kernels' launches (the apply kernel's, one a frame;
+   K1's, the decision passes' alone), the device-apply frames (8, none
+   left to the host apply), waves, class steps and wall; decodes it on
+   ``cuda`` and on the CPU (8/8 digests OK, recon byte-identical to the
+   encoder's); reports its wall beside the fast-RD phase's host-apply
+   encode of the same clip and ``fastrd_devapply_bits_overhead_pct``
+   (100 x (device-apply bytes / host-apply bytes - 1)) with the luma
+   PSNR difference.  Then one frame's apply in this process, from the
+   call an in-process 1-frame encode made (its stage walls printed),
+   with the frame kernel (``csrc/apply.cu``: one persistent launch a
+   frame, CTAs taking the frame's items by ticket, each item waiting
+   only for the units under its reference range) and with the plain
+   form (``fast_apply.run_device_apply_plain``, a CUDA graph a class
+   step replayed per wave) on ``cuda``: for the kernel a warm-up and
+   three synchronised runs (wall, host setup and issue time, the
+   launch's span in CUDA events, one apply launch and no K1 each, the
+   error word 0 and the items that waited), one under ``torch.profiler``
+   (device time, the frame kernel's own time, one ``apply_frame`` kernel
+   a frame); each class's body latency (a one-item list of the frame,
+   the ready maps set, 50 launches in a CUDA graph, less the same of an
+   empty list) and the frame's critical path modelled from the schedule
+   at those latencies (a TU starts when the writers of the units under
+   its range are done) beside the wave-barrier and class-step models;
+   for the plain form one graph-replayed run and one under the profiler,
+   the same figures; then the plain form on the CPU.  The kernel apply
+   equals the plain form on ``cuda`` and the CPU's (recon and every
+   level stack, tolerance 0); the frame's bound (each record once: its
+   fields, reference lines, source windows, recon and levels over HBM's
+   rate; the four transform passes' multiply-adds at the int32 rate).
+   Last, the 416x240 identity encodes, all at once: RDOQ and the top-2
+   re-rank off, ``cuda`` (frames in threads), ``cpu`` and the host apply
+   byte-identical; RDOQ on, ``cuda`` == ``cpu`` at QP 27 and 37.  Then
+   ``fastrd_devapply_nxn``: the device apply on a seeded 128x64 frame
+   with NxN CUs (``streams.nxn_frame``), where every class of
+   ``fast_apply.CLS`` must run through the kernel, the 4x4 luma class
+   included (one launch for the frame, no K1), equal to the plain form
+   on ``cuda`` (graph-replayed) and to the CPU.
 12. A 128x64 tiles stream and WPP stream (32x32 CTUs; the encoder
    refuses both in one stream) decode on ``cuda`` with every digest OK
    and recon byte-identical to their encoders'.
@@ -252,7 +255,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    a 416x240 4-frame all-intra ``--FastRD=1 --RateCtrl=1
    --TargetBitrate=1000000 --device-apply`` encode on ``cuda`` and on the
    CPU, byte-identical, every frame decided and applied on the device
-   (the apply kernel launched at least once a class step),
+   (the apply kernel launched once a frame),
    digest-OK and recon-exact through the port's decoder on ``cuda``
    (per-frame QP and bits printed), and the same for a 3-frame low-delay
    B encode (``encoder_lowdelay_tlayers.cfg``, no device apply) whose
@@ -1854,10 +1857,9 @@ DEVAPPLY_JOBS = {
 def nxn_apply_phase(torch) -> dict:
     """The device apply on seeded maps with NxN CUs (no decision pass sets
     NxN, so the 1080p clip never runs the 4x4 luma class): every class of
-    ``fast_apply.CLS`` must run through the kernel, (4, True, True)
-    included, one launch a class step (and a warm-up a class) and no K1;
-    replayed as CUDA graphs on ``cuda``, equal to the plain form on
-    ``cuda`` and to the CPU (tolerance 0)."""
+    ``fast_apply.CLS`` must run through the frame kernel, (4, True, True)
+    included, one launch for the frame and no K1; equal to the plain form
+    on ``cuda`` (graph-replayed) and to the CPU (tolerance 0)."""
     import numpy as np
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
@@ -1872,17 +1874,22 @@ def nxn_apply_phase(torch) -> dict:
     args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True, True,
             lam, lam / 1.2, cc.make_context_states_idx(0, qp))
     before = (apply_kernel.launches, residual_kernel.launches)
-    got = fast_apply.collect_device_apply(fast_apply.run_device_apply(
-        *args, device="cuda", replay=True))
+    run = fast_apply.run_device_apply(*args, device="cuda")
+    got = fast_apply.collect_device_apply(run)
     launches = (apply_kernel.launches - before[0],
                 residual_kernel.launches - before[1])
-    check(launches == (sum(steps) + len(steps), 0),
-          f"the NxN apply launched {launches} (apply, K1) for "
-          f"{sum(steps)} class steps of {len(steps)} classes")
+    check(launches == (1, 0),
+          f"the NxN apply launched {launches} (apply, K1) for one frame")
+    ticket, error, waited = run.state.tolist()
+    check(error == 0, f"the NxN apply's error word is {error}")
+    classes = set((fast_apply.frame_items(
+        sched, fast_apply.level_layout(sched)[0])[:, 6] & 15).tolist())
+    check(classes == set(range(len(fast_apply.CLS))),
+          f"the NxN frame's items hold the classes {sorted(classes)}")
     plain = fast_apply.collect_device_apply(
         fast_apply.run_device_apply_plain(*args, device="cuda"))
     want = fast_apply.collect_device_apply(fast_apply.run_device_apply(
-        *args, device="cpu", replay=False))
+        *args, device="cpu"))
     for g, pl, e in zip(got[:3] + got[3] + got[4],
                         plain[:3] + plain[3] + plain[4],
                         want[:3] + want[3] + want[4]):
@@ -1892,6 +1899,7 @@ def nxn_apply_phase(torch) -> dict:
     out = {"classes": [list(c) for c in fast_apply.CLS],
            "tus_a_class": [int(c) for c in sched.counts],
            "steps_a_class": steps, "waves": sched.n_waves,
+           "items": run.n_items, "items_that_waited": waited,
            "apply_launches": launches[0], "residual_launches": launches[1],
            "equal_to_plain_and_cpu": True}
     print("fastrd_devapply_nxn " + json.dumps(out))
@@ -1911,8 +1919,9 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
     rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
                       "cuda", extra=("--device-apply",))
     check(rep["residual_launches"] > 0 and rep["satd_launches"] > 0
-          and rep["apply_launches"] >= rep["device_apply_class_steps"] > 0,
-          f"the device-apply encode skipped a kernel: {rep}")
+          and rep["apply_launches"] == FRAMES,
+          f"the device-apply encode skipped a kernel or launched the apply "
+          f"more than once a frame: {rep}")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
           and rep["device_apply_frames"] == FRAMES
@@ -2042,17 +2051,106 @@ def profiled_count(prof, *names) -> int:
                        for n in names))
 
 
+def apply_models(sched, latency_ms: dict) -> dict:
+    """The recorded frame's apply time (ms) modelled from its schedule at
+    each class's body latency (``latency_ms`` {class: ms}): ``chain``, a
+    TU starting when the writers of the units under its range are done
+    (``fast_apply.wait_units``, ``own_units``; luma and chroma apart, Cb
+    and Cr alike), the frame kernel's rule; ``waves``, a frame-wide
+    barrier a wave, its classes at once; ``class_steps``, each class step
+    of each wave in turn (the class-step kernel's order)."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_apply
+    # the unit grid: past the last unit any record writes
+    uh = uw = 0
+    for (size, luma, _), f, n in zip(fast_apply.CLS, sched.flat,
+                                     sched.counts):
+        if n:
+            ox, oy = fast_apply.own_units(f[0][:n], f[1][:n], size, luma)
+            uh, uw = max(uh, int(oy.max()) + 1), max(uw, int(ox.max()) + 1)
+    finish = {True: np.zeros((uh, uw)), False: np.zeros((uh, uw))}
+    waves_ms = steps_ms = 0.0
+    for w in range(sched.n_waves):
+        in_wave = []
+        for ci, (size, luma, _) in enumerate(fast_apply.CLS):
+            a, b = int(sched.offs[ci][w]), int(sched.offs[ci][w + 1])
+            if a == b:
+                continue
+            in_wave.append(latency_ms[ci])
+            xs, ys, lo, hi = (np.asarray(f[a:b]) for f in sched.flat[ci][:4])
+            ux, uy, under = fast_apply.wait_units(xs, ys, lo, hi, size, luma)
+            fin = finish[luma]
+            dep = np.where(under, fin[uy.clip(0, uh - 1), ux.clip(0, uw - 1)],
+                           0.0).max(axis=1)
+            ox, oy = fast_apply.own_units(xs, ys, size, luma)
+            fin[oy, ox] = (dep + latency_ms[ci])[:, None]
+        waves_ms += max(in_wave)
+        steps_ms += sum(in_wave)
+    return {"chain_ms": max(float(f.max()) for f in finish.values()),
+            "chain_luma_ms": float(finish[True].max()),
+            "chain_chroma_ms": float(finish[False].max()),
+            "waves_ms": waves_ms, "class_steps_ms": steps_ms}
+
+
+def body_latencies(torch, args, kwargs) -> dict:
+    """Each class's body latency on the card (ms): the frame kernel on a
+    one-item list (the class's first record on its first plane, every
+    ready flag set, the frame's tables), 50 launches in a CUDA graph,
+    less the same of an empty list; the median of 5 replays each."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_apply
+    from thevc_tpu_torch.ops import apply_kernel
+    (org_y, org_cb, org_cr, sched, width, height, qp_y, qp_cb, qp_cr, ctu,
+     bit_inc, max_val, sign_hide) = args
+    use_rdoq = kwargs.get("use_rdoq", False)
+    lam_y, lam_c = kwargs.get("lam_y", 1.0), kwargs.get("lam_c", 1.0)
+    init = kwargs.get("init_ctx")
+    dev = torch.device("cuda")
+    wp = -(-width // ctu) * ctu
+    hp = -(-height // ctu) * ctu
+    g = fast_apply.GUARD
+    recs = [torch.zeros((hp + 1 + g, wp + 1 + g), dtype=torch.int16,
+                        device=dev)] + [
+        torch.zeros((hp // 2 + 1 + g, wp // 2 + 1 + g), dtype=torch.int16,
+                    device=dev) for _ in range(2)]
+    orgs = [torch.from_numpy(np.ascontiguousarray(o, np.int16)).to(dev)
+            for o in (org_y, org_cb, org_cr)]
+    layout, n_lv = fast_apply.level_layout(sched)
+    items = fast_apply.frame_items(sched, layout)
+    lv = torch.zeros(n_lv, dtype=torch.int16, device=dev)
+    ready = torch.ones((3, hp // 4, wp // 4), dtype=torch.int32, device=dev)
+    state = torch.zeros(apply_kernel.STATE_WORDS, dtype=torch.int32,
+                        device=dev)
+    classes = sorted(set((items[:, 6] & 15).tolist()))
+    tables = {ci: fast_apply.kernel_tables(ci, dev) for ci in classes}
+    ebts = ({ci: fast_apply.est_bits_tensors(init, *fast_apply.CLS[ci][:2],
+                                             dev) for ci in classes}
+            if use_rdoq else None)
+    qps, lams = (qp_y, qp_cb, qp_cr), (lam_y, lam_c, lam_c)
+
+    def launcher(rows):
+        it = torch.from_numpy(np.ascontiguousarray(rows)).to(dev)
+        return lambda: apply_kernel.apply_frame(
+            it, recs, orgs, lv, ready, state, tables, ebts, qps, lams,
+            bit_inc, max_val, sign_hide)
+    empty = graph_ms(torch, launcher(items[:0]), 50)
+    out = {"empty_launch_ms": empty}
+    for ci in classes:
+        first = np.nonzero(items[:, 6] & 15 == ci)[0][0]
+        out[ci] = graph_ms(torch, launcher(items[first:first + 1]), 50) \
+            - empty
+    return out
+
+
 def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p frame's apply in this process, from the encoder's own
-    call, in both forms on ``cuda``: the kernel (one launch a class step)
-    and the plain form (``run_device_apply_plain``); for each, graph-
-    replayed walls (synchronised), the host's setup and issue time, the
-    loop's span in CUDA events and the device time under
-    ``torch.profiler`` (kernels a class step); the kernel's eager run
-    (its loop span the kernels line's ``ms``).  The kernel apply, replayed
-    and eager, equals the plain form on ``cuda`` and on the CPU (recon and
-    every level stack, tolerance 0); the bytes each class step moves and
-    the frame's bound."""
+    call, in both forms on ``cuda``: the frame kernel (one launch) and the
+    plain form (``run_device_apply_plain``, graph-replayed class steps);
+    for each, synchronised walls, the host's setup and issue time, the
+    span in CUDA events and the device time under ``torch.profiler``;
+    each class's body latency and the modelled critical path.  The
+    kernel apply equals the plain form on ``cuda`` and on the CPU (recon
+    and every level stack, tolerance 0); the frame's bound."""
     import numpy as np
     from thevc_tpu_torch.encoder import fast_apply
     from thevc_tpu_torch.ops import apply_kernel, residual_kernel
@@ -2061,42 +2159,42 @@ def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
     steps = {ci: int((np.diff(o) > 0).sum()) for ci, o in enumerate(
         sched.offs)}
     n_steps = sum(steps.values())
-    # a replayed apply launches each captured step once eagerly too (its
-    # warm-up)
-    warm_up = sum(1 for n in steps.values() if n)
     check(kwargs.get("use_rdoq"), "the recorded apply runs without RDOQ")
 
-    def run(replay, plain=False, device="cuda"):
+    def run(plain=False, device="cuda"):
         fn = fast_apply.run_device_apply_plain if plain \
             else fast_apply.run_device_apply
-        r = fn(*args, **dict(kwargs, replay=replay, device=device))
+        r = fn(*args, **dict(kwargs, device=device))
         return r, fast_apply.collect_device_apply(r)
 
     def timed(plain, reps):
-        walls, setup, issue, loop, out = [], [], [], [], None
+        walls, setup, issue, loop, waited, out = [], [], [], [], [], None
         for _ in range(reps):
             counts = (apply_kernel.launches, residual_kernel.launches)
             torch.cuda.synchronize()
             t = time.perf_counter()
-            r, out = run(True, plain)
+            r, out = run(plain)
             walls.append(time.perf_counter() - t)
             setup.append(r.setup_s)
             issue.append(r.issue_s)
             loop.append(r.loop_events[0].elapsed_time(r.loop_events[1]))
             got = (apply_kernel.launches - counts[0],
                    residual_kernel.launches - counts[1])
-            want = (0, None) if plain else (n_steps + warm_up, 0)
+            want = (0, None) if plain else (1, 0)
             check(got[0] == want[0] and (want[1] is None
                                          or got[1] == want[1]),
                   f"{got} apply and K1 launches counted for the "
                   f"{'plain' if plain else 'kernel'} apply, {want} "
                   "expected")
+            if not plain:
+                _ticket, error, n_waited = r.state.tolist()
+                check(error == 0, f"the frame kernel's error word is {error}")
+                waited.append(n_waited)
         return dict(wall_ms=[1000 * w for w in walls],
                     median_wall_ms=1000 * sorted(walls)[len(walls) // 2],
                     setup_ms=[1000 * v for v in setup],
                     issue_ms=[1000 * v for v in issue],
-                    issue_us_per_wave=1e6 * sorted(issue)[len(issue) // 2]
-                    / sched.n_waves, loop_span_ms=loop), out
+                    loop_span_ms=loop, items_that_waited=waited), out
 
     def profiled(plain):
         # the device's own time, device activities only
@@ -2104,21 +2202,23 @@ def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
         t_read = time.perf_counter()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            run(True, plain)
+            r, _out = run(plain)
             wall = time.perf_counter() - t
         device_us, n_kernels, top = profiled_device(prof)
         copies = profiled_count(prof, "Memcpy", "Memset")
-        apply_steps = profiled_count(prof, "apply_step")
+        frames = profiled_count(prof, "apply_frame")
+        frame_us = sum(e.duration_ns() / 1000 if hasattr(e, "duration_ns")
+                       else e.duration_us()
+                       for e in prof.profiler.kineto_results.events()
+                       if "apply_frame" in e.name())
         del prof
-        # device_kernels counts every device activity, as PR 6-13 did;
-        # kernels_per_class_step leaves the frame's copies out (its setup's
-        # fills and the output's cat stay in); apply_step_kernels are the
-        # kernel's launches, warm-ups included
         return dict(profiled_wall_ms=1000 * wall,
                     profile_read_s=time.perf_counter() - t_read,
                     device_ms=device_us / 1000, device_kernels=n_kernels,
-                    device_copies=copies, apply_step_kernels=apply_steps,
-                    activities_per_class_step=n_kernels / n_steps,
+                    device_copies=copies, apply_frame_kernels=frames,
+                    apply_frame_ms=frame_us / 1000,
+                    profiled_span_ms=r.loop_events[0].elapsed_time(
+                        r.loop_events[1]),
                     kernels_per_class_step=(n_kernels - copies) / n_steps,
                     top_kernels_ms=top,
                     device_busy_share=device_us / 1e6 / wall)
@@ -2131,54 +2231,42 @@ def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
                                           - e.astype(np.int32)).max()))
         return err
 
-    run(True)                               # warm-up
-    kernel, graph_out = timed(False, 3)
+    run()                                   # warm-up
+    kernel, kernel_out = timed(False, 3)
     kernel.update(profiled(False))
-    check(kernel["apply_step_kernels"] == n_steps + warm_up,
-          f"{kernel['apply_step_kernels']} apply kernels on the device for "
-          f"{n_steps} class steps and {warm_up} warm-ups")
-    # the kernel's eager run: its loop span is the launches' time with the
-    # host's issue in it
-    counts = apply_kernel.launches
-    torch.cuda.synchronize()
-    r, eager_out = run(False)
-    kernel["eager_loop_span_ms"] = r.loop_events[0].elapsed_time(
-        r.loop_events[1])
-    check(apply_kernel.launches - counts == n_steps,
-          f"{apply_kernel.launches - counts} apply launches for the eager "
-          f"apply's {n_steps} class steps")
+    check(kernel["apply_frame_kernels"] == 1,
+          f"{kernel['apply_frame_kernels']} apply kernels on the device for "
+          "one frame")
+    latency = body_latencies(torch, args, kwargs)
+    models = apply_models(sched, latency)
+    # the kernel's numbers before the plain form's runs
+    print("fastrd_devapply_frame_kernel " + json.dumps(dict(
+        kernel=kernel, body_latency_ms={
+            str(k): v for k, v in latency.items()}, modelled_ms=models)))
     plain, plain_out = timed(True, 1)
     plain.update(profiled(True))
     t = time.perf_counter()
-    _r, cpu_out = run(False, True, "cpu")
+    _r, cpu_out = run(True, "cpu")
     cpu_wall = time.perf_counter() - t
-    errs = dict(graph_vs_plain=max_err(graph_out, plain_out),
-                eager_vs_plain=max_err(eager_out, plain_out),
-                graph_vs_cpu=max_err(graph_out, cpu_out),
+    errs = dict(kernel_vs_plain=max_err(kernel_out, plain_out),
+                kernel_vs_cpu=max_err(kernel_out, cpu_out),
                 plain_vs_cpu=max_err(plain_out, cpu_out))
     check(not any(errs.values()), f"the kernel apply differs: {errs}")
-
-    # the bytes a class step moves: its window's records (6 int64
-    # fields), and per record and plane the reference line read (4s+1
-    # int16), the source window read, the recon and the levels written
-    # (s*s int16 each)
-    def step_bytes(ci):
-        size, luma, _ = fast_apply.CLS[ci]
-        per_plane = 2 * (4 * size + 1) + 3 * 2 * size * size
-        return sched.caps[ci] * (6 * 8 + (1 if luma else 2) * per_plane)
-    total = sum(n * step_bytes(ci) for ci, n in steps.items())
     nbytes, ops, bound_ms, bound_by = apply_bound(sched)
+    items = fast_apply.frame_items(sched, fast_apply.level_layout(sched)[0])
     out = dict(
         waves=sched.n_waves, class_steps=n_steps,
         class_steps_by_class={str(fast_apply.CLS[ci][:2]): n
                               for ci, n in steps.items()},
         caps=list(sched.caps), records=list(sched.counts),
-        kernel=kernel, plain=plain, cpu_plain_wall_s=cpu_wall,
-        apply_launches=n_steps, apply_warm_up_launches=warm_up,
-        max_abs_err=errs, window_bytes_per_frame=total,
-        window_bytes_per_class_step=total / n_steps,
+        items=len(items), real_items=int(((items[:, 6] >> 6) & 1).sum()),
+        grid=apply_kernel.grid(), kernel=kernel,
+        body_latency_ms={str(fast_apply.CLS[ci][:2]) if ci in steps
+                         else ci: v for ci, v in latency.items()},
+        modelled_ms=models, plain=plain, cpu_plain_wall_s=cpu_wall,
+        apply_launches=1, max_abs_err=errs,
         bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
-        graph_share_of_bound=bound_ms / max(
+        share_of_bound=bound_ms / max(
             sorted(kernel["loop_span_ms"])[1], 1e-9))
     print("fastrd_devapply_frame " + json.dumps(out))
     return out
@@ -2585,8 +2673,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
         if extra:
             check(rep["device_apply_frames"] == frames
                   and rep["device_apply_fallback_frames"] == 0
-                  and rep["apply_launches"]
-                  >= rep["device_apply_class_steps"] > 0,
+                  and rep["apply_launches"] == frames,
                   f"the rate-controlled {name} encode: {rep}")
         got, dlog = checked_decode("cuda", rc_cuda[0])
         check(not isinstance(got, str) and len(got) == frames
@@ -2777,11 +2864,12 @@ def main() -> int:
         mc_blocks=fast_inter["mc_blocks_launches"],
         mc_qpel=fast_inter["mc_qpel_launches"])
     print("launches by path " + json.dumps(by_path))
-    # the apply kernel, one launch a class step (Cb and Cr in one); its
-    # times: the recorded 1080p frame's wave loop, the loop's span in CUDA
-    # events, eager (``ms``, host issue included) and graph-replayed, and
-    # the plain form's graph-replayed span of the same frame (no PyTorch
-    # call does HM's intra TU apply, so library_ms is null)
+    # the apply kernel, one launch a frame; its times: the recorded 1080p
+    # frame's launch span in CUDA events (``ms``, the median of three; the
+    # item list and source planes go up before it), the kernel's own
+    # device time, and the plain form's graph-replayed span of the same
+    # frame (no PyTorch call does HM's intra TU apply, so library_ms is
+    # null)
     frame_apply = devapply["frame"]
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
@@ -2845,13 +2933,13 @@ def main() -> int:
         "plain_ms": filt["intra"]["plain_ms"],
         "bound_ms": filt["intra"]["bound_ms"],
         "bound_by": filt["intra"]["bound_by"], "library_ms": None}, {
-        "name": "apply", "route": "cuda",
+        "name": "apply_frame", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/apply.cu",
         "replaces": "thevc_tpu/encoder/fast_apply.py:729",
         "launches": sum(p.get("apply", 0) for p in by_path.values()),
         "max_abs_err": max(frame_apply["max_abs_err"].values()),
-        "ms": frame_apply["kernel"]["eager_loop_span_ms"],
-        "graph_ms": sorted(frame_apply["kernel"]["loop_span_ms"])[1],
+        "ms": sorted(frame_apply["kernel"]["loop_span_ms"])[1],
+        "device_ms": frame_apply["kernel"]["apply_frame_ms"],
         "plain_ms": frame_apply["plain"]["loop_span_ms"][0],
         "bound_ms": frame_apply["bound_ms"],
         "bound_by": frame_apply["bound_by"], "library_ms": None}]}))

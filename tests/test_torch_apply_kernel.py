@@ -1,26 +1,32 @@
-"""The fast-RD device apply's class step kernel (``ops.apply_kernel``,
-``csrc/apply.cu``) and its dispatch (``encoder.fast_apply._class_step``).
+"""The fast-RD device apply's frame kernel (``ops.apply_kernel``,
+``csrc/apply.cu``) and its dispatch (``encoder.fast_apply.apply_items``).
 
-On the CPU: the dispatcher runs the plain form and never enters the
-kernel's binding; routed to the CUDA branch with a failing binding it
+On the CPU: the dispatcher runs the plain version
+(``apply_items_plain``: the items in list order through
+``_class_step_plain``) and never enters the kernel's binding, and on a
+class step's one-wave item list that equals the plain class step
+(``_step_plain``); routed to the CUDA branch with a failing binding it
 raises and never runs the plain form; an unsupported device raises; the
 binding refuses what the kernel does not take before building anything;
-and the tables the kernel reads equal the JAX package's
-(``thevc_tpu/encoder/fast_apply.py`` ``_scan_tables`` :156,
-``_rdoq_tables`` :245, ``est_bits_pack`` :312, and the angular plans of
-``thevc_tpu/encoder/fast_intra.py:_unified_plan``) at every class.  The
-plain form against the JAX package is ``tests/test_torch_fast_apply_jax.py``.
+the entry's argument arrays follow the C signature; and the tables the
+kernel reads equal the JAX package's (``thevc_tpu/encoder/fast_apply.py``
+``_scan_tables`` :156, ``_rdoq_tables`` :245, ``est_bits_pack`` :312, and
+the angular plans of ``thevc_tpu/encoder/fast_intra.py:_unified_plan``) at
+every class.  The plain form against the JAX package is
+``tests/test_torch_fast_apply_jax.py``; the item list, the wait rule and
+a dataflow emulation are ``tests/test_torch_apply_frame.py``.
 
 Marked ``gpu`` (each asks the ``cuda`` fixture for the card and skips
-without one): one kernel step against ``_class_step_plain`` on the card,
-tolerance 0, at every class, QP 22/27/37, RDOQ and SBH on and off, 8 and
-10 bits, on windows at the start of the records and at their padded end;
-and whole applies on ``streams.nxn_frame`` maps, kernel (eager and graph
-replay) against the plain form on ``cuda`` and against the CPU, one launch
-a class step.  Run on the GPU machine with
+without one): one class step's one-wave item list through the frame
+kernel against ``_step_plain`` on the card, tolerance 0, at every class,
+QP 22/27/37, RDOQ and SBH on and off, 8 and 10 bits, on windows at the
+start of the records and at their padded end; and whole applies on
+``streams.nxn_frame`` maps, the kernel (one launch a frame) against the
+plain form on ``cuda`` and against the CPU.  Run on the GPU machine with
 ``python -m pytest tests/test_torch_apply_kernel.py -m gpu``.
 """
 
+import ctypes
 import types
 
 import numpy as np
@@ -32,7 +38,7 @@ from thevc_tpu.encoder import fast_apply as jfa
 from thevc_tpu.encoder import fast_intra as jfi
 from thevc_tpu_torch.cabac import contexts as cc
 from thevc_tpu_torch.encoder import fast_apply as fa
-from thevc_tpu_torch.ops import apply_kernel, residual_kernel
+from thevc_tpu_torch.ops import apply_kernel, build, residual_kernel
 from thevc_tpu_torch.streams import nxn_frame
 
 torch.set_num_threads(1)
@@ -121,49 +127,105 @@ def synthetic_step(ci: int, qp: int, use_rdoq: bool, sign_hide: bool,
 
 def clone_step(st):
     """A deep copy of a step's mutable state (planes, level stacks,
-    counters)."""
+    counter)."""
     planes = [(rec.clone(), lv.clone(), wins, qp, qv, lam)
               for rec, lv, wins, qp, qv, lam in st.planes]
     return fa.ClassStep(st.ci, planes, st.flat, st.starts, st.rows, st.ebt,
                         st.bit_inc, st.max_val, st.sign_hide, st.use_rdoq)
 
 
+def step_items(st):
+    """A class step's window as a one-wave item list for the frame entry:
+    its rows on each of its planes (the real ones with their source
+    windows placed into a source plane of the picture, the padding ones
+    reading zeros), every unit flagged written (the synthetic records
+    read the plane as it is).  Returns the dispatcher's keyword
+    arguments; their level buffer holds each plane's stack in turn."""
+    size, luma, _ = fa.CLS[st.ci]
+    device = st.k.device
+    unit = 4 if luma else 2
+    xs, ys, lo, hi, mode, scan = (t.cpu().numpy() for t in st.flat)
+    rec0 = st.planes[0][0]
+    hp, wp = rec0.shape[0] - 1 - GUARD, rec0.shape[1] - 1 - GUARD
+    n_flat = len(xs)
+    n_real = int((xs < wp).sum())       # padding rows lie in the guard
+    rows = int(st.starts[0]) + np.arange(len(st.rows))
+    plane_ids = (0,) if luma else (1, 2)
+    items = []
+    for j, p in enumerate(plane_ids):
+        for r in rows:
+            items.append([xs[r], ys[r], lo[r], hi[r], mode[r], scan[r],
+                          apply_kernel.kind(st.ci, p, r < n_real),
+                          (j * n_flat + r) * size * size])
+    dummy = torch.zeros((1, 1), dtype=torch.int16, device=device)
+    recs, orgs = [dummy] * 3, [dummy] * 3
+    for p, (rec, _lv, wins, *_rest) in zip(plane_ids, st.planes):
+        org = np.zeros((hp, wp), np.int16)
+        w = wins.cpu().numpy()
+        for r in range(n_real):
+            org[ys[r]:ys[r] + size, xs[r]:xs[r] + size] = w[r]
+        recs[p] = rec
+        orgs[p] = torch.from_numpy(org).to(device)
+    qps = [0, 0, 0]
+    lams = [1.0, 1.0, 1.0]
+    for p, (_r, _l, _w, qp, _qv, lam) in zip(plane_ids, st.planes):
+        qps[p], lams[p] = qp, lam
+    return dict(
+        items=np.array(items, np.int32), recs=recs, orgs=orgs,
+        lv=torch.cat([lv.reshape(-1) for _r, lv, *_ in st.planes]),
+        ready=torch.ones((3, hp // unit, wp // unit), dtype=torch.int32,
+                         device=device),
+        state=torch.zeros(apply_kernel.STATE_WORDS, dtype=torch.int32,
+                          device=device),
+        qps=qps, lams=lams,
+        ebts=None if st.ebt is None else {st.ci: st.ebt},
+        bit_inc=st.bit_inc, max_val=st.max_val, sign_hide=st.sign_hide)
+
+
 def kernel_args(st):
-    """The binding's arguments for a step (as ``_class_step`` passes
-    them), with its tables on the step's device."""
-    planes = [(rec, lv, wins, qp, lam)
-              for rec, lv, wins, qp, _qv, lam in st.planes]
-    return dict(ci=st.ci, planes=planes, records=st.flat, starts=st.starts,
-                k=st.k, done=st.done,
-                tables=fa.kernel_tables(st.ci, st.k.device), ebt=st.ebt,
-                cap=len(st.rows), bit_inc=st.bit_inc, max_val=st.max_val)
+    """The binding's arguments for a step's one-wave item list (as
+    ``apply_items`` passes them), with its class's tables on the step's
+    device."""
+    kw = step_items(st)
+    kw["tables"] = {st.ci: fa.kernel_tables(st.ci, st.k.device)}
+    return kw
+
+
+def step_levels(st, kw):
+    """The level stacks of a step's planes out of the item list's level
+    buffer."""
+    return kw["lv"].view(len(st.planes), *st.planes[0][1].shape)
 
 
 # -- the CPU: dispatch and refusals -----------------------------------------
 
 def test_cpu_step_is_the_plain_form(monkeypatch):
     def kernel(*a, **kw):
-        raise AssertionError("the kernel's binding ran for a CPU step")
-    monkeypatch.setattr(apply_kernel, "class_step", kernel)
+        raise AssertionError("the kernel's binding ran for a CPU apply")
+    monkeypatch.setattr(apply_kernel, "apply_frame", kernel)
     st = synthetic_step(1, 27, True, True, 0, "start", "cpu")
     want = clone_step(st)
-    fa._class_step(st)
+    kw = step_items(st)
+    fa.apply_items(**kw)
     fa._step_plain(want)
-    for (r, lv, *_), (r2, lv2, *_) in zip(st.planes, want.planes):
-        assert torch.equal(r, r2) and torch.equal(lv, lv2)
-    assert int(st.k) == int(want.k) == 1
+    for j, (r2, lv2, *_) in enumerate(want.planes):
+        assert torch.equal(st.planes[j][0], r2)
+        assert torch.equal(step_levels(st, kw)[j], lv2)
+    assert int(want.k) == 1
 
 
 def test_cpu_apply_never_enters_the_kernel(monkeypatch):
     def kernel(*a, **kw):
         raise AssertionError("the kernel's binding ran for a CPU apply")
-    monkeypatch.setattr(apply_kernel, "class_step", kernel)
+    monkeypatch.setattr(apply_kernel, "apply_frame", kernel)
     w, h, qp = 64, 64, 32
     planes, maps = nxn_frame(np.random.RandomState(3), w, h)
     sched = fa.build_schedule(*maps, w, h, 64, 3, 2)
     args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True,
             True, 20.0, 16.0, cc.make_context_states_idx(0, qp))
-    got = fa.collect_device_apply(fa.run_device_apply(*args, device="cpu"))
+    run = fa.run_device_apply(*args, device="cpu")
+    assert run.n_items == 0 and run.state is None
+    got = fa.collect_device_apply(run)
     want = fa.collect_device_apply(fa.run_device_apply_plain(*args,
                                                              device="cpu"))
     for g, e in zip(got[:3] + got[3] + got[4], want[:3] + want[3] + want[4]):
@@ -179,37 +241,38 @@ def test_cuda_branch_raises_and_never_runs_plain(monkeypatch):
 
     def plain(*a, **kw):
         calls.append("plain")
-        raise AssertionError("the plain form ran for a CUDA step")
-    monkeypatch.setattr(apply_kernel, "class_step", broken)
-    monkeypatch.setattr(fa, "_step_plain", plain)
+        raise AssertionError("the plain form ran for a CUDA apply")
+    monkeypatch.setattr(apply_kernel, "apply_frame", broken)
+    monkeypatch.setattr(fa, "apply_items_plain", plain)
     monkeypatch.setattr(fa, "_class_step_plain", plain)
     monkeypatch.setattr(fa, "kernel_tables", lambda ci, device: {})
     st = synthetic_step(4, 27, True, True, 0, "start", "cpu")
+    kw = step_items(st)
     # no CUDA tensor exists here: the first plane's stand-in lies on
     # ``cuda`` as far as the dispatcher's device test can tell
     rec = types.SimpleNamespace(device=torch.device("cuda"))
-    st.planes = [(rec, *p[1:]) for p in st.planes]
+    kw["recs"] = [rec, *kw["recs"][1:]]
     with pytest.raises(RuntimeError, match="apply kernel"):
-        fa._class_step(st)
+        fa.apply_items(**kw)
     assert calls == ["kernel"]
 
 
 def test_unsupported_device_raises():
     st = synthetic_step(2, 27, False, True, 0, "start", "cpu")
-    meta = [(torch.empty(r.shape, dtype=r.dtype, device="meta"), *rest)
-            for r, *rest in st.planes]
-    st.planes = meta
+    kw = step_items(st)
+    kw["recs"] = [torch.empty(r.shape, dtype=r.dtype, device="meta")
+                  for r in kw["recs"]]
     with pytest.raises(ValueError, match="unsupported device"):
-        fa._class_step(st)
+        fa.apply_items(**kw)
 
 
 def _refusals():
     """(name, edit of the binding's arguments, expected error)."""
-    def plane(j, f):
+    def plane(key, j, f):
         def edit(kw):
-            planes = list(kw["planes"])
+            planes = list(kw[key])
             planes[j] = f(planes[j])
-            kw["planes"] = planes
+            kw[key] = planes
         return edit
 
     def setk(key, value):
@@ -217,57 +280,60 @@ def _refusals():
             kw[key] = value(kw) if callable(value) else value
         return edit
 
+    def item(col, f):
+        def edit(kw):
+            items = kw["items"].copy()
+            items[0, col] = f(items[0])
+            kw["items"] = items
+        return edit
+
     def table(key, f):
         def edit(kw):
-            kw["tables"] = dict(kw["tables"], **{key: f(kw["tables"][key])})
+            tab = kw["tables"][5]
+            kw["tables"] = {5: dict(tab, **{key: f(tab[key])})}
         return edit
 
     def ebt(key, f):
         def edit(kw):
-            kw["ebt"] = dict(kw["ebt"], **{key: f(kw["ebt"][key])})
+            e = kw["ebts"][5]
+            kw["ebts"] = {5: dict(e, **{key: f(e[key])})}
         return edit
     return [
-        ("unknown class", setk("ci", 7), ValueError),
-        ("class not an int", setk("ci", 1.0), ValueError),
-        ("one plane for chroma",
-         setk("planes", lambda kw: kw["planes"][:1]), ValueError),
-        ("plane dtype", plane(0, lambda p: (p[0].to(torch.int32), *p[1:])),
-         TypeError),
+        ("unknown class", item(6, lambda r: 7 | (r[6] & ~15)), ValueError),
+        ("class not an int",
+         setk("tables", lambda kw: {5.0: kw["tables"][5]}), ValueError),
+        ("one plane for chroma", item(6, lambda r: r[6] & ~(3 << 4)),
+         ValueError),
+        ("plane dtype",
+         plane("recs", 1, lambda t: t.to(torch.int32)), TypeError),
         ("plane shapes differ",
-         plane(1, lambda p: (p[0][:-1].contiguous(), *p[1:])), ValueError),
+         plane("recs", 2, lambda t: t[:-1].contiguous()), ValueError),
         ("plane not contiguous",
-         plane(0, lambda p: (p[0].t().contiguous().t(), *p[1:])),
-         ValueError),
-        ("plane 1-D", plane(0, lambda p: (p[0].reshape(-1), *p[1:])),
-         ValueError),
-        ("level stack dtype",
-         plane(0, lambda p: (p[0], p[1].to(torch.int32), *p[2:])),
+         plane("recs", 1, lambda t: t.t().contiguous().t()), ValueError),
+        ("plane 1-D", plane("recs", 1, lambda t: t.reshape(-1)), ValueError),
+        ("level stack dtype", setk("lv", lambda kw: kw["lv"].to(torch.int32)),
          TypeError),
         ("level stack shape",
-         plane(1, lambda p: (p[0], p[1][:-1].contiguous(), *p[2:])),
-         ValueError),
-        ("windows dtype",
-         plane(0, lambda p: (p[0], p[1], p[2].to(torch.uint8), *p[3:])),
+         setk("lv", lambda kw: kw["lv"].view(2, -1)), ValueError),
+        ("source dtype",
+         plane("orgs", 1, lambda t: t.to(torch.uint8)), TypeError),
+        ("QP above 63", setk("qps", [0, 64, 30]), ValueError),
+        ("negative QP", setk("qps", [0, 30, -1]), ValueError),
+        ("seven item fields",
+         setk("items", lambda kw: kw["items"][:, :7].copy()), ValueError),
+        ("item dtype",
+         setk("items", lambda kw: kw["items"].astype(np.int64)), ValueError),
+        ("level row past the stacks",
+         item(7, lambda r: r[7] + 10 ** 6), ValueError),
+        ("ready dtype",
+         setk("ready", lambda kw: kw["ready"].to(torch.int64)), TypeError),
+        ("state shape",
+         setk("state", torch.zeros(2, dtype=torch.int32)), ValueError),
+        ("state dtype", setk("state", torch.zeros(3, dtype=torch.int64)),
          TypeError),
-        ("QP above 63", plane(0, lambda p: (*p[:3], 64, p[4])), ValueError),
-        ("negative QP", plane(1, lambda p: (*p[:3], -1, p[4])), ValueError),
-        ("five record fields",
-         setk("records", lambda kw: kw["records"][:5]), ValueError),
-        ("record dtype",
-         setk("records", lambda kw: (kw["records"][0].to(torch.int32),
-                                     *kw["records"][1:])), TypeError),
-        ("record length",
-         setk("records", lambda kw: (kw["records"][0][:-1].contiguous(),
-                                     *kw["records"][1:])), ValueError),
-        ("starts dtype",
-         setk("starts", lambda kw: kw["starts"].to(torch.int32)), TypeError),
-        ("counter shape",
-         setk("k", torch.zeros(2, dtype=torch.int64)), ValueError),
-        ("done dtype", setk("done", torch.zeros(1, dtype=torch.int64)),
-         TypeError),
-        ("window of 0", setk("cap", 0), ValueError),
-        ("window past the records",
-         setk("cap", lambda kw: len(kw["records"][0]) + 1), ValueError),
+        ("ready maps of two planes",
+         setk("ready", lambda kw: kw["ready"][:2].contiguous()), ValueError),
+        ("TU outside its source", item(0, lambda r: 10 ** 4), ValueError),
         ("bit increment", setk("bit_inc", 5), ValueError),
         ("largest sample", setk("max_val", 1023), ValueError),
         ("basis dtype", table("basis", lambda t: t.to(torch.int64)),
@@ -284,6 +350,14 @@ def _refusals():
         ("context table length", ebt("one1", lambda t: t[:8].contiguous()),
          ValueError),
         ("sigCG bits", ebt("cg", lambda t: [t[0]]), ValueError),
+        ("range past the line", item(3, lambda r: 10 ** 3), ValueError),
+        ("mode out of range", item(4, lambda r: 35), ValueError),
+        ("class without tables", item(6, lambda r: 6 | (r[6] & ~15)),
+         ValueError),
+        ("TU off the unit grid", item(0, lambda r: r[0] + 1), ValueError),
+        ("ready maps 2-D", setk("ready", lambda kw: kw["ready"][0]),
+         ValueError),
+        ("RDOQ without a class's estBits", setk("ebts", {}), ValueError),
     ]
 
 
@@ -295,10 +369,17 @@ def test_binding_refuses_before_building(monkeypatch, name, edit, error):
     monkeypatch.setattr(apply_kernel, "build", build)
     st = synthetic_step(5, 27, True, True, 0, "start", "cpu")
     kw = kernel_args(st)
-    apply_kernel.check_inputs(**kw)             # the unedited inputs pass
+    apply_kernel.check_inputs(**{k: v for k, v in kw.items()
+                                 if k not in ("lams", "sign_hide")})
+    apply_kernel.check_items(kw["items"], [tuple(o.shape)
+                                           for o in kw["orgs"]],
+                             tuple(kw["ready"].shape[1:]), kw["lv"].numel(),
+                             kw["tables"])      # the unedited inputs pass
     edit(kw)
-    with pytest.raises(error):
-        apply_kernel.class_step(**kw, sign_hide=True)
+    with pytest.raises(error) as refused:
+        apply_kernel.apply_frame(**kw)
+    # refused for the input, not for lying on the CPU
+    assert "CUDA tensors" not in str(refused.value)
 
 
 def test_binding_refuses_a_cpu_launch(monkeypatch):
@@ -307,28 +388,59 @@ def test_binding_refuses_a_cpu_launch(monkeypatch):
     monkeypatch.setattr(apply_kernel, "build", build)
     st = synthetic_step(0, 27, False, False, 0, "start", "cpu")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        apply_kernel.class_step(**kernel_args(st), sign_hide=False)
+        apply_kernel.apply_frame(**kernel_args(st))
+
+
+def _c_signature(name):
+    """The parameter types of an ``extern "C"`` entry of ``csrc/apply.cu``."""
+    src = (build.CSRC / "apply.cu").read_text()
+    at = src.index(f'extern "C" int {name}(')
+    params = src[src.index("(", at) + 1:src.index(")", at)]
+    return [" ".join(p.split()[:-1]) for p in params.split(",")]
 
 
 def test_entry_arguments_match_the_c_signature():
-    argtypes = apply_kernel._ENTRIES["thevc_apply_step"]
+    ctypes_of = {"const void* const*": "p", "const int*": "p",
+                 "const float*": "p", "void*": "p", "int*": "p", "int": "i"}
+    for entry, argtypes in apply_kernel._ENTRIES.items():
+        want = [ctypes_of[t] for t in _c_signature(entry)]
+        got = ["i" if t is ctypes.c_int else "p" for t in argtypes]
+        assert got == want, entry
     for ci, use_rdoq in ((0, True), (6, False)):
         st = synthetic_step(ci, 22, use_rdoq, True, 2, "end", "cpu")
         kw = kernel_args(st)
-        ptrs, scalars = apply_kernel.arguments(**kw, sign_hide=True)
-        # 6 record fields, starts, k, done, 3 per plane (2 planes), 7
-        # tables, 9 estBits
-        assert len(ptrs) == 6 + 3 + 6 + 7 + 9
-        assert (ptrs[12] is None) == fa.CLS[ci][1]
-        assert all(p is None for p in ptrs[-9:]) == (not use_rdoq)
-        assert len(argtypes) == 1 + len(scalars) + 1
+        items = torch.from_numpy(kw["items"])
+        ptrs, ints, floats = apply_kernel.arguments(
+            items, kw["recs"], kw["orgs"], kw["lv"], kw["ready"],
+            kw["state"], kw["tables"], kw["ebts"], kw["qps"], kw["lams"],
+            kw["bit_inc"], kw["max_val"], kw["sign_hide"])
+        assert len(ptrs) == apply_kernel.N_PTRS == 12 + 7 * 14
+        assert len(ints) == apply_kernel.N_INTS
+        assert len(floats) == apply_kernel.N_FLOATS
+        assert ptrs[:3] == [items.data_ptr(), kw["state"].data_ptr(),
+                            kw["ready"].data_ptr()]
+        assert ptrs[3:6] == [t.data_ptr() for t in kw["recs"]]
+        assert ptrs[6:9] == [t.data_ptr() for t in kw["orgs"]]
+        assert ptrs[9] == kw["lv"].data_ptr()
+        for c in range(7):
+            block = ptrs[12 + 14 * c:26 + 14 * c]
+            assert all(p is not None for p in block[:5]) == (c == ci)
+            assert all(p is None for p in block[5:]) == (
+                c != ci or not use_rdoq)
         size, luma, _ = fa.CLS[ci]
-        assert scalars[:4] == [size, int(luma), 8, 1 if luma else 2]
-        assert scalars[8:10] == [2, 1023]
-        for j, (_r, _l, _w, qp, _q, lam) in enumerate(st.planes):
-            assert scalars[6 + j] == qp
-            assert scalars[10 + j] == float(np.float32(lam))
-            assert scalars[12 + j] == apply_kernel.err_scale(qp, size, 2)
+        assert ints[:3] == [int(t.shape[0]) for t in kw["recs"]]
+        assert ints[12:15] == [kw["ready"].shape[1], kw["ready"].shape[2],
+                               kw["lv"].numel()]
+        assert ints[15:18] == kw["qps"]
+        assert ints[18:] == [2, 1023, 1, int(use_rdoq)]
+        for p in range(3):
+            assert floats[p] == float(np.float32(kw["lams"][p]))
+            for j, s in enumerate((4, 8, 16, 32)):
+                assert floats[3 + 4 * p + j] == apply_kernel.err_scale(
+                    kw["qps"][p], s, 2)
+        cg = floats[15 + 4 * ci:19 + 4 * ci]
+        assert cg == ([float(v) for row in st.ebt["cg"] for v in row]
+                      if use_rdoq else [0.0] * 4)
 
 
 # -- the tables the kernel reads, against the JAX package --------------------
@@ -393,16 +505,18 @@ def test_kernel_step_equals_plain(cuda, ci, qp, use_rdoq, sign_hide,
                                   bit_inc, window):
     st = synthetic_step(ci, qp, use_rdoq, sign_hide, bit_inc, window, cuda)
     want = clone_step(st)
+    kw = step_items(st)
     before = apply_kernel.launches
-    fa._class_step(st)
+    fa.apply_items(**kw)
     assert apply_kernel.launches - before == 1
     fa._step_plain(want)
     torch.cuda.synchronize()
-    for (r, lv, *_), (r2, lv2, *_) in zip(st.planes, want.planes):
-        assert torch.equal(lv, lv2)
-        assert torch.equal(r, r2)
-    assert int(st.k) == int(want.k) == 1
-    assert int(st.done) == 0
+    for j, (r2, lv2, *_) in enumerate(want.planes):
+        assert torch.equal(step_levels(st, kw)[j], lv2)
+        assert torch.equal(st.planes[j][0], r2)
+    ticket, error, waited = kw["state"].tolist()
+    assert error == 0 and waited == 0
+    assert ticket >= len(kw["items"])
 
 
 def _apply_args(w, h, qp, use_rdoq, seed):
@@ -423,19 +537,22 @@ def test_whole_apply_on_nxn_maps(cuda, use_rdoq, qp):
     assert all(steps), steps
     outs = {"cpu": fa.collect_device_apply(fa.run_device_apply(
         *args, device="cpu"))}
-    for name, replay in (("eager", False), ("graph", True)):
-        before = (apply_kernel.launches, residual_kernel.launches)
-        run = fa.run_device_apply(*args, device=cuda, replay=replay)
-        outs[name] = fa.collect_device_apply(run)
-        # one launch a class step, and one warm-up a class before capture
-        assert apply_kernel.launches - before[0] == sum(steps) + (
-            len(steps) if replay else 0)
-        assert residual_kernel.launches == before[1]
-        assert run.class_steps == sum(steps)
+    before = (apply_kernel.launches, residual_kernel.launches)
+    run = fa.run_device_apply(*args, device=cuda)
+    assert run.graphs == {}
+    outs["kernel"] = fa.collect_device_apply(run)
+    # one launch a frame, no K1
+    assert apply_kernel.launches - before[0] == 1
+    assert residual_kernel.launches == before[1]
+    assert run.class_steps == sum(steps)
+    assert run.n_items == len(fa.frame_items(sched,
+                                             fa.level_layout(sched)[0]))
+    ticket, error, waited = run.state.tolist()
+    assert error == 0 and ticket >= run.n_items and waited >= 0
     outs["plain"] = fa.collect_device_apply(fa.run_device_apply_plain(
         *args, device=cuda))
     want = outs["cpu"]
-    for name in ("eager", "graph", "plain"):
+    for name in ("kernel", "plain"):
         got = outs[name]
         for g, e in zip(got[:3] + got[3] + got[4],
                         want[:3] + want[3] + want[4]):

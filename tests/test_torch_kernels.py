@@ -804,12 +804,11 @@ def test_wp_and_scaling_decode_cuda_equals_cpu(cuda, tmp_path, cfg, extra):
 @pytest.mark.gpu
 @pytest.mark.parametrize("use_rdoq", [False, True], ids=["rdoq0", "rdoq"])
 def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
-    """The fast-RD device apply of a 128x64 frame: replayed as CUDA
-    graphs, eager on ``cuda`` and on the CPU, the same recon and level
-    stacks (tolerance 0), and the apply kernel counted once per launch,
-    one a class step (Cb and Cr in one): eager, in each replay, and in the
-    warm-up step before each capture (the capture itself launches
-    nothing); the residual kernel (the plain form's) not at all."""
+    """The fast-RD device apply of a 128x64 frame: the frame kernel (one
+    launch), the plain form replayed as CUDA graphs and eager on
+    ``cuda``, and the CPU, the same recon and level stacks (tolerance 0);
+    the apply kernel counted once, the residual kernel (the plain form's)
+    not by the kernel apply; the kernel form refuses graph replay."""
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
     from thevc_tpu_torch.ops import apply_kernel
@@ -827,21 +826,22 @@ def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
     sched = fast_apply.build_schedule(*maps[:4], w, h, 64, 3, 2)
     args = (*planes, sched, w, h, qp, qp, qp, 64, 0, 255, True, use_rdoq,
             lam, lam, cc.make_context_states_idx(0, qp))
+    with pytest.raises(ValueError, match="one launch a frame"):
+        fast_apply.run_device_apply(*args, device=cuda, replay=True)
     outs = {}
-    for name, device, replay in (("cpu", "cpu", False),
-                                 ("eager", cuda, False),
-                                 ("graph", cuda, True)):
+    for name, device, plain, replay in (("cpu", "cpu", False, False),
+                                        ("kernel", cuda, False, False),
+                                        ("graph", cuda, True, True),
+                                        ("eager", cuda, True, False)):
         before = (apply_kernel.launches, residual_kernel.launches)
         run = fast_apply.run_device_apply(*args, device=device,
-                                          replay=replay)
+                                          replay=replay, plain=plain)
         outs[name] = fast_apply.collect_device_apply(run)
-        if name != "cpu":
-            steps = [int((np.diff(o) > 0).sum()) for o in sched.offs]
-            warm_up = sum(1 for n in steps if n)
-            assert apply_kernel.launches - before[0] == sum(steps) \
-                + (warm_up if replay else 0)
+        assert apply_kernel.launches - before[0] == (name == "kernel")
+        if name == "kernel":
             assert residual_kernel.launches == before[1]
-    for name in ("eager", "graph"):
+            assert run.state.tolist()[1] == 0
+    for name in ("kernel", "graph", "eager"):
         got, want = outs[name], outs["cpu"]
         for g, e in zip(got[:3] + got[3] + got[4],
                         want[:3] + want[3] + want[4]):
@@ -853,9 +853,9 @@ def test_device_apply_replay_equals_eager_and_cpu(cuda, use_rdoq):
 def test_device_apply_nxn_classes_on_cuda(cuda, use_rdoq):
     """The device apply on maps with NxN CUs, so that every class of
     ``fast_apply.CLS`` runs, the 4x4 luma DST class (4, True, True)
-    included: replayed as CUDA graphs and eager on ``cuda``, equal to the
-    CPU (tolerance 0), with the apply kernel counted as in
-    ``test_device_apply_replay_equals_eager_and_cpu``."""
+    included: the frame kernel (one launch, every class in it) and the
+    plain form replayed as CUDA graphs on ``cuda``, equal to the CPU
+    (tolerance 0)."""
     from thevc_tpu_torch.cabac import contexts as cc
     from thevc_tpu_torch.encoder import fast_apply
     from thevc_tpu_torch.ops import apply_kernel
@@ -873,20 +873,18 @@ def test_device_apply_nxn_classes_on_cuda(cuda, use_rdoq):
     args = (*planes, sched, w, h, qp, qp - 1, qp - 2, 64, 0, 255, True,
             use_rdoq, lam, lam / 1.2, cc.make_context_states_idx(0, qp))
     outs = {}
-    for name, device, replay in (("cpu", "cpu", False),
-                                 ("eager", cuda, False),
-                                 ("graph", cuda, True)):
+    for name, device, plain in (("cpu", "cpu", False),
+                                ("kernel", cuda, False),
+                                ("graph", cuda, True)):
         before = (apply_kernel.launches, residual_kernel.launches)
-        run = fast_apply.run_device_apply(*args, device=device,
-                                          replay=replay)
+        run = fast_apply.run_device_apply(*args, device=device, plain=plain)
         outs[name] = fast_apply.collect_device_apply(run)
         assert run.n_waves == sched.n_waves
-        if name != "cpu":
-            warm_up = len(steps)
-            assert apply_kernel.launches - before[0] == sum(steps) \
-                + (warm_up if replay else 0)
+        assert apply_kernel.launches - before[0] == (name == "kernel")
+        if name == "kernel":
             assert residual_kernel.launches == before[1]
-    for name in ("eager", "graph"):
+            assert run.state.tolist()[1] == 0
+    for name in ("kernel", "graph"):
         got, want = outs[name], outs["cpu"]
         for g, e in zip(got[:3] + got[3] + got[4],
                         want[:3] + want[3] + want[4]):

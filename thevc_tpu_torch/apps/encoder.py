@@ -16,7 +16,7 @@ runs the apply of the intra slices on that device as well
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
 residual and SATD kernels, of the MC kernel's two entries that the P/B
 pass calls (blocks and quarter-pel) and of the device apply's kernel
-(``apply_launches``, one a class step; the residual kernel's launches
+(``apply_launches``, one a frame; the residual kernel's launches
 are then the decision passes' alone), the plain MC's calls (none on
 ``cuda``),
 the frames decided (all, and the P/B ones),

@@ -16,31 +16,33 @@ host keeps the entropy coding.
    reference line reads.  TUs of one wave are independent.
    ``build_schedule`` buckets the records per size class (luma 4/8/16/32,
    DST at 4; chroma 4/8/16), sorted by wave.
-2. The wave loop runs on the host over ``n_waves``; the schedule's
-   offsets live there, so a class with no record in a wave is skipped
-   without asking the device.  Each class step takes a fixed-size window
-   of its class's records from a start offset that it reads from a
-   device tensor, gathers the reference lines out of the evolving recon
-   plane, predicts, transforms, quantises (RDOQ or plain), hides sign
-   bits, dequantises and inverse-transforms, adds and clips, and writes
-   recon into the plane and levels into flat per-record stacks.  Window
-   entries past the wave recompute harmlessly later: a region is never
-   read before its own wave has run.  ``_class_step`` dispatches on the
-   device: on ``cuda`` one launch of the hand-written kernel
-   (``ops.apply_kernel``, ``csrc/apply.cu``; Cb and Cr of a chroma step
-   in the same launch), on the CPU the plain form, ``_class_step_plain``
-   for each plane: ``_predict_batch``, ``ops.tq.forward_transform``
+2. On ``cuda`` the frame is one launch of the hand-written kernel
+   (``ops.apply_kernel``, ``csrc/apply.cu``).  ``frame_items`` lists the
+   frame's items (a record on one plane; Cb and Cr are items of their
+   own) wave by wave, then the padding rows that the plain form's
+   windows compute; the kernel's CTAs take them by ticket in that order,
+   and an item waits only until the units under its available range are
+   written (``wait_units``: the wait rule; ``own_units``: what a writer
+   flags), not for a wave to end.  ``apply_items`` dispatches an item
+   list on the device: the kernel on ``cuda``, the plain version
+   (``apply_items_plain``, each item through ``_class_step_plain`` in
+   list order) on the CPU.
+3. The plain form (``run_device_apply_plain``, and ``run_device_apply``
+   on the CPU) runs the wave loop on the host over ``n_waves``.  Each
+   class step takes a fixed-size window of its class's records from a
+   start offset that it reads from a device counter, gathers the
+   reference lines out of the evolving recon plane, predicts,
+   transforms, quantises (RDOQ or plain), hides sign bits, dequantises
+   and inverse-transforms, adds and clips, and writes recon into the
+   plane and levels into flat per-record stacks: ``_class_step_plain``
+   for each plane, with ``_predict_batch``, ``ops.tq.forward_transform``
    (float64 and exact), ``_rdoq_batch`` or ``ops.tq.quant``,
-   ``_sbh_batch`` and ``ops.tq.residual_pipeline``.  The plain form runs
-   on ``cuda`` only through ``run_device_apply_plain``, the yardstick the
-   tests and ``chip_smoke.py`` hold the kernel to (its residual step is
-   then the residual kernel, K1).
-3. On ``cuda`` each class step is captured once per frame as a CUDA
-   graph and replayed per wave; the step reads its window's start
-   through a per-class device counter that it advances itself (the
-   kernel's last CTA to finish does), so the loop issues one graph
-   launch a class and wave and never waits for the device.  On ``cpu``
-   the same step runs eagerly.
+   ``_sbh_batch`` and ``ops.tq.residual_pipeline`` (on ``cuda`` the
+   residual kernel, K1).  Window entries past the wave recompute
+   harmlessly later: a region is never read before its own wave has
+   run.  On ``cuda`` each step is captured once per frame as a CUDA
+   graph and replayed per wave.  It is the yardstick the tests and
+   ``chip_smoke.py`` hold the kernel to.
 4. One device-to-host copy brings the recon planes (int16, the planes'
    own type) and the level stacks back; ``assemble_coeff_planes``
    scatters the levels into the frame's coefficient planes, and the
@@ -842,15 +844,16 @@ def _class_step_plain(rec, lv, org_wins, flat, idx, qp: int, qp_vec,
 
 
 class ClassStep:
-    """One size class's wave step of a frame: the class ``ci``, its
-    planes (rec, lv, wins, scaled qp, qp for each window record, lambda;
-    Cb then Cr for a chroma class), the records on the device (``flat``:
-    six int64 fields), the window starts of the waves it runs
-    (``starts``), the device counter of the next one (``k``), the window's
-    rows ([cap] int64), the RDOQ bit tables (``ebt``, None without RDOQ),
-    the kernel's done count (``done``) and the frame's statics."""
+    """One size class's wave step of a frame in the plain form: the class
+    ``ci``, its planes (rec, lv, wins, scaled qp, qp for each window
+    record, lambda; Cb then Cr for a chroma class), the records on the
+    device (``flat``: six int64 fields), the window starts of the waves it
+    runs (``starts``), the device counter of the next one (``k``, so that
+    a captured step replays wave after wave), the window's rows ([cap]
+    int64), the RDOQ bit tables (``ebt``, None without RDOQ) and the
+    frame's statics."""
     __slots__ = ("ci", "planes", "flat", "starts", "k", "rows", "ebt",
-                 "done", "bit_inc", "max_val", "sign_hide", "use_rdoq")
+                 "bit_inc", "max_val", "sign_hide", "use_rdoq")
 
     def __init__(self, ci, planes, flat, starts, rows, ebt, bit_inc,
                  max_val, sign_hide, use_rdoq):
@@ -858,7 +861,6 @@ class ClassStep:
         self.ci, self.planes, self.flat = ci, planes, flat
         self.starts, self.rows, self.ebt = starts, rows, ebt
         self.k = torch.zeros(1, dtype=torch.int64, device=device)
-        self.done = torch.zeros(1, dtype=torch.int32, device=device)
         self.bit_inc, self.max_val = bit_inc, max_val
         self.sign_hide, self.use_rdoq = sign_hide, use_rdoq
 
@@ -874,68 +876,205 @@ def _step_plain(st: ClassStep) -> None:
     st.k.add_(1)
 
 
-def _class_step(st: ClassStep) -> None:
-    """One class step, in place, its counter advanced: on a CUDA device
-    one launch of the apply kernel (raises if it cannot build or launch),
-    on the CPU the plain form; any other device raises ``ValueError``.
-    Queues device work only: no host sync."""
-    device = st.planes[0][0].device
+# ---------------------------------------------------------------------------
+# the frame's item list and the wait rule (the frame kernel's host side)
+# ---------------------------------------------------------------------------
+
+def level_layout(sched: Schedule) -> tuple:
+    """The flat level buffer of a frame: ({(class, plane): (element offset,
+    rows)}, total elements); the luma and Cb stacks in class order, then
+    the Cr stacks of the chroma classes (``collect_device_apply``'s
+    order), each stack the class's flat records, padding included."""
+    order = [(ci, 0 if luma else 1) for ci, (_s, luma, _) in enumerate(CLS)] \
+        + [(ci, 2) for ci, (_s, luma, _) in enumerate(CLS) if not luma]
+    out, at = {}, 0
+    for ci, plane in order:
+        n = len(sched.flat[ci][0])
+        out[ci, plane] = (at, n)
+        at += n * CLS[ci][0] ** 2
+    return out, at
+
+
+def _planes_of(luma: bool) -> tuple:
+    return (0,) if luma else (1, 2)
+
+
+def frame_items(sched: Schedule, layout: dict) -> np.ndarray:
+    """The frame kernel's item list (int32 [n, 8], ``apply_kernel.
+    ITEM_FIELDS``): for each wave in order, each class with records in it
+    in class order, its real rows in that wave, one item a row on a luma
+    plane and one a row and plane on Cb then Cr; then, per class that
+    runs, the padding rows that the plain form's windows compute, rows
+    ``[counts, offs[last active wave] + cap)``.  ``layout`` is
+    ``level_layout``'s."""
+    fields, keys = [], []
+    pads = []
+    for ci, (s, luma, _) in enumerate(CLS):
+        n = sched.counts[ci]
+        offs = np.asarray(sched.offs[ci])
+        active = np.nonzero(np.diff(offs))[0]
+        if not active.size:
+            continue
+        flat = np.stack(sched.flat[ci], axis=1).astype(np.int32)
+        wave = np.repeat(np.arange(sched.n_waves), np.diff(offs))
+        pad = np.arange(n, int(offs[active[-1]]) + sched.caps[ci])
+        for plane in _planes_of(luma):
+            off = layout[ci, plane][0]
+            for rows, real, sink in ((np.arange(n), 1, fields),
+                                     (pad, 0, pads)):
+                item = np.empty((len(rows), 8), np.int32)
+                item[:, :6] = flat[rows]
+                item[:, 6] = apply_kernel.kind(ci, plane, real)
+                item[:, 7] = off + rows * s * s
+                sink.append(item)
+                if real:
+                    keys.append(np.stack([wave, np.full(n, ci),
+                                          np.full(n, plane), rows]))
+    if not fields:
+        return np.zeros((0, 8), np.int32)
+    real = np.concatenate(fields)
+    key = np.concatenate(keys, axis=1)
+    order = np.lexsort(key[::-1])
+    return np.ascontiguousarray(np.concatenate([real[order], *pads]))
+
+
+def wait_units(xs, ys, lo, hi, size: int, luma: bool) -> tuple:
+    """The wait rule, as the frame kernel applies it: the units (4x4 luma
+    or 2x2 chroma, in the luma 4x4 grid) under each record's available
+    range ``[lo, hi]`` of its reference line (the left column bottom-up,
+    the corner, the top row; unit ``g`` of the line covers samples ``[g *
+    unit, (g + 1) * unit)``).  Returns (ux, uy, under), [n, 4 s / unit +
+    1] each; ``under`` False past the range, or everywhere for an empty
+    one (lo > hi)."""
+    unit = 4 if luma else 2
+    nu = size // unit
+    g = np.arange(4 * nu + 1)[None, :]
+    gx = (np.asarray(xs) // unit)[:, None]
+    gy = (np.asarray(ys) // unit)[:, None]
+    lo, hi = np.asarray(lo)[:, None], np.asarray(hi)[:, None]
+    ux = np.where(g <= 2 * nu, gx - 1, gx + g - 2 * nu - 1)
+    uy = np.where(g < 2 * nu, gy + 2 * nu - 1 - g, gy - 1)
+    under = (g >= lo // unit) & (g <= hi // unit) & (lo <= hi)
+    return ux, uy, under
+
+
+def own_units(xs, ys, size: int, luma: bool) -> tuple:
+    """The units each record writes (the writer's side of the wait rule):
+    (ux, uy), [n, (s / unit)^2] each."""
+    unit = 4 if luma else 2
+    nu = size // unit
+    k = np.arange(nu * nu)[None, :]
+    return ((np.asarray(xs) // unit)[:, None] + k % nu,
+            (np.asarray(ys) // unit)[:, None] + k // nu)
+
+
+def apply_items_plain(items: np.ndarray, recs, orgs, lv, ready, qps, lams,
+                      ebts, bit_inc: int, max_val: int,
+                      sign_hide: bool) -> None:
+    """The plain version of the frame kernel, in place on any device: each
+    item of ``items`` in list order through ``_class_step_plain`` as a
+    record of its own (its source block cut from its plane of ``orgs``,
+    zeros for a padding row), its levels into its row of ``lv``, its own
+    units flagged in ``ready``.  The list order must let every item's
+    writers come before it (``wait_units``); the kernel runs the same list
+    in any order that rule allows."""
+    dev = recs[0].device
+    idx = torch.zeros(1, dtype=torch.int64, device=dev)
+    for x, y, lo, hi, mode, scan, knd, off in items.tolist():
+        ci, plane, real = knd & 15, (knd >> 4) & 3, (knd >> 6) & 1
+        s, luma, _ = CLS[ci]
+        flat = tuple(torch.tensor([v], dtype=torch.int64, device=dev)
+                     for v in (x, y, lo, hi, mode, scan))
+        win = (orgs[plane][y:y + s, x:x + s].reshape(1, s, s) if real
+               else torch.zeros((1, s, s), dtype=torch.int16, device=dev))
+        qp = int(qps[plane])
+        _class_step_plain(recs[plane], lv[off:off + s * s].view(1, s, s),
+                          win, flat, idx, qp,
+                          torch.full((1,), qp, dtype=torch.int32, device=dev),
+                          ci, lams[plane], None if ebts is None else ebts[ci],
+                          bit_inc, max_val, sign_hide, ebts is not None)
+        if real:
+            unit = 4 if luma else 2
+            ready[plane, y // unit:(y + s) // unit,
+                  x // unit:(x + s) // unit] = 1
+
+
+def apply_items(items, recs, orgs, lv, ready, state, qps, lams, ebts,
+                bit_inc: int, max_val: int, sign_hide: bool,
+                classes=None) -> None:
+    """Apply a frame's item list (``frame_items``) in place: on a CUDA
+    device one launch of the frame kernel (``ops.apply_kernel.
+    apply_frame``; raises if it cannot build or launch), on the CPU the
+    plain version (``apply_items_plain``; ``state`` unused); any other
+    device raises ``ValueError``.  ``items`` is a host array (checked and
+    uploaded by the binding) or, on ``cuda``, a tensor on the card that
+    ``apply_kernel.check_items`` passed, with the ``classes`` it holds.
+    ``recs`` and ``orgs`` are the Y, Cb and Cr recon (with the guard) and
+    source planes, ``lv`` the flat level buffer, ``ready`` the ready maps
+    [3, map_h, map_w] (an item waits for the flags of the units under its
+    range), ``ebts`` {class: estBits} with RDOQ, else None.  Queues device
+    work only: no host sync."""
+    device = recs[0].device
     if device.type == "cpu":
-        _step_plain(st)
+        apply_items_plain(np.asarray(items), recs, orgs, lv, ready, qps,
+                          lams, ebts, bit_inc, max_val, sign_hide)
         return
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    apply_kernel.class_step(
-        st.ci, [(rec, lv, wins, qp, lam)
-                for rec, lv, wins, qp, _qv, lam in st.planes],
-        st.flat, st.starts, st.k, st.done, kernel_tables(st.ci, device),
-        st.ebt, len(st.rows), st.bit_inc, st.max_val, st.sign_hide)
+    if classes is None:
+        classes = np.unique(items[:, 6] & 15).tolist() if len(items) else []
+    tables = {ci: kernel_tables(ci, device) for ci in classes
+              if 0 <= ci < len(CLS)}
+    apply_kernel.apply_frame(
+        items, recs, orgs, lv, ready, state, tables,
+        None if ebts is None else {ci: ebts[ci] for ci in tables}, qps, lams,
+        bit_inc, max_val, sign_hide)
 
 
 # ---------------------------------------------------------------------------
-# the frame: upload, wave loop, fetch
+# the frame: upload, apply, fetch
 # ---------------------------------------------------------------------------
 
 class ApplyRun:
     """One frame's queued apply (``run_device_apply``): the flat int16
     device buffer that ``collect_device_apply`` copies back (recon planes,
     then the level stacks), how to split it, the wave count, the class
-    steps run (a chroma class step covers Cb and Cr), the host's seconds
-    to upload and capture (``setup_s``) and to issue the wave loop
-    (``issue_s``; it waits for the device only when the launch queue is
-    full), and on a CUDA device two timing events around the wave loop
-    (``loop_events``; the device's span of the loop is their elapsed
-    time once the run is collected).  It holds the frame's CUDA graphs
-    (and so their memory) until the collect has waited for them."""
-    __slots__ = ("flat", "shapes", "n_waves", "class_steps", "setup_s",
-                 "issue_s", "loop_events", "graphs")
+    steps of the schedule (a chroma class step covers Cb and Cr; the
+    plain form's launches of a step), the kernel form's items (``n_items``,
+    0 in the plain form) and its state words (``state``: ticket, error,
+    items that waited), the host's seconds to upload (and in the plain
+    form capture) before the first launch (``setup_s``) and to issue the
+    launches (``issue_s``; it waits for the device only when the launch
+    queue is full), and on a CUDA device two timing events around the
+    launches (``loop_events``; the device's span of the apply is their
+    elapsed time once the run is collected).  It holds the plain form's
+    CUDA graphs (and so their memory) until the collect has waited for
+    them."""
+    __slots__ = ("flat", "shapes", "n_waves", "class_steps", "n_items",
+                 "state", "setup_s", "issue_s", "loop_events", "graphs")
 
 
-# one apply at a time: each captures CUDA graphs, and the frame-parallel
-# all-intra encoder runs frames in threads
+# one apply at a time: the plain form captures CUDA graphs, and the
+# frame-parallel all-intra encoder runs frames in threads
 _apply_lock = threading.Lock()
-
-
-# the kernels a captured step may hold, counted per replay
-_COUNTED = (residual_kernel, apply_kernel)
 
 
 def _capture(step, stream) -> tuple:
     """Warm ``step`` up on ``stream`` (tables, library handles), then
-    capture it as a CUDA graph there.  Returns the graph and the launches
-    of each module of ``_COUNTED`` it holds (the capture itself launches
-    nothing)."""
+    capture it as a CUDA graph there.  Returns the graph and the residual
+    kernel's launches it holds, counted per replay (the capture itself
+    launches nothing)."""
     with torch.cuda.stream(stream):
         step()
     graph = torch.cuda.CUDAGraph()
-    before = [m.captured for m in _COUNTED]
+    before = residual_kernel.captured
     with torch.cuda.stream(stream):
         graph.capture_begin(capture_error_mode="thread_local")
         try:
             step()
         finally:
             graph.capture_end()
-    return graph, [m.captured - b for m, b in zip(_COUNTED, before)]
+    return graph, residual_kernel.captured - before
 
 
 def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
@@ -943,126 +1082,153 @@ def run_device_apply(org_y, org_cb, org_cr, sched: Schedule, width, height,
                      sign_hide, use_rdoq=False, lam_y=1.0, lam_c=1.0,
                      init_ctx=None, *, device, replay=None,
                      plain=False) -> ApplyRun:
-    """Queue the wavefront apply of one frame on ``device`` and return
-    its ``ApplyRun`` for ``collect_device_apply``.  ``replay`` captures
-    each class step as a CUDA graph and replays it per wave (default: on
-    a CUDA device; the eager steps otherwise).  A step is ``_class_step``
-    (on ``cuda`` the kernel, one launch), or with ``plain`` (use
-    ``run_device_apply_plain``) the plain form on any device.  The
+    """Queue the apply of one frame on ``device`` and return its
+    ``ApplyRun`` for ``collect_device_apply``.  On a CUDA device it is one
+    launch of the frame kernel (``apply_items`` on ``frame_items``).  On the
+    CPU, or with ``plain`` (use ``run_device_apply_plain``) on any device,
+    it is the plain form: the class steps wave by wave (``_step_plain``),
+    each captured as a CUDA graph and replayed per wave with ``replay``
+    (default: on a CUDA device); the kernel form refuses ``replay``.  The
     arguments after the schedule are the reference's: frame size, scaled
     QPs, CTU size, bit increment, largest sample value, sign hiding, RDOQ
     with its float32 lambdas and slice-init context states."""
     t0 = time.perf_counter()
     device = torch.device(device)
     if replay is None:
-        replay = device.type == "cuda"
+        replay = plain and device.type == "cuda"
     if replay and device.type != "cuda":
         raise ValueError(f"CUDA graph replay needs a CUDA device, not "
                          f"{device}")
+    kernel = device.type == "cuda" and not plain
+    if replay and kernel:
+        raise ValueError("the kernel form is one launch a frame: only the "
+                         "plain form replays CUDA graphs")
     if use_rdoq and init_ctx is None:
         raise ValueError("RDOQ needs the slice-init context states")
     wp = -(-width // ctu_size) * ctu_size
     hp = -(-height // ctu_size) * ctu_size
-    oy = np.asarray(org_y, np.int16)
-    ocb = np.asarray(org_cb, np.int16)
-    ocr = np.asarray(org_cr, np.int16)
+    orgs_np = [np.asarray(o, np.int16) for o in (org_y, org_cb, org_cr)]
 
     def up(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-    # per-record source windows, cut host-side (the source is static)
-    def windows(plane, ci):
+    # one zeroed int16 buffer: the recon planes (with the guard), then the
+    # level stacks
+    layout, n_lv = level_layout(sched)
+    rec_shapes = [(hp + 1 + GUARD, wp + 1 + GUARD)] \
+        + [(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)] * 2
+    sizes = [h * w for h, w in rec_shapes]
+    buf = torch.zeros(sum(sizes) + n_lv, dtype=torch.int16, device=device)
+    recs = [t.view(shape) for t, shape in zip(buf[:sum(sizes)].split(sizes),
+                                               rec_shapes)]
+    lv = buf[sum(sizes):]
+
+    def stack(ci, plane):
+        off, n = layout[ci, plane]
         s = CLS[ci][0]
-        xs, ys = sched.flat[ci][0], sched.flat[ci][1]
-        n_c = sched.counts[ci]
-        out = np.zeros((len(xs), s, s), np.int16)
-        if n_c:
-            dy = np.arange(s)
-            out[:n_c] = plane[ys[:n_c, None, None] + dy[None, :, None],
-                              xs[:n_c, None, None] + dy[None, None, :]]
-        return up(out)
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=torch.int16, device=device)
-    rec_y = zeros(hp + 1 + GUARD, wp + 1 + GUARD)
-    rec_cb = zeros(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)
-    rec_cr = zeros(hp // 2 + 1 + GUARD, wp // 2 + 1 + GUARD)
-    lvs, lvs_cr, counters, steps = [], [], [], {}
+        return lv[off:off + n * s * s].view(n, s, s)
+    lvs = [stack(ci, 0 if luma else 1) for ci, (_s, luma, _) in enumerate(CLS)]
+    lvs_cr = [None if luma else stack(ci, 2)
+              for ci, (_s, luma, _) in enumerate(CLS)]
     active = [np.nonzero(np.diff(o))[0] for o in sched.offs]
-    run_one = _step_plain if plain else _class_step
-    for ci, (s, luma, _) in enumerate(CLS):
-        n_flat = len(sched.flat[ci][0])
-        lvs.append(zeros(n_flat, s, s))
-        lvs_cr.append(None if luma else zeros(n_flat, s, s))
-        if not active[ci].size:
-            continue
-        cap = sched.caps[ci]
-        flat = tuple(up(a.astype(np.int64)) for a in sched.flat[ci])
-        starts = up(sched.offs[ci][active[ci]].astype(np.int64))
-        rows = torch.arange(cap, device=device)
-        ebt = (est_bits_tensors(init_ctx, s, luma, device) if use_rdoq
-               else None)
-        if device.type == "cuda" and not plain:
-            kernel_tables(ci, device)       # uploaded before any capture
-        if luma:
-            planes = [(rec_y, lvs[ci], windows(oy, ci), qp_y, lam_y)]
-        else:
-            planes = [(rec_cb, lvs[ci], windows(ocb, ci), qp_cb, lam_c),
-                      (rec_cr, lvs_cr[ci], windows(ocr, ci), qp_cr, lam_c)]
-        planes = [(rec, lv, wins, qp,
-                   torch.full((cap,), qp, dtype=torch.int32, device=device),
-                   lam) for rec, lv, wins, qp, lam in planes]
-        st = ClassStep(ci, planes, flat, starts, rows, ebt, bit_inc,
-                       max_val, sign_hide, use_rdoq)
-        counters += [st.k, st.done]
-        steps[ci] = functools.partial(run_one, st)
-
-    graphs, per_replay = {}, {}
-    if replay:
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        for ci, step in steps.items():
-            graphs[ci], per_replay[ci] = _capture(step, side)
-        # the warm-up steps wrote the state: start it afresh
-        torch.cuda.current_stream(device).wait_stream(side)
-        for t in (rec_y, rec_cb, rec_cr, *lvs, *counters,
-                  *(v for v in lvs_cr if v is not None)):
-            t.zero_()
-        run_step = {ci: g.replay for ci, g in graphs.items()}
+    qps, lams = (qp_y, qp_cb, qp_cr), (lam_y, lam_c, lam_c)
+    ebts = ({ci: est_bits_tensors(init_ctx, s, luma, device)
+             for ci, (s, luma, _) in enumerate(CLS) if active[ci].size}
+            if use_rdoq else None)
+    run = ApplyRun()
+    run.class_steps = int(sum(a.size for a in active))
+    run.n_items, run.state, graphs, per_replay = 0, None, {}, {}
+    if kernel:
+        # the item list, checked on the host and uploaded with the source
+        # planes before the launch
+        items = frame_items(sched, layout)
+        uh, uw = hp // 4, wp // 4
+        classes = [ci for ci in range(len(CLS)) if active[ci].size]
+        apply_kernel.check_items(items, [o.shape for o in orgs_np], (uh, uw),
+                                 n_lv, classes)
+        flat_up = up(np.concatenate([items.view(np.int16).reshape(-1)]
+                                    + [o.reshape(-1) for o in orgs_np]))
+        parts = flat_up.split([items.size * 2] + [o.size for o in orgs_np])
+        items_d = parts[0].view(torch.int32).view(items.shape)
+        orgs = [t.view(o.shape) for t, o in zip(parts[1:], orgs_np)]
+        ints = torch.zeros(3 * uh * uw + apply_kernel.STATE_WORDS,
+                           dtype=torch.int32, device=device)
+        ready = ints[:3 * uh * uw].view(3, uh, uw)
+        run.state = ints[3 * uh * uw:]
+        run.n_items = len(items)
+        launch = [functools.partial(
+            apply_items, items_d, recs, orgs, lv, ready, run.state, qps, lams,
+            ebts, bit_inc, max_val, sign_hide, classes)]
     else:
-        run_step = steps
+        steps = {}
+        for ci, (s, luma, _) in enumerate(CLS):
+            if not active[ci].size:
+                continue
+            cap = sched.caps[ci]
+            flat = tuple(up(a.astype(np.int64)) for a in sched.flat[ci])
+            starts = up(sched.offs[ci][active[ci]].astype(np.int64))
+            rows = torch.arange(cap, device=device)
+            planes = []
+            for plane in _planes_of(luma):
+                # the records' source windows, cut host-side (padding rows
+                # zero)
+                xs, ys = sched.flat[ci][0], sched.flat[ci][1]
+                n_c = sched.counts[ci]
+                wins = np.zeros((len(xs), s, s), np.int16)
+                if n_c:
+                    dy = np.arange(s)
+                    wins[:n_c] = orgs_np[plane][
+                        ys[:n_c, None, None] + dy[None, :, None],
+                        xs[:n_c, None, None] + dy[None, None, :]]
+                planes.append((recs[plane], stack(ci, plane), up(wins),
+                               qps[plane], torch.full(
+                                   (cap,), qps[plane], dtype=torch.int32,
+                                   device=device), lams[plane]))
+            st = ClassStep(ci, planes, flat, starts, rows,
+                           None if ebts is None else ebts[ci], bit_inc,
+                           max_val, sign_hide, use_rdoq)
+            steps[ci] = (functools.partial(_step_plain, st), st.k)
+        if replay:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
+            for ci, (step, _k) in steps.items():
+                graphs[ci], per_replay[ci] = _capture(step, side)
+            # the warm-up steps wrote the state: start it afresh
+            torch.cuda.current_stream(device).wait_stream(side)
+            buf.zero_()
+            for _step, k in steps.values():
+                k.zero_()
+            run_step = {ci: g.replay for ci, g in graphs.items()}
+        else:
+            run_step = {ci: step for ci, (step, _k) in steps.items()}
+        launch = [run_step[ci] for w in range(sched.n_waves)
+                  for ci in run_step if sched.offs[ci][w + 1]
+                  > sched.offs[ci][w]]
 
-    wave_classes = [[] for _ in range(sched.n_waves)]
-    for ci in steps:
-        for w in active[ci]:
-            wave_classes[w].append(ci)
     loop_events = None
     if device.type == "cuda":
         loop_events = (torch.cuda.Event(enable_timing=True),
                        torch.cuda.Event(enable_timing=True))
         loop_events[0].record()
     t1 = time.perf_counter()
-    for classes in wave_classes:
-        for ci in classes:
-            run_step[ci]()
-    for j, m in enumerate(_COUNTED):
-        m.replayed(sum(n[j] * active[ci].size
-                       for ci, n in per_replay.items()))
+    for fn in launch:
+        fn()
+    residual_kernel.replayed(sum(n * active[ci].size
+                                 for ci, n in per_replay.items()))
     t2 = time.perf_counter()
     if loop_events is not None:
         loop_events[1].record()
 
-    run = ApplyRun()
     run.setup_s, run.issue_s = t1 - t0, t2 - t1
     run.loop_events = loop_events
     run.graphs = graphs
-    outs = [rec_y[1:1 + hp, 1:1 + wp], rec_cb[1:1 + hp // 2, 1:1 + wp // 2],
-            rec_cr[1:1 + hp // 2, 1:1 + wp // 2], *lvs,
-            *(v for v in lvs_cr if v is not None)]
-    run.shapes = [tuple(t.shape) for t in outs]
-    run.flat = torch.cat([t.reshape(-1) for t in outs])
+    outs = [recs[0][1:1 + hp, 1:1 + wp], recs[1][1:1 + hp // 2, 1:1 + wp // 2],
+            recs[2][1:1 + hp // 2, 1:1 + wp // 2]]
+    run.shapes = [tuple(t.shape) for t in outs] \
+        + [tuple(t.shape) for t in lvs] \
+        + [tuple(t.shape) for t in lvs_cr if t is not None]
+    run.flat = torch.cat([t.reshape(-1) for t in outs] + [lv])
     run.n_waves = sched.n_waves
-    run.class_steps = sum(len(c) for c in wave_classes)
     return run
 
 
