@@ -7,8 +7,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
-   residual, SATD, MC, in-loop filters, the device apply's frame kernel),
-   one nvcc for each source, all started together.
+   residual, SATD, MC, in-loop filters, the device apply's frame kernel,
+   the intra decision pass's sweep and TU-RD kernels), one nvcc for each
+   source, all started together.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -61,11 +62,15 @@ Run from the root of a checkout on a machine with a CUDA card:
 6. Fast-RD encode phase: encodes the same clip with ``--FastRD=1`` at
    QP 32 through the port's encoder CLI (``thevc_tpu_torch.apps.encoder
    --device cuda``) in a child process, whose counts start at 0 and
-   which reports the launches of both kernels: each must be above 0, and
-   ``jax`` must not have been imported.  The stream is decoded by the
-   port on ``cuda``: 8/8 digests OK and recon byte-identical to the
-   encoder's.  Against the exact stream: at most 1.15x its bytes and a
-   luma PSNR against the clip at most 0.5 dB below it.
+   which reports the kernels' launches: the intra sweep and TU-RD
+   kernels' (``csrc/intra_rd.cu``) must be above 0 and K1's and K2's 0
+   (the decision passes run neither), and ``jax`` must not have been
+   imported.  The stream must be the one the port wrote before the intra
+   decision kernels (``PARENT_STREAMS``: bytes and SHA-256).  It is
+   decoded by the port on ``cuda``: 8/8 digests OK and recon
+   byte-identical to the encoder's.  Against the exact stream: at most
+   1.15x its bytes and a luma PSNR against the clip at most 0.5 dB below
+   it.
 7. CPU against CUDA: a 416x240 2-frame clip encoded with ``--FastRD=1``
    at QP 27 and 37 with ``--device cuda`` and ``--device cpu`` gives
    byte-identical streams.
@@ -117,8 +122,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 10. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
    with ``--FastRD=1 --device cuda`` and the low-delay B cfg at QP 32
    (SAO on, as the exact stream) in a child process whose report gives
-   the launches of K1, K2 and the MC kernel (each above 0) and the
-   plain MC's calls (none), the decision frames (8,
+   the launches of K2, the MC kernel and the intra decision kernels (each
+   above 0), of K1 (none) and the plain MC's calls (none), the stream
+   (``PARENT_STREAMS``, as in 6), the decision frames (8,
    7 of them B) and the decision wall; decodes it on ``cuda`` (8/8
    digests OK, recon byte-identical to the encoder's) and reports its
    bytes and luma PSNR beside the exact low-delay B stream's (no gate).
@@ -127,12 +133,15 @@ Run from the root of a checkout on a machine with a CUDA card:
    this process (same cfg, ``Encoder(cfg, device="cuda")``) with the
    arguments of the last ``fast_inter.decide_frame_p`` call recorded,
    and that call runs again on ``cuda``: a warm-up, three timed runs
-   (synchronised wall, K1/K2/MC kernel launches counted from 0, no
-   plain MC), one with stage timing on (stage walls), one under
-   ``torch.profiler`` (device time, busy share), and one that records
-   every K1, K2 and MC kernel call of the pass, the intra leaves' SATD
-   calls included (as many as the launches): each is held against its
-   plain version on the pass's own data (tolerance 0), and the
+   (synchronised wall, K2, MC and intra decision kernel launches counted
+   from 0, each above 0, no K1, no plain MC), one with stage timing on
+   (stage walls), one under ``torch.profiler`` (device time, busy
+   share), the same on the plain route as in 16 (walls, stage walls,
+   device time; identical maps), and one that records every K2, MC and
+   intra decision kernel call of the pass (as many as the launches):
+   each is held against its plain version on the pass's own data
+   (tolerance 0, bits bit for bit), the given-prediction TU-RD calls
+   timed as in 16, and the
    49-candidate SATD classes and quarter-pel MC calls (one a size class
    and list) are timed with their bytes, bound and share (``kernel
    satd`` and ``kernel mc_qpel`` rows, as in 4; each quarter-pel call is
@@ -162,7 +171,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    path: encodes the 1080p all-intra clip with ``--FastRD=1 --device
    cuda --device-apply`` at QP 32 (SAO, RDOQ on) in a child process whose
    report gives the kernels' launches (the apply kernel's, one a frame;
-   K1's, the decision passes' alone), the device-apply frames (8, none
+   the intra decision kernels', above 0; K1's and K2's, none), the
+   stream (``PARENT_STREAMS``, as in 6), the device-apply frames (8, none
    left to the host apply), waves, class steps and wall; decodes it on
    ``cuda`` and on the CPU (8/8 digests OK, recon byte-identical to the
    encoder's); reports its wall beside the fast-RD phase's host-apply
@@ -208,7 +218,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    events, 20 calls; K1 also as a CUDA graph); the 8-slot dry run
    (8 spawned processes, each slot's device work on ``cuda:0``, its
    collective gloo between the processes, since NCCL takes no two ranks
-   on one card): each slot's 2-frame 48x48 fast-RD encode with the QPs
+   on one card): each slot's 2-frame 48x48 fast-RD encode (the intra
+   decision kernels launched, the decode K1 and K4) with the QPs
    of the shared rate pool, the steering check, 16 pictures digest OK
    and the frame-sharded decode of slot 0's stream, printing the QP and
    spend histories, the local-only QPs, the all-reduce latencies and
@@ -263,9 +274,28 @@ Run from the root of a checkout on a machine with a CUDA card:
    rate controller fed the same bits); one
    ``thevc_tpu_torch.tools.fastrd_quality`` sweep on ``cuda`` (2 frames
    of that clip, QP 22-37), its rows printed.  The phase's K1, K2, MC,
-   filter and apply kernel launches (``cuda`` runs only) must be above
-   0.
-16. Prints the kernels' JSON line (per kernel: launches on the main
+   filter, apply and intra decision kernel launches (``cuda`` runs only)
+   must be above 0.
+16. I pass phase (``fastrd_intra_pass``), last (run before the
+   device-apply phase, it left that phase's profiler session without its
+   apply kernel): the 1080p all-intra clip's first frame's decision pass
+   (``fast_intra.decide_frame``, the arguments recorded from an
+   in-process 1-frame encode) replayed in this process with the intra
+   decision kernels and with the plain route (the entries' plain forms on
+   the card: the 35-mode stacks with K2, the listed modes' predictions
+   and ``_tq_rd`` with K1), in turns (plain, kernel, kernel, plain):
+   synchronised walls, each route's launches counted from 0 (the kernel
+   route 5 sweeps, 10 TU-RD launches, no K1, no K2), identical maps, and
+   one run of each under ``torch.profiler`` (device time, kernels, busy
+   share).  Every kernel call of the pass is held against its plain form
+   (SATD and dist tolerance 0, bits bit for bit) and timed (``kernel
+   intra_sweep`` and ``kernel tu_rd`` rows: eager, a CUDA graph of 20,
+   the plain form, bytes, bound and shares; the bound counts each
+   block's samples and reference line once and the per-sample int32
+   work, ``sweep_bound`` and ``tu_rd_bound``), and the same frame as 10
+   bits (samples << 2) gives identical maps on both routes with every
+   kernel call equal to its plain form.
+17. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
    class, printed beside the 32x32 class with every group coded, K2
@@ -275,10 +305,14 @@ Run from the root of a checkout on a machine with a CUDA card:
    B frame's 8 calls summed, the filter kernel (K4) the all-intra
    decode's call of 8 pictures, with its graph time, the apply kernel
    the recorded 1080p frame's wave loop (eager, graph-replayed, and the
-   plain form's graph-replayed loop beside it); no single PyTorch
+   plain form's graph-replayed loop beside it), the intra sweep and
+   TU-RD kernels the replayed 1080p I frame's calls summed (5 and 10,
+   with their graph times); no single PyTorch
    call computes any of them (the MC: per-PU-phase 8-tap interpolation
    with the int16 wrap; the filters: deblocking and SAO; the apply: HM's
-   intra TU prediction, transform, RDOQ and recon), so ``library_ms`` is
+   intra TU prediction, transform, RDOQ and recon; the intra decision
+   kernels: HM's intra prediction modes, its transforms and quantiser),
+   so ``library_ms`` is
    null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
@@ -374,6 +408,17 @@ RESUME = (96, 80, 9)
 RC = (416, 240, 4, 1000000)
 RC_LDB_FRAMES = 3
 QUALITY_FRAMES, QUALITY_QPS = 2, (22, 27, 32, 37)
+# (bytes, SHA-256) of the 1080p fast-RD streams as the port wrote them
+# before its intra decision kernels (commit af7c951, on an H100): the
+# all-intra encode with the host apply and with the device apply, and
+# the low-delay B encode; the kernels must not move a decision
+PARENT_STREAMS = {
+    "intra": (223851, "6389fce834befbf04b1281d68e3067902d1d86b2ec98bbf5075660"
+                      "a24fa8b0ea"),
+    "devapply": (236367, "ea37974b4938a47fbbaf9031e2d65dd7172b2359326cca57c0"
+                         "9a0db14bb04075"),
+    "ldb": (64064, "39ece725bcd853b609e61ec4ea0e93bfcc3c5b843bfd1c86aa7a5650b"
+                   "880b5d4")}
 
 
 class SmokeFailure(Exception):
@@ -1439,10 +1484,12 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
     dec_rec = work / "fastrd_dec_rec.yuv"
     rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
                       "cuda")
-    check(rep["satd_launches"] > 0, "the fast-RD encode launched no SATD "
-          "kernel")
-    check(rep["residual_launches"] > 0, "the fast-RD encode launched no "
-          "residual kernel")
+    check(rep["intra_sweep_launches"] > 0 and rep["tu_rd_launches"] > 0,
+          "the fast-RD encode launched no intra sweep or TU-RD kernel")
+    check(rep["satd_launches"] == 0 and rep["residual_launches"] == 0,
+          f"the all-intra fast-RD encode's decision passes launched K2 "
+          f"{rep['satd_launches']} and K1 {rep['residual_launches']} times")
+    check_parent_stream("intra", stream)
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES,
           f"{rep['decision_frames']} decision passes for {FRAMES} frames")
@@ -1469,10 +1516,325 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
                decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
+               intra_sweep_launches=rep["intra_sweep_launches"],
+               tu_rd_launches=rep["tu_rd_launches"],
                decode_filters_launches=filters_launches,
                fast_bytes=fast_bytes, exact_bytes=exact_bytes,
                psnr_y_fast=psnr_fast, psnr_y_exact=psnr_exact)
     print("fastrd " + json.dumps(out))
+    return out
+
+
+def sweep_bound(nb: int, size: int) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one intra sweep launch:
+    each block's samples and its 4s + 1 reference samples read once
+    (int16), the SATDs and the best mode written (int32); per predicted
+    sample the lerp (two multiplies, three adds, a shift), the
+    difference, the Hadamard's butterflies (two passes of 2 or 3 stages)
+    and the absolute sum, int32 at the int32 rate."""
+    samples = nb * SATD_MODES * size * size
+    nbytes = nb * (size * size + 4 * size + 1) * 2 + nb * (SATD_MODES + 1) * 4
+    ops = samples * (6 + 2 * (2 if size == 4 else 3) + 3)
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def tu_rd_bound(n: int, size: int, intra: bool, blocks: int = 0,
+                planes: int = 1, k: int = 1) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one TU-RD launch of
+    ``n`` items of block size |size| (TU size 32 for 64, 16 for -32):
+    the given form reads each item's org and pred (int16), the intra form
+    each block's samples and 4s + 1 reference samples on each plane once
+    and its k mode ids; both read a QP and write dist and bits an item.
+    Per sample the four transform passes' multiply-adds (the TU size
+    each, two operations), the quantiser, dequantiser, recon and SSE
+    (13), and for the intra form the prediction's lerp (6), int32 at the
+    int32 rate."""
+    s = abs(size)
+    t = 32 if size == 64 else 16 if size == -32 else size
+    if intra:
+        nbytes = planes * blocks * (s * s + 4 * s + 1) * 2 + blocks * k * 4
+    else:
+        nbytes = n * s * s * 2 * 2
+    nbytes += n * (4 + 8)
+    ops = n * s * s * (8 * t + 13 + (6 if intra else 0))
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def intra_counts() -> dict:
+    """The launches of the kernels an intra decision pass can reach."""
+    from thevc_tpu_torch.ops import intra_rd_kernel, residual_kernel, \
+        satd_kernel
+    return {"intra_sweep": intra_rd_kernel.sweep_launches,
+            "tu_rd_intra": intra_rd_kernel.tu_rd_intra_launches,
+            "tu_rd_given": intra_rd_kernel.tu_rd_given_launches,
+            "satd": satd_kernel.launches,
+            "residual": residual_kernel.launches}
+
+
+def zero_intra_counts() -> None:
+    from thevc_tpu_torch.ops import intra_rd_kernel, residual_kernel, \
+        satd_kernel
+    intra_rd_kernel.sweep_launches = 0
+    intra_rd_kernel.tu_rd_intra_launches = 0
+    intra_rd_kernel.tu_rd_given_launches = 0
+    satd_kernel.launches = residual_kernel.launches = 0
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The decision passes with the intra entries' plain forms on the
+    card: the 35-mode stacks and K2 for the sweep, the listed modes'
+    predictions and ``_tq_rd`` with K1 for the transform-RD estimates.
+    That is the route before the intra decision kernels, but for the
+    size pass's top-3 and the chroma pass's 5 candidates, which it
+    gathered from 35-mode stacks."""
+    from thevc_tpu_torch.encoder import fast_intra
+    names = ("intra_sweep", "tu_rd_modes", "tu_rd")
+    saved = {n: getattr(fast_intra, n) for n in names}
+    fast_intra.intra_sweep = fast_intra.intra_sweep_plain
+    fast_intra.tu_rd_modes = fast_intra.tu_rd_modes_plain
+    fast_intra.tu_rd = fast_intra._tq_rd
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(fast_intra, n, f)
+
+
+@contextlib.contextmanager
+def recorded_intra_kernel_calls(calls: dict):
+    """Record every launch of the intra decision kernels' three entries
+    (their arguments) into ``calls``."""
+    from thevc_tpu_torch.ops import intra_rd_kernel
+    names = ("sweep", "tu_rd_intra", "tu_rd_given")
+    saved = {n: getattr(intra_rd_kernel, n) for n in names}
+
+    def spy(name):
+        def call(*a):
+            calls.setdefault(name, []).append(a)
+            return saved[name](*a)
+        return call
+    for n in names:
+        setattr(intra_rd_kernel, n, spy(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(intra_rd_kernel, n, f)
+
+
+def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
+    """Each recorded intra decision kernel call against its plain form on
+    the card (dist and SATD tolerance 0, bits bit for bit); the calls of
+    the entries named in ``timed`` are timed (eager, CUDA graph of 20,
+    the plain form) beside their bound and printed as ``kernel`` rows.
+    Returns (largest error, rows by entry)."""
+    from thevc_tpu_torch.encoder import fast_intra
+    from thevc_tpu_torch.ops import intra_rd_kernel
+    max_err = 0
+    rows = {"sweep": [], "tu_rd_intra": [], "tu_rd_given": []}
+
+    def plain_of(name, a):
+        if name == "sweep":
+            plane, size, nby, nbx, bit_inc, max_val = a
+            return lambda: fast_intra.intra_sweep_plain(
+                plane, size, nby, nbx, bit_inc, max_val)
+        if name == "tu_rd_intra":
+            (planes, modes, qp, _b, _lb, size, nby, nbx, luma, bit_inc,
+             max_val) = a
+            per = int(modes.shape[0]) * int(modes.shape[1])
+            qps = tuple(qp[i * per] for i in range(len(planes)))
+            return lambda: fast_intra.tu_rd_modes_plain(
+                planes, size, nby, nbx, modes, qps, bit_inc, max_val, luma)
+        org, pred, qp, _b, _lb, size, is_intra, bit_inc, max_val = a
+        return lambda: fast_intra._tq_rd(org, pred, size, qp, bit_inc,
+                                         max_val, is_intra)
+
+    for name, entry_calls in calls.items():
+        kernel = getattr(intra_rd_kernel, name)
+        for a in entry_calls:
+            plain = plain_of(name, a)
+            got, want = kernel(*a), plain()
+            torch.cuda.synchronize()
+            if name == "sweep":
+                err = max(int((got[0] - want[0]).abs().max()),
+                          int((got[1] - want[1]).abs().max()))
+                same = torch.equal(got[0], want[0]) \
+                    and torch.equal(got[1], want[1])
+            else:
+                err = int((got[0] - want[0]).abs().max())
+                same = torch.equal(got[0], want[0]) and torch.equal(
+                    got[1].view(torch.int32), want[1].view(torch.int32))
+            max_err = max(max_err, err)
+            check(same, f"{tag}: intra kernel {name} != plain form "
+                  f"(max abs err {err}, bits equal "
+                  f"{torch.equal(got[1], want[1])})")
+            if name not in timed:
+                continue
+            if name == "sweep":
+                plane, size, nby, nbx = a[:4]
+                shape = dict(size=size, blocks=nby * nbx)
+                nbytes, ops, bound_ms, bound_by = sweep_bound(nby * nbx,
+                                                              size)
+            elif name == "tu_rd_intra":
+                planes, modes = a[:2]
+                size, nby, nbx, luma = a[5:9]
+                n = len(planes) * int(modes.numel())
+                shape = dict(size=size, items=n, planes=len(planes),
+                             luma=bool(luma))
+                nbytes, ops, bound_ms, bound_by = tu_rd_bound(
+                    n, size, True, nby * nbx, len(planes),
+                    int(modes.shape[1]))
+            else:
+                size = a[5]
+                n = int(a[0].shape[0])
+                shape = dict(size=size, items=n, is_intra=bool(a[6]))
+                nbytes, ops, bound_ms, bound_by = tu_rd_bound(n, size,
+                                                              False)
+            ms = time_ms(torch, lambda: kernel(*a), 20)
+            g_ms = graph_ms(torch, lambda: kernel(*a), 20)
+            plain_ms = time_ms(torch, plain, 3)
+            row = dict(entry=name, **shape, ms=ms, graph_ms=g_ms,
+                       plain_ms=plain_ms, bytes=nbytes, ops=ops,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       share_of_bound=bound_ms / ms,
+                       graph_share_of_bound=bound_ms / g_ms,
+                       max_abs_err=err)
+            rows[name].append(row)
+            print(f"kernel {'intra_sweep' if name == 'sweep' else 'tu_rd'} "
+                  f"{tag} " + json.dumps(row))
+    return max_err, rows
+
+
+def recorded_i_call(clip: Path, work: Path) -> tuple:
+    """The positional arguments of the clip's first frame's
+    ``fast_intra.decide_frame`` call in an in-process fast-RD encode of
+    that frame on ``cuda`` (all-intra cfg, QP 32, SAO, the host apply, as
+    the CLI encode), copied so that they outlive the encode."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_intra
+    from thevc_tpu_torch.encoder.top import DecisionStats, Encoder
+    from thevc_tpu_torch.utils.cfg import parse_args
+    calls = []
+    real = fast_intra.decide_frame
+
+    def spy(*args, **kwargs):
+        calls.append(tuple(a.copy() if isinstance(a, np.ndarray) else a
+                           for a in args))
+        return real(*args, **kwargs)
+    cfg = parse_args(["-c", str(CFG / "encoder_intra_main.cfg"), "-i",
+                      str(clip), "-b", str(work / "intra_pass.bin"),
+                      "-wdt", str(WIDTH), "-hgt", str(HEIGHT), "-f", "1",
+                      "-fr", "30", f"--QP={QP}", "--SAO=1", "--FastRD=1",
+                      "--SEIpictureDigest=1"])
+    fast_intra.decide_frame = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            Encoder(cfg, device="cuda", stats=DecisionStats()).encode(
+                cfg.bitstream_file)
+    finally:
+        fast_intra.decide_frame = real
+    check(len(calls) == 1, f"{len(calls)} I decision passes for one frame")
+    return calls[0]
+
+
+def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
+    """One 1080p I frame's decision pass (``fast_intra.decide_frame``)
+    replayed in this process from the encoder's own call, with the intra
+    decision kernels and with the plain route (``plain_route``), in turns
+    (plain, kernel, kernel, plain): synchronised walls, the launches of
+    each route counted from 0, identical maps; one run of each under
+    ``torch.profiler`` (device time, kernel count, busy share).  Then
+    every kernel call of the pass held against its plain form and timed
+    (``kernel intra_sweep`` and ``kernel tu_rd`` rows), and the same
+    frame as 10 bits (samples << 2, QPs + 12): maps of both routes
+    identical, every kernel call equal to its plain form."""
+    import numpy as np
+    from thevc_tpu_torch.encoder import fast_intra
+    args = recorded_i_call(clip, work)
+    ctu = args[14]
+    classes = sum(1 for s in fast_intra.SIZES if s <= ctu)
+    chroma_classes = sum(1 for s in fast_intra.SIZES if 8 <= s <= ctu) + 1
+
+    def run(a=args):
+        return fast_intra.decide_frame(*a, device="cuda")
+
+    def in_route(route):
+        return plain_route() if route == "plain" else contextlib.nullcontext()
+    for route in ("kernel", "plain"):            # warm-ups
+        with in_route(route):
+            run()
+    walls = {"kernel": [], "plain": []}
+    launches, maps = {}, {}
+    for route in ("plain", "kernel", "kernel", "plain"):
+        with in_route(route):
+            zero_intra_counts()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            maps[route] = run()
+            walls[route].append(time.perf_counter() - t)
+            launches[route] = intra_counts()
+    check(all(np.array_equal(a, b) and a.dtype == b.dtype
+              for a, b in zip(maps["kernel"], maps["plain"])),
+          "the 1080p I pass's maps differ between the kernel route and "
+          "the plain route")
+    want = {"intra_sweep": classes, "tu_rd_intra": classes + chroma_classes,
+            "tu_rd_given": 0, "satd": 0, "residual": 0}
+    check(launches["kernel"] == want,
+          f"the 1080p I pass launched {launches['kernel']}, expected {want} "
+          "(no K1, no K2)")
+    check(launches["plain"]["satd"] == classes
+          and launches["plain"]["residual"] > 0
+          and launches["plain"]["intra_sweep"] == 0
+          and launches["plain"]["tu_rd_intra"] == 0,
+          f"the plain route launched {launches['plain']}")
+    from torch.profiler import ProfilerActivity, profile
+    prof_out = {}
+    for route in ("kernel", "plain"):
+        with in_route(route):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+        device_us, n_kernels, top = profiled_device(prof)
+        prof_out[route] = dict(profiled_wall_ms=1000 * wall,
+                               device_ms=device_us / 1000,
+                               device_kernels=n_kernels,
+                               device_busy_share=device_us / 1e6 / wall,
+                               top_kernels_ms=top)
+    out = dict(wall_ms={k: [1000 * w for w in v] for k, v in walls.items()},
+               launches=launches, profiled=prof_out, maps_identical=True)
+    print("fastrd_intra_pass " + json.dumps(out))
+
+    calls: dict = {}
+    with recorded_intra_kernel_calls(calls):
+        run()
+    err, rows = held_intra_calls(torch, calls, ("sweep", "tu_rd_intra"),
+                                 "intra_pass")
+    check(len(rows["sweep"]) == classes
+          and len(rows["tu_rd_intra"]) == classes + chroma_classes,
+          f"recorded {[len(v) for v in rows.values()]} intra kernel calls")
+    # the same frame as 10 bits
+    (y, cb, cr, w, h, qp, qp_cb, qp_cr, *rest) = args
+    args10 = (*(p.astype(np.int16) << 2 for p in (y, cb, cr)), w, h,
+              qp + 12, qp_cb + 12, qp_cr + 12, *rest[:-2], 2, 1023)
+    with in_route("plain"):
+        maps10_plain = run(args10)
+    calls10: dict = {}
+    with recorded_intra_kernel_calls(calls10):
+        maps10 = run(args10)
+    check(all(np.array_equal(a, b) for a, b in zip(maps10, maps10_plain)),
+          "the 10-bit I pass's maps differ between the routes")
+    err10, _ = held_intra_calls(torch, calls10, (), "intra_pass_10bit")
+    out.update(max_abs_err=max(err, err10), rows=rows)
+    print("fastrd_intra_pass_kernels " + json.dumps(
+        {"max_abs_err": out["max_abs_err"],
+         "calls": {k: len(v) for k, v in calls.items()},
+         "calls_10bit": {k: len(v) for k, v in calls10.items()},
+         "maps_identical_10bit": True}))
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1508,8 +1870,11 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                       "cuda", cfg=LDB_CFG)
     check(rep["satd_launches"] > 0, "the P/B fast-RD encode launched no "
           "SATD kernel")
-    check(rep["residual_launches"] > 0, "the P/B fast-RD encode launched "
-          "no residual kernel")
+    check(rep["intra_sweep_launches"] > 0 and rep["tu_rd_launches"] > 0,
+          "the P/B fast-RD encode launched no intra sweep or TU-RD kernel")
+    check(rep["residual_launches"] == 0, "the P/B fast-RD encode's "
+          f"decision passes launched K1 {rep['residual_launches']} times")
+    check_parent_stream("ldb", stream)
     check(rep["mc_blocks_launches"] > 0 and rep["mc_qpel_launches"] > 0
           and rep["plain_mc_calls"] == 0,
           f"the P/B fast-RD encode launched the MC kernel's blocks "
@@ -1531,6 +1896,8 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                decision_ms_per_frame=1000 * rep["decision_wall_s"] / FRAMES,
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
+               intra_sweep_launches=rep["intra_sweep_launches"],
+               tu_rd_launches=rep["tu_rd_launches"],
                mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
                decode_filters_launches=filters_launches,
@@ -1589,15 +1956,19 @@ def recorded_b_call(clip: Path, work: Path) -> tuple:
 def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p B frame's decision pass in this process, replayed from
     the encoder's own call: synchronised walls, stage walls, profiler
-    device time, and every K1, K2 and MC kernel call of the pass held
-    against its plain version; the quarter-pel MC calls (49 candidates a
-    block, one a size class and list) timed with their bound beside the
-    generic MC entry on the same job table (``qpel_row``), and the
-    generic MC calls (the winners' predictions) timed and summed."""
+    device time (no K1 launch), the same on the plain route
+    (``plain_route``: the intra leaves and transform-RD estimates through
+    the entries' plain forms, K2 and K1 inside) with identical maps, and
+    every K2, MC and intra decision kernel call of the pass held against
+    its plain version; the quarter-pel MC calls (49 candidates a block,
+    one a size class and list) timed with their bound beside the generic
+    MC entry on the same job table (``qpel_row``), the generic MC calls
+    (the winners' predictions) timed and summed, and each intra decision
+    kernel call timed (``kernel intra_sweep`` / ``kernel tu_rd`` rows)."""
+    import numpy as np
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     from thevc_tpu_torch.ops import device as dev_stats
-    from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel, satd, \
-        satd_kernel, tq
+    from thevc_tpu_torch.ops import mc, mc_kernel, satd
     args, refs1 = recorded_b_call(clip, work)
     cache = fast_inter.RefCache()
 
@@ -1612,21 +1983,28 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         avg_calls.append(1)
         return real_avg(*a)
     mc.bi_avg_batch = rec_avg
-    walls, launches = [], None
+    walls, launches, maps = [], None, None
     for _ in range(3):
-        satd_kernel.launches = residual_kernel.launches = 0
+        zero_intra_counts()
         mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
         mc.launches = 0
         t = time.perf_counter()
-        run()
+        maps = run()
         walls.append(time.perf_counter() - t)
-        launches = {"residual": residual_kernel.launches,
-                    "satd": satd_kernel.launches,
+        counts = intra_counts()
+        launches = {"satd": counts["satd"],
                     "mc": mc_kernel.blocks_launches,
-                    "mc_qpel": mc_kernel.qpel_launches}
-        check(all(launches.values()) and mc.launches == 0,
-              f"the B decision pass skipped a kernel: {launches}, or ran "
-              f"the plain MC {mc.launches} times")
+                    "mc_qpel": mc_kernel.qpel_launches,
+                    "intra_sweep": counts["intra_sweep"],
+                    "tu_rd_intra": counts["tu_rd_intra"],
+                    "tu_rd_given": counts["tu_rd_given"]}
+        # K2 for the quarter-pel candidates only; the intra leaves and
+        # every transform-RD estimate on the intra decision kernels
+        check(all(launches.values()) and counts["residual"] == 0
+              and mc.launches == 0,
+              f"the B decision pass skipped a kernel: {launches}, ran K1 "
+              f"{counts['residual']} times or the plain MC {mc.launches} "
+              "times")
     mc.bi_avg_batch = real_avg
     classes = len(fast_inter.INTER_SIZES)
     # a size class: per list luma and the Cb/Cr pair for the transform
@@ -1646,6 +2024,28 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         run()
         prof_wall = time.perf_counter() - t
     device_us, n_kernels, top = profiled_device(prof)
+    # the same frame on the plain route (the intra entries' plain forms,
+    # K2 and K1 inside): walls, stage walls, device time, the maps
+    with plain_route():
+        plain_walls = []
+        for _ in range(2):
+            t = time.perf_counter()
+            plain_maps = run()
+            plain_walls.append(time.perf_counter() - t)
+        dev_stats.stage_timing(True)
+        try:
+            run()
+        finally:
+            plain_stages = dev_stats.stage_timing(False)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as pprof:
+            t = time.perf_counter()
+            run()
+            plain_prof_wall = time.perf_counter() - t
+    p_us, p_kernels, _ = profiled_device(pprof)
+    check(all(np.array_equal(a, b) and a.dtype == b.dtype
+              for a, b in zip(maps, plain_maps)),
+          "the B pass's maps differ between the kernel and plain routes")
     wall = sorted(walls)[1]
     out = dict(wall_ms=[1000 * w for w in walls], median_wall_ms=1000 * wall,
                launches=launches, mc_blocks_calls=launches["mc"],
@@ -1655,23 +2055,29 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                profiled_wall_ms=1000 * prof_wall,
                device_ms=device_us / 1000, device_kernels=n_kernels,
                top_kernels_ms=top,
-               device_busy_share=device_us / 1e6 / prof_wall)
+               device_busy_share=device_us / 1e6 / prof_wall,
+               plain_route=dict(
+                   wall_ms=[1000 * w for w in plain_walls],
+                   stage_ms={k: 1000 * v for k, v in
+                             sorted(plain_stages.items())},
+                   profiled_wall_ms=1000 * plain_prof_wall,
+                   device_ms=p_us / 1000, device_kernels=p_kernels,
+                   device_busy_share=p_us / 1e6 / plain_prof_wall),
+               maps_identical=True)
     print("fastrd_inter_pass " + json.dumps(out))
 
     # record the pass's kernel calls (the inter leaves' and the intra
     # leaves'), then hold each against its plain version and time the
-    # 49-candidate SATD and MC calls and the generic MC calls
-    calls = {"satd": [], "residual": [], "mc": [], "mc_qpel": []}
-    real_satd, real_tq = satd.satd_blocks, tq.tu_recon_pipeline
+    # 49-candidate SATD and MC calls, the generic MC calls and the intra
+    # decision kernels' calls
+    calls = {"satd": [], "mc": [], "mc_qpel": []}
+    icalls: dict = {}
+    real_satd = satd.satd_blocks
     real_mc, real_qpel = mc.mc_blocks, mc.mc_qpel
 
     def rec_satd(org, preds, bit_inc=0):
         calls["satd"].append((org, preds, bit_inc))
         return real_satd(org, preds, bit_inc)
-
-    def rec_tq(*a):
-        calls["residual"].append(a)
-        return real_tq(*a)
 
     def rec_mc(*a, **kw):
         calls["mc"].append((a, kw))
@@ -1681,18 +2087,25 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         calls["mc_qpel"].append(a)
         return real_qpel(*a)
     fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
-    tq.tu_recon_pipeline = rec_tq
     mc.mc_blocks, mc.mc_qpel = rec_mc, rec_qpel
     try:
-        run()
+        with recorded_intra_kernel_calls(icalls):
+            run()
     finally:
         fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
-        tq.tu_recon_pipeline = real_tq
         mc.mc_blocks, mc.mc_qpel = real_mc, real_qpel
-    check({k: len(v) for k, v in calls.items()} == launches,
-          f"recorded {[len(v) for v in calls.values()]} K2/K1/MC calls of "
-          f"the B pass for launches {launches}")
-    max_err = {"satd": 0, "residual": 0, "mc": 0, "mc_qpel": 0}
+    recorded = {**{k: len(v) for k, v in calls.items()},
+                "intra_sweep": len(icalls.get("sweep", [])),
+                "tu_rd_intra": len(icalls.get("tu_rd_intra", [])),
+                "tu_rd_given": len(icalls.get("tu_rd_given", []))}
+    check(recorded == launches,
+          f"recorded {recorded} kernel calls of the B pass for launches "
+          f"{launches}")
+    max_err = {"satd": 0, "mc": 0, "mc_qpel": 0}
+    # the intra leaves' calls are the I pass's kind (timed there); the
+    # given-prediction calls are timed here
+    max_err["intra_rd"], intra_rows = held_intra_calls(
+        torch, icalls, ("tu_rd_given",), "inter_pass")
     rows = []
     for org, preds, bit_inc in calls["satd"]:
         got, plain = satd.satd_blocks(org, preds, bit_inc), \
@@ -1719,13 +2132,6 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                          gb_s=nbytes / ms / 1e6))
         if m == 49:
             print("kernel satd " + json.dumps(rows[-1]))
-    for a in calls["residual"]:
-        got, plain = tq.tu_recon_pipeline(*a), tq.tu_recon_pipeline_plain(*a)
-        torch.cuda.synchronize()
-        err = int((got - plain).abs().max())
-        max_err["residual"] = max(max_err["residual"], err)
-        check(torch.equal(got, plain), "residual kernel != plain on the B "
-              f"pass's {tuple(a[1].shape)} call (max abs err {err})")
     blocks_rows = []
     for a, kw in calls["mc"]:
         got, plain = mc.mc_blocks(*a, **kw), mc.mc_blocks_plain(*a, **kw)
@@ -1768,11 +2174,10 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
           f"{len(mc_rows)} quarter-pel MC calls in the B pass")
     out.update(max_abs_err=max_err, satd_rows=rows, mc_rows=mc_rows,
                mc_blocks=blocks_sum, mc_calls=len(calls["mc"]),
-               residual_calls=len(calls["residual"]),
-               residual_shapes=sorted({tuple(int(v) for v in a[1].shape)
-                                       for a in calls["residual"]}))
+               intra_rows=intra_rows)
     print("fastrd_inter_kernels " + json.dumps(
-        {"max_abs_err": max_err, "residual_calls": out["residual_calls"],
+        {"max_abs_err": max_err, "intra_calls": {
+            k: len(v) for k, v in icalls.items()},
          "satd_calls": len(rows), "mc_calls": out["mc_calls"],
          "mc_qpel_calls": len(mc_rows),
          "replayed_pocs": {
@@ -1803,15 +2208,20 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
         (cuda, rep), (cpu, _) = got[name, "cuda"], got[name, "cpu"]
         check(cuda == cpu, f"{name} P/B fast-RD stream: --device cuda and "
               "--device cpu differ")
-        check(rep["satd_launches"] > 0 and rep["residual_launches"] > 0
+        check(rep["satd_launches"] > 0 and rep["residual_launches"] == 0
+              and rep["intra_sweep_launches"] > 0
+              and rep["tu_rd_launches"] > 0
               and rep["mc_blocks_launches"] > 0
               and rep["mc_qpel_launches"] > 0
               and rep["plain_mc_calls"] == 0,
-              f"{name} fast-RD on cuda skipped a kernel or ran the plain MC")
+              f"{name} fast-RD on cuda skipped a kernel, ran K1 or ran the "
+              f"plain MC: {rep}")
         out[name] = {"bytes": len(cuda), "identical": True,
                      "decision_frames_inter": rep["decision_frames_inter"],
                      "residual_launches": rep["residual_launches"],
                      "satd_launches": rep["satd_launches"],
+                     "intra_sweep_launches": rep["intra_sweep_launches"],
+                     "tu_rd_launches": rep["tu_rd_launches"],
                      "mc_blocks_launches": rep["mc_blocks_launches"],
                      "mc_qpel_launches": rep["mc_qpel_launches"]}
     print("inter_identity " + json.dumps(out))
@@ -1918,10 +2328,12 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
     dec_rec = work / "devapply_dec_rec.yuv"
     rep = port_encode(clip, stream, enc_rec, WIDTH, HEIGHT, FRAMES, QP,
                       "cuda", extra=("--device-apply",))
-    check(rep["residual_launches"] > 0 and rep["satd_launches"] > 0
+    check(rep["intra_sweep_launches"] > 0 and rep["tu_rd_launches"] > 0
+          and rep["residual_launches"] == 0 and rep["satd_launches"] == 0
           and rep["apply_launches"] == FRAMES,
-          f"the device-apply encode skipped a kernel or launched the apply "
-          f"more than once a frame: {rep}")
+          f"the device-apply encode skipped a kernel, ran K1 or K2, or "
+          f"launched the apply more than once a frame: {rep}")
+    check_parent_stream("devapply", stream)
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
           and rep["device_apply_frames"] == FRAMES
@@ -1949,6 +2361,8 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
         class_steps_per_frame=rep["device_apply_class_steps"] / FRAMES,
         residual_launches=rep["residual_launches"],
         satd_launches=rep["satd_launches"],
+        intra_sweep_launches=rep["intra_sweep_launches"],
+        tu_rd_launches=rep["tu_rd_launches"],
         apply_launches=rep["apply_launches"],
         decode_filters_launches=filters_launches, devapply_bytes=dev_bytes,
         host_apply_bytes=host_bytes,
@@ -2236,7 +2650,8 @@ def devapply_frame_phase(torch, clip: Path, work: Path) -> dict:
     kernel.update(profiled(False))
     check(kernel["apply_frame_kernels"] == 1,
           f"{kernel['apply_frame_kernels']} apply kernels on the device for "
-          "one frame")
+          f"one frame (the profiler saw {kernel['device_kernels']} device "
+          f"activities: {kernel['top_kernels_ms']})")
     latency = body_latencies(torch, args, kwargs)
     models = apply_models(sched, latency)
     # the kernel's numbers before the plain form's runs
@@ -2375,7 +2790,7 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
           "steer the QPs")
     for s in slots:
         check(s["device"] == "cuda:0", f"slot {s['rank']} on {s['device']}")
-        for path, k in (("encode", "residual"), ("encode", "satd"),
+        for path, k in (("encode", "intra_sweep"), ("encode", "tu_rd"),
                         ("decode", "residual"), ("decode", "filters")):
             check(s["launches"][path][k] > 0,
                   f"slot {s['rank']}: its {path} made no {k} launch")
@@ -2389,6 +2804,9 @@ def multistream_phase(torch, work: Path, made: dict) -> dict:
                         + s["launches"]["decode"]["residual"]
                         for s in slots),
         "satd": sum(s["launches"]["encode"]["satd"] for s in slots),
+        "intra_sweep": sum(s["launches"]["encode"]["intra_sweep"]
+                           for s in slots),
+        "tu_rd": sum(s["launches"]["encode"]["tu_rd"] for s in slots),
         "filters": sum(s["launches"]["decode"]["filters"] for s in slots)}
     print("multistream_dryrun " + json.dumps(rep))
     out["dryrun"] = rep
@@ -2591,12 +3009,15 @@ def resume_rc_phase(torch, work: Path) -> dict:
     and one ``fastrd_quality`` sweep on ``cuda``."""
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
     from thevc_tpu_torch.ops import apply_kernel, filters_kernel, \
-        mc_kernel, residual_kernel, satd_kernel
+        intra_rd_kernel, mc_kernel, residual_kernel, satd_kernel
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
     residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
     mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
     filters_kernel.launches = apply_kernel.launches = 0
+    intra_rd_kernel.sweep_launches = 0
+    intra_rd_kernel.tu_rd_intra_launches = 0
+    intra_rd_kernel.tu_rd_given_launches = 0
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -2721,7 +3142,9 @@ def resume_rc_phase(torch, work: Path) -> dict:
                        "mc_blocks": mc_kernel.blocks_launches,
                        "mc_qpel": mc_kernel.qpel_launches,
                        "filters": filters_kernel.launches,
-                       "apply": apply_kernel.launches}
+                       "apply": apply_kernel.launches,
+                       "intra_sweep": intra_rd_kernel.sweep_launches,
+                       "tu_rd": intra_rd_kernel.tu_rd_launches()}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -2759,18 +3182,41 @@ def make_clip(path: Path, width: int, height: int, frames: int,
     streams.make_clip(path, width, height, frames, style, SEED)
 
 
+def sum_rows(rows: list) -> dict:
+    """A kernel's calls summed for the kernels line: eager, graph and
+    plain ms, bound, and what bounds them all."""
+    out = {k: sum(r[k] for r in rows) for k in ("ms", "graph_ms",
+                                                 "plain_ms", "bound_ms")}
+    out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
+                                     for r in rows) else "operations"
+    out["library_ms"] = None
+    return out
+
+
+def check_parent_stream(name: str, stream: Path) -> None:
+    """The 1080p fast-RD stream ``name`` must be the one the port wrote
+    before its intra decision kernels (``PARENT_STREAMS``): the kernels
+    move no decision."""
+    import hashlib
+    data = stream.read_bytes()
+    got = (len(data), hashlib.sha256(data).hexdigest())
+    check(got == PARENT_STREAMS[name],
+          f"the {name} fast-RD stream is {got}, the parent's "
+          f"{PARENT_STREAMS[name]}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from thevc_tpu_torch.ops import apply_kernel, build, filters_kernel, \
-        mc_kernel, residual_kernel, satd, satd_kernel, tq
+        intra_rd_kernel, mc_kernel, residual_kernel, satd, satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
     kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel,
-               apply_kernel)
+               apply_kernel, intra_rd_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -2801,6 +3247,9 @@ def main() -> int:
     multi = multistream_phase(torch, work, made)
     robust = robust_decode_phase(torch, work)
     resume = resume_rc_phase(torch, work)
+    # last: run before the device-apply phase (on an H100), this phase
+    # left that phase's profiler session without its apply kernel
+    i_pass = intra_pass_phase(torch, Path(dec["clip"]), work)
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -2828,14 +3277,25 @@ def main() -> int:
         "intra_decode": {"residual": dec["residual_kernel_launches"],
                          "filters": dec["filters_kernel_launches"]},
         "fastrd_encode": {"residual": fast["residual_launches"],
-                          "satd": fast["satd_launches"]},
+                          "satd": fast["satd_launches"],
+                          "intra_sweep": fast["intra_sweep_launches"],
+                          "tu_rd": fast["tu_rd_launches"]},
+        "fastrd_intra_pass": {
+            "intra_sweep": i_pass["launches"]["kernel"]["intra_sweep"],
+            "tu_rd": i_pass["launches"]["kernel"]["tu_rd_intra"]},
         "fastrd_decode": {"filters": fast["decode_filters_launches"]},
         "fastrd_inter_encode": {"residual": fast_inter["residual_launches"],
-                                "satd": fast_inter["satd_launches"]},
+                                "satd": fast_inter["satd_launches"],
+                                "intra_sweep":
+                                fast_inter["intra_sweep_launches"],
+                                "tu_rd": fast_inter["tu_rd_launches"]},
         "fastrd_inter_decode": {
             "filters": fast_inter["decode_filters_launches"]},
         "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
                                    "satd": devapply["satd_launches"],
+                                   "intra_sweep":
+                                   devapply["intra_sweep_launches"],
+                                   "tu_rd": devapply["tu_rd_launches"],
                                    "apply": devapply["apply_launches"]},
         "fastrd_devapply_decode": {
             "filters": devapply["decode_filters_launches"]},
@@ -2871,13 +3331,17 @@ def main() -> int:
     # frame (no PyTorch call does HM's intra TU apply, so library_ms is
     # null)
     frame_apply = devapply["frame"]
+    # the intra decision kernels' times: the replayed 1080p I frame's
+    # calls summed (5 sweeps; 10 TU-RD launches, the luma top-3 of each
+    # class and the Cb/Cr candidates of each chroma class; no single
+    # PyTorch call predicts HM's intra modes or runs its transform,
+    # quantiser and recon, so library_ms is null)
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/residual.cu",
         "replaces": "thevc_tpu/ops/jx_pallas.py:141",
         "launches": sum(p.get("residual", 0) for p in by_path.values()),
-        "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"],
-                           fast_inter["pass"]["max_abs_err"]["residual"]),
+        "max_abs_err": max(kern["max_abs_err"], classes["max_abs_err"]),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
         "library_ms": None}, {
@@ -2942,7 +3406,24 @@ def main() -> int:
         "device_ms": frame_apply["kernel"]["apply_frame_ms"],
         "plain_ms": frame_apply["plain"]["loop_span_ms"][0],
         "bound_ms": frame_apply["bound_ms"],
-        "bound_by": frame_apply["bound_by"], "library_ms": None}]}))
+        "bound_by": frame_apply["bound_by"], "library_ms": None}, {
+        "name": "intra_sweep", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/intra_rd.cu",
+        "replaces": "thevc_tpu/encoder/fast_intra.py:404 (the SATD: "
+                    "thevc_tpu/ops/jx_pallas.py:63)",
+        "launches": sum(p.get("intra_sweep", 0) for p in by_path.values()),
+        "max_abs_err": max(i_pass["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["intra_rd"]),
+        **sum_rows(i_pass["rows"]["sweep"])}, {
+        "name": "tu_rd", "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/intra_rd.cu",
+        "replaces": "thevc_tpu/encoder/fast_intra.py:338 (with "
+                    "thevc_tpu/ops/jx.py:62, :113 and "
+                    "thevc_tpu/ops/jx_pallas.py:141)",
+        "launches": sum(p.get("tu_rd", 0) for p in by_path.values()),
+        "max_abs_err": max(i_pass["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["intra_rd"]),
+        **sum_rows(i_pass["rows"]["tu_rd_intra"])}]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

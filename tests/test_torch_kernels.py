@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels (residual, dense and CG-packed; SATD;
-motion compensation, picture, blocks and quarter-pel entries) against
-their plain versions, also at the shapes of the P/B fast-RD pass (SATD
-over 49 quarter-pel candidates, inter TUs), the fast-RD decision passes, motion
+motion compensation, picture, blocks and quarter-pel entries; the intra
+decision pass's sweep and TU-RD kernels, every class and both bit
+increments) against their plain versions, also at the shapes of the P/B
+fast-RD pass (SATD over 49 quarter-pel candidates, inter TUs), the
+fast-RD decision passes (8 and 10 bits), motion
 compensation and the P/B decode (weighted prediction and scaling lists
 included) on CUDA against the CPU, on a CUDA card.
 
@@ -22,8 +24,9 @@ from thevc_tpu.ops import transforms as tops
 from thevc_tpu_torch.common.tables import from_reference
 from thevc_tpu_torch.decoder.recon import _pack_cgs
 from thevc_tpu_torch.encoder import fast_inter, fast_intra
-from thevc_tpu_torch.ops import mc, mc_kernel, residual_kernel, satd, \
-    satd_kernel, tq
+from thevc_tpu_torch.ops import intra_rd_kernel, mc, mc_kernel, \
+    residual_kernel, satd, satd_kernel, tq
+from thevc_tpu_torch.ops.intra import HOR_IDX, VER_IDX
 
 REPO = Path(__file__).resolve().parents[1]
 CASES = [(4, False, 0), (4, True, 0), (8, False, 0), (16, False, 0),
@@ -285,19 +288,157 @@ def test_decide_frame_cuda_equals_cpu(cuda, tmp_path):
     y = raw[:w * h].reshape(h, w)
     cb = raw[w * h:w * h * 5 // 4].reshape(h // 2, w // 2)
     cr = raw[w * h * 5 // 4:].reshape(h // 2, w // 2)
-    for qp in (27, 32, 37):
+    # 8 bits at three QPs, and the same content as 10 bits (bit
+    # increment 2, QPs scaled by 12)
+    for qp, bit_inc in ((27, 0), (32, 0), (37, 0), (32, 2)):
         lam, _ = slice_lambda_and_qp(qp, True, 1, 0.57, 0, True, 0)
         qpc = qp_scaled(qp, False, 0)
-        args = (y, cb, cr, w, h, qp, qpc, qpc, lam, lam ** 0.5,
-                (1.0, 2.0, 5.5), (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, 0,
-                255)
-        before = (satd_kernel.launches, residual_kernel.launches)
+        planes = [(p.astype(np.int32) << bit_inc).astype(np.int16)
+                  for p in (y, cb, cr)]
+        args = (*planes, w, h, qp + 6 * bit_inc, qpc + 6 * bit_inc,
+                qpc + 6 * bit_inc, lam, lam ** 0.5, (1.0, 2.0, 5.5),
+                (0.5, 3.5, chroma_weight(qp)), 4, 2, 64, bit_inc,
+                (256 << bit_inc) - 1)
+        before = (satd_kernel.launches, residual_kernel.launches,
+                  intra_rd_kernel.sweep_launches,
+                  intra_rd_kernel.tu_rd_intra_launches,
+                  intra_rd_kernel.tu_rd_given_launches)
         maps_cuda = fast_intra.decide_frame(*args, device=cuda)
-        assert satd_kernel.launches > before[0]
-        assert residual_kernel.launches > before[1]
+        # the I pass runs on the intra decision kernels: one sweep a luma
+        # class, one TU-RD launch a luma class and one a chroma class,
+        # and neither K2 nor K1
+        assert (satd_kernel.launches, residual_kernel.launches) == \
+            before[:2]
+        assert intra_rd_kernel.sweep_launches == before[2] + 5
+        assert intra_rd_kernel.tu_rd_intra_launches == before[3] + 10
+        assert intra_rd_kernel.tu_rd_given_launches == before[4]
         maps_cpu = fast_intra.decide_frame(*args, device="cpu")
         for a, b in zip(maps_cuda, maps_cpu):
             assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def _intra_plane(rng, rows: int, cols: int, bit_inc: int) -> torch.Tensor:
+    """A seeded int16 plane of ramps and noise, values in 0..2^(8+bi)-1."""
+    hi = 256 << bit_inc
+    yy, xx = np.mgrid[0:rows, 0:cols]
+    v = (xx * 5 + yy * 3 + rng.randint(0, 32, (rows, cols))) << bit_inc
+    return torch.from_numpy((v % hi).astype(np.int16))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_intra_sweep_kernel_equals_plain(cuda, s, bit_inc):
+    rng = np.random.RandomState(s + bit_inc)
+    # a ragged grid: 3 x 13 blocks (not a multiple of a CTA's blocks)
+    nby, nbx = 3, 13
+    plane = _intra_plane(rng, nby * s + 2 * s + 1, nbx * s + 2 * s + 1,
+                         bit_inc).to(cuda)
+    max_val = (256 << bit_inc) - 1
+    before = (intra_rd_kernel.sweep_launches, satd_kernel.launches)
+    got, best = fast_intra.intra_sweep(plane, s, nby, nbx, bit_inc, max_val)
+    assert intra_rd_kernel.sweep_launches == before[0] + 1
+    assert satd_kernel.launches == before[1]
+    want, want_best = fast_intra.intra_sweep_plain(plane, s, nby, nbx,
+                                                   bit_inc, max_val)
+    torch.cuda.synchronize()
+    assert got.dtype == best.dtype == torch.int32
+    assert torch.equal(got, want) and torch.equal(best, want_best)
+    cpu, cpu_best = fast_intra.intra_sweep(plane.cpu(), s, nby, nbx,
+                                           bit_inc, max_val)
+    assert torch.equal(got.cpu(), cpu) and torch.equal(best.cpu(), cpu_best)
+
+
+def _same_rd(got, want):
+    (d, b), (d0, b0) = got, want
+    assert d.dtype == d0.dtype == torch.int32
+    assert b.dtype == b0.dtype == torch.float32
+    assert torch.equal(d.cpu(), d0.cpu())
+    # bit for bit
+    assert torch.equal(b.cpu().view(torch.int32), b0.cpu().view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("luma,size", [(True, 4), (True, 8), (True, 16),
+                                       (True, 32), (True, 64), (False, 4),
+                                       (False, 8), (False, 16),
+                                       (False, -32)])
+def test_tu_rd_intra_kernel_equals_plain(cuda, luma, size, bit_inc):
+    s = abs(size)
+    rng = np.random.RandomState(s + bit_inc + 100 * luma)
+    nby, nbx, k = 3, 5, 3 if luma else 5
+    planes = tuple(_intra_plane(rng, nby * s + 2 * s + 1,
+                                nbx * s + 2 * s + 1, bit_inc).to(cuda)
+                   for _ in range(1 if luma else 2))
+    modes = torch.from_numpy(rng.randint(0, 35, (nby * nbx, k)).astype(
+        np.int32)).to(cuda)
+    modes[0, :2] = torch.tensor([HOR_IDX, VER_IDX])
+    qps = tuple(torch.tensor(22 + 6 * bit_inc + 5 * i, device=cuda)
+                for i in range(len(planes)))
+    max_val = (256 << bit_inc) - 1
+    before = (intra_rd_kernel.tu_rd_intra_launches, residual_kernel.launches)
+    got = fast_intra.tu_rd_modes(planes, size, nby, nbx, modes, qps, bit_inc,
+                                 max_val, luma)
+    assert intra_rd_kernel.tu_rd_intra_launches == before[0] + 1
+    assert residual_kernel.launches == before[1]
+    _same_rd(got, fast_intra.tu_rd_modes_plain(planes, size, nby, nbx, modes,
+                                               qps, bit_inc, max_val, luma))
+    _same_rd(got, fast_intra.tu_rd_modes(
+        tuple(p.cpu() for p in planes), size, nby, nbx, modes.cpu(),
+        tuple(q.cpu() for q in qps), bit_inc, max_val, luma))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("is_intra", [False, True])
+@pytest.mark.parametrize("size", [4, 8, 16, 32, 64, -32])
+def test_tu_rd_given_kernel_equals_plain(cuda, size, is_intra, bit_inc):
+    s = abs(size)
+    rng = np.random.RandomState(s + bit_inc + 10 * is_intra)
+    n = 37
+    max_val = (256 << bit_inc) - 1
+    org = rng.randint(0, max_val + 1, (n, s, s))
+    pred = np.clip(org + rng.randint(-40 << bit_inc, 40 << bit_inc,
+                                     (n, s, s)), 0, max_val)
+    pred[:3] = org[:3]                      # all-zero TUs
+    org, pred = (torch.from_numpy(a.astype(np.int16)).to(cuda)
+                 for a in (org, pred))
+    qp = torch.from_numpy(rng.randint(6 * bit_inc, 52 + 6 * bit_inc,
+                                      n).astype(np.int32)).to(cuda)
+    before = (intra_rd_kernel.tu_rd_given_launches, residual_kernel.launches)
+    got = fast_intra.tu_rd(org, pred, size, qp, bit_inc, max_val, is_intra)
+    assert intra_rd_kernel.tu_rd_given_launches == before[0] + 1
+    assert residual_kernel.launches == before[1]
+    _same_rd(got, fast_intra._tq_rd(org, pred, size, qp, bit_inc, max_val,
+                                    is_intra))
+    _same_rd(got, fast_intra.tu_rd(org.cpu(), pred.cpu(), size, qp.cpu(),
+                                   bit_inc, max_val, is_intra))
+
+
+@pytest.mark.gpu
+def test_intra_rd_kernels_reject_bad_inputs(cuda):
+    plane = torch.zeros((2 * 8 + 9, 2 * 8 + 9), dtype=torch.int16,
+                        device=cuda)
+    with pytest.raises(ValueError, match="too small"):
+        intra_rd_kernel.sweep(plane[:-1].contiguous(), 8, 2, 2, 0, 255)
+    with pytest.raises(TypeError):
+        intra_rd_kernel.sweep(plane.to(torch.int32), 8, 2, 2, 0, 255)
+    blocks = torch.zeros((4, 8, 8), dtype=torch.int16, device=cuda)
+    qp = torch.zeros(4, dtype=torch.int32, device=cuda)
+    tabs = (from_reference(cuda).basis(8, False),
+            fast_intra._level_bits_units(cuda))
+    with pytest.raises(ValueError):
+        intra_rd_kernel.tu_rd_given(blocks, blocks[:3], qp, *tabs, 8, False,
+                                    0, 255)
+    with pytest.raises(ValueError):
+        intra_rd_kernel.tu_rd_given(blocks, blocks, qp, *tabs, 8, False, 9,
+                                    255)
+    with pytest.raises(ValueError):
+        intra_rd_kernel.tu_rd_intra((plane, plane.cpu()), torch.zeros(
+            (4, 5), dtype=torch.int32, device=cuda), torch.zeros(
+            40, dtype=torch.int32, device=cuda), *tabs, 8, 2, 2, False, 0,
+            255)
 
 
 @pytest.mark.gpu
@@ -756,11 +897,18 @@ def test_decide_frame_p_cuda_equals_cpu(cuda, tmp_path, b_slice):
                 0, 255)
         before = (satd_kernel.launches, residual_kernel.launches,
                   mc_kernel.blocks_launches, mc.launches,
-                  mc_kernel.qpel_launches)
+                  mc_kernel.qpel_launches, intra_rd_kernel.sweep_launches,
+                  intra_rd_kernel.tu_rd_intra_launches,
+                  intra_rd_kernel.tu_rd_given_launches)
         maps_cuda = fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
                                               device=cuda)
+        # K2 for the quarter-pel candidates; the intra leaves and every
+        # transform-RD estimate on the intra decision kernels, no K1
         assert satd_kernel.launches > before[0]
-        assert residual_kernel.launches > before[1]
+        assert residual_kernel.launches == before[1]
+        assert intra_rd_kernel.sweep_launches > before[5]
+        assert intra_rd_kernel.tu_rd_intra_launches > before[6]
+        assert intra_rd_kernel.tu_rd_given_launches > before[7]
         # the pass's MC is the kernel's: no plain MC on the card
         assert mc_kernel.blocks_launches > before[2] \
             and mc.launches == before[3]
@@ -924,8 +1072,10 @@ def test_gloo_dryrun_eight_slots_on_one_card(cuda):
     assert report["qp_history"][1] != report["local_qps"]
     for s in report["slot_reports"]:
         assert s["device"] == "cuda:0" and not s["foreign_modules"]
-        assert s["launches"]["encode"]["residual"] > 0
-        assert s["launches"]["encode"]["satd"] > 0
+        # the all-intra encode's decision passes run on the intra
+        # decision kernels, the decode on K1
+        assert s["launches"]["encode"]["intra_sweep"] > 0
+        assert s["launches"]["encode"]["tu_rd"] > 0
         assert s["launches"]["decode"]["residual"] > 0
     # the slots' streams on the card are the CPU's, byte for byte
     host = graft_entry.dryrun_multichip(8, "gloo", ["cpu"] * 8)

@@ -14,11 +14,14 @@ is used only when ``--device cpu`` asks for it).  ``--device-apply``
 runs the apply of the intra slices on that device as well
 (``encoder.fast_apply``; the host apply otherwise).  The last line of
 the output is ``thevc_tpu_torch.encoder {...}``: the launches of the
-residual and SATD kernels, of the MC kernel's two entries that the P/B
-pass calls (blocks and quarter-pel) and of the device apply's kernel
-(``apply_launches``, one a frame; the residual kernel's launches
-are then the decision passes' alone), the plain MC's calls (none on
-``cuda``),
+residual and SATD kernels (on ``cuda`` the decision passes launch the
+SATD kernel for the P/B pass's quarter-pel candidates only, and no
+residual kernel), of the intra decision kernels (``intra_sweep_launches``,
+one a luma size class of a decision pass; ``tu_rd_launches``, the
+transform-RD estimates of both passes), of the MC kernel's two entries
+that the P/B pass calls (blocks and quarter-pel) and of the device
+apply's kernel (``apply_launches``, one a frame), the plain MC's calls
+(none on ``cuda``),
 the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
 device), the device apply's frames, waves, class steps and summed wall,
@@ -33,7 +36,8 @@ import json
 import sys
 
 from ..encoder.top import DecisionStats, Encoder
-from ..ops import apply_kernel, mc, mc_kernel, residual_kernel, satd_kernel
+from ..ops import apply_kernel, intra_rd_kernel, mc, mc_kernel, \
+    residual_kernel, satd_kernel
 from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
@@ -57,6 +61,8 @@ def main(argv=None) -> int:
         return 1
     before = {"residual": residual_kernel.launches,
               "satd": satd_kernel.launches, "apply": apply_kernel.launches,
+              "intra_sweep": intra_rd_kernel.sweep_launches,
+              "tu_rd": intra_rd_kernel.tu_rd_launches(),
               "mc_blocks": mc_kernel.blocks_launches,
               "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches}
     device = resolve(args.device) if cfg.fast_rd else None
@@ -75,6 +81,9 @@ def main(argv=None) -> int:
         "device": args.device,
         "residual_launches": residual_kernel.launches - before["residual"],
         "satd_launches": satd_kernel.launches - before["satd"],
+        "intra_sweep_launches": intra_rd_kernel.sweep_launches
+        - before["intra_sweep"],
+        "tu_rd_launches": intra_rd_kernel.tu_rd_launches() - before["tu_rd"],
         "apply_launches": apply_kernel.launches - before["apply"],
         "mc_blocks_launches": mc_kernel.blocks_launches
         - before["mc_blocks"],

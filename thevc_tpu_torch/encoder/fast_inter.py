@@ -16,12 +16,13 @@ intra leaves the source picture):
    SATD (``ops.satd``: on a CUDA tensor the hand-written kernel in
    ``csrc/satd.cu``, one launch per size class and list);
 3. RD leaves: transform/quant/recon estimates of luma and both chroma
-   planes at the winner (``fast_intra._tq_rd`` with ``is_intra=False``:
-   on a CUDA tensor the residual kernel in ``csrc/residual.cu``), a
+   planes at the winner (``fast_intra.tu_rd`` with ``is_intra=False``:
+   on a CUDA tensor the TU-RD kernel in ``csrc/intra_rd.cu``), a
    3-candidate merge/skip model, and for B slices a bi-prediction stage
    on the two lists' winners;
-4. the intra leaves of ``fast_intra`` and the quadtree DP with its inter
-   branch (``fast_intra._dp_expand``), expanded to per-4x4-unit maps.
+4. the intra leaves of ``fast_intra`` (on a CUDA tensor through its sweep
+   and TU-RD kernels) and the quadtree DP with its inter branch
+   (``fast_intra._dp_expand``), expanded to per-4x4-unit maps.
 
 The maps feed the native apply pass (``nat.set_fd`` and
 ``nat.set_fd_inter``), which re-ranks each inter CU against the real
@@ -330,14 +331,14 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_c, s: int,
     org_cr_b = _blocks(org_cr, cs, nby, nbx)
     with stage("fast_inter.tq_rd", dev):
         pred_l = _pred_luma(refs_y, ref, mv_qx, mv_qy, by, bx, s, bd)
-        d_y, b_y = fi._tq_rd(org_b, pred_l, s, qp_scaled, bit_inc, max_val,
-                             is_intra=False)
+        d_y, b_y = fi.tu_rd(org_b, pred_l, s, qp_scaled, bit_inc, max_val,
+                            is_intra=False)
         pred_cb, pred_cr = _pred_chroma(refs_c, ref, mv_qx, mv_qy, cby, cbx,
                                         cs, bd)
-        d_cb, b_cb = fi._tq_rd(org_cb_b, pred_cb, _tq_size(cs), qp_cb,
-                               bit_inc, max_val, is_intra=False)
-        d_cr, b_cr = fi._tq_rd(org_cr_b, pred_cr, _tq_size(cs), qp_cr,
-                               bit_inc, max_val, is_intra=False)
+        d_cb, b_cb = fi.tu_rd(org_cb_b, pred_cb, _tq_size(cs), qp_cb,
+                              bit_inc, max_val, is_intra=False)
+        d_cr, b_cr = fi.tu_rd(org_cr_b, pred_cr, _tq_size(cs), qp_cr,
+                              bit_inc, max_val, is_intra=False)
 
     with stage("fast_inter.merge_model", dev):
         # AMVP-proxy mvd pricing: the refined winner field's left/above
@@ -413,12 +414,12 @@ def _bi_size_pass(org_full, org_cb, org_cr, refs2, uni2, s: int, nby: int,
                       planes1=ry1, jobs1=jobs_l[1])
     pcb, pcr = mc.mc_blocks(rc0, jobs_c[0], "2d", False, bd, True, cs, cs,
                             pair=True, planes1=rc1, jobs1=jobs_c[1])
-    d_y, b_y = fi._tq_rd(_blocks(org_full, s, nby, nbx), pl, s, qp_scaled,
-                         bit_inc, max_val, is_intra=False)
-    d_cb, b_cb = fi._tq_rd(_blocks(org_cb, cs, nby, nbx), pcb, _tq_size(cs),
-                           qp_cb, bit_inc, max_val, is_intra=False)
-    d_cr, b_cr = fi._tq_rd(_blocks(org_cr, cs, nby, nbx), pcr, _tq_size(cs),
-                           qp_cr, bit_inc, max_val, is_intra=False)
+    d_y, b_y = fi.tu_rd(_blocks(org_full, s, nby, nbx), pl, s, qp_scaled,
+                        bit_inc, max_val, is_intra=False)
+    d_cb, b_cb = fi.tu_rd(_blocks(org_cb, cs, nby, nbx), pcb, _tq_size(cs),
+                          qp_cb, bit_inc, max_val, is_intra=False)
+    d_cr, b_cr = fi.tu_rd(_blocks(org_cr, cs, nby, nbx), pcr, _tq_size(cs),
+                          qp_cr, bit_inc, max_val, is_intra=False)
     rd = d_y.to(torch.float32) + cw * (d_cb + d_cr).to(torch.float32)
     rd = rd + lam * (b_y + b_cb + b_cr + mvbits + 5.0)
     return rd.reshape(nby, nbx)
@@ -434,7 +435,8 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
     refs / refs1: ``RefCache`` entries of the L0 / L1 references in list
     order; iscal = (qp luma, qp Cb, qp Cr), fscal = (lambda, sqrt-lambda,
     the three mode-bit classes, the two chroma-bit classes, the chroma
-    weight, the motion lambda)."""
+    weight, the motion lambda).  py, pcb, pcr: the padded int16 source
+    planes (the intra kernels read them as they are)."""
     (width, height, bit_inc, max_val, ctu_size, search_range) = statics
     dev = py.device
     qp_scaled, qp_cb, qp_cr = iscal[0], iscal[1], iscal[2]
@@ -459,9 +461,9 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
                                          lam_w_bits2, bit_inc, max_val)
 
     # ---- inter leaves ----------------------------------------------------
-    org_full = py[1:1 + hp, 1:1 + wp]
-    org_cb = pcb[1:1 + hp // 2, 1:1 + wp // 2]
-    org_cr = pcr[1:1 + hp // 2, 1:1 + wp // 2]
+    org_full = py[1:1 + hp, 1:1 + wp].to(torch.int32)
+    org_cb = pcb[1:1 + hp // 2, 1:1 + wp // 2].to(torch.int32)
+    org_cr = pcr[1:1 + hp // 2, 1:1 + wp // 2].to(torch.int32)
     rng_q = search_range // 4
     hq, wq = hp // 4, wp // 4
 
@@ -634,8 +636,7 @@ def dispatch_frame_p(org_y, org_cb, org_cr, ref_pics, width: int,
     py, pcb, pcr, iscal, fscal = (torch.from_numpy(a).to(device)
                                   for a in host)
     statics = (width, height, bit_inc, max_val, ctu_size, search_range)
-    out = _frame_body_p(py.to(torch.int32), pcb.to(torch.int32),
-                        pcr.to(torch.int32), refs[0], iscal, fscal, wp, hp,
+    out = _frame_body_p(py, pcb, pcr, refs[0], iscal, fscal, wp, hp,
                         statics, max_sig, min_tr_log2,
                         refs1=refs[1] if len(refs) > 1 else None)
     return out, wp, hp

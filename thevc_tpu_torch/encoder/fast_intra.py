@@ -4,14 +4,29 @@ A port of the device half of ``thevc_tpu/encoder/fast_intra.py``.  For
 one frame, open-loop (reference samples come from the source picture):
 
 1. per luma size class 4..64, every block of the frame at once: the
-   reference lines, all 35 intra predictions, the Hadamard SATD of each
-   against the source (``ops.satd``: on a CUDA tensor the hand-written
-   kernel in ``csrc/satd.cu``), the mode-bit estimate, then for the 3
-   best candidates a forward transform + quant + recon RD estimate
-   (``ops.tq``: on a CUDA tensor the residual kernel in
-   ``csrc/residual.cu``);
-2. per size class >= 8, the 5-candidate chroma mode RD;
+   reference lines, all 35 intra predictions and the Hadamard SATD of
+   each against the source (``intra_sweep``), the mode-bit estimate,
+   then for the 3 best candidates a forward transform + quant + recon RD
+   estimate (``tu_rd_modes``);
+2. per size class >= 8, the 5-candidate chroma mode RD (``tu_rd_modes``
+   on the Cb and Cr planes at once);
 3. a bottom-up quadtree DP, expanded to six int8 maps per 4x4 unit.
+
+The per-block math sits behind three entries that dispatch on the
+device of their input, as ``ops.satd.satd_blocks`` does: on a CUDA
+tensor ``intra_sweep`` launches the sweep kernel and ``tu_rd_modes`` /
+``tu_rd`` (the transform-RD estimate of predictions given as tensors,
+which the P/B pass calls) the TU-RD kernel (``ops.intra_rd_kernel``,
+``csrc/intra_rd.cu``), neither of which writes a prediction,
+coefficient or reconstruction to device memory; on a CPU tensor each
+runs its plain form (``intra_sweep_plain``: the 35-mode stack and
+``ops.satd``; ``tu_rd_modes_plain``: the listed modes' predictions and
+``_tq_rd``; ``_tq_rd``: ``ops.tq`` with its residual pipeline).  The
+plain forms run on a CUDA tensor too, through the SATD (K2) and
+residual (K1) kernels, when called by name, as ``chip_smoke.py`` does
+to time the two routes against each other.  The glue around the
+entries (MPM, costs, the top-3, the chroma mode ids, the DP) is the
+same on both devices.
 
 The maps feed the encoder's native apply pass (``nat.set_fd``), which
 writes a conformant stream.  The host-only parts of the reference module
@@ -53,8 +68,9 @@ import time
 import numpy as np
 import torch
 
+from ..common.tables import from_reference
 from ..ops import device as dev_stats
-from ..ops import tq
+from ..ops import intra_rd_kernel, tq
 from ..ops.intra import (ANG_TABLE, INV_ANG_TABLE, INTRA_FILTER_THRESH,
                          DC_IDX, HOR_IDX, PLANAR_IDX, VER_IDX)
 from ..ops.satd import satd_blocks
@@ -196,6 +212,23 @@ _LEVEL_BITS = _level_bits_table()
 def _level_bits(device: torch.device) -> torch.Tensor:
     """The level-bit table on ``device``."""
     return torch.from_numpy(_LEVEL_BITS).to(device)
+
+
+def _level_bits_units_table() -> np.ndarray:
+    """The level-bit table as int32 counts of 2^-23 (every value is such
+    a multiple below 2^5, so the counts are exact and their int64 sum,
+    rounded to float32 once, is the float64 sum of the table's values)."""
+    units = _LEVEL_BITS.astype(np.float64) * float(1 << 23)
+    out = units.astype(np.int32)
+    if not np.array_equal(out.astype(np.float64), units):
+        raise AssertionError("a level bit is no multiple of 2^-23")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _level_bits_units(device: torch.device) -> torch.Tensor:
+    """``_level_bits_units_table`` on ``device`` (the TU-RD kernel's)."""
+    return torch.from_numpy(_level_bits_units_table()).to(device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -379,16 +412,13 @@ def _smooth(a, other):
     return torch.cat([corner[:, None], mid, a[:, -1:]], dim=1)
 
 
-def _size_pass_impl(ppad, size: int, nby: int, nbx: int, qp_scaled,
-                    sqrt_lam_bits3, bit_inc: int, max_val: int,
-                    ctu_size: int):
-    """One luma size class over the whole frame -> (best mode, dist, bits,
-    second mode, third mode), each [nby, nbx] (bits includes the mode
-    bits, in whole bits)."""
+def intra_sweep_plain(ppad, size: int, nby: int, nbx: int, bit_inc: int,
+                      max_val: int):
+    """The plain form of ``intra_sweep``: every block's reference lines,
+    their smoothed twins, all 35 predictions as an int16 stack
+    [N, 35, s, s] and ``ops.satd.satd_blocks`` over it."""
     s = size
-    dev = ppad.device
     ra, rl = _gather_lines(ppad, s, nby, nbx)
-    nb = nby * nbx
     org = _blocks(ppad, s, nby, nbx)
     ra_f = _smooth(ra, rl)
     rl_f = _smooth(rl, ra)
@@ -403,9 +433,148 @@ def _size_pass_impl(ppad, size: int, nby: int, nbx: int, qp_scaled,
     preds_all = torch.cat([pred_pl[:, None], pred_dc[:, None], pred_ang],
                           dim=1).to(torch.int16)       # [N, 35, s, s]
     satd_all = satd_blocks(org.to(torch.int16), preds_all, bit_inc)
+    return satd_all, satd_all.argmin(dim=1).to(torch.int32)
+
+
+def intra_sweep(ppad, size: int, nby: int, nbx: int, bit_inc: int,
+                max_val: int):
+    """The 35-mode sweep of one luma size class from the padded int16
+    plane: (int32 SATD [nby*nbx, 35] in the order planar, DC, 2..34;
+    int32 first-minimum mode [nby*nbx]).  On a CUDA tensor the sweep
+    kernel (and raises if it cannot launch); on a CPU tensor the plain
+    form."""
+    if ppad.device.type == "cpu":
+        return intra_sweep_plain(ppad, size, nby, nbx, bit_inc, max_val)
+    if ppad.device.type != "cuda":
+        raise ValueError(f"unsupported device {ppad.device}")
+    return intra_rd_kernel.sweep(ppad, size, nby, nbx, bit_inc, max_val)
+
+
+def _predict_modes(ppad, size: int, nby: int, nbx: int, modes,
+                   max_val: int, luma: bool):
+    """Each block's prediction in each of its listed modes: int32 mode
+    ids [nby*nbx, k] -> int32 [nby*nbx, k, s, s], equal to gathering them
+    from the 35-mode stack (luma: ``intra_sweep_plain``'s; chroma:
+    unfiltered lines, no DC or edge filters), the angular modes through
+    one gather of the unified plan's rows."""
+    s = size
+    nb, k = (int(v) for v in modes.shape)
+    ra, rl = _gather_lines(ppad, s, nby, nbx)
+    if luma:
+        ra_f, rl_f = _smooth(ra, rl), _smooth(rl, ra)
+        log2 = s.bit_length() - 1
+        filt_pl = (min(abs(PLANAR_IDX - HOR_IDX), abs(PLANAR_IDX - VER_IDX))
+                   > INTRA_FILTER_THRESH[log2])
+        c = torch.cat([rl, ra[:, 1:], rl_f, ra_f[:, 1:]], dim=1)
+    else:
+        ra_f, rl_f, filt_pl = ra, rl, False
+        c = torch.cat([rl, ra[:, 1:]], dim=1)
+    pred_pl = _predict_mode(ra_f if filt_pl else ra, rl_f if filt_pl else rl,
+                            s, PLANAR_IDX, max_val, luma)
+    pred_dc = _predict_mode(ra, rl, s, DC_IDX, max_val, luma)
+    idx_a, idx_b, frac = _plan_tensors(s, luma, ppad.device)
+    m = modes.long()
+    am = (m - 2).clamp(0, 32)
+    ia, ib, fr = idx_a[am], idx_b[am], frac[am]         # [nb, k, s, s]
+    ca = c.gather(1, ia.reshape(nb, -1)).reshape(nb, k, s, s)
+    cb = c.gather(1, ib.reshape(nb, -1)).reshape(nb, k, s, s)
+    ang = ((32 - fr) * ca + fr * cb + 16) >> 5
+    if luma:
+        # the pure-copy modes' edge filters (``_predict_all_angular``)
+        d26 = ((rl[:, 1:s + 1] - rl[:, 0:1]) >> 1)[:, None, :]
+        ang[:, :, :, 0] = torch.where(
+            m[:, :, None] == VER_IDX,
+            (ang[:, :, :, 0] + d26).clamp(0, max_val), ang[:, :, :, 0])
+        d10 = ((ra[:, 1:s + 1] - ra[:, 0:1]) >> 1)[:, None, :]
+        ang[:, :, 0, :] = torch.where(
+            m[:, :, None] == HOR_IDX,
+            (ang[:, :, 0, :] + d10).clamp(0, max_val), ang[:, :, 0, :])
+    m4 = m[:, :, None, None]
+    return torch.where(m4 == PLANAR_IDX, pred_pl[:, None],
+                       torch.where(m4 == DC_IDX, pred_dc[:, None],
+                                   ang)).to(torch.int32)
+
+
+def tu_rd_modes_plain(planes, size: int, nby: int, nbx: int, modes, qps,
+                      bit_inc: int, max_val: int, luma: bool):
+    """The plain form of ``tu_rd_modes``: per plane the listed modes'
+    predictions (``_predict_modes``) and ``_tq_rd`` against the source
+    blocks, the planes' results concatenated."""
+    s = abs(size)
+    nb, k = (int(v) for v in modes.shape)
+    dists, bits = [], []
+    for plane, qp in zip(planes, qps):
+        org = _blocks(plane, s, nby, nbx)[:, None].expand(nb, k, s, s)
+        pred = _predict_modes(plane, s, nby, nbx, modes, max_val, luma)
+        d, b = _tq_rd(org.reshape(nb * k, s, s), pred.reshape(nb * k, s, s),
+                      size, qp, bit_inc, max_val)
+        dists.append(d)
+        bits.append(b)
+    return torch.cat(dists), torch.cat(bits)
+
+
+def tu_rd_modes(planes, size: int, nby: int, nbx: int, modes, qps,
+                bit_inc: int, max_val: int, luma: bool):
+    """The transform-RD estimate of intra candidates predicted from the
+    source: ``planes`` the padded int16 planes (the luma plane, or the Cb
+    and Cr planes), ``modes`` int32 mode ids [nby*nbx, k] of each block
+    (the same on every plane), ``qps`` one 0-d scaled QP a plane, ``size``
+    as ``_tq_rd``'s (the block size; 64 and -32 are quadrant TUs) ->
+    (int32 dist, float32 bits), each [planes * nby*nbx * k] in (plane,
+    block, mode) order.  Intra items: the DST at 4x4 and the intra quant
+    offset.  On CUDA tensors the TU-RD kernel, one launch for every
+    plane (and raises if it cannot launch); on CPU tensors the plain
+    form."""
+    dev = planes[0].device
+    if dev.type == "cpu":
+        return tu_rd_modes_plain(planes, size, nby, nbx, modes, qps,
+                                 bit_inc, max_val, luma)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    per = int(modes.shape[0]) * int(modes.shape[1])
+    qp = torch.stack([q.reshape(()) for q in qps]).to(
+        torch.int32).repeat_interleave(per)
+    t = intra_rd_kernel.transform_size(size)
+    return intra_rd_kernel.tu_rd_intra(
+        tuple(planes), modes.to(torch.int32).contiguous(), qp,
+        from_reference(dev).basis(t, True), _level_bits_units(dev), size,
+        nby, nbx, luma, bit_inc, max_val)
+
+
+def tu_rd(org, pred, size: int, qp_scaled, bit_inc: int, max_val: int,
+          is_intra: bool = True):
+    """The transform-RD estimate of given predictions, ``_tq_rd``'s
+    arguments and results.  On CUDA tensors the TU-RD kernel (org and
+    pred as int16, the QP expanded to one a block; raises if it cannot
+    launch); on CPU tensors ``_tq_rd``."""
+    if org.device.type == "cpu":
+        return _tq_rd(org, pred, size, qp_scaled, bit_inc, max_val,
+                      is_intra)
+    if org.device.type != "cuda":
+        raise ValueError(f"unsupported device {org.device}")
+    n = int(org.shape[0])
+    qp = qp_scaled.to(torch.int32)
+    qp = qp.expand(n).contiguous() if qp.dim() == 0 else qp.contiguous()
+    t = intra_rd_kernel.transform_size(size)
+    return intra_rd_kernel.tu_rd_given(
+        org.to(torch.int16).contiguous(), pred.to(torch.int16).contiguous(),
+        qp, from_reference(org.device).basis(t, is_intra),
+        _level_bits_units(org.device), size, is_intra, bit_inc, max_val)
+
+
+def _size_pass_impl(ppad, size: int, nby: int, nbx: int, qp_scaled,
+                    sqrt_lam_bits3, bit_inc: int, max_val: int,
+                    ctu_size: int):
+    """One luma size class over the whole frame -> (best mode, dist, bits,
+    second mode, third mode), each [nby, nbx] (bits includes the mode
+    bits, in whole bits).  ``ppad`` is the padded int16 luma plane."""
+    s = size
+    dev = ppad.device
+    nb = nby * nbx
+    satd_all, best_a = intra_sweep(ppad, s, nby, nbx, bit_inc, max_val)
 
     # open-loop MPM: the neighbours' SATD-best modes
-    best_a = satd_all.argmin(dim=1).to(torch.int32).reshape(nby, nbx)
+    best_a = best_a.reshape(nby, nbx)
     dc_col = torch.full((nby, 1), DC_IDX, dtype=torch.int32, device=dev)
     dc_row = torch.full((1, nbx), DC_IDX, dtype=torch.int32, device=dev)
     left = torch.cat([dc_col, best_a[:, :-1]], dim=1)
@@ -433,12 +602,8 @@ def _size_pass_impl(ppad, size: int, nby: int, nbx: int, qp_scaled,
     # index order, as jax.lax.top_k does
     k = _TOP_K
     topk = torch.sort(cost, dim=1, stable=True).indices[:, :k]
-    preds_k = preds_all.gather(
-        1, topk[:, :, None, None].expand(nb, k, s, s))
-    org_k = org[:, None].expand(nb, k, s, s)
-    dist_k, cbits_k = _tq_rd(org_k.reshape(nb * k, s, s),
-                             preds_k.reshape(nb * k, s, s), s, qp_scaled,
-                             bit_inc, max_val)
+    dist_k, cbits_k = tu_rd_modes((ppad,), s, nby, nbx, topk, (qp_scaled,),
+                                  bit_inc, max_val, luma=True)
     dist_k = dist_k.reshape(nb, k)
     bits_k = cbits_k.reshape(nb, k) + bits_plain.gather(1, topk)
     rd_k = dist_k.to(torch.float32) + lam * bits_k
@@ -477,37 +642,21 @@ def _chroma_pass_impl(cbpad, crpad, size: int, nby: int, nbx: int,
     c = size // 2                      # chroma block size (>= 4)
     nb = nby * nbx
     dev = cbpad.device
-    dm = dm.reshape(-1).long()
     luma_best = luma_best.reshape(-1).to(torch.int32)
     fixed = (PLANAR_IDX, VER_IDX, HOR_IDX, DC_IDX)
-
-    def cands_of(ppad):
-        ra, rl = _gather_lines(ppad, c, nby, nbx)
-        # the full 35-mode stack (chroma: unfiltered refs, no DC/edge
-        # filters)
-        pred_all = torch.cat([
-            _predict_mode(ra, rl, c, PLANAR_IDX, max_val, luma=False)[:, None],
-            _predict_mode(ra, rl, c, DC_IDX, max_val, luma=False)[:, None],
-            _predict_all_angular(ra, rl, ra, rl, c, max_val, luma=False)],
-            dim=1)                                     # [N, 35, c, c]
-        p34 = pred_all[:, 34]
-        outs = [torch.where((luma_best == fm)[:, None, None], p34,
-                            pred_all[:, fm]) for fm in fixed]
-        outs.append(pred_all.gather(
-            1, dm[:, None, None, None].expand(nb, 1, c, c))[:, 0])
-        return torch.stack(outs, dim=1).reshape(nb * 5, c, c)
-
-    def org5(ppad):
-        return _blocks(ppad, c, nby, nbx)[:, None].expand(
-            nb, 5, c, c).reshape(nb * 5, c, c)
+    # the candidates' mode ids: each fixed mode, 34 where it is the luma
+    # best; then DM
+    fixed_ids = [torch.where(luma_best == fm, 34, fm).to(torch.int32)
+                 for fm in fixed]
+    ids = torch.stack(fixed_ids + [dm.reshape(-1).to(torch.int32)], dim=1)
 
     # a 64-CU's chroma transforms at 16 (the luma TU split to 32 is
     # mandatory, so the chroma tree follows): quadrant transforms
     tq_size = -32 if c == 32 else c
-    d_cb, b_cb = _tq_rd(org5(cbpad), cands_of(cbpad), tq_size,
-                        qp_cb.expand(nb * 5), bit_inc, max_val)
-    d_cr, b_cr = _tq_rd(org5(crpad), cands_of(crpad), tq_size,
-                        qp_cr.expand(nb * 5), bit_inc, max_val)
+    d, b = tu_rd_modes((cbpad, crpad), tq_size, nby, nbx, ids, (qp_cb, qp_cr),
+                       bit_inc, max_val, luma=False)
+    d_cb, d_cr = d[:nb * 5], d[nb * 5:]
+    b_cb, b_cr = b[:nb * 5], b[nb * 5:]
     dist = (d_cb + d_cr).reshape(nb, 5).to(torch.float32)
     cbits = (b_cb + b_cr).reshape(nb, 5)
     mbits = torch.stack([bits_oth, bits_oth, bits_oth, bits_oth,
@@ -516,10 +665,8 @@ def _chroma_pass_impl(cbpad, crpad, size: int, nby: int, nbx: int,
     sel = cost.argmin(dim=1)
     best_cost = cost.gather(1, sel[:, None])[:, 0]
     # the stored direction value per candidate slot
-    vals = [torch.where(luma_best == fm, 34, fm) for fm in fixed]
-    vals.append(torch.full((nb,), DM_CHROMA_IDX, dtype=torch.int32,
-                           device=dev))
-    vals = torch.stack([v.to(torch.int32) for v in vals], dim=1)
+    vals = torch.stack(fixed_ids + [torch.full(
+        (nb,), DM_CHROMA_IDX, dtype=torch.int32, device=dev)], dim=1)
     best_val = vals.gather(1, sel[:, None])[:, 0]
     return best_val.reshape(nby, nbx), best_cost.reshape(nby, nbx)
 
@@ -664,9 +811,11 @@ def _frame_body(py, pcb, pcr, iscal, fscal, wp: int, hp: int, statics,
                 max_sig: int, min_tr_log2: int):
     """The whole decision problem for one frame: luma size classes,
     chroma candidates, quadtree DP, unit-map expansion -> int8
-    [6, hp//4, wp//4].  ``iscal`` holds the scaled QPs (luma, Cb, Cr),
-    ``fscal`` the float32 scalars (lambda, sqrt-lambda, the three
-    mode-bit classes, the two chroma-bit classes, the chroma weight)."""
+    [6, hp//4, wp//4].  ``py``, ``pcb``, ``pcr`` are the padded int16
+    source planes (``_source_planes``), ``iscal`` holds the scaled QPs
+    (luma, Cb, Cr), ``fscal`` the float32 scalars (lambda, sqrt-lambda,
+    the three mode-bit classes, the two chroma-bit classes, the chroma
+    weight)."""
     width, height, bit_inc, max_val, ctu_size = statics
     qp_scaled, qp_cb, qp_cr = iscal[0], iscal[1], iscal[2]
     lam, sqrt_lam = fscal[0], fscal[1]
@@ -728,9 +877,8 @@ def dispatch_frame(org_y: np.ndarray, org_cb: np.ndarray,
     py, pcb, pcr, iscal, fscal = (torch.from_numpy(a).to(device)
                                   for a in host)
     statics = (width, height, bit_inc, max_val, ctu_size)
-    out = _frame_body(py.to(torch.int32), pcb.to(torch.int32),
-                      pcr.to(torch.int32), iscal, fscal, wp, hp, statics,
-                      max_sig, min_tr_log2)
+    out = _frame_body(py, pcb, pcr, iscal, fscal, wp, hp, statics, max_sig,
+                      min_tr_log2)
     return out, wp, hp
 
 

@@ -156,9 +156,12 @@ def _foreign_modules() -> list:
 
 
 def _launches() -> dict:
-    from .ops import filters_kernel, residual_kernel, satd_kernel
+    from .ops import filters_kernel, intra_rd_kernel, residual_kernel, \
+        satd_kernel
     return {"residual": residual_kernel.launches,
             "satd": satd_kernel.launches,
+            "intra_sweep": intra_rd_kernel.sweep_launches,
+            "tu_rd": intra_rd_kernel.tu_rd_launches(),
             "filters": filters_kernel.launches}
 
 

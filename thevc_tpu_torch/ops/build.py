@@ -29,9 +29,10 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thevc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source only: the apply kernel ranks float32 costs in the
-# plain form's order, so no multiply-add may be contracted
-SOURCE_FLAGS = {"apply": ("-fmad=false",)}
+# flags of one source only: the apply kernel ranks float32 costs and the
+# intra RD kernel sums float32 bit estimates in the plain form's order, so
+# no multiply-add may be contracted
+SOURCE_FLAGS = {"apply": ("-fmad=false",), "intra_rd": ("-fmad=false",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
