@@ -9,7 +9,13 @@ Run from the root of a checkout on a machine with a CUDA card:
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
    residual, SATD, MC, in-loop filters, the device apply's frame kernel,
    the intra decision pass's sweep and TU-RD kernels), one nvcc for each
-   source, all started together.
+   source, all started together; prints each build log and, for the intra
+   decision kernels, each template instance's registers, spills and
+   shared memory (ptxas) and its SASS instruction count (``cuobjdump
+   -sass``, where the toolkit has it: in all, the tensor-core, shuffle,
+   shared-memory and float instructions, and the count over the samples
+   or coefficients a thread takes in one pass of the code) as one
+   ``intra_rd_build`` line.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -290,11 +296,18 @@ Run from the root of a checkout on a machine with a CUDA card:
    share).  Every kernel call of the pass is held against its plain form
    (SATD and dist tolerance 0, bits bit for bit) and timed (``kernel
    intra_sweep`` and ``kernel tu_rd`` rows: eager, a CUDA graph of 20,
-   the plain form, bytes, bound and shares; the bound counts each
-   block's samples and reference line once and the per-sample int32
-   work, ``sweep_bound`` and ``tu_rd_bound``), and the same frame as 10
+   the plain form, bytes, bound and shares; the bound counts each block's
+   samples and reference line once, the transform and Hadamard products
+   at the int8 tensor rate (two s8 products an int16 operand) and the
+   rest at the int32 rate, the largest of the three, with the bound that
+   counts every operation at the int32 rate beside it as
+   ``int32_bound_ms``, ``sweep_bound`` and ``tu_rd_bound``; an
+   ``intra_kernel_sums`` line sums each entry's calls; ``tools/
+   intra_rd_ab.py`` times the same calls checkout against checkout), and
+   the same frame as 10
    bits (samples << 2) gives identical maps on both routes with every
-   kernel call equal to its plain form.
+   kernel call equal to its plain form, timed the same way.  The B
+   frame's replay (phase 11) times its TU-RD given calls the same way.
 17. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
@@ -1525,30 +1538,52 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
     return out
 
 
-def sweep_bound(nb: int, size: int) -> tuple:
-    """(bytes, operations, bound_ms, bound_by) of one intra sweep launch:
-    each block's samples and its 4s + 1 reference samples read once
-    (int16), the SATDs and the best mode written (int32); per predicted
-    sample the lerp (two multiplies, three adds, a shift), the
-    difference, the Hadamard's butterflies (two passes of 2 or 3 stages)
-    and the absolute sum, int32 at the int32 rate."""
+def roofline3(nbytes: int, tensor_ops: int, int_ops: int) -> tuple:
+    """(bound_ms, bound_by): the largest of the bytes over HBM's rate, the
+    tensor-core products over the int8 rate and the other operations over
+    the int32 rate."""
+    t_bytes = nbytes / HBM_BYTES_S
+    t_ops = max(tensor_ops / INT8_TENSOR_OPS, int_ops / INT32_OPS)
+    return 1000 * max(t_bytes, t_ops), \
+        "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sweep_bound(nb: int, size: int) -> dict:
+    """The least time of one intra sweep launch, counted from the work
+    whatever implements it: each block's samples and its 4s + 1 reference
+    samples read once (int16), the SATDs and the best mode written
+    (int32); per predicted sample the Hadamard's two passes of 8 (4)
+    multiply-adds, an int16 operand each (two s8 products), at the int8
+    tensor rate, and the lerp (two multiplies, three adds, a shift), the
+    difference and the absolute sum at the int32 rate.  ``int32_bound_ms``
+    counts every operation at the int32 rate (the Hadamard as
+    butterflies), the count of the kernel's scalar first design, so that
+    shares compare with its."""
     samples = nb * SATD_MODES * size * size
     nbytes = nb * (size * size + 4 * size + 1) * 2 + nb * (SATD_MODES + 1) * 4
-    ops = samples * (6 + 2 * (2 if size == 4 else 3) + 3)
-    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    tile = 8 if size % 8 == 0 else 4
+    tensor = samples * 2 * tile * 2 * 2
+    rest = samples * (6 + 1 + 2)
+    bound_ms, bound_by = roofline3(nbytes, tensor, rest)
+    int32_ops = samples * (6 + 2 * (2 if size == 4 else 3) + 3)
+    return dict(bytes=nbytes, tensor_ops=tensor, int_ops=rest,
+                bound_ms=bound_ms, bound_by=bound_by,
+                int32_bound_ms=roofline(nbytes, int32_ops, INT32_OPS)[0])
 
 
 def tu_rd_bound(n: int, size: int, intra: bool, blocks: int = 0,
-                planes: int = 1, k: int = 1) -> tuple:
-    """(bytes, operations, bound_ms, bound_by) of one TU-RD launch of
-    ``n`` items of block size |size| (TU size 32 for 64, 16 for -32):
-    the given form reads each item's org and pred (int16), the intra form
+                planes: int = 1, k: int = 1) -> dict:
+    """The least time of one TU-RD launch of ``n`` items of block size
+    |size| (TU size 32 for 64, 16 for -32), counted from the work: the
+    given form reads each item's org and pred (int16), the intra form
     each block's samples and 4s + 1 reference samples on each plane once
     and its k mode ids; both read a QP and write dist and bits an item.
-    Per sample the four transform passes' multiply-adds (the TU size
-    each, two operations), the quantiser, dequantiser, recon and SSE
-    (13), and for the intra form the prediction's lerp (6), int32 at the
-    int32 rate."""
+    Per sample the four transform passes' t multiply-adds, an int16
+    operand each (two s8 products), at the int8 tensor rate; the
+    quantiser, dequantiser, recon and SSE (13) and for the intra form the
+    prediction's lerp (6) at the int32 rate.  ``int32_bound_ms`` counts
+    the passes as int32 operations too (the kernel's scalar first
+    design)."""
     s = abs(size)
     t = 32 if size == 64 else 16 if size == -32 else size
     if intra:
@@ -1556,8 +1591,14 @@ def tu_rd_bound(n: int, size: int, intra: bool, blocks: int = 0,
     else:
         nbytes = n * s * s * 2 * 2
     nbytes += n * (4 + 8)
-    ops = n * s * s * (8 * t + 13 + (6 if intra else 0))
-    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    samples = n * s * s
+    tensor = samples * 4 * t * 2 * 2
+    rest = samples * (13 + (6 if intra else 0))
+    bound_ms, bound_by = roofline3(nbytes, tensor, rest)
+    int32_ops = samples * (8 * t + 13 + (6 if intra else 0))
+    return dict(bytes=nbytes, tensor_ops=tensor, int_ops=rest,
+                bound_ms=bound_ms, bound_by=bound_by,
+                int32_bound_ms=roofline(nbytes, int32_ops, INT32_OPS)[0])
 
 
 def intra_counts() -> dict:
@@ -1626,9 +1667,9 @@ def recorded_intra_kernel_calls(calls: dict):
 def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
     """Each recorded intra decision kernel call against its plain form on
     the card (dist and SATD tolerance 0, bits bit for bit); the calls of
-    the entries named in ``timed`` are timed (eager, CUDA graph of 20,
-    the plain form) beside their bound and printed as ``kernel`` rows.
-    Returns (largest error, rows by entry)."""
+    the entries named in ``timed`` are timed beside their bound and
+    printed as ``kernel`` rows: 20 eager calls, a CUDA graph of 20 and
+    the plain form.  Returns (largest error, rows by entry)."""
     from thevc_tpu_torch.encoder import fast_intra
     from thevc_tpu_torch.ops import intra_rd_kernel
     max_err = 0
@@ -1650,21 +1691,25 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
         return lambda: fast_intra._tq_rd(org, pred, size, qp, bit_inc,
                                          max_val, is_intra)
 
+    def compare(name, got, want):
+        if name == "sweep":
+            err = max(int((got[0] - want[0]).abs().max()),
+                      int((got[1] - want[1]).abs().max()))
+            same = torch.equal(got[0], want[0]) \
+                and torch.equal(got[1], want[1])
+        else:
+            err = int((got[0] - want[0]).abs().max())
+            same = torch.equal(got[0], want[0]) and torch.equal(
+                got[1].view(torch.int32), want[1].view(torch.int32))
+        return err, same
+
     for name, entry_calls in calls.items():
         kernel = getattr(intra_rd_kernel, name)
         for a in entry_calls:
             plain = plain_of(name, a)
             got, want = kernel(*a), plain()
             torch.cuda.synchronize()
-            if name == "sweep":
-                err = max(int((got[0] - want[0]).abs().max()),
-                          int((got[1] - want[1]).abs().max()))
-                same = torch.equal(got[0], want[0]) \
-                    and torch.equal(got[1], want[1])
-            else:
-                err = int((got[0] - want[0]).abs().max())
-                same = torch.equal(got[0], want[0]) and torch.equal(
-                    got[1].view(torch.int32), want[1].view(torch.int32))
+            err, same = compare(name, got, want)
             max_err = max(max_err, err)
             check(same, f"{tag}: intra kernel {name} != plain form "
                   f"(max abs err {err}, bits equal "
@@ -1673,36 +1718,37 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
                 continue
             if name == "sweep":
                 plane, size, nby, nbx = a[:4]
-                shape = dict(size=size, blocks=nby * nbx)
-                nbytes, ops, bound_ms, bound_by = sweep_bound(nby * nbx,
-                                                              size)
+                shape = dict(size=size, blocks=nby * nbx, bit_inc=a[4])
+                bound = sweep_bound(nby * nbx, size)
             elif name == "tu_rd_intra":
                 planes, modes = a[:2]
                 size, nby, nbx, luma = a[5:9]
                 n = len(planes) * int(modes.numel())
                 shape = dict(size=size, items=n, planes=len(planes),
-                             luma=bool(luma))
-                nbytes, ops, bound_ms, bound_by = tu_rd_bound(
-                    n, size, True, nby * nbx, len(planes),
-                    int(modes.shape[1]))
+                             luma=bool(luma), bit_inc=a[9])
+                bound = tu_rd_bound(n, size, True, nby * nbx, len(planes),
+                                    int(modes.shape[1]))
             else:
                 size = a[5]
                 n = int(a[0].shape[0])
-                shape = dict(size=size, items=n, is_intra=bool(a[6]))
-                nbytes, ops, bound_ms, bound_by = tu_rd_bound(n, size,
-                                                              False)
+                shape = dict(size=size, items=n, is_intra=bool(a[6]),
+                             bit_inc=a[7])
+                bound = tu_rd_bound(n, size, False)
             ms = time_ms(torch, lambda: kernel(*a), 20)
             g_ms = graph_ms(torch, lambda: kernel(*a), 20)
             plain_ms = time_ms(torch, plain, 3)
             row = dict(entry=name, **shape, ms=ms, graph_ms=g_ms,
-                       plain_ms=plain_ms, bytes=nbytes, ops=ops,
-                       bound_ms=bound_ms, bound_by=bound_by,
-                       share_of_bound=bound_ms / ms,
-                       graph_share_of_bound=bound_ms / g_ms,
-                       max_abs_err=err)
+                       plain_ms=plain_ms, **bound, max_abs_err=err)
+            row["share_of_bound"] = bound["bound_ms"] / row["ms"]
+            row["graph_share_of_bound"] = bound["bound_ms"] / row["graph_ms"]
+            row["graph_share_of_int32_bound"] = \
+                bound["int32_bound_ms"] / row["graph_ms"]
             rows[name].append(row)
             print(f"kernel {'intra_sweep' if name == 'sweep' else 'tu_rd'} "
                   f"{tag} " + json.dumps(row))
+    summary = {k: sum_rows(v) for k, v in rows.items() if v}
+    if summary:
+        print(f"intra_kernel_sums {tag} " + json.dumps(summary))
     return max_err, rows
 
 
@@ -1827,8 +1873,9 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
         maps10 = run(args10)
     check(all(np.array_equal(a, b) for a, b in zip(maps10, maps10_plain)),
           "the 10-bit I pass's maps differ between the routes")
-    err10, _ = held_intra_calls(torch, calls10, (), "intra_pass_10bit")
-    out.update(max_abs_err=max(err, err10), rows=rows)
+    err10, rows10 = held_intra_calls(torch, calls10, ("sweep", "tu_rd_intra"),
+                                     "intra_pass_10bit")
+    out.update(max_abs_err=max(err, err10), rows=rows, rows_10bit=rows10)
     print("fastrd_intra_pass_kernels " + json.dumps(
         {"max_abs_err": out["max_abs_err"],
          "calls": {k: len(v) for k, v in calls.items()},
@@ -3184,12 +3231,91 @@ def make_clip(path: Path, width: int, height: int, frames: int,
 
 def sum_rows(rows: list) -> dict:
     """A kernel's calls summed for the kernels line: eager, graph and
-    plain ms, bound, and what bounds them all."""
-    out = {k: sum(r[k] for r in rows) for k in ("ms", "graph_ms",
-                                                 "plain_ms", "bound_ms")}
+    plain ms, bound, and what bounds them all; the int32-only bound
+    where the rows have it."""
+    keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "int32_bound_ms")
+    out = {k: sum(r[k] for r in rows) for k in keys
+           if all(k in r for r in rows)}
+    out["calls"] = len(rows)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                      for r in rows) else "operations"
     out["library_ms"] = None
+    return out
+
+
+def build_report(lib: Path) -> dict:
+    """Per kernel instance of a built library of the intra decision
+    kernels: registers, spill stores and loads and shared memory (its
+    ptxas log) and, where ``cuobjdump`` is in the toolkit, its SASS
+    instructions in all and by kind, and per sample: a sweep's main loop
+    (its longest backward branch) over the samples a thread predicts in
+    one turn of it (16, two modes a step), a TU-RD kernel's instructions
+    over the coefficients a thread takes (8, 32 at 32x32; a quadrant loop
+    counted once)."""
+    import re
+    import shutil
+    names = {"sweep_kernel": "sweep", "tu_rd_kernel": "tu_rd"}
+
+    def short(mangled):
+        for key, label in names.items():
+            m = re.search(key + r"I((?:Li-?\d+E)+)E", mangled)
+            if m:
+                args = re.findall(r"Li(-?\d+)E", m.group(1))
+                return label + "<" + ",".join(args) + ">"
+        return None
+    out: dict = {}
+    cur = None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = short(m.group(1))
+            if cur:
+                out[cur] = {}
+            continue
+        if not cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[cur].update(spill_stores=int(m.group(1)),
+                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[cur]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur]["smem_bytes"] = int(sm.group(1)) if sm else 0
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return out
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300).stdout
+    kinds = {"mma": ("IMMA", "HMMA"), "movmatrix": ("MOVM",),
+             "shfl": ("SHFL",), "redux": ("REDUX",),
+             "shared": ("LDS", "STS", "ATOMS"), "global": ("LDG", "STG"),
+             "float": ("FFMA", "FADD", "FMUL", "FMNMX"),
+             "prmt": ("PRMT",), "barrier": ("BAR",)}
+    line_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
+                         r"([A-Z0-9_]+)[^;]*?(?:0x([0-9a-f]+))?\s*;")
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        label = short(part.split()[0])
+        if not label or label not in out:
+            continue
+        ins = [(int(m.group(1), 16), m.group(2), m.group(3))
+               for m in line_re.finditer(part) if m.group(2) != "NOP"]
+        info = out[label]
+        info["sass"] = len(ins)
+        for kind, prefixes in kinds.items():
+            info[f"sass_{kind}"] = sum(o.startswith(prefixes)
+                                       for _, o, _ in ins)
+        size = int(label.split("<")[1].split(",")[0].rstrip(">"))
+        if label.startswith("sweep"):
+            spans = [sum(1 for a, _, _ in ins if int(t, 16) <= a <= addr)
+                     for addr, o, t in ins
+                     if o == "BRA" and t and int(t, 16) < addr]
+            info["sass_loop"] = max(spans, default=len(ins))
+            info["sass_per_sample"] = info["sass_loop"] / 16
+        else:
+            info["sass_per_sample"] = len(ins) / (32 if size == 32 else 8)
     return out
 
 
@@ -3226,6 +3352,8 @@ def main() -> int:
     for k in kernels:
         print(build.library_path(k.NAME).with_suffix(".log").read_text()
               .strip())
+    print("intra_rd_build " + json.dumps(
+        build_report(build.library_path(intra_rd_kernel.NAME))))
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)

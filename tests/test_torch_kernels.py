@@ -416,6 +416,96 @@ def test_tu_rd_given_kernel_equals_plain(cuda, size, is_intra, bit_inc):
                                    bit_inc, max_val, is_intra))
 
 
+# the extremes: bit increments 0, 2, 4 and the largest the wrappers take,
+# whose largest sample is that of an int16 plane
+EXTREME_BIT_INCS = [0, 2, 4, intra_rd_kernel.MAX_BIT_INC]
+
+
+def _max_val(bit_inc: int) -> int:
+    return intra_rd_kernel.max_val_limit(bit_inc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", [0, 1, 2, 4, 5, 7,
+                                     intra_rd_kernel.MAX_BIT_INC])
+@pytest.mark.parametrize("s", [4, 8, 16, 32, 64])
+def test_intra_sweep_kernel_forms_at_the_extremes(cuda, s, bit_inc):
+    # every form of the Hadamard (bytes at bit_inc 0, the 16 hi + lo
+    # split up to 4, butterflies above) on a ragged grid, samples at 0 and
+    # max_val
+    rng = np.random.RandomState(3 * s + bit_inc)
+    nby, nbx = (3, 13) if s < 32 else (3, 2)
+    max_val = _max_val(bit_inc)
+    plane = _intra_plane(rng, nby * s + 2 * s + 1, nbx * s + 2 * s + 1,
+                         bit_inc).clamp(0, max_val)
+    plane[::7] = max_val
+    plane[:, 3::11] = 0
+    plane = plane.to(cuda)
+    got = intra_rd_kernel.sweep(plane, s, nby, nbx, bit_inc, max_val)
+    want = fast_intra.intra_sweep_plain(plane, s, nby, nbx, bit_inc, max_val)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", EXTREME_BIT_INCS)
+@pytest.mark.parametrize("is_intra", [False, True])
+@pytest.mark.parametrize("size", [4, 8, 16, 32, 64, -32])
+def test_tu_rd_given_kernel_at_the_extremes(cuda, size, is_intra, bit_inc):
+    # every QP from 0 to 51 + 6 bit_inc, one an item; residuals at
+    # +-max_val, checkerboards of both, all-zero TUs
+    s = abs(size)
+    rng = np.random.RandomState(s + 5 * bit_inc + 50 * is_intra)
+    max_val = _max_val(bit_inc)
+    qp = np.arange(52 + 6 * bit_inc)
+    n = len(qp)
+    org = rng.randint(0, max_val + 1, (n, s, s))
+    pred = np.clip(org + rng.randint(-40 << bit_inc, 40 << bit_inc,
+                                     (n, s, s)), 0, max_val)
+    org[0:n:5], pred[0:n:5] = max_val, 0
+    org[1:n:5], pred[1:n:5] = 0, max_val
+    board = (np.indices((s, s)).sum(axis=0) % 2) * max_val
+    org[2:n:5], pred[2:n:5] = board, max_val - board
+    pred[3:n:5] = org[3:n:5]                     # all-zero TUs
+    org, pred = (torch.from_numpy(a.astype(np.int16)).to(cuda)
+                 for a in (org, pred))
+    qp = torch.from_numpy(qp.astype(np.int32)).to(cuda)
+    got = fast_intra.tu_rd(org, pred, size, qp, bit_inc, max_val, is_intra)
+    _same_rd(got, fast_intra._tq_rd(org, pred, size, qp, bit_inc, max_val,
+                                    is_intra))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", EXTREME_BIT_INCS)
+@pytest.mark.parametrize("luma,size", [(True, 4), (True, 8), (True, 16),
+                                       (True, 32), (True, 64), (False, 4),
+                                       (False, 8), (False, 16),
+                                       (False, -32)])
+def test_tu_rd_intra_kernel_every_mode(cuda, luma, size, bit_inc):
+    # all 35 modes of every block of a ragged grid, samples at 0 and
+    # max_val among the ramps, a low and a high QP
+    s = abs(size)
+    rng = np.random.RandomState(s + 9 * bit_inc + 200 * luma)
+    nby, nbx = 3, 5
+    max_val = _max_val(bit_inc)
+    planes = []
+    for _ in range(1 if luma else 2):
+        p = _intra_plane(rng, nby * s + 2 * s + 1, nbx * s + 2 * s + 1,
+                         bit_inc).clamp(0, max_val)
+        p[::5] = max_val
+        p[:, 2::9] = 0
+        planes.append(p.to(cuda))
+    modes = torch.arange(35, dtype=torch.int32, device=cuda).repeat(
+        nby * nbx, 1)
+    qps = tuple(torch.tensor(q, device=cuda)
+                for q in (4, 40 + 6 * bit_inc)[:len(planes)])
+    got = fast_intra.tu_rd_modes(tuple(planes), size, nby, nbx, modes, qps,
+                                 bit_inc, max_val, luma)
+    _same_rd(got, fast_intra.tu_rd_modes_plain(tuple(planes), size, nby, nbx,
+                                               modes, qps, bit_inc, max_val,
+                                               luma))
+
+
 @pytest.mark.gpu
 def test_intra_rd_kernels_reject_bad_inputs(cuda):
     plane = torch.zeros((2 * 8 + 9, 2 * 8 + 9), dtype=torch.int16,

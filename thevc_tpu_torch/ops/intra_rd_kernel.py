@@ -19,11 +19,15 @@ Two kernels, three entries:
   predicts one mode of one block itself from the padded plane (luma, or
   Cb and Cr in one launch).
 
-Both are bound by their int32 operations; the design notes (no
-prediction, coefficient or reconstruction in device memory) are in the
-source's header comment.  Their plain PyTorch forms are
+Both are bound by their operations.  The sweep builds each (block,
+mode)'s reference array once in shared memory, predicts two runs of four
+samples a lane with float FMAs, and takes the Hadamard on the int8 tensor
+cores (butterflies by shuffles above bit increment 4); the TU-RD kernel
+runs all four transform passes on the int8 tensor cores, a 16x16 region
+or a 32x32 TU a warp.  The design and the exactness argument of every
+split are in the source's header comment.  Their plain PyTorch forms are
 ``encoder.fast_intra.intra_sweep_plain``, ``tu_rd_modes_plain`` and
-``_tq_rd``.
+``_tq_rd``; every output equals them bit for bit.
 
 The kernels are compiled with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops.build``).  Every entry checks its inputs and raises
@@ -43,8 +47,15 @@ SWEEP_SIZES = (4, 8, 16, 32, 64)
 # _tq_rd's sizes: one TU a block, or 64 = four 32x32 and -32 = four 16x16
 # quadrant TUs
 RD_SIZES = (4, 8, 16, 32, 64, -32)
+# the chroma blocks of the decision passes (4:2:0, CTUs up to 64): 4..16,
+# and 32 as four 16x16 TUs
+CHROMA_RD_SIZES = (4, 8, 16, -32)
 LEVEL_BITS_LEN = 32769
-MAX_BIT_INC = 8            # int32 transform sums exact up to here (source)
+MAX_BIT_INC = 8
+# the largest sample of an int16 plane; at a bit increment b the kernels
+# take samples up to max_val_limit(b), below 256 << b: the sweep's operand
+# forms and the forward first pass's int16 bound rest on it
+MAX_VAL = 32767
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ENTRIES = {
@@ -72,12 +83,20 @@ def build() -> ctypes.CDLL:
     return _build.load(NAME, _ENTRIES)
 
 
+def max_val_limit(bit_increment: int) -> int:
+    """The largest max_val the kernels take at ``bit_increment``: that of
+    the bit depth 8 + bit_increment, and at most that of an int16 plane."""
+    return min((256 << bit_increment) - 1, MAX_VAL)
+
+
 def _check_common(bit_increment: int, max_val: int) -> None:
     if not 0 <= bit_increment <= MAX_BIT_INC:
         raise ValueError(f"bit increment {bit_increment} out of 0.."
                          f"{MAX_BIT_INC}")
-    if not 0 < max_val < 65536:
-        raise ValueError(f"max_val {max_val} out of range")
+    top = max_val_limit(bit_increment)
+    if not 0 < max_val <= top:
+        raise ValueError(f"max_val {max_val} out of 1..{top} (samples of "
+                         f"{8 + bit_increment} bits in int16 planes)")
 
 
 def _check_cuda(t: torch.Tensor, name: str) -> None:
@@ -178,7 +197,7 @@ def tu_rd_given(org: torch.Tensor, pred: torch.Tensor, qp: torch.Tensor,
     """Launch kernel B on given predictions: int16 org and pred [N, s, s]
     (s = |size|), int32 scaled QPs [N], the TU basis int32 [t, t] and the
     level-bit table in 2^-23 units int32 [32769] -> (int32 dist [N],
-    float32 bits [N])."""
+    float32 bits [N]).  org and pred hold samples in 0..max_val."""
     global tu_rd_given_launches
     _check_cuda(org, "org")
     check_given(org, pred, qp, basis, level_bits, size, bit_increment,
@@ -239,6 +258,8 @@ def tu_rd_intra(planes: tuple, modes: torch.Tensor, qp: torch.Tensor,
     global tu_rd_intra_launches
     for i, p in enumerate(planes):
         _check_cuda(p, f"plane {i}")
+    if not luma and size not in CHROMA_RD_SIZES:
+        raise ValueError(f"chroma size {size} not in {CHROMA_RD_SIZES}")
     check_intra(planes, modes, qp, basis, level_bits, size, nby, nbx,
                 bit_increment, max_val)
     n = int(qp.shape[0])

@@ -1,0 +1,149 @@
+"""The intra decision kernels (``csrc/intra_rd.cu``) on the recorded 1080p
+calls, checkout against checkout, on one card.
+
+In each given checkout, with that checkout's ``chip_smoke.py`` helpers and
+kernels, records the kernel calls of three decision passes: the 1080p
+all-intra clip's first I frame (the sweep and the intra TU-RD entry), the
+same frame as 10 bits (samples << 2, QPs + 12), and the last B frame of
+the motion clip's 4-frame low-delay B encode (the TU-RD given entry),
+QP 32 with SAO, as ``chip_smoke.py`` replays them.  Each recorded call is
+held against its plain form (``held_intra_calls``: SATD and dist
+tolerance 0, bits bit for bit) and timed, 20 eager calls and a CUDA graph
+of 20.  Each checkout runs in a child process of its own, one after
+another in the order given; give the parent and the change in turns to
+compare them on one card:
+
+    python tools/intra_rd_ab.py PARENT CHANGE CHANGE PARENT
+
+Each child builds its checkout's kernels and native core at first use
+(in the checkout's ``build/``, where it also writes its clips).  Prints
+the card's name and power limit and one ``intra_rd_ab <turn> <checkout>
+{...}`` line a turn (per pass and entry: calls, summed eager and graph
+ms), then ``intra_rd_ab_summary``: per checkout the least of its turns,
+and each checkout's times over the first checkout's.  With ``--log PATH``
+it appends the lines to that JSON-lines file.  Exits nonzero when a child
+fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+CHILD = """
+import json, sys
+from pathlib import Path
+import numpy as np
+import torch
+import chip_smoke as c
+from thevc_tpu_torch.encoder import fast_inter, fast_intra
+if not torch.cuda.is_available():
+    sys.exit("no CUDA card")
+work = Path("build") / "intra_rd_ab"
+work.mkdir(parents=True, exist_ok=True)
+intra = work / f"intra_{c.WIDTH}x{c.HEIGHT}_{c.FRAMES}f.yuv"
+motion = work / f"motion_{c.WIDTH}x{c.HEIGHT}_{c.FRAMES}f.yuv"
+c.make_clip(intra, c.WIDTH, c.HEIGHT, c.FRAMES, "default")
+c.make_clip(motion, c.WIDTH, c.HEIGHT, c.FRAMES, "motion")
+print("gpu " + c.gpu_line(), flush=True)
+out = {}
+
+def held(tag, run, entries):
+    calls = {}
+    with c.recorded_intra_kernel_calls(calls):
+        run()
+    calls = {k: v for k, v in calls.items() if k in entries}
+    _, rows = c.held_intra_calls(torch, calls, entries, tag)
+    out[tag] = {k: {"calls": len(v), "ms": sum(r["ms"] for r in v),
+                    "graph_ms": sum(r["graph_ms"] for r in v)}
+                for k, v in rows.items() if v}
+
+args = c.recorded_i_call(intra, work)
+(y, cb, cr, w, h, qp, qp_cb, qp_cr, *rest) = args
+args10 = (*(p.astype(np.int16) << 2 for p in (y, cb, cr)), w, h,
+          qp + 12, qp_cb + 12, qp_cr + 12, *rest[:-2], 2, 1023)
+for tag, a in (("i_frame", args), ("i_frame_10bit", args10)):
+    fast_intra.decide_frame(*a, device="cuda")
+    held(tag, lambda a=a: fast_intra.decide_frame(*a, device="cuda"),
+         ("sweep", "tu_rd_intra"))
+b_args, refs1 = c.recorded_b_call(motion, work)
+cache = fast_inter.RefCache()
+
+def b_frame():
+    return fast_inter.decide_frame_p(*b_args, ref_pics_l1=refs1,
+                                     device="cuda", ref_cache=cache)
+b_frame()
+held("b_frame", b_frame, ("tu_rd_given",))
+print("intra_rd_ab " + json.dumps(out), flush=True)
+"""
+KEEP = ("gpu ", "intra_rd_ab ")
+
+
+def summary(results: list) -> dict:
+    """Per checkout the least eager and graph ms of its turns, per pass
+    and entry, and its times over the first checkout's."""
+    best: dict = {}
+    for checkout, res in results:
+        mine = best.setdefault(checkout, {})
+        for tag, entries in res.items():
+            for entry, row in entries.items():
+                cur = mine.setdefault(f"{tag}/{entry}",
+                                      dict(calls=row["calls"]))
+                for k in ("ms", "graph_ms"):
+                    cur[k] = min(cur.get(k, row[k]), row[k])
+    first = next(iter(best.values()), {})
+    for mine in best.values():
+        for key, row in mine.items():
+            if key in first:
+                for k in ("ms", "graph_ms"):
+                    row[f"{k}_over_first"] = row[k] / first[key][k]
+    return best
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="+", type=Path)
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds a child may take")
+    ap.add_argument("--log", type=Path,
+                    help="append the kept lines to this JSON-lines file")
+    args = ap.parse_args(argv)
+    failed = 0
+    results = []
+    lines = []
+    for turn, checkout in enumerate(args.checkouts):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", CHILD],
+                           cwd=checkout.resolve(), capture_output=True,
+                           text=True, timeout=args.timeout)
+        head = f"intra_rd_ab {turn} {checkout}"
+        print(f"{head} rc={r.returncode} "
+              f"wall_s={time.perf_counter() - t:.1f}", flush=True)
+        for line in r.stdout.splitlines():
+            if line.startswith(KEEP):
+                print(f"{head} {line}", flush=True)
+                lines.append({"turn": turn, "checkout": str(checkout),
+                              "line": line})
+            if line.startswith("intra_rd_ab "):
+                results.append((str(checkout),
+                                json.loads(line.split(" ", 1)[1])))
+        if r.returncode:
+            failed += 1
+            print(r.stdout[-3000:] + r.stderr[-3000:], flush=True)
+    line = "intra_rd_ab_summary " + json.dumps(summary(results))
+    print(line, flush=True)
+    lines.append({"line": line})
+    if args.log:
+        args.log.parent.mkdir(parents=True, exist_ok=True)
+        with open(args.log, "a") as log:
+            for entry in lines:
+                log.write(json.dumps(entry) + "\n")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
