@@ -8,8 +8,8 @@ Run from the root of a checkout on a machine with a CUDA card:
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
    residual, SATD, MC, in-loop filters, the device apply's frame kernel,
-   the intra decision pass's sweep and TU-RD kernels), one nvcc for each
-   source, all started together; prints each build log and, for the intra
+   the intra decision pass's sweep and TU-RD kernels, the P/B pass's
+   motion search), one nvcc for each source, all started together; prints each build log and, for the intra
    decision kernels, each template instance's registers, spills and
    shared memory (ptxas) and its SASS instruction count (``cuobjdump
    -sass``, where the toolkit has it: in all, the tensor-core, shuffle,
@@ -128,8 +128,10 @@ Run from the root of a checkout on a machine with a CUDA card:
 10. P/B fast-RD phase (``fastrd_inter``): encodes the 1080p motion clip
    with ``--FastRD=1 --device cuda`` and the low-delay B cfg at QP 32
    (SAO on, as the exact stream) in a child process whose report gives
-   the launches of K2, the MC kernel and the intra decision kernels (each
-   above 0), of K1 (none) and the plain MC's calls (none), the stream
+   the launches of K2, the MC kernel, the intra decision kernels and
+   the motion-search kernels (``csrc/inter_me.cu``; each above 0, one
+   refinement and one merge model a size class for each coarse search),
+   of K1 (none) and the plain MC's calls (none), the stream
    (``PARENT_STREAMS``, as in 6), the decision frames (8,
    7 of them B) and the decision wall; decodes it on ``cuda`` (8/8
    digests OK, recon byte-identical to the encoder's) and reports its
@@ -139,12 +141,18 @@ Run from the root of a checkout on a machine with a CUDA card:
    this process (same cfg, ``Encoder(cfg, device="cuda")``) with the
    arguments of the last ``fast_inter.decide_frame_p`` call recorded,
    and that call runs again on ``cuda``: a warm-up, three timed runs
-   (synchronised wall, K2, MC and intra decision kernel launches counted
-   from 0, each above 0, no K1, no plain MC), one with stage timing on
-   (stage walls), one under ``torch.profiler`` (device time, busy
-   share), the same on the plain route as in 16 (walls, stage walls,
-   device time; identical maps), and one that records every K2, MC and
-   intra decision kernel call of the pass (as many as the launches):
+   (synchronised wall, K2, MC, intra decision and motion-search kernel
+   launches counted from 0, each above 0, 2 coarse searches, 8
+   refinements and 8 merge models, no K1, no plain MC), one with stage
+   timing on (stage walls), one under ``torch.profiler`` (device time,
+   busy share), one with both (``stage_profile``: each
+   ``fast_inter.*`` stage's wall, device time and device activities,
+   an activity charged to the stage whose range launched it), the same
+   on the plain route as in 16 (walls, stage walls, device time, the
+   stage split; identical maps; the plain route also runs the
+   motion-search stages' plain forms), and one that records every K2,
+   MC, intra decision and motion-search kernel call of the pass (as
+   many as the launches):
    each is held against its plain version on the pass's own data
    (tolerance 0, bits bit for bit), the given-prediction TU-RD calls
    timed as in 16, and the
@@ -159,13 +167,23 @@ Run from the root of a checkout on a machine with a CUDA card:
    each phase's nonzero taps, at the int32 rate; ``generic_fp32_bound_ms``
    is the generic entry's bound on that table at the float32 rate), and
    the generic MC calls (the winners' predictions: per size class and
-   list the luma and the Cb/Cr pair of the transform estimate and of the
-   merge model, then one bi luma and one bi Cb/Cr call with both lists
-   averaged in the kernel; 40 a B frame, checked, and no
-   ``bi_avg_batch`` call) timed and summed (``kernel
-   mc_blocks_generic``, the kernels line's ``mc_blocks``; each call's
-   bound counts the distinct samples of every plane and list it reads,
-   its jobs and its predictions written once).  Then 416x240 low-delay
+   list the luma and the Cb/Cr pair of the transform estimate, then one
+   bi luma and one bi Cb/Cr call with both lists averaged in the kernel;
+   24 a B frame, checked, and no ``bi_avg_batch`` call) timed and summed
+   (``kernel mc_blocks_generic``, the kernels line's ``mc_blocks``; each
+   call's bound counts the distinct samples of every plane and list it
+   reads, its jobs and its predictions written once).  Each
+   motion-search kernel call (the coarse search of each list, the
+   refinement and the merge model of each size class and list) is held
+   against its plain form (integers tolerance 0, floats bit for bit) and
+   timed: eager, a CUDA graph of 20, the plain form, beside its bound
+   (``inter_me_bound``: the inputs read once, the outputs written once,
+   the distinct reference samples the windows read; the differences,
+   filter taps and costs at the int32 rate), one ``kernel
+   coarse_search`` / ``int_refine`` / ``merge_model`` line of each
+   entry's calls summed, with its launches in the pass; then the same frame as 10 bits (samples << 2,
+   QPs + 12): the kernel and plain routes' maps equal and each
+   motion-search call held and timed the same way.  Then 416x240 low-delay
    P (3 frames) and random-access (5 frames) fast-RD streams of the small
    motion clip: ``--device cuda`` and ``--device cpu`` byte-identical, the
    ``cuda`` ones through the MC kernel and not the plain MC.  Last,
@@ -320,12 +338,15 @@ Run from the root of a checkout on a machine with a CUDA card:
    the recorded 1080p frame's wave loop (eager, graph-replayed, and the
    plain form's graph-replayed loop beside it), the intra sweep and
    TU-RD kernels the replayed 1080p I frame's calls summed (5 and 10,
-   with their graph times); no single PyTorch
+   with their graph times), the motion-search kernels the replayed B
+   frame's calls summed (2, 8 and 8, with their graph times); no single
+   PyTorch
    call computes any of them (the MC: per-PU-phase 8-tap interpolation
    with the int16 wrap; the filters: deblocking and SAO; the apply: HM's
    intra TU prediction, transform, RDOQ and recon; the intra decision
-   kernels: HM's intra prediction modes, its transforms and quantiser),
-   so ``library_ms`` is
+   kernels: HM's intra prediction modes, its transforms and quantiser;
+   the motion search: a full search under an MV prior, a first-minimum
+   refinement, HM's interpolation inside an SSE), so ``library_ms`` is
    null), then the card's name and
    power limit, then the device JSON line last.  Neither ``jax`` nor any
    module of the JAX package may have been imported.
@@ -1628,18 +1649,28 @@ def plain_route():
     predictions and ``_tq_rd`` with K1 for the transform-RD estimates.
     That is the route before the intra decision kernels, but for the
     size pass's top-3 and the chroma pass's 5 candidates, which it
-    gathered from 35-mode stacks."""
-    from thevc_tpu_torch.encoder import fast_intra
+    gathered from 35-mode stacks.  The P/B pass's motion-search stages
+    run their plain forms too (``coarse_fields_plain``,
+    ``int_refine_plain``, ``merge_model_plain``: the route before
+    ``csrc/inter_me.cu``)."""
+    from thevc_tpu_torch.encoder import fast_inter, fast_intra
     names = ("intra_sweep", "tu_rd_modes", "tu_rd")
     saved = {n: getattr(fast_intra, n) for n in names}
     fast_intra.intra_sweep = fast_intra.intra_sweep_plain
     fast_intra.tu_rd_modes = fast_intra.tu_rd_modes_plain
     fast_intra.tu_rd = fast_intra._tq_rd
+    inter_names = ("_coarse_fields", "int_refine", "merge_model")
+    inter_saved = {n: getattr(fast_inter, n) for n in inter_names}
+    fast_inter._coarse_fields = fast_inter.coarse_fields_plain
+    fast_inter.int_refine = fast_inter.int_refine_plain
+    fast_inter.merge_model = fast_inter.merge_model_plain
     try:
         yield
     finally:
         for n, f in saved.items():
             setattr(fast_intra, n, f)
+        for n, f in inter_saved.items():
+            setattr(fast_inter, n, f)
 
 
 @contextlib.contextmanager
@@ -1929,6 +1960,15 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           f"{rep['mc_qpel_launches']} times and the plain MC "
           f"{rep['plain_mc_calls']} times")
     check(not rep["jax_imported"], "the port's encoder imported jax")
+    # each P/B pass: one coarse search a list, one refinement and one
+    # merge model a size class (8-64 at the cfg's 64x64 CTUs) and list
+    check(rep["coarse_search_launches"] > 0
+          and rep["int_refine_launches"]
+          == rep["merge_model_launches"]
+          == 4 * rep["coarse_search_launches"],
+          "the P/B fast-RD encode launched the motion-search kernels "
+          f"{rep['coarse_search_launches']}, {rep['int_refine_launches']}, "
+          f"{rep['merge_model_launches']} times")
     check(rep["decision_frames"] == FRAMES
           and rep["decision_frames_inter"] == FRAMES - 1,
           f"decision passes {rep['decision_frames']} "
@@ -1947,6 +1987,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                tu_rd_launches=rep["tu_rd_launches"],
                mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
+               **{f"{k}_launches": rep[f"{k}_launches"] for k in INTER_ME},
                decode_filters_launches=filters_launches,
                fast_bytes=stream.stat().st_size,
                exact_bytes=exact.stat().st_size,
@@ -2000,6 +2041,231 @@ def recorded_b_call(clip: Path, work: Path) -> tuple:
     return calls[-1]
 
 
+INTER_ME = ("coarse_search", "int_refine", "merge_model")
+# where each motion-search kernel's TPU counterpart is
+INTER_ME_REPLACES = {
+    "coarse_search": "thevc_tpu/encoder/fast_inter.py:98",
+    "int_refine": "thevc_tpu/encoder/fast_inter.py:234",
+    "merge_model": "thevc_tpu/encoder/fast_inter.py:367"}
+
+
+def inter_me_counts() -> dict:
+    """The launches of the P/B pass's three motion-search kernels."""
+    from thevc_tpu_torch.ops import inter_me_kernel as k
+    return {"coarse_search": k.coarse_launches,
+            "int_refine": k.refine_launches,
+            "merge_model": k.merge_launches}
+
+
+def zero_inter_me_counts() -> None:
+    from thevc_tpu_torch.ops import inter_me_kernel as k
+    k.coarse_launches = k.refine_launches = k.merge_launches = 0
+
+
+@contextlib.contextmanager
+def recorded_inter_me_calls(calls: dict):
+    """Record every launch of the motion-search kernels' entries (their
+    arguments) into ``calls``."""
+    from thevc_tpu_torch.ops import inter_me_kernel
+    saved = {n: getattr(inter_me_kernel, n) for n in INTER_ME}
+
+    def spy(name):
+        def call(*a):
+            calls.setdefault(name, []).append(a)
+            return saved[name](*a)
+        return call
+    for n in INTER_ME:
+        setattr(inter_me_kernel, n, spy(n))
+    try:
+        yield
+    finally:
+        for n, f in saved.items():
+            setattr(inter_me_kernel, n, f)
+
+
+def inter_me_flat(name: str, out) -> tuple:
+    """An entry's outputs as one tuple (the coarse search's by size)."""
+    if name == "coarse_search":
+        return tuple(t for s in sorted(out) for t in out[s])
+    return tuple(out)
+
+
+def inter_me_plain(name: str, a):
+    """The plain form of a recorded motion-search kernel call."""
+    from thevc_tpu_torch.encoder import fast_inter
+    if name == "coarse_search":
+        org_q, refs_q, rng_q, sqrt_lam, sizes = a
+        return lambda: fast_inter.coarse_fields_plain(
+            org_q, refs_q, rng_q, *org_q.shape, sqrt_lam, sizes[-1])
+    if name == "int_refine":
+        org, refs_y, coarse, s, nby, nbx, sqrt_lam, bit_inc, _pad = a
+        return lambda: fast_inter.int_refine_plain(
+            org, refs_y, coarse, s, nby, nbx, sqrt_lam, bit_inc)
+    (orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, cw, bit_inc,
+     _pad_y, _pad_c) = a
+    return lambda: fast_inter.merge_model_plain(
+        *orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, cw,
+        bit_inc)
+
+
+def _nonzero_taps(luma: bool):
+    from thevc_tpu_torch.common.tables import from_reference
+    filt = from_reference("cpu")
+    return ((filt.luma_filter if luma else filt.chroma_filter) != 0).sum(1)
+
+
+def inter_me_bound(torch, name: str, a) -> tuple:
+    """(bytes, operations, bound_ms, bound_by) of one motion-search
+    kernel call, its inputs read once and its outputs written once, its
+    operations at the int32 rate.
+    coarse_search: the pooled source and bands, the int64 (dy, dx, ref)
+    of every block; per reference and offset a difference, an absolute
+    value and a sum a pooled sample, and per block a cost (conversion,
+    product, sum, comparison).
+    int_refine: the source blocks, the distinct reference samples of the
+    blocks' (s + 6)-square windows, the int64 coarse field in and the
+    int64 MV out; 49 differences, absolutes and sums a sample and about
+    6 operations a candidate's cost.
+    merge_model: the source blocks (luma, Cb, Cr), the distinct
+    reference samples of the three luma candidates' (s + 7)-square
+    windows and of the Cb and Cr windows of the candidate the luma SSE
+    picks (found here with the plain form's own steps), the transform-RD
+    estimates and winners in, the four outputs; each candidate's two
+    filter passes at the nonzero taps of its phases (the identity row's
+    one), 3 operations a sample for the SSE, and about 60 a block for the
+    bits and costs."""
+    if name == "coarse_search":
+        org_q, refs_q, rng_q, _sl, sizes = a
+        hq, wq = (int(v) for v in org_q.shape)
+        n_off = 2 * rng_q + 1
+        blocks = sum((hq * 4 // s) * (wq * 4 // s) for s in sizes)
+        nbytes = 2 * hq * wq + sum(2 * r.numel() for r in refs_q) \
+            + 24 * blocks + 4
+        ops = len(refs_q) * n_off * n_off * (3 * hq * wq + 4 * blocks)
+        return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    from thevc_tpu_torch.encoder import fast_inter
+    if name == "int_refine":
+        org, refs_y, (c_dy, c_dx, c_ref), s, nby, nbx, _sl, _bi, pad = a
+        nb = nby * nbx
+        by, bx = fast_inter._block_grid(s, nby, nbx, org.device)
+        nbytes = 2 * touched(torch, int(refs_y.shape[1]),
+                             int(refs_y.shape[2]), c_ref.reshape(-1),
+                             by + c_dy.reshape(-1) + pad - 3,
+                             bx + c_dx.reshape(-1) + pad - 3, s + 6, s + 6) \
+            + 2 * nb * s * s + 24 * nb + 16 * nb + 4
+        ops = nb * (49 * 3 * s * s + 49 * 6)
+        return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    (orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, _cw, bit_inc,
+     pad_y, pad_c) = a
+    nb, cs, bd = nby * nbx, s // 2, 8 + bit_inc
+    mvx, mvy, ref = (t.reshape(nby, nbx).long() for t in winner)
+    cands = []
+    for dy, dx in ((0, 1), (1, 0)):
+        cands.append(tuple(fast_inter._shift_grid(t, dy, dx).reshape(-1)
+                           for t in (mvx, mvy, ref)))
+    zero = torch.zeros(nb, dtype=torch.long, device=mvx.device)
+    cands.append((zero, zero, zero))
+    by, bx = (t.long() for t in fast_inter._block_grid(s, nby, nbx,
+                                                       mvx.device))
+    org_b = fast_inter._blocks(orgs[0], s, nby, nbx)
+    costs = []
+    for cx, cy, cr in cands:
+        pred = fast_inter._pred_luma(refs_y, cr.int(), cx.int(), cy.int(),
+                                     by.int(), bx.int(), s, bd)
+        costs.append(fast_inter._sse(org_b, pred, bit_inc).float())
+    pick = torch.stack([c + lam * (2.0 + i) for i, c in
+                        enumerate(costs)]).argmin(0)
+    sx, sy, sr = (torch.stack(c).gather(0, pick[None])[0]
+                  for c in zip(*cands))
+    cat = torch.cat
+    nbytes = 2 * touched(torch, int(refs_y.shape[1]), int(refs_y.shape[2]),
+                         cat([c[2] for c in cands]),
+                         cat([by + (c[1] >> 2) + pad_y - 3 for c in cands]),
+                         cat([bx + (c[0] >> 2) + pad_y - 3 for c in cands]),
+                         s + 7, s + 7)
+    n_refs = int(refs_y.shape[0])
+    nbytes += 2 * touched(torch, int(refs_c.shape[1]), int(refs_c.shape[2]),
+                          cat([sr, sr + n_refs]),
+                          cat([by // 2 + (sy >> 3) + pad_c - 1] * 2),
+                          cat([bx // 2 + (sx >> 3) + pad_c - 1] * 2),
+                          cs + 3, cs + 3)
+    nbytes += 2 * nb * (s * s + 2 * cs * cs) + 4 * 12 * nb + 4 * 4 * nb + 8
+    lt, ct = _nonzero_taps(True), _nonzero_taps(False)
+    macs = sum(int(lt[(c[0] & 3).cpu()].sum()) * (s + 7) * s
+               + int(lt[(c[1] & 3).cpu()].sum()) * s * s for c in cands)
+    macs += 2 * (int(ct[(sx & 7).cpu()].sum()) * (cs + 3) * cs
+                 + int(ct[(sy & 7).cpu()].sum()) * cs * cs)
+    ops = 2 * macs + 3 * nb * (3 * s * s + 2 * cs * cs) + 60 * nb
+    return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+
+
+def held_inter_me_calls(torch, calls: dict, tag: str,
+                        launches: dict) -> tuple:
+    """Each recorded motion-search kernel call against its plain form on
+    the card (integers and MVs tolerance 0, floats bit for bit) and timed
+    (20 eager calls, a CUDA graph of 20, the plain form) beside its
+    bound; per entry one ``kernel <entry>`` line of the calls summed,
+    with the entry's launches in the pass (``launches``).  Returns
+    (largest error, {entry: summed row})."""
+    from thevc_tpu_torch.ops import inter_me_kernel
+    max_err = 0.0
+    sums = {}
+    for name in INTER_ME:
+        kernel = getattr(inter_me_kernel, name)
+        rows = []
+        for a in calls.get(name, []):
+            plain = inter_me_plain(name, a)
+            got = inter_me_flat(name, kernel(*a))
+            want = inter_me_flat(name, plain())
+            torch.cuda.synchronize()
+            err, same = 0.0, len(got) == len(want)
+            for x, y in zip(got, want):
+                same = same and x.dtype == y.dtype and x.shape == y.shape
+                if not same:
+                    break
+                err = max(err, float((x.double() - y.double()).abs().max()))
+                if x.dtype == torch.float32:
+                    x, y = x.view(torch.int32), y.view(torch.int32)
+                same = same and torch.equal(x, y)
+            max_err = max(max_err, err)
+            check(same, f"{tag}: motion-search kernel {name} != plain form "
+                  f"(max abs err {err})")
+            nbytes, ops, bound_ms, bound_by = inter_me_bound(torch, name, a)
+            rows.append(dict(
+                ms=time_ms(torch, lambda: kernel(*a), 20),
+                graph_ms=graph_ms(torch, lambda: kernel(*a), 20),
+                plain_ms=time_ms(torch, plain, 3), bytes=nbytes, ops=ops,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+        if not rows:
+            continue
+        row = {k: sum(r[k] for r in rows) for k in (
+            "ms", "graph_ms", "plain_ms", "bytes", "ops", "bound_ms")}
+        row.update(
+            tag=tag, calls=len(rows), launches=launches[name],
+            max_abs_err=max(r["max_abs_err"] for r in rows),
+            bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+            else "operations", library_ms=None,
+            share_of_bound=row["bound_ms"] / row["ms"],
+            graph_share_of_bound=row["bound_ms"] / row["graph_ms"],
+            per_call_graph_ms=[r["graph_ms"] for r in rows])
+        sums[name] = row
+        print(f"kernel {name} " + json.dumps(row))
+    return max_err, sums
+
+
+def ten_bit_b_call(args: tuple, refs1: list) -> tuple:
+    """The recorded B call as 10 bits: every source and reference sample
+    << 2, the scaled QPs + 12, bit increment 2, samples up to 1023."""
+    (y, cb, cr, refs, w, h, qp, qp_cb, qp_cr, *rest) = args
+
+    def up(pics):
+        return [(poc, *(p.astype("int16") << 2 for p in planes))
+                for poc, *planes in pics]
+    return ((*(p.astype("int16") << 2 for p in (y, cb, cr)), up(refs), w, h,
+             qp + 12, qp_cb + 12, qp_cr + 12, *rest[:-2], 2, 1023),
+            up(refs1))
+
+
 def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p B frame's decision pass in this process, replayed from
     the encoder's own call: synchronised walls, stage walls, profiler
@@ -2010,8 +2276,13 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     its plain version; the quarter-pel MC calls (49 candidates a block,
     one a size class and list) timed with their bound beside the generic
     MC entry on the same job table (``qpel_row``), the generic MC calls
-    (the winners' predictions) timed and summed, and each intra decision
-    kernel call timed (``kernel intra_sweep`` / ``kernel tu_rd`` rows)."""
+    (the winners' predictions) timed and summed, each intra decision
+    kernel call timed (``kernel intra_sweep`` / ``kernel tu_rd`` rows),
+    and each motion-search kernel call (``csrc/inter_me.cu``) held
+    against its plain form and timed (``kernel coarse_search`` /
+    ``int_refine`` / ``merge_model`` lines), for the frame and for the
+    same frame as 10 bits (``ten_bit_b_call``), whose maps must also be
+    equal on both routes."""
     import numpy as np
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     from thevc_tpu_torch.ops import device as dev_stats
@@ -2033,6 +2304,7 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     walls, launches, maps = [], None, None
     for _ in range(3):
         zero_intra_counts()
+        zero_inter_me_counts()
         mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
         mc.launches = 0
         t = time.perf_counter()
@@ -2044,7 +2316,8 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                     "mc_qpel": mc_kernel.qpel_launches,
                     "intra_sweep": counts["intra_sweep"],
                     "tu_rd_intra": counts["tu_rd_intra"],
-                    "tu_rd_given": counts["tu_rd_given"]}
+                    "tu_rd_given": counts["tu_rd_given"],
+                    **inter_me_counts()}
         # K2 for the quarter-pel candidates only; the intra leaves and
         # every transform-RD estimate on the intra decision kernels
         check(all(launches.values()) and counts["residual"] == 0
@@ -2055,10 +2328,18 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     mc.bi_avg_batch = real_avg
     classes = len(fast_inter.INTER_SIZES)
     # a size class: per list luma and the Cb/Cr pair for the transform
-    # estimate and for the merge model, then one bi luma and one bi pair
-    check(launches["mc"] == 10 * classes and not avg_calls,
+    # estimate, then one bi luma and one bi pair (the merge model
+    # predicts in its own kernel)
+    check(launches["mc"] == 6 * classes and not avg_calls,
           f"the B pass made {launches['mc']} MC blocks launches (expected "
-          f"{10 * classes}) and {len(avg_calls)} bi_avg_batch calls")
+          f"{6 * classes}) and {len(avg_calls)} bi_avg_batch calls")
+    # one coarse search a list, one refinement and one merge model a size
+    # class and list
+    expected = {"coarse_search": 2, "int_refine": 2 * classes,
+                "merge_model": 2 * classes}
+    check({k: launches[k] for k in INTER_ME} == expected,
+          f"the B pass launched the motion-search kernels "
+          f"{ {k: launches[k] for k in INTER_ME} }, expected {expected}")
     dev_stats.stage_timing(True)
     try:
         run()
@@ -2089,7 +2370,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
             t = time.perf_counter()
             run()
             plain_prof_wall = time.perf_counter() - t
+        plain_stage_device = stage_profile(torch, run)
     p_us, p_kernels, _ = profiled_device(pprof)
+    stage_device = stage_profile(torch, run)
     check(all(np.array_equal(a, b) and a.dtype == b.dtype
               for a, b in zip(maps, plain_maps)),
           "the B pass's maps differ between the kernel and plain routes")
@@ -2103,13 +2386,15 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                device_ms=device_us / 1000, device_kernels=n_kernels,
                top_kernels_ms=top,
                device_busy_share=device_us / 1e6 / prof_wall,
+               stage_device=stage_device,
                plain_route=dict(
                    wall_ms=[1000 * w for w in plain_walls],
                    stage_ms={k: 1000 * v for k, v in
                              sorted(plain_stages.items())},
                    profiled_wall_ms=1000 * plain_prof_wall,
                    device_ms=p_us / 1000, device_kernels=p_kernels,
-                   device_busy_share=p_us / 1e6 / plain_prof_wall),
+                   device_busy_share=p_us / 1e6 / plain_prof_wall,
+                   stage_device=plain_stage_device),
                maps_identical=True)
     print("fastrd_inter_pass " + json.dumps(out))
 
@@ -2119,6 +2404,7 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     # decision kernels' calls
     calls = {"satd": [], "mc": [], "mc_qpel": []}
     icalls: dict = {}
+    mcalls: dict = {}
     real_satd = satd.satd_blocks
     real_mc, real_qpel = mc.mc_blocks, mc.mc_qpel
 
@@ -2136,7 +2422,8 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
     mc.mc_blocks, mc.mc_qpel = rec_mc, rec_qpel
     try:
-        with recorded_intra_kernel_calls(icalls):
+        with recorded_intra_kernel_calls(icalls), \
+                recorded_inter_me_calls(mcalls):
             run()
     finally:
         fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
@@ -2144,7 +2431,8 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     recorded = {**{k: len(v) for k, v in calls.items()},
                 "intra_sweep": len(icalls.get("sweep", [])),
                 "tu_rd_intra": len(icalls.get("tu_rd_intra", [])),
-                "tu_rd_given": len(icalls.get("tu_rd_given", []))}
+                "tu_rd_given": len(icalls.get("tu_rd_given", [])),
+                **{k: len(mcalls.get(k, [])) for k in INTER_ME}}
     check(recorded == launches,
           f"recorded {recorded} kernel calls of the B pass for launches "
           f"{launches}")
@@ -2219,9 +2507,37 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         print("kernel mc_qpel " + json.dumps(mc_rows[-1]))
     check(len(mc_rows) == 2 * len(fast_inter.INTER_SIZES),
           f"{len(mc_rows)} quarter-pel MC calls in the B pass")
+    inter_me = {}
+    max_err["inter_me"], inter_me["8bit"] = held_inter_me_calls(
+        torch, mcalls, "8bit", launches)
+    del mcalls
+    # the same frame as 10 bits: the maps of both routes, and every
+    # motion-search kernel call held and timed
+    args10, refs1_10 = ten_bit_b_call(args, refs1)
+    cache10 = fast_inter.RefCache()
+
+    def run10():
+        return fast_inter.decide_frame_p(*args10, ref_pics_l1=refs1_10,
+                                         device="cuda", ref_cache=cache10)
+    run10()
+    mcalls10: dict = {}
+    zero_inter_me_counts()
+    with recorded_inter_me_calls(mcalls10):
+        maps10 = run10()
+    launches10 = inter_me_counts()
+    with plain_route():
+        plain10 = run10()
+    check(all(np.array_equal(a, b) and a.dtype == b.dtype
+              for a, b in zip(maps10, plain10)),
+          "the 10-bit B pass's maps differ between the kernel and plain "
+          "routes")
+    err10, inter_me["10bit"] = held_inter_me_calls(torch, mcalls10, "10bit",
+                                                   launches10)
+    max_err["inter_me"] = max(max_err["inter_me"], err10)
+    del mcalls10, cache10
     out.update(max_abs_err=max_err, satd_rows=rows, mc_rows=mc_rows,
                mc_blocks=blocks_sum, mc_calls=len(calls["mc"]),
-               intra_rows=intra_rows)
+               intra_rows=intra_rows, inter_me=inter_me)
     print("fastrd_inter_kernels " + json.dumps(
         {"max_abs_err": max_err, "intra_calls": {
             k: len(v) for k, v in icalls.items()},
@@ -2260,6 +2576,7 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
               and rep["tu_rd_launches"] > 0
               and rep["mc_blocks_launches"] > 0
               and rep["mc_qpel_launches"] > 0
+              and all(rep[f"{k}_launches"] > 0 for k in INTER_ME)
               and rep["plain_mc_calls"] == 0,
               f"{name} fast-RD on cuda skipped a kernel, ran K1 or ran the "
               f"plain MC: {rep}")
@@ -2270,7 +2587,9 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
                      "intra_sweep_launches": rep["intra_sweep_launches"],
                      "tu_rd_launches": rep["tu_rd_launches"],
                      "mc_blocks_launches": rep["mc_blocks_launches"],
-                     "mc_qpel_launches": rep["mc_qpel_launches"]}
+                     "mc_qpel_launches": rep["mc_qpel_launches"],
+                     **{f"{k}_launches": rep[f"{k}_launches"]
+                        for k in INTER_ME}}
     print("inter_identity " + json.dumps(out))
     return out
 
@@ -2481,6 +2800,61 @@ def profiled_device(prof) -> tuple:
             by_name[e.name()] = by_name.get(e.name(), 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     return sum(by_name.values()), n, {k[:60]: v / 1000 for k, v in top}
+
+
+def stage_profile(torch, run, prefix: str = "fast_inter.") -> dict:
+    """One call of ``run`` with stage timing on (``ops.device.stage``:
+    each stage synchronised, and a profiler range of its name) under
+    ``torch.profiler``: the call's wall, device time and device
+    activities (kernels, copies, memsets), and per stage whose name
+    starts with ``prefix`` its synchronised wall, device time, activities
+    and its three largest device items by name.  An activity is charged to the innermost stage range
+    that holds the host op which launched it (the profiler's correlation
+    ids; its own start where it has none), ``(other)`` outside them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from thevc_tpu_torch.ops import device as dev_stats
+    dev_stats.stage_timing(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            run()
+            wall = time.perf_counter() - t
+    finally:
+        walls = dev_stats.stage_timing(False)
+    events = list(prof.profiler.kineto_results.events())
+    ranges, launched_at = [], {}
+    for e in events:
+        if e.device_type() != DeviceType.CPU:
+            continue
+        launched_at[e.correlation_id()] = e.start_ns()
+        if e.name().startswith(prefix):
+            ranges.append((e.start_ns(), e.end_ns(), e.name()))
+    stages = {k: {"wall_ms": 1000 * v, "device_ms": 0.0, "activities": 0}
+              for k, v in walls.items() if k.startswith(prefix)}
+    device_ns = n = 0
+    for e in events:
+        if e.device_type() != DeviceType.CUDA or e.name().startswith(prefix):
+            continue
+        ns = e.duration_ns() if hasattr(e, "duration_ns") \
+            else 1000 * e.duration_us()
+        at = launched_at.get(e.linked_correlation_id(), e.start_ns())
+        inside = [r for r in ranges if r[0] <= at <= r[1]]
+        name = min(inside, key=lambda r: r[1] - r[0])[2] if inside \
+            else "(other)"
+        row = stages.setdefault(name, {"device_ms": 0.0, "activities": 0})
+        row["device_ms"] += ns / 1e6
+        row["activities"] += 1
+        top = row.setdefault("by_name", {})
+        top[e.name()[:60]] = top.get(e.name()[:60], 0.0) + ns / 1e6
+        device_ns += ns
+        n += 1
+    for row in stages.values():
+        row["top_ms"] = dict(sorted(row.pop("by_name", {}).items(),
+                                    key=lambda kv: -kv[1])[:3])
+    return dict(wall_ms=1000 * wall, device_ms=device_ns / 1e6,
+                activities=n, stages=dict(sorted(stages.items())))
 
 
 def apply_bound(sched) -> tuple:
@@ -3065,6 +3439,7 @@ def resume_rc_phase(torch, work: Path) -> dict:
     intra_rd_kernel.sweep_launches = 0
     intra_rd_kernel.tu_rd_intra_launches = 0
     intra_rd_kernel.tu_rd_given_launches = 0
+    zero_inter_me_counts()
 
     def encode(name, device, clip, w, h, cfg, extra):
         t = time.perf_counter()
@@ -3191,7 +3566,8 @@ def resume_rc_phase(torch, work: Path) -> dict:
                        "filters": filters_kernel.launches,
                        "apply": apply_kernel.launches,
                        "intra_sweep": intra_rd_kernel.sweep_launches,
-                       "tu_rd": intra_rd_kernel.tu_rd_launches()}
+                       "tu_rd": intra_rd_kernel.tu_rd_launches(),
+                       **inter_me_counts()}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
     print("resume_rc " + json.dumps({"launches": out["launches"],
@@ -3337,12 +3713,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
     from thevc_tpu_torch.ops import apply_kernel, build, filters_kernel, \
-        intra_rd_kernel, mc_kernel, residual_kernel, satd, satd_kernel, tq
+        inter_me_kernel, intra_rd_kernel, mc_kernel, residual_kernel, satd, \
+        satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
     kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel,
-               apply_kernel, intra_rd_kernel)
+               apply_kernel, intra_rd_kernel, inter_me_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -3450,7 +3827,11 @@ def main() -> int:
     # library_ms is null)
     by_path["fastrd_inter_encode"].update(
         mc_blocks=fast_inter["mc_blocks_launches"],
-        mc_qpel=fast_inter["mc_qpel_launches"])
+        mc_qpel=fast_inter["mc_qpel_launches"],
+        **{k: fast_inter[f"{k}_launches"] for k in INTER_ME})
+    # the replayed B frame's timed runs (the same counts each)
+    by_path["fastrd_inter_pass"] = {
+        k: fast_inter["pass"]["launches"][k] for k in INTER_ME}
     print("launches by path " + json.dumps(by_path))
     # the apply kernel, one launch a frame; its times: the recorded 1080p
     # frame's launch span in CUDA events (``ms``, the median of three; the
@@ -3459,6 +3840,12 @@ def main() -> int:
     # frame (no PyTorch call does HM's intra TU apply, so library_ms is
     # null)
     frame_apply = devapply["frame"]
+    # the motion-search kernels' times: the replayed 1080p B frame's calls
+    # summed (2 coarse searches, 8 refinements, 8 merge models; no single
+    # PyTorch call runs a full search with an MV prior, a first-minimum
+    # refinement or HM's interpolation inside an SSE, so library_ms is
+    # null)
+    inter_me8 = fast_inter["pass"]["inter_me"]["8bit"]
     # the intra decision kernels' times: the replayed 1080p I frame's
     # calls summed (5 sweeps; 10 TU-RD launches, the luma top-3 of each
     # class and the Cb/Cr candidates of each chroma class; no single
@@ -3551,7 +3938,15 @@ def main() -> int:
         "launches": sum(p.get("tu_rd", 0) for p in by_path.values()),
         "max_abs_err": max(i_pass["max_abs_err"],
                            fast_inter["pass"]["max_abs_err"]["intra_rd"]),
-        **sum_rows(i_pass["rows"]["tu_rd_intra"])}]}))
+        **sum_rows(i_pass["rows"]["tu_rd_intra"])}, *({
+        "name": name, "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/inter_me.cu",
+        "replaces": INTER_ME_REPLACES[name],
+        "launches": sum(p.get(name, 0) for p in by_path.values()),
+        "max_abs_err": fast_inter["pass"]["max_abs_err"]["inter_me"],
+        **{k: inter_me8[name][k] for k in (
+            "ms", "graph_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}} for name in INTER_ME)]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

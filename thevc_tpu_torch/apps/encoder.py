@@ -19,9 +19,12 @@ SATD kernel for the P/B pass's quarter-pel candidates only, and no
 residual kernel), of the intra decision kernels (``intra_sweep_launches``,
 one a luma size class of a decision pass; ``tu_rd_launches``, the
 transform-RD estimates of both passes), of the MC kernel's two entries
-that the P/B pass calls (blocks and quarter-pel) and of the device
-apply's kernel (``apply_launches``, one a frame), the plain MC's calls
-(none on ``cuda``),
+that the P/B pass calls (blocks and quarter-pel), of the P/B pass's
+motion-search kernels (``coarse_search_launches``, one a list of a
+decision pass; ``int_refine_launches`` and ``merge_model_launches``, one
+a size class and list) and of the device apply's kernel
+(``apply_launches``, one a frame), the plain MC's calls (none on
+``cuda``),
 the frames decided (all, and the P/B ones),
 the summed decision-pass wall time in seconds (synchronised with the
 device), the device apply's frames, waves, class steps and summed wall,
@@ -36,8 +39,8 @@ import json
 import sys
 
 from ..encoder.top import DecisionStats, Encoder
-from ..ops import apply_kernel, intra_rd_kernel, mc, mc_kernel, \
-    residual_kernel, satd_kernel
+from ..ops import apply_kernel, inter_me_kernel, intra_rd_kernel, mc, \
+    mc_kernel, residual_kernel, satd_kernel
 from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
@@ -64,7 +67,10 @@ def main(argv=None) -> int:
               "intra_sweep": intra_rd_kernel.sweep_launches,
               "tu_rd": intra_rd_kernel.tu_rd_launches(),
               "mc_blocks": mc_kernel.blocks_launches,
-              "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches}
+              "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches,
+              "coarse": inter_me_kernel.coarse_launches,
+              "refine": inter_me_kernel.refine_launches,
+              "merge": inter_me_kernel.merge_launches}
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
     enc = Encoder(cfg, device=device, stats=stats,
@@ -89,6 +95,12 @@ def main(argv=None) -> int:
         - before["mc_blocks"],
         "mc_qpel_launches": mc_kernel.qpel_launches - before["mc_qpel"],
         "plain_mc_calls": mc.launches - before["plain_mc"],
+        "coarse_search_launches": inter_me_kernel.coarse_launches
+        - before["coarse"],
+        "int_refine_launches": inter_me_kernel.refine_launches
+        - before["refine"],
+        "merge_model_launches": inter_me_kernel.merge_launches
+        - before["merge"],
         "decision_frames": stats.frames,
         "decision_frames_inter": stats.inter_frames,
         "decision_wall_s": stats.wall_s,

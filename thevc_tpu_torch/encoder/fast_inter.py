@@ -6,9 +6,12 @@ intra leaves the source picture):
 
 1. coarse motion field: a quarter-resolution full search over the whole
    +-search-range window of every reference, for every size class at
-   once;
+   once (``_coarse_fields``: on a CUDA tensor the coarse-search kernel of
+   ``csrc/inter_me.cu``, one launch a list);
 2. per block of each size class 8..64: a +-3 full-pel refinement around
-   the coarse winner (SAD plus an exp-Golomb MV prior), then the 7x7
+   the coarse winner (SAD plus an exp-Golomb MV prior; ``int_refine``:
+   on a CUDA tensor that source's refinement kernel, one launch a size
+   class and list), then the 7x7
    quarter-pel window around the integer winner through the HEVC 8-tap
    interpolation (``ops.mc.mc_qpel``: on a CUDA tensor the hand-written
    kernel's quarter-pel entry in ``csrc/mc.cu``, the 49 candidates of
@@ -18,8 +21,10 @@ intra leaves the source picture):
 3. RD leaves: transform/quant/recon estimates of luma and both chroma
    planes at the winner (``fast_intra.tu_rd`` with ``is_intra=False``:
    on a CUDA tensor the TU-RD kernel in ``csrc/intra_rd.cu``), a
-   3-candidate merge/skip model, and for B slices a bi-prediction stage
-   on the two lists' winners;
+   3-candidate merge/skip model (``merge_model``: on a CUDA tensor the
+   merge-model kernel of ``csrc/inter_me.cu``, one launch a size class
+   and list), and for B slices a bi-prediction stage on the two lists'
+   winners;
 4. the intra leaves of ``fast_intra`` (on a CUDA tensor through its sweep
    and TU-RD kernels) and the quadtree DP with its inter branch
    (``fast_intra._dp_expand``), expanded to per-4x4-unit maps.
@@ -28,12 +33,18 @@ The maps feed the native apply pass (``nat.set_fd`` and
 ``nat.set_fd_inter``), which re-ranks each inter CU against the real
 merge candidates and writes a conformant stream.
 
+Each of the three motion-search stages has a plain form with its
+kernel's inputs and outputs (``coarse_fields_plain``,
+``int_refine_plain``, ``merge_model_plain``), which CPU tensors run and
+the checks hold the kernels to, bit for bit.
+
 The reference's TPU- and XLA-specific forms are not carried over: its
 8-pixel tile fetch with an 8-way select (a plain index gather here), the
 ref stack padded to a fixed depth and masked with ``inf`` (each list
 holds its own references), the ``vmap`` over the two lists (two calls)
-and the compiled-graph cache.  The coarse search is one batched op per
-chunk of search rows instead of a scan over (reference, row); the first
+and the compiled-graph cache.  The coarse search's plain form is one
+batched op per chunk of search rows instead of a scan over (reference,
+row); the first
 minimum in (reference, row, column) order wins, as the scan's strict
 ``<`` across steps and first minimum within a step decide.
 
@@ -54,7 +65,7 @@ import numpy as np
 import torch
 
 from ..ops import device as dev_stats
-from ..ops import mc
+from ..ops import inter_me_kernel, mc
 from ..ops.device import stage
 from ..ops.satd import satd_blocks
 from . import fast_intra as fi
@@ -147,13 +158,11 @@ def _coarse_sads(org, ref, dy0: int, n_dy: int, n_off: int, sizes):
     return out
 
 
-def _coarse_fields(org_q, refs_q, rng_q: int, hq: int, wq: int, sqrt_lam,
-                   ctu_size: int):
-    """Quarter-res full motion search for every size class at once.
-    org_q [hq, wq]; refs_q: per reference an edge-padded quarter-res
-    int16 plane [hq + 2 rng_q, wq + 2 rng_q].  Search rows go in chunks
-    of at most ``_COARSE_CHUNK`` SAD samples.  Returns per size s: (dy,
-    dx, ref) full-pel int64 [hq*4//s, wq*4//s]."""
+def coarse_fields_plain(org_q, refs_q, rng_q: int, hq: int, wq: int,
+                        sqrt_lam, ctu_size: int):
+    """The plain form of ``_coarse_fields``: search rows in chunks of at
+    most ``_COARSE_CHUNK`` SAD samples, each chunk's SADs materialised
+    (``_coarse_sads``) and ranked at once."""
     dev = org_q.device
     n_off = 2 * rng_q + 1
     sizes = [s for s in INTER_SIZES if s <= ctu_size]
@@ -186,6 +195,26 @@ def _coarse_fields(org_q, refs_q, rng_q: int, hq: int, wq: int, sqrt_lam,
         dy = (code // n_off) % n_off - rng_q
         out[s] = (dy * 4, dx * 4, code // (n_off * n_off))
     return out
+
+
+def _coarse_fields(org_q, refs_q, rng_q: int, hq: int, wq: int, sqrt_lam,
+                   ctu_size: int):
+    """Quarter-res full motion search for every size class at once.
+    org_q [hq, wq]; refs_q: per reference an edge-padded quarter-res
+    int16 plane [hq + 2 rng_q, wq + 2 rng_q]; sqrt_lam a 0-d float32.
+    Returns per size s: (dy, dx, ref) full-pel int64 [hq*4//s, wq*4//s];
+    the first minimum in (reference, row, column) order wins.  On CUDA
+    tensors the coarse-search kernel, one launch for every reference
+    (and raises if it cannot launch); on CPU tensors the plain form."""
+    dev = org_q.device
+    if dev.type == "cpu":
+        return coarse_fields_plain(org_q, refs_q, rng_q, hq, wq, sqrt_lam,
+                                   ctu_size)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return inter_me_kernel.coarse_search(
+        org_q.to(torch.int16).contiguous(), [r.contiguous() for r in refs_q],
+        rng_q, sqrt_lam, tuple(s for s in INTER_SIZES if s <= ctu_size))
 
 
 def _block_grid(s: int, nby: int, nbx: int, dev):
@@ -261,6 +290,156 @@ def _tq_size(cs: int) -> int:
     return -32 if cs == 32 else cs
 
 
+def _mv_bits(pred_x, pred_y, mvqx, mvqy):
+    """The exp-Golomb MV prior of [nb, 7] x and [nb, 7] y candidates
+    (quarter pel) against the predictor -> int [nb, 7 (y), 7 (x)]."""
+    gx = _golomb_bits(mvqx - pred_x[:, None])
+    gy = _golomb_bits(mvqy - pred_y[:, None])
+    return gy[:, :, None] + gx[:, None, :] + 2
+
+
+def int_refine_plain(org, refs_y, coarse, s: int, nby: int, nbx: int,
+                     sqrt_lam, bit_inc: int):
+    """The plain form of ``int_refine``: each block's window gathered
+    (``mc.gather_windows``), the 49 candidates unfolded and their SADs
+    and costs ranked at once."""
+    dev = org.device
+    nb = nby * nbx
+    c_dy, c_dx, c_ref = coarse
+    by, bx = _block_grid(s, nby, nbx, dev)
+    org16 = _blocks(org, s, nby, nbx).to(torch.int16)
+    mv_px, mv_py = _mv_pred_median(c_dx * 4, c_dy * 4)
+    ref = c_ref.reshape(-1)
+    dy0 = c_dy.reshape(-1)
+    dx0 = c_dx.reshape(-1)
+    steps = torch.arange(-3, 4, device=dev)
+    win = s + 2 * MARGIN
+    w = mc.gather_windows(refs_y, ref, bx + dx0 + (PAD_FULL - MARGIN),
+                          by + dy0 + (PAD_FULL - MARGIN), win, win)
+    cands = w.unfold(1, s, 1).unfold(2, s, 1)[
+        :, MARGIN - 3:MARGIN + 4, MARGIN - 3:MARGIN + 4]
+    sad = ((org16[:, None, None] - cands).abs().sum(
+        dim=(-2, -1)) >> bit_inc).reshape(nb, 49)
+    bits = _mv_bits(mv_px.reshape(-1), mv_py.reshape(-1),
+                    (dx0[:, None] + steps) * 4,
+                    (dy0[:, None] + steps) * 4).reshape(nb, 49)
+    cost = sad.to(torch.float32) + sqrt_lam * bits.to(torch.float32)
+    best_d = cost.argmin(dim=1)
+    return dx0 + best_d % 7 - 3, dy0 + best_d // 7 - 3
+
+
+def int_refine(org, refs_y, coarse, s: int, nby: int, nbx: int, sqrt_lam,
+               bit_inc: int):
+    """The +-3 full-pel refinement of one size class around its coarse
+    field (dy, dx, ref; full pel, int64 [nby, nbx]): per block the 49
+    SADs against the source (>> bit_inc) plus sqrt_lam times the
+    exp-Golomb bits against the median of the coarse field's left, above
+    and above-right MVs; the first minimum in (dy, dx) raster order ->
+    (int_mx, int_my) full pel, int64 [nby*nbx].  org: the source plane
+    [>= nby*s, >= nbx*s]; refs_y: the references' luma planes [P, ...]
+    padded by PAD_FULL.  On CUDA tensors the integer-refinement kernel
+    (and raises if it cannot launch); on CPU tensors the plain form."""
+    dev = org.device
+    if dev.type == "cpu":
+        return int_refine_plain(org, refs_y, coarse, s, nby, nbx, sqrt_lam,
+                                bit_inc)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return inter_me_kernel.int_refine(
+        org.to(torch.int16).contiguous(), refs_y.contiguous(),
+        tuple(c.contiguous() for c in coarse), s, nby, nbx, sqrt_lam,
+        bit_inc, PAD_FULL)
+
+
+def merge_model_plain(org, org_cb, org_cr, refs_y, refs_c, s: int, nby: int,
+                      nbx: int, rd_terms, winner, lam, cw, bit_inc: int):
+    """The plain form of ``merge_model``: the neighbour grids by
+    ``_shift_grid``, the three candidates' luma predictions in one
+    ``mc.mc_blocks`` call and the winner's Cb and Cr in another."""
+    dev = org.device
+    nb = nby * nbx
+    bd = 8 + bit_inc
+    cs = s // 2
+    d_y, b_y, d_cb, b_cb, d_cr, b_cr = rd_terms
+    mv_qx, mv_qy, ref = winner
+    by, bx = _block_grid(s, nby, nbx, dev)
+    org_b = _blocks(org, s, nby, nbx)
+    # AMVP-proxy mvd pricing: the refined winner field's left/above
+    # neighbours, best of two (xCheckBestMVP)
+    gx = mv_qx.reshape(nby, nbx)
+    gy = mv_qy.reshape(nby, nbx)
+    nl = (_shift_grid(gx, 0, 1).reshape(-1),
+          _shift_grid(gy, 0, 1).reshape(-1))
+    na = (_shift_grid(gx, 1, 0).reshape(-1),
+          _shift_grid(gy, 1, 0).reshape(-1))
+    bits_l = _golomb_bits(mv_qx - nl[0]) + _golomb_bits(mv_qy - nl[1])
+    bits_a = _golomb_bits(mv_qx - na[0]) + _golomb_bits(mv_qy - na[1])
+    mvb = torch.minimum(bits_l, bits_a) + 2 + ref + 4
+    rd = d_y.to(torch.float32) + cw * (d_cb + d_cr).to(torch.float32)
+    rd = rd + lam * (b_y + b_cb + b_cr + mvb.to(torch.float32))
+
+    # merge/skip model: the spatial left/above winners and the zero MV
+    # compete on no-residual distortion (getInterMergeCandidates
+    # analogue), priced at skip_flag + merge_idx bits
+    rg = ref.reshape(nby, nbx)
+    zero = torch.zeros_like(ref)
+    cands = [(nl[0], nl[1], _shift_grid(rg, 0, 1).reshape(-1)),
+             (na[0], na[1], _shift_grid(rg, 1, 0).reshape(-1)),
+             (zero, zero, zero)]
+    ps3 = _pred_luma(refs_y, torch.cat([c[2] for c in cands]),
+                     torch.cat([c[0] for c in cands]),
+                     torch.cat([c[1] for c in cands]), by.repeat(3),
+                     bx.repeat(3), s, bd)
+    d3 = _sse(org_b.repeat(3, 1, 1), ps3, bit_inc).reshape(3, nb)
+    idx_bits = torch.arange(2.0, 5.0, device=dev)[:, None]
+    c3 = d3.to(torch.float32) + lam * idx_bits.to(torch.float32)
+    m_cost, m_idx = c3.min(dim=0)
+    s_mx, s_my, s_ref = (torch.stack(c).gather(0, m_idx[None])[0]
+                         for c in zip(*cands))
+    ps_cb, ps_cr = _pred_chroma(refs_c, s_ref, s_mx, s_my, by // 2, bx // 2,
+                                cs, bd)
+    d_scb = _sse(_blocks(org_cb, cs, nby, nbx), ps_cb, bit_inc)
+    d_scr = _sse(_blocks(org_cr, cs, nby, nbx), ps_cr, bit_inc)
+    skip_rd = m_cost + cw * (d_scb + d_scr).to(torch.float32)
+    use_skip = skip_rd < rd
+    rd = torch.minimum(rd, skip_rd)
+    mv_qx = torch.where(use_skip, s_mx, mv_qx)
+    mv_qy = torch.where(use_skip, s_my, mv_qy)
+    ref = torch.where(use_skip, s_ref, ref)
+    return tuple(v.reshape(nby, nbx) for v in (rd, mv_qx, mv_qy, ref))
+
+
+def merge_model(org, org_cb, org_cr, refs_y, refs_c, s: int, nby: int,
+                nbx: int, rd_terms, winner, lam, cw, bit_inc: int):
+    """The RD cost of one size class's motion winner and its merge/skip
+    model: the AMVP-proxy MV bits (the cheaper of the left and above
+    winners as predictor, zero outside the grid) and ``rd = d_y + cw *
+    (d_cb + d_cr) + lam * (b_y + b_cb + b_cr + mv bits)``; the left,
+    above and zero-MV candidates priced at their luma SSE plus lam * (2
+    + i), the first minimum's Cb and Cr SSE added with cw, and skip taken
+    where strictly cheaper.  org, org_cb, org_cr: the source planes;
+    refs_y [P, ...] and refs_c (Cb then Cr, [2P, ...]): the references'
+    padded planes; rd_terms: (d_y, b_y, d_cb, b_cb, d_cr, b_cr), the
+    winner's transform-RD estimates [nby*nbx]; winner: (mvx, mvy (quarter
+    pel), ref), int32 [nby*nbx] -> (rd float32, mvx, mvy, ref int32),
+    each [nby, nbx].  On CUDA tensors the merge-model kernel (and raises
+    if it cannot launch); on CPU tensors the plain form."""
+    dev = org.device
+    if dev.type == "cpu":
+        return merge_model_plain(org, org_cb, org_cr, refs_y, refs_c, s,
+                                 nby, nbx, rd_terms, winner, lam, cw,
+                                 bit_inc)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    return inter_me_kernel.merge_model(
+        tuple(p.to(torch.int16).contiguous() for p in (org, org_cb, org_cr)),
+        refs_y.contiguous(), refs_c.contiguous(), s, nby, nbx,
+        tuple(t.to(torch.float32 if k % 2 else torch.int32).contiguous()
+              for k, t in enumerate(rd_terms)),
+        tuple(t.to(torch.int32).contiguous() for t in winner), lam, cw,
+        bit_inc, PAD_FULL, PAD_C)
+
+
 def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_c, s: int,
                      nby: int, nbx: int, coarse, qp_scaled, qp_cb, qp_cr,
                      lam, sqrt_lam, cw, bit_inc: int, max_val: int):
@@ -272,51 +451,29 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_c, s: int,
     dev = org_full.device
     nb = nby * nbx
     bd = 8 + bit_inc
-    c_dy, c_dx, c_ref = coarse
     by, bx = _block_grid(s, nby, nbx, dev)
     org_b = _blocks(org_full, s, nby, nbx)
-    org16 = org_b.to(torch.int16)
-
-    mv_px, mv_py = _mv_pred_median(c_dx * 4, c_dy * 4)
-    pred_x = mv_px.reshape(-1)
-    pred_y = mv_py.reshape(-1)
-    ref = c_ref.reshape(-1)
-    dy0 = c_dy.reshape(-1)
-    dx0 = c_dx.reshape(-1)
     steps = torch.arange(-3, 4, device=dev)
 
-    def mv_bits(mvqx, mvqy):
-        """[nb, 7] x and [nb, 7] y candidates -> int [nb, 7 (y), 7 (x)]."""
-        gx = _golomb_bits(mvqx - pred_x[:, None])
-        gy = _golomb_bits(mvqy - pred_y[:, None])
-        return gy[:, :, None] + gx[:, None, :] + 2
-
     # ---- integer refinement: +-3 around the coarse winner -------------
-    win = s + 2 * MARGIN
     with stage("fast_inter.int_refine", dev):
-        w = mc.gather_windows(refs_y, ref, bx + dx0 + (PAD_FULL - MARGIN),
-                              by + dy0 + (PAD_FULL - MARGIN), win, win)
-        cands = w.unfold(1, s, 1).unfold(2, s, 1)[
-            :, MARGIN - 3:MARGIN + 4, MARGIN - 3:MARGIN + 4]
-        sad = ((org16[:, None, None] - cands).abs().sum(
-            dim=(-2, -1)) >> bit_inc).reshape(nb, 49)
-        bits = mv_bits((dx0[:, None] + steps) * 4,
-                       (dy0[:, None] + steps) * 4).reshape(nb, 49)
-        cost = sad.to(torch.float32) + sqrt_lam * bits.to(torch.float32)
-        best_d = cost.argmin(dim=1)
-        int_my = dy0 + best_d // 7 - 3
-        int_mx = dx0 + best_d % 7 - 3
+        int_mx, int_my = int_refine(org_full, refs_y, coarse, s, nby, nbx,
+                                    sqrt_lam, bit_inc)
 
     # ---- quarter-pel refinement: the full 7x7 sub-pel window -----------
     # re-anchored on the integer winner; one MC launch for the 49
     # candidates of every block (candidate (qdy + 3) * 7 + qdx + 3 at
     # quarter-pel offset (qdx, qdy)), then one SATD launch
     with stage("fast_inter.qpel_mc_satd", dev):
+        c_dy, c_dx, c_ref = coarse
+        ref = c_ref.reshape(-1)
         preds = _qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s, bd)
-        satd = satd_blocks(org16, preds, bit_inc)
+        satd = satd_blocks(org_b.to(torch.int16), preds, bit_inc)
         del preds
-        bits = mv_bits(int_mx[:, None] * 4 + steps,
-                       int_my[:, None] * 4 + steps).reshape(nb, 49)
+        mv_px, mv_py = _mv_pred_median(c_dx * 4, c_dy * 4)
+        bits = _mv_bits(mv_px.reshape(-1), mv_py.reshape(-1),
+                        int_mx[:, None] * 4 + steps,
+                        int_my[:, None] * 4 + steps).reshape(nb, 49)
         cost = satd.to(torch.float32) + sqrt_lam * bits.to(torch.float32)
         best_q = cost.argmin(dim=1)
         # the winners as int32: the MC jobs built from them need no cast
@@ -327,63 +484,23 @@ def _inter_size_pass(org_full, org_cb, org_cr, refs_y, refs_c, s: int,
     # ---- RD estimate at the winner --------------------------------------
     cs = s // 2
     cby, cbx = by // 2, bx // 2
-    org_cb_b = _blocks(org_cb, cs, nby, nbx)
-    org_cr_b = _blocks(org_cr, cs, nby, nbx)
     with stage("fast_inter.tq_rd", dev):
         pred_l = _pred_luma(refs_y, ref, mv_qx, mv_qy, by, bx, s, bd)
         d_y, b_y = fi.tu_rd(org_b, pred_l, s, qp_scaled, bit_inc, max_val,
                             is_intra=False)
         pred_cb, pred_cr = _pred_chroma(refs_c, ref, mv_qx, mv_qy, cby, cbx,
                                         cs, bd)
-        d_cb, b_cb = fi.tu_rd(org_cb_b, pred_cb, _tq_size(cs), qp_cb,
-                              bit_inc, max_val, is_intra=False)
-        d_cr, b_cr = fi.tu_rd(org_cr_b, pred_cr, _tq_size(cs), qp_cr,
-                              bit_inc, max_val, is_intra=False)
+        d_cb, b_cb = fi.tu_rd(_blocks(org_cb, cs, nby, nbx), pred_cb,
+                              _tq_size(cs), qp_cb, bit_inc, max_val,
+                              is_intra=False)
+        d_cr, b_cr = fi.tu_rd(_blocks(org_cr, cs, nby, nbx), pred_cr,
+                              _tq_size(cs), qp_cr, bit_inc, max_val,
+                              is_intra=False)
 
     with stage("fast_inter.merge_model", dev):
-        # AMVP-proxy mvd pricing: the refined winner field's left/above
-        # neighbours, best of two (xCheckBestMVP)
-        gx = mv_qx.reshape(nby, nbx)
-        gy = mv_qy.reshape(nby, nbx)
-        nl = (_shift_grid(gx, 0, 1).reshape(-1),
-              _shift_grid(gy, 0, 1).reshape(-1))
-        na = (_shift_grid(gx, 1, 0).reshape(-1),
-              _shift_grid(gy, 1, 0).reshape(-1))
-        bits_l = _golomb_bits(mv_qx - nl[0]) + _golomb_bits(mv_qy - nl[1])
-        bits_a = _golomb_bits(mv_qx - na[0]) + _golomb_bits(mv_qy - na[1])
-        mvb = torch.minimum(bits_l, bits_a) + 2 + ref + 4
-        rd = d_y.to(torch.float32) + cw * (d_cb + d_cr).to(torch.float32)
-        rd = rd + lam * (b_y + b_cb + b_cr + mvb.to(torch.float32))
-
-        # merge/skip model: the spatial left/above winners and the zero MV
-        # compete on no-residual distortion (getInterMergeCandidates
-        # analogue), priced at skip_flag + merge_idx bits
-        rg = ref.reshape(nby, nbx)
-        zero = torch.zeros_like(ref)
-        cands = [(nl[0], nl[1], _shift_grid(rg, 0, 1).reshape(-1)),
-                 (na[0], na[1], _shift_grid(rg, 1, 0).reshape(-1)),
-                 (zero, zero, zero)]
-        ps3 = _pred_luma(refs_y, torch.cat([c[2] for c in cands]),
-                         torch.cat([c[0] for c in cands]),
-                         torch.cat([c[1] for c in cands]), by.repeat(3),
-                         bx.repeat(3), s, bd)
-        d3 = _sse(org_b.repeat(3, 1, 1), ps3, bit_inc).reshape(3, nb)
-        idx_bits = torch.arange(2.0, 5.0, device=dev)[:, None]
-        c3 = d3.to(torch.float32) + lam * idx_bits.to(torch.float32)
-        m_cost, m_idx = c3.min(dim=0)
-        s_mx, s_my, s_ref = (torch.stack(c).gather(0, m_idx[None])[0]
-                             for c in zip(*cands))
-        ps_cb, ps_cr = _pred_chroma(refs_c, s_ref, s_mx, s_my, cby, cbx, cs,
-                                    bd)
-        d_scb = _sse(org_cb_b, ps_cb, bit_inc)
-        d_scr = _sse(org_cr_b, ps_cr, bit_inc)
-        skip_rd = m_cost + cw * (d_scb + d_scr).to(torch.float32)
-        use_skip = skip_rd < rd
-        rd = torch.minimum(rd, skip_rd)
-        mv_qx = torch.where(use_skip, s_mx, mv_qx)
-        mv_qy = torch.where(use_skip, s_my, mv_qy)
-        ref = torch.where(use_skip, s_ref, ref)
-    return tuple(v.reshape(nby, nbx) for v in (rd, mv_qx, mv_qy, ref))
+        return merge_model(org_full, org_cb, org_cr, refs_y, refs_c, s, nby,
+                           nbx, (d_y, b_y, d_cb, b_cb, d_cr, b_cr),
+                           (mv_qx, mv_qy, ref), lam, cw, bit_inc)
 
 
 def _bi_size_pass(org_full, org_cb, org_cr, refs2, uni2, s: int, nby: int,
@@ -461,9 +578,10 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
                                          lam_w_bits2, bit_inc, max_val)
 
     # ---- inter leaves ----------------------------------------------------
-    org_full = py[1:1 + hp, 1:1 + wp].to(torch.int32)
-    org_cb = pcb[1:1 + hp // 2, 1:1 + wp // 2].to(torch.int32)
-    org_cr = pcr[1:1 + hp // 2, 1:1 + wp // 2].to(torch.int32)
+    # the source planes as contiguous int16, as the kernels read them
+    org_full = py[1:1 + hp, 1:1 + wp].contiguous()
+    org_cb = pcb[1:1 + hp // 2, 1:1 + wp // 2].contiguous()
+    org_cr = pcr[1:1 + hp // 2, 1:1 + wp // 2].contiguous()
     rng_q = search_range // 4
     hq, wq = hp // 4, wp // 4
 

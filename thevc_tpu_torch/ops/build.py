@@ -3,10 +3,11 @@
 Each kernel is one source under ``csrc/`` with a plain C interface.  It
 is compiled with ``nvcc`` for ``sm_90a`` on first use, into
 ``build/thevc_tpu_torch/`` at the root of the checkout, named by a hash
-of the source and the flags so an edited source is rebuilt, and loaded
-with ``ctypes``.  The compiler's output, with ptxas's register and
-shared-memory report, is kept beside the library as ``.log``.  Nothing
-here runs when the module is imported.
+of the source, the headers of ``csrc/`` it includes and the flags (so
+an edited source or header is rebuilt), and loaded with ``ctypes``.  The
+compiler's output, with ptxas's register and shared-memory report, is
+kept beside the library as ``.log``.  Nothing here runs when the module
+is imported.
 
 Every C entry returns a ``cudaError_t`` (0 on success), and every
 library exports ``thevc_error_string``; ``check`` raises on a nonzero
@@ -18,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -29,10 +31,12 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thevc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# flags of one source only: the apply kernel ranks float32 costs and the
-# intra RD kernel sums float32 bit estimates in the plain form's order, so
-# no multiply-add may be contracted
-SOURCE_FLAGS = {"apply": ("-fmad=false",), "intra_rd": ("-fmad=false",)}
+# flags of one source only: the apply kernel ranks float32 costs, the
+# intra RD kernel sums float32 bit estimates and the motion-search kernels
+# price candidates in the plain form's order, so no multiply-add may be
+# contracted
+SOURCE_FLAGS = {"apply": ("-fmad=false",), "intra_rd": ("-fmad=false",),
+                "inter_me": ("-fmad=false",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
@@ -56,10 +60,22 @@ def flags(name: str) -> tuple:
     return NVCC_FLAGS + SOURCE_FLAGS.get(name, ())
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the headers of ``csrc/`` it includes
+    (``#include "..."``, followed into the headers), in include order."""
+    out = [CSRC / f"{name}.cu"]
+    for path in out:
+        for line in path.read_text().splitlines():
+            m = re.match(r'\s*#\s*include\s+"([^"]+)"', line)
+            if m and CSRC / m.group(1) not in out:
+                out.append(CSRC / m.group(1))
+    return out
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
+    """Where the library built from ``csrc/<name>.cu`` lives: named by a
+    hash of the source, the headers it includes and the flags."""
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources(name))
                             + " ".join(flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

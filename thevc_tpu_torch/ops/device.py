@@ -51,7 +51,11 @@ def stage(name: str, device: torch.device):
     """Add the wall of the block to ``STAGES[name]`` while stage timing
     is on, with the device synchronised before and after it (so work
     queued earlier is not charged to it, and its own work is).  A stage
-    inside another is charged to itself only.  Off, it does nothing."""
+    inside another is charged to itself only.  While timing is on the
+    block, its closing synchronisation included, is also a
+    ``torch.profiler`` range of the stage's name, so a profile taken then
+    can charge each device activity to the stage that launched it.  Off,
+    it does nothing."""
     if not _TIMING["on"]:
         yield
         return
@@ -60,10 +64,13 @@ def stage(name: str, device: torch.device):
     t0 = time.perf_counter()
     _OPEN.append(0.0)
     try:
-        yield
+        with torch.profiler.record_function(name):
+            try:
+                yield
+            finally:
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
     finally:
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
         wall = time.perf_counter() - t0
         inner = _OPEN.pop()
         STAGES[name] = STAGES.get(name, 0.0) + wall - inner

@@ -1,0 +1,287 @@
+"""Binding of the hand-written CUDA kernels of the P/B fast-RD decision
+pass's motion search (``csrc/inter_me.cu``).
+
+Three kernels, one entry each, one a stage of ``encoder/fast_inter.py``:
+
+- ``coarse_search`` (``thevc_coarse_search``): the quarter-resolution
+  full search of one list, every reference, offset and size class in one
+  launch -> per size class (dy, dx, ref), full pel.  It replaces
+  ``thevc_tpu/encoder/fast_inter.py:98`` ``_coarse_fields`` (the
+  ``lax.scan`` at :116-159).
+- ``int_refine`` (``thevc_int_refine``): the +-3 full-pel refinement of
+  one size class (SAD and the exp-Golomb prior of the median predictor)
+  -> the integer MV, full pel.  It replaces ``fast_inter.py:234-262``.
+- ``merge_model`` (``thevc_merge_model``): the AMVP-proxy MV bits, the RD
+  sum and the 3-candidate merge/skip model of one size class -> (rd, mvx,
+  mvy, ref).  It replaces ``fast_inter.py:367-428``; its interpolation is
+  the MC kernel's (``csrc/mc_common.cuh``).
+
+All three are bound by their operations; the designs are in the source's
+header comment.  Their plain PyTorch forms are
+``encoder.fast_inter.coarse_fields_plain``, ``int_refine_plain`` and
+``merge_model_plain``; every output equals them bit for bit.
+
+The kernels are compiled with ``nvcc`` on first use and bound with
+``ctypes`` (``ops.build``).  Every entry checks its inputs and raises
+before anything is built (``check_coarse``, ``check_refine``,
+``check_merge``); nothing here runs when the module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build as _build
+
+NAME = "inter_me"
+SIZES = (8, 16, 32, 64)
+MAX_REFS = 16
+# the quarter-res search range the coarse kernel's shared band holds: a
+# search range of 64 full pel
+MAX_RNG_Q = 16
+MAX_BIT_INC = 4
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_ENTRIES = {
+    "thevc_coarse_search": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
+    "thevc_int_refine": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
+                         _I, _P, _P, _P],
+    "thevc_merge_model": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I,
+                          _P, _P, _P, _P, _P],
+}
+
+# kernel launches made by each entry; plain integers that a run resets and
+# reads to show that its main path went through the kernels
+coarse_launches = 0
+refine_launches = 0
+merge_launches = 0
+
+
+def build() -> ctypes.CDLL:
+    """Compile (if not built yet) and load the kernel library."""
+    return _build.load(NAME, _ENTRIES)
+
+
+def _pointers(ts) -> ctypes.Array:
+    """A host array of the tensors' device pointers."""
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
+def _check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"the motion-search kernels take CUDA tensors, "
+                         f"{name} is on {t.device}")
+
+
+def _check_scalar(t: torch.Tensor, name: str, device) -> None:
+    """A float32 scalar the kernel reads on the device."""
+    if t.numel() != 1 or t.dtype != torch.float32 or t.device != device:
+        raise ValueError(f"{name} must be one float32 on {device}, got "
+                         f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_plane(t: torch.Tensor, name: str, rows: int, cols: int,
+                 device) -> None:
+    """An int16 [H, W] plane, contiguous, of at least rows x cols."""
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be [H, W], got {tuple(t.shape)}")
+    _build.check_tensor(t, name, torch.int16, tuple(t.shape), device)
+    if t.shape[0] < rows or t.shape[1] < cols:
+        raise ValueError(f"{name} {tuple(t.shape)} is smaller than the "
+                         f"blocks' {rows}x{cols}")
+
+
+def _check_stack(t: torch.Tensor, name: str, device) -> None:
+    if t.dim() != 3 or t.shape[0] < 1:
+        raise ValueError(f"{name} must be [P, H, W], got {tuple(t.shape)}")
+    _build.check_tensor(t, name, torch.int16, tuple(t.shape), device)
+
+
+def _check_grid(s: int, nby: int, nbx: int, bit_increment: int) -> None:
+    if s not in SIZES:
+        raise ValueError(f"size {s} not in {SIZES}")
+    if nby <= 0 or nbx <= 0:
+        raise ValueError(f"block grid {nby}x{nbx} is empty")
+    if not 0 <= bit_increment <= MAX_BIT_INC:
+        raise ValueError(f"bit increment {bit_increment} out of 0.."
+                         f"{MAX_BIT_INC}")
+
+
+def check_coarse(org_q: torch.Tensor, refs_q: list, rng_q: int,
+                 sqrt_lam: torch.Tensor, sizes: tuple) -> None:
+    """Raise on any input the coarse search does not take (but a device
+    that is not CUDA: the entry refuses that): the pooled source int16
+    [hq, wq], each reference's pooled band int16 [hq + 2 rng_q, wq + 2
+    rng_q], contiguous, 1..16 of them, rng_q at most 16 (a search range
+    of 64), the size classes a prefix of 8, 16, 32, 64 that tiles the
+    source."""
+    if not 0 <= rng_q <= MAX_RNG_Q:
+        raise ValueError(f"search range {4 * rng_q} (quarter-res "
+                         f"{rng_q}): the coarse kernel takes at most "
+                         f"{4 * MAX_RNG_Q}")
+    if not 1 <= len(refs_q) <= MAX_REFS:
+        raise ValueError(f"{len(refs_q)} references, 1..{MAX_REFS}")
+    sizes = tuple(sizes)
+    if not sizes or sizes != SIZES[:len(sizes)]:
+        raise ValueError(f"size classes {sizes}: a prefix of {SIZES}")
+    if org_q.dim() != 2:
+        raise ValueError(f"org_q must be [hq, wq], got {tuple(org_q.shape)}")
+    dev = org_q.device
+    hq, wq = (int(v) for v in org_q.shape)
+    _build.check_tensor(org_q, "org_q", torch.int16, (hq, wq), dev)
+    top = sizes[-1] // 4
+    if hq % top or wq % top or hq == 0 or wq == 0:
+        raise ValueError(f"org_q {hq}x{wq} is not a grid of {sizes[-1]} "
+                         "blocks")
+    for r, ref in enumerate(refs_q):
+        _build.check_tensor(ref, f"refs_q[{r}]", torch.int16,
+                            (hq + 2 * rng_q, wq + 2 * rng_q), dev)
+    _check_scalar(sqrt_lam, "sqrt_lam", dev)
+
+
+def coarse_search(org_q: torch.Tensor, refs_q: list, rng_q: int,
+                  sqrt_lam: torch.Tensor, sizes: tuple) -> dict:
+    """Launch the coarse search of one list: the pooled source int16
+    [hq, wq], the references' pooled bands, the motion sqrt-lambda (a
+    float32 on the card) -> per size s of ``sizes`` (dy, dx, ref), int64
+    [hq * 4 // s, wq * 4 // s] each, dy and dx in full pel."""
+    global coarse_launches
+    _check_cuda(org_q, "org_q")
+    check_coarse(org_q, refs_q, rng_q, sqrt_lam, sizes)
+    hq, wq = (int(v) for v in org_q.shape)
+    dev = org_q.device
+    outs = {s: torch.empty((3, hq * 4 // s, wq * 4 // s), dtype=torch.int64,
+                           device=dev) for s in sizes}
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = lib.thevc_coarse_search(
+            org_q.data_ptr(), hq, wq, _pointers(refs_q), len(refs_q), rng_q,
+            sqrt_lam.data_ptr(), _pointers(list(outs.values())), len(outs),
+            _build.stream_of(dev))
+    _build.check(lib, rc, "coarse search kernel launch")
+    coarse_launches += 1
+    return {s: tuple(o) for s, o in outs.items()}
+
+
+def check_refine(org: torch.Tensor, refs_y: torch.Tensor, coarse: tuple,
+                 s: int, nby: int, nbx: int, sqrt_lam: torch.Tensor,
+                 bit_increment: int) -> None:
+    """Raise on any input the integer refinement does not take (but a
+    device that is not CUDA): the source plane int16 [>= nby s, >= nbx s],
+    the padded reference stack int16 [P, H, W], the coarse field (dy, dx,
+    ref) int64 [nby, nbx] each, contiguous."""
+    _check_grid(s, nby, nbx, bit_increment)
+    dev = org.device
+    _check_plane(org, "org", nby * s, nbx * s, dev)
+    _check_stack(refs_y, "refs_y", dev)
+    if len(coarse) != 3:
+        raise ValueError("coarse must be (dy, dx, ref)")
+    for name, t in zip(("dy", "dx", "ref"), coarse):
+        _build.check_tensor(t, f"coarse {name}", torch.int64, (nby, nbx),
+                            dev)
+    _check_scalar(sqrt_lam, "sqrt_lam", dev)
+
+
+def int_refine(org: torch.Tensor, refs_y: torch.Tensor, coarse: tuple,
+               s: int, nby: int, nbx: int, sqrt_lam: torch.Tensor,
+               bit_increment: int, pad: int) -> tuple:
+    """Launch the integer refinement of one size class: the source plane,
+    the references' luma planes padded by ``pad``, the coarse field (dy,
+    dx, ref) -> (int_mx, int_my), int64 [nby * nbx], full pel."""
+    global refine_launches
+    _check_cuda(org, "org")
+    check_refine(org, refs_y, coarse, s, nby, nbx, sqrt_lam, bit_increment)
+    dev = org.device
+    nb = nby * nbx
+    out = torch.empty((2, nb), dtype=torch.int64, device=dev)
+    c_dy, c_dx, c_ref = coarse
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = lib.thevc_int_refine(
+            org.data_ptr(), int(org.shape[1]), refs_y.data_ptr(),
+            int(refs_y.shape[1]), int(refs_y.shape[2]), c_dy.data_ptr(),
+            c_dx.data_ptr(), c_ref.data_ptr(), s, nby, nbx,
+            sqrt_lam.data_ptr(), bit_increment, pad, out[0].data_ptr(),
+            out[1].data_ptr(), _build.stream_of(dev))
+    _build.check(lib, rc, "integer refinement kernel launch")
+    refine_launches += 1
+    return out[0], out[1]
+
+
+def check_merge(orgs: tuple, refs_y: torch.Tensor, refs_c: torch.Tensor,
+                s: int, nby: int, nbx: int, rd_terms: tuple,
+                winner: tuple, lam: torch.Tensor, cw: torch.Tensor,
+                bit_increment: int) -> None:
+    """Raise on any input the merge model does not take (but a device
+    that is not CUDA): the source planes (luma int16 [>= nby s, >= nbx s],
+    Cb and Cr int16 of one shape [>= nby s/2, >= nbx s/2]), the stacks of
+    the references' luma planes [P, H, W] and of their Cb then Cr planes
+    [2P, Hc, Wc], the transform-RD estimates (d_y, b_y, d_cb, b_cb, d_cr,
+    b_cr: int32 dist, float32 bits, [nb] each), the winner (mvx, mvy, ref:
+    int32 [nb] each), contiguous."""
+    _check_grid(s, nby, nbx, bit_increment)
+    nb = nby * nbx
+    dev = orgs[0].device
+    if len(orgs) != 3:
+        raise ValueError("orgs must be (luma, Cb, Cr)")
+    _check_plane(orgs[0], "org", nby * s, nbx * s, dev)
+    for name, t in zip(("org_cb", "org_cr"), orgs[1:]):
+        _check_plane(t, name, nby * s // 2, nbx * s // 2, dev)
+    if orgs[1].shape != orgs[2].shape:
+        raise ValueError("the Cb and Cr source planes differ in shape")
+    _check_stack(refs_y, "refs_y", dev)
+    _check_stack(refs_c, "refs_c", dev)
+    if refs_c.shape[0] != 2 * refs_y.shape[0]:
+        raise ValueError(f"refs_c holds {refs_c.shape[0]} planes for "
+                         f"{refs_y.shape[0]} references (Cb, then Cr)")
+    if len(rd_terms) != 6:
+        raise ValueError("rd_terms must be (d_y, b_y, d_cb, b_cb, d_cr, "
+                         "b_cr)")
+    for k, t in enumerate(rd_terms):
+        _build.check_tensor(t, f"rd_terms[{k}]",
+                            torch.float32 if k % 2 else torch.int32, (nb,),
+                            dev)
+    if len(winner) != 3:
+        raise ValueError("winner must be (mvx, mvy, ref)")
+    for name, t in zip(("mvx", "mvy", "ref"), winner):
+        _build.check_tensor(t, name, torch.int32, (nb,), dev)
+    _check_scalar(lam, "lam", dev)
+    _check_scalar(cw, "cw", dev)
+
+
+def merge_model(orgs: tuple, refs_y: torch.Tensor, refs_c: torch.Tensor,
+                s: int, nby: int, nbx: int, rd_terms: tuple, winner: tuple,
+                lam: torch.Tensor, cw: torch.Tensor, bit_increment: int,
+                pad_y: int, pad_c: int) -> tuple:
+    """Launch the merge/skip model of one size class: the source planes,
+    the references' planes padded by ``pad_y`` (luma) and ``pad_c``
+    (chroma), the winner's transform-RD estimates and MV (quarter pel)
+    and reference, lambda and the chroma weight (float32 on the card) ->
+    (rd float32, mvx, mvy, ref int32), each [nby, nbx]."""
+    global merge_launches
+    _check_cuda(orgs[0], "org")
+    check_merge(orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, cw,
+                bit_increment)
+    dev = orgs[0].device
+    rd = torch.empty((nby, nbx), dtype=torch.float32, device=dev)
+    out = torch.empty((3, nby, nbx), dtype=torch.int32, device=dev)
+    d_y, b_y, d_cb, b_cb, d_cr, b_cr = rd_terms
+    mvx, mvy, ref = winner
+    lib = build()
+    with torch.cuda.device(dev):
+        rc = lib.thevc_merge_model(
+            _pointers(orgs), int(orgs[0].shape[1]), int(orgs[1].shape[1]),
+            refs_y.data_ptr(), int(refs_y.shape[0]), int(refs_y.shape[1]),
+            int(refs_y.shape[2]), refs_c.data_ptr(), int(refs_c.shape[1]),
+            int(refs_c.shape[2]), _pointers((d_y, d_cb, d_cr)),
+            _pointers((b_y, b_cb, b_cr)), mvx.data_ptr(), mvy.data_ptr(),
+            ref.data_ptr(), lam.data_ptr(), cw.data_ptr(), s, nby, nbx,
+            bit_increment, pad_y, pad_c, rd.data_ptr(), out[0].data_ptr(),
+            out[1].data_ptr(), out[2].data_ptr(), _build.stream_of(dev))
+    _build.check(lib, rc, "merge model kernel launch")
+    merge_launches += 1
+    return rd, out[0], out[1], out[2]

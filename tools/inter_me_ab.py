@@ -1,0 +1,156 @@
+"""The P/B decision pass of one 1080p B frame, checkout against checkout,
+on one card: walls, and per stage its wall, device time and device
+activities.
+
+In each given checkout, with that checkout's ``chip_smoke.py`` helpers
+and port, encodes the first 4 frames of the 1080p motion clip with the
+low-delay B cfg at QP 32 (``recorded_b_call``, as ``chip_smoke.py``
+replays it) and runs the last B frame's recorded
+``fast_inter.decide_frame_p`` call again on ``cuda``: a warm-up, three
+synchronised walls, then one call with stage timing on under
+``torch.profiler`` (``stage_profile`` of this tool's own
+``chip_smoke.py``, which charges each device activity to the
+``fast_inter.*`` stage that launched it).  A checkout whose stages open
+no profiler range gets them here.  Each checkout runs in a child process
+of its own, one after another in the order given; give the parent and
+the change in turns to compare them on one card:
+
+    python tools/inter_me_ab.py PARENT CHANGE CHANGE PARENT
+
+Each child builds its checkout's kernels and native core at first use
+(in the checkout's ``build/``, where it also writes its clip).  Prints
+the card's name and power limit and one ``inter_me_ab <turn> <checkout>
+{...}`` line a turn, then ``inter_me_ab_summary``: per checkout the
+least of its turns (walls, device time, and each stage's wall, device
+time, activities and largest device items).  With ``--log PATH`` it appends the lines to that
+JSON-lines file.  Exits nonzero when a child fails.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+SMOKE = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+CHILD = """
+import contextlib, importlib.util, json, sys
+from pathlib import Path
+import torch
+import chip_smoke as c
+from thevc_tpu_torch.encoder import fast_inter, fast_intra
+if not torch.cuda.is_available():
+    sys.exit("no CUDA card")
+spec = importlib.util.spec_from_file_location("inter_me_ab_smoke", SMOKE)
+tool = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(tool)
+
+
+def ranged(stage):
+    @contextlib.contextmanager
+    def ranged_stage(name, device):
+        with torch.profiler.record_function(name), stage(name, device):
+            yield
+    return ranged_stage
+
+
+for mod in (fast_inter, fast_intra):
+    if hasattr(mod, "stage"):
+        mod.stage = ranged(mod.stage)
+work = Path("build") / "inter_me_ab"
+work.mkdir(parents=True, exist_ok=True)
+motion = work / f"motion_{c.WIDTH}x{c.HEIGHT}_{c.FRAMES}f.yuv"
+c.make_clip(motion, c.WIDTH, c.HEIGHT, c.FRAMES, "motion")
+print("gpu " + c.gpu_line(), flush=True)
+args, refs1 = c.recorded_b_call(motion, work)
+cache = fast_inter.RefCache()
+
+
+def run():
+    return fast_inter.decide_frame_p(*args, ref_pics_l1=refs1,
+                                     device="cuda", ref_cache=cache)
+
+
+run()
+walls = []
+for _ in range(3):
+    torch.cuda.synchronize()
+    t = tool.time.perf_counter()
+    run()
+    walls.append(1000 * (tool.time.perf_counter() - t))
+out = tool.stage_profile(torch, run)
+out.update(profiled_wall_ms=out.pop("wall_ms"), wall_ms=walls)
+print("inter_me_ab " + json.dumps(out), flush=True)
+"""
+KEEP = ("gpu ", "inter_me_ab ")
+
+
+def summary(results: list) -> dict:
+    """Per checkout the least of its turns: the median wall, the
+    profiled call's device time and activities, and each stage's wall,
+    device time and activities (its largest device items as in its first
+    turn)."""
+    best: dict = {}
+    for checkout, res in results:
+        mine = best.setdefault(checkout, {})
+        cur = dict(median_wall_ms=sorted(res["wall_ms"])[1],
+                   device_ms=res["device_ms"],
+                   activities=res["activities"])
+        for k, v in cur.items():
+            mine[k] = min(mine.get(k, v), v)
+        stages = mine.setdefault("stages", {})
+        for name, row in res["stages"].items():
+            s = stages.setdefault(name, dict(row))
+            for k, v in row.items():
+                if isinstance(v, (int, float)):
+                    s[k] = min(s[k], v)
+    return best
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("checkouts", nargs="+", type=Path)
+    ap.add_argument("--timeout", type=float, default=900.0,
+                    help="seconds a child may take")
+    ap.add_argument("--log", type=Path,
+                    help="append the kept lines to this JSON-lines file")
+    args = ap.parse_args(argv)
+    child = f"SMOKE = {str(SMOKE)!r}\n" + CHILD
+    failed = 0
+    results = []
+    lines = []
+    for turn, checkout in enumerate(args.checkouts):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", child],
+                           cwd=checkout.resolve(), capture_output=True,
+                           text=True, timeout=args.timeout)
+        head = f"inter_me_ab {turn} {checkout}"
+        print(f"{head} rc={r.returncode} "
+              f"wall_s={time.perf_counter() - t:.1f}", flush=True)
+        for line in r.stdout.splitlines():
+            if line.startswith(KEEP):
+                print(f"{head} {line}", flush=True)
+                lines.append({"turn": turn, "checkout": str(checkout),
+                              "line": line})
+            if line.startswith("inter_me_ab "):
+                results.append((str(checkout),
+                                json.loads(line.split(" ", 1)[1])))
+        if r.returncode:
+            failed += 1
+            print(r.stdout[-3000:] + r.stderr[-3000:], flush=True)
+    line = "inter_me_ab_summary " + json.dumps(summary(results))
+    print(line, flush=True)
+    lines.append({"line": line})
+    if args.log:
+        args.log.parent.mkdir(parents=True, exist_ok=True)
+        with open(args.log, "a") as log:
+            for entry in lines:
+                log.write(json.dumps(entry) + "\n")
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
