@@ -15,7 +15,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    -sass``, where the toolkit has it: in all, the tensor-core, shuffle,
    shared-memory and float instructions, and the count over the samples
    or coefficients a thread takes in one pass of the code) as one
-   ``intra_rd_build`` line.
+   ``intra_rd_build`` line; the same for the motion-search kernels
+   (``csrc/inter_me.cu``) as one ``inter_me_build`` line, with each
+   instance's three longest loops in SASS instructions.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -179,7 +181,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    timed: eager, a CUDA graph of 20, the plain form, beside its bound
    (``inter_me_bound``: the inputs read once, the outputs written once,
    the distinct reference samples the windows read; the differences,
-   filter taps and costs at the int32 rate), one ``kernel
+   filter taps and costs at the int32 rate; the coarse search also
+   beside its design's own floor, ``coarse_floor_ms``), one ``kernel
    coarse_search`` / ``int_refine`` / ``merge_model`` line of each
    entry's calls summed, with its launches in the pass; then the same frame as 10 bits (samples << 2,
    QPs + 12): the kernel and plain routes' maps equal and each
@@ -2199,6 +2202,21 @@ def inter_me_bound(torch, name: str, a) -> tuple:
     return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
 
 
+def coarse_floor_ms(a) -> float:
+    """The least time the coarse kernel's own design can take for a
+    call: per reference, offset and pooled sample two float instructions
+    (a subtraction, an add of the absolute value: the absolute value is
+    an operand modifier of the add), per block cost the bound's four, at
+    the float pipe's instruction rate (FP32_OPS / 2: a lane an add a
+    clock).  Below ``inter_me_bound``'s count of three a sample."""
+    org_q, refs_q, rng_q, _sl, sizes = a
+    hq, wq = (int(v) for v in org_q.shape)
+    n_off = 2 * rng_q + 1
+    blocks = sum((hq * 4 // s) * (wq * 4 // s) for s in sizes)
+    ops = len(refs_q) * n_off * n_off * (2 * hq * wq + 4 * blocks)
+    return 1000 * ops / (FP32_OPS / 2)
+
+
 def held_inter_me_calls(torch, calls: dict, tag: str,
                         launches: dict) -> tuple:
     """Each recorded motion-search kernel call against its plain form on
@@ -2236,6 +2254,8 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
                 graph_ms=graph_ms(torch, lambda: kernel(*a), 20),
                 plain_ms=time_ms(torch, plain, 3), bytes=nbytes, ops=ops,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
+            if name == "coarse_search":
+                rows[-1]["floor_ms"] = coarse_floor_ms(a)
         if not rows:
             continue
         row = {k: sum(r[k] for r in rows) for k in (
@@ -2248,6 +2268,9 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
             share_of_bound=row["bound_ms"] / row["ms"],
             graph_share_of_bound=row["bound_ms"] / row["graph_ms"],
             per_call_graph_ms=[r["graph_ms"] for r in rows])
+        if name == "coarse_search":
+            row["floor_ms"] = sum(r["floor_ms"] for r in rows)
+            row["graph_share_of_floor"] = row["floor_ms"] / row["graph_ms"]
         sums[name] = row
         print(f"kernel {name} " + json.dumps(row))
     return max_err, sums
@@ -3621,21 +3644,27 @@ def sum_rows(rows: list) -> dict:
 
 def build_report(lib: Path) -> dict:
     """Per kernel instance of a built library of the intra decision
-    kernels: registers, spill stores and loads and shared memory (its
-    ptxas log) and, where ``cuobjdump`` is in the toolkit, its SASS
-    instructions in all and by kind, and per sample: a sweep's main loop
-    (its longest backward branch) over the samples a thread predicts in
-    one turn of it (16, two modes a step), a TU-RD kernel's instructions
-    over the coefficients a thread takes (8, 32 at 32x32; a quadrant loop
-    counted once)."""
+    kernels or of the motion-search kernels: registers, spill stores and
+    loads and shared memory (its ptxas log) and, where ``cuobjdump`` is
+    in the toolkit, its SASS instructions in all and by kind, and its
+    loops' lengths (``sass_loops``: the instructions between each
+    backward branch and its target, the three longest); per sample: a
+    sweep's main loop (its longest backward branch) over the samples a
+    thread predicts in one turn of it (16, two modes a step), a TU-RD
+    kernel's instructions over the coefficients a thread takes (8, 32 at
+    32x32; a quadrant loop counted once)."""
     import re
     import shutil
-    names = {"sweep_kernel": "sweep", "tu_rd_kernel": "tu_rd"}
+    names = {"sweep_kernel": "sweep", "tu_rd_kernel": "tu_rd",
+             "coarse_kernel": "coarse", "int_refine_kernel": "int_refine",
+             "merge_model_kernel": "merge_model"}
 
     def short(mangled):
         for key, label in names.items():
-            m = re.search(key + r"I((?:Li-?\d+E)+)E", mangled)
+            m = re.search(key + r"(?:I((?:Li-?\d+E)+)E)?", mangled)
             if m:
+                if not m.group(1):
+                    return label
                 args = re.findall(r"Li(-?\d+)E", m.group(1))
                 return label + "<" + ",".join(args) + ">"
         return None
@@ -3683,14 +3712,16 @@ def build_report(lib: Path) -> dict:
         for kind, prefixes in kinds.items():
             info[f"sass_{kind}"] = sum(o.startswith(prefixes)
                                        for _, o, _ in ins)
-        size = int(label.split("<")[1].split(",")[0].rstrip(">"))
+        spans = sorted((sum(1 for a, _, _ in ins if int(t, 16) <= a <= addr)
+                        for addr, o, t in ins
+                        if o == "BRA" and t and int(t, 16) < addr),
+                       reverse=True)
+        info["sass_loops"] = spans[:3]
         if label.startswith("sweep"):
-            spans = [sum(1 for a, _, _ in ins if int(t, 16) <= a <= addr)
-                     for addr, o, t in ins
-                     if o == "BRA" and t and int(t, 16) < addr]
-            info["sass_loop"] = max(spans, default=len(ins))
+            info["sass_loop"] = spans[0] if spans else len(ins)
             info["sass_per_sample"] = info["sass_loop"] / 16
-        else:
+        elif label.startswith("tu_rd"):
+            size = int(label.split("<")[1].split(",")[0].rstrip(">"))
             info["sass_per_sample"] = len(ins) / (32 if size == 32 else 8)
     return out
 
@@ -3731,6 +3762,8 @@ def main() -> int:
               .strip())
     print("intra_rd_build " + json.dumps(
         build_report(build.library_path(intra_rd_kernel.NAME))))
+    print("inter_me_build " + json.dumps(
+        build_report(build.library_path(inter_me_kernel.NAME))))
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)

@@ -31,6 +31,8 @@ import jax.numpy as jnp
 from thevc_tpu.encoder import fast_inter as ref
 from thevc_tpu.ops.jx_mc import mc_batch as jax_mc_batch
 from thevc_tpu_torch.encoder import fast_inter as port
+from tests.test_torch_inter_me_kernel import (coinciding_winners,
+                                              periodic_bands)
 
 # one intra-op thread: the test workers share the host's cores
 torch.set_num_threads(1)
@@ -157,6 +159,29 @@ def test_coarse_flat_planes_take_the_first_offset(flat):
         dy, dx, r = got[s]
         assert (dy == -4 * rng_q).all() and (dx == -4 * rng_q).all()
         assert (r == 0).all()
+
+
+@pytest.mark.parametrize("sqrt_lam", [0.0, SQRT_LAM])
+@pytest.mark.parametrize("planted", [{0: (5, 7), 1: (-5, 7)}, {1: (5, -7)}],
+                         ids=["both", "second"])
+def test_coarse_fields_plain_equal_costs_take_the_first(sqrt_lam, planted):
+    """Offsets of equal cost in one reference and in two (rows and
+    columns far apart, as the kernel splits them): the plain form picks
+    the JAX package's winner, the first of them in (reference, row,
+    column) order: with a zero lambda every SAD-0 offset ties, across
+    references too; with a lambda the four at (+-5, +-7) tie on their
+    bits and reference 0's bits are cheaper."""
+    rng_q = 16
+    org_q, bands = periodic_bands(7, H // 4, W // 4, rng_q, N_REFS, planted)
+    want = jax_coarse(org_q, bands, rng_q, sqrt_lam)
+    got = port_coarse(org_q, bands, rng_q, sqrt_lam)
+    for s in port.INTER_SIZES:
+        for a, b in zip(want[s], got[s]):
+            np.testing.assert_array_equal(a, b, err_msg=f"size {s}")
+        dy, dx, r = got[s]
+        assert (r == min(planted)).all()
+        assert (dx == -28).all()
+        assert (dy == (-20 if sqrt_lam else -60)).all()
 
 
 def _block_coords(s, nby, nbx):
@@ -414,6 +439,24 @@ def test_merge_model_plain_equals_jax(planes, s):
                                                  != winner[1])
     print(f"size {s}: {int(moved.sum())} of {moved.size} blocks take skip "
           "with another MV")
+
+
+@pytest.mark.parametrize("s", port.INTER_SIZES)
+def test_merge_model_plain_coinciding_candidates_equal_jax(planes, s):
+    """Left, above and zero candidates that coincide (the kernel prices
+    each distinct one once): winners and references exact, RD costs
+    within rtol 1e-6, as in ``test_merge_model_plain_equals_jax``."""
+    rng = np.random.RandomState(300 + s)
+    rd_terms, _ = random_merge_inputs(rng, planes, s)
+    winner = coinciding_winners(rng, H // s, W // s, N_REFS)
+    nbx = W // s
+    left = np.concatenate([[False], (winner[0][1:] == winner[0][:-1])
+                           & (winner[1][1:] == winner[1][:-1])
+                           & (winner[2][1:] == winner[2][:-1])])
+    left[::nbx] = False
+    assert left.any()
+    want, got = both_merge(planes, s, rd_terms, winner, LAM, CW)
+    check_merge(want, got)
 
 
 def test_merge_model_flat_ties_take_the_left_candidate(flat):

@@ -13,10 +13,15 @@ bits, every size class, P (one reference) and B-like lists (two and
 three), search ranges 16, 32 and 64, partial coarse tiles, coarse
 fields and winners that reach past the picture into the padding, flat
 planes with a zero lambda (every candidate ties), the 10-bit 64x64 SSE
-that wraps in int32; a whole P and B decision pass on ``cuda`` equals
-the CPU's, through one coarse launch a list and one refinement and one
-merge launch a size class and list; and each entry replays in a CUDA
-graph.  Run on the GPU machine with
+that wraps in int32; ties planted across the coarse kernel's split of
+the work (references, dy items, dx runs; 1 and 16 references), search
+ranges 0, 1 and 16, pooled planes that are not whole tiles; merge grids
+whose blocks do not fill the last team or CTA, and winners whose left,
+above and zero candidates coincide (out-of-grid zeros too); the
+entries' refusals of CUDA tensors; a whole P and B decision pass on
+``cuda`` equals the CPU's, through one coarse launch a list and one
+refinement and one merge launch a size class and list; and each entry
+replays in a CUDA graph.  Run on the GPU machine with
 ``python -m pytest tests/test_torch_inter_me_kernel.py -m gpu``.
 """
 
@@ -287,6 +292,64 @@ def test_library_path_hashes_included_headers(tmp_path, monkeypatch):
     assert build.library_path("k") != before
 
 
+def test_coarse_outputs_lay_the_classes_out_in_one_buffer():
+    """The coarse entry's outputs: one int64 buffer, class after class,
+    each class's (dy, dx, ref) planes [3, hq * 4 / s, wq * 4 / s] where
+    the kernel writes them (3 * the blocks of the classes before)."""
+    hq, wq = 48, 80
+    for sizes in (SIZES, (8, 16, 32), (8,)):
+        outs = kern.coarse_outputs(hq, wq, sizes, torch.device("cpu"))
+        assert tuple(outs) == sizes
+        base = outs[sizes[0]].data_ptr()
+        at = 0
+        for s in sizes:
+            o = outs[s]
+            assert o.dtype == torch.int64 and o.is_contiguous()
+            assert tuple(o.shape) == (3, hq * 4 // s, wq * 4 // s)
+            assert o.data_ptr() == base + 8 * at
+            at += 3 * (hq * 4 // s) * (wq * 4 // s)
+        assert outs[sizes[0]].untyped_storage().nbytes() == 8 * at
+
+
+def test_merge_check_raises_at_the_first_bad_input():
+    """The merge entry's checks run once, in order, and the first input
+    that fails names itself: with rd_terms short and the winner of the
+    wrong dtype, rd_terms; with the winner alone bad, the winner; good
+    inputs pass."""
+    a = _merge_inputs()
+    kern.check_merge(*a)
+    b = list(a)
+    b[7] = tuple(t.long() for t in a[7])
+    with pytest.raises(TypeError, match="mvx has dtype"):
+        kern.check_merge(*b)
+    b[6] = a[6][:5]
+    with pytest.raises(ValueError, match="rd_terms"):
+        kern.check_merge(*b)
+
+
+def periodic_bands(seed: int, hq: int, wq: int, rng_q: int, n_refs: int,
+                   planted: dict) -> tuple:
+    """A pooled source that repeats every (10, 14) samples and its
+    references' pooled bands: reference r of ``planted`` repeats it at
+    phase (py, px), so that its offsets (rng + py + 10 a, rng + px + 14 b)
+    cost a SAD of 0 (at +-py, +-px the MV bits tie too); the others are
+    noise.  numpy int16."""
+    rng = np.random.RandomState(seed)
+    f = rng.randint(0, 1024, (10, 14))
+    y, x = np.mgrid[0:hq, 0:wq]
+    org = f[y % 10, x % 14].astype(np.int16)
+    by, bx = np.mgrid[0:hq + 2 * rng_q, 0:wq + 2 * rng_q]
+    bands = []
+    for r in range(n_refs):
+        if r in planted:
+            py, px = planted[r]
+            bands.append(f[(by - rng_q - py) % 10, (bx - rng_q - px) % 14]
+                         .astype(np.int16))
+        else:
+            bands.append(rng.randint(0, 1024, by.shape).astype(np.int16))
+    return org, bands
+
+
 # ---- on the card ------------------------------------------------------
 
 
@@ -339,6 +402,78 @@ def test_coarse_search_flat_ties_take_the_first_offset(cuda):
         assert_same(got[s], want[s])
         dy, dx, r = got[s]
         assert (dy == -64).all() and (dx == -64).all() and (r == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sqrt_lam", [0.0, SQRT_LAM])
+@pytest.mark.parametrize("n_refs", [1, 2, 16])
+def test_coarse_search_planted_ties(cuda, sqrt_lam, n_refs):
+    """Offsets of equal cost in different dy items (slots), dx runs (of
+    12) and references: the least (cost, code) wins, as the plain form's
+    first minimum.  With a zero lambda every planted offset ties, across
+    references too; with a lambda the four at (+-5, +-7) tie on their
+    bits, the first (-5, -7) wins."""
+    rng_q = 16
+    planted = {0: (5, 7)} if n_refs == 1 else {
+        n_refs // 2 - 1: (5, 7), n_refs - 1: (-5, 7)}
+    org, bands = periodic_bands(n_refs, 48, 64, rng_q, n_refs, planted)
+    org_q = torch.from_numpy(org).to(cuda)
+    bands = [torch.from_numpy(b).to(cuda) for b in bands]
+    sl = scalar(cuda, sqrt_lam)
+    got = kern.coarse_search(org_q, bands, rng_q, sl, SIZES)
+    want = fast_inter.coarse_fields_plain(org_q, bands, rng_q, 48, 64, sl,
+                                          64)
+    torch.cuda.synchronize()
+    first = min(planted)
+    for s in SIZES:
+        assert_same(got[s], want[s])
+        dy, dx, r = got[s]
+        assert (r == first).all()
+        if sqrt_lam:
+            assert (dy == -20).all() and (dx == -28).all()
+        else:
+            assert (dy == -4 * 15).all() and (dx == -28).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rng_q", [0, 1, 16])
+@pytest.mark.parametrize("n_refs", [1, 16])
+def test_coarse_search_ranges_and_references(cuda, rng_q, n_refs):
+    """Search ranges 0 (one offset), 4 and 64 full pel, 1 and 16
+    references (eight pairs of bands through shared memory)."""
+    p = on(cuda, make_planes(rng_q + n_refs, 64, 128, n_refs, 0))
+    org_q, bands = quarter(p, rng_q)
+    sl = scalar(cuda, SQRT_LAM)
+    got = kern.coarse_search(org_q, bands, rng_q, sl, SIZES)
+    want = fast_inter.coarse_fields_plain(org_q, bands, rng_q,
+                                          *org_q.shape, sl, 64)
+    torch.cuda.synchronize()
+    for s in SIZES:
+        assert_same(got[s], want[s])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ctu,hq,wq", [(32, 8, 24), (32, 40, 56),
+                                       (16, 12, 20), (16, 4, 36)])
+def test_coarse_search_ragged_pooled_planes(cuda, ctu, hq, wq):
+    """Pooled planes that are not whole 16x16 tiles: the last tile row
+    and column hold cells outside the picture, whose blocks are never
+    written."""
+    rng = np.random.RandomState(hq * wq)
+    rng_q = 16
+    org_q = torch.from_numpy(rng.randint(0, 256, (hq, wq))
+                             .astype(np.int16)).to(cuda)
+    bands = [torch.from_numpy(rng.randint(0, 256, (hq + 2 * rng_q,
+                                                   wq + 2 * rng_q))
+                              .astype(np.int16)).to(cuda) for _ in range(2)]
+    sl = scalar(cuda, SQRT_LAM)
+    got = fast_inter._coarse_fields(org_q, bands, rng_q, hq, wq, sl, ctu)
+    want = fast_inter.coarse_fields_plain(org_q, bands, rng_q, hq, wq, sl,
+                                          ctu)
+    torch.cuda.synchronize()
+    assert sorted(got) == list(sizes_of(ctu))
+    for s in got:
+        assert_same(got[s], want[s])
 
 
 @pytest.mark.gpu
@@ -426,6 +561,83 @@ def test_merge_model_10bit_64_sse_wraps(cuda):
     rd_terms, winner = random_merge_inputs(np.random.RandomState(4), cuda,
                                            p, 64, 2)
     _merge_both(cuda, p, 64, rd_terms, winner, LAM, CW)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,h,w", [(8, 40, 56), (16, 48, 80),
+                                   (32, 96, 160), (64, 64, 192)])
+def test_merge_model_ragged_grids(cuda, s, h, w):
+    """Block counts that do not fill the last team or CTA: 35 blocks of 8
+    (16 a CTA, 4 a warp), 15 of 16 (4 a CTA), 15 of 32 (2 a CTA), 3 of
+    64."""
+    p = on(cuda, make_planes(s + h, h, w, 2, 0))
+    rd_terms, winner = random_merge_inputs(np.random.RandomState(h), cuda,
+                                           p, s, 2)
+    before = kern.merge_launches
+    _merge_both(cuda, p, s, rd_terms, winner, LAM, CW)
+    assert kern.merge_launches == before + 1
+
+
+def coinciding_winners(rng, nby: int, nbx: int, n_refs: int) -> tuple:
+    """Winners drawn from four MVs, the zero MV with reference 0 among
+    them, so that a block's left, above and zero candidates often share
+    MV and reference, in every combination (out-of-grid ones are zero;
+    blocks 0 and 1 take the zero MV, so that block 1's three coincide).
+    numpy int32 (mvx, mvy, ref) [nby * nbx]."""
+    pick = rng.randint(0, 4, nby * nbx)
+    pick[:2] = 0
+    return tuple(np.array(v)[pick].astype(np.int32)
+                 for v in ([0, 0, 9, -6], [0, 0, -3, 5],
+                           [0, min(1, n_refs - 1), 0, n_refs - 1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bit_inc", [0, 2])
+@pytest.mark.parametrize("s", SIZES)
+def test_merge_model_coinciding_candidates(cuda, bit_inc, s):
+    """Left, above and zero candidates equal in every combination (each
+    distinct one predicted once, its SSE reused): kernel == plain."""
+    p = on(cuda, make_planes(7 * s + bit_inc, 128, 192, 2, bit_inc))
+    nby, nbx = 128 // s, 192 // s
+    rd_terms, _ = random_merge_inputs(np.random.RandomState(s), cuda, p, s,
+                                      2)
+    winner = tuple(torch.from_numpy(v).to(cuda) for v in coinciding_winners(
+        np.random.RandomState(s + 1), nby, nbx, 2))
+    got = _merge_both(cuda, p, s, rd_terms, winner, LAM, CW)
+    # block 1's candidates and winner are all the zero MV
+    assert int(got[1].reshape(-1)[1]) == int(got[2].reshape(-1)[1]) == 0
+
+
+@pytest.mark.gpu
+def test_merge_refusals_on_the_card(cuda):
+    """On CUDA tensors the checks take good inputs and refuse each bad
+    one with its own error."""
+    a = [tuple(t.to(cuda) for t in v) if isinstance(v, tuple)
+         else v.to(cuda) if isinstance(v, torch.Tensor) else v
+         for v in _merge_inputs()]
+    kern.check_merge(*a)
+    d0 = a[6][0]
+    strided = torch.zeros(2 * d0.numel(), dtype=torch.int32,
+                          device=cuda)[::2]
+    cases = [(6, (d0.to(torch.int64),) + a[6][1:], TypeError, "dtype"),
+             (6, (d0[:-1],) + a[6][1:], ValueError, "shape"),
+             (6, (strided,) + a[6][1:], ValueError, "contiguous"),
+             (6, (d0.cpu(),) + a[6][1:], ValueError, "is on cpu"),
+             (6, a[6][:5], ValueError, "rd_terms"),
+             (7, a[7][:2] + (strided,), ValueError, "contiguous"),
+             (7, a[7][:2] + (d0[:-1],), ValueError, "shape"),
+             (0, (a[0][0].to(torch.int32),) + a[0][1:], TypeError, "dtype"),
+             (0, (a[0][0][:, :64],) + a[0][1:], ValueError, "contiguous"),
+             (0, (a[0][0][:32],) + a[0][1:], ValueError, "smaller"),
+             (2, a[2][:3], ValueError, "Cb, then Cr"),
+             (8, a[8].double(), ValueError, "lam"),
+             (10, 5, ValueError, "bit increment"),
+             (3, 12, ValueError, "size 12")]
+    for k, bad, err, match in cases:
+        b = list(a)
+        b[k] = bad
+        with pytest.raises(err, match=match):
+            kern.check_merge(*b)
 
 
 @pytest.mark.gpu

@@ -27,18 +27,32 @@
 // the SAD over the block's (s/4)^2 pooled samples; the winner is the least
 // (cost, code), code = (r * n_off + dy) * n_off + dx, which is what the
 // plain form's first minimum within a chunk and strict < across chunks
-// and references pick.  A CTA owns a 16x16 tile of the pooled source (one
-// 64x64 luma block) and its (16 + 2 rng)^2 band of each reference in
-// shared memory; a warp takes every eighth offset; lane (cy, cx) holds the
-// 2x2-sample cells (cy, cx) and (cy + 4, cx) of the tile's 8x8 cells, its
-// 8 source samples in registers.  A cell's SAD is the 8x8 class; shuffles
-// over the lane bits sum 16/32/64 (xor 1 and 8; 2 and 16; 4 and the two
-// cells).  Each lane keeps the running minimum of the 7 blocks it sees
-// (offsets come in increasing code, so a strict < keeps the first); the
-// warps' minima meet in shared memory.
-// What bounds it: operations.  A list at 1080p and rng 16 is 2 references
-// x 33^2 offsets x 272 x 480 pooled samples: 2.84e8 absolute differences,
-// about 1.3e9 int32 operations with the sums (0.04 ms at 33.5e12 op/s).
+// and references pick.
+// What bounds it on this card: the instruction rate.  A list at 1080p and
+// rng 16 is 2 references x 33^2 offsets x 272 x 480 pooled samples,
+// 2.84e8 absolute differences, and 9.4e7 block costs (85 blocks a 16x16
+// tile and offset), with no reuse of a band sample across offsets unless
+// the design keeps it in registers.  So:
+// - A CTA owns a 16x16 pooled tile (one 64x64 luma block); its 16
+//   half-warps ("slots", 256 threads) each take items (reference, dy, a
+//   run of 12 dx offsets) in increasing code, so that a strict < keeps
+//   the first of equal costs; the slots' minima meet in shared memory by
+//   (cost, code).  No offset is divided: items are counted in a loop.
+// - A thread owns a 4x4 region (a 16x16 block: four 8x8 cells), its 16
+//   source samples in registers, and slides each band row (16 floats,
+//   four 16-byte reads, conflict-free at a 52-float row stride) over its
+//   12 offsets: a band sample feeds up to 4 offsets from registers.
+// - Differences and sums are float32: every value is an integer below
+//   2^24 (a 64x64 block's SAD of int16 samples is at most 256 x 65535),
+//   so they are exact and run on the float pipe, two instructions a
+//   difference (a subtraction, an add of absolute values); the cost is
+//   one exact fma (sad x 4 is exact) of the per-offset sqrt_lam term,
+//   which a shared table holds (+inf past the window: those offsets of
+//   the last run never win).
+// - A thread prices its 4 cells and its 16x16 block once an offset; the
+//   32x32 and 64x64 sums come from 2 + 2 shuffles over the half-warp.
+// - Two CTAs of 256 threads an SM; the references' bands go to shared
+//   memory two at a time.
 //
 // int_refine, one launch a size class and list.  Per block its 49 SADs of
 // the (s + 6)^2 window around the coarse winner (each sum |org - cand|
@@ -56,18 +70,49 @@
 // What bounds it: operations, 49 s^2 differences a block: 1.0e8 a class
 // and list at 1080p, about 3e8 int32 operations (0.01 ms).
 //
-// merge_model, one launch a size class and list, a warp a block: the RD
-// cost of the winner (its transform-RD estimates given), then the left,
-// above and zero candidates' luma predictions (the 2-D 8-tap filter of
+// merge_model, one launch a size class and list: the RD cost of the
+// winner (its transform-RD estimates given), then the left, above and
+// zero candidates' luma predictions (the 2-D 8-tap filter of
 // mc_common.cuh, a zero phase on the identity tap row, clipped to pixels)
 // and their SSE against the source, as the plain form's int64 sum cast to
 // int32 (wrapping: a 64x64 block at 10 bits can) and >> 2 bit_inc; the
 // first minimum of d_i + lam (2 + i); the winner's Cb and Cr predictions
 // (4 taps, eighth-pel) and SSE; skip against the RD cost with a strict <.
-// Each prediction's window and first pass stay in the warp's shared
-// memory; the second pass goes to registers and into the SSE at once.
-// What bounds it: operations, about 3 x 16 multiply-adds a luma sample
-// and 16 a chroma one: 1e8 a class and list at 1080p (a few us).
+// What bounds it on this card: latency.  Its bytes (the distinct window
+// samples, 0.035 ms for a B frame's 8 calls) and its filter taps are
+// small, but each block chains waits on global memory, barriers and
+// dependent multiply-adds, and a list at s = 64 has only 510 blocks.
+// So:
+// - A team a block sized to it: 8 lanes at s = 8 (four blocks a warp, a
+//   lane a row), a warp at 16, two at 32, eight at 64 (510 CTAs of 256
+//   threads, capped at 64 registers so that all fit the card at once); a
+//   team waits on its own barrier (a warp's lanes, or a named barrier).
+// - Only distinct candidates are predicted: where left, above or zero
+//   share MV and reference (static areas, out-of-grid neighbours) the SSE
+//   is reused; the same inputs give the same sum, and the order and the
+//   strict < of the first minimum stay.
+// - The source samples a thread compares go to its registers once a
+//   block, requested with the windows, so that no SSE waits on global
+//   memory.
+// - The first two distinct luma windows are requested at once (one
+//   cp.async group each, waited for one by one); the third, where there
+//   is one, once the first is priced, so that it arrives while the second
+//   is.  Two windows a block in shared memory: at s = 8 eight CTAs of 16
+//   blocks an SM (three would allow five).  So a block waits on
+//   global memory twice: its luma windows, then the chosen candidate's Cb
+//   and Cr windows, both requested together (prefetching every
+//   candidate's chroma would read about 2.5x the chroma bytes for one
+//   use).
+// - A zero phase takes its identity row's one tap (the plain form's sum
+//   of 8 with 7 zeros, bit for bit): the first pass of a zero vertical
+//   phase covers only the rows the second pass reads, and a full-pel
+//   candidate (the zero MV always) needs no first pass at all.
+// - Both filter passes take two taps an instruction (__dp2a_lo on int16
+//   sample pairs: an aligned word, or one byte permute of two; the second
+//   pass pairs two rows column by column), the integer sums of the plain
+//   form's tap by tap products.
+// - The SSE is an unsigned 32-bit sum that wraps: the int64 sum cast to
+//   int32, half the shuffles of a 64-bit one.
 //
 // No entry allocates or synchronises; each launches on the stream it is
 // given and returns cudaGetLastError().  The scalars (sqrt_lam, lam, cw)
@@ -81,8 +126,6 @@ namespace {
 constexpr int kMaxRefs = 16;       // references a list (HEVC: 16)
 constexpr int kMaxRng = 16;        // quarter-res search range (64 full pel)
 constexpr int kTile = 16;          // coarse: pooled samples a tile side
-constexpr int kBand = kTile + 2 * kMaxRng;
-constexpr int kCoarseWarps = 8;
 constexpr int kClasses = 4;        // 8, 16, 32, 64
 // the coarse tile's blocks, class after class: 64 of 8, 16 of 16, 4 of
 // 32, 1 of 64
@@ -97,11 +140,23 @@ __device__ __forceinline__ int golomb(int v) {
 
 // ---- coarse_search -------------------------------------------------------
 
+constexpr int kSlots = 16;                       // half-warps a CTA
+constexpr int kRun = 12;                         // dx offsets an item
+constexpr int kMaxRuns = (2 * kMaxRng + kRun) / kRun;        // 3
+constexpr int kLbRow = kMaxRuns * kRun;          // 36 table entries a dy
+constexpr int kGroupRefs = 2;                    // bands in shared memory
+constexpr int kBandRows = kTile + 2 * kMaxRng;   // 48
+// floats a band row: 48 and the reads of the last run's masked offsets
+// (4 bx + 24 + 15 <= 51); 52 = 4 mod 8 16-byte units keeps the 16-byte
+// reads of a quarter-warp (bx 0..3, two by) on distinct banks
+constexpr int kBandStride = 52;
+
 struct CoarseArgs {
   const int16_t* org;                // pooled source [hq, wq]
   const int16_t* refs[kMaxRefs];     // pooled bands [hq + 2 rng, wq + 2 rng]
   const float* sqrt_lam;
-  long long* out[kClasses];          // per class int64 [3, hq / b, wq / b]
+  long long* out;                    // per class int64 [3, hq / b, wq / b],
+                                     // class after class
   int n_refs, hq, wq, rng, n_classes;
 };
 
@@ -113,133 +168,193 @@ __device__ __forceinline__ void keep_min(float cost, int code, float& best,
   }
 }
 
-__global__ void __launch_bounds__(32 * kCoarseWarps)
-coarse_kernel(CoarseArgs a) {
-  __shared__ int16_t band[kBand * kBand];
-  __shared__ float wcost[kCoarseWarps][kTileBlocks];
-  __shared__ int wcode[kCoarseWarps][kTileBlocks];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
-  const int n_off = 2 * a.rng + 1, n_off2 = n_off * n_off;
-  const int bw = kTile + 2 * a.rng;
-  const int brows = a.hq + 2 * a.rng, bcols = a.wq + 2 * a.rng;
-  const int cx = lane & 7, cy = lane >> 3;
-  const float sqrt_lam = *a.sqrt_lam;
+__device__ __forceinline__ void load16(const float* p, float (&w)[16]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const float4 v = reinterpret_cast<const float4*>(p)[q];
+    w[4 * q] = v.x;
+    w[4 * q + 1] = v.y;
+    w[4 * q + 2] = v.z;
+    w[4 * q + 3] = v.w;
+  }
+}
 
-  // the lane's two cells: source samples, and whether the cell is inside
-  int org[2][4];
-  bool inside[2];
+__global__ void __launch_bounds__(32 * kSlots / 2, 2)
+coarse_kernel(CoarseArgs a) {
+  __shared__ __align__(16) float band[kGroupRefs][kBandRows * kBandStride];
+  __shared__ __align__(16) float lbt[kGroupRefs][(2 * kMaxRng + 1) * kLbRow];
+  __shared__ __align__(16) float lb_idle[kRun];
+  __shared__ float wcost[kSlots][kTileBlocks];
+  __shared__ int wcode[kSlots][kTileBlocks];
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, half = (tid >> 4) & 1, slot = tid >> 4;
+  const int l16 = tid & 15, bx = l16 & 3, by = l16 >> 2;
+  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
+  const int rng = a.rng, n_off = 2 * rng + 1, n_off2 = n_off * n_off;
+  const int n_runs = (n_off + kRun - 1) / kRun;
+  const int bcols = a.wq + 2 * rng, brows = a.hq + 2 * rng;
+  const float sqrt_lam = *a.sqrt_lam;
+  const float inf = __int_as_float(0x7f800000);
+  if (tid < kRun) lb_idle[tid] = inf;
+
+  // the thread's 4x4 source samples (0 outside the picture: those cells'
+  // blocks are never written)
+  float src[4][4];
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int y = ty0 + 2 * (cy + 4 * k), x = tx0 + 2 * cx;
-    inside[k] = y < a.hq && x < a.wq;
+  for (int i = 0; i < 4; ++i) {
+    const int y = ty0 + 4 * by + i;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      org[k][q] = inside[k]
-          ? a.org[(long long)(y + (q >> 1)) * a.wq + x + (q & 1)] : 0;
+    for (int j = 0; j < 4; ++j) {
+      const int x = tx0 + 4 * bx + j;
+      src[i][j] = (y < a.hq && x < a.wq)
+          ? (float)a.org[(long long)y * a.wq + x] : 0.0f;
     }
   }
-  // the running minima: cells (8), 16s, 32s, the 64
+  // running minima: the 4 cells (8x8 class), the 16, 32 and 64 blocks
   float best[7];
   int best_code[7];
 #pragma unroll
   for (int k = 0; k < 7; ++k) {
-    best[k] = __int_as_float(0x7f800000);    // inf
+    best[k] = inf;
     best_code[k] = 0;
   }
 
-  for (int r = 0; r < a.n_refs; ++r) {
-    const int16_t* ref = a.refs[r];
-    __syncthreads();
-    for (int e = threadIdx.x; e < bw * bw; e += 32 * kCoarseWarps) {
-      const int y = min(ty0 + e / bw, brows - 1);
-      const int x = min(tx0 + e % bw, bcols - 1);
-      band[e] = ref[(long long)y * bcols + x];
+  for (int r0 = 0; r0 < a.n_refs; r0 += kGroupRefs) {
+    const int ng = min(kGroupRefs, a.n_refs - r0);
+    __syncthreads();                  // the last group's readers are done
+    for (int e = tid; e < ng * kBandRows * kBandStride; e += 32 * kSlots / 2) {
+      const int g = e / (kBandRows * kBandStride);
+      const int rest = e - g * (kBandRows * kBandStride);
+      const int row = rest / kBandStride, col = rest - row * kBandStride;
+      const int y = min(ty0 + row, brows - 1), x = min(tx0 + col, bcols - 1);
+      band[g][rest] = (float)a.refs[r0 + g][(long long)y * bcols + x];
+    }
+    for (int e = tid; e < ng * n_off * kLbRow; e += 32 * kSlots / 2) {
+      const int g = e / (n_off * kLbRow);
+      const int rest = e - g * (n_off * kLbRow);
+      const int dy = rest / kLbRow, dx = rest - dy * kLbRow;
+      const int mvq = (abs(dy - rng) + abs(dx - rng)) * 16;
+      lbt[g][rest] = dx < n_off
+          ? __fmul_rn(sqrt_lam,
+                      (float)(2 * bitlen((unsigned)mvq + 1u) + r0 + g))
+          : inf;
     }
     __syncthreads();
-    for (int o = warp; o < n_off2; o += kCoarseWarps) {
-      const int dy = o / n_off, dx = o - dy * n_off;
-      const int mvq = (abs(dy - a.rng) + abs(dx - a.rng)) * 16;
-      const float lam_bits =
-          __fmul_rn(sqrt_lam, (float)(2 * bitlen((unsigned)mvq + 1u) + r));
-      const int code = r * n_off2 + o;
-      int s8[2];
+
+    // items (reference, dy, run) in increasing code; a warp's two slots
+    // take items 2 w + 16 m and 2 w + 1 + 16 m, the warp's trip count
+    // the first slot's (an idle slot prices +inf)
+    const int per_ref = n_off * n_runs, n_items = ng * per_ref;
+    for (int t0 = 2 * warp; t0 < n_items; t0 += kSlots) {
+      const int item = min(t0 + half, n_items - 1);
+      const int g = item / per_ref;
+      const int rest = item - g * per_ref;
+      const int dy = rest / n_runs, run = rest - dy * n_runs;
+      const float* lbp = t0 + half < n_items
+          ? &lbt[g][dy * kLbRow + run * kRun] : lb_idle;
+      const int code0 = ((r0 + g) * n_off + dy) * n_off + run * kRun;
+      const float* bp = band[g] + (4 * by + dy) * kBandStride + 4 * bx
+                        + run * kRun;
+      // acc[c][k]: cell c (0 top-left, 1 top-right, 2 bottom-left, 3
+      // bottom-right) at offset dx = run * 12 + k
+      float acc[4][kRun];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        const int16_t* b = band + (2 * (cy + 4 * k) + dy) * bw + 2 * cx + dx;
-        const int v = abs(org[k][0] - b[0]) + abs(org[k][1] - b[1])
-                      + abs(org[k][2] - b[bw]) + abs(org[k][3] - b[bw + 1]);
-        s8[k] = inside[k] ? v : 0;
+      for (int i = 0; i < 4; ++i) {
+        float w[16];
+        load16(bp + i * kBandStride, w);
+        const int c = (i >> 1) * 2;
+#pragma unroll
+        for (int k = 0; k < kRun; ++k) {
+          const float l = fabsf(src[i][0] - w[k]) + fabsf(src[i][1] - w[k + 1]);
+          const float r = fabsf(src[i][2] - w[k + 2])
+                          + fabsf(src[i][3] - w[k + 3]);
+          if (i & 1) {
+            acc[c][k] += l;
+            acc[c + 1][k] += r;
+          } else {
+            acc[c][k] = l;
+            acc[c + 1][k] = r;
+          }
+        }
       }
-      int s16[2], s32[2];
+      float lb[kRun];
 #pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        s16[k] = s8[k] + __shfl_xor_sync(0xffffffffu, s8[k], 1);
-        s16[k] += __shfl_xor_sync(0xffffffffu, s16[k], 8);
-        s32[k] = s16[k] + __shfl_xor_sync(0xffffffffu, s16[k], 2);
-        s32[k] += __shfl_xor_sync(0xffffffffu, s32[k], 16);
+      for (int q = 0; q < kRun / 4; ++q) {
+        const float4 v = reinterpret_cast<const float4*>(lbp)[q];
+        lb[4 * q] = v.x;
+        lb[4 * q + 1] = v.y;
+        lb[4 * q + 2] = v.z;
+        lb[4 * q + 3] = v.w;
       }
-      int s64 = s32[0] + s32[1];
-      s64 += __shfl_xor_sync(0xffffffffu, s64, 4);
-      const int sums[7] = {s8[0], s8[1], s16[0], s16[1], s32[0], s32[1],
-                           s64};
 #pragma unroll
-      for (int k = 0; k < 7; ++k) {
-        keep_min(__fadd_rn(__fmul_rn((float)sums[k], 4.0f), lam_bits), code,
-                 best[k], best_code[k]);
+      for (int k = 0; k < kRun; ++k) {
+        const int code = code0 + k;
+        const float s16 = (acc[0][k] + acc[1][k]) + (acc[2][k] + acc[3][k]);
+        float s32 = s16 + __shfl_xor_sync(0xffffffffu, s16, 1);
+        s32 += __shfl_xor_sync(0xffffffffu, s32, 4);
+        float s64 = s32 + __shfl_xor_sync(0xffffffffu, s32, 2);
+        s64 += __shfl_xor_sync(0xffffffffu, s64, 8);
+        // float(sad) * 4 is exact: one rounding, as the plain form's two
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          keep_min(__fmaf_rn(acc[c][k], 4.0f, lb[k]), code, best[c],
+                   best_code[c]);
+        }
+        keep_min(__fmaf_rn(s16, 4.0f, lb[k]), code, best[4], best_code[4]);
+        keep_min(__fmaf_rn(s32, 4.0f, lb[k]), code, best[5], best_code[5]);
+        keep_min(__fmaf_rn(s64, 4.0f, lb[k]), code, best[6], best_code[6]);
       }
     }
   }
 
-  // each warp's minima per block of the tile, then the least of the warps
+  // each slot's minima per block of the tile, then the least of the slots
 #pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int ry = cy + 4 * k;                 // cell row
-    const int i8 = ry * 8 + cx;
-    wcost[warp][i8] = best[k];
-    wcode[warp][i8] = best_code[k];
-    if (!(cx & 1) && !(ry & 1)) {
-      const int i16 = kBase16 + (ry >> 1) * 4 + (cx >> 1);
-      wcost[warp][i16] = best[2 + k];
-      wcode[warp][i16] = best_code[2 + k];
-    }
-    if (!(cx & 3) && !(ry & 3)) {
-      const int i32 = kBase32 + (ry >> 2) * 2 + (cx >> 2);
-      wcost[warp][i32] = best[4 + k];
-      wcode[warp][i32] = best_code[4 + k];
-    }
+  for (int c = 0; c < 4; ++c) {
+    const int i8 = (2 * by + (c >> 1)) * 8 + 2 * bx + (c & 1);
+    wcost[slot][i8] = best[c];
+    wcode[slot][i8] = best_code[c];
   }
-  if (lane == 0) {
-    wcost[warp][kBase64] = best[6];
-    wcode[warp][kBase64] = best_code[6];
+  wcost[slot][kBase16 + l16] = best[4];
+  wcode[slot][kBase16 + l16] = best_code[4];
+  if (!(bx & 1) && !(by & 1)) {
+    const int i32 = kBase32 + (by >> 1) * 2 + (bx >> 1);
+    wcost[slot][i32] = best[5];
+    wcode[slot][i32] = best_code[5];
+  }
+  if (l16 == 0) {
+    wcost[slot][kBase64] = best[6];
+    wcode[slot][kBase64] = best_code[6];
   }
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= kTileBlocks) return;
-  const int c = t < kBase16 ? 0 : t < kBase32 ? 1
-              : t < kBase64 ? 2 : 3;
+  if (tid >= kTileBlocks) return;
+  const int c = tid < kBase16 ? 0 : tid < kBase32 ? 1
+              : tid < kBase64 ? 2 : 3;
   if (c >= a.n_classes) return;
-  float cost = wcost[0][t];
-  int code = wcode[0][t];
-  for (int w = 1; w < kCoarseWarps; ++w) {
-    const float cw = wcost[w][t];
-    const int k = wcode[w][t];
+  float cost = wcost[0][tid];
+  int code = wcode[0][tid];
+  for (int w = 1; w < kSlots; ++w) {
+    const float cw = wcost[w][tid];
+    const int k = wcode[w][tid];
     if (cw < cost || (cw == cost && k < code)) {
       cost = cw;
       code = k;
     }
   }
   const int per = 8 >> c;                    // blocks a tile side
-  const int i = t - (c == 0 ? 0 : c == 1 ? kBase16 : c == 2 ? kBase32
-                                                            : kBase64);
+  const int i = tid - (c == 0 ? 0 : c == 1 ? kBase16 : c == 2 ? kBase32
+                                                              : kBase64);
   const int bq = 2 << c;                     // pooled samples a block side
   const int rows = a.hq / bq, cols = a.wq / bq;
-  const int by = ty0 / bq + i / per, bx = tx0 / bq + i % per;
-  if (by >= rows || bx >= cols) return;
+  const int oy = ty0 / bq + i / per, ox = tx0 / bq + i % per;
+  if (oy >= rows || ox >= cols) return;
+  long long* out = a.out;
+  for (int k = 0; k < c; ++k) {
+    out += 3ll * (a.hq / (2 << k)) * (a.wq / (2 << k));
+  }
   const long long nb = (long long)rows * cols;
-  long long* out = a.out[c] + (long long)by * cols + bx;
-  out[0] = (long long)((code / n_off) % n_off - a.rng) * 4;
-  out[nb] = (long long)(code % n_off - a.rng) * 4;
+  out += (long long)oy * cols + ox;
+  out[0] = (long long)((code / n_off) % n_off - rng) * 4;
+  out[nb] = (long long)(code % n_off - rng) * 4;
   out[2 * nb] = code / n_off2;
 }
 
@@ -383,103 +498,238 @@ __global__ void __launch_bounds__(256) int_refine_kernel(RefineArgs a) {
 // ---- merge_model ---------------------------------------------------------
 
 struct MergeArgs {
-  const int16_t* org[3];             // source planes: luma, Cb, Cr
+  const int16_t* org_y;              // source planes
+  const int16_t* org_cb;
+  const int16_t* org_cr;
   const int16_t* refs_y;             // [n_refs, rows_y, cols_y]
   const int16_t* refs_c;             // [2 n_refs, rows_c, cols_c]: Cb, Cr
-  const int* d[3];                   // transform-RD dist: luma, Cb, Cr
-  const float* bits[3];              // transform-RD bits: luma, Cb, Cr
+  const int* d_y;                    // transform-RD dist, [nb] each
+  const int* d_cb;
+  const int* d_cr;
+  const float* b_y;                  // transform-RD bits, [nb] each
+  const float* b_cb;
+  const float* b_cr;
   const int* mvx;                    // the winner: quarter pel, [nb]
   const int* mvy;
   const int* ref;
   const float* lam;
   const float* cw;
-  float* out_rd;                     // [nb]
-  int* out_mvx;
-  int* out_mvy;
-  int* out_ref;
+  int* out;                          // [4, nb]: rd (float bits), mvx, mvy,
+                                     // ref
   int org_cols, corg_cols, n_refs, rows_y, cols_y, rows_c, cols_c;
   int nby, nbx, bit_inc, pad_y, pad_c;
 };
 
 template <int S>
 struct MergeShape {
-  static constexpr int kWarps = S == 64 ? 2 : 4;    // blocks a CTA
-  static constexpr int kG = S / 8;                  // 8-column groups
-  // the warp's shared memory, int16: the luma window [S + 7][8 G + 16]
-  // and its first pass [S + 7][8 G] (chroma needs less)
-  static constexpr int kSmem = (S + 7) * (16 * kG + 16);
+  // threads a block: 8 at s = 8 (a lane a row), a warp at 16, two at 32,
+  // eight at 64
+  static constexpr int kTeam = S == 8 ? 8 : S == 16 ? 32 : S == 32 ? 64
+                                                                   : 256;
+  static constexpr int kThreads = S == 64 ? 256 : 128;
+  static constexpr int kBlocks = kThreads / kTeam;      // blocks a CTA
+  // CTAs an SM (64 registers a thread at 8, 16 and 64): a 1080p list's
+  // 510 CTAs of 64 fit the card at once
+  static constexpr int kMinCtas = S == 64 ? 4 : S == 32 ? 1 : 8;
+  static constexpr int kG = S / 8;                      // 8-column groups
+  // a luma window [S + 7][8 G + 16] (chroma's fit in it), and a first
+  // pass [S + 7][8 G]: two windows and one first pass a block, int16
+  static constexpr int kWin = (S + 7) * (8 * kG + 16);
+  static constexpr int kSmem = 2 * kWin + (S + 7) * 8 * kG;
 };
 
-// The SSE of one prediction of an h x h block (h = S luma, S / 2 chroma)
-// against the source, over a warp: the window at plane coordinates (wx,
-// wy) (its first tap sample), phases (fx, fy), clipped to pixels; the
-// int64 sum cast to int32 and >> 2 bit_inc, as the plain form.
-template <int TAPS, int H>
-__device__ int block_sse(int16_t* sm, const int16_t* plane, int rows,
-                         int cols, int wx, int wy, int fx, int fy,
-                         const int16_t* org, int org_cols, int oy, int ox,
-                         int bd, int bit_inc, int lane) {
-  constexpr int G = (H + 7) / 8, W8 = 8 * G, WS = W8 + 16;
+// A team's barrier: its lanes of one warp, or a named barrier (1 + the
+// team's index in the CTA) over its warps
+template <int T>
+struct TeamSync {
+  unsigned mask;
+  int id;
+  __device__ __forceinline__ void operator()() const {
+    if constexpr (T <= 32) {
+      __syncwarp(mask);
+    } else {
+      asm volatile("bar.sync %0, %1;\n" :: "r"(id), "n"(T) : "memory");
+    }
+  }
+};
+
+// The lanes of thread tid's team in its warp
+template <int T>
+__device__ __forceinline__ unsigned team_mask(int tid) {
+  if constexpr (T < 32) {
+    return ((1u << T) - 1u) << (tid & 31 & ~(T - 1));
+  } else {
+    return 0xffffffffu;
+  }
+}
+
+// A team's sum of one unsigned a thread, in every thread of the team
+template <int T>
+__device__ __forceinline__ unsigned team_sum(unsigned v, unsigned* part,
+                                             int t, const TeamSync<T>& sync) {
+  constexpr int kLanes = T < 32 ? T : 32;
+#pragma unroll
+  for (int o = kLanes / 2; o >= 1; o >>= 1) {
+    v += __shfl_xor_sync(sync.mask, v, o);
+  }
+  if constexpr (T > 32) {
+    if ((t & 31) == 0) part[t >> 5] = v;
+    sync();
+    v = 0;
+#pragma unroll
+    for (int w = 0; w < T / 32; ++w) v += part[w];
+  }
+  return v;
+}
+
+// Request an h x h block's window (its first tap sample at plane
+// coordinates (wx, wy)) into win (row stride 8 G + 16, 16-byte aligned
+// chunks from column wx & ~7) as this thread's cp.async group
+template <int TAPS, int H, int T>
+__device__ __forceinline__ void request_window(int16_t* win,
+                                               const int16_t* plane,
+                                               int rows, int cols, int wx,
+                                               int wy, int t) {
+  constexpr int G = (H + 7) / 8, WS = 8 * G + 16;
   constexpr int WR = H + TAPS - 1, NCH = G + 2;
-  int16_t* win = sm;
-  int16_t* tmp = sm + WR * WS;
   const bool aligned = (reinterpret_cast<uintptr_t>(plane) & 15) == 0
                        && (cols & 7) == 0;
-  const int ax = wx & ~7, off = wx & 7;
-  __syncwarp();                       // the buffer's last reader is done
-  for (int e = lane; e < WR * NCH; e += 32) {
+  const int ax = wx & ~7;
+  for (int e = t; e < WR * NCH; e += T) {
     const int r = e / NCH, ch = e - r * NCH;
     load_chunk(win + r * WS + 8 * ch, plane, rows, cols, ax + 8 * ch, wy + r,
                aligned);
   }
-  cp_async_wait_all();
-  __syncwarp();
-  int tx[TAPS], ty[TAPS];
-  taps_of<TAPS>(fx, tx);
-  taps_of<TAPS>(fy, ty);
+  cp_async_commit();
+}
+
+// The second pass's items of a thread in a team of T: item e = t + m T
+// (m < K) of an h x h block's h x G runs of 8 samples
+template <int H, int T>
+struct Items {
+  static constexpr int kG = (H + 7) / 8, kN = H * kG;
+  static constexpr int kK = (kN + T - 1) / T;
+};
+
+// A thread's source samples of its items (row i, samples 8 g .. 8 g + 7
+// of the block at (oy, ox)), 8 int16 a uint4, read once a block: 16-byte
+// loads where the rows are aligned and whole, else samples (0 past h)
+template <int H, int T>
+__device__ __forceinline__ void load_org(
+    const int16_t* org, int org_cols, int oy, int ox, int t,
+    uint4 (&o)[Items<H, T>::kK]) {
+  using It = Items<H, T>;
+  const bool aligned = H % 8 == 0
+      && (reinterpret_cast<uintptr_t>(org) & 15) == 0 && (org_cols & 7) == 0
+      && (ox & 7) == 0;
+#pragma unroll
+  for (int m = 0; m < It::kK; ++m) {
+    const int e = t + m * T;
+    o[m] = make_uint4(0, 0, 0, 0);
+    if (e >= It::kN) continue;
+    const int i = e / It::kG, g = e % It::kG;
+    const int16_t* src = org + (long long)(oy + i) * org_cols + ox + 8 * g;
+    if (aligned) {
+      o[m] = *reinterpret_cast<const uint4*>(src);
+    } else {
+      int v[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v[c] = 8 * g + c < H ? src[c] : 0;
+      o[m] = make_uint4(pack2(v[0], v[1]), pack2(v[2], v[3]),
+                        pack2(v[4], v[5]), pack2(v[6], v[7]));
+    }
+  }
+}
+
+// This thread's part of the SSE of one prediction of an h x h block (h =
+// S luma, S / 2 chroma) against its source samples o (load_org): the
+// window win (its first tap sample at column off of row 0), phases (fx,
+// fy), clipped to pixels, the first pass in tmp; an unsigned 32-bit sum
+// (wrapping).  Begins with the team's barrier (the window is in; tmp's
+// last readers are done).
+template <int TAPS, int H, int T>
+__device__ unsigned team_sse(const int16_t* win, int16_t* tmp, int off,
+                             int fx, int fy,
+                             const uint4 (&o)[Items<H, T>::kK], int bd,
+                             int t, const TeamSync<T>& sync) {
+  using It = Items<H, T>;
+  constexpr int G = It::kG, W8 = 8 * G, WS = W8 + 16;
+  constexpr int WR = H + TAPS - 1, C = TAPS / 2 - 1;
   const int sh1 = kFilterPrec - (kInternalPrec - bd);
   const int off1 = -kInternalOffs * (1 << sh1);
-  for (int e = lane; e < WR * G; e += 32) {
-    const int r = e / G, g = e - r * G;
-    first_pass8<TAPS>(win + r * WS + off + 8 * g, tx, sh1, off1,
-                      tmp + r * W8 + 8 * g);
+  unsigned tx[TAPS / 2], ty[TAPS / 2];
+  tap_pairs<TAPS>(fx, tx);
+  tap_pairs<TAPS>(fy, ty);
+  sync();
+  const bool full = (fx | fy) == 0;
+  if (!full) {
+    // a zero vertical phase reads only the first pass's rows C .. C + h
+    const int r0 = fy == 0 ? C : 0, nr = fy == 0 ? H : WR;
+    for (int e = t; e < nr * G; e += T) {
+      const int r = r0 + e / G, g = e % G;
+      const int16_t* s = win + r * WS + off + 8 * g;
+      if (fx == 0) {
+        first_pass8_copy<TAPS>(s, sh1, off1, tmp + r * W8 + 8 * g);
+      } else {
+        first_pass8_pairs<TAPS>(s, off & 1, tx, sh1, off1,
+                                tmp + r * W8 + 8 * g);
+      }
+    }
+    sync();
   }
-  __syncwarp();
-  long long acc = 0;
-  for (int e = lane; e < H * G; e += 32) {
-    const int i = e / G, g = e - i * G;
+  unsigned acc = 0;
+#pragma unroll
+  for (int m = 0; m < It::kK; ++m) {
+    const int e = t + m * T;
+    if (e >= It::kN) continue;
+    const int i = e / G, g = e % G;
     int res[8];
-    predict8<TAPS>(k2d, win, WS, off, tmp, W8, i, g, tx, ty, true, bd, res);
-    const int16_t* src = org + (long long)(oy + i) * org_cols + ox + 8 * g;
+    if (full) {
+      const int16_t* s = win + (i + C) * WS + off + C + 8 * g;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) res[c] = copy_pixel(s[c], bd);
+    } else if (fy == 0) {
+      int v[8];
+      load8(tmp + (i + C) * W8 + 8 * g, v);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) res[c] = last_pass_copy(v[c], bd);
+    } else {
+      last_pass8_pairs<TAPS>(tmp, W8, i, g, ty, bd, res);
+    }
+    const unsigned w[4] = {o[m].x, o[m].y, o[m].z, o[m].w};
 #pragma unroll
     for (int c = 0; c < 8; ++c) {
       if (8 * g + c < H) {
-        const long long d = src[c] - res[c];
-        acc += d * d;
+        const int src = c & 1 ? (int)w[c >> 1] >> 16
+                              : (int)(int16_t)(w[c >> 1] & 0xffff);
+        const int d = src - res[c];
+        acc += (unsigned)(d * d);
       }
     }
   }
-#pragma unroll
-  for (int o = 16; o >= 1; o >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  return (int)(unsigned)(unsigned long long)acc >> (2 * bit_inc);
+  return acc;
 }
 
 template <int S>
-__global__ void __launch_bounds__(32 * MergeShape<S>::kWarps)
+__global__ void __launch_bounds__(MergeShape<S>::kThreads,
+                                  MergeShape<S>::kMinCtas)
 merge_model_kernel(MergeArgs a) {
   using Sh = MergeShape<S>;
-  constexpr int CS = S / 2;
-  __shared__ __align__(16) int16_t smem[Sh::kWarps][Sh::kSmem];
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  constexpr int T = Sh::kTeam, CS = S / 2;
+  __shared__ __align__(16) int16_t smem[Sh::kBlocks][Sh::kSmem];
+  __shared__ unsigned part[Sh::kBlocks][T > 32 ? T / 32 : 1];
+  const int team = threadIdx.x / T, t = threadIdx.x % T;
   const int nb = a.nby * a.nbx;
-  const int n = blockIdx.x * Sh::kWarps + warp;
-  if (n >= nb) return;
+  const int n = blockIdx.x * Sh::kBlocks + team;
+  if (n >= nb) return;                        // the whole team
+  const TeamSync<T> sync{team_mask<T>(threadIdx.x), 1 + team};
+  int16_t* win = smem[team];
+  int16_t* tmp = win + 2 * Sh::kWin;
   const int i = n / a.nbx, j = n % a.nbx;
   const int by = i * S, bx = j * S;
   const int bd = 8 + a.bit_inc;
-  const float lam = *a.lam, cw = *a.cw;
 
-  // the winner, and the left and above winners (zero outside the grid)
+  // the winner; the candidates left, above (zero outside the grid), zero
   const int mx = a.mvx[n], my = a.mvy[n], rf = a.ref[n];
   int cx[3] = {0, 0, 0}, cy[3] = {0, 0, 0}, cr[3] = {0, 0, 0};
   if (j > 0) {
@@ -492,51 +742,130 @@ merge_model_kernel(MergeArgs a) {
     cy[1] = a.mvy[n - a.nbx];
     cr[1] = a.ref[n - a.nbx];
   }
+  // the distinct candidates (uniform in the team): candidate 0; then 1
+  // unless it is 0; then 2 unless it is 0 or 1
+  const bool same10 = cx[1] == cx[0] && cy[1] == cy[0] && cr[1] == cr[0];
+  const bool same20 = cx[2] == cx[0] && cy[2] == cy[0] && cr[2] == cr[0];
+  const bool same21 = cx[2] == cx[1] && cy[2] == cy[1] && cr[2] == cr[1];
+  const int nd = 1 + !same10 + !(same20 || same21);
+  // distinct k's candidate, and candidate c's distinct index
+  const int of1 = same10 ? 2 : 1;
+  const int at1 = same10 ? 0 : 1;
+  const int at2 = same20 ? 0 : same21 ? at1 : nd - 1;
+  int ux[3], uy[3], ur[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int c = k == 0 ? 0 : k == 1 ? of1 : 2;
+    ux[k] = c == 0 ? cx[0] : c == 1 ? cx[1] : cx[2];
+    uy[k] = c == 0 ? cy[0] : c == 1 ? cy[1] : cy[2];
+    ur[k] = c == 0 ? cr[0] : c == 1 ? cr[1] : cr[2];
+  }
+  // this thread's source samples, read once for the block: luma, Cb, Cr
+  uint4 o_y[Items<S, T>::kK], o_cb[Items<CS, T>::kK], o_cr[Items<CS, T>::kK];
+  load_org<S, T>(a.org_y, a.org_cols, by, bx, t, o_y);
+  load_org<CS, T>(a.org_cb, a.corg_cols, i * CS, j * CS, t, o_cb);
+  load_org<CS, T>(a.org_cr, a.corg_cols, i * CS, j * CS, t, o_cr);
+  // the first two distinct luma windows requested at once, one group
+  // each; the third into window 0 once the first is priced, so that it
+  // arrives while the second is
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (k < nd) {
+      request_window<8, S, T>(
+          win + k * Sh::kWin,
+          a.refs_y + (long long)ur[k] * a.rows_y * a.cols_y, a.rows_y,
+          a.cols_y, bx + (ux[k] >> 2) + a.pad_y - 3,
+          by + (uy[k] >> 2) + a.pad_y - 3, t);
+    }
+  }
+  unsigned sse[3] = {0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    if (k < nd) {
+      // this thread's groups after k's: 1 while a later window is in
+      // flight (k = 0 with two or more, k = 1 with three), else 0
+      if ((k == 0 && nd > 1) || (k == 1 && nd > 2)) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      const unsigned p = team_sse<8, S, T>(
+          win + (k & 1) * Sh::kWin, tmp,
+          (bx + (ux[k] >> 2) + a.pad_y - 3) & 7, ux[k] & 3, uy[k] & 3, o_y,
+          bd, t, sync);
+      sse[k] = team_sum<T>(p, part[team], t, sync);
+      if (k == 0 && nd > 2) {
+        sync();                       // window 0's readers are done
+        request_window<8, S, T>(
+            win, a.refs_y + (long long)ur[2] * a.rows_y * a.cols_y,
+            a.rows_y, a.cols_y, bx + (ux[2] >> 2) + a.pad_y - 3,
+            by + (uy[2] >> 2) + a.pad_y - 3, t);
+      }
+    }
+  }
+
   // AMVP-proxy MV bits: the cheaper of the two neighbours as predictor
   const int bits_l = golomb(mx - cx[0]) + golomb(my - cy[0]);
   const int bits_a = golomb(mx - cx[1]) + golomb(my - cy[1]);
   const int mvb = min(bits_l, bits_a) + 2 + rf + 4;
-  const int d_c = (int)((unsigned)a.d[1][n] + (unsigned)a.d[2][n]);
-  float rd = __fadd_rn((float)a.d[0][n], __fmul_rn(cw, (float)d_c));
-  const float b = __fadd_rn(__fadd_rn(__fadd_rn(a.bits[0][n], a.bits[1][n]),
-                                      a.bits[2][n]),
+  const float lam = *a.lam, cw = *a.cw;
+  const int d_c = (int)((unsigned)a.d_cb[n] + (unsigned)a.d_cr[n]);
+  float rd = __fadd_rn((float)a.d_y[n], __fmul_rn(cw, (float)d_c));
+  const float b = __fadd_rn(__fadd_rn(__fadd_rn(a.b_y[n], a.b_cb[n]),
+                                      a.b_cr[n]),
                             (float)mvb);
   rd = __fadd_rn(rd, __fmul_rn(lam, b));
 
-  // the merge/skip model: left, above, zero on no-residual luma SSE
-  int16_t* sm = smem[warp];
+  // the merge/skip model: left, above, zero on no-residual luma SSE, the
+  // first minimum
   float m_cost = 0.0f;
   int m = 0;
+#pragma unroll
   for (int c = 0; c < 3; ++c) {
-    const int16_t* plane = a.refs_y + (long long)cr[c] * a.rows_y * a.cols_y;
-    const int sse = block_sse<8, S>(
-        sm, plane, a.rows_y, a.cols_y, bx + (cx[c] >> 2) + a.pad_y - 3,
-        by + (cy[c] >> 2) + a.pad_y - 3, cx[c] & 3, cy[c] & 3, a.org[0],
-        a.org_cols, by, bx, bd, a.bit_inc, lane);
-    const float cost = __fadd_rn((float)sse, __fmul_rn(lam, (float)(2 + c)));
+    const int at = c == 0 ? 0 : c == 1 ? at1 : at2;
+    const unsigned u = at == 0 ? sse[0] : at == 1 ? sse[1] : sse[2];
+    const int d = (int)u >> (2 * a.bit_inc);
+    const float cost = __fadd_rn((float)d, __fmul_rn(lam, (float)(2 + c)));
     if (c == 0 || cost < m_cost) {
       m_cost = cost;
       m = c;
     }
   }
-  const int sx = cx[m], sy = cy[m], sr = cr[m];
-  int d_s = 0;
+  const int sx = m == 0 ? cx[0] : m == 1 ? cx[1] : cx[2];
+  const int sy = m == 0 ? cy[0] : m == 1 ? cy[1] : cy[2];
+  const int sr = m == 0 ? cr[0] : m == 1 ? cr[1] : cr[2];
+  // its Cb and Cr windows, requested together into windows 0 and 1
+  sync();                             // the luma windows' readers are done
+  const int wcx = j * CS + (sx >> 3) + a.pad_c - 1;
+  const int wcy = i * CS + (sy >> 3) + a.pad_c - 1;
+#pragma unroll
   for (int p = 0; p < 2; ++p) {
-    const int16_t* plane = a.refs_c
-        + (long long)(sr + p * a.n_refs) * a.rows_c * a.cols_c;
-    const int sse = block_sse<4, CS>(
-        sm, plane, a.rows_c, a.cols_c, j * CS + (sx >> 3) + a.pad_c - 1,
-        i * CS + (sy >> 3) + a.pad_c - 1, sx & 7, sy & 7, a.org[1 + p],
-        a.corg_cols, i * CS, j * CS, bd, a.bit_inc, lane);
-    d_s = (int)((unsigned)d_s + (unsigned)sse);
+    request_window<4, CS, T>(
+        win + p * Sh::kWin,
+        a.refs_c + (long long)(sr + p * a.n_refs) * a.rows_c * a.cols_c,
+        a.rows_c, a.cols_c, wcx, wcy, t);
   }
-  const float skip_rd = __fadd_rn(m_cost, __fmul_rn(cw, (float)d_s));
-  if (lane != 0) return;
+  unsigned d_s = 0;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    if (p == 0) {
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    const unsigned q = team_sse<4, CS, T>(
+        win + p * Sh::kWin, tmp, wcx & 7, sx & 7, sy & 7,
+        p == 0 ? o_cb : o_cr, bd, t, sync);
+    d_s += (unsigned)((int)team_sum<T>(q, part[team], t, sync)
+                      >> (2 * a.bit_inc));
+  }
+  const float skip_rd = __fadd_rn(m_cost, __fmul_rn(cw, (float)(int)d_s));
+  if (t != 0) return;
   const bool use_skip = skip_rd < rd;
-  a.out_rd[n] = use_skip ? skip_rd : rd;
-  a.out_mvx[n] = use_skip ? sx : mx;
-  a.out_mvy[n] = use_skip ? sy : my;
-  a.out_ref[n] = use_skip ? sr : rf;
+  a.out[n] = __float_as_int(use_skip ? skip_rd : rd);
+  a.out[nb + n] = use_skip ? sx : mx;
+  a.out[2 * nb + n] = use_skip ? sy : my;
+  a.out[3 * nb + n] = use_skip ? sr : rf;
 }
 
 template <int S>
@@ -550,22 +879,22 @@ int launch_refine(const RefineArgs& a, cudaStream_t st) {
 
 template <int S>
 int launch_merge(const MergeArgs& a, cudaStream_t st) {
+  using Sh = MergeShape<S>;
   const long long nb = (long long)a.nby * a.nbx;
-  const long long grid = (nb + MergeShape<S>::kWarps - 1)
-                         / MergeShape<S>::kWarps;
-  merge_model_kernel<S><<<(unsigned)grid, 32 * MergeShape<S>::kWarps, 0,
-                          st>>>(a);
+  const long long grid = (nb + Sh::kBlocks - 1) / Sh::kBlocks;
+  merge_model_kernel<S><<<(unsigned)grid, Sh::kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // refs: a host array of n_refs device pointers; out: per class (8, 16,
-// 32, 64; n_classes of them) an int64 [3, hq / b, wq / b] output, b = s / 4
+// 32, 64; n_classes of them) an int64 [3, hq / b, wq / b] output, b = s /
+// 4, class after class in one buffer
 extern "C" int thevc_coarse_search(const int16_t* org, int hq, int wq,
                                    const int16_t* const* refs, int n_refs,
                                    int rng, const float* sqrt_lam,
-                                   long long* const* out, int n_classes,
+                                   long long* out, int n_classes,
                                    cudaStream_t st) {
   if (n_refs < 1 || n_refs > kMaxRefs || rng < 0 || rng > kMaxRng
       || n_classes < 1 || n_classes > kClasses || hq <= 0 || wq <= 0) {
@@ -575,14 +904,14 @@ extern "C" int thevc_coarse_search(const int16_t* org, int hq, int wq,
   a.org = org;
   for (int r = 0; r < n_refs; ++r) a.refs[r] = refs[r];
   a.sqrt_lam = sqrt_lam;
-  for (int c = 0; c < n_classes; ++c) a.out[c] = out[c];
+  a.out = out;
   a.n_refs = n_refs;
   a.hq = hq;
   a.wq = wq;
   a.rng = rng;
   a.n_classes = n_classes;
   const dim3 grid((wq + kTile - 1) / kTile, (hq + kTile - 1) / kTile);
-  coarse_kernel<<<grid, 32 * kCoarseWarps, 0, st>>>(a);
+  coarse_kernel<<<grid, 32 * kSlots / 2, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -605,45 +934,21 @@ extern "C" int thevc_int_refine(const int16_t* org, int org_cols,
   }
 }
 
-// org: luma, Cb, Cr source planes (org_cols and corg_cols columns);
-// d / bits: the transform-RD estimates of luma, Cb, Cr
+// org_*: the source planes (org_cols luma, corg_cols chroma columns);
+// d_* / b_*: the transform-RD estimates; out: int32 [4, nby * nbx], rd
+// (float32 bits), mvx, mvy, ref
 extern "C" int thevc_merge_model(
-    const int16_t* const* org, int org_cols, int corg_cols,
-    const int16_t* refs_y, int n_refs, int rows_y, int cols_y,
-    const int16_t* refs_c, int rows_c, int cols_c, const int* const* d,
-    const float* const* bits, const int* mvx, const int* mvy, const int* ref,
-    const float* lam, const float* cw, int s, int nby, int nbx, int bit_inc,
-    int pad_y, int pad_c, float* out_rd, int* out_mvx, int* out_mvy,
-    int* out_ref, cudaStream_t st) {
-  MergeArgs a{};
-  for (int p = 0; p < 3; ++p) {
-    a.org[p] = org[p];
-    a.d[p] = d[p];
-    a.bits[p] = bits[p];
-  }
-  a.refs_y = refs_y;
-  a.refs_c = refs_c;
-  a.mvx = mvx;
-  a.mvy = mvy;
-  a.ref = ref;
-  a.lam = lam;
-  a.cw = cw;
-  a.out_rd = out_rd;
-  a.out_mvx = out_mvx;
-  a.out_mvy = out_mvy;
-  a.out_ref = out_ref;
-  a.org_cols = org_cols;
-  a.corg_cols = corg_cols;
-  a.n_refs = n_refs;
-  a.rows_y = rows_y;
-  a.cols_y = cols_y;
-  a.rows_c = rows_c;
-  a.cols_c = cols_c;
-  a.nby = nby;
-  a.nbx = nbx;
-  a.bit_inc = bit_inc;
-  a.pad_y = pad_y;
-  a.pad_c = pad_c;
+    const int16_t* org_y, const int16_t* org_cb, const int16_t* org_cr,
+    int org_cols, int corg_cols, const int16_t* refs_y, int n_refs,
+    int rows_y, int cols_y, const int16_t* refs_c, int rows_c, int cols_c,
+    const int* d_y, const int* d_cb, const int* d_cr, const float* b_y,
+    const float* b_cb, const float* b_cr, const int* mvx, const int* mvy,
+    const int* ref, const float* lam, const float* cw, int s, int nby,
+    int nbx, int bit_inc, int pad_y, int pad_c, int* out, cudaStream_t st) {
+  const MergeArgs a{org_y, org_cb, org_cr, refs_y, refs_c, d_y, d_cb, d_cr,
+                    b_y, b_cb, b_cr, mvx, mvy, ref, lam, cw, out,
+                    org_cols, corg_cols, n_refs, rows_y, cols_y, rows_c,
+                    cols_c, nby, nbx, bit_inc, pad_y, pad_c};
   if (nby <= 0 || nbx <= 0 || n_refs < 1) return (int)cudaErrorInvalidValue;
   switch (s) {
     case 8: return launch_merge<8>(a, st);

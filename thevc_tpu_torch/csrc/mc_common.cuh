@@ -51,6 +51,17 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// cp.async groups: close the thread's group of copies; wait until at most
+// N of its groups are in flight
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
 __device__ __forceinline__ unsigned pack2(int lo, int hi) {
   return (unsigned)(lo & 0xffff) | ((unsigned)hi << 16);
 }
@@ -121,6 +132,122 @@ __device__ __forceinline__ void first_pass8(const int16_t* s,
     res[c] = (acc + off) >> sh;
   }
   store8(dst, res);
+}
+
+// A phase's taps as int8 pairs for __dp2a_lo: word q holds taps 2 q and
+// 2 q + 1 in its low two bytes
+template <int TAPS>
+__device__ __forceinline__ void tap_pairs(int phase,
+                                          unsigned (&w)[TAPS / 2]) {
+  int t[TAPS];
+  taps_of<TAPS>(phase, t);
+#pragma unroll
+  for (int q = 0; q < TAPS / 2; ++q) {
+    w[q] = (unsigned)(t[2 * q] & 0xff) | ((unsigned)(t[2 * q + 1] & 0xff) << 8);
+  }
+}
+
+// first_pass8 by two-sample dot products: window samples s[0 .. TAPS + 6]
+// read as 32-bit words from s - B (B = the start's parity, a 4-byte
+// aligned address); pair j = (s[j], s[j + 1]) is a word or one byte
+// permute of two; the same integers as the tap by tap sum
+template <int TAPS, int B>
+__device__ __forceinline__ void first_pass8_pairs(
+    const int16_t* s, const unsigned (&tp)[TAPS / 2], int sh, int off,
+    int16_t* dst) {
+  constexpr int NW = (TAPS + 8) / 2, NP = TAPS + 6;
+  const unsigned* w = reinterpret_cast<const unsigned*>(s - B);
+  unsigned word[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) word[k] = w[k];
+  unsigned pair[NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const int at = j + B;             // the pair's first sample in words
+    pair[j] = at & 1 ? __byte_perm(word[at >> 1], word[(at >> 1) + 1], 0x5432)
+                     : word[at >> 1];
+  }
+  int res[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    int acc = 0;
+#pragma unroll
+    for (int q = 0; q < TAPS / 2; ++q) {
+      acc = __dp2a_lo((int)pair[c + 2 * q], (int)tp[q], acc);
+    }
+    res[c] = (acc + off) >> sh;
+  }
+  store8(dst, res);
+}
+
+template <int TAPS>
+__device__ __forceinline__ void first_pass8_pairs(
+    const int16_t* s, int parity, const unsigned (&tp)[TAPS / 2], int sh,
+    int off, int16_t* dst) {
+  if (parity) {
+    first_pass8_pairs<TAPS, 1>(s, tp, sh, off, dst);
+  } else {
+    first_pass8_pairs<TAPS, 0>(s, tp, sh, off, dst);
+  }
+}
+
+// The 2-D case's last pass to pixels of outputs (i, 8 g .. 8 g + 7) by
+// two-row dot products: rows i + 2 q and i + 2 q + 1 of the first pass
+// (row stride tw) paired column by column with one byte permute a pair
+template <int TAPS>
+__device__ __forceinline__ void last_pass8_pairs(
+    const int16_t* tmp, int tw, int i, int g,
+    const unsigned (&tp)[TAPS / 2], int bd, int (&res)[8]) {
+  int acc[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) acc[c] = 0;
+#pragma unroll
+  for (int q = 0; q < TAPS / 2; ++q) {
+    const uint4 a = *reinterpret_cast<const uint4*>(
+        tmp + (i + 2 * q) * tw + 8 * g);
+    const uint4 b = *reinterpret_cast<const uint4*>(
+        tmp + (i + 2 * q + 1) * tw + 8 * g);
+    const unsigned wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc[2 * k] = __dp2a_lo((int)__byte_perm(wa[k], wb[k], 0x5410),
+                             (int)tp[q], acc[2 * k]);
+      acc[2 * k + 1] = __dp2a_lo((int)__byte_perm(wa[k], wb[k], 0x7632),
+                                 (int)tp[q], acc[2 * k + 1]);
+    }
+  }
+  const int sh = kFilterPrec + kInternalPrec - bd;
+  const int off2 = (1 << (sh - 1)) + (kInternalOffs << kFilterPrec);
+  const int top = (1 << bd) - 1;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) res[c] = min(max((acc[c] + off2) >> sh, 0), top);
+}
+
+// A zero phase's pass: the identity tap row's one tap (64, at TAPS / 2 -
+// 1), as the TAPS-tap sum computes it.  First pass over 8 outputs of a
+// row: window samples s[0 .. TAPS + 6] -> dst (16-byte aligned), at 14
+// bits less 8192, wrapped to int16
+template <int TAPS>
+__device__ __forceinline__ void first_pass8_copy(const int16_t* s, int sh,
+                                                 int off, int16_t* dst) {
+  int res[8];
+#pragma unroll
+  for (int c = 0; c < 8; ++c) res[c] = (64 * s[c + TAPS / 2 - 1] + off) >> sh;
+  store8(dst, res);
+}
+
+// The last pass of the 2-D case to pixels from one first-pass value v
+// (a zero vertical phase), or from a window sample x (both phases zero)
+__device__ __forceinline__ int last_pass_copy(int v, int bd) {
+  const int sh = kFilterPrec + kInternalPrec - bd;
+  const int off2 = (1 << (sh - 1)) + (kInternalOffs << kFilterPrec);
+  return min(max((64 * v + off2) >> sh, 0), (1 << bd) - 1);
+}
+
+__device__ __forceinline__ int copy_pixel(int x, int bd) {
+  const int sh1 = kFilterPrec - (kInternalPrec - bd);
+  return last_pass_copy(wrap16((64 * x - kInternalOffs * (1 << sh1)) >> sh1),
+                        bd);
 }
 
 // Outputs (i, 8 g .. 8 g + 7) of one list in case cs: win is the window

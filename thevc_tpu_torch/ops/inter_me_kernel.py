@@ -16,8 +16,8 @@ Three kernels, one entry each, one a stage of ``encoder/fast_inter.py``:
   mvy, ref).  It replaces ``fast_inter.py:367-428``; its interpolation is
   the MC kernel's (``csrc/mc_common.cuh``).
 
-All three are bound by their operations; the designs are in the source's
-header comment.  Their plain PyTorch forms are
+What bounds each on the card and how its design meets it are in the
+source's header comment.  Their plain PyTorch forms are
 ``encoder.fast_inter.coarse_fields_plain``, ``int_refine_plain`` and
 ``merge_model_plain``; every output equals them bit for bit.
 
@@ -29,6 +29,7 @@ before anything is built (``check_coarse``, ``check_refine``,
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -48,10 +49,9 @@ _ENTRIES = {
     "thevc_coarse_search": [_P, _I, _I, _P, _I, _I, _P, _P, _I, _P],
     "thevc_int_refine": [_P, _I, _P, _I, _I, _P, _P, _P, _I, _I, _I, _P, _I,
                          _I, _P, _P, _P],
-    "thevc_merge_model": [_P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
-                          _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I,
-                          _P, _P, _P, _P, _P],
+    "thevc_merge_model": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
+                          _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 # kernel launches made by each entry; plain integers that a run resets and
@@ -64,6 +64,14 @@ merge_launches = 0
 def build() -> ctypes.CDLL:
     """Compile (if not built yet) and load the kernel library."""
     return _build.load(NAME, _ENTRIES)
+
+
+def _on(dev: torch.device):
+    """A context on ``dev``: none when it is the current device already
+    (a device switch costs the host a few microseconds a launch)."""
+    if dev.index is None or dev.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
 
 
 def _pointers(ts) -> ctypes.Array:
@@ -143,6 +151,21 @@ def check_coarse(org_q: torch.Tensor, refs_q: list, rng_q: int,
     _check_scalar(sqrt_lam, "sqrt_lam", dev)
 
 
+def coarse_outputs(hq: int, wq: int, sizes: tuple, device) -> dict:
+    """The coarse search's outputs: per size s an int64 [3, hq * 4 // s,
+    wq * 4 // s] view, class after class in one buffer (the kernel's
+    layout)."""
+    shapes = [(3, hq * 4 // s, wq * 4 // s) for s in sizes]
+    flat = torch.empty(sum(a * b * c for a, b, c in shapes),
+                       dtype=torch.int64, device=device)
+    out, at = {}, 0
+    for s, shape in zip(sizes, shapes):
+        n = shape[0] * shape[1] * shape[2]
+        out[s] = flat[at:at + n].view(shape)
+        at += n
+    return out
+
+
 def coarse_search(org_q: torch.Tensor, refs_q: list, rng_q: int,
                   sqrt_lam: torch.Tensor, sizes: tuple) -> dict:
     """Launch the coarse search of one list: the pooled source int16
@@ -154,13 +177,12 @@ def coarse_search(org_q: torch.Tensor, refs_q: list, rng_q: int,
     check_coarse(org_q, refs_q, rng_q, sqrt_lam, sizes)
     hq, wq = (int(v) for v in org_q.shape)
     dev = org_q.device
-    outs = {s: torch.empty((3, hq * 4 // s, wq * 4 // s), dtype=torch.int64,
-                           device=dev) for s in sizes}
+    outs = coarse_outputs(hq, wq, tuple(sizes), dev)
     lib = build()
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.thevc_coarse_search(
             org_q.data_ptr(), hq, wq, _pointers(refs_q), len(refs_q), rng_q,
-            sqrt_lam.data_ptr(), _pointers(list(outs.values())), len(outs),
+            sqrt_lam.data_ptr(), outs[sizes[0]].data_ptr(), len(outs),
             _build.stream_of(dev))
     _build.check(lib, rc, "coarse search kernel launch")
     coarse_launches += 1
@@ -200,7 +222,7 @@ def int_refine(org: torch.Tensor, refs_y: torch.Tensor, coarse: tuple,
     out = torch.empty((2, nb), dtype=torch.int64, device=dev)
     c_dy, c_dx, c_ref = coarse
     lib = build()
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.thevc_int_refine(
             org.data_ptr(), int(org.shape[1]), refs_y.data_ptr(),
             int(refs_y.shape[1]), int(refs_y.shape[2]), c_dy.data_ptr(),
@@ -217,12 +239,13 @@ def check_merge(orgs: tuple, refs_y: torch.Tensor, refs_c: torch.Tensor,
                 winner: tuple, lam: torch.Tensor, cw: torch.Tensor,
                 bit_increment: int) -> None:
     """Raise on any input the merge model does not take (but a device
-    that is not CUDA): the source planes (luma int16 [>= nby s, >= nbx s],
-    Cb and Cr int16 of one shape [>= nby s/2, >= nbx s/2]), the stacks of
-    the references' luma planes [P, H, W] and of their Cb then Cr planes
-    [2P, Hc, Wc], the transform-RD estimates (d_y, b_y, d_cb, b_cb, d_cr,
-    b_cr: int32 dist, float32 bits, [nb] each), the winner (mvx, mvy, ref:
-    int32 [nb] each), contiguous."""
+    that is not CUDA: the entry refuses that): the source planes (luma
+    int16 [>= nby s, >= nbx s], Cb and Cr int16 of one shape [>= nby s/2,
+    >= nbx s/2]), the stacks of the references' luma planes [P, H, W] and
+    of their Cb then Cr planes [2P, Hc, Wc], the transform-RD estimates
+    (d_y, b_y, d_cb, b_cb, d_cr, b_cr: int32 dist, float32 bits, [nb]
+    each), the winner (mvx, mvy, ref: int32 [nb] each), contiguous.
+    One pass, in this order: the first input that fails raises."""
     _check_grid(s, nby, nbx, bit_increment)
     nb = nby * nbx
     dev = orgs[0].device
@@ -261,27 +284,29 @@ def merge_model(orgs: tuple, refs_y: torch.Tensor, refs_c: torch.Tensor,
     the references' planes padded by ``pad_y`` (luma) and ``pad_c``
     (chroma), the winner's transform-RD estimates and MV (quarter pel)
     and reference, lambda and the chroma weight (float32 on the card) ->
-    (rd float32, mvx, mvy, ref int32), each [nby, nbx]."""
+    (rd float32, mvx, mvy, ref int32), each [nby, nbx]: views of one
+    int32 [4, nby, nbx] buffer, rd's float32 bits first."""
     global merge_launches
     _check_cuda(orgs[0], "org")
     check_merge(orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, cw,
                 bit_increment)
     dev = orgs[0].device
-    rd = torch.empty((nby, nbx), dtype=torch.float32, device=dev)
-    out = torch.empty((3, nby, nbx), dtype=torch.int32, device=dev)
+    out = torch.empty((4, nby, nbx), dtype=torch.int32, device=dev)
+    org_y, org_cb, org_cr = orgs
     d_y, b_y, d_cb, b_cb, d_cr, b_cr = rd_terms
     mvx, mvy, ref = winner
     lib = build()
-    with torch.cuda.device(dev):
+    with _on(dev):
         rc = lib.thevc_merge_model(
-            _pointers(orgs), int(orgs[0].shape[1]), int(orgs[1].shape[1]),
-            refs_y.data_ptr(), int(refs_y.shape[0]), int(refs_y.shape[1]),
-            int(refs_y.shape[2]), refs_c.data_ptr(), int(refs_c.shape[1]),
-            int(refs_c.shape[2]), _pointers((d_y, d_cb, d_cr)),
-            _pointers((b_y, b_cb, b_cr)), mvx.data_ptr(), mvy.data_ptr(),
-            ref.data_ptr(), lam.data_ptr(), cw.data_ptr(), s, nby, nbx,
-            bit_increment, pad_y, pad_c, rd.data_ptr(), out[0].data_ptr(),
-            out[1].data_ptr(), out[2].data_ptr(), _build.stream_of(dev))
+            org_y.data_ptr(), org_cb.data_ptr(), org_cr.data_ptr(),
+            org_y.shape[1], org_cb.shape[1], refs_y.data_ptr(),
+            refs_y.shape[0], refs_y.shape[1], refs_y.shape[2],
+            refs_c.data_ptr(), refs_c.shape[1], refs_c.shape[2],
+            d_y.data_ptr(), d_cb.data_ptr(), d_cr.data_ptr(),
+            b_y.data_ptr(), b_cb.data_ptr(), b_cr.data_ptr(),
+            mvx.data_ptr(), mvy.data_ptr(), ref.data_ptr(), lam.data_ptr(),
+            cw.data_ptr(), s, nby, nbx, bit_increment, pad_y, pad_c,
+            out.data_ptr(), _build.stream_of(dev))
     _build.check(lib, rc, "merge model kernel launch")
     merge_launches += 1
-    return rd, out[0], out[1], out[2]
+    return out[0].view(torch.float32), out[1], out[2], out[3]

@@ -1,6 +1,7 @@
-"""The P/B decision pass of one 1080p B frame, checkout against checkout,
-on one card: walls, and per stage its wall, device time and device
-activities.
+"""The P/B decision pass of one 1080p B frame and its motion-search
+kernels (``csrc/inter_me.cu``), checkout against checkout, on one card:
+walls, per stage its wall, device time and device activities, and each
+kernel's calls held against their plain forms and timed.
 
 In each given checkout, with that checkout's ``chip_smoke.py`` helpers
 and port, encodes the first 4 frames of the 1080p motion clip with the
@@ -11,19 +12,31 @@ synchronised walls, then one call with stage timing on under
 ``torch.profiler`` (``stage_profile`` of this tool's own
 ``chip_smoke.py``, which charges each device activity to the
 ``fast_inter.*`` stage that launched it).  A checkout whose stages open
-no profiler range gets them here.  Each checkout runs in a child process
-of its own, one after another in the order given; give the parent and
-the change in turns to compare them on one card:
+no profiler range gets them here.  Then the frame's 18 motion-search
+kernel calls (2 coarse searches, 8 refinements, 8 merge models), and
+the same frame's as 10 bits (``ten_bit_b_call``), are recorded with the
+checkout's ``recorded_inter_me_calls`` and held against their plain
+forms with its ``held_inter_me_calls`` (tolerance 0, floats bit for
+bit): each call eager (CUDA events around 20 calls) and as a CUDA graph
+of 20, summed per kernel.  Each checkout runs in a child process of its
+own, one after another in the order given; give the parent and the
+change in turns to compare them on one card:
 
     python tools/inter_me_ab.py PARENT CHANGE CHANGE PARENT
 
 Each child builds its checkout's kernels and native core at first use
 (in the checkout's ``build/``, where it also writes its clip).  Prints
-the card's name and power limit and one ``inter_me_ab <turn> <checkout>
-{...}`` line a turn, then ``inter_me_ab_summary``: per checkout the
-least of its turns (walls, device time, and each stage's wall, device
-time, activities and largest device items).  With ``--log PATH`` it appends the lines to that
-JSON-lines file.  Exits nonzero when a child fails.
+the card's name and power limit, one ``inter_me_ab <turn> <checkout>
+{...}`` line a turn and, for each checkout's first turn, one
+``inter_me_ab_build <checkout> {...}`` line (``chip_smoke.build_report``
+of this tool's checkout on that checkout's motion-search library:
+registers, spills, SASS counts and loops), then
+``inter_me_ab_summary``: per checkout the least of its turns (walls,
+device time, each stage's wall, device time, activities and largest
+device items, and per bit depth and kernel its calls' eager and graph
+ms) and each kernel's times over the first checkout's.  With ``--log
+PATH`` it appends the lines to that JSON-lines file.  Exits nonzero when
+a child fails.
 """
 
 from __future__ import annotations
@@ -83,6 +96,28 @@ for _ in range(3):
     walls.append(1000 * (tool.time.perf_counter() - t))
 out = tool.stage_profile(torch, run)
 out.update(profiled_wall_ms=out.pop("wall_ms"), wall_ms=walls)
+kernels = {}
+for tag, (a, r1) in (("8bit", (args, refs1)),
+                     ("10bit", c.ten_bit_b_call(args, refs1))):
+    kcache = fast_inter.RefCache()
+
+    def run_k(a=a, r1=r1, kcache=kcache):
+        return fast_inter.decide_frame_p(*a, ref_pics_l1=r1, device="cuda",
+                                         ref_cache=kcache)
+    run_k()
+    mcalls = {}
+    c.zero_inter_me_counts()
+    with c.recorded_inter_me_calls(mcalls):
+        run_k()
+    launches = c.inter_me_counts()
+    err, sums = c.held_inter_me_calls(torch, mcalls, tag, launches)
+    kernels[tag] = {name: {k: row[k] for k in (
+        "calls", "launches", "ms", "graph_ms", "bound_ms", "max_abs_err",
+        "per_call_graph_ms")} for name, row in sums.items()}
+    del mcalls, kcache
+out["kernels"] = kernels
+from thevc_tpu_torch.ops import build
+out["inter_me_library"] = str(build.library_path("inter_me"))
 print("inter_me_ab " + json.dumps(out), flush=True)
 """
 KEEP = ("gpu ", "inter_me_ab ")
@@ -90,9 +125,10 @@ KEEP = ("gpu ", "inter_me_ab ")
 
 def summary(results: list) -> dict:
     """Per checkout the least of its turns: the median wall, the
-    profiled call's device time and activities, and each stage's wall,
+    profiled call's device time and activities, each stage's wall,
     device time and activities (its largest device items as in its first
-    turn)."""
+    turn), and per bit depth and kernel its calls' summed eager and graph
+    ms, with each kernel's times over the first checkout's."""
     best: dict = {}
     for checkout, res in results:
         mine = best.setdefault(checkout, {})
@@ -107,6 +143,20 @@ def summary(results: list) -> dict:
             for k, v in row.items():
                 if isinstance(v, (int, float)):
                     s[k] = min(s[k], v)
+        kernels = mine.setdefault("kernels", {})
+        for tag, rows in res.get("kernels", {}).items():
+            for name, row in rows.items():
+                k = kernels.setdefault(f"{tag}/{name}", dict(
+                    calls=row["calls"], launches=row["launches"],
+                    bound_ms=row["bound_ms"]))
+                for key in ("ms", "graph_ms"):
+                    k[key] = min(k.get(key, row[key]), row[key])
+    first = next(iter(best.values()), {}).get("kernels", {})
+    for mine in best.values():
+        for key, row in mine.get("kernels", {}).items():
+            if key in first:
+                for k in ("ms", "graph_ms"):
+                    row[f"{k}_over_first"] = row[k] / first[key][k]
     return best
 
 
@@ -119,9 +169,12 @@ def main(argv=None) -> int:
                     help="append the kept lines to this JSON-lines file")
     args = ap.parse_args(argv)
     child = f"SMOKE = {str(SMOKE)!r}\n" + CHILD
+    sys.path.insert(0, str(SMOKE.parent))
+    from chip_smoke import build_report
     failed = 0
     results = []
     lines = []
+    built: set = set()
     for turn, checkout in enumerate(args.checkouts):
         t = time.perf_counter()
         r = subprocess.run([sys.executable, "-c", child],
@@ -136,8 +189,15 @@ def main(argv=None) -> int:
                 lines.append({"turn": turn, "checkout": str(checkout),
                               "line": line})
             if line.startswith("inter_me_ab "):
-                results.append((str(checkout),
-                                json.loads(line.split(" ", 1)[1])))
+                res = json.loads(line.split(" ", 1)[1])
+                results.append((str(checkout), res))
+                if str(checkout) not in built:
+                    built.add(str(checkout))
+                    report = build_report(Path(res["inter_me_library"]))
+                    bline = f"inter_me_ab_build {checkout} " + json.dumps(
+                        report)
+                    print(bline, flush=True)
+                    lines.append({"line": bline})
         if r.returncode:
             failed += 1
             print(r.stdout[-3000:] + r.stderr[-3000:], flush=True)
