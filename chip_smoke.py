@@ -180,9 +180,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    against its plain form (integers tolerance 0, floats bit for bit) and
    timed: eager, a CUDA graph of 20, the plain form, beside its bound
    (``inter_me_bound``: the inputs read once, the outputs written once,
-   the distinct reference samples the windows read; the differences,
-   filter taps and costs at the int32 rate; the coarse search also
-   beside its design's own floor, ``coarse_floor_ms``), one ``kernel
+   the distinct reference samples the windows read; the differences
+   (two instructions each: the absolute value is an operand modifier of
+   the float add), filter taps and costs at the int32 rate), one ``kernel
    coarse_search`` / ``int_refine`` / ``merge_model`` line of each
    entry's calls summed, with its launches in the pass; then the same frame as 10 bits (samples << 2,
    QPs + 12): the kernel and plain routes' maps equal and each
@@ -385,10 +385,12 @@ RESIDUAL_TIMING = [(4, True, 0, 1.0), (4, False, 0, 1.0), (8, False, 0, 1.0),
                    (32, False, 0, 0.25), (32, False, 0, 0.0)]
 # published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, dense int8 tensor-core ops/s, float32 ops/s outside the tensor
-# cores; int32 multiply-adds run at half the float32 rate (132 SMs x 64
-# lanes x 2 ops x 1.98 GHz), the rate the int32 work is held to.  The
-# float32 rate gives the bounds counted before (``fp32_bound_ms``), so
-# that the older shares stay comparable
+# cores (an FMA two).  INT32_OPS, the rate the integer work is held to, is
+# the float pipe's instruction rate, 132 SMs x 128 lanes x 1.98 GHz: a
+# valid lower bound for work that can run on the float pipe; the 64
+# INT32 lanes an SM issue half of it.  The float32 rate gives the bounds
+# counted before (``fp32_bound_ms``), so that the older shares stay
+# comparable
 HBM_BYTES_S = 3.35e12
 INT8_TENSOR_OPS = 1.979e15
 FP32_OPS = 67e12
@@ -2121,14 +2123,16 @@ def inter_me_bound(torch, name: str, a) -> tuple:
     """(bytes, operations, bound_ms, bound_by) of one motion-search
     kernel call, its inputs read once and its outputs written once, its
     operations at the int32 rate.
+    A difference of two samples and its sum is two instructions, a
+    subtraction and an add of the absolute value (an operand modifier of
+    the float add; float sums of samples are exact below 2^24): the
+    least the card can issue for it.
     coarse_search: the pooled source and bands, the int64 (dy, dx, ref)
-    of every block; per reference and offset a difference, an absolute
-    value and a sum a pooled sample, and per block a cost (conversion,
-    product, sum, comparison).
+    of every block; per reference and offset a difference a pooled
+    sample, and per block a cost (conversion, product, sum, comparison).
     int_refine: the source blocks, the distinct reference samples of the
     blocks' (s + 6)-square windows, the int64 coarse field in and the
-    int64 MV out; 49 differences, absolutes and sums a sample and about
-    6 operations a candidate's cost.
+    int64 MV out; ``refine_ops``.
     merge_model: the source blocks (luma, Cb, Cr), the distinct
     reference samples of the three luma candidates' (s + 7)-square
     windows and of the Cb and Cr windows of the candidate the luma SSE
@@ -2144,7 +2148,7 @@ def inter_me_bound(torch, name: str, a) -> tuple:
         blocks = sum((hq * 4 // s) * (wq * 4 // s) for s in sizes)
         nbytes = 2 * hq * wq + sum(2 * r.numel() for r in refs_q) \
             + 24 * blocks + 4
-        ops = len(refs_q) * n_off * n_off * (3 * hq * wq + 4 * blocks)
+        ops = len(refs_q) * n_off * n_off * (2 * hq * wq + 4 * blocks)
         return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
     from thevc_tpu_torch.encoder import fast_inter
     if name == "int_refine":
@@ -2156,7 +2160,7 @@ def inter_me_bound(torch, name: str, a) -> tuple:
                              by + c_dy.reshape(-1) + pad - 3,
                              bx + c_dx.reshape(-1) + pad - 3, s + 6, s + 6) \
             + 2 * nb * s * s + 24 * nb + 16 * nb + 4
-        ops = nb * (49 * 3 * s * s + 49 * 6)
+        ops = refine_ops(s, nb)
         return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
     (orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, _cw, bit_inc,
      pad_y, pad_c) = a
@@ -2202,19 +2206,12 @@ def inter_me_bound(torch, name: str, a) -> tuple:
     return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
 
 
-def coarse_floor_ms(a) -> float:
-    """The least time the coarse kernel's own design can take for a
-    call: per reference, offset and pooled sample two float instructions
-    (a subtraction, an add of the absolute value: the absolute value is
-    an operand modifier of the add), per block cost the bound's four, at
-    the float pipe's instruction rate (FP32_OPS / 2: a lane an add a
-    clock).  Below ``inter_me_bound``'s count of three a sample."""
-    org_q, refs_q, rng_q, _sl, sizes = a
-    hq, wq = (int(v) for v in org_q.shape)
-    n_off = 2 * rng_q + 1
-    blocks = sum((hq * 4 // s) * (wq * 4 // s) for s in sizes)
-    ops = len(refs_q) * n_off * n_off * (2 * hq * wq + 4 * blocks)
-    return 1000 * ops / (FP32_OPS / 2)
+def refine_ops(s: int, nb: int) -> int:
+    """The operations of one integer-refinement call of nb blocks of s x
+    s: per block, candidate and source sample a difference at two
+    instructions (``inter_me_bound``), per candidate about 6 for its
+    cost."""
+    return nb * 49 * (2 * s * s + 6)
 
 
 def held_inter_me_calls(torch, calls: dict, tag: str,
@@ -2223,7 +2220,10 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
     the card (integers and MVs tolerance 0, floats bit for bit) and timed
     (20 eager calls, a CUDA graph of 20, the plain form) beside its
     bound; per entry one ``kernel <entry>`` line of the calls summed,
-    with the entry's launches in the pass (``launches``).  Returns
+    with the entry's launches in the pass (``launches``), each call's
+    eager and graph ms and size class (``per_call_*``; the coarse
+    search's 0, all classes at once) and the graph ms summed by class
+    (``by_class``).  Returns
     (largest error, {entry: summed row})."""
     from thevc_tpu_torch.ops import inter_me_kernel
     max_err = 0.0
@@ -2253,9 +2253,8 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
                 ms=time_ms(torch, lambda: kernel(*a), 20),
                 graph_ms=graph_ms(torch, lambda: kernel(*a), 20),
                 plain_ms=time_ms(torch, plain, 3), bytes=nbytes, ops=ops,
-                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err))
-            if name == "coarse_search":
-                rows[-1]["floor_ms"] = coarse_floor_ms(a)
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+                s=0 if name == "coarse_search" else a[3]))
         if not rows:
             continue
         row = {k: sum(r[k] for r in rows) for k in (
@@ -2267,10 +2266,12 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
             else "operations", library_ms=None,
             share_of_bound=row["bound_ms"] / row["ms"],
             graph_share_of_bound=row["bound_ms"] / row["graph_ms"],
-            per_call_graph_ms=[r["graph_ms"] for r in rows])
-        if name == "coarse_search":
-            row["floor_ms"] = sum(r["floor_ms"] for r in rows)
-            row["graph_share_of_floor"] = row["floor_ms"] / row["graph_ms"]
+            per_call_graph_ms=[r["graph_ms"] for r in rows],
+            per_call_ms=[r["ms"] for r in rows],
+            per_call_class=[r["s"] for r in rows], by_class={})
+        for r in rows:
+            row["by_class"][r["s"]] = row["by_class"].get(r["s"], 0.0) \
+                + r["graph_ms"]
         sums[name] = row
         print(f"kernel {name} " + json.dumps(row))
     return max_err, sums

@@ -513,6 +513,148 @@ def test_int_refine_flat_ties_take_the_first_candidate(cuda):
     assert torch.equal(got[1], coarse[0].reshape(-1) - 3)
 
 
+def _refine_both(cuda, org, ry, coarse, s, nby, nbx, sqrt_lam, bit_inc):
+    """The kernel and the plain form on the same CUDA tensors, held equal
+    at tolerance 0; returns the kernel's (int_mx, int_my)."""
+    sl = scalar(cuda, sqrt_lam)
+    got = kern.int_refine(org, ry, coarse, s, nby, nbx, sl, bit_inc,
+                          fast_inter.PAD_FULL)
+    want = fast_inter.int_refine_plain(org, ry, coarse, s, nby, nbx, sl,
+                                       bit_inc)
+    torch.cuda.synchronize()
+    assert_same(got, want)
+    return got
+
+
+def _zero_coarse(cuda, nby, nbx):
+    z = torch.zeros((nby, nbx), dtype=torch.int64, device=cuda)
+    return z, z.clone(), z.clone()
+
+
+# (period in rows, period in columns, planted MV (dy, dx), the first
+# minimum with sqrt_lam 0, and with the real one): a reference that
+# repeats with the period gives every candidate a period from the planted
+# one the same window.  (4, 4): (+-2, +-2) tie, slots (1, 1), (1, 5),
+# (5, 1), (5, 5), with equal MV bits too; (4, 7): dy -2 and +2 tie, other
+# lanes at every s; (7, 2): dx -3, -1, 1, 3 tie, bits split them into -1
+# and +1 (lanes 2l, 2l + 1 apart at s >= 32, one lane below)
+PLANTED = [((4, 4), (-2, -2), (-2, -2), (-2, -2)),
+           ((4, 7), (-2, 1), (-2, 1), (-2, 1)),
+           ((7, 2), (1, -1), (1, -3), (1, -1))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("real_lam", [False, True], ids=["lam0", "lam"])
+@pytest.mark.parametrize("planted", range(len(PLANTED)))
+@pytest.mark.parametrize("s", SIZES)
+def test_int_refine_planted_ties_across_lanes(cuda, s, planted, real_lam):
+    """Equal-cost candidates that the reduction leaves on different lanes
+    (and, for (7, 2) below s = 32, on one lane): the first in (dy, dx)
+    raster order wins, as the plain form's ``argmin``.  The coarse field
+    is zero, so the predictor is zero and MV bits are symmetric."""
+    (per_y, per_x), (my, mx), first0, first = PLANTED[planted]
+    rng = np.random.RandomState(40 + s + planted)
+    nby, nbx = 256 // s // 2, 384 // s // 2
+    h, w = nby * s, nbx * s
+    pad = fast_inter.PAD_FULL
+    g = rng.randint(0, 256, (per_y, per_x))
+    ys = np.arange(h + 2 * pad)[:, None]
+    xs = np.arange(w + 2 * pad)[None, :]
+    ry = g[ys % per_y, xs % per_x].astype(np.int16)[None]
+    # org(y, x) = the reference at (y + my, x + mx)
+    org = g[(np.arange(h)[:, None] + pad + my) % per_y,
+            (np.arange(w)[None, :] + pad + mx) % per_x].astype(np.int16)
+    org, ry = torch.from_numpy(org).to(cuda), torch.from_numpy(ry).to(cuda)
+    got = _refine_both(cuda, org, ry, _zero_coarse(cuda, nby, nbx), s, nby,
+                       nbx, SQRT_LAM if real_lam else 0.0, 0)
+    dy, dx = first if real_lam else first0
+    assert (got[0] == dx).all() and (got[1] == dy).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("src_top", [True, False], ids=["src4095", "src0"])
+@pytest.mark.parametrize("s", SIZES)
+def test_int_refine_extreme_samples_at_12_bits(cuda, s, src_top):
+    """bit_inc 4: a source of 4095 against windows of 0 with a sparse
+    4095 (and the reverse), so that an s = 64 block's SAD reaches
+    16,773,120 and the candidates differ by multiples of 4095."""
+    top, bit_inc = 4095, 4
+    rng = np.random.RandomState(70 + s)
+    nby, nbx = 128 // s, 192 // s
+    h, w = nby * s, nbx * s
+    pad = fast_inter.PAD_FULL
+    org = np.full((h, w), top if src_top else 0, np.int16)
+    sparse = rng.rand(1, h + 2 * pad, w + 2 * pad) < 0.02
+    ry = np.where(sparse, top, 0) if src_top else np.where(sparse, 0, top)
+    org = torch.from_numpy(org).to(cuda)
+    ry = torch.from_numpy(ry.astype(np.int16)).to(cuda)
+    for sl in (0.0, SQRT_LAM):
+        coarse = random_coarse(np.random.RandomState(s), cuda, nby, nbx, 1)
+        _refine_both(cuda, org, ry, coarse, s, nby, nbx, sl, bit_inc)
+    # every candidate of the uniform reverse plane ties: the first wins
+    flat = torch.full((1, h + 2 * pad, w + 2 * pad), 0 if src_top else top,
+                      dtype=torch.int16, device=cuda)
+    coarse = random_coarse(np.random.RandomState(s), cuda, nby, nbx, 1)
+    got = _refine_both(cuda, org, flat, coarse, s, nby, nbx, 0.0, bit_inc)
+    assert torch.equal(got[0], coarse[1].reshape(-1) - 3)
+    assert torch.equal(got[1], coarse[0].reshape(-1) - 3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("s,nby,nbx", [(8, 5, 7), (16, 3, 5), (32, 3, 3),
+                                       (64, 1, 3)])
+def test_int_refine_ragged_grids(cuda, s, nby, nbx):
+    """Grids whose blocks do not fill the last CTA (32, 16 and 4 blocks a
+    CTA below s = 64), on planes 5 rows and 3 columns larger than the
+    grid: the source's rows are not 16-byte aligned and the references'
+    width is odd, so that rows start on either half of a word."""
+    for bit_inc in (0, 2):
+        p = on(cuda, make_planes(80 + s, nby * s + 5, nbx * s + 3, 2,
+                                 bit_inc))
+        coarse = random_coarse(np.random.RandomState(s + bit_inc), cuda,
+                               nby, nbx, 2)
+        for sl in (0.0, SQRT_LAM):
+            _refine_both(cuda, p["org"], p["ry"], coarse, s, nby, nbx, sl,
+                         bit_inc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+@pytest.mark.parametrize("s", SIZES)
+def test_int_refine_windows_past_the_plane(cuda, s, offset):
+    """Coarse MVs that take windows past the padded plane's edges (the
+    clamped reads) and onto the last columns and rows of the unclamped
+    ones; with ``offset`` the reference stack starts one sample into its
+    storage, so that no row is word aligned as allocated."""
+    nby, nbx = 128 // s, 192 // s
+    p = on(cuda, make_planes(90 + s, nby * s, nbx * s, 2, 2))
+    ry = p["ry"]
+    if offset:
+        flat = torch.zeros(ry.numel() + 1, dtype=torch.int16, device=cuda)
+        flat[1:] = ry.reshape(-1)
+        ry = flat[1:].view(ry.shape)
+        assert ry.is_contiguous() and ry.data_ptr() % 4 == 2
+    pad, kw = fast_inter.PAD_FULL, s + 6
+    rows, cols = ry.shape[1], ry.shape[2]
+    rng = np.random.RandomState(s)
+    by = (np.arange(nby) * s)[:, None]
+    bx = (np.arange(nbx) * s)[None, :]
+    # window origins: past each edge, and each side of the word and
+    # plane limits of the unclamped reads
+    x_at = np.array([-kw, -3, -1, 0, 1, 2, cols - kw - 3, cols - kw - 2,
+                     cols - kw - 1, cols - kw, cols - 2])
+    y_at = np.array([-kw, -1, 0, 1, rows - kw - 1, rows - kw, rows - kw + 1,
+                     rows - 2])
+    x0 = x_at[rng.randint(0, len(x_at), (nby, nbx))]
+    y0 = y_at[rng.randint(0, len(y_at), (nby, nbx))]
+    c_dx = torch.from_numpy((x0 - bx - pad + 3).astype(np.int64)).to(cuda)
+    c_dy = torch.from_numpy((y0 - by - pad + 3).astype(np.int64)).to(cuda)
+    c_ref = torch.from_numpy(rng.randint(0, 2, (nby, nbx))).to(cuda)
+    for sl in (0.0, SQRT_LAM):
+        _refine_both(cuda, p["org"], ry, (c_dy, c_dx, c_ref), s, nby, nbx,
+                     sl, 2)
+
+
 def _merge_both(cuda, p, s, rd_terms, winner, lam, cw):
     h, w = p["org"].shape
     args = (p["org"], p["org_cb"], p["org_cr"], p["ry"], p["rc"], s,

@@ -61,14 +61,53 @@
 // with (px, py) the median of the coarse field's left, above and
 // above-right MVs (zero outside the grid), and the first minimum of
 //   float(sad) + sqrt_lam * float(bits)
-// in (dy, dx) raster order.  A team of threads owns a block (8 threads at
-// s = 8, a warp at 16, 128 at 32, 256 at 64), its window in shared
-// memory; a thread takes runs of 8 samples of a row, their source in
-// registers, reads 14 window samples a candidate row and adds into 49
-// sums in registers, which the team adds by shuffles (and shared memory
-// across its warps).
-// What bounds it: operations, 49 s^2 differences a block: 1.0e8 a class
-// and list at 1080p, about 3e8 int32 operations (0.01 ms).
+// in (dy, dx) raster order.
+// What bounds it on this card: the instruction issue.  A class and list
+// at 1080p is 49 s^2 nb = 1.0e8 differences whatever s (nb = 32640,
+// 8160, 2040, 510), 8.2e8 for a B frame's 8 calls.  On the integer pipe
+// (64 lanes an SM) a difference is a subtraction, an absolute value and
+// an add; on the float pipe (128 lanes) two instructions, which is the
+// bound (chip_smoke.py inter_me_bound: 0.0496 ms for the 8 calls).  So:
+// - Differences are float32: samples become 2^23 + sample as they land
+//   (one byte permute: samples are pixels, below 2^16), the sums start
+//   at 2^23, and a lane sums 32 samples, so every value is an integer
+//   below 2^24 and exact; a difference is a subtraction and an add of
+//   its absolute value (an operand modifier).  The sums' float bits are
+//   2^23's plus the integer sum: the team adds them as integers and
+//   takes the biases off at the end.
+// - A team a block, 32 source samples (four runs of 8 of a row) a lane:
+//   2 lanes at s = 8, 8 at 16, a warp at 32, four warps at 64, so that
+//   every lane makes the same 3136 differences and each class at 1080p
+//   is 2040 warps, 15.5 an SM: every CTA of a call is resident at once
+//   (64 threads at s = 8, 128 else, at most 128 registers, 8 or 4 CTAs
+//   an SM).  So no team takes a second block, and no window waits for
+//   another's sums: a team's window is read once, at its start, while
+//   the other CTAs on the SM sum theirs.
+// - The windows go to shared memory as floats, rows padded so that a
+//   lane reads its 14 samples of a candidate row in 16-byte loads (8-byte
+//   at s = 8), the rows a quarter-warp reads on distinct banks; each
+//   read feeds the 7 dx offsets from registers.  Where a window lies
+//   inside the padded plane (always, for search ranges up to 64 and
+//   PAD_FULL's 80) groups of 8 lanes read its rows, a word a lane, so
+//   that a load touches the lines of 4 rows and not of 32, and every
+//   load of a lane is issued before the first is used; else its team
+//   reads at clamped coordinates, as the plain form's gather.
+// - The team's 49 sums are reduce-scattered (slot dy * 8 + dx, 64 with
+//   the empty dx = 7 and dy = 7): each shuffle round halves the slots a
+//   lane holds, 32 + 16 + ... + 64 / lanes shuffles instead of 49 a
+//   butterfly round, and lane l ends with the sums of slots l * 64 /
+//   lanes on (at s = 64 each warp's, the first warp adding the four
+//   warps' columns from shared memory).  Each lane prices its own slots
+//   in the plain form's float order and the lanes take the least (cost,
+//   slot): the first minimum in raster order, ties included.  The lanes
+//   that price read the predictor's neighbours at the start.
+// What bounds it now (H100 80GB HBM3, 700.00 W; PERF.md section 6): the
+// differences issue at about 0.7 of the float pipe's rate (all but 1 %
+// of the summing code is float adds, each with a one-cycle stall), about
+// 10 us of a 15-22 us call; the fill adds 1.4 us at s = 64 to 8 us at
+// s = 8, where 32640 overlapping windows are about 28 MB of L2 sectors;
+// a team's window is needed before its first sum, so only other CTAs'
+// sums hide it.
 //
 // merge_model, one launch a size class and list: the RD cost of the
 // winner (its transform-RD estimates given), then the left, above and
@@ -374,11 +413,24 @@ struct RefineArgs {
 
 template <int S>
 struct RefineShape {
-  static constexpr int kSegs = S * S / 8;           // runs of 8 samples
-  static constexpr int kTeam = kSegs < 256 ? kSegs : 256;
-  static constexpr int kBlocks = 256 / kTeam;       // blocks a CTA
+  // lanes a block: 32 source samples each, four runs of 8 of a row
+  static constexpr int kTeam = S * S / 32;             // 2, 8, 32, 128
+  static constexpr int kThreads = S == 8 ? 64 : 128;
+  static constexpr int kBlocks = kThreads / kTeam;     // 32, 16, 4, 1
+  // s = 8 and 16 are held to 128 registers (8 or 4 CTAs, 16 warps an SM:
+  // every CTA of a 1080p call at once); s = 32 and 64 stay below it
+  // uncapped, and a cap costs them time
+  static constexpr int kMinCtas = S == 8 ? 8 : S == 16 ? 4 : 1;
+  static constexpr int kLanes = kTeam < 32 ? kTeam : 32;  // in one warp
+  static constexpr int kSlots = 64 / kLanes;           // sums a lane prices
   static constexpr int kWin = S + 6;
-  static constexpr int kTeamWarps = kTeam >= 32 ? kTeam / 32 : 1;
+  static constexpr int kPairs = kWin / 2;              // sample pairs a row
+  // floats a window row: 14 at s = 8 (8-byte reads; a 16-lane phase's
+  // 8 blocks x 2 rows fall on distinct banks), else a multiple of 4 with
+  // an odd count of 16-byte units (a quarter-warp's 8 rows on distinct
+  // banks) and room for the 16-float reads of the last run
+  static constexpr int kStride = S == 8 ? 14 : S == 16 ? 28 : S == 32 ? 44
+                                                                    : 76;
 };
 
 // the median of the coarse field's left, above and above-right MVs at
@@ -392,107 +444,326 @@ __device__ __forceinline__ int median_pred(const long long* f, int i, int j,
   return max(min(max(l, u), ur), min(l, u));
 }
 
+// 2^23 + the low (high) 16-bit sample of a word, as a float: one byte
+// permute, exact for samples 0..65535
+constexpr float kBias = 8388608.0f;                    // 2^23
+constexpr unsigned kBiasBits = 0x4B000000u;
+__device__ __forceinline__ float lo_biased(unsigned w) {
+  return __int_as_float(__byte_perm(w, kBiasBits, 0x7410));
+}
+__device__ __forceinline__ float hi_biased(unsigned w) {
+  return __int_as_float(__byte_perm(w, kBiasBits, 0x7432));
+}
+
+// the k-th run of 8 source samples (row i, column j0) of lane t
 template <int S>
-__global__ void __launch_bounds__(256) int_refine_kernel(RefineArgs a) {
+__device__ __forceinline__ void refine_run(int t, int k, int& i, int& j0) {
+  if constexpr (S == 8) {
+    i = t + 2 * k;
+    j0 = 0;
+  } else if constexpr (S == 16) {
+    i = t + 8 * (k >> 1);
+    j0 = 8 * (k & 1);
+  } else if constexpr (S == 32) {
+    i = t;
+    j0 = 8 * k;
+  } else {
+    i = t & 63;
+    j0 = 32 * (t >> 6) + 8 * k;
+  }
+}
+
+// one round of the reduce-scatter: lanes M apart add the C slots of the
+// half each keeps (the upper one where the lane has bit M), then the next
+// round on those C
+template <int C, int M>
+__device__ __forceinline__ void scatter_round(unsigned (&v)[64], int lane) {
+  const bool upper = lane & M;
+#pragma unroll
+  for (int j = 0; j < C; ++j) {
+    const unsigned send = upper ? v[j] : v[j + C];
+    const unsigned keep = upper ? v[j + C] : v[j];
+    v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+  }
+  if constexpr (M > 1) scatter_round<C / 2, M / 2>(v, lane);
+}
+
+// a team's barrier: its warp's lanes, or at s = 64 the CTA
+template <int S>
+__device__ __forceinline__ void team_sync() {
+  if constexpr (S == 64) {
+    __syncthreads();
+  } else {
+    __syncwarp();
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(RefineShape<S>::kThreads,
+                                  RefineShape<S>::kMinCtas)
+int_refine_kernel(RefineArgs a) {
   using Sh = RefineShape<S>;
-  constexpr int kW = Sh::kWin, kTeam = Sh::kTeam;
-  __shared__ int16_t win[Sh::kBlocks][kW * kW];
-  __shared__ int part[Sh::kBlocks][Sh::kTeamWarps][49];
+  constexpr int kW = Sh::kWin, kTeam = Sh::kTeam, kStride = Sh::kStride;
+  constexpr int kLanes = Sh::kLanes;
+  __shared__ __align__(16) float win[Sh::kBlocks][kW * kStride];
+  __shared__ __align__(8) unsigned part[S == 64 ? 4 : 1][64];
+  __shared__ long long origin[Sh::kBlocks];      // a window's first sample
   const int b = threadIdx.x / kTeam, t = threadIdx.x % kTeam;
+  const int lane = threadIdx.x & 31;
   const int nb = a.nby * a.nbx;
   const int n = blockIdx.x * Sh::kBlocks + b;
-  const bool live = n < nb;
-  const int bi = live ? n / a.nbx : 0, bj = live ? n % a.nbx : 0;
+  // a team past the grid repeats the last block and writes nothing: every
+  // lane takes part in the warp's shuffles
+  const int nn = min(n, nb - 1);
+  const int bi = nn / a.nbx, bj = nn % a.nbx;
   const int by = bi * S, bx = bj * S;
-  const int dy0 = live ? (int)a.c_dy[n] : 0;
-  const int dx0 = live ? (int)a.c_dx[n] : 0;
-  const int16_t* plane =
-      a.refs + (live ? a.c_ref[n] : 0) * (long long)a.rows * a.cols;
+  const int dy0 = (int)a.c_dy[nn], dx0 = (int)a.c_dx[nn];
+  const int16_t* plane = a.refs + a.c_ref[nn] * (long long)a.rows * a.cols;
+  // the lanes that price candidates (at s = 64 the first warp) read the
+  // predictor now, so that its loads land while the sums run
+  int px = 0, py = 0;
+  if (S < 64 || threadIdx.x < 32) {
+    px = median_pred(a.c_dx, bi, bj, a.nby, a.nbx);
+    py = median_pred(a.c_dy, bi, bj, a.nby, a.nbx);
+  }
+  const float sqrt_lam = *a.sqrt_lam;
 
-  // the window: candidate (-3, -3)'s first sample at its (0, 0), read at
-  // clamped plane coordinates
-  const int y0 = by + dy0 + a.pad - 3, x0 = bx + dx0 + a.pad - 3;
-  if (live) {
-    for (int e = t; e < kW * kW; e += kTeam) {
-      const int y = min(max(y0 + e / kW, 0), a.rows - 1);
-      const int x = min(max(x0 + e % kW, 0), a.cols - 1);
-      win[b][e] = plane[(long long)y * a.cols + x];
+  // the lane's 4 runs of 8 source samples, 16-byte loads where the plane
+  // allows them (the encoder's planes always do; pairs of 2-byte loads
+  // serve unaligned planes).  The scalar path alone took a 1080p B
+  // frame's 8 calls from 0.1404 to 0.1693 ms as graphs, s = 32 and 64
+  // 1.38x and 1.42x, s = 8 unchanged (H100 80GB HBM3, 700.00 W;
+  // tools/inter_me_ab.py against a copy with the vector path removed)
+  const bool org16 = ((reinterpret_cast<uintptr_t>(a.org) & 15) == 0)
+                     && (a.org_cols & 7) == 0;
+  uint4 src[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int i, j0;
+    refine_run<S>(t, k, i, j0);
+    const int16_t* p = a.org + (long long)(by + i) * a.org_cols + bx + j0;
+    if (org16) {
+      src[k] = __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      unsigned w[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        w[q] = (unsigned)(uint16_t)p[2 * q]
+               | ((unsigned)(uint16_t)p[2 * q + 1] << 16);
+      }
+      src[k] = make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
-  __syncthreads();
 
-  int acc[49];
+  // the windows, candidate (-3, -3)'s first sample at (0, 0), as 2^23 +
+  // sample floats.  Where a window lies inside the padded plane (always,
+  // for search ranges up to 64 and PAD_FULL's 80) the warp (at s = 64 the
+  // CTA) reads its windows' rows a group of 8 lanes a row, each lane a
+  // word and its neighbour's by a shuffle, so that a load touches the
+  // lines of 4 rows and not of 32: a group takes whole windows (s = 8,
+  // 16) or every 4th (16th) row of its team's; every load of a lane is
+  // issued before the first is used, then the sample pairs are stored.
+  // A window that does not lie inside, its team reads at clamped
+  // coordinates, as the plain form's gather
+  const int y0 = by + dy0 + a.pad - 3, x0 = bx + dx0 + a.pad - 3;
+  const bool inside = y0 >= 0 && y0 + kW <= a.rows && x0 >= 1
+                      && x0 + kW + 2 <= a.cols;
+  if (t == 0) {
+    origin[b] = inside ? (plane - a.refs) + (long long)y0 * a.cols + x0 : -1;
+  }
+  team_sync<S>();
+  {
+    constexpr int kGroups = (S == 64 ? Sh::kThreads : 32) / 8;
+    constexpr int kWarpBlocks = S == 64 ? 1 : 32 / kTeam;
+    constexpr bool kWhole = kWarpBlocks >= kGroups;  // a group, whole windows
+    constexpr int kGroupBlocks = kWhole ? kWarpBlocks / kGroups : 1;
+    constexpr int kRowStep = kWhole ? 1 : kGroups;
+    constexpr int kGroupRows = (kW + kRowStep - 1) / kRowStep;
+    constexpr int kWords = (Sh::kPairs + 8) / 8;     // a row's words / 8
+    const int q = lane & 7;
+    const int g = (S == 64 ? threadIdx.x : lane) >> 3;
+    const int b0 = S == 64 ? 0 : (threadIdx.x >> 5) * kWarpBlocks;
+    const int r0 = kWhole ? 0 : g;
+    unsigned w[kGroupBlocks][kGroupRows][kWords];
+    long long off[kGroupBlocks];
 #pragma unroll
-  for (int k = 0; k < 49; ++k) acc[k] = 0;
-  if (live) {
-    for (int seg = t; seg < Sh::kSegs; seg += kTeam) {
-      const int i = seg / (S / 8), j0 = (seg % (S / 8)) * 8;
-      int o[8];
-      const int16_t* src = a.org + (long long)(by + i) * a.org_cols + bx + j0;
+    for (int j = 0; j < kGroupBlocks; ++j) {
+      off[j] = origin[b0 + (kWhole ? g + kGroups * j : 0)];
+      const int16_t* p = a.refs + (off[j] >= 0 ? off[j] : 0)
+                         + (long long)r0 * a.cols;
 #pragma unroll
-      for (int c = 0; c < 8; ++c) o[c] = src[c];
+      for (int i = 0; i < kGroupRows; ++i) {
+        const bool live = off[j] >= 0 && r0 + i * kRowStep < kW;
+        const unsigned* wp = reinterpret_cast<const unsigned*>(
+            reinterpret_cast<uintptr_t>(p) & ~uintptr_t(3));
 #pragma unroll
-      for (int dy = 0; dy < 7; ++dy) {
-        const int16_t* row = win[b] + (i + dy) * kW + j0;
-        int w[14];
+        for (int k = 0; k < kWords; ++k) {
+          w[j][i][k] = (live && q + 8 * k <= Sh::kPairs)
+              ? __ldg(wp + q + 8 * k) : 0u;
+        }
+        p += (long long)kRowStep * a.cols;
+      }
+    }
 #pragma unroll
-        for (int c = 0; c < 14; ++c) w[c] = row[c];
+    for (int j = 0; j < kGroupBlocks; ++j) {
+      const int bw = b0 + (kWhole ? g + kGroups * j : 0);
+      const int16_t* p = a.refs + (off[j] >= 0 ? off[j] : 0)
+                         + (long long)r0 * a.cols;
+#pragma unroll
+      for (int i = 0; i < kGroupRows; ++i) {
+        const int r = r0 + i * kRowStep;
+        // an odd sample start takes each pair across two words
+        const unsigned sel =
+            (reinterpret_cast<uintptr_t>(p) & 2) ? 0x5432u : 0x3210u;
+        float* dst = win[bw] + r * kStride;
+#pragma unroll
+        for (int k = 0; k < kWords; ++k) {
+          const unsigned down = __shfl_down_sync(0xffffffffu, w[j][i][k], 1,
+                                                 8);
+          const unsigned next = k + 1 < kWords
+              ? __shfl_sync(0xffffffffu, w[j][i][k + 1 < kWords ? k + 1 : k],
+                            0, 8)
+              : 0u;
+          const int u = q + 8 * k;
+          if (off[j] >= 0 && r < kW && u < Sh::kPairs) {
+            const unsigned pr = __byte_perm(w[j][i][k], q < 7 ? down : next,
+                                            sel);
+            *reinterpret_cast<float2*>(dst + 2 * u) =
+                make_float2(lo_biased(pr), hi_biased(pr));
+          }
+        }
+        p += (long long)kRowStep * a.cols;
+      }
+    }
+  }
+  if (!inside) {
+    float* wb = win[b];
+    for (int e = t; e < kW * kW; e += kTeam) {
+      const int r = e / kW, c = e - r * kW;
+      const int y = min(max(y0 + r, 0), a.rows - 1);
+      const int x = min(max(x0 + c, 0), a.cols - 1);
+      wb[r * kStride + c] = __int_as_float(
+          kBiasBits | (uint16_t)plane[(long long)y * a.cols + x]);
+    }
+  }
+  team_sync<S>();
+
+  // the 49 sums of the lane's 32 samples: floats that start at 2^23, so
+  // that each stays an exact integer (below 2^24) and its bits are 2^23's
+  // plus the sum; two float instructions a difference (a subtraction of
+  // two biased samples, an add of its absolute value)
+  float acc[49];
+#pragma unroll
+  for (int k = 0; k < 49; ++k) acc[k] = kBias;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int i, j0;
+    refine_run<S>(t, k, i, j0);
+    const unsigned sw[4] = {src[k].x, src[k].y, src[k].z, src[k].w};
+    float o[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      o[2 * q] = lo_biased(sw[q]);
+      o[2 * q + 1] = hi_biased(sw[q]);
+    }
+    const float* row = win[b] + i * kStride + j0;
+#pragma unroll
+    for (int dy = 0; dy < 7; ++dy) {
+      float w[16];
+      if constexpr (S == 8) {
+#pragma unroll
+        for (int q = 0; q < 7; ++q) {
+          const float2 v = reinterpret_cast<const float2*>(
+              row + dy * kStride)[q];
+          w[2 * q] = v.x;
+          w[2 * q + 1] = v.y;
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float4 v = reinterpret_cast<const float4*>(
+              row + dy * kStride)[q];
+          w[4 * q] = v.x;
+          w[4 * q + 1] = v.y;
+          w[4 * q + 2] = v.z;
+          w[4 * q + 3] = v.w;
+        }
+      }
+      // sample by sample, so that the 7 offsets' sums interleave
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
 #pragma unroll
         for (int dx = 0; dx < 7; ++dx) {
-          int s = acc[dy * 7 + dx];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) s += abs(o[c] - w[c + dx]);
-          acc[dy * 7 + dx] = s;
+          acc[dy * 7 + dx] += fabsf(o[c] - w[c + dx]);
         }
       }
     }
   }
-  // the team's sums: shuffles within a warp, shared memory across warps
-  constexpr int kLanes = kTeam < 32 ? kTeam : 32;
+
+  // the team's sums, reduce-scattered: slot dy * 8 + dx (a zero where dx
+  // or dy is 7); each round halves the slots a lane holds, the lane's bit
+  // choosing the half it keeps, so that lane l of kLanes ends with the
+  // team-in-the-warp sums of slots l * 64 / kLanes on.  The bits are
+  // added as integers: each lane's 2^23 bias comes out at the end
+  unsigned v[64];
 #pragma unroll
-  for (int k = 0; k < 49; ++k) {
+  for (int k = 0; k < 64; ++k) {
+    v[k] = ((k & 7) < 7 && (k >> 3) < 7)
+        ? __float_as_uint(acc[(k >> 3) * 7 + (k & 7)]) : 0u;
+  }
+  scatter_round<32, kLanes / 2>(v, lane);
+  constexpr int kSlots = Sh::kSlots;
+  const int l = lane % kLanes;
+  if constexpr (S == 64) {
+    // the four warps' sums: lane l of the first warp adds its two slots'
+    // columns
+    const int warp = threadIdx.x >> 5;
+    *reinterpret_cast<uint2*>(&part[warp][kSlots * l]) = make_uint2(v[0],
+                                                                    v[1]);
+    __syncthreads();
+    if (warp != 0) return;
 #pragma unroll
-    for (int off = kLanes / 2; off >= 1; off >>= 1) {
-      acc[k] += __shfl_xor_sync(0xffffffffu, acc[k], off);
+    for (int j = 0; j < kSlots; ++j) {
+      v[j] = part[0][kSlots * l + j] + part[1][kSlots * l + j]
+             + part[2][kSlots * l + j] + part[3][kSlots * l + j];
     }
   }
-  if constexpr (Sh::kTeamWarps > 1) {
-    const int tw = t >> 5;
-    if ((t & 31) == 0) {
+
+  // each lane prices its slots in the plain form's float order, keeping
+  // the first least; then the least (cost, slot) across the lanes, which
+  // is the first minimum in (dy, dx) raster order
+  const unsigned bias = (unsigned)kTeam * kBiasBits;
+  float best = 0.0f;
+  int best_slot = 64;
 #pragma unroll
-      for (int k = 0; k < 49; ++k) part[b][tw][k] = acc[k];
-    }
-    __syncthreads();
-    if (t == 0) {
-#pragma unroll
-      for (int k = 0; k < 49; ++k) {
-        int s = part[b][0][k];
-        for (int w = 1; w < Sh::kTeamWarps; ++w) s += part[b][w][k];
-        acc[k] = s;
+  for (int j = 0; j < kSlots; ++j) {
+    const int slot = kSlots * l + j;
+    const int dy = slot >> 3, dx = slot & 7;
+    if (dx < 7 && dy < 7) {
+      const int sad = (int)(v[j] - bias) >> a.bit_inc;
+      const int bits = golomb((dx0 + dx - 3) * 4 - px)
+                       + golomb((dy0 + dy - 3) * 4 - py) + 2;
+      const float cost = __fadd_rn((float)sad,
+                                   __fmul_rn(sqrt_lam, (float)bits));
+      if (best_slot == 64 || cost < best) {
+        best = cost;
+        best_slot = slot;
       }
     }
   }
-  if (t != 0 || !live) return;
-
-  const int px = median_pred(a.c_dx, bi, bj, a.nby, a.nbx);
-  const int py = median_pred(a.c_dy, bi, bj, a.nby, a.nbx);
-  const float sqrt_lam = *a.sqrt_lam;
-  float best = 0.0f;
-  int best_k = 0;
 #pragma unroll
-  for (int k = 0; k < 49; ++k) {
-    const int dy = k / 7 - 3, dx = k % 7 - 3;
-    const int bits = golomb((dx0 + dx) * 4 - px) + golomb((dy0 + dy) * 4 - py)
-                     + 2;
-    const float cost = __fadd_rn((float)(acc[k] >> a.bit_inc),
-                                 __fmul_rn(sqrt_lam, (float)bits));
-    if (k == 0 || cost < best) {
-      best = cost;
-      best_k = k;
+  for (int m = 1; m < kLanes; m <<= 1) {
+    const float oc = __shfl_xor_sync(0xffffffffu, best, m);
+    const int os = __shfl_xor_sync(0xffffffffu, best_slot, m);
+    if (os != 64 && (best_slot == 64 || oc < best
+                     || (oc == best && os < best_slot))) {
+      best = oc;
+      best_slot = os;
     }
   }
-  a.out_mx[n] = dx0 + best_k % 7 - 3;
-  a.out_my[n] = dy0 + best_k / 7 - 3;
+  if (l != 0 || n >= nb) return;
+  a.out_mx[n] = dx0 + (best_slot & 7) - 3;
+  a.out_my[n] = dy0 + (best_slot >> 3) - 3;
 }
 
 // ---- merge_model ---------------------------------------------------------
@@ -870,10 +1141,15 @@ merge_model_kernel(MergeArgs a) {
 
 template <int S>
 int launch_refine(const RefineArgs& a, cudaStream_t st) {
+  using Sh = RefineShape<S>;
+  // the shared memory of 8 CTAs an SM at s = 8 (8 x 25 KB), 4 else
+  static const cudaError_t carve = cudaFuncSetAttribute(
+      int_refine_kernel<S>, cudaFuncAttributePreferredSharedMemoryCarveout,
+      (int)cudaSharedmemCarveoutMaxShared);
+  if (carve != cudaSuccess) return (int)carve;
   const long long nb = (long long)a.nby * a.nbx;
-  const long long grid = (nb + RefineShape<S>::kBlocks - 1)
-                         / RefineShape<S>::kBlocks;
-  int_refine_kernel<S><<<(unsigned)grid, 256, 0, st>>>(a);
+  const long long grid = (nb + Sh::kBlocks - 1) / Sh::kBlocks;
+  int_refine_kernel<S><<<(unsigned)grid, Sh::kThreads, 0, st>>>(a);
   return (int)cudaGetLastError();
 }
 

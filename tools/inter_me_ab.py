@@ -14,13 +14,14 @@ synchronised walls, then one call with stage timing on under
 ``fast_inter.*`` stage that launched it).  A checkout whose stages open
 no profiler range gets them here.  Then the frame's 18 motion-search
 kernel calls (2 coarse searches, 8 refinements, 8 merge models), and
-the same frame's as 10 bits (``ten_bit_b_call``), are recorded with the
-checkout's ``recorded_inter_me_calls`` and held against their plain
-forms with its ``held_inter_me_calls`` (tolerance 0, floats bit for
-bit): each call eager (CUDA events around 20 calls) and as a CUDA graph
-of 20, summed per kernel.  Each checkout runs in a child process of its
-own, one after another in the order given; give the parent and the
-change in turns to compare them on one card:
+the same frame's as 10 bits (``ten_bit_b_call``), are recorded and held
+against their plain forms with this tool's own ``held_inter_me_calls``,
+so that every checkout is timed by the same code (tolerance 0, floats
+bit for bit): each call eager (CUDA events around 20 calls) and as a
+CUDA graph of 20, with its size class, summed per kernel and per class,
+beside the bound.  Each checkout runs in a child process of its own, one
+after another in the order given; give the parent and the change in
+turns to compare them on one card:
 
     python tools/inter_me_ab.py PARENT CHANGE CHANGE PARENT
 
@@ -34,7 +35,8 @@ registers, spills, SASS counts and loops), then
 ``inter_me_ab_summary``: per checkout the least of its turns (walls,
 device time, each stage's wall, device time, activities and largest
 device items, and per bit depth and kernel its calls' eager and graph
-ms) and each kernel's times over the first checkout's.  With ``--log
+ms, the graph ms by size class and the share of the bound) and each
+kernel's times, and each class's, over the first checkout's.  With ``--log
 PATH`` it appends the lines to that JSON-lines file.  Exits nonzero when
 a child fails.
 """
@@ -106,14 +108,15 @@ for tag, (a, r1) in (("8bit", (args, refs1)),
                                          ref_cache=kcache)
     run_k()
     mcalls = {}
-    c.zero_inter_me_counts()
-    with c.recorded_inter_me_calls(mcalls):
+    tool.zero_inter_me_counts()
+    with tool.recorded_inter_me_calls(mcalls):
         run_k()
-    launches = c.inter_me_counts()
-    err, sums = c.held_inter_me_calls(torch, mcalls, tag, launches)
+    launches = tool.inter_me_counts()
+    err, sums = tool.held_inter_me_calls(torch, mcalls, tag, launches)
     kernels[tag] = {name: {k: row[k] for k in (
         "calls", "launches", "ms", "graph_ms", "bound_ms", "max_abs_err",
-        "per_call_graph_ms")} for name, row in sums.items()}
+        "per_call_graph_ms", "per_call_ms", "per_call_class", "by_class")}
+        for name, row in sums.items()}
     del mcalls, kcache
 out["kernels"] = kernels
 from thevc_tpu_torch.ops import build
@@ -128,7 +131,8 @@ def summary(results: list) -> dict:
     profiled call's device time and activities, each stage's wall,
     device time and activities (its largest device items as in its first
     turn), and per bit depth and kernel its calls' summed eager and graph
-    ms, with each kernel's times over the first checkout's."""
+    ms and graph ms by size class, with each kernel's times (and each
+    class's) over the first checkout's."""
     best: dict = {}
     for checkout, res in results:
         mine = best.setdefault(checkout, {})
@@ -151,12 +155,21 @@ def summary(results: list) -> dict:
                     bound_ms=row["bound_ms"]))
                 for key in ("ms", "graph_ms"):
                     k[key] = min(k.get(key, row[key]), row[key])
+                by_class = k.setdefault("graph_ms_by_class", {})
+                for cls, ms in row.get("by_class", {}).items():
+                    by_class[cls] = min(by_class.get(cls, ms), ms)
     first = next(iter(best.values()), {}).get("kernels", {})
     for mine in best.values():
         for key, row in mine.get("kernels", {}).items():
+            row["graph_share_of_bound"] = row["bound_ms"] / row["graph_ms"]
             if key in first:
                 for k in ("ms", "graph_ms"):
                     row[f"{k}_over_first"] = row[k] / first[key][k]
+                mine_c = row.get("graph_ms_by_class", {})
+                first_c = first[key].get("graph_ms_by_class", {})
+                row["graph_ms_by_class_over_first"] = {
+                    cls: ms / first_c[cls] for cls, ms in mine_c.items()
+                    if first_c.get(cls)}
     return best
 
 
