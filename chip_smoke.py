@@ -8,8 +8,9 @@ Run from the root of a checkout on a machine with a CUDA card:
 1. Prints the card's name and power limit (nvidia-smi).
 2. Builds the hand-written CUDA kernels (``thevc_tpu_torch/csrc/``:
    residual, SATD, MC, in-loop filters, the device apply's frame kernel,
-   the intra decision pass's sweep and TU-RD kernels, the P/B pass's
-   motion search), one nvcc for each source, all started together; prints each build log and, for the intra
+   the intra decision pass's sweep and TU-RD kernels and its select,
+   pick and DP kernels, the P/B pass's motion search), one nvcc for each
+   source, all started together; prints each build log and, for the intra
    decision kernels, each template instance's registers, spills and
    shared memory (ptxas) and its SASS instruction count (``cuobjdump
    -sass``, where the toolkit has it: in all, the tensor-core, shuffle,
@@ -312,9 +313,14 @@ Run from the root of a checkout on a machine with a CUDA card:
    the card: the 35-mode stacks with K2, the listed modes' predictions
    and ``_tq_rd`` with K1), in turns (plain, kernel, kernel, plain):
    synchronised walls, each route's launches counted from 0 (the kernel
-   route 5 sweeps, 10 TU-RD launches, no K1, no K2), identical maps, and
-   one run of each under ``torch.profiler`` (device time, kernels, busy
-   share).  Every kernel call of the pass is held against its plain form
+   route 5 sweeps, 5 selects, 10 TU-RD launches, 5 picks and one DP
+   launch, no K1, no K2), identical maps, and, in a child process of
+   this script that runs nothing else (``--profile-i-pass``), three runs
+   of each in one ``torch.profiler`` window, reported a run (device
+   time, activities, the hand-written kernels among them, busy share;
+   on the kernel route every one of the 26 launches a run in the window
+   and no sort kernel, or the phase fails).  Every kernel call of the pass is held against its
+   plain form
    (SATD and dist tolerance 0, bits bit for bit) and timed (``kernel
    intra_sweep`` and ``kernel tu_rd`` rows: eager, a CUDA graph of 20,
    the plain form, bytes, bound and shares; the bound counts each block's
@@ -327,8 +333,15 @@ Run from the root of a checkout on a machine with a CUDA card:
    intra_rd_ab.py`` times the same calls checkout against checkout), and
    the same frame as 10
    bits (samples << 2) gives identical maps on both routes with every
-   kernel call equal to its plain form, timed the same way.  The B
-   frame's replay (phase 11) times its TU-RD given calls the same way.
+   kernel call equal to its plain form, timed the same way.  The select,
+   pick and DP calls (``csrc/intra_select.cu``) are held bit for bit and
+   timed the same way (``kernel intra_select``, ``intra_pick`` and
+   ``intra_dp`` rows; their bound the bytes each call reads and writes
+   once; the select's ``library_ms`` one ``torch.topk(cost, 3,
+   largest=False)`` on the same [nb, 35] costs, which the port never
+   calls: it does not promise the tie order).  The B frame's replay
+   (phase 11) times its TU-RD given calls the same way and holds its
+   select, pick and DP calls.
 17. Prints the kernels' JSON line (per kernel: launches on the main
    paths, largest error against the plain version, eager time, plain
    time, bound and what bounds it; K1 at the intra decode's largest
@@ -341,7 +354,8 @@ Run from the root of a checkout on a machine with a CUDA card:
    the recorded 1080p frame's wave loop (eager, graph-replayed, and the
    plain form's graph-replayed loop beside it), the intra sweep and
    TU-RD kernels the replayed 1080p I frame's calls summed (5 and 10,
-   with their graph times), the motion-search kernels the replayed B
+   with their graph times), its select, pick and DP kernels the same
+   frame's calls summed (5, 5 and 1), the motion-search kernels the replayed B
    frame's calls summed (2, 8 and 8, with their graph times); no single
    PyTorch
    call computes any of them (the MC: per-PU-phase 8-tap interpolation
@@ -351,7 +365,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    the motion search: a full search under an MV prior, a first-minimum
    refinement, HM's interpolation inside an SSE), so ``library_ms`` is
    null), then the card's name and
-   power limit, then the device JSON line last.  Neither ``jax`` nor any
+   power limit, then the device JSON line last.  Before them a
+   ``phase_walls`` line gives each phase's wall in seconds (the build
+   and its reports first, then the phases above, and the total).  Neither ``jax`` nor any
    module of the JAX package may have been imported.
 
 Exits non-zero, before printing any result, when CUDA is not available
@@ -1529,6 +1545,7 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
           f"the all-intra fast-RD encode's decision passes launched K2 "
           f"{rep['satd_launches']} and K1 {rep['residual_launches']} times")
     check_parent_stream("intra", stream)
+    selects = check_select_launches(rep, "the all-intra fast-RD encode")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES,
           f"{rep['decision_frames']} decision passes for {FRAMES} frames")
@@ -1556,12 +1573,27 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
                intra_sweep_launches=rep["intra_sweep_launches"],
-               tu_rd_launches=rep["tu_rd_launches"],
+               tu_rd_launches=rep["tu_rd_launches"], **selects,
                decode_filters_launches=filters_launches,
                fast_bytes=fast_bytes, exact_bytes=exact_bytes,
                psnr_y_fast=psnr_fast, psnr_y_exact=psnr_exact)
     print("fastrd " + json.dumps(out))
     return out
+
+
+def check_select_launches(rep: dict, what: str) -> dict:
+    """An encode's select, pick and DP launches (``csrc/intra_select.cu``):
+    one select and one pick a sweep (a luma class of a decision pass),
+    one DP launch a decision pass.  Returns them."""
+    got = {k: rep[f"{k}_launches"] for k in ("intra_select", "intra_pick",
+                                            "intra_dp")}
+    check(got["intra_select"] == got["intra_pick"]
+          == rep["intra_sweep_launches"] > 0
+          and got["intra_dp"] == rep["decision_frames"],
+          f"{what}: select/pick/DP launches {got} for "
+          f"{rep['intra_sweep_launches']} sweeps and "
+          f"{rep['decision_frames']} decision passes")
+    return got
 
 
 def roofline3(nbytes: int, tensor_ops: int, int_ops: int) -> tuple:
@@ -1629,21 +1661,27 @@ def tu_rd_bound(n: int, size: int, intra: bool, blocks: int = 0,
 
 def intra_counts() -> dict:
     """The launches of the kernels an intra decision pass can reach."""
-    from thevc_tpu_torch.ops import intra_rd_kernel, residual_kernel, \
-        satd_kernel
+    from thevc_tpu_torch.ops import intra_rd_kernel, intra_select_kernel, \
+        residual_kernel, satd_kernel
     return {"intra_sweep": intra_rd_kernel.sweep_launches,
             "tu_rd_intra": intra_rd_kernel.tu_rd_intra_launches,
             "tu_rd_given": intra_rd_kernel.tu_rd_given_launches,
+            "intra_select": intra_select_kernel.select_launches,
+            "intra_pick": intra_select_kernel.pick_launches,
+            "intra_dp": intra_select_kernel.dp_launches,
             "satd": satd_kernel.launches,
             "residual": residual_kernel.launches}
 
 
 def zero_intra_counts() -> None:
-    from thevc_tpu_torch.ops import intra_rd_kernel, residual_kernel, \
-        satd_kernel
+    from thevc_tpu_torch.ops import intra_rd_kernel, intra_select_kernel, \
+        residual_kernel, satd_kernel
     intra_rd_kernel.sweep_launches = 0
     intra_rd_kernel.tu_rd_intra_launches = 0
     intra_rd_kernel.tu_rd_given_launches = 0
+    intra_select_kernel.select_launches = 0
+    intra_select_kernel.pick_launches = 0
+    intra_select_kernel.dp_launches = 0
     satd_kernel.launches = residual_kernel.launches = 0
 
 
@@ -1654,16 +1692,22 @@ def plain_route():
     predictions and ``_tq_rd`` with K1 for the transform-RD estimates.
     That is the route before the intra decision kernels, but for the
     size pass's top-3 and the chroma pass's 5 candidates, which it
-    gathered from 35-mode stacks.  The P/B pass's motion-search stages
+    gathered from 35-mode stacks; the select, pick and DP run the torch
+    glue they replaced (``intra_select_plain``, ``intra_pick_plain``,
+    ``intra_dp_plain``).  The P/B pass's motion-search stages
     run their plain forms too (``coarse_fields_plain``,
     ``int_refine_plain``, ``merge_model_plain``: the route before
     ``csrc/inter_me.cu``)."""
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
-    names = ("intra_sweep", "tu_rd_modes", "tu_rd")
+    names = ("intra_sweep", "tu_rd_modes", "tu_rd", "intra_select",
+             "intra_pick", "_dp_expand")
     saved = {n: getattr(fast_intra, n) for n in names}
     fast_intra.intra_sweep = fast_intra.intra_sweep_plain
     fast_intra.tu_rd_modes = fast_intra.tu_rd_modes_plain
     fast_intra.tu_rd = fast_intra._tq_rd
+    fast_intra.intra_select = fast_intra.intra_select_plain
+    fast_intra.intra_pick = fast_intra.intra_pick_plain
+    fast_intra._dp_expand = fast_intra.intra_dp_plain
     inter_names = ("_coarse_fields", "int_refine", "merge_model")
     inter_saved = {n: getattr(fast_inter, n) for n in inter_names}
     fast_inter._coarse_fields = fast_inter.coarse_fields_plain
@@ -1680,38 +1724,117 @@ def plain_route():
 
 @contextlib.contextmanager
 def recorded_intra_kernel_calls(calls: dict):
-    """Record every launch of the intra decision kernels' three entries
-    (their arguments) into ``calls``."""
-    from thevc_tpu_torch.ops import intra_rd_kernel
-    names = ("sweep", "tu_rd_intra", "tu_rd_given")
-    saved = {n: getattr(intra_rd_kernel, n) for n in names}
+    """Record every launch of the intra decision kernels' six entries
+    (their arguments) into ``calls``: the sweep and the TU-RD entries
+    (``ops.intra_rd_kernel``), the select, pick and DP
+    (``ops.intra_select_kernel``)."""
+    from thevc_tpu_torch.ops import intra_rd_kernel, intra_select_kernel
+    entries = {"sweep": (intra_rd_kernel, "sweep"),
+               "tu_rd_intra": (intra_rd_kernel, "tu_rd_intra"),
+               "tu_rd_given": (intra_rd_kernel, "tu_rd_given"),
+               "select": (intra_select_kernel, "select"),
+               "pick": (intra_select_kernel, "pick"),
+               "dp": (intra_select_kernel, "dp")}
+    saved = {k: getattr(m, n) for k, (m, n) in entries.items()}
 
     def spy(name):
         def call(*a):
             calls.setdefault(name, []).append(a)
             return saved[name](*a)
         return call
-    for n in names:
-        setattr(intra_rd_kernel, n, spy(n))
+    for k, (m, n) in entries.items():
+        setattr(m, n, spy(k))
     try:
         yield
     finally:
-        for n, f in saved.items():
-            setattr(intra_rd_kernel, n, f)
+        for k, (m, n) in entries.items():
+            setattr(m, n, saved[k])
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def select_bound(name: str, a, out) -> dict:
+    """The least time of one select, pick or DP launch, counted from the
+    work: the bytes the kernel must read, each once, and its outputs
+    written once (at HBM's rate), against its float operations at the
+    fp32 rate.  The select reads the SATD rows, the SATD-best modes and
+    its 4 scalars and writes the top 3 and their bits (a product and a
+    sum a block and mode); the pick reads the top 3, their bits, the
+    TU-RD dist and bits and lambda and writes its five fields and the
+    chroma ids (a sum, a product and a sum a candidate).  The DP reads
+    each luma block's five fields, each chroma class's candidates' dist
+    and bits and one id a block (the chosen one), the inter leaves and 5
+    scalars (the distinct ones), and writes the maps; per luma block its
+    leaf (4) and split (5), per chroma candidate 4, per inter leaf 3.
+    Bytes bound them all."""
+    if name == "select":
+        satd, best, bits3, sqrt_lam = a[0], a[1], a[6], a[7]
+        nbytes = _nbytes(satd, best, *bits3, sqrt_lam, *out)
+        ops = int(satd.numel()) * 2
+    elif name == "pick":
+        nbytes = _nbytes(*a[:5], *out)
+        ops = int(a[0].numel()) * 3
+    else:
+        res, cres, cres8, lam, (bits2, clam, cw) = a[0], a[1], a[2], a[5], \
+            a[6]
+        inter = a[12]
+        chroma = [*cres.values(), cres8]
+        leaves = [] if inter is None else list(inter.values())
+        scalars = {t.data_ptr(): t for t in (lam, *bits2, clam, cw)}
+        nbytes = (_nbytes(*(t for v in res.values() for t in v[:5]))
+                  + sum(_nbytes(c.dist, c.bits) + c.ids.numel() // 5 * 4
+                        for c in chroma)
+                  + _nbytes(*(t for v in leaves for t in v))
+                  + _nbytes(*scalars.values(), out))
+        ops = (sum(int(v[1].numel()) for v in res.values()) * (4 + 5)
+               + sum(int(c.dist.numel()) // 2 for c in chroma) * 4
+               + sum(int(v[0].numel()) for v in leaves) * 3)
+    bound_ms, bound_by = roofline(nbytes, ops, FP32_OPS)
+    return dict(bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def _held_diff(torch, got, want) -> tuple:
+    """(largest absolute difference, equal: ints equal and floats equal
+    as bits) of two results, tensors or tuples of them."""
+    if not isinstance(got, torch.Tensor):
+        pairs = [_held_diff(torch, g, w) for g, w in zip(got, want)]
+        return max(p[0] for p in pairs), all(p[1] for p in pairs) \
+            and len(got) == len(want)
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return math.inf, False
+    err = float((got.double() - want.double()).abs().max()) \
+        if got.numel() else 0.0
+    if got.dtype == torch.float32:
+        return err, torch.equal(got.view(torch.int32),
+                                want.view(torch.int32))
+    return err, torch.equal(got, want)
 
 
 def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
     """Each recorded intra decision kernel call against its plain form on
-    the card (dist and SATD tolerance 0, bits bit for bit); the calls of
-    the entries named in ``timed`` are timed beside their bound and
-    printed as ``kernel`` rows: 20 eager calls, a CUDA graph of 20 and
-    the plain form.  Returns (largest error, rows by entry)."""
+    the card (every output: ints tolerance 0, floats bit for bit); the
+    calls of the entries named in ``timed`` are timed beside their bound
+    and printed as ``kernel`` rows: 20 eager calls, a CUDA graph of 20
+    and the plain form (and for the select ``library_ms``: one
+    ``torch.topk(cost, 3, largest=False)`` on the same costs).  Returns
+    (largest error, rows by entry)."""
     from thevc_tpu_torch.encoder import fast_intra
-    from thevc_tpu_torch.ops import intra_rd_kernel
+    from thevc_tpu_torch.ops import intra_rd_kernel, intra_select_kernel
     max_err = 0
-    rows = {"sweep": [], "tu_rd_intra": [], "tu_rd_given": []}
+    rows = {k: [] for k in ("sweep", "tu_rd_intra", "tu_rd_given", "select",
+                            "pick", "dp")}
+    row_names = {"sweep": "intra_sweep", "tu_rd_intra": "tu_rd",
+                 "tu_rd_given": "tu_rd", "select": "intra_select",
+                 "pick": "intra_pick", "dp": "intra_dp"}
+    select_plain = {"select": fast_intra.intra_select_plain,
+                    "pick": fast_intra.intra_pick_plain,
+                    "dp": fast_intra.intra_dp_plain}
 
     def plain_of(name, a):
+        if name in select_plain:
+            return lambda: select_plain[name](*a)
         if name == "sweep":
             plane, size, nby, nbx, bit_inc, max_val = a
             return lambda: fast_intra.intra_sweep_plain(
@@ -1727,31 +1850,20 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
         return lambda: fast_intra._tq_rd(org, pred, size, qp, bit_inc,
                                          max_val, is_intra)
 
-    def compare(name, got, want):
-        if name == "sweep":
-            err = max(int((got[0] - want[0]).abs().max()),
-                      int((got[1] - want[1]).abs().max()))
-            same = torch.equal(got[0], want[0]) \
-                and torch.equal(got[1], want[1])
-        else:
-            err = int((got[0] - want[0]).abs().max())
-            same = torch.equal(got[0], want[0]) and torch.equal(
-                got[1].view(torch.int32), want[1].view(torch.int32))
-        return err, same
-
     for name, entry_calls in calls.items():
-        kernel = getattr(intra_rd_kernel, name)
+        kernel = getattr(intra_select_kernel if name in select_plain
+                         else intra_rd_kernel, name)
         for a in entry_calls:
             plain = plain_of(name, a)
             got, want = kernel(*a), plain()
             torch.cuda.synchronize()
-            err, same = compare(name, got, want)
+            err, same = _held_diff(torch, got, want)
             max_err = max(max_err, err)
             check(same, f"{tag}: intra kernel {name} != plain form "
-                  f"(max abs err {err}, bits equal "
-                  f"{torch.equal(got[1], want[1])})")
+                  f"(max abs err {err})")
             if name not in timed:
                 continue
+            library_ms = None
             if name == "sweep":
                 plane, size, nby, nbx = a[:4]
                 shape = dict(size=size, blocks=nby * nbx, bit_inc=a[4])
@@ -1764,24 +1876,39 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
                              luma=bool(luma), bit_inc=a[9])
                 bound = tu_rd_bound(n, size, True, nby * nbx, len(planes),
                                     int(modes.shape[1]))
-            else:
+            elif name == "tu_rd_given":
                 size = a[5]
                 n = int(a[0].shape[0])
                 shape = dict(size=size, items=n, is_intra=bool(a[6]),
                              bit_inc=a[7])
                 bound = tu_rd_bound(n, size, False)
+            else:
+                bound = select_bound(name, a, got)
+                if name == "dp":
+                    shape = dict(ctu=a[9], frame=[a[3], a[4]],
+                                 inter=0 if a[12] is None
+                                 else len(next(iter(a[12].values()))),
+                                 maps=list(got.shape))
+                else:
+                    shape = dict(size=a[2] if name == "select" else a[5],
+                                 blocks=int(a[0].shape[0]))
+                if name == "select":
+                    cost = fast_intra._mode_cost(*a[:8])[0]
+                    library_ms = time_ms(torch, lambda: torch.topk(
+                        cost, 3, dim=1, largest=False), 20)
             ms = time_ms(torch, lambda: kernel(*a), 20)
             g_ms = graph_ms(torch, lambda: kernel(*a), 20)
             plain_ms = time_ms(torch, plain, 3)
             row = dict(entry=name, **shape, ms=ms, graph_ms=g_ms,
-                       plain_ms=plain_ms, **bound, max_abs_err=err)
+                       plain_ms=plain_ms, library_ms=library_ms, **bound,
+                       max_abs_err=err)
             row["share_of_bound"] = bound["bound_ms"] / row["ms"]
             row["graph_share_of_bound"] = bound["bound_ms"] / row["graph_ms"]
-            row["graph_share_of_int32_bound"] = \
-                bound["int32_bound_ms"] / row["graph_ms"]
+            if "int32_bound_ms" in bound:
+                row["graph_share_of_int32_bound"] = \
+                    bound["int32_bound_ms"] / row["graph_ms"]
             rows[name].append(row)
-            print(f"kernel {'intra_sweep' if name == 'sweep' else 'tu_rd'} "
-                  f"{tag} " + json.dumps(row))
+            print(f"kernel {row_names[name]} {tag} " + json.dumps(row))
     summary = {k: sum_rows(v) for k, v in rows.items() if v}
     if summary:
         print(f"intra_kernel_sums {tag} " + json.dumps(summary))
@@ -1820,13 +1947,98 @@ def recorded_i_call(clip: Path, work: Path) -> tuple:
     return calls[0]
 
 
+# the hand-written kernels of the I pass, by the names of their templates
+I_PASS_KERNELS = ("sweep_kernel", "tu_rd_kernel", "select_kernel",
+                  "pick_kernel", "dp_kernel")
+
+
+def profile_i_pass(args_path: str) -> dict:
+    """The profile of the recorded I pass (its arguments pickled at
+    ``args_path``), run in a process of its own: both routes warmed up,
+    then three runs of each in one ``torch.profiler`` window, reported a
+    run (device time and activities, the hand-written kernels among them
+    and the launches their wrappers counted, busy share, sort kernels,
+    the largest items).  In this script's own process, after its other
+    phases and their profiler sessions, such a window came back without
+    up to a sixth of its activities; a process that runs nothing else
+    has held every launch in every window tried (``tools/
+    profile_window.py``)."""
+    import pickle
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from thevc_tpu_torch.encoder import fast_intra
+    args = pickle.loads(Path(args_path).read_bytes())
+
+    def run():
+        return fast_intra.decide_frame(*args, device="cuda")
+
+    def in_route(route):
+        return plain_route() if route == "plain" else contextlib.nullcontext()
+    for route in ("kernel", "plain"):            # warm-ups
+        with in_route(route):
+            run()
+    out, runs = {}, 3
+    for route in ("kernel", "plain"):
+        with in_route(route):
+            torch.cuda.synchronize()
+            zero_intra_counts()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for _ in range(runs):
+                    run()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t) / runs
+            counts = intra_counts()
+        device_us, n_kernels, top = profiled_device(prof)
+        device_us /= runs
+        out[route] = dict(
+            runs=runs, profiled_wall_ms=1000 * wall,
+            device_ms=device_us / 1000, device_kernels=n_kernels / runs,
+            hand_written_kernels=profiled_count(prof, *I_PASS_KERNELS)
+            / runs,
+            hand_written_launches=sum(counts[k] for k in (
+                "intra_sweep", "tu_rd_intra", "tu_rd_given", "intra_select",
+                "intra_pick", "intra_dp")) / runs,
+            device_busy_share=device_us / 1e6 / wall,
+            sort_kernels=profiled_count(prof, "Sort", "sort"),
+            top_kernels_ms={k: v / runs for k, v in top.items()})
+    return out
+
+
+def profiled_i_pass(args: tuple, work: Path, launches: int) -> dict:
+    """``profile_i_pass`` of the recorded I pass in a child process of
+    this script; fails unless the kernel route's window holds each of
+    its ``launches`` hand-written kernel launches a run, and no sort."""
+    import pickle
+    path = work / "i_pass_args.pkl"
+    path.write_bytes(pickle.dumps(args))
+    r = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        "--profile-i-pass", str(path)], capture_output=True,
+                       text=True, timeout=600)
+    check(r.returncode == 0, f"the I pass's profile exited {r.returncode}:"
+          f"\n{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    k = out["kernel"]
+    check(k["hand_written_launches"] == launches
+          and k["hand_written_kernels"] == launches,
+          f"the I pass's profile holds {k['hand_written_kernels']} "
+          f"hand-written kernels a run of {k['hand_written_launches']} "
+          f"launched, expected {launches}: an incomplete window")
+    check(k["sort_kernels"] == 0,
+          f"the kernel route's I pass ran {k['sort_kernels']} sort kernels")
+    return out
+
+
 def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
     """One 1080p I frame's decision pass (``fast_intra.decide_frame``)
     replayed in this process from the encoder's own call, with the intra
     decision kernels and with the plain route (``plain_route``), in turns
     (plain, kernel, kernel, plain): synchronised walls, the launches of
-    each route counted from 0, identical maps; one run of each under
-    ``torch.profiler`` (device time, kernel count, busy share).  Then
+    each route counted from 0, identical maps; three runs of each under
+    ``torch.profiler`` in a child process (``profiled_i_pass``: device
+    time, kernel count, busy share, every hand-written launch in the
+    window).  Then
     every kernel call of the pass held against its plain form and timed
     (``kernel intra_sweep`` and ``kernel tu_rd`` rows), and the same
     frame as 10 bits (samples << 2, QPs + 12): maps of both routes
@@ -1861,31 +2073,18 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
           "the 1080p I pass's maps differ between the kernel route and "
           "the plain route")
     want = {"intra_sweep": classes, "tu_rd_intra": classes + chroma_classes,
-            "tu_rd_given": 0, "satd": 0, "residual": 0}
+            "tu_rd_given": 0, "intra_select": classes, "intra_pick": classes,
+            "intra_dp": 1, "satd": 0, "residual": 0}
     check(launches["kernel"] == want,
           f"the 1080p I pass launched {launches['kernel']}, expected {want} "
           "(no K1, no K2)")
     check(launches["plain"]["satd"] == classes
           and launches["plain"]["residual"] > 0
-          and launches["plain"]["intra_sweep"] == 0
-          and launches["plain"]["tu_rd_intra"] == 0,
+          and not any(launches["plain"][k] for k in (
+              "intra_sweep", "tu_rd_intra", "intra_select", "intra_pick",
+              "intra_dp")),
           f"the plain route launched {launches['plain']}")
-    from torch.profiler import ProfilerActivity, profile
-    prof_out = {}
-    for route in ("kernel", "plain"):
-        with in_route(route):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-        device_us, n_kernels, top = profiled_device(prof)
-        prof_out[route] = dict(profiled_wall_ms=1000 * wall,
-                               device_ms=device_us / 1000,
-                               device_kernels=n_kernels,
-                               device_busy_share=device_us / 1e6 / wall,
-                               top_kernels_ms=top)
+    prof_out = profiled_i_pass(args, work, sum(want.values()))
     out = dict(wall_ms={k: [1000 * w for w in v] for k, v in walls.items()},
                launches=launches, profiled=prof_out, maps_identical=True)
     print("fastrd_intra_pass " + json.dumps(out))
@@ -1893,10 +2092,10 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
     calls: dict = {}
     with recorded_intra_kernel_calls(calls):
         run()
-    err, rows = held_intra_calls(torch, calls, ("sweep", "tu_rd_intra"),
-                                 "intra_pass")
-    check(len(rows["sweep"]) == classes
-          and len(rows["tu_rd_intra"]) == classes + chroma_classes,
+    timed = ("sweep", "tu_rd_intra", "select", "pick", "dp")
+    err, rows = held_intra_calls(torch, calls, timed, "intra_pass")
+    check([len(rows[k]) for k in timed]
+          == [classes, classes + chroma_classes, classes, classes, 1],
           f"recorded {[len(v) for v in rows.values()]} intra kernel calls")
     # the same frame as 10 bits
     (y, cb, cr, w, h, qp, qp_cb, qp_cr, *rest) = args
@@ -1909,7 +2108,7 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
         maps10 = run(args10)
     check(all(np.array_equal(a, b) for a, b in zip(maps10, maps10_plain)),
           "the 10-bit I pass's maps differ between the routes")
-    err10, rows10 = held_intra_calls(torch, calls10, ("sweep", "tu_rd_intra"),
+    err10, rows10 = held_intra_calls(torch, calls10, timed,
                                      "intra_pass_10bit")
     out.update(max_abs_err=max(err, err10), rows=rows, rows_10bit=rows10)
     print("fastrd_intra_pass_kernels " + json.dumps(
@@ -1958,6 +2157,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
     check(rep["residual_launches"] == 0, "the P/B fast-RD encode's "
           f"decision passes launched K1 {rep['residual_launches']} times")
     check_parent_stream("ldb", stream)
+    selects = check_select_launches(rep, "the P/B fast-RD encode")
     check(rep["mc_blocks_launches"] > 0 and rep["mc_qpel_launches"] > 0
           and rep["plain_mc_calls"] == 0,
           f"the P/B fast-RD encode launched the MC kernel's blocks "
@@ -1989,7 +2189,7 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                satd_launches=rep["satd_launches"],
                residual_launches=rep["residual_launches"],
                intra_sweep_launches=rep["intra_sweep_launches"],
-               tu_rd_launches=rep["tu_rd_launches"],
+               tu_rd_launches=rep["tu_rd_launches"], **selects,
                mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
                **{f"{k}_launches": rep[f"{k}_launches"] for k in INTER_ME},
@@ -2047,6 +2247,15 @@ def recorded_b_call(clip: Path, work: Path) -> tuple:
 
 
 INTER_ME = ("coarse_search", "int_refine", "merge_model")
+# the select, pick and DP kernels (csrc/intra_select.cu), by launch count
+SELECT_KERNELS = ("intra_select", "intra_pick", "intra_dp")
+SELECT_REPLACES = {
+    "intra_select": "thevc_tpu/encoder/fast_intra.py:467-492 (in "
+                    "_size_pass_impl :404)",
+    "intra_pick": "thevc_tpu/encoder/fast_intra.py:500-516, 580-583, "
+                  "832-835",
+    "intra_dp": "thevc_tpu/encoder/fast_intra.py:588-600 and _dp_expand "
+                ":613-775 (thevc_tpu/encoder/fast_inter.py:624, 654)"}
 # where each motion-search kernel's TPU counterpart is
 INTER_ME_REPLACES = {
     "coarse_search": "thevc_tpu/encoder/fast_inter.py:98",
@@ -2341,6 +2550,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                     "intra_sweep": counts["intra_sweep"],
                     "tu_rd_intra": counts["tu_rd_intra"],
                     "tu_rd_given": counts["tu_rd_given"],
+                    "intra_select": counts["intra_select"],
+                    "intra_pick": counts["intra_pick"],
+                    "intra_dp": counts["intra_dp"],
                     **inter_me_counts()}
         # K2 for the quarter-pel candidates only; the intra leaves and
         # every transform-RD estimate on the intra decision kernels
@@ -2364,6 +2576,11 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     check({k: launches[k] for k in INTER_ME} == expected,
           f"the B pass launched the motion-search kernels "
           f"{ {k: launches[k] for k in INTER_ME} }, expected {expected}")
+    # one select and one pick a luma class (4-64), one DP launch a frame
+    expected = {"intra_select": 5, "intra_pick": 5, "intra_dp": 1}
+    check({k: launches[k] for k in expected} == expected,
+          f"the B pass launched the select, pick and DP kernels "
+          f"{ {k: launches[k] for k in expected} }, expected {expected}")
     dev_stats.stage_timing(True)
     try:
         run()
@@ -2456,15 +2673,19 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                 "intra_sweep": len(icalls.get("sweep", [])),
                 "tu_rd_intra": len(icalls.get("tu_rd_intra", [])),
                 "tu_rd_given": len(icalls.get("tu_rd_given", [])),
+                "intra_select": len(icalls.get("select", [])),
+                "intra_pick": len(icalls.get("pick", [])),
+                "intra_dp": len(icalls.get("dp", [])),
                 **{k: len(mcalls.get(k, [])) for k in INTER_ME}}
     check(recorded == launches,
           f"recorded {recorded} kernel calls of the B pass for launches "
           f"{launches}")
     max_err = {"satd": 0, "mc": 0, "mc_qpel": 0}
     # the intra leaves' calls are the I pass's kind (timed there); the
-    # given-prediction calls are timed here
+    # given-prediction calls and the DP with its inter leaves are timed
+    # here
     max_err["intra_rd"], intra_rows = held_intra_calls(
-        torch, icalls, ("tu_rd_given",), "inter_pass")
+        torch, icalls, ("tu_rd_given", "dp"), "inter_pass")
     rows = []
     for org, preds, bit_inc in calls["satd"]:
         got, plain = satd.satd_blocks(org, preds, bit_inc), \
@@ -2545,8 +2766,10 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                                          device="cuda", ref_cache=cache10)
     run10()
     mcalls10: dict = {}
+    icalls10: dict = {}
     zero_inter_me_counts()
-    with recorded_inter_me_calls(mcalls10):
+    with recorded_inter_me_calls(mcalls10), \
+            recorded_intra_kernel_calls(icalls10):
         maps10 = run10()
     launches10 = inter_me_counts()
     with plain_route():
@@ -2558,6 +2781,10 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     err10, inter_me["10bit"] = held_inter_me_calls(torch, mcalls10, "10bit",
                                                    launches10)
     max_err["inter_me"] = max(max_err["inter_me"], err10)
+    # the 10-bit frame's intra decision kernel calls, held untimed
+    err10, _ = held_intra_calls(torch, icalls10, (), "inter_pass_10bit")
+    max_err["intra_rd"] = max(max_err["intra_rd"], err10)
+    del icalls10
     del mcalls10, cache10
     out.update(max_abs_err=max_err, satd_rows=rows, mc_rows=mc_rows,
                mc_blocks=blocks_sum, mc_calls=len(calls["mc"]),
@@ -2724,6 +2951,7 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
           f"the device-apply encode skipped a kernel, ran K1 or K2, or "
           f"launched the apply more than once a frame: {rep}")
     check_parent_stream("devapply", stream)
+    selects = check_select_launches(rep, "the device-apply encode")
     check(not rep["jax_imported"], "the port's encoder imported jax")
     check(rep["decision_frames"] == FRAMES
           and rep["device_apply_frames"] == FRAMES
@@ -2752,7 +2980,7 @@ def fastrd_devapply_phase(torch, work: Path, dec: dict, fast: dict) -> dict:
         residual_launches=rep["residual_launches"],
         satd_launches=rep["satd_launches"],
         intra_sweep_launches=rep["intra_sweep_launches"],
-        tu_rd_launches=rep["tu_rd_launches"],
+        tu_rd_launches=rep["tu_rd_launches"], **selects,
         apply_launches=rep["apply_launches"],
         decode_filters_launches=filters_launches, devapply_bytes=dev_bytes,
         host_apply_bytes=host_bytes,
@@ -3454,15 +3682,13 @@ def resume_rc_phase(torch, work: Path) -> dict:
     and one ``fastrd_quality`` sweep on ``cuda``."""
     from thevc_tpu_torch.apps.encoder import REPORT_PREFIX
     from thevc_tpu_torch.ops import apply_kernel, filters_kernel, \
-        intra_rd_kernel, mc_kernel, residual_kernel, satd_kernel
+        intra_rd_kernel, mc_kernel
     from thevc_tpu_torch.tools import fastrd_quality, run_encoder
     out = {}
-    residual_kernel.launches = satd_kernel.launches = mc_kernel.launches = 0
+    mc_kernel.launches = 0
     mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
     filters_kernel.launches = apply_kernel.launches = 0
-    intra_rd_kernel.sweep_launches = 0
-    intra_rd_kernel.tu_rd_intra_launches = 0
-    intra_rd_kernel.tu_rd_given_launches = 0
+    zero_intra_counts()
     zero_inter_me_counts()
 
     def encode(name, device, clip, w, h, cfg, extra):
@@ -3582,15 +3808,17 @@ def resume_rc_phase(torch, work: Path) -> dict:
     out["quality"] = {"rows": rows, "wall_s": time.perf_counter() - t}
     for row in rows:
         print("resume_rc_quality " + fastrd_quality.format_row(row))
-    out["launches"] = {"residual": residual_kernel.launches,
-                       "satd": satd_kernel.launches,
+    counts = intra_counts()
+    out["launches"] = {"residual": counts["residual"],
+                       "satd": counts["satd"],
                        "mc": mc_kernel.launches,
                        "mc_blocks": mc_kernel.blocks_launches,
                        "mc_qpel": mc_kernel.qpel_launches,
                        "filters": filters_kernel.launches,
                        "apply": apply_kernel.launches,
-                       "intra_sweep": intra_rd_kernel.sweep_launches,
+                       "intra_sweep": counts["intra_sweep"],
                        "tu_rd": intra_rd_kernel.tu_rd_launches(),
+                       **{k: counts[k] for k in SELECT_KERNELS},
                        **inter_me_counts()}
     check(all(out["launches"].values()),
           f"the phase launched {out['launches']}")
@@ -3632,14 +3860,16 @@ def make_clip(path: Path, width: int, height: int, frames: int,
 def sum_rows(rows: list) -> dict:
     """A kernel's calls summed for the kernels line: eager, graph and
     plain ms, bound, and what bounds them all; the int32-only bound
-    where the rows have it."""
+    where the rows have it, and ``library_ms`` where every row has one
+    (else null)."""
     keys = ("ms", "graph_ms", "plain_ms", "bound_ms", "int32_bound_ms")
     out = {k: sum(r[k] for r in rows) for k in keys
            if all(k in r for r in rows)}
     out["calls"] = len(rows)
     out["bound_by"] = "bytes" if all(r["bound_by"] == "bytes"
                                      for r in rows) else "operations"
-    out["library_ms"] = None
+    out["library_ms"] = sum(r["library_ms"] for r in rows) if rows and all(
+        r.get("library_ms") is not None for r in rows) else None
     return out
 
 
@@ -3744,14 +3974,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--profile-i-pass"]:
+        print(json.dumps(profile_i_pass(sys.argv[2])))
+        return 0
     from thevc_tpu_torch.ops import apply_kernel, build, filters_kernel, \
-        inter_me_kernel, intra_rd_kernel, mc_kernel, residual_kernel, satd, \
-        satd_kernel, tq
+        inter_me_kernel, intra_rd_kernel, intra_select_kernel, mc_kernel, \
+        residual_kernel, satd, satd_kernel, tq
 
     print(gpu_line())
     t0 = time.perf_counter()
     kernels = (residual_kernel, satd_kernel, mc_kernel, filters_kernel,
-               apply_kernel, intra_rd_kernel, inter_me_kernel)
+               apply_kernel, intra_rd_kernel, inter_me_kernel,
+               intra_select_kernel)
     with ThreadPoolExecutor(len(kernels)) as ex:
         list(ex.map(build.compile_source, [k.NAME for k in kernels]))
     for k in kernels:
@@ -3768,27 +4002,39 @@ def main() -> int:
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
-    made = prepare_streams(work)
-    kern = kernel_phase(torch, tq, SEED)
-    k2 = satd_phase(torch, satd, SEED)
-    dec = decode_phase(torch, work, made)
-    fast = fastrd_phase(torch, work, dec)
-    identity_phase(work)
-    devapply = fastrd_devapply_phase(torch, work, dec, fast)
-    nxn = nxn_apply_phase(torch)
-    inter = inter_decode_phase(torch, work, made)
-    filt = filters_phase(torch, work, made)
-    small = small_inter_phase(torch, work, made)
-    fast_inter = fastrd_inter_phase(torch, work, made)
-    inter_identity_phase(work, made)
-    wp_sl = wp_scaling_phase(torch, work, made)
-    parts = partitioned_phase(torch, work, made)
-    multi = multistream_phase(torch, work, made)
-    robust = robust_decode_phase(torch, work)
-    resume = resume_rc_phase(torch, work)
+    walls = {"build": time.perf_counter() - t0}
+
+    def phase(fn, *a):
+        """``fn(*a)``, its wall kept under its name for ``phase_walls``."""
+        t = time.perf_counter()
+        out = fn(*a)
+        walls[fn.__name__] = time.perf_counter() - t
+        return out
+    made = phase(prepare_streams, work)
+    kern = phase(kernel_phase, torch, tq, SEED)
+    k2 = phase(satd_phase, torch, satd, SEED)
+    dec = phase(decode_phase, torch, work, made)
+    fast = phase(fastrd_phase, torch, work, dec)
+    phase(identity_phase, work)
+    devapply = phase(fastrd_devapply_phase, torch, work, dec, fast)
+    nxn = phase(nxn_apply_phase, torch)
+    inter = phase(inter_decode_phase, torch, work, made)
+    filt = phase(filters_phase, torch, work, made)
+    small = phase(small_inter_phase, torch, work, made)
+    fast_inter = phase(fastrd_inter_phase, torch, work, made)
+    phase(inter_identity_phase, work, made)
+    wp_sl = phase(wp_scaling_phase, torch, work, made)
+    parts = phase(partitioned_phase, torch, work, made)
+    multi = phase(multistream_phase, torch, work, made)
+    robust = phase(robust_decode_phase, torch, work)
+    resume = phase(resume_rc_phase, torch, work)
     # last: run before the device-apply phase (on an H100), this phase
     # left that phase's profiler session without its apply kernel
-    i_pass = intra_pass_phase(torch, Path(dec["clip"]), work)
+    i_pass = phase(intra_pass_phase, torch, Path(dec["clip"]), work)
+    walls["total"] = time.perf_counter() - t0
+    # each phase's wall in s, the kernels' build first: where the time
+    # limit goes
+    print("phase_walls " + json.dumps(walls))
     check(not [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "thevc_tpu" or m.startswith("thevc_tpu.")],
           "jax or a module of the JAX package was imported")
@@ -3818,16 +4064,20 @@ def main() -> int:
         "fastrd_encode": {"residual": fast["residual_launches"],
                           "satd": fast["satd_launches"],
                           "intra_sweep": fast["intra_sweep_launches"],
-                          "tu_rd": fast["tu_rd_launches"]},
+                          "tu_rd": fast["tu_rd_launches"],
+                          **{k: fast[k] for k in SELECT_KERNELS}},
         "fastrd_intra_pass": {
             "intra_sweep": i_pass["launches"]["kernel"]["intra_sweep"],
-            "tu_rd": i_pass["launches"]["kernel"]["tu_rd_intra"]},
+            "tu_rd": i_pass["launches"]["kernel"]["tu_rd_intra"],
+            **{k: i_pass["launches"]["kernel"][k] for k in SELECT_KERNELS}},
         "fastrd_decode": {"filters": fast["decode_filters_launches"]},
         "fastrd_inter_encode": {"residual": fast_inter["residual_launches"],
                                 "satd": fast_inter["satd_launches"],
                                 "intra_sweep":
                                 fast_inter["intra_sweep_launches"],
-                                "tu_rd": fast_inter["tu_rd_launches"]},
+                                "tu_rd": fast_inter["tu_rd_launches"],
+                                **{k: fast_inter[k]
+                                   for k in SELECT_KERNELS}},
         "fastrd_inter_decode": {
             "filters": fast_inter["decode_filters_launches"]},
         "fastrd_devapply_encode": {"residual": devapply["residual_launches"],
@@ -3835,6 +4085,8 @@ def main() -> int:
                                    "intra_sweep":
                                    devapply["intra_sweep_launches"],
                                    "tu_rd": devapply["tu_rd_launches"],
+                                   **{k: devapply[k]
+                                      for k in SELECT_KERNELS},
                                    "apply": devapply["apply_launches"]},
         "fastrd_devapply_decode": {
             "filters": devapply["decode_filters_launches"]},
@@ -3865,7 +4117,8 @@ def main() -> int:
         **{k: fast_inter[f"{k}_launches"] for k in INTER_ME})
     # the replayed B frame's timed runs (the same counts each)
     by_path["fastrd_inter_pass"] = {
-        k: fast_inter["pass"]["launches"][k] for k in INTER_ME}
+        k: fast_inter["pass"]["launches"][k]
+        for k in INTER_ME + SELECT_KERNELS}
     print("launches by path " + json.dumps(by_path))
     # the apply kernel, one launch a frame; its times: the recorded 1080p
     # frame's launch span in CUDA events (``ms``, the median of three; the
@@ -3884,7 +4137,14 @@ def main() -> int:
     # calls summed (5 sweeps; 10 TU-RD launches, the luma top-3 of each
     # class and the Cb/Cr candidates of each chroma class; no single
     # PyTorch call predicts HM's intra modes or runs its transform,
-    # quantiser and recon, so library_ms is null)
+    # quantiser and recon, so library_ms is null); the select, pick and
+    # DP kernels' the same frame's calls summed (5, 5 and 1): the
+    # select's library_ms is one torch.topk(cost, 3, largest=False) a
+    # class on the same costs (the port never calls it: it does not
+    # promise the tie order); no single PyTorch call makes the pick (a
+    # first-minimum RD pick with its runners-up and the chroma ids) or
+    # the DP (the chroma picks, a quadtree DP and its expansion), so
+    # theirs is null
     print(json.dumps({"kernels": [{
         "name": "residual", "route": "cuda",
         "source": "thevc_tpu_torch/csrc/residual.cu",
@@ -3973,6 +4233,15 @@ def main() -> int:
         "max_abs_err": max(i_pass["max_abs_err"],
                            fast_inter["pass"]["max_abs_err"]["intra_rd"]),
         **sum_rows(i_pass["rows"]["tu_rd_intra"])}, *({
+        "name": name, "route": "cuda",
+        "source": "thevc_tpu_torch/csrc/intra_select.cu",
+        "replaces": SELECT_REPLACES[name],
+        "launches": sum(p.get(name, 0) for p in by_path.values()),
+        "max_abs_err": max(i_pass["max_abs_err"],
+                           fast_inter["pass"]["max_abs_err"]["intra_rd"]),
+        **sum_rows(i_pass["rows"][entry])}
+        for name, entry in zip(SELECT_KERNELS, ("select", "pick", "dp"))),
+        *({
         "name": name, "route": "cuda",
         "source": "thevc_tpu_torch/csrc/inter_me.cu",
         "replaces": INTER_ME_REPLACES[name],

@@ -391,7 +391,8 @@ def test_dp_expand_inter_agrees(b_slice):
         lam=lam, inter=jx(inter)))
     collect = ref.collect_frame_b if b_slice else ref.collect_frame_p
     maps_j = collect((out_j, WP, HP))
-    maps_p = port.collect_frame_p((port_intra._dp_expand(
+    # the former _dp_expand: the DP of picked chroma classes
+    maps_p = port.collect_frame_p((port_intra.dp_expand_plain(
         th(res), th(cres), tuple(torch.from_numpy(a) for a in cres8), W, H,
         torch.tensor(lam), MAX_SIG, MIN_TR_LOG2, CTU, WP, HP,
         inter=th(inter), intra_pen=port._INTRA_PEN_BITS), WP, HP))

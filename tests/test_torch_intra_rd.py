@@ -15,13 +15,16 @@ bits, bit increment 2) go through:
   internals (its unified prediction stack and ``_satd_d``): SATD [N, 35]
   and the first-minimum mode exact;
 - each size class's (best, dist, bits, mode2, mode3) and each chroma
-  class's (dir, cost), the NxN variant included, against the parent's
-  route (a copy of the former ``_size_pass_impl`` and
-  ``_chroma_pass_impl`` below: the 35-mode stacks, the top-3 gathered
-  from them, ``_tq_rd``): exact, floats bit for bit;
+  class's (dir, cost) (its candidates, from the ids the luma class's
+  pick wrote, picked by ``chroma_pick_plain``), the NxN variant
+  included, against the parent's route (a copy of the former
+  ``_size_pass_impl`` and ``_chroma_pass_impl`` below: the 35-mode
+  stacks, the top-3 gathered from them, ``_tq_rd``): exact, floats bit
+  for bit;
 - ``_predict_modes`` (the listed modes only) against the 35-mode stack
   gather, luma and chroma, every class and both bit increments: exact;
-- ``decide_frame`` against the parent's route (exact) and the JAX
+- ``decide_frame`` against the parent's route (those passes and the
+  former ``_dp_expand``, ``dp_expand_plain``; exact) and the JAX
   package's (the six maps on at least 99.9% of the units, as
   ``tests/test_torch_fast_intra.py``);
 - the given-prediction entry (inter items, per-item QPs, sizes 4..64 and
@@ -354,6 +357,10 @@ def test_size_pass_equals_parent_route(frames, frame, s):
                              max_val, ctu)
     want = _parent_size_pass(py, s, hp // s, wp // s, qp, bits3, bit_inc,
                              max_val, ctu)
+    # the modes are int32 since the pick's kernel (the parent's sort
+    # indices were int64); the values are compared exactly
+    want = [w.to(torch.int32) if w.dtype == torch.int64 else w
+            for w in want]
     for a, b in zip(got, want):
         _same(a, b)
 
@@ -372,10 +379,14 @@ def test_chroma_pass_equals_parent_route(frames, frame, s):
         dm = luma[0][0::2, 0::2]
         s = 8
     else:
-        dm = fi._size_pass_impl(py, s, hp // s, wp // s, qp, bits3, bit_inc,
-                                max_val, ctu)[0]
-    got = fi._chroma_pass_impl(pcb, pcr, s, hp // s, wp // s, dm, dm, qp_cb,
-                               qp_cr, bits2, bit_inc, max_val)
+        luma = fi._size_pass_impl(py, s, hp // s, wp // s, qp, bits3,
+                                  bit_inc, max_val, ctu)
+        dm = luma[0]
+    # the candidates' ids come from the luma class's pick, the pick of
+    # the candidates from the DP's first step
+    got = fi.chroma_pick_plain(fi._chroma_pass_impl(
+        pcb, pcr, s, hp // s, wp // s, luma.cids, qp_cb, qp_cr, bit_inc,
+        max_val), bits2)
     want = _parent_chroma_pass(pcb, pcr, s, hp // s, wp // s, dm, dm, qp_cb,
                                qp_cr, bits2, bit_inc, max_val)
     for a, b in zip(got, want):
@@ -414,14 +425,37 @@ def test_predict_modes_equal_stack_gather(luma, s, bit_inc):
     assert torch.equal(got, want)
 
 
+def _parent_frame_body(py, pcb, pcr, iscal, fscal, wp: int, hp: int,
+                       statics, max_sig: int, min_tr_log2: int):
+    """The parent's ``_frame_body``: its size and chroma passes (above)
+    and its DP (``dp_expand_plain``, the former ``_dp_expand``)."""
+    width, height, bit_inc, max_val, ctu_size = statics
+    qp_scaled, qp_cb, qp_cr = iscal[0], iscal[1], iscal[2]
+    lam, sqrt_lam = fscal[0], fscal[1]
+    sqrt_lam_bits3 = ((fscal[2], fscal[3], fscal[4]), sqrt_lam, lam)
+    lam_w_bits2 = ((fscal[5], fscal[6]), lam, fscal[7])
+    res = {s: _parent_size_pass(py, s, hp // s, wp // s, qp_scaled,
+                                sqrt_lam_bits3, bit_inc, max_val, ctu_size)
+           for s in SIZES if s <= ctu_size}
+    cres = {s: _parent_chroma_pass(pcb, pcr, s, hp // s, wp // s, res[s][0],
+                                   res[s][0], qp_cb, qp_cr, lam_w_bits2,
+                                   bit_inc, max_val)
+            for s in SIZES if 8 <= s <= ctu_size}
+    dm_nxn = res[4][0][0::2, 0::2]
+    cres8_nxn = _parent_chroma_pass(pcb, pcr, 8, hp // 8, wp // 8, dm_nxn,
+                                    dm_nxn, qp_cb, qp_cr, lam_w_bits2,
+                                    bit_inc, max_val)
+    return fi.dp_expand_plain(res, cres, cres8_nxn, width, height, lam,
+                              max_sig, min_tr_log2, ctu_size, wp, hp)
+
+
 def _decide_with_parent_route(args):
-    real = fi._size_pass_impl, fi._chroma_pass_impl
-    fi._size_pass_impl, fi._chroma_pass_impl = _parent_size_pass, \
-        _parent_chroma_pass
+    real = fi._frame_body
+    fi._frame_body = _parent_frame_body
     try:
         return fi.decide_frame(*args, device="cpu")
     finally:
-        fi._size_pass_impl, fi._chroma_pass_impl = real
+        fi._frame_body = real
 
 
 @pytest.mark.parametrize("frame", FRAMES)

@@ -18,7 +18,9 @@ residual and SATD kernels (on ``cuda`` the decision passes launch the
 SATD kernel for the P/B pass's quarter-pel candidates only, and no
 residual kernel), of the intra decision kernels (``intra_sweep_launches``,
 one a luma size class of a decision pass; ``tu_rd_launches``, the
-transform-RD estimates of both passes), of the MC kernel's two entries
+transform-RD estimates of both passes; ``intra_select_launches`` and
+``intra_pick_launches``, one a luma size class; ``intra_dp_launches``,
+one a decision pass), of the MC kernel's two entries
 that the P/B pass calls (blocks and quarter-pel), of the P/B pass's
 motion-search kernels (``coarse_search_launches``, one a list of a
 decision pass; ``int_refine_launches`` and ``merge_model_launches``, one
@@ -39,8 +41,8 @@ import json
 import sys
 
 from ..encoder.top import DecisionStats, Encoder
-from ..ops import apply_kernel, inter_me_kernel, intra_rd_kernel, mc, \
-    mc_kernel, residual_kernel, satd_kernel
+from ..ops import apply_kernel, inter_me_kernel, intra_rd_kernel, \
+    intra_select_kernel, mc, mc_kernel, residual_kernel, satd_kernel
 from ..ops.device import resolve
 from ..utils.cfg import parse_args
 
@@ -66,6 +68,9 @@ def main(argv=None) -> int:
               "satd": satd_kernel.launches, "apply": apply_kernel.launches,
               "intra_sweep": intra_rd_kernel.sweep_launches,
               "tu_rd": intra_rd_kernel.tu_rd_launches(),
+              "intra_select": intra_select_kernel.select_launches,
+              "intra_pick": intra_select_kernel.pick_launches,
+              "intra_dp": intra_select_kernel.dp_launches,
               "mc_blocks": mc_kernel.blocks_launches,
               "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches,
               "coarse": inter_me_kernel.coarse_launches,
@@ -90,6 +95,12 @@ def main(argv=None) -> int:
         "intra_sweep_launches": intra_rd_kernel.sweep_launches
         - before["intra_sweep"],
         "tu_rd_launches": intra_rd_kernel.tu_rd_launches() - before["tu_rd"],
+        "intra_select_launches": intra_select_kernel.select_launches
+        - before["intra_select"],
+        "intra_pick_launches": intra_select_kernel.pick_launches
+        - before["intra_pick"],
+        "intra_dp_launches": intra_select_kernel.dp_launches
+        - before["intra_dp"],
         "apply_launches": apply_kernel.launches - before["apply"],
         "mc_blocks_launches": mc_kernel.blocks_launches
         - before["mc_blocks"],

@@ -25,9 +25,11 @@ intra leaves the source picture):
    merge-model kernel of ``csrc/inter_me.cu``, one launch a size class
    and list), and for B slices a bi-prediction stage on the two lists'
    winners;
-4. the intra leaves of ``fast_intra`` (on a CUDA tensor through its sweep
-   and TU-RD kernels) and the quadtree DP with its inter branch
-   (``fast_intra._dp_expand``), expanded to per-4x4-unit maps.
+4. the intra leaves of ``fast_intra`` (on a CUDA tensor through its sweep,
+   select, TU-RD and pick kernels) and the quadtree DP with its inter
+   branch (``fast_intra._dp_expand``: on a CUDA tensor the DP kernel of
+   ``csrc/intra_select.cu``, one launch a frame), expanded to per-4x4-unit
+   maps.
 
 The maps feed the native apply pass (``nat.set_fd`` and
 ``nat.set_fd_inter``), which re-ranks each inter CU against the real
@@ -569,13 +571,12 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
                for s in fi.SIZES if s <= ctu_size}
         lam_w_bits2 = ((fscal[5], fscal[6]), lam, cw)
         cres = {s: fi._chroma_pass_impl(pcb, pcr, s, hp // s, wp // s,
-                                        res[s][0], res[s][0], qp_cb, qp_cr,
-                                        lam_w_bits2, bit_inc, max_val)
+                                        res[s].cids, qp_cb, qp_cr, bit_inc,
+                                        max_val)
                 for s in fi.SIZES if 8 <= s <= ctu_size}
-        dm_nxn = res[4][0][0::2, 0::2]
         cres8_nxn = fi._chroma_pass_impl(pcb, pcr, 8, hp // 8, wp // 8,
-                                         dm_nxn, dm_nxn, qp_cb, qp_cr,
-                                         lam_w_bits2, bit_inc, max_val)
+                                         res[4].cids, qp_cb, qp_cr, bit_inc,
+                                         max_val)
 
     # ---- inter leaves ----------------------------------------------------
     # the source planes as contiguous int16, as the kernels read them
@@ -607,8 +608,9 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
     if refs1 is None:
         with stage("fast_inter.dp", dev):
             maps = fi._dp_expand(res, cres, cres8_nxn, width, height, lam,
-                                 max_sig, min_tr_log2, ctu_size, wp, hp,
-                                 inter=uni0, intra_pen=_INTRA_PEN_BITS)
+                                 lam_w_bits2, max_sig, min_tr_log2,
+                                 ctu_size, wp, hp, inter=uni0,
+                                 intra_pen=_INTRA_PEN_BITS)
         return maps
 
     uni1, planes1 = uni_leaves(refs1)
@@ -623,13 +625,14 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
             rd1, mvx1, mvy1, ref1 = uni1[s]
             # dir = argmin{L0, L1, BI} (TEncSearch.cpp:3660-3760)
             rd = torch.minimum(torch.minimum(rd0, rd1), rd_bi)
-            direc = torch.where(rd == rd_bi, 3,
-                                torch.where(rd == rd0, 1, 2))
+            # int32, as the other leaf fields
+            direc = torch.where(rd == rd_bi, 3, torch.where(
+                rd == rd0, 1, torch.full_like(ref0, 2)))
             inter[s] = (rd, mvx0, mvy0, ref0, direc, mvx1, mvy1, ref1)
     with stage("fast_inter.dp", dev):
         maps = fi._dp_expand(res, cres, cres8_nxn, width, height, lam,
-                             max_sig, min_tr_log2, ctu_size, wp, hp,
-                             inter=inter, intra_pen=_INTRA_PEN_BITS)
+                             lam_w_bits2, max_sig, min_tr_log2, ctu_size,
+                             wp, hp, inter=inter, intra_pen=_INTRA_PEN_BITS)
     return maps
 
 

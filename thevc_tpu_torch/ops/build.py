@@ -32,11 +32,12 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "thevc_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # flags of one source only: the apply kernel ranks float32 costs, the
-# intra RD kernel sums float32 bit estimates and the motion-search kernels
-# price candidates in the plain form's order, so no multiply-add may be
-# contracted
+# intra RD kernel sums float32 bit estimates, the motion-search kernels
+# price candidates and the intra select kernels rank mode, RD and split
+# costs in the plain form's order, so no multiply-add may be contracted
 SOURCE_FLAGS = {"apply": ("-fmad=false",), "intra_rd": ("-fmad=false",),
-                "inter_me": ("-fmad=false",)}
+                "inter_me": ("-fmad=false",),
+                "intra_select": ("-fmad=false",)}
 
 _libs: dict = {}
 _lock = threading.Lock()
