@@ -18,7 +18,10 @@ Run from the root of a checkout on a machine with a CUDA card:
    or coefficients a thread takes in one pass of the code) as one
    ``intra_rd_build`` line; the same for the motion-search kernels
    (``csrc/inter_me.cu``) as one ``inter_me_build`` line, with each
-   instance's three longest loops in SASS instructions.
+   instance's three longest loops in SASS instructions, and for the
+   select, pick and DP kernels (``csrc/intra_select.cu``) as one
+   ``intra_select_build`` line, with each kernel's stack frame and its
+   local-memory instructions.
 3. Residual kernel (K1) against its plain PyTorch version on the card,
    for every TU class of the decode (4x4 DST and DCT, 8x8, 16x16, 32x32
    at bit increment 0; 4x4 DST, 8x8 and 32x32 at bit increment 2), on
@@ -313,12 +316,12 @@ Run from the root of a checkout on a machine with a CUDA card:
    the card: the 35-mode stacks with K2, the listed modes' predictions
    and ``_tq_rd`` with K1), in turns (plain, kernel, kernel, plain):
    synchronised walls, each route's launches counted from 0 (the kernel
-   route 5 sweeps, 5 selects, 10 TU-RD launches, 5 picks and one DP
-   launch, no K1, no K2), identical maps, and, in a child process of
-   this script that runs nothing else (``--profile-i-pass``), three runs
+   route 5 sweeps, one select over the 5 luma classes, 10 TU-RD
+   launches, one pick and one DP launch, no K1, no K2), identical maps,
+   and, in a child process of this script that runs nothing else (``--profile-i-pass``), three runs
    of each in one ``torch.profiler`` window, reported a run (device
    time, activities, the hand-written kernels among them, busy share;
-   on the kernel route every one of the 26 launches a run in the window
+   on the kernel route every one of the 18 launches a run in the window
    and no sort kernel, or the phase fails).  Every kernel call of the pass is held against its
    plain form
    (SATD and dist tolerance 0, bits bit for bit) and timed (``kernel
@@ -338,8 +341,9 @@ Run from the root of a checkout on a machine with a CUDA card:
    timed the same way (``kernel intra_select``, ``intra_pick`` and
    ``intra_dp`` rows; their bound the bytes each call reads and writes
    once; the select's ``library_ms`` one ``torch.topk(cost, 3,
-   largest=False)`` on the same [nb, 35] costs, which the port never
-   calls: it does not promise the tie order).  The B frame's replay
+   largest=False)`` on the pass's [nb, 35] costs of every class in one
+   tensor, which the port never calls: it does not promise the tie
+   order).  The B frame's replay
    (phase 11) times its TU-RD given calls the same way and holds its
    select, pick and DP calls.
 17. Prints the kernels' JSON line (per kernel: launches on the main
@@ -355,7 +359,7 @@ Run from the root of a checkout on a machine with a CUDA card:
    plain form's graph-replayed loop beside it), the intra sweep and
    TU-RD kernels the replayed 1080p I frame's calls summed (5 and 10,
    with their graph times), its select, pick and DP kernels the same
-   frame's calls summed (5, 5 and 1), the motion-search kernels the replayed B
+   frame's calls (1, 1 and 1), the motion-search kernels the replayed B
    frame's calls summed (2, 8 and 8, with their graph times); no single
    PyTorch
    call computes any of them (the MC: per-PU-phase 8-tap interpolation
@@ -1583,13 +1587,13 @@ def fastrd_phase(torch, work: Path, dec: dict) -> dict:
 
 def check_select_launches(rep: dict, what: str) -> dict:
     """An encode's select, pick and DP launches (``csrc/intra_select.cu``):
-    one select and one pick a sweep (a luma class of a decision pass),
-    one DP launch a decision pass.  Returns them."""
+    one select, one pick (each over every luma class) and one DP launch a
+    decision pass.  Returns them."""
     got = {k: rep[f"{k}_launches"] for k in ("intra_select", "intra_pick",
                                             "intra_dp")}
-    check(got["intra_select"] == got["intra_pick"]
-          == rep["intra_sweep_launches"] > 0
-          and got["intra_dp"] == rep["decision_frames"],
+    check(got["intra_select"] == got["intra_pick"] == got["intra_dp"]
+          == rep["decision_frames"] > 0
+          and rep["intra_sweep_launches"] > rep["decision_frames"],
           f"{what}: select/pick/DP launches {got} for "
           f"{rep['intra_sweep_launches']} sweeps and "
           f"{rep['decision_frames']} decision passes")
@@ -1693,11 +1697,11 @@ def plain_route():
     That is the route before the intra decision kernels, but for the
     size pass's top-3 and the chroma pass's 5 candidates, which it
     gathered from 35-mode stacks; the select, pick and DP run the torch
-    glue they replaced (``intra_select_plain``, ``intra_pick_plain``,
-    ``intra_dp_plain``).  The P/B pass's motion-search stages
-    run their plain forms too (``coarse_fields_plain``,
-    ``int_refine_plain``, ``merge_model_plain``: the route before
-    ``csrc/inter_me.cu``)."""
+    glue they replaced (``intra_select_pass_plain``,
+    ``intra_pick_pass_plain``, ``intra_dp_plain``).  The P/B pass's
+    motion-search stages run their plain forms too
+    (``coarse_fields_plain``, ``int_refine_plain``,
+    ``merge_model_plain``: the route before ``csrc/inter_me.cu``)."""
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     names = ("intra_sweep", "tu_rd_modes", "tu_rd", "intra_select",
              "intra_pick", "_dp_expand")
@@ -1705,8 +1709,8 @@ def plain_route():
     fast_intra.intra_sweep = fast_intra.intra_sweep_plain
     fast_intra.tu_rd_modes = fast_intra.tu_rd_modes_plain
     fast_intra.tu_rd = fast_intra._tq_rd
-    fast_intra.intra_select = fast_intra.intra_select_plain
-    fast_intra.intra_pick = fast_intra.intra_pick_plain
+    fast_intra.intra_select = fast_intra.intra_select_pass_plain
+    fast_intra.intra_pick = fast_intra.intra_pick_pass_plain
     fast_intra._dp_expand = fast_intra.intra_dp_plain
     inter_names = ("_coarse_fields", "int_refine", "merge_model")
     inter_saved = {n: getattr(fast_inter, n) for n in inter_names}
@@ -1759,23 +1763,28 @@ def select_bound(name: str, a, out) -> dict:
     """The least time of one select, pick or DP launch, counted from the
     work: the bytes the kernel must read, each once, and its outputs
     written once (at HBM's rate), against its float operations at the
-    fp32 rate.  The select reads the SATD rows, the SATD-best modes and
-    its 4 scalars and writes the top 3 and their bits (a product and a
-    sum a block and mode); the pick reads the top 3, their bits, the
-    TU-RD dist and bits and lambda and writes its five fields and the
-    chroma ids (a sum, a product and a sum a candidate).  The DP reads
+    fp32 rate.  The select reads every class's SATD rows and SATD-best
+    modes and its 4 scalars and writes the top 3 and their bits (a
+    product and a sum a block and mode); the pick reads every class's
+    top 3, their bits, the TU-RD dist and bits, and lambda, and writes
+    its five fields and the chroma ids (a sum, a product and a sum a
+    candidate).  The DP reads
     each luma block's five fields, each chroma class's candidates' dist
     and bits and one id a block (the chosen one), the inter leaves and 5
     scalars (the distinct ones), and writes the maps; per luma block its
     leaf (4) and split (5), per chroma candidate 4, per inter leaf 3.
     Bytes bound them all."""
     if name == "select":
-        satd, best, bits3, sqrt_lam = a[0], a[1], a[6], a[7]
-        nbytes = _nbytes(satd, best, *bits3, sqrt_lam, *out)
-        ops = int(satd.numel()) * 2
+        classes, bits3, sqrt_lam = a[0], a[2], a[3]
+        nbytes = _nbytes(*(t for v in classes.values() for t in v[:2]),
+                         *bits3, sqrt_lam,
+                         *(t for v in out.values() for t in v))
+        ops = sum(int(v[0].numel()) for v in classes.values()) * 2
     elif name == "pick":
-        nbytes = _nbytes(*a[:5], *out)
-        ops = int(a[0].numel()) * 3
+        classes, lam = a[0], a[2]
+        nbytes = _nbytes(*(t for v in classes.values() for t in v[:4]), lam,
+                         *(t for v in out.values() for t in v))
+        ops = sum(int(v[0].numel()) for v in classes.values()) * 3
     else:
         res, cres, cres8, lam, (bits2, clam, cw) = a[0], a[1], a[2], a[5], \
             a[6]
@@ -1797,7 +1806,12 @@ def select_bound(name: str, a, out) -> dict:
 
 def _held_diff(torch, got, want) -> tuple:
     """(largest absolute difference, equal: ints equal and floats equal
-    as bits) of two results, tensors or tuples of them."""
+    as bits) of two results, tensors or tuples or dicts of them."""
+    if isinstance(got, dict):
+        if sorted(got) != sorted(want):
+            return math.inf, False
+        return _held_diff(torch, [got[k] for k in sorted(got)],
+                          [want[k] for k in sorted(got)])
     if not isinstance(got, torch.Tensor):
         pairs = [_held_diff(torch, g, w) for g, w in zip(got, want)]
         return max(p[0] for p in pairs), all(p[1] for p in pairs) \
@@ -1818,8 +1832,8 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
     calls of the entries named in ``timed`` are timed beside their bound
     and printed as ``kernel`` rows: 20 eager calls, a CUDA graph of 20
     and the plain form (and for the select ``library_ms``: one
-    ``torch.topk(cost, 3, largest=False)`` on the same costs).  Returns
-    (largest error, rows by entry)."""
+    ``torch.topk(cost, 3, largest=False)`` on the same costs, every
+    class's in one tensor).  Returns (largest error, rows by entry)."""
     from thevc_tpu_torch.encoder import fast_intra
     from thevc_tpu_torch.ops import intra_rd_kernel, intra_select_kernel
     max_err = 0
@@ -1828,8 +1842,8 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
     row_names = {"sweep": "intra_sweep", "tu_rd_intra": "tu_rd",
                  "tu_rd_given": "tu_rd", "select": "intra_select",
                  "pick": "intra_pick", "dp": "intra_dp"}
-    select_plain = {"select": fast_intra.intra_select_plain,
-                    "pick": fast_intra.intra_pick_plain,
+    select_plain = {"select": fast_intra.intra_select_pass_plain,
+                    "pick": fast_intra.intra_pick_pass_plain,
                     "dp": fast_intra.intra_dp_plain}
 
     def plain_of(name, a):
@@ -1890,10 +1904,13 @@ def held_intra_calls(torch, calls: dict, timed: tuple, tag: str) -> tuple:
                                  else len(next(iter(a[12].values()))),
                                  maps=list(got.shape))
                 else:
-                    shape = dict(size=a[2] if name == "select" else a[5],
-                                 blocks=int(a[0].shape[0]))
+                    shape = dict(sizes=sorted(a[0]), blocks=sum(
+                        int(v[0].shape[0]) for v in a[0].values()))
                 if name == "select":
-                    cost = fast_intra._mode_cost(*a[:8])[0]
+                    classes, ctu, bits3, sqrt_lam = a
+                    cost = torch.cat([fast_intra._mode_cost(
+                        satd, best, s, nby, nbx, ctu, bits3, sqrt_lam)[0]
+                        for s, (satd, best, nby, nbx) in classes.items()])
                     library_ms = time_ms(torch, lambda: torch.topk(
                         cost, 3, dim=1, largest=False), 20)
             ms = time_ms(torch, lambda: kernel(*a), 20)
@@ -2073,7 +2090,7 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
           "the 1080p I pass's maps differ between the kernel route and "
           "the plain route")
     want = {"intra_sweep": classes, "tu_rd_intra": classes + chroma_classes,
-            "tu_rd_given": 0, "intra_select": classes, "intra_pick": classes,
+            "tu_rd_given": 0, "intra_select": 1, "intra_pick": 1,
             "intra_dp": 1, "satd": 0, "residual": 0}
     check(launches["kernel"] == want,
           f"the 1080p I pass launched {launches['kernel']}, expected {want} "
@@ -2095,7 +2112,7 @@ def intra_pass_phase(torch, clip: Path, work: Path) -> dict:
     timed = ("sweep", "tu_rd_intra", "select", "pick", "dp")
     err, rows = held_intra_calls(torch, calls, timed, "intra_pass")
     check([len(rows[k]) for k in timed]
-          == [classes, classes + chroma_classes, classes, classes, 1],
+          == [classes, classes + chroma_classes, 1, 1, 1],
           f"recorded {[len(v) for v in rows.values()]} intra kernel calls")
     # the same frame as 10 bits
     (y, cb, cr, w, h, qp, qp_cb, qp_cr, *rest) = args
@@ -2576,8 +2593,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     check({k: launches[k] for k in INTER_ME} == expected,
           f"the B pass launched the motion-search kernels "
           f"{ {k: launches[k] for k in INTER_ME} }, expected {expected}")
-    # one select and one pick a luma class (4-64), one DP launch a frame
-    expected = {"intra_select": 5, "intra_pick": 5, "intra_dp": 1}
+    # one select and one pick over every luma class (4-64), one DP launch
+    # a frame
+    expected = {"intra_select": 1, "intra_pick": 1, "intra_dp": 1}
     check({k: launches[k] for k in expected} == expected,
           f"the B pass launched the select, pick and DP kernels "
           f"{ {k: launches[k] for k in expected} }, expected {expected}")
@@ -3875,20 +3893,24 @@ def sum_rows(rows: list) -> dict:
 
 def build_report(lib: Path) -> dict:
     """Per kernel instance of a built library of the intra decision
-    kernels or of the motion-search kernels: registers, spill stores and
-    loads and shared memory (its ptxas log) and, where ``cuobjdump`` is
-    in the toolkit, its SASS instructions in all and by kind, and its
-    loops' lengths (``sass_loops``: the instructions between each
-    backward branch and its target, the three longest); per sample: a
-    sweep's main loop (its longest backward branch) over the samples a
-    thread predicts in one turn of it (16, two modes a step), a TU-RD
-    kernel's instructions over the coefficients a thread takes (8, 32 at
-    32x32; a quadrant loop counted once)."""
+    kernels (``intra_rd``, ``intra_select``) or of the motion-search
+    kernels: registers, stack frame, spill stores and loads and shared
+    memory (its ptxas log) and, where ``cuobjdump`` is in the toolkit,
+    its SASS instructions in all and by kind (``sass_local``:
+    local-memory loads and stores), and its loops' lengths
+    (``sass_loops``: the instructions between each backward branch and
+    its target, the three longest); per sample: a sweep's main loop (its
+    longest backward branch) over the samples a thread predicts in one
+    turn of it (16, two modes a step), a TU-RD kernel's instructions
+    over the coefficients a thread takes (8, 32 at 32x32; a quadrant
+    loop counted once)."""
     import re
     import shutil
     names = {"sweep_kernel": "sweep", "tu_rd_kernel": "tu_rd",
              "coarse_kernel": "coarse", "int_refine_kernel": "int_refine",
-             "merge_model_kernel": "merge_model"}
+             "merge_model_kernel": "merge_model",
+             "select_kernel": "select", "pick_kernel": "pick",
+             "dp_kernel": "dp"}
 
     def short(mangled):
         for key, label in names.items():
@@ -3910,11 +3932,12 @@ def build_report(lib: Path) -> dict:
             continue
         if not cur:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            out[cur].update(spill_stores=int(m.group(1)),
-                            spill_loads=int(m.group(2)))
+            out[cur].update(stack_frame=int(m.group(1)),
+                            spill_stores=int(m.group(2)),
+                            spill_loads=int(m.group(3)))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[cur]["registers"] = int(m.group(1))
@@ -3929,7 +3952,8 @@ def build_report(lib: Path) -> dict:
              "shfl": ("SHFL",), "redux": ("REDUX",),
              "shared": ("LDS", "STS", "ATOMS"), "global": ("LDG", "STG"),
              "float": ("FFMA", "FADD", "FMUL", "FMNMX"),
-             "prmt": ("PRMT",), "barrier": ("BAR",)}
+             "prmt": ("PRMT",), "barrier": ("BAR",),
+             "local": ("LDL", "STL")}
     line_re = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?"
                          r"([A-Z0-9_]+)[^;]*?(?:0x([0-9a-f]+))?\s*;")
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
@@ -3999,6 +4023,14 @@ def main() -> int:
         build_report(build.library_path(intra_rd_kernel.NAME))))
     print("inter_me_build " + json.dumps(
         build_report(build.library_path(inter_me_kernel.NAME))))
+    select_build = build_report(build.library_path(intra_select_kernel.NAME))
+    print("intra_select_build " + json.dumps(select_build))
+    # the select's top 3 and the pick's order live in registers
+    for name in ("select", "pick"):
+        info = select_build.get(name, {})
+        check(info.get("stack_frame") == 0 and info.get("spill_stores") == 0
+              and info.get("spill_loads") == 0,
+              f"the {name} kernel has a stack frame or spills: {info}")
 
     work = ROOT / "build" / "chip_smoke"
     work.mkdir(parents=True, exist_ok=True)
@@ -4138,9 +4170,9 @@ def main() -> int:
     # class and the Cb/Cr candidates of each chroma class; no single
     # PyTorch call predicts HM's intra modes or runs its transform,
     # quantiser and recon, so library_ms is null); the select, pick and
-    # DP kernels' the same frame's calls summed (5, 5 and 1): the
-    # select's library_ms is one torch.topk(cost, 3, largest=False) a
-    # class on the same costs (the port never calls it: it does not
+    # DP kernels' the same frame's calls (one each): the select's
+    # library_ms is one torch.topk(cost, 3, largest=False) on every
+    # class's costs in one tensor (the port never calls it: it does not
     # promise the tie order); no single PyTorch call makes the pick (a
     # first-minimum RD pick with its runners-up and the chroma ids) or
     # the DP (the chroma picks, a quadtree DP and its expansion), so

@@ -14,9 +14,10 @@ bits, bit increment 2) go through:
 - the sweep's plain form against the JAX package's ``_size_pass_impl``
   internals (its unified prediction stack and ``_satd_d``): SATD [N, 35]
   and the first-minimum mode exact;
-- each size class's (best, dist, bits, mode2, mode3) and each chroma
-  class's (dir, cost) (its candidates, from the ids the luma class's
-  pick wrote, picked by ``chroma_pick_plain``), the NxN variant
+- each size class's (best, dist, bits, mode2, mode3) (``_luma_passes``:
+  the sweeps, one select over every class, the TU-RDs, one pick) and
+  each chroma class's (dir, cost) (its candidates, from the ids the luma
+  class's pick wrote, picked by ``chroma_pick_plain``), the NxN variant
   included, against the parent's route (a copy of the former
   ``_size_pass_impl`` and ``_chroma_pass_impl`` below: the 35-mode
   stacks, the top-3 gathered from them, ``_tq_rd``): exact, floats bit
@@ -272,6 +273,19 @@ def frames():
     return {name: _frame(name) for name in FRAMES}
 
 
+@pytest.fixture(scope="module")
+def luma_passes(frames):
+    """Each frame's luma classes (``fi._luma_passes``: the sweeps, one
+    select over every class, the TU-RDs, one pick), computed once."""
+    out = {}
+    for name, args in frames.items():
+        (py, _, _), wp, hp, ctu, bit_inc, max_val = _planes(args)
+        (qp, _, _), bits3, _ = _scalars(args)
+        out[name] = fi._luma_passes(py, wp, hp, qp, bits3, bit_inc, max_val,
+                                    ctu)
+    return out
+
+
 def test_level_bit_units_are_exact():
     units = fi._level_bits_units_table()
     assert units.dtype == np.int32 and units.shape == (32769,)
@@ -349,12 +363,11 @@ def _same(a, b):
 
 
 @pytest.mark.parametrize("frame,s", _classes())
-def test_size_pass_equals_parent_route(frames, frame, s):
+def test_size_pass_equals_parent_route(frames, luma_passes, frame, s):
     args = frames[frame]
     (py, _, _), wp, hp, ctu, bit_inc, max_val = _planes(args)
     (qp, _, _), bits3, _ = _scalars(args)
-    got = fi._size_pass_impl(py, s, hp // s, wp // s, qp, bits3, bit_inc,
-                             max_val, ctu)
+    got = luma_passes[frame][s]
     want = _parent_size_pass(py, s, hp // s, wp // s, qp, bits3, bit_inc,
                              max_val, ctu)
     # the modes are int32 since the pick's kernel (the parent's sort
@@ -368,19 +381,17 @@ def test_size_pass_equals_parent_route(frames, frame, s):
 @pytest.mark.parametrize("frame,s", [(f, s) for f, s in _classes()
                                      if s >= 8] + [(f, "nxn")
                                                    for f in FRAMES])
-def test_chroma_pass_equals_parent_route(frames, frame, s):
+def test_chroma_pass_equals_parent_route(frames, luma_passes, frame, s):
     args = frames[frame]
     (py, pcb, pcr), wp, hp, ctu, bit_inc, max_val = _planes(args)
     (qp, qp_cb, qp_cr), bits3, bits2 = _scalars(args)
     if s == "nxn":
         # the NxN variant: DM is the top-left 4x4's mode
-        luma = fi._size_pass_impl(py, 4, hp // 4, wp // 4, qp, bits3,
-                                  bit_inc, max_val, ctu)
+        luma = luma_passes[frame][4]
         dm = luma[0][0::2, 0::2]
         s = 8
     else:
-        luma = fi._size_pass_impl(py, s, hp // s, wp // s, qp, bits3,
-                                  bit_inc, max_val, ctu)
+        luma = luma_passes[frame][s]
         dm = luma[0]
     # the candidates' ids come from the luma class's pick, the pick of
     # the candidates from the DP's first step

@@ -14,7 +14,15 @@ XLA fuses no multiply-add and every float rounds as in the port:
   seeded SATDs with ties planted (a small range of values, so that most
   blocks tie) and SATD-best modes, for a class below the CTU size and
   one at it: modes and bits exact;
-- ``_size_pass_impl`` and ``_chroma_pass_impl`` (with the chroma pick)
+- the multi-class select and pick (``intra_select`` and ``intra_pick``
+  on CPU tensors: ``intra_select_pass_plain`` and
+  ``intra_pick_pass_plain``) on every class's sweep of small frames at
+  CTU 16, 32 and 64 and 8 and 10 bits: each class equal to the per-class
+  plain forms and the top 3 to the JAX lines (exact), and on SATD rows
+  whose costs tie across SATDs and bit classes (sqrt-lambda 2) and whole
+  rows equal, against the JAX lines (exact);
+- the luma classes of ``_luma_passes`` (the sweeps, one select, the
+  TU-RDs, one pick) and ``_chroma_pass_impl`` (with the chroma pick)
   against the JAX ones (the unified form) on seeded 64x64 (CTU 32) and
   128x64 (CTU 64, bit increment 2) frames: the JAX coefficient-bit model
   takes XLA's ``log2``, so bits agree within rtol 1e-5, and a pick may
@@ -30,10 +38,12 @@ XLA fuses no multiply-add and every float rounds as in the port:
   588-600) written out in numpy float32 on seeded candidates with ties:
   exact;
 - the bindings' checks (``ops.intra_select_kernel.check_*``) refuse
-  dtypes, shapes, sizes, grids and scalars, and every entry a CPU
-  tensor, with nothing built; the dispatchers refuse any device but the
-  CPU and CUDA;
-- ``chip_smoke.select_bound`` counts a 1080p frame's DP bytes (I, P and
+  dtypes, shapes, a class above the CTU, a missing class, grids, an
+  unaligned SATD, an odd 4x4 grid for the pick and scalars, and every
+  entry a CPU tensor, with nothing built; the class tables' C layout;
+  the dispatchers refuse any device but the CPU and CUDA;
+- ``chip_smoke.select_bound`` counts a 1080p pass's select and pick
+  bytes (every class, the scalars once) and a frame's DP bytes (I, P and
   B) each storage once: the luma classes' ids that the chroma classes
   share are not counted again, and a chroma class is read one id a
   block.
@@ -58,6 +68,7 @@ from thevc_tpu_torch.ops import build, intra_select_kernel as kern
 torch.set_num_threads(1)
 
 SIZES = (4, 8, 16, 32, 64)
+CTU_SIZES = (16, 32, 64)
 BITS3 = (1.0, 2.0, 5.5)
 SQRT_LAM, LAM = 7.55, 57.0
 CBITS2 = (0.5, 3.5, 1.1)
@@ -77,7 +88,7 @@ def _satd_with_ties(rng, nb: int) -> tuple:
     return satd.astype(np.int32), satd.argmin(axis=1).astype(np.int32)
 
 
-def _jax_select(satd, best, s, nby, nbx, ctu):
+def _jax_select(satd, best, s, nby, nbx, ctu, sqrt_lam=SQRT_LAM):
     """The reference's lines 467-492 over its own ``_mpm_vec``."""
     best_a = jnp.asarray(best).reshape(nby, nbx)
     left = jnp.concatenate(
@@ -97,7 +108,7 @@ def _jax_select(satd, best, s, nby, nbx, ctu):
         modes == m0[:, None], b0,
         jnp.where((modes == m1[:, None]) | (modes == m2[:, None]), b12, bo))
     cost = jnp.asarray(satd).astype(jnp.float32) + bits_plain * jnp.float32(
-        SQRT_LAM)
+        sqrt_lam)
     _, topk = jax.lax.top_k(-cost, 3)
     return (np.asarray(topk),
             np.asarray(jnp.take_along_axis(bits_plain, topk, axis=1)))
@@ -121,6 +132,107 @@ def test_select_equals_jax_mpm_and_top_k(s, ctu):
     cost = satd[np.arange(len(satd))[:, None], want_k].astype(np.float32) \
         + want_b * np.float32(SQRT_LAM)
     assert (cost[:, :-1] == cost[:, 1:]).any()
+
+
+def _same(got, want, what: str = "") -> None:
+    """Tensors or tuples of them equal: dtypes, shapes, ints, floats as
+    bits."""
+    if isinstance(got, (tuple, list)):
+        assert len(got) == len(want), what
+        for k, (a, b) in enumerate(zip(got, want)):
+            _same(a, b, f"{what}[{k}]")
+        return
+    assert got.dtype == want.dtype and got.shape == want.shape, what
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    assert torch.equal(got, want), what
+
+
+def _tied_classes(rng, ctu: int, wp: int, hp: int) -> dict:
+    """Seeded SATD rows of every class up to ``ctu`` whose costs tie at
+    sqrt-lambda 2 (bits * sqrt_lam 2, 4 and 11): SATDs from a base plus
+    0, 2, 7 or 9, so that modes of different SATDs and bit classes meet
+    at one cost, and every fourth row all equal."""
+    out = {}
+    for s in SIZES:
+        if s > ctu:
+            break
+        nby, nbx = hp // s, wp // s
+        nb = nby * nbx
+        satd = rng.choice([0, 2, 7, 9], (nb, 35)) + rng.randint(90, 99,
+                                                                (nb, 1))
+        satd[::4] = 200
+        satd = torch.from_numpy(satd.astype(np.int32))
+        out[s] = (satd, satd.argmin(dim=1).to(torch.int32), nby, nbx)
+    return out
+
+
+@pytest.mark.parametrize("ctu", CTU_SIZES)
+def test_select_pass_orders_ties_as_top_k(ctu):
+    rng = np.random.RandomState(ctu)
+    classes = _tied_classes(rng, ctu, 128, 64)
+    bits3 = tuple(_f32(b) for b in BITS3)
+    top = fi.intra_select(classes, ctu, bits3, _f32(2.0))
+    assert sorted(top) == sorted(classes)
+    crossed = 0
+    for s, (satd, best, nby, nbx) in classes.items():
+        want_k, want_b = _jax_select(satd.numpy(), best.numpy(), s, nby, nbx,
+                                     ctu, sqrt_lam=2.0)
+        np.testing.assert_array_equal(top[s][0].numpy(), want_k)
+        np.testing.assert_array_equal(top[s][1].numpy().view(np.int32),
+                                      want_b.view(np.int32))
+        _same(top[s], fi.intra_select_plain(satd, best, s, nby, nbx, ctu,
+                                            bits3, _f32(2.0)), f"s={s}")
+        # equal costs of different bit classes among the top 3
+        rows = np.arange(len(want_k))[:, None]
+        cost = satd.numpy()[rows, want_k] + want_b * 2.0
+        tie = (cost[:, :-1] == cost[:, 1:]) & (want_b[:, :-1]
+                                                != want_b[:, 1:])
+        crossed += int(tie.sum())
+    assert crossed > 0
+
+
+PASS_CASES = [(ctu, bit_inc) for ctu in CTU_SIZES for bit_inc in (0, 2)]
+
+
+@pytest.mark.parametrize("ctu,bit_inc", PASS_CASES)
+def test_select_and_pick_passes_equal_per_class_and_jax(ctu, bit_inc):
+    w, h = 64, 48
+    wp, hp = -(-w // ctu) * ctu, -(-h // ctu) * ctu
+    rng = np.random.RandomState(ctu + bit_inc)
+    y, cb, cr = (_content(rng, h // d, w // d, bit_inc) for d in (1, 2, 2))
+    py = np.ascontiguousarray(fi._source_planes(y, cb, cr, w, h, ctu)[0],
+                              np.int16)
+    pt = torch.from_numpy(py)
+    max_val = (256 << bit_inc) - 1
+    qp = torch.tensor(32 + 6 * bit_inc, dtype=torch.int32)
+    bits3 = tuple(_f32(b) for b in BITS3)
+    sl, lam = _f32(SQRT_LAM), _f32(LAM)
+    grids = {s: (hp // s, wp // s) for s in SIZES if s <= ctu}
+    classes = {s: (*fi.intra_sweep(pt, s, *g, bit_inc, max_val), *g)
+               for s, g in grids.items()}
+    top = fi.intra_select(classes, ctu, bits3, sl)
+    cands = {}
+    for s, (satd, best, nby, nbx) in classes.items():
+        _same(top[s], fi.intra_select_plain(satd, best, s, nby, nbx, ctu,
+                                            bits3, sl), f"select s={s}")
+        want_k, want_b = _jax_select(satd.numpy(), best.numpy(), s, nby, nbx,
+                                     ctu)
+        np.testing.assert_array_equal(top[s][0].numpy(), want_k)
+        np.testing.assert_array_equal(top[s][1].numpy().view(np.int32),
+                                      want_b.view(np.int32))
+        dist_k, cbits_k = fi.tu_rd_modes((pt,), s, nby, nbx, top[s][0],
+                                         (qp,), bit_inc, max_val, luma=True)
+        cands[s] = (*top[s], dist_k, cbits_k, nby, nbx)
+    picked = fi.intra_pick(cands, ctu, lam)
+    luma = fi._luma_passes(pt, wp, hp, qp, (bits3, sl, lam), bit_inc,
+                           max_val, ctu)
+    for s, a in cands.items():
+        _same(picked[s], fi.intra_pick_plain(*a[:4], lam, s, *a[4:]),
+              f"pick s={s}")
+        _same(tuple(v.reshape(-1) for v in luma[s][:5]), picked[s][:5],
+              f"pass s={s}")
+        _luma_agrees_with_jax(luma[s], py, s, wp, hp, ctu, bit_inc)
 
 
 def _content(rng, h: int, w: int, bit_inc: int) -> np.ndarray:
@@ -155,22 +267,27 @@ def _agree(a, b) -> np.ndarray:
     return same
 
 
-@pytest.mark.parametrize("frame,s", _classes())
-def test_size_and_chroma_pass_agree_with_jax(planes, frame, s):
-    w, h, ctu, bit_inc, _ = FRAMES[frame]
+def _luma_passes(py, w, h, ctu, bit_inc, sqrt_lam=SQRT_LAM):
+    """The port's luma classes of a frame (``fi._luma_passes``: the
+    sweeps, one select over every class, the TU-RDs, one pick)."""
     wp, hp = -(-w // ctu) * ctu, -(-h // ctu) * ctu
-    nby, nbx = hp // s, wp // s
-    max_val = (256 << bit_inc) - 1
-    qp, qp_c = 32 + 6 * bit_inc, 30 + 6 * bit_inc
-    py, pcb, pcr = planes[frame]
-    luma = fi._size_pass_impl(
-        torch.from_numpy(py), s, nby, nbx, torch.tensor(qp, dtype=torch.int32),
-        (tuple(_f32(b) for b in BITS3), _f32(SQRT_LAM), _f32(LAM)), bit_inc,
-        max_val, ctu)
+    qp = 32 + 6 * bit_inc
+    return fi._luma_passes(
+        torch.from_numpy(py), wp, hp, torch.tensor(qp, dtype=torch.int32),
+        (tuple(_f32(b) for b in BITS3), _f32(sqrt_lam), _f32(LAM)),
+        bit_inc, (256 << bit_inc) - 1, ctu)
+
+
+def _luma_agrees_with_jax(luma, py, s, wp, hp, ctu, bit_inc,
+                          sqrt_lam=SQRT_LAM):
+    """One class of ``_luma_passes`` against the JAX ``_size_pass_impl``:
+    the modes on at least 99% of the blocks, the dist exact and the bits
+    within rtol 1e-5 where the best modes agree."""
+    qp = 32 + 6 * bit_inc
     want = ref._size_pass_impl(
-        jnp.asarray(py.astype(np.int32)), s, nby, nbx, jnp.int32(qp),
-        (tuple(jnp.float32(b) for b in BITS3), jnp.float32(SQRT_LAM),
-         jnp.float32(LAM)), bit_inc, max_val, ctu, True)
+        jnp.asarray(py.astype(np.int32)), s, hp // s, wp // s, jnp.int32(qp),
+        (tuple(jnp.float32(b) for b in BITS3), jnp.float32(sqrt_lam),
+         jnp.float32(LAM)), bit_inc, (256 << bit_inc) - 1, ctu, True)
     for k in (0, 3, 4):
         _agree(luma[k].numpy(), want[k])
     same = _agree(luma.mode.numpy(), want[0])
@@ -178,6 +295,24 @@ def test_size_and_chroma_pass_agree_with_jax(planes, frame, s):
                                   np.asarray(want[1])[same])
     np.testing.assert_allclose(luma.bits.numpy()[same],
                                np.asarray(want[2])[same], rtol=BIT_RTOL)
+
+
+@pytest.fixture(scope="module")
+def luma_passes(planes):
+    return {name: _luma_passes(planes[name][0], w, h, ctu, bit_inc)
+            for name, (w, h, ctu, bit_inc, _) in FRAMES.items()}
+
+
+@pytest.mark.parametrize("frame,s", _classes())
+def test_size_and_chroma_pass_agree_with_jax(planes, luma_passes, frame, s):
+    w, h, ctu, bit_inc, _ = FRAMES[frame]
+    wp, hp = -(-w // ctu) * ctu, -(-h // ctu) * ctu
+    nby, nbx = hp // s, wp // s
+    max_val = (256 << bit_inc) - 1
+    qp_c = 30 + 6 * bit_inc
+    py, pcb, pcr = planes[frame]
+    luma = luma_passes[frame][s]
+    _luma_agrees_with_jax(luma, py, s, wp, hp, ctu, bit_inc)
     if s == 4:
         return
     # the chroma class, fed the port's luma best on both sides
@@ -350,59 +485,127 @@ def no_build(monkeypatch):
     monkeypatch.setattr(kern, "build", refuse)
 
 
-def _select_args(nb=6, s=8, nby=2, nbx=3, ctu=32):
-    return [torch.zeros((nb, 35), dtype=torch.int32),
-            torch.zeros((nb,), dtype=torch.int32), s, nby, nbx, ctu,
-            tuple(_f32(b) for b in BITS3), _f32(SQRT_LAM)]
+GRIDS16 = {4: (4, 6), 8: (2, 3), 16: (1, 2)}      # a 96x64 frame, CTU 16
 
 
-def _pick_args(s=8, nby=2, nbx=4):
-    nb = nby * nbx
-    return [torch.zeros((nb, 3), dtype=torch.int32),
-            torch.zeros((nb, 3), dtype=torch.float32),
-            torch.zeros((nb * 3,), dtype=torch.int32),
-            torch.zeros((nb * 3,), dtype=torch.float32), _f32(LAM), s, nby,
-            nbx]
+def _select_args(ctu=16, grids=GRIDS16):
+    classes = {s: (torch.zeros((nby * nbx, 35), dtype=torch.int32),
+                   torch.zeros((nby * nbx,), dtype=torch.int32), nby, nbx)
+               for s, (nby, nbx) in grids.items()}
+    return [classes, ctu, tuple(_f32(b) for b in BITS3), _f32(SQRT_LAM)]
 
 
-@pytest.mark.parametrize("change,match", [
-    ({0: torch.zeros((6, 35), dtype=torch.int64)}, "dtype"),
-    ({0: torch.zeros((6, 34), dtype=torch.int32)}, "shape"),
-    ({1: torch.zeros((7,), dtype=torch.int32)}, "shape"),
-    ({0: torch.zeros((35, 6), dtype=torch.int32).t()}, "contiguous"),
-    ({2: 12}, "size"),
-    ({5: 24}, "CTU"),
-    ({2: 64}, "CTU"),
-    ({3: 0, 0: torch.zeros((0, 35), dtype=torch.int32),
-      1: torch.zeros((0,), dtype=torch.int32)}, "empty"),
-    ({7: 7.55}, "0-d float32"),
-    ({7: torch.tensor(7.55, dtype=torch.float64)}, "dtype"),
-    ({6: (_f32(1.0), _f32(2.0))}, "classes"),
-])
-def test_check_select_refuses(no_build, change, match):
+def _pick_args(ctu=16, grids=GRIDS16):
+    def cls(nby, nbx):
+        nb = nby * nbx
+        return (torch.zeros((nb, 3), dtype=torch.int32),
+                torch.zeros((nb, 3), dtype=torch.float32),
+                torch.zeros((nb * 3,), dtype=torch.int32),
+                torch.zeros((nb * 3,), dtype=torch.float32), nby, nbx)
+    return [{s: cls(*g) for s, g in grids.items()}, ctu, _f32(LAM)]
+
+
+def _change_class(a, s, k, t):
+    """Argument list ``a`` with field k of class s replaced by t."""
+    v = list(a[0][s])
+    v[k] = t
+    a[0] = {**a[0], s: tuple(v)}
+    return a
+
+
+def _bad_select(name):
     a = _select_args()
-    for k, v in change.items():
-        a[k] = v
-    with pytest.raises((ValueError, TypeError), match=match):
+    if name == "satd dtype":
+        return _change_class(a, 8, 0, torch.zeros((6, 35), dtype=torch.int64))
+    if name == "satd shape":
+        return _change_class(a, 8, 0, torch.zeros((6, 34), dtype=torch.int32))
+    if name == "best shape":
+        return _change_class(a, 16, 1, torch.zeros((3,), dtype=torch.int32))
+    if name == "contiguous":
+        return _change_class(a, 4, 0, torch.zeros((35, 24),
+                                                  dtype=torch.int32).t())
+    if name == "aligned":
+        # one row in: 140 bytes past a 16-byte boundary
+        return _change_class(a, 8, 0, torch.zeros(
+            (7, 35), dtype=torch.int32)[1:])
+    if name == "above the CTU":
+        a[0][32] = (torch.zeros((1, 35), dtype=torch.int32),
+                    torch.zeros((1,), dtype=torch.int32), 1, 1)
+        return a
+    if name == "missing class":
+        del a[0][8]
+        return a
+    if name == "CTU":
+        a[1] = 24
+        return a
+    if name == "empty grid":
+        a[0][16] = (torch.zeros((0, 35), dtype=torch.int32),
+                    torch.zeros((0,), dtype=torch.int32), 0, 2)
+        return a
+    if name == "scalar type":
+        a[3] = 7.55
+        return a
+    if name == "scalar dtype":
+        a[3] = torch.tensor(7.55, dtype=torch.float64)
+        return a
+    if name == "bit classes":
+        a[2] = (_f32(1.0), _f32(2.0))
+        return a
+    raise KeyError(name)
+
+
+SELECT_REFUSALS = {"satd dtype": "dtype", "satd shape": "shape",
+                   "best shape": "shape", "contiguous": "contiguous",
+                   "aligned": "aligned", "above the CTU": "above the CTU",
+                   "missing class": "classes", "CTU": "CTU size",
+                   "empty grid": "empty", "scalar type": "0-d float32",
+                   "scalar dtype": "dtype", "bit classes": "classes"}
+
+
+@pytest.mark.parametrize("name", sorted(SELECT_REFUSALS))
+def test_check_select_refuses(no_build, name):
+    a = _bad_select(name)
+    with pytest.raises((ValueError, TypeError),
+                       match=SELECT_REFUSALS[name]):
         kern.check_select(*a)
     with pytest.raises((ValueError, TypeError)):
         kern.select(*a)
 
 
-@pytest.mark.parametrize("change,match", [
-    ({0: torch.zeros((8, 3), dtype=torch.int64)}, "dtype"),
-    ({1: torch.zeros((8, 4), dtype=torch.float32)}, "shape"),
-    ({2: torch.zeros((24,), dtype=torch.float32)}, "dtype"),
-    ({3: torch.zeros((23,), dtype=torch.float32)}, "shape"),
-    ({4: torch.zeros((1,), dtype=torch.float32)}, "shape"),
-    ({5: 4, 6: 1, 7: 8}, "even grid"),
-    ({5: 6}, "size"),
-])
-def test_check_pick_refuses(no_build, change, match):
+def _bad_pick(name):
     a = _pick_args()
-    for k, v in change.items():
-        a[k] = v
-    with pytest.raises((ValueError, TypeError), match=match):
+    if name == "topk dtype":
+        return _change_class(a, 8, 0, torch.zeros((6, 3), dtype=torch.int64))
+    if name == "mbits shape":
+        return _change_class(a, 4, 1, torch.zeros((24, 4),
+                                                  dtype=torch.float32))
+    if name == "dist dtype":
+        return _change_class(a, 16, 2, torch.zeros((6,), dtype=torch.float32))
+    if name == "cbits shape":
+        return _change_class(a, 8, 3, torch.zeros((17,), dtype=torch.float32))
+    if name == "lam shape":
+        a[2] = torch.zeros((1,), dtype=torch.float32)
+        return a
+    if name == "odd 4x4 grid":
+        return _pick_args(grids={4: (3, 4), 8: (2, 2), 16: (1, 1)})
+    if name == "above the CTU":
+        return _pick_args(ctu=16, grids={**GRIDS16, 32: (1, 1)})
+    if name == "missing class":
+        return _pick_args(ctu=32, grids=GRIDS16)
+    raise KeyError(name)
+
+
+PICK_REFUSALS = {"topk dtype": "dtype", "mbits shape": "shape",
+                 "dist dtype": "dtype", "cbits shape": "shape",
+                 "lam shape": "shape", "odd 4x4 grid": "even grid",
+                 "above the CTU": "above the CTU",
+                 "missing class": "classes"}
+
+
+@pytest.mark.parametrize("name", sorted(PICK_REFUSALS))
+def test_check_pick_refuses(no_build, name):
+    a = _bad_pick(name)
+    with pytest.raises((ValueError, TypeError), match=PICK_REFUSALS[name]):
         kern.check_pick(*a)
     with pytest.raises((ValueError, TypeError)):
         kern.pick(*a)
@@ -486,6 +689,9 @@ def test_check_dp_refuses(no_build, name):
 def test_checks_pass_good_inputs_and_entries_refuse_cpu(no_build):
     kern.check_select(*_select_args())
     kern.check_pick(*_pick_args())
+    grids64 = {s: (272 // s, 480 // s) for s in SIZES}
+    kern.check_select(*_select_args(64, grids64))
+    kern.check_pick(*_pick_args(64, grids64))
     kern.check_dp(**_dp_args())
     kern.check_dp(**_dp_args(ctu=64, w=200, h=136, kind="B"))
     kern.check_dp(**_dp_args(ctu=16, w=40, h=24, kind="I"))
@@ -499,21 +705,36 @@ def test_checks_pass_good_inputs_and_entries_refuse_cpu(no_build):
 
 def test_dispatchers_take_cpu_plain_and_refuse_other_devices(no_build):
     a = _select_args()
-    topk, mbits = fi.intra_select(*a)
-    assert topk.shape == (6, 3) and mbits.dtype == torch.float32
-    meta = [t.to("meta") if isinstance(t, torch.Tensor) else t for t in a]
+    top = fi.intra_select(*a)
+    assert sorted(top) == [4, 8, 16]
+    assert top[4][0].shape == (24, 3) and top[4][1].dtype == torch.float32
+    meta = _select_args()
+    meta[0] = {s: (v[0].to("meta"), v[1].to("meta"), *v[2:])
+               for s, v in meta[0].items()}
     with pytest.raises(ValueError, match="unsupported device"):
         fi.intra_select(*meta)
     p = _pick_args()
-    assert len(fi.intra_pick(*p)) == 6
+    picked = fi.intra_pick(*p)
+    assert sorted(picked) == [4, 8, 16] and len(picked[8]) == 6
+    assert picked[4][5].shape == (6, 5) and picked[8][5].shape == (6, 5)
+    p[0] = {s: (*(t.to("meta") for t in v[:4]), *v[4:])
+            for s, v in p[0].items()}
     with pytest.raises(ValueError, match="unsupported device"):
-        fi.intra_pick(*[t.to("meta") if isinstance(t, torch.Tensor) else t
-                        for t in p])
+        fi.intra_pick(*p)
     d = _dp_args()
     assert fi._dp_expand(**d).shape == (10, d["hp"] // 4, d["wp"] // 4)
     d["lam"] = d["lam"].to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         fi._dp_expand(**d)
+
+
+def test_select_and_pick_args_layout():
+    # the C structs: a select class is four pointers and four ints, a
+    # pick class ten pointers and four ints
+    assert ctypes.sizeof(kern.SelectArgs) == 5 * 48 + 4 * 8 + 2 * 4
+    assert kern.SelectArgs.classes.offset == 5 * 48 + 4 * 8
+    assert ctypes.sizeof(kern.PickArgs) == -(-(5 * 96 + 8 + 4) // 8) * 8
+    assert kern.PickArgs.lam.offset == 5 * 96
 
 
 def test_dp_args_layout():
@@ -559,3 +780,28 @@ def test_dp_bound_counts_each_storage_once(kind):
     if kind == "I":
         assert want == 10644736
 
+
+
+@pytest.mark.parametrize("name", ["select", "pick"])
+def test_select_and_pick_bounds_count_each_storage_once(name):
+    import chip_smoke
+    grids = {s: (1088 // s, 1920 // s) for s in SIZES}
+    blocks = {s: nby * nbx for s, (nby, nbx) in grids.items()}
+    nb = sum(blocks.values())
+    if name == "select":
+        args = _select_args(64, grids)
+        out = fi.intra_select(*args)
+        # SATD rows and best in, top 3 and their bits out; 4 scalars
+        want = nb * (35 * 4 + 4 + 3 * 4 + 3 * 4) + 4 * 4
+    else:
+        args = _pick_args(64, grids)
+        out = fi.intra_pick(*args)
+        # the top 3, their bits, dist and bits in; five fields and the
+        # chroma ids out (the 4x4 class's a quarter); lambda
+        want = (nb * (4 * 3 * 4 + 5 * 4) + 20 * (nb - blocks[4])
+                + 20 * blocks[4] // 4 + 4)
+    got = chip_smoke.select_bound(name, args, out)
+    assert got["bytes"] == want
+    assert got["bound_by"] == "bytes"
+    assert got["bound_ms"] == pytest.approx(
+        1000 * want / chip_smoke.HBM_BYTES_S, rel=1e-12)

@@ -6,14 +6,17 @@ Every test is marked ``gpu`` and asks the ``cuda`` fixture for the card,
 skipping without one (the refusals that need no card are in
 ``tests/test_torch_intra_select.py``).  Each kernel equals its plain form
 run on the same CUDA tensors, tolerance 0 (ints equal, floats equal as
-bits): the select at every 1080p class shape, below and at the CTU size,
-on seeded SATDs with ties planted; the pick at every 1080p class shape
+bits): the select and the pick, one launch each over every luma class,
+on the sweeps and TU-RDs of seeded frames at CTU 16, 32 and 64 and 8 and
+10 bits; the select on 1080p class tables at every CTU size with ties
+planted (equal costs from different SATDs and bit classes at
+sqrt-lambda 2, whole rows equal); the pick on 1080p class tables
 (and the 4x4 class's NxN ids) with tied RD costs; the DP on seeded
 leaves and chroma candidates for I, P and B slices, CTU 16, 32 and 64,
 1080p and frames that are no CTU multiple, the NxN gate opened, MVs past
 int16; whole I decision passes at 8 and 10 bits and P and B passes on
-``cuda`` equal to the CPU's, one select and one pick launch a luma class
-and one DP launch a frame; and each entry replays in a CUDA graph.  Run
+``cuda`` equal to the CPU's, one select, one pick and one DP launch a
+pass; and each entry replays in a CUDA graph.  Run
 on the GPU machine with
 ``python -m pytest tests/test_torch_intra_select_kernel.py -m gpu``.
 """
@@ -49,6 +52,11 @@ def same(got, want, what: str) -> None:
         for k, (a, b) in enumerate(zip(got, want)):
             same(a, b, f"{what}[{k}]")
         return
+    if isinstance(got, dict):
+        assert sorted(got) == sorted(want), what
+        for k in got:
+            same(got[k], want[k], f"{what}[{k}]")
+        return
     assert got.dtype == want.dtype and got.shape == want.shape, \
         (what, got.dtype, want.dtype, got.shape, want.shape)
     if got.dtype == torch.float32:
@@ -61,30 +69,37 @@ def _f32(v, dev):
     return torch.tensor(v, dtype=torch.float32, device=dev)
 
 
-def select_inputs(seed: int, nb: int, dev) -> tuple:
+def select_table(seed: int, ctu: int, wp: int, hp: int, dev) -> dict:
+    """A class table for the select: every class up to ``ctu`` of a
+    wp x hp frame, seeded SATDs whose costs tie at sqrt-lambda 2 (bits *
+    sqrt_lam 2, 4 and 11; SATDs a base plus 0, 2, 7 or 9) and every fifth
+    row all equal, with their first-minimum modes."""
     rng = np.random.RandomState(seed)
-    satd = rng.randint(0, 6, (nb, 35)) * 8 + rng.randint(0, 4000, (nb, 1))
-    satd[::5] = 300                               # whole rows tied
-    satd = torch.from_numpy(satd.astype(np.int32)).to(dev)
-    return satd, satd.argmin(dim=1).to(torch.int32)
+    out = {}
+    for s in SIZES:
+        if s > ctu:
+            break
+        nby, nbx = hp // s, wp // s
+        nb = nby * nbx
+        satd = rng.choice([0, 2, 7, 9], (nb, 35)) + rng.randint(0, 4000,
+                                                                (nb, 1))
+        satd[::5] = 300
+        satd = torch.from_numpy(satd.astype(np.int32)).to(dev)
+        out[s] = (satd, satd.argmin(dim=1).to(torch.int32), nby, nbx)
+    return out
 
 
-# 1080p's classes (the padded 1088 x 1920 picture), CTU 64, and CTU 32
-# and 16 classes at and below the CTU size
-SELECT_CASES = [(s, 64) for s in SIZES] + [(16, 32), (32, 32), (8, 16),
-                                           (16, 16)]
-
-
-@pytest.mark.parametrize("s,ctu", SELECT_CASES)
-def test_select_equals_plain(cuda, s, ctu):
-    nby, nbx = 1088 // s, 1920 // s
-    satd, best = select_inputs(s + ctu, nby * nbx, cuda)
-    bits3 = tuple(_f32(b, cuda) for b in BITS3)
-    args = (satd, best, s, nby, nbx, ctu, bits3, _f32(SQRT_LAM, cuda))
+@pytest.mark.parametrize("sqrt_lam", [2.0, SQRT_LAM])
+@pytest.mark.parametrize("ctu", [16, 32, 64])
+def test_select_equals_plain(cuda, ctu, sqrt_lam):
+    classes = select_table(ctu, ctu, 1920, 1088, cuda)
+    args = (classes, ctu, tuple(_f32(b, cuda) for b in BITS3),
+            _f32(sqrt_lam, cuda))
     kern.select_launches = 0
     got = kern.select(*args)
     assert kern.select_launches == 1
-    same(got, fi.intra_select_plain(*args), f"select s={s} ctu={ctu}")
+    same(got, fi.intra_select_pass_plain(*args),
+         f"select ctu={ctu} sqrt_lam={sqrt_lam}")
 
 
 def pick_inputs(seed: int, nb: int, dev) -> tuple:
@@ -102,14 +117,44 @@ def pick_inputs(seed: int, nb: int, dev) -> tuple:
         topk, mbits, dist.astype(np.int32).reshape(-1), cbits.reshape(-1)))
 
 
-@pytest.mark.parametrize("s", SIZES)
-def test_pick_equals_plain(cuda, s):
-    nby, nbx = 1088 // s, 1920 // s
-    args = (*pick_inputs(s, nby * nbx, cuda), _f32(LAM, cuda), s, nby, nbx)
+def pick_table(seed: int, ctu: int, wp: int, hp: int, dev) -> dict:
+    return {s: (*pick_inputs(seed + s, (hp // s) * (wp // s), dev), hp // s,
+                wp // s) for s in SIZES if s <= ctu}
+
+
+@pytest.mark.parametrize("ctu", [16, 32, 64])
+def test_pick_equals_plain(cuda, ctu):
+    args = (pick_table(ctu, ctu, 1920, 1088, cuda), ctu, _f32(LAM, cuda))
     kern.pick_launches = 0
     got = kern.pick(*args)
     assert kern.pick_launches == 1
-    same(got, fi.intra_pick_plain(*args), f"pick s={s}")
+    same(got, fi.intra_pick_pass_plain(*args), f"pick ctu={ctu}")
+
+
+@pytest.mark.parametrize("ctu", [16, 32, 64])
+@pytest.mark.parametrize("bit_inc", [0, 2])
+def test_select_and_pick_equal_plain_on_a_pass(cuda, ctu, bit_inc):
+    w, h = 200, 136
+    args = i_args(w, h, ctu, bit_inc, ctu + bit_inc)
+    wp, hp = -(-w // ctu) * ctu, -(-h // ctu) * ctu
+    py = torch.from_numpy(np.ascontiguousarray(fi._source_planes(
+        *args[:5], ctu)[0], np.int16)).to(cuda)
+    max_val = (256 << bit_inc) - 1
+    qp = torch.tensor(args[5], dtype=torch.int32, device=cuda)
+    bits3 = tuple(_f32(b, cuda) for b in BITS3)
+    grids = {s: (hp // s, wp // s) for s in SIZES if s <= ctu}
+    classes = {s: (*fi.intra_sweep(py, s, *g, bit_inc, max_val), *g)
+               for s, g in grids.items()}
+    sel = (classes, ctu, bits3, _f32(SQRT_LAM, cuda))
+    zero_counts()
+    top = kern.select(*sel)
+    same(top, fi.intra_select_pass_plain(*sel), f"select ctu={ctu}")
+    cands = {s: (*top[s], *fi.tu_rd_modes((py,), s, *g, top[s][0], (qp,),
+                                          bit_inc, max_val, luma=True), *g)
+             for s, g in grids.items()}
+    pk = (cands, ctu, _f32(LAM, cuda))
+    same(kern.pick(*pk), fi.intra_pick_pass_plain(*pk), f"pick ctu={ctu}")
+    assert counts() == dict(select=1, pick=1, dp=0)
 
 
 def dp_inputs(seed: int, ctu: int, wp: int, hp: int, kind: str, dev):
@@ -227,8 +272,7 @@ def test_i_pass_cuda_equals_cpu(cuda, w, h, ctu, bit_inc):
     args = i_args(w, h, ctu, bit_inc, w + bit_inc)
     zero_counts()
     got = fi.decide_frame(*args, device="cuda")
-    classes = sum(1 for s in SIZES if s <= ctu)
-    assert counts() == dict(select=classes, pick=classes, dp=1)
+    assert counts() == dict(select=1, pick=1, dp=1)
     want = fi.decide_frame(*args, device="cpu")
     for k, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype and np.array_equal(a, b), f"map {k}"
@@ -246,18 +290,17 @@ def test_pb_pass_cuda_equals_cpu(cuda, b_slice):
     l1 = [r1, r0] if b_slice else None
     zero_counts()
     got = fast_inter.decide_frame_p(*args, ref_pics_l1=l1, device="cuda")
-    assert counts() == dict(select=5, pick=5, dp=1)
+    assert counts() == dict(select=1, pick=1, dp=1)
     want = fast_inter.decide_frame_p(*args, ref_pics_l1=l1, device="cpu")
     for k, (a, b) in enumerate(zip(got, want)):
         assert a.dtype == b.dtype and np.array_equal(a, b), f"map {k}"
 
 
 def test_entries_replay_in_a_graph(cuda):
-    s, nby, nbx = 16, 1088 // 16, 1920 // 16
-    satd, best = select_inputs(1, nby * nbx, cuda)
     bits3 = tuple(_f32(b, cuda) for b in BITS3)
-    sel = (satd, best, s, nby, nbx, 64, bits3, _f32(SQRT_LAM, cuda))
-    pk = (*pick_inputs(2, nby * nbx, cuda), _f32(LAM, cuda), s, nby, nbx)
+    sel = (select_table(1, 64, 1920, 1088, cuda), 64, bits3,
+           _f32(SQRT_LAM, cuda))
+    pk = (pick_table(2, 64, 1920, 1088, cuda), 64, _f32(LAM, cuda))
     res, cres, cres8, lam, lw2, inter = dp_inputs(3, 64, 1920, 1088, "B",
                                                   cuda)
     dp = (res, cres, cres8, 1920, 1080, lam, lw2, 3, 2, 64, 1920, 1088,
@@ -271,7 +314,8 @@ def test_entries_replay_in_a_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = (kern.select(*sel), kern.pick(*pk), kern.dp(*dp))
-    for t in (out[0][0], out[1][0], out[2]):
+    for t in (out[0][4][0], out[0][64][1], out[1][4][0], out[1][16][5],
+              out[2]):
         t.fill_(-1) if t.dtype != torch.float32 else t.fill_(0)
     graph.replay()
     torch.cuda.synchronize()

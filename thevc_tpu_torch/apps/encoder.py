@@ -19,8 +19,8 @@ SATD kernel for the P/B pass's quarter-pel candidates only, and no
 residual kernel), of the intra decision kernels (``intra_sweep_launches``,
 one a luma size class of a decision pass; ``tu_rd_launches``, the
 transform-RD estimates of both passes; ``intra_select_launches`` and
-``intra_pick_launches``, one a luma size class; ``intra_dp_launches``,
-one a decision pass), of the MC kernel's two entries
+``intra_pick_launches``, one a decision pass over every luma class;
+``intra_dp_launches``, one a decision pass), of the MC kernel's two entries
 that the P/B pass calls (blocks and quarter-pel), of the P/B pass's
 motion-search kernels (``coarse_search_launches``, one a list of a
 decision pass; ``int_refine_launches`` and ``merge_model_launches``, one

@@ -5,27 +5,33 @@
 // thevc_tpu/encoder/fast_inter.py:792); the Pallas kernel of that path is
 // the SATD (jx_pallas.py:63 _satd_kernel), which the sweep holds.
 //
-// Kernel A, thevc_intra_select: after a luma class's sweep, the open-loop
-// MPM and mode-bit cost and the top 3 of each block (fast_intra.py:467-492,
-// in _size_pass_impl :404).  Per block the left and above neighbours'
+// Kernel A, thevc_intra_select: one launch a decision pass, after its
+// sweeps, over every luma class up to the CTU size: the open-loop MPM and
+// mode-bit cost and the top 3 of each block (fast_intra.py:467-492, in
+// _size_pass_impl :404).  Per block the left and above neighbours'
 // SATD-best modes (DC outside the frame; above also DC outside the block's
 // CTU row below the CTU size, and always at the CTU size), the three MPMs
 // (_mpm_vec :303), each mode's bits b0 / b12 / bo and cost = f32(satd) +
-// bits * sqrt_lam, rounded after the product and after the sum.  Out: the
-// three least costs' modes, ties to the lower mode (a stable ascending sort,
-// lax.top_k(-cost)), int32 [nb, 3], and their bits, float32 [nb, 3].  A
-// block's bits read its neighbours' SATD-best, which other CTAs of the sweep
-// compute: hence a launch of its own after the sweep.
+// bits * sqrt_lam, rounded after the product and after the sum.  Out per
+// class: the three least costs' modes, ties to the lower mode (a stable
+// ascending sort, lax.top_k(-cost)), int32 [nb, 3], and their bits, float32
+// [nb, 3].  A block's bits read its neighbours' SATD-best, which other CTAs
+// of the sweep compute: hence a launch after the sweeps.
 //
-// Kernel B, thevc_intra_pick: after the TU-RD of the top 3, the RD pick
-// (fast_intra.py:500-516): bits = cbits + mbits, rd = f32(dist) + lam *
-// bits; best, dist and bits of the first minimum, then the second and third
-// modes, each the first minimum with the earlier winners at +inf.  Out:
-// int32 best, dist, mode2, mode3 and float32 bits [nb]; for s >= 8 the
-// chroma pass's five candidate ids [nb, 5] (fast_intra.py:580-583: planar,
-// 26, 10, DC, each 34 where it is the luma best, then DM = the luma best);
-// for s == 4 the NxN 8x8 variant's ids [nb / 4, 5] from the best of each
-// even-row, even-column block (fast_intra.py:832-835).
+// Kernel B, thevc_intra_pick: one launch a decision pass, after its TU-RDs,
+// over every luma class: the RD pick (fast_intra.py:500-516): bits = cbits +
+// mbits, rd = f32(dist) + lam * bits; best, dist and bits of the first
+// minimum, then the second and third modes, each the first minimum with the
+// earlier winners at +inf.  Out per class: int32 best, dist, mode2, mode3
+// and float32 bits [nb]; for s >= 8 the chroma pass's five candidate ids
+// [nb, 5] (fast_intra.py:580-583: planar, 26, 10, DC, each 34 where it is
+// the luma best, then DM = the luma best); for s == 4 the NxN 8x8 variant's
+// ids [nb / 4, 5] from the best of each even-row, even-column block
+// (fast_intra.py:832-835).
+//
+// A and B take a class table in the parameter space (__grid_constant__, as
+// C's DpArgs): each class's pointers, grid and size, 4x4 first; a CTA finds
+// its class from the classes' first CTAs, which the entry sets.
 //
 // Kernel C, thevc_intra_dp: one launch a frame, a CTA a CTU (the DP never
 // crosses a CTU): the chroma pick of every chroma class and of the NxN
@@ -53,12 +59,18 @@
 // about 29 MB over the five classes; B reads 48 and writes 20 to 40 bytes a
 // block, C reads the classes' results once and writes the maps.  By bytes
 // they are bound at a few microseconds; their operations are a few hundred a
-// block on the CUDA cores.  So the design is the simple one: A a thread a
-// block, its CTA's SATD rows staged through shared memory so that the reads
-// coalesce; B a thread a block; C a CTA a CTU whose threads walk each class's
-// blocks bottom-up (the costs, split flags and chroma directions of the CTU
-// in shared memory, a barrier between classes) and then each 4x4 unit's
-// path top-down.  Launch latency, not bandwidth, is what they cost.
+// block on the CUDA cores, so they fill the card only together: one launch
+// of A (B) over all 173910 blocks of a 1080p pass.  A: a thread a block,
+// its CTA's SATD rows staged into shared memory with 16-byte loads; the top
+// 3 in registers by compare-selects under the (cost, mode) order, no array
+// indexed at run time (no stack frame); the products bits * sqrt_lam once a
+// block.  (Teams of lanes on a block's modes, their triples merged by
+// shuffles, took the same time in one launch: the 4x4 class fills the
+// card.)  B: a
+// thread a block, the three candidates ordered by compare-selects.  C: a
+// CTA a CTU whose threads walk each class's blocks bottom-up (the costs,
+// split flags and chroma directions of the CTU in shared memory, a barrier
+// between classes) and then each 4x4 unit's path top-down.
 //
 // Every entry checks its geometry, launches on the stream it is given and
 // returns cudaGetLastError().
@@ -73,6 +85,7 @@ constexpr int kDc = 1;
 constexpr int kHor = 10;
 constexpr int kVer = 26;
 constexpr int kDmChroma = 36;
+constexpr int kClasses = 5;          // luma size classes 4..64
 constexpr int kSelectThreads = 128;
 constexpr int kPickThreads = 256;
 constexpr int kDpThreads = 256;
@@ -99,81 +112,114 @@ __device__ __forceinline__ void chroma_ids(int best, int* ids) {
 }
 
 // ---------------------------------------------------------------------------
-// kernel A: MPM, mode bits, cost and the top 3 of each block
+// kernel A: MPM, mode bits, cost and the top 3 of each block, every class
 // ---------------------------------------------------------------------------
 
+struct SelectClass {       // one luma size class, 4 << k
+  const int* satd;         // [nb, 35]: the sweep's SATDs, 16-byte aligned
+  const int* best;         // [nb]: the sweep's SATD-best modes
+  int* topk;               // [nb, 3]
+  float* mbits;            // [nb, 3]
+  int nby, nbx, size;
+  int first;               // the class's first CTA (the entry sets it)
+};
+
+struct SelectArgs {
+  SelectClass cls[kClasses];  // 4x4 first, then each size up to the CTU's
+  const float* b0;            // the mode-bit classes and sqrt-lambda
+  const float* b12;
+  const float* bo;
+  const float* sqrt_lam;
+  int classes, ctu;
+};
+
+// the three first entries in the (cost, mode) order, in registers
+struct Top3 {
+  float c0, c1, c2;
+  int m0, m1, m2;
+};
+
+// insert (c, m), m above every mode inserted before it: in the (cost,
+// mode) order (ascending cost, ties to the lower mode: a stable ascending
+// sort's, lax.top_k(-cost)'s) it goes before an entry only where its cost
+// is strictly less, so a later equal cost never displaces an earlier one.
+// Compare-selects on fixed slots, no array indexed at run time.
+__device__ __forceinline__ void insert(Top3& t, float c, int m) {
+  const bool l0 = c < t.c0, l1 = c < t.c1, l2 = c < t.c2;
+  t.c2 = l1 ? t.c1 : (l2 ? c : t.c2);
+  t.m2 = l1 ? t.m1 : (l2 ? m : t.m2);
+  t.c1 = l0 ? t.c0 : (l1 ? c : t.c1);
+  t.m1 = l0 ? t.m0 : (l1 ? m : t.m1);
+  t.c0 = l0 ? c : t.c0;
+  t.m0 = l0 ? m : t.m0;
+}
+
+// A CTA takes kSelectThreads blocks of one class, a thread a block.  Their
+// SATD rows are one contiguous span (128 rows of 140 bytes, 16-byte
+// aligned), staged into shared memory with 16-byte loads.
 __global__ void __launch_bounds__(kSelectThreads)
-select_kernel(const int* __restrict__ satd, const int* __restrict__ best,
-              int nby, int nbx, int size, int ctu,
-              const float* __restrict__ b0p, const float* __restrict__ b12p,
-              const float* __restrict__ bop, const float* __restrict__ slp,
-              int* __restrict__ topk, float* __restrict__ mbits) {
-  __shared__ int rows[kSelectThreads * kModes];
-  const long long nb = (long long)nby * nbx;
-  const long long base = (long long)blockIdx.x * blockDim.x;
-  const int n = (int)(nb - base < blockDim.x ? nb - base : blockDim.x);
-  // every load in flight before the first store (a loop that stores each
-  // value as it arrives waits out one load latency an iteration)
-  int v[kModes];
-#pragma unroll
-  for (int k = 0; k < kModes; ++k) {
-    const int j = threadIdx.x + k * kSelectThreads;
-    v[k] = j < n * kModes ? satd[base * kModes + j] : 0;
-  }
-#pragma unroll
-  for (int k = 0; k < kModes; ++k) {
-    const int j = threadIdx.x + k * kSelectThreads;
-    if (j < n * kModes) rows[j] = v[k];
-  }
+select_kernel(const __grid_constant__ SelectArgs a) {
+  __shared__ __align__(16) int rows[kSelectThreads * kModes];
+  int k = 0;
+  while (k + 1 < a.classes && (int)blockIdx.x >= a.cls[k + 1].first) ++k;
+  const SelectClass& c = a.cls[k];
+  const int base = ((int)blockIdx.x - c.first) * kSelectThreads;
+  const int nb = c.nby * c.nbx;
+  const int n = nb - base < kSelectThreads ? nb - base : kSelectThreads;
+  const int words = n * kModes, quads = words >> 2;
+  const int* src = c.satd + (long long)base * kModes;
+  const int4* src4 = reinterpret_cast<const int4*>(src);
+  int4* rows4 = reinterpret_cast<int4*>(rows);
+#pragma unroll 3
+  for (int q = threadIdx.x; q < quads; q += kSelectThreads)
+    rows4[q] = __ldg(src4 + q);
+  for (int w = (quads << 2) + threadIdx.x; w < words; w += kSelectThreads)
+    rows[w] = __ldg(src + w);
   __syncthreads();
-  const int t = threadIdx.x;
-  if (t >= n) return;
-  const long long i = base + t;
-  const int by = (int)(i / nbx), bx = (int)(i % nbx);
-  const int left = bx > 0 ? best[i - 1] : kDc;
+
+  if ((int)threadIdx.x >= n) return;
+  const int i = base + threadIdx.x;
+  const int by = i / c.nbx, bx = i - by * c.nbx;
+  const int left = bx > 0 ? __ldg(c.best + i - 1) : kDc;
   // an above PU outside the current CTU row reads as DC
   // (TComDataCU.cpp:1931); at the CTU size every block starts a row
   int above = kDc;
-  if (size < ctu && by > 0 && (by * size) % ctu != 0) above = best[i - nbx];
+  if (c.size < a.ctu && by > 0 && (by * c.size) % a.ctu != 0)
+    above = __ldg(c.best + i - c.nbx);
   // _mpm_vec
-  int m0, m1, m2;
+  int mpm0, mpm1, mpm2;
   if (left == above) {
     const bool big = left > 1;
-    m0 = big ? left : kPlanar;
-    m1 = big ? ((left + 29) % 32) + 2 : kDc;
-    m2 = big ? ((left - 1) % 32) + 2 : kVer;
+    mpm0 = big ? left : kPlanar;
+    mpm1 = big ? ((left + 29) % 32) + 2 : kDc;
+    mpm2 = big ? ((left - 1) % 32) + 2 : kVer;
   } else {
-    m0 = left;
-    m1 = above;
-    m2 = (left != 0 && above != 0) ? kPlanar
-                                   : (left + above < 2 ? kVer : kDc);
+    mpm0 = left;
+    mpm1 = above;
+    mpm2 = (left != 0 && above != 0) ? kPlanar
+                                     : (left + above < 2 ? kVer : kDc);
   }
-  const float b0 = *b0p, b12 = *b12p, bo = *bop, sl = *slp;
-  // the three least costs, ascending; a later equal cost never displaces
-  // an earlier one (a stable sort's order)
-  float c[3];
-  int id[3];
-  int have = 0;
-  const int* row = rows + t * kModes;
+  // bits * sqrt_lam takes three values: each one product, as the plain
+  // form's
+  const float sl = *a.sqrt_lam;
+  const float b0 = *a.b0, b12 = *a.b12, bo = *a.bo;
+  const float p0 = fmul(b0, sl), p12 = fmul(b12, sl), po = fmul(bo, sl);
+  const float inf = __int_as_float(0x7f800000);
+  Top3 top = {inf, inf, inf, kModes, kModes, kModes};
+  const int* row = rows + threadIdx.x * kModes;
+#pragma unroll 5
   for (int m = 0; m < kModes; ++m) {
-    const float bits = m == m0 ? b0 : ((m == m1 || m == m2) ? b12 : bo);
-    const float cost = fadd(i2f(row[m]), fmul(bits, sl));
-    if (have == 3 && !(cost < c[2])) continue;
-    int p = have < 3 ? have : 2;
-    while (p > 0 && cost < c[p - 1]) {
-      c[p] = c[p - 1];
-      id[p] = id[p - 1];
-      --p;
-    }
-    c[p] = cost;
-    id[p] = m;
-    if (have < 3) ++have;
+    const float p = m == mpm0 ? p0 : ((m == mpm1 || m == mpm2) ? p12 : po);
+    insert(top, fadd(i2f(row[m]), p), m);
   }
+  const int mode[3] = {top.m0, top.m1, top.m2};
+  int* to = c.topk + (long long)i * 3;
+  float* bits = c.mbits + (long long)i * 3;
 #pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    const int m = id[k];
-    topk[i * 3 + k] = m;
-    mbits[i * 3 + k] = m == m0 ? b0 : ((m == m1 || m == m2) ? b12 : bo);
+  for (int j = 0; j < 3; ++j) {
+    const int m = mode[j];
+    to[j] = m;
+    bits[j] = m == mpm0 ? b0 : ((m == mpm1 || m == mpm2) ? b12 : bo);
   }
 }
 
@@ -181,58 +227,92 @@ select_kernel(const int* __restrict__ satd, const int* __restrict__ best,
 // kernel B: the RD pick of the top 3, and the chroma candidates' ids
 // ---------------------------------------------------------------------------
 
-// the first minimum of v[0..2]
-__device__ __forceinline__ int first_min3(const float* v) {
+struct PickClass {         // one luma size class, 4 << k
+  const int* topk;         // [nb, 3]: kernel A's modes
+  const float* mbits;      // [nb, 3]: their mode bits
+  const int* dist_k;       // [nb * 3]: their TU-RD dist and bits
+  const float* cbits_k;
+  int* best;               // [nb] each
+  int* dist;
+  float* bits;
+  int* mode2;
+  int* mode3;
+  int* cids;               // [nb, 5]; at 4 the NxN variant's [nb / 4, 5]
+  int nby, nbx, size;
+  int first;               // the class's first CTA (the entry sets it)
+};
+
+struct PickArgs {
+  PickClass cls[kClasses];  // 4x4 first
+  const float* lam;
+  int classes;
+};
+
+// the first minimum of (r0, r1, r2)
+__device__ __forceinline__ int first_min3(float r0, float r1, float r2) {
   int k = 0;
-  if (v[1] < v[k]) k = 1;
-  if (v[2] < v[k]) k = 2;
+  float v = r0;
+  if (r1 < v) {
+    k = 1;
+    v = r1;
+  }
+  if (r2 < v) k = 2;
   return k;
 }
 
+template <typename T>
+__device__ __forceinline__ T of3(int k, T v0, T v1, T v2) {
+  return k == 0 ? v0 : (k == 1 ? v1 : v2);
+}
+
 __global__ void __launch_bounds__(kPickThreads)
-pick_kernel(const int* __restrict__ topk, const float* __restrict__ mbits,
-            const int* __restrict__ dist_k, const float* __restrict__ cbits_k,
-            const float* __restrict__ lamp, int nby, int nbx, int size,
-            int* __restrict__ best_o, int* __restrict__ dist_o,
-            float* __restrict__ bits_o, int* __restrict__ mode2_o,
-            int* __restrict__ mode3_o, int* __restrict__ cids) {
-  const long long nb = (long long)nby * nbx;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+pick_kernel(const __grid_constant__ PickArgs a) {
+  int k = 0;
+  while (k + 1 < a.classes && (int)blockIdx.x >= a.cls[k + 1].first) ++k;
+  const PickClass& c = a.cls[k];
+  const int nbx = c.nbx, nb = c.nby * nbx;
+  const int i = ((int)blockIdx.x - c.first) * kPickThreads + threadIdx.x;
   if (i >= nb) return;
-  const float lam = *lamp;
-  float bits[3], rd[3];
-  int mode[3], dist[3];
-#pragma unroll
-  for (int k = 0; k < 3; ++k) {
-    mode[k] = topk[i * 3 + k];
-    dist[k] = dist_k[i * 3 + k];
-    bits[k] = fadd(cbits_k[i * 3 + k], mbits[i * 3 + k]);
-    rd[k] = fadd(i2f(dist[k]), fmul(lam, bits[k]));
-  }
-  const int sel = first_min3(rd);
-  rd[sel] = __int_as_float(0x7f800000);
-  const int sel2 = first_min3(rd);
-  rd[sel2] = __int_as_float(0x7f800000);
-  const int sel3 = first_min3(rd);
-  const int best = mode[sel];
-  best_o[i] = best;
-  dist_o[i] = dist[sel];
-  bits_o[i] = bits[sel];
-  mode2_o[i] = mode[sel2];
-  mode3_o[i] = mode[sel3];
+  const float lam = *a.lam;
+  const long long o = (long long)i * 3;
+  const int md0 = c.topk[o], md1 = c.topk[o + 1], md2 = c.topk[o + 2];
+  const int d0 = c.dist_k[o], d1 = c.dist_k[o + 1], d2 = c.dist_k[o + 2];
+  const float bt0 = fadd(c.cbits_k[o], c.mbits[o]);
+  const float bt1 = fadd(c.cbits_k[o + 1], c.mbits[o + 1]);
+  const float bt2 = fadd(c.cbits_k[o + 2], c.mbits[o + 2]);
+  float r0 = fadd(i2f(d0), fmul(lam, bt0));
+  float r1 = fadd(i2f(d1), fmul(lam, bt1));
+  float r2 = fadd(i2f(d2), fmul(lam, bt2));
+  // each the first minimum with the earlier winners at +inf
+  const float inf = __int_as_float(0x7f800000);
+  const int s1 = first_min3(r0, r1, r2);
+  r0 = s1 == 0 ? inf : r0;
+  r1 = s1 == 1 ? inf : r1;
+  r2 = s1 == 2 ? inf : r2;
+  const int s2 = first_min3(r0, r1, r2);
+  r0 = s2 == 0 ? inf : r0;
+  r1 = s2 == 1 ? inf : r1;
+  r2 = s2 == 2 ? inf : r2;
+  const int s3 = first_min3(r0, r1, r2);
+  const int best = of3(s1, md0, md1, md2);
+  c.best[i] = best;
+  c.dist[i] = of3(s1, d0, d1, d2);
+  c.bits[i] = of3(s1, bt0, bt1, bt2);
+  c.mode2[i] = of3(s2, md0, md1, md2);
+  c.mode3[i] = of3(s3, md0, md1, md2);
   int ids[5];
   chroma_ids(best, ids);
-  if (size >= 8) {
+  if (c.size >= 8) {
 #pragma unroll
-    for (int k = 0; k < 5; ++k) cids[i * 5 + k] = ids[k];
+    for (int j = 0; j < 5; ++j) c.cids[(long long)i * 5 + j] = ids[j];
     return;
   }
   // the NxN 8x8 variant: DM is part 0's (the top-left 4x4's) mode
-  const int by = (int)(i / nbx), bx = (int)(i % nbx);
+  const int by = i / nbx, bx = i - by * nbx;
   if ((by | bx) & 1) return;
-  const long long j = (long long)(by >> 1) * (nbx >> 1) + (bx >> 1);
+  const long long g = (long long)(by >> 1) * (nbx >> 1) + (bx >> 1);
 #pragma unroll
-  for (int k = 0; k < 5; ++k) cids[j * 5 + k] = ids[k];
+  for (int j = 0; j < 5; ++j) c.cids[g * 5 + j] = ids[j];
 }
 
 // ---------------------------------------------------------------------------
@@ -457,44 +537,48 @@ dp_kernel(const __grid_constant__ DpArgs a) {
 
 }  // namespace
 
-extern "C" int thevc_intra_select(const void* satd, const void* best,
-                                  int nby, int nbx, int size, int ctu,
-                                  const void* b0, const void* b12,
-                                  const void* bo, const void* sqrt_lam,
-                                  void* topk, void* mbits, void* stream) {
-  if (nby <= 0 || nbx <= 0 || size < 4 || size > ctu || ctu > 64)
+// class k of a class table: of size 4 << k, none above the CTU, a grid
+template <typename Class>
+bool class_ok(const Class& c, int k, int ctu) {
+  return c.nby > 0 && c.nbx > 0 && c.size == 4 << k && c.size <= ctu;
+}
+
+extern "C" int thevc_intra_select(const void* args, void* stream) {
+  SelectArgs a = *static_cast<const SelectArgs*>(args);
+  if ((a.ctu != 16 && a.ctu != 32 && a.ctu != 64) || a.classes < 1 ||
+      a.classes > kClasses)
     return (int)cudaErrorInvalidValue;
-  const long long nb = (long long)nby * nbx;
-  const unsigned grid = (unsigned)((nb + kSelectThreads - 1) /
-                                   kSelectThreads);
-  select_kernel<<<grid, kSelectThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(satd), static_cast<const int*>(best), nby, nbx,
-      size, ctu, static_cast<const float*>(b0),
-      static_cast<const float*>(b12), static_cast<const float*>(bo),
-      static_cast<const float*>(sqrt_lam), static_cast<int*>(topk),
-      static_cast<float*>(mbits));
+  long long ctas = 0;
+  for (int k = 0; k < a.classes; ++k) {
+    SelectClass& c = a.cls[k];
+    if (!class_ok(c, k, a.ctu) ||
+        (reinterpret_cast<unsigned long long>(c.satd) & 15))
+      return (int)cudaErrorInvalidValue;
+    c.first = (int)ctas;
+    ctas += ((long long)c.nby * c.nbx + kSelectThreads - 1) / kSelectThreads;
+  }
+  if (ctas >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  select_kernel<<<(unsigned)ctas, kSelectThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 
-extern "C" int thevc_intra_pick(const void* topk, const void* mbits,
-                                const void* dist_k, const void* cbits_k,
-                                const void* lam, int nby, int nbx, int size,
-                                void* best, void* dist, void* bits,
-                                void* mode2, void* mode3, void* cids,
-                                void* stream) {
-  if (nby <= 0 || nbx <= 0 || size < 4 || size > 64 ||
-      (size == 4 && ((nby | nbx) & 1)))
+extern "C" int thevc_intra_pick(const void* args, void* stream) {
+  PickArgs a = *static_cast<const PickArgs*>(args);
+  if (a.classes < 1 || a.classes > kClasses)
     return (int)cudaErrorInvalidValue;
-  const long long nb = (long long)nby * nbx;
-  const unsigned grid = (unsigned)((nb + kPickThreads - 1) / kPickThreads);
-  pick_kernel<<<grid, kPickThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(topk), static_cast<const float*>(mbits),
-      static_cast<const int*>(dist_k), static_cast<const float*>(cbits_k),
-      static_cast<const float*>(lam), nby, nbx, size, static_cast<int*>(best),
-      static_cast<int*>(dist), static_cast<float*>(bits),
-      static_cast<int*>(mode2), static_cast<int*>(mode3),
-      static_cast<int*>(cids));
+  long long ctas = 0;
+  for (int k = 0; k < a.classes; ++k) {
+    PickClass& c = a.cls[k];
+    // the NxN variant's 8x8 blocks need an even 4x4 grid
+    if (!class_ok(c, k, 64) || (k == 0 && ((c.nby | c.nbx) & 1)))
+      return (int)cudaErrorInvalidValue;
+    c.first = (int)ctas;
+    ctas += ((long long)c.nby * c.nbx + kPickThreads - 1) / kPickThreads;
+  }
+  if (ctas >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  pick_kernel<<<(unsigned)ctas, kPickThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -25,8 +25,9 @@ intra leaves the source picture):
    merge-model kernel of ``csrc/inter_me.cu``, one launch a size class
    and list), and for B slices a bi-prediction stage on the two lists'
    winners;
-4. the intra leaves of ``fast_intra`` (on a CUDA tensor through its sweep,
-   select, TU-RD and pick kernels) and the quadtree DP with its inter
+4. the intra leaves of ``fast_intra._luma_passes`` (on a CUDA tensor
+   through its sweep and TU-RD kernels and one select and one pick
+   launch over every luma class) and the quadtree DP with its inter
    branch (``fast_intra._dp_expand``: on a CUDA tensor the DP kernel of
    ``csrc/intra_select.cu``, one launch a frame), expanded to per-4x4-unit
    maps.
@@ -564,11 +565,9 @@ def _frame_body_p(py, pcb, pcr, refs, iscal, fscal, wp: int, hp: int,
 
     # ---- intra leaves (the I-slice passes) -----------------------------
     with stage("fast_inter.intra_leaves", dev):
-        res = {s: fi._size_pass_impl(py, s, hp // s, wp // s, qp_scaled,
-                                     ((fscal[2], fscal[3], fscal[4]),
-                                      sqrt_lam, lam), bit_inc, max_val,
-                                     ctu_size)
-               for s in fi.SIZES if s <= ctu_size}
+        res = fi._luma_passes(py, wp, hp, qp_scaled,
+                              ((fscal[2], fscal[3], fscal[4]), sqrt_lam,
+                               lam), bit_inc, max_val, ctu_size)
         lam_w_bits2 = ((fscal[5], fscal[6]), lam, cw)
         cres = {s: fi._chroma_pass_impl(pcb, pcr, s, hp // s, wp // s,
                                         res[s].cids, qp_cb, qp_cr, bit_inc,

@@ -3,24 +3,28 @@ pass's selection steps (``csrc/intra_select.cu``).
 
 Three kernels, one entry each:
 
-- ``select`` (``thevc_intra_select``, kernel A): after a luma class's
-  sweep, the open-loop MPM, each mode's bits and SATD + bits cost, and
-  the top 3 of each block -> int32 modes [nb, 3] (ascending cost, ties to
+- ``select`` (``thevc_intra_select``, kernel A): one launch a decision
+  pass, after the sweeps of every luma class up to the CTU size: per
+  block the open-loop MPM, each mode's bits and SATD + bits cost, and
+  the top 3 -> per class int32 modes [nb, 3] (ascending cost, ties to
   the lower mode) and their float32 bits [nb, 3]
   (``thevc_tpu/encoder/fast_intra.py:467-492``);
-- ``pick`` (``thevc_intra_pick``, kernel B): after the TU-RD of the top
-  3, the RD pick of best, second and third -> int32 best, dist, mode2,
-  mode3 and float32 bits [nb], and the chroma candidates' mode ids
+- ``pick`` (``thevc_intra_pick``, kernel B): one launch a decision
+  pass, after the TU-RDs of every class's top 3: the RD pick of best,
+  second and third -> per class int32 best, dist, mode2, mode3 and
+  float32 bits [nb], and the chroma candidates' mode ids
   (``fast_intra.py:500-516, 580-583, 832-835``);
 - ``dp`` (``thevc_intra_dp``, kernel C): one launch a frame, a CTA a
   CTU: the chroma pick of every chroma class, the bottom-up quadtree DP
   and the top-down expansion into the unit maps, with the P/B pass's
   inter leaves (``fast_intra.py:588-600, 613-775``).
 
-Their plain PyTorch forms are ``encoder.fast_intra.intra_select_plain``,
-``intra_pick_plain`` and ``intra_dp_plain``; every output equals them
-bit for bit.  The kernels are compiled with ``nvcc`` on first use (with
-``-fmad=false``) and bound with ``ctypes`` (``ops.build``).  Every entry
+Their plain PyTorch forms are ``encoder.fast_intra``'s
+``intra_select_pass_plain`` and ``intra_pick_pass_plain`` (the per-class
+``intra_select_plain`` and ``intra_pick_plain`` class by class) and
+``intra_dp_plain``; every output equals them bit for bit.  The kernels
+are compiled with ``nvcc`` on first use (with ``-fmad=false``) and bound
+with ``ctypes`` (``ops.build``).  Every entry
 checks its inputs and raises before anything is built; nothing here runs
 when the module is imported.
 """
@@ -41,17 +45,40 @@ TOP_K = 3
 CHROMA_CANDS = 5
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRIES = {
-    "thevc_intra_select": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P,
-                           _P],
-    "thevc_intra_pick": [_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                         _P, _P],
-    "thevc_intra_dp": [_P, _P],
-}
+_ENTRIES = {"thevc_intra_select": [_P, _P], "thevc_intra_pick": [_P, _P],
+            "thevc_intra_dp": [_P, _P]}
 
 LUMA_FIELDS = ("mode", "dist", "bits", "mode2", "mode3")
 CHROMA_FIELDS = ("ids", "dist", "bits")
 INTER_FIELDS = ("rd", "mvx", "mvy", "ref", "dir", "mvx1", "mvy1", "ref1")
+
+
+class _SelectClass(ctypes.Structure):
+    _fields_ = [("satd", _P), ("best", _P), ("topk", _P), ("mbits", _P),
+                ("nby", _I), ("nbx", _I), ("size", _I), ("first", _I)]
+
+
+class SelectArgs(ctypes.Structure):
+    """``SelectArgs`` of ``csrc/intra_select.cu``: the class table (4x4
+    first; ``first`` is set by the entry), the mode-bit classes and
+    sqrt-lambda, the class count and the CTU size."""
+    _fields_ = [("cls", _SelectClass * 5), ("b0", _P), ("b12", _P),
+                ("bo", _P), ("sqrt_lam", _P), ("classes", _I), ("ctu", _I)]
+
+
+PICK_IN = ("topk", "mbits", "dist_k", "cbits_k")
+PICK_OUT = ("best", "dist", "bits", "mode2", "mode3", "cids")
+
+
+class _PickClass(ctypes.Structure):
+    _fields_ = [(n, _P) for n in PICK_IN + PICK_OUT] + [
+        ("nby", _I), ("nbx", _I), ("size", _I), ("first", _I)]
+
+
+class PickArgs(ctypes.Structure):
+    """``PickArgs`` of ``csrc/intra_select.cu``: the class table (4x4
+    first), lambda and the class count."""
+    _fields_ = [("cls", _PickClass * 5), ("lam", _P), ("classes", _I)]
 
 
 class _Luma(ctypes.Structure):
@@ -104,106 +131,149 @@ def _check_scalar(t, name: str, device: torch.device) -> None:
     _build.check_tensor(t, name, torch.float32, (), device)
 
 
-def _check_grid(size: int, nby: int, nbx: int) -> None:
-    if size not in SIZES:
-        raise ValueError(f"size {size} not in {SIZES}")
-    if nby <= 0 or nbx <= 0:
-        raise ValueError(f"block grid {nby}x{nbx} is empty")
+def _check_classes(classes: dict, ctu_size: int, what: str) -> None:
+    """Every luma class up to the CTU size, no other, each with a grid."""
+    if ctu_size not in CTU_SIZES:
+        raise ValueError(f"CTU size {ctu_size} not in {CTU_SIZES}")
+    above = [s for s in classes if s in SIZES and s > ctu_size]
+    if above:
+        raise ValueError(f"{what}: class {above[0]} above the CTU size "
+                         f"{ctu_size}")
+    want = [s for s in SIZES if s <= ctu_size]
+    if sorted(classes) != want:
+        raise ValueError(f"{what}: classes {sorted(classes)}, expected "
+                         f"{want}, every luma class up to CTU {ctu_size}")
+    for s, v in classes.items():
+        nby, nbx = v[-2:]
+        if nby <= 0 or nbx <= 0:
+            raise ValueError(f"{what}: class {s}'s block grid {nby}x{nbx} "
+                             "is empty")
 
 
-def check_select(satd: torch.Tensor, best: torch.Tensor, size: int,
-                 nby: int, nbx: int, ctu_size: int, bits3: tuple,
+def _first_tensor(classes: dict) -> torch.Tensor:
+    return classes[min(classes)][0]
+
+
+def check_select(classes: dict, ctu_size: int, bits3: tuple,
                  sqrt_lam: torch.Tensor) -> None:
     """Raise on any input kernel A does not take (but a device that is
     not CUDA: the entry refuses that)."""
-    _check_grid(size, nby, nbx)
-    if ctu_size not in CTU_SIZES or size > ctu_size:
-        raise ValueError(f"size {size} with CTU {ctu_size}: the CTU must "
-                         f"be one of {CTU_SIZES} and hold the block")
-    dev = satd.device
-    nb = nby * nbx
-    _build.check_tensor(satd, "satd", torch.int32, (nb, MODES), dev)
-    _build.check_tensor(best, "best", torch.int32, (nb,), dev)
+    _check_classes(classes, ctu_size, "select")
+    dev = _first_tensor(classes).device
+    for s, (satd, best, nby, nbx) in classes.items():
+        nb = nby * nbx
+        _build.check_tensor(satd, f"satd[{s}]", torch.int32, (nb, MODES),
+                            dev)
+        _build.check_tensor(best, f"best[{s}]", torch.int32, (nb,), dev)
+        if satd.data_ptr() % 16:
+            raise ValueError(f"satd[{s}] is not 16-byte aligned")
     if len(bits3) != 3:
         raise ValueError(f"{len(bits3)} mode-bit classes, expected 3")
     for name, t in zip(("b0", "b12", "bo", "sqrt_lam"), (*bits3, sqrt_lam)):
         _check_scalar(t, name, dev)
 
 
-def select(satd: torch.Tensor, best: torch.Tensor, size: int, nby: int,
-           nbx: int, ctu_size: int, bits3: tuple,
-           sqrt_lam: torch.Tensor) -> tuple:
-    """Launch kernel A: the sweep's int32 SATD [nby * nbx, 35] and
-    SATD-best [nby * nbx], the mode-bit classes (b0, b12, bo) and
-    sqrt-lambda (0-d float32, read on the device) -> (int32 top-3 modes
-    [nb, 3], float32 their bits [nb, 3]).  Launches on the current stream
-    without synchronising; raises on any input the kernel does not take
-    and on a launch error."""
+def select(classes: dict, ctu_size: int, bits3: tuple,
+           sqrt_lam: torch.Tensor) -> dict:
+    """Launch kernel A once over every luma class: ``classes[s]`` the
+    sweep's int32 SATD [nby * nbx, 35] and SATD-best [nby * nbx] and the
+    class's grid (nby, nbx), for each s up to ``ctu_size``; the mode-bit
+    classes (b0, b12, bo) and sqrt-lambda (0-d float32, read on the
+    device) -> {s: (int32 top-3 modes [nb, 3], float32 their bits [nb,
+    3])}.  Launches on the current stream without synchronising; raises
+    on any input the kernel does not take and on a launch error."""
     global select_launches
-    _check_cuda(satd, "satd")
-    check_select(satd, best, size, nby, nbx, ctu_size, bits3, sqrt_lam)
-    nb = nby * nbx
-    topk = torch.empty((nb, TOP_K), dtype=torch.int32, device=satd.device)
-    mbits = torch.empty((nb, TOP_K), dtype=torch.float32, device=satd.device)
+    check_select(classes, ctu_size, bits3, sqrt_lam)
+    _check_cuda(_first_tensor(classes), "satd")
+    dev = _first_tensor(classes).device
+    sizes = sorted(classes)
+    nbs = [classes[s][2] * classes[s][3] for s in sizes]
+    topk = torch.empty((sum(nbs), TOP_K), dtype=torch.int32,
+                       device=dev).split(nbs)
+    mbits = torch.empty((sum(nbs), TOP_K), dtype=torch.float32,
+                        device=dev).split(nbs)
+    a = SelectArgs()
+    for k, s in enumerate(sizes):
+        satd, best, nby, nbx = classes[s]
+        c = a.cls[k]
+        c.satd, c.best = satd.data_ptr(), best.data_ptr()
+        c.topk, c.mbits = topk[k].data_ptr(), mbits[k].data_ptr()
+        c.nby, c.nbx, c.size = nby, nbx, s
+    a.b0, a.b12, a.bo = (t.data_ptr() for t in bits3)
+    a.sqrt_lam = sqrt_lam.data_ptr()
+    a.classes, a.ctu = len(sizes), ctu_size
     lib = build()
-    with torch.cuda.device(satd.device):
-        rc = lib.thevc_intra_select(
-            satd.data_ptr(), best.data_ptr(), nby, nbx, size, ctu_size,
-            *(t.data_ptr() for t in (*bits3, sqrt_lam)), topk.data_ptr(),
-            mbits.data_ptr(), _build.stream_of(satd.device))
+    with torch.cuda.device(dev):
+        rc = lib.thevc_intra_select(ctypes.addressof(a),
+                                    _build.stream_of(dev))
     _build.check(lib, rc, "intra select kernel launch")
     select_launches += 1
-    return topk, mbits
+    return {s: (topk[k], mbits[k]) for k, s in enumerate(sizes)}
 
 
-def check_pick(topk: torch.Tensor, mbits: torch.Tensor,
-               dist_k: torch.Tensor, cbits_k: torch.Tensor,
-               lam: torch.Tensor, size: int, nby: int, nbx: int) -> None:
+def check_pick(classes: dict, ctu_size: int, lam: torch.Tensor) -> None:
     """Raise on any input kernel B does not take (but a device that is
     not CUDA)."""
-    _check_grid(size, nby, nbx)
-    if size == 4 and (nby % 2 or nbx % 2):
+    _check_classes(classes, ctu_size, "pick")
+    nby, nbx = classes[4][-2:]
+    if nby % 2 or nbx % 2:
         raise ValueError(f"a 4x4 grid of {nby}x{nbx}: the NxN variant's "
                          "8x8 blocks need an even grid")
-    dev = topk.device
-    nb = nby * nbx
-    _build.check_tensor(topk, "topk", torch.int32, (nb, TOP_K), dev)
-    _build.check_tensor(mbits, "mbits", torch.float32, (nb, TOP_K), dev)
-    _build.check_tensor(dist_k, "dist_k", torch.int32, (nb * TOP_K,), dev)
-    _build.check_tensor(cbits_k, "cbits_k", torch.float32, (nb * TOP_K,),
-                        dev)
+    dev = _first_tensor(classes).device
+    for s, (topk, mbits, dist_k, cbits_k, nby, nbx) in classes.items():
+        nb = nby * nbx
+        _build.check_tensor(topk, f"topk[{s}]", torch.int32, (nb, TOP_K),
+                            dev)
+        _build.check_tensor(mbits, f"mbits[{s}]", torch.float32,
+                            (nb, TOP_K), dev)
+        _build.check_tensor(dist_k, f"dist_k[{s}]", torch.int32,
+                            (nb * TOP_K,), dev)
+        _build.check_tensor(cbits_k, f"cbits_k[{s}]", torch.float32,
+                            (nb * TOP_K,), dev)
     _check_scalar(lam, "lam", dev)
 
 
-def pick(topk: torch.Tensor, mbits: torch.Tensor, dist_k: torch.Tensor,
-         cbits_k: torch.Tensor, lam: torch.Tensor, size: int, nby: int,
-         nbx: int) -> tuple:
-    """Launch kernel B: kernel A's modes and bits [nb, 3], the TU-RD
-    estimates of those modes (int32 dist, float32 bits [nb * 3]) and
-    lambda (0-d float32) -> (int32 best, int32 dist, float32 bits, int32
-    mode2, int32 mode3, each [nb]; int32 chroma candidate ids [nb, 5],
-    for size 4 the NxN variant's [nb / 4, 5])."""
+def pick(classes: dict, ctu_size: int, lam: torch.Tensor) -> dict:
+    """Launch kernel B once over every luma class: ``classes[s]`` kernel
+    A's modes and bits [nb, 3], the TU-RD estimates of those modes (int32
+    dist, float32 bits [nb * 3]) and the class's grid (nby, nbx), for
+    each s up to ``ctu_size``; lambda (0-d float32) -> {s: (int32 best,
+    int32 dist, float32 bits, int32 mode2, int32 mode3, each [nb]; int32
+    chroma candidate ids [nb, 5], for s = 4 the NxN variant's [nb / 4,
+    5])}."""
     global pick_launches
-    _check_cuda(topk, "topk")
-    check_pick(topk, mbits, dist_k, cbits_k, lam, size, nby, nbx)
-    nb = nby * nbx
-    dev = topk.device
-    best, dist, mode2, mode3 = (torch.empty((nb,), dtype=torch.int32,
-                                            device=dev) for _ in range(4))
-    bits = torch.empty((nb,), dtype=torch.float32, device=dev)
-    nc = nb if size >= 8 else nb // 4
-    cids = torch.empty((nc, CHROMA_CANDS), dtype=torch.int32, device=dev)
+    check_pick(classes, ctu_size, lam)
+    _check_cuda(_first_tensor(classes), "topk")
+    dev = _first_tensor(classes).device
+    sizes = sorted(classes)
+    nbs = [classes[s][4] * classes[s][5] for s in sizes]
+    ncs = [nb if s >= 8 else nb // 4 for s, nb in zip(sizes, nbs)]
+    # per class best, dist, mode2 and mode3 in one int32 buffer
+    ints = torch.empty((4 * sum(nbs),), dtype=torch.int32,
+                       device=dev).split([nb for nb in nbs for _ in range(4)])
+    bits = torch.empty((sum(nbs),), dtype=torch.float32,
+                       device=dev).split(nbs)
+    cids = torch.empty((sum(ncs), CHROMA_CANDS), dtype=torch.int32,
+                       device=dev).split(ncs)
+    a = PickArgs()
+    out = {}
+    for k, s in enumerate(sizes):
+        c = a.cls[k]
+        for name, t in zip(PICK_IN, classes[s][:4]):
+            setattr(c, name, t.data_ptr())
+        best, dist, mode2, mode3 = ints[4 * k:4 * k + 4]
+        fields = (best, dist, bits[k], mode2, mode3, cids[k])
+        for name, t in zip(PICK_OUT, fields):
+            setattr(c, name, t.data_ptr())
+        c.nby, c.nbx, c.size = classes[s][4], classes[s][5], s
+        out[s] = fields
+    a.lam, a.classes = lam.data_ptr(), len(sizes)
     lib = build()
     with torch.cuda.device(dev):
-        rc = lib.thevc_intra_pick(
-            topk.data_ptr(), mbits.data_ptr(), dist_k.data_ptr(),
-            cbits_k.data_ptr(), lam.data_ptr(), nby, nbx, size,
-            best.data_ptr(), dist.data_ptr(), bits.data_ptr(),
-            mode2.data_ptr(), mode3.data_ptr(), cids.data_ptr(),
-            _build.stream_of(dev))
+        rc = lib.thevc_intra_pick(ctypes.addressof(a), _build.stream_of(dev))
     _build.check(lib, rc, "intra pick kernel launch")
     pick_launches += 1
-    return best, dist, bits, mode2, mode3, cids
+    return out
 
 
 def _check_chroma(c, name: str, nby: int, nbx: int, device) -> None:
