@@ -973,42 +973,56 @@ def qpel_bound(torch, planes, origins, s: int) -> tuple:
     return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
 
 
-def qpel_row(torch, planes, origins, s: int, bd: int) -> dict:
-    """One quarter-pel call: the kernel (``mc.mc_qpel``) against its
-    plain version (tolerance 0) and against the generic ``mc_blocks``
-    entry on the 49-job table, then timed: eager (CUDA events around 20
-    calls), as a CUDA graph of 20 launches, the generic entry as such a
-    graph on the same table in the same run, and the plain version;
-    beside the call's bound and the generic entry's bound on the 49-job
-    table at the float32 rate (``generic_fp32_bound_ms``: 49 first
-    passes)."""
+def qpel_row(torch, planes, fields, s: int, nbx: int, pad: int,
+             bd: int) -> dict:
+    """One quarter-pel call of the P/B pass (``mc.mc_qpel_fields``): the
+    field entry against its plain version, the origin-table entry on the
+    same origins (``mc.qpel_origins``) and the generic ``mc_blocks``
+    entry on the 49-job table (tolerance 0), then timed: the field entry
+    eager (CUDA events around 20 calls) and as a CUDA graph of 20
+    launches, the table entry and the generic entry as such graphs in the
+    same run, and the plain version; beside the call's bound (the
+    fields' int64 reads instead of the int32 origins) and the generic
+    entry's bound on the 49-job table at the float32 rate
+    (``generic_fp32_bound_ms``: 49 first passes)."""
     from thevc_tpu_torch.ops import mc
+    origins = mc.qpel_origins(fields, s, nbx, pad).to(torch.int32)
 
     def qpel():
+        return mc.mc_qpel_fields(planes, fields, s, nbx, pad, bd)
+
+    def table():
         return mc.mc_qpel(planes, origins, s, bd)
     jobs = mc.qpel_jobs(origins).to(torch.int32)
 
     def blocks():
         return mc.mc_blocks(planes, jobs, "2d", True, bd, False, s, s)
-    got, plain = qpel(), mc.mc_qpel_plain(planes, origins, s, bd)
+    got = qpel()
+    plain = mc.mc_qpel_fields_plain(planes, fields, s, nbx, pad, bd)
     torch.cuda.synchronize()
     err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
-    check(torch.equal(got, plain), f"MC quarter-pel kernel != plain at s = "
-          f"{s}, {origins.shape[0]} blocks (max abs err {err})")
+    check(torch.equal(got, plain), f"MC quarter-pel field entry != plain at "
+          f"s = {s}, {origins.shape[0]} blocks (max abs err {err})")
     del plain
+    check(torch.equal(table(), got), "the quarter-pel origin-table entry "
+          f"!= the field entry at s = {s}")
     check(torch.equal(blocks().view(got.shape), got), "the generic MC entry "
           f"on the 49-job table != the quarter-pel kernel at s = {s}")
     del got
     ms = time_ms(torch, qpel, 20)
     g_ms = graph_ms(torch, qpel, 20)
+    table_g_ms = graph_ms(torch, table, 20)
     blocks_g_ms = graph_ms(torch, blocks, 20)
-    plain_ms = time_ms(torch, lambda: mc.mc_qpel_plain(planes, origins, s,
-                                                       bd), 3)
+    plain_ms = time_ms(torch, lambda: mc.mc_qpel_fields_plain(
+        planes, fields, s, nbx, pad, bd), 3)
+    nb = int(origins.shape[0])
     nbytes, ops, bound_ms, bound_by = qpel_bound(torch, planes, origins, s)
+    nbytes += 12 * nb
+    bound_ms, bound_by = roofline(nbytes, ops, INT32_OPS)
     generic = mc_blocks_bound(torch, planes, jobs, "2d", True, bd, False, s,
                               s, peak=FP32_OPS)
-    return dict(size=s, blocks=int(origins.shape[0]), ms=ms, graph_ms=g_ms,
-                generic_graph_ms=blocks_g_ms,
+    return dict(size=s, blocks=nb, ms=ms, graph_ms=g_ms,
+                table_graph_ms=table_g_ms, generic_graph_ms=blocks_g_ms,
                 speedup_over_generic=blocks_g_ms / g_ms, plain_ms=plain_ms,
                 bytes=nbytes, ops=ops, bound_ms=bound_ms, bound_by=bound_by,
                 share_of_bound=bound_ms / ms,
@@ -1016,6 +1030,48 @@ def qpel_row(torch, planes, origins, s: int, bd: int) -> dict:
                 gb_s=nbytes / g_ms / 1e6,
                 generic_fp32_bound_ms=generic[2],
                 max_abs_err=err)
+
+
+def mc_fields_table(a: tuple, kw: dict) -> tuple:
+    """The job-table call (``mc.mc_blocks``'s arguments) of a recorded
+    ``mc.mc_blocks_fields`` call: each list's ``mc.field_jobs``."""
+    from thevc_tpu_torch.ops import mc
+    planes, fields, size, nbx, pad, luma, bd, bi = a
+    tkw = {"pair": bool(kw.get("pair"))}
+    if kw.get("fields1") is not None:
+        tkw.update(planes1=kw["planes1"], jobs1=mc.field_jobs(
+            kw["fields1"], size, nbx, pad, luma))
+    return ((planes, mc.field_jobs(fields, size, nbx, pad, luma), "2d", luma,
+             bd, bi, size, size), tkw)
+
+
+def mc_fields_bound(torch, a: tuple, kw: dict,
+                    peak: float = INT32_OPS) -> tuple:
+    """``mc_blocks_bound`` of a field call: its job table's, with each
+    list's fields (3 int32 a block) read in place of the jobs (5)."""
+    ta, tkw = mc_fields_table(a, kw)
+    nbytes, ops, _, _ = mc_blocks_bound(torch, *ta, **tkw, peak=peak)
+    lists = 1 + (kw.get("fields1") is not None)
+    nbytes -= 8 * lists * int(a[1][0].shape[0])
+    return (nbytes, ops, *roofline(nbytes, ops, peak))
+
+
+def held_mc_fields(torch, a: tuple, kw: dict) -> int:
+    """A recorded ``mc.mc_blocks_fields`` call: the field entry against
+    its plain version and against the job-table entry on the same jobs
+    (tolerance 0) -> the largest error against the plain version."""
+    from thevc_tpu_torch.ops import mc
+    got = mc.mc_blocks_fields(*a, **kw)
+    plain = mc.mc_blocks_fields_plain(*a, **kw)
+    ta, tkw = mc_fields_table(a, kw)
+    table = mc.mc_blocks(*ta, **tkw)
+    torch.cuda.synchronize()
+    err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+    check(torch.equal(got, plain), "MC field entry != plain on the B pass's "
+          f"{tuple(got.shape)} call (max abs err {err})")
+    check(torch.equal(got, table), "MC field entry != the job-table entry "
+          f"on the B pass's {tuple(got.shape)} call")
+    return err
 
 
 def mc_bound(torch, jobs, planes, size: int, table_bytes: int,
@@ -1699,9 +1755,10 @@ def plain_route():
     gathered from 35-mode stacks; the select, pick and DP run the torch
     glue they replaced (``intra_select_pass_plain``,
     ``intra_pick_pass_plain``, ``intra_dp_plain``).  The P/B pass's
-    motion-search stages run their plain forms too
-    (``coarse_fields_plain``, ``int_refine_plain``,
-    ``merge_model_plain``: the route before ``csrc/inter_me.cu``)."""
+    motion-search stages and picks run their plain forms too
+    (``coarse_fields_plain``, ``int_refine_plain``, ``merge_model_plain``,
+    ``qpel_pick_plain``, ``bi_pick_plain``: the route before
+    ``csrc/inter_me.cu``)."""
     from thevc_tpu_torch.encoder import fast_inter, fast_intra
     names = ("intra_sweep", "tu_rd_modes", "tu_rd", "intra_select",
              "intra_pick", "_dp_expand")
@@ -1712,11 +1769,14 @@ def plain_route():
     fast_intra.intra_select = fast_intra.intra_select_pass_plain
     fast_intra.intra_pick = fast_intra.intra_pick_pass_plain
     fast_intra._dp_expand = fast_intra.intra_dp_plain
-    inter_names = ("_coarse_fields", "int_refine", "merge_model")
+    inter_names = ("_coarse_fields", "int_refine", "merge_model",
+                   "qpel_pick", "bi_pick")
     inter_saved = {n: getattr(fast_inter, n) for n in inter_names}
     fast_inter._coarse_fields = fast_inter.coarse_fields_plain
     fast_inter.int_refine = fast_inter.int_refine_plain
     fast_inter.merge_model = fast_inter.merge_model_plain
+    fast_inter.qpel_pick = fast_inter.qpel_pick_plain
+    fast_inter.bi_pick = fast_inter.bi_pick_plain
     try:
         yield
     finally:
@@ -2191,6 +2251,16 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
           "the P/B fast-RD encode launched the motion-search kernels "
           f"{rep['coarse_search_launches']}, {rep['int_refine_launches']}, "
           f"{rep['merge_model_launches']} times")
+    # one quarter-pel pick a refinement, one bi pick a B frame (two lists
+    # a frame), every MC launch through a field entry
+    check(rep["qpel_pick_launches"] == rep["int_refine_launches"]
+          and 2 * rep["bi_pick_launches"] == rep["coarse_search_launches"]
+          and rep["mc_blocks_field_launches"] == rep["mc_blocks_launches"]
+          and rep["mc_qpel_field_launches"] == rep["mc_qpel_launches"],
+          "the P/B fast-RD encode launched the picks "
+          f"{rep['qpel_pick_launches']}, {rep['bi_pick_launches']} times "
+          f"and the MC field entries {rep['mc_blocks_field_launches']}, "
+          f"{rep['mc_qpel_field_launches']} times")
     check(rep["decision_frames"] == FRAMES
           and rep["decision_frames_inter"] == FRAMES - 1,
           f"decision passes {rep['decision_frames']} "
@@ -2209,6 +2279,8 @@ def fastrd_inter_phase(torch, work: Path, made: dict) -> dict:
                tu_rd_launches=rep["tu_rd_launches"], **selects,
                mc_blocks_launches=rep["mc_blocks_launches"],
                mc_qpel_launches=rep["mc_qpel_launches"],
+               mc_blocks_field_launches=rep["mc_blocks_field_launches"],
+               mc_qpel_field_launches=rep["mc_qpel_field_launches"],
                **{f"{k}_launches": rep[f"{k}_launches"] for k in INTER_ME},
                decode_filters_launches=filters_launches,
                fast_bytes=stream.stat().st_size,
@@ -2263,7 +2335,8 @@ def recorded_b_call(clip: Path, work: Path) -> tuple:
     return calls[-1]
 
 
-INTER_ME = ("coarse_search", "int_refine", "merge_model")
+INTER_ME = ("coarse_search", "int_refine", "merge_model", "qpel_pick",
+            "bi_pick")
 # the select, pick and DP kernels (csrc/intra_select.cu), by launch count
 SELECT_KERNELS = ("intra_select", "intra_pick", "intra_dp")
 SELECT_REPLACES = {
@@ -2277,35 +2350,47 @@ SELECT_REPLACES = {
 INTER_ME_REPLACES = {
     "coarse_search": "thevc_tpu/encoder/fast_inter.py:98",
     "int_refine": "thevc_tpu/encoder/fast_inter.py:234",
-    "merge_model": "thevc_tpu/encoder/fast_inter.py:367"}
+    "merge_model": "thevc_tpu/encoder/fast_inter.py:367",
+    "qpel_pick": "thevc_tpu/encoder/fast_inter.py:280-314 (the predictor "
+                 ":226)",
+    "bi_pick": "thevc_tpu/encoder/fast_inter.py:507-526, 649-651"}
+# each kernel's launch count in ops.inter_me_kernel
+INTER_ME_COUNTS = {"coarse_search": "coarse_launches",
+                   "int_refine": "refine_launches",
+                   "merge_model": "merge_launches",
+                   "qpel_pick": "pick_launches", "bi_pick": "bi_launches"}
 
 
 def inter_me_counts() -> dict:
-    """The launches of the P/B pass's three motion-search kernels."""
+    """The launches of the P/B pass's kernels of ``csrc/inter_me.cu``
+    (those the checkout has: ``tools/inter_me_ab.py`` runs these helpers
+    on older checkouts too)."""
     from thevc_tpu_torch.ops import inter_me_kernel as k
-    return {"coarse_search": k.coarse_launches,
-            "int_refine": k.refine_launches,
-            "merge_model": k.merge_launches}
+    return {n: getattr(k, c) for n, c in INTER_ME_COUNTS.items()
+            if hasattr(k, c)}
 
 
 def zero_inter_me_counts() -> None:
     from thevc_tpu_torch.ops import inter_me_kernel as k
-    k.coarse_launches = k.refine_launches = k.merge_launches = 0
+    for c in INTER_ME_COUNTS.values():
+        if hasattr(k, c):
+            setattr(k, c, 0)
 
 
 @contextlib.contextmanager
 def recorded_inter_me_calls(calls: dict):
-    """Record every launch of the motion-search kernels' entries (their
-    arguments) into ``calls``."""
+    """Record every launch of the ``csrc/inter_me.cu`` kernels' entries
+    (their arguments) into ``calls``."""
     from thevc_tpu_torch.ops import inter_me_kernel
-    saved = {n: getattr(inter_me_kernel, n) for n in INTER_ME}
+    saved = {n: getattr(inter_me_kernel, n) for n in INTER_ME
+             if hasattr(inter_me_kernel, n)}
 
     def spy(name):
         def call(*a):
             calls.setdefault(name, []).append(a)
             return saved[name](*a)
         return call
-    for n in INTER_ME:
+    for n in saved:
         setattr(inter_me_kernel, n, spy(n))
     try:
         yield
@@ -2316,7 +2401,7 @@ def recorded_inter_me_calls(calls: dict):
 
 def inter_me_flat(name: str, out) -> tuple:
     """An entry's outputs as one tuple (the coarse search's by size)."""
-    if name == "coarse_search":
+    if name in ("coarse_search", "bi_pick"):
         return tuple(t for s in sorted(out) for t in out[s])
     return tuple(out)
 
@@ -2332,6 +2417,10 @@ def inter_me_plain(name: str, a):
         org, refs_y, coarse, s, nby, nbx, sqrt_lam, bit_inc, _pad = a
         return lambda: fast_inter.int_refine_plain(
             org, refs_y, coarse, s, nby, nbx, sqrt_lam, bit_inc)
+    if name == "qpel_pick":
+        return lambda: fast_inter.qpel_pick_plain(*a)
+    if name == "bi_pick":
+        return lambda: fast_inter.bi_pick_plain(*a)
     (orgs, refs_y, refs_c, s, nby, nbx, rd_terms, winner, lam, cw, bit_inc,
      _pad_y, _pad_c) = a
     return lambda: fast_inter.merge_model_plain(
@@ -2359,6 +2448,13 @@ def inter_me_bound(torch, name: str, a) -> tuple:
     int_refine: the source blocks, the distinct reference samples of the
     blocks' (s + 6)-square windows, the int64 coarse field in and the
     int64 MV out; ``refine_ops``.
+    qpel_pick: the SATD, the coarse field (three int64 reads a block,
+    its neighbours' from cache), the int64 integer MVs and the int32
+    outputs; per block 14 exp-Golomb lengths (about 6 instructions each)
+    and per candidate a conversion, product, sum and comparison.
+    bi_pick: per block both leaves (16 bytes each), the six transform-RD
+    terms and the two outputs; four exp-Golomb lengths and about 16
+    operations for the sums, the minimum and the direction.
     merge_model: the source blocks (luma, Cb, Cr), the distinct
     reference samples of the three luma candidates' (s + 7)-square
     windows and of the Cb and Cr windows of the candidate the luma SSE
@@ -2375,6 +2471,19 @@ def inter_me_bound(torch, name: str, a) -> tuple:
         nbytes = 2 * hq * wq + sum(2 * r.numel() for r in refs_q) \
             + 24 * blocks + 4
         ops = len(refs_q) * n_off * n_off * (2 * hq * wq + 4 * blocks)
+        return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    if name == "qpel_pick":
+        satd, coarse, int_mx, int_my, _sl = a
+        nb = int(satd.shape[0])
+        nbytes = _nbytes(satd, *coarse, int_mx, int_my) + 12 * nb + 4
+        ops = nb * (14 * 6 + 49 * 4)
+        return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
+    if name == "bi_pick":
+        classes = a[0]
+        nb = sum(v[0][0].numel() for v in classes.values())
+        nbytes = sum(_nbytes(*l0, *l1, *terms)
+                     for l0, l1, terms in classes.values()) + 8 * nb + 8
+        ops = nb * (4 * 6 + 16)
         return (nbytes, ops, *roofline(nbytes, ops, INT32_OPS))
     from thevc_tpu_torch.encoder import fast_inter
     if name == "int_refine":
@@ -2402,9 +2511,11 @@ def inter_me_bound(torch, name: str, a) -> tuple:
                                                        mvx.device))
     org_b = fast_inter._blocks(orgs[0], s, nby, nbx)
     costs = []
+    from thevc_tpu_torch.ops import mc
     for cx, cy, cr in cands:
-        pred = fast_inter._pred_luma(refs_y, cr.int(), cx.int(), cy.int(),
-                                     by.int(), bx.int(), s, bd)
+        pred = mc.mc_blocks(refs_y, fast_inter._luma_jobs(
+            cr.int(), cx.int(), cy.int(), by.int(), bx.int()), "2d", True,
+            bd, False, s, s)
         costs.append(fast_inter._sse(org_b, pred, bit_inc).float())
     pick = torch.stack([c + lam * (2.0 + i) for i, c in
                         enumerate(costs)]).argmin(0)
@@ -2448,15 +2559,22 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
     bound; per entry one ``kernel <entry>`` line of the calls summed,
     with the entry's launches in the pass (``launches``), each call's
     eager and graph ms and size class (``per_call_*``; the coarse
-    search's 0, all classes at once) and the graph ms summed by class
-    (``by_class``).  Returns
-    (largest error, {entry: summed row})."""
+    search's and the bi pick's 0, all classes at once) and the graph ms
+    summed by class
+    (``by_class``; the quarter-pel pick's class from its block count).
+    Returns (largest error, {entry: summed row})."""
     from thevc_tpu_torch.ops import inter_me_kernel
     max_err = 0.0
     sums = {}
     for name in INTER_ME:
+        if not calls.get(name):
+            continue
         kernel = getattr(inter_me_kernel, name)
         rows = []
+        # the quarter-pel pick's size class from its block count: the
+        # largest count is the 8x8 class's
+        nb_max = max(int(a[0].shape[0]) for a in calls[name]) \
+            if name == "qpel_pick" else 0
         for a in calls.get(name, []):
             plain = inter_me_plain(name, a)
             got = inter_me_flat(name, kernel(*a))
@@ -2480,13 +2598,15 @@ def held_inter_me_calls(torch, calls: dict, tag: str,
                 graph_ms=graph_ms(torch, lambda: kernel(*a), 20),
                 plain_ms=time_ms(torch, plain, 3), bytes=nbytes, ops=ops,
                 bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
-                s=0 if name == "coarse_search" else a[3]))
+                s=0 if name in ("coarse_search", "bi_pick")
+                else 8 * round((nb_max / int(a[0].shape[0])) ** 0.5)
+                if name == "qpel_pick" else a[3]))
         if not rows:
             continue
         row = {k: sum(r[k] for r in rows) for k in (
             "ms", "graph_ms", "plain_ms", "bytes", "ops", "bound_ms")}
         row.update(
-            tag=tag, calls=len(rows), launches=launches[name],
+            tag=tag, calls=len(rows), launches=launches.get(name, 0),
             max_abs_err=max(r["max_abs_err"] for r in rows),
             bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
             else "operations", library_ms=None,
@@ -2556,6 +2676,7 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         zero_intra_counts()
         zero_inter_me_counts()
         mc_kernel.blocks_launches = mc_kernel.qpel_launches = 0
+        mc_kernel.blocks_field_launches = mc_kernel.qpel_field_launches = 0
         mc.launches = 0
         t = time.perf_counter()
         maps = run()
@@ -2563,7 +2684,9 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         counts = intra_counts()
         launches = {"satd": counts["satd"],
                     "mc": mc_kernel.blocks_launches,
+                    "mc_fields": mc_kernel.blocks_field_launches,
                     "mc_qpel": mc_kernel.qpel_launches,
+                    "mc_qpel_fields": mc_kernel.qpel_field_launches,
                     "intra_sweep": counts["intra_sweep"],
                     "tu_rd_intra": counts["tu_rd_intra"],
                     "tu_rd_given": counts["tu_rd_given"],
@@ -2586,10 +2709,20 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     check(launches["mc"] == 6 * classes and not avg_calls,
           f"the B pass made {launches['mc']} MC blocks launches (expected "
           f"{6 * classes}) and {len(avg_calls)} bi_avg_batch calls")
-    # one coarse search a list, one refinement and one merge model a size
-    # class and list
+    # every MC launch through a field entry: the pass builds no job table
+    # (one quarter-pel launch a size class and list)
+    check(launches["mc_fields"] == launches["mc"]
+          and launches["mc_qpel_fields"] == launches["mc_qpel"]
+          == 2 * classes,
+          f"the B pass made {launches['mc']} MC blocks launches, "
+          f"{launches['mc_fields']} through the field entry, and "
+          f"{launches['mc_qpel']} quarter-pel launches, "
+          f"{launches['mc_qpel_fields']} through the field entry")
+    # one coarse search a list, one refinement, one quarter-pel pick and
+    # one merge model a size class and list, one bi pick a frame
     expected = {"coarse_search": 2, "int_refine": 2 * classes,
-                "merge_model": 2 * classes}
+                "merge_model": 2 * classes, "qpel_pick": 2 * classes,
+                "bi_pick": 1}
     check({k: launches[k] for k in INTER_ME} == expected,
           f"the B pass launched the motion-search kernels "
           f"{ {k: launches[k] for k in INTER_ME} }, expected {expected}")
@@ -2656,6 +2789,20 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
                    stage_device=plain_stage_device),
                maps_identical=True)
     print("fastrd_inter_pass " + json.dumps(out))
+    # the B frame's device activities by stage, both routes; the stages
+    # this PR's kernels took over beside their sum
+    glue = ("fast_inter.qpel_mc_satd", "fast_inter.tq_rd", "fast_inter.bi")
+    acts = {k: v["activities"] for k, v in stage_device["stages"].items()}
+    print("fastrd_inter_stage_activities " + json.dumps({
+        "kernel_route": acts,
+        "plain_route": {k: v["activities"] for k, v in
+                        plain_stage_device["stages"].items()},
+        "qpel_mc_satd_tq_rd_bi": sum(acts.get(k, 0) for k in glue),
+        "qpel_mc_satd_tq_rd_bi_device_ms": sum(
+            stage_device["stages"].get(k, {}).get("device_ms", 0.0)
+            for k in glue),
+        "activities": stage_device["activities"],
+        "device_ms": stage_device["device_ms"]}))
 
     # record the pass's kernel calls (the inter leaves' and the intra
     # leaves'), then hold each against its plain version and time the
@@ -2665,7 +2812,7 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     icalls: dict = {}
     mcalls: dict = {}
     real_satd = satd.satd_blocks
-    real_mc, real_qpel = mc.mc_blocks, mc.mc_qpel
+    real_mc, real_qpel = mc.mc_blocks_fields, mc.mc_qpel_fields
 
     def rec_satd(org, preds, bit_inc=0):
         calls["satd"].append((org, preds, bit_inc))
@@ -2679,15 +2826,17 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
         calls["mc_qpel"].append(a)
         return real_qpel(*a)
     fast_inter.satd_blocks = fast_intra.satd_blocks = rec_satd
-    mc.mc_blocks, mc.mc_qpel = rec_mc, rec_qpel
+    mc.mc_blocks_fields, mc.mc_qpel_fields = rec_mc, rec_qpel
     try:
         with recorded_intra_kernel_calls(icalls), \
                 recorded_inter_me_calls(mcalls):
             run()
     finally:
         fast_inter.satd_blocks = fast_intra.satd_blocks = real_satd
-        mc.mc_blocks, mc.mc_qpel = real_mc, real_qpel
+        mc.mc_blocks_fields, mc.mc_qpel_fields = real_mc, real_qpel
     recorded = {**{k: len(v) for k, v in calls.items()},
+                "mc_fields": len(calls["mc"]),
+                "mc_qpel_fields": len(calls["mc_qpel"]),
                 "intra_sweep": len(icalls.get("sweep", [])),
                 "tu_rd_intra": len(icalls.get("tu_rd_intra", [])),
                 "tu_rd_given": len(icalls.get("tu_rd_given", [])),
@@ -2732,25 +2881,28 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
             print("kernel satd " + json.dumps(rows[-1]))
     blocks_rows = []
     for a, kw in calls["mc"]:
-        got, plain = mc.mc_blocks(*a, **kw), mc.mc_blocks_plain(*a, **kw)
-        torch.cuda.synchronize()
-        err = int((got.to(torch.int32) - plain.to(torch.int32)).abs().max())
+        err = held_mc_fields(torch, a, kw)
         max_err["mc"] = max(max_err["mc"], err)
-        check(torch.equal(got, plain), "MC kernel != plain on the B pass's "
-              f"{tuple(got.shape)} call (max abs err {err})")
-        nbytes, ops, bound_ms, bound_by = mc_blocks_bound(torch, *a, **kw)
+        ta, tkw = mc_fields_table(a, kw)
+        nbytes, ops, bound_ms, bound_by = mc_fields_bound(torch, a, kw)
+        size = a[2]
         blocks_rows.append(dict(
-            shape=list(got.shape), luma=bool(a[3]), bi=bool(a[5]),
-            pair=bool(kw.get("pair")), lists=1 + ("jobs1" in kw),
-            ms=time_ms(torch, lambda: mc.mc_blocks(*a, **kw), 20),
-            graph_ms=graph_ms(torch, lambda: mc.mc_blocks(*a, **kw), 20),
-            plain_ms=time_ms(torch, lambda: mc.mc_blocks_plain(*a, **kw),
-                             3),
+            shape=[2] * bool(kw.get("pair")) + [int(a[1][0].shape[0]), size,
+                                                size],
+            luma=bool(a[5]), bi=bool(a[7]), pair=bool(kw.get("pair")),
+            lists=1 + (kw.get("fields1") is not None),
+            ms=time_ms(torch, lambda: mc.mc_blocks_fields(*a, **kw), 20),
+            graph_ms=graph_ms(torch, lambda: mc.mc_blocks_fields(*a, **kw),
+                              20),
+            table_graph_ms=graph_ms(torch, lambda: mc.mc_blocks(*ta, **tkw),
+                                    20),
+            plain_ms=time_ms(torch, lambda: mc.mc_blocks_fields_plain(
+                *a, **kw), 3),
             bytes=nbytes, bound_ms=bound_ms, bound_by=bound_by,
-            fp32_bound_ms=mc_blocks_bound(torch, *a, **kw,
-                                          peak=FP32_OPS)[2]))
+            fp32_bound_ms=mc_fields_bound(torch, a, kw, FP32_OPS)[2]))
     blocks_sum = {k: sum(r[k] for r in blocks_rows) for k in (
-        "ms", "graph_ms", "plain_ms", "bytes", "bound_ms", "fp32_bound_ms")}
+        "ms", "graph_ms", "table_graph_ms", "plain_ms", "bytes", "bound_ms",
+        "fp32_bound_ms")}
     blocks_sum.update(
         calls=len(blocks_rows), bound_by="bytes" if all(
             r["bound_by"] == "bytes" for r in blocks_rows) else "operations",
@@ -2785,11 +2937,42 @@ def inter_pass_phase(torch, clip: Path, work: Path) -> dict:
     run10()
     mcalls10: dict = {}
     icalls10: dict = {}
+    fcalls10: dict = {"mc": [], "mc_qpel": []}
+
+    def rec_mc10(*a, **kw):
+        fcalls10["mc"].append((a, kw))
+        return real_mc(*a, **kw)
+
+    def rec_qpel10(*a):
+        fcalls10["mc_qpel"].append(a)
+        return real_qpel(*a)
     zero_inter_me_counts()
-    with recorded_inter_me_calls(mcalls10), \
-            recorded_intra_kernel_calls(icalls10):
-        maps10 = run10()
+    mc.mc_blocks_fields, mc.mc_qpel_fields = rec_mc10, rec_qpel10
+    try:
+        with recorded_inter_me_calls(mcalls10), \
+                recorded_intra_kernel_calls(icalls10):
+            maps10 = run10()
+    finally:
+        mc.mc_blocks_fields, mc.mc_qpel_fields = real_mc, real_qpel
     launches10 = inter_me_counts()
+    # the 10-bit frame's MC field calls, held untimed: against their plain
+    # forms and the table entries
+    check(len(fcalls10["mc"]) == 6 * classes
+          and len(fcalls10["mc_qpel"]) == 2 * classes,
+          f"the 10-bit B pass made {len(fcalls10['mc'])} MC field calls and "
+          f"{len(fcalls10['mc_qpel'])} quarter-pel ones")
+    for a, kw in fcalls10["mc"]:
+        max_err["mc"] = max(max_err["mc"], held_mc_fields(torch, a, kw))
+    for planes, fields, size, nbx, pad, bd in fcalls10["mc_qpel"]:
+        got = mc.mc_qpel_fields(planes, fields, size, nbx, pad, bd)
+        want = mc.mc_qpel_fields_plain(planes, fields, size, nbx, pad, bd)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+        max_err["mc_qpel"] = max(max_err["mc_qpel"], err)
+        check(torch.equal(got, want), "the 10-bit quarter-pel field call "
+              f"at s = {size} != plain (max abs err {err})")
+        del got, want
+    del fcalls10
     with plain_route():
         plain10 = run10()
     check(all(np.array_equal(a, b) and a.dtype == b.dtype
@@ -2845,7 +3028,12 @@ def inter_identity_phase(work: Path, made: dict) -> dict:
               and rep["tu_rd_launches"] > 0
               and rep["mc_blocks_launches"] > 0
               and rep["mc_qpel_launches"] > 0
-              and all(rep[f"{k}_launches"] > 0 for k in INTER_ME)
+              and rep["mc_blocks_field_launches"] == rep["mc_blocks_launches"]
+              and rep["mc_qpel_field_launches"] == rep["mc_qpel_launches"]
+              and all(rep[f"{k}_launches"] > 0 for k in INTER_ME
+                      if k != "bi_pick")
+              # the bi pick runs on B slices only: none in low-delay P
+              and (rep["bi_pick_launches"] > 0) == (name != "ldp")
               and rep["plain_mc_calls"] == 0,
               f"{name} fast-RD on cuda skipped a kernel, ran K1 or ran the "
               f"plain MC: {rep}")
@@ -3909,6 +4097,7 @@ def build_report(lib: Path) -> dict:
     names = {"sweep_kernel": "sweep", "tu_rd_kernel": "tu_rd",
              "coarse_kernel": "coarse", "int_refine_kernel": "int_refine",
              "merge_model_kernel": "merge_model",
+             "qpel_pick_kernel": "qpel_pick", "bi_pick_kernel": "bi_pick",
              "select_kernel": "select", "pick_kernel": "pick",
              "dp_kernel": "dp"}
 
@@ -4021,8 +4210,14 @@ def main() -> int:
               .strip())
     print("intra_rd_build " + json.dumps(
         build_report(build.library_path(intra_rd_kernel.NAME))))
-    print("inter_me_build " + json.dumps(
-        build_report(build.library_path(inter_me_kernel.NAME))))
+    inter_me_build = build_report(build.library_path(inter_me_kernel.NAME))
+    print("inter_me_build " + json.dumps(inter_me_build))
+    # the picks keep their costs and counts in registers
+    for name in ("qpel_pick", "bi_pick"):
+        info = inter_me_build.get(name, {})
+        check(info.get("stack_frame") == 0 and info.get("spill_stores") == 0
+              and info.get("spill_loads") == 0,
+              f"the {name} kernel has a stack frame or spills: {info}")
     select_build = build_report(build.library_path(intra_select_kernel.NAME))
     print("intra_select_build " + json.dumps(select_build))
     # the select's top 3 and the pick's order live in registers
@@ -4159,11 +4354,12 @@ def main() -> int:
     # frame (no PyTorch call does HM's intra TU apply, so library_ms is
     # null)
     frame_apply = devapply["frame"]
-    # the motion-search kernels' times: the replayed 1080p B frame's calls
-    # summed (2 coarse searches, 8 refinements, 8 merge models; no single
-    # PyTorch call runs a full search with an MV prior, a first-minimum
-    # refinement or HM's interpolation inside an SSE, so library_ms is
-    # null)
+    # the motion-search and pick kernels' times: the replayed 1080p B
+    # frame's calls summed (2 coarse searches, 8 refinements, 8
+    # quarter-pel picks, 8 merge models, one bi pick; no single PyTorch
+    # call runs a full search with an MV prior, a first-minimum refinement
+    # or pick, HM's interpolation inside an SSE or the direction select on
+    # the minimum as computed, so library_ms is null)
     inter_me8 = fast_inter["pass"]["inter_me"]["8bit"]
     # the intra decision kernels' times: the replayed 1080p I frame's
     # calls summed (5 sweeps; 10 TU-RD launches, the luma top-3 of each

@@ -300,13 +300,13 @@ def test_predictions_at_equal_mvs_exact(planes, s):
                             out_w=s)
         got = (mc.mc_blocks(t(planes["ry"]), port._luma_jobs(*blk), "2d",
                             True, 8, True, s, s) if bi else
-               port._pred_luma(t(planes["ry"]), *blk, s, 8))
+               port._pred_luma(t(planes["ry"]), tuple(blk[:3]), s, nbx, 8))
         np.testing.assert_array_equal(np.asarray(want), got.numpy())
         cs = s // 2
         # Cb and Cr in one call, over the Cb planes stacked on the Cr ones
         got = (mc.mc_blocks(chroma, port._chroma_jobs(*cblk), "2d", False,
                             8, True, cs, cs, pair=True) if bi else
-               port._pred_chroma(chroma, *cblk, cs, 8))
+               port._pred_chroma(chroma, tuple(cblk[:3]), cs, nbx, 8))
         for k, name in enumerate(("rcb", "rcr")):
             wc = ref._gather_windows(jnp.asarray(planes[name]),
                                      jnp.asarray(r),

@@ -291,7 +291,7 @@ def test_qpel_mc_blocks_equals_seven_cat_loop(s, bd):
     int_mx = torch.from_numpy(rng.randint(-reach, reach + 1, nb))
     int_my = torch.from_numpy(rng.randint(-reach, reach + 1, nb))
     mc.launches = 0
-    got = fast_inter._qpel_preds(refs_y, ref, bx, by, int_mx, int_my, s, bd)
+    got = fast_inter._qpel_preds(refs_y, ref, int_mx, int_my, s, nbx, bd)
     assert mc.launches >= 1
     assert got.shape == (nb, 49, s, s)
     assert torch.equal(got, seven_cat_loop(refs_y, ref, bx, by, int_mx,

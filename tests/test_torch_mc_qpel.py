@@ -87,7 +87,8 @@ def test_mc_qpel_equals_blocks_plain_on_49_jobs(s, bd):
 @pytest.mark.parametrize("s", SIZES)
 def test_mc_qpel_equals_seven_cat_loop(s, bd):
     planes, ref, bx, by, int_mx, int_my, origins = qpel_case(s, bd)
-    got = fast_inter._qpel_preds(planes, ref, bx, by, int_mx, int_my, s, bd)
+    got = fast_inter._qpel_preds(planes, ref, int_mx, int_my, s,
+                                 PLANE[1] // s, bd)
     assert torch.equal(got, mc.mc_qpel(planes, origins, s, bd))
     assert torch.equal(got, seven_cat_loop(planes, ref, bx, by, int_mx,
                                            int_my, s, bd))

@@ -75,7 +75,11 @@ def main(argv=None) -> int:
               "mc_qpel": mc_kernel.qpel_launches, "plain_mc": mc.launches,
               "coarse": inter_me_kernel.coarse_launches,
               "refine": inter_me_kernel.refine_launches,
-              "merge": inter_me_kernel.merge_launches}
+              "merge": inter_me_kernel.merge_launches,
+              "qpel_pick": inter_me_kernel.pick_launches,
+              "bi_pick": inter_me_kernel.bi_launches,
+              "mc_blocks_field": mc_kernel.blocks_field_launches,
+              "mc_qpel_field": mc_kernel.qpel_field_launches}
     device = resolve(args.device) if cfg.fast_rd else None
     stats = DecisionStats()
     enc = Encoder(cfg, device=device, stats=stats,
@@ -105,6 +109,10 @@ def main(argv=None) -> int:
         "mc_blocks_launches": mc_kernel.blocks_launches
         - before["mc_blocks"],
         "mc_qpel_launches": mc_kernel.qpel_launches - before["mc_qpel"],
+        "mc_blocks_field_launches": mc_kernel.blocks_field_launches
+        - before["mc_blocks_field"],
+        "mc_qpel_field_launches": mc_kernel.qpel_field_launches
+        - before["mc_qpel_field"],
         "plain_mc_calls": mc.launches - before["plain_mc"],
         "coarse_search_launches": inter_me_kernel.coarse_launches
         - before["coarse"],
@@ -112,6 +120,9 @@ def main(argv=None) -> int:
         - before["refine"],
         "merge_model_launches": inter_me_kernel.merge_launches
         - before["merge"],
+        "qpel_pick_launches": inter_me_kernel.pick_launches
+        - before["qpel_pick"],
+        "bi_pick_launches": inter_me_kernel.bi_launches - before["bi_pick"],
         "decision_frames": stats.frames,
         "decision_frames_inter": stats.inter_frames,
         "decision_wall_s": stats.wall_s,

@@ -1,7 +1,8 @@
-// The P/B fast-RD decision pass's own motion search on an NVIDIA Hopper
-// card (sm_90a): three kernels, one a stage of
+// The P/B fast-RD decision pass's own motion search and picks on an
+// NVIDIA Hopper card (sm_90a): five kernels of
 // thevc_tpu_torch/encoder/fast_inter.py, each equal to its plain form bit
-// for bit (coarse_fields_plain, int_refine_plain, merge_model_plain).
+// for bit (coarse_fields_plain, int_refine_plain, merge_model_plain,
+// qpel_pick_plain, bi_pick_plain).
 //
 // They replace, in the XLA device program of the JAX package's P/B pass
 // (thevc_tpu/encoder/fast_inter.py _frame_body_p, jitted as one):
@@ -11,8 +12,12 @@
 //   int_refine     :234-262 in _inter_size_pass: the +-3 full-pel SAD
 //                  refinement around the coarse winner with the exp-Golomb
 //                  MV prior of the neighbourhood-median predictor;
+//   qpel_pick      :280-314: the quarter-pel candidates' MV prior, costs
+//                  and first minimum (their SATD is K2's);
 //   merge_model    :367-428: the AMVP-proxy MV bits, the RD sum and the
-//                  3-candidate merge/skip model (left, above, zero MV).
+//                  3-candidate merge/skip model (left, above, zero MV);
+//   bi_pick        :507-526 and :649-651: the bi stage's MV bits and RD
+//                  sum and the L0/L1/BI direction.
 // Every float is an eager float32 op of the plain form in its order,
 // written as __fmul_rn / __fadd_rn, and the source is built with
 // -fmad=false (ops/build.py SOURCE_FLAGS): no multiply-add is contracted.
@@ -152,6 +157,32 @@
 //   form's tap by tap products.
 // - The SSE is an unsigned 32-bit sum that wraps: the int64 sum cast to
 //   int32, half the shuffles of a 64-bit one.
+//
+// qpel_pick (kernel D), one launch a size class and list, after K2's SATD
+// of the 49 quarter-pel candidates: per block the exp-Golomb bits of each
+// candidate against the median predictor of the coarse field (as
+// int_refine's), the cost float(satd) + sqrt_lam * float(bits) and the
+// first minimum in candidate order (qdy + 3) * 7 + qdx + 3 -> the winner's
+// quarter-pel MV and its reference as int32.  It replaces
+// thevc_tpu/encoder/fast_inter.py:280-314 (the predictor :226, _mv_pred_median
+// :82).  What bounds it on this card: bytes, 196 of SATD a block (6.4 MB
+// at s = 8 at 1080p, about 2 us), and a call's latency.  A thread a block
+// (128 a CTA): the CTA's SATD rows, one contiguous run, are staged in
+// shared memory with coalesced loads, then each thread walks its 49 costs
+// in order with a strict <, its 7 x bits in registers.
+//
+// bi_pick (kernel E), one launch a B frame over every inter size class
+// (the class table in the parameter space, __grid_constant__, as
+// intra_select.cu's kernels): per block the two lists' MV bits
+// sum (golomb(mvx) + golomb(mvy) + 2 + ref) as an integer, the bi RD sum
+// rd_bi = d_y + cw (d_cb + d_cr), then + lam (b_y + b_cb + b_cr + mvbits
+// + 5) left to right, rd = min(min(rd0, rd1), rd_bi) and the direction 3
+// where rd == rd_bi, else 1 where rd == rd0, else 2, the tests on the
+// minimum as computed.  It replaces fast_inter.py:507-526 (the MV bits and
+// RD sum of _bi_size_pass) and :649-651 (the direction).  What bounds it:
+// bytes (22 words a block in, 2 out; 3.8 MB for a 1080p frame) and one
+// launch's latency; a thread a block.  Its outputs are the inter leaves'
+// rd and dir that the DP kernel (intra_select.cu) reads.
 //
 // No entry allocates or synchronises; each launches on the stream it is
 // given and returns cudaGetLastError().  The scalars (sqrt_lam, lam, cw)
@@ -1139,6 +1170,127 @@ merge_model_kernel(MergeArgs a) {
   a.out[3 * nb + n] = use_skip ? sr : rf;
 }
 
+// ---- qpel_pick -----------------------------------------------------------
+
+constexpr int kCands = 49;         // the 7x7 quarter-pel window
+constexpr int kPickThreads = 128;  // blocks a CTA, a thread each
+
+struct QpelPickArgs {
+  const int* satd;                   // K2's SATD [nb, 49]
+  const long long* c_dy;             // coarse field, full pel [nby, nbx]
+  const long long* c_dx;
+  const long long* c_ref;
+  const long long* int_mx;           // the integer winner, full pel [nb]
+  const long long* int_my;
+  const float* sqrt_lam;
+  int* out;                          // [3, nb]: mv_qx, mv_qy (quarter
+                                     // pel), ref
+  int nby, nbx;
+};
+
+__global__ void __launch_bounds__(kPickThreads)
+qpel_pick_kernel(QpelPickArgs a) {
+  __shared__ int rows[kPickThreads * kCands];
+  const long long nb = (long long)a.nby * a.nbx;
+  const long long n0 = (long long)blockIdx.x * kPickThreads;
+  const int cnt = (int)min((long long)kPickThreads, nb - n0);
+  // the CTA's SATD rows are one contiguous run: coalesced words; a
+  // thread's row at an odd stride reads on distinct banks
+  const int* src = a.satd + n0 * kCands;
+  for (int e = threadIdx.x; e < cnt * kCands; e += kPickThreads) {
+    rows[e] = src[e];
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t >= cnt) return;
+  const long long n = n0 + t;
+  const int i = (int)(n / a.nbx), j = (int)(n - (long long)i * a.nbx);
+  const int px = median_pred(a.c_dx, i, j, a.nby, a.nbx);
+  const int py = median_pred(a.c_dy, i, j, a.nby, a.nbx);
+  const int mx = (int)a.int_mx[n] * 4, my = (int)a.int_my[n] * 4;
+  const float sl = *a.sqrt_lam;
+  int gx[7];
+#pragma unroll
+  for (int q = 0; q < 7; ++q) gx[q] = golomb(mx + q - 3 - px);
+  const int* row = rows + t * kCands;
+  float best = 0.0f;
+  int code = 0;
+#pragma unroll
+  for (int qy = 0; qy < 7; ++qy) {
+    const int gy = golomb(my + qy - 3 - py) + 2;
+#pragma unroll
+    for (int qx = 0; qx < 7; ++qx) {
+      const int k = qy * 7 + qx;
+      const float cost = __fadd_rn((float)row[k],
+                                   __fmul_rn(sl, (float)(gy + gx[qx])));
+      if (k == 0 || cost < best) {
+        best = cost;
+        code = k;
+      }
+    }
+  }
+  a.out[n] = mx + code % 7 - 3;
+  a.out[nb + n] = my + code / 7 - 3;
+  a.out[2 * nb + n] = (int)a.c_ref[n];
+}
+
+// ---- bi_pick -------------------------------------------------------------
+
+constexpr int kBiThreads = 256;    // blocks a CTA, a thread each
+
+struct BiClass {                   // one inter size class, 8 << k
+  const float* rd0;                // list 0's leaf: rd, MV (quarter pel),
+  const int* mvx0;                 // reference, [nb] each
+  const int* mvy0;
+  const int* ref0;
+  const float* rd1;                // list 1's
+  const int* mvx1;
+  const int* mvy1;
+  const int* ref1;
+  const int* d_y;                  // the bi prediction's transform-RD
+  const float* b_y;                // estimates, [nb] each
+  const int* d_cb;
+  const float* b_cb;
+  const int* d_cr;
+  const float* b_cr;
+  float* rd;                       // out: min of L0, L1, BI [nb]
+  int* dir;                        // out: 1 L0, 2 L1, 3 BI [nb]
+  int nb, size, first;             // first: the class's first CTA
+};
+
+struct BiArgs {
+  BiClass cls[kClasses];           // 8 first, then each size up to the CTU
+  const float* lam;
+  const float* cw;
+  int classes;
+};
+
+// the arguments stay in the parameter space (__grid_constant__): a class's
+// pointers are indexed by a class number known only at run time
+__global__ void __launch_bounds__(kBiThreads)
+bi_pick_kernel(const __grid_constant__ BiArgs a) {
+  int k = 0;
+  while (k + 1 < a.classes && (int)blockIdx.x >= a.cls[k + 1].first) ++k;
+  const BiClass& c = a.cls[k];
+  const int n = ((int)blockIdx.x - c.first) * kBiThreads + threadIdx.x;
+  if (n >= c.nb) return;
+  const int mvbits = golomb(c.mvx0[n]) + golomb(c.mvy0[n]) + 2 + c.ref0[n]
+                     + golomb(c.mvx1[n]) + golomb(c.mvy1[n]) + 2 + c.ref1[n];
+  const float lam = *a.lam, cw = *a.cw;
+  const int d_c = (int)((unsigned)c.d_cb[n] + (unsigned)c.d_cr[n]);
+  float rd_bi = __fadd_rn((float)c.d_y[n], __fmul_rn(cw, (float)d_c));
+  const float b = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(c.b_y[n],
+                                                          c.b_cb[n]),
+                                                c.b_cr[n]),
+                                      (float)mvbits),
+                            5.0f);
+  rd_bi = __fadd_rn(rd_bi, __fmul_rn(lam, b));
+  const float rd0 = c.rd0[n], rd1 = c.rd1[n];
+  const float rd = fminf(fminf(rd0, rd1), rd_bi);
+  c.rd[n] = rd;
+  c.dir[n] = rd == rd_bi ? 3 : rd == rd0 ? 1 : 2;
+}
+
 template <int S>
 int launch_refine(const RefineArgs& a, cudaStream_t st) {
   using Sh = RefineShape<S>;
@@ -1233,6 +1385,43 @@ extern "C" int thevc_merge_model(
     case 64: return launch_merge<64>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// satd: int32 [nby * nbx, 49]; c_*: the coarse field, int64 [nby, nbx];
+// int_m*: the integer winner, int64 [nby * nbx]; out: int32 [3, nby *
+// nbx], mv_qx, mv_qy, ref
+extern "C" int thevc_qpel_pick(const int* satd, const long long* c_dy,
+                               const long long* c_dx, const long long* c_ref,
+                               const long long* int_mx,
+                               const long long* int_my,
+                               const float* sqrt_lam, int nby, int nbx,
+                               int* out, cudaStream_t st) {
+  if (nby <= 0 || nbx <= 0) return (int)cudaErrorInvalidValue;
+  const QpelPickArgs a{satd, c_dy, c_dx, c_ref, int_mx, int_my, sqrt_lam,
+                       out, nby, nbx};
+  const long long grid = ((long long)nby * nbx + kPickThreads - 1)
+                         / kPickThreads;
+  if (grid >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  qpel_pick_kernel<<<(unsigned)grid, kPickThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// args: a host BiArgs (the class table, 8 first; ``first`` is set here)
+extern "C" int thevc_bi_pick(const void* args, cudaStream_t st) {
+  BiArgs a = *static_cast<const BiArgs*>(args);
+  if (a.classes < 1 || a.classes > kClasses) {
+    return (int)cudaErrorInvalidValue;
+  }
+  long long ctas = 0;
+  for (int k = 0; k < a.classes; ++k) {
+    BiClass& c = a.cls[k];
+    if (c.nb <= 0 || c.size != 8 << k) return (int)cudaErrorInvalidValue;
+    c.first = (int)ctas;
+    ctas += (c.nb + kBiThreads - 1) / kBiThreads;
+  }
+  if (ctas >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  bi_pick_kernel<<<(unsigned)ctas, kBiThreads, 0, st>>>(a);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* thevc_error_string(int code) {

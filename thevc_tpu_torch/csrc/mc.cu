@@ -54,6 +54,12 @@
 // two CTAs of 32-row bands), the sizes template parameters; any other
 // shape up to 64x64 takes one block a CTA of 128 threads.
 //
+// thevc_mc_blocks_fields is the same kernel with the P/B pass's jobs
+// derived in the CTA from each block's reference and quarter-pel MV (int32
+// fields of the size class's block grid, one list or both lists of a bi
+// call) as fast_inter._luma_jobs and _chroma_jobs build them, so that the
+// pass builds no job table (about nine elementwise launches a table).
+//
 // thevc_mc_picture serves the decode, one launch a picture over one int32
 // device table: per reference plane (pointer low, pointer high, rows,
 // columns); then the jobs (one a (PU, component), both lists where it is
@@ -79,7 +85,10 @@
 // phases (a zero phase rides the identity tap row through both passes,
 // with the first pass's int16 wrap), so it equals thevc_mc_blocks on the
 // 49-job table bit for bit.  Per block the input is only (plane, window
-// x, window y): the first tap sample of candidate (0, 0).
+// x, window y): the first tap sample of candidate (0, 0); thevc_mc_qpel_fields
+// derives it in the kernel from the block's reference and integer MV (int64
+// fields of the class's grid, the coarse search's and the refinement's
+// outputs), as fast_inter._qpel_preds does.
 //
 // What bounds it: bytes.  A call writes 49 predictions a block, about
 // 205 MB over a 1088x1920 picture (0.061 ms at 3.35 TB/s).  The 49
@@ -131,7 +140,16 @@ enum { kPixels = 0, k14 = 1, kAvg = 2 };
 
 struct BlocksArgs {
   const int16_t* planes[2];  // per list: int16 [P, rows, cols]
-  const int* jobs[2];        // per list: int32 [n, 5]
+  const int* jobs[2];        // per list: int32 [n, 5], or null: the fields
+  // the field entry: per list each block's reference and quarter-pel MV,
+  // int32 [n] each, block k at (k / fnbx, k % fnbx) of a grid of h x w
+  // blocks; its job's window offset foff (the padding less the taps' half
+  // less one), MV shift fshift and phase mask fmask (luma 2 and 3,
+  // chroma 3 and 7)
+  const int* fref[2];
+  const int* fmvx[2];
+  const int* fmvy[2];
+  int fnbx, foff, fshift, fmask;
   int16_t* out;              // int16 [n_out_planes, n, h, w]
   long long n;
   int rows, cols, h, w, cs, n_out_planes, mode, bd;
@@ -145,6 +163,27 @@ struct BlocksArgs {
 template <class T>
 __device__ __forceinline__ T of_list(const T (&v)[2], int l) {
   return l ? v[1] : v[0];
+}
+
+// job n of list l: its row of the job table, or derived from the block's
+// MV as the P/B pass's job builders (fast_inter._luma_jobs, _chroma_jobs)
+// do: (reference, column + (mv >> shift) + off, row + (mv >> shift) +
+// off, mv & mask)
+__device__ __forceinline__ void job_of(const BlocksArgs& a, int l,
+                                       long long n, int (&j)[5]) {
+  const int* t = of_list(a.jobs, l);
+  if (t) {
+#pragma unroll
+    for (int k = 0; k < 5; ++k) j[k] = t[5 * n + k];
+    return;
+  }
+  const int mx = of_list(a.fmvx, l)[n], my = of_list(a.fmvy, l)[n];
+  const int bi = (int)(n / a.fnbx), bj = (int)(n - (long long)bi * a.fnbx);
+  j[0] = of_list(a.fref, l)[n];
+  j[1] = bj * a.w + (mx >> a.fshift) + a.foff;
+  j[2] = bi * a.h + (my >> a.fshift) + a.foff;
+  j[3] = mx & a.fmask;
+  j[4] = my & a.fmask;
 }
 
 // one unit's list: its plane, the window's aligned first column and its
@@ -190,7 +229,8 @@ mc_blocks_kernel(BlocksArgs a) {
       const long long n = u / per_job;
       const int rem = (int)(u - n * per_job);
       const int q = rem / bands, bnd = rem - q * bands;
-      const int* j = of_list(a.jobs, l) + 5 * n;
+      int j[5];
+      job_of(a, l, n, j);
       const int wx = j[1];
       src[b][l] = UnitSrc{of_list(a.planes, l)
                           + (long long)(j[0] + q * of_list(a.pair_off, l))
@@ -493,12 +533,41 @@ struct QpelShared {
   alignas(16) int16_t tmp[NB][7][T + 8][T];
 };
 
+// where each block's window starts: a table of origins, or (the field
+// entry) each block's reference and integer MV on a grid of s x s blocks
+struct QpelOrigins {
+  const int* table;          // int32 [n, 3] (plane, window x, window y),
+                             // or null
+  const long long* ref;      // int64 [n] each: reference, integer MV
+  const long long* mx;
+  const long long* my;
+  int nbx, off;              // blocks a row; the padding less 3
+};
+
+// block n's origin (plane, window x, window y): the table's row, or as
+// fast_inter._qpel_preds builds it, (ref, column + mx + off, row + my +
+// off)
+__device__ __forceinline__ void qpel_origin(const QpelOrigins& o, int s,
+                                            long long n, int& p, int& x,
+                                            int& y) {
+  if (o.table) {
+    p = o.table[3 * n];
+    x = o.table[3 * n + 1];
+    y = o.table[3 * n + 2];
+    return;
+  }
+  const int i = (int)(n / o.nbx), j = (int)(n - (long long)i * o.nbx);
+  p = (int)o.ref[n];
+  x = j * s + (int)o.mx[n] + o.off;
+  y = i * s + (int)o.my[n] + o.off;
+}
+
 // tiles: NB consecutive (block, tile) pairs from blockIdx.x * NB, tile t
 // of a block at ((t / tiles_x) * T, (t % tiles_x) * T)
 template <int T, int NB>
 __global__ void __launch_bounds__(kQpelThreads)
 mc_qpel_kernel(const int16_t* __restrict__ planes, int rows, int cols,
-               const int* __restrict__ origins, long long n_tiles, int s,
+               const QpelOrigins origins, long long n_tiles, int s,
                int tiles_x, int16_t* __restrict__ out, bool aligned,
                int bd) {
   __shared__ QpelShared<T, NB> sm;
@@ -514,10 +583,11 @@ mc_qpel_kernel(const int16_t* __restrict__ planes, int rows, int cols,
     if (id >= n_tiles) continue;
     const long long n = id / per_block;
     const int t = (int)(id - n * per_block);
-    const int* o = origins + 3 * n;
-    const int y = o[2] - 1 + (t / tiles_x) * T + r;
-    const int x = ((o[1] - 1) & ~7) + (t % tiles_x) * T + 8 * ch;
-    const int16_t* plane = planes + (long long)o[0] * rows * cols;
+    int op, ox, oy;
+    qpel_origin(origins, s, n, op, ox, oy);
+    const int y = oy - 1 + (t / tiles_x) * T + r;
+    const int x = ((ox - 1) & ~7) + (t % tiles_x) * T + 8 * ch;
+    const int16_t* plane = planes + (long long)op * rows * cols;
     int16_t* dst = &sm.win[b][r][8 * ch];
     if (aligned && y >= 0 && y < rows && x >= 0 && x + 8 <= cols) {
       cp_async16(dst, plane + (long long)y * cols + x);
@@ -539,8 +609,9 @@ mc_qpel_kernel(const int16_t* __restrict__ planes, int rows, int cols,
     const int b = e / (kRows * kGroups);
     const int r = (e / kGroups) % kRows, g = e % kGroups;
     if (first + b >= n_tiles) continue;
-    const int c0 = ((origins[3 * ((first + b) / per_block) + 1] - 1) & 7)
-                   + 8 * g;
+    int op, ox, oy;
+    qpel_origin(origins, s, (first + b) / per_block, op, ox, oy);
+    const int c0 = ((ox - 1) & 7) + 8 * g;
     int v[16];
 #pragma unroll
     for (int j = 0; j < 16; ++j) v[j] = sm.win[b][r][c0 + j];
@@ -615,8 +686,8 @@ mc_qpel_kernel(const int16_t* __restrict__ planes, int rows, int cols,
 
 template <int T, int NB>
 int launch_qpel(const int16_t* planes, int rows, int cols,
-                const int* origins, long long n, int16_t* out, int s, int bd,
-                cudaStream_t st) {
+                const QpelOrigins& origins, long long n, int16_t* out, int s,
+                int bd, cudaStream_t st) {
   const int tiles_x = s / T;
   const long long n_tiles = n * tiles_x * tiles_x;
   const long long grid = (n_tiles + NB - 1) / NB;
@@ -626,6 +697,68 @@ int launch_qpel(const int16_t* planes, int rows, int cols,
   mc_qpel_kernel<T, NB><<<(unsigned)grid, kQpelThreads, 0, st>>>(
       planes, rows, cols, origins, n_tiles, s, tiles_x, out, aligned, bd);
   return (int)cudaGetLastError();
+}
+
+// the arguments both blocks entries share; no jobs, no fields
+BlocksArgs blocks_args(const void* planes0, const void* planes1, int rows,
+                       int cols, int pair_off0, int pair_off1, long long n,
+                       void* out, int h, int w, int cs, int n_out_planes,
+                       int mode, int bd) {
+  BlocksArgs a{};
+  a.planes[0] = static_cast<const int16_t*>(planes0);
+  a.planes[1] = static_cast<const int16_t*>(planes1);
+  a.out = static_cast<int16_t*>(out);
+  a.n = n;
+  a.rows = rows;
+  a.cols = cols;
+  a.h = h;
+  a.w = w;
+  a.cs = cs;
+  a.n_out_planes = n_out_planes;
+  a.mode = mode;
+  a.bd = bd;
+  a.pair_off[0] = pair_off0;
+  a.pair_off[1] = pair_off1;
+  for (int l = 0; l < 2; ++l) {
+    a.aligned[l] = (reinterpret_cast<uintptr_t>(a.planes[l]) & 15) == 0
+                   && cols % 8 == 0;
+  }
+  a.vec = w % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  return a;
+}
+
+// the blocks kernel instance of a call's size and component
+int dispatch_blocks(const BlocksArgs& a, int luma, cudaStream_t st) {
+  const int s = a.h == a.w ? a.h : 0;
+  if (luma) {
+    switch (s) {
+      case 64: return launch_blocks<8, 64, 32, 1>(a, st);
+      case 32: return launch_blocks<8, 32, 32, 2>(a, st);
+      case 16: return launch_blocks<8, 16, 16, 8>(a, st);
+      case 8: return launch_blocks<8, 8, 8, 16>(a, st);
+      default: return launch_blocks<8, 0, 64, 1>(a, st);
+    }
+  }
+  switch (s) {
+    case 32: return launch_blocks<4, 32, 32, 2>(a, st);
+    case 16: return launch_blocks<4, 16, 16, 8>(a, st);
+    case 8: return launch_blocks<4, 8, 8, 16>(a, st);
+    case 4: return launch_blocks<4, 4, 4, 32>(a, st);
+    default: return launch_blocks<4, 0, 64, 1>(a, st);
+  }
+}
+
+// the quarter-pel kernel instance of a block size
+int dispatch_qpel(const int16_t* p, int rows, int cols,
+                  const QpelOrigins& o, long long n, int16_t* d, int s,
+                  int bd, cudaStream_t st) {
+  switch (s) {
+    case 8: return launch_qpel<8, 8>(p, rows, cols, o, n, d, s, bd, st);
+    case 16: return launch_qpel<16, 2>(p, rows, cols, o, n, d, s, bd, st);
+    case 32: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
+    case 64: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -667,46 +800,47 @@ extern "C" int thevc_mc_blocks(const void* planes0, const void* planes1,
       || n_out_planes > 2 || mode < kPixels || mode > kAvg) {
     return (int)cudaErrorInvalidValue;
   }
-  BlocksArgs a;
-  a.planes[0] = static_cast<const int16_t*>(planes0);
-  a.planes[1] = static_cast<const int16_t*>(planes1);
+  BlocksArgs a = blocks_args(planes0, planes1, rows, cols, pair_off0,
+                             pair_off1, n, out, h, w, cs, n_out_planes, mode,
+                             bd);
   a.jobs[0] = static_cast<const int*>(jobs0);
   a.jobs[1] = static_cast<const int*>(jobs1);
-  a.out = static_cast<int16_t*>(out);
-  a.n = n;
-  a.rows = rows;
-  a.cols = cols;
-  a.h = h;
-  a.w = w;
-  a.cs = cs;
-  a.n_out_planes = n_out_planes;
-  a.mode = mode;
-  a.bd = bd;
-  a.pair_off[0] = pair_off0;
-  a.pair_off[1] = pair_off1;
-  for (int l = 0; l < 2; ++l) {
-    a.aligned[l] = (reinterpret_cast<uintptr_t>(a.planes[l]) & 15) == 0
-                   && cols % 8 == 0;
+  return dispatch_blocks(a, luma, static_cast<cudaStream_t>(stream));
+}
+
+// jobs derived from MV fields (BlocksArgs fref, fmvx, fmvy): per list the
+// references and quarter-pel MVs ref / mvx / mvy, int32 [n] each, of n
+// blocks of size x size on a grid nbx blocks wide, planes padded by pad
+// (the first tap sample of block (i, j) at MV 0 is (i size + pad - taps /
+// 2 + 1, j size + pad - taps / 2 + 1)); the 2-D case at every phase; the
+// rest as thevc_mc_blocks.
+extern "C" int thevc_mc_blocks_fields(
+    const void* planes0, const void* planes1, int rows, int cols,
+    int pair_off0, int pair_off1, const void* ref0, const void* mvx0,
+    const void* mvy0, const void* ref1, const void* mvx1, const void* mvy1,
+    long long n, int nbx, int pad, void* out, int size, int luma,
+    int n_out_planes, int mode, int bd, void* stream) {
+  if (n <= 0) return 0;
+  if (size < 1 || size > 64 || nbx < 1 || n % nbx || bd < 8 || bd > 12
+      || rows < 1 || cols < 1 || n_out_planes < 1 || n_out_planes > 2
+      || mode < kPixels || mode > kAvg || !ref0 || !mvx0 || !mvy0
+      || (mode == kAvg && (!ref1 || !mvx1 || !mvy1))) {
+    return (int)cudaErrorInvalidValue;
   }
-  a.vec = w % 8 == 0 && (reinterpret_cast<uintptr_t>(out) & 15) == 0;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int s = h == w ? h : 0;
-  if (luma) {
-    switch (s) {
-      case 64: return launch_blocks<8, 64, 32, 1>(a, st);
-      case 32: return launch_blocks<8, 32, 32, 2>(a, st);
-      case 16: return launch_blocks<8, 16, 16, 8>(a, st);
-      case 8: return launch_blocks<8, 8, 8, 16>(a, st);
-      default: return launch_blocks<8, 0, 64, 1>(a, st);
-    }
-  }
-  switch (s) {
-    case 32: return launch_blocks<4, 32, 32, 2>(a, st);
-    case 16: return launch_blocks<4, 16, 16, 8>(a, st);
-    case 8: return launch_blocks<4, 8, 8, 16>(a, st);
-    case 4: return launch_blocks<4, 4, 4, 32>(a, st);
-    default: return launch_blocks<4, 0, 64, 1>(a, st);
-  }
+  BlocksArgs a = blocks_args(planes0, planes1, rows, cols, pair_off0,
+                             pair_off1, n, out, size, size, k2d,
+                             n_out_planes, mode, bd);
+  a.fref[0] = static_cast<const int*>(ref0);
+  a.fmvx[0] = static_cast<const int*>(mvx0);
+  a.fmvy[0] = static_cast<const int*>(mvy0);
+  a.fref[1] = static_cast<const int*>(ref1);
+  a.fmvx[1] = static_cast<const int*>(mvx1);
+  a.fmvy[1] = static_cast<const int*>(mvy1);
+  a.fnbx = nbx;
+  a.fshift = luma ? 2 : 3;
+  a.fmask = luma ? 3 : 7;
+  a.foff = pad - (luma ? 3 : 1);
+  return dispatch_blocks(a, luma, static_cast<cudaStream_t>(stream));
 }
 
 // planes: int16 [P, rows, cols]; origins: int32 [n, 3] of (plane, window
@@ -720,17 +854,34 @@ extern "C" int thevc_mc_qpel(const void* planes, int rows, int cols,
       || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  const int16_t* p = static_cast<const int16_t*>(planes);
-  const int* o = static_cast<const int*>(origins);
-  int16_t* d = static_cast<int16_t*>(out);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (s) {
-    case 8: return launch_qpel<8, 8>(p, rows, cols, o, n, d, s, bd, st);
-    case 16: return launch_qpel<16, 2>(p, rows, cols, o, n, d, s, bd, st);
-    case 32: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
-    case 64: return launch_qpel<32, 1>(p, rows, cols, o, n, d, s, bd, st);
-    default: return (int)cudaErrorInvalidValue;
+  QpelOrigins o{static_cast<const int*>(origins), nullptr, nullptr,
+                nullptr, 0, 0};
+  return dispatch_qpel(static_cast<const int16_t*>(planes), rows, cols, o,
+                       n, static_cast<int16_t*>(out), s, bd,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// ref, mx, my: int64 [n] each, the references and integer MVs (full pel)
+// of n blocks of s x s on a grid nbx blocks wide, planes padded by pad:
+// block (i, j)'s origin is (ref, j s + mx + pad - 3, i s + my + pad - 3);
+// the rest as thevc_mc_qpel.
+extern "C" int thevc_mc_qpel_fields(const void* planes, int rows, int cols,
+                                    const void* ref, const void* mx,
+                                    const void* my, long long n, int nbx,
+                                    int pad, void* out, int s, int bd,
+                                    void* stream) {
+  if (n <= 0) return 0;
+  if (bd < 8 || bd > 12 || rows < 1 || cols < 1 || nbx < 1 || n % nbx
+      || !ref || !mx || !my
+      || (reinterpret_cast<uintptr_t>(out) & 15) != 0) {
+    return (int)cudaErrorInvalidValue;
   }
+  QpelOrigins o{nullptr, static_cast<const long long*>(ref),
+                static_cast<const long long*>(mx),
+                static_cast<const long long*>(my), nbx, pad - 3};
+  return dispatch_qpel(static_cast<const int16_t*>(planes), rows, cols, o,
+                       n, static_cast<int16_t*>(out), s, bd,
+                       static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* thevc_error_string(int code) {

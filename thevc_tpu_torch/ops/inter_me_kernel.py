@@ -15,16 +15,26 @@ Three kernels, one entry each, one a stage of ``encoder/fast_inter.py``:
   sum and the 3-candidate merge/skip model of one size class -> (rd, mvx,
   mvy, ref).  It replaces ``fast_inter.py:367-428``; its interpolation is
   the MC kernel's (``csrc/mc_common.cuh``).
+- ``qpel_pick`` (``thevc_qpel_pick``, kernel D): the quarter-pel
+  candidates' MV prior, costs and first minimum of one size class, after
+  K2's SATD -> the winner's quarter-pel MV and reference.  It replaces
+  ``fast_inter.py:280-314``.
+- ``bi_pick`` (``thevc_bi_pick``, kernel E): one launch a B frame over
+  every inter size class, the bi stage's MV bits and RD sum and the
+  L0/L1/BI direction -> (rd, dir) of each class's inter leaves.  It
+  replaces ``fast_inter.py:507-526`` and ``:649-651``.
 
 What bounds each on the card and how its design meets it are in the
 source's header comment.  Their plain PyTorch forms are
-``encoder.fast_inter.coarse_fields_plain``, ``int_refine_plain`` and
-``merge_model_plain``; every output equals them bit for bit.
+``encoder.fast_inter.coarse_fields_plain``, ``int_refine_plain``,
+``merge_model_plain``, ``qpel_pick_plain`` and ``bi_pick_plain``; every
+output equals them bit for bit.
 
 The kernels are compiled with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops.build``).  Every entry checks its inputs and raises
 before anything is built (``check_coarse``, ``check_refine``,
-``check_merge``); nothing here runs when the module is imported.
+``check_merge``, ``check_qpel_pick``, ``check_bi_pick``); nothing here
+runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -52,13 +62,35 @@ _ENTRIES = {
     "thevc_merge_model": [_P, _P, _P, _I, _I, _P, _I, _I, _I, _P, _I, _I,
                           _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _P, _P],
+    "thevc_qpel_pick": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "thevc_bi_pick": [_P, _P],
 }
+# the bi stage's inputs a class: each list's leaf (rd, mvx, mvy, ref), then
+# the bi prediction's transform-RD estimates; its outputs
+BI_LEAF = ("rd", "mvx", "mvy", "ref")
+BI_TERMS = ("d_y", "b_y", "d_cb", "b_cb", "d_cr", "b_cr")
+
+
+class _BiClass(ctypes.Structure):
+    _fields_ = ([(f"{n}{k}", _P) for k in (0, 1) for n in BI_LEAF]
+                + [(n, _P) for n in BI_TERMS + ("rd", "dir")]
+                + [("nb", _I), ("size", _I), ("first", _I)])
+
+
+class BiArgs(ctypes.Structure):
+    """``BiArgs`` of ``csrc/inter_me.cu``: the class table (8 first;
+    ``first`` is set by the entry), lambda, the chroma weight and the
+    class count."""
+    _fields_ = [("cls", _BiClass * 4), ("lam", _P), ("cw", _P),
+                ("classes", _I)]
 
 # kernel launches made by each entry; plain integers that a run resets and
 # reads to show that its main path went through the kernels
 coarse_launches = 0
 refine_launches = 0
 merge_launches = 0
+pick_launches = 0
+bi_launches = 0
 
 
 def build() -> ctypes.CDLL:
@@ -310,3 +342,133 @@ def merge_model(orgs: tuple, refs_y: torch.Tensor, refs_c: torch.Tensor,
     _build.check(lib, rc, "merge model kernel launch")
     merge_launches += 1
     return out[0].view(torch.float32), out[1], out[2], out[3]
+
+
+def check_qpel_pick(satd: torch.Tensor, coarse: tuple,
+                    int_mx: torch.Tensor, int_my: torch.Tensor,
+                    sqrt_lam: torch.Tensor) -> None:
+    """Raise on any input the quarter-pel pick does not take (but a
+    device that is not CUDA): K2's SATD int32 [nb, 49], the coarse field
+    (dy, dx, ref) int64 [nby, nbx] each, the integer winner int64 [nb]
+    each, nb = nby * nbx, contiguous; sqrt-lambda one float32."""
+    if len(coarse) != 3:
+        raise ValueError("coarse must be (dy, dx, ref)")
+    if coarse[0].dim() != 2:
+        raise ValueError(f"the coarse field must be [nby, nbx], got "
+                         f"{tuple(coarse[0].shape)}")
+    nby, nbx = (int(v) for v in coarse[0].shape)
+    if nby <= 0 or nbx <= 0:
+        raise ValueError(f"block grid {nby}x{nbx} is empty")
+    dev = satd.device
+    nb = nby * nbx
+    _build.check_tensor(satd, "satd", torch.int32, (nb, 49), dev)
+    for name, t in zip(("dy", "dx", "ref"), coarse):
+        _build.check_tensor(t, f"coarse {name}", torch.int64, (nby, nbx),
+                            dev)
+    for name, t in (("int_mx", int_mx), ("int_my", int_my)):
+        _build.check_tensor(t, name, torch.int64, (nb,), dev)
+    _check_scalar(sqrt_lam, "sqrt_lam", dev)
+
+
+def qpel_pick(satd: torch.Tensor, coarse: tuple, int_mx: torch.Tensor,
+              int_my: torch.Tensor, sqrt_lam: torch.Tensor) -> tuple:
+    """Launch the quarter-pel pick of one size class: K2's SATD of the 49
+    candidates, the class's coarse field (dy, dx, ref; full pel), the
+    integer winner (full pel) and the motion sqrt-lambda (a float32 on the
+    card) -> (mv_qx, mv_qy (quarter pel), ref), int32 [nb] each: views of
+    one int32 [3, nb] buffer."""
+    global pick_launches
+    _check_cuda(satd, "satd")
+    check_qpel_pick(satd, coarse, int_mx, int_my, sqrt_lam)
+    nby, nbx = (int(v) for v in coarse[0].shape)
+    dev = satd.device
+    out = torch.empty((3, nby * nbx), dtype=torch.int32, device=dev)
+    c_dy, c_dx, c_ref = coarse
+    lib = build()
+    with _on(dev):
+        rc = lib.thevc_qpel_pick(
+            satd.data_ptr(), c_dy.data_ptr(), c_dx.data_ptr(),
+            c_ref.data_ptr(), int_mx.data_ptr(), int_my.data_ptr(),
+            sqrt_lam.data_ptr(), nby, nbx, out.data_ptr(),
+            _build.stream_of(dev))
+    _build.check(lib, rc, "quarter-pel pick kernel launch")
+    pick_launches += 1
+    return out[0], out[1], out[2]
+
+
+def check_bi_pick(classes: dict, lam: torch.Tensor, cw: torch.Tensor,
+                  ctu_size: int) -> None:
+    """Raise on any input the bi stage's pick does not take (but a device
+    that is not CUDA): ``classes[s]`` for each inter size s of 8..64 up
+    to the CTU (and none above it) holds (leaf0, leaf1, terms): each
+    list's (rd float32, mvx, mvy, ref int32) [nby, nbx] (the merge
+    model's) and the bi prediction's (d_y, b_y, d_cb, b_cb, d_cr, b_cr)
+    (int32 dist, float32 bits) [nby * nbx], contiguous; lambda and the
+    chroma weight one float32 each."""
+    want = [s for s in SIZES if s <= ctu_size]
+    if not want or sorted(classes) != want:
+        raise ValueError(f"inter classes {sorted(classes)}: expected "
+                         f"{want} for a CTU of {ctu_size}")
+    dev = lam.device
+    for s, (leaf0, leaf1, terms) in classes.items():
+        if len(leaf0) != 4 or len(leaf1) != 4 or len(terms) != 6:
+            raise ValueError(f"class {s}: each leaf is (rd, mvx, mvy, ref) "
+                             "and the terms (d_y, b_y, d_cb, b_cb, d_cr, "
+                             "b_cr)")
+        if leaf0[0].dim() != 2:
+            raise ValueError(f"class {s}: a leaf's rd must be [nby, nbx], "
+                             f"got {tuple(leaf0[0].shape)}")
+        shape = tuple(int(v) for v in leaf0[0].shape)
+        for k, leaf in enumerate((leaf0, leaf1)):
+            for name, t in zip(BI_LEAF, leaf):
+                _build.check_tensor(t, f"class {s} list {k} {name}",
+                                    torch.float32 if name == "rd"
+                                    else torch.int32, shape, dev)
+        for k, (name, t) in enumerate(zip(BI_TERMS, terms)):
+            _build.check_tensor(t, f"class {s} {name}",
+                                torch.float32 if k % 2 else torch.int32,
+                                (shape[0] * shape[1],), dev)
+    _check_scalar(lam, "lam", dev)
+    _check_scalar(cw, "cw", dev)
+
+
+def bi_pick(classes: dict, lam: torch.Tensor, cw: torch.Tensor,
+            ctu_size: int) -> dict:
+    """Launch the bi stage's pick once over every inter size class
+    (``check_bi_pick``'s ``classes``) with lambda and the chroma weight
+    (float32 on the card) -> {s: (rd float32, dir int32)}, [nby, nbx]
+    each: rd the least of the two lists' and the bi prediction's RD cost,
+    dir 3 (bi), else 1 (L0), else 2 (L1), the inter leaves' rd and dir
+    that the DP kernel reads; views of one int32 buffer, per class rd's
+    float32 bits, then dir."""
+    global bi_launches
+    _check_cuda(lam, "lam")
+    check_bi_pick(classes, lam, cw, ctu_size)
+    dev = lam.device
+    sizes = sorted(classes)
+    shapes = [tuple(classes[s][0][0].shape) for s in sizes]
+    nbs = [a * b for a, b in shapes]
+    flat = torch.empty(2 * sum(nbs), dtype=torch.int32, device=dev)
+    a = BiArgs()
+    out, at = {}, 0
+    for k, (s, shape, nb) in enumerate(zip(sizes, shapes, nbs)):
+        rd = flat[at:at + nb].view(torch.float32).view(shape)
+        direc = flat[at + nb:at + 2 * nb].view(shape)
+        at += 2 * nb
+        out[s] = (rd, direc)
+        leaf0, leaf1, terms = classes[s]
+        c = a.cls[k]
+        for j, leaf in enumerate((leaf0, leaf1)):
+            for name, t in zip(BI_LEAF, leaf):
+                setattr(c, f"{name}{j}", t.data_ptr())
+        for name, t in zip(BI_TERMS, terms):
+            setattr(c, name, t.data_ptr())
+        c.rd, c.dir = rd.data_ptr(), direc.data_ptr()
+        c.nb, c.size = nb, s
+    a.lam, a.cw, a.classes = lam.data_ptr(), cw.data_ptr(), len(sizes)
+    lib = build()
+    with _on(dev):
+        rc = lib.thevc_bi_pick(ctypes.addressof(a), _build.stream_of(dev))
+    _build.check(lib, rc, "bi pick kernel launch")
+    bi_launches += 1
+    return out

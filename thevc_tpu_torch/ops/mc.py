@@ -18,12 +18,17 @@ Three entries serve the codec, named after the hand-written kernel's
   tensor, for the encoder's P/B decision pass (Cb and Cr of the same
   jobs in one call, and a bi-prediction's two lists averaged in it);
 - ``mc_qpel``: the 49 quarter-pel candidates of N blocks of one size
-  from a stacked plane tensor, for that pass's quarter-pel refine.
+  from a stacked plane tensor, for that pass's quarter-pel refine;
+- ``mc_blocks_fields`` and ``mc_qpel_fields``: the same two on the
+  blocks of a size class's grid at their MVs, each block's job or origin
+  derived from its MV (``field_jobs``, ``qpel_origins``), for the P/B
+  pass, which so builds no job table on the card.
 
 Each dispatches on the device of its planes: a CUDA tensor launches the
 kernel (and raises if it cannot launch), a CPU tensor runs the plain
 version in this module (``mc_picture_plain``, ``mc_blocks_plain``,
-``mc_qpel_plain``), built from the per-class functions below.  The plain
+``mc_qpel_plain``, ``mc_blocks_fields_plain``, ``mc_qpel_fields_plain``),
+built from the per-class functions below.  The plain
 versions run on the card too, where the tests and ``chip_smoke.py`` hold
 the kernel against them.  In the plain form the tap vector is gathered per PU
 (``coeff[frac]``), an int32 multiply and sum.
@@ -384,6 +389,61 @@ def mc_blocks(planes: torch.Tensor, jobs: torch.Tensor, case: str,
                             pair=pair, planes1=planes1, jobs1=jobs1)
 
 
+def field_jobs(fields: tuple, size: int, nbx: int, pad: int,
+               luma: bool) -> torch.Tensor:
+    """The ``mc_blocks`` job table of blocks on a grid: (ref, mvx, mvy)
+    integer [n] each (quarter pel), block k at row k // nbx and column k %
+    nbx of size x size blocks over planes padded by ``pad`` -> jobs [n, 5]
+    of the fields' dtype: luma (the 8-tap filter, quarter-pel phases)
+    (ref, column * size + (mvx >> 2) + pad - 3, row * size + (mvy >> 2) +
+    pad - 3, mvx & 3, mvy & 3); chroma (4 taps, eighth-pel phases) the
+    same with >> 3, pad - 1 and & 7 (``encoder.fast_inter._luma_jobs``,
+    ``_chroma_jobs``)."""
+    ref, mvx, mvy = fields
+    k = torch.arange(int(ref.shape[0]), device=ref.device, dtype=ref.dtype)
+    by, bx = k // nbx * size, k % nbx * size
+    sh, mask, off = (2, 3, pad - 3) if luma else (3, 7, pad - 1)
+    return torch.stack([ref, bx + (mvx >> sh) + off, by + (mvy >> sh) + off,
+                        mvx & mask, mvy & mask], dim=1)
+
+
+def mc_blocks_fields_plain(planes: torch.Tensor, fields: tuple, size: int,
+                           nbx: int, pad: int, luma: bool, bd: int,
+                           bi: bool, *, pair: bool = False,
+                           planes1: torch.Tensor | None = None,
+                           fields1: tuple | None = None) -> torch.Tensor:
+    """The plain version of the blocks kernel's field entry, on any
+    device: each list's job table (``field_jobs``) through
+    ``mc_blocks_plain`` in the 2-D case."""
+    jobs1 = None if fields1 is None else field_jobs(fields1, size, nbx, pad,
+                                                    luma)
+    return mc_blocks_plain(planes, field_jobs(fields, size, nbx, pad, luma),
+                           "2d", luma, bd, bi, size, size, pair=pair,
+                           planes1=planes1, jobs1=jobs1)
+
+
+def mc_blocks_fields(planes: torch.Tensor, fields: tuple, size: int,
+                     nbx: int, pad: int, luma: bool, bd: int, bi: bool, *,
+                     pair: bool = False, planes1: torch.Tensor | None = None,
+                     fields1: tuple | None = None) -> torch.Tensor:
+    """``mc_blocks`` of the blocks of a grid at their MVs, in the 2-D case
+    (a zero phase on the identity tap row): (ref, mvx, mvy) [n] each, the
+    rest as ``field_jobs`` and ``mc_blocks`` -> int16 [n, size, size] (or
+    [2, n, size, size] with ``pair``).  On a CUDA device one launch of the
+    blocks kernel's field entry, which derives each job in the kernel (the
+    fields int32; raises if it cannot launch); on the CPU the plain
+    version."""
+    if planes.device.type == "cpu":
+        return mc_blocks_fields_plain(planes, fields, size, nbx, pad, luma,
+                                      bd, bi, pair=pair, planes1=planes1,
+                                      fields1=fields1)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    return mc_kernel.blocks_fields(planes, fields, size, nbx, pad, luma, bd,
+                                   bi, pair=pair, planes1=planes1,
+                                   fields1=fields1)
+
+
 # per quarter-pel candidate k = (qdy + 3) * 7 + qdx + 3: integer row
 # offset, fy, integer column offset, fx (an offset q is 4 * (q >> 2) +
 # (q & 3))
@@ -429,3 +489,37 @@ def mc_qpel(planes: torch.Tensor, origins: torch.Tensor, s: int,
         raise ValueError(f"unsupported device {planes.device}")
     return mc_kernel.qpel(planes.to(torch.int16).contiguous(),
                           origins.to(torch.int32).contiguous(), s, bd)
+
+
+def qpel_origins(fields: tuple, s: int, nbx: int, pad: int) -> torch.Tensor:
+    """The quarter-pel entry's origins of blocks on a grid: (ref, int_mx,
+    int_my) integer [n] each (full pel), block k at row k // nbx and
+    column k % nbx of s x s blocks over planes padded by ``pad`` -> [n, 3]
+    of (ref, column * s + int_mx + pad - 3, row * s + int_my + pad - 3)
+    (``encoder.fast_inter._qpel_preds``)."""
+    ref, mx, my = fields
+    k = torch.arange(int(ref.shape[0]), device=ref.device, dtype=ref.dtype)
+    return torch.stack([ref, k % nbx * s + mx + (pad - 3),
+                        k // nbx * s + my + (pad - 3)], dim=1)
+
+
+def mc_qpel_fields_plain(planes: torch.Tensor, fields: tuple, s: int,
+                         nbx: int, pad: int, bd: int) -> torch.Tensor:
+    """The plain version of the quarter-pel kernel's field entry, on any
+    device: the origins (``qpel_origins``) through ``mc_qpel_plain``."""
+    return mc_qpel_plain(planes, qpel_origins(fields, s, nbx, pad), s, bd)
+
+
+def mc_qpel_fields(planes: torch.Tensor, fields: tuple, s: int, nbx: int,
+                   pad: int, bd: int) -> torch.Tensor:
+    """``mc_qpel`` of the blocks of a grid at their integer MVs: (ref,
+    int_mx, int_my) [n] each, the rest as ``qpel_origins`` and
+    ``mc_qpel`` -> int16 pixels [n, 49, s, s].  On a CUDA device one
+    launch of the quarter-pel kernel's field entry, which derives each
+    origin in the kernel (the fields int64; raises if it cannot launch);
+    on the CPU the plain version."""
+    if planes.device.type == "cpu":
+        return mc_qpel_fields_plain(planes, fields, s, nbx, pad, bd)
+    if planes.device.type != "cuda":
+        raise ValueError(f"unsupported device {planes.device}")
+    return mc_kernel.qpel_fields(planes, fields, s, nbx, pad, bd)

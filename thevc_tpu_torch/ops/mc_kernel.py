@@ -5,14 +5,18 @@ Replaces the XLA functions ``thevc_tpu/ops/jx_mc.py:mc_batch`` (:77) and
 ``bi_avg_batch`` (:107), and the weighted paths of the JAX decoder's
 ``precompute_device`` (``thevc_tpu/decoder/inter.py:121-221``).  Three
 entries: ``picture`` predicts every inter PU of a picture in one launch
-(the decode), ``blocks`` predicts N blocks of one size and case (the P/B
-fast-RD pass's winners: Cb and Cr in one launch, and a bi-prediction's
-two lists averaged in the kernel), ``qpel`` the 49 quarter-pel
-candidates of N blocks of one size (the P/B pass's quarter-pel refine).
+(the decode), ``blocks`` predicts N blocks of one size and case (Cb and
+Cr in one launch, and a bi-prediction's two lists averaged in the
+kernel), ``qpel`` the 49 quarter-pel candidates of N blocks of one size.
+``blocks_fields`` and ``qpel_fields`` launch the same two kernels with
+each block's job derived in the kernel from its MV and reference on a
+size class's block grid: the P/B fast-RD pass's winners and quarter-pel
+refine, with no job table built.
 The design notes and what bounds the kernel on the card are in the
 source's header comment.  Their plain PyTorch versions are
 ``ops.mc.mc_picture_plain``, ``ops.mc.mc_blocks_plain`` and
-``ops.mc.mc_qpel_plain``.
+``ops.mc.mc_qpel_plain``, and for the field entries
+``ops.mc.mc_blocks_fields_plain`` and ``mc_qpel_fields_plain``.
 
 The kernel is compiled with ``nvcc`` on first use and bound with
 ``ctypes`` (``ops.build``).  Nothing here runs when the module is
@@ -36,7 +40,13 @@ _ENTRIES = {"thevc_mc_picture": [_P, _I, _I, _I, _I, _P, _I, _P],
                                 ctypes.c_longlong, _P, _I, _I, _I, _I, _I,
                                 _I, _I, _P],
             "thevc_mc_qpel": [_P, _I, _I, _P, ctypes.c_longlong, _P, _I, _I,
-                              _P]}
+                              _P],
+            "thevc_mc_blocks_fields": [_P, _P, _I, _I, _I, _I, _P, _P, _P,
+                                       _P, _P, _P, ctypes.c_longlong, _I, _I,
+                                       _P, _I, _I, _I, _I, _I, _P],
+            "thevc_mc_qpel_fields": [_P, _I, _I, _P, _P, _P,
+                                     ctypes.c_longlong, _I, _I, _P, _I, _I,
+                                     _P]}
 BLOCK_JOB_COLS = 5   # blocks(): (plane, window x, window y, fx, fy)
 QPEL_SIZES = (8, 16, 32, 64)   # qpel(): block sizes
 QPEL_CANDIDATES = 49           # qpel(): the 7x7 quarter-pel offsets
@@ -69,11 +79,16 @@ PICTURE_WARP_SAMPLES = 3360
 PIXELS, BITS14, AVERAGE = range(3)
 
 # kernel launches made by picture(), by blocks() and by qpel(), one count
-# an entry; plain integers that a run resets and reads to show that its
-# main path went through the kernel
+# a kernel; plain integers that a run resets and reads to show that its
+# main path went through the kernel.  The field entries launch the blocks
+# and quarter-pel kernels: blocks_fields() and qpel_fields() add to those
+# counts and to their own, so that a run can show that it built no job
+# table
 launches = 0
 blocks_launches = 0
 qpel_launches = 0
+blocks_field_launches = 0
+qpel_field_launches = 0
 
 
 def build() -> ctypes.CDLL:
@@ -316,4 +331,152 @@ def qpel(planes: torch.Tensor, origins: torch.Tensor, s: int,
                                _build.stream_of(device))
     _build.check(lib, rc, "MC quarter-pel kernel launch")
     qpel_launches += 1
+    return out
+
+
+def _check_fields(fields: tuple, name: str, dtype: torch.dtype, n: int,
+                  device) -> None:
+    """(ref, mvx, mvy) of n blocks: contiguous [n] of dtype each."""
+    if len(fields) != 3:
+        raise ValueError(f"{name} must be (ref, mvx, mvy)")
+    for k, t in zip(("ref", "mvx", "mvy"), fields):
+        _build.check_tensor(t, f"{name} {k}", dtype, (n,), device)
+
+
+def check_fields(planes: torch.Tensor, fields: tuple, size: int, nbx: int,
+                 pad: int, luma: bool, bd: int, *, pair: bool = False,
+                 planes1: torch.Tensor | None = None,
+                 fields1: tuple | None = None) -> None:
+    """Raise on any input the blocks field entry does not take (but a
+    device that is not CUDA): the planes int16 [P, rows, cols] (P even
+    with ``pair``), per list (ref, mvx, mvy) int32 [n] each on the planes'
+    device, contiguous, n a whole grid nbx blocks wide of size x size
+    blocks (8..64 luma, 4..32 chroma), a padding the window offset keeps
+    in the plane, bit depth 8..12."""
+    device = planes.device
+    _check_bd(bd)
+    sizes = (8, 16, 32, 64) if luma else (4, 8, 16, 32)
+    if size not in sizes:
+        raise ValueError(f"block size {size} not in {sizes}")
+    if (planes1 is None) != (fields1 is None):
+        raise ValueError("a second list takes planes1 and fields1")
+    if not 1 <= pad < 1 << 16:
+        raise ValueError(f"padding {pad} out of 1..65535")
+    if len(fields) != 3:
+        raise ValueError("fields must be (ref, mvx, mvy)")
+    n = int(fields[0].shape[0]) if fields[0].dim() == 1 else -1
+    if nbx < 1 or n < 0 or n % nbx:
+        raise ValueError(f"{n} blocks are not a grid {nbx} blocks wide")
+    lists = [(planes, fields)] + ([(planes1, fields1)] if fields1 is not None
+                                  else [])
+    for k, (p, f) in enumerate(lists):
+        if p.dim() != 3 or p.shape[1:] != planes.shape[1:] \
+                or (pair and p.shape[0] % 2):
+            raise ValueError(f"planes of list {k} must be [P, rows, cols]"
+                             f"{' with P even' if pair else ''}, got "
+                             f"{tuple(p.shape)}")
+        _build.check_tensor(p, f"planes of list {k}", torch.int16,
+                            tuple(p.shape), device)
+        _check_fields(f, f"fields of list {k}", torch.int32, n, device)
+
+
+def blocks_fields(planes: torch.Tensor, fields: tuple, size: int, nbx: int,
+                  pad: int, luma: bool, bd: int, bi: bool, *,
+                  pair: bool = False, planes1: torch.Tensor | None = None,
+                  fields1: tuple | None = None) -> torch.Tensor:
+    """Launch the blocks kernel on MV fields: per list each block's (ref,
+    mvx, mvy), int32 [n] (quarter pel), block k at row k // nbx and column
+    k % nbx of a grid of size x size blocks over planes padded by ``pad``
+    (luma: the 8-tap filter at quarter-pel phases, window at (column *
+    size + (mvx >> 2) + pad - 3, ...); chroma: 4 taps at eighth-pel
+    phases, (mvx >> 3) + pad - 1) -> int16 [n, size, size] in pixels, at
+    14 bits with ``bi``; ``pair`` and ``planes1`` / ``fields1`` as in
+    ``blocks``.  Launches on the current stream without synchronising;
+    raises on any input the kernel does not take and on a launch error."""
+    global blocks_launches, blocks_field_launches
+    device = planes.device
+    if device.type != "cuda":
+        raise ValueError(f"the MC kernel takes CUDA tensors, got {device}")
+    check_fields(planes, fields, size, nbx, pad, luma, bd, pair=pair,
+                 planes1=planes1, fields1=fields1)
+    if fields1 is not None and not bi:
+        raise ValueError("a second list averages at 14 bits: pass bi")
+    n = int(fields[0].shape[0])
+    (p0, f0) = (planes, fields)
+    (p1, f1) = (planes1, fields1) if fields1 is not None else (planes,
+                                                               fields)
+    out = torch.empty(((2, n) if pair else (n,)) + (size, size),
+                      dtype=torch.int16, device=device)
+    if n == 0:
+        return out
+    mode = AVERAGE if fields1 is not None else (BITS14 if bi else PIXELS)
+    lib = build()
+    with torch.cuda.device(device):
+        rc = lib.thevc_mc_blocks_fields(
+            p0.data_ptr(), p1.data_ptr(), int(planes.shape[1]),
+            int(planes.shape[2]), int(p0.shape[0]) // 2 if pair else 0,
+            int(p1.shape[0]) // 2 if pair else 0,
+            *(t.data_ptr() for t in f0), *(t.data_ptr() for t in f1), n,
+            nbx, pad, out.data_ptr(), size, int(luma), 2 if pair else 1,
+            mode, bd, _build.stream_of(device))
+    _build.check(lib, rc, "MC blocks kernel launch (fields)")
+    blocks_launches += 1
+    blocks_field_launches += 1
+    return out
+
+
+def check_qpel_fields(planes: torch.Tensor, fields: tuple, s: int,
+                      nbx: int, pad: int, bd: int) -> None:
+    """Raise on any input the quarter-pel field entry does not take (but
+    a device that is not CUDA): the planes int16 [P, rows, cols],
+    contiguous; (ref, int_mx, int_my) int64 [n] each (the coarse search's
+    reference and the refinement's winner, full pel) on their device, n a
+    whole grid nbx blocks wide; s in QPEL_SIZES; bit depth 8..12."""
+    if s not in QPEL_SIZES:
+        raise ValueError(f"quarter-pel block size {s} not in {QPEL_SIZES}")
+    _check_bd(bd)
+    if planes.dim() != 3:
+        raise ValueError(f"planes must be [P, rows, cols], got "
+                         f"{tuple(planes.shape)}")
+    _build.check_tensor(planes, "planes", torch.int16, tuple(planes.shape),
+                        planes.device)
+    if not 3 <= pad < 1 << 16:
+        raise ValueError(f"padding {pad} out of 3..65535")
+    if len(fields) != 3:
+        raise ValueError("fields must be (ref, int_mx, int_my)")
+    n = int(fields[0].shape[0]) if fields[0].dim() == 1 else -1
+    if nbx < 1 or n < 0 or n % nbx:
+        raise ValueError(f"{n} blocks are not a grid {nbx} blocks wide")
+    _check_fields(fields, "fields", torch.int64, n, planes.device)
+
+
+def qpel_fields(planes: torch.Tensor, fields: tuple, s: int, nbx: int,
+                pad: int, bd: int) -> torch.Tensor:
+    """Launch the quarter-pel kernel on MV fields: each block's (ref,
+    int_mx, int_my), int64 [n] (full pel), block k at row k // nbx and
+    column k % nbx of a grid of s x s blocks over planes padded by ``pad``,
+    its candidate (0, 0)'s first tap sample at (column * s + int_mx + pad
+    - 3, row * s + int_my + pad - 3) -> int16 pixels [n, 49, s, s], as
+    ``qpel``.  Launches on the current stream without synchronising;
+    raises ``ValueError`` on any input the kernel does not take and
+    ``RuntimeError`` on a launch error."""
+    global qpel_launches, qpel_field_launches
+    device = planes.device
+    if device.type != "cuda":
+        raise ValueError(f"the MC kernel takes CUDA tensors, got {device}")
+    check_qpel_fields(planes, fields, s, nbx, pad, bd)
+    n = int(fields[0].shape[0])
+    out = torch.empty((n, QPEL_CANDIDATES, s, s), dtype=torch.int16,
+                      device=device)
+    if n == 0:
+        return out
+    lib = build()
+    with torch.cuda.device(device):
+        rc = lib.thevc_mc_qpel_fields(
+            planes.data_ptr(), int(planes.shape[1]), int(planes.shape[2]),
+            *(t.data_ptr() for t in fields), n, nbx, pad, out.data_ptr(), s,
+            bd, _build.stream_of(device))
+    _build.check(lib, rc, "MC quarter-pel kernel launch (fields)")
+    qpel_launches += 1
+    qpel_field_launches += 1
     return out

@@ -1,5 +1,6 @@
-"""The P/B decision pass of one 1080p B frame and its motion-search
-kernels (``csrc/inter_me.cu``), checkout against checkout, on one card:
+"""The P/B decision pass of one 1080p B frame and its motion-search and
+pick kernels (``csrc/inter_me.cu``), checkout against checkout, on one
+card:
 walls, per stage its wall, device time and device activities, and each
 kernel's calls held against their plain forms and timed.
 
@@ -12,9 +13,10 @@ synchronised walls, then one call with stage timing on under
 ``torch.profiler`` (``stage_profile`` of this tool's own
 ``chip_smoke.py``, which charges each device activity to the
 ``fast_inter.*`` stage that launched it).  A checkout whose stages open
-no profiler range gets them here.  Then the frame's 18 motion-search
-kernel calls (2 coarse searches, 8 refinements, 8 merge models), and
-the same frame's as 10 bits (``ten_bit_b_call``), are recorded and held
+no profiler range gets them here.  Then the frame's kernel calls of
+``csrc/inter_me.cu`` (2 coarse searches, 8 refinements, 8 merge models,
+and where the checkout has them 8 quarter-pel picks and one bi pick),
+and the same frame's as 10 bits (``ten_bit_b_call``), are recorded and held
 against their plain forms with this tool's own ``held_inter_me_calls``,
 so that every checkout is timed by the same code (tolerance 0, floats
 bit for bit): each call eager (CUDA events around 20 calls) and as a
